@@ -10,20 +10,33 @@ Phases:
 
 1. Device: name, power limit, torch / CUDA / nvcc versions.
 2. Build: compile the kernels in ``thingino_accel_tpu_torch/csrc/`` with
-   nvcc (timed).
-3. Kernels vs their plain torch versions on the card, at the slice's
-   shapes, NONE and SILU with per-channel scales; median times of both.
-4. The slice: the real-weight ``models/yolov5n_cal_int8.mars`` at 640x640
-   through letterbox -> int8 quantize -> serving engine -> decode -> NMS
+   nvcc, one process per source, all started together (timed).
+3. Kernels vs their plain torch versions on the card at the paths'
+   shapes (NONE and SILU, per-channel scales, residual modes); median
+   CUDA-event times of both.
+4. The main path: the planned serving tier (``Engine(precision=
+   "serving")``) on the real-weight ``models/yolov5n_cal_int8.mars`` at
+   640x640 through letterbox -> int8 quantize -> network -> decode -> NMS
    inside the port's ``StreamServer`` (depth 2), 4 batches of 16 uint8
-   1280x720 frames made from a seed. Checks: no failed batch, launch
-   counts of one launch per conv, finite detections inside the frame; then
-   a teacher-forced per-conv comparison of kernel vs plain on one batch,
-   and of every node of one frame on the card vs the CPU path.
+   1280x720 frames made from a seed, then 12 more batches for steadier
+   numbers. Checks: no failed batch; the launches of each kernel equal 4x
+   its count in the plan's schedule; finite detections inside the frame;
+   every kernel unit of one batch (inputs captured on the card) against its
+   plain version; one frame step by step on the card against the CPU path
+   (the path the tests hold against JAX); decode + NMS on tie-heavy heads.
+   Prints the share of head values where the planned and the unplanned
+   tier differ on the same batch.
+5. The unplanned tier (kept as the tests' oracle), 1 batch: one launch
+   per conv, each conv teacher-forced kernel vs plain, one frame node by
+   node against the CPU.
+6. The zoo yolov5s at 640 (random weights from seed 0), planned, 2
+   batches of 8: one SPPF launch per forward, every unit of one batch
+   against its plain version.
 
-Tolerances (as in ``tests/test_torch_fused_kernels.py``): NONE bit-exact;
-SILU at most 1 quantum on at most 0.1% of the elements (the kernel's
-``expf`` and torch's sigmoid differ by ulps).
+Each path is run with the launch counters set to 0 just before it and
+read just after. Tolerances (as in ``tests/test_torch_fused_kernels.py``):
+NONE/RELU bit-exact; SILU at most 1 quantum on at most 0.1% of the
+elements (the kernel's ``expf`` and torch's sigmoid differ by ulps).
 
 Prints the kernels' JSON line, the card's ``name, power.limit`` line and,
 as the last line, ``{"ok": true, "device": {...}}``. Any failure exits
@@ -43,11 +56,22 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 MODEL = REPO / "models" / "yolov5n_cal_int8.mars"
 BATCHES, BATCH, FRAME_HW = 4, 16, (720, 1280)
+ZOO_BATCHES, ZOO_BATCH = 2, 8
 SILU_MAX_FRAC = 1e-3
 
-# one launch per conv of the real yolov5n: 42 1x1 convs (39 SILU + the 3
-# linear detect heads) and 18 KxK (11 3x3/s1, 6 3x3/s2, the 6x6/s2 stem)
-EXPECTED_PER_FORWARD = {"matmul_int8_fused": 42, "conv2d_int8_halo_fused": 18}
+# the planned real yolov5n: 60 convs in 50 launches (5 stem-stage convs
+# and 20 others on #1/#2, 15 concat consumers on #3, 10 bottleneck pairs
+# on #6); the zoo yolov5s adds the SPPF on #4
+PLANNED_REAL = {"matmul_int8_fused": 17, "conv2d_int8_halo_fused": 8,
+                "matmul_int8_fused_multi": 15, "bottleneck_int8_fused": 10,
+                "sppf_int8_fused": 0}
+PLANNED_ZOO_S = {"matmul_int8_fused": 14, "conv2d_int8_halo_fused": 7,
+                 "matmul_int8_fused_multi": 16, "bottleneck_int8_fused": 11,
+                 "sppf_int8_fused": 1}
+# the unplanned real yolov5n: one launch per conv, 42 1x1 and 18 KxK
+UNPLANNED_REAL = {"matmul_int8_fused": 42, "conv2d_int8_halo_fused": 18,
+                  "matmul_int8_fused_multi": 0, "bottleneck_int8_fused": 0,
+                  "sppf_int8_fused": 0}
 KERNEL_INFO = {
     "matmul_int8_fused": {
         "source": "thingino_accel_tpu_torch/csrc/mm_int8_fused.cu",
@@ -55,7 +79,19 @@ KERNEL_INFO = {
     "conv2d_int8_halo_fused": {
         "source": "thingino_accel_tpu_torch/csrc/conv_int8_fused.cu",
         "replaces": "thingino_accel_tpu/ops/fused_kernels.py:544"},
+    "matmul_int8_fused_multi": {
+        "source": "thingino_accel_tpu_torch/csrc/mm_multi_int8_fused.cu",
+        "replaces": "thingino_accel_tpu/ops/fused_kernels.py:361"},
+    "bottleneck_int8_fused": {
+        "source": "thingino_accel_tpu_torch/csrc/bneck_int8_fused.cu",
+        "replaces": "thingino_accel_tpu/ops/fused_kernels.py:1241"},
+    "sppf_int8_fused": {
+        "source": "thingino_accel_tpu_torch/csrc/sppf_int8_fused.cu",
+        "replaces": "thingino_accel_tpu/ops/fused_kernels.py:698"},
 }
+# the path whose run gives each kernel's launch count
+PATH_OF = {k: "planned real yolov5n" for k in KERNEL_INFO}
+PATH_OF["sppf_int8_fused"] = "planned zoo yolov5s 640"
 
 
 class SmokeFailure(RuntimeError):
@@ -87,7 +123,11 @@ def compare(kernel_out, plain_out, act: str, what: str) -> int:
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Median of per-launch CUDA-event times, device synchronized around."""
+    """Median of per-launch CUDA-event times, device synchronized around.
+    The device spins for about 1 ms (``torch.cuda._sleep``) before the
+    first event, so the host has enqueued the call's work by the time the
+    device reaches it: the span is the device's time, not the wrapper's
+    host time."""
     import torch
     for _ in range(warmup):
         fn()
@@ -96,6 +136,7 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(iters):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         a.record()
         fn()
         b.record()
@@ -103,6 +144,10 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def note_err(results: dict, kernel: str, dmax: int) -> None:
+    results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], dmax)
 
 
 def phase_device():
@@ -136,12 +181,13 @@ def phase_build() -> float:
     for line in log.read_text().splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
-    print(f"[build] kernels built and loaded in {secs:.3f} s")
+    print(f"[build] {len(cuda_build.SOURCES)} kernels built and loaded in "
+          f"{secs:.3f} s")
     return secs
 
 
 def phase_kernels(results: dict) -> None:
-    """Each kernel vs its plain version at the slice's shapes."""
+    """Each kernel vs its plain version at the paths' shapes."""
     import numpy as np
     import torch
     from thingino_accel_tpu_torch.ops import fused_kernels as FK
@@ -153,7 +199,33 @@ def phase_kernels(results: dict) -> None:
         return torch.from_numpy(
             rng.integers(-128, 128, shape, dtype=np.int8)).to(dev)
 
-    # (label, route, x shape, w OHWI shape, stride, pad)
+    def bias_of(o):
+        return torch.from_numpy(
+            rng.integers(-2000, 2000, o).astype(np.int32)).to(dev)
+
+    def wscale(o):
+        return rng.uniform(0.005, 0.015, o).astype(np.float32)
+
+    def ep_of(o, ktot, act):
+        return FK.epilogue_rows(wscale(o), 0.01,
+                                float(0.0137 * np.sqrt(ktot)), act, o,
+                                device=dev)
+
+    def run_case(kernel, label, act, kern, plain):
+        out_k = kern()
+        torch.cuda.synchronize()
+        dmax = compare(out_k, plain(), act, f"{label} {act}")
+        ms = time_ms(kern, 20)
+        plain_ms = time_ms(plain, 5, warmup=1)
+        results[kernel]["cases"].append({
+            "case": f"{label} {act}", "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": dmax})
+        note_err(results, kernel, dmax)
+        print(f"[kernels] {kernel:24s} {label} {act}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, max |diff| {dmax}")
+
+    # the 1x1 and KxK convs: (label, kernel, x shape, w OHWI shape, stride,
+    # pad)
     cases = [
         ("1x1 M=8*80*80 K=64 N=64", "matmul_int8_fused",
          (8, 80, 80, 64), (64, 1, 1, 64), 1, 0),
@@ -166,45 +238,101 @@ def phase_kernels(results: dict) -> None:
         ("6x6/s2 stem 8x640x640x3 -> 16", "conv2d_int8_halo_fused",
          (8, 640, 640, 3), (16, 6, 6, 3), 2, 2),
     ]
-    for label, route, xs, ws_shape, s, p in cases:
+    for label, kernel, xs, ws_shape, s, p in cases:
         nb, h, w, c = xs
         o, kk = ws_shape[0], ws_shape[1]
         oh, ow = (h + 2 * p - kk) // s + 1, (w + 2 * p - kk) // s + 1
         pads = ((p, p), (p, p))
         x, wt = rnd(xs), rnd(ws_shape)
-        bias = torch.from_numpy(
-            rng.integers(-2000, 2000, o).astype(np.int32)).to(dev)
-        wsc = rng.uniform(0.005, 0.015, o).astype(np.float32)
+        bias = bias_of(o)
         for act in ("NONE", "SILU"):
-            ep = FK.epilogue_rows(wsc, 0.01, float(0.0137 * np.sqrt(kk * kk * c)),
-                                  act, o, device=dev)
-            if route == "matmul_int8_fused":
+            ep = ep_of(o, kk * kk * c, act)
+            if kernel == "matmul_int8_fused":
                 x2, w2 = x.reshape(-1, c), wt.reshape(o, c)
-
-                def kern():
-                    return FK.matmul_int8_fused(x2, w2, bias, ep)
-
-                def plain():
-                    return FK.matmul_int8_fused_plain(x2, w2, bias, ep)
+                run_case(kernel, label, act,
+                         lambda: FK.matmul_int8_fused(x2, w2, bias, ep),
+                         lambda: FK.matmul_int8_fused_plain(x2, w2, bias, ep))
             else:
-                def kern():
-                    return FK.conv2d_int8_halo_fused(x, wt, bias, ep, (oh, ow),
-                                                     pads, s)
+                args = (x, wt, bias, ep, (oh, ow), pads, s)
+                run_case(kernel, label, act,
+                         lambda: FK.conv2d_int8_halo_fused(*args),
+                         lambda: FK.conv2d_int8_halo_fused_plain(*args))
 
-                def plain():
-                    return FK.conv2d_int8_halo_fused_plain(
-                        x, wt, bias, ep, (oh, ow), pads, s)
-            out_k = kern()
-            torch.cuda.synchronize()
-            dmax = compare(out_k, plain(), act, f"{label} {act}")
-            ms = time_ms(kern, 20)
-            plain_ms = time_ms(plain, 5, warmup=1)
-            r = results[route]
-            r["cases"].append({"case": f"{label} {act}", "ms": ms,
-                               "plain_ms": plain_ms, "max_abs_err": dmax})
-            r["max_abs_err"] = max(r["max_abs_err"], dmax)
-            print(f"[kernels] {route:24s} {label} {act}: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, max |diff| {dmax}")
+    # residual modes of #1 and #2 (SILU: the C3 shortcut's activation)
+    x = rnd((16, 80, 80, 32))
+    res = rnd((16, 80, 80, 32))
+    w1, w3 = rnd((32, 32)), rnd((32, 3, 3, 32))
+    b = bias_of(32)
+    ep = ep_of(32, 32, "SILU")
+    x2, r2 = x.reshape(-1, 32), res.reshape(-1, 32)
+    run_case("matmul_int8_fused", "1x1 + residual M=16*80*80 K=N=32", "SILU",
+             lambda: FK.matmul_int8_fused(x2, w1, b, ep, r2, 0.05),
+             lambda: FK.matmul_int8_fused_plain(x2, w1, b, ep, r2, 0.05))
+    ep3 = ep_of(32, 288, "SILU")
+    args = (x, w3, b, ep3, (80, 80), ((1, 1), (1, 1)), 1, res, 0.05)
+    run_case("conv2d_int8_halo_fused", "3x3/s1 + residual 16x80x80x32",
+             "SILU", lambda: FK.conv2d_int8_halo_fused(*args),
+             lambda: FK.conv2d_int8_halo_fused_plain(*args))
+
+    # multi-part matmul: the C3 cv3 of model.4 (2 parts, equal scales) and
+    # SPPF's concat with 4 parts of different scales
+    for label, m, parts, scales, n in [
+            ("2 parts M=16*80*80 K=64+64 N=128, equal scales",
+             16 * 80 * 80, (64, 64), (0.05, 0.05), 128),
+            ("4 parts M=16*20*20 K=4x128 N=256, different scales",
+             16 * 20 * 20, (128,) * 4, (0.038, 0.046, 0.047, 0.049), 256)]:
+        xs = [rnd((m, k)) for k in parts]
+        wfull = rnd((n, sum(parts)))
+        ws, off = [], 0
+        for k in parts:
+            ws.append(wfull[:, off:off + k])
+            off += k
+        bias = bias_of(n)
+        for act in ("NONE", "SILU"):
+            me = FK.multi_epilogue(wscale(n), scales, 0.9, act, n,
+                                   bias_scale=0.045, device=dev)
+            run_case("matmul_int8_fused_multi", label, act,
+                     lambda: FK.matmul_int8_fused_multi(xs, ws, bias, me),
+                     lambda: FK.matmul_int8_fused_multi_plain(xs, ws, bias,
+                                                              me))
+
+    # bottleneck: model.4's pair with its shortcut, a neck pair without
+    for label, (nb, h, w, c), shortcut in [
+            ("16x80x80x32 shortcut", (16, 80, 80, 32), True),
+            ("16x40x40x64 no shortcut", (16, 40, 40, 64), False)]:
+        x = rnd((nb, h, w, c))
+        w1, w2 = rnd((c, c)), rnd((c, 3, 3, c))
+        b1, b2 = bias_of(c), bias_of(c)
+        for act in ("NONE", "SILU"):
+            args = (x, w1, b1, ep_of(c, c, act), w2, b2,
+                    ep_of(c, 9 * c, act), shortcut, 0.05)
+            run_case("bottleneck_int8_fused", label, act,
+                     lambda: FK.bottleneck_int8_fused(*args),
+                     lambda: FK.bottleneck_int8_fused_plain(*args))
+
+    # SPPF of the zoo yolov5s at 640: 20x20x256, k = 5 -> 512
+    x = rnd((8, 20, 20, 256))
+    wt = rnd((512, 1024))
+    bias = bias_of(512)
+    for act in ("NONE", "SILU"):
+        ep = ep_of(512, 1024, act)
+        run_case("sppf_int8_fused", "8x20x20x256 k5 -> 512", act,
+                 lambda: FK.sppf_int8_fused(x, wt, bias, ep, 5),
+                 lambda: FK.sppf_int8_fused_plain(x, wt, bias, ep, 5))
+
+
+def check_units(eng, x, results: dict, what: str) -> int:
+    """Every kernel unit of one planned forward (inputs captured on the
+    card) against its plain version on the same inputs."""
+    from thingino_accel_tpu_torch.runtime.executor import KERNEL_OF_KIND
+    rec = eng.capture(x)
+    for unit, reads, out in rec:
+        env = dict(eng.params)
+        env.update(reads)
+        plain = unit.compute(env, plain=True)
+        dmax = compare(out, plain, unit.act, f"{what} {unit!r}")
+        note_err(results, KERNEL_OF_KIND[unit.kind], dmax)
+    return len(rec)
 
 
 def check_postprocess_on_card(dev) -> int:
@@ -238,22 +366,50 @@ def check_postprocess_on_card(dev) -> int:
     return int(r.num.sum())
 
 
-def check_nodes_against_cpu(eng, frame_u8, target) -> int:
-    """One frame through the card's engine, every node held against the
-    CPU path (plain convs and torch ops, the path the tests hold against
-    JAX) on the card's own inputs: the letterbox within 1 on uint8, SILU
-    convs within the SILU tolerance, every other node bit-exact."""
+def check_letterbox_on_card(frame_u8, target):
+    """The letterbox of one frame, card vs CPU within 1 on uint8; returns
+    the card's int8 network input."""
     import torch
     from thingino_accel_tpu_torch.models import yolo as Y
-    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
-
     frame = torch.from_numpy(frame_u8)
     boxed = Y.letterbox_uint8(frame.cuda(), target)
     d = (boxed.cpu().to(torch.int32)
          - Y.letterbox_uint8(frame, target).to(torch.int32)).abs()
     require(int(d.max()) <= 1, f"letterbox card vs CPU: max {int(d.max())}")
-    acts = eng.trace(Y.quantize_input_int8(boxed))
+    return Y.quantize_input_int8(boxed)
+
+
+def check_steps_against_cpu(eng, x) -> int:
+    """One frame through the planned schedule on the card, each step held
+    against the same step on the CPU path (plain kernels and torch ops,
+    the path the tests hold against JAX) on the card's own inputs: SILU
+    units within the SILU tolerance, every other step bit-exact."""
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+    from thingino_accel_tpu_torch.runtime.executor import KernelUnit
     cpu = Engine.from_yolo_mars(str(MODEL), EngineOptions("serving"))
+    steps, cpu_steps = eng._fn.steps, cpu._fn.steps
+    require(len(steps) == len(cpu_steps), "card and CPU schedules differ")
+    env = dict(eng.params)
+    env[eng.input_names[0]] = x
+    for step, cstep in zip(steps, cpu_steps):
+        require(step.out == cstep.out, f"step {step.out} vs {cstep.out}")
+        step.run(env)
+        cenv = dict(cpu.params)
+        cenv.update({r: env[r].cpu() for r in step.reads})
+        cstep.run(cenv)
+        act = step.act if isinstance(step, KernelUnit) else "NONE"
+        compare(env[step.out].cpu(), cenv[step.out], act,
+                f"card vs CPU {step.out}")
+    return len(steps)
+
+
+def check_nodes_against_cpu(eng, x) -> int:
+    """The unplanned tier on one frame: every node held against the CPU
+    path on the card's own inputs."""
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+    acts = eng.trace(x)
+    cpu = Engine.from_yolo_mars(str(MODEL), EngineOptions("serving"),
+                                planned=False)
     for node in cpu._fn.nodes:
         env = dict(cpu.params)
         env.update({i: acts[i].cpu() for i in node.inputs if i in acts})
@@ -265,47 +421,9 @@ def check_nodes_against_cpu(eng, frame_u8, target) -> int:
     return len(cpu._fn.nodes)
 
 
-def phase_slice(results: dict) -> dict:
-    import numpy as np
+def check_detections(outs, target) -> list:
     import torch
     from thingino_accel_tpu_torch.models import yolo as Y
-    from thingino_accel_tpu_torch.ops import fused_kernels as FK
-    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
-    from thingino_accel_tpu_torch.runtime.serving import StreamServer
-
-    dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    eng = Engine.from_yolo_mars(str(MODEL), EngineOptions("serving"),
-                                device=dev)
-    print(f"[slice] engine on {dev} in {time.perf_counter() - t0:.3f} s: "
-          + eng.summary().splitlines()[0])
-    pipe = Y.build_serving_pipeline(eng)
-    rng = np.random.default_rng(0)
-    frames = [rng.integers(0, 256, (BATCH,) + FRAME_HW + (3,),
-                           dtype=np.uint8) for _ in range(BATCHES)]
-
-    # warm-up outside the counted run (cuDNN/allocator first use)
-    pipe(torch.from_numpy(frames[0]).to(dev))
-    torch.cuda.synchronize()
-
-    FK.reset_launches()
-    server = StreamServer(pipe, depth=2, device=dev)
-    outs = list(server.run(frames))
-    torch.cuda.synchronize()
-    counts = dict(FK.launches)
-    st = server.stats
-    require(len(outs) == BATCHES, f"{len(outs)} results for {BATCHES} batches")
-    require(all(o is not None for o in outs) and st.errors == 0,
-            f"failed batches: errors={st.errors}")
-    for name, per in EXPECTED_PER_FORWARD.items():
-        require(counts[name] == BATCHES * per,
-                f"{name}: {counts[name]} launches, expected {BATCHES * per}")
-        results[name]["launches"] = counts[name]
-    print(f"[slice] launches {counts} (expected {BATCHES} x "
-          f"{EXPECTED_PER_FORWARD})")
-
-    in_t = eng.graph.tensors[eng.input_names[0]]
-    target = (in_t.shape[1], in_t.shape[2])
     dets_per_frame = []
     for d in outs:
         require(d.boxes.shape == (BATCH, 100, 4), f"boxes {d.boxes.shape}")
@@ -322,19 +440,141 @@ def phase_slice(results: dict) -> dict:
                       & (b[..., 1::2] <= FRAME_HW[0] - 1).all(-1)
                       & (b >= 0).all(-1)).all()), "box outside the frame")
         dets_per_frame.extend(d.num.tolist())
+    return dets_per_frame
+
+
+def expect_launches(counts: dict, per_forward: dict, forwards: int,
+                    what: str) -> None:
+    want = {k: forwards * v for k, v in per_forward.items()}
+    require(counts == want, f"{what}: launches {counts}, expected {want}")
+
+
+def frames_of(n_batches: int):
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, 256, (BATCH,) + FRAME_HW + (3,), dtype=np.uint8)
+            for _ in range(n_batches)]
+
+
+def phase_slice(results: dict) -> dict:
+    """The main path: the planned real yolov5n through StreamServer."""
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+    from thingino_accel_tpu_torch.runtime.serving import StreamServer
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    eng = Engine.from_yolo_mars(str(MODEL), EngineOptions("serving"),
+                                device=dev)
+    census = eng._fn.launch_census()
+    require(census == PLANNED_REAL,
+            f"planned real yolov5n schedule {census}, expected {PLANNED_REAL}")
+    print(f"[slice] planned engine on {dev} in {time.perf_counter() - t0:.3f}"
+          f" s: {len(eng._fn.units)} kernel units per forward {census}")
+    pipe = Y.build_serving_pipeline(eng)
+    frames = frames_of(BATCHES)
+
+    # warm-up outside the counted run (allocator and library first use)
+    pipe(torch.from_numpy(frames[0]).to(dev))
+    torch.cuda.synchronize()
+
+    FK.reset_launches()
+    server = StreamServer(pipe, depth=2, device=dev)
+    outs = list(server.run(frames))
+    torch.cuda.synchronize()
+    counts = dict(FK.launches)
+    st = server.stats
+    require(len(outs) == BATCHES, f"{len(outs)} results for {BATCHES} batches")
+    require(all(o is not None for o in outs) and st.errors == 0,
+            f"failed batches: errors={st.errors}")
+    expect_launches(counts, census, BATCHES, "planned real yolov5n")
+    for name in KERNEL_INFO:
+        if PATH_OF[name] == "planned real yolov5n":
+            require(counts[name] > 0, f"{name} never launched on the path")
+            results[name]["launches"] = counts[name]
+    print(f"[slice] launches {counts} (= {BATCHES} x the plan's census)")
+
+    in_t = eng.graph.tensors[eng.input_names[0]]
+    target = (in_t.shape[1], in_t.shape[2])
+    dets_per_frame = check_detections(outs, target)
     print(f"[slice] 4-batch run: {st.summary()}")
     print(f"[slice] detections per frame: mean "
           f"{float(np.mean(dets_per_frame))}, min {min(dets_per_frame)}, "
           f"max {max(dets_per_frame)}")
 
-    # steadier serving numbers: 12 more batches through a fresh server
     steady = StreamServer(pipe, depth=2, device=dev)
     for o in steady.run(frames[i % BATCHES] for i in range(12)):
         require(o is not None, "failed batch in the steady run")
     print(f"[slice] 12-batch steady run: {steady.stats.summary()}")
 
-    # teacher-forced per-conv check on one batch: each conv's kernel output
-    # (from the traced run) vs its plain version on the same input
+    x = Y.quantize_input_int8(
+        Y.letterbox_uint8(torch.from_numpy(frames[0]).to(dev), target))
+    n_units = check_units(eng, x, results, "real yolov5n")
+    print(f"[slice] kernel vs plain on every unit of one batch: {n_units} "
+          "units within tolerance")
+    x1 = check_letterbox_on_card(frames[0][:1], target)
+    n_steps = check_steps_against_cpu(eng, x1)
+    print(f"[slice] card vs CPU, one frame: {n_steps} planned steps within "
+          "tolerance")
+    n_dets = check_postprocess_on_card(dev)
+    print(f"[slice] decode + NMS on tie-heavy heads: card == CPU "
+          f"({n_dets} detections)")
+
+    # planned vs unplanned tier on the same batch (PERF.md open question)
+    unplanned = Engine.from_yolo_mars(str(MODEL), EngineOptions("serving"),
+                                      device=dev, planned=False)
+    hp, hu = eng.forward(x), unplanned.forward(x)
+    diff = [(hp[k].to(torch.int32) - hu[k].to(torch.int32)).abs()
+            for k in eng.output_names]
+    n_vals = sum(d.numel() for d in diff)
+    share = sum(int((d > 0).sum()) for d in diff) / n_vals
+    dmax = max(int(d.max()) for d in diff)
+    print(f"[slice] planned vs unplanned heads, one batch: {share:.4f} of "
+          f"{n_vals} values differ, max |diff| {dmax}")
+    return {
+        "launches": counts, "census_per_forward": census,
+        "fps_4batch": st.fps, "p50_ms_4batch": st.latency_ms(50),
+        "p99_ms_4batch": st.latency_ms(99), "fps_steady": steady.stats.fps,
+        "p50_ms_steady": steady.stats.latency_ms(50),
+        "p99_ms_steady": steady.stats.latency_ms(99),
+        "dets_per_frame_mean": float(np.mean(dets_per_frame)),
+        "units_checked": n_units, "steps_card_vs_cpu": n_steps,
+        "planned_vs_unplanned_head_share": share,
+        "planned_vs_unplanned_head_max": dmax,
+    }
+
+
+def phase_unplanned(results: dict) -> dict:
+    """The unplanned tier, kept as the tests' oracle: 1 batch."""
+    import torch
+    from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+    from thingino_accel_tpu_torch.runtime.serving import StreamServer
+
+    dev = torch.device("cuda")
+    eng = Engine.from_yolo_mars(str(MODEL), EngineOptions("serving"),
+                                device=dev, planned=False)
+    pipe = Y.build_serving_pipeline(eng)
+    frames = frames_of(1)
+    pipe(torch.from_numpy(frames[0]).to(dev))
+    torch.cuda.synchronize()
+    FK.reset_launches()
+    server = StreamServer(pipe, depth=2, device=dev)
+    outs = list(server.run(frames))
+    torch.cuda.synchronize()
+    counts = dict(FK.launches)
+    require(len(outs) == 1 and outs[0] is not None
+            and server.stats.errors == 0, "the unplanned batch failed")
+    expect_launches(counts, UNPLANNED_REAL, 1, "unplanned real yolov5n")
+    in_t = eng.graph.tensors[eng.input_names[0]]
+    target = (in_t.shape[1], in_t.shape[2])
+    check_detections(outs, target)
+    print(f"[unplanned] 1 batch: {server.stats.summary()}; launches {counts}")
+
     x = Y.quantize_input_int8(
         Y.letterbox_uint8(torch.from_numpy(frames[0]).to(dev), target))
     acts = eng.trace(x)
@@ -347,31 +587,62 @@ def phase_slice(results: dict) -> dict:
         eng._fn.lower_node(node, env, plain=True)
         out = node.outputs[0]
         a = node.attrs
-        route = ("matmul_int8_fused" if a["kernel"] == (1, 1)
-                 and a["stride"] == (1, 1) else "conv2d_int8_halo_fused")
+        kernel = ("matmul_int8_fused" if a["kernel"] == (1, 1)
+                  and a["stride"] == (1, 1) else "conv2d_int8_halo_fused")
         dmax = compare(acts[out], env[out], a.get("activation", "NONE"),
-                       f"teacher-forced {out}")
-        results[route]["max_abs_err"] = max(results[route]["max_abs_err"],
-                                            dmax)
+                       f"unplanned teacher-forced {out}")
+        note_err(results, kernel, dmax)
         n_conv += 1
     torch.cuda.synchronize()
-    print(f"[slice] teacher-forced kernel vs plain: {n_conv} convs within "
-          "tolerance")
-    n_nodes = check_nodes_against_cpu(eng, frames[0][:1], target)
-    print(f"[slice] teacher-forced card vs CPU, one frame: {n_nodes} nodes "
+    n_nodes = check_nodes_against_cpu(eng, check_letterbox_on_card(
+        frames[0][:1], target))
+    print(f"[unplanned] teacher-forced kernel vs plain: {n_conv} convs; "
+          f"card vs CPU, one frame: {n_nodes} nodes within tolerance")
+    return {"launches": counts, "fps": server.stats.fps,
+            "teacher_forced_convs": n_conv, "nodes_card_vs_cpu": n_nodes}
+
+
+def phase_zoo_s(results: dict) -> dict:
+    """The zoo yolov5s at 640, planned: the path that runs SPPF."""
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch.models import zoo
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.runtime.engine import Engine
+
+    dev = torch.device("cuda")
+    eng = Engine(zoo.build_yolov5("s", zoo.ZooConfig(in_hw=(640, 640))),
+                 device=dev)
+    census = eng._fn.launch_census()
+    require(census == PLANNED_ZOO_S,
+            f"planned zoo yolov5s schedule {census}, expected {PLANNED_ZOO_S}")
+    rng = np.random.default_rng(1)
+    xs = [torch.from_numpy(rng.integers(-128, 128, (ZOO_BATCH, 640, 640, 3),
+                                        dtype=np.int8)).to(dev)
+          for _ in range(ZOO_BATCHES)]
+    eng.forward(xs[0])
+    torch.cuda.synchronize()
+    FK.reset_launches()
+    t0 = time.perf_counter()
+    outs = [eng.forward(x) for x in xs]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(FK.launches)
+    expect_launches(counts, census, ZOO_BATCHES, "planned zoo yolov5s")
+    require(counts["sppf_int8_fused"] == ZOO_BATCHES,
+            "SPPF must launch once per forward")
+    results["sppf_int8_fused"]["launches"] = counts["sppf_int8_fused"]
+    for out in outs:
+        for k, h in out.items():
+            want = (ZOO_BATCH,) + tuple(eng.graph.tensors[k].shape[1:])
+            require(tuple(h.shape) == want and h.dtype == torch.int8,
+                    f"zoo yolov5s head {k}: {tuple(h.shape)} {h.dtype}")
+    n_units = check_units(eng, xs[0], results, "zoo yolov5s")
+    print(f"[zoo-s] 2 batches of {ZOO_BATCH} in {secs:.3f} s (host clock, "
+          f"synchronized); launches {counts}; {n_units} units of one batch "
           "within tolerance")
-    n_dets = check_postprocess_on_card(dev)
-    print(f"[slice] decode + NMS on tie-heavy heads: card == CPU "
-          f"({n_dets} detections)")
-    return {
-        "launches": counts, "fps_4batch": st.fps,
-        "p50_ms_4batch": st.latency_ms(50), "p99_ms_4batch": st.latency_ms(99),
-        "fps_steady": steady.stats.fps,
-        "p50_ms_steady": steady.stats.latency_ms(50),
-        "p99_ms_steady": steady.stats.latency_ms(99),
-        "dets_per_frame_mean": float(np.mean(dets_per_frame)),
-        "teacher_forced_convs": n_conv,
-    }
+    return {"launches": counts, "census_per_forward": census,
+            "forward_s_2_batches": secs, "units_checked": n_units}
 
 
 def main() -> int:
@@ -383,6 +654,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     sys.modules["jax"] = None   # the port must never need JAX
+    t_start = time.perf_counter()
     try:
         import torch
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -390,9 +662,11 @@ def main() -> int:
         name, smi = phase_device()
         build_s = phase_build()
         results = {k: {"cases": [], "max_abs_err": 0, "launches": 0}
-                   for k in EXPECTED_PER_FORWARD}
+                   for k in KERNEL_INFO}
         phase_kernels(results)
         slice_res = phase_slice(results)
+        unplanned_res = phase_unplanned(results)
+        zoo_res = phase_zoo_s(results)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -400,16 +674,20 @@ def main() -> int:
 
     kernels = []
     for k, r in results.items():
-        rep = r["cases"][0]   # the first (NONE) case at the slice shape
+        rep = r["cases"][0]   # the first (NONE) case at a path's shape
         kernels.append({"name": k, "route": "cuda", **KERNEL_INFO[k],
                         "launches": r["launches"],
                         "max_abs_err": r["max_abs_err"], "ms": rep["ms"],
-                        "plain_ms": rep["plain_ms"], "at": rep["case"]})
+                        "plain_ms": rep["plain_ms"], "at": rep["case"],
+                        "path": PATH_OF[k]})
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "device": name, "nvidia_smi": smi, "build_s": build_s,
-        "kernels": results, "slice": slice_res}, indent=1))
+        "total_s": time.perf_counter() - t_start, "kernels": results,
+        "slice": slice_res, "unplanned": unplanned_res,
+        "zoo_yolov5s": zoo_res}, indent=1))
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

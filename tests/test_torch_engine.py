@@ -1,10 +1,11 @@
-"""Port engine vs the JAX serving engine without its planners.
+"""Port engine vs the JAX serving engine, without and with its planners.
 
-The port lowers node by node (``thingino_accel_tpu_torch.runtime``); its
-JAX oracle is ``Engine(precision="serving")`` built while
+Unplanned: the port's per-node lowering (``Engine(..., planned=False)``)
+against ``Engine(precision="serving")`` of the JAX package built while
 ``runtime.executor._plan_folds`` returns None, which disables the fold
-layouts and the epilogue fusions, with the Pallas kernels in interpret
-mode.
+layouts and the epilogue fusions. Planned: the port's default engine
+against the JAX serving engine as it is. The Pallas kernels run in
+interpret mode.
 
 Tolerances: bit-exact on linear/RELU graphs. On SiLU graphs each node is
 checked teacher-forced (the port lowers it from the JAX inputs): non-SiLU
@@ -13,6 +14,7 @@ elements (XLA's and torch's sigmoid differ by ulps).
 """
 
 import collections
+import dataclasses
 import os
 
 import numpy as np
@@ -60,6 +62,20 @@ def _relu_copy(g: Graph) -> Graph:
                  outputs=list(g.outputs), name=g.name)
 
 
+def _scaled_copy(g: Graph, seed: int) -> Graph:
+    """``g`` with every activation's scale drawn anew, so the inputs of a
+    concat differ in scale as on real weights: the multi-part matmul takes
+    its per-part f32 branch and SPPF does not fuse."""
+    rng = np.random.default_rng(seed)
+    tensors = {
+        k: (dataclasses.replace(t, quant=dataclasses.replace(
+            t.quant, scale=float(rng.uniform(0.03, 0.07))))
+            if not t.is_const and t.quant is not None else t)
+        for k, t in g.tensors.items()}
+    return Graph(nodes=list(g.nodes), tensors=tensors, inputs=list(g.inputs),
+                 outputs=list(g.outputs), name=g.name)
+
+
 def _yolov5n_64():
     return zoo.build_yolov5("n", zoo.ZooConfig(in_hw=(64, 64)))
 
@@ -81,27 +97,27 @@ def test_fixture_bit_exact(unplanned, fixture):
     g = load_graph(os.path.join(FIXTURES, fixture))
     x = _input(g)
     ref = _jax_serving(g).run_np(x)
-    _assert_outputs_equal(Engine(g).run_np(x), ref)
+    _assert_outputs_equal(Engine(g, planned=False).run_np(x), ref)
 
 
 def test_relu_yolov5n_bit_exact(unplanned):
     g = _relu_copy(_yolov5n_64())
     x = _input(g)
     ref = _jax_serving(g).run_np(x)
-    _assert_outputs_equal(Engine(g).run_np(x), ref)
+    _assert_outputs_equal(Engine(g, planned=False).run_np(x), ref)
 
 
 def test_params_from_jax_identical(unplanned):
     g = _relu_copy(_yolov5n_64())
     x = _input(g, seed=1)
     jeng = _jax_serving(g)
-    from_jax = Engine(g, params=jeng._np_params)
+    from_jax = Engine(g, params=jeng._np_params, planned=False)
     assert set(from_jax.params) == set(jeng._np_params)
     for k, v in params_from_jax(jeng._np_params).items():
         assert v.dtype == torch.from_numpy(np.asarray(jeng._np_params[k])
                                            ).dtype
     out = from_jax.run_np(x)
-    _assert_outputs_equal(out, Engine(g).run_np(x))
+    _assert_outputs_equal(out, Engine(g, planned=False).run_np(x))
     _assert_outputs_equal(out, jeng.run_np(x))
 
 
@@ -109,7 +125,7 @@ def test_silu_yolov5n_teacher_forced(unplanned):
     g = _yolov5n_64()
     x = _input(g, batch=2, seed=2)
     jacts = _jax_serving(g).trace(x)
-    eng = Engine(g)
+    eng = Engine(g, planned=False)
     silu_convs = 0
     for node in eng._fn.nodes:
         env = dict(eng.params)
@@ -163,3 +179,66 @@ def test_unported_tiers_and_ops_raise():
     full = load_graph(REAL_YOLO)   # still carries its decode subgraph
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(full)
+
+
+# ---------------------------------------------------------------------------
+# The planned serving tier (the default) vs the planned JAX serving engine
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("scales", ["zoo", "seeded"])
+def test_planned_relu_yolov5n_bit_exact(scales):
+    """RELU copy of zoo yolov5n at 64, batch 2: the zoo's equal scales run
+    SPPF and the int32 branch of the multi-part matmul; a seeded copy with
+    different scales runs its f32 branch and no SPPF, as the real weights
+    do."""
+    g = _relu_copy(_yolov5n_64())
+    if scales == "seeded":
+        g = _scaled_copy(g, 5)
+    x = _input(g, seed=4)
+    ref = _jax_serving(g).run_np(x)
+    eng = Engine(g)
+    units = eng._fn.units
+    kinds = collections.Counter(u.kind for u in units)
+    multis = [u.me.same_scale for u in units if u.kind == "multi"]
+    if scales == "zoo":
+        assert kinds["sppf"] == 1 and all(multis) and len(multis) == 14
+    else:
+        assert kinds["sppf"] == 0 and not any(multis) and len(multis) == 15
+    assert kinds["bneck"] == 10
+    _assert_outputs_equal(eng.run_np(x), ref)
+    if scales == "seeded":   # here the plan changes the heads
+        unplanned = Engine(g, planned=False).run_np(x)
+        assert any(not np.array_equal(unplanned[k], ref[k]) for k in ref)
+
+
+def test_trace_matches_jax_trace():
+    """``trace`` re-plans with every activation an output, as the JAX
+    ``Engine.trace`` does: no residual or bottleneck fuses; virtual concats
+    and SPPF still run fused, and every activation is materialized."""
+    g = _relu_copy(_yolov5n_64())
+    x = _input(g, batch=1, seed=6)
+    ref = _jax_serving(g).trace(x)
+    eng = Engine(g)
+    acts = eng.trace(x)
+    units = eng._trace_fn.units
+    assert not any(u.kind == "bneck" or u.residual for u in units)
+    assert any(u.kind == "sppf" for u in units)
+    assert set(acts) == set(ref)
+    for k in ref:
+        np.testing.assert_array_equal(acts[k].numpy(), ref[k], err_msg=k)
+
+
+def test_capture_records_every_unit():
+    """``capture`` lists each kernel unit of a planned forward with the
+    inputs it read and the output it wrote; re-run on those inputs, each
+    unit gives its output again."""
+    g = _yolov5n_64()
+    eng = Engine(g)
+    rec = eng.capture(_input(g, batch=1, seed=8))
+    assert [u for u, _, _ in rec] == eng._fn.units
+    for unit, reads, out in rec:
+        env = dict(eng.params)
+        env.update(reads)
+        np.testing.assert_array_equal(unit.compute(env, plain=True).numpy(),
+                                      out.numpy(), err_msg=repr(unit))

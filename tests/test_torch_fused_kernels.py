@@ -167,7 +167,10 @@ def test_cpu_wrappers_count_no_launch():
     ep = FK.epilogue_rows(0.01, 0.05, 0.05, "RELU", 8)
     FK.matmul_int8_fused(x, torch.zeros((8, 16), dtype=torch.int8), None, ep)
     assert FK.launches == {"matmul_int8_fused": 0,
-                           "conv2d_int8_halo_fused": 0}
+                           "conv2d_int8_halo_fused": 0,
+                           "matmul_int8_fused_multi": 0,
+                           "bottleneck_int8_fused": 0,
+                           "sppf_int8_fused": 0}
 
 
 # ---------------------------------------------------------------------------

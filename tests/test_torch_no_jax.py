@@ -1,6 +1,7 @@
 """The port runs where JAX is not installed (the GPU machine lists none):
-a fresh interpreter with ``jax`` blocked imports the package and runs a
-`.mars` model on the CPU."""
+a fresh interpreter with ``jax`` blocked imports the package, runs a
+`.mars` model on the CPU, and builds the zoo yolov5n and runs it through
+the planned serving tier."""
 
 import os
 import subprocess
@@ -24,6 +25,14 @@ SCRIPT = textwrap.dedent("""
     out = eng.run_np(x)["output"]
     assert out.shape == (2, 64, 64, 16) and out.dtype == np.int8
     assert out.min() >= 0             # the conv's fused RELU
+    from thingino_accel_tpu_torch.models import zoo
+    from thingino_accel_tpu_torch.runtime import planner
+    g = zoo.build_yolov5("n", zoo.ZooConfig(in_hw=(64, 64)))
+    eng = thingino_accel_tpu_torch.Engine(g)
+    assert eng._fn.plan is not None and eng._fn.plan.sppf
+    heads = eng.run_np(np.zeros((1, 64, 64, 3), np.int8))
+    assert [h.shape for h in heads.values()] == [
+        (1, 8, 8, 255), (1, 4, 4, 255), (1, 2, 2, 255)]
     assert sys.modules["jax"] is None
     print("ok")
 """)

@@ -1,0 +1,223 @@
+"""The port's serving planner and planned lowering vs the JAX package's.
+
+- Plan: ``runtime.planner.plan_folds`` against ``executor._plan_folds`` on
+  the real yolov5n (rewired to its heads), zoo yolov5n at 64 and zoo
+  yolov5s at 640 (planning only, no tensors are computed).
+- Run-time decisions: the kernel units the JAX planned engine calls on zoo
+  yolov5n at 64 (recorded by wrapping the functions of
+  ``thingino_accel_tpu.ops.fused_kernels`` in this test only; the executor
+  looks them up at call time) against the units of the port's schedule, in
+  order.
+- Each unit teacher-forced: the port's unit computes from the JAX
+  package's recorded tensors and is held against the JAX unit's output.
+  Tolerance: non-SiLU units bit-exact; SiLU units within 1 quantum on at
+  most 0.1% of the elements (torch's and XLA's sigmoid differ by ulps on
+  the CPU).
+"""
+
+import collections
+import functools
+import os
+
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from thingino_accel_tpu.ir import passes
+from thingino_accel_tpu.ir.passes import fuse_silu_pairs
+from thingino_accel_tpu.models import zoo
+from thingino_accel_tpu.ops import fused_kernels as JFK
+from thingino_accel_tpu.runtime import Engine as JEngine
+from thingino_accel_tpu.runtime import EngineOptions as JOptions
+from thingino_accel_tpu.runtime import executor as JEX
+from thingino_accel_tpu_torch.models.yolo import find_detect_outputs
+from thingino_accel_tpu_torch.runtime import planner as P
+from thingino_accel_tpu_torch.runtime.engine import Engine, load_graph
+from thingino_accel_tpu_torch.runtime.executor import KernelUnit
+
+REAL_YOLO = os.path.join(os.path.dirname(__file__), "..", "models",
+                         "yolov5n_cal_int8.mars")
+
+# the JAX functions a planned forward calls for its kernel units
+UNIT_FUNCS = ("conv2d_int8_stem_fused", "conv2d_int8_folded",
+              "matmul_int8_fused_multi", "bottleneck_int8_fused",
+              "sppf_int8_fused", "conv2d_int8_fused")
+
+
+def _graph(name):
+    if name == "real_yolov5n":
+        g = load_graph(REAL_YOLO)
+        return g.with_outputs(find_detect_outputs(g))
+    size, hw = {"zoo_yolov5n_64": ("n", 64),
+                "zoo_yolov5s_640": ("s", 640)}[name]
+    return zoo.build_yolov5(size, zoo.ZooConfig(in_hw=(hw, hw)))
+
+
+def _serving(g):
+    """The serving tier's graph passes and node list, as both engines
+    build them."""
+    g = passes.fold_batchnorm(passes.fuse_act_into_conv(g))
+    return g, fuse_silu_pairs(g)
+
+
+def _names(d):
+    return sorted(d) if isinstance(d, (dict, set)) else d
+
+
+@pytest.mark.parametrize("name", ["real_yolov5n", "zoo_yolov5n_64",
+                                  "zoo_yolov5s_640"])
+def test_plan_equals_jax(name):
+    g, nodes = _serving(_graph(name))
+    ref = JEX._plan_folds(nodes, g.tensors, g.outputs)
+    port = P.plan_folds(nodes, g.tensors, g.outputs)
+    assert port.stem_stage == ref.stem_stage
+    assert port.stem_emit == ref.stem_emit
+    assert port.fold == ref.fold
+    assert port.parts == ref.parts
+    for field in ("res_fuse", "virtual_concat", "sppf", "bneck",
+                  "skip_outputs", "pool_of"):
+        assert _names(getattr(port, field)) == _names(getattr(ref, field)), \
+            field
+    assert port.virtual_concat == ref.virtual_concat
+    assert port.sppf == ref.sppf
+    assert port.pool_of == ref.pool_of
+    assert {k: (a.outputs, b.outputs) for k, (a, b) in port.bneck.items()} \
+        == {k: (a.outputs, b.outputs) for k, (a, b) in ref.bneck.items()}
+    assert {k: (n.outputs, o) for k, (n, o) in port.res_fuse.items()} \
+        == {k: (n.outputs, o) for k, (n, o) in ref.res_fuse.items()}
+
+
+def test_real_yolov5n_plan_census():
+    """The fold factors gate the fusions: with the real plan's folds the
+    /model.16 concat (inputs at different folds) is materialized."""
+    g, nodes = _serving(_graph("real_yolov5n"))
+    plan = P.plan_folds(nodes, g.tensors, g.outputs)
+    assert (len(plan.res_fuse), len(plan.virtual_concat), len(plan.sppf),
+            len(plan.bneck)) == (6, 12, 0, 10)
+    assert "/model.16/Concat_output_0" not in plan.virtual_concat
+    assert sorted(plan.stem_stage) == sorted(
+        f"/model.{m}/act/Mul_output_0" for m in
+        ("0", "1", "2/cv1", "2/cv2", "2/m/m.0/cv2"))
+    assert collections.Counter(plan.fold.values()) == {1: 45, 2: 11, 4: 7}
+    # the same graph at fold 1 everywhere would fuse it
+    flat = P.FoldPlan()
+    flat.stem_stage = plan.stem_stage
+    P.plan_epilogue_fusions(nodes, g.tensors, flat, plan.consumers,
+                            set(g.outputs))
+    assert "/model.16/Concat_output_0" in flat.virtual_concat
+    assert len(flat.virtual_concat) == 13
+
+
+@pytest.mark.parametrize("name,census", [
+    ("real_yolov5n", {"matmul_int8_fused": 17, "conv2d_int8_halo_fused": 8,
+                      "matmul_int8_fused_multi": 15,
+                      "bottleneck_int8_fused": 10, "sppf_int8_fused": 0}),
+    ("zoo_yolov5s_640", {"matmul_int8_fused": 14,
+                         "conv2d_int8_halo_fused": 7,
+                         "matmul_int8_fused_multi": 16,
+                         "bottleneck_int8_fused": 11, "sppf_int8_fused": 1}),
+])
+def test_launch_census(name, census):
+    """Kernel launches of one planned forward, from the schedule: every
+    residual rides in a bottleneck, 60 convs in 50 (real) launches."""
+    eng = Engine(_graph(name))
+    assert eng._fn.launch_census() == census
+    units = eng._fn.units
+    assert not any(u.residual for u in units if u.kind != "bneck")
+    assert sum(1 + (u.kind == "bneck") for u in units) == sum(
+        n.op == "CONV2D" for n in eng._fn.nodes)
+
+
+# ---------------------------------------------------------------------------
+# Run-time decisions on zoo yolov5n @64, recorded from the JAX engine
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_units():
+    """One planned forward of the JAX serving engine (SiLU zoo yolov5n at
+    64, batch 2, not jitted so the values are concrete): the input and,
+    per top-level kernel unit call, (function, has residual, output)."""
+    g = _graph("zoo_yolov5n_64")
+    x = np.random.default_rng(2).integers(-128, 128, (2, 64, 64, 3),
+                                          dtype=np.int8)
+    rec, depth = [], [0]
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def rec_fn(*a, **k):
+            depth[0] += 1
+            try:
+                out = fn(*a, **k)
+            finally:
+                depth[0] -= 1
+            if depth[0] == 0:
+                res = (k.get("residual") is not None
+                       or bool(k.get("shortcut", False)))
+                rec.append((name, res, np.asarray(out)))
+            return out
+        return rec_fn
+
+    with pytest.MonkeyPatch.context() as mp, \
+            pltpu.force_tpu_interpret_mode():
+        for name in UNIT_FUNCS:
+            mp.setattr(JFK, name, wrap(name, getattr(JFK, name)))
+        eng = JEngine(g, JOptions(precision="serving", jit=False))
+        out = eng.run_np(x)
+    return g, x, rec, out
+
+
+def _logical(arr, shape):
+    """A JAX unit's output (folded [N, H, W/f, f*C + pad], or rows
+    [N*H*W/f, ...]; int8 or integer-valued bf16) as logical NHWC."""
+    n, h, w, c = shape
+    a = np.asarray(arr).astype(np.int8)
+    a = a.reshape(n, h, -1, a.shape[-1])
+    f = w // a.shape[2]
+    return np.ascontiguousarray(a[..., :f * c].reshape(n, h, w, c))
+
+
+def test_runtime_units_equal_jax(jax_units):
+    g, x, rec, _ = jax_units
+    eng = Engine(g)
+    units = eng._fn.units
+    port = [(u.mirrors, u.residual is not None) for u in units]
+    assert port == [(name, res) for name, res, _ in rec]
+    for u, (_, _, arr) in zip(units, rec):
+        shape = (2,) + tuple(eng.graph.tensors[u.out].shape[1:])
+        assert _logical(arr, shape).shape == shape
+    kinds = collections.Counter(u.mirrors for u in units)
+    assert kinds == {"conv2d_int8_folded": 20, "matmul_int8_fused_multi": 14,
+                     "bottleneck_int8_fused": 10,
+                     "conv2d_int8_stem_fused": 5, "sppf_int8_fused": 1}
+
+
+def test_units_teacher_forced_silu(jax_units):
+    """Every port unit computes from the JAX package's tensors (unit
+    outputs recorded from the JAX run; exact torch ops in between) and is
+    held against the JAX unit's output."""
+    g, x, rec, _ = jax_units
+    eng = Engine(g)
+    env = dict(eng.params)
+    env[eng.input_names[0]] = torch.from_numpy(x)
+    i = 0
+    silu = 0
+    for step in eng._fn.steps:
+        if not isinstance(step, KernelUnit):
+            step.run(env)
+            continue
+        shape = (2,) + tuple(eng.graph.tensors[step.out].shape[1:])
+        ref = _logical(rec[i][2], shape)
+        port = step.compute(env).numpy()
+        assert port.shape == ref.shape and port.dtype == ref.dtype
+        d = np.abs(port.astype(np.int32) - ref.astype(np.int32))
+        if step.act == "SILU":
+            silu += 1
+            assert d.max() <= 1 and (d > 0).mean() <= 1e-3, (
+                step, d.max(), (d > 0).mean())
+        else:
+            np.testing.assert_array_equal(port, ref, err_msg=repr(step))
+        env[step.out] = torch.from_numpy(ref)
+        i += 1
+    assert i == len(rec) and silu == 47

@@ -5,10 +5,11 @@ only the modules that do not import jax: ``formats.mars``,
 ``formats.packing``, ``ir.graph`` and ``ir.passes``. Module names mirror
 the JAX package's, so each port module sits at its counterpart's path.
 
-Ported so far: the serving tier's per-node int8 path (``runtime``), with
-the 1x1 and KxK convs in hand-written Hopper kernels
-(``ops.fused_kernels``, sources in ``csrc/``), and the YOLO letterbox,
-decode and NMS (``models.yolo``).
+Ported so far: the planned int8 serving tier (``runtime``: the planner,
+the planned lowering and, unplanned, the per-node one), its 1x1, KxK,
+multi-part, C3-bottleneck and SPPF kernels hand-written for Hopper
+(``ops.fused_kernels``, sources in ``csrc/``), the YOLO letterbox,
+decode and NMS (``models.yolo``) and the zoo's YOLOv5 (``models.zoo``).
 """
 
 from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions

@@ -1,7 +1,8 @@
 // Fused int8 KxK conv at any square stride, NHWC x OHWI -> NHWC:
 // out[n, oy, ox, o] = epilogue(sum_{ky,kx,c} x[n, oy*s-pt+ky, ox*s-pl+kx, c]
 //                                            * w[o, ky, kx, c])
-// with zero padding outside the image.
+// with zero padding outside the image, and an optional residual
+// [N, OH, OW, O] added in the epilogue.
 //
 // Replaces thingino_accel_tpu/ops/fused_kernels.py:conv2d_int8_halo_fused
 // (Pallas body _halo_kernel), which stages a halo'd row slab in VMEM and
@@ -74,8 +75,9 @@ __global__ void __launch_bounds__(tat::kThreads)
                            const int8_t* __restrict__ w,
                            const int* __restrict__ bias,
                            const float* __restrict__ cs,
+                           const int8_t* __restrict__ res,
                            int8_t* __restrict__ out, ConvGeom g, int act,
-                           float inv_out, float alpha) {
+                           float inv_out, float alpha, float res_scale) {
   __shared__ int As[tat::kBM][tat::kBKW + 1];
   __shared__ int Bs[tat::kBN][tat::kBKW + 1];
   const long long m0 = static_cast<long long>(blockIdx.x) * tat::kBM;
@@ -106,23 +108,25 @@ __global__ void __launch_bounds__(tat::kThreads)
     for (int h = 0; h < 2; ++h) {
       const int r = lr + 32 * h;
       As[r][lw] = gather_word<VEC>(x, g, ok[h], base[h], iy0[h], ix0[h], k);
-      Bs[r][lw] = tat::load_row_word<VEC>(w, n0 + r, g.N, g.K, k);
+      Bs[r][lw] = tat::load_row_word<VEC>(w, n0 + r, g.N, g.K, g.K, k);
     }
     __syncthreads();
     tat::mma_tile(As, Bs, acc);
     __syncthreads();
   }
-  tat::store_tile(acc, out, m0, n0, g.M, g.N, bias, cs, act, inv_out, alpha);
+  tat::store_tile(acc, out, m0, n0, g.M, g.N, bias, cs, act, inv_out, alpha,
+                  res, res_scale);
 }
 
 }  // namespace
 
 extern "C" int tat_conv_int8_fused(const void* x, const void* w,
-                                   const void* bias, const void* cs, void* out,
-                                   int batch, int H, int W, int C, int O,
-                                   int KH, int KW, int stride, int pt, int pl,
-                                   int OH, int OW, int act, float inv_out,
-                                   float alpha, void* stream) {
+                                   const void* bias, const void* cs,
+                                   const void* res, void* out, int batch,
+                                   int H, int W, int C, int O, int KH, int KW,
+                                   int stride, int pt, int pl, int OH, int OW,
+                                   int act, float inv_out, float alpha,
+                                   float res_scale, void* stream) {
   ConvGeom g;
   g.M = static_cast<long long>(batch) * OH * OW;
   g.N = O;
@@ -143,12 +147,13 @@ extern "C" int tat_conv_int8_fused(const void* x, const void* w,
   const auto* wp = static_cast<const int8_t*>(w);
   const auto* bp = static_cast<const int*>(bias);
   const auto* cp = static_cast<const float*>(cs);
+  const auto* rp = static_cast<const int8_t*>(res);
   auto* op = static_cast<int8_t*>(out);
   if (C % 4 == 0 && tat::aligned4(x) && tat::aligned4(w))
     conv_int8_fused_kernel<true><<<grid, tat::kThreads, 0, s>>>(
-        xp, wp, bp, cp, op, g, act, inv_out, alpha);
+        xp, wp, bp, cp, rp, op, g, act, inv_out, alpha, res_scale);
   else
     conv_int8_fused_kernel<false><<<grid, tat::kThreads, 0, s>>>(
-        xp, wp, bp, cp, op, g, act, inv_out, alpha);
+        xp, wp, bp, cp, rp, op, g, act, inv_out, alpha, res_scale);
   return static_cast<int>(cudaGetLastError());
 }

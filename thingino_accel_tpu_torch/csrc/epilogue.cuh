@@ -1,17 +1,22 @@
 // Shared pieces of the fused int8 conv kernels (mm_int8_fused.cu,
-// conv_int8_fused.cu): the tile shape, the dp4a tile product and the
+// conv_int8_fused.cu, mm_multi_int8_fused.cu, bneck_int8_fused.cu,
+// sppf_int8_fused.cu): the tile shape, the dp4a tile product and the
 // requantize epilogue with the single int8 store.
 //
 // The epilogue reproduces thingino_accel_tpu/ops/fused_kernels.py
 // _epilogue/_act_requant operation for operation:
-//   int32 acc + int32 bias -> f32 -> x cs -> activation -> x inv_out
+//   int32 acc + int32 bias -> f32 -> x cs -> activation
+//   -> [+ r * res_scale] -> x inv_out
 //   -> +-0.5 by sign -> trunc -> clamp [-128, 127]
 //   -> (LEAKY_RELU only) alpha on the quantized value, truncated.
-// Every multiply and add is an explicit round-to-nearest intrinsic, so
-// nvcc cannot contract `scaled + 0.5` (or any other pair) into an FMA,
-// which would move values that sit on a rounding tie.
+// act_requant() is the tail from the f32 pre-activation on, the entry of
+// the per-part-scale branch of the multi-part matmul. Every multiply and
+// add is an explicit round-to-nearest intrinsic, so nvcc cannot contract
+// `scaled + 0.5` (or any other pair) into an FMA, which would move values
+// that sit on a rounding tie.
 #pragma once
 
+#include <cassert>
 #include <cstdint>
 
 namespace tat {
@@ -26,15 +31,25 @@ constexpr int kBM = 64;
 constexpr int kBN = 64;
 constexpr int kBKW = 8;
 constexpr int kBK = 4 * kBKW;
+// bytes of the As/Bs tiles every kernel declares in static shared memory
+constexpr int kStaticSmem = (kBM + kBN) * (kBKW + 1) * 4;
 
-__device__ __forceinline__ int8_t epilogue(int acc, int bias, float cs, int act,
-                                           float inv_out, float alpha) {
-  float pre = __fmul_rn(__int2float_rn(acc + bias), cs);
+// The residual joins after the activation and before x inv_out; the
+// wrappers refuse LEAKY_RELU with a residual (its alpha applies after
+// quantization), and the assert states it here.
+__device__ __forceinline__ int8_t act_requant(float pre, int act,
+                                              float inv_out, float alpha,
+                                              bool has_res, int r,
+                                              float res_scale) {
   if (act == kActRelu) {
     pre = fmaxf(pre, 0.0f);
   } else if (act == kActSilu) {
     const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-pre)));
     pre = __fmul_rn(pre, sig);
+  }
+  if (has_res) {
+    assert(act != kActLeakyRelu);
+    pre = __fadd_rn(pre, __fmul_rn(__int2float_rn(r), res_scale));
   }
   const float scaled = __fmul_rn(pre, inv_out);
   const float shifted = __fadd_rn(scaled, scaled >= 0.0f ? 0.5f : -0.5f);
@@ -46,15 +61,24 @@ __device__ __forceinline__ int8_t epilogue(int acc, int bias, float cs, int act,
   return static_cast<int8_t>(q);
 }
 
-// Four int8 values of row `row` of a row-major [rows, K] matrix starting
-// at column k, packed little-endian into one word; zero past either edge.
-// VEC: K % 4 == 0 and the base is 4-byte aligned, so one aligned load.
+__device__ __forceinline__ int8_t epilogue(int acc, int bias, float cs, int act,
+                                           float inv_out, float alpha,
+                                           bool has_res = false, int r = 0,
+                                           float res_scale = 0.0f) {
+  return act_requant(__fmul_rn(__int2float_rn(acc + bias), cs), act, inv_out,
+                     alpha, has_res, r, res_scale);
+}
+
+// Four int8 values of row `row` of a row-major matrix with row stride ld
+// and K columns, starting at column k, packed little-endian into one
+// word; zero past either edge. VEC: K % 4 == 0, ld % 4 == 0 and the base
+// is 4-byte aligned, so one aligned load.
 template <bool VEC>
 __device__ __forceinline__ int load_row_word(const int8_t* __restrict__ p,
                                              long long row, long long rows,
-                                             int K, int k) {
+                                             long long ld, int K, int k) {
   if (row >= rows) return 0;
-  const int8_t* r = p + row * K;
+  const int8_t* r = p + row * ld;
   if (VEC) return k < K ? *reinterpret_cast<const int*>(r + k) : 0;
   unsigned word = 0;
   for (int i = 0; i < 4 && k + i < K; ++i)
@@ -84,15 +108,15 @@ __device__ __forceinline__ void mma_tile(int (*As)[kBKW + 1],
 }
 
 // Epilogue over the thread's 4x4 sub-tile and the one int8 write into
-// the row-major [M, N] output, masked at the ragged edges.
-__device__ __forceinline__ void store_tile(const int (&acc)[4][4],
-                                           int8_t* __restrict__ out,
-                                           long long m0, int n0, long long M,
-                                           int N, const int* __restrict__ bias,
-                                           const float* __restrict__ cs,
-                                           int act, float inv_out,
-                                           float alpha) {
+// the row-major [M, N] output, masked at the ragged edges. `res`, when
+// not null, is a row-major [M, N] int8 residual.
+__device__ __forceinline__ void store_tile(
+    const int (&acc)[4][4], int8_t* __restrict__ out, long long m0, int n0,
+    long long M, int N, const int* __restrict__ bias,
+    const float* __restrict__ cs, int act, float inv_out, float alpha,
+    const int8_t* __restrict__ res = nullptr, float res_scale = 0.0f) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const bool has_res = res != nullptr;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int n = n0 + tx + 16 * j;
@@ -102,7 +126,10 @@ __device__ __forceinline__ void store_tile(const int (&acc)[4][4],
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const long long m = m0 + ty + 16 * i;
-      if (m < M) out[m * N + n] = epilogue(acc[i][j], b, c, act, inv_out, alpha);
+      if (m >= M) continue;
+      const int r = has_res ? res[m * N + n] : 0;
+      out[m * N + n] =
+          epilogue(acc[i][j], b, c, act, inv_out, alpha, has_res, r, res_scale);
     }
   }
 }

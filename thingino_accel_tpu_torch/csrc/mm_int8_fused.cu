@@ -1,4 +1,5 @@
-// Fused int8 matmul for the 1x1 convs: out[M, N] = epilogue(x[M, K] @ w[N, K]^T).
+// Fused int8 matmul for the 1x1 convs:
+// out[M, N] = epilogue(x[M, K] @ w[N, K]^T [, residual[M, N]]).
 //
 // Replaces thingino_accel_tpu/ops/fused_kernels.py:matmul_int8_fused
 // (Pallas body _mm_kernel), which keeps an int32 accumulator resident in
@@ -29,8 +30,10 @@ __global__ void __launch_bounds__(tat::kThreads)
                          const int8_t* __restrict__ w,
                          const int* __restrict__ bias,
                          const float* __restrict__ cs,
+                         const int8_t* __restrict__ res,
                          int8_t* __restrict__ out, long long M, int N, int K,
-                         int act, float inv_out, float alpha) {
+                         int act, float inv_out, float alpha,
+                         float res_scale) {
   __shared__ int As[tat::kBM][tat::kBKW + 1];
   __shared__ int Bs[tat::kBN][tat::kBKW + 1];
   const long long m0 = static_cast<long long>(blockIdx.x) * tat::kBM;
@@ -43,21 +46,23 @@ __global__ void __launch_bounds__(tat::kThreads)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = lr + 32 * h;
-      As[r][lw] = tat::load_row_word<VEC>(x, m0 + r, M, K, k);
-      Bs[r][lw] = tat::load_row_word<VEC>(w, n0 + r, N, K, k);
+      As[r][lw] = tat::load_row_word<VEC>(x, m0 + r, M, K, K, k);
+      Bs[r][lw] = tat::load_row_word<VEC>(w, n0 + r, N, K, K, k);
     }
     __syncthreads();
     tat::mma_tile(As, Bs, acc);
     __syncthreads();
   }
-  tat::store_tile(acc, out, m0, n0, M, N, bias, cs, act, inv_out, alpha);
+  tat::store_tile(acc, out, m0, n0, M, N, bias, cs, act, inv_out, alpha, res,
+                  res_scale);
 }
 
 }  // namespace
 
 extern "C" int tat_mm_int8_fused(const void* x, const void* w, const void* bias,
-                                 const void* cs, void* out, long long M, int N,
-                                 int K, int act, float inv_out, float alpha,
+                                 const void* cs, const void* res, void* out,
+                                 long long M, int N, int K, int act,
+                                 float inv_out, float alpha, float res_scale,
                                  void* stream) {
   const dim3 grid(static_cast<unsigned>((M + tat::kBM - 1) / tat::kBM),
                   static_cast<unsigned>((N + tat::kBN - 1) / tat::kBN));
@@ -66,12 +71,13 @@ extern "C" int tat_mm_int8_fused(const void* x, const void* w, const void* bias,
   const auto* wp = static_cast<const int8_t*>(w);
   const auto* bp = static_cast<const int*>(bias);
   const auto* cp = static_cast<const float*>(cs);
+  const auto* rp = static_cast<const int8_t*>(res);
   auto* op = static_cast<int8_t*>(out);
   if (K % 4 == 0 && tat::aligned4(x) && tat::aligned4(w))
     mm_int8_fused_kernel<true><<<grid, tat::kThreads, 0, s>>>(
-        xp, wp, bp, cp, op, M, N, K, act, inv_out, alpha);
+        xp, wp, bp, cp, rp, op, M, N, K, act, inv_out, alpha, res_scale);
   else
     mm_int8_fused_kernel<false><<<grid, tat::kThreads, 0, s>>>(
-        xp, wp, bp, cp, op, M, N, K, act, inv_out, alpha);
+        xp, wp, bp, cp, rp, op, M, N, K, act, inv_out, alpha, res_scale);
   return static_cast<int>(cudaGetLastError());
 }

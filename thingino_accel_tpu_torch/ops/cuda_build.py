@@ -7,8 +7,9 @@ PyTorch C++ extension (which includes the torch headers) takes minutes.
 
 The library is built at first use into ``build/kernels/`` at the root of
 the checkout, named by a hash of the sources and flags, so an edited
-source is rebuilt and an unchanged one is reused. There is no fallback:
-a missing ``nvcc`` or a failed build raises.
+source is rebuilt and an unchanged one is reused. Each source compiles
+in its own ``nvcc`` process, all started together, and one more links
+them. There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -23,24 +24,43 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("mm_int8_fused.cu", "conv_int8_fused.cu")
+SOURCES = ("mm_int8_fused.cu", "conv_int8_fused.cu", "mm_multi_int8_fused.cu",
+           "bneck_int8_fused.cu", "sppf_int8_fused.cu")
 HEADERS = ("epilogue.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
-    # x, w, bias, cs, out, M, N, K, act, inv_out, alpha, stream
-    "tat_mm_int8_fused": (_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
-                          _I, _F, _F, _P),
-    # x, w, bias, cs, out, batch, H, W, C, O, KH, KW, stride, pt, pl,
-    # OH, OW, act, inv_out, alpha, stream
-    "tat_conv_int8_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # x, w, bias, cs, res, out, M, N, K, act, inv_out, alpha, res_scale,
+    # stream
+    "tat_mm_int8_fused": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _F, _F,
+                          _F, _P),
+    # x, w, bias, cs, res, out, batch, H, W, C, O, KH, KW, stride, pt, pl,
+    # OH, OW, act, inv_out, alpha, res_scale, stream
+    "tat_conv_int8_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    # n_parts, xs[4], ldx[4], ws[4], ldw[4], K[4], part_scales[4],
+    # same_scale, bias, bias_scale, cs, res, out, M, N, act, inv_out,
+    # alpha, res_scale, stream
+    "tat_mm_multi_int8_fused": (
+        _I, ctypes.POINTER(_P), ctypes.POINTER(_L), ctypes.POINTER(_P),
+        ctypes.POINTER(_I), ctypes.POINTER(_I), ctypes.POINTER(_F), _I, _P,
+        _F, _P, _P, _P, _L, _I, _I, _F, _F, _F, _P),
+    # x, w1, b1, cs1, w2, b2, cs2, out, batch, H, W, C, CM, O, K, TH,
+    # act1, inv1, alpha1, act2, inv2, alpha2, shortcut, res_scale, stream
+    "tat_bneck_int8_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _F, _F, _I, _F, _F, _I, _F,
+                             _P),
+    # x, w, bias, cs, out, batch, H, W, C, O, k, act, inv_out, alpha,
+    # stream
+    "tat_sppf_int8_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _F, _F, _P),
 }
 
 _library: Optional[ctypes.CDLL] = None
@@ -77,17 +97,34 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    nvcc = find_nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+             str(CSRC / src)] for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out[-4000:]}")
+    tmp = so.with_name(f"{tag}.so.tmp")
+    if not failed:
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    so.with_suffix(".log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, so)   # atomic: a concurrent process never loads half a file
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    os.replace(tmp, so)   # atomic: no process loads half a file
     return so
 
 

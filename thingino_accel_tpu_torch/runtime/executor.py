@@ -1,19 +1,36 @@
-"""IR executor: runs the graph node by node on torch tensors.
+"""IR executor: runs the graph on torch tensors, in one of two lowerings.
 
-Port of the per-node logical lowering of
-``thingino_accel_tpu.runtime.executor`` (``_lower_node``) for the
-serving tier without its planners: every int8 CONV2D goes through the
-fused dispatcher (``ops.fused_kernels.conv2d_int8_fused``) with its
-activation in the kernel's epilogue; MAXPOOL, CONCAT, ADD, nearest
-UPSAMPLE and RESHAPE are plain torch. The fold-layout and
-epilogue-fusion planners (``_plan_folds``, ``_plan_epilogue_fusions``)
-are not ported yet, so this matches the JAX serving engine built with
-``_plan_folds`` disabled.
+**Planned** (the default, what ``Engine(precision="serving")`` runs):
+port of ``thingino_accel_tpu.runtime.executor``'s serving tier with its
+planners (``runtime.planner``) and its fold-aware lowering
+(``_lower_node_folded``). The plan fuses a residual ADD into the conv
+before it, runs a CONCAT consumed only by 1x1 convs as a multi-part
+matmul that never materializes it, runs the SPPF pools with their 1x1
+conv, and runs a C3 bottleneck's 1x1 -> KxK pair as one kernel.
+
+The JAX lowering keeps its tensors in fold layouts and takes run-time
+fallbacks that read them: a deferred bottleneck half checks the residual's
+padded lane count, a virtual concat whose parts arrive in another layout
+is materialized, a residual in another layout is not fused. The port
+keeps every tensor in logical NHWC, but replays that bookkeeping (fold
+per tensor, physical lane count, bf16 stage tensors) once, when the
+executor is built, so it takes the decision the JAX package takes. The
+result is a fixed schedule of steps: kernel units (:class:`ConvUnit`,
+:class:`MultiUnit`, :class:`BneckUnit`, :class:`SppfUnit`) and plain
+torch steps.
+
+**Unplanned** (``planned=False``): the per-node lowering
+(``_lower_node``): every int8 CONV2D through the fused dispatcher
+(``ops.fused_kernels.conv2d_int8_fused``) with its activation in the
+kernel's epilogue; MAXPOOL, CONCAT, ADD, nearest UPSAMPLE and RESHAPE in
+plain torch. It matches the JAX serving engine built with ``_plan_folds``
+returning None, and stays as that oracle.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import collections
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +39,9 @@ from thingino_accel_tpu.ir.graph import Graph, Node, TensorInfo
 from thingino_accel_tpu.ir.passes import fuse_silu_pairs
 from thingino_accel_tpu_torch.ops import fused_kernels as FK
 from thingino_accel_tpu_torch.ops import reference as R
+from thingino_accel_tpu_torch.runtime import planner as P
+from thingino_accel_tpu_torch.runtime.planner import is_int8 as _is_int8
+from thingino_accel_tpu_torch.runtime.planner import pool_pads as _pool_pads
 
 # ops this lowering takes; anything else raises, naming where it is queued
 _SUPPORTED = ("CONV2D", "MAXPOOL", "CONCAT", "ADD", "UPSAMPLE", "RESHAPE")
@@ -30,9 +50,14 @@ _QUEUED = {
     "GRU": "ROADMAP.md A.8 (second modality)",
 }
 
-
-def _is_int8(t: TensorInfo) -> bool:
-    return np.issubdtype(t.dtype, np.signedinteger) and t.dtype.itemsize == 1
+# kernel unit kind -> the launch counter of its wrapper
+KERNEL_OF_KIND = {
+    "matmul": "matmul_int8_fused",
+    "conv": "conv2d_int8_halo_fused",
+    "multi": "matmul_int8_fused_multi",
+    "bneck": "bottleneck_int8_fused",
+    "sppf": "sppf_int8_fused",
+}
 
 
 def _nhwc_out_hw(t: TensorInfo) -> Tuple[int, int]:
@@ -41,6 +66,10 @@ def _nhwc_out_hw(t: TensorInfo) -> Tuple[int, int]:
 
 def _torch_dtype(dt: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, dt)).dtype
+
+
+def _ceil128(n: int) -> int:
+    return -(-n // 128) * 128
 
 
 def prepare_params(graph: Graph) -> Dict[str, np.ndarray]:
@@ -79,13 +108,217 @@ def params_from_jax(np_params: Dict[str, np.ndarray],
     return out
 
 
+# ---------------------------------------------------------------------------
+# Steps of a planned forward
+# ---------------------------------------------------------------------------
+
+
+class _Step:
+    """One step of a planned forward: computes ``out`` from the
+    activations named in ``reads`` (and the params)."""
+
+    out: str
+    reads: Tuple[str, ...] = ()
+
+    def run(self, env: Dict[str, torch.Tensor], plain: bool = False) -> None:
+        raise NotImplementedError
+
+
+class NodeStep(_Step):
+    """A node on the logical path (``Executor.lower_node``)."""
+
+    def __init__(self, ex: "Executor", node: Node):
+        self.ex, self.node, self.out = ex, node, node.outputs[0]
+        self.reads = tuple(i for i in node.inputs
+                           if not ex.tensors[i].is_const)
+
+    def run(self, env, plain=False):
+        self.ex.lower_node(self.node, env, plain=plain)
+
+
+class PoolStep(_Step):
+    """A skipped SPPF maxpool recomputed where something outside the fused
+    kernel needs it (``_ensure_logical``)."""
+
+    def __init__(self, out: str, src: str, k: int):
+        self.out, self.src, self.k = out, src, k
+        self.reads = (src,)
+
+    def run(self, env, plain=False):
+        z = env[self.src]
+        p = (self.k - 1) // 2
+        env[self.out] = R.maxpool(z, (self.k, self.k), (1, 1),
+                                  (z.shape[1], z.shape[2]), ((p, p), (p, p)))
+
+
+class ConcatStep(_Step):
+    """A virtual concat materialized where something needs it whole."""
+
+    def __init__(self, out: str, ins: Sequence[str]):
+        self.out, self.ins = out, list(ins)
+        self.reads = tuple(ins)
+
+    def run(self, env, plain=False):
+        env[self.out] = R.concat([env[i] for i in self.ins], 3)
+
+
+class KernelUnit(_Step):
+    """One launch of a hand-written kernel (or, ``plain=True``, of its plain
+    version). ``kind`` names the port's kernel (``KERNEL_OF_KIND``),
+    ``mirrors`` the JAX function whose call it stands for, ``reads`` the
+    activations it takes, ``residual`` the one fused in its epilogue."""
+
+    kind: str
+    mirrors: str
+    residual: Optional[str] = None
+    act: str = "NONE"
+
+    def compute(self, env, plain=False) -> torch.Tensor:
+        raise NotImplementedError
+
+    def run(self, env, plain=False):
+        env[self.out] = self.compute(env, plain)
+
+    def __repr__(self):
+        res = f" + {self.residual}" if self.residual else ""
+        return (f"{type(self).__name__}({self.kind} <- {self.mirrors}: "
+                f"{list(self.reads)}{res} -> {self.out})")
+
+
+class ConvUnit(KernelUnit):
+    """A conv through ``conv2d_int8_fused``: kernel #1 (1x1/s1 unpadded) or
+    #2, with an optional fused residual."""
+
+    def __init__(self, ex: "Executor", node: Node, out: str,
+                 ep: FK.Epilogue, mirrors: str,
+                 residual: Optional[str] = None, res_scale: float = 1.0,
+                 x: Optional[str] = None):
+        a = node.attrs
+        t = ex.tensors
+        self.node, self.out, self.ep, self.mirrors = node, out, ep, mirrors
+        self.x = x or node.inputs[0]
+        self.residual, self.res_scale = residual, res_scale
+        self.reads = (self.x,) + ((residual,) if residual else ())
+        self.act = ep.act
+        in_t = t[node.inputs[0]]
+        self.out_hw = _nhwc_out_hw(t[node.outputs[0]])
+        self.stride, self.dilation = a["stride"], a["dilation"]
+        self.pads = R._conv_pads(
+            (in_t.shape[1], in_t.shape[2]), self.out_hw, a["kernel"],
+            a["stride"], a["dilation"], a["padding"], a["explicit_pad"])
+        self.kind = ("matmul" if a["kernel"] == (1, 1)
+                     and self.stride == (1, 1)
+                     and self.pads == ((0, 0), (0, 0)) else "conv")
+
+    def compute(self, env, plain=False):
+        n = self.node
+        bias = env[n.inputs[2]] if len(n.inputs) > 2 else None
+        res = env[self.residual] if self.residual else None
+        return FK.conv2d_int8_fused(
+            env[self.x], env[n.inputs[1]], bias, self.ep, self.out_hw,
+            self.stride, self.dilation, self.pads, plain=plain,
+            residual=res, res_scale=self.res_scale)
+
+
+class MultiUnit(KernelUnit):
+    """A 1x1 conv over a virtual concat: kernel #3, one part per concat
+    input, weights as column slices of the conv's [O, C] weight."""
+
+    kind, mirrors = "multi", "matmul_int8_fused_multi"
+
+    def __init__(self, node: Node, out: str, parts: Sequence[str],
+                 widths: Sequence[int], me: FK.MultiEpilogue,
+                 residual: Optional[str] = None, res_scale: float = 1.0):
+        self.node, self.out, self.me = node, out, me
+        self.parts, self.widths = list(parts), list(widths)
+        self.residual, self.res_scale = residual, res_scale
+        self.reads = tuple(parts) + ((residual,) if residual else ())
+        self.act = me.ep.act
+
+    def compute(self, env, plain=False):
+        n = self.node
+        x0 = env[self.parts[0]]
+        nb, h, w = x0.shape[:3]
+        m = nb * h * w
+        w2d = env[n.inputs[1]].reshape(self.me.ep.cs.shape[0], -1)
+        xs, ws, off = [], [], 0
+        for p, ci in zip(self.parts, self.widths):
+            xs.append(env[p].reshape(m, ci))
+            ws.append(w2d[:, off:off + ci])
+            off += ci
+        bias = env[n.inputs[2]] if len(n.inputs) > 2 else None
+        res = (env[self.residual].reshape(m, -1) if self.residual
+               else None)
+        fn = (FK.matmul_int8_fused_multi_plain if plain
+              else FK.matmul_int8_fused_multi)
+        return fn(xs, ws, bias, self.me, res, self.res_scale).reshape(
+            nb, h, w, -1)
+
+
+class BneckUnit(KernelUnit):
+    """The C3 bottleneck pair (1x1 ``conv_a`` -> KxK/1 ``conv_b`` [+x]):
+    kernel #6."""
+
+    kind, mirrors = "bneck", "bottleneck_int8_fused"
+
+    def __init__(self, conv_a: Node, conv_b: Node, out: str,
+                 ep1: FK.Epilogue, ep2: FK.Epilogue, shortcut: bool,
+                 res_scale: float):
+        self.conv_a, self.conv_b, self.out = conv_a, conv_b, out
+        self.ep1, self.ep2 = ep1, ep2
+        self.shortcut, self.res_scale = shortcut, res_scale
+        self.reads = (conv_a.inputs[0],)
+        self.residual = conv_a.inputs[0] if shortcut else None
+        self.act = ep2.act
+
+    def compute(self, env, plain=False):
+        a, b = self.conv_a, self.conv_b
+        w1 = env[a.inputs[1]]
+        fn = (FK.bottleneck_int8_fused_plain if plain
+              else FK.bottleneck_int8_fused)
+        return fn(env[a.inputs[0]], w1.reshape(w1.shape[0], -1),
+                  env[a.inputs[2]] if len(a.inputs) > 2 else None, self.ep1,
+                  env[b.inputs[1]],
+                  env[b.inputs[2]] if len(b.inputs) > 2 else None, self.ep2,
+                  self.shortcut, self.res_scale)
+
+
+class SppfUnit(KernelUnit):
+    """SPPF's three pools, concat and 1x1 conv: kernel #4."""
+
+    kind, mirrors = "sppf", "sppf_int8_fused"
+
+    def __init__(self, node: Node, out: str, src: str, k: int,
+                 ep: FK.Epilogue):
+        self.node, self.out, self.src, self.k, self.ep = \
+            node, out, src, k, ep
+        self.reads = (src,)
+        self.act = ep.act
+
+    def compute(self, env, plain=False):
+        n = self.node
+        w = env[n.inputs[1]]
+        fn = FK.sppf_int8_fused_plain if plain else FK.sppf_int8_fused
+        return fn(env[self.src], w.reshape(w.shape[0], -1),
+                  env[n.inputs[2]] if len(n.inputs) > 2 else None, self.ep,
+                  self.k)
+
+
+# ---------------------------------------------------------------------------
+# Executor
+# ---------------------------------------------------------------------------
+
+
 class Executor:
     """``executor(params, inputs) -> outputs`` over torch tensors.
 
-    Per-conv epilogue rows (host-computed f32 scales) are built once, on
-    ``device``, when the executor is built."""
+    ``planned=True`` (the default) runs the planned serving tier, whose
+    schedule of steps (``self.steps``) is built here; ``planned=False``
+    runs the unplanned per-node lowering. Epilogue rows (host-computed
+    f32 scales) are built once, on ``device``."""
 
-    def __init__(self, graph: Graph, device: torch.device | str = "cpu"):
+    def __init__(self, graph: Graph, device: torch.device | str = "cpu",
+                 planned: bool = True):
         self.graph = graph
         self.tensors = graph.tensors
         self.nodes: List[Node] = fuse_silu_pairs(graph)
@@ -95,6 +328,11 @@ class Executor:
             self._check_supported(node)
             if node.op == "CONV2D" and not self._degenerate_decl(node):
                 self.epilogues[node.outputs[0]] = self._conv_epilogue(node)
+        self.plan: Optional[P.FoldPlan] = None
+        self.steps: List[_Step] = []
+        if planned:
+            self.plan = P.plan_folds(self.nodes, self.tensors, graph.outputs)
+            self.steps = _Scheduler(self).run()
 
     # -- build time --------------------------------------------------------
 
@@ -130,36 +368,65 @@ class Executor:
             raise NotImplementedError(
                 "bilinear UPSAMPLE: ROADMAP.md A.2 (reference ops)")
 
-    def _conv_epilogue(self, node: Node) -> FK.Epilogue:
-        a = node.attrs
+    def scale(self, name: str) -> float:
+        return self.tensors[name].quant.scale
+
+    def w_scale(self, node: Node):
         wt = self.tensors[node.inputs[1]]
-        ws = (wt.channel_scales if wt.channel_scales is not None
-              else wt.quant.scale)
+        return (wt.channel_scales if wt.channel_scales is not None
+                else wt.quant.scale)
+
+    def conv_epilogue(self, node: Node, in_scale: float,
+                      out_scale: float) -> FK.Epilogue:
+        a = node.attrs
         return FK.epilogue_rows(
-            ws, self.tensors[node.inputs[0]].quant.scale,
-            self.tensors[node.outputs[0]].quant.scale,
+            self.w_scale(node), in_scale, out_scale,
             a.get("activation", "NONE"),
             self.tensors[node.outputs[0]].shape[3],
             alpha=a.get("alpha", 0.01) or 0.01, device=self.device)
 
+    def _conv_epilogue(self, node: Node) -> FK.Epilogue:
+        return self.conv_epilogue(node, self.scale(node.inputs[0]),
+                                  self.scale(node.outputs[0]))
+
     # -- run time ----------------------------------------------------------
+
+    @property
+    def units(self) -> List[KernelUnit]:
+        """The kernel units of a planned forward, in launch order."""
+        return [s for s in self.steps if isinstance(s, KernelUnit)]
+
+    def launch_census(self) -> Dict[str, int]:
+        """Kernel launches of one planned forward, by launch counter."""
+        c = collections.Counter(KERNEL_OF_KIND[u.kind] for u in self.units)
+        return {k: c.get(k, 0) for k in FK.launches}
 
     def __call__(self, params: Dict[str, torch.Tensor],
                  inputs: Dict[str, torch.Tensor],
-                 outputs: Optional[List[str]] = None
+                 outputs: Optional[List[str]] = None,
+                 capture: Optional[list] = None,
                  ) -> Dict[str, torch.Tensor]:
+        """``capture`` (planned only): a list that receives, for every
+        kernel unit, ``(unit, {read name: tensor}, output)``."""
         env: Dict[str, torch.Tensor] = dict(params)
         env.update(inputs)
-        for node in self.nodes:
-            self.lower_node(node, env)
+        if self.plan is None:
+            for node in self.nodes:
+                self.lower_node(node, env)
+        else:
+            for step in self.steps:
+                step.run(env)
+                if capture is not None and isinstance(step, KernelUnit):
+                    capture.append((step, {r: env[r] for r in step.reads},
+                                    env[step.out]))
         names = self.graph.outputs if outputs is None else outputs
         return {o: env[o] for o in names}
 
     def lower_node(self, node: Node, env: Dict[str, torch.Tensor],
                    plain: bool = False) -> None:
-        """Compute ``node``'s outputs from ``env`` into ``env``.
-        ``plain=True`` runs convs through the plain versions on any
-        device (a check of the kernels, never the serving path)."""
+        """Compute ``node``'s outputs from ``env`` into ``env`` on the
+        logical path. ``plain=True`` runs convs through the plain versions
+        on any device (a check of the kernels, never the serving path)."""
         op = node.op
         a = node.attrs
         out_name = node.outputs[0]
@@ -180,8 +447,7 @@ class Executor:
                                      device=self.device)
             return
 
-        def scale(nm: str) -> float:
-            return self.tensors[nm].quant.scale
+        scale = self.scale
 
         if op == "CONV2D":
             x = env[node.inputs[0]]
@@ -249,20 +515,262 @@ class Executor:
                 env[out_name] = x   # shape metadata inconsistent -> identity
 
 
-def _pool_pads(a, in_hw=None) -> Tuple[Tuple[int, int], Tuple[int, int]]:
-    ep = a.get("explicit_pad", (0, 0, 0, 0))
-    if a.get("padding") == "EXPLICIT":
-        return (ep[0], ep[1]), (ep[2], ep[3])
-    if a.get("padding") == "SAME" and in_hw is not None:
-        kh, kw = a.get("kernel", (1, 1))
-        sh, sw = a.get("stride", (1, 1))
-        ph = max(0, (-(-in_hw[0] // sh) - 1) * sh + kh - in_hw[0])
-        pw = max(0, (-(-in_hw[1] // sw) - 1) * sw + kw - in_hw[1])
-        return (ph // 2, ph - ph // 2), (pw // 2, pw - pw // 2)
-    return (0, 0), (0, 0)
+class _Scheduler:
+    """Replays the JAX fold-aware lowering over shapes alone and records
+    the steps it takes.
+
+    State, as ``_FoldPlan``'s run-time fields and the JAX ``env``:
+    ``env`` (names present), ``rt`` (``runtime_fold``: the fold of an
+    array as stored), ``phys`` (the stored array's last dimension: f*C,
+    lane-padded to 128 for kernel outputs), ``qb`` (``qbf16_env``: stem
+    stage tensors held as bf16), ``parts`` (``plan.parts`` as mutated at
+    run time) and ``live`` (``bneck_live``: deferred bottleneck halves).
+    Each method cites the lines of ``thingino_accel_tpu/runtime/
+    executor.py`` it mirrors."""
+
+    def __init__(self, ex: Executor):
+        self.ex = ex
+        self.t = ex.tensors
+        self.plan = ex.plan
+        g = ex.graph
+        self.env = set(g.inputs) | {n for n, t in self.t.items()
+                                    if t.is_const}
+        self.rt: Dict[str, int] = {}
+        self.phys: Dict[str, int] = {i: self.c(i) for i in g.inputs}
+        self.qb: set = set()
+        self.parts = dict(self.plan.parts)
+        self.live: set = set()
+        self.steps: List[_Step] = []
+
+    def c(self, name: str) -> int:
+        return self.t[name].shape[3]
+
+    def run(self) -> List[_Step]:
+        """The main loop of the JAX ``build_executor.fn`` (139-157)."""
+        plan = self.plan
+        for node in self.ex.nodes:
+            out0 = node.outputs[0]
+            if out0 in plan.skip_outputs and (
+                    out0 in self.env or out0 in plan.virtual_concat
+                    or out0 in plan.pool_of):
+                continue   # folded into a consumer's kernel
+            if self.folded(node):
+                continue
+            self.unfold_inputs(node)
+            self.logical(node)
+        for o in self.ex.graph.outputs:
+            self.ensure_logical(o)
+        return self.steps
+
+    # -- helpers mirroring _ensure_logical / _unfold_inputs (596-634) -----
+
+    def ensure_logical(self, name: str) -> None:
+        plan = self.plan
+        if name not in self.env and name in plan.pool_of:
+            src, k = plan.pool_of[name]
+            self.ensure_logical(src)
+            self.steps.append(PoolStep(name, src, k))
+            self.env.add(name)
+            self.phys[name] = self.c(name)
+            return
+        if name not in self.env and name in plan.virtual_concat:
+            ins = plan.virtual_concat[name]
+            for i in ins:
+                self.ensure_logical(i)
+            self.steps.append(ConcatStep(name, ins))
+            self.env.add(name)
+            self.phys[name] = sum(self.c(i) for i in ins)
+            return
+        self.qb.discard(name)
+        if name not in self.rt:
+            return
+        self.rt.pop(name)
+        self.phys[name] = self.c(name)
+
+    def unfold_inputs(self, node: Node) -> None:
+        plan = self.plan
+        for i in node.inputs:
+            if i in self.env or i in plan.virtual_concat or i in plan.pool_of:
+                self.ensure_logical(i)
+
+    def logical(self, node: Node) -> None:
+        """``_lower_node`` (1005), then the output's fold is popped."""
+        if node.op == "CONV2D" and not self.ex._degenerate_decl(node):
+            out = node.outputs[0]
+            self.steps.append(ConvUnit(
+                self.ex, node, out, self.ex.epilogues[out],
+                mirrors="conv2d_int8_fused"))
+        else:
+            self.steps.append(NodeStep(self.ex, node))
+        for o in node.outputs:
+            self.env.add(o)
+            self.rt.pop(o, None)
+            self.phys[o] = self.c(o) if len(self.t[o].shape) == 4 else 0
+
+    def stored(self, name: str, f_out: int, phys: int) -> None:
+        """A kernel's output enters env (934-939)."""
+        self.env.add(name)
+        o_ch = self.c(name)
+        pad = phys - f_out * o_ch
+        self.phys[name] = phys
+        if f_out > 1 or pad > 0:
+            self.rt[name] = f_out
+            self.parts[name] = (o_ch,) + ((-pad,) if pad else ())
+
+    # -- _lower_node_folded (637-1002) -------------------------------------
+
+    def folded(self, node: Node) -> bool:
+        ex, plan, t = self.ex, self.plan, self.t
+        out = node.outputs[0]
+        if P.conv_fold_eligible(node, t):
+            return self.folded_conv(node)
+        f_planned = plan.f(out)
+        if f_planned <= 1:
+            return False
+        if node.op == "ADD":   # 946-956
+            if any(self.rt.get(i, 1) != f_planned for i in node.inputs):
+                return False
+            self.steps.append(NodeStep(ex, node))
+            i0 = node.inputs[0]
+            self.env.add(out)
+            self.rt[out] = f_planned
+            self.parts[out] = self.parts.get(i0, (self.c(i0),))
+            self.phys[out] = self.phys[i0]
+            return True
+        if node.op == "CONCAT":   # 989-1000
+            if out in plan.virtual_concat:
+                return True
+            if any(self.rt.get(i, 1) != f_planned for i in node.inputs):
+                return False
+            self.steps.append(NodeStep(ex, node))
+            self.env.add(out)
+            self.rt[out] = f_planned
+            ps = []
+            for i in node.inputs:
+                ps.extend(self.parts.get(i, (self.c(i),)))
+            self.parts[out] = tuple(ps)
+            self.phys[out] = sum(self.phys[i] for i in node.inputs)
+            return True
+        return False
+
+    def folded_conv(self, node: Node) -> bool:
+        ex, plan, t = self.ex, self.plan, self.t
+        a = node.attrs
+        act = a.get("activation", "NONE")
+        out = node.outputs[0]
+        src = node.inputs[0]
+        s = a["stride"][0]
+        f_out = plan.f(out)
+
+        # bottleneck, first half: defer the 1x1 (695-711)
+        if out in plan.bneck:
+            okf = (src in self.env and src not in self.qb
+                   and self.rt.get(src, 1) == f_out)
+            b_out = plan.bneck[out][1].outputs[0]
+            if okf and plan.res_fuse.get(b_out) is not None:
+                # the in-kernel residual reads x's lanes
+                okf = (_ceil128(self.phys[src])
+                       == _ceil128(f_out * self.c(b_out)))
+            if okf:
+                self.live.add(out)
+                return True
+
+        cin = self.c(src)
+        k2c = a["kernel"][0] * a["kernel"][1] * cin
+        if (out in plan.stem_stage or cin < 16) and k2c <= 1024:
+            # the stem stage (727-757): XLA's bf16 conv in JAX, exact,
+            # so kernels #1/#2 here; no residual
+            emit = plan.stem_emit.get(out, "int8")
+            if src not in self.qb:
+                self.ensure_logical(src)
+            self.steps.append(ConvUnit(ex, node, out, ex.epilogues[out],
+                                       mirrors="conv2d_int8_stem_fused"))
+            if emit == "qbf16":
+                self.env.add(out)
+                self.qb.add(out)
+                self.phys[out] = self.c(out)
+                return True
+            self.stored(out, f_out, f_out * self.c(out))
+            return True
+
+        # epilogue residual (759-776); the JAX `_act_applied` guard always
+        # holds here: _check_supported refuses activations outside the
+        # epilogue, so every conv's kernel applies its own
+        o_ch = self.c(out)
+        store = out
+        residual, res_scale = None, 1.0
+        ri = plan.res_fuse.get(out)
+        if ri is not None:
+            add_node, other = ri
+            p_other = self.parts.get(other, (o_ch,))
+            if (other in self.env and self.rt.get(other, 1) == f_out
+                    and other not in self.qb
+                    and tuple(ci for ci in p_other if ci > 0) == (o_ch,)):
+                residual, res_scale = other, ex.scale(other)
+                store = add_node.outputs[0]
+        out_s = ex.scale(store)
+
+        if src in self.live:   # bottleneck, second half (779-820)
+            self.live.discard(src)
+            conv_a = plan.bneck[src][0]
+            x_nm = conv_a.inputs[0]
+            ep1 = ex.conv_epilogue(conv_a, ex.scale(x_nm), ex.scale(src))
+            ep2 = ex.conv_epilogue(node, ex.scale(src), out_s)
+            unit: KernelUnit = BneckUnit(
+                conv_a, node, store, ep1, ep2, residual is not None,
+                FK.res_scale_bneck(ex.scale(x_nm), out_s, act))
+        elif (src in plan.sppf and a["kernel"] == (1, 1) and s == 1
+              and residual is None and f_out == 1):   # SPPF (821-830)
+            p_src, pk = plan.sppf[src]
+            self.ensure_logical(p_src)
+            unit = SppfUnit(node, store, p_src, pk,
+                            ex.conv_epilogue(node, ex.scale(p_src), out_s))
+        elif (src in plan.virtual_concat and a["kernel"] == (1, 1)
+              and s == 1):   # virtual concat (831-908)
+            ins = plan.virtual_concat[src]
+            for i in ins:
+                if i not in self.env:
+                    self.ensure_logical(i)
+            if any(self.rt.get(i, 1) != f_out or i in self.qb
+                   for i in ins):
+                # layouts diverged from the plan: materialize the concat
+                # and take the ordinary path with its single scale
+                self.ensure_logical(src)
+                if f_out > 1:
+                    self.rt[src] = f_out
+                    self.parts[src] = (cin,)
+                    self.phys[src] = f_out * cin
+                unit = ConvUnit(
+                    ex, node, store,
+                    ex.conv_epilogue(node, ex.scale(src), out_s),
+                    mirrors="conv2d_int8_folded", residual=residual,
+                    res_scale=FK.res_scale_folded(res_scale, out_s, act))
+            else:
+                me = FK.multi_epilogue(
+                    ex.w_scale(node), [ex.scale(i) for i in ins], out_s,
+                    act, o_ch, alpha=a.get("alpha", 0.01) or 0.01,
+                    bias_scale=ex.scale(src), device=ex.device)
+                unit = MultiUnit(
+                    node, store, ins, [self.c(i) for i in ins], me,
+                    residual=residual,
+                    res_scale=FK.res_scale_multi(res_scale, out_s, act))
+        else:   # the ordinary folded conv (909-926)
+            g = s * f_out
+            if self.rt.get(src, 1) != g:
+                self.ensure_logical(src)
+                if g > 1 and t[src].shape[2] % g:
+                    return False   # W not foldable -> logical path
+            unit = ConvUnit(
+                ex, node, store, ex.conv_epilogue(node, ex.scale(src), out_s),
+                mirrors="conv2d_int8_folded", residual=residual,
+                res_scale=FK.res_scale_folded(res_scale, out_s, act))
+        self.steps.append(unit)
+        self.stored(store, f_out, _ceil128(f_out * o_ch))
+        return True
 
 
-def build_executor(graph: Graph,
-                   device: torch.device | str = "cpu") -> Executor:
-    """Return ``fn(params, inputs) -> outputs`` for ``graph`` on ``device``."""
-    return Executor(graph, device)
+def build_executor(graph: Graph, device: torch.device | str = "cpu",
+                   planned: bool = True) -> Executor:
+    """Return ``fn(params, inputs) -> outputs`` for ``graph`` on ``device``;
+    ``planned=False`` gives the unplanned per-node lowering."""
+    return Executor(graph, device, planned)
