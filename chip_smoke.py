@@ -12,31 +12,42 @@ Phases:
 2. Build: compile the kernels in ``thingino_accel_tpu_torch/csrc/`` with
    nvcc, one process per source, all started together (timed).
 3. Kernels vs their plain torch versions on the card at the paths'
-   shapes (NONE and SILU, per-channel scales, residual modes); median
-   CUDA-event times of both.
+   shapes (NONE, LEAKY_RELU and SILU, per-channel scales, residual modes;
+   the depthwise kernel at NanoDet's shapes; the head decode on the real
+   yolov5n's heads at batch 16 and 1); median CUDA-event times of both.
 4. The main path: the planned serving tier (``Engine(precision=
    "serving")``) on the real-weight ``models/yolov5n_cal_int8.mars`` at
-   640x640 through letterbox -> int8 quantize -> network -> decode -> NMS
-   inside the port's ``StreamServer`` (depth 2), 4 batches of 16 uint8
-   1280x720 frames made from a seed, then 12 more batches for steadier
-   numbers. Checks: no failed batch; the launches of each kernel equal 4x
-   its count in the plan's schedule; finite detections inside the frame;
-   every kernel unit of one batch (inputs captured on the card) against its
-   plain version; one frame step by step on the card against the CPU path
-   (the path the tests hold against JAX); decode + NMS on tie-heavy heads.
-   Prints the share of head values where the planned and the unplanned
-   tier differ on the same batch.
+   640x640 through letterbox -> int8 quantize -> network -> decode (one
+   kernel over the three heads) -> NMS inside the port's ``StreamServer``
+   (depth 2), 4 batches of 16 uint8 1280x720 frames made from a seed, then
+   12 more batches for steadier numbers. Checks: no failed batch; the
+   launches of each conv kernel equal 4x its count in the plan's schedule,
+   and the decode launches once per batch; finite detections inside the
+   frame; every kernel unit of one batch (inputs captured on the card)
+   against its plain version; one frame step by step on the card against
+   the CPU path (the path the tests hold against JAX); decode + NMS on
+   tie-heavy heads, kernel decode vs plain decode. Prints the share of
+   head values where the planned and the unplanned tier differ on the
+   same batch.
 5. The unplanned tier (kept as the tests' oracle), 1 batch: one launch
    per conv, each conv teacher-forced kernel vs plain, one frame node by
    node against the CPU.
 6. The zoo yolov5s at 640 (random weights from seed 0), planned, 2
    batches of 8: one SPPF launch per forward, every unit of one batch
    against its plain version.
+7. The committed ``models/nanodet_320.mars`` (full width, 320x320,
+   depthwise): letterbox -> int8 quantize -> network through
+   ``StreamServer``, 4 batches of 16; launches per forward as the plan
+   counts them (16 of #1, 1 of #2, 6 of #7; its 4 stride-2 depthwise
+   convs are plain torch); every unit of one batch against its plain
+   version; one frame's heads on the card against the CPU path.
 
 Each path is run with the launch counters set to 0 just before it and
 read just after. Tolerances (as in ``tests/test_torch_fused_kernels.py``):
-NONE/RELU bit-exact; SILU at most 1 quantum on at most 0.1% of the
-elements (the kernel's ``expf`` and torch's sigmoid differ by ulps).
+NONE/RELU/LEAKY_RELU bit-exact; SILU at most 1 quantum on at most 0.1% of
+the elements (the kernel's ``expf`` and torch's sigmoid differ by ulps).
+The head decode: classes exact, boxes within rtol 1e-6 / atol 1e-5, conf
+within rtol 1e-6 / atol 1e-7, detections after NMS equal.
 
 Prints the kernels' JSON line, the card's ``name, power.limit`` line and,
 as the last line, ``{"ok": true, "device": {...}}``. Any failure exits
@@ -55,6 +66,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 MODEL = REPO / "models" / "yolov5n_cal_int8.mars"
+NANODET = REPO / "models" / "nanodet_320.mars"
 BATCHES, BATCH, FRAME_HW = 4, 16, (720, 1280)
 ZOO_BATCHES, ZOO_BATCH = 2, 8
 SILU_MAX_FRAC = 1e-3
@@ -64,14 +76,21 @@ SILU_MAX_FRAC = 1e-3
 # on #6); the zoo yolov5s adds the SPPF on #4
 PLANNED_REAL = {"matmul_int8_fused": 17, "conv2d_int8_halo_fused": 8,
                 "matmul_int8_fused_multi": 15, "bottleneck_int8_fused": 10,
-                "sppf_int8_fused": 0}
+                "sppf_int8_fused": 0, "depthwise_conv2d_int8_fused": 0}
 PLANNED_ZOO_S = {"matmul_int8_fused": 14, "conv2d_int8_halo_fused": 7,
                  "matmul_int8_fused_multi": 16, "bottleneck_int8_fused": 11,
-                 "sppf_int8_fused": 1}
+                 "sppf_int8_fused": 1, "depthwise_conv2d_int8_fused": 0}
 # the unplanned real yolov5n: one launch per conv, 42 1x1 and 18 KxK
 UNPLANNED_REAL = {"matmul_int8_fused": 42, "conv2d_int8_halo_fused": 18,
                   "matmul_int8_fused_multi": 0, "bottleneck_int8_fused": 0,
-                  "sppf_int8_fused": 0}
+                  "sppf_int8_fused": 0, "depthwise_conv2d_int8_fused": 0}
+# NanoDet-320: 17 convs and 10 depthwise convs in 23 launches (the 16 1x1
+# on #1, the 3x3/s2 stem on #2, the 6 stride-1 depthwise on #7)
+PLANNED_NANODET = {"matmul_int8_fused": 16, "conv2d_int8_halo_fused": 1,
+                   "matmul_int8_fused_multi": 0, "bottleneck_int8_fused": 0,
+                   "sppf_int8_fused": 0, "depthwise_conv2d_int8_fused": 6}
+# the YOLO pipelines decode their three heads in one launch per batch
+DECODE = "decode_and_parse_fused"
 KERNEL_INFO = {
     "matmul_int8_fused": {
         "source": "thingino_accel_tpu_torch/csrc/mm_int8_fused.cu",
@@ -88,10 +107,17 @@ KERNEL_INFO = {
     "sppf_int8_fused": {
         "source": "thingino_accel_tpu_torch/csrc/sppf_int8_fused.cu",
         "replaces": "thingino_accel_tpu/ops/fused_kernels.py:698"},
+    "depthwise_conv2d_int8_fused": {
+        "source": "thingino_accel_tpu_torch/csrc/dw_int8_fused.cu",
+        "replaces": "thingino_accel_tpu/ops/fused_kernels.py:1397"},
+    DECODE: {
+        "source": "thingino_accel_tpu_torch/csrc/decode_fused.cu",
+        "replaces": "thingino_accel_tpu/ops/decode_kernel.py:98"},
 }
 # the path whose run gives each kernel's launch count
 PATH_OF = {k: "planned real yolov5n" for k in KERNEL_INFO}
 PATH_OF["sppf_int8_fused"] = "planned zoo yolov5s 640"
+PATH_OF["depthwise_conv2d_int8_fused"] = "planned nanodet 320"
 
 
 class SmokeFailure(RuntimeError):
@@ -146,8 +172,37 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
-def note_err(results: dict, kernel: str, dmax: int) -> None:
+def note_err(results: dict, kernel: str, dmax) -> None:
     results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], dmax)
+
+
+def reset_launches() -> None:
+    from thingino_accel_tpu_torch.ops import decode_kernel as DK
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    FK.reset_launches()
+    DK.reset_launches()
+
+
+def read_launches() -> dict:
+    from thingino_accel_tpu_torch.ops import decode_kernel as DK
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    return {**FK.launches, **DK.launches}
+
+
+def compare_decode(got, ref, what: str) -> float:
+    """Kernel decode vs plain decode (boxes, conf, classes): classes
+    exact, boxes within rtol 1e-6 / atol 1e-5, conf within rtol 1e-6 /
+    atol 1e-7. Returns the max |diff| over boxes and conf."""
+    import torch
+    require(all(g.shape == r.shape and g.dtype == r.dtype
+                for g, r in zip(got, ref)), f"{what}: shapes/dtypes differ")
+    require(torch.equal(got[2], ref[2]), f"{what}: classes differ")
+    dmax = 0.0
+    for g, r, atol in ((got[0], ref[0], 1e-5), (got[1], ref[1], 1e-7)):
+        require(torch.allclose(g, r, rtol=1e-6, atol=atol, equal_nan=True),
+                f"{what}: values outside rtol 1e-6 / atol {atol}")
+        dmax = max(dmax, float((g - r).abs().nan_to_num(0.0).max()))
+    return dmax
 
 
 def phase_device():
@@ -181,7 +236,7 @@ def phase_build() -> float:
     for line in log.read_text().splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
-    print(f"[build] {len(cuda_build.SOURCES)} kernels built and loaded in "
+    print(f"[build] {len(cuda_build.SOURCES)} sources built and loaded in "
           f"{secs:.3f} s")
     return secs
 
@@ -320,6 +375,44 @@ def phase_kernels(results: dict) -> None:
                  lambda: FK.sppf_int8_fused(x, wt, bias, ep, 5),
                  lambda: FK.sppf_int8_fused_plain(x, wt, bias, ep, 5))
 
+    # depthwise 3x3/s1 at NanoDet's batch-16 shapes (its LEAKY_RELU), a
+    # SILU case and a C % 4 != 0 case (byte path)
+    for shape, act in [((16, 40, 40, 96), "LEAKY_RELU"),
+                       ((16, 10, 10, 384), "LEAKY_RELU"),
+                       ((16, 20, 20, 192), "SILU"),
+                       ((16, 40, 40, 37), "LEAKY_RELU")]:
+        nb, h, w, c = shape
+        x, wt, bias = rnd(shape), rnd((3, 3, c)), bias_of(c)
+        ep = FK.epilogue_rows(wscale(c), 0.01, 0.05, act, c, device=dev)
+        args = (x, wt, bias, ep, (h, w), ((1, 1), (1, 1)))
+        run_case("depthwise_conv2d_int8_fused",
+                 "3x3/s1 {}x{}x{}x{}".format(*shape), act,
+                 lambda: FK.depthwise_conv2d_int8_fused(*args),
+                 lambda: FK.depthwise_conv2d_int8_fused_plain(*args))
+
+    # head decode on the real yolov5n's heads (int8, 3 levels, per-head
+    # scales) at batch 16 and at batch 1
+    from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.ops import decode_kernel as DK
+    for nb in (16, 1):
+        heads = [rnd((nb, hw, hw, 255)) for hw in (80, 40, 20)]
+        scales = [0.047, 0.051, 0.063]
+        got = DK.decode_and_parse_fused(heads, scales=scales)
+        torch.cuda.synchronize()
+        dmax = compare_decode(got, Y.decode_and_parse(heads, scales=scales),
+                              f"decode batch {nb}")
+        ms = time_ms(lambda: DK.decode_and_parse_fused(heads, scales=scales),
+                     20)
+        plain_ms = time_ms(lambda: Y.decode_and_parse(heads, scales=scales),
+                           5, warmup=1)
+        label = f"3 heads {nb}x(80,40,20)^2x255 int8"
+        results[DECODE]["cases"].append({
+            "case": label, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": dmax})
+        note_err(results, DECODE, dmax)
+        print(f"[kernels] {DECODE:24s} {label}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, max |diff| {dmax:.3g}")
+
 
 def check_units(eng, x, results: dict, what: str) -> int:
     """Every kernel unit of one planned forward (inputs captured on the
@@ -335,14 +428,16 @@ def check_units(eng, x, results: dict, what: str) -> int:
     return len(rec)
 
 
-def check_postprocess_on_card(dev) -> int:
-    """Decode + NMS on the card vs on the CPU (the path the tests hold
-    against JAX) over seeded int8 heads drawn from a few values, so that
-    scores tie and boxes coincide: valid masks and classes equal, boxes
-    within 1e-4 px, scores within 1e-6 relative."""
+def check_postprocess_on_card(dev, results: dict) -> int:
+    """Decode + NMS over seeded int8 heads drawn from a few values, so
+    that scores tie and boxes coincide: the decode kernel then NMS on the
+    card, vs the plain decode then NMS on the card, and vs both on the CPU
+    (the path the tests hold against JAX): valid masks and classes equal,
+    boxes within 1e-4 px, scores within 1e-6 relative."""
     import numpy as np
     import torch
     from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.ops import decode_kernel as DK
 
     rng = np.random.default_rng(11)
     heads = []
@@ -350,19 +445,25 @@ def check_postprocess_on_card(dev) -> int:
         h = rng.integers(-2, 3, (BATCH, hw, hw, 3, 85)).astype(np.int8) * 8
         h[..., 4] = rng.choice([16, 40, 127], (BATCH, hw, hw, 3))
         heads.append(torch.from_numpy(h.reshape(BATCH, hw, hw, 255)))
-    res = {}
-    for d in (dev, torch.device("cpu")):
-        b, s, c = Y.decode_and_parse([h.to(d) for h in heads],
-                                     scales=[0.05] * 3)
-        res[d.type] = Y.nms_batched(b, s, c, max_dets=100, pre_nms=128,
-                                    topk_group=8)
-    g, r = res["cuda"], res["cpu"]
-    require(torch.equal(g.valid.cpu(), r.valid), "NMS valid masks differ")
-    require(torch.equal(g.classes.cpu(), r.classes), "NMS classes differ")
-    require(torch.allclose(g.boxes.cpu(), r.boxes, rtol=0, atol=1e-4),
-            "NMS boxes differ")
-    require(torch.allclose(g.scores.cpu(), r.scores, rtol=1e-6, atol=1e-12),
-            "NMS scores differ")
+    card = [h.to(dev) for h in heads]
+    dec = {"kernel": DK.decode_and_parse_fused(card, scales=[0.05] * 3),
+           "plain": Y.decode_and_parse(card, scales=[0.05] * 3),
+           "cpu": Y.decode_and_parse(heads, scales=[0.05] * 3)}
+    note_err(results, DECODE, compare_decode(dec["kernel"], dec["plain"],
+                                             "tie-heavy decode"))
+    res = {k: Y.nms_batched(*v, max_dets=100, pre_nms=128, topk_group=8)
+           for k, v in dec.items()}
+    r = res["cpu"]
+    for k in ("kernel", "plain"):
+        g = res[k]
+        require(torch.equal(g.valid.cpu(), r.valid),
+                f"NMS valid masks differ ({k} decode)")
+        require(torch.equal(g.classes.cpu(), r.classes),
+                f"NMS classes differ ({k} decode)")
+        require(torch.allclose(g.boxes.cpu(), r.boxes, rtol=0, atol=1e-4),
+                f"NMS boxes differ ({k} decode)")
+        require(torch.allclose(g.scores.cpu(), r.scores, rtol=1e-6,
+                               atol=1e-12), f"NMS scores differ ({k} decode)")
     return int(r.num.sum())
 
 
@@ -444,8 +545,11 @@ def check_detections(outs, target) -> list:
 
 
 def expect_launches(counts: dict, per_forward: dict, forwards: int,
-                    what: str) -> None:
+                    what: str, decodes: int = 0) -> None:
+    """Each conv kernel ``forwards`` times its count per forward; the head
+    decode ``decodes`` times."""
     want = {k: forwards * v for k, v in per_forward.items()}
+    want[DECODE] = decodes
     require(counts == want, f"{what}: launches {counts}, expected {want}")
 
 
@@ -461,7 +565,6 @@ def phase_slice(results: dict) -> dict:
     import numpy as np
     import torch
     from thingino_accel_tpu_torch.models import yolo as Y
-    from thingino_accel_tpu_torch.ops import fused_kernels as FK
     from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
     from thingino_accel_tpu_torch.runtime.serving import StreamServer
 
@@ -481,21 +584,23 @@ def phase_slice(results: dict) -> dict:
     pipe(torch.from_numpy(frames[0]).to(dev))
     torch.cuda.synchronize()
 
-    FK.reset_launches()
+    reset_launches()
     server = StreamServer(pipe, depth=2, device=dev)
     outs = list(server.run(frames))
     torch.cuda.synchronize()
-    counts = dict(FK.launches)
+    counts = read_launches()
     st = server.stats
     require(len(outs) == BATCHES, f"{len(outs)} results for {BATCHES} batches")
     require(all(o is not None for o in outs) and st.errors == 0,
             f"failed batches: errors={st.errors}")
-    expect_launches(counts, census, BATCHES, "planned real yolov5n")
+    expect_launches(counts, census, BATCHES, "planned real yolov5n",
+                    decodes=BATCHES)
     for name in KERNEL_INFO:
         if PATH_OF[name] == "planned real yolov5n":
             require(counts[name] > 0, f"{name} never launched on the path")
             results[name]["launches"] = counts[name]
-    print(f"[slice] launches {counts} (= {BATCHES} x the plan's census)")
+    print(f"[slice] launches {counts} (= {BATCHES} x the plan's census, "
+          "one decode per batch)")
 
     in_t = eng.graph.tensors[eng.input_names[0]]
     target = (in_t.shape[1], in_t.shape[2])
@@ -519,9 +624,9 @@ def phase_slice(results: dict) -> dict:
     n_steps = check_steps_against_cpu(eng, x1)
     print(f"[slice] card vs CPU, one frame: {n_steps} planned steps within "
           "tolerance")
-    n_dets = check_postprocess_on_card(dev)
-    print(f"[slice] decode + NMS on tie-heavy heads: card == CPU "
-          f"({n_dets} detections)")
+    n_dets = check_postprocess_on_card(dev, results)
+    print(f"[slice] decode + NMS on tie-heavy heads: kernel decode == plain "
+          f"decode on the card == CPU ({n_dets} detections)")
 
     # planned vs unplanned tier on the same batch (PERF.md open question)
     unplanned = Engine.from_yolo_mars(str(MODEL), EngineOptions("serving"),
@@ -551,7 +656,6 @@ def phase_unplanned(results: dict) -> dict:
     """The unplanned tier, kept as the tests' oracle: 1 batch."""
     import torch
     from thingino_accel_tpu_torch.models import yolo as Y
-    from thingino_accel_tpu_torch.ops import fused_kernels as FK
     from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
     from thingino_accel_tpu_torch.runtime.serving import StreamServer
 
@@ -562,14 +666,15 @@ def phase_unplanned(results: dict) -> dict:
     frames = frames_of(1)
     pipe(torch.from_numpy(frames[0]).to(dev))
     torch.cuda.synchronize()
-    FK.reset_launches()
+    reset_launches()
     server = StreamServer(pipe, depth=2, device=dev)
     outs = list(server.run(frames))
     torch.cuda.synchronize()
-    counts = dict(FK.launches)
+    counts = read_launches()
     require(len(outs) == 1 and outs[0] is not None
             and server.stats.errors == 0, "the unplanned batch failed")
-    expect_launches(counts, UNPLANNED_REAL, 1, "unplanned real yolov5n")
+    expect_launches(counts, UNPLANNED_REAL, 1, "unplanned real yolov5n",
+                    decodes=1)
     in_t = eng.graph.tensors[eng.input_names[0]]
     target = (in_t.shape[1], in_t.shape[2])
     check_detections(outs, target)
@@ -607,7 +712,6 @@ def phase_zoo_s(results: dict) -> dict:
     import numpy as np
     import torch
     from thingino_accel_tpu_torch.models import zoo
-    from thingino_accel_tpu_torch.ops import fused_kernels as FK
     from thingino_accel_tpu_torch.runtime.engine import Engine
 
     dev = torch.device("cuda")
@@ -622,12 +726,12 @@ def phase_zoo_s(results: dict) -> dict:
           for _ in range(ZOO_BATCHES)]
     eng.forward(xs[0])
     torch.cuda.synchronize()
-    FK.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     outs = [eng.forward(x) for x in xs]
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = dict(FK.launches)
+    counts = read_launches()
     expect_launches(counts, census, ZOO_BATCHES, "planned zoo yolov5s")
     require(counts["sppf_int8_fused"] == ZOO_BATCHES,
             "SPPF must launch once per forward")
@@ -645,9 +749,68 @@ def phase_zoo_s(results: dict) -> dict:
             "forward_s_2_batches": secs, "units_checked": n_units}
 
 
+def phase_nanodet(results: dict) -> dict:
+    """The committed NanoDet-320 (depthwise), planned, through
+    StreamServer: letterbox -> int8 quantize -> network -> heads."""
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.runtime.engine import Engine
+    from thingino_accel_tpu_torch.runtime.serving import StreamServer
+
+    dev = torch.device("cuda")
+    eng = Engine.from_mars(str(NANODET), device=dev)
+    census = eng._fn.launch_census()
+    require(census == PLANNED_NANODET,
+            f"planned nanodet schedule {census}, expected {PLANNED_NANODET}")
+    in_t = eng.graph.tensors[eng.input_names[0]]
+    target = (in_t.shape[1], in_t.shape[2])
+
+    def pipe(frames_u8):
+        return eng.forward(Y.quantize_input_int8(
+            Y.letterbox_uint8(frames_u8, target)))
+
+    frames = frames_of(BATCHES)
+    pipe(torch.from_numpy(frames[0]).to(dev))
+    torch.cuda.synchronize()
+    reset_launches()
+    server = StreamServer(pipe, depth=2, device=dev)
+    outs = list(server.run(frames))
+    torch.cuda.synchronize()
+    counts = read_launches()
+    st = server.stats
+    require(len(outs) == BATCHES and all(o is not None for o in outs)
+            and st.errors == 0, f"failed nanodet batches: errors={st.errors}")
+    expect_launches(counts, census, BATCHES, "planned nanodet")
+    results["depthwise_conv2d_int8_fused"]["launches"] = \
+        counts["depthwise_conv2d_int8_fused"]
+    for out in outs:
+        for k, h in out.items():
+            want = (BATCH,) + tuple(eng.graph.tensors[k].shape[1:])
+            require(tuple(h.shape) == want and h.dtype == torch.int8,
+                    f"nanodet head {k}: {tuple(h.shape)} {h.dtype}")
+    print(f"[nanodet] planned engine: {len(eng._fn.units)} kernel units per "
+          f"forward {census}; {st.summary()}; launches {counts}")
+
+    x = Y.quantize_input_int8(
+        Y.letterbox_uint8(torch.from_numpy(frames[0]).to(dev), target))
+    n_units = check_units(eng, x, results, "nanodet")
+    cpu = Engine.from_mars(str(NANODET))
+    card, ref = eng.run(x[:1]), cpu.run(x[:1].cpu())
+    for k in eng.output_names:
+        compare(card[k].cpu(), ref[k], "NONE", f"nanodet head {k} card vs CPU")
+    spread = min(len(np.unique(ref[k].numpy())) for k in ref)
+    print(f"[nanodet] kernel vs plain on every unit of one batch: {n_units} "
+          f"units within tolerance; one frame's heads on the card == CPU "
+          f"(min {spread} distinct values per head)")
+    return {"launches": counts, "census_per_forward": census,
+            "fps_4batch": st.fps, "p50_ms_4batch": st.latency_ms(50),
+            "p99_ms_4batch": st.latency_ms(99), "units_checked": n_units}
+
+
 def main() -> int:
     if not (REPO / "thingino_accel_tpu_torch" / "csrc").is_dir() \
-            or not MODEL.exists():
+            or not MODEL.exists() or not NANODET.exists():
         print("chip_smoke: FAIL: run it from a checkout of the repository "
               "(the port package and models/ are missing here)",
               file=sys.stderr)
@@ -667,6 +830,7 @@ def main() -> int:
         slice_res = phase_slice(results)
         unplanned_res = phase_unplanned(results)
         zoo_res = phase_zoo_s(results)
+        nanodet_res = phase_nanodet(results)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -674,7 +838,7 @@ def main() -> int:
 
     kernels = []
     for k, r in results.items():
-        rep = r["cases"][0]   # the first (NONE) case at a path's shape
+        rep = r["cases"][0]   # the first case, at a path's shape
         kernels.append({"name": k, "route": "cuda", **KERNEL_INFO[k],
                         "launches": r["launches"],
                         "max_abs_err": r["max_abs_err"], "ms": rep["ms"],
@@ -686,7 +850,7 @@ def main() -> int:
         "device": name, "nvidia_smi": smi, "build_s": build_s,
         "total_s": time.perf_counter() - t_start, "kernels": results,
         "slice": slice_res, "unplanned": unplanned_res,
-        "zoo_yolov5s": zoo_res}, indent=1))
+        "zoo_yolov5s": zoo_res, "nanodet": nanodet_res}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -27,6 +27,7 @@ from thingino_accel_tpu.models import zoo
 from thingino_accel_tpu.runtime import Engine as JEngine
 from thingino_accel_tpu.runtime import EngineOptions as JOptions
 from thingino_accel_tpu.runtime import executor as JEX
+from thingino_accel_tpu_torch.models import zoo as PZ
 from thingino_accel_tpu_torch.models.yolo import find_detect_outputs
 from thingino_accel_tpu_torch.runtime.engine import (
     Engine, EngineOptions, load_graph,
@@ -36,6 +37,7 @@ from thingino_accel_tpu_torch.runtime.executor import params_from_jax
 REPO = os.path.join(os.path.dirname(__file__), "..")
 FIXTURES = os.path.join(REPO, "models", "fixtures")
 REAL_YOLO = os.path.join(REPO, "models", "yolov5n_cal_int8.mars")
+NANODET = os.path.join(REPO, "models", "nanodet_320.mars")
 
 
 @pytest.fixture(autouse=True)
@@ -242,3 +244,113 @@ def test_capture_records_every_unit():
         env.update(reads)
         np.testing.assert_array_equal(unit.compute(env, plain=True).numpy(),
                                       out.numpy(), err_msg=repr(unit))
+
+
+# ---------------------------------------------------------------------------
+# NanoDet: depthwise convs (kernel #7 at stride 1, the plain op at stride 2)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nanodet_jax():
+    """The committed full-width NanoDet-320 through the JAX planned serving
+    engine at batch 1 (its Pallas kernels in interpret mode)."""
+    g = load_graph(NANODET)
+    x = np.random.default_rng(10).integers(-128, 128, (1, 320, 320, 3),
+                                           dtype=np.int8)
+    with pltpu.force_tpu_interpret_mode():
+        jeng = _jax_serving(g)
+        return g, x, jeng, jeng.run_np(x)
+
+
+def test_nanodet_320_heads_bit_exact(nanodet_jax):
+    """27 convs (10 depthwise), LEAKY_RELU, per-channel weight scales:
+    the port's planned heads equal the JAX serving engine's bit for bit."""
+    g, x, _, ref = nanodet_jax
+    eng = Engine.from_mars(NANODET)
+    ops = collections.Counter(n.op for n in eng._fn.nodes)
+    assert ops == {"CONV2D": 17, "DEPTHWISE_CONV2D": 10, "UPSAMPLE": 2,
+                   "ADD": 2}
+    out = eng.run_np(x)
+    _assert_outputs_equal(out, ref)
+    assert [out[k].shape for k in eng.output_names] == [
+        (1, 40, 40, 84), (1, 20, 20, 84), (1, 10, 10, 84)]
+    assert all(len(np.unique(v)) > 10 for v in out.values())
+
+
+def test_nanodet_depthwise_params_equal_jax(nanodet_jax):
+    """``prepare_params`` makes each depthwise weight [KH, KW, C], as the
+    JAX engine's ``_np_params`` holds it; ``params_from_jax`` leaves those
+    3-D weights alone, and an engine on the JAX params gives the same
+    heads."""
+    g, x, jeng, ref = nanodet_jax
+    port = Engine(g)
+    dw = [n.inputs[1] for n in port._fn.nodes if n.op == "DEPTHWISE_CONV2D"]
+    assert len(dw) == 10
+    for k in dw:
+        c = port.graph.tensors[k].shape[0]
+        assert port._np_params[k].shape == (3, 3, c)
+        np.testing.assert_array_equal(port._np_params[k], jeng._np_params[k])
+        np.testing.assert_array_equal(
+            params_from_jax({k: jeng._np_params[k]})[k].numpy(),
+            jeng._np_params[k])
+    assert set(port._np_params) == set(jeng._np_params)
+    for k, v in jeng._np_params.items():
+        np.testing.assert_array_equal(port._np_params[k], v, err_msg=k)
+    _assert_outputs_equal(Engine(g, params=jeng._np_params).run_np(x), ref)
+
+
+def test_zoo_nanodet_heads_bit_exact():
+    """Zoo nanodet at 64, batch 2, built by the port's zoo (the same graph
+    as the JAX zoo's): planned and unplanned heads equal the JAX serving
+    engine's, planned and unplanned."""
+    g = PZ.build_nanodet(PZ.ZooConfig(in_hw=(64, 64)), batch=2)
+    jg = zoo.build_nanodet(zoo.ZooConfig(in_hw=(64, 64)), batch=2)
+    x = _input(g, seed=11)
+    ref = _jax_serving(jg).run_np(x)
+    _assert_outputs_equal(Engine(g).run_np(x), ref)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JEX, "_plan_folds", lambda *a, **k: None)
+        ref_u = _jax_serving(jg).run_np(x)
+    _assert_outputs_equal(Engine(g, planned=False).run_np(x), ref_u)
+
+
+def _dw_graph(stride, act, op="DEPTHWISE_CONV2D"):
+    """One int8 depthwise conv, 3x3 over 8 channels."""
+    b = PZ.GraphBuilder("dw", PZ.ZooConfig(in_hw=(9, 9)))
+    x = b.input("x", (1, 9, 9, 8))
+    y = b.conv(x, 8, 3, stride, act=act, groups=8)
+    g = b.finish([y])
+    if op != "DEPTHWISE_CONV2D":
+        g.nodes[0] = Node(op=op, inputs=g.nodes[0].inputs,
+                          outputs=g.nodes[0].outputs, attrs=g.nodes[0].attrs,
+                          name=g.nodes[0].name)
+    return g
+
+
+@pytest.mark.parametrize("stride,act,op", [
+    (1, "RELU", "DEPTHWISE_CONV2D"), (2, "RELU", "DEPTHWISE_CONV2D"),
+    (1, "LEAKY_RELU", "CONV2D"), (2, "NONE", "CONV2D")])
+def test_single_depthwise_bit_exact(stride, act, op):
+    """A depthwise conv as DEPTHWISE_CONV2D or as a CONV2D with one group
+    per channel, at stride 1 (kernel #7) and 2 (plain op), planned and
+    unplanned."""
+    g = _dw_graph(stride, act, op)
+    x = _input(g, seed=stride)
+    ref = _jax_serving(g).run_np(x)
+    eng = Engine(g)
+    assert eng._fn.launch_census()["depthwise_conv2d_int8_fused"] == (
+        stride == 1)
+    _assert_outputs_equal(eng.run_np(x), ref)
+    _assert_outputs_equal(Engine(g, planned=False).run_np(x), ref)
+
+
+def test_depthwise_silu_outside_the_kernel_raises():
+    """SILU after a depthwise conv that is not the fused kernel (stride 2,
+    or the unplanned lowering) is the exact tier's semantics."""
+    with pytest.raises(NotImplementedError, match="A.3"):
+        Engine(_dw_graph(2, "SILU"))
+    with pytest.raises(NotImplementedError, match="A.3"):
+        Engine(_dw_graph(1, "SILU"), planned=False)
+    assert Engine(_dw_graph(1, "SILU"))._fn.launch_census()[
+        "depthwise_conv2d_int8_fused"] == 1

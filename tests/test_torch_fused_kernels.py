@@ -166,11 +166,16 @@ def test_cpu_wrappers_count_no_launch():
     x = torch.zeros((4, 16), dtype=torch.int8)
     ep = FK.epilogue_rows(0.01, 0.05, 0.05, "RELU", 8)
     FK.matmul_int8_fused(x, torch.zeros((8, 16), dtype=torch.int8), None, ep)
+    FK.depthwise_conv2d_int8_fused(
+        torch.zeros((1, 4, 4, 8), dtype=torch.int8),
+        torch.zeros((3, 3, 8), dtype=torch.int8), None, ep, (4, 4),
+        ((1, 1), (1, 1)))
     assert FK.launches == {"matmul_int8_fused": 0,
                            "conv2d_int8_halo_fused": 0,
                            "matmul_int8_fused_multi": 0,
                            "bottleneck_int8_fused": 0,
-                           "sppf_int8_fused": 0}
+                           "sppf_int8_fused": 0,
+                           "depthwise_conv2d_int8_fused": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -12,13 +12,18 @@ at most 0.1% of the elements (the kernel's ``expf`` and torch's sigmoid
 differ by ulps). The shapes cover both load paths of each kernel (4-byte
 words when C or K is a multiple of 4 and the pointers are aligned, bytes
 otherwise), every ragged edge, the residual modes, and the multi-part,
-bottleneck and SPPF kernels at their edge cases and model shapes.
+bottleneck, SPPF and depthwise kernels at their edge cases and model
+shapes. The head decode (kernel #8) is held against its plain version on
+the CPU: classes exact, boxes within rtol 1e-6 / atol 1e-5, conf within
+rtol 1e-6 / atol 1e-7, and the detections after NMS equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from thingino_accel_tpu_torch.models import yolo as Y
+from thingino_accel_tpu_torch.ops import decode_kernel as DK
 from thingino_accel_tpu_torch.ops import fused_kernels as FK
 
 pytestmark = pytest.mark.gpu
@@ -269,11 +274,14 @@ def test_launch_counters(cuda):
                              _rand(rng, (16, 3, 3, 8), cuda), None,
                              _ep(rng, 72, 16, "NONE", cuda))
     FK.sppf_int8_fused(x, _rand(rng, (16, 64), cuda), None, ep, 5)
+    FK.depthwise_conv2d_int8_fused(x, _rand(rng, (3, 3, 16), cuda), None,
+                                   ep, (8, 8), ((1, 1), (1, 1)))
     assert FK.launches == {"matmul_int8_fused": 1,
                            "conv2d_int8_halo_fused": 1,
                            "matmul_int8_fused_multi": 1,
                            "bottleneck_int8_fused": 1,
-                           "sppf_int8_fused": 1}
+                           "sppf_int8_fused": 1,
+                           "depthwise_conv2d_int8_fused": 1}
 
 
 def test_wrappers_reject_bad_operands(cuda):
@@ -287,3 +295,158 @@ def test_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError, match="devices"):
         FK.matmul_int8_fused(torch.zeros((4, 16), dtype=torch.int8), w,
                              None, ep)
+
+
+# (batch, H, W, C, KH, KW): NanoDet's stride-1 shapes, C % 4 != 0, odd
+# sizes, an even and a non-square window
+DW_CASES = [(16, 40, 40, 96, 3, 3), (16, 10, 10, 384, 3, 3),
+            (2, 9, 11, 37, 3, 3), (1, 7, 5, 6, 2, 2), (3, 11, 9, 24, 5, 3),
+            (1, 1, 1, 3, 3, 3)]
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("case", DW_CASES,
+                         ids=lambda c: "b{}h{}w{}c{}k{}x{}".format(*c))
+def test_dw_kernel_matches_plain(cuda, act, case):
+    nb, h, w, c, kh, kw = case
+    rng = np.random.default_rng(sum(case))
+    x, wt = _rand(rng, (nb, h, w, c), cuda), _rand(rng, (kh, kw, c), cuda)
+    bias = torch.from_numpy(rng.integers(-2000, 2000, c).astype(
+        np.int32)).to(cuda)
+    ep = _ep(rng, kh * kw, c, act, cuda)
+    pads = (((kh - 1) // 2, kh // 2), ((kw - 1) // 2, kw // 2))
+    for b in (bias, None):
+        out = FK.depthwise_conv2d_int8_fused(x, wt, b, ep, (h, w), pads)
+        torch.cuda.synchronize()
+        _close(out, FK.depthwise_conv2d_int8_fused_plain(x, wt, b, ep,
+                                                         (h, w), pads), act)
+
+
+def test_dw_kernel_unaligned_and_padded_output(cuda):
+    """A view at an odd byte offset takes the byte path; a declared output
+    larger than the input reads zeros past the edge."""
+    rng = np.random.default_rng(5)
+    buf = _rand(rng, (1 + 2 * 6 * 7 * 16,), cuda)
+    x = buf[1:].view(2, 6, 7, 16)
+    wt = _rand(rng, (3, 3, 16), cuda)
+    ep = _ep(rng, 9, 16, "LEAKY_RELU", cuda)
+    for out_hw, pads in [((6, 7), ((1, 1), (1, 1))),
+                         ((8, 9), ((2, 2), (2, 2)))]:
+        _close(FK.depthwise_conv2d_int8_fused(x, wt, None, ep, out_hw, pads),
+               FK.depthwise_conv2d_int8_fused_plain(x, wt, None, ep, out_hw,
+                                                    pads), "LEAKY_RELU")
+
+
+def _decode_pair(heads, **kw):
+    """Kernel on the card vs the plain decode on the CPU copies."""
+    DK.reset_launches()
+    got = DK.decode_and_parse_fused(heads, **kw)
+    torch.cuda.synchronize()
+    assert DK.launches["decode_and_parse_fused"] == 1
+    ref = DK.decode_and_parse_fused([h.cpu() for h in heads], **kw)
+    return [g.cpu() for g in got], ref
+
+
+def _assert_decode_close(got, ref, nan=False):
+    np.testing.assert_allclose(got[0].numpy(), ref[0].numpy(), rtol=1e-6,
+                               atol=1e-5, equal_nan=nan)
+    np.testing.assert_allclose(got[1].numpy(), ref[1].numpy(), rtol=1e-6,
+                               atol=1e-7, equal_nan=nan)
+    np.testing.assert_array_equal(got[2].numpy(), ref[2].numpy())
+
+
+# (batch, level sizes): the real yolov5n heads at 640 (batch 16 and 1, whose
+# 20x20 level has 400 rows), two levels, one level of one cell
+DECODE_CASES = [(16, (80, 40, 20)), (1, (80, 40, 20)), (3, (13, 7)),
+                (2, (1,))]
+
+
+@pytest.mark.parametrize("dtype", ["int8", "f32"])
+@pytest.mark.parametrize("case", DECODE_CASES,
+                         ids=lambda c: "b{}_{}".format(c[0], "x".join(
+                             map(str, c[1]))))
+def test_decode_kernel_matches_plain(cuda, dtype, case):
+    nb, hws = case
+    rng = np.random.default_rng(nb + sum(hws))
+    shapes = [(nb, hw, hw, 255) for hw in hws]
+    if dtype == "int8":
+        heads = [_rand(rng, s, cuda) for s in shapes]
+        scales = list(rng.uniform(0.03, 0.06, len(hws)))
+    else:
+        heads = [torch.from_numpy(rng.normal(0, 2, s).astype(np.float32)
+                                  ).to(cuda) for s in shapes]
+        scales = None
+    got, ref = _decode_pair(heads, anchors=Y.YOLOV5_ANCHORS[:len(hws)],
+                            strides=Y.YOLOV5_STRIDES[:len(hws)],
+                            scales=scales)
+    _assert_decode_close(got, ref)
+
+
+def test_decode_kernel_ties_and_nan(cuda):
+    """First-occurrence ties on int8 and f32 heads; f32 rows with all,
+    some and one NaN class logits give the first NaN's index."""
+    feat = np.zeros((2, 8, 8, 3, 85), np.int8)
+    feat[..., 0, 5 + 7] = feat[..., 0, 5 + 19] = 100
+    feat[..., 1, 5:] = -3
+    for dt in (np.int8, np.float32):
+        h = torch.from_numpy(feat.reshape(2, 8, 8, 255).astype(dt)).to(cuda)
+        got, ref = _decode_pair([h], anchors=Y.YOLOV5_ANCHORS[:1],
+                                strides=(8,), scales=[0.05])
+        _assert_decode_close(got, ref)
+        k = got[2].numpy().reshape(2, 64, 3)
+        assert (k[..., 0] == 7).all() and (k[..., 1] == 0).all()
+    rng = np.random.default_rng(9)
+    f = rng.normal(0, 2, (2, 8, 8, 3, 85)).astype(np.float32)
+    f[0, ..., 5:] = np.nan
+    f[1][rng.random((8, 8, 3)) < 0.3, 5 + 33] = np.nan
+    f[1, 0, 0, 0, 5 + 2] = np.nan
+    h = torch.from_numpy(f.reshape(2, 8, 8, 255)).to(cuda)
+    got, ref = _decode_pair([h], anchors=Y.YOLOV5_ANCHORS[:1], strides=(8,))
+    _assert_decode_close(got, ref, nan=True)
+    assert (got[2][0] == 0).all()
+
+
+def test_decode_kernel_detections_equal(cuda):
+    """The seeded tie-heavy head set of ``chip_smoke.py``: NMS over the
+    kernel's decode equals NMS over the plain decode."""
+    rng = np.random.default_rng(11)
+    heads = []
+    for hw in (80, 40, 20):
+        h = rng.integers(-2, 3, (4, hw, hw, 3, 85)).astype(np.int8) * 8
+        h[..., 4] = rng.choice([16, 40, 127], (4, hw, hw, 3))
+        heads.append(torch.from_numpy(h.reshape(4, hw, hw, 255)).to(cuda))
+    got, ref = _decode_pair(heads, scales=[0.05] * 3)
+    _assert_decode_close(got, ref)
+    # both decodes on the card, each through the same NMS on the card
+    kw = dict(max_dets=100, pre_nms=128, topk_group=8)
+    dg = Y.nms_batched(*DK.decode_and_parse_fused(heads, scales=[0.05] * 3),
+                       **kw)
+    dr = Y.nms_batched(*Y.decode_and_parse(heads, scales=[0.05] * 3), **kw)
+    assert int(dr.num.sum()) > 0
+    assert torch.equal(dg.valid, dr.valid)
+    assert torch.equal(dg.classes, dr.classes)
+    torch.testing.assert_close(dg.boxes, dr.boxes, rtol=0, atol=1e-4)
+    torch.testing.assert_close(dg.scores, dr.scores, rtol=1e-6, atol=1e-12)
+
+
+def test_new_wrappers_launch_on_every_cuda_call(cuda):
+    """A CUDA operand never reaches the plain version: each call moves the
+    wrapper's launch counter."""
+    rng = np.random.default_rng(4)
+    x = _rand(rng, (1, 8, 8, 16), cuda)
+    wt = _rand(rng, (3, 3, 16), cuda)
+    ep = _ep(rng, 9, 16, "RELU", cuda)
+    head = _rand(rng, (1, 4, 4, 255), cuda)
+    FK.reset_launches()
+    DK.reset_launches()
+    for i in range(1, 4):
+        FK.depthwise_conv2d_int8_fused(x, wt, None, ep, (8, 8),
+                                       ((1, 1), (1, 1)))
+        DK.decode_and_parse_fused([head], anchors=Y.YOLOV5_ANCHORS[:1],
+                                  strides=(8,), scales=[0.05])
+        assert FK.launches["depthwise_conv2d_int8_fused"] == i
+        assert DK.launches["decode_and_parse_fused"] == i
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="channels"):
+        DK.decode_and_parse_fused([_rand(rng, (1, 4, 4, 384), cuda)],
+                                  anchors=Y.YOLOV5_ANCHORS[:1], strides=(8,))

@@ -1,7 +1,7 @@
 """The port runs where JAX is not installed (the GPU machine lists none):
 a fresh interpreter with ``jax`` blocked imports the package, runs a
-`.mars` model on the CPU, and builds the zoo yolov5n and runs it through
-the planned serving tier."""
+`.mars` model on the CPU, and builds the zoo yolov5n and nanodet and runs
+them through the planned serving tier."""
 
 import os
 import subprocess
@@ -33,6 +33,13 @@ SCRIPT = textwrap.dedent("""
     heads = eng.run_np(np.zeros((1, 64, 64, 3), np.int8))
     assert [h.shape for h in heads.values()] == [
         (1, 8, 8, 255), (1, 4, 4, 255), (1, 2, 2, 255)]
+    eng = thingino_accel_tpu_torch.Engine(
+        zoo.build_nanodet(zoo.ZooConfig(in_hw=(64, 64))))
+    assert eng._fn.launch_census()["depthwise_conv2d_int8_fused"] == 6
+    heads = eng.run_np(np.zeros((1, 64, 64, 3), np.int8))
+    assert [h.shape for h in heads.values()] == [
+        (1, 8, 8, 84), (1, 4, 4, 84), (1, 2, 2, 84)]
+    from thingino_accel_tpu_torch.ops import decode_kernel
     assert sys.modules["jax"] is None
     print("ok")
 """)

@@ -1,13 +1,16 @@
 """The port's serving planner and planned lowering vs the JAX package's.
 
 - Plan: ``runtime.planner.plan_folds`` against ``executor._plan_folds`` on
-  the real yolov5n (rewired to its heads), zoo yolov5n at 64 and zoo
-  yolov5s at 640 (planning only, no tensors are computed).
+  the real yolov5n (rewired to its heads), zoo yolov5n at 64, zoo yolov5s
+  at 640, ``models/nanodet_320.mars`` and zoo nanodet at 64 (planning
+  only, no tensors are computed).
 - Run-time decisions: the kernel units the JAX planned engine calls on zoo
-  yolov5n at 64 (recorded by wrapping the functions of
+  yolov5n and zoo nanodet at 64 (recorded by wrapping the functions of
   ``thingino_accel_tpu.ops.fused_kernels`` in this test only; the executor
   looks them up at call time) against the units of the port's schedule, in
-  order.
+  order. The JAX lowering mutates its plan while it runs (``runtime_fold``,
+  ``parts``, ``qbf16_env``), so the JAX engine runs twice on one plan and
+  both runs are held against the port's one schedule.
 - Each unit teacher-forced: the port's unit computes from the JAX
   package's recorded tensors and is held against the JAX unit's output.
   Tolerance: non-SiLU units bit-exact; SiLU units within 1 quantum on at
@@ -38,17 +41,24 @@ from thingino_accel_tpu_torch.runtime.executor import KernelUnit
 
 REAL_YOLO = os.path.join(os.path.dirname(__file__), "..", "models",
                          "yolov5n_cal_int8.mars")
+NANODET = os.path.join(os.path.dirname(__file__), "..", "models",
+                       "nanodet_320.mars")
 
 # the JAX functions a planned forward calls for its kernel units
 UNIT_FUNCS = ("conv2d_int8_stem_fused", "conv2d_int8_folded",
               "matmul_int8_fused_multi", "bottleneck_int8_fused",
-              "sppf_int8_fused", "conv2d_int8_fused")
+              "sppf_int8_fused", "conv2d_int8_fused",
+              "depthwise_conv2d_int8_fused")
 
 
 def _graph(name):
     if name == "real_yolov5n":
         g = load_graph(REAL_YOLO)
         return g.with_outputs(find_detect_outputs(g))
+    if name == "nanodet_320":
+        return load_graph(NANODET)
+    if name == "zoo_nanodet_64":
+        return zoo.build_nanodet(zoo.ZooConfig(in_hw=(64, 64)), batch=2)
     size, hw = {"zoo_yolov5n_64": ("n", 64),
                 "zoo_yolov5s_640": ("s", 640)}[name]
     return zoo.build_yolov5(size, zoo.ZooConfig(in_hw=(hw, hw)))
@@ -66,7 +76,8 @@ def _names(d):
 
 
 @pytest.mark.parametrize("name", ["real_yolov5n", "zoo_yolov5n_64",
-                                  "zoo_yolov5s_640"])
+                                  "zoo_yolov5s_640", "nanodet_320",
+                                  "zoo_nanodet_64"])
 def test_plan_equals_jax(name):
     g, nodes = _serving(_graph(name))
     ref = JEX._plan_folds(nodes, g.tensors, g.outputs)
@@ -86,6 +97,26 @@ def test_plan_equals_jax(name):
         == {k: (a.outputs, b.outputs) for k, (a, b) in ref.bneck.items()}
     assert {k: (n.outputs, o) for k, (n, o) in port.res_fuse.items()} \
         == {k: (n.outputs, o) for k, (n, o) in ref.res_fuse.items()}
+
+
+def test_nanodet_plan():
+    """The NanoDet stem (3x3/s2 from 3 channels, LEAKY) is a one-conv stem
+    stage emitting int8 at fold 4; its LEAKY convs take no fused residual,
+    so the two PAN ADDs stay plain; nothing else fuses."""
+    g, nodes = _serving(_graph("nanodet_320"))
+    plan = P.plan_folds(nodes, g.tensors, g.outputs)
+    assert plan.stem_stage == {"t_3"} and plan.stem_emit == {"t_3": "int8"}
+    assert plan.f("t_3") == 4
+    assert not (plan.res_fuse or plan.virtual_concat or plan.sppf
+                or plan.bneck or plan.skip_outputs)
+    eng = Engine(_graph("nanodet_320"))
+    steps = [(type(s).__name__, getattr(s, "kind", s.out))
+             for s in eng._fn.steps]
+    assert steps[:3] == [("ConvUnit", "conv"), ("NodeStep", "t_7"),
+                         ("ConvUnit", "matmul")]
+    adds = [s for s in eng._fn.steps if getattr(s, "node", None) is not None
+            and s.node.op == "ADD"]
+    assert len(adds) == 2
 
 
 def test_real_yolov5n_plan_census():
@@ -112,21 +143,28 @@ def test_real_yolov5n_plan_census():
 @pytest.mark.parametrize("name,census", [
     ("real_yolov5n", {"matmul_int8_fused": 17, "conv2d_int8_halo_fused": 8,
                       "matmul_int8_fused_multi": 15,
-                      "bottleneck_int8_fused": 10, "sppf_int8_fused": 0}),
+                      "bottleneck_int8_fused": 10, "sppf_int8_fused": 0,
+                      "depthwise_conv2d_int8_fused": 0}),
     ("zoo_yolov5s_640", {"matmul_int8_fused": 14,
                          "conv2d_int8_halo_fused": 7,
                          "matmul_int8_fused_multi": 16,
-                         "bottleneck_int8_fused": 11, "sppf_int8_fused": 1}),
+                         "bottleneck_int8_fused": 11, "sppf_int8_fused": 1,
+                         "depthwise_conv2d_int8_fused": 0}),
+    ("nanodet_320", {"matmul_int8_fused": 16, "conv2d_int8_halo_fused": 1,
+                     "matmul_int8_fused_multi": 0,
+                     "bottleneck_int8_fused": 0, "sppf_int8_fused": 0,
+                     "depthwise_conv2d_int8_fused": 6}),
 ])
 def test_launch_census(name, census):
     """Kernel launches of one planned forward, from the schedule: every
-    residual rides in a bottleneck, 60 convs in 50 (real) launches."""
+    residual rides in a bottleneck, 60 convs in 50 (real) launches; the
+    NanoDet's 27 convs in 23, its 4 stride-2 depthwise convs plain."""
     eng = Engine(_graph(name))
     assert eng._fn.launch_census() == census
     units = eng._fn.units
     assert not any(u.residual for u in units if u.kind != "bneck")
     assert sum(1 + (u.kind == "bneck") for u in units) == sum(
-        n.op == "CONV2D" for n in eng._fn.nodes)
+        n.op == "CONV2D" or eng._fn.dw_kernel(n) for n in eng._fn.nodes)
 
 
 # ---------------------------------------------------------------------------
@@ -134,15 +172,12 @@ def test_launch_census(name, census):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def jax_units():
-    """One planned forward of the JAX serving engine (SiLU zoo yolov5n at
-    64, batch 2, not jitted so the values are concrete): the input and,
-    per top-level kernel unit call, (function, has residual, output)."""
-    g = _graph("zoo_yolov5n_64")
-    x = np.random.default_rng(2).integers(-128, 128, (2, 64, 64, 3),
-                                          dtype=np.int8)
-    rec, depth = [], [0]
+def _record_jax_units(g, x, runs=1):
+    """``runs`` planned forwards of one JAX serving engine (not jitted, so
+    the values are concrete and each run lowers the graph again on the
+    same plan): per run, per top-level kernel unit call, (function, has
+    residual, output); and the first run's outputs."""
+    recs, depth = [], [0]
 
     def wrap(name, fn):
         @functools.wraps(fn)
@@ -155,7 +190,7 @@ def jax_units():
             if depth[0] == 0:
                 res = (k.get("residual") is not None
                        or bool(k.get("shortcut", False)))
-                rec.append((name, res, np.asarray(out)))
+                recs[-1].append((name, res, np.asarray(out)))
             return out
         return rec_fn
 
@@ -164,8 +199,33 @@ def jax_units():
         for name in UNIT_FUNCS:
             mp.setattr(JFK, name, wrap(name, getattr(JFK, name)))
         eng = JEngine(g, JOptions(precision="serving", jit=False))
-        out = eng.run_np(x)
-    return g, x, rec, out
+        outs = []
+        for _ in range(runs):
+            recs.append([])
+            outs.append(eng.run_np(x))
+    return recs, outs[0]
+
+
+@pytest.fixture(scope="module")
+def jax_units():
+    """Two planned forwards of the JAX serving engine on SiLU zoo yolov5n
+    at 64, batch 2: the input, the first run's units, its outputs, and
+    the second run's units."""
+    g = _graph("zoo_yolov5n_64")
+    x = np.random.default_rng(2).integers(-128, 128, (2, 64, 64, 3),
+                                          dtype=np.int8)
+    (rec, rec2), out = _record_jax_units(g, x, runs=2)
+    return g, x, rec, out, rec2
+
+
+@pytest.fixture(scope="module")
+def jax_nanodet_units():
+    """The same for zoo nanodet at 64, batch 2 (LEAKY_RELU throughout)."""
+    g = _graph("zoo_nanodet_64")
+    x = np.random.default_rng(3).integers(-128, 128, (2, 64, 64, 3),
+                                          dtype=np.int8)
+    (rec, rec2), out = _record_jax_units(g, x, runs=2)
+    return g, x, rec, out, rec2
 
 
 def _logical(arr, shape):
@@ -179,7 +239,7 @@ def _logical(arr, shape):
 
 
 def test_runtime_units_equal_jax(jax_units):
-    g, x, rec, _ = jax_units
+    g, x, rec, _, _ = jax_units
     eng = Engine(g)
     units = eng._fn.units
     port = [(u.mirrors, u.residual is not None) for u in units]
@@ -197,7 +257,7 @@ def test_units_teacher_forced_silu(jax_units):
     """Every port unit computes from the JAX package's tensors (unit
     outputs recorded from the JAX run; exact torch ops in between) and is
     held against the JAX unit's output."""
-    g, x, rec, _ = jax_units
+    g, x, rec, _, _ = jax_units
     eng = Engine(g)
     env = dict(eng.params)
     env[eng.input_names[0]] = torch.from_numpy(x)
@@ -221,3 +281,44 @@ def test_units_teacher_forced_silu(jax_units):
         env[step.out] = torch.from_numpy(ref)
         i += 1
     assert i == len(rec) and silu == 47
+
+
+@pytest.mark.parametrize("which", ["yolov5n", "nanodet"])
+def test_second_jax_trace_takes_the_same_units(which, request):
+    """The JAX lowering mutates its plan as it runs; a second run on the
+    same plan calls the same kernel units, with the same outputs, as the
+    first, and both equal the port's one schedule."""
+    fixture = {"yolov5n": "jax_units", "nanodet": "jax_nanodet_units"}
+    g, _, rec, _, rec2 = request.getfixturevalue(fixture[which])
+    port = [(u.mirrors, u.residual is not None) for u in Engine(g)._fn.units]
+    assert [(n, r) for n, r, _ in rec2] == [(n, r) for n, r, _ in rec] \
+        == port
+    for (_, _, a), (_, _, b) in zip(rec, rec2):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_nanodet_units_teacher_forced(jax_nanodet_units):
+    """Zoo nanodet at 64: the JAX planned engine calls 1 stem, 16 folded
+    1x1 and 6 depthwise units; each port unit, computed from the JAX
+    package's tensors, equals the JAX unit bit for bit, and the port's
+    heads equal the JAX heads."""
+    g, x, rec, out, _ = jax_nanodet_units
+    eng = Engine(g)
+    assert collections.Counter(u.mirrors for u in eng._fn.units) == {
+        "conv2d_int8_stem_fused": 1, "conv2d_int8_folded": 16,
+        "depthwise_conv2d_int8_fused": 6}
+    env = dict(eng.params)
+    env[eng.input_names[0]] = torch.from_numpy(x)
+    units = iter(rec)
+    for step in eng._fn.steps:
+        if not isinstance(step, KernelUnit):
+            step.run(env)
+            continue
+        shape = (2,) + tuple(eng.graph.tensors[step.out].shape[1:])
+        ref = _logical(next(units)[2], shape)
+        np.testing.assert_array_equal(step.compute(env).numpy(), ref,
+                                      err_msg=repr(step))
+        env[step.out] = torch.from_numpy(ref)
+    got = eng.run_np(x)
+    for k in out:
+        np.testing.assert_array_equal(got[k], out[k], err_msg=k)

@@ -1,7 +1,7 @@
 // Shared pieces of the fused int8 conv kernels (mm_int8_fused.cu,
 // conv_int8_fused.cu, mm_multi_int8_fused.cu, bneck_int8_fused.cu,
-// sppf_int8_fused.cu): the tile shape, the dp4a tile product and the
-// requantize epilogue with the single int8 store.
+// sppf_int8_fused.cu, dw_int8_fused.cu): the tile shape, the dp4a tile
+// product and the requantize epilogue with the single int8 store.
 //
 // The epilogue reproduces thingino_accel_tpu/ops/fused_kernels.py
 // _epilogue/_act_requant operation for operation:

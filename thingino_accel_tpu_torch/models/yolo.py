@@ -328,7 +328,15 @@ def build_serving_pipeline(engine):
     decode (int8 heads, per-head scales) -> NMS (conf 0.25, IoU 0.45,
     100 detections, pool 128, group 8), the composition the JAX
     ``bench.py`` serving pipeline runs. ``engine`` is a
-    ``runtime.Engine`` whose outputs are the three detect heads."""
+    ``runtime.Engine`` whose outputs are the three detect heads.
+
+    The decode is ``ops.decode_kernel.decode_and_parse_fused``: one
+    kernel over the three heads on a CUDA device, its plain version
+    (:func:`decode_and_parse`) on the CPU."""
+    # imported here: ops.decode_kernel imports this module
+    from thingino_accel_tpu_torch.ops.decode_kernel import (
+        decode_and_parse_fused,
+    )
     in_t = engine.graph.tensors[engine.input_names[0]]
     target = (in_t.shape[1], in_t.shape[2])
     out_names = engine.output_names
@@ -337,7 +345,7 @@ def build_serving_pipeline(engine):
     def pipeline(frames_u8: torch.Tensor) -> Detections:
         x = quantize_input_int8(letterbox_uint8(frames_u8, target))
         feats = engine.forward(x)
-        boxes, scores, classes = decode_and_parse(
+        boxes, scores, classes = decode_and_parse_fused(
             [feats[k] for k in out_names], scales=scales)
         return nms_batched(boxes, scores, classes, max_dets=100,
                            pre_nms=128, topk_group=8)

@@ -1,12 +1,13 @@
-"""Model zoo: the YOLOv5 family built programmatically as IR graphs.
+"""Model zoo: the YOLOv5 family and the NanoDet-class detector built
+programmatically as IR graphs.
 
 Port of ``thingino_accel_tpu.models.zoo`` (``GraphBuilder``,
-``_bottleneck``, ``_c3``, ``_sppf``, ``build_yolov5``), which is free of
-JAX itself but cannot be imported without it (its package imports
-``models.yolo``, which imports jax). The code and its seeded numpy draws
-are the JAX package's, so one config gives the same graph, tensor for
-tensor, in both packages. ``build_nanodet`` (depthwise kernel #7) and
-``build_tiny`` are not ported.
+``_bottleneck``, ``_c3``, ``_sppf``, ``build_yolov5``, ``_dw_separable``,
+``build_nanodet``), which is free of JAX itself but cannot be imported
+without it (its package imports ``models.yolo``, which imports jax). The
+code and its seeded numpy draws are the JAX package's, so one config
+gives the same graph, tensor for tensor, in both packages.
+``build_tiny`` is not ported.
 """
 
 from __future__ import annotations
@@ -253,4 +254,56 @@ def build_yolov5(
     h3 = b.conv(n3, no, 1, act="NONE")
     h4 = b.conv(n4o, no, 1, act="NONE")
     h5 = b.conv(n5o, no, 1, act="NONE")
+    return b.finish([h3, h4, h5])
+
+
+# ---------------------------------------------------------------------------
+# NanoDet
+# ---------------------------------------------------------------------------
+
+
+def _dw_separable(b: GraphBuilder, x: str, c_out: int, s: int = 1,
+                  k: int = 3) -> str:
+    """Depthwise-separable block (ShuffleNet/NanoDet style): depthwise
+    KxK + pointwise 1x1."""
+    c_in = b.graph.tensors[x].shape[3]
+    y = b.conv(x, c_in, k, s, act="LEAKY_RELU", groups=c_in)
+    return b.conv(y, c_out, 1, act="LEAKY_RELU")
+
+
+def build_nanodet(
+    cfg: Optional[ZooConfig] = None,
+    batch: int = 1,
+    num_classes: Optional[int] = None,
+) -> Graph:
+    """NanoDet-class depthwise detector, the structure of
+    ``models/nanodet_320.mars``: a depthwise backbone (stride 4/8/16/32),
+    a PAN with depthwise blocks, per-level linear heads emitting
+    [B, H, W, num_classes + 4]."""
+    cfg = cfg or ZooConfig(in_hw=(320, 320))
+    if num_classes is None:
+        num_classes = cfg.num_classes
+    b = GraphBuilder(f"nanodet_{cfg.dtype}", cfg)
+    h, w = cfg.in_hw
+    x = b.input("images", (batch, h, w, 3))
+    y = b.conv(x, 24, 3, 2, act="LEAKY_RELU")      # /2
+    y = _dw_separable(b, y, 48, s=2)               # /4
+    c3 = _dw_separable(b, y, 96, s=2)              # /8
+    c3 = _dw_separable(b, c3, 96)
+    c4 = _dw_separable(b, c3, 192, s=2)            # /16
+    c4 = _dw_separable(b, c4, 192)
+    c5 = _dw_separable(b, c4, 384, s=2)            # /32
+    c5 = _dw_separable(b, c5, 384)
+    # PAN-lite
+    p5 = b.conv(c5, 96, 1, act="LEAKY_RELU")
+    p4 = b.conv(c4, 96, 1, act="LEAKY_RELU")
+    p3 = b.conv(c3, 96, 1, act="LEAKY_RELU")
+    u5 = b.upsample(p5)
+    p4 = b.add(p4, u5)
+    u4 = b.upsample(p4)
+    p3 = b.add(p3, u4)
+    no = num_classes + 4
+    h3 = b.conv(_dw_separable(b, p3, 96), no, 1, act="NONE")
+    h4 = b.conv(_dw_separable(b, p4, 96), no, 1, act="NONE")
+    h5 = b.conv(_dw_separable(b, p5, 96), no, 1, act="NONE")
     return b.finish([h3, h4, h5])

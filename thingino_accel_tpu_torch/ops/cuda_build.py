@@ -25,7 +25,8 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("mm_int8_fused.cu", "conv_int8_fused.cu", "mm_multi_int8_fused.cu",
-           "bneck_int8_fused.cu", "sppf_int8_fused.cu")
+           "bneck_int8_fused.cu", "sppf_int8_fused.cu", "dw_int8_fused.cu",
+           "decode_fused.cu")
 HEADERS = ("epilogue.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,6 +62,16 @@ _SIGNATURES = {
     # stream
     "tat_sppf_int8_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _F, _F, _P),
+    # x, w, bias, cs, out, batch, H, W, C, KH, KW, pt, pl, OH, OW, act,
+    # inv_out, alpha, stream
+    "tat_dw_int8_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _F, _F, _P),
+    # levels, feats[], H[], W[], strides[], scales[], anchors[], batch, A,
+    # NC, is_int8, boxes, conf, cls, stream
+    "tat_decode_fused": (_I, ctypes.POINTER(_P), ctypes.POINTER(_I),
+                         ctypes.POINTER(_I), ctypes.POINTER(_F),
+                         ctypes.POINTER(_F), ctypes.POINTER(_F), _I, _I, _I,
+                         _I, _P, _P, _P, _P),
 }
 
 _library: Optional[ctypes.CDLL] = None

@@ -13,6 +13,8 @@ run before the single int8 write. Port of
   CUDA kernel ``csrc/bneck_int8_fused.cu``;
 - :func:`sppf_int8_fused` (three chained maxpools + 4-part 1x1), CUDA
   kernel ``csrc/sppf_int8_fused.cu``;
+- :func:`depthwise_conv2d_int8_fused` (stride-1 depthwise convs), CUDA
+  kernel ``csrc/dw_int8_fused.cu``;
 - :func:`conv2d_int8_fused`, the dispatcher between the first two.
 
 Each wrapper takes its plain torch version for a tensor on the CPU, and
@@ -21,9 +23,10 @@ versions accumulate in float64 (exact for int8 products: |acc| <=
 K*K*C*128^2 << 2^53) and run the same epilogue in torch float32 ops;
 they are device-agnostic, since torch has no int32 matmul on CUDA.
 
-Weights are in the kernels' layout: ``[N, K]`` for the matmuls and OHWI
+Weights are in the kernels' layout: ``[N, K]`` for the matmuls, OHWI
 ``[O, KH, KW, C]`` for the convs (``runtime.executor.params_from_jax``
-repacks the JAX package's HWIO).
+repacks the JAX package's HWIO) and the JAX layout ``[KH, KW, C]`` for
+the depthwise convs.
 
 A residual ``r`` joins the epilogue after the activation as
 ``pre + r * res_scale`` (``_act_requant``); ``res_scale`` is the value
@@ -58,7 +61,8 @@ launches: Dict[str, int] = {"matmul_int8_fused": 0,
                             "conv2d_int8_halo_fused": 0,
                             "matmul_int8_fused_multi": 0,
                             "bottleneck_int8_fused": 0,
-                            "sppf_int8_fused": 0}
+                            "sppf_int8_fused": 0,
+                            "depthwise_conv2d_int8_fused": 0}
 
 
 def reset_launches() -> None:
@@ -306,6 +310,18 @@ def sppf_int8_fused_plain(x: torch.Tensor, w: torch.Tensor,
                                 ((p, p), (p, p))))
     cat = torch.cat(levels, 3).reshape(n * h * wd, 4 * c)
     return matmul_int8_fused_plain(cat, w, bias, ep).reshape(n, h, wd, -1)
+
+
+def depthwise_conv2d_int8_fused_plain(
+    x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+    ep: Epilogue, out_hw: Tuple[int, int],
+    pads: Tuple[Tuple[int, int], Tuple[int, int]],
+) -> torch.Tensor:
+    """Stride-1 depthwise conv: x NHWC [N, H, W, C] int8, w [KH, KW, C]
+    int8, zero (quantized zero) outside the image -> int8 [N, OH, OW, C]
+    through the epilogue. Elementwise int32 taps: exact on any device."""
+    acc = R.depthwise_acc_i32(x, w, out_hw, (1, 1), (1, 1), pads)
+    return epilogue_plain(acc, bias, ep)
 
 
 # ---------------------------------------------------------------------------
@@ -592,6 +608,42 @@ def _launch_sppf(x, w, bias, ep, k, out) -> None:
         _ptr(x), _ptr(w), _ptr(bias), _ptr(ep.cs), _ptr(out),
         nb, h, wd, c, out.shape[3], k, _ACT_CODE[ep.act], ep.inv_out,
         ep.alpha, _stream(out.device)), "tat_sppf_int8_fused")
+
+
+def depthwise_conv2d_int8_fused(
+    x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+    ep: Epilogue, out_hw: Tuple[int, int],
+    pads: Tuple[Tuple[int, int], Tuple[int, int]],
+) -> torch.Tensor:
+    """Stride-1 int8 depthwise conv with the epilogue: x NHWC
+    [N, H, W, C] int8, w [KH, KW, C] int8 (any KH x KW), bias [C] int32
+    -> int8 [N, OH, OW, C]. ``out_hw`` is the declared output size; only
+    pt/pl of ``pads`` position the window, and taps outside the image
+    read zero."""
+    nb, h, wd, c = x.shape
+    if w.dim() != 3 or w.shape[2] != c:
+        raise ValueError(f"depthwise weights must be [KH, KW, {c}], got "
+                         f"{tuple(w.shape)}")
+    dev = _check_operands(x, w, bias, ep, c)
+    if dev.type == "cpu":
+        return depthwise_conv2d_int8_fused_plain(x, w, bias, ep, out_hw,
+                                                 pads)
+    out = torch.empty((nb,) + tuple(out_hw) + (c,), dtype=torch.int8,
+                      device=dev)
+    if out.numel() > 0:
+        _launch_dw(x, w, bias, ep, pads, out)
+        launches["depthwise_conv2d_int8_fused"] += 1
+    return out
+
+
+def _launch_dw(x, w, bias, ep, pads, out) -> None:
+    nb, h, wd, c = x.shape
+    kh, kw, _ = w.shape
+    (pt, _), (pl, _) = pads
+    cuda_build.check(cuda_build.load_library().tat_dw_int8_fused(
+        _ptr(x), _ptr(w), _ptr(bias), _ptr(ep.cs), _ptr(out), nb, h, wd, c,
+        kh, kw, pt, pl, out.shape[1], out.shape[2], _ACT_CODE[ep.act],
+        ep.inv_out, ep.alpha, _stream(out.device)), "tat_dw_int8_fused")
 
 
 def conv2d_int8_fused(

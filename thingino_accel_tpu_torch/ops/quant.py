@@ -36,3 +36,13 @@ def round_to_int(x: torch.Tensor, mode: RoundMode) -> torch.Tensor:
 
 def clamp_i8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, -128, 127).to(torch.int8)
+
+
+def requantize(acc_i32: torch.Tensor, combined_scale,
+               mode: RoundMode = RoundMode.HALF_AWAY) -> torch.Tensor:
+    """int32 accumulator -> int8, the reference conv epilogue:
+    ``acc -> f32 x combined_scale``, round by ``mode``, clamp.
+    ``combined_scale`` is a float or a per-channel f32 tensor broadcast
+    over the last axis."""
+    scaled = acc_i32.to(torch.float32) * combined_scale
+    return clamp_i8(round_to_int(scaled, mode))

@@ -7,13 +7,13 @@ cites the reference runtime behaviour it replicates through it.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from thingino_accel_tpu_torch.ops.quant import (
-    RoundMode, clamp_i8, round_to_int,
+    RoundMode, clamp_i8, requantize, round_to_int,
 )
 
 
@@ -46,6 +46,64 @@ def _conv_pads(
     return (pt, pb), (pl, pr)
 
 
+def _combined_scale(in_scale, w_scale, out_scale, device=None):
+    """``in_scale * w_scale / out_scale`` in numpy f32, a float or, for a
+    per-channel ``w_scale``, an f32 tensor on ``device``."""
+    ws = np.asarray(w_scale, np.float32)
+    cs = (np.float32(in_scale) * ws) / np.float32(out_scale)
+    if cs.ndim == 0:
+        return float(cs)
+    return torch.from_numpy(np.array(cs, np.float32)).to(device)
+
+
+def depthwise_acc_i32(
+    x: torch.Tensor, w: torch.Tensor, out_hw: Tuple[int, int],
+    stride: Tuple[int, int], dilation: Tuple[int, int],
+    pads: Tuple[Tuple[int, int], Tuple[int, int]],
+) -> torch.Tensor:
+    """Zero-padded depthwise conv of NHWC int8 ``x`` with ``w`` [KH, KW, C]
+    -> int32 [N, OH, OW, C]: one elementwise int32 multiply-add per tap."""
+    _, h, wd, _ = x.shape
+    kh, kw, _ = w.shape
+    oh, ow = out_hw
+    (pt, pb), (pl, pr) = pads
+    # rows/columns past the input read zero, however short pb/pr are
+    pb = max(pb, (oh - 1) * stride[0] + (kh - 1) * dilation[0] + 1 - h - pt)
+    pr = max(pr, (ow - 1) * stride[1] + (kw - 1) * dilation[1] + 1 - wd - pl)
+    xp = torch.nn.functional.pad(x, (0, 0, pl, pr, pt, pb)).to(torch.int32)
+    wi = w.to(torch.int32)
+    acc = None
+    for dy in range(kh):
+        for dx in range(kw):
+            ys, xs = dy * dilation[0], dx * dilation[1]
+            sl = xp[:, ys:ys + (oh - 1) * stride[0] + 1:stride[0],
+                    xs:xs + (ow - 1) * stride[1] + 1:stride[1], :]
+            p = sl * wi[dy, dx]
+            acc = p if acc is None else acc + p
+    return acc
+
+
+def depthwise_conv2d_int8(
+    x: torch.Tensor, w: torch.Tensor, bias_i32: Optional[torch.Tensor],
+    out_hw: Tuple[int, int], stride: Tuple[int, int],
+    dilation: Tuple[int, int],
+    pads: Tuple[Tuple[int, int], Tuple[int, int]],
+    in_scale: float, w_scale, out_scale: float,
+    round_mode: RoundMode = RoundMode.HALF_AWAY, relu: bool = False,
+) -> torch.Tensor:
+    """Depthwise int8 conv (``w`` [KH, KW, C], any stride and dilation):
+    exact int32 accumulation, + bias, x the combined scale, rounded by
+    ``round_mode``, clamped; ``relu`` after the clamp."""
+    acc = depthwise_acc_i32(x, w, out_hw, stride, dilation, pads)
+    if bias_i32 is not None:
+        acc = acc + bias_i32.to(torch.int32)
+    out = requantize(acc, _combined_scale(in_scale, w_scale, out_scale,
+                                          x.device), round_mode)
+    if relu:
+        out = torch.clamp_min(out, 0)
+    return out
+
+
 def maxpool(
     x: torch.Tensor,
     kernel: Tuple[int, int],
@@ -73,6 +131,16 @@ def maxpool(
                    dx:dx + (ow - 1) * sw + 1:sw, :]
             out = v if out is None else torch.maximum(out, v)
     return out.contiguous()
+
+
+def leaky_relu(x: torch.Tensor, alpha: float = 0.01) -> torch.Tensor:
+    """LeakyReLU. int8: the negative branch is ``max(-128, trunc(x *
+    alpha))`` on the quantized value, in f32 with C truncation."""
+    if not x.dtype.is_floating_point:
+        neg = torch.trunc(x.to(torch.float32) * float(np.float32(alpha)))
+        neg = torch.clamp_min(neg, -128.0).to(x.dtype)
+        return torch.where(x > 0, x, neg)
+    return torch.where(x > 0, x, x * float(np.float32(alpha)))
 
 
 def _requant_recip(y: torch.Tensor, out_scale: float) -> torch.Tensor:

@@ -6,7 +6,9 @@ planners (``runtime.planner``) and its fold-aware lowering
 (``_lower_node_folded``). The plan fuses a residual ADD into the conv
 before it, runs a CONCAT consumed only by 1x1 convs as a multi-part
 matmul that never materializes it, runs the SPPF pools with their 1x1
-conv, and runs a C3 bottleneck's 1x1 -> KxK pair as one kernel.
+conv, and runs a C3 bottleneck's 1x1 -> KxK pair as one kernel. A
+stride-1 depthwise conv runs in its own kernel; other depthwise convs take
+the plain op, as the JAX serving tier computes them in XLA.
 
 The JAX lowering keeps its tensors in fold layouts and takes run-time
 fallbacks that read them: a deferred bottleneck half checks the residual's
@@ -16,15 +18,16 @@ keeps every tensor in logical NHWC, but replays that bookkeeping (fold
 per tensor, physical lane count, bf16 stage tensors) once, when the
 executor is built, so it takes the decision the JAX package takes. The
 result is a fixed schedule of steps: kernel units (:class:`ConvUnit`,
-:class:`MultiUnit`, :class:`BneckUnit`, :class:`SppfUnit`) and plain
-torch steps.
+:class:`MultiUnit`, :class:`BneckUnit`, :class:`SppfUnit`,
+:class:`DwUnit`) and plain torch steps.
 
 **Unplanned** (``planned=False``): the per-node lowering
 (``_lower_node``): every int8 CONV2D through the fused dispatcher
 (``ops.fused_kernels.conv2d_int8_fused``) with its activation in the
-kernel's epilogue; MAXPOOL, CONCAT, ADD, nearest UPSAMPLE and RESHAPE in
-plain torch. It matches the JAX serving engine built with ``_plan_folds``
-returning None, and stays as that oracle.
+kernel's epilogue, a stride-1 depthwise conv through its kernel and any
+other through the plain op; MAXPOOL, CONCAT, ADD, nearest UPSAMPLE and
+RESHAPE in plain torch. It matches the JAX serving engine built with
+``_plan_folds`` returning None, and stays as that oracle.
 """
 
 from __future__ import annotations
@@ -44,9 +47,9 @@ from thingino_accel_tpu_torch.runtime.planner import is_int8 as _is_int8
 from thingino_accel_tpu_torch.runtime.planner import pool_pads as _pool_pads
 
 # ops this lowering takes; anything else raises, naming where it is queued
-_SUPPORTED = ("CONV2D", "MAXPOOL", "CONCAT", "ADD", "UPSAMPLE", "RESHAPE")
+_SUPPORTED = ("CONV2D", "DEPTHWISE_CONV2D", "MAXPOOL", "CONCAT", "ADD",
+              "UPSAMPLE", "RESHAPE")
 _QUEUED = {
-    "DEPTHWISE_CONV2D": "ROADMAP.md B (depthwise kernel #7)",
     "GRU": "ROADMAP.md A.8 (second modality)",
 }
 
@@ -57,6 +60,7 @@ KERNEL_OF_KIND = {
     "multi": "matmul_int8_fused_multi",
     "bneck": "bottleneck_int8_fused",
     "sppf": "sppf_int8_fused",
+    "dw": "depthwise_conv2d_int8_fused",
 }
 
 
@@ -72,12 +76,27 @@ def _ceil128(n: int) -> int:
     return -(-n // 128) * 128
 
 
+def is_depthwise(node: Node, tensors) -> bool:
+    """A DEPTHWISE_CONV2D, or a CONV2D with one group per input channel
+    (the JAX executor's test, executor.py:657-658)."""
+    if node.op not in ("CONV2D", "DEPTHWISE_CONV2D") or len(node.inputs) < 2:
+        return False
+    in_shape = tensors[node.inputs[0]].shape
+    groups = node.attrs.get("groups", 1)
+    cin = in_shape[3] if len(in_shape) == 4 else 0
+    return node.op == "DEPTHWISE_CONV2D" or (groups > 1 and groups == cin)
+
+
 def prepare_params(graph: Graph) -> Dict[str, np.ndarray]:
-    """The graph's constants as numpy arrays, conv weights OIHW -> HWIO:
-    the same dict as the JAX ``prepare_params`` (``Engine._np_params``)
-    for the ops this lowering takes."""
-    conv_weights = {n.inputs[1] for n in graph.nodes
-                    if n.op == "CONV2D" and len(n.inputs) >= 2}
+    """The graph's constants as numpy arrays, conv weights OIHW -> HWIO
+    and depthwise weights OIHW [C, 1, KH, KW] -> [KH, KW, C]: the same
+    dict as the JAX ``prepare_params`` (``Engine._np_params``) for the
+    ops this lowering takes."""
+    conv_weights, dw_weights = set(), set()
+    for n in graph.nodes:
+        if n.op in ("CONV2D", "DEPTHWISE_CONV2D") and len(n.inputs) >= 2:
+            (dw_weights if is_depthwise(n, graph.tensors)
+             else conv_weights).add(n.inputs[1])
     params: Dict[str, np.ndarray] = {}
     for name, t in graph.tensors.items():
         if not t.is_const:
@@ -85,6 +104,10 @@ def prepare_params(graph: Graph) -> Dict[str, np.ndarray]:
         data = t.data
         if name in conv_weights:
             data = np.ascontiguousarray(np.transpose(data, (2, 3, 1, 0)))
+        elif name in dw_weights:
+            o, i, kh, kw = data.shape
+            data = np.ascontiguousarray(
+                data.reshape(o * i, kh, kw).transpose(1, 2, 0))
         params[name] = data
     return params
 
@@ -93,12 +116,13 @@ def params_from_jax(np_params: Dict[str, np.ndarray],
                     device: torch.device | str = "cpu"
                     ) -> Dict[str, torch.Tensor]:
     """The JAX engine's numpy params (``Engine._np_params``: HWIO int8
-    conv weights, int32 biases) as the port's tensors on ``device``.
+    conv weights, [KH, KW, C] depthwise weights, int32 biases) as the
+    port's tensors on ``device``.
 
-    Every 4-D int8 array is a conv weight (the JAX ``prepare_params``
-    makes depthwise weights 3-D) and is repacked HWIO -> OHWI, the
-    kernels' layout: each output channel's (ky, kx, c) run is contiguous,
-    matching the NHWC input."""
+    Every 4-D int8 array is a conv weight and is repacked HWIO -> OHWI,
+    the kernels' layout: each output channel's (ky, kx, c) run is
+    contiguous, matching the NHWC input. The 3-D depthwise weights stay
+    as they are: [KH, KW, C] is channel-contiguous like the input."""
     out: Dict[str, torch.Tensor] = {}
     for name, arr in np_params.items():
         arr = np.asarray(arr)
@@ -106,6 +130,19 @@ def params_from_jax(np_params: Dict[str, np.ndarray],
             arr = np.transpose(arr, (3, 0, 1, 2))
         out[name] = torch.from_numpy(np.array(arr, order="C")).to(device)
     return out
+
+
+def apply_fused_act(out: torch.Tensor, act: str, alpha: float = 0.01
+                    ) -> torch.Tensor:
+    """Port of ``_apply_fused_act`` for the activations a plain depthwise
+    conv meets here: RELU was applied by the op, LEAKY_RELU on the int8
+    value. Anything else is the exact tier's."""
+    if act in ("NONE", "RELU"):
+        return out
+    if act == "LEAKY_RELU":
+        return R.leaky_relu(out, alpha)
+    raise NotImplementedError(
+        f"activation {act!r} after a plain depthwise conv: ROADMAP.md A.3")
 
 
 # ---------------------------------------------------------------------------
@@ -304,6 +341,33 @@ class SppfUnit(KernelUnit):
                   self.k)
 
 
+class DwUnit(KernelUnit):
+    """A stride-1 depthwise conv: kernel #7, weights [KH, KW, C]."""
+
+    kind, mirrors = "dw", "depthwise_conv2d_int8_fused"
+
+    def __init__(self, ex: "Executor", node: Node):
+        t = ex.tensors
+        self.node, self.out = node, node.outputs[0]
+        self.ep = ex.epilogues[self.out]
+        self.reads = (node.inputs[0],)
+        self.act = self.ep.act
+        in_t = t[node.inputs[0]]
+        self.out_hw = _nhwc_out_hw(t[self.out])
+        a = node.attrs
+        self.pads = R._conv_pads(
+            (in_t.shape[1], in_t.shape[2]), self.out_hw, a["kernel"],
+            a["stride"], a["dilation"], a["padding"], a["explicit_pad"])
+
+    def compute(self, env, plain=False):
+        n = self.node
+        fn = (FK.depthwise_conv2d_int8_fused_plain if plain
+              else FK.depthwise_conv2d_int8_fused)
+        return fn(env[n.inputs[0]], env[n.inputs[1]],
+                  env[n.inputs[2]] if len(n.inputs) > 2 else None, self.ep,
+                  self.out_hw, self.pads)
+
+
 # ---------------------------------------------------------------------------
 # Executor
 # ---------------------------------------------------------------------------
@@ -325,8 +389,9 @@ class Executor:
         self.device = torch.device(device)
         self.epilogues: Dict[str, FK.Epilogue] = {}
         for node in self.nodes:
-            self._check_supported(node)
-            if node.op == "CONV2D" and not self._degenerate_decl(node):
+            self._check_supported(node, planned)
+            if node.op in ("CONV2D", "DEPTHWISE_CONV2D") \
+                    and not self._degenerate_decl(node):
                 self.epilogues[node.outputs[0]] = self._conv_epilogue(node)
         self.plan: Optional[P.FoldPlan] = None
         self.steps: List[_Step] = []
@@ -340,22 +405,46 @@ class Executor:
         return any(0 in self.tensors[t].shape
                    for t in list(node.inputs[:1]) + list(node.outputs))
 
-    def _check_supported(self, node: Node) -> None:
+    def dw_kernel(self, node: Node) -> bool:
+        """Does the serving tier run ``node`` in the depthwise kernel?
+        The JAX test (executor.py:653-662): an int8 depthwise conv at
+        stride 1, dilation 1, over a non-empty 4-D input."""
+        if not is_depthwise(node, self.tensors):
+            return False
+        a = node.attrs
+        in_t = self.tensors[node.inputs[0]]
+        return (_is_int8(in_t) and _is_int8(self.tensors[node.outputs[0]])
+                and a.get("stride", (1, 1)) == (1, 1)
+                and a.get("dilation", (1, 1)) == (1, 1)
+                and len(in_t.shape) == 4 and 0 not in in_t.shape)
+
+    def _check_supported(self, node: Node, planned: bool) -> None:
         op = node.op
         if op not in _SUPPORTED:
             where = _QUEUED.get(op, "ROADMAP.md A (modules to port)")
             raise NotImplementedError(
                 f"op {op!r} is not ported to the torch executor yet: {where}")
-        if op == "CONV2D" and not self._degenerate_decl(node):
+        if op in ("CONV2D", "DEPTHWISE_CONV2D") \
+                and not self._degenerate_decl(node):
             a = node.attrs
             in_t = self.tensors[node.inputs[0]]
-            if not _is_int8(in_t) or len(node.inputs) < 2:
+            act = a.get("activation", "NONE")
+            dw = is_depthwise(node, self.tensors)
+            if not _is_int8(in_t) or len(node.inputs) < 2 or (
+                    dw and not _is_int8(self.tensors[node.outputs[0]])):
                 raise NotImplementedError(
                     "float convs are the exact/fast tiers: ROADMAP.md A.3/A.6")
+            if dw:
+                if act not in FK.ACTS or (act == "SILU" and not (
+                        planned and self.dw_kernel(node))):
+                    # the JAX tiers apply it on the requantized int8 value
+                    raise NotImplementedError(
+                        f"depthwise conv activation {act!r} outside the "
+                        "fused kernel: ROADMAP.md A.3")
+                return
             if a.get("groups", 1) != 1:
                 raise NotImplementedError(
-                    "grouped/depthwise int8 convs: ROADMAP.md B "
-                    "(depthwise kernel #7)")
+                    "grouped int8 convs: ROADMAP.md A.3 (exact tier)")
             if a["dilation"] != (1, 1) or a["stride"][0] != a["stride"][1]:
                 raise NotImplementedError(
                     "dilated or non-square-stride convs leave the fused "
@@ -449,7 +538,30 @@ class Executor:
 
         scale = self.scale
 
-        if op == "CONV2D":
+        if is_depthwise(node, self.tensors):
+            x = env[node.inputs[0]]
+            bias = env[node.inputs[2]] if len(node.inputs) > 2 else None
+            out_hw = _nhwc_out_hw(out_t)
+            pads = R._conv_pads(
+                (x.shape[1], x.shape[2]), out_hw, a["kernel"], a["stride"],
+                a["dilation"], a["padding"], a["explicit_pad"])
+            if self.dw_kernel(node):
+                dw = (FK.depthwise_conv2d_int8_fused_plain if plain
+                      else FK.depthwise_conv2d_int8_fused)
+                env[out_name] = dw(x, env[node.inputs[1]], bias,
+                                   self.epilogues[out_name], out_hw, pads)
+                return
+            # any other stride: the plain op, as the JAX serving tier
+            # computes it in XLA (executor.py:1057-1061), then the act
+            act = a.get("activation", "NONE")
+            out = R.depthwise_conv2d_int8(
+                x, env[node.inputs[1]], bias, out_hw, a["stride"],
+                a["dilation"], pads, scale(node.inputs[0]),
+                self.w_scale(node), scale(out_name), relu=act == "RELU")
+            env[out_name] = apply_fused_act(out, act,
+                                            a.get("alpha", 0.01) or 0.01)
+
+        elif op == "CONV2D":
             x = env[node.inputs[0]]
             bias = env[node.inputs[2]] if len(node.inputs) > 2 else None
             out_hw = _nhwc_out_hw(out_t)
@@ -595,7 +707,8 @@ class _Scheduler:
 
     def logical(self, node: Node) -> None:
         """``_lower_node`` (1005), then the output's fold is popped."""
-        if node.op == "CONV2D" and not self.ex._degenerate_decl(node):
+        if node.op == "CONV2D" and not is_depthwise(node, self.t) \
+                and not self.ex._degenerate_decl(node):
             out = node.outputs[0]
             self.steps.append(ConvUnit(
                 self.ex, node, out, self.ex.epilogues[out],
@@ -622,6 +735,12 @@ class _Scheduler:
     def folded(self, node: Node) -> bool:
         ex, plan, t = self.ex, self.plan, self.t
         out = node.outputs[0]
+        if ex.dw_kernel(node):   # fused depthwise (651-687): logical output
+            self.unfold_inputs(node)
+            self.steps.append(DwUnit(ex, node))
+            self.env.add(out)
+            self.phys[out] = self.c(out)
+            return True
         if P.conv_fold_eligible(node, t):
             return self.folded_conv(node)
         f_planned = plan.f(out)
