@@ -41,6 +41,15 @@ Phases:
    counts them (16 of #1, 1 of #2, 6 of #7; its 4 stride-2 depthwise
    convs are plain torch); every unit of one batch against its plain
    version; one frame's heads on the card against the CPU path.
+8. The exact tier (``Engine(precision="exact")``) on the zoo yolov5s at
+   640 (random weights from seed 0, per-tensor scales): kernels #9, #10 and
+   #11 against their plain versions at the model's lead shapes (both
+   RoundModes, RELU after the clamp, dilation 2, stride (2, 1)), then
+   letterbox -> int8 quantize -> network -> decode -> NMS through
+   ``StreamServer`` (depth 2), 4 batches of 16 uint8 1280x720 frames:
+   launches 4 x {#9: 42, #10: 11, #11: 7} plus one decode a batch and no
+   plain conv; every conv of one batch against its plain version; one
+   frame step by step on the card against the CPU path, and its heads.
 
 Each path is run with the launch counters set to 0 just before it and
 read just after. Tolerances (as in ``tests/test_torch_fused_kernels.py``):
@@ -48,6 +57,15 @@ NONE/RELU/LEAKY_RELU bit-exact; SILU at most 1 quantum on at most 0.1% of
 the elements (the kernel's ``expf`` and torch's sigmoid differ by ulps).
 The head decode: classes exact, boxes within rtol 1e-6 / atol 1e-5, conf
 within rtol 1e-6 / atol 1e-7, detections after NMS equal.
+
+Each kernel's line carries its time (``ms``, CUDA events), its plain
+version's (``plain_ms``), the time of one PyTorch call computing the same
+product or convolution (``library_ms``: ``torch._int_mm``, or
+``F.conv2d`` in fp16 channels_last, a yardstick of time and not of
+numbers; null where no single call exists) and its bound (``bound_ms``:
+the larger of the bytes it must move over 3.35 TB/s and its int8
+operations over 1,979 TOP/s, the H100 SXM's published peaks), at its
+first case's shape.
 
 Prints the kernels' JSON line, the card's ``name, power.limit`` line and,
 as the last line, ``{"ok": true, "device": {...}}``. Any failure exits
@@ -70,6 +88,7 @@ NANODET = REPO / "models" / "nanodet_320.mars"
 BATCHES, BATCH, FRAME_HW = 4, 16, (720, 1280)
 ZOO_BATCHES, ZOO_BATCH = 2, 8
 SILU_MAX_FRAC = 1e-3
+PEAK_OPS, PEAK_BYTES = 1979e12, 3.35e12   # H100 SXM: int8 TOP/s, HBM B/s
 
 # the planned real yolov5n: 60 convs in 50 launches (5 stem-stage convs
 # and 20 others on #1/#2, 15 concat consumers on #3, 10 bottleneck pairs
@@ -89,6 +108,10 @@ UNPLANNED_REAL = {"matmul_int8_fused": 42, "conv2d_int8_halo_fused": 18,
 PLANNED_NANODET = {"matmul_int8_fused": 16, "conv2d_int8_halo_fused": 1,
                    "matmul_int8_fused_multi": 0, "bottleneck_int8_fused": 0,
                    "sppf_int8_fused": 0, "depthwise_conv2d_int8_fused": 6}
+# the exact zoo yolov5s at 640: its 60 convs on #9 (1x1), #10 (3x3/s1)
+# and #11 (the 6x6/s2 stem and six 3x3/s2), none on the plain op
+EXACT_ZOO_S = {"matmul_int8_requant": 42, "conv2d_int8_halo": 11,
+               "conv2d_int8": 7, "plain_convs": 0}
 # the YOLO pipelines decode their three heads in one launch per batch
 DECODE = "decode_and_parse_fused"
 KERNEL_INFO = {
@@ -113,11 +136,23 @@ KERNEL_INFO = {
     DECODE: {
         "source": "thingino_accel_tpu_torch/csrc/decode_fused.cu",
         "replaces": "thingino_accel_tpu/ops/decode_kernel.py:98"},
+    "matmul_int8_requant": {
+        "source": "thingino_accel_tpu_torch/csrc/requant_int8.cu",
+        "replaces": "thingino_accel_tpu/ops/pallas_kernels.py:120"},
+    "conv2d_int8_halo": {
+        "source": "thingino_accel_tpu_torch/csrc/requant_int8.cu",
+        "replaces": "thingino_accel_tpu/ops/pallas_kernels.py:216"},
+    "conv2d_int8": {
+        "source": "thingino_accel_tpu_torch/csrc/requant_int8.cu",
+        "replaces": "thingino_accel_tpu/ops/pallas_kernels.py:300 "
+                    "(_tapconv_call :388)"},
 }
 # the path whose run gives each kernel's launch count
 PATH_OF = {k: "planned real yolov5n" for k in KERNEL_INFO}
 PATH_OF["sppf_int8_fused"] = "planned zoo yolov5s 640"
 PATH_OF["depthwise_conv2d_int8_fused"] = "planned nanodet 320"
+for _k in ("matmul_int8_requant", "conv2d_int8_halo", "conv2d_int8"):
+    PATH_OF[_k] = "exact zoo yolov5s 640"
 
 
 class SmokeFailure(RuntimeError):
@@ -176,17 +211,71 @@ def note_err(results: dict, kernel: str, dmax) -> None:
     results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], dmax)
 
 
+def bound(ops: float, nbytes: float) -> tuple:
+    """The least time the card could take (ms) and what bounds it."""
+    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def conv_work(x, w, out, extra_bytes=0, groups=1) -> tuple:
+    """(int8 operations, bytes) of a conv: x NHWC, w OHWI (depthwise:
+    [KH, KW, C]), out NHWC; 4-byte bias and scale rows in ``extra``."""
+    macs = out.numel() * (w.numel() // out.shape[-1] if groups == 1
+                          else w.shape[0] * w.shape[1])
+    return 2 * macs, x.numel() + w.numel() + out.numel() + extra_bytes
+
+
+def library_ms(fn, label: str):
+    """Time one PyTorch call computing the same product or convolution
+    (never called by the port); None, with the reason printed, where the
+    call refuses the case."""
+    try:
+        return time_ms(fn, 20)
+    except Exception as e:   # a yardstick only: the kernel stands alone
+        print(f"[kernels] library call for {label} refused: "
+              f"{type(e).__name__}: {str(e).splitlines()[0][:200]}")
+        return None
+
+
+def int_mm_call(x2, w2):
+    """``torch._int_mm`` over ``x [M, K] @ w [N, K]^T``: the product alone,
+    no epilogue."""
+    import torch
+    wt = w2.t()
+    return lambda: torch._int_mm(x2, wt)
+
+
+def conv_fp16_call(x, w, stride, padding, dilation=(1, 1), groups=1):
+    """``F.conv2d`` in fp16, channels_last, on the same shapes (a yardstick
+    of time, not of numbers). ``w`` OHWI, or [KH, KW, C] for depthwise."""
+    import torch
+    import torch.nn.functional as F
+    cl = torch.channels_last
+    xh = x.permute(0, 3, 1, 2).half().contiguous(memory_format=cl)
+    if w.dim() == 3:
+        w = w.permute(2, 0, 1).unsqueeze(-1)   # [C, KH, KW, 1] OHWI
+    wh = w.permute(0, 3, 1, 2).half().contiguous(memory_format=cl)
+    return lambda: F.conv2d(xh, wh, None, stride, padding, dilation, groups)
+
+
 def reset_launches() -> None:
+    from thingino_accel_tpu_torch.ops import conv as C
     from thingino_accel_tpu_torch.ops import decode_kernel as DK
     from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.ops import requant_kernels as RK
     FK.reset_launches()
     DK.reset_launches()
+    RK.reset_launches()
+    C.reset_counts()
 
 
 def read_launches() -> dict:
+    from thingino_accel_tpu_torch.ops import conv as C
     from thingino_accel_tpu_torch.ops import decode_kernel as DK
     from thingino_accel_tpu_torch.ops import fused_kernels as FK
-    return {**FK.launches, **DK.launches}
+    from thingino_accel_tpu_torch.ops import requant_kernels as RK
+    return {**FK.launches, **DK.launches, **RK.launches, **C.counts}
 
 
 def compare_decode(got, ref, what: str) -> float:
@@ -241,6 +330,34 @@ def phase_build() -> float:
     return secs
 
 
+def time_case(results, phase, kernel, label, act, kern, plain, work=None,
+              library=None) -> None:
+    """One case of a kernel: its output against its plain version (the
+    tolerance of ``act``), both timed. ``work(out)``: the case's (ops,
+    bytes), for its bound; ``library``: one PyTorch call computing the
+    same product or conv, or None. Both are read on a kernel's first case
+    only, the case its line in the JSON reports."""
+    import torch
+    first = not results[kernel]["cases"]
+    out_k = kern()
+    torch.cuda.synchronize()
+    dmax = compare(out_k, plain(), act, f"{label} {act}")
+    ms = time_ms(kern, 20)
+    plain_ms = time_ms(plain, 5, warmup=1)
+    case = {"case": f"{label} {act}", "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": dmax}
+    if first:
+        case["bound_ms"], case["bound_by"] = bound(*work(out_k))
+        case["library_ms"] = (library_ms(library, label)
+                              if library is not None else None)
+    results[kernel]["cases"].append(case)
+    note_err(results, kernel, dmax)
+    extra = (f", bound {case['bound_ms']:.4f} ms ({case['bound_by']}), "
+             f"library {case['library_ms']}" if first else "")
+    print(f"[{phase}] {kernel:24s} {label} {act}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, max |diff| {dmax}{extra}")
+
+
 def phase_kernels(results: dict) -> None:
     """Each kernel vs its plain version at the paths' shapes."""
     import numpy as np
@@ -266,18 +383,8 @@ def phase_kernels(results: dict) -> None:
                                 float(0.0137 * np.sqrt(ktot)), act, o,
                                 device=dev)
 
-    def run_case(kernel, label, act, kern, plain):
-        out_k = kern()
-        torch.cuda.synchronize()
-        dmax = compare(out_k, plain(), act, f"{label} {act}")
-        ms = time_ms(kern, 20)
-        plain_ms = time_ms(plain, 5, warmup=1)
-        results[kernel]["cases"].append({
-            "case": f"{label} {act}", "ms": ms, "plain_ms": plain_ms,
-            "max_abs_err": dmax})
-        note_err(results, kernel, dmax)
-        print(f"[kernels] {kernel:24s} {label} {act}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, max |diff| {dmax}")
+    def run_case(*args):
+        time_case(results, "kernels", *args)
 
     # the 1x1 and KxK convs: (label, kernel, x shape, w OHWI shape, stride,
     # pad)
@@ -302,16 +409,20 @@ def phase_kernels(results: dict) -> None:
         bias = bias_of(o)
         for act in ("NONE", "SILU"):
             ep = ep_of(o, kk * kk * c, act)
+            work = (lambda out, x=x, wt=wt, o=o:
+                    conv_work(x, wt, out, 8 * o))
             if kernel == "matmul_int8_fused":
                 x2, w2 = x.reshape(-1, c), wt.reshape(o, c)
                 run_case(kernel, label, act,
                          lambda: FK.matmul_int8_fused(x2, w2, bias, ep),
-                         lambda: FK.matmul_int8_fused_plain(x2, w2, bias, ep))
+                         lambda: FK.matmul_int8_fused_plain(x2, w2, bias, ep),
+                         work, int_mm_call(x2, w2))
             else:
                 args = (x, wt, bias, ep, (oh, ow), pads, s)
                 run_case(kernel, label, act,
                          lambda: FK.conv2d_int8_halo_fused(*args),
-                         lambda: FK.conv2d_int8_halo_fused_plain(*args))
+                         lambda: FK.conv2d_int8_halo_fused_plain(*args),
+                         work, conv_fp16_call(x, wt, s, p))
 
     # residual modes of #1 and #2 (SILU: the C3 shortcut's activation)
     x = rnd((16, 80, 80, 32))
@@ -343,13 +454,17 @@ def phase_kernels(results: dict) -> None:
             ws.append(wfull[:, off:off + k])
             off += k
         bias = bias_of(n)
+        xcat = torch.cat(xs, 1)
         for act in ("NONE", "SILU"):
             me = FK.multi_epilogue(wscale(n), scales, 0.9, act, n,
                                    bias_scale=0.045, device=dev)
             run_case("matmul_int8_fused_multi", label, act,
                      lambda: FK.matmul_int8_fused_multi(xs, ws, bias, me),
                      lambda: FK.matmul_int8_fused_multi_plain(xs, ws, bias,
-                                                              me))
+                                                              me),
+                     lambda out, m=m, k=sum(parts), n=n: (
+                         2 * m * k * n, m * k + n * k + 8 * n + out.numel()),
+                     int_mm_call(xcat, wfull))
 
     # bottleneck: model.4's pair with its shortcut, a neck pair without
     for label, (nb, h, w, c), shortcut in [
@@ -363,7 +478,13 @@ def phase_kernels(results: dict) -> None:
                     ep_of(c, 9 * c, act), shortcut, 0.05)
             run_case("bottleneck_int8_fused", label, act,
                      lambda: FK.bottleneck_int8_fused(*args),
-                     lambda: FK.bottleneck_int8_fused_plain(*args))
+                     lambda: FK.bottleneck_int8_fused_plain(*args),
+                     lambda out, x=x, w1=w1, w2=w2, c=c: (
+                         2 * out.numel() // out.shape[-1]
+                         * (c * c + w2.numel()),
+                         x.numel() + w1.numel() + w2.numel() + 16 * c
+                         + out.numel()),
+                     conv_fp16_call(x, w2, 1, 1))   # the KxK stage alone
 
     # SPPF of the zoo yolov5s at 640: 20x20x256, k = 5 -> 512
     x = rnd((8, 20, 20, 256))
@@ -373,7 +494,10 @@ def phase_kernels(results: dict) -> None:
         ep = ep_of(512, 1024, act)
         run_case("sppf_int8_fused", "8x20x20x256 k5 -> 512", act,
                  lambda: FK.sppf_int8_fused(x, wt, bias, ep, 5),
-                 lambda: FK.sppf_int8_fused_plain(x, wt, bias, ep, 5))
+                 lambda: FK.sppf_int8_fused_plain(x, wt, bias, ep, 5),
+                 lambda out: (2 * out.numel() * 1024,
+                              x.numel() + wt.numel() + 8 * 512
+                              + out.numel()))   # no single library call
 
     # depthwise 3x3/s1 at NanoDet's batch-16 shapes (its LEAKY_RELU), a
     # SILU case and a C % 4 != 0 case (byte path)
@@ -388,7 +512,10 @@ def phase_kernels(results: dict) -> None:
         run_case("depthwise_conv2d_int8_fused",
                  "3x3/s1 {}x{}x{}x{}".format(*shape), act,
                  lambda: FK.depthwise_conv2d_int8_fused(*args),
-                 lambda: FK.depthwise_conv2d_int8_fused_plain(*args))
+                 lambda: FK.depthwise_conv2d_int8_fused_plain(*args),
+                 lambda out, x=x, wt=wt, c=c: conv_work(x, wt, out, 8 * c,
+                                                        groups=c),
+                 conv_fp16_call(x, wt, 1, 1, groups=c))
 
     # head decode on the real yolov5n's heads (int8, 3 levels, per-head
     # scales) at batch 16 and at batch 1
@@ -406,9 +533,16 @@ def phase_kernels(results: dict) -> None:
         plain_ms = time_ms(lambda: Y.decode_and_parse(heads, scales=scales),
                            5, warmup=1)
         label = f"3 heads {nb}x(80,40,20)^2x255 int8"
-        results[DECODE]["cases"].append({
-            "case": label, "ms": ms, "plain_ms": plain_ms,
-            "max_abs_err": dmax})
+        case = {"case": label, "ms": ms, "plain_ms": plain_ms,
+                "max_abs_err": dmax}
+        if not results[DECODE]["cases"]:
+            # bytes only: the heads read once, boxes/conf/class written
+            # once; no single library call decodes
+            case["bound_ms"], case["bound_by"] = bound(0, sum(
+                h.numel() for h in heads) + sum(
+                t.numel() * t.element_size() for t in got))
+            case["library_ms"] = None
+        results[DECODE]["cases"].append(case)
         note_err(results, DECODE, dmax)
         print(f"[kernels] {DECODE:24s} {label}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, max |diff| {dmax:.3g}")
@@ -487,7 +621,8 @@ def check_steps_against_cpu(eng, x) -> int:
     units within the SILU tolerance, every other step bit-exact."""
     from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
     from thingino_accel_tpu_torch.runtime.executor import KernelUnit
-    cpu = Engine.from_yolo_mars(str(MODEL), EngineOptions("serving"))
+    cpu = Engine.from_yolo_mars(str(MODEL), EngineOptions("serving"),
+                                device="cpu")
     steps, cpu_steps = eng._fn.steps, cpu._fn.steps
     require(len(steps) == len(cpu_steps), "card and CPU schedules differ")
     env = dict(eng.params)
@@ -510,7 +645,7 @@ def check_nodes_against_cpu(eng, x) -> int:
     from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
     acts = eng.trace(x)
     cpu = Engine.from_yolo_mars(str(MODEL), EngineOptions("serving"),
-                                planned=False)
+                                device="cpu", planned=False)
     for node in cpu._fn.nodes:
         env = dict(cpu.params)
         env.update({i: acts[i].cpu() for i in node.inputs if i in acts})
@@ -547,8 +682,9 @@ def check_detections(outs, target) -> list:
 def expect_launches(counts: dict, per_forward: dict, forwards: int,
                     what: str, decodes: int = 0) -> None:
     """Each conv kernel ``forwards`` times its count per forward; the head
-    decode ``decodes`` times."""
-    want = {k: forwards * v for k, v in per_forward.items()}
+    decode ``decodes`` times; every other counter 0."""
+    want = {k: 0 for k in counts}
+    want.update({k: forwards * v for k, v in per_forward.items()})
     want[DECODE] = decodes
     require(counts == want, f"{what}: launches {counts}, expected {want}")
 
@@ -795,7 +931,7 @@ def phase_nanodet(results: dict) -> dict:
     x = Y.quantize_input_int8(
         Y.letterbox_uint8(torch.from_numpy(frames[0]).to(dev), target))
     n_units = check_units(eng, x, results, "nanodet")
-    cpu = Engine.from_mars(str(NANODET))
+    cpu = Engine.from_mars(str(NANODET), device="cpu")
     card, ref = eng.run(x[:1]), cpu.run(x[:1].cpu())
     for k in eng.output_names:
         compare(card[k].cpu(), ref[k], "NONE", f"nanodet head {k} card vs CPU")
@@ -808,6 +944,175 @@ def phase_nanodet(results: dict) -> dict:
             "p99_ms_4batch": st.latency_ms(99), "units_checked": n_units}
 
 
+def phase_exact_kernels(results: dict) -> None:
+    """Kernels #9-#11 against their plain versions, bit for bit, at the
+    exact zoo yolov5s's lead shapes at batch 16, then both RoundModes and
+    RELU on one shape each, one dilation-2 case and one stride-(2, 1) case
+    (only #11 takes those two; no model here reaches them)."""
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch.ops import requant_kernels as RK
+    from thingino_accel_tpu_torch.ops.quant import RoundMode
+
+    rng = np.random.default_rng(4)
+    dev = torch.device("cuda")
+    half, trunc = RoundMode.HALF_AWAY, RoundMode.PLUS_HALF_TRUNC
+
+    def rnd(shape):
+        return torch.from_numpy(
+            rng.integers(-128, 128, shape, dtype=np.int8)).to(dev)
+
+    # (kernel, label, x shape, OHWI w shape, stride, dilation, pads,
+    # round mode, relu)
+    cases = [
+        ("matmul_int8_requant", "1x1 16x80x80x128 -> 128",
+         (16, 80, 80, 128), (128, 1, 1, 128), (1, 1), (1, 1), 0, half, False),
+        ("conv2d_int8_halo", "3x3/s1 16x40x40x128 -> 128",
+         (16, 40, 40, 128), (128, 3, 3, 128), (1, 1), (1, 1), 1, half, False),
+        ("conv2d_int8", "6x6/s2 stem 16x640x640x3 -> 32",
+         (16, 640, 640, 3), (32, 6, 6, 3), (2, 2), (1, 1), 2, half, False),
+        ("conv2d_int8", "3x3/s2 16x80x80x128 -> 256",
+         (16, 80, 80, 128), (256, 3, 3, 128), (2, 2), (1, 1), 1, half, False),
+        ("matmul_int8_requant", "1x1 16x80x80x128 -> 128",
+         (16, 80, 80, 128), (128, 1, 1, 128), (1, 1), (1, 1), 0, trunc,
+         True),
+        ("conv2d_int8_halo", "3x3/s1 16x40x40x128 -> 128",
+         (16, 40, 40, 128), (128, 3, 3, 128), (1, 1), (1, 1), 1, trunc,
+         False),
+        ("conv2d_int8", "3x3/s2 16x80x80x128 -> 256",
+         (16, 80, 80, 128), (256, 3, 3, 128), (2, 2), (1, 1), 1, half, True),
+        ("conv2d_int8", "3x3/s1 dilation 2 16x40x40x128 -> 128",
+         (16, 40, 40, 128), (128, 3, 3, 128), (1, 1), (2, 2), 2, half, False),
+        ("conv2d_int8", "3x3 stride (2,1) 16x40x40x64 -> 64",
+         (16, 40, 40, 64), (64, 3, 3, 64), (2, 1), (1, 1), 1, trunc, False),
+    ]
+    for kernel, label, xs, ws, st, dil, p, rm, relu in cases:
+        x, wt = rnd(xs), rnd(ws)
+        o, kh, kw, c = ws
+        bias = torch.from_numpy(
+            rng.integers(-3000, 3000, o).astype(np.int32)).to(dev)
+        out_hw = tuple((xs[1 + i] + 2 * p - (ws[1 + i] - 1) * dil[i] - 1)
+                       // st[i] + 1 for i in range(2))
+        pads = ((p, p), (p, p))
+        args = (x, wt, bias, out_hw, st, dil, pads, 0.05, 0.01,
+                float(0.0137 * np.sqrt(kh * kw * c)), rm, relu)
+        require(RK.route((kh, kw), st, dil, pads) == kernel,
+                f"{label} routes to {RK.route((kh, kw), st, dil, pads)}")
+        if kernel == "matmul_int8_requant":
+            library = int_mm_call(x.reshape(-1, c), wt.reshape(o, c))
+        else:
+            library = conv_fp16_call(x, wt, st, p, dil)
+        # the exact convs are compared bit for bit ("NONE")
+        time_case(results, "exact", kernel,
+                  f"{label} {rm.name}{' relu' if relu else ''}", "NONE",
+                  lambda args=args: RK.conv2d_int8(*args),
+                  lambda args=args: RK.conv2d_int8(*args, plain=True),
+                  lambda out, x=x, wt=wt, o=o: conv_work(x, wt, out, 4 * o),
+                  library)
+
+
+def check_exact_steps_against_cpu(eng, cpu, x) -> tuple:
+    """One frame through the exact schedule on the card, each step held
+    against the same step on the CPU path (the path the tests hold
+    against JAX) on the card's own inputs: convs and every non-float step
+    bit-exact, the SiLU steps within the SILU tolerance. Returns the
+    number of steps and the share of head values where the card's forward
+    and the CPU's differ end to end, with the largest difference."""
+    import torch
+    from thingino_accel_tpu_torch.runtime.executor import ActStep
+    steps, cpu_steps = eng._fn.steps, cpu._fn.steps
+    require(len(steps) == len(cpu_steps), "card and CPU schedules differ")
+    env = dict(eng.params)
+    env[eng.input_names[0]] = x
+    for step, cstep in zip(steps, cpu_steps):
+        require(step.out == cstep.out, f"step {step.out} vs {cstep.out}")
+        cenv = dict(cpu.params)   # the reads first: an ActStep overwrites
+        cenv.update({r: env[r].cpu() for r in step.reads})
+        step.run(env)
+        cstep.run(cenv)
+        float_step = isinstance(step, ActStep) or getattr(
+            step, "node", None) is not None and step.node.op in (
+            "SIGMOID", "SILU", "SILU_FUSED", "SOFTMAX") and not step.is_kernel
+        compare(env[step.out].cpu(), cenv[step.out],
+                "SILU" if float_step else "NONE", f"card vs CPU {step.out}")
+    card, ref = eng.run(x), cpu.run(x.cpu())
+    diff = [(card[k].cpu().to(torch.int32) - ref[k].to(torch.int32)).abs()
+            for k in eng.output_names]
+    n_vals = sum(d.numel() for d in diff)
+    share = sum(int((d > 0).sum()) for d in diff) / n_vals
+    return len(steps), share, max(int(d.max()) for d in diff)
+
+
+def phase_exact(results: dict) -> dict:
+    """The exact tier's pipeline: the zoo yolov5s at 640 through
+    StreamServer, letterbox -> int8 quantize -> network (#9-#11 and the
+    plain SiLU steps) -> decode (#8) -> NMS."""
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.models import zoo
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+    from thingino_accel_tpu_torch.runtime.serving import StreamServer
+
+    dev = torch.device("cuda")
+    g = zoo.build_yolov5("s", zoo.ZooConfig())
+    exact = EngineOptions(precision="exact")
+    t0 = time.perf_counter()
+    eng = Engine(g, exact, device=dev)
+    census = eng._fn.launch_census()
+    require(census == EXACT_ZOO_S,
+            f"exact zoo yolov5s census {census}, expected {EXACT_ZOO_S}")
+    print(f"[exact] engine on {dev} in {time.perf_counter() - t0:.3f} s: "
+          f"{len(eng._fn.steps)} steps, {len(eng._fn.units)} kernel units "
+          f"per forward {census}")
+    pipe = Y.build_serving_pipeline(eng)
+    frames = frames_of(BATCHES)
+    pipe(torch.from_numpy(frames[0]).to(dev))
+    torch.cuda.synchronize()
+
+    reset_launches()
+    server = StreamServer(pipe, depth=2, device=dev)
+    outs = list(server.run(frames))
+    torch.cuda.synchronize()
+    counts = read_launches()
+    st = server.stats
+    require(len(outs) == BATCHES and all(o is not None for o in outs)
+            and st.errors == 0, f"failed exact batches: errors={st.errors}")
+    expect_launches(counts, census, BATCHES, "exact zoo yolov5s",
+                    decodes=BATCHES)
+    for name in KERNEL_INFO:
+        if PATH_OF[name] == "exact zoo yolov5s 640":
+            require(counts[name] > 0, f"{name} never launched on the path")
+            results[name]["launches"] = counts[name]
+    target = tuple(g.tensors[g.inputs[0]].shape[1:3])
+    dets_per_frame = check_detections(outs, target)
+    print(f"[exact] launches {counts} (= {BATCHES} x the census, one decode "
+          "per batch)")
+    print(f"[exact] 4-batch run: {st.summary()}; detections per frame: mean "
+          f"{float(np.mean(dets_per_frame))}")
+
+    x = Y.quantize_input_int8(
+        Y.letterbox_uint8(torch.from_numpy(frames[0]).to(dev), target))
+    n_units = check_units(eng, x, results, "exact zoo yolov5s")
+    require(n_units == 60, f"{n_units} kernel convs captured, expected 60")
+    print(f"[exact] kernel vs plain on every conv of one batch: {n_units} "
+          "convs bit for bit")
+    cpu = Engine(g, exact, device="cpu")
+    n_steps, share, dmax = check_exact_steps_against_cpu(
+        eng, cpu, check_letterbox_on_card(frames[0][:1], target))
+    print(f"[exact] card vs CPU, one frame: {n_steps} steps within "
+          f"tolerance; heads end to end: {share:.6f} of the values differ, "
+          f"max |diff| {dmax}")
+    require(dmax <= 1 and share <= SILU_MAX_FRAC,
+            f"exact heads card vs CPU: share {share}, max {dmax}")
+    return {"launches": counts, "census_per_forward": census,
+            "fps_4batch": st.fps, "p50_ms_4batch": st.latency_ms(50),
+            "p99_ms_4batch": st.latency_ms(99),
+            "dets_per_frame_mean": float(np.mean(dets_per_frame)),
+            "units_checked": n_units, "steps_card_vs_cpu": n_steps,
+            "heads_card_vs_cpu_share": share, "heads_card_vs_cpu_max": dmax}
+
+
 def main() -> int:
     if not (REPO / "thingino_accel_tpu_torch" / "csrc").is_dir() \
             or not MODEL.exists() or not NANODET.exists():
@@ -817,6 +1122,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     sys.modules["jax"] = None   # the port must never need JAX
+    sys.modules["thingino_accel_tpu"] = None   # nor the JAX package
     t_start = time.perf_counter()
     try:
         import torch
@@ -827,10 +1133,12 @@ def main() -> int:
         results = {k: {"cases": [], "max_abs_err": 0, "launches": 0}
                    for k in KERNEL_INFO}
         phase_kernels(results)
+        phase_exact_kernels(results)
         slice_res = phase_slice(results)
         unplanned_res = phase_unplanned(results)
         zoo_res = phase_zoo_s(results)
         nanodet_res = phase_nanodet(results)
+        exact_res = phase_exact(results)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -842,7 +1150,10 @@ def main() -> int:
         kernels.append({"name": k, "route": "cuda", **KERNEL_INFO[k],
                         "launches": r["launches"],
                         "max_abs_err": r["max_abs_err"], "ms": rep["ms"],
-                        "plain_ms": rep["plain_ms"], "at": rep["case"],
+                        "plain_ms": rep["plain_ms"],
+                        "bound_ms": rep["bound_ms"],
+                        "bound_by": rep["bound_by"],
+                        "library_ms": rep["library_ms"], "at": rep["case"],
                         "path": PATH_OF[k]})
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -850,7 +1161,8 @@ def main() -> int:
         "device": name, "nvidia_smi": smi, "build_s": build_s,
         "total_s": time.perf_counter() - t_start, "kernels": results,
         "slice": slice_res, "unplanned": unplanned_res,
-        "zoo_yolov5s": zoo_res, "nanodet": nanodet_res}, indent=1))
+        "zoo_yolov5s": zoo_res, "nanodet": nanodet_res,
+        "exact": exact_res}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -167,7 +167,8 @@ def test_pipeline_decodes_through_the_wrapper(monkeypatch):
         return real(feats, *a, **k)
 
     monkeypatch.setattr(DK, "decode_and_parse_fused", spy)
-    eng = Engine(zoo.build_yolov5("n", zoo.ZooConfig(in_hw=(64, 64))))
+    eng = Engine(zoo.build_yolov5("n", zoo.ZooConfig(in_hw=(64, 64))),
+                 device="cpu")
     pipe = Y.build_serving_pipeline(eng)
     frames = np.random.default_rng(0).integers(0, 256, (2, 48, 64, 3),
                                                dtype=np.uint8)

@@ -7,6 +7,10 @@ layouts and the epilogue fusions. Planned: the port's default engine
 against the JAX serving engine as it is. The Pallas kernels run in
 interpret mode.
 
+The JAX engines take the JAX package's graphs; the port's engines take
+the same graphs converted by ``ir.graph.graph_from_jax``, or built by the
+port's own zoo, and run on the CPU (``device="cpu"``).
+
 Tolerances: bit-exact on linear/RELU graphs. On SiLU graphs each node is
 checked teacher-forced (the port lowers it from the JAX inputs): non-SiLU
 nodes bit-exact, SiLU convs within 1 quantum on at most 0.1% of the
@@ -22,11 +26,15 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from thingino_accel_tpu.ir.graph import Graph, Node
+from thingino_accel_tpu.formats.mars import read_mars
+from thingino_accel_tpu.ir.graph import Graph
+from thingino_accel_tpu.ir.graph import Node as JNode
+from thingino_accel_tpu.ir.graph import from_mars as jax_from_mars
 from thingino_accel_tpu.models import zoo
 from thingino_accel_tpu.runtime import Engine as JEngine
 from thingino_accel_tpu.runtime import EngineOptions as JOptions
 from thingino_accel_tpu.runtime import executor as JEX
+from thingino_accel_tpu_torch.ir.graph import Node, graph_from_jax
 from thingino_accel_tpu_torch.models import zoo as PZ
 from thingino_accel_tpu_torch.models.yolo import find_detect_outputs
 from thingino_accel_tpu_torch.runtime.engine import (
@@ -55,11 +63,20 @@ def _jax_serving(graph):
     return JEngine(graph, JOptions(precision="serving"))
 
 
+def _jax_load(path):
+    return jax_from_mars(read_mars(path))
+
+
+def _port(graph, **kw):
+    """The port's engine on the CPU over a JAX package graph."""
+    return Engine(graph_from_jax(graph), device="cpu", **kw)
+
+
 def _relu_copy(g: Graph) -> Graph:
-    nodes = [Node(op=n.op, inputs=list(n.inputs), outputs=list(n.outputs),
-                  attrs=(dict(n.attrs, activation="RELU")
-                         if n.op == "CONV2D" else dict(n.attrs)),
-                  name=n.name) for n in g.nodes]
+    nodes = [JNode(op=n.op, inputs=list(n.inputs), outputs=list(n.outputs),
+                   attrs=(dict(n.attrs, activation="RELU")
+                          if n.op == "CONV2D" else dict(n.attrs)),
+                   name=n.name) for n in g.nodes]
     return Graph(nodes=nodes, tensors=g.tensors, inputs=list(g.inputs),
                  outputs=list(g.outputs), name=g.name)
 
@@ -96,30 +113,30 @@ def _assert_outputs_equal(port, ref):
 
 @pytest.mark.parametrize("fixture", ["test_conv.mars", "tiny_160_int8.mars"])
 def test_fixture_bit_exact(unplanned, fixture):
-    g = load_graph(os.path.join(FIXTURES, fixture))
+    g = _jax_load(os.path.join(FIXTURES, fixture))
     x = _input(g)
     ref = _jax_serving(g).run_np(x)
-    _assert_outputs_equal(Engine(g, planned=False).run_np(x), ref)
+    _assert_outputs_equal(_port(g, planned=False).run_np(x), ref)
 
 
 def test_relu_yolov5n_bit_exact(unplanned):
     g = _relu_copy(_yolov5n_64())
     x = _input(g)
     ref = _jax_serving(g).run_np(x)
-    _assert_outputs_equal(Engine(g, planned=False).run_np(x), ref)
+    _assert_outputs_equal(_port(g, planned=False).run_np(x), ref)
 
 
 def test_params_from_jax_identical(unplanned):
     g = _relu_copy(_yolov5n_64())
     x = _input(g, seed=1)
     jeng = _jax_serving(g)
-    from_jax = Engine(g, params=jeng._np_params, planned=False)
+    from_jax = _port(g, params=jeng._np_params, planned=False)
     assert set(from_jax.params) == set(jeng._np_params)
-    for k, v in params_from_jax(jeng._np_params).items():
+    for k, v in params_from_jax(jeng._np_params, "cpu").items():
         assert v.dtype == torch.from_numpy(np.asarray(jeng._np_params[k])
                                            ).dtype
     out = from_jax.run_np(x)
-    _assert_outputs_equal(out, Engine(g, planned=False).run_np(x))
+    _assert_outputs_equal(out, _port(g, planned=False).run_np(x))
     _assert_outputs_equal(out, jeng.run_np(x))
 
 
@@ -127,7 +144,7 @@ def test_silu_yolov5n_teacher_forced(unplanned):
     g = _yolov5n_64()
     x = _input(g, batch=2, seed=2)
     jacts = _jax_serving(g).trace(x)
-    eng = Engine(g, planned=False)
+    eng = _port(g, planned=False)
     silu_convs = 0
     for node in eng._fn.nodes:
         env = dict(eng.params)
@@ -154,7 +171,7 @@ def test_real_yolov5n_loads_with_slice_census():
     g = load_graph(REAL_YOLO)
     heads = find_detect_outputs(g)
     assert len(heads) == 3
-    eng = Engine(g.with_outputs(heads))
+    eng = Engine(g.with_outputs(heads), device="cpu")
     ops = collections.Counter(n.op for n in eng._fn.nodes)
     assert ops == {"CONV2D": 60, "CONCAT": 13, "ADD": 7, "MAXPOOL": 3,
                    "UPSAMPLE": 2}
@@ -175,12 +192,12 @@ def test_real_yolov5n_loads_with_slice_census():
 
 def test_unported_tiers_and_ops_raise():
     g = load_graph(os.path.join(FIXTURES, "test_conv.mars"))
-    for prec in ("exact", "fast"):
+    for prec in ("fast",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(g, EngineOptions(precision=prec))
+            Engine(g, EngineOptions(precision=prec), device="cpu")
     full = load_graph(REAL_YOLO)   # still carries its decode subgraph
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(full)
+        Engine(full, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +216,7 @@ def test_planned_relu_yolov5n_bit_exact(scales):
         g = _scaled_copy(g, 5)
     x = _input(g, seed=4)
     ref = _jax_serving(g).run_np(x)
-    eng = Engine(g)
+    eng = _port(g)
     units = eng._fn.units
     kinds = collections.Counter(u.kind for u in units)
     multis = [u.me.same_scale for u in units if u.kind == "multi"]
@@ -210,7 +227,7 @@ def test_planned_relu_yolov5n_bit_exact(scales):
     assert kinds["bneck"] == 10
     _assert_outputs_equal(eng.run_np(x), ref)
     if scales == "seeded":   # here the plan changes the heads
-        unplanned = Engine(g, planned=False).run_np(x)
+        unplanned = _port(g, planned=False).run_np(x)
         assert any(not np.array_equal(unplanned[k], ref[k]) for k in ref)
 
 
@@ -221,7 +238,7 @@ def test_trace_matches_jax_trace():
     g = _relu_copy(_yolov5n_64())
     x = _input(g, batch=1, seed=6)
     ref = _jax_serving(g).trace(x)
-    eng = Engine(g)
+    eng = _port(g)
     acts = eng.trace(x)
     units = eng._trace_fn.units
     assert not any(u.kind == "bneck" or u.residual for u in units)
@@ -236,7 +253,7 @@ def test_capture_records_every_unit():
     inputs it read and the output it wrote; re-run on those inputs, each
     unit gives its output again."""
     g = _yolov5n_64()
-    eng = Engine(g)
+    eng = _port(g)
     rec = eng.capture(_input(g, batch=1, seed=8))
     assert [u for u, _, _ in rec] == eng._fn.units
     for unit, reads, out in rec:
@@ -255,7 +272,7 @@ def test_capture_records_every_unit():
 def nanodet_jax():
     """The committed full-width NanoDet-320 through the JAX planned serving
     engine at batch 1 (its Pallas kernels in interpret mode)."""
-    g = load_graph(NANODET)
+    g = _jax_load(NANODET)
     x = np.random.default_rng(10).integers(-128, 128, (1, 320, 320, 3),
                                            dtype=np.int8)
     with pltpu.force_tpu_interpret_mode():
@@ -267,7 +284,7 @@ def test_nanodet_320_heads_bit_exact(nanodet_jax):
     """27 convs (10 depthwise), LEAKY_RELU, per-channel weight scales:
     the port's planned heads equal the JAX serving engine's bit for bit."""
     g, x, _, ref = nanodet_jax
-    eng = Engine.from_mars(NANODET)
+    eng = Engine.from_mars(NANODET, device="cpu")
     ops = collections.Counter(n.op for n in eng._fn.nodes)
     assert ops == {"CONV2D": 17, "DEPTHWISE_CONV2D": 10, "UPSAMPLE": 2,
                    "ADD": 2}
@@ -284,7 +301,7 @@ def test_nanodet_depthwise_params_equal_jax(nanodet_jax):
     3-D weights alone, and an engine on the JAX params gives the same
     heads."""
     g, x, jeng, ref = nanodet_jax
-    port = Engine(g)
+    port = _port(g)
     dw = [n.inputs[1] for n in port._fn.nodes if n.op == "DEPTHWISE_CONV2D"]
     assert len(dw) == 10
     for k in dw:
@@ -292,12 +309,12 @@ def test_nanodet_depthwise_params_equal_jax(nanodet_jax):
         assert port._np_params[k].shape == (3, 3, c)
         np.testing.assert_array_equal(port._np_params[k], jeng._np_params[k])
         np.testing.assert_array_equal(
-            params_from_jax({k: jeng._np_params[k]})[k].numpy(),
+            params_from_jax({k: jeng._np_params[k]}, "cpu")[k].numpy(),
             jeng._np_params[k])
     assert set(port._np_params) == set(jeng._np_params)
     for k, v in jeng._np_params.items():
         np.testing.assert_array_equal(port._np_params[k], v, err_msg=k)
-    _assert_outputs_equal(Engine(g, params=jeng._np_params).run_np(x), ref)
+    _assert_outputs_equal(_port(g, params=jeng._np_params).run_np(x), ref)
 
 
 def test_zoo_nanodet_heads_bit_exact():
@@ -308,15 +325,17 @@ def test_zoo_nanodet_heads_bit_exact():
     jg = zoo.build_nanodet(zoo.ZooConfig(in_hw=(64, 64)), batch=2)
     x = _input(g, seed=11)
     ref = _jax_serving(jg).run_np(x)
-    _assert_outputs_equal(Engine(g).run_np(x), ref)
+    _assert_outputs_equal(Engine(g, device="cpu").run_np(x), ref)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JEX, "_plan_folds", lambda *a, **k: None)
         ref_u = _jax_serving(jg).run_np(x)
-    _assert_outputs_equal(Engine(g, planned=False).run_np(x), ref_u)
+    _assert_outputs_equal(Engine(g, device="cpu", planned=False).run_np(x),
+                          ref_u)
 
 
 def _dw_graph(stride, act, op="DEPTHWISE_CONV2D"):
-    """One int8 depthwise conv, 3x3 over 8 channels."""
+    """One int8 depthwise conv, 3x3 over 8 channels, built by the port's
+    zoo builder (the JAX engine reads its graph by attribute)."""
     b = PZ.GraphBuilder("dw", PZ.ZooConfig(in_hw=(9, 9)))
     x = b.input("x", (1, 9, 9, 8))
     y = b.conv(x, 8, 3, stride, act=act, groups=8)
@@ -338,19 +357,51 @@ def test_single_depthwise_bit_exact(stride, act, op):
     g = _dw_graph(stride, act, op)
     x = _input(g, seed=stride)
     ref = _jax_serving(g).run_np(x)
-    eng = Engine(g)
+    eng = Engine(g, device="cpu")
     assert eng._fn.launch_census()["depthwise_conv2d_int8_fused"] == (
         stride == 1)
     _assert_outputs_equal(eng.run_np(x), ref)
-    _assert_outputs_equal(Engine(g, planned=False).run_np(x), ref)
+    _assert_outputs_equal(Engine(g, device="cpu", planned=False).run_np(x),
+                          ref)
 
 
 def test_depthwise_silu_outside_the_kernel_raises():
     """SILU after a depthwise conv that is not the fused kernel (stride 2,
     or the unplanned lowering) is the exact tier's semantics."""
     with pytest.raises(NotImplementedError, match="A.3"):
-        Engine(_dw_graph(2, "SILU"))
+        Engine(_dw_graph(2, "SILU"), device="cpu")
     with pytest.raises(NotImplementedError, match="A.3"):
-        Engine(_dw_graph(1, "SILU"), planned=False)
-    assert Engine(_dw_graph(1, "SILU"))._fn.launch_census()[
+        Engine(_dw_graph(1, "SILU"), device="cpu", planned=False)
+    assert Engine(_dw_graph(1, "SILU"), device="cpu")._fn.launch_census()[
         "depthwise_conv2d_int8_fused"] == 1
+
+
+def test_entry_points_default_to_cuda():
+    """Without a ``device`` argument the engine, the executors and
+    ``params_from_jax`` put their tensors on ``cuda``; where torch finds
+    no CUDA device they raise, and nothing falls back to the CPU. Whether
+    a card is present is decided here, at run time."""
+    from thingino_accel_tpu_torch.runtime import executor as EX
+    g = PZ.build_yolov5("n", PZ.ZooConfig(in_hw=(64, 64)))
+    params = {"w": np.zeros((4, 1, 1, 3), np.int8)}
+    exact = EngineOptions(precision="exact")
+    if torch.cuda.is_available():
+        for eng in (Engine(g), Engine(g, exact),
+                    Engine.from_mars(os.path.join(FIXTURES,
+                                                  "test_conv.mars"))):
+            assert eng.device.type == "cuda"
+            assert all(v.is_cuda for v in eng.params.values())
+        assert EX.Executor(g).device.type == "cuda"
+        assert EX.build_executor(g, precision="exact").device.type == "cuda"
+        assert EX.params_from_jax(params)["w"].is_cuda
+        return
+    calls = [lambda: Engine(g), lambda: Engine(g, exact),
+             lambda: Engine.from_mars(os.path.join(FIXTURES,
+                                                   "test_conv.mars")),
+             lambda: Engine.from_yolo_mars(REAL_YOLO),
+             lambda: EX.Executor(g), lambda: EX.build_executor(g),
+             lambda: EX.build_executor(g, precision="exact"),
+             lambda: EX.params_from_jax(params)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

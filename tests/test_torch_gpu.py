@@ -15,7 +15,11 @@ otherwise), every ragged edge, the residual modes, and the multi-part,
 bottleneck, SPPF and depthwise kernels at their edge cases and model
 shapes. The head decode (kernel #8) is held against its plain version on
 the CPU: classes exact, boxes within rtol 1e-6 / atol 1e-5, conf within
-rtol 1e-6 / atol 1e-7, and the detections after NMS equal.
+rtol 1e-6 / atol 1e-7, and the detections after NMS equal. The exact
+tier's kernels #9-#11 (``ops.requant_kernels``) are bit-exact against
+their plain versions in both RoundModes, with and without RELU, at the
+zoo yolov5s's lead shapes and at the edge cases: ragged edges, the byte
+path, the stem, asymmetric pads, dilation 2 and stride (2, 1).
 """
 
 import numpy as np
@@ -25,6 +29,8 @@ import torch
 from thingino_accel_tpu_torch.models import yolo as Y
 from thingino_accel_tpu_torch.ops import decode_kernel as DK
 from thingino_accel_tpu_torch.ops import fused_kernels as FK
+from thingino_accel_tpu_torch.ops import requant_kernels as RK
+from thingino_accel_tpu_torch.ops.quant import RoundMode
 
 pytestmark = pytest.mark.gpu
 
@@ -450,3 +456,88 @@ def test_new_wrappers_launch_on_every_cuda_call(cuda):
     with pytest.raises(ValueError, match="channels"):
         DK.decode_and_parse_fused([_rand(rng, (1, 4, 4, 384), cuda)],
                                   anchors=Y.YOLOV5_ANCHORS[:1], strides=(8,))
+
+
+# ---------------------------------------------------------------------------
+# The exact tier's kernels #9-#11
+# ---------------------------------------------------------------------------
+
+RMODES = [(RoundMode.HALF_AWAY, False), (RoundMode.PLUS_HALF_TRUNC, True)]
+
+
+@pytest.mark.parametrize("rm,relu", RMODES)
+@pytest.mark.parametrize("m,k,n", [(200, 48, 16), (131, 30, 255),
+                                   (64, 512, 64), (1, 3, 5),
+                                   (16 * 80 * 80, 128, 128)])
+def test_requant_matmul_kernel_matches_plain(cuda, rm, relu, m, k, n):
+    rng = np.random.default_rng(m + 3 * k + n)
+    x, w = _rand(rng, (m, k), cuda), _rand(rng, (n, k), cuda)
+    bias = torch.from_numpy(rng.integers(-3000, 3000, n).astype(
+        np.int32)).to(cuda)
+    cs = RK.combined_scale(0.05, 0.01, float(0.0137 * np.sqrt(k)))
+    for b in (bias, None):
+        out = RK.matmul_int8_requant(x, w, b, cs, rm, relu)
+        torch.cuda.synchronize()
+        _close(out, RK.matmul_int8_requant_plain(x, w, b, cs, rm, relu),
+               "NONE")
+
+
+# (batch, H, W, C, O, KH, KW, stride, dilation, pads): the lead shapes of
+# the zoo yolov5s at 640 (#10 3x3/s1; #11 the stem and a 3x3/s2), then odd
+# sizes, C % 4 != 0, a padded 1x1, SAME at stride 2 (asymmetric pads),
+# dilation 2, stride (2, 1), a 1x1/s2
+REQUANT_CONV = [
+    (16, 40, 40, 128, 128, 3, 3, (1, 1), (1, 1), ((1, 1), (1, 1))),
+    (16, 640, 640, 3, 32, 6, 6, (2, 2), (1, 1), ((2, 2), (2, 2))),
+    (16, 80, 80, 128, 256, 3, 3, (2, 2), (1, 1), ((1, 1), (1, 1))),
+    (2, 9, 11, 16, 16, 3, 3, (1, 1), (1, 1), ((1, 1), (1, 1))),
+    (2, 13, 10, 6, 70, 5, 5, (1, 1), (1, 1), ((2, 2), (2, 2))),
+    (1, 8, 8, 8, 8, 1, 1, (1, 1), (1, 1), ((1, 1), (1, 1))),
+    (2, 13, 12, 8, 24, 3, 3, (2, 2), (1, 1), ((0, 1), (1, 1))),
+    (2, 12, 12, 20, 16, 3, 3, (1, 1), (2, 2), ((2, 2), (2, 2))),
+    (2, 11, 10, 5, 16, 3, 3, (2, 1), (1, 1), ((1, 1), (1, 1))),
+    (1, 9, 9, 16, 8, 1, 1, (2, 2), (1, 1), ((0, 0), (0, 0))),
+]
+
+
+def _conv_out_hw(h, w, kh, kw, s, d, pads):
+    return ((h + sum(pads[0]) - (kh - 1) * d[0] - 1) // s[0] + 1,
+            (w + sum(pads[1]) - (kw - 1) * d[1] - 1) // s[1] + 1)
+
+
+@pytest.mark.parametrize("rm,relu", RMODES)
+@pytest.mark.parametrize("case", REQUANT_CONV, ids=lambda c: (
+    "b{}h{}w{}c{}o{}k{}x{}".format(*c[:7])
+    + "s{}{}d{}{}".format(*c[7], *c[8])))
+def test_requant_conv_kernels_match_plain(cuda, rm, relu, case):
+    """#10 or #11 as ``conv2d_int8`` routes the case, against the plain
+    version; the launch counter of the routed kernel moves by one."""
+    nb, h, w, c, o, kh, kw, s, d, pads = case
+    rng = np.random.default_rng(h * w + c + o)
+    x, wt = _rand(rng, (nb, h, w, c), cuda), _rand(rng, (o, kh, kw, c), cuda)
+    bias = torch.from_numpy(rng.integers(-3000, 3000, o).astype(
+        np.int32)).to(cuda)
+    out_hw = _conv_out_hw(h, w, kh, kw, s, d, pads)
+    args = (x, wt, bias, out_hw, s, d, pads, 0.05, 0.01,
+            float(0.0137 * np.sqrt(kh * kw * c)), rm, relu)
+    which = RK.route((kh, kw), s, d, pads)
+    before = dict(RK.launches)
+    out = RK.conv2d_int8(*args)
+    torch.cuda.synchronize()
+    assert RK.launches[which] == before[which] + 1
+    _close(out, RK.conv2d_int8(*args, plain=True), "NONE")
+
+
+def test_requant_kernels_unaligned_operands(cuda):
+    """A contiguous view at an odd byte offset takes the byte loads."""
+    rng = np.random.default_rng(5)
+    buf = _rand(rng, (1 + 2 * 9 * 9 * 16,), cuda)
+    x = buf[1:].view(2, 9, 9, 16)
+    wt = _rand(rng, (24, 3, 3, 16), cuda)
+    args = (x, wt, None, (5, 5), (2, 2), (1, 1), ((1, 1), (1, 1)), 0.05,
+            0.01, 0.3)
+    _close(RK.conv2d_int8(*args), RK.conv2d_int8(*args, plain=True), "NONE")
+    x2 = buf[1:1 + 40 * 32].view(40, 32)
+    w2 = _rand(rng, (24, 32), cuda)
+    _close(RK.matmul_int8_requant(x2, w2, None, 0.004),
+           RK.matmul_int8_requant_plain(x2, w2, None, 0.004), "NONE")

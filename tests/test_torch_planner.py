@@ -27,16 +27,20 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from thingino_accel_tpu.formats.mars import read_mars
 from thingino_accel_tpu.ir import passes
+from thingino_accel_tpu.ir.graph import from_mars as jax_from_mars
 from thingino_accel_tpu.ir.passes import fuse_silu_pairs
 from thingino_accel_tpu.models import zoo
 from thingino_accel_tpu.ops import fused_kernels as JFK
 from thingino_accel_tpu.runtime import Engine as JEngine
 from thingino_accel_tpu.runtime import EngineOptions as JOptions
 from thingino_accel_tpu.runtime import executor as JEX
+from thingino_accel_tpu_torch.ir import passes as port_passes
+from thingino_accel_tpu_torch.ir.graph import graph_from_jax
 from thingino_accel_tpu_torch.models.yolo import find_detect_outputs
 from thingino_accel_tpu_torch.runtime import planner as P
-from thingino_accel_tpu_torch.runtime.engine import Engine, load_graph
+from thingino_accel_tpu_torch.runtime.engine import Engine
 from thingino_accel_tpu_torch.runtime.executor import KernelUnit
 
 REAL_YOLO = os.path.join(os.path.dirname(__file__), "..", "models",
@@ -52,11 +56,12 @@ UNIT_FUNCS = ("conv2d_int8_stem_fused", "conv2d_int8_folded",
 
 
 def _graph(name):
+    """The JAX package's graph of ``name``."""
     if name == "real_yolov5n":
-        g = load_graph(REAL_YOLO)
+        g = jax_from_mars(read_mars(REAL_YOLO))
         return g.with_outputs(find_detect_outputs(g))
     if name == "nanodet_320":
-        return load_graph(NANODET)
+        return jax_from_mars(read_mars(NANODET))
     if name == "zoo_nanodet_64":
         return zoo.build_nanodet(zoo.ZooConfig(in_hw=(64, 64)), batch=2)
     size, hw = {"zoo_yolov5n_64": ("n", 64),
@@ -65,10 +70,22 @@ def _graph(name):
 
 
 def _serving(g):
-    """The serving tier's graph passes and node list, as both engines
-    build them."""
+    """The serving tier's graph passes and node list, as the JAX engine
+    builds them."""
     g = passes.fold_batchnorm(passes.fuse_act_into_conv(g))
     return g, fuse_silu_pairs(g)
+
+
+def _port_serving(name):
+    """The same for the port: ``name``'s graph converted, the port's
+    passes."""
+    g = graph_from_jax(_graph(name))
+    g = port_passes.fold_batchnorm(port_passes.fuse_act_into_conv(g))
+    return g, port_passes.fuse_silu_pairs(g)
+
+
+def _port_engine(g):
+    return Engine(graph_from_jax(g), device="cpu")
 
 
 def _names(d):
@@ -81,7 +98,8 @@ def _names(d):
 def test_plan_equals_jax(name):
     g, nodes = _serving(_graph(name))
     ref = JEX._plan_folds(nodes, g.tensors, g.outputs)
-    port = P.plan_folds(nodes, g.tensors, g.outputs)
+    pg, pnodes = _port_serving(name)
+    port = P.plan_folds(pnodes, pg.tensors, pg.outputs)
     assert port.stem_stage == ref.stem_stage
     assert port.stem_emit == ref.stem_emit
     assert port.fold == ref.fold
@@ -103,13 +121,13 @@ def test_nanodet_plan():
     """The NanoDet stem (3x3/s2 from 3 channels, LEAKY) is a one-conv stem
     stage emitting int8 at fold 4; its LEAKY convs take no fused residual,
     so the two PAN ADDs stay plain; nothing else fuses."""
-    g, nodes = _serving(_graph("nanodet_320"))
+    g, nodes = _port_serving("nanodet_320")
     plan = P.plan_folds(nodes, g.tensors, g.outputs)
     assert plan.stem_stage == {"t_3"} and plan.stem_emit == {"t_3": "int8"}
     assert plan.f("t_3") == 4
     assert not (plan.res_fuse or plan.virtual_concat or plan.sppf
                 or plan.bneck or plan.skip_outputs)
-    eng = Engine(_graph("nanodet_320"))
+    eng = _port_engine(_graph("nanodet_320"))
     steps = [(type(s).__name__, getattr(s, "kind", s.out))
              for s in eng._fn.steps]
     assert steps[:3] == [("ConvUnit", "conv"), ("NodeStep", "t_7"),
@@ -122,7 +140,7 @@ def test_nanodet_plan():
 def test_real_yolov5n_plan_census():
     """The fold factors gate the fusions: with the real plan's folds the
     /model.16 concat (inputs at different folds) is materialized."""
-    g, nodes = _serving(_graph("real_yolov5n"))
+    g, nodes = _port_serving("real_yolov5n")
     plan = P.plan_folds(nodes, g.tensors, g.outputs)
     assert (len(plan.res_fuse), len(plan.virtual_concat), len(plan.sppf),
             len(plan.bneck)) == (6, 12, 0, 10)
@@ -159,7 +177,7 @@ def test_launch_census(name, census):
     """Kernel launches of one planned forward, from the schedule: every
     residual rides in a bottleneck, 60 convs in 50 (real) launches; the
     NanoDet's 27 convs in 23, its 4 stride-2 depthwise convs plain."""
-    eng = Engine(_graph(name))
+    eng = _port_engine(_graph(name))
     assert eng._fn.launch_census() == census
     units = eng._fn.units
     assert not any(u.residual for u in units if u.kind != "bneck")
@@ -240,7 +258,7 @@ def _logical(arr, shape):
 
 def test_runtime_units_equal_jax(jax_units):
     g, x, rec, _, _ = jax_units
-    eng = Engine(g)
+    eng = _port_engine(g)
     units = eng._fn.units
     port = [(u.mirrors, u.residual is not None) for u in units]
     assert port == [(name, res) for name, res, _ in rec]
@@ -258,7 +276,7 @@ def test_units_teacher_forced_silu(jax_units):
     outputs recorded from the JAX run; exact torch ops in between) and is
     held against the JAX unit's output."""
     g, x, rec, _, _ = jax_units
-    eng = Engine(g)
+    eng = _port_engine(g)
     env = dict(eng.params)
     env[eng.input_names[0]] = torch.from_numpy(x)
     i = 0
@@ -290,7 +308,8 @@ def test_second_jax_trace_takes_the_same_units(which, request):
     first, and both equal the port's one schedule."""
     fixture = {"yolov5n": "jax_units", "nanodet": "jax_nanodet_units"}
     g, _, rec, _, rec2 = request.getfixturevalue(fixture[which])
-    port = [(u.mirrors, u.residual is not None) for u in Engine(g)._fn.units]
+    port = [(u.mirrors, u.residual is not None)
+            for u in _port_engine(g)._fn.units]
     assert [(n, r) for n, r, _ in rec2] == [(n, r) for n, r, _ in rec] \
         == port
     for (_, _, a), (_, _, b) in zip(rec, rec2):
@@ -303,7 +322,7 @@ def test_nanodet_units_teacher_forced(jax_nanodet_units):
     package's tensors, equals the JAX unit bit for bit, and the port's
     heads equal the JAX heads."""
     g, x, rec, out, _ = jax_nanodet_units
-    eng = Engine(g)
+    eng = _port_engine(g)
     assert collections.Counter(u.mirrors for u in eng._fn.units) == {
         "conv2d_int8_stem_fused": 1, "conv2d_int8_folded": 16,
         "depthwise_conv2d_int8_fused": 6}

@@ -1,16 +1,31 @@
 """The port's zoo (``thingino_accel_tpu_torch.models.zoo``) builds the same
 YOLOv5 and NanoDet graphs as the JAX package's zoo: the same nodes in the
 same order and byte-identical tensors (the seeded numpy draws are the
-same)."""
+same). The port's own copies of the `.mars` reader and the IR load the
+committed models as the JAX package does, and ``graph_from_jax`` turns a
+JAX package graph into the port's."""
+
+import os
 
 import numpy as np
 import pytest
 
+from thingino_accel_tpu.formats.mars import read_mars
+from thingino_accel_tpu.ir.graph import from_mars as jax_from_mars
 from thingino_accel_tpu.models import zoo as JZ
+from thingino_accel_tpu_torch.ir import graph as PG
 from thingino_accel_tpu_torch.models import zoo as PZ
+from thingino_accel_tpu_torch.runtime.engine import load_graph
+
+MODELS = os.path.join(os.path.dirname(__file__), "..", "models")
 
 
 def _assert_same_graph(port, ref):
+    """``port`` is made of the port's IR classes and equals ``ref``."""
+    assert type(port) is PG.Graph
+    assert all(type(n) is PG.Node for n in port.nodes)
+    assert all(type(t) is PG.TensorInfo and type(t.quant) is PG.QuantInfo
+               for t in port.tensors.values())
     assert (port.name, port.inputs, port.outputs) == (
         ref.name, ref.inputs, ref.outputs)
     assert [(n.op, n.inputs, n.outputs, n.attrs, n.name)
@@ -23,6 +38,12 @@ def _assert_same_graph(port, ref):
             t.shape, t.dtype, t.quant.scale, t.is_const), name
         if t.is_const:
             assert p.data.tobytes() == t.data.tobytes(), name
+        assert (p.channel_scales is None) == (t.channel_scales is None)
+        if t.channel_scales is not None:
+            np.testing.assert_array_equal(p.channel_scales, t.channel_scales)
+        assert (p.source_format is None) == (t.source_format is None)
+        if t.source_format is not None:
+            assert int(p.source_format) == int(t.source_format), name
 
 
 @pytest.mark.parametrize("size,hw,seed,batch", [
@@ -52,3 +73,29 @@ def test_float_zoo_identical():
     for name, t in ref.tensors.items():
         if t.is_const:
             np.testing.assert_array_equal(port.tensors[name].data, t.data)
+
+
+@pytest.mark.parametrize("model", ["yolov5n_cal_int8.mars", "nanodet_320.mars",
+                                   "fixtures/test_conv.mars"])
+def test_mars_loader_copy_identical(model):
+    """The port's ``formats.mars`` and ``ir.graph`` (copies) load a
+    committed model into the same graph as the JAX package's."""
+    path = os.path.join(MODELS, model)
+    ref = jax_from_mars(read_mars(path))
+    _assert_same_graph(load_graph(path), ref)
+
+
+@pytest.mark.parametrize("src", ["zoo_yolov5s", "real_yolov5n"])
+def test_graph_from_jax(src):
+    """``graph_from_jax`` builds the port's graph from a JAX package graph:
+    new nodes and records, the same constants."""
+    if src == "zoo_yolov5s":
+        ref = JZ.build_yolov5("s", JZ.ZooConfig(in_hw=(64, 64)))
+    else:
+        ref = jax_from_mars(read_mars(os.path.join(MODELS,
+                                                   "yolov5n_cal_int8.mars")))
+    port = PG.graph_from_jax(ref)
+    _assert_same_graph(port, ref)
+    assert all(p is not n and p.attrs is not n.attrs
+               for p, n in zip(port.nodes, ref.nodes))
+    port.validate()

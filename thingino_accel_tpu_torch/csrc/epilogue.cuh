@@ -1,7 +1,9 @@
 // Shared pieces of the fused int8 conv kernels (mm_int8_fused.cu,
 // conv_int8_fused.cu, mm_multi_int8_fused.cu, bneck_int8_fused.cu,
-// sppf_int8_fused.cu, dw_int8_fused.cu): the tile shape, the dp4a tile
-// product and the requantize epilogue with the single int8 store.
+// sppf_int8_fused.cu, dw_int8_fused.cu) and of the exact tier's
+// (requant_int8.cu): the tile shape, the dp4a tile product, the serving
+// requantize epilogue with the single int8 store, and the exact tier's
+// requantize (requant_exact).
 //
 // The epilogue reproduces thingino_accel_tpu/ops/fused_kernels.py
 // _epilogue/_act_requant operation for operation:
@@ -58,6 +60,24 @@ __device__ __forceinline__ int8_t act_requant(float pre, int act,
     const float neg = fmaxf(truncf(__fmul_rn(q, alpha)), -128.0f);
     q = q > 0.0f ? q : neg;
   }
+  return static_cast<int8_t>(q);
+}
+
+enum RoundMode : int { kHalfAway = 0, kPlusHalfTrunc = 1 };
+
+// The exact tier's requantize, the tail of thingino_accel_tpu/ops/
+// pallas_kernels.py _mm_requant_kernel / _halo_kernel / _tapconv_kernel:
+// int32 acc + bias -> f32 -> x cs (one per-tensor scale) -> + 0.5 away
+// from zero (kHalfAway) or + 0.5 (kPlusHalfTrunc) -> trunc -> clamp
+// [-128, 127] in f32 -> [max(q, 0)] -> int8. RELU comes AFTER the clamp,
+// on the quantized value, unlike the serving epilogue's.
+__device__ __forceinline__ int8_t requant_exact(int acc, int bias, float cs,
+                                                int round_mode, bool relu) {
+  const float scaled = __fmul_rn(__int2float_rn(acc + bias), cs);
+  const float half =
+      (round_mode == kPlusHalfTrunc || scaled >= 0.0f) ? 0.5f : -0.5f;
+  float q = fminf(fmaxf(truncf(__fadd_rn(scaled, half)), -128.0f), 127.0f);
+  if (relu) q = fmaxf(q, 0.0f);
   return static_cast<int8_t>(q);
 }
 

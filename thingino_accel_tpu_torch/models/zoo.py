@@ -17,7 +17,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from thingino_accel_tpu.ir.graph import Graph, Node, QuantInfo, TensorInfo
+from thingino_accel_tpu_torch.ir.graph import Graph, Node, QuantInfo, TensorInfo
 
 
 @dataclasses.dataclass

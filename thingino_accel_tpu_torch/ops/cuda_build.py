@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("mm_int8_fused.cu", "conv_int8_fused.cu", "mm_multi_int8_fused.cu",
            "bneck_int8_fused.cu", "sppf_int8_fused.cu", "dw_int8_fused.cu",
-           "decode_fused.cu")
+           "decode_fused.cu", "requant_int8.cu")
 HEADERS = ("epilogue.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -66,6 +66,12 @@ _SIGNATURES = {
     # inv_out, alpha, stream
     "tat_dw_int8_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _F, _F, _P),
+    # x, w, bias, out, M, N, K, cs, round_mode, relu, stream
+    "tat_mm_int8_requant": (_P, _P, _P, _P, _L, _I, _I, _F, _I, _I, _P),
+    # x, w, bias, out, batch, H, W, C, O, KH, KW, sh, sw, dh, dw, pt, pl,
+    # OH, OW, cs, round_mode, relu, stream
+    "tat_conv_int8_requant": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # levels, feats[], H[], W[], strides[], scales[], anchors[], batch, A,
     # NC, is_int8, boxes, conf, cls, stream
     "tat_decode_fused": (_I, ctypes.POINTER(_P), ctypes.POINTER(_I),

@@ -1,5 +1,7 @@
 """Layer semantics in plain torch, NHWC (port of the parts of
-``thingino_accel_tpu.ops.reference`` that the serving slice lowers).
+``thingino_accel_tpu.ops.reference`` that the serving and exact tiers
+lower). Conv weights are OHWI, the kernels' layout (the JAX functions
+take HWIO).
 
 Each function keeps the JAX function's name and arithmetic order, and
 cites the reference runtime behaviour it replicates through it.
@@ -54,6 +56,59 @@ def _combined_scale(in_scale, w_scale, out_scale, device=None):
     if cs.ndim == 0:
         return float(cs)
     return torch.from_numpy(np.array(cs, np.float32)).to(device)
+
+
+def _fdiv(y: torch.Tensor, s) -> torch.Tensor:
+    """``y / float32(s)`` as a true f32 division. The divisor is a 0-dim
+    tensor on ``y``'s device: a Python scalar would let CUDA multiply by
+    its reciprocal, which differs from the division on rounding ties."""
+    return y / torch.tensor(np.float32(s), device=y.device)
+
+
+def conv2d_acc_i32(
+    x: torch.Tensor, w: torch.Tensor, out_hw: Tuple[int, int],
+    stride: Tuple[int, int] = (1, 1), dilation: Tuple[int, int] = (1, 1),
+    pads: Tuple[Tuple[int, int], Tuple[int, int]] = ((0, 0), (0, 0)),
+) -> torch.Tensor:
+    """Zero-padded conv of NHWC int8 ``x`` with OHWI int8 ``w`` -> int32
+    [N, OH, OW, O], exact: the products and sums run in float64, exact
+    for int8 operands (|acc| <= KH*KW*C*128^2 << 2^53), since torch has no
+    int32 conv. Any stride and dilation, asymmetric pads; rows and
+    columns past the padded input read zero."""
+    _, h, wd, _ = x.shape
+    _, kh, kw, _ = w.shape
+    oh, ow = out_hw
+    (pt, pb), (pl, pr) = pads
+    pb = max(pb, (oh - 1) * stride[0] + (kh - 1) * dilation[0] + 1 - h - pt)
+    pr = max(pr, (ow - 1) * stride[1] + (kw - 1) * dilation[1] + 1 - wd - pl)
+    xd = torch.nn.functional.pad(x.permute(0, 3, 1, 2).to(torch.float64),
+                                 (pl, pr, pt, pb))
+    acc = torch.nn.functional.conv2d(
+        xd, w.permute(0, 3, 1, 2).to(torch.float64), stride=tuple(stride),
+        dilation=tuple(dilation))[:, :, :oh, :ow]
+    return acc.permute(0, 2, 3, 1).to(torch.int32)
+
+
+def conv2d_int8(
+    x: torch.Tensor, w: torch.Tensor, bias_i32: Optional[torch.Tensor],
+    out_hw: Tuple[int, int], stride: Tuple[int, int],
+    dilation: Tuple[int, int],
+    pads: Tuple[Tuple[int, int], Tuple[int, int]],
+    in_scale: float, w_scale, out_scale: float,
+    round_mode: RoundMode = RoundMode.HALF_AWAY, relu: bool = False,
+) -> torch.Tensor:
+    """int8 conv (``w`` OHWI) with the reference requantization epilogue:
+    bias added to the int32 accumulator, x the combined scale (a float, or
+    per output channel for a per-channel ``w_scale``), rounded by
+    ``round_mode``, clamped; ``relu`` clamps the *quantized* value at 0."""
+    acc = conv2d_acc_i32(x, w, out_hw, stride, dilation, pads)
+    if bias_i32 is not None:
+        acc = acc + bias_i32.to(torch.int32)
+    out = requantize(acc, _combined_scale(in_scale, w_scale, out_scale,
+                                          x.device), round_mode)
+    if relu:
+        out = torch.clamp_min(out, 0)
+    return out
 
 
 def depthwise_acc_i32(
@@ -116,20 +171,9 @@ def maxpool(
     over the KH*KW strided views keeps the dtype (exact for int8)."""
     neg = (torch.iinfo(x.dtype).min if not x.dtype.is_floating_point
            else float("-inf"))
-    kh, kw = kernel
-    sh, sw = stride
-    oh, ow = out_hw
-    (pt, _), (pl, _) = pads
-    _, h, w, _ = x.shape
-    pb = max(0, (oh - 1) * sh + kh - h - pt)
-    pr = max(0, (ow - 1) * sw + kw - w - pl)
-    xp = torch.nn.functional.pad(x, (0, 0, pl, pr, pt, pb), value=neg)
     out = None
-    for dy in range(kh):
-        for dx in range(kw):
-            v = xp[:, dy:dy + (oh - 1) * sh + 1:sh,
-                   dx:dx + (ow - 1) * sw + 1:sw, :]
-            out = v if out is None else torch.maximum(out, v)
+    for v in _pool_taps(x, kernel, stride, out_hw, pads, neg):
+        out = v if out is None else torch.maximum(out, v)
     return out.contiguous()
 
 
@@ -141,6 +185,122 @@ def leaky_relu(x: torch.Tensor, alpha: float = 0.01) -> torch.Tensor:
         neg = torch.clamp_min(neg, -128.0).to(x.dtype)
         return torch.where(x > 0, x, neg)
     return torch.where(x > 0, x, x * float(np.float32(alpha)))
+
+
+def _pool_taps(x: torch.Tensor, kernel, stride, out_hw, pads, value):
+    """The KH*KW strided views of ``x`` padded with ``value`` (the bottom
+    and right pads implied by the output size), for a pool."""
+    kh, kw = kernel
+    sh, sw = stride
+    oh, ow = out_hw
+    (pt, _), (pl, _) = pads
+    _, h, w, _ = x.shape
+    pb = max(0, (oh - 1) * sh + kh - h - pt)
+    pr = max(0, (ow - 1) * sw + kw - w - pl)
+    xp = torch.nn.functional.pad(x, (0, 0, pl, pr, pt, pb), value=value)
+    return [xp[:, dy:dy + (oh - 1) * sh + 1:sh, dx:dx + (ow - 1) * sw + 1:sw]
+            for dy in range(kh) for dx in range(kw)]
+
+
+def avgpool(
+    x: torch.Tensor, kernel: Tuple[int, int], stride: Tuple[int, int],
+    out_hw: Tuple[int, int],
+    pads: Tuple[Tuple[int, int], Tuple[int, int]] = ((0, 0), (0, 0)),
+    in_scale: float = 1.0, out_scale: float = 1.0,
+) -> torch.Tensor:
+    """AvgPool, count_include_pad=False: window sums over the taps inside
+    the input, divided by their count. int8 sums are integers, exact in
+    f32 in any order; then x in_scale, / out_scale, PLUS_HALF_TRUNC,
+    clamp."""
+    xf = x.to(torch.float32)
+    summed = torch.stack(_pool_taps(xf, kernel, stride, out_hw, pads, 0.0)
+                         ).sum(0)
+    ones = torch.ones((1,) + tuple(x.shape[1:3]) + (1,), dtype=torch.float32,
+                      device=x.device)
+    counts = torch.stack(_pool_taps(ones, kernel, stride, out_hw, pads, 0.0)
+                         ).sum(0)
+    avg = summed / counts
+    if not x.dtype.is_floating_point:
+        avg = avg * float(np.float32(in_scale))
+        return clamp_i8(round_to_int(_fdiv(avg, out_scale),
+                                     RoundMode.PLUS_HALF_TRUNC))
+    return avg
+
+
+def global_avgpool(x: torch.Tensor, in_scale: float = 1.0,
+                   out_scale: float = 1.0) -> torch.Tensor:
+    """GlobalAvgPool -> [N, 1, 1, C]: the f32 sum over H, W divided by
+    H*W (a division, as ``jnp.mean``; ``torch.mean`` multiplies by the
+    reciprocal), then requantized as :func:`avgpool`."""
+    xf = x.to(torch.float32)
+    avg = _fdiv(xf.sum(dim=(1, 2), keepdim=True), x.shape[1] * x.shape[2])
+    if not x.dtype.is_floating_point:
+        avg = avg * float(np.float32(in_scale))
+        return clamp_i8(round_to_int(_fdiv(avg, out_scale),
+                                     RoundMode.PLUS_HALF_TRUNC))
+    return avg
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """ReLU, int8 and f32."""
+    return torch.clamp_min(x, 0)
+
+
+def relu6(x: torch.Tensor, scale: float = 1.0,
+          compat: bool = False) -> torch.Tensor:
+    """ReLU6. ``compat=True`` is the reference runtime's plain RELU;
+    otherwise the int8 upper clamp is ``trunc(6/scale + 0.5)``."""
+    out = torch.clamp_min(x, 0)
+    if compat:
+        return out
+    if not x.dtype.is_floating_point:
+        hi = int(np.clip(np.trunc(6.0 / np.float32(scale) + 0.5), -128, 127))
+        return torch.clamp_max(out, hi)
+    return torch.clamp_max(out, 6.0)
+
+
+def sigmoid(x: torch.Tensor, in_scale: float = 1.0,
+            out_scale: float = 1.0) -> torch.Tensor:
+    """Sigmoid. int8: dequant -> 1/(1+exp(-x)) -> ``(int)(y/out_scale +
+    0.5)`` -> clamp."""
+    if x.dtype.is_floating_point:
+        return torch.sigmoid(x)
+    xf = x.to(torch.float32) * float(np.float32(in_scale))
+    os_ = float(out_scale) if out_scale > 0 else 1.0
+    return clamp_i8(round_to_int(_fdiv(torch.sigmoid(xf), os_),
+                                 RoundMode.PLUS_HALF_TRUNC))
+
+
+def silu(x: torch.Tensor, in_scale: float = 1.0, sig_scale: float = 1.0,
+         out_scale: float = 1.0, fuse: bool = True) -> torch.Tensor:
+    """SiLU = x * sigmoid(x). int8, ``fuse=True``: in f32, then x the f32
+    reciprocal of ``out_scale``, PLUS_HALF_TRUNC, clamp. ``fuse=False``:
+    the graphs' two-step dataflow, the sigmoid requantized to
+    ``sig_scale`` first, then :func:`mul_q`."""
+    if x.dtype.is_floating_point:
+        return x * torch.sigmoid(x)
+    if fuse:
+        xf = x.to(torch.float32) * float(np.float32(in_scale))
+        y = xf * torch.sigmoid(xf)
+        os_ = float(out_scale) if out_scale > 0 else 1.0
+        inv = float(np.float32(1.0 / np.float32(os_)))
+        return clamp_i8(round_to_int(y * inv, RoundMode.PLUS_HALF_TRUNC))
+    s = sigmoid(x, in_scale, sig_scale)
+    return mul_q(x, s, in_scale, sig_scale, out_scale)
+
+
+def softmax(x: torch.Tensor, axis: int = -1, in_scale: float = 1.0,
+            out_scale: float = 1.0, compat: bool = False) -> torch.Tensor:
+    """Softmax; ``compat=True`` is the reference runtime's pass-through.
+    int8: dequant, softmax in f32, / out_scale, PLUS_HALF_TRUNC, clamp."""
+    if compat:
+        return x
+    if x.dtype.is_floating_point:
+        return torch.softmax(x.to(torch.float32), dim=axis)
+    xf = x.to(torch.float32) * float(np.float32(in_scale))
+    y = torch.softmax(xf, dim=axis)
+    os_ = float(out_scale) if out_scale > 0 else 1.0
+    return clamp_i8(round_to_int(_fdiv(y, os_), RoundMode.PLUS_HALF_TRUNC))
 
 
 def _requant_recip(y: torch.Tensor, out_scale: float) -> torch.Tensor:
@@ -157,6 +317,18 @@ def _deq_operand(v: torch.Tensor, s: float) -> torch.Tensor:
     if not v.dtype.is_floating_point:
         return v.to(torch.float32) * float(np.float32(s))
     return v.to(torch.float32)
+
+
+def mul_q(
+    a: torch.Tensor, b: torch.Tensor,
+    a_scale: float = 1.0, b_scale: float = 1.0, out_scale: float = 1.0,
+) -> torch.Tensor:
+    """Quantized elementwise mul: dequantize each side by its own dtype,
+    multiply in f32, requantize with the PLUS_HALF_TRUNC rule."""
+    if a.dtype.is_floating_point and b.dtype.is_floating_point:
+        return a * b
+    y = _deq_operand(a, a_scale) * _deq_operand(b, b_scale)
+    return _requant_recip(y, out_scale)
 
 
 def add_q(

@@ -1,11 +1,13 @@
 """The inference engine: load -> prepare once -> run many.
 
-Port of ``thingino_accel_tpu.runtime.engine`` for the serving tier. The
-weights are put on the engine's ``device`` once; each run is eager
-PyTorch, with every int8 conv in a hand-written kernel on a CUDA device
-(``ops.fused_kernels``). ``precision="serving"`` plans, as the JAX
-package's serving tier does (``runtime.planner``): residual adds, concats,
-SPPF and C3 bottlenecks fuse into the kernels.
+Port of ``thingino_accel_tpu.runtime.engine`` for the serving and exact
+tiers. The weights are put on the engine's ``device`` once, ``"cuda"``
+unless the caller asks for the CPU; each run is eager PyTorch.
+``precision="serving"`` plans, as the JAX package's serving tier does
+(``runtime.planner``): residual adds, concats, SPPF and C3 bottlenecks
+fuse into the kernels of ``ops.fused_kernels``. ``precision="exact"`` is
+the parity tier, node by node, its per-tensor int8 convs in the kernels of
+``ops.requant_kernels``.
 """
 
 from __future__ import annotations
@@ -17,28 +19,43 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from thingino_accel_tpu.formats import mars as M
-from thingino_accel_tpu.ir import passes
-from thingino_accel_tpu.ir.graph import Graph, from_mars
+from thingino_accel_tpu_torch.formats import mars as M
+from thingino_accel_tpu_torch.ir import passes
+from thingino_accel_tpu_torch.ir.graph import Graph, from_mars
 from thingino_accel_tpu_torch.models.yolo import find_detect_outputs
+from thingino_accel_tpu_torch.ops.quant import RoundMode
 from thingino_accel_tpu_torch.runtime.executor import (
     Executor, _torch_dtype, build_executor, params_from_jax,
-    prepare_params,
+    prepare_params, resolve_device,
 )
 
 
 @dataclasses.dataclass
 class EngineOptions:
-    """``precision``: only ``"serving"`` is ported, the planned int8 tier
-    whose convs carry their activation (``ir.passes.fuse_act_into_conv``)
-    and the planner's fusions in the requantize epilogue. ``"exact"`` and
-    ``"fast"`` raise until their ROADMAP items land."""
+    """``precision``:
+
+    - ``"serving"`` (the port's default; the JAX package's default is
+      ``"exact"``): the planned int8 tier whose convs carry their
+      activation (``ir.passes.fuse_act_into_conv``) and the planner's
+      fusions in the requantize epilogue;
+    - ``"exact"``: the bit-exact parity tier, ``mode`` ``"full"`` or
+      ``"compat"`` (the reference runtime's observable behaviour),
+      ``round_mode`` the conv requantize rule, ``fuse_silu`` the
+      SIGMOID+MUL fusion (full mode only);
+    - ``"fast"`` raises until ROADMAP A.6 lands.
+
+    ``fold_bn`` folds f32 BATCHNORM into the conv before it (full mode).
+    The JAX options ``nchw_io``, ``jit`` and ``donate_inputs`` are not
+    ported."""
 
     precision: str = "serving"
+    mode: str = "full"
+    round_mode: RoundMode = RoundMode.HALF_AWAY
+    fuse_silu: bool = True
+    fold_bn: bool = True
 
 
 _QUEUED_TIERS = {
-    "exact": "ROADMAP.md A.3 (exact tier)",
     "fast": "ROADMAP.md A.6 (fast tier)",
 }
 
@@ -52,29 +69,41 @@ class Engine:
     """Inference engine over a :class:`Graph` on one torch device."""
 
     def __init__(self, graph: Graph, options: Optional[EngineOptions] = None,
-                 device: Union[torch.device, str] = "cpu",
+                 device: Union[torch.device, str] = "cuda",
                  params: Optional[Dict[str, np.ndarray]] = None,
                  planned: bool = True):
-        """``params``: numpy params in the JAX engine's layout (its
+        """``device``: ``"cuda"`` by default, and without a CUDA device
+        the engine raises; ``"cpu"`` runs the kernels' plain versions.
+        ``params``: numpy params in the JAX engine's layout (its
         ``_np_params``) to use instead of the graph's own constants.
-        ``planned=False`` builds the executor without its planner (the
-        unplanned per-node lowering: the counterpart of the JAX engine
-        with ``_plan_folds`` returning None)."""
-        self.options = options or EngineOptions()
-        prec = self.options.precision
+        ``planned=False`` builds the serving executor without its planner
+        (the unplanned per-node lowering: the counterpart of the JAX
+        engine with ``_plan_folds`` returning None); the exact tier has no
+        plan."""
+        self.options = opts = options or EngineOptions()
+        prec = opts.precision
         if prec in _QUEUED_TIERS:
             raise NotImplementedError(
                 f"precision={prec!r} is not ported yet: {_QUEUED_TIERS[prec]}")
-        if prec != "serving":
+        if prec not in ("serving", "exact"):
             raise ValueError(f"unknown precision {prec!r}")
-        self.device = torch.device(device)
-        # the JAX serving order: act fusion, BN fold, params, executor
-        self.graph = passes.fold_batchnorm(passes.fuse_act_into_conv(graph))
+        if opts.mode not in ("full", "compat"):
+            raise ValueError(f"unknown mode {opts.mode!r}")
+        if prec == "serving" and opts.mode != "full":
+            raise ValueError("compat mode is the exact tier's: "
+                             "EngineOptions(precision='exact', mode='compat')")
+        self.device = resolve_device(device)
+        # the JAX order: [act fusion (serving)], BN fold, params, executor
+        if prec == "serving":
+            graph = passes.fuse_act_into_conv(graph)
+        if opts.fold_bn and opts.mode == "full":
+            graph = passes.fold_batchnorm(graph)
+        self.graph = graph
         self._np_params = (prepare_params(self.graph) if params is None
                            else params)
         self.params = params_from_jax(self._np_params, self.device)
-        self.planned = planned
-        self._fn = build_executor(self.graph, self.device, planned)
+        self.planned = planned and prec == "serving"
+        self._fn = self._executor(self.graph)
         self._trace_fn: Optional[Executor] = None
         self.inference_count = 0
         self.total_inference_s = 0.0
@@ -86,7 +115,7 @@ class Engine:
         cls,
         src: Union[str, bytes, M.MarsModel],
         options: Optional[EngineOptions] = None,
-        device: Union[torch.device, str] = "cpu",
+        device: Union[torch.device, str] = "cuda",
         planned: bool = True,
     ) -> "Engine":
         return cls(load_graph(src), options, device=device, planned=planned)
@@ -96,7 +125,7 @@ class Engine:
         cls,
         src: Union[str, bytes, M.MarsModel],
         options: Optional[EngineOptions] = None,
-        device: Union[torch.device, str] = "cpu",
+        device: Union[torch.device, str] = "cuda",
         planned: bool = True,
     ) -> "Engine":
         """A YOLO `.mars` file rewired to its three raw detect heads
@@ -105,6 +134,11 @@ class Engine:
         graph = load_graph(src)
         return cls(graph.with_outputs(find_detect_outputs(graph)), options,
                    device=device, planned=planned)
+
+    def _executor(self, graph: Graph) -> Executor:
+        o = self.options
+        return build_executor(graph, self.device, self.planned, o.precision,
+                              o.mode, o.round_mode, o.fuse_silu)
 
     # -- introspection ------------------------------------------------------
 
@@ -160,12 +194,13 @@ class Engine:
         """Run inference returning EVERY activation (name -> tensor), for
         layer-by-layer comparison against another implementation.
 
-        As the JAX ``Engine.trace``: the graph is re-planned with every
+        As the JAX ``Engine.trace``: the executor is built again with every
         activation as an output, so no residual or bottleneck fuses (a
-        fused tensor would never exist); virtual concats and SPPF still
-        run fused and are materialized at the end."""
+        fused tensor would never exist; virtual concats and SPPF still run
+        fused and are materialized at the end), and on the exact tier no
+        SIGMOID+MUL pair fuses."""
         feed = self._feed(args, inputs)
-        if not self.planned:
+        if not self.planned and self.options.precision == "serving":
             produced = list(self.graph.inputs)
             for node in self._fn.nodes:
                 produced.extend(node.outputs)
@@ -179,18 +214,18 @@ class Engine:
             probe = Graph(nodes=self.graph.nodes, tensors=self.graph.tensors,
                           inputs=self.graph.inputs, outputs=all_acts,
                           name=self.graph.name)
-            self._trace_fn = build_executor(probe, self.device)
+            self._trace_fn = self._executor(probe)
         return self._trace_fn(self.params, feed)
 
     def capture(self, *args: Any, **inputs: Any) -> List[tuple]:
         """One planned forward that records every kernel unit as
         ``(unit, {input name: tensor}, output)``: the inputs the unit
         read and the tensor its kernel wrote. Unlike :meth:`trace` it runs
-        the plan the serving path runs, fusions included; a unit re-run
+        the schedule the serving path runs, fusions included; a unit re-run
         on its recorded inputs (``unit.compute(inputs | params,
         plain=True)``) checks one kernel against its plain version."""
-        if not self.planned:
-            raise ValueError("capture needs the planned executor")
+        if not self._fn.steps:
+            raise ValueError("capture needs the planned or exact executor")
         rec: List[tuple] = []
         self._fn(self.params, self._feed(args, inputs), capture=rec)
         if self.device.type == "cuda":
@@ -202,9 +237,12 @@ class Engine:
     def summary(self) -> str:
         g = self.graph
         nparams = sum(int(np.prod(v.shape)) for v in self._np_params.values())
+        o = self.options
+        tags = [o.precision] + (["compat"] if o.mode == "compat" else []) + (
+            ["unplanned"] if o.precision == "serving" and not self.planned
+            else []) + [str(self.device)]
         lines = [
-            f"Engine[{self.options.precision}"
-            f"{'' if self.planned else ', unplanned'}, {self.device}] "
+            f"Engine[{', '.join(tags)}] "
             f"{g.name}: "
             f"{len(g.nodes)} nodes, {nparams} weight elems",
         ]

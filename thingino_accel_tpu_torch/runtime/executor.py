@@ -28,6 +28,19 @@ kernel's epilogue, a stride-1 depthwise conv through its kernel and any
 other through the plain op; MAXPOOL, CONCAT, ADD, nearest UPSAMPLE and
 RESHAPE in plain torch. It matches the JAX serving engine built with
 ``_plan_folds`` returning None, and stays as that oracle.
+
+**Exact** (:class:`ExactExecutor`, what ``Engine(precision="exact")``
+runs): port of ``_lower_node`` with its ``full`` and ``compat`` modes.
+Every int8 conv with a per-tensor weight scale runs in the exact tier's
+kernels (``ops.conv``: #9, #10 or #11, RELU after the clamp), a
+per-channel one in the plain op, as the JAX executor sends it to XLA;
+any other activation of a conv runs after it as a plain torch step
+(``_apply_fused_act``). The other ops are the plain ops of
+``ops.reference``.
+
+Every entry point puts its tensors on ``device``, ``"cuda"`` by default;
+without a CUDA device it raises (``device="cpu"`` runs the plain versions
+on the CPU). Nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -38,10 +51,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from thingino_accel_tpu.ir.graph import Graph, Node, TensorInfo
-from thingino_accel_tpu.ir.passes import fuse_silu_pairs
+from thingino_accel_tpu_torch.ir.graph import Graph, Node, TensorInfo
+from thingino_accel_tpu_torch.ir.passes import fuse_silu_pairs
+from thingino_accel_tpu_torch.ops import conv as C
 from thingino_accel_tpu_torch.ops import fused_kernels as FK
 from thingino_accel_tpu_torch.ops import reference as R
+from thingino_accel_tpu_torch.ops import requant_kernels as RK
+from thingino_accel_tpu_torch.ops.quant import RoundMode, clamp_i8, round_to_int
 from thingino_accel_tpu_torch.runtime import planner as P
 from thingino_accel_tpu_torch.runtime.planner import is_int8 as _is_int8
 from thingino_accel_tpu_torch.runtime.planner import pool_pads as _pool_pads
@@ -62,10 +78,23 @@ KERNEL_OF_KIND = {
     "sppf": "sppf_int8_fused",
     "dw": "depthwise_conv2d_int8_fused",
 }
+# the exact tier's conv units are named by their kernel's launch counter
+KERNEL_OF_KIND.update({k: k for k in RK.launches})
 
 
 def _nhwc_out_hw(t: TensorInfo) -> Tuple[int, int]:
     return t.shape[1], t.shape[2]
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """``device`` as a torch device. A CUDA device must exist: there is no
+    fallback to the CPU, which runs only when asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested (the default) but torch finds "
+            "no CUDA device; pass device='cpu' to run on the CPU")
+    return dev
 
 
 def _torch_dtype(dt: np.dtype) -> torch.dtype:
@@ -113,7 +142,7 @@ def prepare_params(graph: Graph) -> Dict[str, np.ndarray]:
 
 
 def params_from_jax(np_params: Dict[str, np.ndarray],
-                    device: torch.device | str = "cpu"
+                    device: torch.device | str = "cuda"
                     ) -> Dict[str, torch.Tensor]:
     """The JAX engine's numpy params (``Engine._np_params``: HWIO int8
     conv weights, [KH, KW, C] depthwise weights, int32 biases) as the
@@ -123,6 +152,7 @@ def params_from_jax(np_params: Dict[str, np.ndarray],
     the kernels' layout: each output channel's (ky, kx, c) run is
     contiguous, matching the NHWC input. The 3-D depthwise weights stay
     as they are: [KH, KW, C] is channel-contiguous like the input."""
+    device = resolve_device(device)
     out: Dict[str, torch.Tensor] = {}
     for name, arr in np_params.items():
         arr = np.asarray(arr)
@@ -132,17 +162,75 @@ def params_from_jax(np_params: Dict[str, np.ndarray],
     return out
 
 
-def apply_fused_act(out: torch.Tensor, act: str, alpha: float = 0.01
+def apply_fused_act(out: torch.Tensor, act: str, scale: float,
+                    compat: bool = False, alpha: float = 0.01
                     ) -> torch.Tensor:
-    """Port of ``_apply_fused_act`` for the activations a plain depthwise
-    conv meets here: RELU was applied by the op, LEAKY_RELU on the int8
-    value. Anything else is the exact tier's."""
-    if act in ("NONE", "RELU"):
+    """Port of ``_apply_fused_act``: a conv's activation beyond RELU (which
+    the conv applied after its clamp) on its int8 output, ``scale`` being
+    the output's scale. ``compat`` applies none, as the reference runtime.
+    Unknown activations pass through, as in JAX."""
+    if act in ("NONE", "RELU") or compat:
         return out
+    if act == "RELU6":
+        return R.relu6(out, scale, compat=False)
     if act == "LEAKY_RELU":
-        return R.leaky_relu(out, alpha)
-    raise NotImplementedError(
-        f"activation {act!r} after a plain depthwise conv: ROADMAP.md A.3")
+        return R.leaky_relu(out, alpha or 0.01)
+    if act == "SILU":
+        return R.silu(out, scale, out_scale=scale)
+    if act == "SIGMOID":
+        return R.sigmoid(out, scale, scale)
+    if act in ("TANH", "HARD_SWISH"):   # int8 outputs: float convs raise
+        xf = out.to(torch.float32) * float(np.float32(scale))
+        y = (torch.tanh(xf) if act == "TANH" else
+             R._fdiv(xf * torch.clamp(xf + 3.0, 0.0, 6.0), 6.0))
+        return clamp_i8(round_to_int(R._fdiv(y, scale),
+                                     RoundMode.PLUS_HALF_TRUNC))
+    return out
+
+
+def concat_axis(node: Node, xs: Sequence[torch.Tensor],
+                out_t: TensorInfo) -> int:
+    """The axis of a CONCAT: .mars graphs express it on NCHW axis 1 (NHWC
+    axis 3) and some files carry garbage values, so it is inferred from
+    the declared shapes where they identify it (the C runtime always
+    concats channels)."""
+    axis = int(node.attrs.get("axis", 3))
+    rank = xs[0].ndim
+    if all(x.ndim == rank for x in xs):
+        cands = []
+        for ax in range(rank):
+            tot = sum(x.shape[ax] for x in xs)
+            others = all(
+                all(x.shape[d] == xs[0].shape[d] for x in xs)
+                for d in range(rank) if d != ax)
+            if others and len(out_t.shape) == rank \
+                    and out_t.shape[ax] in (tot, 0) and tot > 0:
+                cands.append(ax)
+        if len(cands) == 1:
+            axis = cands[0]
+        elif axis == 1 and rank == 4:
+            axis = 3
+    return axis
+
+
+def reshape_to(x: torch.Tensor, out_t: TensorInfo) -> torch.Tensor:
+    """RESHAPE to the declared shape, batch taken from ``x``; identity
+    where the shape metadata is inconsistent."""
+    target = list(out_t.shape)
+    if target and target[0] == 1 and x.shape[0] != 1:
+        target[0] = x.shape[0]
+    numel_t = int(np.prod(target)) if target else 0
+    return x.reshape(target) if numel_t == x.numel() else x
+
+
+def upsample_scale(node: Node, x: torch.Tensor,
+                   out_hw: Tuple[int, int]) -> Tuple[int, int]:
+    """The nearest UPSAMPLE's factors; a corrupt or partial descriptor
+    takes them from the shapes."""
+    sc = node.attrs.get("scale", (0, 0))
+    if sc[0] <= 0 or sc[1] <= 0:
+        sc = (out_hw[0] // x.shape[1], out_hw[1] // x.shape[2])
+    return sc
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +244,7 @@ class _Step:
 
     out: str
     reads: Tuple[str, ...] = ()
+    is_kernel = False   # a launch of a hand-written kernel
 
     def run(self, env: Dict[str, torch.Tensor], plain: bool = False) -> None:
         raise NotImplementedError
@@ -209,6 +298,7 @@ class KernelUnit(_Step):
     mirrors: str
     residual: Optional[str] = None
     act: str = "NONE"
+    is_kernel = True
 
     def compute(self, env, plain=False) -> torch.Tensor:
         raise NotImplementedError
@@ -381,12 +471,12 @@ class Executor:
     runs the unplanned per-node lowering. Epilogue rows (host-computed
     f32 scales) are built once, on ``device``."""
 
-    def __init__(self, graph: Graph, device: torch.device | str = "cpu",
+    def __init__(self, graph: Graph, device: torch.device | str = "cuda",
                  planned: bool = True):
         self.graph = graph
         self.tensors = graph.tensors
         self.nodes: List[Node] = fuse_silu_pairs(graph)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.epilogues: Dict[str, FK.Epilogue] = {}
         for node in self.nodes:
             self._check_supported(node, planned)
@@ -480,10 +570,28 @@ class Executor:
 
     # -- run time ----------------------------------------------------------
 
+    def fill_degenerate(self, node: Node, env: Dict[str, torch.Tensor]
+                        ) -> bool:
+        """The degenerate region guard: a node over a zero-shaped tensor
+        (the dangling subgraphs of some files), or a pool with a zero
+        kernel or stride, writes zeros of its declared shapes."""
+        a = node.attrs
+        if not (any(0 in env[i].shape for i in node.inputs if i in env)
+                or any(0 in self.tensors[o].shape for o in node.outputs)
+                or (node.op in ("MAXPOOL", "AVGPOOL")
+                    and (0 in a.get("kernel", (1, 1))
+                         or 0 in a.get("stride", (1, 1))))):
+            return False
+        for o in node.outputs:
+            t = self.tensors[o]
+            env[o] = torch.zeros(t.shape, dtype=_torch_dtype(t.dtype),
+                                 device=self.device)
+        return True
+
     @property
     def units(self) -> List[KernelUnit]:
-        """The kernel units of a planned forward, in launch order."""
-        return [s for s in self.steps if isinstance(s, KernelUnit)]
+        """The kernel units of a forward, in launch order."""
+        return [s for s in self.steps if s.is_kernel]
 
     def launch_census(self) -> Dict[str, int]:
         """Kernel launches of one planned forward, by launch counter."""
@@ -495,17 +603,17 @@ class Executor:
                  outputs: Optional[List[str]] = None,
                  capture: Optional[list] = None,
                  ) -> Dict[str, torch.Tensor]:
-        """``capture`` (planned only): a list that receives, for every
-        kernel unit, ``(unit, {read name: tensor}, output)``."""
+        """``capture`` (planned serving or exact): a list that receives,
+        for every kernel unit, ``(unit, {read name: tensor}, output)``."""
         env: Dict[str, torch.Tensor] = dict(params)
         env.update(inputs)
-        if self.plan is None:
+        if not self.steps:
             for node in self.nodes:
                 self.lower_node(node, env)
         else:
             for step in self.steps:
                 step.run(env)
-                if capture is not None and isinstance(step, KernelUnit):
+                if capture is not None and step.is_kernel:
                     capture.append((step, {r: env[r] for r in step.reads},
                                     env[step.out]))
         names = self.graph.outputs if outputs is None else outputs
@@ -521,19 +629,7 @@ class Executor:
         out_name = node.outputs[0]
         out_t = self.tensors[out_name]
 
-        # Degenerate region guard: subgraphs over zero-shaped dangling
-        # tensors produce zeros of their declared shape.
-        degenerate = (
-            any(0 in env[i].shape for i in node.inputs if i in env)
-            or any(0 in self.tensors[o].shape for o in node.outputs)
-            or (op == "MAXPOOL"
-                and (0 in a.get("kernel", (1, 1))
-                     or 0 in a.get("stride", (1, 1)))))
-        if degenerate:
-            for o in node.outputs:
-                t = self.tensors[o]
-                env[o] = torch.zeros(t.shape, dtype=_torch_dtype(t.dtype),
-                                     device=self.device)
+        if self.fill_degenerate(node, env):
             return
 
         scale = self.scale
@@ -558,8 +654,8 @@ class Executor:
                 x, env[node.inputs[1]], bias, out_hw, a["stride"],
                 a["dilation"], pads, scale(node.inputs[0]),
                 self.w_scale(node), scale(out_name), relu=act == "RELU")
-            env[out_name] = apply_fused_act(out, act,
-                                            a.get("alpha", 0.01) or 0.01)
+            env[out_name] = apply_fused_act(out, act, scale(out_name),
+                                            alpha=a.get("alpha", 0.01) or 0.01)
 
         elif op == "CONV2D":
             x = env[node.inputs[0]]
@@ -580,26 +676,7 @@ class Executor:
 
         elif op == "CONCAT":
             xs = [env[i] for i in node.inputs]
-            axis = int(a.get("axis", 3))
-            # .mars graphs express concat on NCHW axis 1 == NHWC axis 3,
-            # and some files carry garbage axis values: infer the axis
-            # from the declared shapes where they identify it.
-            rank = xs[0].ndim
-            if all(x.ndim == rank for x in xs):
-                cands = []
-                for ax in range(rank):
-                    tot = sum(x.shape[ax] for x in xs)
-                    others = all(
-                        all(x.shape[d] == xs[0].shape[d] for x in xs)
-                        for d in range(rank) if d != ax)
-                    if others and len(out_t.shape) == rank \
-                            and out_t.shape[ax] in (tot, 0) and tot > 0:
-                        cands.append(ax)
-                if len(cands) == 1:
-                    axis = cands[0]
-                elif axis == 1 and rank == 4:
-                    axis = 3
-            env[out_name] = R.concat(xs, axis)
+            env[out_name] = R.concat(xs, concat_axis(node, xs, out_t))
 
         elif op == "ADD":
             env[out_name] = R.add_q(
@@ -610,21 +687,11 @@ class Executor:
         elif op == "UPSAMPLE":
             x = env[node.inputs[0]]
             out_hw = _nhwc_out_hw(out_t)
-            sc = a.get("scale", (0, 0))
-            if sc[0] <= 0 or sc[1] <= 0:   # corrupt/partial descriptor
-                sc = (out_hw[0] // x.shape[1], out_hw[1] // x.shape[2])
-            env[out_name] = R.upsample_nearest(x, sc, out_hw)
+            env[out_name] = R.upsample_nearest(
+                x, upsample_scale(node, x, out_hw), out_hw)
 
         elif op == "RESHAPE":
-            x = env[node.inputs[0]]
-            target = list(out_t.shape)
-            if target and target[0] == 1 and x.shape[0] != 1:
-                target[0] = x.shape[0]
-            numel_t = int(np.prod(target)) if target else 0
-            if numel_t == x.numel():
-                env[out_name] = x.reshape(target)
-            else:
-                env[out_name] = x   # shape metadata inconsistent -> identity
+            env[out_name] = reshape_to(env[node.inputs[0]], out_t)
 
 
 class _Scheduler:
@@ -888,8 +955,243 @@ class _Scheduler:
         return True
 
 
-def build_executor(graph: Graph, device: torch.device | str = "cpu",
-                   planned: bool = True) -> Executor:
-    """Return ``fn(params, inputs) -> outputs`` for ``graph`` on ``device``;
-    ``planned=False`` gives the unplanned per-node lowering."""
+# ---------------------------------------------------------------------------
+# The exact tier
+# ---------------------------------------------------------------------------
+
+# ops the exact lowering takes (``_lower_node``); the rest raise, naming
+# where they are queued
+EXACT_OPS = ("CONV2D", "DEPTHWISE_CONV2D", "MAXPOOL", "AVGPOOL",
+             "GLOBAL_AVGPOOL", "RELU", "RELU6", "LEAKY_RELU", "SIGMOID",
+             "SILU", "SILU_FUSED", "SOFTMAX", "CONCAT", "ADD", "MUL",
+             "UPSAMPLE", "RESHAPE", "TRANSPOSE")
+_EXACT_QUEUED = {"GRU": "ROADMAP.md A.8 (second modality)",
+                 "CONV1D": "ROADMAP.md A.8 (second modality)",
+                 "CONV1D_TRANSPOSE": "ROADMAP.md A.8 (second modality)"}
+_EXACT_LEFT = "ROADMAP.md A.3 (exact-tier ops not ported yet)"
+
+
+class ExactConvUnit(KernelUnit):
+    """An int8 conv of the exact tier through ``ops.conv.conv2d_int8``:
+    kernel #9, #10 or #11 for a per-tensor weight scale (``kind`` is the
+    kernel's launch counter), the plain op for a per-channel one (``kind``
+    ``"plain_convs"``, not a kernel unit). Its output is the requantized
+    int8 conv with RELU applied after the clamp; any other activation is
+    the :class:`ActStep` after it."""
+
+    mirrors = "conv2d_int8"
+
+    def __init__(self, ex: "ExactExecutor", node: Node):
+        a = node.attrs
+        t = ex.tensors
+        self.node, self.out = node, node.outputs[0]
+        self.reads = (node.inputs[0],)
+        in_t = t[node.inputs[0]]
+        self.out_hw = _nhwc_out_hw(t[self.out])
+        self.stride, self.dilation = a["stride"], a["dilation"]
+        self.pads = R._conv_pads(
+            (in_t.shape[1], in_t.shape[2]), self.out_hw, a["kernel"],
+            a["stride"], a["dilation"], a["padding"], a["explicit_pad"])
+        self.scales = (ex.scale(node.inputs[0]), ex.w_scale(node),
+                       ex.scale(self.out))
+        self.round_mode = ex.round_mode
+        self.relu = a.get("activation", "NONE") == "RELU"
+        self.kind = C.route(a["kernel"], self.stride, self.dilation,
+                            self.pads, self.scales[1])
+        self.is_kernel = self.kind != C.PLAIN
+
+    def compute(self, env, plain=False):
+        n = self.node
+        bias = env[n.inputs[2]] if len(n.inputs) > 2 else None
+        return C.conv2d_int8(
+            env[n.inputs[0]], env[n.inputs[1]], bias, self.out_hw,
+            self.stride, self.dilation, self.pads, *self.scales,
+            self.round_mode, self.relu, plain=plain)
+
+
+class ActStep(_Step):
+    """A conv's activation beyond RELU on its int8 output, as a plain
+    torch op (``apply_fused_act``), at the output's scale."""
+
+    def __init__(self, ex: "ExactExecutor", node: Node):
+        a = node.attrs
+        self.node, self.out = node, node.outputs[0]
+        self.reads = (self.out,)
+        self.act = a.get("activation", "NONE")
+        self.scale = ex.scale(self.out)
+        self.alpha = a.get("alpha", 0.01) or 0.01
+
+    def run(self, env, plain=False):
+        env[self.out] = apply_fused_act(env[self.out], self.act, self.scale,
+                                        alpha=self.alpha)
+
+
+class ExactExecutor(Executor):
+    """The exact tier, ``mode`` ``"full"`` or ``"compat"`` (port of
+    ``build_executor`` with ``_lower_node``): a schedule of steps, one per
+    node but two for a conv with an activation beyond RELU.
+
+    Compat mode replicates the reference runtime: no SIGMOID+MUL fusion,
+    only a conv's RELU, MAXPOOL without pads, AVGPOOL, GLOBAL_AVGPOOL,
+    SILU, SOFTMAX, RESHAPE and TRANSPOSE as pass-throughs, RELU6 as
+    RELU."""
+
+    def __init__(self, graph: Graph, device: torch.device | str = "cuda",
+                 mode: str = "full",
+                 round_mode: RoundMode = RoundMode.HALF_AWAY,
+                 fuse_silu: bool = True):
+        if mode not in ("full", "compat"):
+            raise ValueError(f"unknown mode {mode!r}")
+        self.graph = graph
+        self.tensors = graph.tensors
+        self.compat = mode == "compat"
+        self.round_mode = round_mode
+        self.nodes = (fuse_silu_pairs(graph) if fuse_silu and not self.compat
+                      else list(graph.nodes))
+        self.device = resolve_device(device)
+        self.plan = None
+        self.steps: List[_Step] = []
+        for node in self.nodes:
+            self._check_exact(node)
+            if self._kernel_conv(node):
+                self.steps.append(ExactConvUnit(self, node))
+                if not self.compat and node.attrs.get(
+                        "activation", "NONE") not in ("NONE", "RELU"):
+                    self.steps.append(ActStep(self, node))
+            else:
+                self.steps.append(NodeStep(self, node))
+
+    def _kernel_conv(self, node: Node) -> bool:
+        return (node.op in ("CONV2D", "DEPTHWISE_CONV2D")
+                and not is_depthwise(node, self.tensors)
+                and not self._degenerate_decl(node))
+
+    def _check_exact(self, node: Node) -> None:
+        op = node.op
+        if op not in EXACT_OPS:
+            raise NotImplementedError(
+                f"op {op!r} is not ported to the exact tier yet: "
+                f"{_EXACT_QUEUED.get(op, _EXACT_LEFT)}")
+        if op in ("CONV2D", "DEPTHWISE_CONV2D") \
+                and not self._degenerate_decl(node):
+            if len(node.inputs) < 2 or not _is_int8(
+                    self.tensors[node.inputs[0]]):
+                raise NotImplementedError(f"float convs: {_EXACT_LEFT}")
+            if is_depthwise(node, self.tensors):
+                if not _is_int8(self.tensors[node.outputs[0]]):
+                    raise NotImplementedError(
+                        f"depthwise convs with a float output: {_EXACT_LEFT}")
+            elif node.attrs.get("groups", 1) != 1:
+                raise NotImplementedError(f"grouped int8 convs: {_EXACT_LEFT}")
+        if op == "UPSAMPLE" and node.attrs.get("mode", 0) == 1 \
+                and not self.compat:
+            raise NotImplementedError(f"bilinear UPSAMPLE: {_EXACT_LEFT}")
+
+    def launch_census(self) -> Dict[str, int]:
+        """Where one forward's convs run, from the shapes alone: launches
+        per kernel counter, and ``"plain_convs"`` (per-channel convs on
+        the plain op)."""
+        c = collections.Counter(s.kind for s in self.steps
+                                if isinstance(s, ExactConvUnit))
+        return {k: c.get(k, 0) for k in list(RK.launches) + [C.PLAIN]}
+
+    def lower_node(self, node: Node, env: Dict[str, torch.Tensor],
+                   plain: bool = False) -> None:
+        """``_lower_node``: compute ``node``'s outputs from ``env`` into
+        ``env``. ``plain=True`` runs the convs through the kernels' plain
+        versions on any device (a check, never the serving path)."""
+        op = node.op
+        a = node.attrs
+        out_name = node.outputs[0]
+        out_t = self.tensors[out_name]
+        compat = self.compat
+        if self.fill_degenerate(node, env):
+            return
+
+        scale = self.scale
+        if op in ("CONV2D", "DEPTHWISE_CONV2D"):
+            act = a.get("activation", "NONE")
+            if is_depthwise(node, self.tensors):
+                x = env[node.inputs[0]]
+                out_hw = _nhwc_out_hw(out_t)
+                pads = R._conv_pads(
+                    (x.shape[1], x.shape[2]), out_hw, a["kernel"],
+                    a["stride"], a["dilation"], a["padding"], a["explicit_pad"])
+                out = R.depthwise_conv2d_int8(
+                    x, env[node.inputs[1]],
+                    env[node.inputs[2]] if len(node.inputs) > 2 else None,
+                    out_hw, a["stride"], a["dilation"], pads,
+                    scale(node.inputs[0]), self.w_scale(node),
+                    scale(out_name), self.round_mode, act == "RELU")
+            else:
+                out = ExactConvUnit(self, node).compute(env, plain)
+            env[out_name] = apply_fused_act(out, act, scale(out_name), compat,
+                                            a.get("alpha", 0.01) or 0.01)
+            return
+
+        x = env[node.inputs[0]]
+        if op == "MAXPOOL":
+            # the reference ignores pool padding entirely
+            pads = ((0, 0), (0, 0)) if compat else \
+                _pool_pads(a, (x.shape[1], x.shape[2]))
+            out = R.maxpool(x, a["kernel"], a["stride"], _nhwc_out_hw(out_t),
+                            pads)
+        elif op in ("AVGPOOL", "GLOBAL_AVGPOOL", "SILU") and compat:
+            out = x   # not implemented by the reference: pass-through
+        elif op == "AVGPOOL":
+            out = R.avgpool(x, a["kernel"], a["stride"], _nhwc_out_hw(out_t),
+                            _pool_pads(a, (x.shape[1], x.shape[2])),
+                            scale(node.inputs[0]), scale(out_name))
+        elif op == "GLOBAL_AVGPOOL":
+            out = R.global_avgpool(x, scale(node.inputs[0]), scale(out_name))
+        elif op == "RELU":
+            out = R.relu(x)
+        elif op == "RELU6":
+            out = R.relu6(x, scale(node.inputs[0]), compat)
+        elif op == "LEAKY_RELU":
+            out = R.leaky_relu(x, a.get("alpha", 0.0) or 0.01)
+        elif op == "SIGMOID":
+            out = R.sigmoid(x, scale(node.inputs[0]), scale(out_name))
+        elif op == "SILU":
+            out = R.silu(x, scale(node.inputs[0]), out_scale=scale(out_name))
+        elif op == "SILU_FUSED":
+            out = R.silu(x, in_scale=a["in_scale"], sig_scale=a["sig_scale"],
+                         out_scale=a["out_scale"], fuse=True)
+        elif op == "SOFTMAX":
+            out = R.softmax(x, axis=int(a.get("axis", -1)),
+                            in_scale=scale(node.inputs[0]),
+                            out_scale=scale(out_name), compat=compat)
+        elif op == "CONCAT":
+            xs = [env[i] for i in node.inputs]
+            out = R.concat(xs, concat_axis(node, xs, out_t))
+        elif op in ("ADD", "MUL"):
+            fn = R.add_q if op == "ADD" else R.mul_q
+            out = fn(x, env[node.inputs[1]], scale(node.inputs[0]),
+                     scale(node.inputs[1]), scale(out_name))
+        elif op == "UPSAMPLE":
+            out_hw = _nhwc_out_hw(out_t)
+            out = R.upsample_nearest(x, upsample_scale(node, x, out_hw),
+                                     out_hw)
+        elif compat:   # RESHAPE, TRANSPOSE: the reference moves no data
+            out = x
+        elif op == "TRANSPOSE" and "perm" in a:
+            out = x.permute(tuple(a["perm"])).contiguous()
+        else:   # RESHAPE, or a TRANSPOSE that only re-declares the shape
+            out = reshape_to(x, out_t)
+        env[out_name] = out
+
+
+def build_executor(graph: Graph, device: torch.device | str = "cuda",
+                   planned: bool = True, precision: str = "serving",
+                   mode: str = "full",
+                   round_mode: RoundMode = RoundMode.HALF_AWAY,
+                   fuse_silu: bool = True) -> Executor:
+    """Return ``fn(params, inputs) -> outputs`` for ``graph`` on ``device``.
+    ``precision="serving"``: the planned serving tier, or with
+    ``planned=False`` the unplanned per-node lowering. ``"exact"``: the
+    exact tier in ``mode`` ``"full"`` or ``"compat"``."""
+    if precision == "exact":
+        return ExactExecutor(graph, device, mode, round_mode, fuse_silu)
+    if precision != "serving":
+        raise ValueError(f"unknown precision {precision!r}")
     return Executor(graph, device, planned)

@@ -29,7 +29,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
-from thingino_accel_tpu.ir.graph import Node, TensorInfo
+from thingino_accel_tpu_torch.ir.graph import Node, TensorInfo
 from thingino_accel_tpu_torch.ops import reference as R
 
 _FOLD_ELTWISE = ("RELU", "RELU6", "LEAKY_RELU", "SILU", "SILU_FUSED",
