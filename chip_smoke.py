@@ -28,13 +28,14 @@ Phases:
    the CPU path (the path the tests hold against JAX); decode + NMS on
    tie-heavy heads, kernel decode vs plain decode. Prints the share of
    head values where the planned and the unplanned tier differ on the
-   same batch.
+   same batch. Then #5's path on that checked batch (see 10).
 5. The unplanned tier (kept as the tests' oracle), 1 batch: one launch
    per conv, each conv teacher-forced kernel vs plain, one frame node by
    node against the CPU.
 6. The zoo yolov5s at 640 (random weights from seed 0), planned, 2
-   batches of 8: one SPPF launch per forward, every unit of one batch
-   against its plain version.
+   batches of 8: one SPPF launch per forward, every unit of both batches
+   as one forward of 16 against its plain version; then #5's path on
+   that checked forward (see 10).
 7. The committed ``models/nanodet_320.mars`` (full width, 320x320,
    depthwise): letterbox -> int8 quantize -> network through
    ``StreamServer``, 4 batches of 16; launches per forward as the plan
@@ -50,6 +51,19 @@ Phases:
    launches 4 x {#9: 42, #10: 11, #11: 7} plus one decode a batch and no
    plain conv; every conv of one batch against its plain version; one
    frame step by step on the card against the CPU path, and its heads.
+9. The slab-ring KxK conv (#5, ``conv2d_int8_halo_fused(pipeline="dma")``,
+   ``csrc/conv_int8_dma.cu``) at #2's lead shape, 16x80x80x128 -> 128, a
+   3x3/s2, the 6x6/s2 stem and a ragged case: equal to its plain version
+   and to #2 bit for bit, timed beside #2, the plain version and fp16
+   ``F.conv2d``.
+10. Its path, inside phases 4 and 6: the batch of 16 whose units were
+   just held against their plain versions, through the planned real
+   yolov5n and the planned zoo yolov5s at 640; every KxK conv unit
+   without a residual re-run on its recorded input through #5 (one
+   launch each, no other kernel), equal to its plain version on that
+   input (the tolerance below) and to the unit's output (#2's) bit for
+   bit; the per-forward sums of both kernels' times. No engine path
+   routes to #5, as no JAX executor path runs the DMA variant.
 
 Each path is run with the launch counters set to 0 just before it and
 read just after. Tolerances (as in ``tests/test_torch_fused_kernels.py``):
@@ -75,6 +89,7 @@ detailed numbers to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -114,6 +129,11 @@ EXACT_ZOO_S = {"matmul_int8_requant": 42, "conv2d_int8_halo": 11,
                "conv2d_int8": 7, "plain_convs": 0}
 # the YOLO pipelines decode their three heads in one launch per batch
 DECODE = "decode_and_parse_fused"
+# the slab-ring KxK conv (#5): no engine path routes to it, as no JAX
+# executor path runs conv2d_int8_folded(pipeline="dma"); its path is the
+# replay of the planned models' KxK conv units through it
+DMA = "conv2d_int8_halo_dma"
+DMA_PATH = "planned yolov5n + zoo yolov5s 640, KxK units replayed"
 KERNEL_INFO = {
     "matmul_int8_fused": {
         "source": "thingino_accel_tpu_torch/csrc/mm_int8_fused.cu",
@@ -146,6 +166,10 @@ KERNEL_INFO = {
         "source": "thingino_accel_tpu_torch/csrc/requant_int8.cu",
         "replaces": "thingino_accel_tpu/ops/pallas_kernels.py:300 "
                     "(_tapconv_call :388)"},
+    DMA: {
+        "source": "thingino_accel_tpu_torch/csrc/conv_int8_dma.cu",
+        "replaces": "thingino_accel_tpu/ops/fused_kernels.py:942 "
+                    "(pipeline=\"dma\", _halo_kernel_dma :817)"},
 }
 # the path whose run gives each kernel's launch count
 PATH_OF = {k: "planned real yolov5n" for k in KERNEL_INFO}
@@ -153,6 +177,7 @@ PATH_OF["sppf_int8_fused"] = "planned zoo yolov5s 640"
 PATH_OF["depthwise_conv2d_int8_fused"] = "planned nanodet 320"
 for _k in ("matmul_int8_requant", "conv2d_int8_halo", "conv2d_int8"):
     PATH_OF[_k] = "exact zoo yolov5s 640"
+PATH_OF[DMA] = DMA_PATH
 
 
 class SmokeFailure(RuntimeError):
@@ -331,12 +356,12 @@ def phase_build() -> float:
 
 
 def time_case(results, phase, kernel, label, act, kern, plain, work=None,
-              library=None) -> None:
+              library=None) -> dict:
     """One case of a kernel: its output against its plain version (the
     tolerance of ``act``), both timed. ``work(out)``: the case's (ops,
     bytes), for its bound; ``library``: one PyTorch call computing the
-    same product or conv, or None. Both are read on a kernel's first case
-    only, the case its line in the JSON reports."""
+    same function, or None. A kernel's first case needs ``work``: its
+    line in the JSON reports that case. Returns the case's record."""
     import torch
     first = not results[kernel]["cases"]
     out_k = kern()
@@ -346,16 +371,18 @@ def time_case(results, phase, kernel, label, act, kern, plain, work=None,
     plain_ms = time_ms(plain, 5, warmup=1)
     case = {"case": f"{label} {act}", "ms": ms, "plain_ms": plain_ms,
             "max_abs_err": dmax}
-    if first:
+    extra = ""
+    if first or work is not None:
         case["bound_ms"], case["bound_by"] = bound(*work(out_k))
         case["library_ms"] = (library_ms(library, label)
                               if library is not None else None)
+        extra = (f", bound {case['bound_ms']:.4f} ms ({case['bound_by']}), "
+                 f"library {case['library_ms']}")
     results[kernel]["cases"].append(case)
     note_err(results, kernel, dmax)
-    extra = (f", bound {case['bound_ms']:.4f} ms ({case['bound_by']}), "
-             f"library {case['library_ms']}" if first else "")
     print(f"[{phase}] {kernel:24s} {label} {act}: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, max |diff| {dmax}{extra}")
+    return case
 
 
 def phase_kernels(results: dict) -> None:
@@ -384,7 +411,7 @@ def phase_kernels(results: dict) -> None:
                                 device=dev)
 
     def run_case(*args):
-        time_case(results, "kernels", *args)
+        return time_case(results, "kernels", *args)
 
     # the 1x1 and KxK convs: (label, kernel, x shape, w OHWI shape, stride,
     # pad)
@@ -466,7 +493,9 @@ def phase_kernels(results: dict) -> None:
                          2 * m * k * n, m * k + n * k + 8 * n + out.numel()),
                      int_mm_call(xcat, wfull))
 
-    # bottleneck: model.4's pair with its shortcut, a neck pair without
+    # bottleneck: model.4's pair with its shortcut, a neck pair without.
+    # No single library call computes 1x1 -> act -> 3x3 [+ x]; fp16
+    # F.conv2d of the 3x3 stage alone is kept as a note
     for label, (nb, h, w, c), shortcut in [
             ("16x80x80x32 shortcut", (16, 80, 80, 32), True),
             ("16x40x40x64 no shortcut", (16, 40, 40, 64), False)]:
@@ -476,15 +505,18 @@ def phase_kernels(results: dict) -> None:
         for act in ("NONE", "SILU"):
             args = (x, w1, b1, ep_of(c, c, act), w2, b2,
                     ep_of(c, 9 * c, act), shortcut, 0.05)
-            run_case("bottleneck_int8_fused", label, act,
-                     lambda: FK.bottleneck_int8_fused(*args),
-                     lambda: FK.bottleneck_int8_fused_plain(*args),
-                     lambda out, x=x, w1=w1, w2=w2, c=c: (
-                         2 * out.numel() // out.shape[-1]
-                         * (c * c + w2.numel()),
-                         x.numel() + w1.numel() + w2.numel() + 16 * c
-                         + out.numel()),
-                     conv_fp16_call(x, w2, 1, 1))   # the KxK stage alone
+            case = run_case(
+                "bottleneck_int8_fused", label, act,
+                lambda: FK.bottleneck_int8_fused(*args),
+                lambda: FK.bottleneck_int8_fused_plain(*args),
+                lambda out, x=x, w1=w1, w2=w2, c=c: (
+                    2 * out.numel() // out.shape[-1] * (c * c + w2.numel()),
+                    x.numel() + w1.numel() + w2.numel() + 16 * c
+                    + out.numel()))
+            case["stage3x3_fp16_ms"] = library_ms(
+                conv_fp16_call(x, w2, 1, 1), f"{label} 3x3 stage")
+            print(f"[kernels] bottleneck {label} {act}: fp16 F.conv2d of "
+                  f"the 3x3 stage alone {case['stage3x3_fp16_ms']}")
 
     # SPPF of the zoo yolov5s at 640: 20x20x256, k = 5 -> 512
     x = rnd((8, 20, 20, 256))
@@ -548,9 +580,10 @@ def phase_kernels(results: dict) -> None:
               f"{plain_ms:.4f} ms, max |diff| {dmax:.3g}")
 
 
-def check_units(eng, x, results: dict, what: str) -> int:
+def check_units(eng, x, results: dict, what: str) -> list:
     """Every kernel unit of one planned forward (inputs captured on the
-    card) against its plain version on the same inputs."""
+    card) against its plain version on the same inputs; returns the
+    record, (unit, inputs, output) a unit."""
     from thingino_accel_tpu_torch.runtime.executor import KERNEL_OF_KIND
     rec = eng.capture(x)
     for unit, reads, out in rec:
@@ -559,7 +592,7 @@ def check_units(eng, x, results: dict, what: str) -> int:
         plain = unit.compute(env, plain=True)
         dmax = compare(out, plain, unit.act, f"{what} {unit!r}")
         note_err(results, KERNEL_OF_KIND[unit.kind], dmax)
-    return len(rec)
+    return rec
 
 
 def check_postprocess_on_card(dev, results: dict) -> int:
@@ -753,9 +786,11 @@ def phase_slice(results: dict) -> dict:
 
     x = Y.quantize_input_int8(
         Y.letterbox_uint8(torch.from_numpy(frames[0]).to(dev), target))
-    n_units = check_units(eng, x, results, "real yolov5n")
+    rec = check_units(eng, x, results, "real yolov5n")
+    n_units = len(rec)
     print(f"[slice] kernel vs plain on every unit of one batch: {n_units} "
           "units within tolerance")
+    dma = replay_dma(eng, rec, results, "planned real yolov5n")
     x1 = check_letterbox_on_card(frames[0][:1], target)
     n_steps = check_steps_against_cpu(eng, x1)
     print(f"[slice] card vs CPU, one frame: {n_steps} planned steps within "
@@ -784,7 +819,7 @@ def phase_slice(results: dict) -> dict:
         "dets_per_frame_mean": float(np.mean(dets_per_frame)),
         "units_checked": n_units, "steps_card_vs_cpu": n_steps,
         "planned_vs_unplanned_head_share": share,
-        "planned_vs_unplanned_head_max": dmax,
+        "planned_vs_unplanned_head_max": dmax, "dma_replay": dma,
     }
 
 
@@ -877,12 +912,16 @@ def phase_zoo_s(results: dict) -> dict:
             want = (ZOO_BATCH,) + tuple(eng.graph.tensors[k].shape[1:])
             require(tuple(h.shape) == want and h.dtype == torch.int8,
                     f"zoo yolov5s head {k}: {tuple(h.shape)} {h.dtype}")
-    n_units = check_units(eng, xs[0], results, "zoo yolov5s")
+    # both batches as one of 16 frames, the batch of the KxK replay
+    rec = check_units(eng, torch.cat(xs), results, "zoo yolov5s")
+    n_units = len(rec)
     print(f"[zoo-s] 2 batches of {ZOO_BATCH} in {secs:.3f} s (host clock, "
-          f"synchronized); launches {counts}; {n_units} units of one batch "
-          "within tolerance")
+          f"synchronized); launches {counts}; {n_units} units of both "
+          "batches as one forward within tolerance")
+    dma = replay_dma(eng, rec, results, "planned zoo yolov5s 640")
     return {"launches": counts, "census_per_forward": census,
-            "forward_s_2_batches": secs, "units_checked": n_units}
+            "forward_s_2_batches": secs, "units_checked": n_units,
+            "dma_replay": dma}
 
 
 def phase_nanodet(results: dict) -> dict:
@@ -930,7 +969,7 @@ def phase_nanodet(results: dict) -> dict:
 
     x = Y.quantize_input_int8(
         Y.letterbox_uint8(torch.from_numpy(frames[0]).to(dev), target))
-    n_units = check_units(eng, x, results, "nanodet")
+    n_units = len(check_units(eng, x, results, "nanodet"))
     cpu = Engine.from_mars(str(NANODET), device="cpu")
     card, ref = eng.run(x[:1]), cpu.run(x[:1].cpu())
     for k in eng.output_names:
@@ -1093,7 +1132,7 @@ def phase_exact(results: dict) -> dict:
 
     x = Y.quantize_input_int8(
         Y.letterbox_uint8(torch.from_numpy(frames[0]).to(dev), target))
-    n_units = check_units(eng, x, results, "exact zoo yolov5s")
+    n_units = len(check_units(eng, x, results, "exact zoo yolov5s"))
     require(n_units == 60, f"{n_units} kernel convs captured, expected 60")
     print(f"[exact] kernel vs plain on every conv of one batch: {n_units} "
           "convs bit for bit")
@@ -1111,6 +1150,135 @@ def phase_exact(results: dict) -> dict:
             "dets_per_frame_mean": float(np.mean(dets_per_frame)),
             "units_checked": n_units, "steps_card_vs_cpu": n_steps,
             "heads_card_vs_cpu_share": share, "heads_card_vs_cpu_max": dmax}
+
+
+def phase_dma_kernels(results: dict) -> None:
+    """The slab-ring KxK conv (#5) against its plain version (the
+    tolerance of the case's act) and against #2 (``"blockspec"``) bit for
+    bit, at #2's lead shape, the TPU experiment's 16x80x80x128 -> 128, a
+    3x3/s2, the 6x6/s2 stem and a ragged case; its time beside #2's, the
+    plain version's, fp16 channels-last ``F.conv2d``'s and the bound."""
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+
+    rng = np.random.default_rng(5)
+    dev = torch.device("cuda")
+
+    def rnd(shape):
+        return torch.from_numpy(
+            rng.integers(-128, 128, shape, dtype=np.int8)).to(dev)
+
+    # (label, x shape, OHWI w shape, stride, pads, act)
+    cases = [
+        ("3x3/s1 8x80x80x64 -> 64", (8, 80, 80, 64), (64, 3, 3, 64), 1,
+         ((1, 1), (1, 1)), "NONE"),
+        ("3x3/s1 16x80x80x128 -> 128", (16, 80, 80, 128), (128, 3, 3, 128),
+         1, ((1, 1), (1, 1)), "SILU"),
+        ("3x3/s2 16x80x80x128 -> 256", (16, 80, 80, 128), (256, 3, 3, 128),
+         2, ((1, 1), (1, 1)), "RELU"),
+        ("6x6/s2 stem 16x640x640x3 -> 32", (16, 640, 640, 3),
+         (32, 6, 6, 3), 2, ((2, 2), (2, 2)), "SILU"),
+        ("ragged 3x3/s1 16x45x77x40 -> 70 pads (0,1),(1,0)",
+         (16, 45, 77, 40), (70, 3, 3, 40), 1, ((0, 1), (1, 0)),
+         "LEAKY_RELU"),
+    ]
+    for label, xs, ws, s, pads, act in cases:
+        x, wt = rnd(xs), rnd(ws)
+        o, kk, _, c = ws
+        out_hw = ((xs[1] + sum(pads[0]) - kk) // s + 1,
+                  (xs[2] + sum(pads[1]) - kk) // s + 1)
+        bias = torch.from_numpy(
+            rng.integers(-2000, 2000, o).astype(np.int32)).to(dev)
+        ep = FK.epilogue_rows(rng.uniform(0.005, 0.015, o).astype(np.float32),
+                              0.01, float(0.0137 * np.sqrt(kk * kk * c)), act,
+                              o, device=dev)
+        args = (x, wt, bias, ep, out_hw, pads, s)
+
+        def dma(args=args):
+            return FK.conv2d_int8_halo_fused(*args, pipeline="dma")
+
+        def blockspec(args=args):
+            return FK.conv2d_int8_halo_fused(*args)
+
+        out = dma()
+        torch.cuda.synchronize()
+        dmax = compare(out, FK.conv2d_int8_halo_fused_plain(*args), act,
+                       f"dma {label} {act}")
+        require(torch.equal(out, blockspec()),
+                f"dma {label} {act}: differs from #2 (blockspec)")
+        plan = FK.dma_plan(xs[0], c, o, kk, kk, s, *out_hw,
+                           FK.smem_limits(dev), x.data_ptr() % 16 == 0)
+        case = {"case": f"{label} {act}", "ms": time_ms(dma, 20),
+                "blockspec_ms": time_ms(blockspec, 20),
+                "plain_ms": time_ms(
+                    lambda: FK.conv2d_int8_halo_fused_plain(*args), 5,
+                    warmup=1),
+                "library_ms": library_ms(
+                    conv_fp16_call(x, wt, s, (pads[0][0], pads[1][0])), label),
+                "max_abs_err": dmax, "plan": list(dataclasses.astuple(plan))}
+        case["bound_ms"], case["bound_by"] = bound(*conv_work(x, wt, out,
+                                                              8 * o))
+        results[DMA]["cases"].append(case)
+        note_err(results, DMA, dmax)
+        print(f"[dma] {label} {act}: kernel {case['ms']:.4f} ms, #2 "
+              f"{case['blockspec_ms']:.4f} ms, plain {case['plain_ms']:.4f} "
+              f"ms, F.conv2d fp16 {case['library_ms']}, bound "
+              f"{case['bound_ms']:.4f} ms ({case['bound_by']}), plan "
+              f"{plan}; == plain (max |diff| {dmax}) and == #2")
+
+
+def replay_dma(eng, rec: list, results: dict, what: str) -> dict:
+    """The slab-ring kernel's path: every KxK conv unit (kind "conv", no
+    residual) of a planned forward whose units ``check_units`` has just
+    held against their plain versions, re-run on its recorded input
+    through #5: one launch each and no other kernel, each output equal to
+    the plain version on the same input (``compare``) and to the unit's
+    own output (#2's) bit for bit. Both kernels timed per unit; the sums
+    are per forward."""
+    import torch
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.runtime.executor import ConvUnit
+
+    units = [(u, reads, out) for u, reads, out in rec
+             if isinstance(u, ConvUnit) and u.kind == "conv"
+             and u.residual is None]
+    require(units, f"{what}: no KxK conv unit to replay")
+
+    def args(u, reads):
+        n = u.node
+        bias = eng.params[n.inputs[2]] if len(n.inputs) > 2 else None
+        require(u.stride[0] == u.stride[1], f"{what}: non-square stride")
+        return (reads[u.x], eng.params[n.inputs[1]], bias, u.ep, u.out_hw,
+                u.pads, u.stride[0])
+
+    def call(u, reads, pipeline):
+        a = args(u, reads)
+        return lambda: FK.conv2d_int8_halo_fused(*a, pipeline=pipeline)
+
+    reset_launches()
+    outs = [call(u, reads, "dma")() for u, reads, _ in units]
+    torch.cuda.synchronize()
+    counts = read_launches()
+    want = {k: 0 for k in counts}
+    want[DMA] = len(units)
+    require(counts == want, f"{what} dma replay: launches {counts}")
+    results[DMA]["launches"] += len(units)
+    for (u, reads, out), got in zip(units, outs):
+        plain = FK.conv2d_int8_halo_fused_plain(*args(u, reads))
+        note_err(results, DMA, compare(got, plain, u.act,
+                                       f"{what} {u!r} dma vs plain"))
+        require(torch.equal(got, out), f"{what} {u!r}: dma differs from #2")
+    dma_ms = sum(time_ms(call(u, r, "dma"), 10) for u, r, _ in units)
+    bs_ms = sum(time_ms(call(u, r, "blockspec"), 10) for u, r, _ in units)
+    print(f"[dma] {what}: {len(units)} KxK units replayed through the dma "
+          f"kernel, each == plain and == #2 bit for bit; per forward dma "
+          f"{dma_ms:.4f} ms, #2 {bs_ms:.4f} ms")
+    return {"units": len(units), "dma_ms_per_forward": dma_ms,
+            "blockspec_ms_per_forward": bs_ms,
+            "shapes": [f"{tuple(r[u.x].shape)} k{u.node.attrs['kernel']}"
+                       f" s{u.stride[0]} -> {u.ep.cs.shape[0]} {u.act}"
+                       for u, r, _ in units]}
 
 
 def main() -> int:
@@ -1134,6 +1302,7 @@ def main() -> int:
                    for k in KERNEL_INFO}
         phase_kernels(results)
         phase_exact_kernels(results)
+        phase_dma_kernels(results)
         slice_res = phase_slice(results)
         unplanned_res = phase_unplanned(results)
         zoo_res = phase_zoo_s(results)

@@ -170,12 +170,17 @@ def test_cpu_wrappers_count_no_launch():
         torch.zeros((1, 4, 4, 8), dtype=torch.int8),
         torch.zeros((3, 3, 8), dtype=torch.int8), None, ep, (4, 4),
         ((1, 1), (1, 1)))
+    FK.conv2d_int8_halo_fused(
+        torch.zeros((1, 4, 4, 16), dtype=torch.int8),
+        torch.zeros((8, 3, 3, 16), dtype=torch.int8), None, ep, (4, 4),
+        ((1, 1), (1, 1)), pipeline="dma")
     assert FK.launches == {"matmul_int8_fused": 0,
                            "conv2d_int8_halo_fused": 0,
                            "matmul_int8_fused_multi": 0,
                            "bottleneck_int8_fused": 0,
                            "sppf_int8_fused": 0,
-                           "depthwise_conv2d_int8_fused": 0}
+                           "depthwise_conv2d_int8_fused": 0,
+                           "conv2d_int8_halo_dma": 0}
 
 
 # ---------------------------------------------------------------------------

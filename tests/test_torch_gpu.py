@@ -19,7 +19,12 @@ rtol 1e-6 / atol 1e-7, and the detections after NMS equal. The exact
 tier's kernels #9-#11 (``ops.requant_kernels``) are bit-exact against
 their plain versions in both RoundModes, with and without RELU, at the
 zoo yolov5s's lead shapes and at the edge cases: ragged edges, the byte
-path, the stem, asymmetric pads, dilation 2 and stride (2, 1).
+path, the stem, asymmetric pads, dilation 2 and stride (2, 1). The
+slab-ring KxK conv (#5, ``pipeline="dma"``) equals its plain version and
+#2 bit for bit on the five cases of ``tests/test_torch_halo_dma.py`` and a
+ragged one, at every tile width its plan can pick, with the weights
+resident (the slab whole or chunked) and streamed, and on an input that
+is 4-byte but not 16-byte aligned.
 """
 
 import numpy as np
@@ -282,12 +287,16 @@ def test_launch_counters(cuda):
     FK.sppf_int8_fused(x, _rand(rng, (16, 64), cuda), None, ep, 5)
     FK.depthwise_conv2d_int8_fused(x, _rand(rng, (3, 3, 16), cuda), None,
                                    ep, (8, 8), ((1, 1), (1, 1)))
+    FK.conv2d_int8_halo_fused(x, _rand(rng, (16, 3, 3, 16), cuda), None,
+                              _ep(rng, 144, 16, "NONE", cuda), (8, 8),
+                              ((1, 1), (1, 1)), pipeline="dma")
     assert FK.launches == {"matmul_int8_fused": 1,
                            "conv2d_int8_halo_fused": 1,
                            "matmul_int8_fused_multi": 1,
                            "bottleneck_int8_fused": 1,
                            "sppf_int8_fused": 1,
-                           "depthwise_conv2d_int8_fused": 1}
+                           "depthwise_conv2d_int8_fused": 1,
+                           "conv2d_int8_halo_dma": 1}
 
 
 def test_wrappers_reject_bad_operands(cuda):
@@ -456,6 +465,120 @@ def test_new_wrappers_launch_on_every_cuda_call(cuda):
     with pytest.raises(ValueError, match="channels"):
         DK.decode_and_parse_fused([_rand(rng, (1, 4, 4, 384), cuda)],
                                   anchors=Y.YOLOV5_ANCHORS[:1], strides=(8,))
+
+
+# ---------------------------------------------------------------------------
+# The slab-ring KxK conv (#5, pipeline="dma")
+# ---------------------------------------------------------------------------
+
+# (k, stride, C, O, H, W, pads): the five cases of tests/test_torch_halo_dma.py
+# (2 images of 16x16, the stem 32x32), then a ragged one: OW = 37 over tiles
+# of 8, O = 70 over two channel blocks, C = 5 (the byte path), asymmetric
+# pads where only pt/pl place the window
+DMA_GPU_CASES = [
+    (3, 1, 32, 32, 16, 16, ((1, 1), (1, 1))),
+    (3, 2, 32, 48, 16, 16, ((1, 1), (1, 1))),
+    (3, 1, 24, 40, 16, 16, ((1, 1), (1, 1))),
+    (6, 2, 3, 16, 32, 32, ((2, 2), (2, 2))),
+    (3, 2, 32, 32, 16, 16, ((1, 1), (1, 1))),
+    (3, 1, 5, 70, 15, 38, ((0, 1), (1, 0))),
+]
+
+
+def _dma_operands(rng, case, dev):
+    kk, s, c, o, h, w, pads = case
+    x, wt = _rand(rng, (2, h, w, c), dev), _rand(rng, (o, kk, kk, c), dev)
+    bias = torch.from_numpy(rng.integers(-2000, 2000, o).astype(
+        np.int32)).to(dev)
+    out_hw = ((h + sum(pads[0]) - kk) // s + 1,
+              (w + sum(pads[1]) - kk) // s + 1)
+    return x, wt, bias, out_hw
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("case", DMA_GPU_CASES,
+                         ids=lambda c: "k{}s{}c{}o{}h{}w{}".format(*c[:6]))
+def test_dma_kernel_matches_plain_and_blockspec(cuda, act, case):
+    """The slab-ring kernel launches (its counter moves, #2's does not)
+    and equals its plain version and #2 bit for bit: the two kernels run
+    the same dp4a product and epilogue, only their loads differ."""
+    rng = np.random.default_rng(sum(case[:6]))
+    x, wt, bias, out_hw = _dma_operands(rng, case, cuda)
+    kk, s, c, o, _, _, pads = case
+    ep = _ep(rng, kk * kk * c, o, act, cuda)
+    args = (x, wt, bias, ep, out_hw, pads, s)
+    before = dict(FK.launches)
+    out = FK.conv2d_int8_halo_fused(*args, pipeline="dma")
+    torch.cuda.synchronize()
+    assert FK.launches["conv2d_int8_halo_dma"] == \
+        before["conv2d_int8_halo_dma"] + 1
+    assert FK.launches["conv2d_int8_halo_fused"] == \
+        before["conv2d_int8_halo_fused"]
+    _close(out, FK.conv2d_int8_halo_fused_plain(*args), act)
+    assert torch.equal(out, FK.conv2d_int8_halo_fused(*args))
+
+
+# (channels a stage, weights resident): all C, a chunked slab, streamed
+DMA_MODES = [(128, True), (48, True), (48, False)]
+
+
+@pytest.mark.parametrize("ck,resident", DMA_MODES)
+@pytest.mark.parametrize("tile_w", FK.DMA_TILE_WIDTHS)
+def test_dma_kernel_any_tile(cuda, tile_w, ck, resident):
+    """Every tile the plan can pick, in each mode: the weights resident
+    with all 128 channels a stage or the slab in chunks of 48 (three, the
+    last ragged), and the weights streamed with those chunks (each past
+    48 KB of shared memory, so each needs the opt-in); at stride 1 and 2,
+    with one tile a block and with all of an image's."""
+    rng = np.random.default_rng(tile_w + 100 * resident + ck)
+    x = _rand(rng, (2, 21, 27, 128), cuda)
+    wt = _rand(rng, (70, 3, 3, 128), cuda)
+    ep = _ep(rng, 1152, 70, "SILU", cuda)
+    for s in (1, 2):
+        out_hw = ((21 + 2 - 3) // s + 1, (27 + 2 - 3) // s + 1)
+        for tpc in (1, 10 ** 6):
+            out = torch.empty((2,) + out_hw + (70,), dtype=torch.int8,
+                              device=cuda)
+            FK._launch_conv_dma(x, wt, None, ep, ((1, 1), (1, 1)), s, out,
+                                FK.DmaPlan(64 // tile_w, tile_w, ck,
+                                           resident, tpc))
+            torch.cuda.synchronize()
+            _close(out, FK.conv2d_int8_halo_fused_plain(
+                x, wt, None, ep, out_hw, ((1, 1), (1, 1)), s), "SILU")
+
+
+def test_dma_kernel_on_an_input_off_16_bytes(cuda):
+    """C % 16 == 0 with the input 4 bytes past a 16-byte boundary: the
+    layout takes 4-byte copies, and the kernel still equals its plain
+    version and #2. The plan reads the card's own limits."""
+    lim = FK.smem_limits(cuda)
+    assert lim.sms > 0 and 48 * 1024 < lim.per_block <= lim.per_sm
+    rng = np.random.default_rng(7)
+    x, wt, bias, out_hw = _dma_operands(rng, DMA_GPU_CASES[1], cuda)
+    buf = torch.empty(x.numel() + 16, dtype=torch.int8, device=cuda)
+    xs = buf[4:4 + x.numel()].view(x.shape)
+    xs.copy_(x)
+    assert xs.data_ptr() % 16 == 4
+    ep = _ep(rng, 288, 48, "LEAKY_RELU", cuda)
+    args = (xs, wt, bias, ep, out_hw, ((1, 1), (1, 1)), 2)
+    out = FK.conv2d_int8_halo_fused(*args, pipeline="dma")
+    torch.cuda.synchronize()
+    _close(out, FK.conv2d_int8_halo_fused_plain(*args), "LEAKY_RELU")
+    assert torch.equal(out, FK.conv2d_int8_halo_fused(*args))
+
+
+def test_dma_kernel_rejects_what_it_cannot_run(cuda):
+    rng = np.random.default_rng(6)
+    x, wt, bias, out_hw = _dma_operands(rng, DMA_GPU_CASES[0], cuda)
+    ep = _ep(rng, 288, 32, "RELU", cuda)
+    res = _rand(rng, (2,) + out_hw + (32,), cuda)
+    with pytest.raises(ValueError, match="residual"):
+        FK.conv2d_int8_halo_fused(x, wt, bias, ep, out_hw, ((1, 1), (1, 1)),
+                                  residual=res, pipeline="dma")
+    buf = _rand(rng, (1 + x.numel(),), cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        FK.conv2d_int8_halo_fused(buf[1:].view(x.shape), wt, bias, ep, out_hw,
+                                  ((1, 1), (1, 1)), pipeline="dma")
 
 
 # ---------------------------------------------------------------------------

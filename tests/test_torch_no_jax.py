@@ -3,8 +3,9 @@ machine lists none) and imports nothing of the JAX package.
 
 - A fresh interpreter with ``jax`` and ``thingino_accel_tpu`` blocked
   imports the package, runs a `.mars` model on the CPU, builds the zoo
-  yolov5n and nanodet and runs them through the planned serving tier, and
-  runs the exact tier in full and compat mode.
+  yolov5n and nanodet and runs them through the planned serving tier,
+  runs the exact tier in full and compat mode, and the KxK conv's
+  ``pipeline="dma"`` mode (its plain version on the CPU) and plan.
 - No module of the port and no line of ``chip_smoke.py`` holds an
   ``import`` of ``thingino_accel_tpu`` (parsed with ``ast``, so an import
   inside a function counts too).
@@ -59,6 +60,18 @@ SCRIPT = textwrap.dedent("""
     assert [h.shape for h in heads.values()] == [
         (1, 8, 8, 84), (1, 4, 4, 84), (1, 2, 2, 84)]
     from thingino_accel_tpu_torch.ops import decode_kernel
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    import torch
+    xt = torch.from_numpy(x[:1, :16, :16])
+    wt = torch.ones((8, 3, 3, 3), dtype=torch.int8)
+    ep = FK.epilogue_rows(0.01, 0.05, 0.1, "RELU", 8)
+    got = FK.conv2d_int8_halo_fused(xt, wt, None, ep, (8, 8),
+                                    ((1, 1), (1, 1)), 2, pipeline="dma")
+    assert torch.equal(got, FK.conv2d_int8_halo_fused(
+        xt, wt, None, ep, (8, 8), ((1, 1), (1, 1)), 2))
+    assert FK.dma_plan(16, 3, 32, 6, 6, 2, 320, 320,
+                       FK.SmemLimits(132, 233472, 232448)).resident
+    assert "conv_int8_dma.cu" in cuda_build.SOURCES
     assert sys.modules["jax"] is None
     assert sys.modules["thingino_accel_tpu"] is None
     print("ok")

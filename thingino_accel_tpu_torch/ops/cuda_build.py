@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("mm_int8_fused.cu", "conv_int8_fused.cu", "mm_multi_int8_fused.cu",
            "bneck_int8_fused.cu", "sppf_int8_fused.cu", "dw_int8_fused.cu",
-           "decode_fused.cu", "requant_int8.cu")
+           "decode_fused.cu", "requant_int8.cu", "conv_int8_dma.cu")
 HEADERS = ("epilogue.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -62,6 +62,12 @@ _SIGNATURES = {
     # stream
     "tat_sppf_int8_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _F, _F, _P),
+    # x, w, bias, cs, out, batch, H, W, C, O, KH, KW, stride, pt, pl, OH,
+    # OW, act, inv_out, alpha, tile_h, tile_w, ck, resident,
+    # tiles_per_block, then fused_kernels.DmaLayout's ten fields, stream
+    "tat_conv_int8_dma": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I,
+                          *(_I,) * 10, _P),
     # x, w, bias, cs, out, batch, H, W, C, KH, KW, pt, pl, OH, OW, act,
     # inv_out, alpha, stream
     "tat_dw_int8_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -7,6 +7,9 @@ run before the single int8 write. Port of
   ``csrc/mm_int8_fused.cu``;
 - :func:`conv2d_int8_halo_fused` (KxK convs at any square stride, the
   thin-channel stem included), CUDA kernel ``csrc/conv_int8_fused.cu``;
+  with ``pipeline="dma"`` the same conv through ``csrc/conv_int8_dma.cu``,
+  which stages each tile's input slab in shared memory through a two-slot
+  ``cp.async`` ring (the JAX ``conv2d_int8_folded(pipeline="dma")``);
 - :func:`matmul_int8_fused_multi` (a 1x1 conv over a CONCAT that is never
   materialized), CUDA kernel ``csrc/mm_multi_int8_fused.cu``;
 - :func:`bottleneck_int8_fused` (the C3 bottleneck, 1x1 -> KxK/1 [+x]),
@@ -62,7 +65,11 @@ launches: Dict[str, int] = {"matmul_int8_fused": 0,
                             "matmul_int8_fused_multi": 0,
                             "bottleneck_int8_fused": 0,
                             "sppf_int8_fused": 0,
-                            "depthwise_conv2d_int8_fused": 0}
+                            "depthwise_conv2d_int8_fused": 0,
+                            "conv2d_int8_halo_dma": 0}
+# the load schemes of the KxK conv: #2's gathers from global memory, or the
+# slab ring of ``conv_int8_dma.cu``
+PIPELINES = ("blockspec", "dma")
 
 
 def reset_launches() -> None:
@@ -416,12 +423,22 @@ def conv2d_int8_halo_fused(
     ep: Epilogue, out_hw: Tuple[int, int],
     pads: Tuple[Tuple[int, int], Tuple[int, int]], stride: int = 1,
     residual: Optional[torch.Tensor] = None, res_scale: float = 1.0,
+    pipeline: str = "blockspec",
 ) -> torch.Tensor:
     """KxK int8 conv at square ``stride``: x NHWC [N, H, W, C] int8,
     w OHWI [O, KH, KW, C] int8 [+ residual [N, OH, OW, O]] -> int8
     [N, OH, OW, O]. ``out_hw`` is the graph's declared output size;
     ``pads`` ((pt, pb), (pl, pr)) may be asymmetric. Only pt/pl position
-    the window; rows and columns past the input are zero."""
+    the window; rows and columns past the input are zero.
+
+    ``pipeline`` picks the kernel on a CUDA tensor: ``"blockspec"`` #2,
+    ``"dma"`` the slab-ring kernel (no residual, as in JAX). Both compute
+    the same function; on the CPU both take the plain version."""
+    if pipeline not in PIPELINES:
+        raise ValueError(f"unknown pipeline {pipeline!r}; one of {PIPELINES}")
+    if pipeline == "dma" and residual is not None:
+        raise ValueError("residual fusion not supported on the dma "
+                         "pipeline variant")
     nb, h, wd, c = x.shape
     o, kh, kw, c_w = w.shape
     if c_w != c:
@@ -433,7 +450,14 @@ def conv2d_int8_halo_fused(
         return conv2d_int8_halo_fused_plain(x, w, bias, ep, out_hw, pads,
                                             stride, residual, res_scale)
     out = torch.empty((nb, oh, ow, o), dtype=torch.int8, device=dev)
-    if out.numel() > 0:
+    if out.numel() == 0:
+        return out
+    if pipeline == "dma":
+        _launch_conv_dma(x, w, bias, ep, pads, stride, out, dma_plan(
+            nb, c, o, kh, kw, stride, oh, ow, smem_limits(dev),
+            _aligned16(x)))
+        launches["conv2d_int8_halo_dma"] += 1
+    else:
         _launch_conv(x, w, bias, ep, pads, stride, residual, res_scale, out)
         launches["conv2d_int8_halo_fused"] += 1
     return out
@@ -449,6 +473,173 @@ def _launch_conv(x, w, bias, ep, pads, stride, residual, res_scale,
         nb, h, wd, c, o, kh, kw, stride, pt, pl, out.shape[1], out.shape[2],
         _ACT_CODE[ep.act], ep.inv_out, ep.alpha, _f32(res_scale),
         _stream(out.device)), "tat_conv_int8_fused")
+
+
+# The slab-ring kernel's plan. A tile is tile_h x tile_w output pixels,
+# tile_h = 64 // tile_w (the 64 rows of the dp4a tile); `ck` channels of
+# its slab are staged a stage; the block's weights stay `resident` in
+# shared memory, or stream with each chunk; a block walks
+# `tiles_per_block` consecutive tiles of one image.
+DMA_TILE_WIDTHS = (4, 8, 16, 32, 64)
+_BLOCK_RESERVED = 1024   # shared memory the runtime keeps for each block
+_BS_PITCH = 65 * 4       # bytes of a K-word row of the weight tile
+
+
+@dataclasses.dataclass(frozen=True)
+class DmaPlan:
+    tile_h: int
+    tile_w: int
+    ck: int
+    resident: bool
+    tiles_per_block: int
+
+
+@dataclasses.dataclass(frozen=True)
+class SmemLimits:
+    """What the plan reads of the device: its SMs, an SM's shared memory
+    and the most one block may opt into, in bytes."""
+    sms: int
+    per_sm: int
+    per_block: int
+
+
+@functools.lru_cache(maxsize=16)
+def smem_limits(device: torch.device) -> SmemLimits:
+    p = torch.cuda.get_device_properties(device)
+    return SmemLimits(p.multi_processor_count,
+                      p.shared_memory_per_multiprocessor,
+                      p.shared_memory_per_block_optin)
+
+
+@dataclasses.dataclass(frozen=True)
+class DmaLayout:
+    """One block's dynamic shared memory in ``conv_int8_dma.cu``, in bytes
+    from its start; the kernel takes these offsets as they are. Two ring
+    slots, each the slab (the byte path: then its row table; streamed
+    weights: then the chunk's weights), then the resident weights, then
+    the byte path's k table and im2col tile."""
+    vw: int           # bytes a copy: 16 or 4 (word paths), 1 (byte path)
+    pix_bytes: int    # word paths: slab bytes a pixel
+    row_bytes: int    # byte path: slab bytes a row
+    rowadj_off: int   # byte path: the row table in a slot
+    wslot_off: int    # streamed weights in a slot
+    slot_bytes: int   # one ring slot
+    res_off: int      # resident weights
+    ktab_off: int     # byte path: (ky, kx, kx*C + c) of each k
+    at_off: int       # byte path: the stage's im2col tile
+    smem: int         # in all
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round_up(v: int, m: int) -> int:
+    return _cdiv(v, m) * m
+
+
+def _aligned16(x: torch.Tensor) -> bool:
+    return x.data_ptr() % 16 == 0
+
+
+@functools.lru_cache(maxsize=1024)
+def dma_layout(c: int, kh: int, kw: int, s: int, tile_h: int, tile_w: int,
+               ck: int, resident: bool, vec16: bool = True) -> DmaLayout:
+    """The shared-memory layout of one block of ``conv_int8_dma.cu``.
+    Copies are 16 bytes when C and ``ck`` are multiples of 16 and the
+    input is 16-byte aligned (``vec16``), 4 bytes when they are multiples
+    of 4, else the byte path copies each slab row's covering words."""
+    rows, cols = (tile_h - 1) * s + kh, (tile_w - 1) * s + kw
+    vw = (16 if c % 16 == 0 and ck % 16 == 0 and vec16
+          else 4 if c % 4 == 0 and ck % 4 == 0 else 1)
+    pix = row = rowadj = wslot = 0
+    if vw > 1:
+        # a pixel pitch off a multiple of 128 B / s, so that the two pixels
+        # a warp reads per row of its sub-tile fall on different banks
+        pix = _round_up(ck, vw)
+        if pix * s % 128 == 0:
+            pix += vw
+        slot = _round_up(rows * cols * pix, 16)
+    else:
+        row = _round_up(cols * c + 3, 4)
+        rowadj = _round_up(rows * row, 16)
+        slot = rowadj + _round_up(4 * rows, 16)
+    if not resident:
+        wslot = slot
+        slot += _round_up(kh * kw * (ck // 4) * _BS_PITCH, 16)
+    k = kh * kw * c
+    res = 2 * slot
+    ktab = res + (_round_up(_cdiv(k, 4) * _BS_PITCH, 16) if resident else 0)
+    at = ktab + (_round_up(4 * k, 16) if vw == 1 else 0)
+    smem = at + (64 * 4 * (_cdiv(k, 4) + 1) if vw == 1 else 0)
+    return DmaLayout(vw, pix, row, rowadj, wslot, slot, res, ktab, at, smem)
+
+
+def _dma_chunks(c: int) -> Tuple[int, ...]:
+    """Channel chunks to try: all C, then the multiples of the copy
+    width from 128 down (the byte path takes all C only)."""
+    if c % 4:
+        return (c,)
+    unit = 16 if c % 16 == 0 else 4
+    return (c,) + tuple(k for k in range(min(c - 1, 128) // unit * unit, 0,
+                                         -unit))
+
+
+@functools.lru_cache(maxsize=256)
+def dma_plan(batch: int, c: int, o: int, kh: int, kw: int, s: int, oh: int,
+             ow: int, limits: SmemLimits, vec16: bool = True) -> DmaPlan:
+    """The slab-ring kernel's plan for one conv on a device with
+    ``limits``. The tile width is the one of :data:`DMA_TILE_WIDTHS` that
+    wastes the fewest output pixels at the ragged edges, then whose slab
+    re-reads the fewest input pixels per output; then the largest chunk
+    (all C first) with the weights resident, else streamed, whose
+    :func:`dma_layout` fits two blocks an SM, else one. Each block then
+    takes enough tiles that the grid is about two waves of the blocks that
+    fit, and at least two stages, so that its ring has a next slab to
+    copy."""
+    def key(tw):
+        th = 64 // tw
+        waste = _cdiv(oh, th) * th * _cdiv(ow, tw) * tw
+        halo = ((th - 1) * s + kh) * ((tw - 1) * s + kw) / (th * tw)
+        return waste, halo
+
+    modes = (True, False) if c % 4 == 0 else (True,)   # bytes: resident
+    two_a_sm = limits.per_sm // 2 - _BLOCK_RESERVED
+    for budget in (two_a_sm, limits.per_block):
+        for tw in sorted(DMA_TILE_WIDTHS, key=key):
+            th = 64 // tw
+            for res, k in ((m, k) for m in modes for k in _dma_chunks(c)):
+                smem = dma_layout(c, kh, kw, s, th, tw, k, res, vec16).smem
+                if smem > budget:
+                    continue
+                per_sm = max(1, min(4, limits.per_sm
+                                    // (smem + _BLOCK_RESERVED)))
+                tiles_img = _cdiv(oh, th) * _cdiv(ow, tw)
+                total = batch * tiles_img * _cdiv(o, 64)
+                tpc = max(2 if k == c else 1,
+                          total // (2 * limits.sms * per_sm))
+                return DmaPlan(th, tw, k, res, min(tpc, tiles_img))
+    raise ValueError(f"no slab-ring plan fits shared memory: C={c}, "
+                     f"{kh}x{kw}/s{s}")
+
+
+def _launch_conv_dma(x, w, bias, ep, pads, stride, out,
+                     plan: DmaPlan) -> None:
+    nb, h, wd, c = x.shape
+    o, kh, kw, _ = w.shape
+    (pt, _), (pl, _) = pads
+    if x.data_ptr() % 4 or w.data_ptr() % 4:
+        raise ValueError("the dma conv copies 4-byte words: x and w must be "
+                         "4-byte aligned")
+    lay = dma_layout(c, kh, kw, stride, plan.tile_h, plan.tile_w, plan.ck,
+                     plan.resident, _aligned16(x))
+    cuda_build.check(cuda_build.load_library().tat_conv_int8_dma(
+        _ptr(x), _ptr(w), _ptr(bias), _ptr(ep.cs), _ptr(out), nb, h, wd, c,
+        o, kh, kw, stride, pt, pl, out.shape[1], out.shape[2],
+        _ACT_CODE[ep.act], ep.inv_out, ep.alpha, plan.tile_h, plan.tile_w,
+        plan.ck, int(plan.resident), plan.tiles_per_block,
+        *dataclasses.astuple(lay), _stream(out.device)),
+        "tat_conv_int8_dma")
 
 
 def matmul_int8_fused_multi(
