@@ -64,11 +64,29 @@ Phases:
    input (the tolerance below) and to the unit's output (#2's) bit for
    bit; the per-forward sums of both kernels' times. No engine path
    routes to #5, as no JAX executor path runs the DMA variant.
+11. ``[probes]``: the ports of the TPU probes under ``examples/``
+   (``thingino_accel_tpu_torch.probes``), the port's first tensor-core
+   kernels. Each E1 variant (``csrc/chain_mma.cu``) and E3 kind
+   (``csrc/megakernel_probe.cu``) against its plain version at full width
+   on 2 grid cells (the SILU kinds at L = 1 too); then E1's sweep (m =
+   1024, L = 8, grid = 32, K = 128/256/512) and E3's (H = 32, L = 4, GRID
+   = 16, K = 256/512) through their entry points and the ladder's kernel
+   rung (E4, ``csrc/add_one.cu``) with the counts set to 0 before and read
+   after; each kind's time beside its plain version's, the library
+   chain's (the ``torch.matmul`` / ``torch._int_mm`` chains; for the 3x3
+   kinds L chained fp16 ``F.conv2d`` 3x3, for the C3 round the fp16
+   library round at the probe's shapes) and its bound (int8 over 1,979 TOP/s,
+   bf16 over 989 TFLOP/s, bytes over 3.35 TB/s); both decision rules as
+   they come out on this card; the health ladder, one line a rung, each
+   rung in its own process.
 
 Each path is run with the launch counters set to 0 just before it and
 read just after. Tolerances (as in ``tests/test_torch_fused_kernels.py``):
 NONE/RELU/LEAKY_RELU bit-exact; SILU at most 1 quantum on at most 0.1% of
 the elements (the kernel's ``expf`` and torch's sigmoid differ by ulps).
+The probes: int8 kinds bit-exact (SILU_FAST too), chained SILU kinds
+within the SILU tolerance at L = 1 and at most 1% of the values apart at
+full L, bf16 within 2^-7 of the largest output.
 The head decode: classes exact, boxes within rtol 1e-6 / atol 1e-5, conf
 within rtol 1e-6 / atol 1e-7, detections after NMS equal.
 
@@ -103,7 +121,9 @@ NANODET = REPO / "models" / "nanodet_320.mars"
 BATCHES, BATCH, FRAME_HW = 4, 16, (720, 1280)
 ZOO_BATCHES, ZOO_BATCH = 2, 8
 SILU_MAX_FRAC = 1e-3
+PROBE_SILU_LOOSE = 1e-2   # share of a chained SILU probe's values apart
 PEAK_OPS, PEAK_BYTES = 1979e12, 3.35e12   # H100 SXM: int8 TOP/s, HBM B/s
+PEAK_BF16 = 989e12                          # H100 SXM: bf16/fp16 TFLOP/s
 
 # the planned real yolov5n: 60 convs in 50 launches (5 stem-stage convs
 # and 20 others on #1/#2, 15 concat consumers on #3, 10 bottleneck pairs
@@ -171,6 +191,22 @@ KERNEL_INFO = {
         "replaces": "thingino_accel_tpu/ops/fused_kernels.py:942 "
                     "(pipeline=\"dma\", _halo_kernel_dma :817)"},
 }
+# the TPU probes under examples/ (E1, E3, E4): off the system's paths, their
+# path is the probes' own sweeps and the health ladder's kernel rung
+PROBE_PATH = "probe E1/E3/E4"
+PROBE_KERNELS = ("chain_mma", "megakernel_probe", "add_one")
+KERNEL_INFO.update({
+    "chain_mma": {
+        "source": "thingino_accel_tpu_torch/csrc/chain_mma.cu",
+        "replaces": "examples/mxu_ceiling_probe.py:103 (build :94)"},
+    "megakernel_probe": {
+        "source": "thingino_accel_tpu_torch/csrc/megakernel_probe.cu",
+        "replaces": "examples/megakernel_probe.py:182 (pallas_calls :205, "
+                    ":213, :236, :257)"},
+    "add_one": {
+        "source": "thingino_accel_tpu_torch/csrc/add_one.cu",
+        "replaces": "examples/wedge_probe.py:59 (run_rung(\"pallas\"))"},
+})
 # the path whose run gives each kernel's launch count
 PATH_OF = {k: "planned real yolov5n" for k in KERNEL_INFO}
 PATH_OF["sppf_int8_fused"] = "planned zoo yolov5s 640"
@@ -178,6 +214,8 @@ PATH_OF["depthwise_conv2d_int8_fused"] = "planned nanodet 320"
 for _k in ("matmul_int8_requant", "conv2d_int8_halo", "conv2d_int8"):
     PATH_OF[_k] = "exact zoo yolov5s 640"
 PATH_OF[DMA] = DMA_PATH
+for _k in PROBE_KERNELS:
+    PATH_OF[_k] = PROBE_PATH
 
 
 class SmokeFailure(RuntimeError):
@@ -236,9 +274,10 @@ def note_err(results: dict, kernel: str, dmax) -> None:
     results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], dmax)
 
 
-def bound(ops: float, nbytes: float) -> tuple:
-    """The least time the card could take (ms) and what bounds it."""
-    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
+def bound(ops: float, nbytes: float, peak_ops: float = PEAK_OPS) -> tuple:
+    """The least time the card could take (ms) and what bounds it;
+    ``peak_ops``: the rate of the operations' type (int8 by default)."""
+    t_ops, t_bytes = ops / peak_ops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
 
@@ -288,10 +327,12 @@ def reset_launches() -> None:
     from thingino_accel_tpu_torch.ops import conv as C
     from thingino_accel_tpu_torch.ops import decode_kernel as DK
     from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.ops import probe_kernels as PK
     from thingino_accel_tpu_torch.ops import requant_kernels as RK
     FK.reset_launches()
     DK.reset_launches()
     RK.reset_launches()
+    PK.reset_launches()
     C.reset_counts()
 
 
@@ -299,8 +340,10 @@ def read_launches() -> dict:
     from thingino_accel_tpu_torch.ops import conv as C
     from thingino_accel_tpu_torch.ops import decode_kernel as DK
     from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.ops import probe_kernels as PK
     from thingino_accel_tpu_torch.ops import requant_kernels as RK
-    return {**FK.launches, **DK.launches, **RK.launches, **C.counts}
+    return {**FK.launches, **DK.launches, **RK.launches, **PK.launches,
+            **C.counts}
 
 
 def compare_decode(got, ref, what: str) -> float:
@@ -654,7 +697,7 @@ def check_steps_against_cpu(eng, x) -> int:
     units within the SILU tolerance, every other step bit-exact."""
     from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
     from thingino_accel_tpu_torch.runtime.executor import KernelUnit
-    cpu = Engine.from_yolo_mars(str(MODEL), EngineOptions("serving"),
+    cpu = Engine.from_yolo_mars(str(MODEL), EngineOptions(precision="serving"),
                                 device="cpu")
     steps, cpu_steps = eng._fn.steps, cpu._fn.steps
     require(len(steps) == len(cpu_steps), "card and CPU schedules differ")
@@ -677,7 +720,7 @@ def check_nodes_against_cpu(eng, x) -> int:
     path on the card's own inputs."""
     from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
     acts = eng.trace(x)
-    cpu = Engine.from_yolo_mars(str(MODEL), EngineOptions("serving"),
+    cpu = Engine.from_yolo_mars(str(MODEL), EngineOptions(precision="serving"),
                                 device="cpu", planned=False)
     for node in cpu._fn.nodes:
         env = dict(cpu.params)
@@ -739,7 +782,7 @@ def phase_slice(results: dict) -> dict:
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    eng = Engine.from_yolo_mars(str(MODEL), EngineOptions("serving"),
+    eng = Engine.from_yolo_mars(str(MODEL), EngineOptions(precision="serving"),
                                 device=dev)
     census = eng._fn.launch_census()
     require(census == PLANNED_REAL,
@@ -800,8 +843,9 @@ def phase_slice(results: dict) -> dict:
           f"decode on the card == CPU ({n_dets} detections)")
 
     # planned vs unplanned tier on the same batch (PERF.md open question)
-    unplanned = Engine.from_yolo_mars(str(MODEL), EngineOptions("serving"),
-                                      device=dev, planned=False)
+    unplanned = Engine.from_yolo_mars(
+        str(MODEL), EngineOptions(precision="serving"), device=dev,
+        planned=False)
     hp, hu = eng.forward(x), unplanned.forward(x)
     diff = [(hp[k].to(torch.int32) - hu[k].to(torch.int32)).abs()
             for k in eng.output_names]
@@ -831,7 +875,7 @@ def phase_unplanned(results: dict) -> dict:
     from thingino_accel_tpu_torch.runtime.serving import StreamServer
 
     dev = torch.device("cuda")
-    eng = Engine.from_yolo_mars(str(MODEL), EngineOptions("serving"),
+    eng = Engine.from_yolo_mars(str(MODEL), EngineOptions(precision="serving"),
                                 device=dev, planned=False)
     pipe = Y.build_serving_pipeline(eng)
     frames = frames_of(1)
@@ -883,11 +927,11 @@ def phase_zoo_s(results: dict) -> dict:
     import numpy as np
     import torch
     from thingino_accel_tpu_torch.models import zoo
-    from thingino_accel_tpu_torch.runtime.engine import Engine
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
 
     dev = torch.device("cuda")
     eng = Engine(zoo.build_yolov5("s", zoo.ZooConfig(in_hw=(640, 640))),
-                 device=dev)
+                 EngineOptions(precision="serving"), device=dev)
     census = eng._fn.launch_census()
     require(census == PLANNED_ZOO_S,
             f"planned zoo yolov5s schedule {census}, expected {PLANNED_ZOO_S}")
@@ -930,11 +974,12 @@ def phase_nanodet(results: dict) -> dict:
     import numpy as np
     import torch
     from thingino_accel_tpu_torch.models import yolo as Y
-    from thingino_accel_tpu_torch.runtime.engine import Engine
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
     from thingino_accel_tpu_torch.runtime.serving import StreamServer
 
     dev = torch.device("cuda")
-    eng = Engine.from_mars(str(NANODET), device=dev)
+    serving = EngineOptions(precision="serving")
+    eng = Engine.from_mars(str(NANODET), serving, device=dev)
     census = eng._fn.launch_census()
     require(census == PLANNED_NANODET,
             f"planned nanodet schedule {census}, expected {PLANNED_NANODET}")
@@ -970,7 +1015,7 @@ def phase_nanodet(results: dict) -> dict:
     x = Y.quantize_input_int8(
         Y.letterbox_uint8(torch.from_numpy(frames[0]).to(dev), target))
     n_units = len(check_units(eng, x, results, "nanodet"))
-    cpu = Engine.from_mars(str(NANODET), device="cpu")
+    cpu = Engine.from_mars(str(NANODET), serving, device="cpu")
     card, ref = eng.run(x[:1]), cpu.run(x[:1].cpu())
     for k in eng.output_names:
         compare(card[k].cpu(), ref[k], "NONE", f"nanodet head {k} card vs CPU")
@@ -1281,6 +1326,208 @@ def replay_dma(eng, rec: list, results: dict, what: str) -> dict:
                        for u, r, _ in units]}
 
 
+def compare_probe(got, ref, kind: str, stages: int, what: str) -> float:
+    """A probe kernel against its plain version: int8 kinds bit for bit
+    (SILU_FAST too: both sides divide in IEEE f32); SILU kinds within the
+    SILU tolerance after one stage and at most PROBE_SILU_LOOSE of the
+    values apart after more (a flipped quantum moves every later stage);
+    bf16 within 2^-7 of the largest output (f32 tensor-core sums against
+    float64 ones). Returns the largest difference."""
+    import torch
+    from thingino_accel_tpu_torch.ops import probe_kernels as PK
+    require(got.shape == ref.shape and got.dtype == ref.dtype,
+            f"{what}: {tuple(got.shape)} {got.dtype} vs {tuple(ref.shape)} "
+            f"{ref.dtype}")
+    if kind in ("bf16", "bf16-3x3"):
+        r = ref.float()
+        d = float((got.float() - r).abs().max())
+        tol = float(r.abs().max()) * 2.0 ** -7
+        require(d <= tol, f"{what}: bf16 max |diff| {d} over {tol}")
+        return d
+    silu = PK.MEGA_ACT.get(kind) == "SILU"
+    if silu and stages > 1:
+        d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+        frac = float((d > 0).to(torch.float64).mean())
+        require(frac <= PROBE_SILU_LOOSE,
+                f"{what}: {frac} of the values differ after {stages} stages")
+        return int(d.max())
+    return compare(got, ref, "SILU" if silu else "NONE", what)
+
+
+def phase_probe_checks(results: dict) -> dict:
+    """Each E1 variant and E3 kind against its plain version on the card
+    at full width on 2 grid cells (E1: m = 1024, L = 8; E3: H = 32,
+    L = 4, the SILU kinds also at L = 1), at each K of the sweeps."""
+    import torch
+    from thingino_accel_tpu_torch.ops import probe_kernels as PK
+    from thingino_accel_tpu_torch.probes import megakernel as P3
+    from thingino_accel_tpu_torch.probes import mxu_ceiling as P1
+
+    dev = torch.device("cuda")
+    checked = {}
+    for kind in P1.KINDS:
+        for k in P1.KS:
+            fn, x, w = P1.build(kind, P1.M, k, P1.L, 2, dev)
+            got = fn(x, w)
+            torch.cuda.synchronize()
+            what = f"E1 {kind} K={k}"
+            checked[what] = compare_probe(
+                got, PK.chain_mma_plain(x, w, kind), kind, P1.L, what)
+            note_err(results, "chain_mma", checked[what])
+    saved = (P3.GRID, P3.L)
+    try:
+        P3.GRID = 2
+        for kind in P3.KINDS:
+            depths = (1, saved[1]) if PK.MEGA_ACT.get(kind) == "SILU" \
+                else (saved[1],)
+            for k in P3.KS:
+                for l in depths:
+                    P3.L = P3.PAD = l
+                    fn, (x, w), _ = P3.build(kind, k, dev)
+                    got = fn(x, w)
+                    torch.cuda.synchronize()
+                    what = f"E3 {kind} K={k} L={l}"
+                    checked[what] = compare_probe(
+                        got, P3.plain_fn(kind, k, dev)(x, w), kind, l, what)
+                    note_err(results, "megakernel_probe", checked[what])
+    finally:
+        P3.GRID, (P3.L, P3.PAD) = saved[0], (saved[1], saved[1])
+    print(f"[probes] {len(checked)} probe cases on 2 grid cells == their "
+          f"plain versions: " + ", ".join(f"{k} {v:.3g}"
+                                          for k, v in checked.items()))
+    return checked
+
+
+def _rates(row: dict) -> dict:
+    """A sweep row with each timing.Rate as a dict."""
+    return {c: (dataclasses.asdict(v) if hasattr(v, "tops") else v)
+            for c, v in row.items()}
+
+
+def phase_probes(results: dict) -> dict:
+    """The probes' paths, with the launch counts set to 0 before and read
+    after: E1's sweep (m = 1024, L = 8, grid = 32, K = 128/256/512) and
+    E3's (H = 32, L = 4, GRID = 16, K = 256/512) through their entry
+    points, and the health ladder's kernel rung in this process. Then, at
+    each sweep size, the plain version's time, the library call's and the
+    bound beside each kernel's; the decision rules as they come out on
+    this card; and the ladder, each rung in its own process."""
+    import torch
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.ops import probe_kernels as PK
+    from thingino_accel_tpu_torch.probes import megakernel as P3
+    from thingino_accel_tpu_torch.probes import mxu_ceiling as P1
+    from thingino_accel_tpu_torch.probes import wedge as P4
+
+    dev = torch.device("cuda")
+    reset_launches()
+    e1 = P1.sweep(dev)
+    e3 = P3.sweep(dev)
+    rung = P4.run_rung("kernel", dev)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    for k in PROBE_KERNELS:
+        require(counts[k] > 0, f"{k} never launched on the probes' path")
+        results[k]["launches"] = counts[k]
+    others = {k: v for k, v in counts.items() if k not in PROBE_KERNELS and v}
+    require(not others, f"the probes launched other kernels: {others}")
+    print(f"[probes] launches {dict((k, counts[k]) for k in PROBE_KERNELS)}; "
+          f"{rung}")
+    for line in P1.table(e1, P1.M, P1.L, P1.GRID) + P3.table(e3):
+        print(f"[probes] {line}")
+    verdicts = {}
+    for r in e1:
+        verdicts[f"E1 K={r['k']}"] = P1.verdict(r["int8"].tops,
+                                                r["bf16"].tops)
+    for r in e3:
+        verdicts[f"E3 K={r['k']}"] = P3.verdict(
+            r["i8-c3-round"].tops, r["fp16-c3"].tops, r["bf16-3x3"].tops)
+    for key, v in verdicts.items():
+        print(f"[probes] decision {key}: {v}")
+
+    # E1: each variant at the sweep's sizes; the int8 chain at K = 256
+    # first (the kernels line reports it), its library call _int_mm
+    e1_cases = []
+    for r in sorted(e1, key=lambda r: r["k"] != 256):
+        k, ops = r["k"], r["ops"]
+        for kind in sorted(P1.KINDS, key=lambda kd: kd != "int8"):
+            fn, x, w = P1.build(kind, P1.M, k, P1.L, P1.GRID, dev)
+            nbytes = 2 * x.numel() * x.element_size() + w.numel() * \
+                w.element_size()
+            lib = {"int8": r.get("torch-int8"), "bf16": r.get("torch-bf16")}
+            case = {"case": f"E1 {kind} m={P1.M} K={k} L={P1.L} "
+                            f"grid={P1.GRID}",
+                    "ms": r[kind].ms, "tops": r[kind].tops,
+                    "plain_ms": time_ms(
+                        lambda: PK.chain_mma_plain(x, w, kind), 3, warmup=1),
+                    "library_ms": (lib[kind].ms if lib.get(kind) else None),
+                    "max_abs_err": results["chain_mma"]["max_abs_err"]}
+            case["bound_ms"], case["bound_by"] = bound(
+                ops, nbytes, PEAK_BF16 if kind in ("bf16", "mixed")
+                else PEAK_OPS)
+            e1_cases.append(case)
+    results["chain_mma"]["cases"] += e1_cases
+
+    # E3: each kind; the C3 round at K = 256 first. Library: the fp16
+    # library round for the C3 round, the fp16 3x3 chain for the other
+    # 3x3 kinds (probes.megakernel.library_round / library_taps)
+    limits = FK.smem_limits(dev)
+    e3_cases = []
+    for r in sorted(e3, key=lambda r: r["k"] != 256):
+        k = r["k"]
+        for kind in sorted(P3.KINDS, key=lambda kd: kd != "i8-c3-round"):
+            fn, (x, w), ops = P3.build(kind, k, dev)
+            pf = P3.plain_fn(kind, k, dev)
+            ws = w if isinstance(w, tuple) else (w,)
+            nbytes = 2 * x.numel() * x.element_size() + sum(
+                t.numel() * t.element_size() for t in ws) + 4 * k
+            lib = r["fp16-c3" if kind == "i8-c3-round" else "fp16-3x3"]
+            case = {"case": f"E3 {kind} K={k} H={P3.H} L={P3.L} "
+                            f"GRID={P3.GRID}",
+                    "ms": r[kind].ms, "tops": r[kind].tops,
+                    "issued_ops": r["issued"][kind], "ops": ops,
+                    "plain_ms": time_ms(lambda: pf(x, w), 3, warmup=1),
+                    "library_ms": (lib.ms if lib is not None
+                                   and PK.is_spatial(kind) else None),
+                    "max_abs_err": results["megakernel_probe"]["max_abs_err"]}
+            if PK.is_spatial(kind):
+                plan = PK.spatial_plan(kind, k, P3.H, P3.L, limits)
+                case["plan"] = dataclasses.astuple(plan)
+            case["bound_ms"], case["bound_by"] = bound(
+                ops, nbytes, PEAK_BF16 if kind == "bf16-3x3" else PEAK_OPS)
+            e3_cases.append(case)
+    results["megakernel_probe"]["cases"] += e3_cases
+    for c in e1_cases + e3_cases:
+        print(f"[probes] {c['case']}: kernel {c['ms']:.4f} ms "
+              f"({c['tops']:.1f} T/s), plain {c['plain_ms']:.4f} ms, "
+              f"library {c['library_ms']}, bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']})" + (f", issued/own ops "
+                                      f"{c['issued_ops'] / c['ops']:.3f}"
+                                      if "issued_ops" in c else ""))
+
+    # E4: the kernel rung's add-one at its size, then the ladder
+    x = torch.ones((256, 256), dtype=torch.float32, device=dev)
+    y = PK.add_one(x)
+    torch.cuda.synchronize()
+    require(torch.equal(y, PK.add_one_plain(x)), "add_one differs from x + 1")
+    case = {"case": "E4 f32 [256, 256] + 1",
+            "ms": time_ms(lambda: PK.add_one(x), 20),
+            "plain_ms": time_ms(lambda: PK.add_one_plain(x), 20),
+            "library_ms": library_ms(lambda: torch.add(x, 1.0), "add_one"),
+            "max_abs_err": 0.0}
+    case["bound_ms"], case["bound_by"] = bound(0, 2 * x.numel() * 4)
+    results["add_one"]["cases"].append(case)
+    print(f"[probes] {case['case']}: kernel {case['ms']:.4f} ms, plain "
+          f"{case['plain_ms']:.4f} ms, library {case['library_ms']}, bound "
+          f"{case['bound_ms']:.6f} ms")
+    ladder = P4.ladder(P4.RUNGS, "cuda")
+    require(all(" PASS " in ln for ln in ladder), "a rung of the ladder "
+            "failed: " + " | ".join(ln for ln in ladder if " FAIL " in ln))
+    return {"launches": {k: counts[k] for k in PROBE_KERNELS},
+            "e1": [_rates(r) for r in e1], "e3": [_rates(r) for r in e3],
+            "verdicts": verdicts, "ladder": ladder}
+
+
 def main() -> int:
     if not (REPO / "thingino_accel_tpu_torch" / "csrc").is_dir() \
             or not MODEL.exists() or not NANODET.exists():
@@ -1308,6 +1555,8 @@ def main() -> int:
         zoo_res = phase_zoo_s(results)
         nanodet_res = phase_nanodet(results)
         exact_res = phase_exact(results)
+        probe_checks = phase_probe_checks(results)
+        probes_res = phase_probes(results)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -1331,7 +1580,8 @@ def main() -> int:
         "total_s": time.perf_counter() - t_start, "kernels": results,
         "slice": slice_res, "unplanned": unplanned_res,
         "zoo_yolov5s": zoo_res, "nanodet": nanodet_res,
-        "exact": exact_res}, indent=1))
+        "exact": exact_res, "probe_checks": probe_checks,
+        "probes": probes_res}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,0 +1,229 @@
+"""The probes' CUDA sources (``chain_mma.cu``, ``megakernel_probe.cu``,
+``add_one.cu``) compiled for the CPU with g++ and the shim
+``tests/cuda_shim/shim.h``, held against their plain versions
+(``ops.probe_kernels``): a rehearsal of their indexing, their cp.async ring
+and their ldmatrix / mma.sync fragment layouts without a card. It cannot
+show what nvcc or the card refuses.
+
+The sources are rewritten into a temporary directory: the cp.async and
+the ldmatrix / mma.sync blocks of ``mma_tile.cuh`` (between their
+``// ---`` markers) become calls of the shim's emulations, the dynamic
+shared memory its static buffer, and each ``k<<<grid, block, smem,
+stream>>>(args)`` a call of ``shim_launch``. The shim runs the copies of a
+cp.async group only at the wait that covers it, and the warp collectives
+by the PTX ISA's tables. Skips where g++ is absent.
+
+Tolerances: the int8 kinds without SILU bit-exact; the SILU kinds at most
+1 quantum on at most 0.1% of the values after one stage, and at most 2%
+of the values differing after two (the host ``expf`` and torch's sigmoid
+differ by ulps, and a flipped quantum moves every later stage); bf16
+within 2^-7 of the largest output (the emulated sums run in another
+order than the plain float64 ones).
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from thingino_accel_tpu_torch.ops import cuda_build
+from thingino_accel_tpu_torch.ops import fused_kernels as FK
+from thingino_accel_tpu_torch.ops import probe_kernels as PK
+
+SHIM = Path(__file__).resolve().parent / "cuda_shim" / "shim.h"
+SOURCES = ("chain_mma.cu", "megakernel_probe.cu", "add_one.cu")
+ENTRIES = ("tat_chain_mma", "tat_megakernel_1x1", "tat_megakernel_3x3",
+           "tat_add_one")
+
+_CP_ASYNC = """
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  shim_cp_async(dst, src, 16, src_bytes);
+}
+__device__ __forceinline__ void cp_async_commit() { shim_commit(); }
+template <int N>
+inline void cp_async_wait() { shim_wait_group(N); }
+"""
+_MMA = """
+inline void ldsm_x4(unsigned (&r)[4], const void* p) { shim_ldsm(r, 4, p); }
+inline void ldsm_x2(unsigned (&r)[2], const void* p) { shim_ldsm(r, 2, p); }
+inline void mma_s8(int (&d)[4], const unsigned (&a)[4],
+                   const unsigned (&b)[2]) { shim_mma_s8(d, a, b); }
+inline void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                     const unsigned (&b)[2]) { shim_mma_bf16(d, a, b); }
+"""
+
+
+def _between(src: str, begin: str, end: str, new: str) -> str:
+    i = src.index(begin)
+    j = src.index("\n", src.index(end, i)) + 1
+    return src[:i] + new + src[j:]
+
+
+def rewrite(text: str) -> str:
+    """One source rewritten for the shim (see the module docstring)."""
+    if "// --- cp.async" in text:
+        text = _between(text, "// --- cp.async", "// --- end of cp.async",
+                        _CP_ASYNC)
+        text = _between(text, "// --- ldmatrix / mma.sync",
+                        "// --- end of ldmatrix / mma.sync", _MMA)
+    text = re.sub(r"#include <cuda_(runtime|bf16)\.h>\n", "", text)
+    text = text.replace("extern __shared__ __align__(16) unsigned char "
+                        "smem[];", "unsigned char* smem = shim_smem;")
+    return re.sub(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);",
+                  r"shim_launch(\1, \2, \3);", text, flags=re.S)
+
+
+@pytest.fixture(scope="module")
+def shim(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the CUDA sources for the CPU")
+    d = tmp_path_factory.mktemp("cuda_shim")
+    for name in SOURCES + cuda_build.HEADERS:
+        (d / name).write_text(rewrite((cuda_build.CSRC / name).read_text()))
+    lib = d / "libtat_shim.so"
+    cmd = [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+           "-pthread", "-w", "-include", str(SHIM), "-I", str(d), "-o",
+           str(lib), "-x", "c++"] + [str(d / s) for s in SOURCES]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    so = ctypes.CDLL(str(lib))
+    for name in ENTRIES:
+        fn = getattr(so, name)
+        fn.argtypes = list(cuda_build._SIGNATURES[name])
+        fn.restype = ctypes.c_int
+    return so
+
+
+def _rng_int8(rng, shape):
+    return torch.from_numpy(rng.integers(-100, 100, shape, dtype=np.int8))
+
+
+def _chain_operands(kind, rows, k, l, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "bf16":
+        x = torch.from_numpy(rng.normal(size=(rows, k))).to(torch.bfloat16)
+        w = torch.from_numpy(rng.normal(size=(l, k, k)) * 0.1).to(
+            torch.bfloat16)
+        return x, w
+    x, w = _rng_int8(rng, (rows, k)), _rng_int8(rng, (l, k, k))
+    if kind == "int4w":
+        w = PK.pack_int4(w)
+    return x, w
+
+
+def _assert_close(got, ref, kind, stages):
+    if kind in ("bf16", "bf16-3x3"):
+        g, r = got.float(), ref.float()
+        tol = float(r.abs().max()) * 2.0 ** -7
+        assert float((g - r).abs().max()) <= tol
+        return
+    d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+    if PK.MEGA_ACT.get(kind) in ("SILU", "SILU_FAST") and kind != \
+            "i8-rq-siluf-1x1":
+        frac = float((d > 0).double().mean())
+        if stages == 1:
+            assert int(d.max()) <= 1 and frac <= 1e-3, (int(d.max()), frac)
+        else:
+            assert frac <= 0.02, frac
+    else:
+        assert int(d.max()) == 0, (int(d.max()), float((d > 0).double().mean()))
+
+
+CHAIN_PLANS = [PK.ChainPlan(bm, bn) for bm in PK.CHAIN_BMS
+               for bn in PK.chain_bns(bm) if 128 % bn == 0]
+
+
+@pytest.mark.parametrize("plan", CHAIN_PLANS, ids=lambda p: f"bm{p.bm}bn{p.bn}")
+@pytest.mark.parametrize("kind", PK.CHAIN_KINDS)
+def test_shim_chain_matches_plain(shim, kind, plan):
+    """E1's four chains at K = 128, L = 2, over 70 rows (off every block
+    size), at every block the launcher can pick."""
+    x, w = _chain_operands(kind, 70, 128, 2, len(kind) + plan.bn)
+    out = torch.empty_like(x)
+    rc = shim.tat_chain_mma(PK._GLUE[kind], x.data_ptr(), w.data_ptr(),
+                            out.data_ptr(), 70, 128, 2, plan.bm, plan.bn,
+                            None)
+    assert rc == 0
+    _assert_close(out, PK.chain_mma_plain(x, w, kind), kind, 2)
+
+
+ONE_BY_ONE = [k for k in PK.MEGA_KINDS if not PK.is_spatial(k)]
+
+
+@pytest.mark.parametrize("kind", ONE_BY_ONE)
+def test_shim_megakernel_1x1_matches_plain(shim, kind):
+    rng = np.random.default_rng(3)
+    x, w = _rng_int8(rng, (72, 64)), _rng_int8(rng, (2, 1, 64, 64))
+    cs = torch.from_numpy(rng.uniform(0.5, 2.0, 64).astype(np.float32))
+    act = PK.MEGA_ACT.get(kind)
+    for stages in (1, 2):
+        out = torch.empty_like(x)
+        rc = shim.tat_megakernel_1x1(
+            PK._GLUE_REQUANT if act else 0, x.data_ptr(), w.data_ptr(),
+            cs.data_ptr(), out.data_ptr(), 72, 64, stages, 64, 32,
+            FK._ACT_CODE[act] if act else 0, PK.INV_OUT, PK.ALPHA, None)
+        assert rc == 0
+        _assert_close(out, PK.megakernel_chain_plain(kind, x, w[:stages], cs),
+                      kind, stages)
+
+
+SPATIAL = [k for k in PK.MEGA_KINDS if PK.is_spatial(k)]
+# (H, plan): flat and tall sub-tiles, square, a whole cell; slabs of 1, 2
+# and 4 n8 tiles; 1, 2 and 4 m16 tiles a warp (H = 16 whole: 324 and 400
+# rows a phase)
+SPATIAL_CASES = [(8, PK.SpatialPlan(4, 8, 8)), (8, PK.SpatialPlan(8, 4, 16)),
+                 (8, PK.SpatialPlan(4, 4, 32)), (8, PK.SpatialPlan(8, 8, 16)),
+                 (16, PK.SpatialPlan(16, 16, 32))]
+
+
+def _spatial_operands(kind, k, h, l, cells, seed):
+    rng = np.random.default_rng(seed)
+    e0 = h + 2 * l
+    if kind == "bf16-3x3":
+        x = torch.from_numpy(rng.normal(size=(cells, e0, e0, k))).to(
+            torch.bfloat16)
+        w = torch.from_numpy(rng.normal(size=(l, 9, k, k)) * 0.05).to(
+            torch.bfloat16)
+    else:
+        x, w = _rng_int8(rng, (cells, e0, e0, k)), _rng_int8(rng,
+                                                            (l, 9, k, k))
+    w1 = _rng_int8(rng, (l, 1, k, k))
+    cs = torch.from_numpy(rng.uniform(0.5, 2.0, k).astype(np.float32))
+    return x, w1, w, cs
+
+
+@pytest.mark.parametrize("h,plan", SPATIAL_CASES, ids=lambda c: str(c))
+@pytest.mark.parametrize("kind", SPATIAL)
+def test_shim_megakernel_3x3_matches_plain(shim, kind, h, plan):
+    """The valid-shrink 3x3 chains and the C3 round at K = 64, L = 2, one
+    cell, on the sub-tiles and slabs of ``SPATIAL_CASES``."""
+    k, l = 64, 2
+    x, w1, w3, cs = _spatial_operands(kind, k, h, l, 1, plan.bn + plan.th)
+    out = torch.empty((1, h, h, k), dtype=x.dtype)
+    act = PK.MEGA_ACT.get(kind, "NONE")
+    rc = shim.tat_megakernel_3x3(
+        PK._SPATIAL_CODE[kind], x.data_ptr(), w1.data_ptr(), w3.data_ptr(),
+        cs.data_ptr(), out.data_ptr(), 1, h, l, k, plan.th, plan.tw, plan.bn,
+        FK._ACT_CODE[act], PK.INV_OUT, PK.ALPHA, PK.RES_SCALE, None)
+    assert rc == 0
+    w = (w1, w3) if kind == "i8-c3-round" else w3
+    _assert_close(out, PK.megakernel_chain_plain(kind, x, w, cs), kind, l)
+
+
+def test_shim_add_one_and_refusals(shim):
+    x = torch.linspace(-3, 3, 1000, dtype=torch.float32)
+    out = torch.empty_like(x)
+    assert shim.tat_add_one(x.data_ptr(), out.data_ptr(), 1000, None) == 0
+    assert torch.equal(out, PK.add_one_plain(x))
+    xi, wi = _chain_operands("int8", 64, 128, 1, 0)
+    refused = [(1, 128, 64, 48), (1, 96, 128, 64), (1, 128, 96, 64)]
+    for l, k, bm, bn in refused:   # bn off a warp's tiles, K % bn, bm
+        assert shim.tat_chain_mma(0, xi.data_ptr(), wi.data_ptr(),
+                                  xi.data_ptr(), 64, k, l, bm, bn, None) == 1

@@ -158,7 +158,7 @@ def test_pipeline_decodes_through_the_wrapper(monkeypatch):
     tensors, runs the plain version) once per batch over the three
     heads."""
     from thingino_accel_tpu_torch.models import zoo
-    from thingino_accel_tpu_torch.runtime.engine import Engine
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
     calls = []
     real = DK.decode_and_parse_fused
 
@@ -168,7 +168,7 @@ def test_pipeline_decodes_through_the_wrapper(monkeypatch):
 
     monkeypatch.setattr(DK, "decode_and_parse_fused", spy)
     eng = Engine(zoo.build_yolov5("n", zoo.ZooConfig(in_hw=(64, 64))),
-                 device="cpu")
+                 EngineOptions(precision="serving"), device="cpu")
     pipe = Y.build_serving_pipeline(eng)
     frames = np.random.default_rng(0).integers(0, 256, (2, 48, 64, 3),
                                                dtype=np.uint8)

@@ -67,9 +67,12 @@ def _jax_load(path):
     return jax_from_mars(read_mars(path))
 
 
+SERVING = EngineOptions(precision="serving")
+
+
 def _port(graph, **kw):
-    """The port's engine on the CPU over a JAX package graph."""
-    return Engine(graph_from_jax(graph), device="cpu", **kw)
+    """The port's serving engine on the CPU over a JAX package graph."""
+    return Engine(graph_from_jax(graph), SERVING, device="cpu", **kw)
 
 
 def _relu_copy(g: Graph) -> Graph:
@@ -171,7 +174,7 @@ def test_real_yolov5n_loads_with_slice_census():
     g = load_graph(REAL_YOLO)
     heads = find_detect_outputs(g)
     assert len(heads) == 3
-    eng = Engine(g.with_outputs(heads), device="cpu")
+    eng = Engine(g.with_outputs(heads), SERVING, device="cpu")
     ops = collections.Counter(n.op for n in eng._fn.nodes)
     assert ops == {"CONV2D": 60, "CONCAT": 13, "ADD": 7, "MAXPOOL": 3,
                    "UPSAMPLE": 2}
@@ -197,11 +200,11 @@ def test_unported_tiers_and_ops_raise():
             Engine(g, EngineOptions(precision=prec), device="cpu")
     full = load_graph(REAL_YOLO)   # still carries its decode subgraph
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(full, device="cpu")
+        Engine(full, SERVING, device="cpu")
 
 
 # ---------------------------------------------------------------------------
-# The planned serving tier (the default) vs the planned JAX serving engine
+# The planned serving tier vs the planned JAX serving engine
 # ---------------------------------------------------------------------------
 
 
@@ -284,7 +287,7 @@ def test_nanodet_320_heads_bit_exact(nanodet_jax):
     """27 convs (10 depthwise), LEAKY_RELU, per-channel weight scales:
     the port's planned heads equal the JAX serving engine's bit for bit."""
     g, x, _, ref = nanodet_jax
-    eng = Engine.from_mars(NANODET, device="cpu")
+    eng = Engine.from_mars(NANODET, SERVING, device="cpu")
     ops = collections.Counter(n.op for n in eng._fn.nodes)
     assert ops == {"CONV2D": 17, "DEPTHWISE_CONV2D": 10, "UPSAMPLE": 2,
                    "ADD": 2}
@@ -325,11 +328,11 @@ def test_zoo_nanodet_heads_bit_exact():
     jg = zoo.build_nanodet(zoo.ZooConfig(in_hw=(64, 64)), batch=2)
     x = _input(g, seed=11)
     ref = _jax_serving(jg).run_np(x)
-    _assert_outputs_equal(Engine(g, device="cpu").run_np(x), ref)
+    _assert_outputs_equal(Engine(g, SERVING, device="cpu").run_np(x), ref)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JEX, "_plan_folds", lambda *a, **k: None)
         ref_u = _jax_serving(jg).run_np(x)
-    _assert_outputs_equal(Engine(g, device="cpu", planned=False).run_np(x),
+    _assert_outputs_equal(Engine(g, SERVING, device="cpu", planned=False).run_np(x),
                           ref_u)
 
 
@@ -357,11 +360,11 @@ def test_single_depthwise_bit_exact(stride, act, op):
     g = _dw_graph(stride, act, op)
     x = _input(g, seed=stride)
     ref = _jax_serving(g).run_np(x)
-    eng = Engine(g, device="cpu")
+    eng = Engine(g, SERVING, device="cpu")
     assert eng._fn.launch_census()["depthwise_conv2d_int8_fused"] == (
         stride == 1)
     _assert_outputs_equal(eng.run_np(x), ref)
-    _assert_outputs_equal(Engine(g, device="cpu", planned=False).run_np(x),
+    _assert_outputs_equal(Engine(g, SERVING, device="cpu", planned=False).run_np(x),
                           ref)
 
 
@@ -369,10 +372,10 @@ def test_depthwise_silu_outside_the_kernel_raises():
     """SILU after a depthwise conv that is not the fused kernel (stride 2,
     or the unplanned lowering) is the exact tier's semantics."""
     with pytest.raises(NotImplementedError, match="A.3"):
-        Engine(_dw_graph(2, "SILU"), device="cpu")
+        Engine(_dw_graph(2, "SILU"), SERVING, device="cpu")
     with pytest.raises(NotImplementedError, match="A.3"):
-        Engine(_dw_graph(1, "SILU"), device="cpu", planned=False)
-    assert Engine(_dw_graph(1, "SILU"), device="cpu")._fn.launch_census()[
+        Engine(_dw_graph(1, "SILU"), SERVING, device="cpu", planned=False)
+    assert Engine(_dw_graph(1, "SILU"), SERVING, device="cpu")._fn.launch_census()[
         "depthwise_conv2d_int8_fused"] == 1
 
 

@@ -183,6 +183,26 @@ def test_zoo_trace_and_capture(zoo_case):
 # ---------------------------------------------------------------------------
 
 
+def test_default_engine_is_the_exact_tier_as_in_jax():
+    """ROADMAP C.5: with default options both engines run the exact tier,
+    so ``Engine(g)`` on the port gives the JAX ``Engine(g)``'s heads bit
+    for bit (zoo yolov5n at 64, SiLU, seeded input, batch 2)."""
+    assert EngineOptions().precision == "exact" == JOptions().precision
+    g = JZ.build_yolov5("n", JZ.ZooConfig(in_hw=(64, 64)))
+    x = np.random.default_rng(21).integers(-128, 128, (2, 64, 64, 3),
+                                           dtype=np.int8)
+    ref = JEngine(g).run_np(x)
+    eng = Engine(graph_from_jax(g), device="cpu")
+    assert eng.options == EngineOptions(precision="exact")
+    assert not eng.planned and eng._fn.launch_census() == {
+        "matmul_int8_requant": 42, "conv2d_int8_halo": 11,
+        "conv2d_int8": 7, "plain_convs": 0}
+    out = eng.run_np(x)
+    assert list(out) == list(ref)
+    for k in ref:
+        np.testing.assert_array_equal(out[k], np.asarray(ref[k]), err_msg=k)
+
+
 def _run_both(model, x, mode="full"):
     emu = RefEmulator(model)
     emu.set_input(x)

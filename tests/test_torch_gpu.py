@@ -24,7 +24,14 @@ slab-ring KxK conv (#5, ``pipeline="dma"``) equals its plain version and
 #2 bit for bit on the five cases of ``tests/test_torch_halo_dma.py`` and a
 ragged one, at every tile width its plan can pick, with the weights
 resident (the slab whole or chunked) and streamed, and on an input that
-is 4-byte but not 16-byte aligned.
+is 4-byte but not 16-byte aligned. The probes' tensor-core kernels
+(``ops.probe_kernels``: E1 ``chain_mma``, E3 ``megakernel_chain``, E4
+``add_one``) against their plain versions over row counts off the block
+size, at every block, slab and sub-tile their launchers can pick on the
+card, with int4 weights at the wrap edges, and with refused launches
+raising: int8 kinds bit-exact (SILU_FAST too), chained SILU kinds within
+the SILU bound after one stage and at most 1% apart after more, bf16
+within 2^-7 of the largest output.
 """
 
 import numpy as np
@@ -34,6 +41,7 @@ import torch
 from thingino_accel_tpu_torch.models import yolo as Y
 from thingino_accel_tpu_torch.ops import decode_kernel as DK
 from thingino_accel_tpu_torch.ops import fused_kernels as FK
+from thingino_accel_tpu_torch.ops import probe_kernels as PK
 from thingino_accel_tpu_torch.ops import requant_kernels as RK
 from thingino_accel_tpu_torch.ops.quant import RoundMode
 
@@ -664,3 +672,199 @@ def test_requant_kernels_unaligned_operands(cuda):
     w2 = _rand(rng, (24, 32), cuda)
     _close(RK.matmul_int8_requant(x2, w2, None, 0.004),
            RK.matmul_int8_requant_plain(x2, w2, None, 0.004), "NONE")
+
+
+# ---------------------------------------------------------------------------
+# The probes' kernels: E1 chain_mma, E3 megakernel_probe, E4 add_one
+# ---------------------------------------------------------------------------
+
+def _probe_close(got, ref, kind, stages):
+    """int8 kinds bit-exact (SILU_FAST too: both sides divide in IEEE f32);
+    SILU within the SILU bound after one stage, at most 1% of the values
+    apart after more; bf16 within 2^-7 of the largest output (the tensor
+    cores' f32 sums against float64 ones)."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if kind in ("bf16", "bf16-3x3"):
+        r = ref.float()
+        tol = float(r.abs().max()) * 2.0 ** -7
+        assert float((got.float() - r).abs().max()) <= tol
+    elif PK.MEGA_ACT.get(kind) == "SILU":
+        if stages == 1:
+            _close(got, ref, "SILU")
+        else:
+            d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+            assert float((d > 0).double().mean()) <= 1e-2
+    else:
+        _close(got, ref, "NONE")
+
+
+def _chain_operands(rng, kind, rows, k, l, dev, wvals=None):
+    if kind == "bf16":
+        x = torch.from_numpy(rng.normal(size=(rows, k))).to(torch.bfloat16)
+        w = torch.from_numpy(rng.normal(size=(l, k, k)) * 0.05).to(
+            torch.bfloat16)
+        return x.to(dev), w.to(dev)
+    x = torch.from_numpy(rng.integers(-100, 100, (rows, k), dtype=np.int8))
+    w = (torch.from_numpy(rng.choice(np.array(wvals, np.int8), (l, k, k)))
+         if wvals is not None else
+         torch.from_numpy(rng.integers(-100, 100, (l, k, k), dtype=np.int8)))
+    if kind == "int4w":
+        w = PK.pack_int4(w)
+    return x.to(dev), w.to(dev)
+
+
+@pytest.mark.parametrize("k", [128, 512])
+@pytest.mark.parametrize("kind", PK.CHAIN_KINDS)
+def test_chain_kernel_matches_plain(cuda, kind, k):
+    """E1's chains over 1000 rows (off every block size), L = 3, with
+    the plan the launcher picks; one launch a call."""
+    rng = np.random.default_rng(k)
+    x, w = _chain_operands(rng, kind, 1000, k, 3, cuda)
+    before = PK.launches["chain_mma"]
+    out = PK.chain_mma(x, w, kind)
+    torch.cuda.synchronize()
+    assert PK.launches["chain_mma"] == before + 1
+    _probe_close(out, PK.chain_mma_plain(x, w, kind), kind, 3)
+
+
+@pytest.mark.parametrize("kind", PK.CHAIN_KINDS)
+def test_chain_kernel_every_plan(cuda, kind):
+    """Every block (64, 128, 256 rows) and weight slab the launcher can
+    pick that fits this card, at K = 128 and 256."""
+    lim = FK.smem_limits(cuda)
+    rng = np.random.default_rng(9)
+    n = 0
+    for k in (128, 256):
+        x, w = _chain_operands(rng, kind, 300, k, 2, cuda)
+        ref = PK.chain_mma_plain(x, w, kind)
+        for bm in PK.CHAIN_BMS:
+            for bn in PK.chain_bns(bm):
+                plan = PK.ChainPlan(bm, bn)
+                if k % bn or PK.chain_smem(kind, k, plan) > lim.per_block:
+                    continue
+                out = torch.empty_like(x)
+                PK._launch_chain(x, w, kind, out, plan)
+                torch.cuda.synchronize()
+                _probe_close(out, ref, kind, 2)
+                n += 1
+    assert n >= 12
+
+
+def test_chain_kernel_int4_wrap_edges(cuda):
+    """int4w weights drawn from the wrap edges (+-8, +-16, -100, 9, 7,
+    -9, 127, -128): the kernel equals its plain version, which multiplies
+    by the weights wrapped as ``astype(jnp.int4)``."""
+    rng = np.random.default_rng(12)
+    edges = [8, -8, 16, -16, -100, 9, 7, -9, 127, -128]
+    x, w = _chain_operands(rng, "int4w", 500, 256, 2, cuda, edges)
+    out = PK.chain_mma(x, w, "int4w")
+    torch.cuda.synchronize()
+    ref = PK.chain_mma_plain(x, w, "int4w")
+    _probe_close(out, ref, "int4w", 2)
+    xi = x.cpu().to(torch.float64)
+    wi = PK.unpack_int4(w.cpu()).to(torch.float64)
+    assert set(PK.unpack_int4(w.cpu()).unique().tolist()) <= set(range(-8, 8))
+    first = ((xi @ wi[0].t()).to(torch.int32) >> 5).to(torch.int8)
+    assert torch.equal(first, PK.chain_mma_plain(x[:, :].cpu(), w[:1].cpu(),
+                                                 "int4w"))
+
+
+@pytest.mark.parametrize("kind", [k for k in PK.MEGA_KINDS
+                                  if not PK.is_spatial(k)])
+def test_megakernel_1x1_matches_plain(cuda, kind):
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.integers(-100, 100, (1000, 256),
+                                      dtype=np.int8)).to(cuda)
+    w = torch.from_numpy(rng.integers(-100, 100, (3, 1, 256, 256),
+                                      dtype=np.int8)).to(cuda)
+    cs = torch.from_numpy(rng.uniform(0.5, 2.0, 256).astype(np.float32)).to(
+        cuda)
+    for stages in (1, 3):
+        out = PK.megakernel_chain(kind, x, w[:stages], cs)
+        torch.cuda.synchronize()
+        _probe_close(out, PK.megakernel_chain_plain(kind, x, w[:stages], cs),
+                     kind, stages)
+
+
+def _spatial_operands(rng, kind, k, h, l, cells, dev):
+    e0 = h + 2 * l
+    if kind == "bf16-3x3":
+        x = torch.from_numpy(rng.normal(size=(cells, e0, e0, k))).to(
+            torch.bfloat16)
+        w3 = torch.from_numpy(rng.normal(size=(l, 9, k, k)) * 0.05).to(
+            torch.bfloat16)
+    else:
+        x = torch.from_numpy(rng.integers(-100, 100, (cells, e0, e0, k),
+                                          dtype=np.int8))
+        w3 = torch.from_numpy(rng.integers(-100, 100, (l, 9, k, k),
+                                           dtype=np.int8))
+    w1 = torch.from_numpy(rng.integers(-100, 100, (l, 1, k, k),
+                                       dtype=np.int8))
+    cs = torch.from_numpy(rng.uniform(0.5, 2.0, k).astype(np.float32))
+    w = (w1.to(dev), w3.to(dev)) if kind == "i8-c3-round" else w3.to(dev)
+    return x.to(dev), w, cs.to(dev)
+
+
+SPATIAL_KINDS = [k for k in PK.MEGA_KINDS if PK.is_spatial(k)]
+
+
+@pytest.mark.parametrize("kind", SPATIAL_KINDS)
+def test_megakernel_3x3_every_plan(cuda, kind):
+    """Every sub-tile and slab the launcher can pick at H = 8, K = 64, on
+    3 cells: L = 1 (the SILU bound) and L = 2."""
+    lim = FK.smem_limits(cuda)
+    rng = np.random.default_rng(14)
+    for l in (1, 2):
+        x, w, cs = _spatial_operands(rng, kind, 64, 8, l, 3, cuda)
+        ref = PK.megakernel_chain_plain(kind, x, w, cs)
+        plans = PK.spatial_plans(kind, 64, 8, l, lim)
+        assert len(plans) == 27
+        w1, w3 = w if kind == "i8-c3-round" else (None, w)
+        for plan in plans:
+            out = torch.empty(ref.shape, dtype=ref.dtype, device=cuda)
+            PK._launch_spatial(x, w1, w3, cs, out, kind, plan)
+            torch.cuda.synchronize()
+            _probe_close(out, ref, kind, l)
+
+
+@pytest.mark.parametrize("k", [256, 512])
+@pytest.mark.parametrize("kind", SPATIAL_KINDS)
+def test_megakernel_3x3_at_the_probe_size(cuda, kind, k):
+    """The probe's cell (H = 32, L = 4) on 2 cells, with the plan the
+    launcher picks for this card; SILU kinds also at L = 1."""
+    rng = np.random.default_rng(k)
+    for l in ((1, 4) if PK.MEGA_ACT.get(kind) == "SILU" else (4,)):
+        x, w, cs = _spatial_operands(rng, kind, k, 32, l, 2, cuda)
+        before = PK.launches["megakernel_probe"]
+        out = PK.megakernel_chain(kind, x, w, cs)
+        torch.cuda.synchronize()
+        assert PK.launches["megakernel_probe"] == before + 1
+        _probe_close(out, PK.megakernel_chain_plain(kind, x, w, cs), kind, l)
+
+
+def test_probe_kernels_refuse_what_they_cannot_run(cuda):
+    """A refused launch raises; nothing falls back."""
+    rng = np.random.default_rng(15)
+    x, w = _chain_operands(rng, "int8", 64, 512, 1, cuda)
+    out = torch.empty_like(x)
+    for plan in (PK.ChainPlan(64, 48), PK.ChainPlan(96, 64),
+                 PK.ChainPlan(256, 64)):   # slab, block, shared memory
+        with pytest.raises(RuntimeError, match="cudaError"):
+            PK._launch_chain(x, w, "int8", out, plan)
+    xs, ws, _ = _spatial_operands(rng, "i8-shift-3x3", 64, 8, 1, 1, cuda)
+    outs = torch.empty((1, 8, 8, 64), dtype=torch.int8, device=cuda)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        PK._launch_spatial(xs, None, ws, None, outs, "i8-shift-3x3",
+                           PK.SpatialPlan(3, 8, 32))
+    with pytest.raises(ValueError, match="contiguous"):
+        PK.chain_mma(x.t().contiguous().t(), w, "int8")
+
+
+def test_add_one_kernel(cuda):
+    for shape in ((256, 256), (1000,)):
+        x = torch.randn(shape, device=cuda)
+        before = PK.launches["add_one"]
+        out = PK.add_one(x)
+        torch.cuda.synchronize()
+        assert PK.launches["add_one"] == before + 1
+        assert torch.equal(out, PK.add_one_plain(x))

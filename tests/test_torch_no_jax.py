@@ -4,8 +4,9 @@ machine lists none) and imports nothing of the JAX package.
 - A fresh interpreter with ``jax`` and ``thingino_accel_tpu`` blocked
   imports the package, runs a `.mars` model on the CPU, builds the zoo
   yolov5n and nanodet and runs them through the planned serving tier,
-  runs the exact tier in full and compat mode, and the KxK conv's
-  ``pipeline="dma"`` mode (its plain version on the CPU) and plan.
+  runs the exact tier in full and compat mode, the KxK conv's
+  ``pipeline="dma"`` mode (its plain version on the CPU) and plan, and one
+  tiny chain of each probe (E1, E3, the ladder's kernel rung).
 - No module of the port and no line of ``chip_smoke.py`` holds an
   ``import`` of ``thingino_accel_tpu`` (parsed with ``ast``, so an import
   inside a function counts too).
@@ -39,7 +40,9 @@ SCRIPT = textwrap.dedent("""
     from thingino_accel_tpu_torch.models import zoo
     from thingino_accel_tpu_torch.runtime import planner
     g = zoo.build_yolov5("n", zoo.ZooConfig(in_hw=(64, 64)))
-    eng = thingino_accel_tpu_torch.Engine(g, device="cpu")
+    serving = EngineOptions(precision="serving")
+    assert EngineOptions().precision == "exact"
+    eng = thingino_accel_tpu_torch.Engine(g, serving, device="cpu")
     assert eng._fn.plan is not None and eng._fn.plan.sppf
     heads = eng.run_np(np.zeros((1, 64, 64, 3), np.int8))
     assert [h.shape for h in heads.values()] == [
@@ -54,7 +57,8 @@ SCRIPT = textwrap.dedent("""
         assert [h.shape for h in got.values()] == [
             (1, 8, 8, 255), (1, 4, 4, 255), (1, 2, 2, 255)]
     eng = thingino_accel_tpu_torch.Engine(
-        zoo.build_nanodet(zoo.ZooConfig(in_hw=(64, 64))), device="cpu")
+        zoo.build_nanodet(zoo.ZooConfig(in_hw=(64, 64))), serving,
+        device="cpu")
     assert eng._fn.launch_census()["depthwise_conv2d_int8_fused"] == 6
     heads = eng.run_np(np.zeros((1, 64, 64, 3), np.int8))
     assert [h.shape for h in heads.values()] == [
@@ -72,6 +76,16 @@ SCRIPT = textwrap.dedent("""
     assert FK.dma_plan(16, 3, 32, 6, 6, 2, 320, 320,
                        FK.SmemLimits(132, 233472, 232448)).resident
     assert "conv_int8_dma.cu" in cuda_build.SOURCES
+    from thingino_accel_tpu_torch.probes import megakernel, mxu_ceiling, wedge
+    fn, x, w = mxu_ceiling.build("int4w", 16, 64, 1, 2, "cpu")
+    assert fn(x, w).shape == (32, 64)
+    megakernel.H = megakernel.W = 4
+    megakernel.L = megakernel.PAD = megakernel.GRID = 1
+    fn, (x, w), _ = megakernel.build("i8-c3-round", 32, "cpu")
+    assert fn(x, w).shape == x.shape == (1, 6, 6, 32)
+    assert wedge.run_rung("kernel", "cpu").startswith("rung kernel: PASS")
+    assert {"chain_mma.cu", "megakernel_probe.cu", "add_one.cu"} <= set(
+        cuda_build.SOURCES)
     assert sys.modules["jax"] is None
     assert sys.modules["thingino_accel_tpu"] is None
     print("ok")

@@ -40,7 +40,7 @@ from thingino_accel_tpu_torch.ir import passes as port_passes
 from thingino_accel_tpu_torch.ir.graph import graph_from_jax
 from thingino_accel_tpu_torch.models.yolo import find_detect_outputs
 from thingino_accel_tpu_torch.runtime import planner as P
-from thingino_accel_tpu_torch.runtime.engine import Engine
+from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
 from thingino_accel_tpu_torch.runtime.executor import KernelUnit
 
 REAL_YOLO = os.path.join(os.path.dirname(__file__), "..", "models",
@@ -85,7 +85,8 @@ def _port_serving(name):
 
 
 def _port_engine(g):
-    return Engine(graph_from_jax(g), device="cpu")
+    return Engine(graph_from_jax(g), EngineOptions(precision="serving"),
+                  device="cpu")
 
 
 def _names(d):

@@ -7,14 +7,17 @@ each port module sits at its counterpart's path. Its entry points put
 their tensors on ``"cuda"`` unless the caller asks for the CPU
 (``device="cpu"``), where the kernels' plain versions run.
 
-Ported so far: the planned int8 serving tier (``runtime``: the planner,
-the planned lowering and, unplanned, the per-node one), its 1x1, KxK,
+Ported so far: the exact tier in full and compat mode, ``Engine``'s
+default as in the JAX package, with its three conv kernels
+(``ops.requant_kernels``, ``ops.conv``); the planned int8 serving tier
+(``EngineOptions(precision="serving")``; ``runtime``: the planner, the
+planned lowering and, unplanned, the per-node one), its 1x1, KxK,
 multi-part, C3-bottleneck, SPPF and depthwise kernels hand-written for
-Hopper (``ops.fused_kernels``, sources in ``csrc/``); the exact tier in
-full and compat mode (``Engine(EngineOptions(precision="exact"))``) with
-its three conv kernels (``ops.requant_kernels``, ``ops.conv``); the YOLO
-letterbox, head decode (``ops.decode_kernel``, a kernel too) and NMS
-(``models.yolo``), and the zoo's YOLOv5 and NanoDet (``models.zoo``).
+Hopper (``ops.fused_kernels``, sources in ``csrc/``); the YOLO letterbox,
+head decode (``ops.decode_kernel``, a kernel too) and NMS
+(``models.yolo``), the zoo's YOLOv5 and NanoDet (``models.zoo``); and the
+TPU probes under ``examples/`` (``probes``: E1, E3, E4) with their
+tensor-core kernels (``ops.probe_kernels``).
 """
 
 from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions

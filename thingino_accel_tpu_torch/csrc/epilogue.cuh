@@ -3,7 +3,8 @@
 // sppf_int8_fused.cu, dw_int8_fused.cu) and of the exact tier's
 // (requant_int8.cu): the tile shape, the dp4a tile product, the serving
 // requantize epilogue with the single int8 store, and the exact tier's
-// requantize (requant_exact).
+// requantize (requant_exact). The probes' tensor-core chains
+// (chain_mma.cuh, megakernel_probe.cu) take the epilogue too.
 //
 // The epilogue reproduces thingino_accel_tpu/ops/fused_kernels.py
 // _epilogue/_act_requant operation for operation:
@@ -23,7 +24,13 @@
 
 namespace tat {
 
-enum Act : int { kActNone = 0, kActRelu = 1, kActLeakyRelu = 2, kActSilu = 3 };
+enum Act : int {
+  kActNone = 0,
+  kActRelu = 1,
+  kActLeakyRelu = 2,
+  kActSilu = 3,
+  kActSiluFast = 4
+};
 
 // Block tile: kBM output rows (pixels) x kBN output channels, K walked in
 // chunks of kBK int8 values (kBKW packed int32 words). 256 threads, each
@@ -36,9 +43,27 @@ constexpr int kBK = 4 * kBKW;
 // bytes of the As/Bs tiles every kernel declares in static shared memory
 constexpr int kStaticSmem = (kBM + kBN) * (kBKW + 1) * 4;
 
+// The JAX _sigmoid_fast as it computes outside a kernel (the port's
+// fused_kernels.sigmoid_fast): the [5/4] Pade tanh on y = x/2 clamped to
+// +-3.6333, num / den a true division, each step rounded as the JAX
+// expression rounds it.
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  const float y = fminf(fmaxf(__fmul_rn(x, 0.5f), -3.6333f), 3.6333f);
+  const float y2 = __fmul_rn(y, y);
+  const float y4 = __fmul_rn(y2, y2);
+  const float num =
+      __fmul_rn(y, __fadd_rn(__fadd_rn(945.0f, __fmul_rn(105.0f, y2)), y4));
+  const float den =
+      __fadd_rn(__fadd_rn(945.0f, __fmul_rn(420.0f, y2)), __fmul_rn(15.0f, y4));
+  return __fadd_rn(0.5f, __fmul_rn(0.5f, __fdiv_rn(num, den)));
+}
+
 // The residual joins after the activation and before x inv_out; the
 // wrappers refuse LEAKY_RELU with a residual (its alpha applies after
-// quantization), and the assert states it here.
+// quantization), and the assert states it here. kActSiluFast is compiled
+// in only with kSiluFast (the probes' kernels); the serving and exact
+// kernels take the default and their code stays as it was without it.
+template <bool kSiluFast = false>
 __device__ __forceinline__ int8_t act_requant(float pre, int act,
                                               float inv_out, float alpha,
                                               bool has_res, int r,
@@ -48,6 +73,9 @@ __device__ __forceinline__ int8_t act_requant(float pre, int act,
   } else if (act == kActSilu) {
     const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-pre)));
     pre = __fmul_rn(pre, sig);
+  }
+  if constexpr (kSiluFast) {
+    if (act == kActSiluFast) pre = __fmul_rn(pre, sigmoid_fast(pre));
   }
   if (has_res) {
     assert(act != kActLeakyRelu);
@@ -81,12 +109,13 @@ __device__ __forceinline__ int8_t requant_exact(int acc, int bias, float cs,
   return static_cast<int8_t>(q);
 }
 
+template <bool kSiluFast = false>
 __device__ __forceinline__ int8_t epilogue(int acc, int bias, float cs, int act,
                                            float inv_out, float alpha,
                                            bool has_res = false, int r = 0,
                                            float res_scale = 0.0f) {
-  return act_requant(__fmul_rn(__int2float_rn(acc + bias), cs), act, inv_out,
-                     alpha, has_res, r, res_scale);
+  return act_requant<kSiluFast>(__fmul_rn(__int2float_rn(acc + bias), cs), act,
+                                inv_out, alpha, has_res, r, res_scale);
 }
 
 // Four int8 values of row `row` of a row-major matrix with row stride ld

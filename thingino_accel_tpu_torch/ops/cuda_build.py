@@ -26,8 +26,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("mm_int8_fused.cu", "conv_int8_fused.cu", "mm_multi_int8_fused.cu",
            "bneck_int8_fused.cu", "sppf_int8_fused.cu", "dw_int8_fused.cu",
-           "decode_fused.cu", "requant_int8.cu", "conv_int8_dma.cu")
-HEADERS = ("epilogue.cuh",)
+           "decode_fused.cu", "requant_int8.cu", "conv_int8_dma.cu",
+           "chain_mma.cu", "megakernel_probe.cu", "add_one.cu")
+HEADERS = ("epilogue.cuh", "mma_tile.cuh", "chain_mma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -84,6 +85,18 @@ _SIGNATURES = {
                          ctypes.POINTER(_I), ctypes.POINTER(_F),
                          ctypes.POINTER(_F), ctypes.POINTER(_F), _I, _I, _I,
                          _I, _P, _P, _P, _P),
+    # the probes (ops/probe_kernels.py): glue, x, w, out, rows, K, L, bm,
+    # bn, stream
+    "tat_chain_mma": (_I, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # glue, x, w, cs, out, rows, K, L, bm, bn, act, inv_out, alpha, stream
+    "tat_megakernel_1x1": (_I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F,
+                           _F, _P),
+    # kind, x, w1, w3, cs, out, cells, H, L, K, th, tw, bn, act, inv_out,
+    # alpha, res_scale, stream
+    "tat_megakernel_3x3": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _F, _F, _F, _P),
+    # x, out, n, stream
+    "tat_add_one": (_P, _P, _L, _P),
 }
 
 _library: Optional[ctypes.CDLL] = None

@@ -53,10 +53,22 @@ import torch.nn.functional as F
 from thingino_accel_tpu_torch.ops import cuda_build
 from thingino_accel_tpu_torch.ops import reference as R
 
-ACTS = ("NONE", "RELU", "LEAKY_RELU", "SILU")
+# SILU_FAST: the Pade sigmoid of the JAX ``_sigmoid_fast``; as in JAX no
+# executor path selects it by default (TAT_FAST_SILU there)
+ACTS = ("NONE", "RELU", "LEAKY_RELU", "SILU", "SILU_FAST")
 _ACT_CODE = {a: i for i, a in enumerate(ACTS)}   # tat::Act in epilogue.cuh
 _LINEAR = ("NONE", "RELU", "LEAKY_RELU")
 MAX_PARTS = 4   # parts of matmul_int8_fused_multi: SPPF's concat has 4
+
+
+def _kernel_act(act: str) -> int:
+    """``tat::Act`` of a serving kernel's epilogue. SILU_FAST is compiled
+    only into the probes' kernels (``act_requant<true>``, epilogue.cuh):
+    a serving kernel refuses it; the plain versions take it."""
+    if act == "SILU_FAST":
+        raise ValueError("the serving kernels are built without SILU_FAST")
+    return _ACT_CODE[act]
+
 
 # Kernel launches per wrapper since the last reset_launches(): a run can
 # show which kernels its main path went through.
@@ -194,6 +206,20 @@ def res_scale_folded(res_scale: float, out_scale: float, act: str) -> float:
 # ---------------------------------------------------------------------------
 
 
+def sigmoid_fast(x: torch.Tensor) -> torch.Tensor:
+    """The JAX ``_sigmoid_fast`` (fused_kernels.py:79-110) as it computes
+    outside a kernel: ``0.5 + 0.5 * tanh(y)`` with the [5/4] Pade tanh on
+    ``y = x/2`` clamped to +-3.6333, the quotient ``num / den`` a true f32
+    division; in the order of the JAX expression, one f32 rounding a
+    step."""
+    y = torch.clamp(x * 0.5, -3.6333, 3.6333)
+    y2 = y * y
+    y4 = y2 * y2
+    num = y * ((945.0 + 105.0 * y2) + y4)
+    den = (945.0 + 420.0 * y2) + 15.0 * y4
+    return 0.5 + 0.5 * (num / den)
+
+
 def act_requant_plain(pre: torch.Tensor, ep: Epilogue,
                       residual: Optional[torch.Tensor] = None,
                       res_scale: float = 1.0) -> torch.Tensor:
@@ -205,6 +231,8 @@ def act_requant_plain(pre: torch.Tensor, ep: Epilogue,
         pre = torch.clamp_min(pre, 0.0)
     elif ep.act == "SILU":
         pre = pre * torch.sigmoid(pre)
+    elif ep.act == "SILU_FAST":
+        pre = pre * sigmoid_fast(pre)
     if residual is not None:
         if ep.act == "LEAKY_RELU":
             raise ValueError("LEAKY_RELU takes no fused residual: its alpha "
@@ -414,7 +442,7 @@ def _launch_mm(x, w, bias, ep, residual, res_scale, out) -> None:
     m, k = x.shape
     cuda_build.check(cuda_build.load_library().tat_mm_int8_fused(
         _ptr(x), _ptr(w), _ptr(bias), _ptr(ep.cs), _ptr(residual), _ptr(out),
-        m, w.shape[0], k, _ACT_CODE[ep.act], ep.inv_out, ep.alpha,
+        m, w.shape[0], k, _kernel_act(ep.act), ep.inv_out, ep.alpha,
         _f32(res_scale), _stream(out.device)), "tat_mm_int8_fused")
 
 
@@ -471,7 +499,7 @@ def _launch_conv(x, w, bias, ep, pads, stride, residual, res_scale,
     cuda_build.check(cuda_build.load_library().tat_conv_int8_fused(
         _ptr(x), _ptr(w), _ptr(bias), _ptr(ep.cs), _ptr(residual), _ptr(out),
         nb, h, wd, c, o, kh, kw, stride, pt, pl, out.shape[1], out.shape[2],
-        _ACT_CODE[ep.act], ep.inv_out, ep.alpha, _f32(res_scale),
+        _kernel_act(ep.act), ep.inv_out, ep.alpha, _f32(res_scale),
         _stream(out.device)), "tat_conv_int8_fused")
 
 
@@ -636,7 +664,7 @@ def _launch_conv_dma(x, w, bias, ep, pads, stride, out,
     cuda_build.check(cuda_build.load_library().tat_conv_int8_dma(
         _ptr(x), _ptr(w), _ptr(bias), _ptr(ep.cs), _ptr(out), nb, h, wd, c,
         o, kh, kw, stride, pt, pl, out.shape[1], out.shape[2],
-        _ACT_CODE[ep.act], ep.inv_out, ep.alpha, plan.tile_h, plan.tile_w,
+        _kernel_act(ep.act), ep.inv_out, ep.alpha, plan.tile_h, plan.tile_w,
         plan.ck, int(plan.resident), plan.tiles_per_block,
         *dataclasses.astuple(lay), _stream(out.device)),
         "tat_conv_int8_dma")
@@ -697,7 +725,7 @@ def _launch_multi(xs, ws, bias, me, residual, res_scale, out) -> None:
         ptrs(*(w.data_ptr() for w in ws)), ints(*(w.stride(0) for w in ws)),
         ints(*(x.shape[1] for x in xs)), floats(*me.part_scales),
         int(me.same_scale), _ptr(bias), me.bias_scale, _ptr(me.ep.cs),
-        _ptr(residual), _ptr(out), m, n, _ACT_CODE[me.ep.act],
+        _ptr(residual), _ptr(out), m, n, _kernel_act(me.ep.act),
         me.ep.inv_out, me.ep.alpha, _f32(res_scale), _stream(out.device)),
         "tat_mm_multi_int8_fused")
 
@@ -765,8 +793,8 @@ def _launch_bneck(x, w1, b1, ep1, w2, b2, ep2, shortcut, res_scale, out,
     cuda_build.check(cuda_build.load_library().tat_bneck_int8_fused(
         _ptr(x), _ptr(w1), _ptr(b1), _ptr(ep1.cs), _ptr(w2), _ptr(b2),
         _ptr(ep2.cs), _ptr(out), nb, h, wd, c, cm, o, k, tile_rows,
-        _ACT_CODE[ep1.act], ep1.inv_out, ep1.alpha,
-        _ACT_CODE[ep2.act], ep2.inv_out, ep2.alpha,
+        _kernel_act(ep1.act), ep1.inv_out, ep1.alpha,
+        _kernel_act(ep2.act), ep2.inv_out, ep2.alpha,
         int(shortcut), _f32(res_scale), _stream(out.device)),
         "tat_bneck_int8_fused")
 
@@ -797,7 +825,7 @@ def _launch_sppf(x, w, bias, ep, k, out) -> None:
     nb, h, wd, c = x.shape
     cuda_build.check(cuda_build.load_library().tat_sppf_int8_fused(
         _ptr(x), _ptr(w), _ptr(bias), _ptr(ep.cs), _ptr(out),
-        nb, h, wd, c, out.shape[3], k, _ACT_CODE[ep.act], ep.inv_out,
+        nb, h, wd, c, out.shape[3], k, _kernel_act(ep.act), ep.inv_out,
         ep.alpha, _stream(out.device)), "tat_sppf_int8_fused")
 
 
@@ -833,7 +861,7 @@ def _launch_dw(x, w, bias, ep, pads, out) -> None:
     (pt, _), (pl, _) = pads
     cuda_build.check(cuda_build.load_library().tat_dw_int8_fused(
         _ptr(x), _ptr(w), _ptr(bias), _ptr(ep.cs), _ptr(out), nb, h, wd, c,
-        kh, kw, pt, pl, out.shape[1], out.shape[2], _ACT_CODE[ep.act],
+        kh, kw, pt, pl, out.shape[1], out.shape[2], _kernel_act(ep.act),
         ep.inv_out, ep.alpha, _stream(out.device)), "tat_dw_int8_fused")
 
 

@@ -34,21 +34,20 @@ from thingino_accel_tpu_torch.runtime.executor import (
 class EngineOptions:
     """``precision``:
 
-    - ``"serving"`` (the port's default; the JAX package's default is
-      ``"exact"``): the planned int8 tier whose convs carry their
+    - ``"exact"`` (the default, as in the JAX package): the bit-exact
+      parity tier, ``mode`` ``"full"`` or ``"compat"`` (the reference
+      runtime's observable behaviour), ``round_mode`` the conv requantize
+      rule, ``fuse_silu`` the SIGMOID+MUL fusion (full mode only);
+    - ``"serving"``: the planned int8 tier whose convs carry their
       activation (``ir.passes.fuse_act_into_conv``) and the planner's
-      fusions in the requantize epilogue;
-    - ``"exact"``: the bit-exact parity tier, ``mode`` ``"full"`` or
-      ``"compat"`` (the reference runtime's observable behaviour),
-      ``round_mode`` the conv requantize rule, ``fuse_silu`` the
-      SIGMOID+MUL fusion (full mode only);
-    - ``"fast"`` raises until ROADMAP A.6 lands.
+      fusions in the requantize epilogue; callers name it;
+    - ``"fast"`` raises until ROADMAP A.2 lands.
 
     ``fold_bn`` folds f32 BATCHNORM into the conv before it (full mode).
     The JAX options ``nchw_io``, ``jit`` and ``donate_inputs`` are not
     ported."""
 
-    precision: str = "serving"
+    precision: str = "exact"
     mode: str = "full"
     round_mode: RoundMode = RoundMode.HALF_AWAY
     fuse_silu: bool = True
@@ -56,7 +55,7 @@ class EngineOptions:
 
 
 _QUEUED_TIERS = {
-    "fast": "ROADMAP.md A.6 (fast tier)",
+    "fast": "ROADMAP.md A.2 (fast tier)",
 }
 
 

@@ -1,6 +1,6 @@
 """IR executor: runs the graph on torch tensors, in one of two lowerings.
 
-**Planned** (the default, what ``Engine(precision="serving")`` runs):
+**Planned** (what ``Engine(g, EngineOptions(precision="serving"))`` runs):
 port of ``thingino_accel_tpu.runtime.executor``'s serving tier with its
 planners (``runtime.planner``) and its fold-aware lowering
 (``_lower_node_folded``). The plan fuses a residual ADD into the conv

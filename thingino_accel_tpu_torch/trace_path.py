@@ -45,7 +45,8 @@ def _engine(path: str):
                       EngineOptions(precision="exact"), device="cuda")
     if path == "serving_yolov5n":
         return Engine.from_yolo_mars(
-            str(REPO / "models" / "yolov5n_cal_int8.mars"), device="cuda")
+            str(REPO / "models" / "yolov5n_cal_int8.mars"),
+            EngineOptions(precision="serving"), device="cuda")
     raise ValueError(f"unknown path {path!r}")
 
 
