@@ -79,11 +79,24 @@ Phases:
    bf16 over 989 TFLOP/s, bytes over 3.35 TB/s); both decision rules as
    they come out on this card; the health ladder, one line a rung, each
    rung in its own process.
+12. ``[pipeline]``: E2, the lagged-epilogue 3x3 conv
+   (``probe_kernels.conv3x3_lagged``, ``csrc/conv_int8_lagged.cu``), both
+   modes (``LAG = 1``: epilogue warps drain tile t - 1 while the product
+   warps run tile t; ``LAG = 0``: the product warps apply it after each
+   tile) at the experiment's 128x80x80x128 -> 128 SILU and NONE (its own
+   seeded draws; against the plain version on 2 images, against #5 and #2
+   on all 128) and at a ragged 16x45x77x96 -> 72 LEAKY_RELU (against all
+   three on all 16); then the probe's table at the experiment's shape
+   (``probes.pipeline.run``: #2, #5, both modes, fp16 ``F.conv2d``, both
+   modes at NONE, the lag's reading, both modes' blocks an SM) with the
+   launch counts set to 0 before and read after.
 
 Each path is run with the launch counters set to 0 just before it and
 read just after. Tolerances (as in ``tests/test_torch_fused_kernels.py``):
 NONE/RELU/LEAKY_RELU bit-exact; SILU at most 1 quantum on at most 0.1% of
 the elements (the kernel's ``expf`` and torch's sigmoid differ by ulps).
+E2's lagged conv: as the fused kernels against its plain version, and
+bit for bit against #5 and #2 (the same epilogue code).
 The probes: int8 kinds bit-exact (SILU_FAST too), chained SILU kinds
 within the SILU tolerance at L = 1 and at most 1% of the values apart at
 full L, bf16 within 2^-7 of the largest output.
@@ -207,6 +220,13 @@ KERNEL_INFO.update({
         "source": "thingino_accel_tpu_torch/csrc/add_one.cu",
         "replaces": "examples/wedge_probe.py:59 (run_rung(\"pallas\"))"},
 })
+# E2, the lagged-epilogue conv: off the system's paths, its path is the
+# probe's own table (probes.pipeline.run)
+LAGGED = "conv3x3_lagged"
+KERNEL_INFO[LAGGED] = {
+    "source": "thingino_accel_tpu_torch/csrc/conv_int8_lagged.cu",
+    "replaces": "examples/pipeline_experiment.py:71 lagged (_kernel :44, "
+                "pallas_call :92)"}
 # the path whose run gives each kernel's launch count
 PATH_OF = {k: "planned real yolov5n" for k in KERNEL_INFO}
 PATH_OF["sppf_int8_fused"] = "planned zoo yolov5s 640"
@@ -216,6 +236,7 @@ for _k in ("matmul_int8_requant", "conv2d_int8_halo", "conv2d_int8"):
 PATH_OF[DMA] = DMA_PATH
 for _k in PROBE_KERNELS:
     PATH_OF[_k] = PROBE_PATH
+PATH_OF[LAGGED] = "probe E2"
 
 
 class SmokeFailure(RuntimeError):
@@ -1528,6 +1549,105 @@ def phase_probes(results: dict) -> dict:
             "verdicts": verdicts, "ladder": ladder}
 
 
+def phase_pipeline(results: dict) -> dict:
+    """E2's lagged conv in both modes against its plain version (the act's
+    tolerance) and against #5 and #2 bit for bit: the experiment's
+    128x80x80x128 -> 128 at SILU and NONE on its own draws (the plain
+    version on 2 images), a ragged 16x45x77x96 -> 72 LEAKY_RELU; then the
+    probe's path, ``probes.pipeline.run`` at the experiment's shape, with
+    the launch counts set to 0 before and read after; the kernel's line
+    (LAG = 1) beside the plain version on all 128 images, fp16
+    ``F.conv2d`` and the bound."""
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.ops import probe_kernels as PK
+    from thingino_accel_tpu_torch.probes import pipeline as P2
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    pads = ((1, 1), (1, 1))
+    w_np, b_np, xs_np = P2.draws(n_inputs=1)
+    e2 = (torch.from_numpy(xs_np[0]).to(dev), P2.to_ohwi(w_np).to(dev),
+          torch.from_numpy(b_np).to(dev))
+    rng = np.random.default_rng(7)
+    ragged = (torch.from_numpy(rng.integers(-128, 128, (16, 45, 77, 96),
+                                            dtype=np.int8)).to(dev),
+              torch.from_numpy(rng.integers(-128, 128, (72, 3, 3, 96),
+                                            dtype=np.int8)).to(dev),
+              torch.from_numpy(rng.integers(-2000, 2000, 72).astype(
+                  np.int32)).to(dev))
+    ragged_ep = FK.epilogue_rows(
+        rng.uniform(0.005, 0.015, 72).astype(np.float32), 0.01,
+        float(0.0137 * np.sqrt(9 * 96)), "LEAKY_RELU", 72, device=dev)
+    cases = [
+        ("E2 128x80x80x128 -> 128", e2, "SILU", P2.CHECK_IMAGES),
+        ("E2 128x80x80x128 -> 128", e2, "NONE", P2.CHECK_IMAGES),
+        ("ragged 16x45x77x96 -> 72", ragged, "LEAKY_RELU", 16),
+    ]
+    checks = {}
+    for label, (x, w, b), act, n_plain in cases:
+        ep = ragged_ep if act == "LEAKY_RELU" else P2.epilogue(act, P2.O,
+                                                               dev)
+        hw = tuple(x.shape[1:3])
+        dma = FK.conv2d_int8_halo_fused(x, w, b, ep, hw, pads, 1,
+                                        pipeline="dma")
+        blockspec = FK.conv2d_int8_halo_fused(x, w, b, ep, hw, pads, 1)
+        plain = PK.conv3x3_lagged_plain(x[:n_plain], w, b, ep)
+        for lag in (1, 0):
+            out = PK.conv3x3_lagged(x, w, b, ep, bool(lag))
+            torch.cuda.synchronize()
+            what = f"{label} {act} LAG {lag}"
+            dmax = compare(out[:n_plain], plain, act, f"{what} vs plain")
+            require(torch.equal(out, dma), f"{what}: differs from #5")
+            require(torch.equal(out, blockspec), f"{what}: differs from #2")
+            note_err(results, LAGGED, dmax)
+            checks[what] = dmax
+    print(f"[pipeline] {len(checks)} cases == plain (on {P2.CHECK_IMAGES} "
+          f"images at E2's shape) and == #5 and #2 bit for bit: "
+          + ", ".join(f"{k} {v}" for k, v in checks.items()))
+
+    reset_launches()
+    res = P2.run()
+    torch.cuda.synchronize()
+    counts = read_launches()
+    want = 2 + 4 * (P2.N_INPUTS + P2.ITERS)   # the checks, then 4 timings
+    require(counts[LAGGED] == want, f"the probe's path launched {LAGGED} "
+            f"{counts[LAGGED]} times, expected {want}")
+    require(max(res["max_diff"].values()) == 0,
+            f"the probe's lagged vs baseline: {res['max_diff']}")
+    results[LAGGED]["launches"] = counts[LAGGED]
+    for line in P2.table(res, P2.BATCH, P2.H, P2.C, P2.O):
+        print(f"[pipeline] {line}")
+
+    x, w, b = e2
+    ep = P2.epilogue(P2.ACT, P2.O, dev)
+    out = PK.conv3x3_lagged(x, w, b, ep)
+    case = {"case": f"E2 {P2.BATCH}x{P2.H}x{P2.H}x{P2.C} -> {P2.O} "
+                    f"{P2.ACT} LAG 1",
+            "ms": res["ms"]["LAG 1"], "lag0_ms": res["ms"]["LAG 0"],
+            "ms_none": res["ms_none"],
+            "blockspec_ms": res["ms"]["baseline (#2)"],
+            "dma_ms": res["ms"]["dma (#5)"],
+            "plain_ms": time_ms(
+                lambda: PK.conv3x3_lagged_plain(x, w, b, ep), 3, warmup=1),
+            "library_ms": res["ms"]["fp16 F.conv2d"],
+            "max_abs_err": results[LAGGED]["max_abs_err"],
+            "plan": list(dataclasses.astuple(res["plan"])),
+            "occupancy": res["occupancy"]}
+    case["bound_ms"], case["bound_by"] = bound(*conv_work(x, w, out,
+                                                          8 * P2.O))
+    results[LAGGED]["cases"].append(case)
+    secs = time.perf_counter() - t0
+    print(f"[pipeline] {case['case']}: kernel {case['ms']:.4f} ms, plain "
+          f"{case['plain_ms']:.4f} ms, library {case['library_ms']:.4f} ms, "
+          f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}); launches "
+          f"{counts[LAGGED]}; phase {secs:.1f} s")
+    return {"checks": checks, "ms": res["ms"], "ms_none": res["ms_none"],
+            "plan": case["plan"], "occupancy": res["occupancy"],
+            "launches": counts[LAGGED], "seconds": secs}
+
+
 def main() -> int:
     if not (REPO / "thingino_accel_tpu_torch" / "csrc").is_dir() \
             or not MODEL.exists() or not NANODET.exists():
@@ -1557,6 +1677,7 @@ def main() -> int:
         exact_res = phase_exact(results)
         probe_checks = phase_probe_checks(results)
         probes_res = phase_probes(results)
+        pipeline_res = phase_pipeline(results)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -1581,7 +1702,7 @@ def main() -> int:
         "slice": slice_res, "unplanned": unplanned_res,
         "zoo_yolov5s": zoo_res, "nanodet": nanodet_res,
         "exact": exact_res, "probe_checks": probe_checks,
-        "probes": probes_res}, indent=1))
+        "probes": probes_res, "pipeline": pipeline_res}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,5 +1,6 @@
 // A CPU stand-in for the CUDA runtime, enough to compile the port's probe
-// kernels (chain_mma.cu, megakernel_probe.cu, add_one.cu) with g++ and run
+// kernels (chain_mma.cu, megakernel_probe.cu, add_one.cu,
+// conv_int8_lagged.cu) with g++ and run
 // them on host memory: each block's threads are std::threads meeting at a
 // std::barrier (__syncthreads), blocks run one after another, the dynamic
 // shared memory is one static buffer. tests/test_torch_cuda_shim.py
@@ -15,7 +16,9 @@
 //   - mma.sync m16n8k32 s8 and m16n8k16 bf16 gather the whole A, B and C
 //     of the warp from every lane's fragment by the PTX fragment tables,
 //     multiply, and hand each lane its D elements by the same tables.
-// Warp collectives meet at a per-warp std::barrier.
+// Warp collectives meet at a per-warp std::barrier. Named barriers
+// (bar.sync / bar.arrive with a thread count) are one std::barrier of that
+// count per id and block: bar.arrive arrives without waiting.
 #pragma once
 
 #include <algorithm>
@@ -26,6 +29,7 @@
 #include <cstring>
 #include <deque>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -33,7 +37,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(x) alignas(x)
 
 struct dim3 {
@@ -43,6 +47,13 @@ struct dim3 {
 struct uint4 {
   unsigned x, y, z, w;
 };
+struct alignas(8) int2 {
+  int x, y;
+};
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+inline int2 make_int2(int x, int y) { return int2{x, y}; }
 
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
@@ -69,8 +80,30 @@ template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int v) {
   return v <= kShimSmemOptin ? cudaSuccess : cudaErrorInvalidValue;
 }
+// an H100 SM: 228 KB of shared memory, 1 KB of it kept for each block
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, F, int, size_t smem) {
+  *n = static_cast<int>(233472 / (smem + 1024));
+  return cudaSuccess;
+}
 
 inline void __syncthreads() { shim_block_bar->arrive_and_wait(); }
+
+// --- named barriers, made at first use in a block -------------------------
+inline std::mutex shim_named_mu;
+inline std::unique_ptr<std::barrier<>> shim_named[16];
+inline std::barrier<>& shim_named_bar(int id, int count) {
+  std::lock_guard<std::mutex> lock(shim_named_mu);
+  if (!shim_named[id]) shim_named[id].reset(new std::barrier<>(count));
+  return *shim_named[id];
+}
+inline void shim_bar_sync(int id, int count) {
+  shim_named_bar(id, count).arrive_and_wait();
+}
+inline void shim_bar_arrive(int id, int count) {
+  (void)shim_named_bar(id, count).arrive();
+}
 inline size_t __cvta_generic_to_shared(const void* p) {
   return static_cast<size_t>(static_cast<const unsigned char*>(p) - shim_smem);
 }
@@ -247,6 +280,7 @@ void shim_launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem,
           shim_warp_bar[wi] = warps.back().get();
         }
         shim_block_bar = &bar;
+        for (auto& b : shim_named) b.reset();
         std::memset(shim_smem, 0xA5, smem);   // no stale zeros to lean on
         std::vector<std::thread> ts;
         for (unsigned t = 0; t < nt; ++t)

@@ -1,17 +1,19 @@
 """The probes' CUDA sources (``chain_mma.cu``, ``megakernel_probe.cu``,
-``add_one.cu``) compiled for the CPU with g++ and the shim
-``tests/cuda_shim/shim.h``, held against their plain versions
+``add_one.cu``, ``conv_int8_lagged.cu``) compiled for the CPU with g++ and
+the shim ``tests/cuda_shim/shim.h``, held against their plain versions
 (``ops.probe_kernels``): a rehearsal of their indexing, their cp.async ring
 and their ldmatrix / mma.sync fragment layouts without a card. It cannot
 show what nvcc or the card refuses.
 
 The sources are rewritten into a temporary directory: the cp.async and
 the ldmatrix / mma.sync blocks of ``mma_tile.cuh`` (between their
-``// ---`` markers) become calls of the shim's emulations, the dynamic
-shared memory its static buffer, and each ``k<<<grid, block, smem,
-stream>>>(args)`` a call of ``shim_launch``. The shim runs the copies of a
-cp.async group only at the wait that covers it, and the warp collectives
-by the PTX ISA's tables. Skips where g++ is absent.
+``// ---`` markers) and the named barriers of ``conv_int8_lagged.cu``
+become calls of the shim's emulations, the dynamic shared memory its
+static buffer, and each ``k<<<grid, block, smem, stream>>>(args)`` a call
+of ``shim_launch``. The shim runs the copies of a cp.async group only at
+the wait that covers it, the warp collectives by the PTX ISA's tables, and
+each named barrier as a barrier of its thread count. Skips where g++ is
+absent.
 
 Tolerances: the int8 kinds without SILU bit-exact; the SILU kinds at most
 1 quantum on at most 0.1% of the values after one stage, and at most 2%
@@ -36,9 +38,10 @@ from thingino_accel_tpu_torch.ops import fused_kernels as FK
 from thingino_accel_tpu_torch.ops import probe_kernels as PK
 
 SHIM = Path(__file__).resolve().parent / "cuda_shim" / "shim.h"
-SOURCES = ("chain_mma.cu", "megakernel_probe.cu", "add_one.cu")
+SOURCES = ("chain_mma.cu", "megakernel_probe.cu", "add_one.cu",
+           "conv_int8_lagged.cu")
 ENTRIES = ("tat_chain_mma", "tat_megakernel_1x1", "tat_megakernel_3x3",
-           "tat_add_one")
+           "tat_add_one", "tat_conv_int8_lagged", "tat_conv_int8_lagged_info")
 
 _CP_ASYNC = """
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -57,6 +60,10 @@ inline void mma_s8(int (&d)[4], const unsigned (&a)[4],
 inline void mma_bf16(float (&d)[4], const unsigned (&a)[4],
                      const unsigned (&b)[2]) { shim_mma_bf16(d, a, b); }
 """
+_BARS = """
+inline void bar_sync(int id, int count) { shim_bar_sync(id, count); }
+inline void bar_arrive(int id, int count) { shim_bar_arrive(id, count); }
+"""
 
 
 def _between(src: str, begin: str, end: str, new: str) -> str:
@@ -72,6 +79,9 @@ def rewrite(text: str) -> str:
                         _CP_ASYNC)
         text = _between(text, "// --- ldmatrix / mma.sync",
                         "// --- end of ldmatrix / mma.sync", _MMA)
+    if "// --- named barriers" in text:
+        text = _between(text, "// --- named barriers",
+                        "// --- end of named barriers", _BARS)
     text = re.sub(r"#include <cuda_(runtime|bf16)\.h>\n", "", text)
     text = text.replace("extern __shared__ __align__(16) unsigned char "
                         "smem[];", "unsigned char* smem = shim_smem;")
@@ -227,3 +237,77 @@ def test_shim_add_one_and_refusals(shim):
     for l, k, bm, bn in refused:   # bn off a warp's tiles, K % bn, bm
         assert shim.tat_chain_mma(0, xi.data_ptr(), wi.data_ptr(),
                                   xi.data_ptr(), 64, k, l, bm, bn, None) == 1
+
+
+# E2's lagged conv: a 10 x 20 image (ragged under every tile), O = 40
+# (ragged under both channel blocks)
+LAGGED_SHAPE = (2, 10, 20, 32, 40)
+
+
+def _lagged_operands(act, seed):
+    n, h, w, c, o = LAGGED_SHAPE
+    rng = np.random.default_rng(seed)
+    x = _rng_int8(rng, (n, h, w, c))
+    wt = _rng_int8(rng, (o, 3, 3, c))
+    bias = torch.from_numpy(rng.integers(-2000, 2000, o).astype(np.int32))
+    ep = FK.epilogue_rows(rng.uniform(0.005, 0.015, o).astype(np.float32),
+                          0.05, float(0.0137 * np.sqrt(9 * c)), act, o,
+                          alpha=0.1)
+    return x, wt, bias, ep
+
+
+def _shim_lagged(shim, lag, x, wt, bias, ep, th, tw, bn, tpb):
+    n, h, w, c = x.shape
+    out = torch.full((n, h, w, wt.shape[0]), 99, dtype=torch.int8)
+    rc = shim.tat_conv_int8_lagged(
+        lag, x.data_ptr(), wt.data_ptr(), bias.data_ptr(), ep.cs.data_ptr(),
+        out.data_ptr(), n, h, w, c, wt.shape[0], FK._ACT_CODE[ep.act],
+        ep.inv_out, ep.alpha, th, tw, bn, tpb, None)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("tpb", [3, 64])
+@pytest.mark.parametrize("th,tw", PK.LAGGED_TILES, ids=str)
+@pytest.mark.parametrize("lag", [1, 0])
+def test_shim_lagged_conv_matches_plain(shim, lag, th, tw, tpb):
+    """Both modes of the lagged conv at every tile, both channel blocks
+    (one act each), on runs of 3 (the last run of 1) and all tiles a
+    block: equal to the plain version (SILU within its bound), every row
+    and channel written."""
+    for bn, act in zip(PK.LAGGED_BNS, ("SILU" if tw == 16 else "NONE",
+                                       "LEAKY_RELU" if th > 4 else "RELU")):
+        x, wt, bias, ep = _lagged_operands(act, th * tw + bn + tpb)
+        out = _shim_lagged(shim, lag, x, wt, bias, ep, th, tw, bn, tpb)
+        ref = PK.conv3x3_lagged_plain(x, wt, bias, ep)
+        _assert_close(out, ref, "i8-rq-silu-3x3" if act == "SILU" else
+                      "i8-shift-3x3", 1)
+
+
+def test_shim_lagged_layout_and_refusals(shim):
+    """The kernel's shared memory is ``lagged_smem``'s for every plan, in
+    both modes; plans and shapes it cannot run are refused."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    for c in (32, 96, 128, 256):
+        for th, tw in PK.LAGGED_TILES:
+            for bn in PK.LAGGED_BNS:
+                for lag in (0, 1):
+                    rc = shim.tat_conv_int8_lagged_info(
+                        lag, c, th, tw, bn, ctypes.byref(smem),
+                        ctypes.byref(blocks))
+                    want = PK.lagged_smem(c, th, tw, bn)
+                    if want > 232448:
+                        assert rc == 1
+                        continue
+                    assert rc == 0 and smem.value == want
+                    assert blocks.value == 233472 // (want + 1024)
+    x, wt, bias, ep = _lagged_operands("NONE", 0)
+    n, h, w, c = x.shape
+    out = torch.empty((n, h, w, 40), dtype=torch.int8)
+    bad = [(48, 40, 8, 16, 64), (32, 36, 8, 16, 64), (32, 40, 8, 12, 64),
+           (32, 40, 4, 8, 64), (32, 40, 8, 16, 48), (32, 40, 16, 16, 64)]
+    for cc, o, th, tw, bn in bad:   # C % 32, O % 8, tile_w, pixels, bn
+        assert shim.tat_conv_int8_lagged(
+            1, x.data_ptr(), wt.data_ptr(), None, ep.cs.data_ptr(),
+            out.data_ptr(), n, h, w, cc, o, 0, 1.0, 0.1, th, tw, bn, 2,
+            None) == 1

@@ -31,7 +31,11 @@ size, at every block, slab and sub-tile their launchers can pick on the
 card, with int4 weights at the wrap edges, and with refused launches
 raising: int8 kinds bit-exact (SILU_FAST too), chained SILU kinds within
 the SILU bound after one stage and at most 1% apart after more, bf16
-within 2^-7 of the largest output.
+within 2^-7 of the largest output. E2's lagged conv
+(``probe_kernels.conv3x3_lagged``) in both modes, over every plan its
+launcher can take, at the experiment's shape on 2 images and at a ragged
+shape: equal to its plain version (the act's tolerance) and to #5 bit for
+bit, every element written, its launches counted.
 """
 
 import numpy as np
@@ -868,3 +872,74 @@ def test_add_one_kernel(cuda):
         torch.cuda.synchronize()
         assert PK.launches["add_one"] == before + 1
         assert torch.equal(out, PK.add_one_plain(x))
+
+
+# E2's lagged conv: (x shape, O, act): the experiment's 80 x 80 x 128 ->
+# 128 on 2 images, and a ragged shape no tile divides
+LAGGED_CASES = [((2, 80, 80, 128), 128, "SILU"),
+                ((2, 80, 80, 128), 128, "NONE"),
+                ((16, 45, 77, 96), 72, "LEAKY_RELU")]
+
+
+def _lagged_operands(rng, xs, o, act, dev):
+    x = _rand(rng, xs, dev)
+    w = _rand(rng, (o, 3, 3, xs[3]), dev)
+    bias = torch.from_numpy(rng.integers(-2000, 2000, o).astype(np.int32)).to(
+        dev)
+    return x, w, bias, _ep(rng, 9 * xs[3], o, act, dev)
+
+
+@pytest.mark.parametrize("case", LAGGED_CASES,
+                         ids=lambda c: f"{'x'.join(map(str, c[0]))}-{c[1]}"
+                                       f"-{c[2]}")
+def test_lagged_conv_every_plan(cuda, case):
+    """Both modes over every plan the launcher can take (each with its
+    modelled run of tiles, and the first with runs of 1 and 3 tiles): equal
+    to the plain version and to #5 bit for bit, no element left unwritten;
+    the wrapper counts one launch a call."""
+    xs, o, act = case
+    rng = np.random.default_rng(21)
+    x, w, bias, ep = _lagged_operands(rng, xs, o, act, cuda)
+    ref = PK.conv3x3_lagged_plain(x, w, bias, ep)
+    dma = FK.conv2d_int8_halo_fused(x, w, bias, ep, xs[1:3], ((1, 1), (1, 1)),
+                                    1, pipeline="dma")
+    torch.cuda.synchronize()
+    _close(dma, ref, act)
+    plans = PK.lagged_plans(xs[0], xs[1], xs[2], xs[3], o,
+                            FK.smem_limits(cuda))
+    assert len(plans) == len(PK.LAGGED_TILES) * len(PK.LAGGED_BNS)
+    first = plans[0]
+    plans += tuple(PK.LaggedPlan(first.tile_h, first.tile_w, first.bn, t)
+                   for t in (1, 3))
+    for plan in plans:
+        for lag in (True, False):
+            out = torch.full(ref.shape, 99, dtype=torch.int8, device=cuda)
+            PK._launch_lagged(x, w, bias, ep, out, lag, plan)
+            torch.cuda.synchronize()
+            _close(out, ref, act)
+            assert torch.equal(out, dma), (plan, lag)
+    before = PK.launches["conv3x3_lagged"]
+    for lag in (True, False):
+        assert torch.equal(PK.conv3x3_lagged(x, w, bias, ep, lag), dma)
+    assert PK.launches["conv3x3_lagged"] == before + 2
+
+
+def test_lagged_conv_refusals_and_occupancy(cuda):
+    """An input off 16 bytes is refused by the wrapper, a plan the kernel
+    cannot run by the kernel; both modes of E2's plan take the shared
+    memory ``lagged_smem`` gives, one block an SM."""
+    rng = np.random.default_rng(22)
+    x, w, bias, ep = _lagged_operands(rng, (1, 8, 8, 32), 16, "NONE", cuda)
+    flat = torch.empty(x.numel() + 4, dtype=torch.int8, device=cuda)
+    off = flat[4:].view(x.shape)
+    off.copy_(x)
+    with pytest.raises(ValueError, match="aligned"):
+        PK.conv3x3_lagged(off, w, bias, ep)
+    out = torch.empty((1, 8, 8, 16), dtype=torch.int8, device=cuda)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        PK._launch_lagged(x, w, bias, ep, out, True,
+                          PK.LaggedPlan(8, 12, 32, 1))
+    plan = PK.lagged_plan(128, 80, 80, 128, 128, FK.smem_limits(cuda))
+    for lag in (True, False):
+        assert PK.lagged_occupancy(lag, 128, plan) == (
+            PK.lagged_smem(128, plan.tile_h, plan.tile_w, plan.bn), 1)

@@ -5,8 +5,9 @@ machine lists none) and imports nothing of the JAX package.
   imports the package, runs a `.mars` model on the CPU, builds the zoo
   yolov5n and nanodet and runs them through the planned serving tier,
   runs the exact tier in full and compat mode, the KxK conv's
-  ``pipeline="dma"`` mode (its plain version on the CPU) and plan, and one
-  tiny chain of each probe (E1, E3, the ladder's kernel rung).
+  ``pipeline="dma"`` mode (its plain version on the CPU) and plan, one
+  tiny chain of each probe (E1, E3, the ladder's kernel rung) and one tiny
+  ``build()`` of E2's (``probes.pipeline``).
 - No module of the port and no line of ``chip_smoke.py`` holds an
   ``import`` of ``thingino_accel_tpu`` (parsed with ``ast``, so an import
   inside a function counts too).
@@ -86,6 +87,14 @@ SCRIPT = textwrap.dedent("""
     assert wedge.run_rung("kernel", "cpu").startswith("rung kernel: PASS")
     assert {"chain_mma.cu", "megakernel_probe.cu", "add_one.cu"} <= set(
         cuda_build.SOURCES)
+    from thingino_accel_tpu_torch.probes import pipeline
+    w, b, xs = pipeline.draws(1, 8, 32, 16, n_inputs=1)
+    base, lagged = pipeline.build(1, 8, 32, 16, "SILU", "cpu")
+    args = (torch.from_numpy(xs[0]), pipeline.to_ohwi(w),
+            torch.from_numpy(b))
+    assert torch.equal(lagged(*args), base(*args))
+    assert lagged(*args, lag=False).shape == (1, 8, 8, 16)
+    assert "conv_int8_lagged.cu" in cuda_build.SOURCES
     assert sys.modules["jax"] is None
     assert sys.modules["thingino_accel_tpu"] is None
     print("ok")

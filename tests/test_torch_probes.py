@@ -388,4 +388,4 @@ def test_wrappers_check_operands():
         PK.add_one(torch.zeros(3, dtype=torch.float64))
     assert torch.equal(PK.add_one(torch.zeros(3)), torch.ones(3))
     assert PK.launches == {"chain_mma": 0, "megakernel_probe": 0,
-                           "add_one": 0}
+                           "add_one": 0, "conv3x3_lagged": 0}

@@ -27,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("mm_int8_fused.cu", "conv_int8_fused.cu", "mm_multi_int8_fused.cu",
            "bneck_int8_fused.cu", "sppf_int8_fused.cu", "dw_int8_fused.cu",
            "decode_fused.cu", "requant_int8.cu", "conv_int8_dma.cu",
-           "chain_mma.cu", "megakernel_probe.cu", "add_one.cu")
+           "chain_mma.cu", "megakernel_probe.cu", "add_one.cu",
+           "conv_int8_lagged.cu")
 HEADERS = ("epilogue.cuh", "mma_tile.cuh", "chain_mma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -97,6 +98,13 @@ _SIGNATURES = {
                            _I, _I, _F, _F, _F, _P),
     # x, out, n, stream
     "tat_add_one": (_P, _P, _L, _P),
+    # lag, x, w, bias, cs, out, batch, H, W, C, O, act, inv_out, alpha,
+    # tile_h, tile_w, bn, tiles_per_block, stream
+    "tat_conv_int8_lagged": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _F, _F, _I, _I, _I, _I, _P),
+    # lag, C, tile_h, tile_w, bn, -> smem bytes, blocks an SM
+    "tat_conv_int8_lagged_info": (_I, _I, _I, _I, _I, ctypes.POINTER(_I),
+                                  ctypes.POINTER(_I)),
 }
 
 _library: Optional[ctypes.CDLL] = None

@@ -9,21 +9,28 @@ port's first tensor-core code, and the kernel rung of the health ladder.
   valid-shrink 3x3 chains and the C3 round (:data:`MEGA_KINDS`), CUDA
   ``csrc/megakernel_probe.cu``;
 - :func:`add_one`, E4 (``examples/wedge_probe.py`` rung ``pallas``): f32
-  ``x + 1``, CUDA ``csrc/add_one.cu``.
+  ``x + 1``, CUDA ``csrc/add_one.cu``;
+- :func:`conv3x3_lagged`, E2 (``examples/pipeline_experiment.py:lagged``):
+  the int8 3x3/s1 conv with the serving epilogue on the tensor cores, the
+  epilogue lagged a tile behind the product (``lag=True``) or applied
+  after each tile (``lag=False``), CUDA ``csrc/conv_int8_lagged.cu``.
 
 Each wrapper takes its plain torch version for a tensor on the CPU and
 launches its kernel for a tensor on a CUDA device, or raises; nothing
 falls back. Weights are in the kernels' layout: each output column's K
 values contiguous, ``[L, taps, N, K]`` (the JAX probes hold ``[L, taps,
-K, N]``: ``x @ w``); int4 weights wrapped to [-8, 7] as JAX's
-``astype(jnp.int4)`` wraps, packed two a byte (:func:`pack_int4`).
+K, N]``: ``x @ w``), E2's OHWI ``[O, 3, 3, C]`` (JAX: HWIO); int4 weights
+wrapped to [-8, 7] as JAX's ``astype(jnp.int4)`` wraps, packed two a byte
+(:func:`pack_int4`).
 The plain versions sum in float64, exact for these int8 products and
 rounded once for the bf16 ones, and are device-agnostic.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,7 +58,7 @@ RES_SCALE = 0.5
 
 # Kernel launches per wrapper since the last reset_launches().
 launches: Dict[str, int] = {"chain_mma": 0, "megakernel_probe": 0,
-                            "add_one": 0}
+                            "add_one": 0, "conv3x3_lagged": 0}
 
 
 def reset_launches() -> None:
@@ -182,6 +189,15 @@ def megakernel_chain_plain(kind: str, x: torch.Tensor, w, cs=None
 
 def add_one_plain(x: torch.Tensor) -> torch.Tensor:
     return x + 1.0
+
+
+def conv3x3_lagged_plain(x: torch.Tensor, w: torch.Tensor,
+                         bias: Optional[torch.Tensor],
+                         ep: FK.Epilogue) -> torch.Tensor:
+    """E2's function: the int8 3x3/s1 pad-1 conv of NHWC ``x`` with OHWI
+    ``w`` and the serving epilogue, all rows (#2's plain version)."""
+    return FK.conv2d_int8_halo_fused_plain(
+        x, w, bias, ep, (x.shape[1], x.shape[2]), ((1, 1), (1, 1)), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +331,87 @@ def spatial_plan(kind: str, k: int, h: int, l: int,
                          f"{limits.per_block} bytes of shared memory")
     return min(plans, key=lambda p: (spatial_issued_ops(kind, k, h, l, 1, p),
                                      -p.bn, -p.th * p.tw))
+
+
+@dataclasses.dataclass(frozen=True)
+class LaggedPlan:
+    """The lagged conv's block: ``tile_h`` x ``tile_w`` output pixels a
+    tile, ``bn`` output channels, ``tiles_per_block`` consecutive tiles of
+    one image (row-major)."""
+
+    tile_h: int
+    tile_w: int
+    bn: int
+    tiles_per_block: int
+
+
+# (tile_h, tile_w): 128 or 64 pixels (2 or 1 m16 tiles a product warp),
+# tile_w a power of two; bn 64 or 32 (4 or 2 n8 tiles a product warp)
+LAGGED_TILES = ((8, 16), (16, 8), (4, 32), (8, 8), (4, 16), (2, 32))
+LAGGED_BNS = (64, 32)
+LAGGED_THREADS = 512   # 8 product warps + 8 epilogue warps (kThreads)
+
+
+def lagged_smem(c: int, tile_h: int, tile_w: int, bn: int) -> int:
+    """Shared memory of a lagged-conv block (``lagged_layout`` of
+    conv_int8_lagged.cu): two slab slots of (tile_h + 2) x (tile_w + 2)
+    pixels at C + 16 bytes, the resident weights at 9C + 16 bytes an output
+    channel, two int32 accumulator slots at bn + 8 words a pixel. Both
+    modes take the same."""
+    slab = (tile_h + 2) * (tile_w + 2) * (c + 16)
+    return 2 * slab + bn * (9 * c + 16) + 2 * tile_h * tile_w * (bn + 8) * 4
+
+
+def _lagged_tiles_per_block(batch: int, tiles_img: int, oblocks: int,
+                            smem: int, limits: FK.SmemLimits) -> int:
+    """The run of tiles a block takes: the fewest waves of blocks times a
+    block's tiles plus one (a block's first product and last epilogue do
+    not overlap), over the blocks the shared memory lets an SM hold."""
+    per_sm = max(1, min(2048 // LAGGED_THREADS,
+                        limits.per_sm // (smem + FK._BLOCK_RESERVED)))
+    slots = limits.sms * per_sm
+
+    def cost(tpb: int) -> int:
+        blocks = batch * FK._cdiv(tiles_img, tpb) * oblocks
+        return FK._cdiv(blocks, slots) * (tpb + 1)
+    return min(range(1, tiles_img + 1), key=lambda t: (cost(t), -t))
+
+
+@functools.lru_cache(maxsize=256)
+def lagged_plans(batch: int, h: int, w: int, c: int, o: int,
+                 limits: FK.SmemLimits) -> Tuple[LaggedPlan, ...]:
+    """Every tile and channel block the kernel can run here within the
+    shared memory, each with its modelled run of tiles, in the order
+    :func:`lagged_plan` prefers them: the fewest products issued (ragged
+    tiles and channel blocks count whole), then the largest block, the
+    least halo, the widest tile."""
+    def key(tb):
+        (th, tw), bn = tb
+        issued = (FK._cdiv(h, th) * th * FK._cdiv(w, tw) * tw
+                  * FK._cdiv(o, bn) * bn)
+        return (issued, -th * tw * bn, (th + 2) * (tw + 2) / (th * tw), -tw)
+
+    plans = []
+    for (th, tw), bn in sorted(((t, b) for t in LAGGED_TILES
+                                for b in LAGGED_BNS), key=key):
+        smem = lagged_smem(c, th, tw, bn)
+        if smem > limits.per_block:
+            continue
+        tiles_img = FK._cdiv(h, th) * FK._cdiv(w, tw)
+        plans.append(LaggedPlan(th, tw, bn, _lagged_tiles_per_block(
+            batch, tiles_img, FK._cdiv(o, bn), smem, limits)))
+    return tuple(plans)
+
+
+def lagged_plan(batch: int, h: int, w: int, c: int, o: int,
+                limits: FK.SmemLimits) -> LaggedPlan:
+    """The first of :func:`lagged_plans`; ValueError if none fits (C too
+    large for the resident weights and the slab ring)."""
+    plans = lagged_plans(batch, h, w, c, o, limits)
+    if not plans:
+        raise ValueError(f"no lagged-conv block fits C={c} in "
+                         f"{limits.per_block} bytes of shared memory")
+    return plans[0]
 
 
 # ---------------------------------------------------------------------------
@@ -459,3 +556,61 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
             "tat_add_one")
         launches["add_one"] += 1
     return out
+
+
+def conv3x3_lagged(x: torch.Tensor, w: torch.Tensor,
+                   bias: Optional[torch.Tensor], ep: FK.Epilogue,
+                   lag: bool = True) -> torch.Tensor:
+    """E2: the int8 3x3/s1 pad-1 conv of NHWC ``x [N, H, W, C]`` with OHWI
+    ``w [O, 3, 3, C]``, ``bias [O]`` int32 or None and the serving
+    epilogue ``ep`` -> int8 ``[N, H, W, O]``, every row. On the card the
+    tensor-core kernel with the epilogue lagged a tile behind the product
+    (``lag=True``) or applied after each tile (``lag=False``), with the
+    block :func:`lagged_plan` picks. C must be a multiple of 32 and O of 8
+    (ValueError otherwise, on any device); nothing falls back."""
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[1:3]) != (3, 3):
+        raise ValueError(f"x [N, H, W, C] and w [O, 3, 3, C] expected, got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    nb, h, wd, c = x.shape
+    o = w.shape[0]
+    if w.shape[3] != c:
+        raise ValueError(f"C mismatch: x {tuple(x.shape)}, w {tuple(w.shape)}")
+    if c == 0 or c % 32:
+        raise ValueError(f"the lagged conv needs C % 32 == 0, got C={c}")
+    if o == 0 or o % 8:
+        raise ValueError(f"the lagged conv needs O % 8 == 0, got O={o}")
+    dev = FK._check_operands(x, w, bias, ep, o)
+    if dev.type == "cpu":
+        return conv3x3_lagged_plain(x, w, bias, ep)
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("the lagged conv copies 16-byte units: x and w must "
+                         "be 16-byte aligned")
+    out = torch.empty((nb, h, wd, o), dtype=torch.int8, device=dev)
+    if out.numel() == 0:
+        return out
+    _launch_lagged(x, w, bias, ep, out, lag,
+                   lagged_plan(nb, h, wd, c, o, FK.smem_limits(dev)))
+    launches["conv3x3_lagged"] += 1
+    return out
+
+
+def _launch_lagged(x, w, bias, ep, out, lag: bool, plan: LaggedPlan) -> None:
+    """One launch of the lagged conv (``lag``: the mode) writing ``out``
+    with the block ``plan``."""
+    nb, h, wd, c = x.shape
+    cuda_build.check(cuda_build.load_library().tat_conv_int8_lagged(
+        int(lag), x.data_ptr(), w.data_ptr(), FK._ptr(bias), ep.cs.data_ptr(),
+        out.data_ptr(), nb, h, wd, c, w.shape[0], FK._kernel_act(ep.act),
+        ep.inv_out, ep.alpha, plan.tile_h, plan.tile_w, plan.bn,
+        plan.tiles_per_block, _stream(x.device)), "tat_conv_int8_lagged")
+
+
+def lagged_occupancy(lag: bool, c: int, plan: LaggedPlan) -> Tuple[int, int]:
+    """``(shared memory bytes, blocks an SM holds)`` of the lagged
+    kernel of ``lag`` with ``plan`` on the current card
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    cuda_build.check(cuda_build.load_library().tat_conv_int8_lagged_info(
+        int(lag), c, plan.tile_h, plan.tile_w, plan.bn, ctypes.byref(smem),
+        ctypes.byref(blocks)), "tat_conv_int8_lagged_info")
+    return smem.value, blocks.value
