@@ -45,7 +45,13 @@ Phases:
 8. The exact tier (``Engine(precision="exact")``) on the zoo yolov5s at
    640 (random weights from seed 0, per-tensor scales): kernels #9, #10 and
    #11 against their plain versions at the model's lead shapes (both
-   RoundModes, RELU after the clamp, dilation 2, stride (2, 1)), then
+   RoundModes, RELU after the clamp, dilation 2, stride (2, 1)); the
+   tensor-core KxK kernel of #10 and #11 (``csrc/conv_int8_requant_mma.cu``)
+   at the model's 11 distinct KxK convs (18 a forward) at batch 16, bit for
+   bit, each timed beside fp16 ``F.conv2d`` and its bound, with its plan,
+   mode and blocks an SM, the per-forward sums, and each one's split into
+   epilogue, product and the rest (from builds without the epilogue's
+   stores, without the product, without both); then
    letterbox -> int8 quantize -> network -> decode -> NMS through
    ``StreamServer`` (depth 2), 4 batches of 16 uint8 1280x720 frames:
    launches 4 x {#9: 42, #10: 11, #11: 7} plus one decode a batch and no
@@ -193,10 +199,10 @@ KERNEL_INFO = {
         "source": "thingino_accel_tpu_torch/csrc/requant_int8.cu",
         "replaces": "thingino_accel_tpu/ops/pallas_kernels.py:120"},
     "conv2d_int8_halo": {
-        "source": "thingino_accel_tpu_torch/csrc/requant_int8.cu",
+        "source": "thingino_accel_tpu_torch/csrc/conv_int8_requant_mma.cu",
         "replaces": "thingino_accel_tpu/ops/pallas_kernels.py:216"},
     "conv2d_int8": {
-        "source": "thingino_accel_tpu_torch/csrc/requant_int8.cu",
+        "source": "thingino_accel_tpu_torch/csrc/conv_int8_requant_mma.cu",
         "replaces": "thingino_accel_tpu/ops/pallas_kernels.py:300 "
                     "(_tapconv_call :388)"},
     DMA: {
@@ -227,6 +233,16 @@ KERNEL_INFO[LAGGED] = {
     "source": "thingino_accel_tpu_torch/csrc/conv_int8_lagged.cu",
     "replaces": "examples/pipeline_experiment.py:71 lagged (_kernel :44, "
                 "pallas_call :92)"}
+# the KxK kernel of #10 and #11 built three more times, as measurement
+# variants that no wrapper reaches: its epilogue storing nothing, without
+# its product (ldmatrix, mma.sync), without either; phase 8 splits each
+# KxK conv's time by them
+KXK_SOURCE = "conv_int8_requant_mma.cu"
+KXK_VARIANTS = {
+    "no_store": ("-DTAT_CONV_REQUANT_NO_STORE",),
+    "no_product": ("-DTAT_CONV_REQUANT_NO_PRODUCT",),
+    "neither": ("-DTAT_CONV_REQUANT_NO_STORE",
+                "-DTAT_CONV_REQUANT_NO_PRODUCT")}
 # the path whose run gives each kernel's launch count
 PATH_OF = {k: "planned real yolov5n" for k in KERNEL_INFO}
 PATH_OF["sppf_int8_fused"] = "planned zoo yolov5s 640"
@@ -406,9 +422,17 @@ def phase_device():
 
 
 def phase_build() -> float:
+    import threading
     from thingino_accel_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
+    variants = [threading.Thread(target=cuda_build.build,
+                                 args=((KXK_SOURCE,), flags))
+                for flags in KXK_VARIANTS.values()]   # beside the library
+    for t in variants:
+        t.start()
     cuda_build.load_library()
+    for t in variants:
+        t.join()
     secs = time.perf_counter() - t0
     log = cuda_build.library_path().with_suffix(".log")
     for line in log.read_text().splitlines():
@@ -1049,11 +1073,12 @@ def phase_nanodet(results: dict) -> dict:
             "p99_ms_4batch": st.latency_ms(99), "units_checked": n_units}
 
 
-def phase_exact_kernels(results: dict) -> None:
+def phase_exact_kernels(results: dict) -> dict:
     """Kernels #9-#11 against their plain versions, bit for bit, at the
     exact zoo yolov5s's lead shapes at batch 16, then both RoundModes and
     RELU on one shape each, one dilation-2 case and one stride-(2, 1) case
-    (only #11 takes those two; no model here reaches them)."""
+    (only #11 takes those two; no model here reaches them); then
+    :func:`exact_kxk_table`, whose numbers it returns."""
     import numpy as np
     import torch
     from thingino_accel_tpu_torch.ops import requant_kernels as RK
@@ -1114,6 +1139,104 @@ def phase_exact_kernels(results: dict) -> None:
                   lambda args=args: RK.conv2d_int8(*args, plain=True),
                   lambda out, x=x, wt=wt, o=o: conv_work(x, wt, out, 4 * o),
                   library)
+    return exact_kxk_table(rng, results)
+
+
+def exact_kxk_table(rng, results: dict) -> dict:
+    """The tensor-core KxK kernel behind #10 and #11 at the 11 distinct KxK
+    convs of the exact zoo yolov5s at 640 (18 a forward), batch 16: each
+    bit for bit against its plain version, its median event time beside
+    fp16 channels-last ``F.conv2d``'s and its bound, T/s, plan, mode and
+    blocks an SM, and its split: the times of the same plan in the
+    ``KXK_VARIANTS`` builds (built beside the library in phase 2, reached
+    by no wrapper), whence the epilogue's share (1 - no_store / kernel),
+    the product's (1 - no_product / kernel) and the rest, copies and
+    syncs and the im2col build (neither); the per-forward sums of #10 and
+    #11."""
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch.models import zoo
+    from thingino_accel_tpu_torch.ops import cuda_build
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.ops import requant_kernels as RK
+    from thingino_accel_tpu_torch.ops.quant import RoundMode
+
+    dev = torch.device("cuda")
+    variants = {name: cuda_build.load_variant(
+        KXK_SOURCE, flags, ("tat_conv_int8_requant_mma",))
+        for name, flags in KXK_VARIANTS.items()}
+    rows = []
+    for k in RK.kxk_convs(zoo.build_yolov5("s", zoo.ZooConfig())):
+        x = torch.from_numpy(rng.integers(-128, 128, (BATCH, k.h, k.w, k.c),
+                                          dtype=np.int8)).to(dev)
+        wt = torch.from_numpy(rng.integers(
+            -128, 128, (k.o,) + k.ksize + (k.c,), dtype=np.int8)).to(dev)
+        bias = torch.from_numpy(
+            rng.integers(-3000, 3000, k.o).astype(np.int32)).to(dev)
+        cs_args = (0.05, 0.01, float(0.0137 * np.sqrt(
+            k.ksize[0] * k.ksize[1] * k.c)))
+        args = (x, wt, bias, (k.oh, k.ow), k.stride, k.dilation, k.pads,
+                *cs_args)
+        label = (f"{k.ksize[0]}x{k.ksize[1]}/s{k.stride[0]} {BATCH}x{k.h}x"
+                 f"{k.w}x{k.c} -> {k.o}")
+        mode = RK.conv_mode(x, wt)
+        plan = RK.conv_requant_plan(BATCH, k.oh, k.ow, k.c, k.o, *k.ksize,
+                                    k.stride, k.dilation, mode,
+                                    FK.smem_limits(dev))
+        out = RK.conv2d_int8(*args)
+        torch.cuda.synchronize()
+        dmax = compare(out, RK.conv2d_int8(*args, plain=True), "NONE",
+                       f"kxk {label}")
+        note_err(results, k.kernel, dmax)
+        ms = time_ms(lambda: RK.conv2d_int8(*args), 20)
+        lib = library_ms(conv_fp16_call(x, wt, k.stride, k.pads[0][0],
+                                        k.dilation), label)
+        ops, nbytes = conv_work(x, wt, out, 4 * k.o)
+        bms, side = bound(ops, nbytes)
+        _, blocks = RK.conv_occupancy(plan, k.c, k.ksize, k.stride,
+                                      k.dilation)
+        row = {"kernel": k.kernel, "conv": label, "count": k.count, "ms": ms,
+               "library_ms": lib, "bound_ms": bms, "bound_by": side,
+               "tops": ops / ms / 1e9, "plan": dataclasses.asdict(plan),
+               "mode": mode, "blocks_per_sm": blocks, "max_abs_err": dmax}
+        cs = RK.combined_scale(*cs_args)
+        row["split_ms"] = {}
+        for name, vlib in variants.items():
+            def bare(vlib=vlib, x=x, wt=wt, bias=bias, k=k, plan=plan, cs=cs,
+                     o=out):
+                cuda_build.check(vlib.tat_conv_int8_requant_mma(
+                    *RK._conv_args(x, wt, bias, cs, k.stride, k.dilation,
+                                   k.pads, RoundMode.HALF_AWAY, False,
+                                   torch.empty_like(o), plan),
+                    torch.cuda.current_stream(dev).cuda_stream),
+                    f"tat_conv_int8_requant_mma ({name})")
+            row["split_ms"][name] = time_ms(bare, 20)
+        row["epilogue_share"] = 1 - row["split_ms"]["no_store"] / ms
+        row["product_share"] = 1 - row["split_ms"]["no_product"] / ms
+        rows.append(row)
+        print(f"[exact] kxk {k.kernel:16s} {label} x{k.count}: kernel "
+              f"{ms:.4f} ms, F.conv2d fp16 {lib} ms, bound {bms:.4f} ms "
+              f"({side}), {row['tops']:.1f} T/s, {mode} {plan.tile_h}x"
+              f"{plan.tile_w} bn {plan.bn} ck {plan.ck} tpb "
+              f"{plan.tiles_per_block}{' resident' if plan.resident else ''}, "
+              f"{blocks} blocks/SM; split: epilogue "
+              f"{row['epilogue_share']:.3f}, product "
+              f"{row['product_share']:.3f}, without both "
+              f"{row['split_ms']['neither']:.4f} ms")
+    sums = {}
+    for kernel in ("conv2d_int8_halo", "conv2d_int8"):
+        mine = [r for r in rows if r["kernel"] == kernel]
+        sums[kernel] = {
+            "convs": sum(r["count"] for r in mine),
+            **{key: sum(r["count"] * r[key] for r in mine)
+               for key in ("ms", "library_ms", "bound_ms")}}
+        print(f"[exact] per forward, {kernel} ({sums[kernel]['convs']} "
+              f"convs): kernel {sums[kernel]['ms']:.4f} ms, F.conv2d fp16 "
+              f"{sums[kernel]['library_ms']:.4f} ms, bound "
+              f"{sums[kernel]['bound_ms']:.4f} ms")
+    require(sum(v["convs"] for v in sums.values()) == 18,
+            "the exact zoo yolov5s has 18 KxK convs a forward")
+    return {"rows": rows, "per_forward": sums}
 
 
 def check_exact_steps_against_cpu(eng, cpu, x) -> tuple:
@@ -1668,7 +1791,7 @@ def main() -> int:
         results = {k: {"cases": [], "max_abs_err": 0, "launches": 0}
                    for k in KERNEL_INFO}
         phase_kernels(results)
-        phase_exact_kernels(results)
+        exact_kxk = phase_exact_kernels(results)
         phase_dma_kernels(results)
         slice_res = phase_slice(results)
         unplanned_res = phase_unplanned(results)
@@ -1701,7 +1824,8 @@ def main() -> int:
         "total_s": time.perf_counter() - t_start, "kernels": results,
         "slice": slice_res, "unplanned": unplanned_res,
         "zoo_yolov5s": zoo_res, "nanodet": nanodet_res,
-        "exact": exact_res, "probe_checks": probe_checks,
+        "exact": exact_res, "exact_kxk": exact_kxk,
+        "probe_checks": probe_checks,
         "probes": probes_res, "pipeline": pipeline_res}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
-// A CPU stand-in for the CUDA runtime, enough to compile the port's probe
-// kernels (chain_mma.cu, megakernel_probe.cu, add_one.cu,
-// conv_int8_lagged.cu) with g++ and run
+// A CPU stand-in for the CUDA runtime, enough to compile the port's
+// tensor-core kernels (chain_mma.cu, megakernel_probe.cu, add_one.cu,
+// conv_int8_lagged.cu, conv_int8_requant_mma.cu) with g++ and run
 // them on host memory: each block's threads are std::threads meeting at a
 // std::barrier (__syncthreads), blocks run one after another, the dynamic
 // shared memory is one static buffer. tests/test_torch_cuda_shim.py
@@ -59,7 +59,11 @@ inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributePreferredSharedMemoryCarveout = 9
+};
+enum cudaSharedCarveout { cudaSharedmemCarveoutMaxShared = 100 };
 using cudaStream_t = void*;
 
 constexpr int kShimSmemOptin = 232448;   // an H100's opt-in limit
@@ -113,6 +117,9 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __int2float_rn(int v) { return static_cast<float>(v); }
 inline int __float2int_rz(float v) { return static_cast<int>(v); }
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return static_cast<unsigned>((static_cast<uint64_t>(a) * b) >> 32);
+}
 inline int __dp4a(int a, int b, int c) {   // epilogue.cuh's dp4a tile
   for (int i = 0; i < 4; ++i)
     c += static_cast<int8_t>(a >> (8 * i)) * static_cast<int8_t>(b >> (8 * i));

@@ -1,9 +1,10 @@
-"""The probes' CUDA sources (``chain_mma.cu``, ``megakernel_probe.cu``,
-``add_one.cu``, ``conv_int8_lagged.cu``) compiled for the CPU with g++ and
-the shim ``tests/cuda_shim/shim.h``, held against their plain versions
-(``ops.probe_kernels``): a rehearsal of their indexing, their cp.async ring
-and their ldmatrix / mma.sync fragment layouts without a card. It cannot
-show what nvcc or the card refuses.
+"""The tensor-core CUDA sources (the probes' ``chain_mma.cu``,
+``megakernel_probe.cu``, ``add_one.cu``, ``conv_int8_lagged.cu``, and the
+exact tier's KxK conv ``conv_int8_requant_mma.cu``) compiled for the CPU
+with g++ and the shim ``tests/cuda_shim/shim.h``, held against their plain
+versions (``ops.probe_kernels``, ``ops.requant_kernels``): a rehearsal of
+their indexing, their cp.async ring and their ldmatrix / mma.sync fragment
+layouts without a card. It cannot show what nvcc or the card refuses.
 
 The sources are rewritten into a temporary directory: the cp.async and
 the ldmatrix / mma.sync blocks of ``mma_tile.cuh`` (between their
@@ -24,6 +25,7 @@ order than the plain float64 ones).
 """
 
 import ctypes
+import dataclasses
 import re
 import shutil
 import subprocess
@@ -36,12 +38,15 @@ import torch
 from thingino_accel_tpu_torch.ops import cuda_build
 from thingino_accel_tpu_torch.ops import fused_kernels as FK
 from thingino_accel_tpu_torch.ops import probe_kernels as PK
+from thingino_accel_tpu_torch.ops import requant_kernels as RK
+from thingino_accel_tpu_torch.ops.quant import RoundMode
 
 SHIM = Path(__file__).resolve().parent / "cuda_shim" / "shim.h"
 SOURCES = ("chain_mma.cu", "megakernel_probe.cu", "add_one.cu",
-           "conv_int8_lagged.cu")
+           "conv_int8_lagged.cu", "conv_int8_requant_mma.cu")
 ENTRIES = ("tat_chain_mma", "tat_megakernel_1x1", "tat_megakernel_3x3",
-           "tat_add_one", "tat_conv_int8_lagged", "tat_conv_int8_lagged_info")
+           "tat_add_one", "tat_conv_int8_lagged", "tat_conv_int8_lagged_info",
+           "tat_conv_int8_requant_mma", "tat_conv_int8_requant_mma_info")
 
 _CP_ASYNC = """
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -311,3 +316,159 @@ def test_shim_lagged_layout_and_refusals(shim):
             1, x.data_ptr(), wt.data_ptr(), None, ep.cs.data_ptr(),
             out.data_ptr(), n, h, w, cc, o, 0, 1.0, 0.1, th, tw, bn, 2,
             None) == 1
+
+
+# The exact tier's KxK conv (#10 and #11, conv_int8_requant_mma.cu):
+# (batch, H, W, C, O, KH, KW, stride, dilation, pads, round mode, relu),
+# each small; H and W ragged under every tile, O ragged under both blocks
+# where O is not 32 or 64; the im2col mode's A rows built by 2-byte runs
+# (the stem, C = 6 and 32), by bytes (C = 3 at 3x3: 9-byte runs) and by
+# the k table (dilation 2), its slab loads inside the image (C = 3 on a
+# 24 x 40 image) and at its edges
+H100 = FK.SmemLimits(132, 233472, 232448)
+HALF, TRUNC = RoundMode.HALF_AWAY, RoundMode.PLUS_HALF_TRUNC
+MMA_CASES = {
+    "3x3s1-c32": (2, 10, 20, 32, 40, 3, 3, (1, 1), (1, 1), ((1, 1), (1, 1)),
+                  HALF, False),
+    "3x3s1-c64": (1, 9, 12, 64, 72, 3, 3, (1, 1), (1, 1), ((1, 1), (1, 1)),
+                  TRUNC, True),
+    "3x3s2": (2, 13, 21, 32, 24, 3, 3, (2, 2), (1, 1), ((0, 1), (1, 1)),
+              HALF, True),
+    "dilation2": (1, 12, 14, 32, 16, 3, 3, (1, 1), (2, 2), ((2, 2), (2, 2)),
+                  TRUNC, False),
+    "stride21": (1, 11, 18, 32, 32, 3, 3, (2, 1), (1, 1), ((1, 1), (1, 1)),
+                 HALF, False),
+    "stem6x6s2": (2, 22, 26, 3, 32, 6, 6, (2, 2), (1, 1), ((2, 2), (2, 2)),
+                  HALF, False),
+    "5x5-c6": (1, 13, 10, 6, 70, 5, 5, (1, 1), (1, 1), ((2, 2), (2, 2)),
+               TRUNC, True),
+    "c96-chunked": (1, 10, 9, 96, 40, 3, 3, (2, 2), (1, 1), ((1, 1), (1, 1)),
+                    HALF, False),
+    "c3-interior": (1, 24, 40, 3, 16, 3, 3, (1, 1), (1, 1), ((1, 1), (1, 1)),
+                    TRUNC, False),
+}
+
+
+def _mma_operands(case, seed):
+    nb, h, w, c, o, kh, kw, s, d, pads, rm, relu = case
+    rng = np.random.default_rng(seed)
+    x, wt = _rng_int8(rng, (nb, h, w, c)), _rng_int8(rng, (o, kh, kw, c))
+    bias = torch.from_numpy(rng.integers(-3000, 3000, o).astype(np.int32))
+    out_hw = tuple((n + sum(p) - (k - 1) * dd - 1) // ss + 1
+                   for n, p, k, dd, ss in zip((h, w), pads, (kh, kw), d, s))
+    scales = (0.05, 0.01, float(0.0137 * np.sqrt(kh * kw * c)))
+    ref = RK.conv2d_int8_plain(x, wt, bias, out_hw, s, d, pads, *scales, rm,
+                               relu)
+    return x, wt, bias, out_hw, RK.combined_scale(*scales), ref
+
+
+def _mma_plans(case, mode):
+    """The plans the wrapper offers in ``mode``, each also at the next
+    chunks it could take (narrower, im2col's possibly ragged; in slab mode
+    beside resident and streamed weights), all at runs of 4 tiles (runs
+    that cross tiles, and a ragged last run)."""
+    nb, h, w, c, o, kh, kw, s, d = case[:9]
+    _, _, _, out_hw, _, _ = _mma_operands(case, 0)
+    plans = RK.conv_requant_plans(nb, *out_hw, c, o, kh, kw, s, d, mode,
+                                  H100)
+    chunks = RK._chunks(mode, c)
+    n = 3 if mode == "slab" else 2
+    return [dataclasses.replace(p, ck=k, resident=r, tiles_per_block=4)
+            for p in plans for i in [chunks.index((p.ck, p.resident))]
+            for k, r in chunks[i:i + n]]
+
+
+def _shim_mma(shim, x, wt, bias, out_hw, cs, case, plan):
+    nb, o, s, d, pads, rm, relu = case[0], case[4], *case[7:]
+    out = torch.full((nb,) + out_hw + (o,), 99, dtype=torch.int8)
+    rc = shim.tat_conv_int8_requant_mma(
+        *RK._conv_args(x, wt, bias, cs, s, d, pads, rm, relu, out, plan),
+        None)
+    assert rc == 0, plan
+    return out
+
+
+MMA_MODES = [(name, mode) for name, case in MMA_CASES.items()
+             for mode in (("slab", "im2col") if case[3] % 32 == 0
+                          else ("im2col",))]
+
+
+@pytest.mark.parametrize("name,mode", MMA_MODES, ids=str)
+def test_shim_conv_requant_mma_matches_plain(shim, name, mode):
+    """The KxK conv in ``mode`` (the slab mode where C % 32 == 0) under
+    every plan the wrapper offers, each also at the next narrower chunk:
+    equal to ``conv2d_int8_plain`` bit for bit, every element written."""
+    case = MMA_CASES[name]
+    x, wt, bias, out_hw, cs, ref = _mma_operands(case, len(name))
+    assert RK.conv_mode(x, wt) == ("slab" if case[3] % 32 == 0 else
+                                   "im2col")
+    plans = _mma_plans(case, mode)
+    assert len({(p.tile_h, p.tile_w) for p in plans}) == len(RK.CONV_TILES)
+    for plan in plans:
+        got = _shim_mma(shim, x, wt, bias, out_hw, cs, case, plan)
+        assert torch.equal(got, ref), (plan, int((got != ref).sum()))
+
+
+def test_shim_conv_requant_mma_unaligned_and_no_bias(shim):
+    """An input at an odd byte offset takes im2col mode (slab mode refuses
+    it); no bias."""
+    case = MMA_CASES["3x3s2"]
+    x, wt, _, out_hw, cs, _ = _mma_operands(case, 1)
+    buf = torch.zeros(1 + x.numel(), dtype=torch.int8)
+    xo = buf[1:].view(x.shape)
+    xo.copy_(x)
+    ref = RK.conv2d_int8_plain(x, wt, None, out_hw, *case[7:10], 0.05, 0.01,
+                               float(0.0137 * np.sqrt(9 * 32)), *case[10:])
+    assert RK.conv_mode(xo, wt) == "im2col"
+    plan = RK.conv_requant_plan(case[0], *out_hw, 32, case[4], 3, 3,
+                                case[7], case[8], "im2col", H100)
+    assert torch.equal(_shim_mma(shim, xo, wt, None, out_hw, cs, case, plan),
+                       ref)
+    slab = dataclasses.replace(plan, mode="slab", ck=32, resident=True)
+    out = torch.empty_like(ref)
+    assert shim.tat_conv_int8_requant_mma(
+        *RK._conv_args(xo, wt, None, cs, *case[7:10], *case[10:], out, slab),
+        None) == 1
+
+
+def test_shim_conv_requant_mma_layout_and_refusals(shim):
+    """The kernel's shared memory is ``conv_requant_smem``'s for every
+    tile, block, chunk and weight residence in both modes (refused above
+    the opt-in); plans it cannot run are refused."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    geoms = [(32, 3, 3, (1, 1), (1, 1)), (256, 3, 3, (2, 2), (1, 1)),
+             (128, 3, 3, (1, 1), (2, 2)), (64, 3, 3, (2, 1), (1, 1)),
+             (3, 6, 6, (2, 2), (1, 1)), (20, 5, 5, (1, 1), (1, 1))]
+    n = 0
+    for c, kh, kw, s, d in geoms:
+        for mode in ("slab", "im2col"):
+            if mode == "slab" and c % 32:
+                continue
+            for th, tw in RK.CONV_TILES:
+                for bn in RK.CONV_BNS:
+                    for ck, res in RK._chunks(mode, c):
+                        plan = RK.ConvPlan(mode, th, tw, bn, ck, res, 1)
+                        rc = shim.tat_conv_int8_requant_mma_info(
+                            *RK._info_args(plan, c, (kh, kw), s, d),
+                            ctypes.byref(smem), ctypes.byref(blocks))
+                        want = RK.conv_requant_smem(mode, c, kh, kw, s, d,
+                                                    th, tw, bn, ck, res)
+                        n += 1
+                        if want > H100.per_block:
+                            assert rc == 1
+                            continue
+                        assert rc == 0 and smem.value == want
+                        assert blocks.value == 233472 // (want + 1024)
+    assert n > 500
+    bad = [("slab", 20, 8, 8, 64, 20, 1), ("slab", 64, 8, 8, 64, 48, 1),
+           ("slab", 64, 8, 8, 64, 64, 0), ("im2col", 64, 8, 8, 64, 32, 1),
+           ("im2col", 64, 8, 12, 64, 64, 1), ("im2col", 64, 4, 8, 64, 64, 1),
+           ("im2col", 64, 8, 8, 48, 64, 1), ("im2col", 64, 16, 16, 64, 64, 1),
+           ("im2col", 64, 8, 8, 64, 65, 1)]
+    # C % 32, ck, all C streamed, a chunk resident in im2col, tile_w,
+    # pixels, bn, ck > C
+    for mode, c, th, tw, bn, ck, res in bad:
+        plan = RK.ConvPlan(mode, th, tw, bn, ck, bool(res), 1)
+        assert shim.tat_conv_int8_requant_mma_info(
+            *RK._info_args(plan, c, (3, 3), (1, 1), (1, 1)),
+            ctypes.byref(smem), ctypes.byref(blocks)) == 1

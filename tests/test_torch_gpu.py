@@ -19,7 +19,9 @@ rtol 1e-6 / atol 1e-7, and the detections after NMS equal. The exact
 tier's kernels #9-#11 (``ops.requant_kernels``) are bit-exact against
 their plain versions in both RoundModes, with and without RELU, at the
 zoo yolov5s's lead shapes and at the edge cases: ragged edges, the byte
-path, the stem, asymmetric pads, dilation 2 and stride (2, 1). The
+path, the stem, asymmetric pads, dilation 2 and stride (2, 1); the
+tensor-core KxK kernel behind #10 and #11 also at every plan of both its
+modes and at all 11 distinct KxK convs of the zoo yolov5s. The
 slab-ring KxK conv (#5, ``pipeline="dma"``) equals its plain version and
 #2 bit for bit on the five cases of ``tests/test_torch_halo_dma.py`` and a
 ragged one, at every tile width its plan can pick, with the weights
@@ -676,6 +678,78 @@ def test_requant_kernels_unaligned_operands(cuda):
     w2 = _rand(rng, (24, 32), cuda)
     _close(RK.matmul_int8_requant(x2, w2, None, 0.004),
            RK.matmul_int8_requant_plain(x2, w2, None, 0.004), "NONE")
+
+
+# The tensor-core KxK kernel behind #10 and #11: two shapes of each mode
+# (batch, H, W, C, O, KH, KW, stride, dilation, pads): slab at #10's lead
+# shape and at the C-chunked 3x3/s2 256 -> 512; im2col at the stem and at
+# a ragged 5x5 with C = 6, O = 70
+MMA_PLAN_CASES = {
+    "slab": [(2, 40, 40, 128, 128, 3, 3, (1, 1), (1, 1), ((1, 1), (1, 1))),
+             (2, 40, 40, 256, 512, 3, 3, (2, 2), (1, 1), ((1, 0), (1, 0)))],
+    "im2col": [(2, 64, 96, 3, 32, 6, 6, (2, 2), (1, 1), ((2, 2), (2, 2))),
+               (2, 13, 10, 6, 70, 5, 5, (1, 1), (1, 1), ((2, 2), (2, 2)))],
+}
+
+
+@pytest.mark.parametrize("rm,relu", RMODES)
+@pytest.mark.parametrize("mode,i", [(m, i) for m in MMA_PLAN_CASES
+                                    for i in range(2)])
+def test_requant_mma_every_plan(cuda, mode, i, rm, relu):
+    """Every plan ``conv_requant_plans`` offers on this card in ``mode``
+    (the mode the wrapper takes for the case), against the plain version
+    bit for bit, every element written."""
+    nb, h, w, c, o, kh, kw, s, d, pads = MMA_PLAN_CASES[mode][i]
+    rng = np.random.default_rng(h + c + o + i)
+    x, wt = _rand(rng, (nb, h, w, c), cuda), _rand(rng, (o, kh, kw, c), cuda)
+    bias = torch.from_numpy(rng.integers(-3000, 3000, o).astype(
+        np.int32)).to(cuda)
+    assert RK.conv_mode(x, wt) == mode
+    out_hw = _conv_out_hw(h, w, kh, kw, s, d, pads)
+    scales = (0.05, 0.01, float(0.0137 * np.sqrt(kh * kw * c)))
+    ref = RK.conv2d_int8(x, wt, bias, out_hw, s, d, pads, *scales, rm, relu,
+                         plain=True)
+    plans = RK.conv_requant_plans(nb, *out_hw, c, o, kh, kw, s, d, mode,
+                                  FK.smem_limits(cuda))
+    assert len(plans) == len(RK.CONV_TILES) * len(RK.CONV_BNS)
+    for plan in plans:
+        out = torch.full(ref.shape, 99, dtype=torch.int8, device=cuda)
+        RK._launch_conv(x, wt, bias, RK.combined_scale(*scales), s, d, pads,
+                        rm, relu, out, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), plan
+        smem, blocks = RK.conv_occupancy(plan, c, (kh, kw), s, d)
+        assert smem == RK.conv_requant_smem(mode, c, kh, kw, s, d,
+                                            plan.tile_h, plan.tile_w,
+                                            plan.bn, plan.ck, plan.resident)
+        assert blocks >= 1
+
+
+def _yolov5s_kxk():
+    from thingino_accel_tpu_torch.models import zoo
+    return RK.kxk_convs(zoo.build_yolov5("s", zoo.ZooConfig()))
+
+
+@pytest.mark.parametrize("i", range(11))
+def test_requant_mma_yolov5s_shapes(cuda, i):
+    """The 11 distinct KxK convs of the exact zoo yolov5s at 640 (18 a
+    forward), at batch 2 through ``conv2d_int8``: bit for bit against the
+    plain version, one launch of the routed counter, the stem in im2col
+    mode and the rest in slab mode."""
+    k = _yolov5s_kxk()[i]
+    rng = np.random.default_rng(100 + i)
+    x, wt = _rand(rng, (2, k.h, k.w, k.c), cuda), _rand(
+        rng, (k.o,) + k.ksize + (k.c,), cuda)
+    bias = torch.from_numpy(rng.integers(-3000, 3000, k.o).astype(
+        np.int32)).to(cuda)
+    assert RK.conv_mode(x, wt) == ("im2col" if k.c == 3 else "slab")
+    args = (x, wt, bias, (k.oh, k.ow), k.stride, k.dilation, k.pads, 0.05,
+            0.01, float(0.0137 * np.sqrt(k.ksize[0] * k.ksize[1] * k.c)))
+    before = RK.launches[k.kernel]
+    out = RK.conv2d_int8(*args)
+    torch.cuda.synchronize()
+    assert RK.launches[k.kernel] == before + 1
+    _close(out, RK.conv2d_int8(*args, plain=True), "NONE")
 
 
 # ---------------------------------------------------------------------------

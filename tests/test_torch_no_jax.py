@@ -95,6 +95,17 @@ SCRIPT = textwrap.dedent("""
     assert torch.equal(lagged(*args), base(*args))
     assert lagged(*args, lag=False).shape == (1, 8, 8, 16)
     assert "conv_int8_lagged.cu" in cuda_build.SOURCES
+    from thingino_accel_tpu_torch.ops import requant_kernels as RK
+    assert "conv_int8_requant_mma.cu" in cuda_build.SOURCES
+    assert "tat_conv_int8_requant" not in cuda_build._SIGNATURES
+    plan = RK.conv_requant_plan(16, 320, 320, 3, 32, 6, 6, (2, 2), (1, 1),
+                                "im2col", FK.SmemLimits(132, 233472, 232448))
+    assert (plan.mode, plan.bn, plan.ck) == ("im2col", 32, 3)
+    xs, ws = torch.ones((1, 9, 9, 3), dtype=torch.int8), torch.ones(
+        (4, 3, 3, 3), dtype=torch.int8)
+    got = RK.conv2d_int8(xs, ws, None, (5, 5), (2, 2), (1, 1),
+                         ((1, 1), (1, 1)), 1.0, 1.0, 1.0)
+    assert got.shape == (1, 5, 5, 4) and int(got[0, 2, 2, 0]) == 27
     assert sys.modules["jax"] is None
     assert sys.modules["thingino_accel_tpu"] is None
     print("ok")

@@ -23,6 +23,7 @@ from thingino_accel_tpu.ops.quant import combined_scale as jax_combined_scale
 from thingino_accel_tpu_torch import Engine, EngineOptions
 from thingino_accel_tpu_torch.models import zoo
 from thingino_accel_tpu_torch.ops import conv as C
+from thingino_accel_tpu_torch.ops import fused_kernels as FK
 from thingino_accel_tpu_torch.ops import requant_kernels as RK
 from thingino_accel_tpu_torch.ops.quant import RoundMode
 
@@ -204,3 +205,46 @@ def test_zoo_yolov5s_640_census_from_shapes():
                               else ((1, 1), (1, 1)), 0.01) == "conv2d_int8")
     assert kinds == [((3, 3), (2, 2))] * 6 + [((6, 6), (2, 2))]
     assert len(eng._fn.units) == 60
+
+
+def test_kxk_convs_of_the_zoo_yolov5s_640():
+    """``kxk_convs`` finds the 18 KxK convs a forward of the exact zoo
+    yolov5s at 640 as 11 distinct shapes: 11 convs on #10, 7 on #11."""
+    ks = RK.kxk_convs(zoo.build_yolov5("s", zoo.ZooConfig()))
+    assert len(ks) == 11 and sum(k.count for k in ks) == 18
+    assert sum(k.count for k in ks if k.kernel == "conv2d_int8_halo") == 11
+    assert ks[0][:8] == ("conv2d_int8", 640, 640, 3, 32, 320, 320, (6, 6))
+
+
+H100 = FK.SmemLimits(132, 233472, 232448)
+
+
+@pytest.mark.parametrize("i", range(11))
+def test_conv_requant_plan_of_each_yolov5s_kxk_conv(i):
+    """At batch 16 on an H100's limits each KxK conv of the zoo yolov5s has
+    a plan of every tile and channel block, within the opt-in: the stem in
+    im2col mode at one 128-byte K chunk with its 32 channels in one block,
+    the two 3x3/s2 convs of C = 256 (-> 512, -> 256) slab-mode C-chunked
+    beside resident weights (the weights and a ring of slabs of all C do
+    not fit together), the rest slab mode with C whole; the weights always
+    resident."""
+    k = RK.kxk_convs(zoo.build_yolov5("s", zoo.ZooConfig()))[i]
+    mode = "im2col" if k.c == 3 else "slab"
+    plans = RK.conv_requant_plans(16, k.oh, k.ow, k.c, k.o, *k.ksize[:2],
+                                  k.stride, k.dilation, mode, H100)
+    assert len(plans) == len(RK.CONV_TILES) * len(RK.CONV_BNS)
+    for p in plans:
+        smem = RK.conv_requant_smem(mode, k.c, *k.ksize, k.stride, k.dilation,
+                                    p.tile_h, p.tile_w, p.bn, p.ck,
+                                    p.resident)
+        assert smem <= H100.per_block and 1 <= p.tiles_per_block
+        assert p.resident
+    best = plans[0]
+    assert best == RK.conv_requant_plan(16, k.oh, k.ow, k.c, k.o, *k.ksize,
+                                        k.stride, k.dilation, mode, H100)
+    if k.c == 3:
+        assert best.bn == 32 and best.ck == 3
+    elif (k.c, k.stride) == (256, (2, 2)):
+        assert all(p.ck < k.c for p in plans)
+    else:
+        assert best.ck == k.c

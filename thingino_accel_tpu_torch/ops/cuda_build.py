@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -28,7 +28,7 @@ SOURCES = ("mm_int8_fused.cu", "conv_int8_fused.cu", "mm_multi_int8_fused.cu",
            "bneck_int8_fused.cu", "sppf_int8_fused.cu", "dw_int8_fused.cu",
            "decode_fused.cu", "requant_int8.cu", "conv_int8_dma.cu",
            "chain_mma.cu", "megakernel_probe.cu", "add_one.cu",
-           "conv_int8_lagged.cu")
+           "conv_int8_lagged.cu", "conv_int8_requant_mma.cu")
 HEADERS = ("epilogue.cuh", "mma_tile.cuh", "chain_mma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -77,9 +77,14 @@ _SIGNATURES = {
     # x, w, bias, out, M, N, K, cs, round_mode, relu, stream
     "tat_mm_int8_requant": (_P, _P, _P, _P, _L, _I, _I, _F, _I, _I, _P),
     # x, w, bias, out, batch, H, W, C, O, KH, KW, sh, sw, dh, dw, pt, pl,
-    # OH, OW, cs, round_mode, relu, stream
-    "tat_conv_int8_requant": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    # OH, OW, cs, round_mode, relu, mode, tile_h, tile_w, bn, ck, resident,
+    # tiles_per_block, stream
+    "tat_conv_int8_requant_mma": (_P, _P, _P, _P, *(_I,) * 15, _F, _I, _I,
+                                  *(_I,) * 7, _P),
+    # mode, C, KH, KW, sh, sw, dh, dw, tile_h, tile_w, bn, ck, resident,
+    # -> smem bytes, blocks an SM
+    "tat_conv_int8_requant_mma_info": (*(_I,) * 13, ctypes.POINTER(_I),
+                                       ctypes.POINTER(_I)),
     # levels, feats[], H[], W[], strides[], scales[], anchors[], batch, A,
     # NC, is_int8, boxes, conf, cls, stream
     "tat_decode_fused": (_I, ctypes.POINTER(_P), ctypes.POINTER(_I),
@@ -125,27 +130,30 @@ def find_nvcc() -> str:
         "cannot be built")
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+def library_path(sources: Sequence[str] = SOURCES,
+                 flags: Sequence[str] = ()) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
+    for name in tuple(sources) + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libtat_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless this exact build exists; return the
-    library's path. ``nvcc``'s output (with ``-Xptxas -v``: registers,
-    shared memory and spills per kernel) goes to ``<library>.log``."""
-    so = library_path()
+def build(sources: Sequence[str] = SOURCES,
+          flags: Sequence[str] = ()) -> Path:
+    """Compile ``sources`` with ``NVCC_FLAGS`` and ``flags`` unless this
+    exact build exists; return the library's path. ``nvcc``'s output (with
+    ``-Xptxas -v``: registers, shared memory and spills per kernel) goes to
+    ``<library>.log``."""
+    so = library_path(sources, flags)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     tag = f"{so.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
-    cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
-             str(CSRC / src)] for src, obj in zip(SOURCES, objs)]
+    objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, *flags, "-I", str(CSRC), "-c", "-o",
+             str(obj), str(CSRC / src)] for src, obj in zip(sources, objs)]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
@@ -172,17 +180,28 @@ def build() -> Path:
     return so
 
 
+def _bind(lib: ctypes.CDLL, names) -> ctypes.CDLL:
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = list(_SIGNATURES[name])
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """The kernel library, built on first use and loaded once per process."""
     global _library
     if _library is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _library = lib
+        _library = _bind(ctypes.CDLL(str(build())), _SIGNATURES)
     return _library
+
+
+def load_variant(source: str, flags: Sequence[str],
+                 entries: Sequence[str]) -> ctypes.CDLL:
+    """``source`` alone, built with the extra nvcc ``flags`` (``-D...``)
+    into a library of its own, its ``entries`` bound: a variant compiled
+    for a measurement, which no wrapper loads."""
+    return _bind(ctypes.CDLL(str(build((source,), flags))), entries)
 
 
 def check(rc: int, name: str) -> None:

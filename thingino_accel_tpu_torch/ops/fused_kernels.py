@@ -566,6 +566,23 @@ def _round_up(v: int, m: int) -> int:
     return _cdiv(v, m) * m
 
 
+def run_of_tiles(batch: int, tiles_img: int, oblocks: int, smem: int,
+                 limits: SmemLimits, threads: int, max_blocks: int = 32
+                 ) -> int:
+    """The run of consecutive tiles a block of a tile-walking kernel takes:
+    the fewest waves of blocks times a block's tiles plus one (its first
+    copy and its last store overlap nothing), over the blocks an SM holds
+    (by its threads, its shared memory and ``max_blocks``)."""
+    per_sm = max(1, min(2048 // threads, max_blocks,
+                        limits.per_sm // (smem + _BLOCK_RESERVED)))
+    slots = limits.sms * per_sm
+
+    def cost(tpb: int) -> int:
+        blocks = batch * _cdiv(tiles_img, tpb) * oblocks
+        return _cdiv(blocks, slots) * (tpb + 1)
+    return min(range(1, tiles_img + 1), key=lambda t: (cost(t), -t))
+
+
 def _aligned16(x: torch.Tensor) -> bool:
     return x.data_ptr() % 16 == 0
 

@@ -364,17 +364,10 @@ def lagged_smem(c: int, tile_h: int, tile_w: int, bn: int) -> int:
 
 def _lagged_tiles_per_block(batch: int, tiles_img: int, oblocks: int,
                             smem: int, limits: FK.SmemLimits) -> int:
-    """The run of tiles a block takes: the fewest waves of blocks times a
-    block's tiles plus one (a block's first product and last epilogue do
-    not overlap), over the blocks the shared memory lets an SM hold."""
-    per_sm = max(1, min(2048 // LAGGED_THREADS,
-                        limits.per_sm // (smem + FK._BLOCK_RESERVED)))
-    slots = limits.sms * per_sm
-
-    def cost(tpb: int) -> int:
-        blocks = batch * FK._cdiv(tiles_img, tpb) * oblocks
-        return FK._cdiv(blocks, slots) * (tpb + 1)
-    return min(range(1, tiles_img + 1), key=lambda t: (cost(t), -t))
+    """The run of tiles a block takes (``FK.run_of_tiles``: a block's first
+    product and last epilogue do not overlap)."""
+    return FK.run_of_tiles(batch, tiles_img, oblocks, smem, limits,
+                           LAGGED_THREADS)
 
 
 @functools.lru_cache(maxsize=256)
