@@ -57,19 +57,28 @@ Phases:
    launches 4 x {#9: 42, #10: 11, #11: 7} plus one decode a batch and no
    plain conv; every conv of one batch against its plain version; one
    frame step by step on the card against the CPU path, and its heads.
-9. The slab-ring KxK conv (#5, ``conv2d_int8_halo_fused(pipeline="dma")``,
-   ``csrc/conv_int8_dma.cu``) at #2's lead shape, 16x80x80x128 -> 128, a
-   3x3/s2, the 6x6/s2 stem and a ragged case: equal to its plain version
-   and to #2 bit for bit, timed beside #2, the plain version and fp16
-   ``F.conv2d``.
+9. #5 (``conv2d_int8_halo_fused(pipeline="dma")``), which launches the
+   serving KxK kernel #2 launches (``csrc/conv_int8_fused_mma.cu``: the
+   tensor-core core of ``csrc/conv_mma_core.cuh`` with the serving
+   epilogue), at #2's lead shape, 16x80x80x128 -> 128, a 3x3/s2, the 6x6/s2
+   stem and a ragged case: equal to its plain version and, through #2's
+   entry, to itself bit for bit, timed beside #2's entry, the plain
+   version and fp16 ``F.conv2d``.
 10. Its path, inside phases 4 and 6: the batch of 16 whose units were
    just held against their plain versions, through the planned real
    yolov5n and the planned zoo yolov5s at 640; every KxK conv unit
-   without a residual re-run on its recorded input through #5 (one
-   launch each, no other kernel), equal to its plain version on that
-   input (the tolerance below) and to the unit's output (#2's) bit for
-   bit; the per-forward sums of both kernels' times. No engine path
-   routes to #5, as no JAX executor path runs the DMA variant.
+   without a residual re-run on its recorded input through #5's entry
+   (one launch each, no other kernel), equal to its plain version on that
+   input (the tolerance below) and to the unit's output (#2's entry) bit
+   for bit; the per-forward sums of both entries' times. No engine path
+   routes to #5, as no JAX executor path runs the DMA variant. Beside it,
+   inside phases 4, 6 and 7, the serving KxK table: every distinct #2
+   unit of the planned real yolov5n, the planned zoo yolov5s and
+   NanoDet-320 on its recorded input at batch 16, with its plan, mode and
+   blocks an SM, its time and T/s beside fp16 ``F.conv2d`` and its bound,
+   its split into epilogue, product and the rest (the ``KXK_VARIANTS``
+   builds of the serving source), the real yolov5n's stem also at bn 32,
+   and the per-forward sums.
 11. ``[probes]``: the ports of the TPU probes under ``examples/``
    (``thingino_accel_tpu_torch.probes``), the port's first tensor-core
    kernels. Each E1 variant (``csrc/chain_mma.cu``) and E3 kind
@@ -168,9 +177,10 @@ EXACT_ZOO_S = {"matmul_int8_requant": 42, "conv2d_int8_halo": 11,
                "conv2d_int8": 7, "plain_convs": 0}
 # the YOLO pipelines decode their three heads in one launch per batch
 DECODE = "decode_and_parse_fused"
-# the slab-ring KxK conv (#5): no engine path routes to it, as no JAX
-# executor path runs conv2d_int8_folded(pipeline="dma"); its path is the
-# replay of the planned models' KxK conv units through it
+# #5, the same serving KxK kernel as #2 under its own counter: no engine
+# path routes to it, as no JAX executor path runs
+# conv2d_int8_folded(pipeline="dma"); its path is the replay of the planned
+# models' KxK conv units through it
 DMA = "conv2d_int8_halo_dma"
 DMA_PATH = "planned yolov5n + zoo yolov5s 640, KxK units replayed"
 KERNEL_INFO = {
@@ -178,7 +188,7 @@ KERNEL_INFO = {
         "source": "thingino_accel_tpu_torch/csrc/mm_int8_fused.cu",
         "replaces": "thingino_accel_tpu/ops/fused_kernels.py:241"},
     "conv2d_int8_halo_fused": {
-        "source": "thingino_accel_tpu_torch/csrc/conv_int8_fused.cu",
+        "source": "thingino_accel_tpu_torch/csrc/conv_int8_fused_mma.cu",
         "replaces": "thingino_accel_tpu/ops/fused_kernels.py:544"},
     "matmul_int8_fused_multi": {
         "source": "thingino_accel_tpu_torch/csrc/mm_multi_int8_fused.cu",
@@ -206,7 +216,7 @@ KERNEL_INFO = {
         "replaces": "thingino_accel_tpu/ops/pallas_kernels.py:300 "
                     "(_tapconv_call :388)"},
     DMA: {
-        "source": "thingino_accel_tpu_torch/csrc/conv_int8_dma.cu",
+        "source": "thingino_accel_tpu_torch/csrc/conv_int8_fused_mma.cu",
         "replaces": "thingino_accel_tpu/ops/fused_kernels.py:942 "
                     "(pipeline=\"dma\", _halo_kernel_dma :817)"},
 }
@@ -233,11 +243,13 @@ KERNEL_INFO[LAGGED] = {
     "source": "thingino_accel_tpu_torch/csrc/conv_int8_lagged.cu",
     "replaces": "examples/pipeline_experiment.py:71 lagged (_kernel :44, "
                 "pallas_call :92)"}
-# the KxK kernel of #10 and #11 built three more times, as measurement
-# variants that no wrapper reaches: its epilogue storing nothing, without
-# its product (ldmatrix, mma.sync), without either; phase 8 splits each
-# KxK conv's time by them
+# the KxK core under each epilogue policy (#10/#11's source, #2/#5's)
+# built three more times, as measurement variants that no wrapper reaches:
+# its epilogue storing nothing, without its product (ldmatrix, mma.sync),
+# without either; phase 8 and the serving KxK table split each KxK conv's
+# time by them
 KXK_SOURCE = "conv_int8_requant_mma.cu"
+SERVING_SOURCE = "conv_int8_fused_mma.cu"
 KXK_VARIANTS = {
     "no_store": ("-DTAT_CONV_REQUANT_NO_STORE",),
     "no_product": ("-DTAT_CONV_REQUANT_NO_PRODUCT",),
@@ -426,7 +438,8 @@ def phase_build() -> float:
     from thingino_accel_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
     variants = [threading.Thread(target=cuda_build.build,
-                                 args=((KXK_SOURCE,), flags))
+                                 args=((src,), flags))
+                for src in (KXK_SOURCE, SERVING_SOURCE)
                 for flags in KXK_VARIANTS.values()]   # beside the library
     for t in variants:
         t.start()
@@ -879,6 +892,7 @@ def phase_slice(results: dict) -> dict:
     print(f"[slice] kernel vs plain on every unit of one batch: {n_units} "
           "units within tolerance")
     dma = replay_dma(eng, rec, results, "planned real yolov5n")
+    table = serving_kxk_table(eng, rec, "planned real yolov5n")
     x1 = check_letterbox_on_card(frames[0][:1], target)
     n_steps = check_steps_against_cpu(eng, x1)
     print(f"[slice] card vs CPU, one frame: {n_steps} planned steps within "
@@ -909,6 +923,7 @@ def phase_slice(results: dict) -> dict:
         "units_checked": n_units, "steps_card_vs_cpu": n_steps,
         "planned_vs_unplanned_head_share": share,
         "planned_vs_unplanned_head_max": dmax, "dma_replay": dma,
+        "serving_kxk": table,
     }
 
 
@@ -1008,9 +1023,10 @@ def phase_zoo_s(results: dict) -> dict:
           f"synchronized); launches {counts}; {n_units} units of both "
           "batches as one forward within tolerance")
     dma = replay_dma(eng, rec, results, "planned zoo yolov5s 640")
+    table = serving_kxk_table(eng, rec, "planned zoo yolov5s 640")
     return {"launches": counts, "census_per_forward": census,
             "forward_s_2_batches": secs, "units_checked": n_units,
-            "dma_replay": dma}
+            "dma_replay": dma, "serving_kxk": table}
 
 
 def phase_nanodet(results: dict) -> dict:
@@ -1059,7 +1075,9 @@ def phase_nanodet(results: dict) -> dict:
 
     x = Y.quantize_input_int8(
         Y.letterbox_uint8(torch.from_numpy(frames[0]).to(dev), target))
-    n_units = len(check_units(eng, x, results, "nanodet"))
+    rec = check_units(eng, x, results, "nanodet")
+    n_units = len(rec)
+    table = serving_kxk_table(eng, rec, "planned nanodet 320")
     cpu = Engine.from_mars(str(NANODET), serving, device="cpu")
     card, ref = eng.run(x[:1]), cpu.run(x[:1].cpu())
     for k in eng.output_names:
@@ -1070,7 +1088,8 @@ def phase_nanodet(results: dict) -> dict:
           f"(min {spread} distinct values per head)")
     return {"launches": counts, "census_per_forward": census,
             "fps_4batch": st.fps, "p50_ms_4batch": st.latency_ms(50),
-            "p99_ms_4batch": st.latency_ms(99), "units_checked": n_units}
+            "p99_ms_4batch": st.latency_ms(99), "units_checked": n_units,
+            "serving_kxk": table}
 
 
 def phase_exact_kernels(results: dict) -> dict:
@@ -1342,10 +1361,10 @@ def phase_exact(results: dict) -> dict:
 
 
 def phase_dma_kernels(results: dict) -> None:
-    """The slab-ring KxK conv (#5) against its plain version (the
-    tolerance of the case's act) and against #2 (``"blockspec"``) bit for
-    bit, at #2's lead shape, the TPU experiment's 16x80x80x128 -> 128, a
-    3x3/s2, the 6x6/s2 stem and a ragged case; its time beside #2's, the
+    """#5 against its plain version (the tolerance of the case's act) and
+    against #2's entry (``"blockspec"``, the same kernel) bit for bit, at
+    #2's lead shape, the TPU experiment's 16x80x80x128 -> 128, a 3x3/s2,
+    the 6x6/s2 stem and a ragged case; its time beside #2's entry's, the
     plain version's, fp16 channels-last ``F.conv2d``'s and the bound."""
     import numpy as np
     import torch
@@ -1396,8 +1415,7 @@ def phase_dma_kernels(results: dict) -> None:
                        f"dma {label} {act}")
         require(torch.equal(out, blockspec()),
                 f"dma {label} {act}: differs from #2 (blockspec)")
-        plan = FK.dma_plan(xs[0], c, o, kk, kk, s, *out_hw,
-                           FK.smem_limits(dev), x.data_ptr() % 16 == 0)
+        plan = FK.serving_plan(x, wt, out_hw, s)
         case = {"case": f"{label} {act}", "ms": time_ms(dma, 20),
                 "blockspec_ms": time_ms(blockspec, 20),
                 "plain_ms": time_ms(
@@ -1414,17 +1432,17 @@ def phase_dma_kernels(results: dict) -> None:
               f"{case['blockspec_ms']:.4f} ms, plain {case['plain_ms']:.4f} "
               f"ms, F.conv2d fp16 {case['library_ms']}, bound "
               f"{case['bound_ms']:.4f} ms ({case['bound_by']}), plan "
-              f"{plan}; == plain (max |diff| {dmax}) and == #2")
+              f"{plan}; == plain (max |diff| {dmax}) and == #2's entry")
 
 
 def replay_dma(eng, rec: list, results: dict, what: str) -> dict:
-    """The slab-ring kernel's path: every KxK conv unit (kind "conv", no
-    residual) of a planned forward whose units ``check_units`` has just
-    held against their plain versions, re-run on its recorded input
-    through #5: one launch each and no other kernel, each output equal to
-    the plain version on the same input (``compare``) and to the unit's
-    own output (#2's) bit for bit. Both kernels timed per unit; the sums
-    are per forward."""
+    """#5's path: every KxK conv unit (kind "conv", no residual) of a
+    planned forward whose units ``check_units`` has just held against
+    their plain versions, re-run on its recorded input through #5's entry:
+    one launch each and no other kernel, each output equal to the plain
+    version on the same input (``compare``) and to the unit's own output
+    (#2's entry, the same kernel) bit for bit. Both entries timed per
+    unit; the sums are per forward."""
     import torch
     from thingino_accel_tpu_torch.ops import fused_kernels as FK
     from thingino_accel_tpu_torch.runtime.executor import ConvUnit
@@ -1457,17 +1475,127 @@ def replay_dma(eng, rec: list, results: dict, what: str) -> dict:
         plain = FK.conv2d_int8_halo_fused_plain(*args(u, reads))
         note_err(results, DMA, compare(got, plain, u.act,
                                        f"{what} {u!r} dma vs plain"))
-        require(torch.equal(got, out), f"{what} {u!r}: dma differs from #2")
+        require(torch.equal(got, out),
+                f"{what} {u!r}: #5's entry differs from #2's")
     dma_ms = sum(time_ms(call(u, r, "dma"), 10) for u, r, _ in units)
     bs_ms = sum(time_ms(call(u, r, "blockspec"), 10) for u, r, _ in units)
-    print(f"[dma] {what}: {len(units)} KxK units replayed through the dma "
-          f"kernel, each == plain and == #2 bit for bit; per forward dma "
-          f"{dma_ms:.4f} ms, #2 {bs_ms:.4f} ms")
+    print(f"[dma] {what}: {len(units)} KxK units replayed through #5's "
+          f"entry, each == plain and == #2's entry bit for bit; per forward "
+          f"#5 {dma_ms:.4f} ms, #2 {bs_ms:.4f} ms")
     return {"units": len(units), "dma_ms_per_forward": dma_ms,
             "blockspec_ms_per_forward": bs_ms,
             "shapes": [f"{tuple(r[u.x].shape)} k{u.node.attrs['kernel']}"
                        f" s{u.stride[0]} -> {u.ep.cs.shape[0]} {u.act}"
                        for u, r, _ in units]}
+
+
+def serving_kxk_table(eng, rec: list, what: str) -> dict:
+    """The serving KxK table of one planned path: every distinct #2 unit
+    (kind "conv") of the forward whose units ``check_units`` has just held
+    against their plain versions, re-run on its recorded input (batch 16,
+    its residual too) through #2's entry and equal to the unit's output:
+    its plan, mode and blocks an SM, its median event time and T/s beside
+    fp16 channels-last ``F.conv2d`` and its bound, its split by the
+    ``KXK_VARIANTS`` builds of the serving source (the epilogue's share
+    1 - no_store / kernel, the product's 1 - no_product / kernel, and the
+    rest: copies, syncs and the im2col build, the time without both); a
+    block of 16 channels (bn 16) also timed at the plan the planner gives
+    without it (bn 32), equal bit for bit; the per-forward sums, whose
+    units must make up the plan's #2 launches."""
+    import torch
+    from thingino_accel_tpu_torch.ops import cuda_build
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.runtime.executor import ConvUnit
+
+    dev = torch.device("cuda")
+    variants = {name: cuda_build.load_variant(
+        SERVING_SOURCE, flags, ("tat_conv_int8_fused_mma",))
+        for name, flags in KXK_VARIANTS.items()}
+    distinct: dict = {}
+    for u, reads, out in rec:
+        if isinstance(u, ConvUnit) and u.kind == "conv":
+            key = (tuple(reads[u.x].shape),
+                   tuple(eng.params[u.node.inputs[1]].shape), u.stride[0],
+                   u.pads, u.act, u.residual is not None)
+            distinct.setdefault(key, [u, reads, out, 0])[3] += 1
+    rows = []
+    for (_, _, s, pads, act, _), (u, reads, out, count) in distinct.items():
+        n = u.node
+        x, w = reads[u.x], eng.params[n.inputs[1]]
+        bias = eng.params[n.inputs[2]] if len(n.inputs) > 2 else None
+        res = reads[u.residual] if u.residual else None
+        o, kh, kw, c = w.shape
+        args = (x, w, bias, u.ep, u.out_hw, pads, s)
+
+        def call(args=args, res=res, rs=u.res_scale):
+            return FK.conv2d_int8_halo_fused(*args, residual=res,
+                                             res_scale=rs)
+        got = call()
+        torch.cuda.synchronize()
+        label = (f"{kh}x{kw}/s{s} {x.shape[0]}x{x.shape[1]}x{x.shape[2]}x{c}"
+                 f" -> {o} {act}{' + residual' if res is not None else ''}")
+        require(torch.equal(got, out), f"{what} {label}: differs from the "
+                                       "unit's own output")
+        plan = FK.serving_plan(x, w, u.out_hw, s)
+        ms = time_ms(call, 20)
+        lib = library_ms(conv_fp16_call(x, w, s, (pads[0][0], pads[1][0])),
+                         label)
+        ops, nbytes = conv_work(x, w, got, 8 * o + (
+            res.numel() if res is not None else 0))
+        bms, side = bound(ops, nbytes)
+        _, blocks = FK.conv_occupancy(plan, c, (kh, kw), s, act)
+        row = {"path": what, "conv": label, "count": count, "ms": ms,
+               "library_ms": lib, "bound_ms": bms, "bound_by": side,
+               "tops": ops / ms / 1e9, "plan": dataclasses.asdict(plan),
+               "blocks_per_sm": blocks, "split_ms": {}}
+
+        def bare(vlib, p=plan, x=x, w=w, bias=bias, ep=u.ep, pads=pads, s=s,
+                 res=res, rs=u.res_scale, o=got):
+            cuda_build.check(vlib.tat_conv_int8_fused_mma(
+                *FK._conv_args(x, w, bias, ep, pads, s, res, rs,
+                               torch.empty_like(o), p),
+                torch.cuda.current_stream(dev).cuda_stream),
+                "tat_conv_int8_fused_mma (variant)")
+        for name, vlib in variants.items():
+            row["split_ms"][name] = time_ms(lambda v=vlib: bare(v), 20)
+        row["epilogue_share"] = 1 - row["split_ms"]["no_store"] / ms
+        row["product_share"] = 1 - row["split_ms"]["no_product"] / ms
+        extra = ""
+        if plan.bn == 16:
+            alt = FK.conv_plan(x.shape[0], *u.out_hw, c, o, kh, kw, (s, s),
+                               (1, 1), plan.mode, FK.smem_limits(dev))
+            alt_out = torch.empty_like(got)
+
+            def launch_alt(alt=alt, x=x, w=w, bias=bias, ep=u.ep, pads=pads,
+                           s=s, res=res, rs=u.res_scale, ao=alt_out):
+                FK._launch_conv(x, w, bias, ep, pads, s, res, rs, ao, alt)
+            launch_alt()
+            torch.cuda.synchronize()
+            require(torch.equal(alt_out, got), f"{what} {label}: bn 32 "
+                                               "differs from bn 16")
+            row["bn32_ms"] = time_ms(launch_alt, 20)
+            row["bn32_plan"] = dataclasses.asdict(alt)
+            extra = f"; at bn 32 {row['bn32_ms']:.4f} ms"
+        rows.append(row)
+        print(f"[serving-kxk] {what}: {label} x{count}: kernel {ms:.4f} ms, "
+              f"F.conv2d fp16 {lib} ms, bound {bms:.4f} ms ({side}), "
+              f"{row['tops']:.1f} T/s, {plan.mode} {plan.tile_h}x"
+              f"{plan.tile_w} bn {plan.bn} ck {plan.ck} tpb "
+              f"{plan.tiles_per_block}{' resident' if plan.resident else ''}"
+              f", {blocks} blocks/SM; split: epilogue "
+              f"{row['epilogue_share']:.3f}, product "
+              f"{row['product_share']:.3f}, without both "
+              f"{row['split_ms']['neither']:.4f} ms{extra}")
+    sums = {"convs": sum(r["count"] for r in rows),
+            **{key: sum(r["count"] * (r[key] or 0.0) for r in rows)
+               for key in ("ms", "library_ms", "bound_ms")}}
+    census = eng._fn.launch_census()["conv2d_int8_halo_fused"]
+    require(sums["convs"] == census, f"{what}: {sums['convs']} #2 units in "
+                                     f"the table, {census} in the plan")
+    print(f"[serving-kxk] {what} per forward ({sums['convs']} #2 units): "
+          f"kernel {sums['ms']:.4f} ms, F.conv2d fp16 "
+          f"{sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms")
+    return {"rows": rows, "per_forward": sums}
 
 
 def compare_probe(got, ref, kind: str, stages: int, what: str) -> float:

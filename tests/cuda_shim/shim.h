@@ -47,6 +47,9 @@ struct dim3 {
 struct uint4 {
   unsigned x, y, z, w;
 };
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
 struct alignas(8) int2 {
   int x, y;
 };

@@ -1,8 +1,11 @@
 """The tensor-core CUDA sources (the probes' ``chain_mma.cu``,
 ``megakernel_probe.cu``, ``add_one.cu``, ``conv_int8_lagged.cu``, and the
-exact tier's KxK conv ``conv_int8_requant_mma.cu``) compiled for the CPU
-with g++ and the shim ``tests/cuda_shim/shim.h``, held against their plain
-versions (``ops.probe_kernels``, ``ops.requant_kernels``): a rehearsal of
+KxK conv core ``conv_mma_core.cuh`` under both its epilogue policies: the
+exact tier's ``conv_int8_requant_mma.cu`` and the serving tier's
+``conv_int8_fused_mma.cu``) compiled for the CPU with g++ and the shim
+``tests/cuda_shim/shim.h``, held against their plain versions
+(``ops.probe_kernels``, ``ops.requant_kernels``, ``ops.fused_kernels``):
+a rehearsal of
 their indexing, their cp.async ring and their ldmatrix / mma.sync fragment
 layouts without a card. It cannot show what nvcc or the card refuses.
 
@@ -43,10 +46,12 @@ from thingino_accel_tpu_torch.ops.quant import RoundMode
 
 SHIM = Path(__file__).resolve().parent / "cuda_shim" / "shim.h"
 SOURCES = ("chain_mma.cu", "megakernel_probe.cu", "add_one.cu",
-           "conv_int8_lagged.cu", "conv_int8_requant_mma.cu")
+           "conv_int8_lagged.cu", "conv_int8_requant_mma.cu",
+           "conv_int8_fused_mma.cu")
 ENTRIES = ("tat_chain_mma", "tat_megakernel_1x1", "tat_megakernel_3x3",
            "tat_add_one", "tat_conv_int8_lagged", "tat_conv_int8_lagged_info",
-           "tat_conv_int8_requant_mma", "tat_conv_int8_requant_mma_info")
+           "tat_conv_int8_requant_mma", "tat_conv_int8_requant_mma_info",
+           "tat_conv_int8_fused_mma", "tat_conv_int8_fused_mma_info")
 
 _CP_ASYNC = """
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -471,4 +476,183 @@ def test_shim_conv_requant_mma_layout_and_refusals(shim):
         plan = RK.ConvPlan(mode, th, tw, bn, ck, bool(res), 1)
         assert shim.tat_conv_int8_requant_mma_info(
             *RK._info_args(plan, c, (3, 3), (1, 1), (1, 1)),
+            ctypes.byref(smem), ctypes.byref(blocks)) == 1
+
+
+# The serving tier's KxK conv (#2 and #5, conv_int8_fused_mma.cu): the same
+# core with ServingEpilogue<ACT>. (batch, H, W, C, O, K, stride, pads, act,
+# residual): per-channel cs everywhere; each act; the residual through
+# 16-byte copies (O % 16 == 0) and byte by byte (O = 40); O ragged under
+# every block (40, 24); the real yolov5n's 6x6/s2 stem on 3 -> 16 channels
+# (bn 16), NanoDet's 3x3/s2 stem on 3 -> 24, C = 16 at stride 2 (im2col);
+# H and W ragged under every tile
+SERVING_CASES = {
+    "3x3s1-c32-silu-res": (2, 10, 20, 32, 40, 3, 1, ((1, 1), (1, 1)),
+                           "SILU", True),
+    "3x3s1-c64-relu-res": (1, 9, 12, 64, 64, 3, 1, ((1, 1), (1, 1)),
+                           "RELU", True),
+    "3x3s2-c32-leaky": (2, 13, 21, 32, 24, 3, 2, ((0, 1), (1, 1)),
+                        "LEAKY_RELU", False),
+    "stem6x6s2-c3-o16": (2, 22, 26, 3, 16, 6, 2, ((2, 2), (2, 2)), "SILU",
+                         False),
+    "stem3x3s2-c3-o24": (1, 20, 18, 3, 24, 3, 2, ((1, 1), (1, 1)),
+                         "LEAKY_RELU", False),
+    "3x3s2-c16-none-res": (1, 18, 20, 16, 32, 3, 2, ((1, 1), (1, 1)),
+                           "NONE", True),
+}
+
+
+def _serving_operands(case, seed):
+    nb, h, w, c, o, k, s, pads, act, res = case
+    rng = np.random.default_rng(seed)
+    x, wt = _rng_int8(rng, (nb, h, w, c)), _rng_int8(rng, (o, k, k, c))
+    bias = torch.from_numpy(rng.integers(-3000, 3000, o).astype(np.int32))
+    out_hw = tuple((n + sum(p) - k) // s + 1 for n, p in zip((h, w), pads))
+    ep = FK.epilogue_rows(rng.uniform(0.005, 0.015, o).astype(np.float32),
+                          0.05, float(0.0137 * np.sqrt(k * k * c)), act, o,
+                          alpha=0.1)
+    r = _rng_int8(rng, (nb,) + out_hw + (o,)) if res else None
+    return x, wt, bias, ep, out_hw, r
+
+
+def _serving_close(got, ref, act):
+    _assert_close(got, ref, "i8-rq-silu-3x3" if act == "SILU"
+                  else "i8-shift-3x3", 1)
+
+
+def _shim_serving(shim, x, wt, bias, ep, out_hw, pads, s, res, plan):
+    out = torch.full((x.shape[0],) + out_hw + (wt.shape[0],), 99,
+                     dtype=torch.int8)
+    rc = shim.tat_conv_int8_fused_mma(
+        *FK._conv_args(x, wt, bias, ep, pads, s, res, 0.37, out, plan), None)
+    assert rc == 0, plan
+    return out
+
+
+SERVING_MODES = [(name, mode) for name, case in SERVING_CASES.items()
+                 for mode in (("slab", "im2col") if case[3] % 32 == 0
+                              else ("im2col",))]
+
+
+@pytest.mark.parametrize("name,mode", SERVING_MODES, ids=str)
+def test_shim_conv_fused_mma_matches_plain(shim, name, mode):
+    """The serving KxK conv in ``mode`` under every plan the serving
+    planner offers (the stem's bn 16 among them), at runs of 4 tiles:
+    equal to ``conv2d_int8_halo_fused_plain`` (SILU within its bound),
+    every element written, with the case's residual and without a bias."""
+    case = SERVING_CASES[name]
+    nb, _, _, c, o, k, s, pads, act, _ = case
+    x, wt, bias, ep, out_hw, res = _serving_operands(case, len(name))
+    assert FK.conv_mode(x, wt) == ("slab" if c % 32 == 0 else "im2col")
+    plans = FK.conv_plans(nb, *out_hw, c, o, k, k, (s, s), (1, 1), mode,
+                          H100, FK.serving_bns(o))
+    assert len({(p.tile_h, p.tile_w) for p in plans}) == len(FK.CONV_TILES)
+    assert (16 in {p.bn for p in plans}) == (o <= 16)
+    for plan in plans:
+        plan = dataclasses.replace(plan, tiles_per_block=4)
+        got = _shim_serving(shim, x, wt, bias, ep, out_hw, pads, s, res,
+                            plan)
+        _serving_close(got, FK.conv2d_int8_halo_fused_plain(
+            x, wt, bias, ep, out_hw, pads, s, res, 0.37), act)
+    plan = dataclasses.replace(plans[0], tiles_per_block=1)
+    _serving_close(
+        _shim_serving(shim, x, wt, None, ep, out_hw, pads, s, res, plan),
+        FK.conv2d_int8_halo_fused_plain(x, wt, None, ep, out_hw, pads, s,
+                                        res, 0.37), act)
+
+
+@pytest.mark.parametrize("act", ["NONE", "RELU", "LEAKY_RELU", "SILU"])
+def test_shim_conv_fused_mma_each_act_and_chunk(shim, act):
+    """Each act at C = 96 at stride 2, in slab mode with C in chunks of 32
+    beside resident and streamed weights and in im2col mode in chunks of
+    48; with a residual of 16-byte copies (O = 48) except for LEAKY_RELU,
+    which takes none."""
+    case = (1, 10, 9, 96, 48, 3, 2, ((1, 1), (1, 1)), act,
+            act != "LEAKY_RELU")
+    x, wt, bias, ep, out_hw, res = _serving_operands(case, len(act))
+    ref = FK.conv2d_int8_halo_fused_plain(x, wt, bias, ep, out_hw, case[7],
+                                          2, res, 0.37)
+    for plan in (FK.ConvPlan("slab", 8, 8, 32, 32, True, 2),
+                 FK.ConvPlan("slab", 4, 16, 64, 32, False, 3),
+                 FK.ConvPlan("im2col", 8, 16, 16, 48, False, 1)):
+        _serving_close(_shim_serving(shim, x, wt, bias, ep, out_hw, case[7],
+                                     2, res, plan), ref, act)
+
+
+def test_shim_conv_fused_mma_unaligned_operands(shim):
+    """An input and a residual at odd byte offsets: im2col mode (slab mode
+    refuses the input), the residual read byte by byte although O % 16 ==
+    0; LEAKY_RELU with a residual and SILU_FAST are refused."""
+    case = SERVING_CASES["3x3s1-c64-relu-res"]
+    x, wt, bias, ep, out_hw, res = _serving_operands(case, 5)
+    pads = case[7]
+    ref = FK.conv2d_int8_halo_fused_plain(x, wt, bias, ep, out_hw, pads, 1,
+                                          res, 0.37)
+    bx = torch.zeros(1 + x.numel(), dtype=torch.int8)
+    br = torch.zeros(1 + res.numel(), dtype=torch.int8)
+    xo, ro = bx[1:].view(x.shape), br[1:].view(res.shape)
+    xo.copy_(x)
+    ro.copy_(res)
+    assert FK.conv_mode(xo, wt) == "im2col"
+    plan = FK.conv_plan(1, *out_hw, 64, 64, 3, 3, (1, 1), (1, 1), "im2col",
+                        H100, FK.serving_bns(64))
+    assert torch.equal(_shim_serving(shim, xo, wt, bias, ep, out_hw, pads, 1,
+                                     ro, plan), ref)
+    slab = FK.ConvPlan("slab", 8, 8, 64, 64, True, 1)
+    out = torch.empty_like(ref)
+    assert shim.tat_conv_int8_fused_mma(
+        *FK._conv_args(xo, wt, bias, ep, pads, 1, res, 0.37, out, slab),
+        None) == 1
+    leaky = FK.epilogue_rows(0.01, 0.05, 0.5, "LEAKY_RELU", 64)
+    assert shim.tat_conv_int8_fused_mma(
+        *FK._conv_args(x, wt, bias, leaky, pads, 1, res, 0.37, out, slab),
+        None) == 1
+    args = list(FK._conv_args(x, wt, bias, ep, pads, 1, None, 0.37, out,
+                              slab))
+    args[18] = FK._ACT_CODE["SILU_FAST"]
+    assert shim.tat_conv_int8_fused_mma(*args, None) == 1
+
+
+def test_shim_conv_fused_mma_layout_and_refusals(shim):
+    """The serving kernel's shared memory is ``conv_smem``'s for every
+    tile, block (bn 16 too), chunk and weight residence, at each act;
+    the exact kernel refuses bn 16; plans it cannot run are refused."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    geoms = [(32, 3, 3, 1), (256, 3, 3, 2), (3, 6, 6, 2), (16, 3, 3, 2)]
+    n = 0
+    for c, kh, kw, s in geoms:
+        for mode in ("slab", "im2col"):
+            if mode == "slab" and c % 32:
+                continue
+            for th, tw in FK.CONV_TILES:
+                for bn in FK.CONV_BNS + (16,):
+                    for ck, res in FK.conv_chunks(mode, c)[:3]:
+                        plan = FK.ConvPlan(mode, th, tw, bn, ck, res, 1)
+                        want = FK.conv_smem(mode, c, kh, kw, (s, s), (1, 1),
+                                            th, tw, bn, ck, res)
+                        for act in range(4):
+                            rc = shim.tat_conv_int8_fused_mma_info(
+                                act, FK._MODE_CODE[mode], c, kh, kw, s, th,
+                                tw, bn, ck, int(res), ctypes.byref(smem),
+                                ctypes.byref(blocks))
+                            n += 1
+                            if want > H100.per_block:
+                                assert rc == 1
+                                continue
+                            assert rc == 0 and smem.value == want
+                            assert blocks.value == 233472 // (want + 1024)
+                        exact = shim.tat_conv_int8_requant_mma_info(
+                            *RK._info_args(plan, c, (kh, kw), (s, s),
+                                           (1, 1)),
+                            ctypes.byref(smem), ctypes.byref(blocks))
+                        assert (exact == 1) == (bn == 16
+                                                or want > H100.per_block)
+    assert n > 500
+    bad = [(0, "slab", 20, 8, 8, 64, 20, 1), (0, "im2col", 64, 8, 12, 64, 64, 1),
+           (1, "im2col", 64, 8, 8, 48, 64, 1), (2, "im2col", 64, 8, 8, 8, 64, 1),
+           (3, "im2col", 64, 8, 8, 64, 32, 1), (4, "im2col", 64, 8, 8, 64, 64, 1)]
+    # C % 32, tile_w, bn 48, bn 8, a chunk resident in im2col, SILU_FAST
+    for act, mode, c, th, tw, bn, ck, res in bad:
+        assert shim.tat_conv_int8_fused_mma_info(
+            act, FK._MODE_CODE[mode], c, 3, 3, 1, th, tw, bn, ck, res,
             ctypes.byref(smem), ctypes.byref(blocks)) == 1

@@ -21,12 +21,16 @@ their plain versions in both RoundModes, with and without RELU, at the
 zoo yolov5s's lead shapes and at the edge cases: ragged edges, the byte
 path, the stem, asymmetric pads, dilation 2 and stride (2, 1); the
 tensor-core KxK kernel behind #10 and #11 also at every plan of both its
-modes and at all 11 distinct KxK convs of the zoo yolov5s. The
-slab-ring KxK conv (#5, ``pipeline="dma"``) equals its plain version and
-#2 bit for bit on the five cases of ``tests/test_torch_halo_dma.py`` and a
-ragged one, at every tile width its plan can pick, with the weights
-resident (the slab whole or chunked) and streamed, and on an input that
-is 4-byte but not 16-byte aligned. The probes' tensor-core kernels
+modes and at all 11 distinct KxK convs of the zoo yolov5s. The serving
+KxK conv, which #2 and #5 (``pipeline="dma"``) both launch (the same core
+with the serving epilogue), equals its plain version and, through both
+entries, itself bit for bit: on the five cases of
+``tests/test_torch_halo_dma.py`` and a ragged one, at every plan of both
+its modes (each at the next narrower chunk, the weights resident and
+streamed), with its residual through both of its loads, on an input off
+16 bytes, and at every KxK conv of the four serving paths (planned and
+unplanned real yolov5n, planned zoo yolov5s, NanoDet) at batch 16; a plan
+it refuses raises. The probes' tensor-core kernels
 (``ops.probe_kernels``: E1 ``chain_mma``, E3 ``megakernel_chain``, E4
 ``add_one``) against their plain versions over row counts off the block
 size, at every block, slab and sub-tile their launchers can pick on the
@@ -39,6 +43,8 @@ launcher can take, at the experiment's shape on 2 images and at a ragged
 shape: equal to its plain version (the act's tolerance) and to #5 bit for
 bit, every element written, its launches counted.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -482,12 +488,13 @@ def test_new_wrappers_launch_on_every_cuda_call(cuda):
 
 
 # ---------------------------------------------------------------------------
-# The slab-ring KxK conv (#5, pipeline="dma")
+# The serving KxK conv: #2 and #5 (pipeline="dma") launch one tensor-core
+# kernel, tat_conv_int8_fused_mma
 # ---------------------------------------------------------------------------
 
 # (k, stride, C, O, H, W, pads): the five cases of tests/test_torch_halo_dma.py
 # (2 images of 16x16, the stem 32x32), then a ragged one: OW = 37 over tiles
-# of 8, O = 70 over two channel blocks, C = 5 (the byte path), asymmetric
+# of 8, O = 70 over two channel blocks, C = 5 (im2col mode), asymmetric
 # pads where only pt/pl place the window
 DMA_GPU_CASES = [
     (3, 1, 32, 32, 16, 16, ((1, 1), (1, 1))),
@@ -513,9 +520,9 @@ def _dma_operands(rng, case, dev):
 @pytest.mark.parametrize("case", DMA_GPU_CASES,
                          ids=lambda c: "k{}s{}c{}o{}h{}w{}".format(*c[:6]))
 def test_dma_kernel_matches_plain_and_blockspec(cuda, act, case):
-    """The slab-ring kernel launches (its counter moves, #2's does not)
-    and equals its plain version and #2 bit for bit: the two kernels run
-    the same dp4a product and epilogue, only their loads differ."""
+    """``pipeline="dma"`` launches (its counter moves, #2's does not) and
+    equals its plain version and #2 bit for bit: both entries launch the
+    one tensor-core kernel with the one plan."""
     rng = np.random.default_rng(sum(case[:6]))
     x, wt, bias, out_hw = _dma_operands(rng, case, cuda)
     kk, s, c, o, _, _, pads = case
@@ -532,39 +539,82 @@ def test_dma_kernel_matches_plain_and_blockspec(cuda, act, case):
     assert torch.equal(out, FK.conv2d_int8_halo_fused(*args))
 
 
-# (channels a stage, weights resident): all C, a chunked slab, streamed
-DMA_MODES = [(128, True), (48, True), (48, False)]
+def _serving_plans(nb, out_hw, c, o, k, s, mode, dev):
+    """Every plan the serving planner offers in ``mode``, each also at the
+    next narrower chunk it could take (slab mode: beside resident and
+    streamed weights)."""
+    plans = FK.conv_plans(nb, *out_hw, c, o, k, k, (s, s), (1, 1), mode,
+                          FK.smem_limits(dev), FK.serving_bns(o))
+    chunks = FK.conv_chunks(mode, c)
+    n = 3 if mode == "slab" else 2
+    return [dataclasses.replace(p, ck=ck, resident=r)
+            for p in plans for i in [chunks.index((p.ck, p.resident))]
+            for ck, r in chunks[i:i + n]]
 
 
-@pytest.mark.parametrize("ck,resident", DMA_MODES)
-@pytest.mark.parametrize("tile_w", FK.DMA_TILE_WIDTHS)
-def test_dma_kernel_any_tile(cuda, tile_w, ck, resident):
-    """Every tile the plan can pick, in each mode: the weights resident
-    with all 128 channels a stage or the slab in chunks of 48 (three, the
-    last ragged), and the weights streamed with those chunks (each past
-    48 KB of shared memory, so each needs the opt-in); at stride 1 and 2,
-    with one tile a block and with all of an image's."""
-    rng = np.random.default_rng(tile_w + 100 * resident + ck)
+@pytest.mark.parametrize("s", [1, 2])
+@pytest.mark.parametrize("mode", ["slab", "im2col"])
+def test_dma_kernel_any_tile(cuda, mode, s):
+    """Every plan the serving planner can pick in each mode at C = 128,
+    O = 70 (ragged under every block), each also at the next narrower
+    chunk (slab mode: the weights resident and streamed), with one tile a
+    block and with all of an image's: equal to the plain version, every
+    element written."""
+    rng = np.random.default_rng(10 * s + len(mode))
     x = _rand(rng, (2, 21, 27, 128), cuda)
     wt = _rand(rng, (70, 3, 3, 128), cuda)
     ep = _ep(rng, 1152, 70, "SILU", cuda)
-    for s in (1, 2):
-        out_hw = ((21 + 2 - 3) // s + 1, (27 + 2 - 3) // s + 1)
-        for tpc in (1, 10 ** 6):
-            out = torch.empty((2,) + out_hw + (70,), dtype=torch.int8,
-                              device=cuda)
-            FK._launch_conv_dma(x, wt, None, ep, ((1, 1), (1, 1)), s, out,
-                                FK.DmaPlan(64 // tile_w, tile_w, ck,
-                                           resident, tpc))
+    out_hw = ((21 + 2 - 3) // s + 1, (27 + 2 - 3) // s + 1)
+    ref = FK.conv2d_int8_halo_fused_plain(x, wt, None, ep, out_hw,
+                                          ((1, 1), (1, 1)), s)
+    plans = _serving_plans(2, out_hw, 128, 70, 3, s, mode, cuda)
+    assert len({(p.tile_h, p.tile_w, p.bn) for p in plans}) == \
+        len(FK.CONV_TILES) * len(FK.CONV_BNS)
+    for plan in plans:
+        for tpb in (1, 10 ** 6):
+            out = torch.full(ref.shape, 99, dtype=torch.int8, device=cuda)
+            FK._launch_conv(x, wt, None, ep, ((1, 1), (1, 1)), s, None, 1.0,
+                            out, dataclasses.replace(plan,
+                                                     tiles_per_block=tpb))
             torch.cuda.synchronize()
-            _close(out, FK.conv2d_int8_halo_fused_plain(
-                x, wt, None, ep, out_hw, ((1, 1), (1, 1)), s), "SILU")
+            _close(out, ref, "SILU")
+
+
+# (C, O, residual offset): slab mode with 16-byte residual copies, with the
+# residual byte by byte (O = 40, or the residual 1 byte off), im2col mode
+# (C = 16) with 16-byte copies
+RES_CASES = [(64, 64, 0), (64, 40, 0), (64, 64, 1), (16, 32, 0)]
+
+
+@pytest.mark.parametrize("act", ["NONE", "RELU", "SILU"])
+@pytest.mark.parametrize("case", RES_CASES, ids=str)
+def test_serving_kernel_residual_paths(cuda, act, case):
+    """#2 with a fused residual through both of its loads, at every tile
+    and block the planner offers: equal to the plain version."""
+    c, o, off = case
+    rng = np.random.default_rng(c + o + off)
+    x, wt = _rand(rng, (2, 19, 23, c), cuda), _rand(rng, (o, 3, 3, c), cuda)
+    buf = _rand(rng, (off + 2 * 19 * 23 * o,), cuda)
+    res = buf[off:].view(2, 19, 23, o)
+    ep = _ep(rng, 9 * c, o, act, cuda)
+    args = (x, wt, None, ep, (19, 23), ((1, 1), (1, 1)), 1, res, 0.21)
+    ref = FK.conv2d_int8_halo_fused_plain(*args)
+    _close(FK.conv2d_int8_halo_fused(*args), ref, act)
+    for plan in FK.conv_plans(2, 19, 23, c, o, 3, 3, (1, 1), (1, 1),
+                              FK.conv_mode(x, wt), FK.smem_limits(cuda),
+                              FK.serving_bns(o)):
+        out = torch.full(ref.shape, 99, dtype=torch.int8, device=cuda)
+        FK._launch_conv(x, wt, None, ep, ((1, 1), (1, 1)), 1, res, 0.21, out,
+                        dataclasses.replace(plan, tiles_per_block=3))
+        torch.cuda.synchronize()
+        _close(out, ref, act)
 
 
 def test_dma_kernel_on_an_input_off_16_bytes(cuda):
     """C % 16 == 0 with the input 4 bytes past a 16-byte boundary: the
-    layout takes 4-byte copies, and the kernel still equals its plain
-    version and #2. The plan reads the card's own limits."""
+    plan takes im2col mode, and the kernel still equals its plain version
+    and #2. The plan reads the card's own limits; the kernel's shared
+    memory is the planner's for that plan."""
     lim = FK.smem_limits(cuda)
     assert lim.sms > 0 and 48 * 1024 < lim.per_block <= lim.per_sm
     rng = np.random.default_rng(7)
@@ -573,26 +623,104 @@ def test_dma_kernel_on_an_input_off_16_bytes(cuda):
     xs = buf[4:4 + x.numel()].view(x.shape)
     xs.copy_(x)
     assert xs.data_ptr() % 16 == 4
+    assert FK.conv_mode(xs, wt) == "im2col" and FK.conv_mode(x, wt) == "slab"
     ep = _ep(rng, 288, 48, "LEAKY_RELU", cuda)
     args = (xs, wt, bias, ep, out_hw, ((1, 1), (1, 1)), 2)
     out = FK.conv2d_int8_halo_fused(*args, pipeline="dma")
     torch.cuda.synchronize()
     _close(out, FK.conv2d_int8_halo_fused_plain(*args), "LEAKY_RELU")
     assert torch.equal(out, FK.conv2d_int8_halo_fused(*args))
+    plan = FK.serving_plan(xs, wt, out_hw, 2)
+    smem, blocks = FK.conv_occupancy(plan, 32, (3, 3), 2, "LEAKY_RELU")
+    assert smem == FK.conv_smem(plan.mode, 32, 3, 3, (2, 2), (1, 1),
+                                plan.tile_h, plan.tile_w, plan.bn, plan.ck,
+                                plan.resident)
+    assert blocks >= 1
 
 
 def test_dma_kernel_rejects_what_it_cannot_run(cuda):
+    """A residual on #5 and LEAKY_RELU with a residual raise before any
+    launch; a plan the kernel refuses raises (no fallback)."""
     rng = np.random.default_rng(6)
     x, wt, bias, out_hw = _dma_operands(rng, DMA_GPU_CASES[0], cuda)
     ep = _ep(rng, 288, 32, "RELU", cuda)
     res = _rand(rng, (2,) + out_hw + (32,), cuda)
+    before = dict(FK.launches)
     with pytest.raises(ValueError, match="residual"):
         FK.conv2d_int8_halo_fused(x, wt, bias, ep, out_hw, ((1, 1), (1, 1)),
                                   residual=res, pipeline="dma")
+    with pytest.raises(ValueError, match="LEAKY_RELU"):
+        FK.conv2d_int8_halo_fused(x, wt, bias,
+                                  _ep(rng, 288, 32, "LEAKY_RELU", cuda),
+                                  out_hw, ((1, 1), (1, 1)), residual=res)
+    assert FK.launches == before
     buf = _rand(rng, (1 + x.numel(),), cuda)
-    with pytest.raises(ValueError, match="aligned"):
-        FK.conv2d_int8_halo_fused(buf[1:].view(x.shape), wt, bias, ep, out_hw,
-                                  ((1, 1), (1, 1)), pipeline="dma")
+    xo = buf[1:].view(x.shape)
+    out = torch.empty((2,) + out_hw + (32,), dtype=torch.int8, device=cuda)
+    with pytest.raises(RuntimeError, match="tat_conv_int8_fused_mma"):
+        FK._launch_conv(xo, wt, bias, ep, ((1, 1), (1, 1)), 1, None, 1.0,
+                        out, FK.ConvPlan("slab", 8, 8, 32, 32, True, 1))
+    with pytest.raises(RuntimeError, match="tat_conv_int8_fused_mma"):
+        FK._launch_conv(x, wt, bias, ep, ((1, 1), (1, 1)), 1, None, 1.0,
+                        out, FK.ConvPlan("slab", 8, 8, 48, 32, True, 1))
+
+
+def _kxk_units(which: str, dev):
+    """The KxK convs of one serving forward (``kxk_bench.kxk_convs``: a
+    planned schedule's conv units, or the unplanned tier's KxK nodes),
+    each as (label, the args of ``conv2d_int8_halo_fused`` without a
+    residual, residual, res_scale): the engine's weights and epilogues,
+    int8 inputs and residuals from a seed at batch 16."""
+    from thingino_accel_tpu_torch import kxk_bench as KB
+    eng, convs = KB.kxk_convs(which, dev)
+    t = eng.graph.tensors
+    rng = np.random.default_rng(len(which))
+    units = []
+    for node, ep, res, res_scale in convs:
+        a = node.attrs
+        hwc = tuple(t[node.inputs[0]].shape[1:])
+        ohwo = tuple(t[node.outputs[0]].shape[1:])
+        pads = FK.R._conv_pads(hwc[:2], ohwo[:2], a["kernel"], a["stride"],
+                               a["dilation"], a["padding"], a["explicit_pad"])
+        bias = eng.params[node.inputs[2]] if len(node.inputs) > 2 else None
+        units.append((node.outputs[0], (
+            _rand(rng, (16,) + hwc, dev), eng.params[node.inputs[1]], bias,
+            ep, ohwo[:2], pads, a["stride"][0]),
+            _rand(rng, (16,) + ohwo, dev) if res else None, res_scale))
+    return units
+
+
+# the serving paths and their KxK conv launches a forward
+KXK_PATHS = {"planned_yolov5n": 8, "unplanned_yolov5n": 18,
+             "zoo_yolov5s": 7, "nanodet": 1}
+
+
+@pytest.mark.parametrize("which", list(KXK_PATHS))
+def test_serving_kxk_units_of_the_models(cuda, which):
+    """Every KxK conv of the planned and unplanned real yolov5n, the
+    planned zoo yolov5s at 640 and NanoDet-320, at batch 16, through both
+    entries (#2 with its residual, #5 without): each equal to its plain
+    version (SILU within its bound), and the two entries equal bit for
+    bit."""
+    units = _kxk_units(which, cuda)
+    assert len(units) == KXK_PATHS[which]
+    for label, args, res, res_scale in units:
+        x, w, _, ep, out_hw, _, s = args
+        assert w.shape[1] > 1 or s > 1, label
+        before = dict(FK.launches)
+        got = FK.conv2d_int8_halo_fused(*args, residual=res,
+                                        res_scale=res_scale)
+        dma = FK.conv2d_int8_halo_fused(*args, pipeline="dma")
+        torch.cuda.synchronize()
+        assert FK.launches["conv2d_int8_halo_fused"] == \
+            before["conv2d_int8_halo_fused"] + 1
+        assert FK.launches["conv2d_int8_halo_dma"] == \
+            before["conv2d_int8_halo_dma"] + 1
+        _close(got, FK.conv2d_int8_halo_fused_plain(
+            *args, residual=res, res_scale=res_scale), ep.act)
+        _close(dma, FK.conv2d_int8_halo_fused_plain(*args), ep.act)
+        bs = got if res is None else FK.conv2d_int8_halo_fused(*args)
+        assert torch.equal(dma, bs), label
 
 
 # ---------------------------------------------------------------------------

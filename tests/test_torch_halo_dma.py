@@ -133,104 +133,122 @@ def test_unknown_pipeline_raises():
 
 
 # ---------------------------------------------------------------------------
-# the kernel's plan (shapes only; the kernel runs on the card)
+# the kernel's plan (shapes only; the kernel runs on the card): #2 and #5
+# launch one tensor-core kernel, planned by the planner the exact tier's
+# #10/#11 share, with the serving blocks (bn 16 where O <= 16)
 # ---------------------------------------------------------------------------
 
 # an H100 SXM: its SMs, an SM's shared memory, a block's most (opted in)
 H100 = FK.SmemLimits(132, 233472, 232448)
-# (batch, C, O, k, s, OH, OW): chip_smoke.py's cases and the models' convs
+# (batch, C, O, k, s, OH, OW): chip_smoke.py's cases and the models' convs,
+# then the serving stems (the real yolov5n's 6x6/s2 3 -> 16, NanoDet's
+# 3x3/s2 3 -> 24) and the C = 16 3x3/s2
 PLAN_SHAPES = [(8, 64, 64, 3, 1, 80, 80), (16, 128, 128, 3, 1, 80, 80),
                (16, 128, 256, 3, 2, 40, 40), (16, 3, 32, 6, 2, 320, 320),
                (16, 256, 512, 3, 2, 20, 20), (16, 16, 32, 3, 2, 160, 160),
-               (2, 5, 70, 3, 1, 16, 37)]
+               (2, 5, 70, 3, 1, 16, 37), (16, 3, 16, 6, 2, 320, 320),
+               (16, 3, 24, 3, 2, 160, 160)]
+
+
+def _mode(c, aligned=True):
+    return "slab" if c % 32 == 0 and aligned else "im2col"
+
+
+def _plan(shape, aligned=True, limits=H100):
+    nb, c, o, k, s, oh, ow = shape
+    return FK.conv_plan(nb, oh, ow, c, o, k, k, (s, s), (1, 1),
+                        _mode(c, aligned), limits, FK.serving_bns(o))
 
 
 @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda v: str(v))
-def test_dma_plan_fits_and_pipelines(shape):
+def test_serving_plan_fits_its_blocks_per_sm(shape):
+    """The plan is one the kernel takes, its block fits a block's opt-in,
+    the blocks an SM its run of tiles was modelled on fit the SM's shared
+    memory, and the run walks whole tiles of one image."""
     nb, c, o, k, s, oh, ow = shape
-    plan = FK.dma_plan(nb, c, o, k, k, s, oh, ow, H100)
-    assert plan.tile_w in FK.DMA_TILE_WIDTHS
-    assert plan.tile_h * plan.tile_w == 64
-    assert 1 <= plan.ck <= c and (plan.ck == c or plan.ck % 4 == 0)
-    assert plan.resident or c % 4 == 0
-    smem = FK.dma_layout(c, k, k, s, plan.tile_h, plan.tile_w, plan.ck,
-                         plan.resident).smem
-    assert smem <= H100.per_sm // 2 - 1024   # two blocks an SM
+    plan = _plan(shape)
+    assert plan.mode == _mode(c)
+    assert (plan.tile_h, plan.tile_w) in FK.CONV_TILES
+    assert plan.bn in FK.serving_bns(o)
+    # no block issues fewer channels (the stem's O = 16 takes bn 16)
+    assert -(-o // plan.bn) * plan.bn == min(-(-o // b) * b
+                                             for b in FK.serving_bns(o))
+    assert 1 <= plan.ck <= c and (plan.ck == c) <= plan.resident
+    smem = FK.conv_smem(plan.mode, c, k, k, (s, s), (1, 1), plan.tile_h,
+                        plan.tile_w, plan.bn, plan.ck, plan.resident)
+    assert smem <= H100.per_block
+    per_sm = min(2048 // FK.CONV_THREADS, FK.CONV_MAX_BLOCKS[plan.mode],
+                 H100.per_sm // (smem + 1024))
+    assert per_sm >= 1 and per_sm * (smem + 1024) <= H100.per_sm
     tiles = -(-oh // plan.tile_h) * -(-ow // plan.tile_w)
-    stages = plan.tiles_per_block * -(-c // plan.ck)
     assert 1 <= plan.tiles_per_block <= tiles
-    assert stages >= 2 or tiles == 1
+    assert plan == FK.conv_plans(nb, oh, ow, c, o, k, k, (s, s), (1, 1),
+                                 plan.mode, H100, FK.serving_bns(o))[0]
 
 
-@pytest.mark.parametrize("vec16", [True, False])
+@pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda v: str(v))
-def test_dma_layout_regions_fit_and_align(shape, vec16):
+def test_serving_layout_regions_fit_and_align(shape, aligned):
     """The regions of the plan's layout hold what the kernel puts there,
-    do not overlap, and keep each copy's destination aligned to its width;
-    an input that is not 16-byte aligned takes 4-byte copies."""
+    in order, without overlap, each 16-byte aligned (cp.async and
+    ldmatrix rows; the output tile takes the residual's 16-byte copies);
+    every ldmatrix pitch is an odd multiple of 16 bytes; an input off
+    16 bytes takes im2col mode."""
     nb, c, o, k, s, oh, ow = shape
-    plan = FK.dma_plan(nb, c, o, k, k, s, oh, ow, H100, vec16)
-    th, tw, ck = plan.tile_h, plan.tile_w, plan.ck
-    lay = FK.dma_layout(c, k, k, s, th, tw, ck, plan.resident, vec16)
-    rows, cols, kw4 = (th - 1) * s + k, (tw - 1) * s + k, -(-k * k * c // 4)
-    pitch = 65 * 4
-    want_vw = 16 if c % 16 == 0 and ck % 16 == 0 and vec16 else \
-        4 if c % 4 == 0 else 1
-    assert lay.vw == want_vw
-    assert lay.slot_bytes % 16 == 0 and lay.res_off == 2 * lay.slot_bytes
-    slab_end = lay.wslot_off if not plan.resident else lay.slot_bytes
-    if lay.vw > 1:
-        assert lay.pix_bytes >= ck and lay.pix_bytes % lay.vw == 0
-        assert rows * cols * lay.pix_bytes <= slab_end
+    plan = _plan(shape, aligned)
+    th, tw, bn, ck = plan.tile_h, plan.tile_w, plan.bn, plan.ck
+    lay = FK.conv_layout(plan.mode, c, k, k, (s, s), (1, 1), th, tw, bn, ck,
+                         plan.resident)
+    rows, cols = (th - 1) * s + k, (tw - 1) * s + k
+    tp = th * tw
+    offs = [lay.stage_bytes, lay.a_off, lay.w_off, lay.ktab_off, lay.out_off]
+    assert all(v % 16 == 0 for v in offs)
+    assert lay.smem == lay.out_off + tp * (bn + 16)
+    assert (bn + 16) % 16 == 0
+    if plan.mode == "slab":
+        pitch = ck + 16
+        assert pitch % 32 == 16
+        assert lay.slab_bytes == rows * cols * pitch
+        wpitch = k * k * (c if plan.resident else ck) + 16
+        assert wpitch % 32 == 16
+        assert lay.stage_bytes == lay.slab_bytes + (
+            0 if plan.resident else bn * wpitch)
+        assert lay.w_off == 2 * lay.stage_bytes
+        assert lay.out_off == lay.w_off + (bn * wpitch if plan.resident
+                                           else 0)
     else:
-        assert lay.row_bytes >= cols * c + 3 and lay.row_bytes % 4 == 0
-        assert rows * lay.row_bytes <= lay.rowadj_off
-        assert lay.rowadj_off + 4 * rows <= slab_end
-    if not plan.resident:
-        assert lay.wslot_off % 16 == 0
-        assert lay.wslot_off + k * k * (ck // 4) * pitch <= lay.slot_bytes
-        assert lay.ktab_off == lay.res_off
-    else:
-        assert lay.res_off + kw4 * pitch <= lay.ktab_off
-    if lay.vw == 1:
-        assert lay.ktab_off + 4 * k * k * c <= lay.at_off
-        assert lay.at_off + 64 * (kw4 + 1) * 4 == lay.smem
-    else:
-        assert lay.ktab_off == lay.at_off == lay.smem
+        assert not aligned or c % 32
+        kc = -(-k * k * ck // 32) * 32
+        assert (kc + 16) % 32 == 16
+        assert rows * cols * ck <= lay.slab_bytes == lay.a_off
+        assert lay.a_off + tp * (kc + 16) == lay.w_off
+        assert lay.w_off + bn * (kc + 16) == lay.ktab_off
+        assert lay.ktab_off + 3 * 4 * kc == lay.out_off
 
 
-@pytest.mark.parametrize("tile_w", FK.DMA_TILE_WIDTHS)
-def test_dma_every_tile_fits_a_block(tile_w):
-    """``tests/test_torch_gpu.py::test_dma_kernel_any_tile`` launches
-    every tile width in each weight mode at C = 128, stride 1 and 2: each
-    fits a block's 227 KB, and each passes 48 KB (the opt-in)."""
-    for s in (1, 2):
-        for ck, resident in ((128, True), (48, True), (48, False)):
-            smem = FK.dma_layout(128, 3, 3, s, 64 // tile_w, tile_w, ck,
-                                 resident).smem
-            assert 48 * 1024 < smem <= H100.per_block, (s, ck, resident, smem)
+def test_serving_plan_chunks_c_at_256_to_512():
+    """3x3/s2 256 -> 512 at 20 x 20: the slab of all C beside the
+    resident weights passes a block's opt-in, so C is walked in chunks of
+    a multiple of 32, the weights resident where they fit."""
+    plan = _plan((16, 256, 512, 3, 2, 20, 20))
+    assert plan.mode == "slab" and plan.ck < 256 and plan.ck % 32 == 0
+    assert 256 % plan.ck == 0
+    whole = FK.conv_smem("slab", 256, 3, 3, (2, 2), (1, 1), plan.tile_h,
+                         plan.tile_w, plan.bn, 256, True)
+    assert whole > H100.per_block
 
 
-def test_dma_plan_streams_weights_when_they_do_not_fit():
-    """C = 128 at 3x3/s2: the 75 KB of weights stay resident and the
-    slab is chunked; C = 256: 147 KB of weights pass the budget of two
-    blocks an SM, so the weights stream with the chunks."""
-    plan = FK.dma_plan(16, 128, 256, 3, 3, 2, 40, 40, H100)
-    assert plan.resident and plan.ck < 128 and plan.ck % 16 == 0
-    plan = FK.dma_plan(16, 256, 512, 3, 3, 2, 20, 20, H100)
-    assert not plan.resident and plan.ck < 256 and plan.ck % 16 == 0
-    # the byte path (C % 4 != 0) has one chunk or no plan
-    with pytest.raises(ValueError, match="plan"):
-        FK.dma_plan(1, 4001, 64, 3, 3, 1, 8, 8, H100)
-
-
-def test_dma_plan_reads_the_device_it_is_given():
-    """Fewer SMs give each block more tiles; less shared memory an SM
-    turns a resident-weight plan into a streamed one."""
-    big = FK.dma_plan(16, 128, 128, 3, 3, 1, 80, 80, H100)
-    few = FK.dma_plan(16, 128, 128, 3, 3, 1, 80, 80,
-                      FK.SmemLimits(33, H100.per_sm, H100.per_block))
+def test_serving_plan_reads_the_limits_it_is_given():
+    """Fewer SMs give each block more tiles; less shared memory a block
+    turns a plan of all C into a chunked one; none at all raises."""
+    shape = (16, 128, 128, 3, 1, 80, 80)
+    big = _plan(shape)
+    few = _plan(shape, limits=FK.SmemLimits(33, H100.per_sm,
+                                            H100.per_block))
     assert few.tiles_per_block > big.tiles_per_block
-    a100 = FK.SmemLimits(108, 167936, 166912)
-    assert FK.dma_plan(16, 128, 256, 3, 3, 2, 40, 40, H100).resident
-    assert not FK.dma_plan(16, 128, 256, 3, 3, 2, 40, 40, a100).resident
+    small = FK.SmemLimits(132, 233472, 48 * 1024)
+    wide = _plan((16, 256, 512, 3, 2, 40, 40))
+    narrow = _plan((16, 256, 512, 3, 2, 40, 40), limits=small)
+    assert narrow.ck < wide.ck or narrow.bn < wide.bn
+    with pytest.raises(ValueError, match="fits"):
+        _plan(shape, limits=FK.SmemLimits(132, 233472, 1024))

@@ -74,9 +74,10 @@ SCRIPT = textwrap.dedent("""
                                     ((1, 1), (1, 1)), 2, pipeline="dma")
     assert torch.equal(got, FK.conv2d_int8_halo_fused(
         xt, wt, None, ep, (8, 8), ((1, 1), (1, 1)), 2))
-    assert FK.dma_plan(16, 3, 32, 6, 6, 2, 320, 320,
-                       FK.SmemLimits(132, 233472, 232448)).resident
-    assert "conv_int8_dma.cu" in cuda_build.SOURCES
+    assert FK.conv_plan(16, 320, 320, 3, 16, 6, 6, (2, 2), (1, 1), "im2col",
+                        FK.SmemLimits(132, 233472, 232448),
+                        FK.serving_bns(16)).bn == 16
+    assert "conv_int8_fused_mma.cu" in cuda_build.SOURCES
     from thingino_accel_tpu_torch.probes import megakernel, mxu_ceiling, wedge
     fn, x, w = mxu_ceiling.build("int4w", 16, 64, 1, 2, "cpu")
     assert fn(x, w).shape == (32, 64)

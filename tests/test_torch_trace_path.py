@@ -23,3 +23,24 @@ def test_refuses_to_run_without_a_card():
         pytest.skip("a CUDA device is present: the trace would run")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.trace("exact_yolov5s", batches=1, batch=1)
+
+
+@pytest.mark.parametrize("path,n,distinct", [
+    ("planned_yolov5n", 8, 8), ("unplanned_yolov5n", 18, 11),
+    ("zoo_yolov5s", 7, 7), ("nanodet", 1, 1)])
+def test_kxk_bench_finds_each_paths_kxk_convs(path, n, distinct):
+    """``kxk_bench`` times the convs the serving tier sends to #2: as many
+    as the path's launches a forward (chip_smoke.py's census), none of
+    them a 1x1/s1."""
+    from thingino_accel_tpu_torch import kxk_bench as KB
+    eng, convs = KB.kxk_convs(path, device="cpu")
+    assert len(convs) == n
+    for node, ep, _, _ in convs:
+        a = node.attrs
+        assert a["kernel"] != (1, 1) or a["stride"] != (1, 1)
+        assert ep.cs.shape[0] == eng.graph.tensors[node.outputs[0]].shape[3]
+    keys = {(tuple(eng.graph.tensors[nd.inputs[0]].shape),
+             tuple(nd.attrs["kernel"]), tuple(nd.attrs["stride"]),
+             tuple(eng.graph.tensors[nd.outputs[0]].shape), ep.act,
+             res is not None) for nd, ep, res, _ in convs}
+    assert len(keys) == distinct

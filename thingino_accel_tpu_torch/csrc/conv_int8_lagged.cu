@@ -3,9 +3,9 @@
 // NONE / RELU / LEAKY_RELU / SILU, requantize) on the tensor cores:
 // out[n, y, x, o] = epilogue(sum_{dy,dx,c} x[n, y+dy-1, x+dx-1, c]
 //                                          * w[o, dy, dx, c])
-// with zeros outside the image. It computes what conv_int8_fused.cu (#2)
-// and conv_int8_dma.cu (#5) compute, bit for bit (int32 sums, the same
-// epilogue.cuh), for C % 32 == 0 and O % 8 == 0 at any H and W.
+// with zeros outside the image. It computes what conv_int8_fused_mma.cu
+// (#2 and #5) computes, bit for bit (int32 sums, the same epilogue.cuh),
+// for C % 32 == 0 and O % 8 == 0 at any H and W.
 //
 // Replaces examples/pipeline_experiment.py:lagged (Pallas body _kernel
 // :44, pallas_call :92). There a grid cell ti runs tile ti's nine tap

@@ -1,11 +1,13 @@
-// Shared pieces of the fused int8 conv kernels (mm_int8_fused.cu,
-// conv_int8_fused.cu, mm_multi_int8_fused.cu, bneck_int8_fused.cu,
-// sppf_int8_fused.cu, dw_int8_fused.cu) and of the exact tier's
-// (requant_int8.cu, conv_int8_requant_mma.cu): the tile shape, the dp4a
-// tile product, the serving requantize epilogue with the single int8
-// store, and the exact tier's requantize (requant_exact). The probes'
-// tensor-core chains (chain_mma.cuh, megakernel_probe.cu) take the
-// epilogue too.
+// Shared pieces of the fused int8 kernels (mm_int8_fused.cu,
+// mm_multi_int8_fused.cu, bneck_int8_fused.cu, sppf_int8_fused.cu,
+// dw_int8_fused.cu; the KxK conv core conv_mma_core.cuh under
+// conv_int8_fused_mma.cu) and of the exact tier's (requant_int8.cu; the
+// core under conv_int8_requant_mma.cu): the tile shape, the dp4a tile
+// product (the kernels that are not on the tensor cores), the serving
+// requantize epilogue with the single int8 store, and the exact tier's
+// requantize (requant_exact). The probes' tensor-core chains
+// (chain_mma.cuh, megakernel_probe.cu) and E2 (conv_int8_lagged.cu) take
+// the epilogue too.
 //
 // The epilogue reproduces thingino_accel_tpu/ops/fused_kernels.py
 // _epilogue/_act_requant operation for operation:

@@ -24,12 +24,13 @@ from typing import Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("mm_int8_fused.cu", "conv_int8_fused.cu", "mm_multi_int8_fused.cu",
-           "bneck_int8_fused.cu", "sppf_int8_fused.cu", "dw_int8_fused.cu",
-           "decode_fused.cu", "requant_int8.cu", "conv_int8_dma.cu",
-           "chain_mma.cu", "megakernel_probe.cu", "add_one.cu",
-           "conv_int8_lagged.cu", "conv_int8_requant_mma.cu")
-HEADERS = ("epilogue.cuh", "mma_tile.cuh", "chain_mma.cuh")
+SOURCES = ("mm_int8_fused.cu", "conv_int8_fused_mma.cu",
+           "mm_multi_int8_fused.cu", "bneck_int8_fused.cu",
+           "sppf_int8_fused.cu", "dw_int8_fused.cu", "decode_fused.cu",
+           "requant_int8.cu", "chain_mma.cu", "megakernel_probe.cu",
+           "add_one.cu", "conv_int8_lagged.cu", "conv_int8_requant_mma.cu")
+HEADERS = ("epilogue.cuh", "mma_tile.cuh", "chain_mma.cuh",
+           "conv_mma_core.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,9 +46,14 @@ _SIGNATURES = {
     "tat_mm_int8_fused": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _F, _F,
                           _F, _P),
     # x, w, bias, cs, res, out, batch, H, W, C, O, KH, KW, stride, pt, pl,
-    # OH, OW, act, inv_out, alpha, res_scale, stream
-    "tat_conv_int8_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    # OH, OW, act, inv_out, alpha, res_scale, mode, tile_h, tile_w, bn, ck,
+    # resident, tiles_per_block, stream
+    "tat_conv_int8_fused_mma": (_P, _P, _P, _P, _P, _P, *(_I,) * 13, _F, _F,
+                                _F, *(_I,) * 7, _P),
+    # act, mode, C, KH, KW, stride, tile_h, tile_w, bn, ck, resident,
+    # -> smem bytes, blocks an SM
+    "tat_conv_int8_fused_mma_info": (*(_I,) * 11, ctypes.POINTER(_I),
+                                     ctypes.POINTER(_I)),
     # n_parts, xs[4], ldx[4], ws[4], ldw[4], K[4], part_scales[4],
     # same_scale, bias, bias_scale, cs, res, out, M, N, act, inv_out,
     # alpha, res_scale, stream
@@ -64,12 +70,6 @@ _SIGNATURES = {
     # stream
     "tat_sppf_int8_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _F, _F, _P),
-    # x, w, bias, cs, out, batch, H, W, C, O, KH, KW, stride, pt, pl, OH,
-    # OW, act, inv_out, alpha, tile_h, tile_w, ck, resident,
-    # tiles_per_block, then fused_kernels.DmaLayout's ten fields, stream
-    "tat_conv_int8_dma": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _I,
-                          *(_I,) * 10, _P),
     # x, w, bias, cs, out, batch, H, W, C, KH, KW, pt, pl, OH, OW, act,
     # inv_out, alpha, stream
     "tat_dw_int8_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

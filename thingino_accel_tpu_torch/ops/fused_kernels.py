@@ -6,10 +6,12 @@ run before the single int8 write. Port of
 - :func:`matmul_int8_fused` (1x1 convs), CUDA kernel
   ``csrc/mm_int8_fused.cu``;
 - :func:`conv2d_int8_halo_fused` (KxK convs at any square stride, the
-  thin-channel stem included), CUDA kernel ``csrc/conv_int8_fused.cu``;
-  with ``pipeline="dma"`` the same conv through ``csrc/conv_int8_dma.cu``,
-  which stages each tile's input slab in shared memory through a two-slot
-  ``cp.async`` ring (the JAX ``conv2d_int8_folded(pipeline="dma")``);
+  thin-channel stems included; #2, and with ``pipeline="dma"`` #5, the
+  JAX ``conv2d_int8_folded(pipeline="dma")``): one tensor-core kernel,
+  CUDA ``csrc/conv_int8_fused_mma.cu`` on the implicit-GEMM core of
+  ``csrc/conv_mma_core.cuh`` (``mma.sync`` from a ``cp.async`` slab ring,
+  or its im2col mode), planned by :func:`conv_plan`, the planner the
+  exact tier's #10/#11 share;
 - :func:`matmul_int8_fused_multi` (a 1x1 conv over a CONCAT that is never
   materialized), CUDA kernel ``csrc/mm_multi_int8_fused.cu``;
 - :func:`bottleneck_int8_fused` (the C3 bottleneck, 1x1 -> KxK/1 [+x]),
@@ -79,8 +81,8 @@ launches: Dict[str, int] = {"matmul_int8_fused": 0,
                             "sppf_int8_fused": 0,
                             "depthwise_conv2d_int8_fused": 0,
                             "conv2d_int8_halo_dma": 0}
-# the load schemes of the KxK conv: #2's gathers from global memory, or the
-# slab ring of ``conv_int8_dma.cu``
+# the TPU kernels a KxK conv call stands for: #2 (the JAX "blockspec"
+# call) or #5 (the "dma" call); one kernel on the card
 PIPELINES = ("blockspec", "dma")
 
 
@@ -459,9 +461,12 @@ def conv2d_int8_halo_fused(
     ``pads`` ((pt, pb), (pl, pr)) may be asymmetric. Only pt/pl position
     the window; rows and columns past the input are zero.
 
-    ``pipeline`` picks the kernel on a CUDA tensor: ``"blockspec"`` #2,
-    ``"dma"`` the slab-ring kernel (no residual, as in JAX). Both compute
-    the same function; on the CPU both take the plain version."""
+    ``pipeline`` names the TPU kernel a call stands for: ``"blockspec"``
+    #2, ``"dma"`` #5 (no residual, as in JAX). Both compute the same
+    function, and on a CUDA tensor both launch the one tensor-core kernel
+    ``tat_conv_int8_fused_mma`` with :func:`serving_plan` (each counted
+    under its own name in :data:`launches`); on the CPU both take the
+    plain version."""
     if pipeline not in PIPELINES:
         raise ValueError(f"unknown pipeline {pipeline!r}; one of {PIPELINES}")
     if pipeline == "dma" and residual is not None:
@@ -480,46 +485,21 @@ def conv2d_int8_halo_fused(
     out = torch.empty((nb, oh, ow, o), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
-    if pipeline == "dma":
-        _launch_conv_dma(x, w, bias, ep, pads, stride, out, dma_plan(
-            nb, c, o, kh, kw, stride, oh, ow, smem_limits(dev),
-            _aligned16(x)))
-        launches["conv2d_int8_halo_dma"] += 1
-    else:
-        _launch_conv(x, w, bias, ep, pads, stride, residual, res_scale, out)
-        launches["conv2d_int8_halo_fused"] += 1
+    _launch_conv(x, w, bias, ep, pads, stride, residual, res_scale, out,
+                 serving_plan(x, w, out_hw, stride))
+    launches["conv2d_int8_halo_dma" if pipeline == "dma"
+             else "conv2d_int8_halo_fused"] += 1
     return out
 
 
-def _launch_conv(x, w, bias, ep, pads, stride, residual, res_scale,
-                 out) -> None:
-    nb, h, wd, c = x.shape
-    o, kh, kw, _ = w.shape
-    (pt, _), (pl, _) = pads
-    cuda_build.check(cuda_build.load_library().tat_conv_int8_fused(
-        _ptr(x), _ptr(w), _ptr(bias), _ptr(ep.cs), _ptr(residual), _ptr(out),
-        nb, h, wd, c, o, kh, kw, stride, pt, pl, out.shape[1], out.shape[2],
-        _kernel_act(ep.act), ep.inv_out, ep.alpha, _f32(res_scale),
-        _stream(out.device)), "tat_conv_int8_fused")
+# ---------------------------------------------------------------------------
+# The tensor-core KxK conv's plan: one planner for the serving tier's #2 and
+# #5 (``tat_conv_int8_fused_mma``) and the exact tier's #10 and #11
+# (``tat_conv_int8_requant_mma``), whose kernels are the one core of
+# ``csrc/conv_mma_core.cuh`` under two epilogue policies
+# ---------------------------------------------------------------------------
 
-
-# The slab-ring kernel's plan. A tile is tile_h x tile_w output pixels,
-# tile_h = 64 // tile_w (the 64 rows of the dp4a tile); `ck` channels of
-# its slab are staged a stage; the block's weights stay `resident` in
-# shared memory, or stream with each chunk; a block walks
-# `tiles_per_block` consecutive tiles of one image.
-DMA_TILE_WIDTHS = (4, 8, 16, 32, 64)
 _BLOCK_RESERVED = 1024   # shared memory the runtime keeps for each block
-_BS_PITCH = 65 * 4       # bytes of a K-word row of the weight tile
-
-
-@dataclasses.dataclass(frozen=True)
-class DmaPlan:
-    tile_h: int
-    tile_w: int
-    ck: int
-    resident: bool
-    tiles_per_block: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -537,25 +517,6 @@ def smem_limits(device: torch.device) -> SmemLimits:
     return SmemLimits(p.multi_processor_count,
                       p.shared_memory_per_multiprocessor,
                       p.shared_memory_per_block_optin)
-
-
-@dataclasses.dataclass(frozen=True)
-class DmaLayout:
-    """One block's dynamic shared memory in ``conv_int8_dma.cu``, in bytes
-    from its start; the kernel takes these offsets as they are. Two ring
-    slots, each the slab (the byte path: then its row table; streamed
-    weights: then the chunk's weights), then the resident weights, then
-    the byte path's k table and im2col tile."""
-    vw: int           # bytes a copy: 16 or 4 (word paths), 1 (byte path)
-    pix_bytes: int    # word paths: slab bytes a pixel
-    row_bytes: int    # byte path: slab bytes a row
-    rowadj_off: int   # byte path: the row table in a slot
-    wslot_off: int    # streamed weights in a slot
-    slot_bytes: int   # one ring slot
-    res_off: int      # resident weights
-    ktab_off: int     # byte path: (ky, kx, kx*C + c) of each k
-    at_off: int       # byte path: the stage's im2col tile
-    smem: int         # in all
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -583,108 +544,225 @@ def run_of_tiles(batch: int, tiles_img: int, oblocks: int, smem: int,
     return min(range(1, tiles_img + 1), key=lambda t: (cost(t), -t))
 
 
-def _aligned16(x: torch.Tensor) -> bool:
-    return x.data_ptr() % 16 == 0
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """The block of the KxK kernel: ``mode`` "slab" or "im2col";
+    ``tile_h`` x ``tile_w`` output pixels a tile; ``bn`` output channels;
+    the input channels walked in chunks of ``ck``; ``resident``: the
+    weights of all C loaded once for the whole run (always where ``ck ==
+    C``; in slab mode also beside a chunked slab), else each stage carries
+    its chunk's slice; ``tiles_per_block`` consecutive tiles of one image
+    (row-major)."""
+
+    mode: str
+    tile_h: int
+    tile_w: int
+    bn: int
+    ck: int
+    resident: bool
+    tiles_per_block: int
 
 
-@functools.lru_cache(maxsize=1024)
-def dma_layout(c: int, kh: int, kw: int, s: int, tile_h: int, tile_w: int,
-               ck: int, resident: bool, vec16: bool = True) -> DmaLayout:
-    """The shared-memory layout of one block of ``conv_int8_dma.cu``.
-    Copies are 16 bytes when C and ``ck`` are multiples of 16 and the
-    input is 16-byte aligned (``vec16``), 4 bytes when they are multiples
-    of 4, else the byte path copies each slab row's covering words."""
-    rows, cols = (tile_h - 1) * s + kh, (tile_w - 1) * s + kw
-    vw = (16 if c % 16 == 0 and ck % 16 == 0 and vec16
-          else 4 if c % 4 == 0 and ck % 4 == 0 else 1)
-    pix = row = rowadj = wslot = 0
-    if vw > 1:
-        # a pixel pitch off a multiple of 128 B / s, so that the two pixels
-        # a warp reads per row of its sub-tile fall on different banks
-        pix = _round_up(ck, vw)
-        if pix * s % 128 == 0:
-            pix += vw
-        slot = _round_up(rows * cols * pix, 16)
+# (tile_h, tile_w): 128 or 64 pixels (2 or 1 m16 tiles a warp), tile_w a
+# power of two; bn 64 or 32 (4 or 2 n8 tiles a warp); 8 warps a block
+CONV_TILES = ((8, 16), (16, 8), (4, 32), (8, 8), (4, 16), (2, 32))
+CONV_BNS = (64, 32)
+# the serving epilogue's kernels also take bn 16 (one n8 tile a warp),
+# offered where O <= 16 (the real yolov5n's stem), so no half-empty block
+SERVING_BN16_MAX_O = 16
+CONV_THREADS = 256
+# blocks an SM the registers allow at most (__launch_bounds__(256, n): 128
+# registers a thread in slab mode, 85 in im2col mode)
+CONV_MAX_BLOCKS = {"slab": 2, "im2col": 3}
+_MODE_CODE = {"slab": 0, "im2col": 1}
+_OUT_PAD = 16         # bytes after each staged output pixel (kOutPad)
+
+
+def serving_bns(o: int) -> Tuple[int, ...]:
+    """The channel blocks the serving kernels offer for ``o`` channels."""
+    return CONV_BNS + ((16,) if o <= SERVING_BN16_MAX_O else ())
+
+
+def _slab_hw(tile_h: int, tile_w: int, kh: int, kw: int, stride, dilation
+             ) -> Tuple[int, int]:
+    return ((tile_h - 1) * stride[0] + (kh - 1) * dilation[0] + 1,
+            (tile_w - 1) * stride[1] + (kw - 1) * dilation[1] + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvLayout:
+    """One block's dynamic shared memory in the KxK kernel (``conv_layout``
+    of ``csrc/conv_mma_core.cuh``), byte offsets from its start. Slab mode:
+    two ring stages of ``stage_bytes`` (the slab, ``slab_bytes`` at ck + 16
+    bytes a pixel, then the chunk's weights unless resident), the resident
+    weights at ``w_off`` (KH KW C + 16 bytes a channel), the output tile at
+    ``out_off`` (bn + 16 bytes a pixel; the residual lands there too).
+    im2col mode: the slab (ck bytes a pixel), the A tile at ``a_off`` and
+    the weights at ``w_off`` (kc + 16 bytes a row, kc = KH KW ck rounded up
+    to 32), three int32 k tables of kc entries at ``ktab_off``, the output
+    tile. The kernel has no static shared memory."""
+    slab_bytes: int
+    stage_bytes: int
+    a_off: int
+    w_off: int
+    ktab_off: int
+    out_off: int
+    smem: int
+
+
+def conv_layout(mode: str, c: int, kh: int, kw: int, stride, dilation,
+                tile_h: int, tile_w: int, bn: int, ck: int,
+                resident: bool) -> ConvLayout:
+    slab_h, slab_w = _slab_hw(tile_h, tile_w, kh, kw, stride, dilation)
+    tp = tile_h * tile_w
+    if mode == "slab":
+        wpitch = kh * kw * (c if resident else ck) + 16
+        slab = slab_h * slab_w * (ck + 16)
+        stage = slab + (0 if resident else bn * wpitch)
+        w_off = 2 * stage
+        out_off = w_off + (bn * wpitch if resident else 0)
+        a_off = ktab_off = 0
     else:
-        row = _round_up(cols * c + 3, 4)
-        rowadj = _round_up(rows * row, 16)
-        slot = rowadj + _round_up(4 * rows, 16)
-    if not resident:
-        wslot = slot
-        slot += _round_up(kh * kw * (ck // 4) * _BS_PITCH, 16)
-    k = kh * kw * c
-    res = 2 * slot
-    ktab = res + (_round_up(_cdiv(k, 4) * _BS_PITCH, 16) if resident else 0)
-    at = ktab + (_round_up(4 * k, 16) if vw == 1 else 0)
-    smem = at + (64 * 4 * (_cdiv(k, 4) + 1) if vw == 1 else 0)
-    return DmaLayout(vw, pix, row, rowadj, wslot, slot, res, ktab, at, smem)
+        kc = _round_up(kh * kw * ck, 32)
+        slab = stage = _round_up(slab_h * slab_w * ck, 16)
+        a_off = slab
+        w_off = a_off + tp * (kc + 16)
+        ktab_off = w_off + bn * (kc + 16)
+        out_off = ktab_off + 12 * kc
+    return ConvLayout(slab, stage, a_off, w_off, ktab_off, out_off,
+                      out_off + tp * (bn + _OUT_PAD))
 
 
-def _dma_chunks(c: int) -> Tuple[int, ...]:
-    """Channel chunks to try: all C, then the multiples of the copy
-    width from 128 down (the byte path takes all C only)."""
-    if c % 4:
-        return (c,)
-    unit = 16 if c % 16 == 0 else 4
-    return (c,) + tuple(k for k in range(min(c - 1, 128) // unit * unit, 0,
-                                         -unit))
+def conv_smem(mode: str, c: int, kh: int, kw: int, stride, dilation,
+              tile_h: int, tile_w: int, bn: int, ck: int,
+              resident: bool) -> int:
+    """Shared memory of a block in bytes (:func:`conv_layout`'s total)."""
+    return conv_layout(mode, c, kh, kw, stride, dilation, tile_h, tile_w,
+                       bn, ck, resident).smem
 
 
-@functools.lru_cache(maxsize=256)
-def dma_plan(batch: int, c: int, o: int, kh: int, kw: int, s: int, oh: int,
-             ow: int, limits: SmemLimits, vec16: bool = True) -> DmaPlan:
-    """The slab-ring kernel's plan for one conv on a device with
-    ``limits``. The tile width is the one of :data:`DMA_TILE_WIDTHS` that
-    wastes the fewest output pixels at the ragged edges, then whose slab
-    re-reads the fewest input pixels per output; then the largest chunk
-    (all C first) with the weights resident, else streamed, whose
-    :func:`dma_layout` fits two blocks an SM, else one. Each block then
-    takes enough tiles that the grid is about two waves of the blocks that
-    fit, and at least two stages, so that its ring has a next slab to
-    copy."""
-    def key(tw):
-        th = 64 // tw
-        waste = _cdiv(oh, th) * th * _cdiv(ow, tw) * tw
-        halo = ((th - 1) * s + kh) * ((tw - 1) * s + kw) / (th * tw)
-        return waste, halo
-
-    modes = (True, False) if c % 4 == 0 else (True,)   # bytes: resident
-    two_a_sm = limits.per_sm // 2 - _BLOCK_RESERVED
-    for budget in (two_a_sm, limits.per_block):
-        for tw in sorted(DMA_TILE_WIDTHS, key=key):
-            th = 64 // tw
-            for res, k in ((m, k) for m in modes for k in _dma_chunks(c)):
-                smem = dma_layout(c, kh, kw, s, th, tw, k, res, vec16).smem
-                if smem > budget:
-                    continue
-                per_sm = max(1, min(4, limits.per_sm
-                                    // (smem + _BLOCK_RESERVED)))
-                tiles_img = _cdiv(oh, th) * _cdiv(ow, tw)
-                total = batch * tiles_img * _cdiv(o, 64)
-                tpc = max(2 if k == c else 1,
-                          total // (2 * limits.sms * per_sm))
-                return DmaPlan(th, tw, k, res, min(tpc, tiles_img))
-    raise ValueError(f"no slab-ring plan fits shared memory: C={c}, "
-                     f"{kh}x{kw}/s{s}")
+def conv_chunks(mode: str, c: int) -> Tuple[Tuple[int, bool], ...]:
+    """The (chunk width, resident weights) a mode takes, in the order a
+    plan tries them: all C; then, in slab mode, the multiples of 32 that
+    divide C, widest first, beside resident weights and then with the
+    weights streamed; in im2col mode C / 2, C / 4, ... (rounded up; the
+    last chunk may be ragged), streamed."""
+    if mode == "slab":
+        widths = [k for k in range(c - 32, 31, -32) if c % k == 0]
+        return ((c, True),) + tuple((k, True) for k in widths) + tuple(
+            (k, False) for k in widths)
+    chunks, k = [(c, True)], c
+    while k > 1:
+        k = _cdiv(k, 2)
+        chunks.append((k, False))
+    return tuple(chunks)
 
 
-def _launch_conv_dma(x, w, bias, ep, pads, stride, out,
-                     plan: DmaPlan) -> None:
+@functools.lru_cache(maxsize=512)
+def conv_plans(batch: int, oh: int, ow: int, c: int, o: int, kh: int,
+               kw: int, stride: Tuple[int, int], dilation: Tuple[int, int],
+               mode: str, limits: SmemLimits,
+               bns: Tuple[int, ...] = CONV_BNS) -> Tuple[ConvPlan, ...]:
+    """Every tile and channel block (of ``bns``) the kernel can run in
+    ``mode`` within the shared memory, each with its widest chunk that fits
+    and its modelled run of tiles, in the order :func:`conv_plan` prefers
+    them: the fewest products issued (ragged tiles and channel blocks count
+    whole), C in one chunk, resident weights, the largest block, the least
+    halo, the widest tile."""
+    def first_fit(th, tw, bn):
+        for ck, resident in conv_chunks(mode, c):
+            smem = conv_smem(mode, c, kh, kw, stride, dilation, th, tw, bn,
+                             ck, resident)
+            if smem <= limits.per_block:
+                return ck, resident, smem
+        return None
+
+    def key(tb):
+        (th, tw), bn, (ck, resident, _) = tb
+        issued = (_cdiv(oh, th) * th * _cdiv(ow, tw) * tw
+                  * _cdiv(o, bn) * bn)
+        slab_h, slab_w = _slab_hw(th, tw, kh, kw, stride, dilation)
+        return (issued, ck < c, not resident, -th * tw * bn,
+                slab_h * slab_w / (th * tw), -tw)
+
+    fits = [(t, bn, fit) for t in CONV_TILES for bn in bns
+            for fit in [first_fit(*t, bn)] if fit is not None]
+    plans = []
+    for (th, tw), bn, (ck, resident, smem) in sorted(fits, key=key):
+        tiles_img = _cdiv(oh, th) * _cdiv(ow, tw)
+        plans.append(ConvPlan(mode, th, tw, bn, ck, resident,
+                              run_of_tiles(batch, tiles_img, _cdiv(o, bn),
+                                           smem, limits, CONV_THREADS,
+                                           CONV_MAX_BLOCKS[mode])))
+    return tuple(plans)
+
+
+def conv_mode(x: torch.Tensor, w: torch.Tensor) -> str:
+    """"slab" where the ring's 16-byte copies can run (C % 32 == 0, x and
+    w 16-byte aligned), else "im2col"."""
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    return "slab" if x.shape[3] % 32 == 0 and aligned else "im2col"
+
+
+def conv_plan(batch: int, oh: int, ow: int, c: int, o: int, kh: int, kw: int,
+              stride: Tuple[int, int], dilation: Tuple[int, int], mode: str,
+              limits: SmemLimits, bns: Tuple[int, ...] = CONV_BNS
+              ) -> ConvPlan:
+    """The first of :func:`conv_plans` in ``mode``; a slab-mode conv no
+    slab fits takes im2col mode. ValueError if nothing fits."""
+    args = (batch, oh, ow, c, o, kh, kw, tuple(stride), tuple(dilation))
+    plans = conv_plans(*args, mode, limits, tuple(bns))
+    if not plans and mode == "slab":
+        plans = conv_plans(*args, "im2col", limits, tuple(bns))
+    if not plans:
+        raise ValueError(f"no block of the KxK conv kernel fits C={c} "
+                         f"{kh}x{kw} in {limits.per_block} bytes of shared "
+                         "memory")
+    return plans[0]
+
+
+def serving_plan(x: torch.Tensor, w: torch.Tensor, out_hw, stride: int
+                 ) -> ConvPlan:
+    """The plan :func:`conv2d_int8_halo_fused` launches on the card."""
+    nb, _, _, c = x.shape
+    o, kh, kw, _ = w.shape
+    return conv_plan(nb, out_hw[0], out_hw[1], c, o, kh, kw,
+                     (stride, stride), (1, 1), conv_mode(x, w),
+                     smem_limits(x.device), serving_bns(o))
+
+
+def _conv_args(x, w, bias, ep, pads, stride, residual, res_scale, out,
+               plan: ConvPlan) -> tuple:
+    """The arguments of ``tat_conv_int8_fused_mma`` up to the stream."""
     nb, h, wd, c = x.shape
     o, kh, kw, _ = w.shape
     (pt, _), (pl, _) = pads
-    if x.data_ptr() % 4 or w.data_ptr() % 4:
-        raise ValueError("the dma conv copies 4-byte words: x and w must be "
-                         "4-byte aligned")
-    lay = dma_layout(c, kh, kw, stride, plan.tile_h, plan.tile_w, plan.ck,
-                     plan.resident, _aligned16(x))
-    cuda_build.check(cuda_build.load_library().tat_conv_int8_dma(
-        _ptr(x), _ptr(w), _ptr(bias), _ptr(ep.cs), _ptr(out), nb, h, wd, c,
-        o, kh, kw, stride, pt, pl, out.shape[1], out.shape[2],
-        _kernel_act(ep.act), ep.inv_out, ep.alpha, plan.tile_h, plan.tile_w,
-        plan.ck, int(plan.resident), plan.tiles_per_block,
-        *dataclasses.astuple(lay), _stream(out.device)),
-        "tat_conv_int8_dma")
+    return (_ptr(x), _ptr(w), _ptr(bias), _ptr(ep.cs), _ptr(residual),
+            _ptr(out), nb, h, wd, c, o, kh, kw, stride, pt, pl, out.shape[1],
+            out.shape[2], _kernel_act(ep.act), ep.inv_out, ep.alpha,
+            _f32(res_scale), _MODE_CODE[plan.mode], plan.tile_h, plan.tile_w,
+            plan.bn, plan.ck, int(plan.resident), plan.tiles_per_block)
+
+
+def _launch_conv(x, w, bias, ep, pads, stride, residual, res_scale, out,
+                 plan: ConvPlan) -> None:
+    cuda_build.check(cuda_build.load_library().tat_conv_int8_fused_mma(
+        *_conv_args(x, w, bias, ep, pads, stride, residual, res_scale, out,
+                    plan), _stream(out.device)), "tat_conv_int8_fused_mma")
+
+
+def conv_occupancy(plan: ConvPlan, c: int, kernel: Tuple[int, int],
+                   stride: int, act: str) -> Tuple[int, int]:
+    """``(shared memory bytes, blocks an SM holds)`` of the serving KxK
+    kernel of ``act`` with ``plan`` on the current card
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    cuda_build.check(cuda_build.load_library().tat_conv_int8_fused_mma_info(
+        _kernel_act(act), _MODE_CODE[plan.mode], c, kernel[0], kernel[1],
+        stride, plan.tile_h, plan.tile_w, plan.bn, plan.ck,
+        int(plan.resident), ctypes.byref(smem), ctypes.byref(blocks)),
+        "tat_conv_int8_fused_mma_info")
+    return smem.value, blocks.value
 
 
 def matmul_int8_fused_multi(

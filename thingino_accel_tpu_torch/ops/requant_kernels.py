@@ -241,147 +241,33 @@ def matmul_int8_requant(
 # ---------------------------------------------------------------------------
 
 
-@dataclasses.dataclass(frozen=True)
-class ConvPlan:
-    """The block of ``tat_conv_int8_requant_mma``: ``mode`` "slab" or
-    "im2col"; ``tile_h`` x ``tile_w`` output pixels a tile; ``bn`` output
-    channels; the input channels walked in chunks of ``ck``; ``resident``:
-    the weights of all C loaded once for the whole run (always where
-    ``ck == C``; in slab mode also beside a chunked slab), else each stage
-    carries its chunk's slice; ``tiles_per_block`` consecutive tiles of one
-    image (row-major)."""
-
-    mode: str
-    tile_h: int
-    tile_w: int
-    bn: int
-    ck: int
-    resident: bool
-    tiles_per_block: int
+# One planner and one shared-memory layout for the KxK kernel of both
+# tiers (ops/fused_kernels.py), under the names the exact tier has used;
+# the exact kernels take bn 64 and 32
+ConvPlan = FK.ConvPlan
+CONV_TILES = FK.CONV_TILES
+CONV_BNS = FK.CONV_BNS
+conv_requant_smem = FK.conv_smem
+_chunks = FK.conv_chunks
+conv_mode = FK.conv_mode
 
 
-# (tile_h, tile_w): 128 or 64 pixels (2 or 1 m16 tiles a warp), tile_w a
-# power of two; bn 64 or 32 (4 or 2 n8 tiles a warp); 8 warps a block
-CONV_TILES = ((8, 16), (16, 8), (4, 32), (8, 8), (4, 16), (2, 32))
-CONV_BNS = (64, 32)
-CONV_THREADS = 256
-# blocks an SM the registers allow at most (__launch_bounds__(256, n): 128
-# registers a thread in slab mode, 85 in im2col mode)
-CONV_MAX_BLOCKS = {"slab": 2, "im2col": 3}
-_MODE_CODE = {"slab": 0, "im2col": 1}
-_OUT_PAD = 16         # bytes after each staged output pixel (kOutPad)
-
-
-def _slab_hw(tile_h: int, tile_w: int, kh: int, kw: int, stride, dilation
-             ) -> Tuple[int, int]:
-    return ((tile_h - 1) * stride[0] + (kh - 1) * dilation[0] + 1,
-            (tile_w - 1) * stride[1] + (kw - 1) * dilation[1] + 1)
-
-
-def conv_requant_smem(mode: str, c: int, kh: int, kw: int, stride, dilation,
-                      tile_h: int, tile_w: int, bn: int, ck: int,
-                      resident: bool) -> int:
-    """Shared memory of a block (``conv_layout`` of
-    conv_int8_requant_mma.cu; the kernel has no static shared memory).
-    Slab mode: two ring stages of the slab at ck + 16 bytes a pixel (and,
-    unless the weights are resident, the chunk's weights at KH KW ck + 16
-    bytes a channel), the resident weights at KH KW C + 16 bytes a
-    channel, the output tile at bn + 16 bytes a pixel. im2col mode: the
-    slab at ck bytes a pixel, the A tile and the weights at kc + 16 bytes a
-    row (kc: KH KW ck rounded up to 32), three int32 k tables of kc
-    entries, the output tile."""
-    slab_h, slab_w = _slab_hw(tile_h, tile_w, kh, kw, stride, dilation)
-    tp = tile_h * tile_w
-    out = tp * (bn + _OUT_PAD)
-    if mode == "slab":
-        slab = slab_h * slab_w * (ck + 16)
-        if resident:
-            return 2 * slab + bn * (kh * kw * c + 16) + out
-        return 2 * (slab + bn * (kh * kw * ck + 16)) + out
-    kc = FK._round_up(kh * kw * ck, 32)
-    return (FK._round_up(slab_h * slab_w * ck, 16) + (tp + bn) * (kc + 16)
-            + 12 * kc + out)
-
-
-def _chunks(mode: str, c: int) -> Tuple[Tuple[int, bool], ...]:
-    """The (chunk width, resident weights) a mode takes, in the order a
-    plan tries them: all C; then, in slab mode, the multiples of 32 that
-    divide C, widest first, beside resident weights and then with the
-    weights streamed; in im2col mode C / 2, C / 4, ... (rounded up; the
-    last chunk may be ragged), streamed."""
-    if mode == "slab":
-        widths = [k for k in range(c - 32, 31, -32) if c % k == 0]
-        return ((c, True),) + tuple((k, True) for k in widths) + tuple(
-            (k, False) for k in widths)
-    chunks, k = [(c, True)], c
-    while k > 1:
-        k = FK._cdiv(k, 2)
-        chunks.append((k, False))
-    return tuple(chunks)
-
-
-@functools.lru_cache(maxsize=512)
 def conv_requant_plans(batch: int, oh: int, ow: int, c: int, o: int, kh: int,
                        kw: int, stride: Tuple[int, int],
                        dilation: Tuple[int, int], mode: str,
                        limits: FK.SmemLimits) -> Tuple[ConvPlan, ...]:
-    """Every tile and channel block the kernel can run in ``mode`` within
-    the shared memory, each with its widest chunk that fits and its
-    modelled run of tiles, in the order :func:`conv_requant_plan` prefers
-    them: the fewest products issued (ragged tiles and channel blocks
-    count whole), C in one chunk, resident weights, the largest block, the
-    least halo, the widest tile."""
-    def first_fit(th, tw, bn):
-        for ck, resident in _chunks(mode, c):
-            smem = conv_requant_smem(mode, c, kh, kw, stride, dilation, th,
-                                     tw, bn, ck, resident)
-            if smem <= limits.per_block:
-                return ck, resident, smem
-        return None
-
-    def key(tb):
-        (th, tw), bn, (ck, resident, _) = tb
-        issued = (FK._cdiv(oh, th) * th * FK._cdiv(ow, tw) * tw
-                  * FK._cdiv(o, bn) * bn)
-        slab_h, slab_w = _slab_hw(th, tw, kh, kw, stride, dilation)
-        return (issued, ck < c, not resident, -th * tw * bn,
-                slab_h * slab_w / (th * tw), -tw)
-
-    fits = [(t, bn, fit) for t in CONV_TILES for bn in CONV_BNS
-            for fit in [first_fit(*t, bn)] if fit is not None]
-    plans = []
-    for (th, tw), bn, (ck, resident, smem) in sorted(fits, key=key):
-        tiles_img = FK._cdiv(oh, th) * FK._cdiv(ow, tw)
-        plans.append(ConvPlan(mode, th, tw, bn, ck, resident,
-                              FK.run_of_tiles(
-                                  batch, tiles_img, FK._cdiv(o, bn), smem,
-                                  limits, CONV_THREADS,
-                                  CONV_MAX_BLOCKS[mode])))
-    return tuple(plans)
-
-
-def conv_mode(x: torch.Tensor, w: torch.Tensor) -> str:
-    """"slab" where the ring's 16-byte copies can run (C % 32 == 0, x and
-    w 16-byte aligned), else "im2col"."""
-    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    return "slab" if x.shape[3] % 32 == 0 and aligned else "im2col"
+    """:func:`fused_kernels.conv_plans` with the exact kernels' blocks."""
+    return FK.conv_plans(batch, oh, ow, c, o, kh, kw, tuple(stride),
+                         tuple(dilation), mode, limits, CONV_BNS)
 
 
 def conv_requant_plan(batch: int, oh: int, ow: int, c: int, o: int, kh: int,
                       kw: int, stride: Tuple[int, int],
                       dilation: Tuple[int, int], mode: str,
                       limits: FK.SmemLimits) -> ConvPlan:
-    """The first of :func:`conv_requant_plans` in ``mode``; a slab-mode
-    conv no slab fits takes im2col mode. ValueError if nothing fits."""
-    args = (batch, oh, ow, c, o, kh, kw, tuple(stride), tuple(dilation))
-    plans = conv_requant_plans(*args, mode, limits)
-    if not plans and mode == "slab":
-        plans = conv_requant_plans(*args, "im2col", limits)
-    if not plans:
-        raise ValueError(f"no block of the KxK conv kernel fits C={c} "
-                         f"{kh}x{kw} in {limits.per_block} bytes of shared "
-                         "memory")
-    return plans[0]
+    """:func:`fused_kernels.conv_plan` with the exact kernels' blocks."""
+    return FK.conv_plan(batch, oh, ow, c, o, kh, kw, stride, dilation, mode,
+                        limits, CONV_BNS)
 
 
 def _conv_args(x, w, bias, cs, stride, dilation, pads, round_mode, relu,
@@ -393,7 +279,7 @@ def _conv_args(x, w, bias, cs, stride, dilation, pads, round_mode, relu,
     return (_ptr(x), _ptr(w), _ptr(bias), _ptr(out), nb, h, wd, c, o, kh, kw,
             stride[0], stride[1], dilation[0], dilation[1], pt, pl,
             out.shape[1], out.shape[2], float(np.float32(cs)),
-            _ROUND_CODE[round_mode], int(relu), _MODE_CODE[plan.mode],
+            _ROUND_CODE[round_mode], int(relu), FK._MODE_CODE[plan.mode],
             plan.tile_h, plan.tile_w, plan.bn, plan.ck, int(plan.resident),
             plan.tiles_per_block)
 
@@ -408,7 +294,7 @@ def _launch_conv(x, w, bias, cs, stride, dilation, pads, round_mode, relu,
 
 
 def _info_args(plan: ConvPlan, c: int, kernel, stride, dilation) -> tuple:
-    return (_MODE_CODE[plan.mode], c, kernel[0], kernel[1], stride[0],
+    return (FK._MODE_CODE[plan.mode], c, kernel[0], kernel[1], stride[0],
             stride[1], dilation[0], dilation[1], plan.tile_h, plan.tile_w,
             plan.bn, plan.ck, int(plan.resident))
 

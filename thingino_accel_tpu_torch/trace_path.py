@@ -11,7 +11,9 @@ card before the window, so the window holds no host-to-device copy):
 - ``exact_yolov5s``: letterbox -> quantize -> the exact tier on the zoo
   yolov5s at 640 (random weights, seed 0) -> decode -> NMS;
 - ``serving_yolov5n``: the same over the planned serving tier on the
-  committed real-weight ``models/yolov5n_cal_int8.mars``.
+  committed real-weight ``models/yolov5n_cal_int8.mars``;
+- ``serving_nanodet``: letterbox -> quantize -> the planned serving tier on
+  the committed ``models/nanodet_320.mars`` (its three heads, no decode).
 
 After two warm-up batches, ``--batches`` pipeline calls run back to back
 inside the profiler, then the device is synchronized. The wall time is
@@ -47,7 +49,22 @@ def _engine(path: str):
         return Engine.from_yolo_mars(
             str(REPO / "models" / "yolov5n_cal_int8.mars"),
             EngineOptions(precision="serving"), device="cuda")
+    if path == "serving_nanodet":
+        return Engine.from_mars(str(REPO / "models" / "nanodet_320.mars"),
+                                EngineOptions(precision="serving"),
+                                device="cuda")
     raise ValueError(f"unknown path {path!r}")
+
+
+def _pipeline(path: str, eng):
+    """uint8 frames on the card -> the path's outputs."""
+    from thingino_accel_tpu_torch.models import yolo as Y
+    if path != "serving_nanodet":
+        return Y.build_serving_pipeline(eng)
+    in_t = eng.graph.tensors[eng.input_names[0]]
+    target = (in_t.shape[1], in_t.shape[2])
+    return lambda f: eng.forward(Y.quantize_input_int8(
+        Y.letterbox_uint8(f, target)))
 
 
 def _union_us(intervals) -> float:
@@ -68,12 +85,10 @@ def _union_us(intervals) -> float:
 def trace(path: str, batches: int, batch: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
-    from thingino_accel_tpu_torch.models import yolo as Y
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this trace runs on the card only")
-    eng = _engine(path)
-    pipe = Y.build_serving_pipeline(eng)
+    pipe = _pipeline(path, _engine(path))
     rng = np.random.default_rng(0)
     frames = [torch.from_numpy(rng.integers(
         0, 256, (batch,) + FRAME_HW + (3,), dtype=np.uint8)).cuda()
@@ -111,7 +126,8 @@ def trace(path: str, batches: int, batch: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", default="exact_yolov5s",
-                    choices=["exact_yolov5s", "serving_yolov5n"])
+                    choices=["exact_yolov5s", "serving_yolov5n",
+                             "serving_nanodet"])
     ap.add_argument("--batches", type=int, default=5)
     ap.add_argument("--batch", type=int, default=16)
     args = ap.parse_args(argv)
