@@ -13,8 +13,12 @@ Phases:
    nvcc, one process per source, all started together (timed).
 3. Kernels vs their plain torch versions on the card at the paths'
    shapes (NONE, LEAKY_RELU and SILU, per-channel scales, residual modes;
-   the depthwise kernel at NanoDet's shapes; the head decode on the real
-   yolov5n's heads at batch 16 and 1); median CUDA-event times of both.
+   #3, which launches #1's tensor-core 1x1 GEMM
+   ``csrc/mm_int8_fused_mma.cu``, at its lead shape in both scale
+   branches, at the real yolov5n's K_i = 16 unit, SPPF's 4 parts, N = 255
+   and with a residual; the depthwise kernel at NanoDet's shapes; the head
+   decode on the real yolov5n's heads at batch 16 and 1); median
+   CUDA-event times of both.
 4. The main path: the planned serving tier (``Engine(precision=
    "serving")``) on the real-weight ``models/yolov5n_cal_int8.mars`` at
    640x640 through letterbox -> int8 quantize -> network -> decode (one
@@ -24,8 +28,9 @@ Phases:
    launches of each conv kernel equal 4x its count in the plan's schedule,
    and the decode launches once per batch; finite detections inside the
    frame; every kernel unit of one batch (inputs captured on the card)
-   against its plain version; one frame step by step on the card against
-   the CPU path (the path the tests hold against JAX); decode + NMS on
+   against its plain version; one frame's letterbox on the card equal to
+   the CPU's byte for byte, and its steps on the card against the CPU path
+   (the path the tests hold against JAX); decode + NMS on
    tie-heavy heads, kernel decode vs plain decode. Prints the share of
    head values where the planned and the unplanned tier differ on the
    same batch. Then #5's path on that checked batch (see 10).
@@ -78,7 +83,16 @@ Phases:
    blocks an SM, its time and T/s beside fp16 ``F.conv2d`` and its bound,
    its split into epilogue, product and the rest (the ``KXK_VARIANTS``
    builds of the serving source), the real yolov5n's stem also at bn 32,
-   and the per-forward sums.
+   and the per-forward sums. Beside it, inside phases 4-7, the 1x1 table:
+   every distinct #1/#3 unit of the planned and unplanned real yolov5n,
+   the planned zoo yolov5s and NanoDet-320 on its recorded input at batch
+   16 (``gemm_table``), through its entry point, with its plan and blocks
+   an SM, its time and T/s beside ``torch._int_mm`` (K concatenated) and
+   its bound, its split into epilogue, product and the rest (the
+   ``GEMM_VARIANTS`` builds), the dp4a kernels' time it replaced (a
+   record of ``kxk_bench`` in the checkout that had them,
+   ``thingino_accel_tpu_torch/records/dp4a_1x1.json``), and the
+   per-forward sums.
 11. ``[probes]``: the ports of the TPU probes under ``examples/``
    (``thingino_accel_tpu_torch.probes``), the port's first tensor-core
    kernels. Each E1 variant (``csrc/chain_mma.cu``) and E3 kind
@@ -185,13 +199,13 @@ DMA = "conv2d_int8_halo_dma"
 DMA_PATH = "planned yolov5n + zoo yolov5s 640, KxK units replayed"
 KERNEL_INFO = {
     "matmul_int8_fused": {
-        "source": "thingino_accel_tpu_torch/csrc/mm_int8_fused.cu",
+        "source": "thingino_accel_tpu_torch/csrc/mm_int8_fused_mma.cu",
         "replaces": "thingino_accel_tpu/ops/fused_kernels.py:241"},
     "conv2d_int8_halo_fused": {
         "source": "thingino_accel_tpu_torch/csrc/conv_int8_fused_mma.cu",
         "replaces": "thingino_accel_tpu/ops/fused_kernels.py:544"},
     "matmul_int8_fused_multi": {
-        "source": "thingino_accel_tpu_torch/csrc/mm_multi_int8_fused.cu",
+        "source": "thingino_accel_tpu_torch/csrc/mm_int8_fused_mma.cu",
         "replaces": "thingino_accel_tpu/ops/fused_kernels.py:361"},
     "bottleneck_int8_fused": {
         "source": "thingino_accel_tpu_torch/csrc/bneck_int8_fused.cu",
@@ -255,6 +269,21 @@ KXK_VARIANTS = {
     "no_product": ("-DTAT_CONV_REQUANT_NO_PRODUCT",),
     "neither": ("-DTAT_CONV_REQUANT_NO_STORE",
                 "-DTAT_CONV_REQUANT_NO_PRODUCT")}
+# the 1x1 GEMM of #1 and #3 built three more times the same way (its own
+# macros); the 1x1 table splits each unit's time by them
+GEMM_SOURCE = "mm_int8_fused_mma.cu"
+GEMM_VARIANTS = {
+    "no_store": ("-DTAT_GEMM_NO_STORE",),
+    "no_product": ("-DTAT_GEMM_NO_PRODUCT",),
+    "neither": ("-DTAT_GEMM_NO_STORE", "-DTAT_GEMM_NO_PRODUCT")}
+# the dp4a kernels #1 and #3 ran before the 1x1 GEMM, each 1x1 unit timed by
+# kxk_bench in the checkout that had them (a record, not this run's
+# measurement), by the 1x1 table's path and unit
+DP4A_1X1 = REPO / "thingino_accel_tpu_torch" / "records" / "dp4a_1x1.json"
+DP4A_PATH = {"planned real yolov5n": "planned_yolov5n",
+             "unplanned real yolov5n": "unplanned_yolov5n",
+             "planned zoo yolov5s 640": "zoo_yolov5s",
+             "planned nanodet 320": "nanodet"}
 # the path whose run gives each kernel's launch count
 PATH_OF = {k: "planned real yolov5n" for k in KERNEL_INFO}
 PATH_OF["sppf_int8_fused"] = "planned zoo yolov5s 640"
@@ -439,8 +468,10 @@ def phase_build() -> float:
     t0 = time.perf_counter()
     variants = [threading.Thread(target=cuda_build.build,
                                  args=((src,), flags))
-                for src in (KXK_SOURCE, SERVING_SOURCE)
-                for flags in KXK_VARIANTS.values()]   # beside the library
+                for src, flag_sets in ((KXK_SOURCE, KXK_VARIANTS),
+                                       (SERVING_SOURCE, KXK_VARIANTS),
+                                       (GEMM_SOURCE, GEMM_VARIANTS))
+                for flags in flag_sets.values()]   # beside the library
     for t in variants:
         t.start()
     cuda_build.load_library()
@@ -568,13 +599,23 @@ def phase_kernels(results: dict) -> None:
              "SILU", lambda: FK.conv2d_int8_halo_fused(*args),
              lambda: FK.conv2d_int8_halo_fused_plain(*args))
 
-    # multi-part matmul: the C3 cv3 of model.4 (2 parts, equal scales) and
-    # SPPF's concat with 4 parts of different scales
-    for label, m, parts, scales, n in [
-            ("2 parts M=16*80*80 K=64+64 N=128, equal scales",
-             16 * 80 * 80, (64, 64), (0.05, 0.05), 128),
-            ("4 parts M=16*20*20 K=4x128 N=256, different scales",
-             16 * 20 * 20, (128,) * 4, (0.038, 0.046, 0.047, 0.049), 256)]:
+    # multi-part matmul (#3, the 1x1 GEMM #1 launches): its lead, the C3
+    # cv3 of model.4 (2 parts), in both scale branches first; then the real
+    # yolov5n's K_i = 16 unit, SPPF's concat of 4 parts, N = 255 and a
+    # residual. (label, rows, part widths, per-part scales, N, residual,
+    # acts)
+    lead = ("2 parts M=16*80*80 K=64+64 N=128", 16 * 80 * 80, (64, 64))
+    for label, m, parts, per_part, n, with_res, acts in [
+            (*lead, False, 128, False, ("NONE", "SILU")),
+            (*lead, True, 128, False, ("NONE", "SILU")),
+            ("2 parts M=16*160*160 K=16+16 N=32", 16 * 160 * 160, (16, 16),
+             True, 32, False, ("SILU",)),
+            ("4 parts M=16*20*20 K=4x128 N=256", 16 * 20 * 20, (128,) * 4,
+             True, 256, False, ("SILU",)),
+            ("2 parts M=16*80*80 K=64+64 N=255", 16 * 80 * 80, (64, 64),
+             False, 255, False, ("NONE",)),
+            ("2 parts M=16*80*80 K=32+32 N=64 + residual", 16 * 80 * 80,
+             (32, 32), True, 64, True, ("RELU", "SILU"))]:
         xs = [rnd((m, k)) for k in parts]
         wfull = rnd((n, sum(parts)))
         ws, off = [], 0
@@ -582,16 +623,24 @@ def phase_kernels(results: dict) -> None:
             ws.append(wfull[:, off:off + k])
             off += k
         bias = bias_of(n)
+        res = rnd((m, n)) if with_res else None
         xcat = torch.cat(xs, 1)
-        for act in ("NONE", "SILU"):
+        scales = ((0.038, 0.046, 0.047, 0.049)[:len(parts)] if per_part
+                  else (0.045,) * len(parts))
+        for act in acts:
             me = FK.multi_epilogue(wscale(n), scales, 0.9, act, n,
                                    bias_scale=0.045, device=dev)
-            run_case("matmul_int8_fused_multi", label, act,
-                     lambda: FK.matmul_int8_fused_multi(xs, ws, bias, me),
+            require(me.same_scale != per_part, f"{label}: scale branch")
+            branch = "per-part" if per_part else "equal"
+            run_case("matmul_int8_fused_multi", f"{label}, {branch} scales",
+                     act,
+                     lambda: FK.matmul_int8_fused_multi(xs, ws, bias, me, res,
+                                                        0.05),
                      lambda: FK.matmul_int8_fused_multi_plain(xs, ws, bias,
-                                                              me),
-                     lambda out, m=m, k=sum(parts), n=n: (
-                         2 * m * k * n, m * k + n * k + 8 * n + out.numel()),
+                                                              me, res, 0.05),
+                     lambda out, m=m, k=sum(parts), n=n, r=res: (
+                         2 * m * k * n, m * k + n * k + 8 * n + out.numel()
+                         + (r.numel() if r is not None else 0)),
                      int_mm_call(xcat, wfull))
 
     # bottleneck: model.4's pair with its shortcut, a neck pair without.
@@ -736,15 +785,17 @@ def check_postprocess_on_card(dev, results: dict) -> int:
 
 
 def check_letterbox_on_card(frame_u8, target):
-    """The letterbox of one frame, card vs CPU within 1 on uint8; returns
-    the card's int8 network input."""
+    """The letterbox of one frame, card vs CPU byte for byte (the CPU's
+    equals the JAX letterbox at the camera sizes, tests/test_torch_yolo.py);
+    returns the card's int8 network input."""
     import torch
     from thingino_accel_tpu_torch.models import yolo as Y
     frame = torch.from_numpy(frame_u8)
     boxed = Y.letterbox_uint8(frame.cuda(), target)
     d = (boxed.cpu().to(torch.int32)
          - Y.letterbox_uint8(frame, target).to(torch.int32)).abs()
-    require(int(d.max()) <= 1, f"letterbox card vs CPU: max {int(d.max())}")
+    require(int(d.max()) == 0, f"letterbox card vs CPU: {int((d > 0).sum())}"
+                               f" bytes differ, max {int(d.max())}")
     return Y.quantize_input_int8(boxed)
 
 
@@ -893,6 +944,8 @@ def phase_slice(results: dict) -> dict:
           "units within tolerance")
     dma = replay_dma(eng, rec, results, "planned real yolov5n")
     table = serving_kxk_table(eng, rec, "planned real yolov5n")
+    gemm = gemm_table(eng, planned_gemm_units(eng, rec),
+                      "planned real yolov5n")
     x1 = check_letterbox_on_card(frames[0][:1], target)
     n_steps = check_steps_against_cpu(eng, x1)
     print(f"[slice] card vs CPU, one frame: {n_steps} planned steps within "
@@ -923,7 +976,7 @@ def phase_slice(results: dict) -> dict:
         "units_checked": n_units, "steps_card_vs_cpu": n_steps,
         "planned_vs_unplanned_head_share": share,
         "planned_vs_unplanned_head_max": dmax, "dma_replay": dma,
-        "serving_kxk": table,
+        "serving_kxk": table, "gemm": gemm,
     }
 
 
@@ -974,12 +1027,19 @@ def phase_unplanned(results: dict) -> dict:
         note_err(results, kernel, dmax)
         n_conv += 1
     torch.cuda.synchronize()
+    gemm = gemm_table(eng, [
+        ("matmul", n, eng._fn.epilogues[n.outputs[0]],
+         [acts[n.inputs[0]].shape[-1]], 1.0, acts, [n.inputs[0]], None, None)
+        for n in eng._fn.nodes if n.op == "CONV2D"
+        and n.attrs["kernel"] == (1, 1) and n.attrs["stride"] == (1, 1)],
+        "unplanned real yolov5n")
     n_nodes = check_nodes_against_cpu(eng, check_letterbox_on_card(
         frames[0][:1], target))
     print(f"[unplanned] teacher-forced kernel vs plain: {n_conv} convs; "
           f"card vs CPU, one frame: {n_nodes} nodes within tolerance")
     return {"launches": counts, "fps": server.stats.fps,
-            "teacher_forced_convs": n_conv, "nodes_card_vs_cpu": n_nodes}
+            "teacher_forced_convs": n_conv, "nodes_card_vs_cpu": n_nodes,
+            "gemm": gemm}
 
 
 def phase_zoo_s(results: dict) -> dict:
@@ -1024,9 +1084,11 @@ def phase_zoo_s(results: dict) -> dict:
           "batches as one forward within tolerance")
     dma = replay_dma(eng, rec, results, "planned zoo yolov5s 640")
     table = serving_kxk_table(eng, rec, "planned zoo yolov5s 640")
+    gemm = gemm_table(eng, planned_gemm_units(eng, rec),
+                      "planned zoo yolov5s 640")
     return {"launches": counts, "census_per_forward": census,
             "forward_s_2_batches": secs, "units_checked": n_units,
-            "dma_replay": dma, "serving_kxk": table}
+            "dma_replay": dma, "serving_kxk": table, "gemm": gemm}
 
 
 def phase_nanodet(results: dict) -> dict:
@@ -1078,6 +1140,8 @@ def phase_nanodet(results: dict) -> dict:
     rec = check_units(eng, x, results, "nanodet")
     n_units = len(rec)
     table = serving_kxk_table(eng, rec, "planned nanodet 320")
+    gemm = gemm_table(eng, planned_gemm_units(eng, rec),
+                      "planned nanodet 320")
     cpu = Engine.from_mars(str(NANODET), serving, device="cpu")
     card, ref = eng.run(x[:1]), cpu.run(x[:1].cpu())
     for k in eng.output_names:
@@ -1089,7 +1153,7 @@ def phase_nanodet(results: dict) -> dict:
     return {"launches": counts, "census_per_forward": census,
             "fps_4batch": st.fps, "p50_ms_4batch": st.latency_ms(50),
             "p99_ms_4batch": st.latency_ms(99), "units_checked": n_units,
-            "serving_kxk": table}
+            "serving_kxk": table, "gemm": gemm}
 
 
 def phase_exact_kernels(results: dict) -> dict:
@@ -1596,6 +1660,134 @@ def serving_kxk_table(eng, rec: list, what: str) -> dict:
           f"kernel {sums['ms']:.4f} ms, F.conv2d fp16 "
           f"{sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms")
     return {"rows": rows, "per_forward": sums}
+
+
+def gemm_table(eng, units: list, what: str) -> dict:
+    """The 1x1 table of one path: every distinct #1/#3 unit of a forward
+    whose units were just held against their plain versions (``units``:
+    (kind, node, epilogue, part widths, res_scale, {name: recorded
+    tensor}, inputs' names, residual's name, the unit's output)), re-run
+    on its recorded input at batch 16 through its entry point: equal to
+    the unit's own output (planned paths) or within the act's tolerance of
+    its plain version (the unplanned one); its median event time and T/s
+    beside ``torch._int_mm`` (the parts' K concatenated; null where it
+    refuses the shape) and its bound, the plan and blocks an SM, its split
+    by the ``GEMM_VARIANTS`` builds (the epilogue's share 1 - no_store /
+    kernel, the product's 1 - no_product / kernel, and the time without
+    both: copies and syncs); the per-forward sums. The dp4a kernels it
+    replaced, timed by ``kxk_bench`` in the checkout that had them, are
+    printed beside from ``DP4A_1X1`` (a record, seeded inputs)."""
+    import torch
+    from thingino_accel_tpu_torch import kxk_bench as KB
+    from thingino_accel_tpu_torch.ops import cuda_build
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+
+    variants = {name: cuda_build.load_variant(
+        GEMM_SOURCE, flags, ("tat_mm_int8_fused_mma",))
+        for name, flags in GEMM_VARIANTS.items()}
+    dp4a_record = json.loads(DP4A_1X1.read_text())
+    dp4a = dp4a_record["ms"][DP4A_PATH[what]]
+
+    distinct: dict = {}
+    for kind, node, ep, widths, rs, env, ins, res, out in units:
+        m = env[ins[0]].numel() // widths[0]
+        n = (ep.cs if kind == "matmul" else ep.ep.cs).shape[0]
+        key = KB.gemm_key(kind, m, widths, n, ep) + (res is not None,)
+        distinct.setdefault(key, [kind, node, ep, widths, rs, env, ins, res,
+                                  out, 0])[9] += 1
+    rows = []
+    for key, (kind, node, ep, widths, rs, env, ins, res, out, count) in \
+            distinct.items():
+        m, n = key[1], key[3]
+        xs = [env[i].reshape(m, k) for i, k in zip(ins, widths)]
+        ws = KB.gemm_weights(eng, node, widths)
+        bias = eng.params[node.inputs[2]] if len(node.inputs) > 2 else None
+        r = env[res].reshape(m, n) if res is not None else None
+        call = KB.gemm_call(kind, xs, ws, bias, ep, r, rs)
+        got = call()
+        torch.cuda.synchronize()
+        label = KB.gemm_label(kind, m, widths, n, ep, r is not None)
+        single = kind == "matmul"
+        act = ep.act if single else ep.ep.act
+        if out is not None:
+            require(torch.equal(got, out.reshape(m, n)),
+                    f"{what} {label}: differs from the unit's own output")
+        else:
+            compare(got, KB.gemm_call(kind, xs, ws, bias, ep, r, rs,
+                                      plain=True)(), act, f"{what} {label}")
+        ms = time_ms(call, 20)
+        xcat = torch.cat(xs, 1) if len(xs) > 1 else xs[0]
+        wcat = torch.cat(ws, 1) if len(ws) > 1 else ws[0]
+        lib = library_ms(int_mm_call(xcat, wcat), label)
+        k = sum(widths)
+        ops = 2 * m * k * n
+        bms, side = bound(ops, m * k + n * k + 8 * n + m * n
+                          + (m * n if r is not None else 0))
+        same = single or ep.same_scale
+        plan = FK.gemm_plan(xs, n, same)
+        _, blocks = FK.gemm_occupancy(plan, widths, same, act)
+        row = {"path": what, "unit": label, "count": count, "ms": ms,
+               "tops": ops / ms / 1e9, "int_mm_ms": lib, "bound_ms": bms,
+               "bound_by": side, "plan": dataclasses.asdict(plan),
+               "blocks_per_sm": blocks, "split_ms": {}}
+        if single:
+            scales, e = ((1.0,), True, 1.0), ep
+        else:
+            scales, e = (ep.part_scales, ep.same_scale, ep.bias_scale), ep.ep
+        for name, vlib in variants.items():
+            def bare(vlib=vlib, xs=xs, ws=ws, bias=bias, e=e, sc=scales,
+                     r=r, rs=rs, o=got, plan=plan):
+                cuda_build.check(vlib.tat_mm_int8_fused_mma(
+                    *FK._gemm_args(xs, ws, bias, e, *sc, r, rs,
+                                   torch.empty_like(o), plan),
+                    torch.cuda.current_stream().cuda_stream),
+                    "tat_mm_int8_fused_mma (variant)")
+            row["split_ms"][name] = time_ms(bare, 20)
+        row["epilogue_share"] = 1 - row["split_ms"]["no_store"] / ms
+        row["product_share"] = 1 - row["split_ms"]["no_product"] / ms
+        row["dp4a_recorded_ms"] = dp4a.get(label)
+        rows.append(row)
+        print(f"[gemm] {what}: {label} x{count}: kernel {ms:.4f} ms, "
+              f"{row['tops']:.1f} T/s, _int_mm {lib}, bound {bms:.4f} ms "
+              f"({side}), bm {plan.bm} bn {plan.bn} kc {plan.kc} stages "
+              f"{plan.stages} tpb {plan.tiles_per_block}, {blocks} "
+              f"blocks/SM; split: epilogue {row['epilogue_share']:.3f}, "
+              f"product {row['product_share']:.3f}, without both "
+              f"{row['split_ms']['neither']:.4f} ms; dp4a (recorded) "
+              f"{row['dp4a_recorded_ms']} ms")
+    sums = {"units": sum(r["count"] for r in rows),
+            **{key: sum(r["count"] * (r[key] or 0.0) for r in rows)
+               for key in ("ms", "int_mm_ms", "bound_ms")}}
+    want = sum(1 for u in units)
+    require(sums["units"] == want, f"{what}: {sums['units']} units in the "
+                                   f"table, {want} 1x1 units")
+    sums["dp4a_recorded_ms"] = sum(r["count"] * (r["dp4a_recorded_ms"] or 0)
+                                   for r in rows)
+    print(f"[gemm] {what} per forward ({sums['units']} #1/#3 units): kernel "
+          f"{sums['ms']:.4f} ms, _int_mm {sums['int_mm_ms']:.4f} ms (where "
+          f"it runs), bound {sums['bound_ms']:.4f} ms; dp4a (recorded, "
+          f"{dp4a_record['device']}) {sums['dp4a_recorded_ms']:.4f} ms")
+    return {"rows": rows, "per_forward": sums}
+
+
+def planned_gemm_units(eng, rec: list) -> list:
+    """The #1/#3 units of a captured planned forward, for
+    :func:`gemm_table`."""
+    from thingino_accel_tpu_torch.runtime.executor import ConvUnit, MultiUnit
+    units = []
+    for u, reads, out in rec:
+        if isinstance(u, ConvUnit) and u.kind == "matmul":
+            units.append(("matmul", u.node, u.ep,
+                          [reads[u.x].shape[-1]], u.res_scale, reads,
+                          [u.x], u.residual, out))
+        elif isinstance(u, MultiUnit):
+            units.append(("multi", u.node, u.me, list(u.widths),
+                          u.res_scale, reads, list(u.parts), u.residual,
+                          out))
+    census = eng._fn.launch_census()
+    require(len(units) == census["matmul_int8_fused"]
+            + census["matmul_int8_fused_multi"], "1x1 units vs the census")
+    return units
 
 
 def compare_probe(got, ref, kind: str, stages: int, what: str) -> float:

@@ -1,6 +1,7 @@
 // A CPU stand-in for the CUDA runtime, enough to compile the port's
 // tensor-core kernels (chain_mma.cu, megakernel_probe.cu, add_one.cu,
-// conv_int8_lagged.cu, conv_int8_requant_mma.cu) with g++ and run
+// conv_int8_lagged.cu, conv_int8_requant_mma.cu, conv_int8_fused_mma.cu,
+// mm_int8_fused_mma.cu) with g++ and run
 // them on host memory: each block's threads are std::threads meeting at a
 // std::barrier (__syncthreads), blocks run one after another, the dynamic
 // shared memory is one static buffer. tests/test_torch_cuda_shim.py
@@ -57,6 +58,9 @@ struct alignas(16) int4 {
   int x, y, z, w;
 };
 inline int2 make_int2(int x, int y) { return int2{x, y}; }
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return uint4{x, y, z, w};
+}
 
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
@@ -120,6 +124,16 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __int2float_rn(int v) { return static_cast<float>(v); }
 inline int __float2int_rz(float v) { return static_cast<int>(v); }
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {
+  return static_cast<unsigned>(
+      ((static_cast<uint64_t>(hi) << 32) | lo) >> (s & 31));
+}
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline int __float_as_int(float v) {
+  int i;
+  std::memcpy(&i, &v, 4);
+  return i;
+}
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return static_cast<unsigned>((static_cast<uint64_t>(a) * b) >> 32);
 }

@@ -1,8 +1,9 @@
 """The tensor-core CUDA sources (the probes' ``chain_mma.cu``,
-``megakernel_probe.cu``, ``add_one.cu``, ``conv_int8_lagged.cu``, and the
+``megakernel_probe.cu``, ``add_one.cu``, ``conv_int8_lagged.cu``, the
 KxK conv core ``conv_mma_core.cuh`` under both its epilogue policies: the
 exact tier's ``conv_int8_requant_mma.cu`` and the serving tier's
-``conv_int8_fused_mma.cu``) compiled for the CPU with g++ and the shim
+``conv_int8_fused_mma.cu``, and the serving 1x1 GEMM of #1 and #3,
+``mm_int8_fused_mma.cu``) compiled for the CPU with g++ and the shim
 ``tests/cuda_shim/shim.h``, held against their plain versions
 (``ops.probe_kernels``, ``ops.requant_kernels``, ``ops.fused_kernels``):
 a rehearsal of
@@ -11,8 +12,9 @@ layouts without a card. It cannot show what nvcc or the card refuses.
 
 The sources are rewritten into a temporary directory: the cp.async and
 the ldmatrix / mma.sync blocks of ``mma_tile.cuh`` (between their
-``// ---`` markers) and the named barriers of ``conv_int8_lagged.cu``
-become calls of the shim's emulations, the dynamic shared memory its
+``// ---`` markers), the approximate reciprocal of ``epilogue.cuh`` (an
+exact one here: the Newton step then keeps it) and the named barriers of
+``conv_int8_lagged.cu`` become calls of the shim's emulations, the dynamic shared memory its
 static buffer, and each ``k<<<grid, block, smem, stream>>>(args)`` a call
 of ``shim_launch``. The shim runs the copies of a cp.async group only at
 the wait that covers it, the warp collectives by the PTX ISA's tables, and
@@ -47,11 +49,12 @@ from thingino_accel_tpu_torch.ops.quant import RoundMode
 SHIM = Path(__file__).resolve().parent / "cuda_shim" / "shim.h"
 SOURCES = ("chain_mma.cu", "megakernel_probe.cu", "add_one.cu",
            "conv_int8_lagged.cu", "conv_int8_requant_mma.cu",
-           "conv_int8_fused_mma.cu")
+           "conv_int8_fused_mma.cu", "mm_int8_fused_mma.cu")
 ENTRIES = ("tat_chain_mma", "tat_megakernel_1x1", "tat_megakernel_3x3",
            "tat_add_one", "tat_conv_int8_lagged", "tat_conv_int8_lagged_info",
            "tat_conv_int8_requant_mma", "tat_conv_int8_requant_mma_info",
-           "tat_conv_int8_fused_mma", "tat_conv_int8_fused_mma_info")
+           "tat_conv_int8_fused_mma", "tat_conv_int8_fused_mma_info",
+           "tat_mm_int8_fused_mma", "tat_mm_int8_fused_mma_info")
 
 _CP_ASYNC = """
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -69,6 +72,9 @@ inline void mma_s8(int (&d)[4], const unsigned (&a)[4],
                    const unsigned (&b)[2]) { shim_mma_s8(d, a, b); }
 inline void mma_bf16(float (&d)[4], const unsigned (&a)[4],
                      const unsigned (&b)[2]) { shim_mma_bf16(d, a, b); }
+"""
+_RCP = """
+inline float rcp_approx(float d) { return 1.0f / d; }
 """
 _BARS = """
 inline void bar_sync(int id, int count) { shim_bar_sync(id, count); }
@@ -89,6 +95,9 @@ def rewrite(text: str) -> str:
                         _CP_ASYNC)
         text = _between(text, "// --- ldmatrix / mma.sync",
                         "// --- end of ldmatrix / mma.sync", _MMA)
+    if "// --- rcp.approx" in text:
+        text = _between(text, "// --- rcp.approx", "// --- end of rcp.approx",
+                        _RCP)
     if "// --- named barriers" in text:
         text = _between(text, "// --- named barriers",
                         "// --- end of named barriers", _BARS)
@@ -656,3 +665,202 @@ def test_shim_conv_fused_mma_layout_and_refusals(shim):
         assert shim.tat_conv_int8_fused_mma_info(
             act, FK._MODE_CODE[mode], c, 3, 3, 1, th, tw, bn, ck, res,
             ctypes.byref(smem), ctypes.byref(blocks)) == 1
+
+
+# The serving 1x1 GEMM of #1 and #3 (mm_int8_fused_mma.cu): (K of each
+# part, N, act, per-part scales, residual). M = 293: two 128-row tiles and
+# a ragged one (four 64-row tiles and a ragged one); the parts' weights
+# are column slices of one [N, sum K] matrix; K = 16 (zero-filled to 32)
+# and unequal K; N = 16 (bn 16), 40 and 255 (ragged under every block);
+# the residual through 16-byte copies (N % 16 == 0) and byte by byte.
+GEMM_M = 293
+GEMM_CASES = {
+    "1part-k64-n64-none": ((64,), 64, "NONE", False, False),
+    "1part-k16-n16-silu": ((16,), 16, "SILU", False, False),
+    "1part-k64-n255-none": ((64,), 255, "NONE", False, False),
+    "1part-k32-n32-silu-res": ((32,), 32, "SILU", False, True),
+    "2part-k64+64-n128-silu-equal": ((64, 64), 128, "SILU", False, False),
+    "2part-k64+64-n128-silu-perpart": ((64, 64), 128, "SILU", True, False),
+    "4part-k16+32+64+128-n40-leaky-perpart": ((16, 32, 64, 128), 40,
+                                              "LEAKY_RELU", True, False),
+    "4part-k64x4-n255-relu-equal": ((64,) * 4, 255, "RELU", False, False),
+    "2part-k16+48-n40-none-perpart-res": ((16, 48), 40, "NONE", True, True),
+    "3part-k32x3-n64-relu-equal-res": ((32,) * 3, 64, "RELU", False, True),
+}
+
+
+def _gemm_operands(case, seed):
+    """x parts, weight column slices, bias, the epilogue (an ``Epilogue``
+    for one part, else a ``MultiEpilogue``), the residual."""
+    ks, n, act, per_part, res = case
+    rng = np.random.default_rng(seed)
+    xs = [_rng_int8(rng, (GEMM_M, k)) for k in ks]
+    wfull = _rng_int8(rng, (n, sum(ks)))
+    offs = np.cumsum((0,) + ks)
+    ws = [wfull[:, a:b] for a, b in zip(offs[:-1], offs[1:])]
+    bias = torch.from_numpy(rng.integers(-3000, 3000, n).astype(np.int32))
+    wscale = rng.uniform(0.005, 0.015, n).astype(np.float32)
+    out_scale = float(0.0137 * np.sqrt(sum(ks)))
+    if len(ks) == 1:
+        ep = FK.epilogue_rows(wscale, 0.05, out_scale, act, n, alpha=0.1)
+    else:
+        scales = ((0.038, 0.046, 0.047, 0.049)[:len(ks)] if per_part
+                  else (0.05,) * len(ks))
+        ep = FK.multi_epilogue(wscale, scales, out_scale, act, n, alpha=0.1,
+                               bias_scale=0.045 if per_part else 0.05)
+        assert ep.same_scale == (not per_part)
+    r = _rng_int8(rng, (GEMM_M, n)) if res else None
+    return xs, ws, bias, ep, r
+
+
+def _gemm_plain(xs, ws, bias, ep, r):
+    if isinstance(ep, FK.Epilogue):
+        return FK.matmul_int8_fused_plain(xs[0], ws[0], bias, ep, r, 0.37)
+    return FK.matmul_int8_fused_multi_plain(xs, ws, bias, ep, r, 0.37)
+
+
+def _shim_gemm(shim, xs, ws, bias, ep, r, plan):
+    n = ws[0].shape[0]
+    out = torch.full((xs[0].shape[0], n), 99, dtype=torch.int8)
+    if isinstance(ep, FK.Epilogue):
+        scales = (1.0,) * len(xs), True, 1.0, ep
+    else:
+        scales = ep.part_scales, ep.same_scale, ep.bias_scale, ep.ep
+    part_scales, same, bias_scale, e = scales
+    rc = shim.tat_mm_int8_fused_mma(
+        *FK._gemm_args(xs, ws, bias, e, part_scales, same, bias_scale, r,
+                       0.37, out, plan), None)
+    assert rc == 0, plan
+    return out
+
+
+@pytest.mark.parametrize("name", GEMM_CASES)
+def test_shim_gemm_mma_matches_plain(shim, name):
+    """The 1x1 GEMM under every plan the planner offers (both tile heights
+    and every channel block it takes for N), at runs of 2 tiles (runs that
+    cross tiles and a ragged last run), and the first plan at each ring
+    depth, at K bytes a stage of 32 (the parts in chunks) and without a
+    bias: equal to its plain version (SILU within its bound), every
+    element written."""
+    case = GEMM_CASES[name]
+    ks, n, act, per_part = case[:4]
+    xs, ws, bias, ep, r = _gemm_operands(case, len(name))
+    ref = _gemm_plain(xs, ws, bias, ep, r)
+    plans = FK.mm_plans(GEMM_M, n, ks, not per_part, H100)
+    assert {p.bm for p in plans} == {64, 128} or per_part
+    assert (16 in {p.bn for p in plans}) == (n <= 16)
+    first = plans[0]
+    variants = [dataclasses.replace(p, tiles_per_block=2) for p in plans]
+    variants += [dataclasses.replace(first, stages=st, tiles_per_block=1)
+                 for st in (2, 3, 4)]
+    variants.append(dataclasses.replace(first, kc=32, tiles_per_block=3))
+    for plan in variants:
+        _serving_close(_shim_gemm(shim, xs, ws, bias, ep, r, plan), ref, act)
+    _serving_close(_shim_gemm(shim, xs, ws, None, ep, r, first),
+                   _gemm_plain(xs, ws, None, ep, r), act)
+
+
+@pytest.mark.parametrize("per_part", [False, True], ids=["equal", "perpart"])
+@pytest.mark.parametrize("act", ["NONE", "RELU", "LEAKY_RELU", "SILU"])
+def test_shim_gemm_mma_each_act_and_branch(shim, act, per_part):
+    """Each act in both scale branches at 2 parts (K 16 + 96) -> 48, with a
+    residual of 16-byte copies except for LEAKY_RELU, which takes none."""
+    case = ((16, 96), 48, act, per_part, act != "LEAKY_RELU")
+    xs, ws, bias, ep, r = _gemm_operands(case, len(act) + per_part)
+    plan = FK.mm_plan(GEMM_M, 48, case[0], not per_part, H100)
+    _serving_close(_shim_gemm(shim, xs, ws, bias, ep, r, plan),
+                   _gemm_plain(xs, ws, bias, ep, r), act)
+
+
+def test_shim_gemm_mma_unaligned_operands(shim):
+    """The byte path: parts at odd byte offsets, a weight slice at a row
+    stride off 16, a residual and an output off 16-byte alignment; each
+    equal to the plain version."""
+    case = GEMM_CASES["2part-k16+48-n40-none-perpart-res"]
+    xs, ws, bias, ep, r = _gemm_operands(case, 3)
+    ref = _gemm_plain(xs, ws, bias, ep, r)
+
+    def shifted(t):
+        buf = torch.zeros(1 + t.numel(), dtype=torch.int8)
+        o = buf[1:].view(t.shape)
+        o.copy_(t)
+        return o
+    wfull = torch.zeros((40, 67), dtype=torch.int8)   # row stride 67
+    wfull[:, 1:17], wfull[:, 17:65] = ws
+    plan = FK.mm_plan(GEMM_M, 40, case[0], False, H100)
+    got = _shim_gemm(shim, [shifted(x) for x in xs],
+                     [wfull[:, 1:17], wfull[:, 17:65]], bias, ep, shifted(r),
+                     plan)
+    assert torch.equal(got, ref)
+    x1, w1, b1, e1, r1 = _gemm_operands(GEMM_CASES["1part-k32-n32-silu-res"],
+                                        4)
+    ref1 = _gemm_plain(x1, w1, b1, e1, r1)
+    out = shifted(torch.zeros_like(ref1))
+    x1o = [shifted(x1[0])]   # held: the call takes raw pointers
+    plan = FK.mm_plan(GEMM_M, 32, (32,), True, H100)
+    rc = shim.tat_mm_int8_fused_mma(
+        *FK._gemm_args(x1o, w1, b1, e1, (1.0,), True, 1.0, r1, 0.37, out,
+                       plan), None)
+    assert rc == 0
+    _serving_close(out, ref1, "SILU")
+
+
+def test_shim_gemm_mma_layout_and_refusals(shim):
+    """The kernel's shared memory is ``mm_smem``'s for every tile
+    height, channel block, stage width, ring depth, branch and act
+    (refused above the opt-in, and per-part at 128 x 128); LEAKY_RELU with
+    a residual, SILU_FAST, 5 parts, K = 0 and plans off the kernel's set
+    are refused."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    n = 0
+    for ks in [(64,), (16, 48), (128,) * 4, (2048,) * 4]:
+        for bm in FK.MM_BMS:
+            for bn in FK.MM_BNS + (16,):
+                for kc in (32, 128):
+                    for stages in FK.MM_STAGES:
+                        plan = FK.MmPlan(bm, bn, kc, stages, 1)
+                        want = FK.mm_smem(ks, bm, bn, kc, stages)
+                        for same in (True, False):
+                            for act in FK.ACTS[:4]:
+                                rc = shim.tat_mm_int8_fused_mma_info(
+                                    *FK._gemm_info_args(plan, ks, same, act),
+                                    ctypes.byref(smem), ctypes.byref(blocks))
+                                n += 1
+                                if want > H100.per_block or (
+                                        not same and bm == bn == 128):
+                                    assert rc == 1
+                                    continue
+                                assert rc == 0 and smem.value == want
+                                assert blocks.value == 233472 // (want + 1024)
+    assert n > 1000
+    ints = ctypes.c_int * FK.MAX_PARTS
+    bad = [(1, (64, 0, 0, 0), 64, 64, 64, 4), (1, (0, 0, 0, 0), 64, 64, 64, 4),
+           (1, (64, 0, 0, 0), 96, 64, 64, 4), (1, (64, 0, 0, 0), 64, 48, 64, 4),
+           (1, (64, 0, 0, 0), 64, 64, 48, 4), (1, (64, 0, 0, 0), 64, 64, 64, 5),
+           (1, (64, 0, 0, 0), 64, 64, 64, 1), (5, (64, 64, 64, 64), 64, 64, 64,
+                                               4)]
+    # 1 part at bm/bn/kc/stages 64/64/64/4 is good; then K = 0, bm 96, bn
+    # 48, kc 48, 5 and 1 stages, 5 parts
+    for i, (parts, ks, bm, bn, kc, stages) in enumerate(bad):
+        rc = shim.tat_mm_int8_fused_mma_info(
+            parts, ints(*ks), 1, 0, bm, bn, kc, stages, ctypes.byref(smem),
+            ctypes.byref(blocks))
+        assert rc == (0 if i == 0 else 1), (parts, ks, bm, bn, kc, stages)
+    assert shim.tat_mm_int8_fused_mma_info(
+        1, ints(64, 0, 0, 0), 1, FK._ACT_CODE["SILU_FAST"], 64, 64, 64, 4,
+        ctypes.byref(smem), ctypes.byref(blocks)) == 1
+    xs, ws, bias, ep, r = _gemm_operands(GEMM_CASES["1part-k32-n32-silu-res"],
+                                         5)
+    out = torch.empty((GEMM_M, 32), dtype=torch.int8)
+    plan = FK.mm_plan(GEMM_M, 32, (32,), True, H100)
+    leaky = FK.epilogue_rows(0.01, 0.05, 0.5, "LEAKY_RELU", 32)
+    assert shim.tat_mm_int8_fused_mma(
+        *FK._gemm_args(xs, ws, bias, leaky, (1.0,), True, 1.0, r, 0.37, out,
+                       plan), None) == 1
+    args = list(FK._gemm_args(xs, ws, bias, ep, (1.0,), True, 1.0, None, 0.37,
+                              out, plan))
+    args[15] = FK._ACT_CODE["SILU_FAST"]
+    assert shim.tat_mm_int8_fused_mma(*args, None) == 1
+    args[15], args[0] = FK._ACT_CODE["SILU"], 5
+    assert shim.tat_mm_int8_fused_mma(*args, None) == 1
+

@@ -30,7 +30,11 @@ its modes (each at the next narrower chunk, the weights resident and
 streamed), with its residual through both of its loads, on an input off
 16 bytes, and at every KxK conv of the four serving paths (planned and
 unplanned real yolov5n, planned zoo yolov5s, NanoDet) at batch 16; a plan
-it refuses raises. The probes' tensor-core kernels
+it refuses raises. The 1x1 GEMM that #1 and #3 both launch
+(``csrc/mm_int8_fused_mma.cu``) at every #1/#3 unit of the same four
+paths at batch 16, at every plan its planner offers (each ring depth, 32
+K bytes a stage) on the real yolov5n's K_i = 16 unit, SPPF's 4 parts, a
+head and a ragged case, with refused plans raising. The probes' tensor-core kernels
 (``ops.probe_kernels``: E1 ``chain_mma``, E3 ``megakernel_chain``, E4
 ``add_one``) against their plain versions over row counts off the block
 size, at every block, slab and sub-tile their launchers can pick on the
@@ -721,6 +725,153 @@ def test_serving_kxk_units_of_the_models(cuda, which):
         _close(dma, FK.conv2d_int8_halo_fused_plain(*args), ep.act)
         bs = got if res is None else FK.conv2d_int8_halo_fused(*args)
         assert torch.equal(dma, bs), label
+
+
+# the serving paths and their #1 + #3 launches a forward
+GEMM_PATHS = {"planned_yolov5n": 32, "unplanned_yolov5n": 42,
+              "zoo_yolov5s": 30, "nanodet": 16}
+
+
+@pytest.mark.parametrize("which", list(GEMM_PATHS))
+def test_gemm_units_of_the_models(cuda, which):
+    """Every 1x1 unit (#1 and #3, ``csrc/mm_int8_fused_mma.cu``) of the
+    planned and unplanned real yolov5n, the planned zoo yolov5s at 640 and
+    NanoDet-320, at batch 16 (int8 inputs and residuals from a seed, the
+    engine's weights, epilogues and part widths): each equal to its plain
+    version (SILU within its bound), one launch of its own counter."""
+    from thingino_accel_tpu_torch import kxk_bench as KB
+    eng, units = KB.gemm_units(which, cuda)
+    assert len(units) == GEMM_PATHS[which]
+    t = eng.graph.tensors
+    rng = np.random.default_rng(len(which))
+    for kind, node, ep, widths, res, rs in units:
+        oh, ow, n = t[node.outputs[0]].shape[1:]
+        m = 16 * oh * ow
+        xs = [_rand(rng, (m, k), cuda) for k in widths]
+        ws = KB.gemm_weights(eng, node, widths)
+        bias = eng.params[node.inputs[2]] if len(node.inputs) > 2 else None
+        r = _rand(rng, (m, n), cuda) if res is not None else None
+        name = ("matmul_int8_fused" if kind == "matmul"
+                else "matmul_int8_fused_multi")
+        before = FK.launches[name]
+        got = KB.gemm_call(kind, xs, ws, bias, ep, r, rs)()
+        torch.cuda.synchronize()
+        assert FK.launches[name] == before + 1
+        _close(got, KB.gemm_call(kind, xs, ws, bias, ep, r, rs, plain=True)(),
+               ep.act if kind == "matmul" else ep.ep.act)
+
+
+# (M, part widths, N, per-part scales): the planned real yolov5n's K_i =
+# 16 unit, SPPF's 4 parts, a head, a ragged M, unequal parts
+GEMM_PLAN_CASES = [(409600 // 16, (16, 16), 32, True),
+                   (6400, (128,) * 4, 256, True), (20000, (64,), 255, False),
+                   (1000, (40, 24, 8), 70, False)]
+
+
+@pytest.mark.parametrize("case", GEMM_PLAN_CASES, ids=str)
+def test_gemm_every_plan(cuda, case):
+    """The 1x1 GEMM at every plan its planner offers for the card, each
+    also at each ring depth and at 32 K bytes a stage, runs of 3 tiles:
+    equal to its plain version (SILU within its bound) at SILU with a
+    residual and at LEAKY_RELU without."""
+    m, widths, n, per_part = case
+    rng = np.random.default_rng(m + n)
+    xs = [_rand(rng, (m, k), cuda) for k in widths]
+    wfull = _rand(rng, (n, sum(widths)), cuda)
+    offs = np.cumsum((0,) + widths)
+    ws = [wfull[:, a:b] for a, b in zip(offs[:-1], offs[1:])]
+    bias = torch.from_numpy(rng.integers(-2000, 2000, n).astype(
+        np.int32)).to(cuda)
+    res = _rand(rng, (m, n), cuda)
+    scales = ((0.038, 0.046, 0.047, 0.049)[:len(widths)] if per_part
+              else [0.05] * len(widths))
+    plans = FK.mm_plans(m, n, widths, not per_part,
+                        FK.smem_limits(cuda))
+    assert plans
+    for act, r in (("SILU", res), ("LEAKY_RELU", None)):
+        me = FK.multi_epilogue(rng.uniform(0.005, 0.015, n).astype(
+            np.float32), scales, 0.9, act, n, alpha=0.1,
+            bias_scale=0.045 if per_part else None, device=cuda)
+        assert me.same_scale != per_part
+        ref = FK.matmul_int8_fused_multi_plain(xs, ws, bias, me, r, 0.4)
+        for plan in plans:
+            for variant in [dataclasses.replace(plan, stages=st,
+                                                tiles_per_block=3)
+                            for st in FK.MM_STAGES] + [
+                                dataclasses.replace(plan, kc=32)]:
+                out = torch.full((m, n), 99, dtype=torch.int8, device=cuda)
+                FK._launch_gemm(xs, ws, bias, me.ep, me.part_scales,
+                                me.same_scale, me.bias_scale, r, 0.4, out,
+                                variant)
+                torch.cuda.synchronize()
+                _close(out, ref, act)
+
+
+def test_gemm_refuses_what_it_cannot_run(cuda):
+    """A plan the kernel refuses raises (no fallback): per-part at 128 x
+    128, bn 48; so does SILU_FAST; the wrappers refuse LEAKY_RELU with a
+    residual before any launch."""
+    rng = np.random.default_rng(8)
+    xs = [_rand(rng, (256, 64), cuda), _rand(rng, (256, 32), cuda)]
+    ws = [_rand(rng, (128, 64), cuda), _rand(rng, (128, 32), cuda)]
+    me = FK.multi_epilogue(0.01, [0.04, 0.05], 0.9, "SILU", 128,
+                           device=cuda)
+    out = torch.empty((256, 128), dtype=torch.int8, device=cuda)
+    for plan in (FK.MmPlan(128, 128, 64, 4, 1), FK.MmPlan(64, 48, 64, 4, 1)):
+        with pytest.raises(RuntimeError, match="tat_mm_int8_fused_mma"):
+            FK._launch_gemm(xs, ws, None, me.ep, me.part_scales, False,
+                            me.bias_scale, None, 1.0, out, plan)
+    with pytest.raises(ValueError, match="SILU_FAST"):
+        FK.matmul_int8_fused(xs[0], ws[0], None, FK.epilogue_rows(
+            0.01, 0.05, 0.5, "SILU_FAST", 128, device=cuda))
+    before = dict(FK.launches)
+    with pytest.raises(ValueError, match="LEAKY_RELU"):
+        FK.matmul_int8_fused(xs[0], ws[0], None, FK.epilogue_rows(
+            0.01, 0.05, 0.5, "LEAKY_RELU", 128, device=cuda), out, 0.4)
+    assert FK.launches == before
+
+
+_RECIP_CHECK = r"""
+#include <cuda_runtime.h>
+#include "epilogue.cuh"
+__global__ void check(unsigned lo, unsigned n, unsigned long long* bad) {
+  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const float d = __uint_as_float(lo + i);
+    if (__float_as_uint(tat::recip_rn(d)) !=
+        __float_as_uint(__fdiv_rn(1.0f, d)))
+      atomicAdd(bad, 1ull);
+  }
+}
+extern "C" int run(unsigned lo, unsigned n, void* bad) {
+  check<<<4096, 256>>>(lo, n, static_cast<unsigned long long*>(bad));
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+def test_silu_reciprocal_is_the_ieee_division(cuda, tmp_path):
+    """The serving epilogue's SILU reciprocal (``tat::recip_rn``: the
+    approximate reciprocal and one fused Newton step, no branch) equals
+    ``__fdiv_rn(1.0f, d)`` for every float d in [1, 8.5e37), all 1.06e9 of
+    them, on this card."""
+    import ctypes
+    import subprocess
+    from thingino_accel_tpu_torch.ops import cuda_build
+    src = tmp_path / "recip_check.cu"
+    src.write_text(_RECIP_CHECK)
+    lib = tmp_path / "recip_check.so"
+    proc = subprocess.run(
+        [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-shared", "-I",
+         str(cuda_build.CSRC), "-o", str(lib), str(src)],
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:]
+    bad = torch.zeros(1, dtype=torch.int64, device=cuda)
+    lo = int(np.float32(1.0).view(np.uint32))
+    hi = int(np.float32(8.5e37).view(np.uint32))
+    rc = ctypes.CDLL(str(lib)).run(ctypes.c_uint(lo), ctypes.c_uint(hi - lo),
+                                   ctypes.c_void_p(bad.data_ptr()))
+    assert rc == 0 and int(bad.item()) == 0, (rc, int(bad.item()))
 
 
 # ---------------------------------------------------------------------------

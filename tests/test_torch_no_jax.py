@@ -5,7 +5,8 @@ machine lists none) and imports nothing of the JAX package.
   imports the package, runs a `.mars` model on the CPU, builds the zoo
   yolov5n and nanodet and runs them through the planned serving tier,
   runs the exact tier in full and compat mode, the KxK conv's
-  ``pipeline="dma"`` mode (its plain version on the CPU) and plan, one
+  ``pipeline="dma"`` mode (its plain version on the CPU) and plan, the
+  1x1 GEMM's plan and the multi-part 1x1, the letterbox's taps, one
   tiny chain of each probe (E1, E3, the ladder's kernel rung) and one tiny
   ``build()`` of E2's (``probes.pipeline``).
 - No module of the port and no line of ``chip_smoke.py`` holds an
@@ -78,6 +79,18 @@ SCRIPT = textwrap.dedent("""
                         FK.SmemLimits(132, 233472, 232448),
                         FK.serving_bns(16)).bn == 16
     assert "conv_int8_fused_mma.cu" in cuda_build.SOURCES
+    assert "mm_int8_fused_mma.cu" in cuda_build.SOURCES
+    assert not {"tat_mm_int8_fused", "tat_mm_multi_int8_fused"} & set(
+        cuda_build._SIGNATURES)
+    assert FK.mm_plan(16 * 160 * 160, 32, (16, 16), False,
+                      FK.SmemLimits(132, 233472, 232448)).kc == 32
+    me = FK.multi_epilogue(0.01, [0.04, 0.05], 0.9, "SILU", 8)
+    parts = [torch.ones((4, 16), dtype=torch.int8)] * 2
+    got = FK.matmul_int8_fused_multi(parts, [torch.ones((8, 16),
+                                                        dtype=torch.int8)] * 2,
+                                     None, me)
+    assert got.shape == (4, 8)
+    assert yolo.resize_taps(720, 360)[0].shape == (360, 4)
     from thingino_accel_tpu_torch.probes import megakernel, mxu_ceiling, wedge
     fn, x, w = mxu_ceiling.build("int4w", 16, 64, 1, 2, "cpu")
     assert fn(x, w).shape == (32, 64)

@@ -4,13 +4,10 @@
 //   acc[n, oy, ox, o] = sum_{ky,kx,c}
 //       x[n, oy sh - pt + ky dh, ox sw - pl + kx dw, c] * w[o, ky, kx, c]
 // then an epilogue policy on the fragments and one int8 store:
-//   - ExactEpilogue: requant_exact (epilogue.cuh; one per-tensor combined
-//     scale, either RoundMode, RELU after the clamp), the exact tier's #10
-//     and #11 (conv_int8_requant_mma.cu);
-//   - ServingEpilogue<ACT>: the serving epilogue (epilogue.cuh epilogue /
-//     act_requant: per-channel cs, the act a template constant so that its
-//     branches fold, the residual r[n, oy, ox, o] x res_scale after the
-//     act), the serving tier's #2 and #5 (conv_int8_fused_mma.cu).
+//   - ExactEpilogue (epilogue_policy.cuh): the exact tier's #10 and #11
+//     (conv_int8_requant_mma.cu);
+//   - ServingEpilogue<ACT> (epilogue_policy.cuh): the serving tier's #2
+//     and #5 (conv_int8_fused_mma.cu), with the residual r[n, oy, ox, o].
 // Each source that includes this header compiles its own copy (an
 // anonymous namespace), so a kernel's code depends only on its policy.
 //
@@ -89,6 +86,7 @@
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
+#include "epilogue_policy.cuh"
 #include "mma_tile.cuh"
 
 namespace {
@@ -198,61 +196,6 @@ __device__ __forceinline__ void tile_origin(const ConvGeom& g, int tile,
   oy0 = trow * g.TH;
   ox0 = (tile - trow * g.ntw) * g.TW;
 }
-
-// --- the epilogue policies ------------------------------------------------
-
-// The exact tier's: requant_exact with one per-tensor cs. Col: what a
-// lane keeps of one of its output channels.
-struct ExactEpilogue {
-  struct Params {
-    float cs;
-    int round_mode;
-    bool relu;
-  };
-  struct Col {
-    int b;
-  };
-  static constexpr bool kResidual = false;
-  static constexpr bool kBn16 = false;
-  __device__ __forceinline__ static Col col(const int* __restrict__ bias,
-                                            const Params&, int o, bool live) {
-    return {live && bias != nullptr ? bias[o] : 0};
-  }
-  __device__ __forceinline__ static int8_t apply(int acc, const Col& c,
-                                                 const Params& p, int) {
-    return tat::requant_exact(acc, c.b, p.cs, p.round_mode, p.relu);
-  }
-};
-
-// The serving tier's: per-channel cs, ACT, the residual (res null: none).
-// vec_res: 16-byte residual copies (O % 16 == 0, res 16-byte aligned).
-struct ServingParams {
-  const float* cs;
-  float inv_out, alpha;
-  const int8_t* res;
-  float res_scale;
-  int vec_res;
-};
-template <int ACT>
-struct ServingEpilogue {
-  using Params = ServingParams;
-  struct Col {
-    int b;
-    float cs;
-  };
-  static constexpr bool kResidual = true;
-  static constexpr bool kBn16 = true;
-  __device__ __forceinline__ static Col col(const int* __restrict__ bias,
-                                            const Params& p, int o,
-                                            bool live) {
-    return {live && bias != nullptr ? bias[o] : 0, live ? p.cs[o] : 0.0f};
-  }
-  __device__ __forceinline__ static int8_t apply(int acc, const Col& c,
-                                                 const Params& p, int r) {
-    return tat::epilogue(acc, c.b, c.cs, ACT, p.inv_out, p.alpha,
-                         p.res != nullptr, r, p.res_scale);
-  }
-};
 
 // --- slab mode: the ring's copies, 16 bytes each ---------------------------
 

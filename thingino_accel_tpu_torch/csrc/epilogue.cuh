@@ -1,13 +1,15 @@
-// Shared pieces of the fused int8 kernels (mm_int8_fused.cu,
-// mm_multi_int8_fused.cu, bneck_int8_fused.cu, sppf_int8_fused.cu,
-// dw_int8_fused.cu; the KxK conv core conv_mma_core.cuh under
-// conv_int8_fused_mma.cu) and of the exact tier's (requant_int8.cu; the
-// core under conv_int8_requant_mma.cu): the tile shape, the dp4a tile
-// product (the kernels that are not on the tensor cores), the serving
-// requantize epilogue with the single int8 store, and the exact tier's
-// requantize (requant_exact). The probes' tensor-core chains
-// (chain_mma.cuh, megakernel_probe.cu) and E2 (conv_int8_lagged.cu) take
-// the epilogue too.
+// Shared pieces of the fused int8 kernels. The dp4a tile product (the
+// kernels not yet on the tensor cores: mma_tile, load_row_word and
+// store_tile with the tile shape kBM x kBN) serves #4 sppf_int8_fused.cu,
+// #6 bneck_int8_fused.cu and the exact tier's #9 requant_int8.cu; #7
+// dw_int8_fused.cu takes the epilogue with dp4a taps of its own. The
+// serving requantize epilogue (epilogue / act_requant) is also the one
+// the tensor-core kernels apply through epilogue_policy.cuh (the 1x1 GEMM
+// mm_int8_fused_mma.cu of #1 and #3, the KxK core conv_mma_core.cuh under
+// conv_int8_fused_mma.cu of #2 and #5), and the exact tier's requantize
+// (requant_exact) the one under conv_int8_requant_mma.cu (#10, #11). The
+// probes' tensor-core chains (chain_mma.cuh, megakernel_probe.cu) and E2
+// (conv_int8_lagged.cu) take the epilogue too.
 //
 // The epilogue reproduces thingino_accel_tpu/ops/fused_kernels.py
 // _epilogue/_act_requant operation for operation:
@@ -61,6 +63,27 @@ __device__ __forceinline__ float sigmoid_fast(float x) {
   return __fadd_rn(0.5f, __fmul_rn(0.5f, __fdiv_rn(num, den)));
 }
 
+// --- rcp.approx: the hardware's approximate reciprocal (MUFU.RCP) ------------
+__device__ __forceinline__ float rcp_approx(float d) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
+  return r;
+}
+// --- end of rcp.approx -------------------------------------------------------
+
+// 1 / d rounded to nearest, for the SILU's d = 1 + expf(-pre) >= 1: the
+// approximate reciprocal and one fused Newton step (Markstein), with no
+// branch, equal to __fdiv_rn(1.0f, d) for every float d in [1, 8.5e37)
+// (tests/test_torch_gpu.py checks all of them on the card); 0 above,
+// where 1 / d < 1.2e-38 and pre <= -87 make pre / d round to the same
+// int8 as pre x 0 does, with or without a residual. The IEEE division's
+// slow-path branch kept the compiler from interleaving outputs.
+__device__ __forceinline__ float recip_rn(float d) {
+  const float r = rcp_approx(d);
+  const float e = __fmaf_rn(-d, r, 1.0f);
+  return d < 8.5e37f ? __fmaf_rn(r, e, r) : 0.0f;
+}
+
 // The residual joins after the activation and before x inv_out; the
 // wrappers refuse LEAKY_RELU with a residual (its alpha applies after
 // quantization), and the assert states it here. kActSiluFast is compiled
@@ -74,7 +97,7 @@ __device__ __forceinline__ int8_t act_requant(float pre, int act,
   if (act == kActRelu) {
     pre = fmaxf(pre, 0.0f);
   } else if (act == kActSilu) {
-    const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-pre)));
+    const float sig = recip_rn(__fadd_rn(1.0f, expf(-pre)));
     pre = __fmul_rn(pre, sig);
   }
   if constexpr (kSiluFast) {

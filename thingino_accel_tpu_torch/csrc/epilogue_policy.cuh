@@ -1,0 +1,85 @@
+// The epilogue policies of the tensor-core kernels: what a lane keeps of
+// one output channel (Col, loaded once a kernel) and the requantize of one
+// int32 sum into int8 (apply), on the fragments in registers:
+//   - ExactEpilogue: requant_exact (epilogue.cuh; one per-tensor combined
+//     scale, either RoundMode, RELU after the clamp), the exact tier's #10
+//     and #11 (conv_mma_core.cuh under conv_int8_requant_mma.cu);
+//   - ServingEpilogue<ACT>: the serving epilogue (epilogue.cuh epilogue /
+//     act_requant: per-channel cs, the act a template constant so that its
+//     branches fold, a residual r x res_scale after the act), the serving
+//     tier's KxK #2 and #5 (conv_mma_core.cuh under conv_int8_fused_mma.cu)
+//     and 1x1 #1 and #3 (mm_int8_fused_mma.cu).
+// Each source that includes this header compiles its own copy (an
+// anonymous namespace).
+#pragma once
+
+#include <cstdint>
+
+#include "epilogue.cuh"
+
+namespace {
+
+// The exact tier's: requant_exact with one per-tensor cs. Col: what a
+// lane keeps of one of its output channels.
+struct ExactEpilogue {
+  struct Params {
+    float cs;
+    int round_mode;
+    bool relu;
+  };
+  struct Col {
+    int b;
+  };
+  static constexpr bool kResidual = false;
+  static constexpr bool kBn16 = false;
+  __device__ __forceinline__ static Col col(const int* __restrict__ bias,
+                                            const Params&, int o, bool live) {
+    return {live && bias != nullptr ? bias[o] : 0};
+  }
+  __device__ __forceinline__ static int8_t apply(int acc, const Col& c,
+                                                 const Params& p, int) {
+    return tat::requant_exact(acc, c.b, p.cs, p.round_mode, p.relu);
+  }
+};
+
+// The serving tier's: per-channel cs, ACT, the residual (res null: none).
+// vec_res: 16-byte residual copies (O % 16 == 0, res 16-byte aligned).
+struct ServingParams {
+  const float* cs;
+  float inv_out, alpha;
+  const int8_t* res;
+  float res_scale;
+  int vec_res;
+};
+template <int ACT>
+struct ServingEpilogue {
+  using Params = ServingParams;
+  struct Col {
+    int b;
+    float cs;
+  };
+  static constexpr bool kResidual = true;
+  static constexpr bool kBn16 = true;
+  __device__ __forceinline__ static Col col(const int* __restrict__ bias,
+                                            const Params& p, int o,
+                                            bool live) {
+    return {live && bias != nullptr ? bias[o] : 0, live ? p.cs[o] : 0.0f};
+  }
+  __device__ __forceinline__ static int8_t apply(int acc, const Col& c,
+                                                 const Params& p, int r) {
+    return tat::epilogue(acc, c.b, c.cs, ACT, p.inv_out, p.alpha,
+                         p.res != nullptr, r, p.res_scale);
+  }
+  // the per-part-scale branch of the multi-part 1x1 (#3): the parts' f32
+  // sum, + bias x bias_scale (bf), x cs, then the act's tail
+  __device__ __forceinline__ static int8_t apply_parts(float accf, float bf,
+                                                       const Col& c,
+                                                       const Params& p,
+                                                       int r) {
+    return tat::act_requant(__fmul_rn(__fadd_rn(accf, bf), c.cs), ACT,
+                            p.inv_out, p.alpha, p.res != nullptr, r,
+                            p.res_scale);
+  }
+};
+
+}  // namespace

@@ -8,7 +8,7 @@
 // #10 and #11, are conv_int8_requant_mma.cu.
 //
 // What bounds it on the H100: the bytes (K and N at most 512 in the
-// models). Design: the serving matmul's 64 x 64 tile (mm_int8_fused.cu),
+// models). Design: the 64 x 64 dp4a tile of epilogue.cuh (mma_tile),
 // dp4a into int32 registers over K in 32-byte chunks staged through shared
 // memory, then requant_exact and one int8 store. Tensor cores, TMA and
 // tuning are later work.

@@ -1,12 +1,16 @@
-"""The serving tier's KxK convs, one by one, on the card: every distinct
-KxK conv (#2, ``fused_kernels.conv2d_int8_halo_fused``) of the four
-serving paths, timed through both of its entries (``pipeline=
-"blockspec"``, #2, with the conv's residual; ``"dma"``, #5, without)
-beside fp16 channels-last ``F.conv2d`` on the same shapes.
+"""The serving tier's convs, one by one, on the card: every distinct KxK
+conv (#2, ``fused_kernels.conv2d_int8_halo_fused``) of the four serving
+paths, timed through both of its entries (``pipeline="blockspec"``, #2,
+with the conv's residual; ``"dma"``, #5, without) beside fp16
+channels-last ``F.conv2d`` on the same shapes; and every distinct 1x1
+unit (#1 ``matmul_int8_fused`` and #3 ``matmul_int8_fused_multi``, with
+the unit's parts, scale branch and residual) through its entry beside
+``torch._int_mm`` (the parts' K concatenated; null where it refuses the
+shape).
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
-    python3 -m thingino_accel_tpu_torch.kxk_bench
+    python3 -m thingino_accel_tpu_torch.kxk_bench [--what kxk,gemm]
 
 The paths: the planned and the unplanned real yolov5n
 (``models/yolov5n_cal_int8.mars``), the planned zoo yolov5s at 640 (random
@@ -18,7 +22,7 @@ the median of CUDA-event spans over 20 calls behind a device spin. It
 needs only the entry points a user calls, so it times whatever kernel
 they launch. Prints one line a conv and the per-forward sums, and writes
 ``chiprun_out/kxk_bench.json``. It needs a CUDA device and never falls
-back to the CPU.
+back to the CPU. The 1x1 rows go to ``chiprun_out/gemm_bench.json``.
 """
 
 from __future__ import annotations
@@ -146,19 +150,128 @@ def bench_path(path: str, rng) -> dict:
     return {"rows": rows, "per_forward": sums}
 
 
+def gemm_units(path: str, device: str = "cuda") -> tuple:
+    """The path's engine and its 1x1 units, each ``(kind, node, epilogue,
+    part widths, residual name, res_scale)``: ``kind`` "matmul" (#1, an
+    ``Epilogue``, one part) or "multi" (#3, a ``MultiEpilogue``), in
+    schedule (or graph) order."""
+    from thingino_accel_tpu_torch.runtime.executor import ConvUnit, MultiUnit
+    eng = _engine(path, device)
+    if path == "unplanned_yolov5n":
+        t = eng.graph.tensors
+        units = [("matmul", n, eng._fn.epilogues[n.outputs[0]],
+                  [t[n.inputs[0]].shape[3]], None, 1.0)
+                 for n in eng._fn.nodes if n.op == "CONV2D"
+                 and n.attrs["kernel"] == (1, 1)
+                 and n.attrs["stride"] == (1, 1)]
+        return eng, units
+    units = []
+    for u in eng._fn.units:
+        if isinstance(u, ConvUnit) and u.kind == "matmul":
+            units.append(("matmul", u.node, u.ep,
+                          [eng.graph.tensors[u.x].shape[3]], u.residual,
+                          u.res_scale))
+        elif isinstance(u, MultiUnit):
+            units.append(("multi", u.node, u.me, list(u.widths), u.residual,
+                          u.res_scale))
+    return eng, units
+
+
+def gemm_key(kind: str, m: int, widths, n: int, ep) -> tuple:
+    """What makes two 1x1 units one row: the kind, rows, part widths,
+    channels, act and (for #3) the scale branch."""
+    act = ep.act if kind == "matmul" else ep.ep.act
+    same = True if kind == "matmul" else ep.same_scale
+    return kind, m, tuple(widths), n, act, same
+
+
+def gemm_label(kind: str, m: int, widths, n: int, ep, residual: bool
+               ) -> str:
+    kind, m, widths, n, act, same = gemm_key(kind, m, widths, n, ep)
+    parts = "+".join(str(k) for k in widths)
+    branch = "" if kind == "matmul" else (" equal" if same else " per-part")
+    return (f"{'#1' if kind == 'matmul' else '#3'} M={m} K={parts} N={n} "
+            f"{act}{branch}{' + residual' if residual else ''}")
+
+
+def gemm_call(kind: str, xs, ws, bias, ep, res, res_scale, plain=False):
+    """The unit as a call of its entry point (or its plain version)."""
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    if kind == "matmul":
+        fn = FK.matmul_int8_fused_plain if plain else FK.matmul_int8_fused
+        return lambda: fn(xs[0], ws[0], bias, ep, res, res_scale)
+    fn = (FK.matmul_int8_fused_multi_plain if plain
+          else FK.matmul_int8_fused_multi)
+    return lambda: fn(xs, ws, bias, ep, res, res_scale)
+
+
+def gemm_weights(eng, node, widths):
+    """The unit's weight as parts: column slices of its [N, sum K]."""
+    w = eng.params[node.inputs[1]]
+    w2 = w.reshape(w.shape[0], -1)
+    offs = np.cumsum([0] + list(widths))
+    return [w2[:, a:b] for a, b in zip(offs[:-1], offs[1:])]
+
+
+def bench_gemm_path(path: str, rng) -> dict:
+    eng, units = gemm_units(path)
+    t = eng.graph.tensors
+    distinct: dict = {}
+    for kind, node, ep, widths, res, rs in units:
+        hw = t[node.outputs[0]].shape[1:3]
+        m = BATCH * hw[0] * hw[1]
+        n = t[node.outputs[0]].shape[3]
+        key = gemm_key(kind, m, widths, n, ep) + (res is not None,)
+        distinct.setdefault(key, [kind, node, ep, widths, res, rs, 0])[6] += 1
+    rows = []
+    for key, (kind, node, ep, widths, res, rs, count) in distinct.items():
+        m, n = key[1], key[3]
+        xs = [torch.from_numpy(rng.integers(-128, 128, (m, k),
+                                            dtype=np.int8)).cuda()
+              for k in widths]
+        ws = gemm_weights(eng, node, widths)
+        bias = eng.params[node.inputs[2]] if len(node.inputs) > 2 else None
+        r = (torch.from_numpy(rng.integers(-128, 128, (m, n),
+                                           dtype=np.int8)).cuda()
+             if res is not None else None)
+        xcat = torch.cat(xs, 1) if len(xs) > 1 else xs[0]
+        wcat_t = torch.cat(ws, 1).t() if len(ws) > 1 else ws[0].t()
+        row = {"unit": gemm_label(kind, m, widths, n, ep, r is not None),
+               "count": count,
+               "ms": time_ms(gemm_call(kind, xs, ws, bias, ep, r, rs))}
+        try:
+            row["int_mm_ms"] = time_ms(lambda: torch._int_mm(xcat, wcat_t))
+        except RuntimeError:   # _int_mm takes K and N in multiples of 8
+            row["int_mm_ms"] = None
+        rows.append(row)
+        print(f"[gemm] {path}: {row['unit']} x{count}: {row['ms']:.4f} ms, "
+              f"_int_mm {row['int_mm_ms']}")
+    sums = {"units": sum(r["count"] for r in rows),
+            "ms": sum(r["count"] * r["ms"] for r in rows)}
+    print(f"[gemm] {path} per forward ({sums['units']} units): "
+          f"{sums['ms']:.4f} ms")
+    return {"rows": rows, "per_forward": sums}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paths", default=",".join(PATHS))
+    ap.add_argument("--what", default="kxk,gemm")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this bench runs on the card only")
-    rng = np.random.default_rng(0)
-    res = {"device": torch.cuda.get_device_name(0)}
-    for path in args.paths.split(","):
-        res[path] = bench_path(path, rng)
+    what = args.what.split(",")
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "kxk_bench.json").write_text(json.dumps(res, indent=1))
+    for part, bench, name in (("kxk", bench_path, "kxk_bench.json"),
+                              ("gemm", bench_gemm_path, "gemm_bench.json")):
+        if part not in what:
+            continue
+        rng = np.random.default_rng(0)
+        res = {"device": torch.cuda.get_device_name(0)}
+        for path in args.paths.split(","):
+            res[path] = bench(path, rng)
+        (out / name).write_text(json.dumps(res, indent=1))
     return 0
 
 

@@ -24,13 +24,13 @@ from typing import Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("mm_int8_fused.cu", "conv_int8_fused_mma.cu",
-           "mm_multi_int8_fused.cu", "bneck_int8_fused.cu",
+SOURCES = ("mm_int8_fused_mma.cu", "conv_int8_fused_mma.cu",
+           "bneck_int8_fused.cu",
            "sppf_int8_fused.cu", "dw_int8_fused.cu", "decode_fused.cu",
            "requant_int8.cu", "chain_mma.cu", "megakernel_probe.cu",
            "add_one.cu", "conv_int8_lagged.cu", "conv_int8_requant_mma.cu")
 HEADERS = ("epilogue.cuh", "mma_tile.cuh", "chain_mma.cuh",
-           "conv_mma_core.cuh")
+           "epilogue_policy.cuh", "conv_mma_core.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,10 +41,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # x, w, bias, cs, res, out, M, N, K, act, inv_out, alpha, res_scale,
-    # stream
-    "tat_mm_int8_fused": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _F, _F,
-                          _F, _P),
+    # n_parts, xs[4], ldx[4], ws[4], ldw[4], K[4], part_scales[4],
+    # same_scale, bias, bias_scale, cs, res, out, M, N, act, inv_out,
+    # alpha, res_scale, bm, bn, kc, stages, tiles_per_block, stream
+    "tat_mm_int8_fused_mma": (
+        _I, ctypes.POINTER(_P), ctypes.POINTER(_L), ctypes.POINTER(_P),
+        ctypes.POINTER(_I), ctypes.POINTER(_I), ctypes.POINTER(_F), _I, _P,
+        _F, _P, _P, _P, _L, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _P),
+    # n_parts, K[4], same_scale, act, bm, bn, kc, stages, -> smem bytes,
+    # blocks an SM
+    "tat_mm_int8_fused_mma_info": (_I, ctypes.POINTER(_I), _I, _I, _I, _I,
+                                   _I, _I, ctypes.POINTER(_I),
+                                   ctypes.POINTER(_I)),
     # x, w, bias, cs, res, out, batch, H, W, C, O, KH, KW, stride, pt, pl,
     # OH, OW, act, inv_out, alpha, res_scale, mode, tile_h, tile_w, bn, ck,
     # resident, tiles_per_block, stream
@@ -54,13 +62,6 @@ _SIGNATURES = {
     # -> smem bytes, blocks an SM
     "tat_conv_int8_fused_mma_info": (*(_I,) * 11, ctypes.POINTER(_I),
                                      ctypes.POINTER(_I)),
-    # n_parts, xs[4], ldx[4], ws[4], ldw[4], K[4], part_scales[4],
-    # same_scale, bias, bias_scale, cs, res, out, M, N, act, inv_out,
-    # alpha, res_scale, stream
-    "tat_mm_multi_int8_fused": (
-        _I, ctypes.POINTER(_P), ctypes.POINTER(_L), ctypes.POINTER(_P),
-        ctypes.POINTER(_I), ctypes.POINTER(_I), ctypes.POINTER(_F), _I, _P,
-        _F, _P, _P, _P, _L, _I, _I, _F, _F, _F, _P),
     # x, w1, b1, cs1, w2, b2, cs2, out, batch, H, W, C, CM, O, K, TH,
     # act1, inv1, alpha1, act2, inv2, alpha2, shortcut, res_scale, stream
     "tat_bneck_int8_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

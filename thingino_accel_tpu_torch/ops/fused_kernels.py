@@ -3,8 +3,12 @@ chain (bias + per-channel scale + activation [+ residual] + requantize)
 run before the single int8 write. Port of
 ``thingino_accel_tpu.ops.fused_kernels`` for the planned serving tier:
 
-- :func:`matmul_int8_fused` (1x1 convs), CUDA kernel
-  ``csrc/mm_int8_fused.cu``;
+- :func:`matmul_int8_fused` (1x1 convs, #1) and
+  :func:`matmul_int8_fused_multi` (a 1x1 conv over a CONCAT that is never
+  materialized, #3): one tensor-core kernel, CUDA
+  ``csrc/mm_int8_fused_mma.cu`` (``mma.sync`` from a ``cp.async`` ring
+  with resident weights, the serving epilogue of
+  ``csrc/epilogue_policy.cuh``), planned by :func:`mm_plan`;
 - :func:`conv2d_int8_halo_fused` (KxK convs at any square stride, the
   thin-channel stems included; #2, and with ``pipeline="dma"`` #5, the
   JAX ``conv2d_int8_folded(pipeline="dma")``): one tensor-core kernel,
@@ -12,8 +16,6 @@ run before the single int8 write. Port of
   ``csrc/conv_mma_core.cuh`` (``mma.sync`` from a ``cp.async`` slab ring,
   or its im2col mode), planned by :func:`conv_plan`, the planner the
   exact tier's #10/#11 share;
-- :func:`matmul_int8_fused_multi` (a 1x1 conv over a CONCAT that is never
-  materialized), CUDA kernel ``csrc/mm_multi_int8_fused.cu``;
 - :func:`bottleneck_int8_fused` (the C3 bottleneck, 1x1 -> KxK/1 [+x]),
   CUDA kernel ``csrc/bneck_int8_fused.cu``;
 - :func:`sppf_int8_fused` (three chained maxpools + 4-part 1x1), CUDA
@@ -424,7 +426,9 @@ def matmul_int8_fused(x: torch.Tensor, w: torch.Tensor,
                       res_scale: float = 1.0) -> torch.Tensor:
     """``int8 = requant(act((x @ w^T + b) * cs) [+ r * res_scale])``:
     x [M, K] int8, w [N, K] int8, bias [N] int32 or None, residual
-    [M, N] int8 or None -> int8 [M, N]."""
+    [M, N] int8 or None -> int8 [M, N]. On a CUDA tensor: the tensor-core
+    1x1 GEMM ``tat_mm_int8_fused_mma`` (``csrc/mm_int8_fused_mma.cu``,
+    one part) with :func:`gemm_plan`; on the CPU the plain version."""
     m, k = x.shape
     n, k_w = w.shape
     if k_w != k:
@@ -441,11 +445,9 @@ def matmul_int8_fused(x: torch.Tensor, w: torch.Tensor,
 
 
 def _launch_mm(x, w, bias, ep, residual, res_scale, out) -> None:
-    m, k = x.shape
-    cuda_build.check(cuda_build.load_library().tat_mm_int8_fused(
-        _ptr(x), _ptr(w), _ptr(bias), _ptr(ep.cs), _ptr(residual), _ptr(out),
-        m, w.shape[0], k, _kernel_act(ep.act), ep.inv_out, ep.alpha,
-        _f32(res_scale), _stream(out.device)), "tat_mm_int8_fused")
+    """#1 on the card: the one-part case of ``tat_mm_int8_fused_mma``."""
+    _launch_gemm([x], [w], bias, ep, (1.0,), True, 1.0, residual, res_scale,
+                 out)
 
 
 def conv2d_int8_halo_fused(
@@ -774,7 +776,10 @@ def matmul_int8_fused_multi(
     [M, K_i] int8 and w_i [N, K_i] int8 (each may be a view whose rows
     are strided, e.g. a column slice of the conv's [N, sum K_i] weight;
     the last stride must be 1), bias [N] int32 in units of
-    ``me.bias_scale * w_scale``, residual [M, N] int8 -> int8 [M, N]."""
+    ``me.bias_scale * w_scale``, residual [M, N] int8 -> int8 [M, N].
+    On a CUDA tensor: the kernel of :func:`matmul_int8_fused`,
+    ``tat_mm_int8_fused_mma`` (``csrc/mm_int8_fused_mma.cu``), over the
+    parts; on the CPU the plain version."""
     n_parts = len(xs)
     if not 1 <= n_parts <= MAX_PARTS or len(ws) != n_parts \
             or len(me.part_scales) != n_parts:
@@ -806,6 +811,115 @@ def matmul_int8_fused_multi(
 
 
 def _launch_multi(xs, ws, bias, me, residual, res_scale, out) -> None:
+    """#3 on the card: ``tat_mm_int8_fused_mma`` over the parts."""
+    _launch_gemm(xs, ws, bias, me.ep, me.part_scales, me.same_scale,
+                 me.bias_scale, residual, res_scale, out)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core 1x1 GEMM of #1 and #3 (``tat_mm_int8_fused_mma``,
+# ``csrc/mm_int8_fused_mma.cu``): its plan and shared-memory layout
+# ---------------------------------------------------------------------------
+
+MM_BMS = (128, 64)        # rows a tile: 2 or 1 m16 tiles a warp
+MM_BNS = (128, 64, 32)    # channels a block (8, 4, 2 n8 tiles a warp)
+MM_KC_MAX = 128           # K bytes a ring stage at most
+MM_STAGES = (4, 3, 2)     # ring depths, deepest first
+MM_THREADS = 256
+_MM_COL_BYTES = 8         # a channel's bias and cs (ServingEpilogue::Col)
+
+
+def mm_max_blocks(bm: int, bn: int) -> int:
+    """Blocks an SM the registers allow (``mm_min_blocks``): 1 for the
+    largest tile (128 x 128), else 2."""
+    return 1 if (bm // 64) * (bn // 16) >= 16 else 2
+
+
+def mm_smem(ks: Sequence[int], bm: int, bn: int, kc: int,
+            stages: int) -> int:
+    """Dynamic shared memory of one block of the 1x1 GEMM in bytes
+    (``mm_layout`` of ``csrc/mm_int8_fused_mma.cu``; no static bytes): the
+    ring of ``stages`` slots of bm rows at kc + 16 bytes, the resident
+    weights (bn rows at Kp + 16 bytes, Kp the sum of the parts' K rounded
+    up to 32 each), the staged output tile (bm rows at bn + 16 bytes; the
+    residual lands there too), and each channel's bias and cs and its bias
+    x bias_scale."""
+    kp = sum(_round_up(k, 32) for k in ks)
+    return (stages * bm * (kc + 16) + bn * (kp + 16) + bm * (bn + _OUT_PAD)
+            + bn * (_MM_COL_BYTES + 4))
+
+
+@dataclasses.dataclass(frozen=True)
+class MmPlan:
+    """The block of the 1x1 GEMM: ``bm`` rows a tile, ``bn`` output
+    channels (their weights resident), ``kc`` K bytes a ring stage, a ring
+    of ``stages``, ``tiles_per_block`` consecutive tiles a block."""
+    bm: int
+    bn: int
+    kc: int
+    stages: int
+    tiles_per_block: int
+
+
+@functools.lru_cache(maxsize=512)
+def mm_plans(m: int, n: int, ks: Tuple[int, ...], same_scale: bool,
+             limits: SmemLimits) -> Tuple[MmPlan, ...]:
+    """Every (bn, bm) the kernel can run within the shared memory, in the
+    order :func:`mm_plan` prefers them: the fewest channel blocks (each
+    reads x again), then the fewest channels issued, bn 16 offered where
+    N <= 16; bm 128 where the tiles fill the SMs and bn < 128 (bm 128 at
+    bn 128 holds one block an SM), else 64 (the per-part branch never
+    pairs bm 128 with bn 128: its f32 sums would spill);
+    each with the deepest ring that keeps its blocks an SM, ``kc`` the
+    widest part's K (rounded up to 32, at most 128) and its modelled run
+    of tiles (:func:`run_of_tiles`)."""
+    kc = min(MM_KC_MAX, max(_round_up(k, 32) for k in ks))
+    bns = MM_BNS + ((16,) if n <= SERVING_BN16_MAX_O else ())
+    bns = sorted(bns, key=lambda bn: (_cdiv(n, bn), _cdiv(n, bn) * bn))
+    plans = []
+    for bn in bns:
+        nbn = _cdiv(n, bn)
+        # bm 128 at bn 128 holds one block an SM (mm_max_blocks)
+        bms = (MM_BMS if _cdiv(m, 128) * nbn >= limits.sms and bn < 128
+               else MM_BMS[::-1])
+        for bm in bms:
+            if not same_scale and bm == 128 and bn == 128:
+                continue
+            max_blocks = mm_max_blocks(bm, bn)
+            fits = [st for st in MM_STAGES
+                    if mm_smem(ks, bm, bn, kc, st) <= limits.per_block]
+            if not fits:
+                continue
+            keep = [st for st in fits
+                    if max_blocks * (mm_smem(ks, bm, bn, kc, st)
+                                     + _BLOCK_RESERVED) <= limits.per_sm]
+            stages = (keep or fits)[0]
+            smem = mm_smem(ks, bm, bn, kc, stages)
+            plans.append(MmPlan(bm, bn, kc, stages, run_of_tiles(
+                1, _cdiv(m, bm), nbn, smem, limits, MM_THREADS, max_blocks)))
+    return tuple(plans)
+
+
+def mm_plan(m: int, n: int, ks: Sequence[int], same_scale: bool,
+            limits: SmemLimits) -> MmPlan:
+    """The first of :func:`mm_plans`; ValueError if no block fits."""
+    plans = mm_plans(m, n, tuple(ks), bool(same_scale), limits)
+    if not plans:
+        raise ValueError(f"no block of the 1x1 GEMM fits K = {tuple(ks)} "
+                         f"in {limits.per_block} bytes of shared memory")
+    return plans[0]
+
+
+def gemm_plan(xs: Sequence[torch.Tensor], n: int, same_scale: bool
+              ) -> MmPlan:
+    """The plan #1 and #3 launch on the card."""
+    return mm_plan(xs[0].shape[0], n, [x.shape[1] for x in xs], same_scale,
+                   smem_limits(xs[0].device))
+
+
+def _gemm_args(xs, ws, bias, ep, part_scales, same_scale, bias_scale,
+               residual, res_scale, out, plan: MmPlan) -> tuple:
+    """The arguments of ``tat_mm_int8_fused_mma`` up to the stream."""
     for t in list(xs) + list(ws):
         if t.shape[1] > 1 and t.stride(1) != 1:
             raise ValueError("CUDA kernel operands need unit inner stride")
@@ -814,15 +928,44 @@ def _launch_multi(xs, ws, bias, me, residual, res_scale, out) -> None:
     ints = ctypes.c_int * MAX_PARTS
     floats = ctypes.c_float * MAX_PARTS
     m, n = out.shape
-    cuda_build.check(cuda_build.load_library().tat_mm_multi_int8_fused(
-        len(xs), ptrs(*(x.data_ptr() for x in xs)),
-        longs(*(x.stride(0) for x in xs)),
-        ptrs(*(w.data_ptr() for w in ws)), ints(*(w.stride(0) for w in ws)),
-        ints(*(x.shape[1] for x in xs)), floats(*me.part_scales),
-        int(me.same_scale), _ptr(bias), me.bias_scale, _ptr(me.ep.cs),
-        _ptr(residual), _ptr(out), m, n, _kernel_act(me.ep.act),
-        me.ep.inv_out, me.ep.alpha, _f32(res_scale), _stream(out.device)),
-        "tat_mm_multi_int8_fused")
+    return (len(xs), ptrs(*(x.data_ptr() for x in xs)),
+            longs(*(x.stride(0) for x in xs)),
+            ptrs(*(w.data_ptr() for w in ws)),
+            ints(*(w.stride(0) for w in ws)), ints(*(x.shape[1] for x in xs)),
+            floats(*part_scales), int(same_scale), _ptr(bias),
+            _f32(bias_scale), _ptr(ep.cs), _ptr(residual), _ptr(out), m, n,
+            _kernel_act(ep.act), ep.inv_out, ep.alpha, _f32(res_scale),
+            plan.bm, plan.bn, plan.kc, plan.stages, plan.tiles_per_block)
+
+
+def _launch_gemm(xs, ws, bias, ep, part_scales, same_scale, bias_scale,
+                 residual, res_scale, out,
+                 plan: Optional[MmPlan] = None) -> None:
+    if plan is None:
+        plan = gemm_plan(xs, out.shape[1], same_scale)
+    cuda_build.check(cuda_build.load_library().tat_mm_int8_fused_mma(
+        *_gemm_args(xs, ws, bias, ep, part_scales, same_scale, bias_scale,
+                    residual, res_scale, out, plan), _stream(out.device)),
+        "tat_mm_int8_fused_mma")
+
+
+def gemm_occupancy(plan: MmPlan, ks: Sequence[int], same_scale: bool,
+                   act: str) -> Tuple[int, int]:
+    """``(shared memory bytes, blocks an SM holds)`` of the 1x1 GEMM of
+    ``act`` with ``plan`` on the current card."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    cuda_build.check(cuda_build.load_library().tat_mm_int8_fused_mma_info(
+        *_gemm_info_args(plan, ks, same_scale, act), ctypes.byref(smem),
+        ctypes.byref(blocks)), "tat_mm_int8_fused_mma_info")
+    return smem.value, blocks.value
+
+
+def _gemm_info_args(plan: MmPlan, ks: Sequence[int], same_scale: bool,
+                    act: str) -> tuple:
+    """The arguments of ``tat_mm_int8_fused_mma_info`` up to the outputs."""
+    ints = ctypes.c_int * MAX_PARTS
+    return (len(ks), ints(*ks), int(same_scale), _kernel_act(act), plan.bm,
+            plan.bn, plan.kc, plan.stages)
 
 
 @functools.lru_cache(maxsize=256)

@@ -66,7 +66,7 @@ from thingino_accel_tpu_torch.runtime.planner import pool_pads as _pool_pads
 _SUPPORTED = ("CONV2D", "DEPTHWISE_CONV2D", "MAXPOOL", "CONCAT", "ADD",
               "UPSAMPLE", "RESHAPE")
 _QUEUED = {
-    "GRU": "ROADMAP.md A.8 (second modality)",
+    "GRU": "ROADMAP.md A.6 (second modality)",
 }
 
 # kernel unit kind -> the launch counter of its wrapper
@@ -523,7 +523,7 @@ class Executor:
             if not _is_int8(in_t) or len(node.inputs) < 2 or (
                     dw and not _is_int8(self.tensors[node.outputs[0]])):
                 raise NotImplementedError(
-                    "float convs are the exact/fast tiers: ROADMAP.md A.3/A.6")
+                    "float convs are the exact/fast tiers: ROADMAP.md A.2/A.3")
             if dw:
                 if act not in FK.ACTS or (act == "SILU" and not (
                         planned and self.dw_kernel(node))):
@@ -545,7 +545,7 @@ class Executor:
                     "fused epilogue: ROADMAP.md A.3")
         if op == "UPSAMPLE" and node.attrs.get("mode", 0) == 1:
             raise NotImplementedError(
-                "bilinear UPSAMPLE: ROADMAP.md A.2 (reference ops)")
+                "bilinear UPSAMPLE: ROADMAP.md A.3 (exact-tier ops)")
 
     def scale(self, name: str) -> float:
         return self.tensors[name].quant.scale
@@ -968,9 +968,9 @@ EXACT_OPS = ("CONV2D", "DEPTHWISE_CONV2D", "MAXPOOL", "AVGPOOL",
              "GLOBAL_AVGPOOL", "RELU", "RELU6", "LEAKY_RELU", "SIGMOID",
              "SILU", "SILU_FUSED", "SOFTMAX", "CONCAT", "ADD", "MUL",
              "UPSAMPLE", "RESHAPE", "TRANSPOSE")
-_EXACT_QUEUED = {"GRU": "ROADMAP.md A.8 (second modality)",
-                 "CONV1D": "ROADMAP.md A.8 (second modality)",
-                 "CONV1D_TRANSPOSE": "ROADMAP.md A.8 (second modality)"}
+_EXACT_QUEUED = {"GRU": "ROADMAP.md A.6 (second modality)",
+                 "CONV1D": "ROADMAP.md A.6 (second modality)",
+                 "CONV1D_TRANSPOSE": "ROADMAP.md A.6 (second modality)"}
 _EXACT_LEFT = "ROADMAP.md A.3 (exact-tier ops not ported yet)"
 
 
