@@ -10,13 +10,17 @@ Phases:
 
 1. Device: name, power limit, torch / CUDA / nvcc versions.
 2. Build: compile the kernels in ``thingino_accel_tpu_torch/csrc/`` with
-   nvcc, one process per source, all started together (timed).
+   nvcc, one process per source, all started together (timed); count the
+   IDP4A, IMMA, LDSM and LDGSTS instructions of each kernel of the library
+   (``cuobjdump -sass``): the tensor-core kernels and #7 hold no IDP4A.
 3. Kernels vs their plain torch versions on the card at the paths'
    shapes (NONE, LEAKY_RELU and SILU, per-channel scales, residual modes;
    #3, which launches #1's tensor-core 1x1 GEMM
    ``csrc/mm_int8_fused_mma.cu``, at its lead shape in both scale
    branches, at the real yolov5n's K_i = 16 unit, SPPF's 4 parts, N = 255
-   and with a residual; the depthwise kernel at NanoDet's shapes; the head
+   and with a residual; the depthwise kernel #7 (``csrc/dw_int8_fused.cu``:
+   a halo tile in shared memory, a window of taps in registers) at
+   NanoDet's shapes, bit for bit (its SILU case within the bound); the head
    decode on the real yolov5n's heads at batch 16 and 1); median
    CUDA-event times of both.
 4. The main path: the planned serving tier (``Engine(precision=
@@ -46,11 +50,18 @@ Phases:
    ``StreamServer``, 4 batches of 16; launches per forward as the plan
    counts them (16 of #1, 1 of #2, 6 of #7; its 4 stride-2 depthwise
    convs are plain torch); every unit of one batch against its plain
-   version; one frame's heads on the card against the CPU path.
+   version; one frame's heads on the card against the CPU path. Then the
+   depthwise table: each distinct #7 unit of that batch on its recorded
+   input (equal to the unit's output), with its plan and blocks an SM, its
+   time beside fp16 ``F.conv2d`` with groups = C and its bound, the time of
+   the kernel it replaced (``records/dp4a_dw.json``) and the per-forward
+   sums.
 8. The exact tier (``Engine(precision="exact")``) on the zoo yolov5s at
    640 (random weights from seed 0, per-tensor scales): kernels #9, #10 and
    #11 against their plain versions at the model's lead shapes (both
-   RoundModes, RELU after the clamp, dilation 2, stride (2, 1)); the
+   RoundModes, RELU after the clamp, dilation 2, stride (2, 1); #9, the 1x1
+   GEMM ``csrc/mm_int8_fused_mma.cu`` under the exact epilogue, also with
+   the SILU table, at K = 1024 -> N = 512 and at a head, N = 255); the
    tensor-core KxK kernel of #10 and #11 (``csrc/conv_int8_requant_mma.cu``)
    at the model's 11 distinct KxK convs (18 a forward) at batch 16, bit for
    bit, each timed beside fp16 ``F.conv2d`` and its bound, with its plan,
@@ -60,8 +71,16 @@ Phases:
    letterbox -> int8 quantize -> network -> decode -> NMS through
    ``StreamServer`` (depth 2), 4 batches of 16 uint8 1280x720 frames:
    launches 4 x {#9: 42, #10: 11, #11: 7} plus one decode a batch and no
-   plain conv; every conv of one batch against its plain version; one
-   frame step by step on the card against the CPU path, and its heads.
+   plain conv, 85 steps a forward (each SILU in its conv's epilogue as a
+   256-entry table, no step of its own); every conv of one batch against
+   its plain version; one frame step by step on the card against the CPU
+   path, every step and the heads bit for bit. Then the exact 1x1 table:
+   each distinct #9 unit of that batch on its recorded input (equal to the
+   unit's output), with its plan and blocks an SM, its time beside
+   ``torch._int_mm`` and its bound, its split into epilogue, product and
+   the rest (the ``GEMM_VARIANTS`` builds), the time of the dp4a kernel it
+   replaced (``records/dp4a_exact_1x1.json``, which ran the SILU as a
+   step of its own) and the per-forward sums.
 9. #5 (``conv2d_int8_halo_fused(pipeline="dma")``), which launches the
    serving KxK kernel #2 launches (``csrc/conv_int8_fused_mma.cu``: the
    tensor-core core of ``csrc/conv_mma_core.cuh`` with the serving
@@ -124,6 +143,9 @@ Each path is run with the launch counters set to 0 just before it and
 read just after. Tolerances (as in ``tests/test_torch_fused_kernels.py``):
 NONE/RELU/LEAKY_RELU bit-exact; SILU at most 1 quantum on at most 0.1% of
 the elements (the kernel's ``expf`` and torch's sigmoid differ by ulps).
+The exact tier bit for bit everywhere: its activations are tables built
+on the host from the plain activation, so card and CPU read the same
+bytes.
 E2's lagged conv: as the fused kernels against its plain version, and
 bit for bit against #5 and #2 (the same epilogue code).
 The probes: int8 kinds bit-exact (SILU_FAST too), chained SILU kinds
@@ -220,7 +242,7 @@ KERNEL_INFO = {
         "source": "thingino_accel_tpu_torch/csrc/decode_fused.cu",
         "replaces": "thingino_accel_tpu/ops/decode_kernel.py:98"},
     "matmul_int8_requant": {
-        "source": "thingino_accel_tpu_torch/csrc/requant_int8.cu",
+        "source": "thingino_accel_tpu_torch/csrc/mm_int8_fused_mma.cu",
         "replaces": "thingino_accel_tpu/ops/pallas_kernels.py:120"},
     "conv2d_int8_halo": {
         "source": "thingino_accel_tpu_torch/csrc/conv_int8_requant_mma.cu",
@@ -278,8 +300,19 @@ GEMM_VARIANTS = {
     "neither": ("-DTAT_GEMM_NO_STORE", "-DTAT_GEMM_NO_PRODUCT")}
 # the dp4a kernels #1 and #3 ran before the 1x1 GEMM, each 1x1 unit timed by
 # kxk_bench in the checkout that had them (a record, not this run's
-# measurement), by the 1x1 table's path and unit
-DP4A_1X1 = REPO / "thingino_accel_tpu_torch" / "records" / "dp4a_1x1.json"
+# measurement), by the 1x1 table's path and unit; the same for #9's dp4a
+# kernel (csrc/requant_int8.cu) and #7's first port
+RECORDS = REPO / "thingino_accel_tpu_torch" / "records"
+DP4A_1X1 = RECORDS / "dp4a_1x1.json"
+DP4A_EXACT_1X1 = RECORDS / "dp4a_exact_1x1.json"
+DP4A_DW = RECORDS / "dp4a_dw.json"
+# kernels whose SASS must hold no IDP4A, by a piece of their names: the
+# 1x1 GEMM (#1, #3, #9), the KxK core (#2, #5, #10, #11), #7
+NO_DP4A = ("mm_mma_kernel", "conv_mma_kernel", "dw_int8_fused_kernel")
+# the instructions counted, by their SASS opcodes (dp4a is IDP.4A on sm_90)
+SASS_OPS = {"IDP4A": r"IDP\.4A", "IMMA": r"IMMA", "LDSM": r"LDSM",
+            "LDGSTS": r"LDGSTS"}
+EXACT_ZOO_S_STEPS = 85   # 60 convs, 25 other nodes; no act step
 DP4A_PATH = {"planned real yolov5n": "planned_yolov5n",
              "unplanned real yolov5n": "unplanned_yolov5n",
              "planned zoo yolov5s 640": "zoo_yolov5s",
@@ -478,13 +511,61 @@ def phase_build() -> float:
     for t in variants:
         t.join()
     secs = time.perf_counter() - t0
-    log = cuda_build.library_path().with_suffix(".log")
-    for line in log.read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    import re
+    log = cuda_build.library_path().with_suffix(".log").read_text()
+    regs, spills = [], []
+    # ptxas -v: a kernel's "Compiling entry function" line, then its spill
+    # and register lines
+    for name, body in re.findall(r"Compiling entry function '(\S+)'"
+                                 r"(.*?)(?=Compiling entry|\Z)", log, re.S):
+        used = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes spill stores", body)
+        regs.append(int(used.group(1)) if used else 0)
+        if spill and int(spill.group(1)) > 0:
+            spills.append(f"{name}: {spill.group(1)} bytes spilled")
+    print(f"[build] {len(regs)} kernels, {min(regs, default=0)}-"
+          f"{max(regs, default=0)} registers a thread; {len(spills)} spill:")
+    for line in spills:
+        print(f"[build]   {line}")
     print(f"[build] {len(cuda_build.SOURCES)} sources built and loaded in "
           f"{secs:.3f} s")
     return secs
+
+
+def sass_counts() -> dict:
+    """``SASS_OPS`` counted in each kernel of the library
+    (``cuobjdump -sass``, beside nvcc), summed by the ``NO_DP4A`` name
+    pieces and over all kernels; fails if a ``NO_DP4A`` kernel holds an
+    IDP4A or no such kernel is found, or if the library holds none at all
+    (the dp4a kernels #4 and #6 do: the count would be blind)."""
+    import re
+    from thingino_accel_tpu_torch.ops import cuda_build
+    tool = Path(cuda_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(cuda_build.library_path())],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts = {k: dict.fromkeys(SASS_OPS, 0) for k in NO_DP4A + ("all",)}
+    found = dict.fromkeys(NO_DP4A, 0)
+    for block in sass.split("Function : ")[1:]:
+        name = block.split(maxsplit=1)[0]
+        ops = {op: len(re.findall(r"\b" + pat + r"\b", block))
+               for op, pat in SASS_OPS.items()}
+        for piece in NO_DP4A + ("all",):
+            if piece == "all" or piece in name:
+                found[piece] = found.get(piece, 0) + 1
+                for op in SASS_OPS:
+                    counts[piece][op] += ops[op]
+    for piece in NO_DP4A:
+        require(found[piece] > 0, f"no kernel named *{piece}* in the SASS")
+        require(counts[piece]["IDP4A"] == 0,
+                f"{piece}: {counts[piece]['IDP4A']} IDP4A in the SASS")
+        print(f"[build] SASS of the {found[piece]} {piece} kernels: "
+              f"{counts[piece]}")
+    print(f"[build] SASS of all {found['all']} kernels: {counts['all']}")
+    require(counts["all"]["IDP4A"] > 0, "no IDP4A found in the library: "
+            "the SASS count does not see the dp4a kernels")
+    return {"kernels": found, "ops": counts}
 
 
 def time_case(results, phase, kernel, label, act, kern, plain, work=None,
@@ -1142,6 +1223,7 @@ def phase_nanodet(results: dict) -> dict:
     table = serving_kxk_table(eng, rec, "planned nanodet 320")
     gemm = gemm_table(eng, planned_gemm_units(eng, rec),
                       "planned nanodet 320")
+    dw = dw_table(eng, rec)
     cpu = Engine.from_mars(str(NANODET), serving, device="cpu")
     card, ref = eng.run(x[:1]), cpu.run(x[:1].cpu())
     for k in eng.output_names:
@@ -1153,19 +1235,22 @@ def phase_nanodet(results: dict) -> dict:
     return {"launches": counts, "census_per_forward": census,
             "fps_4batch": st.fps, "p50_ms_4batch": st.latency_ms(50),
             "p99_ms_4batch": st.latency_ms(99), "units_checked": n_units,
-            "serving_kxk": table, "gemm": gemm}
+            "serving_kxk": table, "gemm": gemm, "dw": dw}
 
 
 def phase_exact_kernels(results: dict) -> dict:
     """Kernels #9-#11 against their plain versions, bit for bit, at the
-    exact zoo yolov5s's lead shapes at batch 16, then both RoundModes and
-    RELU on one shape each, one dilation-2 case and one stride-(2, 1) case
-    (only #11 takes those two; no model here reaches them); then
-    :func:`exact_kxk_table`, whose numbers it returns."""
+    exact zoo yolov5s's lead shapes at batch 16, then #9 with the SILU
+    table at its lead, at SPPF's cv2 (K = 1024 -> N = 512) and at a head
+    (N = 255), both RoundModes and RELU on one shape each, one dilation-2
+    case and one stride-(2, 1) case (only #11 takes those two; no model
+    here reaches them); then :func:`exact_kxk_table`, whose numbers it
+    returns."""
     import numpy as np
     import torch
     from thingino_accel_tpu_torch.ops import requant_kernels as RK
     from thingino_accel_tpu_torch.ops.quant import RoundMode
+    from thingino_accel_tpu_torch.runtime.executor import act_table
 
     rng = np.random.default_rng(4)
     dev = torch.device("cuda")
@@ -1176,7 +1261,7 @@ def phase_exact_kernels(results: dict) -> dict:
             rng.integers(-128, 128, shape, dtype=np.int8)).to(dev)
 
     # (kernel, label, x shape, OHWI w shape, stride, dilation, pads,
-    # round mode, relu)
+    # round mode, relu[, the act of the conv's table])
     cases = [
         ("matmul_int8_requant", "1x1 16x80x80x128 -> 128",
          (16, 80, 80, 128), (128, 1, 1, 128), (1, 1), (1, 1), 0, half, False),
@@ -1186,6 +1271,18 @@ def phase_exact_kernels(results: dict) -> dict:
          (16, 640, 640, 3), (32, 6, 6, 3), (2, 2), (1, 1), 2, half, False),
         ("conv2d_int8", "3x3/s2 16x80x80x128 -> 256",
          (16, 80, 80, 128), (256, 3, 3, 128), (2, 2), (1, 1), 1, half, False),
+        ("matmul_int8_requant", "1x1 16x80x80x128 -> 128",
+         (16, 80, 80, 128), (128, 1, 1, 128), (1, 1), (1, 1), 0, half, False,
+         "SILU"),
+        ("matmul_int8_requant", "1x1 SPPF cv2 16x20x20x1024 -> 512",
+         (16, 20, 20, 1024), (512, 1, 1, 1024), (1, 1), (1, 1), 0, half,
+         False, "SILU"),
+        ("matmul_int8_requant", "1x1 head 16x80x80x128 -> 255",
+         (16, 80, 80, 128), (255, 1, 1, 128), (1, 1), (1, 1), 0, half,
+         False),
+        ("conv2d_int8_halo", "3x3/s1 16x40x40x128 -> 128",
+         (16, 40, 40, 128), (128, 3, 3, 128), (1, 1), (1, 1), 1, trunc,
+         False, "SILU"),
         ("matmul_int8_requant", "1x1 16x80x80x128 -> 128",
          (16, 80, 80, 128), (128, 1, 1, 128), (1, 1), (1, 1), 0, trunc,
          True),
@@ -1199,7 +1296,7 @@ def phase_exact_kernels(results: dict) -> dict:
         ("conv2d_int8", "3x3 stride (2,1) 16x40x40x64 -> 64",
          (16, 40, 40, 64), (64, 3, 3, 64), (2, 1), (1, 1), 1, trunc, False),
     ]
-    for kernel, label, xs, ws, st, dil, p, rm, relu in cases:
+    for kernel, label, xs, ws, st, dil, p, rm, relu, *act in cases:
         x, wt = rnd(xs), rnd(ws)
         o, kh, kw, c = ws
         bias = torch.from_numpy(
@@ -1209,6 +1306,7 @@ def phase_exact_kernels(results: dict) -> dict:
         pads = ((p, p), (p, p))
         args = (x, wt, bias, out_hw, st, dil, pads, 0.05, 0.01,
                 float(0.0137 * np.sqrt(kh * kw * c)), rm, relu)
+        lut = act_table(act[0], args[9]).to(dev) if act else None
         require(RK.route((kh, kw), st, dil, pads) == kernel,
                 f"{label} routes to {RK.route((kh, kw), st, dil, pads)}")
         if kernel == "matmul_int8_requant":
@@ -1217,17 +1315,21 @@ def phase_exact_kernels(results: dict) -> dict:
             library = conv_fp16_call(x, wt, st, p, dil)
         # the exact convs are compared bit for bit ("NONE")
         time_case(results, "exact", kernel,
-                  f"{label} {rm.name}{' relu' if relu else ''}", "NONE",
-                  lambda args=args: RK.conv2d_int8(*args),
-                  lambda args=args: RK.conv2d_int8(*args, plain=True),
-                  lambda out, x=x, wt=wt, o=o: conv_work(x, wt, out, 4 * o),
+                  f"{label} {rm.name}{' relu' if relu else ''}"
+                  f"{' + ' + act[0] + ' table' if act else ''}", "NONE",
+                  lambda args=args, t=lut: RK.conv2d_int8(*args, lut=t),
+                  lambda args=args, t=lut: RK.conv2d_int8(*args, plain=True,
+                                                          lut=t),
+                  lambda out, x=x, wt=wt, o=o, t=lut: conv_work(
+                      x, wt, out, 4 * o + (256 if t is not None else 0)),
                   library)
     return exact_kxk_table(rng, results)
 
 
 def exact_kxk_table(rng, results: dict) -> dict:
     """The tensor-core KxK kernel behind #10 and #11 at the 11 distinct KxK
-    convs of the exact zoo yolov5s at 640 (18 a forward), batch 16: each
+    convs of the exact zoo yolov5s at 640 (18 a forward), batch 16, each
+    with its SILU table as on the path: each
     bit for bit against its plain version, its median event time beside
     fp16 channels-last ``F.conv2d``'s and its bound, T/s, plan, mode and
     blocks an SM, and its split: the times of the same plan in the
@@ -1243,6 +1345,7 @@ def exact_kxk_table(rng, results: dict) -> dict:
     from thingino_accel_tpu_torch.ops import fused_kernels as FK
     from thingino_accel_tpu_torch.ops import requant_kernels as RK
     from thingino_accel_tpu_torch.ops.quant import RoundMode
+    from thingino_accel_tpu_torch.runtime.executor import act_table
 
     dev = torch.device("cuda")
     variants = {name: cuda_build.load_variant(
@@ -1260,21 +1363,22 @@ def exact_kxk_table(rng, results: dict) -> dict:
             k.ksize[0] * k.ksize[1] * k.c)))
         args = (x, wt, bias, (k.oh, k.ow), k.stride, k.dilation, k.pads,
                 *cs_args)
+        lut = act_table("SILU", cs_args[2]).to(dev)
         label = (f"{k.ksize[0]}x{k.ksize[1]}/s{k.stride[0]} {BATCH}x{k.h}x"
                  f"{k.w}x{k.c} -> {k.o}")
         mode = RK.conv_mode(x, wt)
         plan = RK.conv_requant_plan(BATCH, k.oh, k.ow, k.c, k.o, *k.ksize,
                                     k.stride, k.dilation, mode,
                                     FK.smem_limits(dev))
-        out = RK.conv2d_int8(*args)
+        out = RK.conv2d_int8(*args, lut=lut)
         torch.cuda.synchronize()
-        dmax = compare(out, RK.conv2d_int8(*args, plain=True), "NONE",
-                       f"kxk {label}")
+        dmax = compare(out, RK.conv2d_int8(*args, plain=True, lut=lut),
+                       "NONE", f"kxk {label}")
         note_err(results, k.kernel, dmax)
-        ms = time_ms(lambda: RK.conv2d_int8(*args), 20)
+        ms = time_ms(lambda: RK.conv2d_int8(*args, lut=lut), 20)
         lib = library_ms(conv_fp16_call(x, wt, k.stride, k.pads[0][0],
                                         k.dilation), label)
-        ops, nbytes = conv_work(x, wt, out, 4 * k.o)
+        ops, nbytes = conv_work(x, wt, out, 4 * k.o + 256)
         bms, side = bound(ops, nbytes)
         _, blocks = RK.conv_occupancy(plan, k.c, k.ksize, k.stride,
                                       k.dilation)
@@ -1286,11 +1390,11 @@ def exact_kxk_table(rng, results: dict) -> dict:
         row["split_ms"] = {}
         for name, vlib in variants.items():
             def bare(vlib=vlib, x=x, wt=wt, bias=bias, k=k, plan=plan, cs=cs,
-                     o=out):
+                     o=out, lut=lut):
                 cuda_build.check(vlib.tat_conv_int8_requant_mma(
                     *RK._conv_args(x, wt, bias, cs, k.stride, k.dilation,
                                    k.pads, RoundMode.HALF_AWAY, False,
-                                   torch.empty_like(o), plan),
+                                   torch.empty_like(o), plan, lut),
                     torch.cuda.current_stream(dev).cuda_stream),
                     f"tat_conv_int8_requant_mma ({name})")
             row["split_ms"][name] = time_ms(bare, 20)
@@ -1325,12 +1429,11 @@ def exact_kxk_table(rng, results: dict) -> dict:
 def check_exact_steps_against_cpu(eng, cpu, x) -> tuple:
     """One frame through the exact schedule on the card, each step held
     against the same step on the CPU path (the path the tests hold
-    against JAX) on the card's own inputs: convs and every non-float step
-    bit-exact, the SiLU steps within the SILU tolerance. Returns the
-    number of steps and the share of head values where the card's forward
-    and the CPU's differ end to end, with the largest difference."""
+    against JAX) on the card's own inputs, bit for bit: the convs with
+    their activation tables, and every other step. Returns the number of
+    steps and the share of head values where the card's forward and the
+    CPU's differ end to end, with the largest difference."""
     import torch
-    from thingino_accel_tpu_torch.runtime.executor import ActStep
     steps, cpu_steps = eng._fn.steps, cpu._fn.steps
     require(len(steps) == len(cpu_steps), "card and CPU schedules differ")
     env = dict(eng.params)
@@ -1341,11 +1444,8 @@ def check_exact_steps_against_cpu(eng, cpu, x) -> tuple:
         cenv.update({r: env[r].cpu() for r in step.reads})
         step.run(env)
         cstep.run(cenv)
-        float_step = isinstance(step, ActStep) or getattr(
-            step, "node", None) is not None and step.node.op in (
-            "SIGMOID", "SILU", "SILU_FUSED", "SOFTMAX") and not step.is_kernel
-        compare(env[step.out].cpu(), cenv[step.out],
-                "SILU" if float_step else "NONE", f"card vs CPU {step.out}")
+        compare(env[step.out].cpu(), cenv[step.out], "NONE",
+                f"card vs CPU {step.out}")
     card, ref = eng.run(x), cpu.run(x.cpu())
     diff = [(card[k].cpu().to(torch.int32) - ref[k].to(torch.int32)).abs()
             for k in eng.output_names]
@@ -1356,8 +1456,9 @@ def check_exact_steps_against_cpu(eng, cpu, x) -> tuple:
 
 def phase_exact(results: dict) -> dict:
     """The exact tier's pipeline: the zoo yolov5s at 640 through
-    StreamServer, letterbox -> int8 quantize -> network (#9-#11 and the
-    plain SiLU steps) -> decode (#8) -> NMS."""
+    StreamServer, letterbox -> int8 quantize -> network (#9-#11, each SiLU
+    a table in its conv's epilogue) -> decode (#8) -> NMS; then
+    :func:`exact_1x1_table` on the checked batch."""
     import numpy as np
     import torch
     from thingino_accel_tpu_torch.models import yolo as Y
@@ -1373,6 +1474,8 @@ def phase_exact(results: dict) -> dict:
     census = eng._fn.launch_census()
     require(census == EXACT_ZOO_S,
             f"exact zoo yolov5s census {census}, expected {EXACT_ZOO_S}")
+    require(len(eng._fn.steps) == EXACT_ZOO_S_STEPS,
+            f"{len(eng._fn.steps)} exact steps, expected {EXACT_ZOO_S_STEPS}")
     print(f"[exact] engine on {dev} in {time.perf_counter() - t0:.3f} s: "
           f"{len(eng._fn.steps)} steps, {len(eng._fn.units)} kernel units "
           f"per forward {census}")
@@ -1404,24 +1507,27 @@ def phase_exact(results: dict) -> dict:
 
     x = Y.quantize_input_int8(
         Y.letterbox_uint8(torch.from_numpy(frames[0]).to(dev), target))
-    n_units = len(check_units(eng, x, results, "exact zoo yolov5s"))
+    rec = check_units(eng, x, results, "exact zoo yolov5s")
+    n_units = len(rec)
     require(n_units == 60, f"{n_units} kernel convs captured, expected 60")
     print(f"[exact] kernel vs plain on every conv of one batch: {n_units} "
           "convs bit for bit")
+    table = exact_1x1_table(eng, rec)
     cpu = Engine(g, exact, device="cpu")
     n_steps, share, dmax = check_exact_steps_against_cpu(
         eng, cpu, check_letterbox_on_card(frames[0][:1], target))
-    print(f"[exact] card vs CPU, one frame: {n_steps} steps within "
-          f"tolerance; heads end to end: {share:.6f} of the values differ, "
-          f"max |diff| {dmax}")
-    require(dmax <= 1 and share <= SILU_MAX_FRAC,
+    print(f"[exact] card vs CPU, one frame: {n_steps} steps bit for bit; "
+          f"heads end to end: {share:.6f} of the values differ, max |diff| "
+          f"{dmax}")
+    require(dmax == 0 and share == 0,
             f"exact heads card vs CPU: share {share}, max {dmax}")
     return {"launches": counts, "census_per_forward": census,
             "fps_4batch": st.fps, "p50_ms_4batch": st.latency_ms(50),
             "p99_ms_4batch": st.latency_ms(99),
             "dets_per_frame_mean": float(np.mean(dets_per_frame)),
             "units_checked": n_units, "steps_card_vs_cpu": n_steps,
-            "heads_card_vs_cpu_share": share, "heads_card_vs_cpu_max": dmax}
+            "heads_card_vs_cpu_share": share, "heads_card_vs_cpu_max": dmax,
+            "exact_1x1": table}
 
 
 def phase_dma_kernels(results: dict) -> None:
@@ -1770,6 +1876,153 @@ def gemm_table(eng, units: list, what: str) -> dict:
     return {"rows": rows, "per_forward": sums}
 
 
+def exact_1x1_table(eng, rec: list) -> dict:
+    """The exact 1x1 table: every distinct #9 unit of the exact forward
+    ``rec`` (batch 16, its units just held against their plain versions),
+    re-run on its recorded input through #9's entry with its table: equal
+    to the unit's own output; its median event time and T/s beside
+    ``torch._int_mm`` and its bound (each input byte, the table and each
+    output byte once), the plan and blocks an SM, its split by the
+    ``GEMM_VARIANTS`` builds (the epilogue's share 1 - no_store / kernel,
+    the product's 1 - no_product / kernel, the time without both); the
+    per-forward sums. The dp4a kernel it replaced, timed by ``kxk_bench``
+    in the checkout that had it (seeded inputs, the SILU a step of its own
+    and not in that time), is printed beside from ``DP4A_EXACT_1X1``."""
+    import torch
+    from thingino_accel_tpu_torch import kxk_bench as KB
+    from thingino_accel_tpu_torch.ops import cuda_build
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.ops import requant_kernels as RK
+
+    variants = {name: cuda_build.load_variant(
+        GEMM_SOURCE, flags, ("tat_mm_int8_requant_mma",))
+        for name, flags in GEMM_VARIANTS.items()}
+    dp4a_record = json.loads(DP4A_EXACT_1X1.read_text())
+    distinct: dict = {}
+    for u, reads, out in rec:
+        if u.kind == "matmul_int8_requant":
+            key = KB.exact_1x1_key(eng, u, out.shape[0])
+            distinct.setdefault(key, [u, reads, out, 0])[3] += 1
+    rows = []
+    limits = FK.smem_limits(torch.device("cuda"))
+    for key, (u, reads, out, count) in distinct.items():
+        m, k, n = key[:3]
+        x2 = reads[u.node.inputs[0]].reshape(m, k)
+        call = KB.exact_1x1_call(eng, u, x2)
+        got = call()
+        torch.cuda.synchronize()
+        label = KB.exact_1x1_label(key)
+        require(torch.equal(got, out.reshape(m, n)),
+                f"exact 1x1 {label}: differs from the unit's own output")
+        ms = time_ms(call, 20)
+        w = eng.params[u.node.inputs[1]]
+        w2 = w.reshape(n, k)
+        bias = eng.params[u.node.inputs[2]] if len(u.node.inputs) > 2 \
+            else None
+        lib = library_ms(int_mm_call(x2, w2), label)
+        ops = 2 * m * k * n
+        bms, side = bound(ops, m * k + n * k + 4 * n + m * n
+                          + (256 if u.lut is not None else 0))
+        plan = RK.mm_requant_plan(m, n, k, limits)
+        _, blocks = RK.mm_occupancy(plan, k)
+        row = {"unit": label, "count": count, "ms": ms,
+               "tops": ops / ms / 1e9, "int_mm_ms": lib, "bound_ms": bms,
+               "bound_by": side, "plan": dataclasses.asdict(plan),
+               "blocks_per_sm": blocks, "split_ms": {}}
+        cs = RK.combined_scale(*u.scales)
+        for name, vlib in variants.items():
+            def bare(vlib=vlib, x2=x2, w2=w2, bias=bias, u=u, cs=cs, o=got,
+                     plan=plan):
+                cuda_build.check(vlib.tat_mm_int8_requant_mma(
+                    *RK._mm_args(x2, w2, bias, u.lut, cs, u.round_mode,
+                                 u.relu, torch.empty_like(o), plan),
+                    torch.cuda.current_stream().cuda_stream),
+                    "tat_mm_int8_requant_mma (variant)")
+            row["split_ms"][name] = time_ms(bare, 20)
+        row["epilogue_share"] = 1 - row["split_ms"]["no_store"] / ms
+        row["product_share"] = 1 - row["split_ms"]["no_product"] / ms
+        row["dp4a_recorded_ms"] = dp4a_record["ms"].get(label)
+        rows.append(row)
+        print(f"[exact1x1] {label} x{count}: kernel {ms:.4f} ms, "
+              f"{row['tops']:.1f} T/s, _int_mm {lib}, bound {bms:.4f} ms "
+              f"({side}), bm {plan.bm} bn {plan.bn} kc {plan.kc} stages "
+              f"{plan.stages} tpb {plan.tiles_per_block}, {blocks} "
+              f"blocks/SM; split: epilogue {row['epilogue_share']:.3f}, "
+              f"product {row['product_share']:.3f}, without both "
+              f"{row['split_ms']['neither']:.4f} ms; dp4a (recorded) "
+              f"{row['dp4a_recorded_ms']} ms")
+    sums = {"units": sum(r["count"] for r in rows),
+            **{key: sum(r["count"] * (r[key] or 0.0) for r in rows)
+               for key in ("ms", "int_mm_ms", "bound_ms",
+                           "dp4a_recorded_ms")}}
+    require(sums["units"] == EXACT_ZOO_S["matmul_int8_requant"],
+            f"{sums['units']} #9 units in the exact 1x1 table")
+    print(f"[exact1x1] per forward ({sums['units']} #9 units): kernel "
+          f"{sums['ms']:.4f} ms, _int_mm {sums['int_mm_ms']:.4f} ms (where "
+          f"it runs), bound {sums['bound_ms']:.4f} ms; dp4a (recorded, "
+          f"{dp4a_record['device']}) {sums['dp4a_recorded_ms']:.4f} ms")
+    return {"rows": rows, "per_forward": sums}
+
+
+def dw_table(eng, rec: list) -> dict:
+    """The depthwise table: every distinct #7 unit of the planned NanoDet
+    forward ``rec`` (batch 16), re-run on its recorded input through its
+    entry: equal to the unit's own output; its median event time beside
+    fp16 channels-last ``F.conv2d`` with groups = C and its bound, the plan
+    and blocks an SM; the per-forward sums. The kernel it replaced
+    (PR 3's thread-per-pixel kernel), timed by ``kxk_bench`` in the
+    checkout that had it (seeded inputs), is printed beside from
+    ``DP4A_DW``."""
+    import torch
+    from thingino_accel_tpu_torch import kxk_bench as KB
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+
+    record = json.loads(DP4A_DW.read_text())
+    distinct: dict = {}
+    for u, reads, out in rec:
+        if u.kind == "dw":
+            key = KB.dw_key(eng, u, out.shape[0])
+            distinct.setdefault(key, [u, reads, out, 0])[3] += 1
+    rows = []
+    limits = FK.smem_limits(torch.device("cuda"))
+    for key, (u, reads, out, count) in distinct.items():
+        env = dict(eng.params)
+        env.update(reads)
+        got = u.compute(env)
+        torch.cuda.synchronize()
+        label = KB.dw_label(key)
+        require(torch.equal(got, out),
+                f"dw {label}: differs from the unit's own output")
+        ms = time_ms(lambda: u.compute(env), 20)
+        x, w = reads[u.node.inputs[0]], eng.params[u.node.inputs[1]]
+        nb, h, wd, c = x.shape
+        lib = library_ms(conv_fp16_call(x, w, 1, u.pads[0][0], groups=c),
+                         label)
+        bms, side = bound(*conv_work(x, w, out, 8 * c, groups=c))
+        plan = FK.dw_plan(nb, *u.out_hw, c, *w.shape[:2], limits)
+        _, blocks = FK.dw_occupancy(plan, c, tuple(w.shape[:2]),
+                                    u.out_hw[1])
+        row = {"unit": label, "count": count, "ms": ms, "fp16_ms": lib,
+               "bound_ms": bms, "bound_by": side,
+               "plan": dataclasses.asdict(plan), "blocks_per_sm": blocks,
+               "old_recorded_ms": record["ms"].get(label)}
+        rows.append(row)
+        print(f"[dw] {label} x{count}: kernel {ms:.4f} ms, F.conv2d fp16 "
+              f"groups=C {lib} ms, bound {bms:.4f} ms ({side}), tile_h "
+              f"{plan.tile_h} groups {plan.groups}, {blocks} blocks/SM; "
+              f"the kernel it replaced (recorded) {row['old_recorded_ms']} ms")
+    sums = {"units": sum(r["count"] for r in rows),
+            **{key: sum(r["count"] * (r[key] or 0.0) for r in rows)
+               for key in ("ms", "fp16_ms", "bound_ms", "old_recorded_ms")}}
+    require(sums["units"] == PLANNED_NANODET["depthwise_conv2d_int8_fused"],
+            f"{sums['units']} #7 units in the depthwise table")
+    print(f"[dw] per forward ({sums['units']} #7 units): kernel "
+          f"{sums['ms']:.4f} ms, F.conv2d fp16 {sums['fp16_ms']:.4f} ms, "
+          f"bound {sums['bound_ms']:.4f} ms; the kernel it replaced "
+          f"(recorded, {record['device']}) {sums['old_recorded_ms']:.4f} ms")
+    return {"rows": rows, "per_forward": sums}
+
+
 def planned_gemm_units(eng, rec: list) -> list:
     """The #1/#3 units of a captured planned forward, for
     :func:`gemm_table`."""
@@ -2108,6 +2361,7 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         name, smi = phase_device()
         build_s = phase_build()
+        sass = sass_counts()
         results = {k: {"cases": [], "max_abs_err": 0, "launches": 0}
                    for k in KERNEL_INFO}
         phase_kernels(results)
@@ -2141,7 +2395,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "device": name, "nvidia_smi": smi, "build_s": build_s,
-        "total_s": time.perf_counter() - t_start, "kernels": results,
+        "total_s": time.perf_counter() - t_start, "sass": sass,
+        "kernels": results,
         "slice": slice_res, "unplanned": unplanned_res,
         "zoo_yolov5s": zoo_res, "nanodet": nanodet_res,
         "exact": exact_res, "exact_kxk": exact_kxk,

@@ -1,7 +1,7 @@
 // A CPU stand-in for the CUDA runtime, enough to compile the port's
 // tensor-core kernels (chain_mma.cu, megakernel_probe.cu, add_one.cu,
 // conv_int8_lagged.cu, conv_int8_requant_mma.cu, conv_int8_fused_mma.cu,
-// mm_int8_fused_mma.cu) with g++ and run
+// mm_int8_fused_mma.cu, dw_int8_fused.cu) with g++ and run
 // them on host memory: each block's threads are std::threads meeting at a
 // std::barrier (__syncthreads), blocks run one after another, the dynamic
 // shared memory is one static buffer. tests/test_torch_cuda_shim.py
@@ -57,7 +57,13 @@ struct alignas(8) int2 {
 struct alignas(16) int4 {
   int x, y, z, w;
 };
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
 inline int2 make_int2(int x, int y) { return int2{x, y}; }
+inline int4 make_int4(int x, int y, int z, int w) {
+  return int4{x, y, z, w};
+}
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
   return uint4{x, y, z, w};
 }

@@ -2,8 +2,9 @@
 ``megakernel_probe.cu``, ``add_one.cu``, ``conv_int8_lagged.cu``, the
 KxK conv core ``conv_mma_core.cuh`` under both its epilogue policies: the
 exact tier's ``conv_int8_requant_mma.cu`` and the serving tier's
-``conv_int8_fused_mma.cu``, and the serving 1x1 GEMM of #1 and #3,
-``mm_int8_fused_mma.cu``) compiled for the CPU with g++ and the shim
+``conv_int8_fused_mma.cu``, and the 1x1 GEMM ``mm_int8_fused_mma.cu`` of
+#1 and #3 and, under the exact policy, of #9), and the depthwise kernel
+#7 ``dw_int8_fused.cu``, compiled for the CPU with g++ and the shim
 ``tests/cuda_shim/shim.h``, held against their plain versions
 (``ops.probe_kernels``, ``ops.requant_kernels``, ``ops.fused_kernels``):
 a rehearsal of
@@ -13,7 +14,8 @@ layouts without a card. It cannot show what nvcc or the card refuses.
 The sources are rewritten into a temporary directory: the cp.async and
 the ldmatrix / mma.sync blocks of ``mma_tile.cuh`` (between their
 ``// ---`` markers), the approximate reciprocal of ``epilogue.cuh`` (an
-exact one here: the Newton step then keeps it) and the named barriers of
+exact one here: the Newton step then keeps it), the volatile shared
+load of ``dw_int8_fused.cu`` (a plain load here) and the named barriers of
 ``conv_int8_lagged.cu`` become calls of the shim's emulations, the dynamic shared memory its
 static buffer, and each ``k<<<grid, block, smem, stream>>>(args)`` a call
 of ``shim_launch``. The shim runs the copies of a cp.async group only at
@@ -49,12 +51,15 @@ from thingino_accel_tpu_torch.ops.quant import RoundMode
 SHIM = Path(__file__).resolve().parent / "cuda_shim" / "shim.h"
 SOURCES = ("chain_mma.cu", "megakernel_probe.cu", "add_one.cu",
            "conv_int8_lagged.cu", "conv_int8_requant_mma.cu",
-           "conv_int8_fused_mma.cu", "mm_int8_fused_mma.cu")
+           "conv_int8_fused_mma.cu", "mm_int8_fused_mma.cu",
+           "dw_int8_fused.cu")
 ENTRIES = ("tat_chain_mma", "tat_megakernel_1x1", "tat_megakernel_3x3",
            "tat_add_one", "tat_conv_int8_lagged", "tat_conv_int8_lagged_info",
            "tat_conv_int8_requant_mma", "tat_conv_int8_requant_mma_info",
            "tat_conv_int8_fused_mma", "tat_conv_int8_fused_mma_info",
-           "tat_mm_int8_fused_mma", "tat_mm_int8_fused_mma_info")
+           "tat_mm_int8_fused_mma", "tat_mm_int8_fused_mma_info",
+           "tat_mm_int8_requant_mma", "tat_mm_int8_requant_mma_info",
+           "tat_dw_int8_fused", "tat_dw_int8_fused_info")
 
 _CP_ASYNC = """
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -75,6 +80,11 @@ inline void mma_bf16(float (&d)[4], const unsigned (&a)[4],
 """
 _RCP = """
 inline float rcp_approx(float d) { return 1.0f / d; }
+"""
+_LDS = """
+inline int4 lds_s32x4(const int* p) {
+  return *reinterpret_cast<const int4*>(p);
+}
 """
 _BARS = """
 inline void bar_sync(int id, int count) { shim_bar_sync(id, count); }
@@ -98,6 +108,9 @@ def rewrite(text: str) -> str:
     if "// --- rcp.approx" in text:
         text = _between(text, "// --- rcp.approx", "// --- end of rcp.approx",
                         _RCP)
+    if "// --- ld.shared" in text:
+        text = _between(text, "// --- ld.shared", "// --- end of ld.shared",
+                        _LDS)
     if "// --- named barriers" in text:
         text = _between(text, "// --- named barriers",
                         "// --- end of named barriers", _BARS)
@@ -864,3 +877,207 @@ def test_shim_gemm_mma_layout_and_refusals(shim):
     args[15], args[0] = FK._ACT_CODE["SILU"], 5
     assert shim.tat_mm_int8_fused_mma(*args, None) == 1
 
+
+
+def _shifted(t):
+    """A copy of ``t`` one byte past 16-byte alignment."""
+    buf = torch.zeros(1 + t.numel(), dtype=torch.int8)
+    o = buf[1:].view(t.shape)
+    o.copy_(t)
+    return o
+
+
+# #9 on the 1x1 GEMM under the exact epilogue (tat_mm_int8_requant_mma):
+# (K, N, the table's act or None, RoundMode, RELU). M = GEMM_M; K = 1024 ->
+# N = 512 (SPPF's cv2 of the zoo yolov5s: several channel blocks, every
+# weight resident), N = 255 (the heads, at NONE: no table), K = 48 (off 32,
+# zero-filled to 64) and K = 40 (off 16: the byte path), each table act.
+HALF, TRUNC = RoundMode.HALF_AWAY, RoundMode.PLUS_HALF_TRUNC
+EXACT_GEMM_CASES = {
+    "k64-n64-silu-half": (64, 64, "SILU", HALF, False),
+    "k64-n64-silu-trunc": (64, 64, "SILU", TRUNC, False),
+    "k64-n64-relu-trunc": (64, 64, None, TRUNC, True),
+    "k1024-n512-silu": (1024, 512, "SILU", HALF, False),
+    "k128-n255-none": (128, 255, None, HALF, False),
+    "k48-n96-silu": (48, 96, "SILU", HALF, False),
+    "k40-n32-leaky": (40, 32, "LEAKY_RELU", TRUNC, False),
+    **{f"k96-n48-{a.lower()}": (96, 48, a, HALF, False)
+       for a in ("SIGMOID", "RELU6", "LEAKY_RELU", "TANH", "HARD_SWISH")},
+}
+
+
+def _exact_gemm_operands(case, seed):
+    """x, w, bias, the combined scale, the act's table (None: no act)."""
+    from thingino_accel_tpu_torch.runtime.executor import act_table
+    k, n, act = case[:3]
+    rng = np.random.default_rng(seed)
+    x, w = _rng_int8(rng, (GEMM_M, k)), _rng_int8(rng, (n, k))
+    bias = torch.from_numpy(rng.integers(-3000, 3000, n).astype(np.int32))
+    cs = RK.combined_scale(0.05, 0.01, float(0.0137 * np.sqrt(k)))
+    lut = act_table(act, 0.043, alpha=0.1) if act else None
+    return x, w, bias, cs, lut
+
+
+def _shim_exact_gemm(shim, x, w, bias, cs, lut, rm, relu, plan):
+    out = torch.full((x.shape[0], w.shape[0]), 99, dtype=torch.int8)
+    rc = shim.tat_mm_int8_requant_mma(
+        *RK._mm_args(x, w, bias, lut, cs, rm, relu, out, plan), None)
+    assert rc == 0, plan
+    return out
+
+
+@pytest.mark.parametrize("name", EXACT_GEMM_CASES)
+def test_shim_exact_gemm_matches_plain(shim, name):
+    """#9 under the exact epilogue, bit for bit against
+    ``matmul_int8_requant_plain`` and its table: every plan the planner
+    offers at runs of 2 tiles (K = 1024: its first two), the first plan at
+    each ring depth and at 32 K bytes a stage, and without a bias; every
+    element written (the output starts at 99)."""
+    k, n, act, rm, relu = EXACT_GEMM_CASES[name]
+    x, w, bias, cs, lut = _exact_gemm_operands(EXACT_GEMM_CASES[name],
+                                               len(name))
+    ref = RK.matmul_int8_requant_plain(x, w, bias, cs, rm, relu, lut)
+    plans = FK.mm_plans(GEMM_M, n, (k,), True, H100, exact=True)
+    first = plans[0]
+    variants = [dataclasses.replace(p, tiles_per_block=2)
+                for p in plans[:2 if k >= 1024 else None]]
+    if k < 1024:
+        variants += [dataclasses.replace(first, stages=st, tiles_per_block=1)
+                     for st in (2, 3, 4)]
+        variants.append(dataclasses.replace(first, kc=32, tiles_per_block=3))
+    for plan in variants:
+        got = _shim_exact_gemm(shim, x, w, bias, cs, lut, rm, relu, plan)
+        assert torch.equal(got, ref), plan
+    assert torch.equal(
+        _shim_exact_gemm(shim, x, w, None, cs, lut, rm, relu, first),
+        RK.matmul_int8_requant_plain(x, w, None, cs, rm, relu, lut))
+
+
+def test_shim_exact_gemm_unaligned_layout_and_refusals(shim):
+    """#9 with x, w and the output off 16-byte alignment (the byte path
+    and the word stores) equal to its plain version; its kernel's shared
+    memory is ``mm_smem(..., exact=True)``'s at every tile, channel block,
+    stage width and ring depth (the serving layout plus the 256-byte
+    table, 4-byte columns); a plan off the kernel's set and K = 0 are
+    refused."""
+    x, w, bias, cs, lut = _exact_gemm_operands(
+        EXACT_GEMM_CASES["k64-n64-silu-half"], 7)
+
+    ref = RK.matmul_int8_requant_plain(x, w, bias, cs, HALF, False, lut)
+    plan = RK.mm_requant_plan(GEMM_M, 64, 64, H100)
+    xo, wo, out = _shifted(x), _shifted(w), _shifted(torch.zeros_like(ref))
+    rc = shim.tat_mm_int8_requant_mma(
+        *RK._mm_args(xo, wo, bias, lut, cs, HALF, False, out, plan), None)
+    assert rc == 0 and torch.equal(out, ref)
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    for k in (16, 64, 1024):
+        for bm in FK.MM_BMS:
+            for bn in FK.MM_BNS + (16,):
+                for kc in (32, 128):
+                    for stages in FK.MM_STAGES:
+                        want = FK.mm_smem((k,), bm, bn, kc, stages, True)
+                        assert want == FK.mm_smem((k,), bm, bn, kc, stages) \
+                            - 4 * bn + 256
+                        rc = shim.tat_mm_int8_requant_mma_info(
+                            k, bm, bn, kc, stages, ctypes.byref(smem),
+                            ctypes.byref(blocks))
+                        if want > H100.per_block:
+                            assert rc == 1
+                            continue
+                        assert rc == 0 and smem.value == want
+    for bad in [(0, 64, 64, 64, 4), (64, 96, 64, 64, 4), (64, 64, 48, 64, 4),
+                (64, 64, 64, 48, 4), (64, 64, 64, 64, 5)]:
+        assert shim.tat_mm_int8_requant_mma_info(
+            *bad, ctypes.byref(smem), ctypes.byref(blocks)) == 1, bad
+
+
+# #7, the depthwise kernel: (batch, H, W, C, KH, KW, pt, pl, OH, OW, act).
+# NanoDet's 3x3 with 96 channels (one slab of 6 groups or more slabs),
+# C = 37 (the byte path, a ragged group), 272 channels (17 groups: two
+# slabs at most), a 5x5 (the kernel that reads its taps from shared
+# memory), a 3x2 window with pt 0 / pl 1 and declared output rows and
+# columns past the image (their taps read zero).
+DW_CASES = {
+    "3x3-c96-leaky": (2, 10, 12, 96, 3, 3, 1, 1, 10, 12, "LEAKY_RELU"),
+    "3x3-c37-leaky": (2, 9, 11, 37, 3, 3, 1, 1, 9, 11, "LEAKY_RELU"),
+    "3x3-c272-relu": (1, 5, 6, 272, 3, 3, 1, 1, 5, 6, "RELU"),
+    "5x5-c32-silu": (1, 7, 8, 32, 5, 5, 2, 2, 7, 8, "SILU"),
+    "3x2-c16-none-past": (1, 6, 7, 16, 3, 2, 0, 1, 8, 9, "NONE"),
+}
+
+
+def _dw_operands(case, seed):
+    nb, h, wd, c, kh, kw, pt, pl, oh, ow, act = case
+    rng = np.random.default_rng(seed)
+    x, w = _rng_int8(rng, (nb, h, wd, c)), _rng_int8(rng, (kh, kw, c))
+    bias = torch.from_numpy(rng.integers(-2000, 2000, c).astype(np.int32))
+    ep = FK.epilogue_rows(rng.uniform(0.005, 0.015, c).astype(np.float32),
+                          0.01, 0.05, act, c, alpha=0.1)
+    pads = ((pt, 0), (pl, 0))
+    return x, w, bias, ep, (oh, ow), pads
+
+
+def _shim_dw(shim, x, w, bias, ep, out_hw, pads, plan, out=None):
+    if out is None:
+        out = torch.full((x.shape[0],) + tuple(out_hw) + (x.shape[3],), 99,
+                         dtype=torch.int8)
+    rc = shim.tat_dw_int8_fused(
+        *FK._dw_args(x, w, bias, ep, pads, out, plan), None)
+    assert rc == 0, plan
+    return out
+
+
+@pytest.mark.parametrize("name", DW_CASES)
+def test_shim_dw_matches_plain(shim, name):
+    """#7 against ``depthwise_conv2d_int8_fused_plain`` (SILU within its
+    bound, the rest bit for bit) at the planner's first plan, at tile
+    heights that leave a ragged last tile of rows, at 1 channel group a
+    block and the most the kernel takes, and without a bias; every element
+    written (the output starts at 99)."""
+    case = DW_CASES[name]
+    nb, h, wd, c, kh, kw, pt, pl, oh, ow, act = case
+    x, w, bias, ep, out_hw, pads = _dw_operands(case, len(name))
+    ref = FK.depthwise_conv2d_int8_fused_plain(x, w, bias, ep, out_hw, pads)
+    first = FK.dw_plan(nb, oh, ow, c, kh, kw, H100)
+    groups = -(-c // 16)
+    plans = {first, FK.DwPlan(1, 1), FK.DwPlan(4, min(groups, 16)),
+             FK.DwPlan(3, 2), FK.DwPlan(oh, 1)}
+    assert oh % 4 or oh % 3   # a ragged last tile
+    for plan in sorted(plans, key=str):
+        _serving_close(_shim_dw(shim, x, w, bias, ep, out_hw, pads, plan),
+                       ref, act)
+    _serving_close(_shim_dw(shim, x, w, None, ep, out_hw, pads, first),
+                   FK.depthwise_conv2d_int8_fused_plain(x, w, None, ep,
+                                                        out_hw, pads), act)
+
+
+def test_shim_dw_unaligned_layout_and_refusals(shim):
+    """#7 with x, w and the output off 16-byte alignment (byte loads and
+    byte stores) equal to its plain version; the kernel's shared memory is
+    ``dw_smem``'s; a plan off its set (0 rows, 0 or 17 groups) and
+    SILU_FAST are refused."""
+    case = DW_CASES["3x3-c96-leaky"]
+    x, w, bias, ep, out_hw, pads = _dw_operands(case, 11)
+    ref = FK.depthwise_conv2d_int8_fused_plain(x, w, bias, ep, out_hw, pads)
+
+    plan = FK.DwPlan(3, 6)
+    out = _shifted(torch.zeros_like(ref))
+    _shim_dw(shim, _shifted(x), _shifted(w), bias, ep, out_hw, pads, plan, out)
+    assert torch.equal(out, ref)
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    for c, kh, kw, ow in [(96, 3, 3, 40), (37, 5, 5, 13), (384, 3, 3, 10)]:
+        for th in (1, 2, 7):
+            for groups in (1, 3, 16):
+                rc = shim.tat_dw_int8_fused_info(c, kh, kw, ow, th, groups,
+                                                 ctypes.byref(smem),
+                                                 ctypes.byref(blocks))
+                assert rc == 0 and smem.value == FK.dw_smem(ow, kh, kw, th,
+                                                            groups)
+    for th, groups in [(0, 1), (1, 0), (1, 17)]:
+        assert shim.tat_dw_int8_fused_info(
+            96, 3, 3, 40, th, groups, ctypes.byref(smem),
+            ctypes.byref(blocks)) == 1
+    args = list(FK._dw_args(x, w, bias, ep, pads, torch.empty_like(ref),
+                            plan))
+    args[15] = FK._ACT_CODE["SILU_FAST"]
+    assert shim.tat_dw_int8_fused(*args, None) == 1

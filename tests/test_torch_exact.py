@@ -106,7 +106,7 @@ def check_nodes_teacher_forced(jeng, jacts, eng):
         _close(env[out].numpy(), ref, float_step, f"{node.op} {out}")
         if node.op == "CONV2D":
             unit = ExactConvUnit(ex, node)
-            pre = unit.compute(env)
+            pre = unit.compute(env, act=False)
             w_hwio = jeng._np_params[node.inputs[1]]
             bias = (jnp.asarray(jeng._np_params[node.inputs[2]])
                     if len(node.inputs) > 2 else None)

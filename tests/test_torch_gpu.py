@@ -17,11 +17,16 @@ shapes. The head decode (kernel #8) is held against its plain version on
 the CPU: classes exact, boxes within rtol 1e-6 / atol 1e-5, conf within
 rtol 1e-6 / atol 1e-7, and the detections after NMS equal. The exact
 tier's kernels #9-#11 (``ops.requant_kernels``) are bit-exact against
-their plain versions in both RoundModes, with and without RELU, at the
-zoo yolov5s's lead shapes and at the edge cases: ragged edges, the byte
-path, the stem, asymmetric pads, dilation 2 and stride (2, 1); the
-tensor-core KxK kernel behind #10 and #11 also at every plan of both its
-modes and at all 11 distinct KxK convs of the zoo yolov5s. The serving
+their plain versions in both RoundModes, with and without RELU and with
+an activation table, at the zoo yolov5s's lead shapes and at the edge
+cases: ragged edges, the byte path, the stem, asymmetric pads, dilation 2
+and stride (2, 1); the tensor-core KxK kernel behind #10 and #11 also at
+every plan of both its modes and at all 11 distinct KxK convs of the zoo
+yolov5s; #9, the 1x1 GEMM under the exact epilogue, at every plan its
+planner offers (K = 1024 -> N = 512, N = 255, K off 32 and off 16), each
+table act, and every distinct #9 unit of the zoo yolov5s. The depthwise
+kernel #7 at every plan its planner offers for NanoDet's five shapes and
+a C = 37 case, and at forced tile heights with a ragged last tile. The serving
 KxK conv, which #2 and #5 (``pipeline="dma"``) both launch (the same core
 with the serving epilogue), equals its plain version and, through both
 entries, itself bit for bit: on the five cases of
@@ -359,6 +364,38 @@ def test_dw_kernel_matches_plain(cuda, act, case):
         torch.cuda.synchronize()
         _close(out, FK.depthwise_conv2d_int8_fused_plain(x, wt, b, ep,
                                                          (h, w), pads), act)
+
+
+# #7 at every plan: NanoDet-320's five shapes at batch 2 and C = 37
+DW_PLAN_CASES = [(2, 40, 40, 96), (2, 20, 20, 192), (2, 10, 10, 384),
+                 (2, 20, 20, 96), (2, 10, 10, 96), (2, 13, 11, 37)]
+
+
+@pytest.mark.parametrize("case", DW_PLAN_CASES,
+                         ids=lambda c: "b{}h{}w{}c{}".format(*c))
+def test_dw_kernel_every_plan(cuda, case):
+    """Every plan ``dw_plans`` offers (at most 40, cheapest first) and
+    forced tile heights with a ragged last tile, at NanoDet's LEAKY_RELU:
+    bit for bit against the plain version, every element written; the
+    kernel's shared memory is ``dw_smem``'s."""
+    nb, h, w, c = case
+    rng = np.random.default_rng(h + c)
+    x, wt = _rand(rng, (nb, h, w, c), cuda), _rand(rng, (3, 3, c), cuda)
+    bias = torch.from_numpy(rng.integers(-2000, 2000, c).astype(
+        np.int32)).to(cuda)
+    ep = _ep(rng, 9, c, "LEAKY_RELU", cuda)
+    pads = ((1, 1), (1, 1))
+    ref = FK.depthwise_conv2d_int8_fused_plain(x, wt, bias, ep, (h, w), pads)
+    plans = list(FK.dw_plans(nb, h, w, c, 3, 3, FK.smem_limits(cuda))[:40])
+    plans += [FK.DwPlan(th, g) for th in (3, 7) for g in (1, 2)]
+    for plan in plans:
+        out = torch.full(ref.shape, 99, dtype=torch.int8, device=cuda)
+        FK._launch_dw(x, wt, bias, ep, pads, out, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), plan
+        smem, blocks = FK.dw_occupancy(plan, c, (3, 3), w)
+        assert smem == FK.dw_smem(w, 3, 3, plan.tile_h, plan.groups)
+        assert blocks >= 1
 
 
 def test_dw_kernel_unaligned_and_padded_output(cuda):
@@ -891,11 +928,114 @@ def test_requant_matmul_kernel_matches_plain(cuda, rm, relu, m, k, n):
     bias = torch.from_numpy(rng.integers(-3000, 3000, n).astype(
         np.int32)).to(cuda)
     cs = RK.combined_scale(0.05, 0.01, float(0.0137 * np.sqrt(k)))
-    for b in (bias, None):
-        out = RK.matmul_int8_requant(x, w, b, cs, rm, relu)
+    lut = _table("SILU", 0.04, cuda)
+    for b, t in ((bias, None), (None, None), (bias, lut)):
+        out = RK.matmul_int8_requant(x, w, b, cs, rm, relu, t)
         torch.cuda.synchronize()
-        _close(out, RK.matmul_int8_requant_plain(x, w, b, cs, rm, relu),
+        _close(out, RK.matmul_int8_requant_plain(x, w, b, cs, rm, relu, t),
                "NONE")
+
+
+def _table(act, scale, dev):
+    from thingino_accel_tpu_torch.runtime.executor import act_table
+    return act_table(act, scale, alpha=0.1).to(dev)
+
+
+# #9 on the 1x1 GEMM under the exact epilogue: (M, K, N) at every plan:
+# SPPF's cv2 of the zoo yolov5s (K = 1024 -> N = 512), a head (N = 255),
+# K off 32 (48), K off 16 (40: the byte path), ragged M
+EXACT_GEMM_PLAN_CASES = [(6400, 1024, 512), (1000, 128, 255),
+                         (777, 48, 96), (333, 40, 32)]
+
+
+@pytest.mark.parametrize("rm,relu", RMODES)
+@pytest.mark.parametrize("case", EXACT_GEMM_PLAN_CASES,
+                         ids=lambda c: "m{}k{}n{}".format(*c))
+def test_exact_gemm_every_plan(cuda, case, rm, relu):
+    """Every plan ``mm_plans(..., exact=True)`` offers on this card, each
+    ring depth and 32 K bytes a stage of the first, with the SILU table:
+    bit for bit against the plain version, every element written; the
+    kernel's shared memory is ``mm_smem``'s exact layout."""
+    m, k, n = case
+    rng = np.random.default_rng(m + k + n)
+    x, w = _rand(rng, (m, k), cuda), _rand(rng, (n, k), cuda)
+    bias = torch.from_numpy(rng.integers(-3000, 3000, n).astype(
+        np.int32)).to(cuda)
+    cs = RK.combined_scale(0.05, 0.01, float(0.0137 * np.sqrt(k)))
+    lut = _table("SILU", 0.05, cuda)
+    ref = RK.matmul_int8_requant_plain(x, w, bias, cs, rm, relu, lut)
+    plans = FK.mm_plans(m, n, (k,), True, FK.smem_limits(cuda), exact=True)
+    assert plans
+    first = plans[0]
+    variants = list(plans) + [dataclasses.replace(first, stages=st)
+                              for st in (2, 3)] + [
+        dataclasses.replace(first, kc=32, tiles_per_block=3)]
+    for plan in variants:
+        out = torch.full((m, n), 99, dtype=torch.int8, device=cuda)
+        RK._launch_mm(x, w, bias, lut, cs, rm, relu, out, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), plan
+        smem, blocks = RK.mm_occupancy(plan, k)
+        assert smem == FK.mm_smem((k,), plan.bm, plan.bn, plan.kc,
+                                  plan.stages, exact=True) and blocks >= 1
+
+
+@pytest.mark.parametrize("act", ["SILU", "SIGMOID", "RELU6", "LEAKY_RELU",
+                                 "TANH", "HARD_SWISH"])
+def test_exact_kernels_apply_each_table(cuda, act):
+    """#9, #10 and #11 with each act's table, bit for bit against their
+    plain versions and so against the act applied after the conv."""
+    rng = np.random.default_rng(len(act))
+    lut = _table(act, 0.043, cuda)
+    for nb, h, w, c, o, kh, kw, s, pads in [
+            (2, 20, 20, 64, 96, 1, 1, (1, 1), ((0, 0), (0, 0))),
+            (2, 20, 20, 64, 64, 3, 3, (1, 1), ((1, 1), (1, 1))),
+            (2, 20, 20, 64, 128, 3, 3, (2, 2), ((1, 1), (1, 1)))]:
+        x, wt = _rand(rng, (nb, h, w, c), cuda), _rand(rng, (o, kh, kw, c),
+                                                       cuda)
+        out_hw = _conv_out_hw(h, w, kh, kw, s, (1, 1), pads)
+        args = (x, wt, None, out_hw, s, (1, 1), pads, 0.05, 0.01,
+                float(0.0137 * np.sqrt(kh * kw * c)))
+        out = RK.conv2d_int8(*args, lut=lut)
+        torch.cuda.synchronize()
+        ref = RK.conv2d_int8(*args, plain=True, lut=lut)
+        _close(out, ref, "NONE")
+        assert torch.equal(ref, RK.apply_table(
+            RK.conv2d_int8(*args, plain=True), lut))
+
+
+def test_exact_yolov5s_1x1_units(cuda):
+    """Every distinct #9 unit of the exact zoo yolov5s at 640 (18, 42 a
+    forward) at batch 2 with its own table (SILU; the heads none): bit for
+    bit against its plain version, one launch each."""
+    from thingino_accel_tpu_torch import kxk_bench as KB
+    eng, units = KB.exact_1x1_units("cuda")
+    distinct = {KB.exact_1x1_key(eng, u, 2): u for u in units}
+    assert len(units) == 42 and len(distinct) == 18
+    rng = np.random.default_rng(9)
+    for (m, k, n, act, _), u in distinct.items():
+        x2 = _rand(rng, (m, k), cuda)
+        assert (u.lut is not None) == (act == "SILU")
+        before = RK.launches["matmul_int8_requant"]
+        out = KB.exact_1x1_call(eng, u, x2)()
+        torch.cuda.synchronize()
+        assert RK.launches["matmul_int8_requant"] == before + 1
+        _close(out, KB.exact_1x1_call(eng, u, x2, plain=True)(), "NONE")
+
+
+def test_exact_gemm_refuses_what_it_cannot_run(cuda):
+    rng = np.random.default_rng(3)
+    x, w = _rand(rng, (64, 64), cuda), _rand(rng, (64, 64), cuda)
+    out = torch.empty((64, 64), dtype=torch.int8, device=cuda)
+    for plan in [FK.MmPlan(96, 64, 64, 4, 1), FK.MmPlan(64, 48, 64, 4, 1),
+                 FK.MmPlan(64, 64, 48, 4, 1), FK.MmPlan(64, 64, 64, 5, 1)]:
+        with pytest.raises(RuntimeError, match="tat_mm_int8_requant_mma"):
+            RK._launch_mm(x, w, None, None, 0.01, RoundMode.HALF_AWAY,
+                          False, out, plan)
+    with pytest.raises(ValueError, match="lut"):
+        RK.matmul_int8_requant(x, w, None, 0.01,
+                               lut=torch.zeros(255, dtype=torch.int8,
+                                               device=cuda))
 
 
 # (batch, H, W, C, O, KH, KW, stride, dilation, pads): the lead shapes of

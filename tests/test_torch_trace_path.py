@@ -44,3 +44,27 @@ def test_kxk_bench_finds_each_paths_kxk_convs(path, n, distinct):
              tuple(eng.graph.tensors[nd.outputs[0]].shape), ep.act,
              res is not None) for nd, ep, res, _ in convs}
     assert len(keys) == distinct
+
+
+def test_kxk_bench_finds_the_exact_1x1_and_depthwise_units():
+    """``--what exact1x1`` times the exact zoo yolov5s's 42 #9 units as 18
+    rows (15 SILU with their tables, the three NONE heads without one),
+    ``--what dw`` NanoDet's six #7 units as 5; each row's label is a key
+    of the committed record of the kernel it replaced, which
+    ``chip_smoke.py`` prints beside it."""
+    import json
+    from thingino_accel_tpu_torch import kxk_bench as KB
+    records = KB.REPO / "thingino_accel_tpu_torch" / "records"
+    eng, units = KB.exact_1x1_units("cpu")
+    keys = {KB.exact_1x1_key(eng, u) for u in units}
+    assert len(units) == 42 and len(keys) == 18
+    assert sum(k[3] == "SILU" for k in keys) == 15
+    assert all((u.lut is not None) == (u.node.attrs["activation"] == "SILU")
+               for u in units)
+    assert {KB.exact_1x1_label(k) for k in keys} == set(json.loads(
+        (records / "dp4a_exact_1x1.json").read_text())["ms"])
+    eng, units = KB.dw_units("cpu")
+    keys = {KB.dw_key(eng, u) for u in units}
+    assert len(units) == 6 and len(keys) == 5
+    assert {KB.dw_label(k) for k in keys} == set(json.loads(
+        (records / "dp4a_dw.json").read_text())["ms"])

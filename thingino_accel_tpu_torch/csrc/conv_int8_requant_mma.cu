@@ -6,7 +6,8 @@
 //   out[n, oy, ox, o] = requant_exact(sum_{ky,kx,c}
 //       x[n, oy sh - pt + ky dh, ox sw - pl + kx dw, c] * w[o, ky, kx, c]
 //       + bias[o])
-// with zeros outside the image and exact int32 sums.
+// with zeros outside the image and exact int32 sums, then the conv's
+// activation beyond RELU, where it has one, through its 256-entry table.
 //
 // Replaces thingino_accel_tpu/ops/pallas_kernels.py:
 // - conv2d_int8_halo (:216, body _halo_kernel), kernel #10, stride and
@@ -38,7 +39,8 @@
 #include "conv_mma_core.cuh"
 
 // One launch: x NHWC [batch, H, W, C] and w OHWI [O, KH, KW, C] int8, bias
-// [O] int32 or null, out NHWC [batch, OH, OW, O] int8; the conv's stride
+// [O] int32 or null, lut the activation's 256 int8 values (entry q + 128
+// the act of q) or null, out NHWC [batch, OH, OW, O] int8; the conv's stride
 // (sh, sw), dilation (dh, dw), top and left pads; requant_exact's cs,
 // round_mode (RoundMode) and relu. The plan: mode 0 slab (C % 32 == 0, x
 // and w 16-byte aligned, ck a multiple of 32 dividing C) or 1 im2col (any
@@ -49,7 +51,8 @@
 // tiles_per_block consecutive tiles of one image a block. Returns a
 // cudaError_t; cudaErrorInvalidValue for a shape or plan it cannot run.
 extern "C" int tat_conv_int8_requant_mma(
-    const void* x, const void* w, const void* bias, void* out, int batch,
+    const void* x, const void* w, const void* bias, const void* lut,
+    void* out, int batch,
     int H, int W, int C, int O, int KH, int KW, int sh, int sw, int dh,
     int dw, int pt, int pl, int OH, int OW, float cs, int round_mode,
     int relu, int mode, int tile_h, int tile_w, int bn, int ck, int resident,
@@ -67,7 +70,8 @@ extern "C" int tat_conv_int8_requant_mma(
   const dim3 grid =
       set_run(g, batch, H, W, O, pt, pl, OH, OW, tiles_per_block, x,
               out);
-  const ExactEpilogue::Params ep = {cs, round_mode, relu != 0};
+  const ExactEpilogue::Params ep = {cs, round_mode, relu != 0,
+                                    static_cast<const int8_t*>(lut)};
   k<<<grid, kThreads, static_cast<size_t>(g.smem),
       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),

@@ -5,7 +5,8 @@
 //       x[n, oy sh - pt + ky dh, ox sw - pl + kx dw, c] * w[o, ky, kx, c]
 // then an epilogue policy on the fragments and one int8 store:
 //   - ExactEpilogue (epilogue_policy.cuh): the exact tier's #10 and #11
-//     (conv_int8_requant_mma.cu);
+//     (conv_int8_requant_mma.cu), the conv's activation a 256-byte table
+//     staged in shared memory once a block;
 //   - ServingEpilogue<ACT> (epilogue_policy.cuh): the serving tier's #2
 //     and #5 (conv_int8_fused_mma.cu), with the residual r[n, oy, ox, o].
 // Each source that includes this header compiles its own copy (an
@@ -69,9 +70,10 @@
 // conv_layout), all dynamic, no static bytes: slab mode two stages (the
 // slab, then the chunk's weights unless resident), the resident weights,
 // the output tile; im2col mode the slab, the A tile, the weights, three k
-// tables and the output tile. Every pitch of an ldmatrix operand is an odd
-// multiple of 16 bytes, so the 8 rows of an ldmatrix at stride 1 fall on
-// distinct bank groups (at stride 2 two rows share one).
+// tables and the output tile; then the policy's table (kTableBytes).
+// Every pitch of an ldmatrix operand is an odd multiple of 16 bytes, so
+// the 8 rows of an ldmatrix at stride 1 fall on distinct bank groups (at
+// stride 2 two rows share one).
 //
 // Built with -DTAT_CONV_REQUANT_NO_STORE the epilogue stores nothing and
 // no residual is read (the sums are folded into one value that is kept
@@ -141,7 +143,8 @@ struct ConvGeom {
   int vec_out;     // 16-byte output stores (O % 16 == 0, out aligned)
   int vec_slab;    // im2col: 16-byte slab copies (C, CK % 16 == 0, x aligned)
   int ntw, tiles_img, tpb, nchunk;
-  int slab_bytes, stage_bytes, a_off, w_off, ktab_off, out_off, smem;
+  int slab_bytes, stage_bytes, a_off, w_off, ktab_off, out_off, tab_off;
+  int smem;
   FastDiv by_row, by_ck, by_words, by_kc;   // im2col's index divisions
   // im2col with dw == 1: a pixel's A row is KH runs of KW CK slab bytes,
   // copied run_unit (16, 8, 4, 2 or 1) bytes a step by fixed threads,
@@ -152,8 +155,9 @@ struct ConvGeom {
 constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // The shared-memory layout of one block (ops/fused_kernels.py conv_layout
-// mirrors it); g.resident set by the plan.
-void conv_layout(ConvGeom& g) {
+// mirrors it); g.resident set by the plan; table_bytes: the policy's table
+// after the output tile.
+void conv_layout(ConvGeom& g, int table_bytes) {
   g.SH = (g.TH - 1) * g.sh + (g.KH - 1) * g.dh + 1;
   g.SW = (g.TW - 1) * g.sw + (g.KW - 1) * g.dw + 1;
   g.nck = (g.C + g.CK - 1) / g.CK;
@@ -187,7 +191,8 @@ void conv_layout(ConvGeom& g) {
     g.run_units = g.KH * run / g.run_unit;
     if (g.dw != 1 || g.run_units > kThreads) g.run_units = 0;
   }
-  g.smem = g.out_off + tp * (g.BN + kOutPad);
+  g.tab_off = g.out_off + tp * (g.BN + kOutPad);
+  g.smem = g.tab_off + table_bytes;
 }
 
 __device__ __forceinline__ void tile_origin(const ConvGeom& g, int tile,
@@ -520,8 +525,9 @@ __device__ __forceinline__ void mma_k32(int (&acc)[MI][NI][4],
 template <int MI, int NI, class EP>
 __device__ void store_tile(const int (&acc)[MI][NI][4],
                            const typename EP::Col (&cols)[NI][2],
-                           const ConvGeom& g, unsigned char* staged, int n,
-                           int tile, int n0, const typename EP::Params& ep,
+                           const ConvGeom& g, unsigned char* staged,
+                           const unsigned char* tab, int n, int tile, int n0,
+                           const typename EP::Params& ep,
                            int8_t* __restrict__ out) {
   constexpr int BN = 16 * NI, TP = 64 * MI, kPitch = BN + kOutPad;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -552,9 +558,9 @@ __device__ void store_tile(const int (&acc)[MI][NI][4],
           r1 = static_cast<int8_t>(v >> 8);
         }
         const unsigned q0 = static_cast<uint8_t>(
-            EP::apply(acc[mi][ni][2 * h], cols[ni][0], ep, r0));
+            EP::apply(acc[mi][ni][2 * h], cols[ni][0], ep, r0, tab));
         const unsigned q1 = static_cast<uint8_t>(
-            EP::apply(acc[mi][ni][2 * h + 1], cols[ni][1], ep, r1));
+            EP::apply(acc[mi][ni][2 * h + 1], cols[ni][1], ep, r1, tab));
         *dst = static_cast<uint16_t>(q0 | q1 << 8);
       }
     }
@@ -651,6 +657,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(MODE))
       cols[ni][e] = EP::col(bias, ep, o, o < g.O);
     }
   unsigned char* staged = smem + g.out_off;
+  unsigned char* tab = smem + g.tab_off;
+  EP::stage_table(ep, tab);
 
   int acc[MI][NI][4];
   if constexpr (MODE == kSlab) {
@@ -699,7 +707,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(MODE))
       __syncthreads();   // slot s & 1 is read: the next stage refills it
       if (++chunk == g.nck) {
         if constexpr (kStore)
-          store_tile<MI, NI, EP>(acc, cols, g, staged, n, tile, n0, ep, out);
+          store_tile<MI, NI, EP>(acc, cols, g, staged, tab, n, tile, n0,
+                                 ep, out);
         else
           sink_tile<MI, NI>(acc, out);
         chunk = 0;
@@ -781,7 +790,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(MODE))
           mma_k32<MI, NI>(acc, a + kb, aoff, b + brow + kb, g.wpitch);
       if (++chunk == g.nck) {
         if constexpr (kStore)
-          store_tile<MI, NI, EP>(acc, cols, g, staged, n, tile, n0, ep, out);
+          store_tile<MI, NI, EP>(acc, cols, g, staged, tab, n, tile, n0,
+                                 ep, out);
         else
           sink_tile<MI, NI>(acc, out);
         chunk = 0;
@@ -837,7 +847,7 @@ ConvKernel<typename EP::Params> prepare(int mode, int tile_h, int tile_w,
   g.BN = bn;
   g.CK = ck;
   g.resident = resident != 0;
-  conv_layout(g);
+  conv_layout(g, EP::kTableBytes);
   const ConvKernel<typename EP::Params> k =
       mode == kSlab ? pick<kSlab, EP>(tp / 64, bn / 16)
                     : pick<kIm2col, EP>(tp / 64, bn / 16);

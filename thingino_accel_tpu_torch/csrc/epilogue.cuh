@@ -1,13 +1,14 @@
 // Shared pieces of the fused int8 kernels. The dp4a tile product (the
 // kernels not yet on the tensor cores: mma_tile, load_row_word and
-// store_tile with the tile shape kBM x kBN) serves #4 sppf_int8_fused.cu,
-// #6 bneck_int8_fused.cu and the exact tier's #9 requant_int8.cu; #7
-// dw_int8_fused.cu takes the epilogue with dp4a taps of its own. The
-// serving requantize epilogue (epilogue / act_requant) is also the one
-// the tensor-core kernels apply through epilogue_policy.cuh (the 1x1 GEMM
-// mm_int8_fused_mma.cu of #1 and #3, the KxK core conv_mma_core.cuh under
-// conv_int8_fused_mma.cu of #2 and #5), and the exact tier's requantize
-// (requant_exact) the one under conv_int8_requant_mma.cu (#10, #11). The
+// store_tile with the tile shape kBM x kBN) serves #4 sppf_int8_fused.cu
+// and #6 bneck_int8_fused.cu; #7 dw_int8_fused.cu takes the epilogue
+// after per-channel products of its own. The serving requantize epilogue
+// (epilogue / act_requant) is also the one the tensor-core kernels apply
+// through epilogue_policy.cuh (the 1x1 GEMM mm_int8_fused_mma.cu of #1
+// and #3, the KxK core conv_mma_core.cuh under conv_int8_fused_mma.cu of
+// #2 and #5), and the exact tier's requantize (requant_exact) the one
+// under mm_int8_fused_mma.cu (#9) and conv_int8_requant_mma.cu (#10,
+// #11). The
 // probes' tensor-core chains (chain_mma.cuh, megakernel_probe.cu) and E2
 // (conv_int8_lagged.cu) take the epilogue too.
 //

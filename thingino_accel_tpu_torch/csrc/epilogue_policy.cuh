@@ -1,9 +1,14 @@
 // The epilogue policies of the tensor-core kernels: what a lane keeps of
-// one output channel (Col, loaded once a kernel) and the requantize of one
-// int32 sum into int8 (apply), on the fragments in registers:
+// one output channel (Col, loaded once a kernel), a table the block keeps
+// in shared memory (kTableBytes of it, staged once a block by
+// stage_table; 0: none) and the requantize of one int32 sum into int8
+// (apply), on the fragments in registers:
 //   - ExactEpilogue: requant_exact (epilogue.cuh; one per-tensor combined
-//     scale, either RoundMode, RELU after the clamp), the exact tier's #10
-//     and #11 (conv_mma_core.cuh under conv_int8_requant_mma.cu);
+//     scale, either RoundMode, RELU after the clamp), then the conv's
+//     activation beyond RELU as a 256-entry int8 table (the activation of
+//     an int8 value is a function of that value alone, so the table is
+//     exact), the exact tier's #9 (mm_int8_fused_mma.cu) and #10 and #11
+//     (conv_mma_core.cuh under conv_int8_requant_mma.cu);
 //   - ServingEpilogue<ACT>: the serving epilogue (epilogue.cuh epilogue /
 //     act_requant: per-channel cs, the act a template constant so that its
 //     branches fold, a residual r x res_scale after the act), the serving
@@ -19,26 +24,39 @@
 
 namespace {
 
-// The exact tier's: requant_exact with one per-tensor cs. Col: what a
-// lane keeps of one of its output channels.
+// The exact tier's: requant_exact with one per-tensor cs, then the act's
+// table (lut: 256 int8 values, entry q + 128 the act of q; null: none).
+// Col: what a lane keeps of one of its output channels.
 struct ExactEpilogue {
   struct Params {
     float cs;
     int round_mode;
     bool relu;
+    const int8_t* lut;
   };
   struct Col {
     int b;
   };
   static constexpr bool kResidual = false;
   static constexpr bool kBn16 = false;
+  static constexpr int kTableBytes = 256;
   __device__ __forceinline__ static Col col(const int* __restrict__ bias,
                                             const Params&, int o, bool live) {
     return {live && bias != nullptr ? bias[o] : 0};
   }
+  // the table into the block's shared memory, a byte a thread; visible
+  // to the epilogue after the mainloop's first barrier
+  __device__ __forceinline__ static void stage_table(const Params& p,
+                                                     unsigned char* tab) {
+    if (p.lut != nullptr)
+      for (int i = threadIdx.x; i < kTableBytes; i += blockDim.x)
+        tab[i] = static_cast<unsigned char>(p.lut[i]);
+  }
   __device__ __forceinline__ static int8_t apply(int acc, const Col& c,
-                                                 const Params& p, int) {
-    return tat::requant_exact(acc, c.b, p.cs, p.round_mode, p.relu);
+                                                 const Params& p, int,
+                                                 const unsigned char* tab) {
+    const int8_t q = tat::requant_exact(acc, c.b, p.cs, p.round_mode, p.relu);
+    return p.lut != nullptr ? static_cast<int8_t>(tab[q + 128]) : q;
   }
 };
 
@@ -60,13 +78,17 @@ struct ServingEpilogue {
   };
   static constexpr bool kResidual = true;
   static constexpr bool kBn16 = true;
+  static constexpr int kTableBytes = 0;
   __device__ __forceinline__ static Col col(const int* __restrict__ bias,
                                             const Params& p, int o,
                                             bool live) {
     return {live && bias != nullptr ? bias[o] : 0, live ? p.cs[o] : 0.0f};
   }
+  __device__ __forceinline__ static void stage_table(const Params&,
+                                                     unsigned char*) {}
   __device__ __forceinline__ static int8_t apply(int acc, const Col& c,
-                                                 const Params& p, int r) {
+                                                 const Params& p, int r,
+                                                 const unsigned char*) {
     return tat::epilogue(acc, c.b, c.cs, ACT, p.inv_out, p.alpha,
                          p.res != nullptr, r, p.res_scale);
   }

@@ -1,5 +1,8 @@
-// The serving tier's fused int8 1x1 conv on the tensor cores, over 1 to 4
-// K-parts that are never concatenated:
+// The int8 1x1 conv on the tensor cores, under either epilogue policy of
+// epilogue_policy.cuh.
+//
+// The serving tier's fused 1x1 conv, over 1 to 4 K-parts that are never
+// concatenated:
 //   out[M, N] = epilogue(sum_i x_i[M, K_i] w_i[N, K_i]^T [, res[M, N]])
 // with either of the two scale branches of the multi-part matmul:
 //   - equal scales: one int32 sum over all parts, then ServingEpilogue's
@@ -11,14 +14,24 @@
 //     apply_parts: + bias x bias_scale, x cs, the act's tail.
 // Every multiply and add is an explicit round-to-nearest intrinsic.
 //
+// The exact tier's 1x1 conv, one part, no residual, under ExactEpilogue:
+//   out[M, N] = lut[requant_exact(x[M, K] w[N, K]^T + bias) + 128]
+// (one per-tensor combined scale, either RoundMode, RELU after the clamp,
+// then the conv's activation beyond RELU as a 256-entry table staged in
+// shared memory once a block; no table: none).
+//
 // Replaces thingino_accel_tpu/ops/fused_kernels.py:
 //   - matmul_int8_fused (:241, call :289; Pallas body _mm_kernel), #1, the
 //     one-part case;
-//   - matmul_int8_fused_multi (:361, call :466; _mm_multi_kernel :321), #3.
-// Both wrappers launch this one kernel and keep a launch counter each.
+//   - matmul_int8_fused_multi (:361, call :466; _mm_multi_kernel :321), #3;
+// and thingino_accel_tpu/ops/pallas_kernels.py matmul_int8_requant (:120,
+// call :156; Pallas body _mm_requant_kernel), #9, the exact entry. Each
+// wrapper launches this one kernel and keeps a launch counter of its own.
 //
-// What bounds it on the H100: K <= 512 and N <= 255 on the serving paths,
-// so a few hundred int8 operations a byte at most: device-memory bytes,
+// What bounds it on the H100: K <= 512 and N <= 255 on the serving paths
+// (K <= 1024, N <= 512 on the exact zoo yolov5s at 640, N a multiple of
+// BN or the heads' 255), so a few hundred int8 operations a byte at most:
+// device-memory bytes,
 // not MACs (the tensor cores' int8 rate is 1,979 TOP/s, the memory's
 // 3.35 TB/s). So the design reads each x byte once and writes each output
 // byte once, 16 bytes a thread, with loads in flight:
@@ -49,7 +62,8 @@
 //     16-byte aligned, else byte by byte) into the staged tile at the
 //     tile's last stage; each lane reads its two bytes there before it
 //     overwrites them with its result.
-// ACT is a template constant and so is the scale branch.
+// ACT is a template constant and so is the scale branch; the exact
+// policy's RoundMode, RELU and table are run-time parameters.
 //
 // Built with -DTAT_GEMM_NO_STORE the epilogue stores nothing and no
 // residual is read (the sums are folded into one value that is kept live),
@@ -61,9 +75,10 @@
 // mm_smem),
 // all dynamic: the ring (stages x BM rows at KC + 16 bytes), the weights
 // (BN rows at Kp + 16 bytes, Kp = sum of the padded K_i), the staged
-// output tile (BM rows at BN + 16 bytes), then BN columns of bias and cs
-// and BN floats of bias x bias_scale. Every ldmatrix pitch is an odd
-// multiple of 16 bytes.
+// output tile (BM rows at BN + 16 bytes), then BN columns of the policy's
+// Col (bias and cs: 8 bytes, the exact policy's bias: 4), BN floats of
+// bias x bias_scale and the policy's table (the exact policy's 256
+// bytes). Every ldmatrix pitch is an odd multiple of 16 bytes.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -107,7 +122,7 @@ struct MmGeom {
   int N, BM, BN, KC, stages;
   int Kp;                // sum of kpad
   int apitch, wpitch;    // KC + 16, Kp + 16
-  int slot_bytes, w_off, out_off, col_off, bf_off, smem;
+  int slot_bytes, w_off, out_off, col_off, bf_off, tab_off, smem;
   int spt;               // stages a tile
   int tiles, tpb, nbn;   // M tiles, tiles a block, BN blocks
   int vec_a, vec_w, vec_out;
@@ -115,12 +130,10 @@ struct MmGeom {
 
 constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-// bytes of a channel's bias and cs in shared memory (ServingEpilogue::Col)
-constexpr int kColBytes = sizeof(ServingEpilogue<tat::kActNone>::Col);
-
 // The shared-memory layout of one block (ops/fused_kernels.py mm_smem
-// mirrors its total); g.parts, K, BM, BN, KC and stages set.
-void mm_layout(MmGeom& g) {
+// mirrors its total); g.parts, K, BM, BN, KC and stages set; col_bytes and
+// table_bytes the policy's.
+void mm_layout(MmGeom& g, int col_bytes, int table_bytes) {
   g.Kp = 0;
   g.spt = 0;
   for (int i = 0; i < g.parts; ++i) {
@@ -135,8 +148,9 @@ void mm_layout(MmGeom& g) {
   g.w_off = g.stages * g.slot_bytes;
   g.out_off = g.w_off + g.BN * g.wpitch;
   g.col_off = g.out_off + g.BM * (g.BN + kOutPad);
-  g.bf_off = g.col_off + g.BN * kColBytes;
-  g.smem = g.bf_off + g.BN * 4;
+  g.bf_off = g.col_off + g.BN * col_bytes;
+  g.tab_off = g.bf_off + g.BN * 4;
+  g.smem = g.tab_off + table_bytes;
 }
 
 inline bool aligned16(const void* p) {
@@ -320,7 +334,8 @@ template <int MI, int NI, bool PER_PART, class EP>
 __device__ void store_tile(const MmGeom& g, const int (&acc)[MI][NI][4],
                            const float (&accf)[MI][NI][4],
                            const typename EP::Col* cols, const float* bf,
-                           unsigned char* staged, long long m0, int n0,
+                           unsigned char* staged, const unsigned char* tab,
+                           long long m0, int n0,
                            const typename EP::Params& ep,
                            int8_t* __restrict__ out) {
   constexpr int BN = 16 * NI, BM = 64 * MI, kPitch = BN + kOutPad;
@@ -337,10 +352,13 @@ __device__ void store_tile(const MmGeom& g, const int (&acc)[MI][NI][4],
       c[ni][e] = cols[col];
       b[ni][e] = PER_PART ? bf[col] : 0.0f;
     }
-  const bool res = ep.res != nullptr;
-  if (res) {
-    tat::cp_async_wait<0>();   // the tile's residual landed
-    __syncthreads();
+  bool res = false;
+  if constexpr (EP::kResidual) {
+    res = ep.res != nullptr;
+    if (res) {
+      tat::cp_async_wait<0>();   // the tile's residual landed
+      __syncthreads();
+    }
   }
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
@@ -365,9 +383,9 @@ __device__ void store_tile(const MmGeom& g, const int (&acc)[MI][NI][4],
               accf[mi][ni][2 * h + 1], b[ni][1], c[ni][1], ep, r1));
         } else {
           q0 = static_cast<uint8_t>(
-              EP::apply(acc[mi][ni][2 * h], c[ni][0], ep, r0));
+              EP::apply(acc[mi][ni][2 * h], c[ni][0], ep, r0, tab));
           q1 = static_cast<uint8_t>(
-              EP::apply(acc[mi][ni][2 * h + 1], c[ni][1], ep, r1));
+              EP::apply(acc[mi][ni][2 * h + 1], c[ni][1], ep, r1, tab));
         }
         *dst = static_cast<uint16_t>(q0 | q1 << 8);
       }
@@ -420,6 +438,8 @@ __global__ void __launch_bounds__(kThreads, mm_min_blocks(MI, NI))
   unsigned char* staged = smem + g.out_off;
   auto* cols = reinterpret_cast<typename EP::Col*>(smem + g.col_off);
   float* bf = reinterpret_cast<float*>(smem + g.bf_off);
+  unsigned char* tab = smem + g.tab_off;
+  EP::stage_table(ep, tab);
 
   // the block's channels, once (visible after the loop's first barrier)
   for (int c = tid; c < BN; c += kThreads) {
@@ -462,8 +482,10 @@ __global__ void __launch_bounds__(kThreads, mm_min_blocks(MI, NI))
     const bool part_end = cur.k0 + g.KC >= g.kpad[cur.part];
     const bool tile_end = part_end && cur.part == g.parts - 1;
     const long long m0 = static_cast<long long>(t0 + cur.tile) * g.BM;
-    if (kStore && tile_end && ep.res != nullptr)
-      load_residual<BN>(g, ep, staged, m0, n0);
+    if constexpr (EP::kResidual && kStore) {
+      if (tile_end && ep.res != nullptr)
+        load_residual<BN>(g, ep, staged, m0, n0);
+    }
     const int next = s + g.stages - 1;
     if (next < total) {
       issue_stage(g, smem + (next % g.stages) * g.slot_bytes, t0, ahead);
@@ -502,8 +524,8 @@ __global__ void __launch_bounds__(kThreads, mm_min_blocks(MI, NI))
     }
     if (tile_end) {
       if constexpr (kStore)
-        store_tile<MI, NI, PER_PART, EP>(g, acc, accf, cols, bf, staged, m0,
-                                         n0, ep, out);
+        store_tile<MI, NI, PER_PART, EP>(g, acc, accf, cols, bf, staged, tab,
+                                         m0, n0, ep, out);
       else
         sink_tile<MI, NI>(acc, accf, out);
     }
@@ -511,10 +533,13 @@ __global__ void __launch_bounds__(kThreads, mm_min_blocks(MI, NI))
   }
 }
 
-using MmKernel = void (*)(MmGeom, const int*, float, ServingParams, int8_t*);
+
+template <class EP>
+using MmKernel = void (*)(MmGeom, const int*, float, typename EP::Params,
+                          int8_t*);
 
 template <bool PER_PART, class EP>
-MmKernel pick_tile(int mi, int ni) {
+MmKernel<EP> pick_tile(int mi, int ni) {
   if (mi == 1 && ni == 1) return mm_mma_kernel<1, 1, PER_PART, EP>;
   if (mi == 2 && ni == 1) return mm_mma_kernel<2, 1, PER_PART, EP>;
   if (mi == 1 && ni == 2) return mm_mma_kernel<1, 2, PER_PART, EP>;
@@ -530,45 +555,34 @@ MmKernel pick_tile(int mi, int ni) {
 }
 
 template <int ACT>
-MmKernel pick(int per_part, int mi, int ni) {
+MmKernel<ServingEpilogue<ACT>> pick(int per_part, int mi, int ni) {
   return per_part ? pick_tile<true, ServingEpilogue<ACT>>(mi, ni)
                   : pick_tile<false, ServingEpilogue<ACT>>(mi, ni);
 }
 
-// The kernel of a plan and its layout in g (whose parts and K are set), or
-// null for a plan or act it cannot run; opts the kernel into its shared
-// memory.
-MmKernel prepare(int act, int per_part, int bm, int bn, int kc, int stages,
-                 MmGeom& g, cudaError_t& err) {
-  err = cudaErrorInvalidValue;
+// The plan's layout in g (whose parts and K are set) under the policy EP;
+// false for a plan the kernel cannot run.
+template <class EP>
+bool plan_layout(int bm, int bn, int kc, int stages, MmGeom& g) {
   if (g.parts < 1 || g.parts > kMaxParts || (bm != 64 && bm != 128) ||
       (bn != 16 && bn != 32 && bn != 64 && bn != 128) || kc < 32 ||
       kc % 32 != 0 || stages < 2 || stages > 4)
-    return nullptr;
+    return false;
   for (int i = 0; i < g.parts; ++i)
-    if (g.K[i] < 1) return nullptr;
+    if (g.K[i] < 1) return false;
   g.BM = bm;
   g.BN = bn;
   g.KC = kc;
   g.stages = stages;
-  mm_layout(g);
-  MmKernel k = nullptr;
-  switch (act) {
-    case tat::kActNone:
-      k = pick<tat::kActNone>(per_part, bm / 64, bn / 16);
-      break;
-    case tat::kActRelu:
-      k = pick<tat::kActRelu>(per_part, bm / 64, bn / 16);
-      break;
-    case tat::kActLeakyRelu:
-      k = pick<tat::kActLeakyRelu>(per_part, bm / 64, bn / 16);
-      break;
-    case tat::kActSilu:
-      k = pick<tat::kActSilu>(per_part, bm / 64, bn / 16);
-      break;
-    default:   // SILU_FAST is compiled only into the probes' kernels
-      return nullptr;
-  }
+  mm_layout(g, sizeof(typename EP::Col), EP::kTableBytes);
+  return true;
+}
+
+// k opted into g.smem of shared memory, or null (err set) where the card
+// cannot give it.
+template <class K>
+K opt_in(K k, const MmGeom& g, cudaError_t& err) {
+  err = cudaErrorInvalidValue;
   if (k == nullptr) return nullptr;
   int dev = 0, max_smem = 0;
   err = cudaGetDevice(&dev);
@@ -590,9 +604,74 @@ MmKernel prepare(int act, int per_part, int bm, int bn, int kc, int stages,
   return err == cudaSuccess ? k : nullptr;
 }
 
+// The serving kernel of a plan and its layout in g (whose parts and K are
+// set), or null for a plan or act it cannot run; opts the kernel into its
+// shared memory.
+MmKernel<ServingEpilogue<tat::kActNone>> prepare(int act, int per_part,
+                                                 int bm, int bn, int kc,
+                                                 int stages, MmGeom& g,
+                                                 cudaError_t& err) {
+  using ServingKernel = MmKernel<ServingEpilogue<tat::kActNone>>;
+  err = cudaErrorInvalidValue;
+  // every act's layout is the same (Col, no table)
+  if (!plan_layout<ServingEpilogue<tat::kActNone>>(bm, bn, kc, stages, g))
+    return nullptr;
+  ServingKernel k = nullptr;
+  switch (act) {
+    case tat::kActNone:
+      k = pick<tat::kActNone>(per_part, bm / 64, bn / 16);
+      break;
+    case tat::kActRelu:
+      k = pick<tat::kActRelu>(per_part, bm / 64, bn / 16);
+      break;
+    case tat::kActLeakyRelu:
+      k = pick<tat::kActLeakyRelu>(per_part, bm / 64, bn / 16);
+      break;
+    case tat::kActSilu:
+      k = pick<tat::kActSilu>(per_part, bm / 64, bn / 16);
+      break;
+    default:   // SILU_FAST is compiled only into the probes' kernels
+      return nullptr;
+  }
+  return opt_in(k, g, err);
+}
+
+// The exact kernel of a plan (one part of K) and its layout in g, as
+// prepare.
+MmKernel<ExactEpilogue> prepare_exact(int K, int bm, int bn, int kc,
+                                      int stages, MmGeom& g,
+                                      cudaError_t& err) {
+  err = cudaErrorInvalidValue;
+  g.parts = 1;
+  g.K[0] = K;
+  if (!plan_layout<ExactEpilogue>(bm, bn, kc, stages, g)) return nullptr;
+  return opt_in(pick_tile<false, ExactEpilogue>(bm / 64, bn / 16), g, err);
+}
+
 void set_parts(MmGeom& g, int n_parts, const int* ks) {
   g.parts = n_parts;
   for (int i = 0; i < kMaxParts; ++i) g.K[i] = i < n_parts ? ks[i] : 0;
+}
+
+// The run geometry of a prepared g (operands set); the number of blocks.
+unsigned set_run(MmGeom& g, long long M, int N, int tiles_per_block,
+                 const void* out) {
+  g.M = M;
+  g.N = N;
+  g.vec_out = N % 16 == 0 && aligned16(out);
+  const long long tiles = (M + g.BM - 1) / g.BM;
+  g.tiles = static_cast<int>(tiles);
+  g.tpb = tiles_per_block < g.tiles ? tiles_per_block : g.tiles;
+  g.nbn = (N + g.BN - 1) / g.BN;
+  const long long runs = (tiles + g.tpb - 1) / g.tpb;
+  return static_cast<unsigned>(runs * g.nbn);
+}
+
+template <class K>
+int occupancy(K k, const MmGeom& g, int* smem, int* blocks_per_sm) {
+  *smem = g.smem;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, k, kThreads, static_cast<size_t>(g.smem)));
 }
 
 }  // namespace
@@ -622,11 +701,8 @@ extern "C" int tat_mm_int8_fused_mma(
   MmGeom g = {};
   set_parts(g, n_parts, ks);
   cudaError_t err;
-  const MmKernel k =
-      prepare(act, same_scale ? 0 : 1, bm, bn, kc, stages, g, err);
+  const auto k = prepare(act, same_scale ? 0 : 1, bm, bn, kc, stages, g, err);
   if (k == nullptr) return static_cast<int>(err);
-  g.M = M;
-  g.N = N;
   g.vec_a = g.vec_w = 1;
   for (int i = 0; i < n_parts; ++i) {
     g.x[i] = static_cast<const int8_t*>(xs[i]);
@@ -637,18 +713,13 @@ extern "C" int tat_mm_int8_fused_mma(
     g.vec_a = g.vec_a && aligned16(xs[i]) && ldx[i] % 16 == 0;
     g.vec_w = g.vec_w && aligned16(ws[i]) && ldw[i] % 16 == 0;
   }
-  g.vec_out = N % 16 == 0 && aligned16(out);
-  const long long tiles = (M + bm - 1) / bm;
-  g.tiles = static_cast<int>(tiles);
-  g.tpb = tiles_per_block < g.tiles ? tiles_per_block : g.tiles;
-  g.nbn = (N + bn - 1) / bn;
-  const long long runs = (tiles + g.tpb - 1) / g.tpb;
+  const unsigned blocks = set_run(g, M, N, tiles_per_block, out);
   const ServingParams ep = {
       static_cast<const float*>(cs), inv_out, alpha,
       static_cast<const int8_t*>(res), res_scale,
       N % 16 == 0 && aligned16(res)};
-  k<<<static_cast<unsigned>(runs * g.nbn), kThreads,
-      static_cast<size_t>(g.smem), static_cast<cudaStream_t>(stream)>>>(
+  k<<<blocks, kThreads, static_cast<size_t>(g.smem),
+      static_cast<cudaStream_t>(stream)>>>(
       g, static_cast<const int*>(bias), bias_scale, ep,
       static_cast<int8_t*>(out));
   return static_cast<int>(cudaGetLastError());
@@ -666,10 +737,52 @@ extern "C" int tat_mm_int8_fused_mma_info(int n_parts, const int* ks,
   MmGeom g = {};
   set_parts(g, n_parts, ks);
   cudaError_t err;
-  const MmKernel k =
-      prepare(act, same_scale ? 0 : 1, bm, bn, kc, stages, g, err);
+  const auto k = prepare(act, same_scale ? 0 : 1, bm, bn, kc, stages, g, err);
   if (k == nullptr) return static_cast<int>(err);
-  *smem = g.smem;
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, k, kThreads, static_cast<size_t>(g.smem)));
+  return occupancy(k, g, smem, blocks_per_sm);
+}
+
+// The exact tier's #9, one launch: x [M, K] int8 and w [N, K] int8, both
+// row-major and contiguous; bias [N] int32 or null; lut the activation's
+// 256 int8 values (entry q + 128 the act of q) or null; out [M, N] int8;
+// requant_exact's cs, round_mode (RoundMode) and relu. The plan as
+// tat_mm_int8_fused_mma's. Returns a cudaError_t; cudaErrorInvalidValue
+// for a shape or plan it cannot run.
+extern "C" int tat_mm_int8_requant_mma(
+    const void* x, const void* w, const void* bias, const void* lut,
+    void* out, long long M, int N, int K, float cs, int round_mode, int relu,
+    int bm, int bn, int kc, int stages, int tiles_per_block, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || tiles_per_block < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  MmGeom g = {};
+  cudaError_t err;
+  const auto k = prepare_exact(K, bm, bn, kc, stages, g, err);
+  if (k == nullptr) return static_cast<int>(err);
+  g.x[0] = static_cast<const int8_t*>(x);
+  g.w[0] = static_cast<const int8_t*>(w);
+  g.ldx[0] = K;
+  g.ldw[0] = K;
+  g.s[0] = 1.0f;
+  g.vec_a = aligned16(x) && K % 16 == 0;
+  g.vec_w = aligned16(w) && K % 16 == 0;
+  const unsigned blocks = set_run(g, M, N, tiles_per_block, out);
+  const ExactEpilogue::Params ep = {cs, round_mode, relu != 0,
+                                    static_cast<const int8_t*>(lut)};
+  k<<<blocks, kThreads, static_cast<size_t>(g.smem),
+      static_cast<cudaStream_t>(stream)>>>(
+      g, static_cast<const int*>(bias), 1.0f, ep, static_cast<int8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory of an exact plan (K bytes a row) in bytes and
+// the blocks of its kernel an SM holds at once; cudaErrorInvalidValue for a
+// plan the kernel cannot run.
+extern "C" int tat_mm_int8_requant_mma_info(int K, int bm, int bn, int kc,
+                                            int stages, int* smem,
+                                            int* blocks_per_sm) {
+  MmGeom g = {};
+  cudaError_t err;
+  const auto k = prepare_exact(K, bm, bn, kc, stages, g, err);
+  if (k == nullptr) return static_cast<int>(err);
+  return occupancy(k, g, smem, blocks_per_sm);
 }

@@ -1,16 +1,26 @@
-"""The serving tier's convs, one by one, on the card: every distinct KxK
-conv (#2, ``fused_kernels.conv2d_int8_halo_fused``) of the four serving
-paths, timed through both of its entries (``pipeline="blockspec"``, #2,
-with the conv's residual; ``"dma"``, #5, without) beside fp16
-channels-last ``F.conv2d`` on the same shapes; and every distinct 1x1
-unit (#1 ``matmul_int8_fused`` and #3 ``matmul_int8_fused_multi``, with
-the unit's parts, scale branch and residual) through its entry beside
+"""The convs, one by one, on the card: every distinct KxK conv (#2,
+``fused_kernels.conv2d_int8_halo_fused``) of the four serving paths,
+timed through both of its entries (``pipeline="blockspec"``, #2, with the
+conv's residual; ``"dma"``, #5, without) beside fp16 channels-last
+``F.conv2d`` on the same shapes; every distinct 1x1 unit (#1
+``matmul_int8_fused`` and #3 ``matmul_int8_fused_multi``, with the unit's
+parts, scale branch and residual) through its entry beside
 ``torch._int_mm`` (the parts' K concatenated; null where it refuses the
-shape).
+shape); with ``exact1x1``, every distinct #9 unit
+(``requant_kernels.matmul_int8_requant``, with its activation table where
+the entry takes one) of the exact zoo yolov5s at 640 beside
+``torch._int_mm``; with ``dw``, every distinct #7 unit
+(``fused_kernels.depthwise_conv2d_int8_fused``) of NanoDet-320 beside
+fp16 ``F.conv2d`` with groups = C; with ``dwplans``, each of those at
+every plan ``fused_kernels.dw_plans`` offers up to 12 rows a tile, beside
+the planner's pick.
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
-    python3 -m thingino_accel_tpu_torch.kxk_bench [--what kxk,gemm]
+    python3 -m thingino_accel_tpu_torch.kxk_bench [--what WHAT]
+
+with WHAT a comma-separated choice of kxk, gemm (the default: both),
+exact1x1, dw and dwplans.
 
 The paths: the planned and the unplanned real yolov5n
 (``models/yolov5n_cal_int8.mars``), the planned zoo yolov5s at 640 (random
@@ -22,7 +32,9 @@ the median of CUDA-event spans over 20 calls behind a device spin. It
 needs only the entry points a user calls, so it times whatever kernel
 they launch. Prints one line a conv and the per-forward sums, and writes
 ``chiprun_out/kxk_bench.json``. It needs a CUDA device and never falls
-back to the CPU. The 1x1 rows go to ``chiprun_out/gemm_bench.json``.
+back to the CPU. The 1x1 rows go to ``chiprun_out/gemm_bench.json``, the
+#9 rows to ``exact1x1_bench.json``, the #7 rows to ``dw_bench.json``,
+the #7 plans to ``dwplans_bench.json``.
 """
 
 from __future__ import annotations
@@ -253,9 +265,178 @@ def bench_gemm_path(path: str, rng) -> dict:
     return {"rows": rows, "per_forward": sums}
 
 
+def exact_1x1_units(device: str = "cuda") -> tuple:
+    """The exact zoo yolov5s at 640 (random weights, seed 0) and its #9
+    units (``ExactConvUnit`` of kind ``matmul_int8_requant``), in schedule
+    order."""
+    from thingino_accel_tpu_torch.models import zoo
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+    eng = Engine(zoo.build_yolov5("s", zoo.ZooConfig()),
+                 EngineOptions(precision="exact"), device=device)
+    return eng, [u for u in eng._fn.units
+                 if u.kind == "matmul_int8_requant"]
+
+
+def exact_1x1_key(eng, unit, batch: int = BATCH) -> tuple:
+    """What makes two #9 units one row: rows, K, N, the act, RELU."""
+    t = eng.graph.tensors
+    _, h, w, k = t[unit.node.inputs[0]].shape
+    n = t[unit.out].shape[3]
+    return batch * h * w, k, n, unit.node.attrs.get("activation", "NONE"), \
+        unit.relu
+
+
+def exact_1x1_label(key: tuple) -> str:
+    m, k, n, act, relu = key
+    return f"#9 M={m} K={k} N={n} {act}{' relu' if relu else ''}"
+
+
+def exact_1x1_call(eng, unit, x2, plain: bool = False):
+    """The unit as a call of #9's entry (or its plain version) on ``x2``
+    [M, K], with its table where the unit has one (a checkout whose
+    entry takes none runs the act as a step of its own, not timed here)."""
+    from thingino_accel_tpu_torch.ops import requant_kernels as RK
+    n = unit.node
+    w = eng.params[n.inputs[1]]
+    w2 = w.reshape(w.shape[0], -1)
+    bias = eng.params[n.inputs[2]] if len(n.inputs) > 2 else None
+    cs = RK.combined_scale(*unit.scales)
+    lut = getattr(unit, "lut", None)
+    kw = {} if lut is None else {"lut": lut}
+    fn = RK.matmul_int8_requant_plain if plain else RK.matmul_int8_requant
+    return lambda: fn(x2, w2, bias, cs, unit.round_mode, unit.relu, **kw)
+
+
+def bench_exact_1x1(rng) -> dict:
+    eng, units = exact_1x1_units()
+    distinct: dict = {}
+    for u in units:
+        distinct.setdefault(exact_1x1_key(eng, u), [u, 0])[1] += 1
+    rows = []
+    for key, (u, count) in distinct.items():
+        m, k, n = key[:3]
+        x2 = torch.from_numpy(rng.integers(-128, 128, (m, k),
+                                           dtype=np.int8)).cuda()
+        w = eng.params[u.node.inputs[1]]
+        wt = w.reshape(w.shape[0], -1).t()
+        row = {"unit": exact_1x1_label(key), "count": count,
+               "ms": time_ms(exact_1x1_call(eng, u, x2))}
+        try:
+            row["int_mm_ms"] = time_ms(lambda: torch._int_mm(x2, wt))
+        except RuntimeError:   # _int_mm takes K and N in multiples of 8
+            row["int_mm_ms"] = None
+        rows.append(row)
+        print(f"[exact1x1] {row['unit']} x{count}: {row['ms']:.4f} ms, "
+              f"_int_mm {row['int_mm_ms']}")
+    sums = {"units": sum(r["count"] for r in rows),
+            "ms": sum(r["count"] * r["ms"] for r in rows)}
+    print(f"[exact1x1] per forward ({sums['units']} units): "
+          f"{sums['ms']:.4f} ms")
+    return {"rows": rows, "per_forward": sums}
+
+
+def dw_units(device: str = "cuda") -> tuple:
+    """NanoDet-320's planned engine and its #7 units (``DwUnit``)."""
+    eng = _engine("nanodet", device)
+    return eng, [u for u in eng._fn.units if u.kind == "dw"]
+
+
+def dw_key(eng, unit, batch: int = BATCH) -> tuple:
+    """What makes two #7 units one row: input and output shapes, window,
+    top and left pads, act."""
+    t = eng.graph.tensors
+    return ((batch,) + tuple(t[unit.node.inputs[0]].shape[1:]),
+            tuple(unit.out_hw), tuple(unit.node.attrs["kernel"]),
+            (unit.pads[0][0], unit.pads[1][0]), unit.act)
+
+
+def dw_label(key: tuple) -> str:
+    (nb, h, w, c), (oh, ow), (kh, kw), _, act = key
+    return f"#7 {kh}x{kw}/s1 {nb}x{h}x{w}x{c} -> {oh}x{ow} {act}"
+
+
+def bench_dw(rng) -> dict:
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    eng, units = dw_units()
+    distinct: dict = {}
+    for u in units:
+        distinct.setdefault(dw_key(eng, u), [u, 0])[1] += 1
+    rows = []
+    for key, (u, count) in distinct.items():
+        x = torch.from_numpy(rng.integers(-128, 128, key[0],
+                                          dtype=np.int8)).cuda()
+        n = u.node
+        w = eng.params[n.inputs[1]]
+        bias = eng.params[n.inputs[2]] if len(n.inputs) > 2 else None
+        c = key[0][3]
+        xh = x.permute(0, 3, 1, 2).half().contiguous(
+            memory_format=torch.channels_last)
+        wh = w.permute(2, 0, 1).unsqueeze(1).half().contiguous(
+            memory_format=torch.channels_last)
+        row = {"unit": dw_label(key), "count": count,
+               "ms": time_ms(lambda: FK.depthwise_conv2d_int8_fused(
+                   x, w, bias, u.ep, u.out_hw, u.pads)),
+               "fp16_ms": time_ms(lambda: F.conv2d(
+                   xh, wh, None, 1, (u.pads[0][0], u.pads[1][0]), 1, c))}
+        rows.append(row)
+        print(f"[dw] {row['unit']} x{count}: {row['ms']:.4f} ms, F.conv2d "
+              f"fp16 groups=C {row['fp16_ms']:.4f} ms")
+    sums = {"units": sum(r["count"] for r in rows),
+            **{key: sum(r["count"] * r[key] for r in rows)
+               for key in ("ms", "fp16_ms")}}
+    print(f"[dw] per forward ({sums['units']} units): {sums['ms']:.4f} ms, "
+          f"F.conv2d fp16 {sums['fp16_ms']:.4f} ms")
+    return {"rows": rows, "per_forward": sums}
+
+
+def bench_dw_plans(rng, max_tile_h: int = 12) -> dict:
+    """Each distinct #7 unit of NanoDet-320 at every plan of ``dw_plans``
+    with at most ``max_tile_h`` rows a tile (``_launch_dw``, bit for bit
+    against the plain version first): the planner's pick and the
+    fastest."""
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    eng, units = dw_units()
+    limits = FK.smem_limits(torch.device("cuda"))
+    distinct = {dw_key(eng, u): u for u in units}
+    rows = []
+    for key, u in distinct.items():
+        (nb, h, w, c), out_hw, (kh, kw) = key[0], key[1], key[2]
+        x = torch.from_numpy(rng.integers(-128, 128, key[0],
+                                          dtype=np.int8)).cuda()
+        n = u.node
+        wt = eng.params[n.inputs[1]]
+        bias = eng.params[n.inputs[2]] if len(n.inputs) > 2 else None
+        ref = FK.depthwise_conv2d_int8_fused_plain(x, wt, bias, u.ep,
+                                                   u.out_hw, u.pads)
+        out = torch.empty_like(ref)
+        plans = FK.dw_plans(nb, *out_hw, c, kh, kw, limits)
+        times = {}
+        for plan in plans:
+            if plan.tile_h > max_tile_h:
+                continue
+            FK._launch_dw(x, wt, bias, u.ep, u.pads, out, plan)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise RuntimeError(f"#7 {plan} differs from its plain "
+                                   "version")
+            times[plan] = time_ms(lambda plan=plan: FK._launch_dw(
+                x, wt, bias, u.ep, u.pads, out, plan))
+        best = min(times, key=times.get)
+        row = {"unit": dw_label(key), "pick": str(plans[0]),
+               "pick_ms": times[plans[0]], "best": str(best),
+               "best_ms": times[best], "plans": len(times),
+               "ms": {f"{p.tile_h}x{p.groups}": t for p, t in times.items()}}
+        rows.append(row)
+        print(f"[dwplans] {row['unit']}: pick {plans[0]} "
+              f"{row['pick_ms']:.4f} ms, fastest of {len(times)} {best} "
+              f"{row['best_ms']:.4f} ms")
+    return {"rows": rows}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--paths", default=",".join(PATHS))
+    ap.add_argument("--paths", default=",".join(PATHS),
+                    help="the serving paths of kxk and gemm")
     ap.add_argument("--what", default="kxk,gemm")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -272,6 +453,15 @@ def main(argv=None) -> int:
         for path in args.paths.split(","):
             res[path] = bench(path, rng)
         (out / name).write_text(json.dumps(res, indent=1))
+    for part, bench, name in (("exact1x1", bench_exact_1x1,
+                               "exact1x1_bench.json"),
+                              ("dw", bench_dw, "dw_bench.json"),
+                              ("dwplans", bench_dw_plans,
+                               "dwplans_bench.json")):
+        if part in what:
+            res = {"device": torch.cuda.get_device_name(0),
+                   **bench(np.random.default_rng(0))}
+            (out / name).write_text(json.dumps(res, indent=1))
     return 0
 
 

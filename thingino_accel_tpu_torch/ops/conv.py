@@ -52,15 +52,19 @@ def conv2d_int8(
     pads: Tuple[Tuple[int, int], Tuple[int, int]],
     in_scale: float, w_scale, out_scale: float,
     round_mode: RoundMode = RoundMode.HALF_AWAY, relu: bool = False,
-    plain: bool = False,
+    plain: bool = False, lut: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """int8 conv (x NHWC, w OHWI) with the exact requantize; ``plain=True``
-    takes the kernels' plain versions (a check, never the serving path)."""
+    """int8 conv (x NHWC, w OHWI) with the exact requantize, then the
+    activation table ``lut`` (``requant_kernels.apply_table``) where given;
+    ``plain=True`` takes the kernels' plain versions (a check, never the
+    serving path)."""
     if per_channel(w_scale):
         if not plain:
             counts[PLAIN] += 1
-        return R.conv2d_int8(x, w, bias_i32, out_hw, stride, dilation, pads,
-                             in_scale, w_scale, out_scale, round_mode, relu)
+        return RK.apply_table(
+            R.conv2d_int8(x, w, bias_i32, out_hw, stride, dilation, pads,
+                          in_scale, w_scale, out_scale, round_mode, relu),
+            lut)
     return RK.conv2d_int8(x, w, bias_i32, out_hw, stride, dilation, pads,
                           in_scale, float(w_scale), out_scale, round_mode,
-                          relu, plain=plain)
+                          relu, plain=plain, lut=lut)

@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("mm_int8_fused_mma.cu", "conv_int8_fused_mma.cu",
            "bneck_int8_fused.cu",
            "sppf_int8_fused.cu", "dw_int8_fused.cu", "decode_fused.cu",
-           "requant_int8.cu", "chain_mma.cu", "megakernel_probe.cu",
+           "chain_mma.cu", "megakernel_probe.cu",
            "add_one.cu", "conv_int8_lagged.cu", "conv_int8_requant_mma.cu")
 HEADERS = ("epilogue.cuh", "mma_tile.cuh", "chain_mma.cuh",
            "epilogue_policy.cuh", "conv_mma_core.cuh")
@@ -53,6 +53,13 @@ _SIGNATURES = {
     "tat_mm_int8_fused_mma_info": (_I, ctypes.POINTER(_I), _I, _I, _I, _I,
                                    _I, _I, ctypes.POINTER(_I),
                                    ctypes.POINTER(_I)),
+    # the exact tier's #9 on the same kernel: x, w, bias, lut, out, M, N, K,
+    # cs, round_mode, relu, bm, bn, kc, stages, tiles_per_block, stream
+    "tat_mm_int8_requant_mma": (_P, _P, _P, _P, _P, _L, _I, _I, _F, _I, _I,
+                                _I, _I, _I, _I, _I, _P),
+    # K, bm, bn, kc, stages, -> smem bytes, blocks an SM
+    "tat_mm_int8_requant_mma_info": (_I, _I, _I, _I, _I, ctypes.POINTER(_I),
+                                     ctypes.POINTER(_I)),
     # x, w, bias, cs, res, out, batch, H, W, C, O, KH, KW, stride, pt, pl,
     # OH, OW, act, inv_out, alpha, res_scale, mode, tile_h, tile_w, bn, ck,
     # resident, tiles_per_block, stream
@@ -72,16 +79,17 @@ _SIGNATURES = {
     "tat_sppf_int8_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _F, _F, _P),
     # x, w, bias, cs, out, batch, H, W, C, KH, KW, pt, pl, OH, OW, act,
-    # inv_out, alpha, stream
-    "tat_dw_int8_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _F, _F, _P),
-    # x, w, bias, out, M, N, K, cs, round_mode, relu, stream
-    "tat_mm_int8_requant": (_P, _P, _P, _P, _L, _I, _I, _F, _I, _I, _P),
-    # x, w, bias, out, batch, H, W, C, O, KH, KW, sh, sw, dh, dw, pt, pl,
-    # OH, OW, cs, round_mode, relu, mode, tile_h, tile_w, bn, ck, resident,
-    # tiles_per_block, stream
-    "tat_conv_int8_requant_mma": (_P, _P, _P, _P, *(_I,) * 15, _F, _I, _I,
-                                  *(_I,) * 7, _P),
+    # inv_out, alpha, tile_h, groups, stream
+    "tat_dw_int8_fused": (_P, _P, _P, _P, _P, *(_I,) * 11, _F, _F, _I, _I,
+                          _P),
+    # C, KH, KW, OW, tile_h, groups, -> smem bytes, blocks an SM
+    "tat_dw_int8_fused_info": (*(_I,) * 6, ctypes.POINTER(_I),
+                               ctypes.POINTER(_I)),
+    # x, w, bias, lut, out, batch, H, W, C, O, KH, KW, sh, sw, dh, dw, pt,
+    # pl, OH, OW, cs, round_mode, relu, mode, tile_h, tile_w, bn, ck,
+    # resident, tiles_per_block, stream
+    "tat_conv_int8_requant_mma": (_P, _P, _P, _P, _P, *(_I,) * 15, _F, _I,
+                                  _I, *(_I,) * 7, _P),
     # mode, C, KH, KW, sh, sw, dh, dw, tile_h, tile_w, bn, ck, resident,
     # -> smem bytes, blocks an SM
     "tat_conv_int8_requant_mma_info": (*(_I,) * 13, ctypes.POINTER(_I),

@@ -21,7 +21,9 @@ run before the single int8 write. Port of
 - :func:`sppf_int8_fused` (three chained maxpools + 4-part 1x1), CUDA
   kernel ``csrc/sppf_int8_fused.cu``;
 - :func:`depthwise_conv2d_int8_fused` (stride-1 depthwise convs), CUDA
-  kernel ``csrc/dw_int8_fused.cu``;
+  kernel ``csrc/dw_int8_fused.cu`` (a block's halo tile in shared memory
+  through ``cp.async``, a sliding window of taps in registers), planned by
+  :func:`dw_plan`;
 - :func:`conv2d_int8_fused`, the dispatcher between the first two.
 
 Each wrapper takes its plain torch version for a tensor on the CPU, and
@@ -602,7 +604,9 @@ class ConvLayout:
     im2col mode: the slab (ck bytes a pixel), the A tile at ``a_off`` and
     the weights at ``w_off`` (kc + 16 bytes a row, kc = KH KW ck rounded up
     to 32), three int32 k tables of kc entries at ``ktab_off``, the output
-    tile. The kernel has no static shared memory."""
+    tile. Then the epilogue policy's table (the exact policy's 256 bytes,
+    :data:`EXACT_TABLE_BYTES`; the serving policy has none). The kernel
+    has no static shared memory."""
     slab_bytes: int
     stage_bytes: int
     a_off: int
@@ -614,7 +618,7 @@ class ConvLayout:
 
 def conv_layout(mode: str, c: int, kh: int, kw: int, stride, dilation,
                 tile_h: int, tile_w: int, bn: int, ck: int,
-                resident: bool) -> ConvLayout:
+                resident: bool, table: int = 0) -> ConvLayout:
     slab_h, slab_w = _slab_hw(tile_h, tile_w, kh, kw, stride, dilation)
     tp = tile_h * tile_w
     if mode == "slab":
@@ -632,15 +636,15 @@ def conv_layout(mode: str, c: int, kh: int, kw: int, stride, dilation,
         ktab_off = w_off + bn * (kc + 16)
         out_off = ktab_off + 12 * kc
     return ConvLayout(slab, stage, a_off, w_off, ktab_off, out_off,
-                      out_off + tp * (bn + _OUT_PAD))
+                      out_off + tp * (bn + _OUT_PAD) + table)
 
 
 def conv_smem(mode: str, c: int, kh: int, kw: int, stride, dilation,
               tile_h: int, tile_w: int, bn: int, ck: int,
-              resident: bool) -> int:
+              resident: bool, table: int = 0) -> int:
     """Shared memory of a block in bytes (:func:`conv_layout`'s total)."""
     return conv_layout(mode, c, kh, kw, stride, dilation, tile_h, tile_w,
-                       bn, ck, resident).smem
+                       bn, ck, resident, table).smem
 
 
 def conv_chunks(mode: str, c: int) -> Tuple[Tuple[int, bool], ...]:
@@ -664,9 +668,11 @@ def conv_chunks(mode: str, c: int) -> Tuple[Tuple[int, bool], ...]:
 def conv_plans(batch: int, oh: int, ow: int, c: int, o: int, kh: int,
                kw: int, stride: Tuple[int, int], dilation: Tuple[int, int],
                mode: str, limits: SmemLimits,
-               bns: Tuple[int, ...] = CONV_BNS) -> Tuple[ConvPlan, ...]:
+               bns: Tuple[int, ...] = CONV_BNS, table: int = 0
+               ) -> Tuple[ConvPlan, ...]:
     """Every tile and channel block (of ``bns``) the kernel can run in
-    ``mode`` within the shared memory, each with its widest chunk that fits
+    ``mode`` within the shared memory (``table``: the epilogue policy's
+    table bytes), each with its widest chunk that fits
     and its modelled run of tiles, in the order :func:`conv_plan` prefers
     them: the fewest products issued (ragged tiles and channel blocks count
     whole), C in one chunk, resident weights, the largest block, the least
@@ -674,7 +680,7 @@ def conv_plans(batch: int, oh: int, ow: int, c: int, o: int, kh: int,
     def first_fit(th, tw, bn):
         for ck, resident in conv_chunks(mode, c):
             smem = conv_smem(mode, c, kh, kw, stride, dilation, th, tw, bn,
-                             ck, resident)
+                             ck, resident, table)
             if smem <= limits.per_block:
                 return ck, resident, smem
         return None
@@ -708,14 +714,14 @@ def conv_mode(x: torch.Tensor, w: torch.Tensor) -> str:
 
 def conv_plan(batch: int, oh: int, ow: int, c: int, o: int, kh: int, kw: int,
               stride: Tuple[int, int], dilation: Tuple[int, int], mode: str,
-              limits: SmemLimits, bns: Tuple[int, ...] = CONV_BNS
-              ) -> ConvPlan:
+              limits: SmemLimits, bns: Tuple[int, ...] = CONV_BNS,
+              table: int = 0) -> ConvPlan:
     """The first of :func:`conv_plans` in ``mode``; a slab-mode conv no
     slab fits takes im2col mode. ValueError if nothing fits."""
     args = (batch, oh, ow, c, o, kh, kw, tuple(stride), tuple(dilation))
-    plans = conv_plans(*args, mode, limits, tuple(bns))
+    plans = conv_plans(*args, mode, limits, tuple(bns), table)
     if not plans and mode == "slab":
-        plans = conv_plans(*args, "im2col", limits, tuple(bns))
+        plans = conv_plans(*args, "im2col", limits, tuple(bns), table)
     if not plans:
         raise ValueError(f"no block of the KxK conv kernel fits C={c} "
                          f"{kh}x{kw} in {limits.per_block} bytes of shared "
@@ -826,7 +832,12 @@ MM_BNS = (128, 64, 32)    # channels a block (8, 4, 2 n8 tiles a warp)
 MM_KC_MAX = 128           # K bytes a ring stage at most
 MM_STAGES = (4, 3, 2)     # ring depths, deepest first
 MM_THREADS = 256
-_MM_COL_BYTES = 8         # a channel's bias and cs (ServingEpilogue::Col)
+# bytes of a channel's Col in shared memory: ServingEpilogue's bias and cs,
+# ExactEpilogue's bias
+_MM_COL_BYTES = {False: 8, True: 4}
+# the exact epilogue's activation table in shared memory
+# (ExactEpilogue::kTableBytes), in the 1x1 GEMM and the KxK core alike
+EXACT_TABLE_BYTES = 256
 
 
 def mm_max_blocks(bm: int, bn: int) -> int:
@@ -836,17 +847,19 @@ def mm_max_blocks(bm: int, bn: int) -> int:
 
 
 def mm_smem(ks: Sequence[int], bm: int, bn: int, kc: int,
-            stages: int) -> int:
+            stages: int, exact: bool = False) -> int:
     """Dynamic shared memory of one block of the 1x1 GEMM in bytes
     (``mm_layout`` of ``csrc/mm_int8_fused_mma.cu``; no static bytes): the
     ring of ``stages`` slots of bm rows at kc + 16 bytes, the resident
     weights (bn rows at Kp + 16 bytes, Kp the sum of the parts' K rounded
     up to 32 each), the staged output tile (bm rows at bn + 16 bytes; the
-    residual lands there too), and each channel's bias and cs and its bias
-    x bias_scale."""
+    residual lands there too), and each channel's bias and cs (``exact``:
+    its bias) and its bias x bias_scale; ``exact``: then the activation
+    table."""
     kp = sum(_round_up(k, 32) for k in ks)
     return (stages * bm * (kc + 16) + bn * (kp + 16) + bm * (bn + _OUT_PAD)
-            + bn * (_MM_COL_BYTES + 4))
+            + bn * (_MM_COL_BYTES[exact] + 4)
+            + (EXACT_TABLE_BYTES if exact else 0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -863,7 +876,8 @@ class MmPlan:
 
 @functools.lru_cache(maxsize=512)
 def mm_plans(m: int, n: int, ks: Tuple[int, ...], same_scale: bool,
-             limits: SmemLimits) -> Tuple[MmPlan, ...]:
+             limits: SmemLimits, exact: bool = False
+             ) -> Tuple[MmPlan, ...]:
     """Every (bn, bm) the kernel can run within the shared memory, in the
     order :func:`mm_plan` prefers them: the fewest channel blocks (each
     reads x again), then the fewest channels issued, bn 16 offered where
@@ -872,7 +886,8 @@ def mm_plans(m: int, n: int, ks: Tuple[int, ...], same_scale: bool,
     pairs bm 128 with bn 128: its f32 sums would spill);
     each with the deepest ring that keeps its blocks an SM, ``kc`` the
     widest part's K (rounded up to 32, at most 128) and its modelled run
-    of tiles (:func:`run_of_tiles`)."""
+    of tiles (:func:`run_of_tiles`). ``exact``: the exact tier's kernel
+    (#9: one part, :func:`mm_smem`'s exact layout)."""
     kc = min(MM_KC_MAX, max(_round_up(k, 32) for k in ks))
     bns = MM_BNS + ((16,) if n <= SERVING_BN16_MAX_O else ())
     bns = sorted(bns, key=lambda bn: (_cdiv(n, bn), _cdiv(n, bn) * bn))
@@ -887,23 +902,23 @@ def mm_plans(m: int, n: int, ks: Tuple[int, ...], same_scale: bool,
                 continue
             max_blocks = mm_max_blocks(bm, bn)
             fits = [st for st in MM_STAGES
-                    if mm_smem(ks, bm, bn, kc, st) <= limits.per_block]
+                    if mm_smem(ks, bm, bn, kc, st, exact) <= limits.per_block]
             if not fits:
                 continue
             keep = [st for st in fits
-                    if max_blocks * (mm_smem(ks, bm, bn, kc, st)
+                    if max_blocks * (mm_smem(ks, bm, bn, kc, st, exact)
                                      + _BLOCK_RESERVED) <= limits.per_sm]
             stages = (keep or fits)[0]
-            smem = mm_smem(ks, bm, bn, kc, stages)
+            smem = mm_smem(ks, bm, bn, kc, stages, exact)
             plans.append(MmPlan(bm, bn, kc, stages, run_of_tiles(
                 1, _cdiv(m, bm), nbn, smem, limits, MM_THREADS, max_blocks)))
     return tuple(plans)
 
 
 def mm_plan(m: int, n: int, ks: Sequence[int], same_scale: bool,
-            limits: SmemLimits) -> MmPlan:
+            limits: SmemLimits, exact: bool = False) -> MmPlan:
     """The first of :func:`mm_plans`; ValueError if no block fits."""
-    plans = mm_plans(m, n, tuple(ks), bool(same_scale), limits)
+    plans = mm_plans(m, n, tuple(ks), bool(same_scale), limits, exact)
     if not plans:
         raise ValueError(f"no block of the 1x1 GEMM fits K = {tuple(ks)} "
                          f"in {limits.per_block} bytes of shared memory")
@@ -1093,14 +1108,109 @@ def depthwise_conv2d_int8_fused(
     return out
 
 
-def _launch_dw(x, w, bias, ep, pads, out) -> None:
+def _launch_dw(x, w, bias, ep, pads, out,
+               plan: Optional["DwPlan"] = None) -> None:
+    if plan is None:
+        plan = dw_plan(x.shape[0], out.shape[1], out.shape[2], x.shape[3],
+                       w.shape[0], w.shape[1], smem_limits(out.device))
+    cuda_build.check(cuda_build.load_library().tat_dw_int8_fused(
+        *_dw_args(x, w, bias, ep, pads, out, plan), _stream(out.device)),
+        "tat_dw_int8_fused")
+
+
+def _dw_args(x, w, bias, ep, pads, out, plan: "DwPlan") -> tuple:
+    """The arguments of ``tat_dw_int8_fused`` up to the stream."""
     nb, h, wd, c = x.shape
     kh, kw, _ = w.shape
     (pt, _), (pl, _) = pads
-    cuda_build.check(cuda_build.load_library().tat_dw_int8_fused(
-        _ptr(x), _ptr(w), _ptr(bias), _ptr(ep.cs), _ptr(out), nb, h, wd, c,
-        kh, kw, pt, pl, out.shape[1], out.shape[2], _kernel_act(ep.act),
-        ep.inv_out, ep.alpha, _stream(out.device)), "tat_dw_int8_fused")
+    return (_ptr(x), _ptr(w), _ptr(bias), _ptr(ep.cs), _ptr(out), nb, h, wd,
+            c, kh, kw, pt, pl, out.shape[1], out.shape[2],
+            _kernel_act(ep.act), ep.inv_out, ep.alpha, plan.tile_h,
+            plan.groups)
+
+
+# ---------------------------------------------------------------------------
+# The depthwise kernel's plan and shared-memory layout (``dw_layout`` of
+# ``csrc/dw_int8_fused.cu``)
+# ---------------------------------------------------------------------------
+
+DW_MAX_GROUPS = 16        # 16-channel groups a block (kMaxGroups)
+DW_MAX_THREADS = 256      # threads a block at most (kMaxThreads)
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """The block of the depthwise kernel: ``tile_h`` output rows of one
+    image, ``groups`` x 16 channels, all the output's columns."""
+    tile_h: int
+    groups: int
+
+
+def dw_threads(ow: int, groups: int) -> int:
+    """A block's threads: ``groups`` x min(ow, 256 / groups) columns."""
+    return groups * min(ow, DW_MAX_THREADS // groups)
+
+
+def dw_smem(ow: int, kh: int, kw: int, tile_h: int, groups: int) -> int:
+    """Dynamic shared memory of a block in bytes: the halo, (tile_h + kh -
+    1) rows of ow + kw - 1 pixels at 16 x groups bytes, kh kw weight rows
+    of 16 x groups int32, then the 16 x groups channels' int32 bias and
+    f32 cs (no static bytes)."""
+    cb = 16 * groups
+    return ((tile_h + kh - 1) * (ow + kw - 1) * cb + 4 * kh * kw * cb
+            + 8 * cb)
+
+
+@functools.lru_cache(maxsize=256)
+def dw_plans(batch: int, oh: int, ow: int, c: int, kh: int, kw: int,
+             limits: SmemLimits) -> Tuple[DwPlan, ...]:
+    """Every (tile_h, groups) that fits the shared memory, cheapest first
+    by a model: the waves of blocks (blocks an SM by threads, 128 registers
+    a thread and shared memory) times the halo rows a thread walks through
+    (tile_h + kh - 1, times its columns' passes); ties: the fewest idle
+    groups in the last slab, blocks nearest 128 threads (4 warps: several
+    blocks an SM, the SMs' shares even), the taller tile (fewer halo
+    re-reads). On the card its picks for NanoDet-320's five shapes ran a
+    forward within 3% of the fastest plans' (PERF.md, PR 12)."""
+    n_groups = _cdiv(c, 16)
+    cands = []
+    for groups in range(1, min(n_groups, DW_MAX_GROUPS) + 1):
+        threads = _round_up(dw_threads(ow, groups), 32)
+        passes = _cdiv(ow, dw_threads(ow, groups) // groups)
+        for th in range(1, oh + 1):
+            smem = dw_smem(ow, kh, kw, th, groups)
+            if smem > limits.per_block:
+                break
+            per_sm = max(1, min(2048 // threads, 65536 // (threads * 128),
+                                limits.per_sm // (smem + _BLOCK_RESERVED)))
+            blocks = batch * _cdiv(oh, th) * _cdiv(n_groups, groups)
+            cost = _cdiv(blocks, limits.sms * per_sm) * passes * (th + kh - 1)
+            idle = _cdiv(n_groups, groups) * groups - n_groups
+            key = (cost, idle, abs(dw_threads(ow, groups) - 128), -th)
+            cands.append((key, DwPlan(th, groups)))
+    return tuple(p for _, p in sorted(cands, key=lambda t: t[0]))
+
+
+def dw_plan(batch: int, oh: int, ow: int, c: int, kh: int, kw: int,
+            limits: SmemLimits) -> DwPlan:
+    """The first of :func:`dw_plans`; ValueError if no block fits."""
+    plans = dw_plans(batch, oh, ow, c, kh, kw, limits)
+    if not plans:
+        raise ValueError(f"no block of the depthwise kernel fits OW={ow} "
+                         f"{kh}x{kw} in {limits.per_block} bytes of shared "
+                         "memory")
+    return plans[0]
+
+
+def dw_occupancy(plan: DwPlan, c: int, kernel: Tuple[int, int],
+                 ow: int) -> Tuple[int, int]:
+    """``(shared memory bytes, blocks an SM holds)`` of the depthwise
+    kernel with ``plan`` on the current card."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    cuda_build.check(cuda_build.load_library().tat_dw_int8_fused_info(
+        c, kernel[0], kernel[1], ow, plan.tile_h, plan.groups,
+        ctypes.byref(smem), ctypes.byref(blocks)), "tat_dw_int8_fused_info")
+    return smem.value, blocks.value
 
 
 def conv2d_int8_fused(

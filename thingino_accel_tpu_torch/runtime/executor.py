@@ -33,9 +33,11 @@ RESHAPE in plain torch. It matches the JAX serving engine built with
 runs): port of ``_lower_node`` with its ``full`` and ``compat`` modes.
 Every int8 conv with a per-tensor weight scale runs in the exact tier's
 kernels (``ops.conv``: #9, #10 or #11, RELU after the clamp), a
-per-channel one in the plain op, as the JAX executor sends it to XLA;
-any other activation of a conv runs after it as a plain torch step
-(``_apply_fused_act``). The other ops are the plain ops of
+per-channel one in the plain op, as the JAX executor sends it to XLA.
+Any other activation of a conv (``_apply_fused_act``) is a function of
+the int8 output alone, so it runs as a 256-entry table built from it once
+(:func:`act_table`): in the kernel's epilogue, or for a plain conv as a
+gather step after it. The other ops are the plain ops of
 ``ops.reference``.
 
 Every entry point puts its tensors on ``device``, ``"cuda"`` by default;
@@ -186,6 +188,22 @@ def apply_fused_act(out: torch.Tensor, act: str, scale: float,
         return clamp_i8(round_to_int(R._fdiv(y, scale),
                                      RoundMode.PLUS_HALF_TRUNC))
     return out
+
+
+# the conv activations beyond RELU: the exact tier applies each as a table
+TABLE_ACTS = ("SILU", "SIGMOID", "RELU6", "LEAKY_RELU", "TANH", "HARD_SWISH")
+
+
+def act_table(act: str, scale: float, alpha: float = 0.01
+              ) -> Optional[torch.Tensor]:
+    """A conv's activation beyond RELU on its int8 output (``scale`` the
+    output's scale) as int8 [256] on the CPU, entry ``q + 128`` the act of
+    ``q``: :func:`apply_fused_act` on the 256 values, so the table gives
+    what it gives. None for an act that is not in ``TABLE_ACTS``."""
+    if act not in TABLE_ACTS:
+        return None
+    q = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
+    return apply_fused_act(q, act, scale, alpha=alpha).contiguous()
 
 
 def concat_axis(node: Node, xs: Sequence[torch.Tensor],
@@ -979,8 +997,10 @@ class ExactConvUnit(KernelUnit):
     kernel #9, #10 or #11 for a per-tensor weight scale (``kind`` is the
     kernel's launch counter), the plain op for a per-channel one (``kind``
     ``"plain_convs"``, not a kernel unit). Its output is the requantized
-    int8 conv with RELU applied after the clamp; any other activation is
-    the :class:`ActStep` after it."""
+    int8 conv with RELU applied after the clamp; a kernel unit applies any
+    other activation through its table (``lut``, the executor's
+    ``tables``) in the kernel's epilogue, a plain conv leaves it to the
+    :class:`ActStep` after it."""
 
     mirrors = "conv2d_int8"
 
@@ -1002,37 +1022,43 @@ class ExactConvUnit(KernelUnit):
         self.kind = C.route(a["kernel"], self.stride, self.dilation,
                             self.pads, self.scales[1])
         self.is_kernel = self.kind != C.PLAIN
+        self.lut = ex.tables.get(self.out) if self.is_kernel else None
 
-    def compute(self, env, plain=False):
+    def compute(self, env, plain=False, act=True):
+        """The unit's output; ``plain=True``: the plain conv, then the
+        table; ``act=False``: without the table (the conv before its
+        activation)."""
         n = self.node
         bias = env[n.inputs[2]] if len(n.inputs) > 2 else None
         return C.conv2d_int8(
             env[n.inputs[0]], env[n.inputs[1]], bias, self.out_hw,
             self.stride, self.dilation, self.pads, *self.scales,
-            self.round_mode, self.relu, plain=plain)
+            self.round_mode, self.relu, plain=plain,
+            lut=self.lut if act else None)
 
 
 class ActStep(_Step):
-    """A conv's activation beyond RELU on its int8 output, as a plain
-    torch op (``apply_fused_act``), at the output's scale."""
+    """A plain conv's activation beyond RELU on its int8 output: a gather
+    through its table (the executor's ``tables``), as the kernels apply
+    it."""
 
     def __init__(self, ex: "ExactExecutor", node: Node):
-        a = node.attrs
         self.node, self.out = node, node.outputs[0]
         self.reads = (self.out,)
-        self.act = a.get("activation", "NONE")
-        self.scale = ex.scale(self.out)
-        self.alpha = a.get("alpha", 0.01) or 0.01
+        self.act = node.attrs.get("activation", "NONE")
+        self.lut = ex.tables[self.out]
 
     def run(self, env, plain=False):
-        env[self.out] = apply_fused_act(env[self.out], self.act, self.scale,
-                                        alpha=self.alpha)
+        env[self.out] = RK.apply_table(env[self.out], self.lut)
 
 
 class ExactExecutor(Executor):
     """The exact tier, ``mode`` ``"full"`` or ``"compat"`` (port of
     ``build_executor`` with ``_lower_node``): a schedule of steps, one per
-    node but two for a conv with an activation beyond RELU.
+    node but two for a plain conv with an activation beyond RELU (the
+    table's gather after it). ``tables``: each such conv's activation
+    table (:func:`act_table`, built on the CPU and moved to ``device``
+    once), by its output's name; none in compat mode.
 
     Compat mode replicates the reference runtime: no SIGMOID+MUL fusion,
     only a conv's RELU, MAXPOOL without pads, AVGPOOL, GLOBAL_AVGPOOL,
@@ -1053,16 +1079,23 @@ class ExactExecutor(Executor):
                       else list(graph.nodes))
         self.device = resolve_device(device)
         self.plan = None
+        self.tables: Dict[str, torch.Tensor] = {}
         self.steps: List[_Step] = []
         for node in self.nodes:
             self._check_exact(node)
-            if self._kernel_conv(node):
-                self.steps.append(ExactConvUnit(self, node))
-                if not self.compat and node.attrs.get(
-                        "activation", "NONE") not in ("NONE", "RELU"):
-                    self.steps.append(ActStep(self, node))
-            else:
+            if not self._kernel_conv(node):
                 self.steps.append(NodeStep(self, node))
+                continue
+            a, out = node.attrs, node.outputs[0]
+            lut = None if self.compat else act_table(
+                a.get("activation", "NONE"), self.scale(out),
+                a.get("alpha", 0.01) or 0.01)
+            if lut is not None:
+                self.tables[out] = lut.to(self.device)
+            unit = ExactConvUnit(self, node)
+            self.steps.append(unit)
+            if lut is not None and not unit.is_kernel:
+                self.steps.append(ActStep(self, node))
 
     def _kernel_conv(self, node: Node) -> bool:
         return (node.op in ("CONV2D", "DEPTHWISE_CONV2D")
@@ -1126,10 +1159,14 @@ class ExactExecutor(Executor):
                     out_hw, a["stride"], a["dilation"], pads,
                     scale(node.inputs[0]), self.w_scale(node),
                     scale(out_name), self.round_mode, act == "RELU")
-            else:
-                out = ExactConvUnit(self, node).compute(env, plain)
-            env[out_name] = apply_fused_act(out, act, scale(out_name), compat,
-                                            a.get("alpha", 0.01) or 0.01)
+                env[out_name] = apply_fused_act(
+                    out, act, scale(out_name), compat,
+                    a.get("alpha", 0.01) or 0.01)
+                return
+            unit = ExactConvUnit(self, node)
+            out = unit.compute(env, plain)
+            env[out_name] = (out if unit.is_kernel else
+                             RK.apply_table(out, self.tables.get(out_name)))
             return
 
         x = env[node.inputs[0]]
