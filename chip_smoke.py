@@ -12,13 +12,18 @@ Phases:
 2. Build: compile the kernels in ``thingino_accel_tpu_torch/csrc/`` with
    nvcc, one process per source, all started together (timed); count the
    IDP4A, IMMA, LDSM and LDGSTS instructions of each kernel of the library
-   (``cuobjdump -sass``): the tensor-core kernels and #7 hold no IDP4A.
+   (``cuobjdump -sass``): no kernel holds an IDP4A, and the 1x1 GEMM, the
+   KxK core, the fused bottleneck and the fused SPPF hold IMMA.
 3. Kernels vs their plain torch versions on the card at the paths'
    shapes (NONE, LEAKY_RELU and SILU, per-channel scales, residual modes;
    #3, which launches #1's tensor-core 1x1 GEMM
    ``csrc/mm_int8_fused_mma.cu``, at its lead shape in both scale
    branches, at the real yolov5n's K_i = 16 unit, SPPF's 4 parts, N = 255
-   and with a residual; the depthwise kernel #7 (``csrc/dw_int8_fused.cu``:
+   and with a residual; the fused C3 bottleneck #6
+   (``csrc/bneck_int8_fused.cu``) and the fused SPPF #4
+   (``csrc/sppf_int8_fused.cu``), both on the tensor cores, at their leads
+   and at the gpu tests' edge shapes in every act (#4 also on inputs all
+   below 0); the depthwise kernel #7 (``csrc/dw_int8_fused.cu``:
    a halo tile in shared memory, a window of taps in registers) at
    NanoDet's shapes, bit for bit (its SILU case within the bound); the head
    decode on the real yolov5n's heads at batch 16 and 1); median
@@ -111,7 +116,17 @@ Phases:
    ``GEMM_VARIANTS`` builds), the dp4a kernels' time it replaced (a
    record of ``kxk_bench`` in the checkout that had them,
    ``thingino_accel_tpu_torch/records/dp4a_1x1.json``), and the
-   per-forward sums.
+   per-forward sums. Beside it, inside phases 4 and 6, the bottleneck
+   table (``[bneck]``): every distinct #6 unit of the planned real yolov5n
+   and the planned zoo yolov5s on its recorded input at batch 16, equal to
+   the unit's output and to the unfused tensor-core pair (#1 into device
+   memory, then #2 with the shortcut) bit for bit, with its plan and
+   blocks an SM, its time beside the pair's, fp16 ``F.conv2d`` of the KxK
+   stage alone and its bound, the dp4a kernel's time it replaced
+   (``records/dp4a_bneck.json``) and the per-forward sums; inside phase 6
+   the SPPF table (``[sppf]``): the #4 unit likewise, beside #3's GEMM
+   alone over the four levels (equal bit for bit) and ``torch._int_mm``
+   over them, with ``records/dp4a_sppf.json``.
 11. ``[probes]``: the ports of the TPU probes under ``examples/``
    (``thingino_accel_tpu_torch.probes``), the port's first tensor-core
    kernels. Each E1 variant (``csrc/chain_mma.cu``) and E3 kind
@@ -301,14 +316,31 @@ GEMM_VARIANTS = {
 # the dp4a kernels #1 and #3 ran before the 1x1 GEMM, each 1x1 unit timed by
 # kxk_bench in the checkout that had them (a record, not this run's
 # measurement), by the 1x1 table's path and unit; the same for #9's dp4a
-# kernel (csrc/requant_int8.cu) and #7's first port
+# kernel (csrc/requant_int8.cu), #7's first port and the dp4a #6 and #4
 RECORDS = REPO / "thingino_accel_tpu_torch" / "records"
 DP4A_1X1 = RECORDS / "dp4a_1x1.json"
 DP4A_EXACT_1X1 = RECORDS / "dp4a_exact_1x1.json"
 DP4A_DW = RECORDS / "dp4a_dw.json"
-# kernels whose SASS must hold no IDP4A, by a piece of their names: the
-# 1x1 GEMM (#1, #3, #9), the KxK core (#2, #5, #10, #11), #7
-NO_DP4A = ("mm_mma_kernel", "conv_mma_kernel", "dw_int8_fused_kernel")
+DP4A_BNECK = RECORDS / "dp4a_bneck.json"
+DP4A_SPPF = RECORDS / "dp4a_sppf.json"
+# kernels counted by a piece of their names: the 1x1 GEMM (#1, #3, #9),
+# the KxK core (#2, #5, #10, #11), #7, the fused C3 bottleneck (#6) and
+# SPPF (#4). The whole library must hold no IDP4A; every kernel but #7
+# (per-channel products) must hold IMMA
+NO_DP4A = ("mm_mma_kernel", "conv_mma_kernel", "dw_int8_fused_kernel",
+           "bneck_mma_kernel", "sppf_mma_kernel")
+TENSOR_CORE = ("mm_mma_kernel", "conv_mma_kernel", "bneck_mma_kernel",
+               "sppf_mma_kernel")
+# the edge shapes of tests/test_torch_gpu.py, each in every act: #6's
+# (batch, H, W, C, CM, O, K, shortcut) and #4's (batch, H, W, C, O, k)
+BNECK_EDGES = [(2, 13, 11, 32, 32, 32, 3, True),
+               (1, 9, 20, 40, 80, 130, 3, False),
+               (3, 7, 6, 6, 10, 6, 3, True),
+               (1, 12, 9, 16, 16, 16, 5, True),
+               (16, 20, 20, 128, 128, 128, 3, True)]
+SPPF_EDGES = [(2, 6, 7, 36, 20, 5), (1, 9, 4, 10, 8, 3),
+              (2, 12, 30, 33, 70, 5), (8, 20, 20, 256, 512, 5),
+              (1, 20, 40, 32, 16, 5)]
 # the instructions counted, by their SASS opcodes (dp4a is IDP.4A on sm_90)
 SASS_OPS = {"IDP4A": r"IDP\.4A", "IMMA": r"IMMA", "LDSM": r"LDSM",
             "LDGSTS": r"LDGSTS"}
@@ -535,9 +567,9 @@ def phase_build() -> float:
 def sass_counts() -> dict:
     """``SASS_OPS`` counted in each kernel of the library
     (``cuobjdump -sass``, beside nvcc), summed by the ``NO_DP4A`` name
-    pieces and over all kernels; fails if a ``NO_DP4A`` kernel holds an
-    IDP4A or no such kernel is found, or if the library holds none at all
-    (the dp4a kernels #4 and #6 do: the count would be blind)."""
+    pieces and over all kernels; fails if no kernel of a piece is found,
+    if a ``TENSOR_CORE`` piece holds no IMMA, or if any kernel of the
+    library holds an IDP4A: no kernel of the port runs dp4a."""
     import re
     from thingino_accel_tpu_torch.ops import cuda_build
     tool = Path(cuda_build.find_nvcc()).with_name("cuobjdump")
@@ -558,13 +590,13 @@ def sass_counts() -> dict:
                     counts[piece][op] += ops[op]
     for piece in NO_DP4A:
         require(found[piece] > 0, f"no kernel named *{piece}* in the SASS")
-        require(counts[piece]["IDP4A"] == 0,
-                f"{piece}: {counts[piece]['IDP4A']} IDP4A in the SASS")
+        require(piece not in TENSOR_CORE or counts[piece]["IMMA"] > 0,
+                f"{piece}: no IMMA in the SASS")
         print(f"[build] SASS of the {found[piece]} {piece} kernels: "
               f"{counts[piece]}")
     print(f"[build] SASS of all {found['all']} kernels: {counts['all']}")
-    require(counts["all"]["IDP4A"] > 0, "no IDP4A found in the library: "
-            "the SASS count does not see the dp4a kernels")
+    require(counts["all"]["IDP4A"] == 0,
+            f"{counts['all']['IDP4A']} IDP4A in the library's SASS")
     return {"kernels": found, "ops": counts}
 
 
@@ -761,6 +793,32 @@ def phase_kernels(results: dict) -> None:
                  lambda out: (2 * out.numel() * 1024,
                               x.numel() + wt.numel() + 8 * 512
                               + out.numel()))   # no single library call
+
+    # #6 and #4 at the edge shapes of the gpu tests, each act (the
+    # shortcut where the act takes one), against their plain versions
+    for nb, h, w, c, cm, o, k, sc in BNECK_EDGES:
+        x, w1, w2 = rnd((nb, h, w, c)), rnd((cm, c)), rnd((o, k, k, cm))
+        b1, b2 = bias_of(cm), bias_of(o)
+        for act in ("NONE", "RELU", "LEAKY_RELU", "SILU"):
+            args = (x, w1, b1, ep_of(cm, c, act), w2, b2,
+                    ep_of(o, k * k * cm, act), sc and act != "LEAKY_RELU",
+                    0.05)
+            note_err(results, "bottleneck_int8_fused", compare(
+                FK.bottleneck_int8_fused(*args),
+                FK.bottleneck_int8_fused_plain(*args), act,
+                f"bottleneck {nb}x{h}x{w}x{c} -> {cm} -> {k}x{k} {o}"))
+    for nb, h, w, c, o, k in SPPF_EDGES:
+        x, wt, bias = rnd((nb, h, w, c)), rnd((o, 4 * c)), bias_of(o)
+        xneg = -(x.to(torch.int32).abs().clamp(1, 128)).to(torch.int8)
+        for act in ("NONE", "RELU", "LEAKY_RELU", "SILU"):
+            ep = ep_of(o, 4 * c, act)
+            for xi in (x, xneg):
+                note_err(results, "sppf_int8_fused", compare(
+                    FK.sppf_int8_fused(xi, wt, bias, ep, k),
+                    FK.sppf_int8_fused_plain(xi, wt, bias, ep, k), act,
+                    f"SPPF {nb}x{h}x{w}x{c} k{k} -> {o}"))
+    print(f"[kernels] #6 at {len(BNECK_EDGES)} and #4 at {len(SPPF_EDGES)} "
+          "edge shapes (#4 also all below 0), each act: within tolerance")
 
     # depthwise 3x3/s1 at NanoDet's batch-16 shapes (its LEAKY_RELU), a
     # SILU case and a C % 4 != 0 case (byte path)
@@ -1027,6 +1085,7 @@ def phase_slice(results: dict) -> dict:
     table = serving_kxk_table(eng, rec, "planned real yolov5n")
     gemm = gemm_table(eng, planned_gemm_units(eng, rec),
                       "planned real yolov5n")
+    bneck = bneck_table(eng, rec, "planned real yolov5n")
     x1 = check_letterbox_on_card(frames[0][:1], target)
     n_steps = check_steps_against_cpu(eng, x1)
     print(f"[slice] card vs CPU, one frame: {n_steps} planned steps within "
@@ -1057,7 +1116,7 @@ def phase_slice(results: dict) -> dict:
         "units_checked": n_units, "steps_card_vs_cpu": n_steps,
         "planned_vs_unplanned_head_share": share,
         "planned_vs_unplanned_head_max": dmax, "dma_replay": dma,
-        "serving_kxk": table, "gemm": gemm,
+        "serving_kxk": table, "gemm": gemm, "bneck": bneck,
     }
 
 
@@ -1167,9 +1226,12 @@ def phase_zoo_s(results: dict) -> dict:
     table = serving_kxk_table(eng, rec, "planned zoo yolov5s 640")
     gemm = gemm_table(eng, planned_gemm_units(eng, rec),
                       "planned zoo yolov5s 640")
+    bneck = bneck_table(eng, rec, "planned zoo yolov5s 640")
+    sppf = sppf_table(eng, rec)
     return {"launches": counts, "census_per_forward": census,
             "forward_s_2_batches": secs, "units_checked": n_units,
-            "dma_replay": dma, "serving_kxk": table, "gemm": gemm}
+            "dma_replay": dma, "serving_kxk": table, "gemm": gemm,
+            "bneck": bneck, "sppf": sppf}
 
 
 def phase_nanodet(results: dict) -> dict:
@@ -2021,6 +2083,128 @@ def dw_table(eng, rec: list) -> dict:
           f"bound {sums['bound_ms']:.4f} ms; the kernel it replaced "
           f"(recorded, {record['device']}) {sums['old_recorded_ms']:.4f} ms")
     return {"rows": rows, "per_forward": sums}
+
+
+def bneck_table(eng, rec: list, what: str) -> dict:
+    """The bottleneck table of one planned path: every distinct #6 unit of
+    the forward ``rec`` (batch 16, its units just held against their plain
+    versions), re-run on its recorded input through its entry: equal to the
+    unit's own output, and the unfused tensor-core pair (#1's 1x1 into
+    device memory, then #2's KxK with the shortcut) equal to it bit for
+    bit; its plan and blocks an SM, its median event time beside the
+    pair's, fp16 channels-last ``F.conv2d`` of the KxK stage alone and its
+    bound (each input byte and each output byte once); the per-forward
+    sums. The dp4a kernel it replaced, timed by ``kxk_bench`` in the
+    checkout that had it (seeded inputs), is printed beside from
+    ``DP4A_BNECK``."""
+    import torch
+    from thingino_accel_tpu_torch import kxk_bench as KB
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+
+    record = json.loads(DP4A_BNECK.read_text())
+    dp4a = record["ms"][DP4A_PATH[what]]
+    distinct: dict = {}
+    for u, reads, out in rec:
+        if u.kind == "bneck":
+            key = KB.bneck_key(eng, u, out.shape[0])
+            distinct.setdefault(key, [u, reads, out, 0])[3] += 1
+    rows = []
+    limits = FK.smem_limits(torch.device("cuda"))
+    for key, (u, reads, out, count) in distinct.items():
+        (nb, h, w, c), cm, o, k = key[:4]
+        x = reads[u.conv_a.inputs[0]]
+        calls = KB.bneck_calls(eng, u, x)
+        got, pair = calls["fused"](), calls["pair"]()
+        torch.cuda.synchronize()
+        label = KB.bneck_label(key)
+        require(torch.equal(got, out),
+                f"{what} {label}: differs from the unit's own output")
+        require(torch.equal(pair, got),
+                f"{what} {label}: the #1 + #2 pair differs")
+        ms, pair_ms = time_ms(calls["fused"], 20), time_ms(calls["pair"], 20)
+        lib = library_ms(calls["fp16"], f"{label} KxK stage")
+        m = nb * h * w
+        bms, side = bound(2 * m * (c * cm + k * k * cm * o),
+                          m * c + cm * c + o * k * k * cm + 8 * (cm + o)
+                          + m * o)
+        plan = FK.bneck_plan(nb, h, w, c, cm, o, k, limits)
+        _, blocks = FK.bneck_occupancy(plan, c, cm, k, u.ep1.act, u.ep2.act)
+        row = {"path": what, "unit": label, "count": count, "ms": ms,
+               "pair_ms": pair_ms, "fp16_kxk_ms": lib, "bound_ms": bms,
+               "bound_by": side, "plan": dataclasses.asdict(plan),
+               "blocks_per_sm": blocks, "dp4a_recorded_ms": dp4a.get(label)}
+        rows.append(row)
+        print(f"[bneck] {what}: {label} x{count}: kernel {ms:.4f} ms, #1 + "
+              f"#2 {pair_ms:.4f} ms, F.conv2d fp16 (KxK stage) {lib} ms, "
+              f"bound {bms:.4f} ms ({side}), {plan.tile_h}x{plan.tile_w} bn "
+              f"{plan.bn}{'' if plan.resident else ' w2 streamed'} tpb "
+              f"{plan.tiles_per_block}, {blocks} blocks/SM; "
+              f"dp4a (recorded) {row['dp4a_recorded_ms']} ms")
+    sums = {"units": sum(r["count"] for r in rows),
+            **{key: sum(r["count"] * (r[key] or 0.0) for r in rows)
+               for key in ("ms", "pair_ms", "fp16_kxk_ms", "bound_ms",
+                           "dp4a_recorded_ms")}}
+    census = eng._fn.launch_census()["bottleneck_int8_fused"]
+    require(sums["units"] == census, f"{what}: {sums['units']} #6 units in "
+                                     f"the table, {census} in the plan")
+    print(f"[bneck] {what} per forward ({sums['units']} #6 units): kernel "
+          f"{sums['ms']:.4f} ms, #1 + #2 {sums['pair_ms']:.4f} ms, F.conv2d "
+          f"fp16 (KxK stages) {sums['fp16_kxk_ms']:.4f} ms, bound "
+          f"{sums['bound_ms']:.4f} ms; dp4a (recorded, {record['device']}) "
+          f"{sums['dp4a_recorded_ms']:.4f} ms")
+    return {"rows": rows, "per_forward": sums}
+
+
+def sppf_table(eng, rec: list) -> dict:
+    """The SPPF table of the planned zoo yolov5s: its #4 unit of the
+    forward ``rec`` (batch 16), re-run on its recorded input through its
+    entry: equal to the unit's own output, and #3's 1x1 GEMM alone over
+    the four levels (pooled beforehand by the plain maxpool) equal to it
+    bit for bit; its plan and blocks an SM, its median event time beside
+    that GEMM's, ``torch._int_mm`` over the levels concatenated and its
+    bound; the dp4a kernel it replaced from ``DP4A_SPPF``."""
+    import torch
+    from thingino_accel_tpu_torch import kxk_bench as KB
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+
+    record = json.loads(DP4A_SPPF.read_text())
+    rows = []
+    limits = FK.smem_limits(torch.device("cuda"))
+    for u, reads, out in rec:
+        if u.kind != "sppf":
+            continue
+        key = KB.sppf_key(eng, u, out.shape[0])
+        (nb, h, w, c), o, k, act = key
+        x = reads[u.src]
+        wt, bias = KB.sppf_operands(eng, u)
+        calls = KB.sppf_calls(u, x, wt, bias)
+        got, gemm = calls["fused"](), calls["gemm"]()
+        torch.cuda.synchronize()
+        label = KB.sppf_label(key)
+        require(torch.equal(got, out),
+                f"{label}: differs from the unit's own output")
+        require(torch.equal(gemm, got.reshape(gemm.shape)),
+                f"{label}: #3 over the levels differs")
+        ms, gemm_ms = time_ms(calls["fused"], 20), time_ms(calls["gemm"], 20)
+        lib = library_ms(calls["int_mm"], label)
+        m = nb * h * w
+        bms, side = bound(2 * m * 4 * c * o, m * c + 4 * c * o + 8 * o
+                          + m * o)
+        plan = FK.sppf_plan(nb, h, w, c, o, k, limits)
+        _, blocks = FK.sppf_occupancy(plan, h, w, c, k, act)
+        row = {"unit": label, "ms": ms, "gemm_levels_ms": gemm_ms,
+               "int_mm_ms": lib, "bound_ms": bms, "bound_by": side,
+               "plan": dataclasses.asdict(plan), "blocks_per_sm": blocks,
+               "dp4a_recorded_ms": record["ms"].get(label)}
+        rows.append(row)
+        print(f"[sppf] {label}: kernel {ms:.4f} ms, #3 over the levels "
+              f"{gemm_ms:.4f} ms, _int_mm {lib}, bound {bms:.4f} ms "
+              f"({side}), bm {plan.bm} bn {plan.bn} ck {plan.ck} tpb "
+              f"{plan.tiles_per_block}, {blocks} blocks/SM; dp4a (recorded, "
+              f"{record['device']}) {row['dp4a_recorded_ms']} ms")
+    require(len(rows) == PLANNED_ZOO_S["sppf_int8_fused"],
+            f"{len(rows)} #4 units in the SPPF table")
+    return {"rows": rows}
 
 
 def planned_gemm_units(eng, rec: list) -> list:

@@ -1,7 +1,8 @@
 // A CPU stand-in for the CUDA runtime, enough to compile the port's
 // tensor-core kernels (chain_mma.cu, megakernel_probe.cu, add_one.cu,
 // conv_int8_lagged.cu, conv_int8_requant_mma.cu, conv_int8_fused_mma.cu,
-// mm_int8_fused_mma.cu, dw_int8_fused.cu) with g++ and run
+// mm_int8_fused_mma.cu, dw_int8_fused.cu, bneck_int8_fused.cu,
+// sppf_int8_fused.cu) with g++ and run
 // them on host memory: each block's threads are std::threads meeting at a
 // std::barrier (__syncthreads), blocks run one after another, the dynamic
 // shared memory is one static buffer. tests/test_torch_cuda_shim.py
@@ -143,10 +144,18 @@ inline int __float_as_int(float v) {
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return static_cast<unsigned>((static_cast<uint64_t>(a) * b) >> 32);
 }
-inline int __dp4a(int a, int b, int c) {   // epilogue.cuh's dp4a tile
-  for (int i = 0; i < 4; ++i)
-    c += static_cast<int8_t>(a >> (8 * i)) * static_cast<int8_t>(b >> (8 * i));
-  return c;
+// Hopper's DPX three-way max of two signed int16 lanes (sppf_int8_fused.cu's
+// pools)
+inline unsigned __vimax3_s16x2(unsigned a, unsigned b, unsigned c) {
+  unsigned r = 0;
+  for (int i = 0; i < 2; ++i) {
+    const int16_t x = static_cast<int16_t>(a >> (16 * i));
+    const int16_t y = static_cast<int16_t>(b >> (16 * i));
+    const int16_t z = static_cast<int16_t>(c >> (16 * i));
+    const int16_t m = std::max(x, std::max(y, z));
+    r |= static_cast<unsigned>(static_cast<uint16_t>(m)) << (16 * i);
+  }
+  return r;
 }
 
 // bf16: round to nearest even from float

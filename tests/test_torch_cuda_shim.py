@@ -3,7 +3,9 @@
 KxK conv core ``conv_mma_core.cuh`` under both its epilogue policies: the
 exact tier's ``conv_int8_requant_mma.cu`` and the serving tier's
 ``conv_int8_fused_mma.cu``, and the 1x1 GEMM ``mm_int8_fused_mma.cu`` of
-#1 and #3 and, under the exact policy, of #9), and the depthwise kernel
+#1 and #3 and, under the exact policy, of #9, the fused C3 bottleneck
+``bneck_int8_fused.cu`` (#6) and the fused SPPF ``sppf_int8_fused.cu`` (#4)
+on the core's product and store), and the depthwise kernel
 #7 ``dw_int8_fused.cu``, compiled for the CPU with g++ and the shim
 ``tests/cuda_shim/shim.h``, held against their plain versions
 (``ops.probe_kernels``, ``ops.requant_kernels``, ``ops.fused_kernels``):
@@ -15,8 +17,10 @@ The sources are rewritten into a temporary directory: the cp.async and
 the ldmatrix / mma.sync blocks of ``mma_tile.cuh`` (between their
 ``// ---`` markers), the approximate reciprocal of ``epilogue.cuh`` (an
 exact one here: the Newton step then keeps it), the volatile shared
-load of ``dw_int8_fused.cu`` (a plain load here) and the named barriers of
-``conv_int8_lagged.cu`` become calls of the shim's emulations, the dynamic shared memory its
+load of ``dw_int8_fused.cu`` (a plain load here), the byte permute
+(``prmt``) of ``sppf_int8_fused.cu`` and the named barriers of
+``conv_int8_lagged.cu`` become calls of the shim's emulations (the shim
+also emulates DPX ``__vimax3_s16x2``), the dynamic shared memory its
 static buffer, and each ``k<<<grid, block, smem, stream>>>(args)`` a call
 of ``shim_launch``. The shim runs the copies of a cp.async group only at
 the wait that covers it, the warp collectives by the PTX ISA's tables, and
@@ -52,14 +56,16 @@ SHIM = Path(__file__).resolve().parent / "cuda_shim" / "shim.h"
 SOURCES = ("chain_mma.cu", "megakernel_probe.cu", "add_one.cu",
            "conv_int8_lagged.cu", "conv_int8_requant_mma.cu",
            "conv_int8_fused_mma.cu", "mm_int8_fused_mma.cu",
-           "dw_int8_fused.cu")
+           "dw_int8_fused.cu", "bneck_int8_fused.cu", "sppf_int8_fused.cu")
 ENTRIES = ("tat_chain_mma", "tat_megakernel_1x1", "tat_megakernel_3x3",
            "tat_add_one", "tat_conv_int8_lagged", "tat_conv_int8_lagged_info",
            "tat_conv_int8_requant_mma", "tat_conv_int8_requant_mma_info",
            "tat_conv_int8_fused_mma", "tat_conv_int8_fused_mma_info",
            "tat_mm_int8_fused_mma", "tat_mm_int8_fused_mma_info",
            "tat_mm_int8_requant_mma", "tat_mm_int8_requant_mma_info",
-           "tat_dw_int8_fused", "tat_dw_int8_fused_info")
+           "tat_dw_int8_fused", "tat_dw_int8_fused_info",
+           "tat_bneck_int8_fused", "tat_bneck_int8_fused_info",
+           "tat_sppf_int8_fused", "tat_sppf_int8_fused_info")
 
 _CP_ASYNC = """
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -84,6 +90,19 @@ inline float rcp_approx(float d) { return 1.0f / d; }
 _LDS = """
 inline int4 lds_s32x4(const int* p) {
   return *reinterpret_cast<const int4*>(p);
+}
+"""
+_PRMT = """
+inline unsigned prmt(unsigned a, unsigned b, unsigned sel) {
+  const uint64_t v = (static_cast<uint64_t>(b) << 32) | a;
+  unsigned d = 0;
+  for (int i = 0; i < 4; ++i) {
+    const unsigned s = (sel >> (4 * i)) & 15u;
+    unsigned byte = static_cast<unsigned>(v >> (8 * (s & 7))) & 0xffu;
+    if (s & 8) byte = byte & 0x80u ? 0xffu : 0u;
+    d |= byte << (8 * i);
+  }
+  return d;
 }
 """
 _BARS = """
@@ -111,6 +130,8 @@ def rewrite(text: str) -> str:
     if "// --- ld.shared" in text:
         text = _between(text, "// --- ld.shared", "// --- end of ld.shared",
                         _LDS)
+    if "// --- prmt" in text:
+        text = _between(text, "// --- prmt", "// --- end of prmt", _PRMT)
     if "// --- named barriers" in text:
         text = _between(text, "// --- named barriers",
                         "// --- end of named barriers", _BARS)
@@ -1081,3 +1102,275 @@ def test_shim_dw_unaligned_layout_and_refusals(shim):
                             plan))
     args[15] = FK._ACT_CODE["SILU_FAST"]
     assert shim.tat_dw_int8_fused(*args, None) == 1
+
+
+# #6, the fused C3 bottleneck (bneck_int8_fused.cu): (batch, H, W, C, CM,
+# O, K, shortcut, act). The shapes of tests/test_torch_gpu.py BNECK_CASES
+# (H off the tile, C and CM off 16 and 32: the byte path, CM and O over one
+# channel block, K = 5; its 16x20x20x128 case at batch 1) and one unit of
+# each C on the serving paths at batch 1 (80x80x32 and 20x20x128 with the
+# shortcut, 40x40x64 and 20x20x256 without).
+BNECK_SHIM_CASES = {
+    "b2h13w11-c32-s-silu": (2, 13, 11, 32, 32, 32, 3, True, "SILU"),
+    "b1h9w20-c40m80o130-relu": (1, 9, 20, 40, 80, 130, 3, False, "RELU"),
+    "b3h7w6-c6m10o6-s-none": (3, 7, 6, 6, 10, 6, 3, True, "NONE"),
+    "b1h12w9-c16-k5-s-leaky": (1, 12, 9, 16, 16, 16, 5, False, "LEAKY_RELU"),
+    "path-80x80x32-s-silu": (1, 80, 80, 32, 32, 32, 3, True, "SILU"),
+    "path-40x40x64-silu": (1, 40, 40, 64, 64, 64, 3, False, "SILU"),
+    "path-20x20x128-s-silu": (1, 20, 20, 128, 128, 128, 3, True, "SILU"),
+    "path-20x20x256-silu": (1, 20, 20, 256, 256, 256, 3, False, "SILU"),
+}
+
+
+def _bneck_operands(case, seed, act1=None):
+    nb, h, w, c, cm, o, k, shortcut, act = case
+    rng = np.random.default_rng(seed)
+    x = _rng_int8(rng, (nb, h, w, c))
+    w1, w2 = _rng_int8(rng, (cm, c)), _rng_int8(rng, (o, k, k, cm))
+    b1 = torch.from_numpy(rng.integers(500, 3000, cm).astype(np.int32))
+    b2 = torch.from_numpy(rng.integers(-3000, 3000, o).astype(np.int32))
+    ep1 = FK.epilogue_rows(rng.uniform(0.005, 0.015, cm).astype(np.float32),
+                           0.05, float(0.0137 * np.sqrt(c)), act1 or act, cm,
+                           alpha=0.1)
+    ep2 = FK.epilogue_rows(rng.uniform(0.005, 0.015, o).astype(np.float32),
+                           0.05, float(0.0137 * np.sqrt(k * k * cm)), act, o,
+                           alpha=0.1)
+    return x, w1, b1, ep1, w2, b2, ep2, shortcut
+
+
+def _shim_bneck(shim, args, plan, out=None):
+    x, w2 = args[0], args[4]
+    if out is None:
+        out = torch.full(tuple(x.shape[:3]) + (w2.shape[0],), 99,
+                         dtype=torch.int8)
+    rc = shim.tat_bneck_int8_fused(
+        *FK._bneck_args(*args, 0.37, out, plan), None)
+    assert rc == 0, plan
+    return out
+
+
+def _bneck_close(got, ref, act1, act2):
+    """Bit for bit without SILU; a SILU in the first stage moves m by a
+    quantum now and then, and with it the second stage's sums (the two
+    stages' tolerance of ``_assert_close``)."""
+    if "SILU" in (act1, act2):
+        _assert_close(got, ref, "i8-rq-silu-3x3", 2 if act1 == "SILU" else 1)
+    else:
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("name", BNECK_SHIM_CASES)
+def test_shim_bneck_matches_plain(shim, name):
+    """#6 against ``bottleneck_int8_fused_plain`` at the planner's plan
+    with runs of 3 tiles (crossing images); the small cases also with runs
+    of 1 and without the biases; every element written (the output starts
+    at 99)."""
+    case = BNECK_SHIM_CASES[name]
+    nb, h, w, c, cm, o, k, shortcut, act = case
+    args = _bneck_operands(case, len(name))
+    plan = FK.bneck_plan(nb, h, w, c, cm, o, k, H100)
+    _bneck_close(_shim_bneck(shim, args, dataclasses.replace(
+        plan, tiles_per_block=3)), FK.bottleneck_int8_fused_plain(
+            *args, 0.37), act, act)
+    if name.startswith("path"):
+        return
+    bare = args[:2] + (None,) + args[3:5] + (None,) + args[6:]
+    _bneck_close(_shim_bneck(shim, bare, dataclasses.replace(
+        plan, tiles_per_block=1)),
+        FK.bottleneck_int8_fused_plain(*bare, 0.37), act, act)
+
+
+@pytest.mark.parametrize("act2", ["NONE", "RELU", "LEAKY_RELU", "SILU"])
+@pytest.mark.parametrize("act1", ["SILU", "RELU"])
+def test_shim_bneck_every_plan_and_act(shim, act1, act2):
+    """#6 on a ragged 1x9x18x48 -> 40 -> 3x3 48 case, with the shortcut
+    where the act takes one (C = O = 48), in each second-stage act and two
+    first-stage ones (SILU's kernel and the act read at run time), at the
+    planner's first plan; SILU -> SILU, the paths' pair, at every tile,
+    channel block and w2 residence (resident, streamed a tap at a time) the
+    planner offers."""
+    shortcut = act2 != "LEAKY_RELU"
+    case = (1, 9, 18, 48, 40, 48, 3, shortcut, act2)
+    args = _bneck_operands(case, len(act1 + act2), act1)
+    ref = FK.bottleneck_int8_fused_plain(*args, 0.37)
+    plans = FK.bneck_plans(1, 9, 18, 48, 40, 48, 3, H100)
+    assert {(p.tile_h, p.tile_w) for p in plans} == set(FK.CONV_TILES)
+    assert {(p.tile_h * p.tile_w // 64, p.bn // 16) for p in plans} == \
+        set(FK.FUSED_WARP_TILES)
+    assert {p.resident for p in plans} == {True, False}
+    for plan in plans if act1 == act2 == "SILU" else plans[:1]:
+        _bneck_close(_shim_bneck(shim, args, dataclasses.replace(
+            plan, tiles_per_block=2)), ref, act1, act2)
+
+
+def test_shim_bneck_unaligned_layout_and_refusals(shim):
+    """#6 with x, w1, w2 and the output off 16-byte alignment (byte loads,
+    narrow stores) equal to its plain version; the kernel's shared memory
+    is ``bneck_smem``'s at every tile and channel block; plans off its set,
+    an even K, a shortcut with C != O or LEAKY_RELU, and SILU_FAST are
+    refused."""
+    case = BNECK_SHIM_CASES["b2h13w11-c32-s-silu"]
+    args = _bneck_operands(case, 5)
+    ref = FK.bottleneck_int8_fused_plain(*args, 0.37)
+    shifted = (_shifted(args[0]), _shifted(args[1]), args[2], args[3],
+               _shifted(args[4])) + args[5:]
+    plan = FK.bneck_plan(2, 13, 11, 32, 32, 32, 3, H100)
+    out = _shim_bneck(shim, shifted, plan, _shifted(torch.zeros_like(ref)))
+    _bneck_close(out, ref, "SILU", "SILU")
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    n = 0
+    for c, cm, k in [(32, 32, 3), (40, 80, 5), (256, 256, 3), (6, 10, 1)]:
+        for th, tw in FK.CONV_TILES:
+            for bn in FK.FUSED_BNS:
+                for res in (1, 0):
+                    want = FK.bneck_smem(c, cm, k, th, tw, bn, bool(res))
+                    rc = shim.tat_bneck_int8_fused_info(
+                        3, 0, c, cm, k, th, tw, bn, res, ctypes.byref(smem),
+                        ctypes.byref(blocks))
+                    n += 1
+                    if (th * tw // 64, bn // 16) not in FK.FUSED_WARP_TILES \
+                            or want > H100.per_block:
+                        assert rc == 1
+                        continue
+                    assert rc == 0 and smem.value == want
+                    assert blocks.value == 233472 // (want + 1024)
+    assert n == 144
+    # act1, act2, C, CM, K, tile_h, tile_w, bn, resident: tile_w 12, 96
+    # pixels, bn 16 and 48, an even K, SILU_FAST in either stage
+    for bad in [(3, 3, 32, 32, 3, 8, 12, 32, 1),
+                (3, 3, 32, 32, 3, 12, 8, 32, 1),
+                (3, 3, 32, 32, 3, 8, 8, 16, 0), (3, 3, 32, 32, 3, 8, 8, 48, 1),
+                (3, 3, 32, 32, 4, 8, 8, 32, 1), (4, 3, 32, 32, 3, 8, 8, 32, 0),
+                (3, 4, 32, 32, 3, 8, 8, 32, 1)]:
+        assert shim.tat_bneck_int8_fused_info(
+            *bad, ctypes.byref(smem), ctypes.byref(blocks)) == 1, bad
+    x, w1, b1, ep1, w2, b2, ep2, _ = args
+    cut = w2[:16].contiguous()   # O = 16 != C with the shortcut
+    out = torch.empty((2, 13, 11, 16), dtype=torch.int8)
+    assert shim.tat_bneck_int8_fused(*FK._bneck_args(
+        x, w1, b1, ep1, cut, b2[:16].contiguous(),
+        FK.epilogue_rows(0.01, 0.05, 0.5, "SILU", 16), True, 0.37, out,
+        plan), None) == 1
+    leaky = FK.epilogue_rows(0.01, 0.05, 0.5, "LEAKY_RELU", 32)
+    assert shim.tat_bneck_int8_fused(*FK._bneck_args(
+        x, w1, b1, ep1, w2, b2, leaky, True, 0.37, torch.empty_like(ref),
+        plan), None) == 1
+
+
+# #4, the fused SPPF (sppf_int8_fused.cu): (batch, H, W, C, O, k, act,
+# negative). The shapes of tests/test_torch_gpu.py SPPF_CASES (C % 16 != 0:
+# the byte path; k = 3; O over one channel block; a width whose staged rows
+# pass 48 KB), each also with every input below 0 (the -128 padding shows),
+# and the zoo yolov5s's 20x20x256 -> 512 unit at batch 1.
+SPPF_SHIM_CASES = {
+    "b2h6w7-c36-o20-silu": (2, 6, 7, 36, 20, 5, "SILU", False),
+    "b2h6w7-c36-o20-silu-neg": (2, 6, 7, 36, 20, 5, "SILU", True),
+    "b1h9w4-c10-o8-k3-leaky": (1, 9, 4, 10, 8, 3, "LEAKY_RELU", False),
+    "b1h9w4-c10-o8-k3-leaky-neg": (1, 9, 4, 10, 8, 3, "LEAKY_RELU", True),
+    "b2h12w30-c33-o70-relu": (2, 12, 30, 33, 70, 5, "RELU", False),
+    "b2h12w30-c33-o70-relu-neg": (2, 12, 30, 33, 70, 5, "RELU", True),
+    "b1h20w40-c32-o16-none": (1, 20, 40, 32, 16, 5, "NONE", False),
+    "b1h20w40-c32-o16-none-neg": (1, 20, 40, 32, 16, 5, "NONE", True),
+    "path-20x20x256-o512-silu": (1, 20, 20, 256, 512, 5, "SILU", False),
+}
+
+
+def _sppf_operands(case, seed):
+    nb, h, w, c, o, k, act, negative = case
+    rng = np.random.default_rng(seed)
+    x = _rng_int8(rng, (nb, h, w, c))
+    if negative:
+        x = -(x.to(torch.int32).abs().clamp(1, 128)).to(torch.int8)
+    wt = _rng_int8(rng, (o, 4 * c))
+    bias = torch.from_numpy(rng.integers(-3000, 3000, o).astype(np.int32))
+    ep = FK.epilogue_rows(rng.uniform(0.005, 0.015, o).astype(np.float32),
+                          0.05, float(0.0137 * np.sqrt(4 * c)), act, o,
+                          alpha=0.1)
+    return x, wt, bias, ep
+
+
+def _shim_sppf(shim, x, wt, bias, ep, k, plan, out=None):
+    if out is None:
+        out = torch.full(tuple(x.shape[:3]) + (wt.shape[0],), 99,
+                         dtype=torch.int8)
+    rc = shim.tat_sppf_int8_fused(*FK._sppf_args(x, wt, bias, ep, k, out,
+                                                 plan), None)
+    assert rc == 0, plan
+    return out
+
+
+@pytest.mark.parametrize("name", SPPF_SHIM_CASES)
+def test_shim_sppf_matches_plain(shim, name):
+    """#4 against ``sppf_int8_fused_plain`` at the planner's plan with runs
+    of 3 tiles (crossing images); the small cases also with runs of 1 and
+    without a bias; every element written (the output starts at 99)."""
+    case = SPPF_SHIM_CASES[name]
+    nb, h, w, c, o, k, act, _ = case
+    x, wt, bias, ep = _sppf_operands(case, len(name))
+    plan = FK.sppf_plan(nb, h, w, c, o, k, H100)
+    _serving_close(_shim_sppf(shim, x, wt, bias, ep, k, dataclasses.replace(
+        plan, tiles_per_block=3)),
+        FK.sppf_int8_fused_plain(x, wt, bias, ep, k), act)
+    if name.startswith("path"):
+        return
+    _serving_close(_shim_sppf(shim, x, wt, None, ep, k, dataclasses.replace(
+        plan, tiles_per_block=1)),
+        FK.sppf_int8_fused_plain(x, wt, None, ep, k), act)
+
+
+@pytest.mark.parametrize("act", ["NONE", "RELU", "LEAKY_RELU", "SILU"])
+def test_shim_sppf_every_plan_and_act(shim, act):
+    """#4 on a 1x11x13x100 -> 80 case (the byte path; C in one, two or
+    four chunks, the last one ragged) in each act at the planner's first
+    plan; at SILU, the paths' act, at every (bm, bn, ck) the planner
+    offers."""
+    case = (1, 11, 13, 100, 80, 5, act, False)
+    x, wt, bias, ep = _sppf_operands(case, len(act))
+    ref = FK.sppf_int8_fused_plain(x, wt, bias, ep, 5)
+    plans = FK.sppf_plans(1, 11, 13, 100, 80, 5, H100)
+    assert {(p.bm // 64, p.bn // 16) for p in plans} == \
+        set(FK.FUSED_WARP_TILES)
+    assert {p.ck for p in plans} == set(FK.SPPF_CKS)
+    for plan in plans if act == "SILU" else plans[:1]:
+        _serving_close(_shim_sppf(shim, x, wt, bias, ep, 5, dataclasses.replace(
+            plan, tiles_per_block=2)), ref, act)
+
+
+def test_shim_sppf_unaligned_layout_and_refusals(shim):
+    """#4 with y, w and the output off 16-byte alignment (byte loads,
+    narrow stores) equal to its plain version; the kernel's shared memory
+    is ``sppf_smem``'s at every tile, channel block and chunk; plans off its
+    set, an even k and SILU_FAST are refused."""
+    case = SPPF_SHIM_CASES["b1h20w40-c32-o16-none"]
+    x, wt, bias, ep = _sppf_operands(case, 3)
+    ref = FK.sppf_int8_fused_plain(x, wt, bias, ep, 5)
+    plan = FK.sppf_plan(1, 20, 40, 32, 16, 5, H100)
+    out = _shifted(torch.zeros_like(ref))
+    _shim_sppf(shim, _shifted(x), _shifted(wt), bias, ep, 5, plan, out)
+    assert torch.equal(out, ref)
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    n = 0
+    for h, w, c, k in [(20, 20, 256, 5), (6, 7, 36, 5), (9, 4, 10, 3),
+                       (64, 96, 64, 5)]:
+        for bm in (64, 128):
+            for bn in FK.FUSED_BNS:
+                for ck in FK.SPPF_CKS:
+                    want = FK.sppf_smem(h, w, c, k, bm, bn, ck)
+                    rc = shim.tat_sppf_int8_fused_info(
+                        3, h, w, c, k, bm, bn, ck, ctypes.byref(smem),
+                        ctypes.byref(blocks))
+                    n += 1
+                    if (bm // 64, bn // 16) not in FK.FUSED_WARP_TILES \
+                            or want > H100.per_block:
+                        assert rc == 1
+                        continue
+                    assert rc == 0 and smem.value == want
+                    assert blocks.value == 233472 // (want + 1024)
+    assert n == 72
+    # act, H, W, C, k, bm, bn, ck: bm 96, bn 16, ck 48, an even k,
+    # SILU_FAST
+    for bad in [(3, 20, 20, 64, 5, 96, 32, 32), (3, 20, 20, 64, 5, 64, 16, 32),
+                (3, 20, 20, 64, 5, 64, 32, 48), (3, 20, 20, 64, 4, 64, 32, 32),
+                (4, 20, 20, 64, 5, 64, 32, 32)]:
+        assert shim.tat_sppf_int8_fused_info(
+            *bad, ctypes.byref(smem), ctypes.byref(blocks)) == 1, bad

@@ -9,11 +9,12 @@ up)::
 
 Tolerances: NONE / RELU / LEAKY_RELU bit-exact; SILU at most 1 quantum on
 at most 0.1% of the elements (the kernel's ``expf`` and torch's sigmoid
-differ by ulps). The shapes cover both load paths of each kernel (4-byte
-words when C or K is a multiple of 4 and the pointers are aligned, bytes
-otherwise), every ragged edge, the residual modes, and the multi-part,
-bottleneck, SPPF and depthwise kernels at their edge cases and model
-shapes. The head decode (kernel #8) is held against its plain version on
+differ by ulps). The shapes cover both load paths of each kernel (16-byte
+copies where the channels are a multiple of 16 and the pointers aligned,
+bytes otherwise), every ragged edge, the residual modes, and the
+multi-part, bottleneck, SPPF and depthwise kernels at their edge cases and
+model shapes (the bottleneck and SPPF also at every plan their planners
+offer for a path unit). The head decode (kernel #8) is held against its plain version on
 the CPU: classes exact, boxes within rtol 1e-6 / atol 1e-5, conf within
 rtol 1e-6 / atol 1e-7, and the detections after NMS equal. The exact
 tier's kernels #9-#11 (``ops.requant_kernels``) are bit-exact against
@@ -248,22 +249,42 @@ def test_bneck_kernel_matches_plain(cuda, act, case):
     _close(out, FK.bottleneck_int8_fused_plain(*args), act)
 
 
-@pytest.mark.parametrize("tile_rows", [1, 3, 7, 16])
-def test_bneck_kernel_any_tile_rows(cuda, tile_rows):
-    """Every tile height gives the same result; at 16 rows the halo'd
-    intermediate (18 x 20 x 128 B) and the static tiles pass 48 KB of
-    shared memory, which needs the kernel's opt-in."""
-    rng = np.random.default_rng(tile_rows)
+H100 = FK.SmemLimits(132, 233472, 232448)
+BNECK_PLAN_CASE = (2, 20, 20, 128, 128, 128, 3)
+
+
+@pytest.mark.parametrize("plan", FK.bneck_plans(*BNECK_PLAN_CASE, H100),
+                         ids=lambda p: "{}x{}bn{}{}".format(
+                             p.tile_h, p.tile_w, p.bn,
+                             "" if p.resident else "s"))
+@pytest.mark.parametrize("tpb", [1, 5])
+def test_bneck_kernel_any_plan(cuda, plan, tpb):
+    """Every plan the planner offers for the real yolov5n's 20x20x128 pair
+    (with its shortcut), in runs of 1 and 5 tiles (crossing images), gives
+    the plain version's result; the larger ones pass 48 KB of shared
+    memory, which needs the kernel's opt-in."""
+    rng = np.random.default_rng(plan.tile_h * plan.bn + tpb)
     x = _rand(rng, (2, 20, 20, 128), cuda)
     w1, w2 = _rand(rng, (128, 128), cuda), _rand(rng, (128, 3, 3, 128), cuda)
     ep1, ep2 = _ep(rng, 128, 128, "SILU", cuda), _ep(rng, 1152, 128, "SILU",
                                                       cuda)
     out = torch.empty((2, 20, 20, 128), dtype=torch.int8, device=cuda)
     FK._launch_bneck(x, w1, None, ep1, w2, None, ep2, True, 0.6, out,
-                     tile_rows)
+                     dataclasses.replace(plan, tiles_per_block=tpb))
     torch.cuda.synchronize()
     _close(out, FK.bottleneck_int8_fused_plain(x, w1, None, ep1, w2, None,
                                                ep2, True, 0.6), "SILU")
+
+
+def test_bneck_kernel_refuses_a_plan_it_cannot_run(cuda):
+    rng = np.random.default_rng(9)
+    x = _rand(rng, (1, 20, 20, 256), cuda)
+    w1, w2 = _rand(rng, (256, 256), cuda), _rand(rng, (256, 3, 3, 256), cuda)
+    ep = _ep(rng, 256, 256, "SILU", cuda)
+    out = torch.empty_like(x)
+    with pytest.raises(RuntimeError, match="tat_bneck_int8_fused"):
+        FK._launch_bneck(x, w1, None, ep, w2, None, ep, True, 0.6, out,
+                         FK.BneckPlan(8, 16, 64, True, 1))   # 300 KB
 
 
 # (batch, H, W, C, O, k): C % 4 != 0, O over one tile, the yolov5s shape,
@@ -290,6 +311,27 @@ def test_sppf_kernel_matches_plain(cuda, act, negative, case):
     out = FK.sppf_int8_fused(x, wt, bias, ep, k)
     torch.cuda.synchronize()
     _close(out, FK.sppf_int8_fused_plain(x, wt, bias, ep, k), act)
+
+
+SPPF_PLAN_CASE = (8, 20, 20, 256, 512, 5)
+
+
+@pytest.mark.parametrize("plan", FK.sppf_plans(*SPPF_PLAN_CASE, H100),
+                         ids=lambda p: f"bm{p.bm}bn{p.bn}ck{p.ck}")
+@pytest.mark.parametrize("tpb", [1, 3])
+def test_sppf_kernel_any_plan(cuda, plan, tpb):
+    """Every plan the planner offers for the zoo yolov5s's SPPF at batch 8,
+    in runs of 1 and 3 tiles (crossing images), gives the plain version's
+    result."""
+    rng = np.random.default_rng(plan.bm + plan.bn + plan.ck + tpb)
+    nb, h, w, c, o, k = SPPF_PLAN_CASE
+    x, wt = _rand(rng, (nb, h, w, c), cuda), _rand(rng, (o, 4 * c), cuda)
+    ep = _ep(rng, 4 * c, o, "SILU", cuda)
+    out = torch.empty((nb, h, w, o), dtype=torch.int8, device=cuda)
+    FK._launch_sppf(x, wt, None, ep, k, out,
+                    dataclasses.replace(plan, tiles_per_block=tpb))
+    torch.cuda.synchronize()
+    _close(out, FK.sppf_int8_fused_plain(x, wt, None, ep, k), "SILU")
 
 
 def test_launch_counters(cuda):

@@ -68,3 +68,27 @@ def test_kxk_bench_finds_the_exact_1x1_and_depthwise_units():
     assert len(units) == 6 and len(keys) == 5
     assert {KB.dw_label(k) for k in keys} == set(json.loads(
         (records / "dp4a_dw.json").read_text())["ms"])
+
+
+def test_kxk_bench_finds_the_bottleneck_and_sppf_units():
+    """``--what bneck`` times the planned real yolov5n's 10 #6 units as 6
+    rows and the planned zoo yolov5s's 11 as 7 (every one SILU -> SILU
+    with C = CM = O, K = 3), ``--what sppf`` the zoo yolov5s's one #4 unit;
+    each row's label is a key of the committed record of the dp4a kernel it
+    replaced, which ``chip_smoke.py`` prints beside it."""
+    import json
+    from thingino_accel_tpu_torch import kxk_bench as KB
+    records = KB.REPO / "thingino_accel_tpu_torch" / "records"
+    bneck = json.loads((records / "dp4a_bneck.json").read_text())["ms"]
+    for path, n, distinct in (("planned_yolov5n", 10, 6),
+                              ("zoo_yolov5s", 11, 7)):
+        eng, units = KB.bneck_units(path, "cpu")
+        keys = {KB.bneck_key(eng, u) for u in units}
+        assert len(units) == n and len(keys) == distinct
+        for (_, _, _, c), cm, o, k, _, act1, act2 in keys:
+            assert c == cm == o and k == 3 and act1 == act2 == "SILU"
+        assert {KB.bneck_label(k) for k in keys} == set(bneck[path])
+    eng, units = KB.sppf_units("cpu")
+    assert len(units) == 1
+    assert {KB.sppf_label(KB.sppf_key(eng, u)) for u in units} == set(
+        json.loads((records / "dp4a_sppf.json").read_text())["ms"])

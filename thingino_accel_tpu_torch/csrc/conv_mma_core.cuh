@@ -433,6 +433,34 @@ __device__ void build_a_runs(const unsigned char* slab, unsigned char* a,
   }
 }
 
+// --- resident weights of the fused kernels on the core ---------------------
+
+// `rows` weight rows of `taps` taps (or parts) of `width` bytes each (rows
+// past `live` and bytes past `width` zero) into dst: row r's tap t at
+// r pitch + t padded, from src + r ld + t width; padded a multiple of 16 >=
+// width. 16-byte cp.async copies (vec: width and ld multiples of 16, src
+// 16-byte aligned), else byte loads. The fused C3 bottleneck
+// (bneck_int8_fused.cu) and SPPF (sppf_int8_fused.cu) load their weights
+// with it.
+__device__ void load_weight_rows(const int8_t* __restrict__ src,
+                                 unsigned char* dst, int rows, int live,
+                                 int taps, int width, int padded, int pitch,
+                                 long long ld, bool vec) {
+  const int upt = padded / 16;   // 16-byte units a tap
+  for (int u = threadIdx.x; u < rows * taps * upt; u += kThreads) {
+    const int rt = u / upt, c = 16 * (u - rt * upt);
+    const int r = rt / taps, t = rt - r * taps;
+    const int left = width - c;
+    const int bytes = r >= live || left <= 0 ? 0 : (left < 16 ? left : 16);
+    const int8_t* s = bytes > 0 ? src + r * ld + t * width + c : src;
+    unsigned char* d = dst + r * pitch + t * padded + c;
+    if (vec)
+      tat::cp_async16(d, s, bytes);
+    else
+      *reinterpret_cast<uint4*>(d) = tat::load16_bytes(s, bytes);
+  }
+}
+
 // --- the residual ----------------------------------------------------------
 
 // The residual bytes of (tile, channels n0 .. n0 + BN) into the staged
@@ -516,13 +544,46 @@ __device__ __forceinline__ void mma_k32(int (&acc)[MI][NI][4],
   }
 }
 
+// The slab mode's product of one chunk: for each tap (ky, kx) of KH x KW,
+// acc += the ck bytes of the lane's slab pixels (rows at `slab` + aoff,
+// tap (0, 0); a tap adds the uniform (ky dh SW + kx dw) pitch) times the
+// tap's B rows (the lane's row at w + tap wtap, or w + (tap % ring) wtap
+// through a ring of `ring` slots; wpitch apart). wait(tap) runs before a
+// tap's product (a ring's wait for its slot). The core's slab mode and the
+// fused C3 bottleneck's stage 2 over its m slab (bneck_int8_fused.cu) run
+// it.
+template <int MI, int NI, class Wait>
+__device__ __forceinline__ void slab_taps(
+    int (&acc)[MI][NI][4], const unsigned char* slab, const int (&aoff)[MI],
+    int KH, int KW, int dh, int dw, int SW, int pitch, int ck,
+    const unsigned char* w, int wtap, int ring, int wpitch, Wait&& wait) {
+  int tap = 0;
+  for (int ky = 0; ky < KH; ++ky) {
+    const unsigned char* arow = slab + ky * dh * SW * pitch;
+    for (int kx = 0; kx < KW; ++kx, ++tap) {
+      const unsigned char* at = arow + kx * dw * pitch;
+      wait(tap);
+      const unsigned char* bt = w + (ring > 0 ? tap % ring : tap) * wtap;
+      for (int kb = 0; kb < ck; kb += tat::kMmaStepBytes)
+        if constexpr (kProduct)
+          mma_k32<MI, NI>(acc, at + kb, aoff, bt + kb, wpitch);
+    }
+  }
+}
+
 // --- the epilogue --------------------------------------------------------
 
 // The policy on the fragments into the staged int8 tile (TP pixels at BN +
 // kOutPad bytes; with a residual, each lane's two bytes there are its
 // residual, read before they are overwritten), then each pixel's channels
-// out, 16 bytes a thread.
-template <int MI, int NI, class EP>
+// out, 16 bytes a thread. WAIT_RES: the residual is still in flight
+// (load_residual's copies; a wait and a barrier make it visible); false: the
+// caller staged it and a barrier since made it visible (the fused C3
+// bottleneck copies it from its input slab, bneck_int8_fused.cu). The tile's
+// geometry is g's TH x TW tiles of an OH x OW output (TH = 1, TW = TP and
+// OW = H W give TP consecutive pixels of a row-major image, as the fused
+// SPPF, sppf_int8_fused.cu, stores them).
+template <int MI, int NI, class EP, bool WAIT_RES = true>
 __device__ void store_tile(const int (&acc)[MI][NI][4],
                            const typename EP::Col (&cols)[NI][2],
                            const ConvGeom& g, unsigned char* staged,
@@ -536,7 +597,7 @@ __device__ void store_tile(const int (&acc)[MI][NI][4],
   bool res = false;
   if constexpr (EP::kResidual) {
     res = ep.res != nullptr;
-    if (res) {
+    if (WAIT_RES && res) {
       tat::cp_async_wait<0>();   // the tile's residual landed
       __syncthreads();
     }
@@ -693,17 +754,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(MODE))
 #pragma unroll
             for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
       }
-      int tap = 0;
-      for (int ky = 0; ky < g.KH; ++ky) {
-        const unsigned char* arow = slot + ky * g.dh * g.SW * g.pitch;
-        for (int kx = 0; kx < g.KW; ++kx, ++tap) {
-          const unsigned char* at = arow + kx * g.dw * g.pitch;
-          const unsigned char* bt = wl + tap * wtap;
-          for (int kb = 0; kb < g.CK; kb += tat::kMmaStepBytes)
-            if constexpr (kProduct)
-              mma_k32<MI, NI>(acc, at + kb, aoff, bt + kb, g.wpitch);
-        }
-      }
+      slab_taps<MI, NI>(acc, slot, aoff, g.KH, g.KW, g.dh, g.dw, g.SW,
+                        g.pitch, g.CK, wl, wtap, 0, g.wpitch, [](int) {});
       __syncthreads();   // slot s & 1 is read: the next stage refills it
       if (++chunk == g.nck) {
         if constexpr (kStore)

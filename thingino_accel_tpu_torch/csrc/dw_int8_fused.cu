@@ -86,16 +86,6 @@ void dw_layout(DwGeom& g) {
   g.smem = g.cs_off + 4 * g.CB;
 }
 
-// 16 bytes of p from p[0], `bytes` of them (the rest zero), by byte loads.
-__device__ __forceinline__ uint4 load16_bytes(const int8_t* __restrict__ p,
-                                              int bytes) {
-  unsigned v[4] = {0, 0, 0, 0};
-  for (int b = 0; b < bytes; ++b)
-    v[b >> 2] |= static_cast<unsigned>(static_cast<uint8_t>(p[b]))
-                 << (8 * (b & 3));
-  return make_uint4(v[0], v[1], v[2], v[3]);
-}
-
 // The tile's halo, the slab's weight rows and its channels' bias and cs
 // into shared memory; thread (column j0, group grp) copies its group's 16
 // bytes of the columns j0, j0 + TW, ... of each halo row and of the taps
@@ -125,14 +115,14 @@ __device__ void load_halo(const int8_t* __restrict__ x,
       if (g.vec_x)
         tat::cp_async16(dst, src, bytes);
       else
-        *reinterpret_cast<uint4*>(dst) = load16_bytes(src, bytes);
+        *reinterpret_cast<uint4*>(dst) = tat::load16_bytes(src, bytes);
     }
   }
   for (int tap = j0; tap < g.KH * g.KW; tap += g.TW) {
     const int8_t* src = w + static_cast<long long>(tap) * g.C + c;
     const uint4 v = g.vec_w && cbytes == 16
                         ? *reinterpret_cast<const uint4*>(src)
-                        : load16_bytes(src, cbytes);
+                        : tat::load16_bytes(src, cbytes);
     const unsigned vs[4] = {v.x, v.y, v.z, v.w};
     int4* dst = reinterpret_cast<int4*>(smem + g.w_off) + 4 * g.G * tap +
                 grp;

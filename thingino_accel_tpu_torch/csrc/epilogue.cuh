@@ -1,16 +1,16 @@
-// Shared pieces of the fused int8 kernels. The dp4a tile product (the
-// kernels not yet on the tensor cores: mma_tile, load_row_word and
-// store_tile with the tile shape kBM x kBN) serves #4 sppf_int8_fused.cu
-// and #6 bneck_int8_fused.cu; #7 dw_int8_fused.cu takes the epilogue
-// after per-channel products of its own. The serving requantize epilogue
-// (epilogue / act_requant) is also the one the tensor-core kernels apply
-// through epilogue_policy.cuh (the 1x1 GEMM mm_int8_fused_mma.cu of #1
-// and #3, the KxK core conv_mma_core.cuh under conv_int8_fused_mma.cu of
-// #2 and #5), and the exact tier's requantize (requant_exact) the one
-// under mm_int8_fused_mma.cu (#9) and conv_int8_requant_mma.cu (#10,
-// #11). The
+// The serving and exact requantize epilogues of the port's int8 kernels,
+// every one of which runs its products on the tensor cores (mma.sync s8,
+// mma_tile.cuh) or, for #7 dw_int8_fused.cu, per channel; none runs dp4a.
+// The serving epilogue (epilogue / act_requant) is the one the serving
+// kernels apply through epilogue_policy.cuh's ServingEpilogue: the 1x1 GEMM
+// mm_int8_fused_mma.cu of #1 and #3, the KxK core conv_mma_core.cuh under
+// conv_int8_fused_mma.cu of #2 and #5, and on the core's product the fused
+// C3 bottleneck bneck_int8_fused.cu (#6, both of its stages) and the fused
+// SPPF sppf_int8_fused.cu (#4); #7 applies it after its own per-channel
+// products. The exact tier's requantize (requant_exact) is the one under
+// mm_int8_fused_mma.cu (#9) and conv_int8_requant_mma.cu (#10, #11). The
 // probes' tensor-core chains (chain_mma.cuh, megakernel_probe.cu) and E2
-// (conv_int8_lagged.cu) take the epilogue too.
+// (conv_int8_lagged.cu) take the serving epilogue too.
 //
 // The epilogue reproduces thingino_accel_tpu/ops/fused_kernels.py
 // _epilogue/_act_requant operation for operation:
@@ -37,17 +37,6 @@ enum Act : int {
   kActSilu = 3,
   kActSiluFast = 4
 };
-
-// Block tile: kBM output rows (pixels) x kBN output channels, K walked in
-// chunks of kBK int8 values (kBKW packed int32 words). 256 threads, each
-// owning a 4x4 sub-tile at rows ty + 16*i and channels tx + 16*j.
-constexpr int kThreads = 256;
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBKW = 8;
-constexpr int kBK = 4 * kBKW;
-// bytes of the As/Bs tiles every kernel declares in static shared memory
-constexpr int kStaticSmem = (kBM + kBN) * (kBKW + 1) * 4;
 
 // The JAX _sigmoid_fast as it computes outside a kernel (the port's
 // fused_kernels.sigmoid_fast): the [5/4] Pade tanh on y = x/2 clamped to
@@ -143,75 +132,6 @@ __device__ __forceinline__ int8_t epilogue(int acc, int bias, float cs, int act,
                                            float res_scale = 0.0f) {
   return act_requant<kSiluFast>(__fmul_rn(__int2float_rn(acc + bias), cs), act,
                                 inv_out, alpha, has_res, r, res_scale);
-}
-
-// Four int8 values of row `row` of a row-major matrix with row stride ld
-// and K columns, starting at column k, packed little-endian into one
-// word; zero past either edge. VEC: K % 4 == 0, ld % 4 == 0 and the base
-// is 4-byte aligned, so one aligned load.
-template <bool VEC>
-__device__ __forceinline__ int load_row_word(const int8_t* __restrict__ p,
-                                             long long row, long long rows,
-                                             long long ld, int K, int k) {
-  if (row >= rows) return 0;
-  const int8_t* r = p + row * ld;
-  if (VEC) return k < K ? *reinterpret_cast<const int*>(r + k) : 0;
-  unsigned word = 0;
-  for (int i = 0; i < 4 && k + i < K; ++i)
-    word |= static_cast<unsigned>(static_cast<uint8_t>(r[k + i])) << (8 * i);
-  return static_cast<int>(word);
-}
-
-// acc[i][j] += A[ty + 16i, :] . B[tx + 16j, :] over one K chunk. The row
-// pitch of kBKW + 1 words keeps the 16 distinct B rows a half-warp reads
-// on 16 distinct banks; the A rows are warp-wide broadcasts.
-__device__ __forceinline__ void mma_tile(int (*As)[kBKW + 1],
-                                         int (*Bs)[kBKW + 1],
-                                         int (&acc)[4][4]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int kw = 0; kw < kBKW; ++kw) {
-    int a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = As[ty + 16 * i][kw];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Bs[tx + 16 * j][kw];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-  }
-}
-
-// Epilogue over the thread's 4x4 sub-tile and the one int8 write into
-// the row-major [M, N] output, masked at the ragged edges. `res`, when
-// not null, is a row-major [M, N] int8 residual.
-__device__ __forceinline__ void store_tile(
-    const int (&acc)[4][4], int8_t* __restrict__ out, long long m0, int n0,
-    long long M, int N, const int* __restrict__ bias,
-    const float* __restrict__ cs, int act, float inv_out, float alpha,
-    const int8_t* __restrict__ res = nullptr, float res_scale = 0.0f) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const bool has_res = res != nullptr;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + tx + 16 * j;
-    if (n >= N) continue;
-    const int b = bias != nullptr ? bias[n] : 0;
-    const float c = cs[n];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long m = m0 + ty + 16 * i;
-      if (m >= M) continue;
-      const int r = has_res ? res[m * N + n] : 0;
-      out[m * N + n] =
-          epilogue(acc[i][j], b, c, act, inv_out, alpha, has_res, r, res_scale);
-    }
-  }
-}
-
-inline bool aligned4(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 3u) == 0;
 }
 
 }  // namespace tat

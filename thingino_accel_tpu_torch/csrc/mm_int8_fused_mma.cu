@@ -174,17 +174,6 @@ __device__ __forceinline__ void advance(Cursor& c, const MmGeom& g) {
   }
 }
 
-// 16 bytes of row `row` of a part from byte k: `bytes` of them (the rest
-// zero) by byte loads, for the byte path.
-__device__ __forceinline__ uint4 load16_bytes(const int8_t* __restrict__ src,
-                                              int bytes) {
-  unsigned v[4] = {0, 0, 0, 0};
-  for (int b = 0; b < bytes; ++b)
-    v[b >> 2] |= static_cast<unsigned>(static_cast<uint8_t>(src[b]))
-                 << (8 * (b & 3));
-  return make_uint4(v[0], v[1], v[2], v[3]);
-}
-
 // The BN weight rows of every part into the resident rows (zeros past K_i
 // and past N).
 __device__ void load_weights(const MmGeom& g, unsigned char* wsm, int n0) {
@@ -202,7 +191,7 @@ __device__ void load_weights(const MmGeom& g, unsigned char* wsm, int n0) {
       if (g.vec_w)
         tat::cp_async16(dst, src, bytes);
       else
-        *reinterpret_cast<uint4*>(dst) = load16_bytes(src, bytes);
+        *reinterpret_cast<uint4*>(dst) = tat::load16_bytes(src, bytes);
     }
   }
 }
@@ -226,7 +215,7 @@ __device__ void issue_stage(const MmGeom& g, unsigned char* slot, int t0,
     if (g.vec_a)
       tat::cp_async16(dst, src, bytes);
     else
-      *reinterpret_cast<uint4*>(dst) = load16_bytes(src, bytes);
+      *reinterpret_cast<uint4*>(dst) = tat::load16_bytes(src, bytes);
   }
 }
 

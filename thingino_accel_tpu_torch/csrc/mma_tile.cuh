@@ -1,6 +1,8 @@
 // Warp-level tensor-core tiles through mma.sync, with their fragments
 // loaded from shared memory by ldmatrix: the port's tensor-core building
-// blocks (chain_mma.cuh, chain_mma.cu, megakernel_probe.cu).
+// blocks (chain_mma.cuh, chain_mma.cu, megakernel_probe.cu, the 1x1 GEMM
+// mm_int8_fused_mma.cu, the KxK core conv_mma_core.cuh and the kernels on
+// it, the depthwise dw_int8_fused.cu).
 //
 // One MMA step covers 32 bytes of the reduction axis K:
 //   - s8 x s8 -> s32: one mma.m16n8k32 (32 int8 values);
@@ -99,6 +101,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 // --- end of ldmatrix / mma.sync ---------------------------------------------
+
+// 16 bytes from p[0], `bytes` of them (the rest zero), by byte loads: the
+// byte path of a 16-byte copy where the source is off 16-byte alignment or
+// short.
+__device__ __forceinline__ uint4 load16_bytes(const int8_t* __restrict__ p,
+                                              int bytes) {
+  unsigned v[4] = {0, 0, 0, 0};
+  for (int b = 0; b < bytes; ++b)
+    v[b >> 2] |= static_cast<unsigned>(static_cast<uint8_t>(p[b]))
+                 << (8 * (b & 3));
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
 
 // The lane's row (0..15) and byte offset in a 16 x 32-byte A tile for
 // ldsm_x4: matrices rows 0-7 / 8-15 at bytes 0-15, then at bytes 16-31.

@@ -13,14 +13,23 @@ the entry takes one) of the exact zoo yolov5s at 640 beside
 (``fused_kernels.depthwise_conv2d_int8_fused``) of NanoDet-320 beside
 fp16 ``F.conv2d`` with groups = C; with ``dwplans``, each of those at
 every plan ``fused_kernels.dw_plans`` offers up to 12 rows a tile, beside
-the planner's pick.
+the planner's pick; with ``bneck``, every distinct #6 unit
+(``fused_kernels.bottleneck_int8_fused``) of the planned real yolov5n and
+the planned zoo yolov5s at 640 beside the unfused tensor-core pair (#1's
+1x1 into device memory, then #2's KxK with the shortcut) and fp16
+``F.conv2d`` of the KxK stage alone; with ``sppf``, every distinct #4 unit
+(``fused_kernels.sppf_int8_fused``) of the planned zoo yolov5s beside #3's
+1x1 GEMM alone over the four levels (pooled beforehand by the plain
+maxpool) and ``torch._int_mm`` over them concatenated; with ``fusedplans``, each of
+those #6 and #4 units at every plan ``fused_kernels.bneck_plans`` /
+``sppf_plans`` offers, beside the planner's pick.
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
     python3 -m thingino_accel_tpu_torch.kxk_bench [--what WHAT]
 
 with WHAT a comma-separated choice of kxk, gemm (the default: both),
-exact1x1, dw and dwplans.
+exact1x1, dw, dwplans, bneck, sppf and fusedplans.
 
 The paths: the planned and the unplanned real yolov5n
 (``models/yolov5n_cal_int8.mars``), the planned zoo yolov5s at 640 (random
@@ -34,7 +43,9 @@ they launch. Prints one line a conv and the per-forward sums, and writes
 ``chiprun_out/kxk_bench.json``. It needs a CUDA device and never falls
 back to the CPU. The 1x1 rows go to ``chiprun_out/gemm_bench.json``, the
 #9 rows to ``exact1x1_bench.json``, the #7 rows to ``dw_bench.json``,
-the #7 plans to ``dwplans_bench.json``.
+the #7 plans to ``dwplans_bench.json``, the #6 rows to
+``bneck_bench.json``, the #4 rows to ``sppf_bench.json``, the #6 and #4
+plans to ``fusedplans_bench.json``.
 """
 
 from __future__ import annotations
@@ -433,6 +444,223 @@ def bench_dw_plans(rng, max_tile_h: int = 12) -> dict:
     return {"rows": rows}
 
 
+def bneck_units(path: str, device: str = "cuda") -> tuple:
+    """A planned path's engine and its #6 units (``BneckUnit``)."""
+    eng = _engine(path, device)
+    return eng, [u for u in eng._fn.units if u.kind == "bneck"]
+
+
+def bneck_operands(eng, unit) -> tuple:
+    """The unit's weights and biases: w1 [CM, C], b1, w2 OHWI, b2."""
+    a, b = unit.conv_a, unit.conv_b
+    w1 = eng.params[a.inputs[1]]
+    return (w1.reshape(w1.shape[0], -1),
+            eng.params[a.inputs[2]] if len(a.inputs) > 2 else None,
+            eng.params[b.inputs[1]],
+            eng.params[b.inputs[2]] if len(b.inputs) > 2 else None)
+
+
+def bneck_key(eng, unit, batch: int = BATCH) -> tuple:
+    """What makes two #6 units one row: the input's shape, CM, O, K, the
+    shortcut and both acts."""
+    w1, _, w2, _ = bneck_operands(eng, unit)
+    shape = eng.graph.tensors[unit.conv_a.inputs[0]].shape
+    return ((batch,) + tuple(shape[1:]), w1.shape[0], w2.shape[0],
+            w2.shape[1], unit.shortcut, unit.ep1.act, unit.ep2.act)
+
+
+def bneck_label(key: tuple) -> str:
+    (nb, h, w, c), cm, o, k, shortcut, act1, act2 = key
+    return (f"#6 {nb}x{h}x{w}x{c} -> {cm} -> {k}x{k} {o} {act1}/{act2}"
+            f"{' + shortcut' if shortcut else ''}")
+
+
+def bneck_calls(eng, unit, x) -> dict:
+    """The unit on ``x`` as calls: ``fused`` (#6's entry), ``pair`` (#1
+    into device memory, then #2 with the shortcut: the unfused tensor-core
+    pair) and ``fp16`` (fp16 channels-last ``F.conv2d`` of the KxK stage
+    alone, on an input of m's shape)."""
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    w1, b1, w2, b2 = bneck_operands(eng, unit)
+    nb, h, w, c = x.shape
+    k = w2.shape[1]
+    p = (k - 1) // 2
+    args = (x, w1, b1, unit.ep1, w2, b2, unit.ep2, unit.shortcut,
+            unit.res_scale)
+
+    def pair():
+        m = FK.matmul_int8_fused(x.reshape(-1, c), w1, b1, unit.ep1)
+        return FK.conv2d_int8_halo_fused(
+            m.reshape(nb, h, w, -1), w2, b2, unit.ep2, (h, w),
+            ((p, p), (p, p)), 1, x if unit.shortcut else None,
+            unit.res_scale)
+    mh = torch.zeros((nb, w1.shape[0], h, w), dtype=torch.half,
+                     device=x.device).contiguous(
+                         memory_format=torch.channels_last)
+    wh = w2.permute(0, 3, 1, 2).half().contiguous(
+        memory_format=torch.channels_last)
+    return {"fused": lambda: FK.bottleneck_int8_fused(*args), "pair": pair,
+            "fp16": lambda: F.conv2d(mh, wh, None, 1, p)}
+
+
+def bench_bneck(rng) -> dict:
+    res = {}
+    for path in ("planned_yolov5n", "zoo_yolov5s"):
+        eng, units = bneck_units(path)
+        distinct: dict = {}
+        for u in units:
+            distinct.setdefault(bneck_key(eng, u), [u, 0])[1] += 1
+        rows = []
+        for key, (u, count) in distinct.items():
+            x = torch.from_numpy(rng.integers(-128, 128, key[0],
+                                              dtype=np.int8)).cuda()
+            calls = bneck_calls(eng, u, x)
+            row = {"unit": bneck_label(key), "count": count,
+                   **{f"{name}_ms": time_ms(calls[name])
+                      for name in ("fused", "pair", "fp16")}}
+            rows.append(row)
+            print(f"[bneck] {path}: {row['unit']} x{count}: #6 "
+                  f"{row['fused_ms']:.4f} ms, #1 + #2 {row['pair_ms']:.4f} "
+                  f"ms, F.conv2d fp16 (KxK stage) {row['fp16_ms']:.4f} ms")
+        sums = {"units": sum(r["count"] for r in rows),
+                **{key: sum(r["count"] * r[key] for r in rows)
+                   for key in ("fused_ms", "pair_ms", "fp16_ms")}}
+        print(f"[bneck] {path} per forward ({sums['units']} units): #6 "
+              f"{sums['fused_ms']:.4f} ms, #1 + #2 {sums['pair_ms']:.4f} ms")
+        res[path] = {"rows": rows, "per_forward": sums}
+    return res
+
+
+def sppf_units(device: str = "cuda") -> tuple:
+    """The planned zoo yolov5s at 640 and its #4 units (``SppfUnit``)."""
+    eng = _engine("zoo_yolov5s", device)
+    return eng, [u for u in eng._fn.units if u.kind == "sppf"]
+
+
+def sppf_operands(eng, unit) -> tuple:
+    """The unit's weight [O, 4C] and bias."""
+    n = unit.node
+    w = eng.params[n.inputs[1]]
+    return (w.reshape(w.shape[0], -1),
+            eng.params[n.inputs[2]] if len(n.inputs) > 2 else None)
+
+
+def sppf_key(eng, unit, batch: int = BATCH) -> tuple:
+    """What makes two #4 units one row: the input's shape, O, k, act."""
+    w, _ = sppf_operands(eng, unit)
+    shape = eng.graph.tensors[unit.src].shape
+    return ((batch,) + tuple(shape[1:]), w.shape[0], unit.k, unit.act)
+
+
+def sppf_label(key: tuple) -> str:
+    (nb, h, w, c), o, k, act = key
+    return f"#4 {nb}x{h}x{w}x{c} k{k} -> {o} {act}"
+
+
+def sppf_calls(unit, x, w, bias) -> dict:
+    """The unit on ``x`` as calls: ``fused`` (#4's entry), ``gemm`` (#3's
+    1x1 GEMM alone over the four levels, pooled beforehand by the plain
+    maxpool: equal scales, one int32 sum) and ``int_mm``
+    (``torch._int_mm`` over the levels concatenated)."""
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.ops import reference as R
+    nb, h, wd, c = x.shape
+    p = (unit.k - 1) // 2
+    levels = [x]
+    for _ in range(3):
+        levels.append(R.maxpool(levels[-1], (unit.k, unit.k), (1, 1),
+                                (h, wd), ((p, p), (p, p))))
+    xs = [t.reshape(-1, c) for t in levels]
+    ws = [w[:, i * c:(i + 1) * c] for i in range(4)]
+    me = FK.MultiEpilogue(ep=unit.ep, same_scale=True,
+                          part_scales=(1.0,) * 4, bias_scale=1.0)
+    xcat = torch.cat(xs, 1)
+    wt = w.t()
+    return {"fused": lambda: FK.sppf_int8_fused(x, w, bias, unit.ep, unit.k),
+            "gemm": lambda: FK.matmul_int8_fused_multi(xs, ws, bias, me),
+            "int_mm": lambda: torch._int_mm(xcat, wt)}
+
+
+def bench_sppf(rng) -> dict:
+    eng, units = sppf_units()
+    distinct: dict = {}
+    for u in units:
+        distinct.setdefault(sppf_key(eng, u), [u, 0])[1] += 1
+    rows = []
+    for key, (u, count) in distinct.items():
+        x = torch.from_numpy(rng.integers(-128, 128, key[0],
+                                          dtype=np.int8)).cuda()
+        calls = sppf_calls(u, x, *sppf_operands(eng, u))
+        row = {"unit": sppf_label(key), "count": count,
+               **{f"{name}_ms": time_ms(calls[name])
+                  for name in ("fused", "gemm", "int_mm")}}
+        rows.append(row)
+        print(f"[sppf] {row['unit']} x{count}: #4 {row['fused_ms']:.4f} ms, "
+              f"#3 over the levels {row['gemm_ms']:.4f} ms, _int_mm "
+              f"{row['int_mm_ms']:.4f} ms")
+    return {"rows": rows}
+
+
+def bench_fused_plans(rng) -> dict:
+    """Each distinct #6 unit of the planned real yolov5n and the planned
+    zoo yolov5s at 640, and their #4 unit, at every plan
+    ``fused_kernels.bneck_plans`` / ``sppf_plans`` offers (each equal bit
+    for bit to the entry's output first): the planner's pick, the fastest
+    and the pick's margin over it."""
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    limits = FK.smem_limits(torch.device("cuda"))
+    jobs = []   # (label, plans, launch(plan, out), the entry's output)
+    for path in ("planned_yolov5n", "zoo_yolov5s"):
+        eng, units = bneck_units(path)
+        for key, u in {bneck_key(eng, u): u for u in units}.items():
+            (nb, h, w, c), cm, o, k = key[:4]
+            x = torch.from_numpy(rng.integers(-128, 128, key[0],
+                                              dtype=np.int8)).cuda()
+            w1, b1, w2, b2 = bneck_operands(eng, u)
+            args = (x, w1, b1, u.ep1, w2, b2, u.ep2, u.shortcut,
+                    u.res_scale)
+            jobs.append((f"{path} {bneck_label(key)}",
+                         FK.bneck_plans(nb, h, w, c, cm, o, k, limits),
+                         lambda plan, out, args=args: FK._launch_bneck(
+                             *args, out, plan),
+                         FK.bottleneck_int8_fused(*args)))
+    eng, units = sppf_units()
+    for key, u in {sppf_key(eng, u): u for u in units}.items():
+        (nb, h, w, c), o, k, _ = key
+        x = torch.from_numpy(rng.integers(-128, 128, key[0],
+                                          dtype=np.int8)).cuda()
+        wt, bias = sppf_operands(eng, u)
+        jobs.append((f"zoo_yolov5s {sppf_label(key)}",
+                     FK.sppf_plans(nb, h, w, c, o, k, limits),
+                     lambda plan, out, x=x, wt=wt, bias=bias, u=u:
+                     FK._launch_sppf(x, wt, bias, u.ep, u.k, out, plan),
+                     FK.sppf_int8_fused(x, wt, bias, u.ep, u.k)))
+    rows = []
+    for label, plans, launch, ref in jobs:
+        out = torch.empty_like(ref)
+        times = {}
+        for plan in plans:
+            launch(plan, out)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise RuntimeError(f"{label} at {plan} differs from its "
+                                   "entry's output")
+            times[plan] = time_ms(lambda plan=plan: launch(plan, out))
+        best = min(times, key=times.get)
+        row = {"unit": label, "pick": str(plans[0]),
+               "pick_ms": times[plans[0]], "best": str(best),
+               "best_ms": times[best],
+               "margin": times[plans[0]] / times[best] - 1.0,
+               "plans": len(times),
+               "ms": {str(p): t for p, t in times.items()}}
+        rows.append(row)
+        print(f"[fusedplans] {label}: pick {plans[0]} {row['pick_ms']:.4f} "
+              f"ms, fastest of {len(times)} {best} {row['best_ms']:.4f} ms "
+              f"(+{100 * row['margin']:.2f}%)")
+    return {"rows": rows,
+            "largest_margin": max(r["margin"] for r in rows)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paths", default=",".join(PATHS),
@@ -457,7 +685,11 @@ def main(argv=None) -> int:
                                "exact1x1_bench.json"),
                               ("dw", bench_dw, "dw_bench.json"),
                               ("dwplans", bench_dw_plans,
-                               "dwplans_bench.json")):
+                               "dwplans_bench.json"),
+                              ("bneck", bench_bneck, "bneck_bench.json"),
+                              ("sppf", bench_sppf, "sppf_bench.json"),
+                              ("fusedplans", bench_fused_plans,
+                               "fusedplans_bench.json")):
         if part in what:
             res = {"device": torch.cuda.get_device_name(0),
                    **bench(np.random.default_rng(0))}

@@ -69,15 +69,21 @@ _SIGNATURES = {
     # -> smem bytes, blocks an SM
     "tat_conv_int8_fused_mma_info": (*(_I,) * 11, ctypes.POINTER(_I),
                                      ctypes.POINTER(_I)),
-    # x, w1, b1, cs1, w2, b2, cs2, out, batch, H, W, C, CM, O, K, TH,
-    # act1, inv1, alpha1, act2, inv2, alpha2, shortcut, res_scale, stream
-    "tat_bneck_int8_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _F, _F, _I, _F, _F, _I, _F,
-                             _P),
-    # x, w, bias, cs, out, batch, H, W, C, O, k, act, inv_out, alpha,
-    # stream
-    "tat_sppf_int8_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _F, _F, _P),
+    # x, w1, b1, cs1, w2, b2, cs2, out, batch, H, W, C, CM, O, K, act1,
+    # inv1, alpha1, act2, inv2, alpha2, shortcut, res_scale, tile_h, tile_w,
+    # bn, resident, tiles_per_block, stream
+    "tat_bneck_int8_fused": (*(_P,) * 8, *(_I,) * 8, _F, _F, _I, _F, _F, _I,
+                             _F, *(_I,) * 5, _P),
+    # act1, act2, C, CM, K, tile_h, tile_w, bn, resident, -> smem bytes,
+    # blocks an SM
+    "tat_bneck_int8_fused_info": (*(_I,) * 9, ctypes.POINTER(_I),
+                                  ctypes.POINTER(_I)),
+    # y, w, bias, cs, out, batch, H, W, C, O, k, act, inv_out, alpha, bm,
+    # bn, ck, tiles_per_block, stream
+    "tat_sppf_int8_fused": (*(_P,) * 5, *(_I,) * 7, _F, _F, *(_I,) * 4, _P),
+    # act, H, W, C, k, bm, bn, ck, -> smem bytes, blocks an SM
+    "tat_sppf_int8_fused_info": (*(_I,) * 8, ctypes.POINTER(_I),
+                                 ctypes.POINTER(_I)),
     # x, w, bias, cs, out, batch, H, W, C, KH, KW, pt, pl, OH, OW, act,
     # inv_out, alpha, tile_h, groups, stream
     "tat_dw_int8_fused": (_P, _P, _P, _P, _P, *(_I,) * 11, _F, _F, _I, _I,

@@ -17,9 +17,11 @@ run before the single int8 write. Port of
   or its im2col mode), planned by :func:`conv_plan`, the planner the
   exact tier's #10/#11 share;
 - :func:`bottleneck_int8_fused` (the C3 bottleneck, 1x1 -> KxK/1 [+x]),
-  CUDA kernel ``csrc/bneck_int8_fused.cu``;
+  CUDA ``csrc/bneck_int8_fused.cu`` (both stages on the tensor cores, m in
+  shared memory), planned by :func:`bneck_plan`;
 - :func:`sppf_int8_fused` (three chained maxpools + 4-part 1x1), CUDA
-  kernel ``csrc/sppf_int8_fused.cu``;
+  ``csrc/sppf_int8_fused.cu`` (the pool pyramid in shared memory, the
+  product on the tensor cores), planned by :func:`sppf_plan`;
 - :func:`depthwise_conv2d_int8_fused` (stride-1 depthwise convs), CUDA
   kernel ``csrc/dw_int8_fused.cu`` (a block's halo tile in shared memory
   through ``cp.async``, a sliding window of taps in registers), planned by
@@ -983,32 +985,6 @@ def _gemm_info_args(plan: MmPlan, ks: Sequence[int], same_scale: bool,
             plan.bn, plan.kc, plan.stages)
 
 
-@functools.lru_cache(maxsize=256)
-def bneck_tile_rows(batch: int, h: int, w: int, c: int, cm: int, o: int,
-                    k: int) -> int:
-    """Output rows per block of the bottleneck kernel: the height (at most
-    16, the halo'd intermediate within 96 KB) whose grid has the fewest
-    dp4a tile steps per block slot. The grid is batch x row tiles x
-    64-channel output tiles, 264 blocks run at once (two per SM of an
-    H100), and a block runs its 1x1 tiles (halo rows included) and its
-    KxK tiles in turn. At the real yolov5n's shapes the model's
-    height ran within 10% of the fastest measured in 7 of 8 cases
-    (PERF.md)."""
-    def cdiv(a, b):
-        return -(-a // b)
-
-    def cost(th):
-        blocks = batch * cdiv(h, th) * cdiv(o, 64)
-        stage1 = (cdiv(min(h, th + k - 1) * w, 64) * cdiv(cm, 64)
-                  * cdiv(c, 32))
-        stage2 = cdiv(th * w, 64) * cdiv(k * k * cm, 32)
-        return cdiv(blocks, 264) * (stage1 + stage2), -th
-
-    fits = [th for th in range(1, min(h, 16) + 1)
-            if (th + k - 1) * w * cm <= 96 * 1024]
-    return min(fits, key=cost) if fits else 1
-
-
 def bottleneck_int8_fused(
     x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
     ep1: Epilogue, w2: torch.Tensor, b2: Optional[torch.Tensor],
@@ -1017,7 +993,10 @@ def bottleneck_int8_fused(
     """``requant(act2(convKxK(requant(act1(x @ w1^T)))) [+ x])`` with the
     intermediate on chip: x NHWC [N, H, W, C] int8, w1 [CM, C], w2 OHWI
     [O, K, K, CM] (K odd, stride 1, SAME padding) -> int8 [N, H, W, O].
-    ``shortcut`` adds x itself (needs C == O) with ``res_scale``."""
+    ``shortcut`` adds x itself (needs C == O) with ``res_scale``. On a CUDA
+    tensor: the tensor-core kernel ``tat_bneck_int8_fused``
+    (``csrc/bneck_int8_fused.cu``) with :func:`bneck_plan`; on the CPU the
+    plain version."""
     nb, h, wd, c = x.shape
     cm, c1 = w1.shape
     o, k, k2, cm2 = w2.shape
@@ -1034,22 +1013,29 @@ def bottleneck_int8_fused(
     out = torch.empty((nb, h, wd, o), dtype=torch.int8, device=dev)
     if out.numel() > 0:
         _launch_bneck(x, w1, b1, ep1, w2, b2, ep2, shortcut, res_scale, out,
-                      bneck_tile_rows(nb, h, wd, c, cm, o, k))
+                      bneck_plan(nb, h, wd, c, cm, o, k, smem_limits(dev)))
         launches["bottleneck_int8_fused"] += 1
     return out
 
 
-def _launch_bneck(x, w1, b1, ep1, w2, b2, ep2, shortcut, res_scale, out,
-                  tile_rows) -> None:
+def _bneck_args(x, w1, b1, ep1, w2, b2, ep2, shortcut, res_scale, out,
+                plan: "BneckPlan") -> tuple:
+    """The arguments of ``tat_bneck_int8_fused`` up to the stream."""
     nb, h, wd, c = x.shape
     o, k, _, cm = w2.shape
+    return (_ptr(x), _ptr(w1), _ptr(b1), _ptr(ep1.cs), _ptr(w2), _ptr(b2),
+            _ptr(ep2.cs), _ptr(out), nb, h, wd, c, cm, o, k,
+            _kernel_act(ep1.act), ep1.inv_out, ep1.alpha,
+            _kernel_act(ep2.act), ep2.inv_out, ep2.alpha, int(shortcut),
+            _f32(res_scale), plan.tile_h, plan.tile_w, plan.bn,
+            int(plan.resident), plan.tiles_per_block)
+
+
+def _launch_bneck(x, w1, b1, ep1, w2, b2, ep2, shortcut, res_scale, out,
+                  plan: "BneckPlan") -> None:
     cuda_build.check(cuda_build.load_library().tat_bneck_int8_fused(
-        _ptr(x), _ptr(w1), _ptr(b1), _ptr(ep1.cs), _ptr(w2), _ptr(b2),
-        _ptr(ep2.cs), _ptr(out), nb, h, wd, c, cm, o, k, tile_rows,
-        _kernel_act(ep1.act), ep1.inv_out, ep1.alpha,
-        _kernel_act(ep2.act), ep2.inv_out, ep2.alpha,
-        int(shortcut), _f32(res_scale), _stream(out.device)),
-        "tat_bneck_int8_fused")
+        *_bneck_args(x, w1, b1, ep1, w2, b2, ep2, shortcut, res_scale, out,
+                     plan), _stream(out.device)), "tat_bneck_int8_fused")
 
 
 def sppf_int8_fused(x: torch.Tensor, w: torch.Tensor,
@@ -1058,7 +1044,9 @@ def sppf_int8_fused(x: torch.Tensor, w: torch.Tensor,
     """SPPF tail in one kernel: x NHWC [N, H, W, C] int8, three chained
     ``k``x``k``/1 maxpools (padding -128), then the 1x1 conv w
     [O, 4C] over ``concat(x, m1, m2, m3)`` and the epilogue -> int8
-    [N, H, W, O]."""
+    [N, H, W, O]. On a CUDA tensor: the tensor-core kernel
+    ``tat_sppf_int8_fused`` (``csrc/sppf_int8_fused.cu``) with
+    :func:`sppf_plan`; on the CPU the plain version."""
     nb, h, wd, c = x.shape
     o, c4 = w.shape
     if c4 != 4 * c or k % 2 == 0:
@@ -1069,17 +1057,343 @@ def sppf_int8_fused(x: torch.Tensor, w: torch.Tensor,
         return sppf_int8_fused_plain(x, w, bias, ep, k)
     out = torch.empty((nb, h, wd, o), dtype=torch.int8, device=dev)
     if out.numel() > 0:
-        _launch_sppf(x, w, bias, ep, k, out)
+        _launch_sppf(x, w, bias, ep, k, out,
+                     sppf_plan(nb, h, wd, c, o, k, smem_limits(dev)))
         launches["sppf_int8_fused"] += 1
     return out
 
 
-def _launch_sppf(x, w, bias, ep, k, out) -> None:
+def _sppf_args(x, w, bias, ep, k, out, plan: "SppfPlan") -> tuple:
+    """The arguments of ``tat_sppf_int8_fused`` up to the stream."""
     nb, h, wd, c = x.shape
+    return (_ptr(x), _ptr(w), _ptr(bias), _ptr(ep.cs), _ptr(out), nb, h, wd,
+            c, out.shape[3], k, _kernel_act(ep.act), ep.inv_out, ep.alpha,
+            plan.bm, plan.bn, plan.ck, plan.tiles_per_block)
+
+
+def _launch_sppf(x, w, bias, ep, k, out, plan: "SppfPlan") -> None:
     cuda_build.check(cuda_build.load_library().tat_sppf_int8_fused(
-        _ptr(x), _ptr(w), _ptr(bias), _ptr(ep.cs), _ptr(out),
-        nb, h, wd, c, out.shape[3], k, _kernel_act(ep.act), ep.inv_out,
-        ep.alpha, _stream(out.device)), "tat_sppf_int8_fused")
+        *_sppf_args(x, w, bias, ep, k, out, plan), _stream(out.device)),
+        "tat_sppf_int8_fused")
+
+
+# ---------------------------------------------------------------------------
+# The fused C3 bottleneck (#6) and SPPF (#4) kernels on the KxK core's
+# product and store: their plans and shared-memory layouts (``bneck_layout``
+# of ``csrc/bneck_int8_fused.cu``, ``sppf_layout`` of
+# ``csrc/sppf_int8_fused.cu``)
+# ---------------------------------------------------------------------------
+
+# (TP / 64, BN / 16): the MI m16 x NI n8 tiles a warp both kernels are
+# built for (8 warps tiling TP pixels x BN channels 4 x 2; TP 128 with BN
+# 128 would hold 64 int32 sums a thread)
+FUSED_WARP_TILES = ((1, 2), (2, 2), (1, 4), (2, 4), (1, 8))
+FUSED_BNS = (128, 64, 32)
+# the cost model's weights, in a sub-core's issue slots: an mma.sync
+# m16n8k32 s8, one element of a SILU epilogue (about 40 instructions a
+# thread), one 16-byte item of a pool pass, one barrier, a byte of weights
+# streamed from L2; a second block an SM hides latency worth this share of
+# its issue slots (the bottleneck's plans on an H100, PERF.md)
+_MMA_SLOTS = 6.0
+_EPI_SLOTS = 1.25
+_POOL_SLOTS = 1.5
+_BARRIER_SLOTS = 300.0
+_L2_BYTE_SLOTS = 1 / 32
+_SECOND_BLOCK_GAIN = 0.35
+
+
+def fused_max_blocks(tp: int, bn: int) -> int:
+    """Blocks an SM the registers allow (``__launch_bounds__``): 1 from 32
+    int32 sums a thread (MI x NI >= 8), else 2."""
+    return 1 if (tp // 64) * (bn // 16) >= 8 else 2
+
+
+def _fused_cost(tiles: int, oblocks: int, smem: int, max_blocks: int,
+                tile_cost, limits: SmemLimits) -> Tuple[float, int, int]:
+    """(modelled cost, run of tiles, blocks an SM) of a plan: the waves of
+    blocks (by ``max_blocks``, the registers' bound, and the shared
+    memory), each block's run of tiles (:func:`run_of_tiles`) at
+    ``tile_cost(run)`` a tile and a quarter tile more (its weights and first
+    input overlap nothing); blocks that share an SM share its issue slots,
+    a second one hiding latency worth :data:`_SECOND_BLOCK_GAIN`."""
+    tpb = run_of_tiles(1, tiles, oblocks, smem, limits, CONV_THREADS,
+                       max_blocks)
+    tile_cost = tile_cost(tpb)
+    per_sm = max(1, min(max_blocks,
+                        limits.per_sm // (smem + _BLOCK_RESERVED)))
+    blocks = _cdiv(tiles, tpb) * oblocks
+    gain = 1 + _SECOND_BLOCK_GAIN * (per_sm - 1)
+    return (_cdiv(blocks, limits.sms * per_sm) * per_sm * (tpb + 0.25)
+            * tile_cost / gain, tpb, per_sm)
+
+
+@dataclasses.dataclass(frozen=True)
+class BneckPlan:
+    """The block of the fused bottleneck: ``tile_h`` x ``tile_w`` output
+    pixels a tile, ``bn`` output channels, their w2 rows ``resident`` (all
+    taps, loaded once a run) or streamed a tap at a time through a two-slot
+    ring (all of w1 resident either way), ``tiles_per_block`` consecutive
+    tiles (in (image, tile) order)."""
+    tile_h: int
+    tile_w: int
+    bn: int
+    resident: bool
+    tiles_per_block: int
+
+
+@dataclasses.dataclass(frozen=True)
+class BneckLayout:
+    """One block's dynamic shared memory, byte offsets from its start: the
+    halo'd x slab at 0 (Cp + 16 bytes a pixel, Cp = C rounded up to 32),
+    the m slab at ``m_off`` (CMp + 16 a pixel), w1 at ``w1_off`` (CMp rows
+    of Cp + 16), w2 at ``w2_off`` (resident: bn rows of K K CMp + 16;
+    streamed: two slots of bn rows of CMp + 16), stage 1's bias and cs at
+    ``col_off`` (8 bytes a channel of CMp), the staged output tile at
+    ``out_off`` (bn + 16 bytes a pixel; the shortcut lands there too). No
+    static bytes."""
+    m_off: int
+    w1_off: int
+    w2_off: int
+    col_off: int
+    out_off: int
+    smem: int
+
+
+def bneck_layout(c: int, cm: int, k: int, tile_h: int, tile_w: int,
+                 bn: int, resident: bool = True) -> BneckLayout:
+    halo = (tile_h + k - 1) * (tile_w + k - 1)
+    cp, cmp_ = _round_up(c, 32), _round_up(cm, 32)
+    m_off = halo * (cp + 16)
+    w1_off = m_off + halo * (cmp_ + 16)
+    w2_off = w1_off + cmp_ * (cp + 16)
+    col_off = w2_off + (bn * (k * k * cmp_ + 16) if resident
+                        else 2 * bn * (cmp_ + 16))
+    out_off = col_off + 8 * cmp_
+    return BneckLayout(m_off, w1_off, w2_off, col_off, out_off,
+                       out_off + tile_h * tile_w * (bn + _OUT_PAD))
+
+
+def bneck_smem(c: int, cm: int, k: int, tile_h: int, tile_w: int,
+               bn: int, resident: bool = True) -> int:
+    """Shared memory of a block in bytes (:func:`bneck_layout`'s total)."""
+    return bneck_layout(c, cm, k, tile_h, tile_w, bn, resident).smem
+
+
+def bneck_tile_cost(h: int, c: int, cm: int, k: int, tile_h: int,
+                    tile_w: int, bn: int, resident: bool = True,
+                    tpb: int = 1) -> float:
+    """The modelled work of one tile of one channel block in runs of
+    ``tpb`` tiles: stage 1's products and epilogue (each channel block
+    recomputes them) in rounds of the 8 warps over its items of 16 slab
+    pixels x 16 or 32 channels (a tile below the run's previous one takes
+    K - 1 rows of m from it and computes the rest: all but the first tile of
+    a run's stretch of a column of tiles); stage 2's products and epilogue;
+    three barriers; and where w2 is streamed its bytes from L2 and a
+    barrier a tap."""
+    sw = tile_w + k - 1
+    halo = (tile_h + k - 1) * sw
+    cp, cmp_ = _round_up(c, 32), _round_up(cm, 32)
+    tp = tile_h * tile_w
+    ch = 16 if cmp_ <= 64 else 32   # channels a stage-1 item
+
+    def rounds(pixels: int) -> int:
+        return _cdiv(_cdiv(pixels, 16) * (cmp_ // ch), 8)
+    stretch = min(tpb, _cdiv(h, tile_h))   # tiles a run takes a column
+    carried = (rounds(halo - (k - 1) * sw) if tile_h >= k - 1
+               else rounds(halo))
+    stage1_rounds = (rounds(halo) + (stretch - 1) * carried) / stretch
+    item = (_MMA_SLOTS * (ch // 8) * (cp // 32) + _EPI_SLOTS * 16 * ch)
+    stage1 = 8 * stage1_rounds * item
+    stage2 = (_MMA_SLOTS * (tp // 16) * (bn // 8) * (k * k * cmp_ // 32)
+              + _EPI_SLOTS * tp * bn)
+    stream = 0.0 if resident else k * k * (
+        _BARRIER_SLOTS + _L2_BYTE_SLOTS * bn * cmp_)
+    return stage1 + stage2 + 3 * _BARRIER_SLOTS + stream
+
+
+@functools.lru_cache(maxsize=256)
+def bneck_plans(batch: int, h: int, w: int, c: int, cm: int, o: int, k: int,
+                limits: SmemLimits) -> Tuple[BneckPlan, ...]:
+    """Every tile (:data:`CONV_TILES`), channel block (``FUSED_BNS``, by
+    :data:`FUSED_WARP_TILES`) and w2 residence whose layout fits, each
+    with its modelled run of tiles, cheapest first by :func:`_fused_cost`
+    over :func:`bneck_tile_cost` (ragged tiles and channel blocks count
+    whole); ties: more blocks an SM, resident weights, the larger block,
+    the wider tile."""
+    cands = []
+    for th, tw in CONV_TILES:
+        tp = th * tw
+        tiles = batch * _cdiv(h, th) * _cdiv(w, tw)
+        for bn in FUSED_BNS:
+            if (tp // 64, bn // 16) not in FUSED_WARP_TILES:
+                continue
+            for resident in (True, False):
+                smem = bneck_smem(c, cm, k, th, tw, bn, resident)
+                if smem > limits.per_block:
+                    continue
+                cost, tpb, per_sm = _fused_cost(
+                    tiles, _cdiv(o, bn), smem, fused_max_blocks(tp, bn),
+                    functools.partial(bneck_tile_cost, h, c, cm, k, th, tw,
+                                      bn, resident), limits)
+                cands.append(((cost, -per_sm, not resident, -tp * bn, -tw),
+                              BneckPlan(th, tw, bn, resident, tpb)))
+    return tuple(p for _, p in sorted(cands, key=lambda t: t[0]))
+
+
+def bneck_plan(batch: int, h: int, w: int, c: int, cm: int, o: int, k: int,
+               limits: SmemLimits) -> BneckPlan:
+    """The first of :func:`bneck_plans`; ValueError if no block fits."""
+    plans = bneck_plans(batch, h, w, c, cm, o, k, limits)
+    if not plans:
+        raise ValueError(f"no block of the bottleneck kernel fits C={c} "
+                         f"CM={cm} {k}x{k} in {limits.per_block} bytes of "
+                         "shared memory")
+    return plans[0]
+
+
+def bneck_occupancy(plan: BneckPlan, c: int, cm: int, k: int, act1: str,
+                    act2: str) -> Tuple[int, int]:
+    """``(shared memory bytes, blocks an SM holds)`` of the bottleneck
+    kernel of ``act1`` / ``act2`` with ``plan`` on the current card."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    cuda_build.check(cuda_build.load_library().tat_bneck_int8_fused_info(
+        _kernel_act(act1), _kernel_act(act2), c, cm, k, plan.tile_h,
+        plan.tile_w, plan.bn, int(plan.resident), ctypes.byref(smem),
+        ctypes.byref(blocks)), "tat_bneck_int8_fused_info")
+    return smem.value, blocks.value
+
+
+@dataclasses.dataclass(frozen=True)
+class SppfPlan:
+    """The block of the fused SPPF: ``bm`` consecutive pixels a tile (its
+    pool pyramid built once, a chunk of ``ck`` channels at a time, into a
+    resident A tile), the GEMM in blocks of ``bn`` output channels,
+    ``tiles_per_block`` consecutive tiles (in (image, tile) order), each
+    over all the output channels."""
+    bm: int
+    bn: int
+    ck: int
+    tiles_per_block: int
+
+
+SPPF_CKS = (128, 64, 32)
+SPPF_RING = 4             # slots of the weights' ring (kRing)
+
+
+def sppf_kc(c: int, ck: int) -> int:
+    """The ring's K slice: the widest of 128, 64, 32 bytes that divides
+    Cp (C rounded up to ck), so that no slice straddles two levels."""
+    cp = _round_up(c, ck)
+    return 128 if cp % 128 == 0 else (64 if cp % 64 == 0 else 32)
+
+
+@dataclasses.dataclass(frozen=True)
+class SppfLayout:
+    """One block's dynamic shared memory, byte offsets from its start: y
+    at 0 and two levels at ``l1_off`` and ``l2_off`` (``rows`` image rows
+    of W pixels at ck + 16 bytes), the row pass's int16 at ``tmp_off``
+    (rows x W x 2 ck), the A tile at ``a_off`` (bm rows of 4 Cp + 16, Cp
+    = C rounded up to ck), the weights' ring at ``ring_off`` (4 slots of
+    bn rows at KC + 16), the staged output tile at ``out_off`` (bm pixels
+    of bn + 16). No static bytes."""
+    rows: int
+    tmp_off: int
+    l1_off: int
+    l2_off: int
+    a_off: int
+    ring_off: int
+    out_off: int
+    smem: int
+
+
+def sppf_layout(h: int, w: int, c: int, k: int, bm: int, bn: int,
+                ck: int) -> SppfLayout:
+    span = (bm + w - 2) // w + 1   # image rows bm consecutive pixels span
+    rows = min(h, span + 3 * (k - 1))
+    level = rows * w * (ck + 16)
+    tmp_off = level
+    l1_off = tmp_off + rows * w * 2 * ck
+    l2_off = l1_off + level
+    a_off = l2_off + level
+    ring_off = a_off + bm * (4 * _round_up(c, ck) + 16)
+    out_off = ring_off + SPPF_RING * bn * (sppf_kc(c, ck) + 16)
+    return SppfLayout(rows, tmp_off, l1_off, l2_off, a_off, ring_off,
+                      out_off, out_off + bm * (bn + _OUT_PAD))
+
+
+def sppf_smem(h: int, w: int, c: int, k: int, bm: int, bn: int,
+              ck: int) -> int:
+    """Shared memory of a block in bytes (:func:`sppf_layout`'s total)."""
+    return sppf_layout(h, w, c, k, bm, bn, ck).smem
+
+
+def sppf_tile_cost(h: int, w: int, c: int, o: int, k: int, bm: int,
+                   bn: int, ck: int) -> float:
+    """The modelled work of one tile of one block: the pyramid (per chunk
+    the pool passes over the rows each level must hold, a tile of bm
+    pixels spanning about bm / W + 1 rows, and eight barriers), then the
+    BN blocks of all O in the GEMM (a barrier a ring slice) and their
+    epilogues."""
+    pk = (k - 1) // 2
+    band = min(h, _cdiv(bm, w) + 1)
+    rows = [min(h, band + 2 * (3 - lv) * pk) for lv in range(4)]
+    items = (rows[0] + 2 * rows[1] + 2 * rows[2] + rows[3]) * w * ck // 16
+    pyramid = _cdiv(c, ck) * (_POOL_SLOTS * items + 8 * _BARRIER_SLOTS)
+    kc = sppf_kc(c, ck)
+    slices = 4 * _round_up(c, ck) // kc
+    blocks = _cdiv(o, bn)
+    slice_cost = (_MMA_SLOTS * (bm // 16) * (bn // 8) * (kc // 32)
+                  + _BARRIER_SLOTS)
+    return pyramid + blocks * (slices * slice_cost + _EPI_SLOTS * bm * bn)
+
+
+@functools.lru_cache(maxsize=256)
+def sppf_plans(batch: int, h: int, w: int, c: int, o: int, k: int,
+               limits: SmemLimits) -> Tuple[SppfPlan, ...]:
+    """Every (bm, bn, ck) whose layout fits (ck at most C rounded up to
+    32), each with its modelled run of tiles, cheapest first by
+    :func:`_fused_cost` over :func:`sppf_tile_cost`; ties: more blocks an
+    SM, the larger block, the wider chunk."""
+    cands = []
+    for bm in (128, 64):
+        tiles = batch * _cdiv(h * w, bm)
+        for bn in FUSED_BNS:
+            if (bm // 64, bn // 16) not in FUSED_WARP_TILES:
+                continue
+            for ck in SPPF_CKS:
+                if ck > _round_up(c, 32):
+                    continue
+                smem = sppf_smem(h, w, c, k, bm, bn, ck)
+                if smem > limits.per_block:
+                    continue
+                work = sppf_tile_cost(h, w, c, o, k, bm, bn, ck)
+                cost, tpb, per_sm = _fused_cost(
+                    tiles, 1, smem, 1, lambda _: work, limits)
+                cands.append(((cost, -per_sm, -bm * bn, -ck),
+                              SppfPlan(bm, bn, ck, tpb)))
+    return tuple(p for _, p in sorted(cands, key=lambda t: t[0]))
+
+
+def sppf_plan(batch: int, h: int, w: int, c: int, o: int, k: int,
+              limits: SmemLimits) -> SppfPlan:
+    """The first of :func:`sppf_plans`; ValueError if no block fits."""
+    plans = sppf_plans(batch, h, w, c, o, k, limits)
+    if not plans:
+        raise ValueError(f"no block of the SPPF kernel fits {h}x{w}x{c} "
+                         f"k={k} in {limits.per_block} bytes of shared "
+                         "memory")
+    return plans[0]
+
+
+def sppf_occupancy(plan: SppfPlan, h: int, w: int, c: int, k: int,
+                   act: str) -> Tuple[int, int]:
+    """``(shared memory bytes, blocks an SM holds)`` of the SPPF kernel of
+    ``act`` with ``plan`` on the current card."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    cuda_build.check(cuda_build.load_library().tat_sppf_int8_fused_info(
+        _kernel_act(act), h, w, c, k, plan.bm, plan.bn, plan.ck,
+        ctypes.byref(smem), ctypes.byref(blocks)), "tat_sppf_int8_fused_info")
+    return smem.value, blocks.value
 
 
 def depthwise_conv2d_int8_fused(

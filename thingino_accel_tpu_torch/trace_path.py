@@ -12,6 +12,8 @@ card before the window, so the window holds no host-to-device copy):
   yolov5s at 640 (random weights, seed 0) -> decode -> NMS;
 - ``serving_yolov5n``: the same over the planned serving tier on the
   committed real-weight ``models/yolov5n_cal_int8.mars``;
+- ``serving_yolov5s``: the same over the planned serving tier on the zoo
+  yolov5s at 640 (random weights, seed 0), the path that runs SPPF (#4);
 - ``serving_nanodet``: letterbox -> quantize -> the planned serving tier on
   the committed ``models/nanodet_320.mars`` (its three heads, no decode).
 
@@ -45,6 +47,9 @@ def _engine(path: str):
     if path == "exact_yolov5s":
         return Engine(zoo.build_yolov5("s", zoo.ZooConfig()),
                       EngineOptions(precision="exact"), device="cuda")
+    if path == "serving_yolov5s":
+        return Engine(zoo.build_yolov5("s", zoo.ZooConfig()),
+                      EngineOptions(precision="serving"), device="cuda")
     if path == "serving_yolov5n":
         return Engine.from_yolo_mars(
             str(REPO / "models" / "yolov5n_cal_int8.mars"),
@@ -127,7 +132,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", default="exact_yolov5s",
                     choices=["exact_yolov5s", "serving_yolov5n",
-                             "serving_nanodet"])
+                             "serving_yolov5s", "serving_nanodet"])
     ap.add_argument("--batches", type=int, default=5)
     ap.add_argument("--batch", type=int, default=16)
     args = ap.parse_args(argv)
