@@ -10,10 +10,12 @@ Phases:
 
 1. Device: name, power limit, torch / CUDA / nvcc versions.
 2. Build: compile the kernels in ``thingino_accel_tpu_torch/csrc/`` with
-   nvcc, one process per source, all started together (timed); count the
-   IDP4A, IMMA, LDSM and LDGSTS instructions of each kernel of the library
-   (``cuobjdump -sass``): no kernel holds an IDP4A, and the 1x1 GEMM, the
-   KxK core, the fused bottleneck and the fused SPPF hold IMMA.
+   nvcc, one process per source, all started together (timed); fail on a
+   ptxas warning that it serialised E2's wgmma; count the IDP4A, IMMA,
+   IGMMA, LDSM, LDGSTS and UTMALDG instructions of each kernel of the
+   library (``cuobjdump -sass``): no kernel holds an IDP4A, the 1x1 GEMM,
+   the KxK core, the fused bottleneck and the fused SPPF hold IMMA, and
+   E2's kernel holds IGMMA (the warpgroup MMA) and UTMALDG (TMA loads).
 3. Kernels vs their plain torch versions on the card at the paths'
    shapes (NONE, LEAKY_RELU and SILU, per-channel scales, residual modes;
    #3, which launches #1's tensor-core 1x1 GEMM
@@ -27,7 +29,9 @@ Phases:
    a halo tile in shared memory, a window of taps in registers) at
    NanoDet's shapes, bit for bit (its SILU case within the bound); the head
    decode on the real yolov5n's heads at batch 16 and 1); median
-   CUDA-event times of both.
+   CUDA-event times of both. Then the ``[decode]`` table: #8 at batch 16
+   and 1, its time, bound and share of the bound beside the time of the
+   warp-per-unit kernel it replaced (``records/warp_decode.json``).
 4. The main path: the planned serving tier (``Engine(precision=
    "serving")``) on the real-weight ``models/yolov5n_cal_int8.mars`` at
    640x640 through letterbox -> int8 quantize -> network -> decode (one
@@ -143,16 +147,20 @@ Phases:
    they come out on this card; the health ladder, one line a rung, each
    rung in its own process.
 12. ``[pipeline]``: E2, the lagged-epilogue 3x3 conv
-   (``probe_kernels.conv3x3_lagged``, ``csrc/conv_int8_lagged.cu``), both
-   modes (``LAG = 1``: epilogue warps drain tile t - 1 while the product
-   warps run tile t; ``LAG = 0``: the product warps apply it after each
-   tile) at the experiment's 128x80x80x128 -> 128 SILU and NONE (its own
+   (``probe_kernels.conv3x3_lagged``, ``csrc/conv_int8_lagged.cu``: wgmma
+   from TMA-loaded slabs, two consumer warpgroups), both modes (``LAG =
+   1``: ping-pong, one warpgroup's epilogue of tile t while the other's
+   product of tile t + 1 runs; ``LAG = 0``: both products, then both
+   epilogues, in lockstep) at the experiment's 128x80x80x128 -> 128 SILU
+   and NONE (its own
    seeded draws; against the plain version on 2 images, against #5 and #2
-   on all 128) and at a ragged 16x45x77x96 -> 72 LEAKY_RELU (against all
-   three on all 16); then the probe's table at the experiment's shape
+   on all 128), at a ragged 16x45x77x96 -> 72 LEAKY_RELU and a small
+   3x17x9x32 -> 16 RELU (against all three on every image); then the
+   probe's table at the experiment's shape
    (``probes.pipeline.run``: #2, #5, both modes, fp16 ``F.conv2d``, both
    modes at NONE, the lag's reading, both modes' blocks an SM) with the
-   launch counts set to 0 before and read after.
+   launch counts set to 0 before and read after, and beside it the
+   ``mma.sync`` kernel's times it replaced (``records/mma_lagged.json``).
 
 Each path is run with the launch counters set to 0 just before it and
 read just after. Tolerances (as in ``tests/test_torch_fused_kernels.py``):
@@ -323,14 +331,20 @@ DP4A_EXACT_1X1 = RECORDS / "dp4a_exact_1x1.json"
 DP4A_DW = RECORDS / "dp4a_dw.json"
 DP4A_BNECK = RECORDS / "dp4a_bneck.json"
 DP4A_SPPF = RECORDS / "dp4a_sppf.json"
+# #8's warp-per-unit kernel and E2's mma.sync kernel before their redesign,
+# timed by kxk_bench --what decode,lagged in the checkout that had them
+WARP_DECODE = RECORDS / "warp_decode.json"
+MMA_LAGGED = RECORDS / "mma_lagged.json"
 # kernels counted by a piece of their names: the 1x1 GEMM (#1, #3, #9),
 # the KxK core (#2, #5, #10, #11), #7, the fused C3 bottleneck (#6) and
 # SPPF (#4). The whole library must hold no IDP4A; every kernel but #7
 # (per-channel products) must hold IMMA
 NO_DP4A = ("mm_mma_kernel", "conv_mma_kernel", "dw_int8_fused_kernel",
-           "bneck_mma_kernel", "sppf_mma_kernel")
+           "bneck_mma_kernel", "sppf_mma_kernel", "conv_lagged_wgmma_kernel")
 TENSOR_CORE = ("mm_mma_kernel", "conv_mma_kernel", "bneck_mma_kernel",
                "sppf_mma_kernel")
+# E2's kernel: the warpgroup MMA and TMA loads
+WGMMA = ("conv_lagged_wgmma_kernel",)
 # the edge shapes of tests/test_torch_gpu.py, each in every act: #6's
 # (batch, H, W, C, CM, O, K, shortcut) and #4's (batch, H, W, C, O, k)
 BNECK_EDGES = [(2, 13, 11, 32, 32, 32, 3, True),
@@ -342,8 +356,8 @@ SPPF_EDGES = [(2, 6, 7, 36, 20, 5), (1, 9, 4, 10, 8, 3),
               (2, 12, 30, 33, 70, 5), (8, 20, 20, 256, 512, 5),
               (1, 20, 40, 32, 16, 5)]
 # the instructions counted, by their SASS opcodes (dp4a is IDP.4A on sm_90)
-SASS_OPS = {"IDP4A": r"IDP\.4A", "IMMA": r"IMMA", "LDSM": r"LDSM",
-            "LDGSTS": r"LDGSTS"}
+SASS_OPS = {"IDP4A": r"IDP\.4A", "IMMA": r"IMMA", "IGMMA": r"IGMMA",
+            "LDSM": r"LDSM", "LDGSTS": r"LDGSTS", "UTMALDG": r"UTMALDG"}
 EXACT_ZOO_S_STEPS = 85   # 60 convs, 25 other nodes; no act step
 DP4A_PATH = {"planned real yolov5n": "planned_yolov5n",
              "unplanned real yolov5n": "unplanned_yolov5n",
@@ -559,6 +573,11 @@ def phase_build() -> float:
           f"{max(regs, default=0)} registers a thread; {len(spills)} spill:")
     for line in spills:
         print(f"[build]   {line}")
+    serial = [ln for ln in log.splitlines()
+              if "wgmma" in ln and "serializ" in ln]
+    require(not serial, "ptxas serialised wgmma: " + " | ".join(serial[:3]))
+    print(f"[build] ptxas: {sum('wgmma' in ln for ln in log.splitlines())} "
+          f"lines name wgmma, none of them a serialisation")
     print(f"[build] {len(cuda_build.SOURCES)} sources built and loaded in "
           f"{secs:.3f} s")
     return secs
@@ -568,8 +587,9 @@ def sass_counts() -> dict:
     """``SASS_OPS`` counted in each kernel of the library
     (``cuobjdump -sass``, beside nvcc), summed by the ``NO_DP4A`` name
     pieces and over all kernels; fails if no kernel of a piece is found,
-    if a ``TENSOR_CORE`` piece holds no IMMA, or if any kernel of the
-    library holds an IDP4A: no kernel of the port runs dp4a."""
+    if a ``TENSOR_CORE`` piece holds no IMMA, if a ``WGMMA`` piece holds no
+    IGMMA or no UTMALDG, or if any kernel of the library holds an IDP4A:
+    no kernel of the port runs dp4a."""
     import re
     from thingino_accel_tpu_torch.ops import cuda_build
     tool = Path(cuda_build.find_nvcc()).with_name("cuobjdump")
@@ -592,6 +612,9 @@ def sass_counts() -> dict:
         require(found[piece] > 0, f"no kernel named *{piece}* in the SASS")
         require(piece not in TENSOR_CORE or counts[piece]["IMMA"] > 0,
                 f"{piece}: no IMMA in the SASS")
+        require(piece not in WGMMA or (counts[piece]["IGMMA"] > 0
+                                       and counts[piece]["UTMALDG"] > 0),
+                f"{piece}: no IGMMA or no UTMALDG in the SASS")
         print(f"[build] SASS of the {found[piece]} {piece} kernels: "
               f"{counts[piece]}")
     print(f"[build] SASS of all {found['all']} kernels: {counts['all']}")
@@ -856,17 +879,32 @@ def phase_kernels(results: dict) -> None:
         label = f"3 heads {nb}x(80,40,20)^2x255 int8"
         case = {"case": label, "ms": ms, "plain_ms": plain_ms,
                 "max_abs_err": dmax}
-        if not results[DECODE]["cases"]:
-            # bytes only: the heads read once, boxes/conf/class written
-            # once; no single library call decodes
-            case["bound_ms"], case["bound_by"] = bound(0, sum(
-                h.numel() for h in heads) + sum(
-                t.numel() * t.element_size() for t in got))
-            case["library_ms"] = None
+        # bytes only: the heads read once, boxes/conf/class written once;
+        # no single library call decodes
+        case["bound_ms"], case["bound_by"] = bound(0, sum(
+            h.numel() for h in heads) + sum(
+            t.numel() * t.element_size() for t in got))
+        case["library_ms"] = None
         results[DECODE]["cases"].append(case)
         note_err(results, DECODE, dmax)
         print(f"[kernels] {DECODE:24s} {label}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, max |diff| {dmax:.3g}")
+    decode_table(results)
+
+
+def decode_table(results: dict) -> None:
+    """The ``[decode]`` lines: #8 at batch 16 and 1 on the real yolov5n's
+    heads (phase 3's cases), its time, bound and share of the bound beside
+    the warp-per-unit kernel's recorded time (``WARP_DECODE``)."""
+    record = json.loads(WARP_DECODE.read_text())
+    for case in results[DECODE]["cases"]:
+        old = record["ms"].get(case["case"])
+        case["warp_recorded_ms"] = old
+        case["bound_share"] = case["bound_ms"] / case["ms"]
+        print(f"[decode] {case['case']}: kernel {case['ms']:.4f} ms, bound "
+              f"{case['bound_ms']:.4f} ms ({case['bound_by']}), "
+              f"{100 * case['bound_share']:.1f}% of the bound; the "
+              f"warp-per-unit kernel (recorded, {record['device']}) {old} ms")
 
 
 def check_units(eng, x, results: dict, what: str) -> list:
@@ -2433,11 +2471,12 @@ def phase_pipeline(results: dict) -> dict:
     """E2's lagged conv in both modes against its plain version (the act's
     tolerance) and against #5 and #2 bit for bit: the experiment's
     128x80x80x128 -> 128 at SILU and NONE on its own draws (the plain
-    version on 2 images), a ragged 16x45x77x96 -> 72 LEAKY_RELU; then the
-    probe's path, ``probes.pipeline.run`` at the experiment's shape, with
-    the launch counts set to 0 before and read after; the kernel's line
-    (LAG = 1) beside the plain version on all 128 images, fp16
-    ``F.conv2d`` and the bound."""
+    version on 2 images), a ragged 16x45x77x96 -> 72 LEAKY_RELU, a small
+    3x17x9x32 -> 16 RELU; then the probe's path, ``probes.pipeline.run``
+    at the experiment's shape, with the launch counts set to 0 before and
+    read after; the kernel's line (LAG = 1) beside the plain version on
+    all 128 images, fp16 ``F.conv2d`` and the bound; both modes at SILU and
+    NONE beside the ``mma.sync`` kernel's recorded times (``MMA_LAGGED``)."""
     import numpy as np
     import torch
     from thingino_accel_tpu_torch.ops import fused_kernels as FK
@@ -2460,15 +2499,25 @@ def phase_pipeline(results: dict) -> dict:
     ragged_ep = FK.epilogue_rows(
         rng.uniform(0.005, 0.015, 72).astype(np.float32), 0.01,
         float(0.0137 * np.sqrt(9 * 96)), "LEAKY_RELU", 72, device=dev)
+    small = (torch.from_numpy(rng.integers(-128, 128, (3, 17, 9, 32),
+                                           dtype=np.int8)).to(dev),
+             torch.from_numpy(rng.integers(-128, 128, (16, 3, 3, 32),
+                                           dtype=np.int8)).to(dev),
+             torch.from_numpy(rng.integers(-2000, 2000, 16).astype(
+                 np.int32)).to(dev))
+    eps = {"LEAKY_RELU": ragged_ep,
+           "RELU": FK.epilogue_rows(
+               rng.uniform(0.005, 0.015, 16).astype(np.float32), 0.01,
+               float(0.0137 * np.sqrt(9 * 32)), "RELU", 16, device=dev)}
     cases = [
         ("E2 128x80x80x128 -> 128", e2, "SILU", P2.CHECK_IMAGES),
         ("E2 128x80x80x128 -> 128", e2, "NONE", P2.CHECK_IMAGES),
         ("ragged 16x45x77x96 -> 72", ragged, "LEAKY_RELU", 16),
+        ("small 3x17x9x32 -> 16", small, "RELU", 3),
     ]
     checks = {}
     for label, (x, w, b), act, n_plain in cases:
-        ep = ragged_ep if act == "LEAKY_RELU" else P2.epilogue(act, P2.O,
-                                                               dev)
+        ep = eps.get(act) or P2.epilogue(act, P2.O, dev)
         hw = tuple(x.shape[1:3])
         dma = FK.conv2d_int8_halo_fused(x, w, b, ep, hw, pads, 1,
                                         pipeline="dma")
@@ -2517,6 +2566,14 @@ def phase_pipeline(results: dict) -> dict:
             "occupancy": res["occupancy"]}
     case["bound_ms"], case["bound_by"] = bound(*conv_work(x, w, out,
                                                           8 * P2.O))
+    record = json.loads(MMA_LAGGED.read_text())
+    case["mma_recorded_ms"] = record["ms"]
+    for act, ms in (("SILU", res["ms"]), ("NONE", res["ms_none"])):
+        for lag in (1, 0):
+            label = f"E2 128x80x80x128 -> 128 {act} LAG {lag}"
+            print(f"[pipeline] {label}: wgmma {ms[f'LAG {lag}']:.4f} ms, the "
+                  f"mma.sync kernel (recorded, {record['device']}) "
+                  f"{record['ms'].get(label)} ms")
     results[LAGGED]["cases"].append(case)
     secs = time.perf_counter() - t0
     print(f"[pipeline] {case['case']}: kernel {case['ms']:.4f} ms, plain "

@@ -1,38 +1,45 @@
 """The tensor-core CUDA sources (the probes' ``chain_mma.cu``,
-``megakernel_probe.cu``, ``add_one.cu``, ``conv_int8_lagged.cu``, the
+``megakernel_probe.cu``, ``add_one.cu``, E2's ``wgmma`` kernel
+``conv_int8_lagged.cu``, the
 KxK conv core ``conv_mma_core.cuh`` under both its epilogue policies: the
 exact tier's ``conv_int8_requant_mma.cu`` and the serving tier's
 ``conv_int8_fused_mma.cu``, and the 1x1 GEMM ``mm_int8_fused_mma.cu`` of
 #1 and #3 and, under the exact policy, of #9, the fused C3 bottleneck
 ``bneck_int8_fused.cu`` (#6) and the fused SPPF ``sppf_int8_fused.cu`` (#4)
-on the core's product and store), and the depthwise kernel
-#7 ``dw_int8_fused.cu``, compiled for the CPU with g++ and the shim
+on the core's product and store), the depthwise kernel
+#7 ``dw_int8_fused.cu`` and the head decode #8 ``decode_fused.cu``,
+compiled for the CPU with g++ and the shim
 ``tests/cuda_shim/shim.h``, held against their plain versions
-(``ops.probe_kernels``, ``ops.requant_kernels``, ``ops.fused_kernels``):
-a rehearsal of
-their indexing, their cp.async ring and their ldmatrix / mma.sync fragment
-layouts without a card. It cannot show what nvcc or the card refuses.
+(``ops.probe_kernels``, ``ops.requant_kernels``, ``ops.fused_kernels``,
+``models.yolo.decode_and_parse``): a rehearsal of
+their indexing, their cp.async ring, their ldmatrix / mma.sync fragment
+layouts and E2's wgmma descriptors, mbarriers and TMA boxes without a
+card. It cannot show what nvcc or the card refuses.
 
 The sources are rewritten into a temporary directory: the cp.async and
 the ldmatrix / mma.sync blocks of ``mma_tile.cuh`` (between their
-``// ---`` markers), the approximate reciprocal of ``epilogue.cuh`` (an
-exact one here: the Newton step then keeps it), the volatile shared
-load of ``dw_int8_fused.cu`` (a plain load here), the byte permute
-(``prmt``) of ``sppf_int8_fused.cu`` and the named barriers of
+``// ---`` markers), the wgmma / mbarrier / TMA block and the tensor-map
+encoding of ``hopper_async.cuh``, the approximate reciprocal of
+``epilogue.cuh`` (an exact one here: the Newton step then keeps it), the
+volatile shared load of ``dw_int8_fused.cu`` (a plain load here), the byte
+permute (``prmt``) of ``sppf_int8_fused.cu`` and the named barriers of
 ``conv_int8_lagged.cu`` become calls of the shim's emulations (the shim
-also emulates DPX ``__vimax3_s16x2``), the dynamic shared memory its
-static buffer, and each ``k<<<grid, block, smem, stream>>>(args)`` a call
-of ``shim_launch``. The shim runs the copies of a cp.async group only at
-the wait that covers it, the warp collectives by the PTX ISA's tables, and
-each named barrier as a barrier of its thread count. Skips where g++ is
-absent.
+also emulates DPX ``__vimax3_s16x2``, ``__vmaxs4``, ``__vcmpeq4`` and the
+warp shuffles and reduce), the dynamic shared memory its static buffer,
+and each ``k<<<grid, block, smem, stream>>>(args)`` a call of
+``shim_launch``. The shim runs the copies of a cp.async group only at the
+wait that covers it, a wgmma group at the wgmma wait that covers it, a
+TMA box when its mbarrier is first waited on, the warp collectives by the
+PTX ISA's tables, and each named barrier as a barrier of its thread
+count. Skips where g++ is absent.
 
 Tolerances: the int8 kinds without SILU bit-exact; the SILU kinds at most
 1 quantum on at most 0.1% of the values after one stage, and at most 2%
 of the values differing after two (the host ``expf`` and torch's sigmoid
 differ by ulps, and a flipped quantum moves every later stage); bf16
 within 2^-7 of the largest output (the emulated sums run in another
-order than the plain float64 ones).
+order than the plain float64 ones); the decode as on the card (classes
+exact, boxes within rtol 1e-6 / atol 1e-5, conf rtol 1e-6 / atol 1e-7).
 """
 
 import ctypes
@@ -56,7 +63,8 @@ SHIM = Path(__file__).resolve().parent / "cuda_shim" / "shim.h"
 SOURCES = ("chain_mma.cu", "megakernel_probe.cu", "add_one.cu",
            "conv_int8_lagged.cu", "conv_int8_requant_mma.cu",
            "conv_int8_fused_mma.cu", "mm_int8_fused_mma.cu",
-           "dw_int8_fused.cu", "bneck_int8_fused.cu", "sppf_int8_fused.cu")
+           "dw_int8_fused.cu", "bneck_int8_fused.cu", "sppf_int8_fused.cu",
+           "decode_fused.cu")
 ENTRIES = ("tat_chain_mma", "tat_megakernel_1x1", "tat_megakernel_3x3",
            "tat_add_one", "tat_conv_int8_lagged", "tat_conv_int8_lagged_info",
            "tat_conv_int8_requant_mma", "tat_conv_int8_requant_mma_info",
@@ -65,7 +73,8 @@ ENTRIES = ("tat_chain_mma", "tat_megakernel_1x1", "tat_megakernel_3x3",
            "tat_mm_int8_requant_mma", "tat_mm_int8_requant_mma_info",
            "tat_dw_int8_fused", "tat_dw_int8_fused_info",
            "tat_bneck_int8_fused", "tat_bneck_int8_fused_info",
-           "tat_sppf_int8_fused", "tat_sppf_int8_fused_info")
+           "tat_sppf_int8_fused", "tat_sppf_int8_fused_info",
+           "tat_decode_fused")
 
 _CP_ASYNC = """
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -109,6 +118,52 @@ _BARS = """
 inline void bar_sync(int id, int count) { shim_bar_sync(id, count); }
 inline void bar_arrive(int id, int count) { shim_bar_arrive(id, count); }
 """
+_HOPPER = """
+template <int N>
+struct Wgmma {
+  static void run(int (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+    shim_wgmma_s8(d, N, a, b, scale_d);
+  }
+};
+inline void wgmma_fence() {}
+inline void wgmma_commit() { shim_wgmma_commit(); }
+template <int N>
+inline void wgmma_wait() { shim_wgmma_wait(N); }
+template <int R>
+inline void fence_acc(int (&)[R]) {}
+inline void mbar_init(uint64_t* bar, int count) { shim_mbar_init(bar, count); }
+inline void fence_barrier_init() {}
+inline void mbar_arrive(uint64_t* bar) { shim_mbar_arrive(bar, 0); }
+inline void mbar_arrive_tx(uint64_t* bar, int bytes) {
+  shim_mbar_arrive(bar, bytes);
+}
+inline void mbar_wait(uint64_t* bar, int parity) {
+  shim_mbar_wait(bar, parity);
+}
+inline void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                        uint64_t* bar) {
+  const int c[2] = {c0, c1};
+  shim_tma_load(dst, map, c, bar);
+}
+inline void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                        int c2, int c3, uint64_t* bar) {
+  const int c[4] = {c0, c1, c2, c3};
+  shim_tma_load(dst, map, c, bar);
+}
+template <int N>
+inline void setmaxnreg_dec() {}
+template <int N>
+inline void setmaxnreg_inc() {}
+"""
+_TMAP = """
+inline cudaError_t encode_s8_map(CUtensorMap* map, const void* base, int rank,
+                                 const uint64_t* dims,
+                                 const uint64_t* strides,
+                                 const uint32_t* box) {
+  shim_cu_tensor_map(map, base, rank, dims, strides, box);
+  return cudaSuccess;
+}
+"""
 
 
 def _between(src: str, begin: str, end: str, new: str) -> str:
@@ -135,9 +190,14 @@ def rewrite(text: str) -> str:
     if "// --- named barriers" in text:
         text = _between(text, "// --- named barriers",
                         "// --- end of named barriers", _BARS)
-    text = re.sub(r"#include <cuda_(runtime|bf16)\.h>\n", "", text)
-    text = text.replace("extern __shared__ __align__(16) unsigned char "
-                        "smem[];", "unsigned char* smem = shim_smem;")
+    if "// --- wgmma / mbarrier / tma" in text:
+        text = _between(text, "// --- wgmma / mbarrier / tma",
+                        "// --- end of wgmma / mbarrier / tma", _HOPPER)
+        text = _between(text, "// --- tensor map encode",
+                        "// --- end of tensor map encode", _TMAP)
+    text = re.sub(r"#include <cuda(_runtime|_bf16)?\.h>\n", "", text)
+    text = re.sub(r"extern __shared__ __align__\(\d+\) unsigned char "
+                  r"smem\[\];", "unsigned char* smem = shim_smem;", text)
     return re.sub(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);",
                   r"shim_launch(\1, \2, \3);", text, flags=re.S)
 
@@ -151,10 +211,20 @@ def shim(tmp_path_factory):
     for name in SOURCES + cuda_build.HEADERS:
         (d / name).write_text(rewrite((cuda_build.CSRC / name).read_text()))
     lib = d / "libtat_shim.so"
-    cmd = [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-           "-pthread", "-w", "-include", str(SHIM), "-I", str(d), "-o",
-           str(lib), "-x", "c++"] + [str(d / s) for s in SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    # one g++ a source, all started together, then the link
+    flags = [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
+             "-pthread", "-w", "-include", str(SHIM), "-I", str(d)]
+    procs = [subprocess.Popen(flags + ["-c", "-o", str(d / f"{s}.o"),
+                                       "-x", "c++", str(d / s)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s in SOURCES]
+    for src, proc in zip(SOURCES, procs):
+        out, _ = proc.communicate(timeout=600)
+        assert proc.returncode == 0, f"{src}: {out[-4000:]}"
+    proc = subprocess.run([gxx, "-shared", "-pthread", "-o", str(lib)]
+                          + [str(d / f"{s}.o") for s in SOURCES],
+                          capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     so = ctypes.CDLL(str(lib))
     for name in ENTRIES:
@@ -292,13 +362,15 @@ def test_shim_add_one_and_refusals(shim):
                                   xi.data_ptr(), 64, k, l, bm, bn, None) == 1
 
 
-# E2's lagged conv: a 10 x 20 image (ragged under every tile), O = 40
-# (ragged under both channel blocks)
+# E2's lagged conv: a 10 x 20 image (ragged under the 8 x 8 tile in both
+# directions), O = 40 (ragged under every channel block), C = 32 and 64
+# (one and two wgmma K steps a tap)
 LAGGED_SHAPE = (2, 10, 20, 32, 40)
+LAGGED_ACTS = ("NONE", "RELU", "LEAKY_RELU", "SILU")
 
 
-def _lagged_operands(act, seed):
-    n, h, w, c, o = LAGGED_SHAPE
+def _lagged_operands(act, seed, c=LAGGED_SHAPE[3]):
+    n, h, w, _, o = LAGGED_SHAPE
     rng = np.random.default_rng(seed)
     x = _rng_int8(rng, (n, h, w, c))
     wt = _rng_int8(rng, (o, 3, 3, c))
@@ -309,30 +381,32 @@ def _lagged_operands(act, seed):
     return x, wt, bias, ep
 
 
-def _shim_lagged(shim, lag, x, wt, bias, ep, th, tw, bn, tpb):
+def _shim_lagged(shim, lag, x, wt, bias, ep, plan):
     n, h, w, c = x.shape
     out = torch.full((n, h, w, wt.shape[0]), 99, dtype=torch.int8)
     rc = shim.tat_conv_int8_lagged(
         lag, x.data_ptr(), wt.data_ptr(), bias.data_ptr(), ep.cs.data_ptr(),
         out.data_ptr(), n, h, w, c, wt.shape[0], FK._ACT_CODE[ep.act],
-        ep.inv_out, ep.alpha, th, tw, bn, tpb, None)
+        ep.inv_out, ep.alpha, plan.bn, plan.stages, plan.blocks, None)
     assert rc == 0
     return out
 
 
-@pytest.mark.parametrize("tpb", [3, 64])
-@pytest.mark.parametrize("th,tw", PK.LAGGED_TILES, ids=str)
+@pytest.mark.parametrize("act", LAGGED_ACTS)
+@pytest.mark.parametrize("bn", PK.LAGGED_BNS)
 @pytest.mark.parametrize("lag", [1, 0])
-def test_shim_lagged_conv_matches_plain(shim, lag, th, tw, tpb):
-    """Both modes of the lagged conv at every tile, both channel blocks
-    (one act each), on runs of 3 (the last run of 1) and all tiles a
-    block: equal to the plain version (SILU within its bound), every row
-    and channel written."""
-    for bn, act in zip(PK.LAGGED_BNS, ("SILU" if tw == 16 else "NONE",
-                                       "LEAKY_RELU" if th > 4 else "RELU")):
-        x, wt, bias, ep = _lagged_operands(act, th * tw + bn + tpb)
-        out = _shim_lagged(shim, lag, x, wt, bias, ep, th, tw, bn, tpb)
+def test_shim_lagged_conv_matches_plain(shim, lag, bn, act):
+    """Both modes of the wgmma lagged conv at each channel block and act:
+    at C = 32 through a two-slot ring with one block walking all 12 tiles
+    (the ring and the ping-pong wrap several times), at C = 64 through the
+    deepest ring with 5 blocks (3 or 2 tiles each: a consumer without a
+    partner in the last round); equal to the plain version (SILU within
+    its bound), every row and channel written."""
+    for c, plan in ((32, PK.LaggedPlan(bn, 2, 1)),
+                    (64, PK.LaggedPlan(bn, PK.LAGGED_STAGES[0], 5))):
+        x, wt, bias, ep = _lagged_operands(act, bn + len(act) + lag + c, c)
         ref = PK.conv3x3_lagged_plain(x, wt, bias, ep)
+        out = _shim_lagged(shim, lag, x, wt, bias, ep, plan)
         _assert_close(out, ref, "i8-rq-silu-3x3" if act == "SILU" else
                       "i8-shift-3x3", 1)
 
@@ -341,14 +415,14 @@ def test_shim_lagged_layout_and_refusals(shim):
     """The kernel's shared memory is ``lagged_smem``'s for every plan, in
     both modes; plans and shapes it cannot run are refused."""
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    for c in (32, 96, 128, 256):
-        for th, tw in PK.LAGGED_TILES:
-            for bn in PK.LAGGED_BNS:
+    for c in (32, 96, 128, 256, 448):
+        for bn in PK.LAGGED_BNS:
+            for st in PK.LAGGED_STAGES:
                 for lag in (0, 1):
                     rc = shim.tat_conv_int8_lagged_info(
-                        lag, c, th, tw, bn, ctypes.byref(smem),
+                        lag, c, bn, st, ctypes.byref(smem),
                         ctypes.byref(blocks))
-                    want = PK.lagged_smem(c, th, tw, bn)
+                    want = PK.lagged_smem(c, bn, st)
                     if want > 232448:
                         assert rc == 1
                         continue
@@ -357,12 +431,16 @@ def test_shim_lagged_layout_and_refusals(shim):
     x, wt, bias, ep = _lagged_operands("NONE", 0)
     n, h, w, c = x.shape
     out = torch.empty((n, h, w, 40), dtype=torch.int8)
-    bad = [(48, 40, 8, 16, 64), (32, 36, 8, 16, 64), (32, 40, 8, 12, 64),
-           (32, 40, 4, 8, 64), (32, 40, 8, 16, 48), (32, 40, 16, 16, 64)]
-    for cc, o, th, tw, bn in bad:   # C % 32, O % 8, tile_w, pixels, bn
+    bad = [(48, 40, 64, 2, 1, 0), (32, 36, 64, 2, 1, 0),
+           (32, 40, 48, 2, 1, 0), (32, 40, 64, 1, 1, 0),
+           (32, 40, 64, 5, 1, 0), (32, 40, 64, 2, 0, 0),
+           (32, 40, 64, 2, 1, 1)]
+    # C % 32, O % 8, bn, two stages at least, four at most, a block, x
+    # off 16 bytes
+    for cc, o, bn, st, nblk, off in bad:
         assert shim.tat_conv_int8_lagged(
-            1, x.data_ptr(), wt.data_ptr(), None, ep.cs.data_ptr(),
-            out.data_ptr(), n, h, w, cc, o, 0, 1.0, 0.1, th, tw, bn, 2,
+            1, x.data_ptr() + off, wt.data_ptr(), None, ep.cs.data_ptr(),
+            out.data_ptr(), n, h, w, cc, o, 0, 1.0, 0.1, bn, st, nblk,
             None) == 1
 
 
@@ -1374,3 +1452,119 @@ def test_shim_sppf_unaligned_layout_and_refusals(shim):
                 (4, 20, 20, 64, 5, 64, 32, 32)]:
         assert shim.tat_sppf_int8_fused_info(
             *bad, ctypes.byref(smem), ctypes.byref(blocks)) == 1, bad
+
+
+# The head decode (#8, decode_fused.cu): (batch, level sizes (h, w), A, NC)
+# small heads; ragged row counts under the 128-unit run, A = 1 and 3, NC =
+# 1, 80 and 300 (an f32 run of 26 units), and a unit too large to stage
+# (int8 NC 33000, f32 NC 8200), which the whole block decodes
+from thingino_accel_tpu_torch.models import yolo as Y  # noqa: E402
+
+DECODE_SHIM_CASES = {
+    "3lv-a3-nc80": (2, ((9, 7), (5, 5), (3, 2)), 3, 80),
+    "1lv-a1-nc1": (3, ((6, 11),), 1, 1),
+    "2lv-a3-nc300": (1, ((4, 5), (2, 3)), 3, 300),
+    "4lv-a1-nc80": (1, ((12, 12), (6, 6), (3, 3), (1, 2)), 1, 80),
+    "1lv-a1-whole-block": (2, ((1, 2),), 1, None),
+}
+
+
+def _shim_decode(shim, heads, anchors, strides, nc, scales):
+    """One launch of the shim's decode on CPU tensors."""
+    n_lv, a = len(heads), anchors.shape[1]
+    b = heads[0].shape[0]
+    n = sum(h.shape[1] * h.shape[2] * a for h in heads)
+    boxes = torch.full((b, n, 4), -7.0)
+    conf = torch.full((b, n), -7.0)
+    cls = torch.full((b, n), -7, dtype=torch.int32)
+    sc = [1.0 if scales is None else float(np.float32(s)) for s in
+          (scales or [None] * n_lv)]
+    anc = np.ascontiguousarray(anchors[:n_lv], np.float32).ravel()
+    rc = shim.tat_decode_fused(
+        n_lv, (ctypes.c_void_p * n_lv)(*(h.data_ptr() for h in heads)),
+        (ctypes.c_int * n_lv)(*(h.shape[1] for h in heads)),
+        (ctypes.c_int * n_lv)(*(h.shape[2] for h in heads)),
+        (ctypes.c_float * n_lv)(*(float(s) for s in strides[:n_lv])),
+        (ctypes.c_float * n_lv)(*sc), (ctypes.c_float * anc.size)(*anc),
+        b, a, nc, int(heads[0].dtype == torch.int8), boxes.data_ptr(),
+        conf.data_ptr(), cls.data_ptr(), None)
+    assert rc == 0
+    return boxes, conf, cls
+
+
+def _decode_close(got, ref):
+    np.testing.assert_allclose(got[0].numpy(), ref[0].numpy(), rtol=1e-6,
+                               atol=1e-5, equal_nan=True)
+    np.testing.assert_allclose(got[1].numpy(), ref[1].numpy(), rtol=1e-6,
+                               atol=1e-7, equal_nan=True)
+    np.testing.assert_array_equal(got[2].numpy(), ref[2].numpy())
+
+
+def _offset_view(t, off):
+    """``t``'s values in a fresh buffer, ``off`` bytes past its start."""
+    flat = torch.empty(t.numel() * t.element_size() + 64, dtype=torch.uint8)
+    base = (-flat.data_ptr()) % 16 + off
+    v = flat[base:base + t.numel() * t.element_size()].view(t.dtype)
+    v.copy_(t.reshape(-1))
+    return v.view(t.shape)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "f32"])
+@pytest.mark.parametrize("name", DECODE_SHIM_CASES)
+def test_shim_decode_matches_plain(shim, name, dtype):
+    """The decode kernel against ``decode_and_parse`` (the plain version):
+    ties among int8 classes (values drawn from five), NaN rows in f32 (all
+    classes, one class), int8 heads at odd byte offsets (the staged range
+    aligned inside the kernel)."""
+    nb, hws, a, nc = DECODE_SHIM_CASES[name]
+    if nc is None:
+        nc = 33000 if dtype == "int8" else 8200
+    rng = np.random.default_rng(len(name) + nc)
+    anchors = np.asarray(rng.uniform(4, 60, (len(hws), a, 2)), np.float32)
+    strides = (8, 16, 32, 64)[:len(hws)]
+    heads = []
+    for i, (h, w) in enumerate(hws):
+        if dtype == "int8":
+            v = (rng.integers(-3, 2, (nb, h, w, a * (5 + nc))) * 40).astype(
+                np.int8)
+            v[..., ::7] = rng.integers(-128, 128, v[..., ::7].shape)
+            t = torch.from_numpy(v)
+            heads.append(_offset_view(t, (3 * i + 1) % 16))
+        else:
+            v = rng.normal(0, 2, (nb, h, w, a, 5 + nc)).astype(np.float32)
+            v[0, 0, 0, 0, 5:] = np.nan
+            v[..., 5 + nc // 2][rng.random((nb, h, w, a)) < 0.2] = np.nan
+            heads.append(torch.from_numpy(v.reshape(nb, h, w, -1)))
+    scales = (list(rng.uniform(0.03, 0.06, len(hws))) if dtype == "int8"
+              else None)
+    got = _shim_decode(shim, heads, anchors, strides, nc, scales)
+    ref = Y.decode_and_parse([h.contiguous() for h in heads], anchors,
+                             strides, nc, scales)
+    _decode_close(got, ref)
+    if dtype == "f32":
+        assert int(got[2][0, 0]) == 0   # the all-NaN row: the first NaN
+
+
+def test_shim_decode_refusals(shim):
+    """Levels, anchors, classes, batch and an f32 head off 4 bytes are
+    refused by the kernel's entry."""
+    h = torch.zeros((1, 2, 2, 85 * 3))
+    anchors = np.ones((4, 9, 2), np.float32)
+    args = [(0, [h], 3, 80), (5, [h] * 5, 3, 80), (1, [h], 9, 80),
+            (1, [h], 3, 0), (1, [h], 3, 65536)]
+    for n_lv, hs, a, nc in args:
+        n = max(n_lv, 1)
+        rc = shim.tat_decode_fused(
+            n_lv, (ctypes.c_void_p * n)(*(t.data_ptr() for t in hs[:n])),
+            (ctypes.c_int * n)(*[2] * n), (ctypes.c_int * n)(*[2] * n),
+            (ctypes.c_float * n)(*[8.0] * n), (ctypes.c_float * n)(*[1.0] * n),
+            (ctypes.c_float * 72)(*anchors.ravel()), 1, a, nc, 0,
+            h.data_ptr(), h.data_ptr(), h.data_ptr(), None)
+        assert rc == 1, (n_lv, a, nc)
+    out = torch.zeros(64)
+    rc = shim.tat_decode_fused(
+        1, (ctypes.c_void_p * 1)(h.data_ptr() + 2), (ctypes.c_int * 1)(1),
+        (ctypes.c_int * 1)(1), (ctypes.c_float * 1)(8.0),
+        (ctypes.c_float * 1)(1.0), (ctypes.c_float * 72)(*anchors.ravel()),
+        1, 3, 80, 0, out.data_ptr(), out.data_ptr(), out.data_ptr(), None)
+    assert rc == 1

@@ -15,8 +15,11 @@ bytes otherwise), every ragged edge, the residual modes, and the
 multi-part, bottleneck, SPPF and depthwise kernels at their edge cases and
 model shapes (the bottleneck and SPPF also at every plan their planners
 offer for a path unit). The head decode (kernel #8) is held against its plain version on
-the CPU: classes exact, boxes within rtol 1e-6 / atol 1e-5, conf within
-rtol 1e-6 / atol 1e-7, and the detections after NMS equal. The exact
+the CPU at the real yolov5n's heads and at every head kind it takes (1-4
+levels, A = 1 and 3, NC = 1 to 33000, the units too large to stage, int8
+heads off 16-byte alignment, ties, NaN rows): classes exact, boxes within
+rtol 1e-6 / atol 1e-5, conf within rtol 1e-6 / atol 1e-7, and the
+detections after NMS equal. The exact
 tier's kernels #9-#11 (``ops.requant_kernels``) are bit-exact against
 their plain versions in both RoundModes, with and without RELU and with
 an activation table, at the zoo yolov5s's lead shapes and at the edge
@@ -48,10 +51,11 @@ card, with int4 weights at the wrap edges, and with refused launches
 raising: int8 kinds bit-exact (SILU_FAST too), chained SILU kinds within
 the SILU bound after one stage and at most 1% apart after more, bf16
 within 2^-7 of the largest output. E2's lagged conv
-(``probe_kernels.conv3x3_lagged``) in both modes, over every plan its
-launcher can take, at the experiment's shape on 2 images and at a ragged
-shape: equal to its plain version (the act's tolerance) and to #5 bit for
-bit, every element written, its launches counted.
+(``probe_kernels.conv3x3_lagged``, the ``wgmma`` kernel) in both modes,
+over every plan its launcher can take, at the experiment's shape on 2
+images, at a ragged shape and a small one, in each act: equal to its
+plain version (the act's tolerance) and to #5 bit for bit, every element
+written, its launches counted.
 """
 
 import dataclasses
@@ -522,6 +526,44 @@ def test_decode_kernel_ties_and_nan(cuda):
     got, ref = _decode_pair([h], anchors=Y.YOLOV5_ANCHORS[:1], strides=(8,))
     _assert_decode_close(got, ref, nan=True)
     assert (got[2][0] == 0).all()
+
+
+# (batch, level sizes, A, NC): A = 1 and 3, NC = 1 and 300 (an f32 run of
+# 26 units), four levels, and units too large to stage (int8 NC 33000,
+# f32 NC 8200), which the whole block decodes
+DECODE_SHAPES = [(2, (9, 5, 3), 3, 80), (3, (6,), 1, 1),
+                 (1, (4, 2), 3, 300), (1, (12, 6, 3, 1), 1, 80),
+                 (2, (2,), 1, None)]
+
+
+@pytest.mark.parametrize("dtype", ["int8", "f32"])
+@pytest.mark.parametrize("case", DECODE_SHAPES, ids=str)
+def test_decode_kernel_every_head_shape(cuda, dtype, case):
+    """Heads of every kind the kernel takes: equal to the plain version;
+    int8 heads start 1, 6, 11 and 16 bytes past a 16-byte boundary."""
+    nb, hws, a, nc = case
+    nc = nc or (33000 if dtype == "int8" else 8200)
+    rng = np.random.default_rng(nc + len(hws))
+    anchors = rng.uniform(4, 60, (len(hws), a, 2)).astype(np.float32)
+    heads = []
+    for i, hw in enumerate(hws):
+        shape = (nb, hw, hw, a * (5 + nc))
+        if dtype == "int8":
+            v = torch.from_numpy((rng.integers(-3, 2, shape) * 40).astype(
+                np.int8)).to(cuda)
+            flat = torch.empty(v.numel() + 32, dtype=torch.int8, device=cuda)
+            off = 5 * i + 1
+            heads.append(flat[off:off + v.numel()].view(shape))
+            heads[-1].copy_(v)
+        else:
+            heads.append(torch.from_numpy(rng.normal(0, 2, shape).astype(
+                np.float32)).to(cuda))
+    scales = (list(rng.uniform(0.03, 0.06, len(hws))) if dtype == "int8"
+              else None)
+    got, ref = _decode_pair(heads, anchors=anchors,
+                            strides=(8, 16, 32, 64)[:len(hws)],
+                            num_classes=nc, scales=scales)
+    _assert_decode_close(got, ref)
 
 
 def test_decode_kernel_detections_equal(cuda):
@@ -1410,10 +1452,11 @@ def test_add_one_kernel(cuda):
 
 
 # E2's lagged conv: (x shape, O, act): the experiment's 80 x 80 x 128 ->
-# 128 on 2 images, and a ragged shape no tile divides
+# 128 on 2 images, a ragged shape no tile divides, a small RELU one
 LAGGED_CASES = [((2, 80, 80, 128), 128, "SILU"),
                 ((2, 80, 80, 128), 128, "NONE"),
-                ((16, 45, 77, 96), 72, "LEAKY_RELU")]
+                ((16, 45, 77, 96), 72, "LEAKY_RELU"),
+                ((3, 17, 9, 32), 16, "RELU")]
 
 
 def _lagged_operands(rng, xs, o, act, dev):
@@ -1428,10 +1471,11 @@ def _lagged_operands(rng, xs, o, act, dev):
                          ids=lambda c: f"{'x'.join(map(str, c[0]))}-{c[1]}"
                                        f"-{c[2]}")
 def test_lagged_conv_every_plan(cuda, case):
-    """Both modes over every plan the launcher can take (each with its
-    modelled run of tiles, and the first with runs of 1 and 3 tiles): equal
-    to the plain version and to #5 bit for bit, no element left unwritten;
-    the wrapper counts one launch a call."""
+    """Both modes over every plan the launcher can take (each channel block
+    and ring depth with its persistent blocks, and the first also with 1
+    and 3 blocks walking every tile): equal to the plain version and to #5
+    bit for bit, no element left unwritten; the wrapper counts one launch
+    a call."""
     xs, o, act = case
     rng = np.random.default_rng(21)
     x, w, bias, ep = _lagged_operands(rng, xs, o, act, cuda)
@@ -1442,10 +1486,9 @@ def test_lagged_conv_every_plan(cuda, case):
     _close(dma, ref, act)
     plans = PK.lagged_plans(xs[0], xs[1], xs[2], xs[3], o,
                             FK.smem_limits(cuda))
-    assert len(plans) == len(PK.LAGGED_TILES) * len(PK.LAGGED_BNS)
+    assert len(plans) == len(PK.LAGGED_BNS) * len(PK.LAGGED_STAGES)
     first = plans[0]
-    plans += tuple(PK.LaggedPlan(first.tile_h, first.tile_w, first.bn, t)
-                   for t in (1, 3))
+    plans += tuple(PK.LaggedPlan(first.bn, first.stages, b) for b in (1, 3))
     for plan in plans:
         for lag in (True, False):
             out = torch.full(ref.shape, 99, dtype=torch.int8, device=cuda)
@@ -1461,7 +1504,8 @@ def test_lagged_conv_every_plan(cuda, case):
 
 def test_lagged_conv_refusals_and_occupancy(cuda):
     """An input off 16 bytes is refused by the wrapper, a plan the kernel
-    cannot run by the kernel; both modes of E2's plan take the shared
+    cannot run (a channel block wgmma takes but the kernel does not, one
+    slab slot) by the kernel; both modes of E2's plan take the shared
     memory ``lagged_smem`` gives, one block an SM."""
     rng = np.random.default_rng(22)
     x, w, bias, ep = _lagged_operands(rng, (1, 8, 8, 32), 16, "NONE", cuda)
@@ -1471,10 +1515,10 @@ def test_lagged_conv_refusals_and_occupancy(cuda):
     with pytest.raises(ValueError, match="aligned"):
         PK.conv3x3_lagged(off, w, bias, ep)
     out = torch.empty((1, 8, 8, 16), dtype=torch.int8, device=cuda)
-    with pytest.raises(RuntimeError, match="cudaError"):
-        PK._launch_lagged(x, w, bias, ep, out, True,
-                          PK.LaggedPlan(8, 12, 32, 1))
+    for bad in (PK.LaggedPlan(48, 2, 1), PK.LaggedPlan(32, 1, 1)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            PK._launch_lagged(x, w, bias, ep, out, True, bad)
     plan = PK.lagged_plan(128, 80, 80, 128, 128, FK.smem_limits(cuda))
     for lag in (True, False):
         assert PK.lagged_occupancy(lag, 128, plan) == (
-            PK.lagged_smem(128, plan.tile_h, plan.tile_w, plan.bn), 1)
+            PK.lagged_smem(128, plan.bn, plan.stages), 1)

@@ -152,20 +152,20 @@ def test_wrapper_refuses_what_the_kernel_cannot_run():
 
 
 def test_plans_at_the_experiment_shapes():
-    """E2's shape takes 8 x 16 tiles of 64 channels, a whole image a block
-    (256 blocks: two waves of one block an SM); the ragged 45 x 77 -> 72
-    takes 32-channel blocks; every plan fits and C = 512 has none."""
+    """E2's shape takes 128-channel blocks through a four-slot ring, one
+    persistent block an SM (132 walking 12,800 tiles); the ragged 45 x 77
+    -> 72 takes 32-channel blocks (96 channels issued, not 128); every plan
+    fits and C = 512 has none."""
     plan = PK.lagged_plan(128, 80, 80, 128, 128, H100)
-    assert plan == PK.LaggedPlan(8, 16, 64, 50)
-    assert PK.lagged_smem(128, 8, 16, 64) == 200320
+    assert plan == PK.LaggedPlan(128, 4, 132)
+    assert PK.lagged_smem(128, 128, 4) == 201800
     ragged = PK.lagged_plan(16, 45, 77, 96, 72, H100)
-    assert (ragged.tile_h, ragged.tile_w, ragged.bn) == (8, 16, 32)
+    assert (ragged.bn, ragged.stages) == (32, 4)
     plans = PK.lagged_plans(2, 80, 80, 128, 128, H100)
-    assert len(plans) == len(PK.LAGGED_TILES) * len(PK.LAGGED_BNS)
+    assert len(plans) == len(PK.LAGGED_BNS) * len(PK.LAGGED_STAGES)
     for p in plans:
-        assert PK.lagged_smem(128, p.tile_h, p.tile_w, p.bn) <= 232448
-        assert 1 <= p.tiles_per_block <= (80 // p.tile_h) * (
-            -(-80 // p.tile_w))
+        assert PK.lagged_smem(128, p.bn, p.stages) <= 232448
+        assert 1 <= p.blocks <= 2 * 10 * 10
     with pytest.raises(ValueError, match="fits"):
         PK.lagged_plan(1, 8, 8, 512, 64, H100)
 

@@ -1,6 +1,6 @@
 // E2, the lagged-epilogue conv: an int8 3x3 / stride 1 / pad 1 conv,
 // NHWC x OHWI -> NHWC, with the serving epilogue (bias, per-channel cs,
-// NONE / RELU / LEAKY_RELU / SILU, requantize) on the tensor cores:
+// NONE / RELU / LEAKY_RELU / SILU, requantize) on Hopper's warpgroup MMA:
 // out[n, y, x, o] = epilogue(sum_{dy,dx,c} x[n, y+dy-1, x+dx-1, c]
 //                                          * w[o, dy, dx, c])
 // with zeros outside the image. It computes what conv_int8_fused_mma.cu
@@ -11,66 +11,63 @@
 // :44, pallas_call :92). There a grid cell ti runs tile ti's nine tap
 // dots into slot ti % 2 of a two-slot int32 VMEM accumulator and applies
 // the requantize epilogue to slot (ti + 1) % 2, tile ti - 1, so that the
-// TPU can overlap the VPU epilogue with the MXU dots; one more cell drains
-// the last tile. Here the lag is a split of the block's warps:
-//   - kProductWarps product warps run tile t's product with mma.sync s8
-//     m16n8k32 (mma_tile.cuh) into registers, then store them into slot
-//     t % 2 of a two-slot int32 accumulator in shared memory;
-//   - kEpilogueWarps epilogue warps meanwhile read slot (t - 1) % 2, apply
-//     the epilogue and store int8 NHWC; after the last product they drain
-//     the last tile (the TPU's n_tiles + 1-th cell). They are as many as
-//     the product warps: the SILU chain (expf, an IEEE division) runs
-//     latency-bound, and 4 of them took 2.3x a tile's product (PERF.md).
-//   The hand-off is by named barriers, never __syncthreads: FULL[s] (the
-//   product warps bar.arrive, the epilogue warps bar.sync) and EMPTY[s]
-//   (the other way round), each counting all kThreads threads; the product
-//   warps' own slab ring waits at kBarProduct among themselves alone.
-// LAG = 0 is the control: the same grid, threads and shared memory, but
-// the product warps apply the epilogue to their own registers after each
-// tile, as #5 does, and the epilogue warps leave at once; only the overlap
-// differs. In both modes the act is a template constant of the epilogue
-// loop (NONE, RELU, LEAKY_RELU, SILU; the wrapper refuses SILU_FAST).
+// TPU can overlap the VPU epilogue with the MXU dots. Here the two slots
+// are two consumer warpgroups, each with its tile's sums in registers:
+//   - LAG = 1, ordered ping-pong: warpgroup c runs the product of its tile
+//     t (wgmma.mma_async, both operands from shared memory), hands the
+//     tensor cores to the other warpgroup (named barriers kBarTurn + c),
+//     and applies the epilogue to tile t while the other warpgroup's
+//     product of tile t + 1 runs; no int32 round trip through shared
+//     memory;
+//   - LAG = 0, the control: the same threads and shared memory, but both
+//     warpgroups run their products, then their epilogues, in lockstep
+//     (kBarStep between), so that no epilogue overlaps a product.
+// A producer warpgroup (one thread issues, setmaxnreg gives its registers
+// to the consumers) keeps a ring of `stages` slab slots full by TMA: each
+// 8 x 8 tile's halo'd 10 x 10 pixel slab comes in as C / 16 boxes of 16
+// channels, one a 16-channel plane, the out-of-image pixels zero-filled by
+// the tensor map (the halo costs nothing). Slot s is full[s] (the
+// producer's expect_tx and the TMA bytes) and empty[s] (the consuming
+// warpgroup's 128 threads after their wgmma has completed).
 //
 // What bounds it on the H100: the product, 9 C MACs an output element (E2:
-// 2.4e11 operations against 210 MB moved). The block owns (image, a run of
-// tpb consecutive TH x TW pixel tiles of it in row-major order, BN output
-// channels). Its BN x 9C weights stay resident in shared memory, loaded
-// once, as E2's w_ref block stays in VMEM. Each tile's halo'd input slab,
-// (TH + 2) x (TW + 2) pixels x C, comes in through a two-slot cp.async
-// ring as #5 stages it: tile t + 1's copies fly while tile t is computed;
-// out-of-image bytes are zero-filled by a source size of 0. A rows are
-// output pixels: a tap's shifted window of the slab is read through
-// per-lane ldmatrix row addresses (worked out once a kernel), B rows are
-// the OHWI weight's output channels, whose 9C values are contiguous (the
-// .col operand). 8 product warps tile the TP x BN block 4 x 2 with MI m16
-// by NI n8 tiles each (TP = 64 MI, BN = 16 NI).
+// 2.4e11 operations against 210 MB moved). The slab planes make each
+// tap's window a K-major wgmma operand with no copy: the tile's 64 pixels
+// are 8 rows of 8, a core matrix each (16 bytes of channels of 8
+// consecutive pixels), the next row SW x 16 bytes on (SBO), the next 16
+// channels a plane on (LBO); the window of tap (dy, dx) starts (dy SW +
+// dx) x 16 bytes into the plane. The block's BN x 9C weights are
+// resident, loaded once by TMA as 9C / 16 planes of BN x 16 bytes (rows
+// past O zero-filled), so B is K-major with LBO = 16 BN, SBO = 128. A tile
+// is 9 C / 32 wgmma m64nBNk32 into 64 x BN int32 sums. The grid is
+// persistent: grid.y the channel blocks, grid.x blocks walking the tiles
+// blockIdx.x, + gridDim.x, ...; a block's tiles alternate between its two
+// consumer warpgroups. The epilogue reads bias and cs from shared memory
+// and stores 8 bytes a lane: the 4 lanes of a quad trade their 2-byte
+// pieces (two shuffles) so that each holds one n8 block of its row.
 //
 // Shared memory (the host's lagged_layout, mirrored by ops/probe_kernels.py
-// lagged_smem): two slab slots of SH x SW pixels at a pitch of C + 16
-// bytes, the weights at 9C + 16 bytes a channel (both odd multiples of 16:
-// the 8 rows of an ldmatrix fall on distinct bank groups), two accumulator
-// slots of TP pixels at BN + 8 words (the C fragments' 8-byte stores of a
-// half-warp cover all 32 banks).
+// lagged_smem): the weights (9 C BN bytes), `stages` slab slots of C / 16
+// planes at kPlane bytes, bias and cs (8 BN bytes), the barriers.
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
-#include "mma_tile.cuh"
+#include "hopper_async.cuh"
 
 namespace {
 
-constexpr int kProductWarps = 8;
-constexpr int kEpilogueWarps = 8;
-constexpr int kProductThreads = 32 * kProductWarps;
-constexpr int kEpilogueThreads = 32 * kEpilogueWarps;
-constexpr int kThreads = kProductThreads + kEpilogueThreads;
-constexpr int kAccPad = 8;   // int32 words after each accumulator row
-
-// named barrier ids (0 is __syncthreads', which this kernel never uses)
-constexpr int kBarProduct = 1;
-constexpr int kBarFull = 2;    // + slot
-constexpr int kBarEmpty = 4;   // + slot
+constexpr int kTile = 8;                // output pixels a tile: 8 x 8
+constexpr int kSW = kTile + 2;          // slab rows and columns
+constexpr int kSlabPix = kSW * kSW;
+constexpr int kPlane = 1664;            // 16 bytes of kSlabPix pixels, to 128
+constexpr int kWgThreads = 128;
+constexpr int kThreads = 3 * kWgThreads;   // producer + two consumers
+constexpr int kConsumers = 2 * kWgThreads;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
 
 // --- named barriers: bar.sync waits until `count` threads (whole warps)
 // have reached barrier `id` by bar.sync or bar.arrive; bar.arrive does not
@@ -83,342 +80,273 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
 }
 // --- end of named barriers -------------------------------------------------
 
+// named barrier ids among the consumers (0 is __syncthreads')
+constexpr int kBarTurn = 1;   // + consumer: its product may start (LAG 1)
+constexpr int kBarStep = 3;   // the round's products / epilogues (LAG 0)
+constexpr int kBarInit = 4;   // bias and cs staged
+
 struct LagGeom {
-  int H, W, C, O;
-  int TH, TW, lg_tw;    // tile; TW = 1 << lg_tw
-  int BN;               // output channels a block
-  int SW;               // slab columns, TW + 2 (rows: TH + 2)
-  int pitch;            // slab bytes a pixel, C + 16
-  int wpitch;           // weight bytes an output channel, 9C + 16
-  int apitch;           // accumulator words a pixel, BN + kAccPad
-  int ntw, tiles_img, tpb, nchunk;
-  int slab_bytes, w_off, acc_off, acc_bytes, smem;
+  int H, W, C, O, BN, stages;
+  int ntw, tiles_img, tiles;   // tiles across, an image, in all
+  int slot_bytes;              // C / 16 planes
+  int slab_off, col_off, bar_off, smem;
 };
 
 // The shared-memory layout of one block (ops/probe_kernels.py lagged_smem
-// mirrors the total).
+// mirrors the total): weights at 0 (a multiple of 9216 bytes), the slots,
+// bias and cs, the barriers.
 void lagged_layout(LagGeom& g) {
-  g.SW = g.TW + 2;
-  g.pitch = g.C + tat::kRowPad;
-  g.wpitch = 9 * g.C + tat::kRowPad;
-  g.apitch = g.BN + kAccPad;
-  g.slab_bytes = (g.TH + 2) * g.SW * g.pitch;
-  g.w_off = 2 * g.slab_bytes;
-  g.acc_off = g.w_off + g.BN * g.wpitch;
-  g.acc_bytes = g.TH * g.TW * g.apitch * 4;
-  g.smem = g.acc_off + 2 * g.acc_bytes;
+  g.slot_bytes = g.C / 16 * kPlane;
+  g.slab_off = 9 * g.C * g.BN;
+  g.col_off = g.slab_off + g.stages * g.slot_bytes;
+  g.bar_off = g.col_off + 8 * g.BN;
+  g.smem = g.bar_off + 8 * (2 * g.stages + 1);
 }
 
-__device__ __forceinline__ void tile_origin(const LagGeom& g, int tile,
-                                            int& oy0, int& ox0) {
-  const int trow = tile / g.ntw;
-  oy0 = trow * g.TH;
-  ox0 = (tile - trow * g.ntw) * g.TW;
+__device__ __forceinline__ void tile_at(const LagGeom& g, int k, int& n,
+                                        int& oy0, int& ox0) {
+  n = k / g.tiles_img;
+  const int t = k - n * g.tiles_img;
+  const int ty = t / g.ntw;
+  oy0 = ty * kTile;
+  ox0 = (t - ty * g.ntw) * kTile;
 }
 
-// The halo'd slab of `tile` into `slot`: (TH + 2) x SW pixels of C bytes,
-// 16 bytes a copy, zeros outside the image. Product threads only.
-__device__ void issue_slab(const int8_t* __restrict__ x, unsigned char* slot,
-                           const LagGeom& g, int n, int tile) {
-  int oy0, ox0;
-  tile_origin(g, tile, oy0, ox0);
-  const int upp = g.C / 16;   // copies a pixel
-  const int units = (g.TH + 2) * g.SW * upp;
-  const long long img = static_cast<long long>(n) * g.H;
-  for (int u = threadIdx.x; u < units; u += kProductThreads) {
-    const int pix = u / upp, cu = u - pix * upp;
-    const int r = pix / g.SW, col = pix - r * g.SW;
-    const int iy = oy0 - 1 + r, ix = ox0 - 1 + col;
-    const bool ok = iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
-    const int8_t* src = ok ? x + ((img + iy) * g.W + ix) * g.C + 16 * cu : x;
-    tat::cp_async16(slot + pix * g.pitch + 16 * cu, src, ok ? 16 : 0);
+// One tile's product into d: 9 taps x C / 32 steps, issued as one group
+// (product_wait waits for it). a0: the slot's descriptor, b0: the
+// weights'.
+template <int BN>
+__device__ __forceinline__ void product_issue(int (&d)[BN / 2], uint64_t a0,
+                                              uint64_t b0, int C) {
+  tat::fence_acc(d);
+  tat::wgmma_fence();
+#ifndef TAT_LAGGED_NO_PRODUCT
+  const int ksteps = C / 32;
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dy = tap / 3, dx = tap - 3 * dy;
+    const uint64_t a = a0 + ((dy * kSW + dx) * 16 >> 4);
+    const uint64_t b = b0 + (tap * (C / 16) * BN * 16 >> 4);
+    for (int ks = 0; ks < ksteps; ++ks)
+      tat::Wgmma<BN>::run(d, a + (2 * ks * kPlane >> 4),
+                          b + (2 * ks * BN * 16 >> 4), (tap | ks) != 0);
   }
+#endif
+  tat::wgmma_commit();
+}
+template <int BN>
+__device__ __forceinline__ void product_wait(int (&d)[BN / 2]) {
+  tat::wgmma_wait<0>();
+  tat::fence_acc(d);
 }
 
-// The epilogue warps (LAG = 1): thread et takes channel quad et % (BN / 4)
-// of every (kEpilogueThreads / (BN / 4))-th pixel of a tile, reads its
-// four sums with one 16-byte load and writes its four int8 with one
-// 4-byte store. ACT is a constant, so the epilogue's act branches fold.
+// The epilogue of one tile's sums in registers, 8 bytes a lane and row:
+// the lane's rows g and g + 8 of warp w, its two columns of each n8 block
+// (their bias and cs read once for both rows).
 template <int BN, int ACT>
-__device__ void drain_tiles(const LagGeom& g, const unsigned char* smem,
-                            int n, int t0, int tiles, int n0,
-                            const int* __restrict__ bias,
-                            const float* __restrict__ cs, float inv_out,
-                            float alpha, int8_t* __restrict__ out) {
-  constexpr int kQuads = BN / 4;
-  constexpr int kStep = kEpilogueThreads / kQuads;   // pixels a pass
-  const int et = threadIdx.x - kProductThreads;
-  const int q = et % kQuads;
-  const int o = n0 + 4 * q;
-  const bool live = o < g.O;   // O % 8 == 0: a quad is whole or outside
-  int b[4];
-  float c[4];
+__device__ __forceinline__ void store_tile(const int (&d)[BN / 2],
+                                           const LagGeom& g, int n, int oy0,
+                                           int ox0, int n0, const int* bias_s,
+                                           const float* cs_s, float inv_out,
+                                           float alpha,
+                                           int8_t* __restrict__ out) {
+  const int t = threadIdx.x % kWgThreads, lane = t & 31;
+  const int tq = lane & 3, hb = (lane >> 1) & 1, lb = lane & 1;
+  int8_t* orow[2];
+  bool ok[2];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    b[j] = live && bias != nullptr ? bias[o + j] : 0;
-    c[j] = live ? cs[o + j] : 0.0f;
+  for (int h = 0; h < 2; ++h) {
+    const int p = (t >> 5) * 16 + (lane >> 2) + 8 * h;   // tile pixel
+    const int oy = oy0 + (p >> 3), ox = ox0 + (p & 7);
+    ok[h] = oy < g.H && ox < g.W;
+    orow[h] = out +
+              ((static_cast<long long>(n) * g.H + oy) * g.W + ox) * g.O + n0;
   }
-  const int tp = g.TH * g.TW;
-  for (int i = 0; i < tiles; ++i) {
-    const int s = i & 1;
-    bar_sync(kBarFull + s, kThreads);   // tile i's sums are in slot s
-    const int* acc =
-        reinterpret_cast<const int*>(smem + g.acc_off + s * g.acc_bytes);
-    int oy0, ox0;
-    tile_origin(g, t0 + i, oy0, ox0);
-#pragma unroll 4
-    for (int p = et / kQuads; p < tp; p += kStep) {
-      const int oy = oy0 + (p >> g.lg_tw), ox = ox0 + (p & (g.TW - 1));
-      const int4 v =
-          *reinterpret_cast<const int4*>(acc + p * g.apitch + 4 * q);
-      if (!live || oy >= g.H || ox >= g.W) continue;
-      const unsigned packed =
-          static_cast<uint8_t>(tat::epilogue(v.x, b[0], c[0], ACT, inv_out,
-                                             alpha)) |
-          static_cast<unsigned>(static_cast<uint8_t>(tat::epilogue(
-              v.y, b[1], c[1], ACT, inv_out, alpha))) << 8 |
-          static_cast<unsigned>(static_cast<uint8_t>(tat::epilogue(
-              v.z, b[2], c[2], ACT, inv_out, alpha))) << 16 |
-          static_cast<unsigned>(static_cast<uint8_t>(tat::epilogue(
-              v.w, b[3], c[3], ACT, inv_out, alpha))) << 24;
-      *reinterpret_cast<unsigned*>(
-          out + ((static_cast<long long>(n) * g.H + oy) * g.W + ox) * g.O +
-          o) = packed;
+#pragma unroll
+  for (int q = 0; q < BN / 32; ++q) {
+    int2 b2[4];
+    float2 c2[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int col = 8 * (4 * q + jj) + 2 * tq;
+      b2[jj] = *reinterpret_cast<const int2*>(bias_s + col);
+      c2[jj] = *reinterpret_cast<const float2*>(cs_s + col);
     }
-    if (i + 2 < tiles) bar_arrive(kBarEmpty + s, kThreads);   // slot s free
-  }
-}
-
-// LAG = 0: the epilogue on a product warp's own sums of one tile, each
-// int8 stored where it lands (as #5 stores). ACT as in drain_tiles.
-template <int ACT, int MI, int NI>
-__device__ __forceinline__ void store_sums(
-    const int (&acc)[MI][NI][4], const LagGeom& g, int n, int oy0, int ox0,
-    int ocol0, const int (&epy)[MI][2], const int (&epx)[MI][2],
-    const int (&eb)[NI][2], const float (&ec)[NI][2], float inv_out,
-    float alpha, int8_t* __restrict__ out) {
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int oy = oy0 + epy[mi][h], ox = ox0 + epx[mi][h];
-      if (oy >= g.H || ox >= g.W) continue;
-      int8_t* orow =
-          out + ((static_cast<long long>(n) * g.H + oy) * g.W + ox) * g.O;
+      unsigned u[4];   // the lane's 2 bytes of n8 blocks 4 q .. 4 q + 3
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int o = ocol0 + ni * 8 + e;
-          if (o < g.O)
-            orow[o] = tat::epilogue(acc[mi][ni][2 * h + e], eb[ni][e],
-                                    ec[ni][e], ACT, inv_out, alpha);
-        }
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * q + jj;
+        const int8_t lo = tat::epilogue(d[4 * j + 2 * h], b2[jj].x, c2[jj].x,
+                                        ACT, inv_out, alpha);
+        const int8_t hi = tat::epilogue(d[4 * j + 2 * h + 1], b2[jj].y,
+                                        c2[jj].y, ACT, inv_out, alpha);
+        u[jj] = static_cast<uint8_t>(lo) |
+                static_cast<unsigned>(static_cast<uint8_t>(hi)) << 8;
+      }
+      // the quad's 4 x 4 pieces transposed: lane tq ends with block
+      // 4 q + tq, the pieces of lanes 0..3 in order
+      const unsigned w0 = u[0] | u[1] << 16, w1 = u[2] | u[3] << 16;
+      const unsigned keep = hb ? w1 : w0;
+      const unsigned other = __shfl_xor_sync(0xffffffffu, hb ? w0 : w1, 2);
+      const unsigned mine = lb ? keep >> 16 : keep & 0xffffu;
+      const unsigned mine2 = lb ? other >> 16 : other & 0xffffu;
+      const unsigned give = lb ? (keep & 0xffffu) | (other << 16)
+                               : (keep >> 16) | (other & 0xffff0000u);
+      const unsigned got = __shfl_xor_sync(0xffffffffu, give, 1);
+      const unsigned pair = lb ? (got & 0xffffu) | mine << 16
+                               : mine | got << 16;
+      const unsigned pair2 = lb ? (got >> 16) | mine2 << 16
+                                : mine2 | (got & 0xffff0000u);
+      const int blk = 4 * q + tq;
+      if (ok[h] && n0 + 8 * blk < g.O)
+        *reinterpret_cast<uint2*>(orow[h] + 8 * blk) =
+            hb ? make_uint2(pair2, pair) : make_uint2(pair, pair2);
     }
+  }
 }
 
-// LAG: 1 the epilogue warps drain the product's slots a tile behind, 0 the
-// product warps apply it to their registers. MI m16 and NI n8 tiles a
-// product warp (TP = 64 MI pixels, BN = 16 NI channels a block).
-template <int LAG, int MI, int NI>
+template <int LAG, int BN, int ACT>
 __global__ void __launch_bounds__(kThreads, 1)
-    conv_int8_lagged_kernel(const int8_t* __restrict__ x,
-                            const int8_t* __restrict__ w,
-                            const int* __restrict__ bias,
-                            const float* __restrict__ cs,
-                            int8_t* __restrict__ out, LagGeom g, int act,
-                            float inv_out, float alpha) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int BN = 16 * NI;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n = blockIdx.x / g.nchunk;
-  const int t0 = (blockIdx.x - n * g.nchunk) * g.tpb;
-  const int rest = g.tiles_img - t0;
-  const int tiles = rest < g.tpb ? rest : g.tpb;
+    conv_lagged_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                             const __grid_constant__ CUtensorMap wmap,
+                             const int* __restrict__ bias,
+                             const float* __restrict__ cs,
+                             int8_t* __restrict__ out, LagGeom g,
+                             float inv_out, float alpha) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + g.bar_off);
+  uint64_t* empty = full + g.stages;
+  uint64_t* wbar = empty + g.stages;
+  const int tid = threadIdx.x;
+  // the warpgroup, from lane 0: uniform to ptxas, which otherwise takes the
+  // consumers' path as divergent and serialises their wgmma
+  const int wg = __shfl_sync(0xffffffffu, tid / kWgThreads, 0);
   const int n0 = blockIdx.y * BN;
-  if (warp >= kProductWarps) {
-    if constexpr (LAG == 1) {
-      if (act == tat::kActRelu)
-        drain_tiles<BN, tat::kActRelu>(g, smem, n, t0, tiles, n0, bias, cs,
-                                       inv_out, alpha, out);
-      else if (act == tat::kActLeakyRelu)
-        drain_tiles<BN, tat::kActLeakyRelu>(g, smem, n, t0, tiles, n0, bias,
-                                            cs, inv_out, alpha, out);
-      else if (act == tat::kActSilu)
-        drain_tiles<BN, tat::kActSilu>(g, smem, n, t0, tiles, n0, bias, cs,
-                                       inv_out, alpha, out);
-      else
-        drain_tiles<BN, tat::kActNone>(g, smem, n, t0, tiles, n0, bias, cs,
-                                       inv_out, alpha, out);
+  const int first = blockIdx.x, step = gridDim.x;
+  const int count = first < g.tiles ? (g.tiles - first + step - 1) / step : 0;
+  const int planes = g.C / 16;
+  if (tid == 0) {
+    for (int s = 0; s < g.stages; ++s) {
+      tat::mbar_init(full + s, 1);
+      tat::mbar_init(empty + s, kWgThreads);
+    }
+    tat::mbar_init(wbar, 1);
+    tat::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {   // the producer
+    tat::setmaxnreg_dec<kProducerRegs>();
+    if (tid != 0) return;
+    tat::mbar_arrive_tx(wbar, 9 * g.C * BN);
+    for (int j = 0; j < 9 * planes; ++j)
+      tat::tma_load_2d(smem + j * BN * 16, &wmap, 16 * j, n0, wbar);
+    for (int i = 0; i < count; ++i) {
+      const int s = i % g.stages, k = i / g.stages;
+      tat::mbar_wait(empty + s, (k & 1) ^ 1);   // use k - 1 released
+      int n, oy0, ox0;
+      tile_at(g, first + i * step, n, oy0, ox0);
+      unsigned char* slot = smem + g.slab_off + s * g.slot_bytes;
+#ifndef TAT_LAGGED_NO_LOAD
+      tat::mbar_arrive_tx(full + s, planes * kSlabPix * 16);
+      for (int j = 0; j < planes; ++j)
+        tat::tma_load_4d(slot + j * kPlane, &xmap, 16 * j, ox0 - 1, oy0 - 1,
+                         n, full + s);
+#else
+      (void)slot;
+      tat::mbar_arrive(full + s);
+#endif
     }
     return;
   }
 
-  // group 0: the block's weights, BN rows of 9C bytes (rows past O zero),
-  // and the first tile's slab
-  const int wunits = 9 * g.C / 16;
-  for (int u = tid; u < BN * wunits; u += kProductThreads) {
-    const int r = u / wunits, cu = u - r * wunits;
-    const bool ok = n0 + r < g.O;
-    const int8_t* src =
-        ok ? w + static_cast<long long>(n0 + r) * 9 * g.C + 16 * cu : w;
-    tat::cp_async16(smem + g.w_off + r * g.wpitch + 16 * cu, src,
-                    ok ? 16 : 0);
+  tat::setmaxnreg_inc<kConsumerRegs>();
+  const int c = wg - 1;   // the consumer: tiles c, c + 2, ...
+  int* bias_s = reinterpret_cast<int*>(smem + g.col_off);
+  float* cs_s = reinterpret_cast<float*>(bias_s + BN);
+  for (int o = tid - kWgThreads; o < BN; o += kConsumers) {
+    const bool live = n0 + o < g.O;
+    bias_s[o] = live && bias != nullptr ? bias[n0 + o] : 0;
+    cs_s[o] = live ? cs[n0 + o] : 0.0f;
   }
-  issue_slab(x, smem, g, n, t0);
-  tat::cp_async_commit();
-
-  // the warp's place in the block: pixels 16 MI wm .., channels 8 NI wn ..
-  const int wm = warp & 3, wn = warp >> 2;
-  const int gq = lane >> 2, tq = lane & 3;
-  // the lane's ldmatrix rows: the slab pixel of its A row in each m16 tile
-  // (tap (0, 0)), and its B row for .x4 loads of two n8 tiles: matrices
-  // (tile 0, bytes 0-15), (tile 0, 16-31), (tile 1, 0-15), (tile 1, 16-31)
-  int aoff[MI];
+  bar_sync(kBarInit, kConsumers);
+  tat::mbar_wait(wbar, 0);
+  const uint64_t a0 = tat::gmma_desc(smem + g.slab_off, kPlane, kSW * 16);
+  const uint64_t b0 = tat::gmma_desc(smem, BN * 16, 128);
+  int d[BN / 2];
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
-    const int p = (wm * MI + mi) * 16 + tat::a_lane_row(lane);
-    aoff[mi] = ((p >> g.lg_tw) * g.SW + (p & (g.TW - 1))) * g.pitch +
-               tat::a_lane_byte(lane);
-  }
-  const unsigned char* wrow =
-      smem + g.w_off +
-      (wn * 8 * NI + (lane & 7) + 8 * (lane >> 4)) * g.wpitch +
-      ((lane >> 3) & 1) * 16;
-  // LAG = 0: the lane's channels' bias and cs, its rows' pixels
-  int eb[NI][2];
-  float ec[NI][2];
-  int epy[MI][2], epx[MI][2];
-  if constexpr (LAG == 0) {
+  for (int i = 0; i < BN / 2; ++i) d[i] = 0;
+  for (int i = c; i < count; i += 2) {
+    const int s = i % g.stages, k = i / g.stages;
+    const bool pair = (i | 1) < count;   // LAG 0: both consumers this round
+#ifdef TAT_LAGGED_NO_TURN
+    constexpr bool kTurn = false;
+#else
+    constexpr bool kTurn = LAG == 1;
+#endif
+    if (kTurn && i > 0) bar_sync(kBarTurn + c, kConsumers);
+    tat::mbar_wait(full + s, k & 1);
+    product_issue<BN>(d, a0 + (s * g.slot_bytes >> 4), b0, g.C);
+#ifndef TAT_LAGGED_TURN_AFTER_WAIT
+    // LAG 1: the other consumer's wgmma queue behind this one's
+    if (kTurn && i + 1 < count) bar_arrive(kBarTurn + 1 - c, kConsumers);
+    product_wait<BN>(d);
+#else
+    product_wait<BN>(d);
+    if (kTurn && i + 1 < count) bar_arrive(kBarTurn + 1 - c, kConsumers);
+#endif
+    tat::mbar_arrive(empty + s);
+    if (LAG == 0 && pair) bar_sync(kBarStep, kConsumers);
+    int n, oy0, ox0;
+    tile_at(g, first + i * step, n, oy0, ox0);
+#ifndef TAT_LAGGED_NO_STORE
+    store_tile<BN, ACT>(d, g, n, oy0, ox0, n0, bias_s, cs_s, inv_out, alpha,
+                        out);
+#else
+    // the sums kept alive (ptxas drops a wgmma whose sums are dead)
+    int live = 0;
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int o = n0 + wn * 8 * NI + ni * 8 + 2 * tq + e;
-        eb[ni][e] = o < g.O && bias != nullptr ? bias[o] : 0;
-        ec[ni][e] = o < g.O ? cs[o] : 0.0f;
-      }
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = (wm * MI + mi) * 16 + gq + 8 * h;
-        epy[mi][h] = p >> g.lg_tw;
-        epx[mi][h] = p & (g.TW - 1);
-      }
-  }
-
-  const int ksteps = g.C / tat::kMmaStepBytes;
-  for (int i = 0; i < tiles; ++i) {
-    if (i + 1 < tiles)
-      issue_slab(x, smem + ((i + 1) & 1) * g.slab_bytes, g, n, t0 + i + 1);
-    tat::cp_async_commit();   // empty on the last tile: keeps the count
-    tat::cp_async_wait<1>();  // tile i's slab (and the weights) landed
-    bar_sync(kBarProduct, kProductThreads);
-    const unsigned char* slab = smem + (i & 1) * g.slab_bytes;
-    int acc[MI][NI][4];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap - 3 * dy;
-      const unsigned char* at = slab + (dy * g.SW + dx) * g.pitch;
-      const unsigned char* bt = wrow + tap * g.C;
-      for (int ks = 0; ks < ksteps; ++ks) {
-        const int kb = ks * tat::kMmaStepBytes;
-        unsigned bfr[NI][2];
-#pragma unroll
-        for (int j = 0; j < NI / 2; ++j) {
-          unsigned r[4];
-          tat::ldsm_x4(r, bt + j * 16 * g.wpitch + kb);
-          bfr[2 * j][0] = r[0];
-          bfr[2 * j][1] = r[1];
-          bfr[2 * j + 1][0] = r[2];
-          bfr[2 * j + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          unsigned afr[4];
-          tat::ldsm_x4(afr, at + aoff[mi] + kb);
-#pragma unroll
-          for (int ni = 0; ni < NI; ++ni)
-            tat::mma_s8(acc[mi][ni], afr, bfr[ni]);
-        }
-      }
-    }
-    // every product warp has read slot i & 1: the next iteration refills it
-    bar_sync(kBarProduct, kProductThreads);
-    if constexpr (LAG == 0) {
-      int oy0, ox0;
-      tile_origin(g, t0 + i, oy0, ox0);
-      const int ocol0 = n0 + wn * 8 * NI + 2 * tq;
-      if (act == tat::kActRelu)
-        store_sums<tat::kActRelu>(acc, g, n, oy0, ox0, ocol0, epy, epx, eb,
-                                  ec, inv_out, alpha, out);
-      else if (act == tat::kActLeakyRelu)
-        store_sums<tat::kActLeakyRelu>(acc, g, n, oy0, ox0, ocol0, epy, epx,
-                                       eb, ec, inv_out, alpha, out);
-      else if (act == tat::kActSilu)
-        store_sums<tat::kActSilu>(acc, g, n, oy0, ox0, ocol0, epy, epx, eb,
-                                  ec, inv_out, alpha, out);
-      else
-        store_sums<tat::kActNone>(acc, g, n, oy0, ox0, ocol0, epy, epx, eb,
-                                  ec, inv_out, alpha, out);
-    } else {
-      const int s = i & 1;
-      if (i >= 2) bar_sync(kBarEmpty + s, kThreads);   // tile i - 2 drained
-      int* slot = reinterpret_cast<int*>(smem + g.acc_off + s * g.acc_bytes);
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) {
-          const int row = (wm * MI + mi) * 16 + gq;
-          const int col = wn * 8 * NI + ni * 8 + 2 * tq;
-          *reinterpret_cast<int2*>(slot + row * g.apitch + col) =
-              make_int2(acc[mi][ni][0], acc[mi][ni][1]);
-          *reinterpret_cast<int2*>(slot + (row + 8) * g.apitch + col) =
-              make_int2(acc[mi][ni][2], acc[mi][ni][3]);
-        }
-      bar_arrive(kBarFull + s, kThreads);
-    }
+    for (int r = 0; r < BN / 2; ++r) live ^= d[r];
+    if (live == 0x5eed1e55) out[n] = static_cast<int8_t>(oy0 + ox0);
+#endif
+    if (LAG == 0 && pair) bar_sync(kBarStep, kConsumers);
   }
 }
 
-using LagKernel = void (*)(const int8_t*, const int8_t*, const int*,
-                           const float*, int8_t*, LagGeom, int, float, float);
+using LagKernel = void (*)(const CUtensorMap, const CUtensorMap, const int*,
+                           const float*, int8_t*, LagGeom, float, float);
+
+template <int LAG, int BN>
+LagKernel pick_act(int act) {
+  if (act == tat::kActRelu) return conv_lagged_wgmma_kernel<LAG, BN, 1>;
+  if (act == tat::kActLeakyRelu) return conv_lagged_wgmma_kernel<LAG, BN, 2>;
+  if (act == tat::kActSilu) return conv_lagged_wgmma_kernel<LAG, BN, 3>;
+  return conv_lagged_wgmma_kernel<LAG, BN, 0>;
+}
 
 template <int LAG>
-LagKernel pick(int mi, int ni) {
-  if (mi == 1 && ni == 2) return conv_int8_lagged_kernel<LAG, 1, 2>;
-  if (mi == 1 && ni == 4) return conv_int8_lagged_kernel<LAG, 1, 4>;
-  if (mi == 2 && ni == 2) return conv_int8_lagged_kernel<LAG, 2, 2>;
-  if (mi == 2 && ni == 4) return conv_int8_lagged_kernel<LAG, 2, 4>;
-  return nullptr;
+LagKernel pick(int bn, int act) {
+  if (bn == 32) return pick_act<LAG, 32>(act);
+  if (bn == 64) return pick_act<LAG, 64>(act);
+  return pick_act<LAG, 128>(act);
 }
 
-// The kernel of (lag, C, tile, bn) and its geometry, or null for a shape
-// or plan the kernel cannot run; opts the kernel into its shared memory.
-LagKernel prepare(int lag, int C, int tile_h, int tile_w, int bn, LagGeom& g,
+// The kernel of (lag, C, bn, stages, act) and its geometry, or null for a
+// shape or plan the kernel cannot run; opts the kernel into its shared
+// memory.
+LagKernel prepare(int lag, int C, int bn, int stages, int act, LagGeom& g,
                   cudaError_t& err) {
   err = cudaErrorInvalidValue;
-  int lg = 0;
-  while (lg < 6 && (1 << lg) != tile_w) ++lg;
-  const int tp = tile_h * tile_w;
-  if (C < 32 || C % 32 != 0 || lg == 6 || tile_w < 8 || tile_h < 1 ||
-      (tp != 64 && tp != 128) || (bn != 32 && bn != 64) ||
-      (lag != 0 && lag != 1))
+  if (C < 32 || C % 32 != 0 || (bn != 32 && bn != 64 && bn != 128) ||
+      stages < 2 || stages > 4 || (lag != 0 && lag != 1) || act < 0 ||
+      act > tat::kActSilu)
     return nullptr;
   g.C = C;
-  g.TH = tile_h;
-  g.TW = tile_w;
-  g.lg_tw = lg;
   g.BN = bn;
+  g.stages = stages;
   lagged_layout(g);
-  const LagKernel k = lag ? pick<1>(tp / 64, bn / 16) : pick<0>(tp / 64,
-                                                                bn / 16);
+  const LagKernel k = lag ? pick<1>(bn, act) : pick<0>(bn, act);
   int dev = 0, max_smem = 0;
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -438,54 +366,72 @@ LagKernel prepare(int lag, int C, int tile_h, int tile_w, int bn, LagGeom& g,
 
 // One launch: x NHWC [batch, H, W, C] and w OHWI [O, 3, 3, C] int8 (16-byte
 // aligned), bias [O] int32 or null, cs [O] float32, out NHWC [batch, H, W,
-// O] int8; the plan: tile_h x tile_w output pixels a tile (64 or 128 of
-// them, tile_w 8, 16 or 32), bn output channels a block (32 or 64),
-// tiles_per_block consecutive tiles of one image a block. Returns a
-// cudaError_t; cudaErrorInvalidValue for a shape or plan it cannot run.
+// O] int8 (16-byte aligned); the plan: bn output channels a block (32, 64
+// or 128), `stages` slab slots (2-4), `blocks` persistent blocks a channel
+// block (at most the tiles). Returns a cudaError_t; cudaErrorInvalidValue
+// for a shape or plan it cannot run.
 extern "C" int tat_conv_int8_lagged(int lag, const void* x, const void* w,
                                     const void* bias, const void* cs,
                                     void* out, int batch, int H, int W,
                                     int C, int O, int act, float inv_out,
-                                    float alpha, int tile_h, int tile_w,
-                                    int bn, int tiles_per_block,
-                                    void* stream) {
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) &
-       15u) == 0 && (reinterpret_cast<uintptr_t>(out) & 3u) == 0;
-  if (batch < 1 || H < 1 || W < 1 || O < 8 || O % 8 != 0 ||
-      tiles_per_block < 1 || !aligned || cs == nullptr || act < 0 ||
-      act > tat::kActSilu)
+                                    float alpha, int bn, int stages,
+                                    int blocks, void* stream) {
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(w) |
+                         reinterpret_cast<uintptr_t>(out)) &
+                        15u) == 0;
+  if (batch < 1 || H < 1 || W < 1 || O < 8 || O % 8 != 0 || blocks < 1 ||
+      !aligned || cs == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   LagGeom g = {};
   cudaError_t err;
-  const LagKernel k = prepare(lag, C, tile_h, tile_w, bn, g, err);
+  const LagKernel k = prepare(lag, C, bn, stages, act, g, err);
   if (k == nullptr) return static_cast<int>(err);
   g.H = H;
   g.W = W;
   g.O = O;
-  g.ntw = (W + tile_w - 1) / tile_w;
-  g.tiles_img = (H + tile_h - 1) / tile_h * g.ntw;
-  g.tpb = tiles_per_block < g.tiles_img ? tiles_per_block : g.tiles_img;
-  g.nchunk = (g.tiles_img + g.tpb - 1) / g.tpb;
-  const dim3 grid(static_cast<unsigned>(batch) * g.nchunk,
+  g.ntw = (W + kTile - 1) / kTile;
+  g.tiles_img = (H + kTile - 1) / kTile * g.ntw;
+  const long long tiles = static_cast<long long>(batch) * g.tiles_img;
+  if (tiles > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
+  g.tiles = static_cast<int>(tiles);
+  CUtensorMap xmap, wmap;
+  const uint64_t xdims[4] = {static_cast<uint64_t>(C),
+                             static_cast<uint64_t>(W),
+                             static_cast<uint64_t>(H),
+                             static_cast<uint64_t>(batch)};
+  const uint64_t xstrides[3] = {static_cast<uint64_t>(C),
+                                static_cast<uint64_t>(W) * C,
+                                static_cast<uint64_t>(H) * W * C};
+  const uint32_t xbox[4] = {16, kSW, kSW, 1};
+  const uint64_t wdims[2] = {static_cast<uint64_t>(9) * C,
+                             static_cast<uint64_t>(O)};
+  const uint64_t wstrides[1] = {static_cast<uint64_t>(9) * C};
+  const uint32_t wbox[2] = {16, static_cast<uint32_t>(bn)};
+  err = tat::encode_s8_map(&xmap, x, 4, xdims, xstrides, xbox);
+  if (err == cudaSuccess)
+    err = tat::encode_s8_map(&wmap, w, 2, wdims, wstrides, wbox);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int gx = blocks < g.tiles ? blocks : g.tiles;
+  const dim3 grid(static_cast<unsigned>(gx),
                   static_cast<unsigned>((O + bn - 1) / bn));
   k<<<grid, kThreads, static_cast<size_t>(g.smem),
       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const int*>(bias), static_cast<const float*>(cs),
-      static_cast<int8_t*>(out), g, act, inv_out, alpha);
+      xmap, wmap, static_cast<const int*>(bias),
+      static_cast<const float*>(cs), static_cast<int8_t*>(out), g, inv_out,
+      alpha);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The dynamic shared memory of a plan in bytes and the blocks of it an SM
 // holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), for the
-// kernel of `lag`; cudaErrorInvalidValue for a plan the kernel cannot run.
-extern "C" int tat_conv_int8_lagged_info(int lag, int C, int tile_h,
-                                         int tile_w, int bn, int* smem,
-                                         int* blocks_per_sm) {
+// kernel of `lag` (at SILU); cudaErrorInvalidValue for a plan the kernel
+// cannot run.
+extern "C" int tat_conv_int8_lagged_info(int lag, int C, int bn, int stages,
+                                         int* smem, int* blocks_per_sm) {
   LagGeom g = {};
   cudaError_t err;
-  const LagKernel k = prepare(lag, C, tile_h, tile_w, bn, g, err);
+  const LagKernel k = prepare(lag, C, bn, stages, tat::kActSilu, g, err);
   if (k == nullptr) return static_cast<int>(err);
   *smem = g.smem;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(

@@ -12,44 +12,62 @@
 //
 // Replaces thingino_accel_tpu/ops/decode_kernel.py:decode_level_pallas
 // (Pallas body _decode_rows_kernel), one launch per level over row tiles
-// whose height must divide the row count. Here any row count is taken (the
-// last warp's units are masked by the loop bound), so no level falls back
-// to another decode; for f32 heads a NaN logit wins the class max as it
-// does in jnp.argmax (the first NaN), where the Pallas kernel returned
-// num_classes for an all-NaN row.
+// whose height must divide the row count. Here any row count is taken, so
+// no level falls back to another decode; for f32 heads a NaN logit wins
+// the class max as it does in jnp.argmax (the first NaN), where the Pallas
+// kernel returned num_classes for an all-NaN row.
 //
-// What bounds it on the H100: it reads each head byte once and writes 24
-// bytes per (cell, anchor), but a warp per unit issues many instructions
-// for few bytes, so the instruction rate bounds it; the first version's
-// three 64-bit index divisions per unit made it instruction-bound
-// (PERF.md), so the image is blockIdx.y and the per-image index math is
-// 32-bit. Design: one warp per (image, level, cell, anchor) unit; the
-// lanes stride over the unit's class logits (coalesced), reduce
-// (logit, index) to the first maximum with one __reduce_max_sync on a
-// packed int key for int8 heads (logit * 65536 + 65535 - index: the same
-// order as the JAX package's int16 packing, for any class count below
-// 65536) or a shuffle tree with a NaN-aware order for f32; lanes 0-4 take
-// the five box/objectness logits and lanes 0-3 write the box. The float
-// steps are __fmul_rn/__fadd_rn/__fdiv_rn in the reference's order with
-// full-precision expf, so nvcc cannot contract them into FMAs.
+// What bounds it on the H100: bytes. It reads each head byte once and
+// writes 24 bytes per (cell, anchor) unit: at the real yolov5n's heads at
+// batch 16, 34.3 MB in and 9.7 MB out. Design: a block owns a run of up to
+// kThreads consecutive units of one level of one image (grid.x the runs of
+// every level, grid.y the image: no unit searches for its level) and
+// stages the run's bytes, which are contiguous, into shared memory with
+// 16-byte cp.async copies over the 16-byte-aligned range around them
+// (the head may be a view at any byte offset: the staged range is aligned
+// inside the kernel, and clipped at the head's end). One thread decodes
+// one unit. For int8 heads sigmoid(t * scale) takes only 256 values a
+// level: the block builds them as a table in shared memory with the
+// expression the plain version rounds (sigmoid_rn of __fmul_rn), so the
+// five box/objectness sigmoids and the class one are lookups; the class
+// maximum is a __vmaxs4 over the unit's 4-byte words (realigned by funnel
+// shifts) and its first index the first word whose __vcmpeq4 with the
+// maximum is non-zero. f32 heads keep sigmoid_rn and the NaN-aware
+// first-max order (a NaN wins, the first NaN first). A box is one 16-byte
+// store, conf and class coalesced 4-byte stores. A unit too large to
+// stage (more than kStageBytes: int8 NC above about 32 K, f32 above 8 K)
+// is decoded by the whole block, its class logits read from device memory
+// in strides of kThreads and reduced through shuffles and shared memory.
+// The float steps are __fmul_rn/__fadd_rn/__fdiv_rn in the reference's
+// order with full-precision expf, so nvcc cannot contract them into FMAs.
 #include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "mma_tile.cuh"
+
 namespace {
 
 constexpr int kMaxLevels = 4;
 constexpr int kMaxAnchors = 8;
+constexpr int kThreads = 128;           // units a staged run at most
+constexpr int kStageBytes = 32768;      // a run's staged bytes at most
+constexpr int kSlack = 48;              // alignment and word over-reads
+constexpr int kTableBytes = 256 * 4;    // the int8 sigmoid table
 constexpr unsigned kFull = 0xffffffffu;
 
 struct DecodeArgs {
   const void* feat[kMaxLevels];
-  int off[kMaxLevels + 1];  // per-image unit offset of each level
-  int H[kMaxLevels], W[kMaxLevels];
+  long long bytes[kMaxLevels];   // a head's bytes, all images
+  int units[kMaxLevels];         // H W A: one image's units of a level
+  int run_off[kMaxLevels + 1];   // the first run (blockIdx.x) of a level
+  int out_off[kMaxLevels];       // a level's first unit in an image's N
+  int W[kMaxLevels];
   float stride[kMaxLevels], scale[kMaxLevels];
   float anchor[kMaxLevels][kMaxAnchors][2];
-  int levels, A, NC;
+  int levels, A, NC, per_image;
+  int run;   // units a block; 0: one unit, decoded by the whole block
 };
 
 __device__ __forceinline__ float sigmoid_rn(float v) {
@@ -64,89 +82,185 @@ __device__ __forceinline__ bool first_max(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-template <bool I8>
-__device__ __forceinline__ float logit(const void* p, long long k) {
-  if (I8) return __int2float_rn(static_cast<const int8_t*>(p)[k]);
-  return static_cast<const float*>(p)[k];
+// The maximum of the int8 logits p[0..n) (p at any byte of shared memory)
+// and the first index attaining it, four bytes at a time.
+__device__ __forceinline__ void class_max_s8(const unsigned char* p, int n,
+                                             int& best, int& index) {
+  const unsigned* w = reinterpret_cast<const unsigned*>(
+      reinterpret_cast<uintptr_t>(p) & ~uintptr_t(3));
+  const unsigned sh = 8 * (reinterpret_cast<uintptr_t>(p) & 3);
+  const int nw = n >> 2, rem = n & 3;
+  // the last partial word, its missing bytes -128: they come after every
+  // real byte, so they never win the first index
+  const unsigned keep = rem ? (1u << (8 * rem)) - 1 : 0u;
+  const unsigned last =
+      (__funnelshift_r(w[nw], w[nw + 1], sh) & keep) | (0x80808080u & ~keep);
+  unsigned m4 = last;
+  for (int k = 0; k < nw; ++k)
+    m4 = __vmaxs4(m4, __funnelshift_r(w[k], w[k + 1], sh));
+  const int m = max(max(static_cast<int>(static_cast<int8_t>(m4)),
+                        static_cast<int>(static_cast<int8_t>(m4 >> 8))),
+                    max(static_cast<int>(static_cast<int8_t>(m4 >> 16)),
+                        static_cast<int>(static_cast<int8_t>(m4 >> 24))));
+  const unsigned mb = (static_cast<unsigned>(m) & 0xffu) * 0x01010101u;
+  int k = 0;
+  unsigned hit = 0;
+  for (; k < nw; ++k) {
+    hit = __vcmpeq4(__funnelshift_r(w[k], w[k + 1], sh), mb);
+    if (hit) break;
+  }
+  if (!hit) hit = __vcmpeq4(last, mb);
+  best = m;
+  index = 4 * k + (__ffs(hit) - 1) / 8;
+}
+
+// The box of a unit from its four sigmoids, conf from obj and the class's.
+__device__ __forceinline__ void write_unit(const DecodeArgs& a, int l,
+                                           int local, long long o,
+                                           const float (&s)[5], float cls_sig,
+                                           int ci, float* __restrict__ boxes,
+                                           float* __restrict__ conf,
+                                           int* __restrict__ cls) {
+  const int cell = local / a.A, an = local - cell * a.A;
+  const int gy = cell / a.W[l], gx = cell - gy * a.W[l];
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[k] = __fmul_rn(s[k], 2.0f);
+    if (k < 2)
+      v[k] = __fmul_rn(__fadd_rn(__fadd_rn(v[k], -0.5f),
+                                 __int2float_rn(k == 0 ? gx : gy)),
+                       a.stride[l]);
+    else
+      v[k] = __fmul_rn(__fmul_rn(v[k], v[k]), a.anchor[l][an][k - 2]);
+  }
+  *reinterpret_cast<float4*>(boxes + 4 * o) = make_float4(v[0], v[1], v[2],
+                                                          v[3]);
+  conf[o] = __fmul_rn(s[4], cls_sig);
+  cls[o] = ci;
 }
 
 template <bool I8>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kThreads)
     decode_fused_kernel(DecodeArgs a, float* __restrict__ boxes,
                         float* __restrict__ conf, int* __restrict__ cls) {
-  const int lane = threadIdx.x & 31;
-  const int per_image = a.off[a.levels];
-  const int warps = gridDim.x * (blockDim.x / 32);
-  const int blk = 5 + a.NC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int l = 0;   // the block's level
+  while (static_cast<int>(blockIdx.x) >= a.run_off[l + 1]) ++l;
+  const int tid = threadIdx.x;
   const long long b = blockIdx.y;
-  for (int r = (blockIdx.x * blockDim.x + threadIdx.x) / 32; r < per_image;
-       r += warps) {
-    int l = 0;
-    while (r >= a.off[l + 1]) ++l;
-    const int local = r - a.off[l];
-    const int cell = local / a.A;
-    const int an = local - cell * a.A;
-    const int gy = cell / a.W[l];
-    const int gx = cell - gy * a.W[l];
-    const long long base =
-        (b * a.H[l] * a.W[l] + cell) * (a.A * blk) + an * blk;
-    const long long u = b * per_image + r;  // output index
-    const void* feat = a.feat[l];
-    const float sc = a.scale[l];
+  const int ub = (5 + a.NC) * (I8 ? 1 : 4);   // bytes a unit
+  const float sc = a.scale[l];
+  const auto* head = static_cast<const unsigned char*>(a.feat[l]);
+  float* tab = reinterpret_cast<float*>(smem);   // int8: sigmoid(i * sc)
 
-    // best class logit and its first index
+  if (a.run == 0) {   // one unit, the whole block
+    const int local = blockIdx.x - a.run_off[l];
+    const unsigned char* p = head + (b * a.units[l] + local) * ub;
+    const long long o = b * a.per_image + a.out_off[l] + local;
+    int* red = reinterpret_cast<int*>(smem);
     float best;
     int ci;
     if (I8) {
-      const int8_t* p = static_cast<const int8_t*>(feat) + base + 5;
-      int key = INT_MIN;
-      for (int c = lane; c < a.NC; c += 32)
-        key = max(key, static_cast<int>(p[c]) * 65536 + (65535 - c));
+      const int8_t* q = reinterpret_cast<const int8_t*>(p) + 5;
+      int key = INT_MIN;   // logit * 65536 + 65535 - index: the first max
+      for (int c = tid; c < a.NC; c += kThreads)
+        key = max(key, static_cast<int>(q[c]) * 65536 + (65535 - c));
       key = __reduce_max_sync(kFull, key);
+      if ((tid & 31) == 0) red[tid >> 5] = key;
+      __syncthreads();
+      if (tid != 0) return;
+      for (int wi = 1; wi < kThreads / 32; ++wi) key = max(key, red[wi]);
       best = __int2float_rn(key >> 16);
       ci = 65535 - (key & 0xffff);
     } else {
-      const float* p = static_cast<const float*>(feat) + base + 5;
-      float bv = -__int_as_float(0x7f800000);  // -inf
+      const float* q = reinterpret_cast<const float*>(p) + 5;
+      float bv = -__int_as_float(0x7f800000);   // -inf
       int bi = INT_MAX;
-      for (int c = lane; c < a.NC; c += 32)
-        if (first_max(p[c], c, bv, bi)) bv = p[c], bi = c;
+      for (int c = tid; c < a.NC; c += kThreads)
+        if (first_max(q[c], c, bv, bi)) bv = q[c], bi = c;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_xor_sync(kFull, bv, o);
-        const int oi = __shfl_xor_sync(kFull, bi, o);
+      for (int s = 16; s > 0; s >>= 1) {
+        const float ov = __shfl_xor_sync(kFull, bv, s);
+        const int oi = __shfl_xor_sync(kFull, bi, s);
         if (first_max(ov, oi, bv, bi)) bv = ov, bi = oi;
       }
+      float* rv = reinterpret_cast<float*>(red + kThreads / 32);
+      if ((tid & 31) == 0) red[tid >> 5] = bi, rv[tid >> 5] = bv;
+      __syncthreads();
+      if (tid != 0) return;
+      for (int wi = 1; wi < kThreads / 32; ++wi)
+        if (first_max(rv[wi], red[wi], bv, bi)) bv = rv[wi], bi = red[wi];
       best = bv;
       ci = bi;
     }
-
-    // the five box/objectness logits, one per lane
-    float s = 0.0f;
-    if (lane < 5) s = sigmoid_rn(__fmul_rn(logit<I8>(feat, base + lane), sc));
-    const float obj = __shfl_sync(kFull, s, 4);
-    if (lane < 4) {
-      float v = __fmul_rn(s, 2.0f);
-      if (lane < 2) {
-        v = __fadd_rn(__fadd_rn(v, -0.5f),
-                      __int2float_rn(lane == 0 ? gx : gy));
-        v = __fmul_rn(v, a.stride[l]);
-      } else {
-        v = __fmul_rn(__fmul_rn(v, v), a.anchor[l][an][lane - 2]);
-      }
-      boxes[4 * u + lane] = v;
-    }
-    if (lane == 0) {
-      conf[u] = __fmul_rn(obj, sigmoid_rn(__fmul_rn(best, sc)));
-      cls[u] = ci;
-    }
+    float s[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+      s[k] = sigmoid_rn(__fmul_rn(
+          I8 ? __int2float_rn(reinterpret_cast<const int8_t*>(p)[k])
+             : reinterpret_cast<const float*>(p)[k],
+          sc));
+    write_unit(a, l, local, o, s, sigmoid_rn(__fmul_rn(best, sc)), ci, boxes,
+               conf, cls);
+    return;
   }
+
+  // a run of units, staged
+  const int r0 = (blockIdx.x - a.run_off[l]) * a.run;
+  const int nu = min(a.run, a.units[l] - r0);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(head);
+  const uintptr_t start = base + (b * a.units[l] + r0) * ub;
+  const uintptr_t end = start + static_cast<long long>(nu) * ub;
+  const uintptr_t hend = base + a.bytes[l];
+  const uintptr_t s16 = start & ~uintptr_t(15);
+  unsigned char* stage = smem + (I8 ? kTableBytes : 0);
+  const int chunks = static_cast<int>((end - s16 + 15) / 16);
+  for (int k = tid; k < chunks; k += kThreads) {
+    const uintptr_t src = s16 + 16 * static_cast<uintptr_t>(k);
+    const long long left = static_cast<long long>(hend - src);
+    tat::cp_async16(stage + 16 * k, reinterpret_cast<const void*>(src),
+                    left < 16 ? static_cast<int>(left) : 16);
+  }
+  tat::cp_async_commit();
+  if (I8)
+    for (int i = tid; i < 256; i += kThreads)
+      tab[i] = sigmoid_rn(__fmul_rn(__int2float_rn(i - 128), sc));
+  tat::cp_async_wait<0>();
+  __syncthreads();
+  if (tid >= nu) return;
+  const unsigned char* p = stage + (start - s16) + tid * ub;
+  const int local = r0 + tid;
+  const long long o = b * a.per_image + a.out_off[l] + local;
+  float s[5], cls_sig;
+  int ci;
+  if (I8) {
+    int best;
+    class_max_s8(p + 5, a.NC, best, ci);
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+      s[k] = tab[static_cast<int>(reinterpret_cast<const int8_t*>(p)[k]) +
+                 128];
+    cls_sig = tab[best + 128];
+  } else {
+    const float* f = reinterpret_cast<const float*>(p);
+    float bv = -__int_as_float(0x7f800000);   // -inf
+    int bi = INT_MAX;
+    for (int c = 0; c < a.NC; ++c)
+      if (first_max(f[5 + c], c, bv, bi)) bv = f[5 + c], bi = c;
+    ci = bi;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) s[k] = sigmoid_rn(__fmul_rn(f[k], sc));
+    cls_sig = sigmoid_rn(__fmul_rn(bv, sc));
+  }
+  write_unit(a, l, local, o, s, cls_sig, ci, boxes, conf, cls);
 }
 
 }  // namespace
 
 // feats/H/W/strides/scales: one entry per level; anchors: levels * A * 2
-// floats (w, h). scales hold 1.0 for a head without one.
+// floats (w, h). scales hold 1.0 for a head without one. f32 heads must be
+// 4-byte aligned; int8 heads may start at any byte. boxes 16-byte aligned.
 extern "C" int tat_decode_fused(int levels, const void* const* feats,
                                 const int* H, const int* W,
                                 const float* strides, const float* scales,
@@ -154,16 +268,26 @@ extern "C" int tat_decode_fused(int levels, const void* const* feats,
                                 int is_int8, void* boxes, void* conf, void* cls,
                                 void* stream) {
   if (levels < 1 || levels > kMaxLevels || A < 1 || A > kMaxAnchors ||
-      NC < 1 || NC > 65535 || batch < 0 || batch > 65535)
+      NC < 1 || NC > 65535 || batch < 0 || batch > 65535 ||
+      (reinterpret_cast<uintptr_t>(boxes) & 15u) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int ub = (5 + NC) * (is_int8 ? 1 : 4);
   DecodeArgs a;
   a.levels = levels;
   a.A = A;
   a.NC = NC;
-  a.off[0] = 0;
+  a.run = (kStageBytes - kSlack) / ub;
+  if (a.run > kThreads) a.run = kThreads;
+  long long per_image = 0, runs = 0;
   for (int l = 0; l < levels; ++l) {
+    if (!is_int8 && (reinterpret_cast<uintptr_t>(feats[l]) & 3u) != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const long long units = static_cast<long long>(H[l]) * W[l] * A;
     a.feat[l] = feats[l];
-    a.H[l] = H[l];
+    a.units[l] = static_cast<int>(units);
+    a.bytes[l] = units * batch * ub;
+    a.out_off[l] = static_cast<int>(per_image);
+    a.run_off[l] = static_cast<int>(runs);
     a.W[l] = W[l];
     a.stride[l] = strides[l];
     a.scale[l] = scales[l];
@@ -171,23 +295,24 @@ extern "C" int tat_decode_fused(int levels, const void* const* feats,
       a.anchor[l][j][0] = anchors[(l * A + j) * 2];
       a.anchor[l][j][1] = anchors[(l * A + j) * 2 + 1];
     }
-    const long long off = a.off[l] + static_cast<long long>(H[l]) * W[l] * A;
-    if (off > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-    a.off[l + 1] = static_cast<int>(off);
+    per_image += units;
+    runs += a.run ? (units + a.run - 1) / a.run : units;
+    if (per_image > INT_MAX || runs > INT_MAX)
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  for (int l = levels; l < kMaxLevels; ++l) a.off[l + 1] = a.off[l];
-  if (a.off[levels] == 0 || batch == 0) return 0;
-  const int threads = 256;  // 8 warps, one unit each per step
-  long long blocks = (a.off[levels] + threads / 32 - 1) / (threads / 32);
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
+  for (int l = levels; l <= kMaxLevels; ++l) a.run_off[l] = static_cast<int>(runs);
+  a.per_image = static_cast<int>(per_image);
+  if (per_image == 0 || batch == 0) return 0;
+  const int smem = a.run ? (is_int8 ? kTableBytes : 0) + a.run * ub + kSlack
+                         : 8 * kThreads / 32;
+  const dim3 grid(static_cast<unsigned>(runs), static_cast<unsigned>(batch));
   const auto s = static_cast<cudaStream_t>(stream);
   auto* bp = static_cast<float*>(boxes);
   auto* cp = static_cast<float*>(conf);
   auto* kp = static_cast<int*>(cls);
   if (is_int8)
-    decode_fused_kernel<true><<<grid, threads, 0, s>>>(a, bp, cp, kp);
+    decode_fused_kernel<true><<<grid, kThreads, smem, s>>>(a, bp, cp, kp);
   else
-    decode_fused_kernel<false><<<grid, threads, 0, s>>>(a, bp, cp, kp);
+    decode_fused_kernel<false><<<grid, kThreads, smem, s>>>(a, bp, cp, kp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,14 +22,31 @@ the planned zoo yolov5s at 640 beside the unfused tensor-core pair (#1's
 1x1 GEMM alone over the four levels (pooled beforehand by the plain
 maxpool) and ``torch._int_mm`` over them concatenated; with ``fusedplans``, each of
 those #6 and #4 units at every plan ``fused_kernels.bneck_plans`` /
-``sppf_plans`` offers, beside the planner's pick.
+``sppf_plans`` offers, beside the planner's pick; with ``decode``, the
+head decode #8 (``decode_kernel.decode_and_parse_fused``) on the real
+yolov5n's three int8 heads at 640 (80, 40 and 20 squared, 255 channels,
+per-head scales) at batch 16 and 1; with ``lagged``, E2
+(``probe_kernels.conv3x3_lagged``) at the experiment's 128x80x80x128 ->
+128, both modes at SILU and NONE, each the mean of
+``probes.pipeline.time_calls`` (50 calls over 4 distinct inputs); with
+``laggedplans``, E2 there at every plan ``probe_kernels.lagged_plans``
+offers, both modes at SILU (each equal bit for bit to the entry's output
+first); with ``laggedsplit``, E2's plan in both modes at SILU and NONE
+through measurement builds of its source that leave out the slab loads
+(``-DTAT_LAGGED_NO_LOAD``), the product (``-DTAT_LAGGED_NO_PRODUCT``), the
+epilogue (``-DTAT_LAGGED_NO_STORE``, the sums XORed and kept alive) or two
+of them (the product, the epilogue, the loads alone), and that hand the
+tensor cores on only after the product has completed
+(``-DTAT_LAGGED_TURN_AFTER_WAIT``) or not at all (``-DTAT_LAGGED_NO_TURN``:
+LAG 1's consumers unordered).
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
     python3 -m thingino_accel_tpu_torch.kxk_bench [--what WHAT]
 
 with WHAT a comma-separated choice of kxk, gemm (the default: both),
-exact1x1, dw, dwplans, bneck, sppf and fusedplans.
+exact1x1, dw, dwplans, bneck, sppf, fusedplans, decode, lagged,
+laggedplans and laggedsplit.
 
 The paths: the planned and the unplanned real yolov5n
 (``models/yolov5n_cal_int8.mars``), the planned zoo yolov5s at 640 (random
@@ -45,7 +62,9 @@ back to the CPU. The 1x1 rows go to ``chiprun_out/gemm_bench.json``, the
 #9 rows to ``exact1x1_bench.json``, the #7 rows to ``dw_bench.json``,
 the #7 plans to ``dwplans_bench.json``, the #6 rows to
 ``bneck_bench.json``, the #4 rows to ``sppf_bench.json``, the #6 and #4
-plans to ``fusedplans_bench.json``.
+plans to ``fusedplans_bench.json``, the decode to ``decode_bench.json``,
+E2 to ``lagged_bench.json``, its plans to ``laggedplans_bench.json``,
+its split to ``laggedsplit_bench.json``.
 """
 
 from __future__ import annotations
@@ -661,6 +680,141 @@ def bench_fused_plans(rng) -> dict:
             "largest_margin": max(r["margin"] for r in rows)}
 
 
+DECODE_HW = (80, 40, 20)
+DECODE_SCALES = (0.047, 0.051, 0.063)
+
+
+def decode_label(nb: int) -> str:
+    return f"3 heads {nb}x(80,40,20)^2x255 int8"
+
+
+def bench_decode(rng) -> dict:
+    """#8 on the real yolov5n's heads at 640, seeded int8, at batch 16 and
+    1, through its entry point."""
+    from thingino_accel_tpu_torch.ops import decode_kernel as DK
+    rows = []
+    for nb in (BATCH, 1):
+        heads = [torch.from_numpy(rng.integers(-128, 128, (nb, hw, hw, 255),
+                                               dtype=np.int8)).cuda()
+                 for hw in DECODE_HW]
+        row = {"unit": decode_label(nb), "ms": time_ms(
+            lambda: DK.decode_and_parse_fused(heads,
+                                              scales=list(DECODE_SCALES)))}
+        rows.append(row)
+        print(f"[decode] {row['unit']}: {row['ms']:.4f} ms")
+    return {"rows": rows}
+
+
+def lagged_label(act: str, lag: int) -> str:
+    return f"E2 128x80x80x128 -> 128 {act} LAG {lag}"
+
+
+def lagged_operands() -> tuple:
+    """E2's weights, bias and 4 inputs on the card, the experiment's
+    seeded draws."""
+    from thingino_accel_tpu_torch.probes import pipeline as P2
+    w_np, b_np, xs_np = P2.draws()
+    return (P2.to_ohwi(w_np).cuda(), torch.from_numpy(b_np).cuda(),
+            [torch.from_numpy(x).cuda() for x in xs_np])
+
+
+def bench_lagged(rng) -> dict:
+    """E2 at the experiment's shape on its own seeded draws, both modes at
+    SILU and NONE, through its entry point (``probes.pipeline``'s
+    timing)."""
+    from thingino_accel_tpu_torch.ops import probe_kernels as PK
+    from thingino_accel_tpu_torch.probes import pipeline as P2
+    w, b, xs = lagged_operands()
+    rows = []
+    for act in ("SILU", "NONE"):
+        ep = P2.epilogue(act, P2.O)
+        for lag in (1, 0):
+            row = {"unit": lagged_label(act, lag), "ms": P2.time_calls(
+                lambda x, ep=ep, lag=lag: PK.conv3x3_lagged(
+                    x, w, b, ep, bool(lag)), xs)}
+            rows.append(row)
+            print(f"[lagged] {row['unit']}: {row['ms']:.4f} ms")
+    return {"rows": rows}
+
+
+def bench_lagged_plans(rng) -> dict:
+    """E2 at the experiment's shape at every plan the launcher offers, both
+    modes at SILU, each checked against the entry's output."""
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.ops import probe_kernels as PK
+    from thingino_accel_tpu_torch.probes import pipeline as P2
+    w, b, xs = lagged_operands()
+    ep = P2.epilogue("SILU", P2.O)
+    ref = PK.conv3x3_lagged(xs[0], w, b, ep)
+    out = torch.empty_like(ref)
+    rows = []
+    for plan in PK.lagged_plans(P2.BATCH, P2.H, P2.H, P2.C, P2.O,
+                                FK.smem_limits(torch.device("cuda"))):
+        row = {"plan": str(plan)}
+        for lag in (1, 0):
+            PK._launch_lagged(xs[0], w, b, ep, out, bool(lag), plan)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise RuntimeError(f"{plan} LAG {lag} differs from the entry")
+            row[f"LAG {lag}"] = P2.time_calls(
+                lambda x, lag=lag, plan=plan: PK._launch_lagged(
+                    x, w, b, ep, out, bool(lag), plan), xs)
+        rows.append(row)
+        print(f"[laggedplans] {plan}: LAG 1 {row['LAG 1']:.4f} ms, LAG 0 "
+              f"{row['LAG 0']:.4f} ms")
+    return {"rows": rows}
+
+
+LAGGED_VARIANTS = {
+    "no_load": ("-DTAT_LAGGED_NO_LOAD",),
+    "no_product": ("-DTAT_LAGGED_NO_PRODUCT",),
+    "no_store": ("-DTAT_LAGGED_NO_STORE",),
+    "product_alone": ("-DTAT_LAGGED_NO_LOAD", "-DTAT_LAGGED_NO_STORE"),
+    "epilogue_alone": ("-DTAT_LAGGED_NO_LOAD", "-DTAT_LAGGED_NO_PRODUCT"),
+    "loads_alone": ("-DTAT_LAGGED_NO_PRODUCT", "-DTAT_LAGGED_NO_STORE"),
+    "turn_after_wait": ("-DTAT_LAGGED_TURN_AFTER_WAIT",),
+    "no_turn": ("-DTAT_LAGGED_NO_TURN",)}
+
+
+def bench_lagged_split(rng) -> dict:
+    """E2's plan at the experiment's shape through the library and each
+    of ``LAGGED_VARIANTS`` (built beside it, none reached by a wrapper),
+    both modes at SILU and NONE."""
+    import threading
+    from thingino_accel_tpu_torch.ops import cuda_build
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.ops import probe_kernels as PK
+    from thingino_accel_tpu_torch.probes import pipeline as P2
+    src = "conv_int8_lagged.cu"
+    entries = ("tat_conv_int8_lagged", "tat_conv_int8_lagged_info")
+    builds = [threading.Thread(target=cuda_build.build, args=((src,), f))
+              for f in LAGGED_VARIANTS.values()]
+    for t in builds:
+        t.start()
+    for t in builds:
+        t.join()
+    libs = {"library": None, **{name: cuda_build.load_variant(src, f, entries)
+                                for name, f in LAGGED_VARIANTS.items()}}
+    w, b, xs = lagged_operands()
+    plan = PK.lagged_plan(P2.BATCH, P2.H, P2.H, P2.C, P2.O,
+                          FK.smem_limits(torch.device("cuda")))
+    out = torch.empty((P2.BATCH, P2.H, P2.H, P2.O), dtype=torch.int8,
+                      device="cuda")
+    rows = []
+    for name, lib in libs.items():
+        row = {"build": name}
+        for act in ("SILU", "NONE"):
+            ep = P2.epilogue(act, P2.O)
+            for lag in (1, 0):
+                row[f"{act} LAG {lag}"] = P2.time_calls(
+                    lambda x, ep=ep, lag=lag, lib=lib: PK._launch_lagged(
+                        x, w, b, ep, out, bool(lag), plan, lib), xs)
+        rows.append(row)
+        print(f"[laggedsplit] {name}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in row.items() if k != "build"))
+    return {"plan": str(plan), "rows": rows}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paths", default=",".join(PATHS),
@@ -689,7 +843,13 @@ def main(argv=None) -> int:
                               ("bneck", bench_bneck, "bneck_bench.json"),
                               ("sppf", bench_sppf, "sppf_bench.json"),
                               ("fusedplans", bench_fused_plans,
-                               "fusedplans_bench.json")):
+                               "fusedplans_bench.json"),
+                              ("decode", bench_decode, "decode_bench.json"),
+                              ("lagged", bench_lagged, "lagged_bench.json"),
+                              ("laggedplans", bench_lagged_plans,
+                               "laggedplans_bench.json"),
+                              ("laggedsplit", bench_lagged_split,
+                               "laggedsplit_bench.json")):
         if part in what:
             res = {"device": torch.cuda.get_device_name(0),
                    **bench(np.random.default_rng(0))}

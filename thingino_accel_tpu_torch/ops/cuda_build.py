@@ -30,7 +30,7 @@ SOURCES = ("mm_int8_fused_mma.cu", "conv_int8_fused_mma.cu",
            "chain_mma.cu", "megakernel_probe.cu",
            "add_one.cu", "conv_int8_lagged.cu", "conv_int8_requant_mma.cu")
 HEADERS = ("epilogue.cuh", "mma_tile.cuh", "chain_mma.cuh",
-           "epilogue_policy.cuh", "conv_mma_core.cuh")
+           "epilogue_policy.cuh", "conv_mma_core.cuh", "hopper_async.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -119,11 +119,11 @@ _SIGNATURES = {
     # x, out, n, stream
     "tat_add_one": (_P, _P, _L, _P),
     # lag, x, w, bias, cs, out, batch, H, W, C, O, act, inv_out, alpha,
-    # tile_h, tile_w, bn, tiles_per_block, stream
+    # bn, stages, blocks, stream
     "tat_conv_int8_lagged": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _F, _F, _I, _I, _I, _I, _P),
-    # lag, C, tile_h, tile_w, bn, -> smem bytes, blocks an SM
-    "tat_conv_int8_lagged_info": (_I, _I, _I, _I, _I, ctypes.POINTER(_I),
+                             _F, _F, _I, _I, _I, _P),
+    # lag, C, bn, stages, -> smem bytes, blocks an SM
+    "tat_conv_int8_lagged_info": (_I, _I, _I, _I, ctypes.POINTER(_I),
                                   ctypes.POINTER(_I)),
 }
 

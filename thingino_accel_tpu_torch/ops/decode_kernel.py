@@ -13,6 +13,12 @@ tiles): any row count is taken, so no level falls back to another decode;
 a head whose channels are not A*(5+NC) raises; an f32 class row with a
 NaN gives the first NaN's index, as ``jnp.argmax`` does. The JAX
 package's deferred-class mode (``TAT_DEFER_CLS``) is not ported.
+
+What the kernel takes, checked on every device before the plain version
+is chosen: 1..4 levels, 1..8 anchors a level, 1 <= NC <= 65535, heads of
+one device, dtype and batch; on the card also contiguous heads. An int8
+head may start at any byte (the kernel aligns the range it stages); an
+f32 head is aligned to its element, as every float32 tensor is.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from thingino_accel_tpu_torch.ops import cuda_build
 
 MAX_LEVELS = 4
 MAX_ANCHORS = 8
+MAX_CLASSES = 65535   # the kernel's int8 key packs a class index in 16 bits
 
 # Kernel launches since the last reset_launches()
 launches: Dict[str, int] = {"decode_and_parse_fused": 0}
@@ -56,6 +63,11 @@ def decode_and_parse_fused(
         raise ValueError(f"1..{MAX_LEVELS} levels with [A, 2] anchors each, "
                          f"got {n_lv} heads, anchors {anchors.shape}")
     a = anchors.shape[1]
+    if not 1 <= a <= MAX_ANCHORS:
+        raise ValueError(f"1..{MAX_ANCHORS} anchors per level, got {a}")
+    if not 1 <= num_classes <= MAX_CLASSES:
+        raise ValueError(f"num_classes must be in 1..{MAX_CLASSES}, got "
+                         f"{num_classes}")
     dev, dt = feats[0].device, feats[0].dtype
     if dt not in (torch.int8, torch.float32):
         raise TypeError(f"int8 or float32 heads expected, got {dt}")
@@ -70,8 +82,6 @@ def decode_and_parse_fused(
                                   scales)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if a > MAX_ANCHORS:
-        raise ValueError(f"at most {MAX_ANCHORS} anchors per level")
     if any(not f.is_contiguous() for f in feats):
         raise ValueError("CUDA kernel operands must be contiguous")
     b = feats[0].shape[0]

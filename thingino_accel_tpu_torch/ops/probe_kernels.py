@@ -11,9 +11,10 @@ port's first tensor-core code, and the kernel rung of the health ladder.
 - :func:`add_one`, E4 (``examples/wedge_probe.py`` rung ``pallas``): f32
   ``x + 1``, CUDA ``csrc/add_one.cu``;
 - :func:`conv3x3_lagged`, E2 (``examples/pipeline_experiment.py:lagged``):
-  the int8 3x3/s1 conv with the serving epilogue on the tensor cores, the
-  epilogue lagged a tile behind the product (``lag=True``) or applied
-  after each tile (``lag=False``), CUDA ``csrc/conv_int8_lagged.cu``.
+  the int8 3x3/s1 conv with the serving epilogue on Hopper's warpgroup
+  MMA (``wgmma``, slabs by TMA), two consumer warpgroups whose epilogues
+  overlap each other's products (``lag=True``, ping-pong) or run in
+  lockstep after them (``lag=False``), CUDA ``csrc/conv_int8_lagged.cu``.
 
 Each wrapper takes its plain torch version for a tensor on the CPU and
 launches its kernel for a tensor on a CUDA device, or raises; nothing
@@ -335,64 +336,60 @@ def spatial_plan(kind: str, k: int, h: int, l: int,
 
 @dataclasses.dataclass(frozen=True)
 class LaggedPlan:
-    """The lagged conv's block: ``tile_h`` x ``tile_w`` output pixels a
-    tile, ``bn`` output channels, ``tiles_per_block`` consecutive tiles of
-    one image (row-major)."""
+    """The lagged conv's block: ``bn`` output channels (the wgmma's N),
+    ``stages`` slab slots in the TMA ring, ``blocks`` persistent blocks a
+    channel block, walking the 8 x 8 tiles ``blockIdx.x, + blocks, ...``
+    (the kernel takes at most the tiles)."""
 
-    tile_h: int
-    tile_w: int
     bn: int
-    tiles_per_block: int
+    stages: int
+    blocks: int
 
 
-# (tile_h, tile_w): 128 or 64 pixels (2 or 1 m16 tiles a product warp),
-# tile_w a power of two; bn 64 or 32 (4 or 2 n8 tiles a product warp)
-LAGGED_TILES = ((8, 16), (16, 8), (4, 32), (8, 8), (4, 16), (2, 32))
-LAGGED_BNS = (64, 32)
-LAGGED_THREADS = 512   # 8 product warps + 8 epilogue warps (kThreads)
+LAGGED_TILE = 8          # 8 x 8 output pixels a tile: one m64 wgmma tile
+LAGGED_BNS = (128, 64, 32)
+LAGGED_STAGES = (4, 3, 2)
+LAGGED_THREADS = 384     # a producer warpgroup + two consumer warpgroups
+LAGGED_PLANE = 1664      # a slab's 16-channel plane: 10 x 10 x 16, to 128
 
 
-def lagged_smem(c: int, tile_h: int, tile_w: int, bn: int) -> int:
+def lagged_smem(c: int, bn: int, stages: int) -> int:
     """Shared memory of a lagged-conv block (``lagged_layout`` of
-    conv_int8_lagged.cu): two slab slots of (tile_h + 2) x (tile_w + 2)
-    pixels at C + 16 bytes, the resident weights at 9C + 16 bytes an output
-    channel, two int32 accumulator slots at bn + 8 words a pixel. Both
-    modes take the same."""
-    slab = (tile_h + 2) * (tile_w + 2) * (c + 16)
-    return 2 * slab + bn * (9 * c + 16) + 2 * tile_h * tile_w * (bn + 8) * 4
+    conv_int8_lagged.cu): the resident weights (9 C bn bytes), ``stages``
+    slab slots of C / 16 planes, bias and cs (8 bn bytes), the 2 stages +
+    1 mbarriers. Both modes take the same."""
+    return (9 * c * bn + stages * (c // 16) * LAGGED_PLANE + 8 * bn
+            + 8 * (2 * stages + 1))
 
 
-def _lagged_tiles_per_block(batch: int, tiles_img: int, oblocks: int,
-                            smem: int, limits: FK.SmemLimits) -> int:
-    """The run of tiles a block takes (``FK.run_of_tiles``: a block's first
-    product and last epilogue do not overlap)."""
-    return FK.run_of_tiles(batch, tiles_img, oblocks, smem, limits,
-                           LAGGED_THREADS)
+def lagged_blocks(tiles: int, oblocks: int, smem: int,
+                  limits: FK.SmemLimits) -> int:
+    """Persistent blocks a channel block: every block an SM holds (by its
+    threads and shared memory) over the SMs, shared by the channel
+    blocks, at most the tiles."""
+    per_sm = max(1, min(2048 // LAGGED_THREADS,
+                        limits.per_sm // (smem + FK._BLOCK_RESERVED)))
+    return max(1, min(tiles, limits.sms * per_sm // oblocks))
 
 
 @functools.lru_cache(maxsize=256)
 def lagged_plans(batch: int, h: int, w: int, c: int, o: int,
                  limits: FK.SmemLimits) -> Tuple[LaggedPlan, ...]:
-    """Every tile and channel block the kernel can run here within the
-    shared memory, each with its modelled run of tiles, in the order
-    :func:`lagged_plan` prefers them: the fewest products issued (ragged
-    tiles and channel blocks count whole), then the largest block, the
-    least halo, the widest tile."""
-    def key(tb):
-        (th, tw), bn = tb
-        issued = (FK._cdiv(h, th) * th * FK._cdiv(w, tw) * tw
-                  * FK._cdiv(o, bn) * bn)
-        return (issued, -th * tw * bn, (th + 2) * (tw + 2) / (th * tw), -tw)
-
+    """Every channel block and ring depth the kernel can run here within
+    the shared memory, each with its persistent blocks, in the order
+    :func:`lagged_plan` prefers them: the fewest products issued (a ragged
+    channel block counts whole), then the widest block, the deepest
+    ring."""
+    tiles = batch * FK._cdiv(h, LAGGED_TILE) * FK._cdiv(w, LAGGED_TILE)
     plans = []
-    for (th, tw), bn in sorted(((t, b) for t in LAGGED_TILES
-                                for b in LAGGED_BNS), key=key):
-        smem = lagged_smem(c, th, tw, bn)
+    for bn, st in sorted(((b, s) for b in LAGGED_BNS for s in LAGGED_STAGES),
+                         key=lambda p: (FK._cdiv(o, p[0]) * p[0], -p[0],
+                                        -p[1])):
+        smem = lagged_smem(c, bn, st)
         if smem > limits.per_block:
             continue
-        tiles_img = FK._cdiv(h, th) * FK._cdiv(w, tw)
-        plans.append(LaggedPlan(th, tw, bn, _lagged_tiles_per_block(
-            batch, tiles_img, FK._cdiv(o, bn), smem, limits)))
+        plans.append(LaggedPlan(bn, st, lagged_blocks(
+            tiles, FK._cdiv(o, bn), smem, limits)))
     return tuple(plans)
 
 
@@ -557,8 +554,9 @@ def conv3x3_lagged(x: torch.Tensor, w: torch.Tensor,
     """E2: the int8 3x3/s1 pad-1 conv of NHWC ``x [N, H, W, C]`` with OHWI
     ``w [O, 3, 3, C]``, ``bias [O]`` int32 or None and the serving
     epilogue ``ep`` -> int8 ``[N, H, W, O]``, every row. On the card the
-    tensor-core kernel with the epilogue lagged a tile behind the product
-    (``lag=True``) or applied after each tile (``lag=False``), with the
+    ``wgmma`` kernel whose two consumer warpgroups alternate tiles, each
+    epilogue overlapping the other's product (``lag=True``), or both
+    products then both epilogues in lockstep (``lag=False``), with the
     block :func:`lagged_plan` picks. C must be a multiple of 32 and O of 8
     (ValueError otherwise, on any device); nothing falls back."""
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[1:3]) != (3, 3):
@@ -587,15 +585,18 @@ def conv3x3_lagged(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def _launch_lagged(x, w, bias, ep, out, lag: bool, plan: LaggedPlan) -> None:
+def _launch_lagged(x, w, bias, ep, out, lag: bool, plan: LaggedPlan,
+                   lib=None) -> None:
     """One launch of the lagged conv (``lag``: the mode) writing ``out``
-    with the block ``plan``."""
+    with the block ``plan``; ``lib``: a measurement build of the source
+    (``cuda_build.load_variant``), else the library."""
     nb, h, wd, c = x.shape
-    cuda_build.check(cuda_build.load_library().tat_conv_int8_lagged(
+    lib = lib or cuda_build.load_library()
+    cuda_build.check(lib.tat_conv_int8_lagged(
         int(lag), x.data_ptr(), w.data_ptr(), FK._ptr(bias), ep.cs.data_ptr(),
         out.data_ptr(), nb, h, wd, c, w.shape[0], FK._kernel_act(ep.act),
-        ep.inv_out, ep.alpha, plan.tile_h, plan.tile_w, plan.bn,
-        plan.tiles_per_block, _stream(x.device)), "tat_conv_int8_lagged")
+        ep.inv_out, ep.alpha, plan.bn, plan.stages, plan.blocks,
+        _stream(x.device)), "tat_conv_int8_lagged")
 
 
 def lagged_occupancy(lag: bool, c: int, plan: LaggedPlan) -> Tuple[int, int]:
@@ -604,6 +605,6 @@ def lagged_occupancy(lag: bool, c: int, plan: LaggedPlan) -> Tuple[int, int]:
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
     cuda_build.check(cuda_build.load_library().tat_conv_int8_lagged_info(
-        int(lag), c, plan.tile_h, plan.tile_w, plan.bn, ctypes.byref(smem),
+        int(lag), c, plan.bn, plan.stages, ctypes.byref(smem),
         ctypes.byref(blocks)), "tat_conv_int8_lagged_info")
     return smem.value, blocks.value

@@ -11,9 +11,10 @@ act SILU (``--act``, the JAX ``TAT_PIPE_ACT``). :func:`build` returns
 - ``baseline``: #2, ``ops.fused_kernels.conv2d_int8_halo_fused`` (the
   counterpart of the JAX ``conv2d_int8_folded``);
 - ``lagged``: ``ops.probe_kernels.conv3x3_lagged`` (CUDA
-  ``csrc/conv_int8_lagged.cu``), a tensor-core conv whose epilogue warps
-  drain tile t - 1 while its product warps run tile t (``lag=True``), or,
-  as the control, whose product warps apply the epilogue after each tile
+  ``csrc/conv_int8_lagged.cu``), a ``wgmma`` conv whose two consumer
+  warpgroups alternate tiles, one's epilogue of tile t running while the
+  other's product of tile t + 1 runs (``lag=True``, ping-pong), or, as the
+  control, both products and then both epilogues in lockstep
   (``lag=False``). It computes every output row; the JAX ``lagged``
   writes only ``(h // tile_h) * tile_h`` of them.
 
