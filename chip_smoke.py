@@ -11,11 +11,12 @@ Phases:
 1. Device: name, power limit, torch / CUDA / nvcc versions.
 2. Build: compile the kernels in ``thingino_accel_tpu_torch/csrc/`` with
    nvcc, one process per source, all started together (timed); fail on a
-   ptxas warning that it serialised E2's wgmma; count the IDP4A, IMMA,
+   ptxas warning that it serialised a wgmma; count the IDP4A, IMMA,
    IGMMA, LDSM, LDGSTS and UTMALDG instructions of each kernel of the
    library (``cuobjdump -sass``): no kernel holds an IDP4A, the 1x1 GEMM,
    the KxK core, the fused bottleneck and the fused SPPF hold IMMA, and
-   E2's kernel holds IGMMA (the warpgroup MMA) and UTMALDG (TMA loads).
+   E2's kernel, E3's stage kernel and the probes' row chain hold IGMMA (the
+   warpgroup MMA) and UTMALDG (TMA loads) and no IMMA.
 3. Kernels vs their plain torch versions on the card at the paths'
    shapes (NONE, LEAKY_RELU and SILU, per-channel scales, residual modes;
    #3, which launches #1's tensor-core 1x1 GEMM
@@ -133,19 +134,32 @@ Phases:
    over them, with ``records/dp4a_sppf.json``.
 11. ``[probes]``: the ports of the TPU probes under ``examples/``
    (``thingino_accel_tpu_torch.probes``), the port's first tensor-core
-   kernels. Each E1 variant (``csrc/chain_mma.cu``) and E3 kind
-   (``csrc/megakernel_probe.cu``) against its plain version at full width
-   on 2 grid cells (the SILU kinds at L = 1 too); then E1's sweep (m =
-   1024, L = 8, grid = 32, K = 128/256/512) and E3's (H = 32, L = 4, GRID
-   = 16, K = 256/512) through their entry points and the ladder's kernel
-   rung (E4, ``csrc/add_one.cu``) with the counts set to 0 before and read
-   after; each kind's time beside its plain version's, the library
-   chain's (the ``torch.matmul`` / ``torch._int_mm`` chains; for the 3x3
-   kinds L chained fp16 ``F.conv2d`` 3x3, for the C3 round the fp16
-   library round at the probe's shapes) and its bound (int8 over 1,979 TOP/s,
-   bf16 over 989 TFLOP/s, bytes over 3.35 TB/s); both decision rules as
-   they come out on this card; the health ladder, one line a rung, each
-   rung in its own process.
+   kernels. Each E1 variant (``csrc/chain_mma.cu``: the ``wgmma`` row chain
+   of ``csrc/chain_mma.cuh``) and E3 kind (``csrc/megakernel_probe.cu``:
+   the 1x1 kinds on the row chain, the 3x3 kinds on the ``wgmma`` stage
+   kernel, a launch a stage) against its
+   plain version at full width on 2 grid cells (the SILU kinds at L = 1
+   too), and the 3x3 kinds also at a ragged H = 29, L = 2 (extents 33, 31,
+   29); each again at its sweep's size (E1 grid 32, E3 GRID 16), so that
+   the plans the sweeps time are the plans checked; then E1's sweep (m = 1024, L = 8, grid = 32, K = 128/256/512) and
+   E3's (H = 32, L = 4, GRID = 16, K = 256/512) through their entry points
+   and the ladder's kernel rung (E4, ``csrc/add_one.cu``) with the counts
+   set to 0 before and read after; each kind's time beside its plain
+   version's, the library chain's (the ``torch.matmul`` /
+   ``torch._int_mm`` chains; for the 3x3 kinds L chained fp16
+   ``F.conv2d`` 3x3, for the C3 round the fp16 library round at the
+   probe's shapes), its bound (int8 over 1,979 TOP/s, bf16 over 989
+   TFLOP/s, bytes over 3.35 TB/s) and the time of the ``mma.sync`` kernel
+   it replaced (``records/mma_megakernel.json``, ``records/mma_chain.json``);
+   for E3's 3x3 kinds the operations computed and the m64 tiles' over the
+   probe's own (no halo computed twice), and the device's idle time
+   between an application's kernels (each kernel's start less the
+   previous one's end in a ``torch.profiler`` trace of chained
+   applications behind a spin, the mean and spread of three traces); E1's ``_int_mm`` chain split into its L
+   products and the glue between them; E4 by the chained timing beside
+   chained ``torch.add``; both decision rules as they come out on this
+   card; the health ladder, one line a rung, each rung in its own
+   process.
 12. ``[pipeline]``: E2, the lagged-epilogue 3x3 conv
    (``probe_kernels.conv3x3_lagged``, ``csrc/conv_int8_lagged.cu``: wgmma
    from TMA-loaded slabs, two consumer warpgroups), both modes (``LAG =
@@ -209,6 +223,7 @@ BATCHES, BATCH, FRAME_HW = 4, 16, (720, 1280)
 ZOO_BATCHES, ZOO_BATCH = 2, 8
 SILU_MAX_FRAC = 1e-3
 PROBE_SILU_LOOSE = 1e-2   # share of a chained SILU probe's values apart
+RAGGED_H = 29   # E3's ragged check: no extent a multiple of the 8 x 8 tile
 PEAK_OPS, PEAK_BYTES = 1979e12, 3.35e12   # H100 SXM: int8 TOP/s, HBM B/s
 PEAK_BF16 = 989e12                          # H100 SXM: bf16/fp16 TFLOP/s
 
@@ -335,16 +350,23 @@ DP4A_SPPF = RECORDS / "dp4a_sppf.json"
 # timed by kxk_bench --what decode,lagged in the checkout that had them
 WARP_DECODE = RECORDS / "warp_decode.json"
 MMA_LAGGED = RECORDS / "mma_lagged.json"
+# E1's and E3's mma.sync kernels before E3's redesign, one application by
+# the chained timing (kxk_bench --what probes in the checkout that had them)
+MMA_CHAIN = RECORDS / "mma_chain.json"
+MMA_MEGAKERNEL = RECORDS / "mma_megakernel.json"
 # kernels counted by a piece of their names: the 1x1 GEMM (#1, #3, #9),
 # the KxK core (#2, #5, #10, #11), #7, the fused C3 bottleneck (#6) and
 # SPPF (#4). The whole library must hold no IDP4A; every kernel but #7
 # (per-channel products) must hold IMMA
 NO_DP4A = ("mm_mma_kernel", "conv_mma_kernel", "dw_int8_fused_kernel",
-           "bneck_mma_kernel", "sppf_mma_kernel", "conv_lagged_wgmma_kernel")
+           "bneck_mma_kernel", "sppf_mma_kernel", "conv_lagged_wgmma_kernel",
+           "stage_wgmma_kernel", "row_chain_wgmma_kernel")
 TENSOR_CORE = ("mm_mma_kernel", "conv_mma_kernel", "bneck_mma_kernel",
                "sppf_mma_kernel")
-# E2's kernel: the warpgroup MMA and TMA loads
-WGMMA = ("conv_lagged_wgmma_kernel",)
+# E2's kernel, E3's stage kernel and the probes' row chain (E1, E3's 1x1
+# kinds): the warpgroup MMA and TMA loads, no mma.sync
+WGMMA = ("conv_lagged_wgmma_kernel", "stage_wgmma_kernel",
+         "row_chain_wgmma_kernel")
 # the edge shapes of tests/test_torch_gpu.py, each in every act: #6's
 # (batch, H, W, C, CM, O, K, shortcut) and #4's (batch, H, W, C, O, k)
 BNECK_EDGES = [(2, 13, 11, 32, 32, 32, 3, True),
@@ -588,7 +610,8 @@ def sass_counts() -> dict:
     (``cuobjdump -sass``, beside nvcc), summed by the ``NO_DP4A`` name
     pieces and over all kernels; fails if no kernel of a piece is found,
     if a ``TENSOR_CORE`` piece holds no IMMA, if a ``WGMMA`` piece holds no
-    IGMMA or no UTMALDG, or if any kernel of the library holds an IDP4A:
+    IGMMA, no UTMALDG or an IMMA, or if any kernel of the library holds an
+    IDP4A:
     no kernel of the port runs dp4a."""
     import re
     from thingino_accel_tpu_torch.ops import cuda_build
@@ -613,8 +636,9 @@ def sass_counts() -> dict:
         require(piece not in TENSOR_CORE or counts[piece]["IMMA"] > 0,
                 f"{piece}: no IMMA in the SASS")
         require(piece not in WGMMA or (counts[piece]["IGMMA"] > 0
-                                       and counts[piece]["UTMALDG"] > 0),
-                f"{piece}: no IGMMA or no UTMALDG in the SASS")
+                                       and counts[piece]["UTMALDG"] > 0
+                                       and counts[piece]["IMMA"] == 0),
+                f"{piece}: no IGMMA, no UTMALDG or an IMMA in the SASS")
         print(f"[build] SASS of the {found[piece]} {piece} kernels: "
               f"{counts[piece]}")
     print(f"[build] SASS of all {found['all']} kernels: {counts['all']}")
@@ -2296,7 +2320,10 @@ def compare_probe(got, ref, kind: str, stages: int, what: str) -> float:
 def phase_probe_checks(results: dict) -> dict:
     """Each E1 variant and E3 kind against its plain version on the card
     at full width on 2 grid cells (E1: m = 1024, L = 8; E3: H = 32,
-    L = 4, the SILU kinds also at L = 1), at each K of the sweeps."""
+    L = 4, the SILU kinds also at L = 1, the 3x3 kinds also at the ragged
+    H = 29, L = 2), at each K of the sweeps; then at the sweeps' own
+    sizes (E1 grid 32, E3 GRID 16 at H = 32, L = 4), where the planners
+    pick the blocks the sweeps time."""
     import torch
     from thingino_accel_tpu_torch.ops import probe_kernels as PK
     from thingino_accel_tpu_torch.probes import megakernel as P3
@@ -2304,36 +2331,42 @@ def phase_probe_checks(results: dict) -> dict:
 
     dev = torch.device("cuda")
     checked = {}
-    for kind in P1.KINDS:
-        for k in P1.KS:
-            fn, x, w = P1.build(kind, P1.M, k, P1.L, 2, dev)
-            got = fn(x, w)
-            torch.cuda.synchronize()
-            what = f"E1 {kind} K={k}"
-            checked[what] = compare_probe(
-                got, PK.chain_mma_plain(x, w, kind), kind, P1.L, what)
-            note_err(results, "chain_mma", checked[what])
-    saved = (P3.GRID, P3.L)
+    for grid in (2, P1.GRID):
+        for kind in P1.KINDS:
+            for k in P1.KS:
+                fn, x, w = P1.build(kind, P1.M, k, P1.L, grid, dev)
+                got = fn(x, w)
+                torch.cuda.synchronize()
+                what = f"E1 {kind} K={k} grid={grid}"
+                checked[what] = compare_probe(
+                    got, PK.chain_mma_plain(x, w, kind), kind, P1.L, what)
+                note_err(results, "chain_mma", checked[what])
+    saved = (P3.GRID, P3.L, P3.H)
     try:
-        P3.GRID = 2
         for kind in P3.KINDS:
-            depths = (1, saved[1]) if PK.MEGA_ACT.get(kind) == "SILU" \
-                else (saved[1],)
+            depths = [(2, saved[2], 1), (2, saved[2], saved[1])] \
+                if PK.MEGA_ACT.get(kind) == "SILU" \
+                else [(2, saved[2], saved[1])]
+            if PK.is_spatial(kind):   # ragged: extents 33, 31, 29
+                depths.append((2, RAGGED_H, 2))
+            depths.append((saved[0], saved[2], saved[1]))   # the sweep's
             for k in P3.KS:
-                for l in depths:
+                for grid, h, l in depths:
+                    P3.GRID = grid
+                    P3.H = P3.W = h
                     P3.L = P3.PAD = l
                     fn, (x, w), _ = P3.build(kind, k, dev)
                     got = fn(x, w)
                     torch.cuda.synchronize()
-                    what = f"E3 {kind} K={k} L={l}"
+                    what = f"E3 {kind} K={k} H={h} L={l} GRID={grid}"
                     checked[what] = compare_probe(
                         got, P3.plain_fn(kind, k, dev)(x, w), kind, l, what)
                     note_err(results, "megakernel_probe", checked[what])
     finally:
         P3.GRID, (P3.L, P3.PAD) = saved[0], (saved[1], saved[1])
-    print(f"[probes] {len(checked)} probe cases on 2 grid cells == their "
-          f"plain versions: " + ", ".join(f"{k} {v:.3g}"
-                                          for k, v in checked.items()))
+        P3.H = P3.W = saved[2]
+    print(f"[probes] {len(checked)} probe cases == their plain versions: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in checked.items()))
     return checked
 
 
@@ -2356,6 +2389,7 @@ def phase_probes(results: dict) -> dict:
     from thingino_accel_tpu_torch.ops import probe_kernels as PK
     from thingino_accel_tpu_torch.probes import megakernel as P3
     from thingino_accel_tpu_torch.probes import mxu_ceiling as P1
+    from thingino_accel_tpu_torch.probes import timing
     from thingino_accel_tpu_torch.probes import wedge as P4
 
     dev = torch.device("cuda")
@@ -2386,6 +2420,7 @@ def phase_probes(results: dict) -> dict:
 
     # E1: each variant at the sweep's sizes; the int8 chain at K = 256
     # first (the kernels line reports it), its library call _int_mm
+    mma1 = json.loads(MMA_CHAIN.read_text())
     e1_cases = []
     for r in sorted(e1, key=lambda r: r["k"] != 256):
         k, ops = r["k"], r["ops"]
@@ -2400,17 +2435,34 @@ def phase_probes(results: dict) -> dict:
                     "plain_ms": time_ms(
                         lambda: PK.chain_mma_plain(x, w, kind), 3, warmup=1),
                     "library_ms": (lib[kind].ms if lib.get(kind) else None),
+                    "mma_recorded_ms": mma1["ms"].get(f"E1 {kind} K={k}"),
                     "max_abs_err": results["chain_mma"]["max_abs_err"]}
             case["bound_ms"], case["bound_by"] = bound(
                 ops, nbytes, PEAK_BF16 if kind in ("bf16", "mixed")
                 else PEAK_OPS)
             e1_cases.append(case)
     results["chain_mma"]["cases"] += e1_cases
+    # the _int_mm chain's yardstick: its L products alone, the rest glue
+    e1_split = {}
+    for r in e1:
+        lib = r.get("torch-int8")
+        if lib is None:
+            continue
+        pfn, px, pw = P1.library_int8_products(P1.M, r["k"], P1.L, P1.GRID,
+                                               dev)
+        prod = timing.measure(lambda y: pfn(y, pw), px, r["ops"])
+        e1_split[r["k"]] = {"chain_ms": lib.ms, "products_ms": prod.ms,
+                            "glue_ms": lib.ms - prod.ms}
+        print(f"[probes] E1 _int_mm chain K={r['k']}: {lib.ms:.4f} ms, its "
+              f"{P1.L} products alone {prod.ms:.4f} ms "
+              f"({prod.ms / lib.ms:.1%}), the glue (>> 7, the int8 casts) "
+              f"{lib.ms - prod.ms:.4f} ms ({1 - prod.ms / lib.ms:.1%})")
 
     # E3: each kind; the C3 round at K = 256 first. Library: the fp16
     # library round for the C3 round, the fp16 3x3 chain for the other
     # 3x3 kinds (probes.megakernel.library_round / library_taps)
     limits = FK.smem_limits(dev)
+    mma3 = json.loads(MMA_MEGAKERNEL.read_text())
     e3_cases = []
     for r in sorted(e3, key=lambda r: r["k"] != 256):
         k = r["k"]
@@ -2424,47 +2476,74 @@ def phase_probes(results: dict) -> dict:
             case = {"case": f"E3 {kind} K={k} H={P3.H} L={P3.L} "
                             f"GRID={P3.GRID}",
                     "ms": r[kind].ms, "tops": r[kind].tops,
-                    "issued_ops": r["issued"][kind], "ops": ops,
+                    "issued_ops": r["issued"][kind],
+                    "tiled_ops": r["tiled"][kind], "ops": ops,
                     "plain_ms": time_ms(lambda: pf(x, w), 3, warmup=1),
                     "library_ms": (lib.ms if lib is not None
                                    and PK.is_spatial(kind) else None),
+                    "mma_recorded_ms": mma3["ms"].get(f"E3 {kind} K={k}"),
                     "max_abs_err": results["megakernel_probe"]["max_abs_err"]}
             if PK.is_spatial(kind):
-                plan = PK.spatial_plan(kind, k, P3.H, P3.L, limits)
-                case["plan"] = dataclasses.astuple(plan)
+                row = PK._row_bytes(kind, k)
+                case["plans"] = [
+                    [ep, taps, e, *dataclasses.astuple(PK.stage_plan(
+                        taps, row, k, PK.stage_tiles(taps, P3.GRID, e),
+                        limits))]
+                    for ep, taps, e in PK.spatial_launches(
+                        kind, P3.H + 2 * P3.L, P3.L)]
+                case.update(P3.kernel_ms(kind, k, dev))
             case["bound_ms"], case["bound_by"] = bound(
                 ops, nbytes, PEAK_BF16 if kind == "bf16-3x3" else PEAK_OPS)
             e3_cases.append(case)
     results["megakernel_probe"]["cases"] += e3_cases
     for c in e1_cases + e3_cases:
         print(f"[probes] {c['case']}: kernel {c['ms']:.4f} ms "
-              f"({c['tops']:.1f} T/s), plain {c['plain_ms']:.4f} ms, "
-              f"library {c['library_ms']}, bound {c['bound_ms']:.4f} ms "
-              f"({c['bound_by']})" + (f", issued/own ops "
-                                      f"{c['issued_ops'] / c['ops']:.3f}"
-                                      if "issued_ops" in c else ""))
+              f"({c['tops']:.1f} T/s, {c['bound_ms'] / c['ms']:.1%} of the "
+              f"bound), mma.sync (recorded) {c['mma_recorded_ms']}, plain "
+              f"{c['plain_ms']:.4f} ms, library {c['library_ms']}, bound "
+              f"{c['bound_ms']:.4f} ms ({c['bound_by']})"
+              + (f", computed/own ops {c['issued_ops'] / c['ops']:.3f}, m64 "
+                 f"tiles/own {c['tiled_ops'] / c['ops']:.3f}"
+                 if "issued_ops" in c else "")
+              + (f"; {c['stage_launches']:.0f} stage launches "
+                 f"{c['stage_ms']:.4f} ms, pad {c['other_ms']:.4f} ms, "
+                 f"launch gap {c['gap_ms']:.4f} ms "
+                 f"({c['gap_lo_ms']:.4f}-{c['gap_hi_ms']:.4f} over the "
+                 f"traces; {c['gap_ms'] / max(c['launches'] - 1, 1):.4f} "
+                 f"between two of its {c['launches']} kernels)"
+                 if "gap_ms" in c else ""))
+    print(f"[probes] the mma.sync times: {mma3['device']} "
+          f"({MMA_MEGAKERNEL.name}, {MMA_CHAIN.name})")
 
-    # E4: the kernel rung's add-one at its size, then the ladder
+    # E4: the kernel rung's add-one at its size, by the chained timing (the
+    # launch and event overheads cancel: the kernel, not the launch), then
+    # the ladder
     x = torch.ones((256, 256), dtype=torch.float32, device=dev)
     y = PK.add_one(x)
     torch.cuda.synchronize()
     require(torch.equal(y, PK.add_one_plain(x)), "add_one differs from x + 1")
-    case = {"case": "E4 f32 [256, 256] + 1",
-            "ms": time_ms(lambda: PK.add_one(x), 20),
-            "plain_ms": time_ms(lambda: PK.add_one_plain(x), 20),
-            "library_ms": library_ms(lambda: torch.add(x, 1.0), "add_one"),
+    case = {"case": "E4 f32 [256, 256] + 1 (chained)",
+            "ms": timing.measure(PK.add_one, x, 0.0).ms,
+            "plain_ms": timing.measure(PK.add_one_plain, x, 0.0).ms,
+            "library_ms": timing.measure(lambda y: torch.add(y, 1.0), x,
+                                         0.0).ms,
+            "event_ms": time_ms(lambda: PK.add_one(x), 20),
+            "event_library_ms": library_ms(lambda: torch.add(x, 1.0),
+                                           "add_one"),
             "max_abs_err": 0.0}
     case["bound_ms"], case["bound_by"] = bound(0, 2 * x.numel() * 4)
     results["add_one"]["cases"].append(case)
     print(f"[probes] {case['case']}: kernel {case['ms']:.4f} ms, plain "
-          f"{case['plain_ms']:.4f} ms, library {case['library_ms']}, bound "
-          f"{case['bound_ms']:.6f} ms")
+          f"{case['plain_ms']:.4f} ms, torch.add {case['library_ms']:.4f} ms, "
+          f"bound {case['bound_ms']:.6f} ms; one launch by events: kernel "
+          f"{case['event_ms']:.4f} ms, torch.add {case['event_library_ms']}")
     ladder = P4.ladder(P4.RUNGS, "cuda")
     require(all(" PASS " in ln for ln in ladder), "a rung of the ladder "
             "failed: " + " | ".join(ln for ln in ladder if " FAIL " in ln))
     return {"launches": {k: counts[k] for k in PROBE_KERNELS},
             "e1": [_rates(r) for r in e1], "e3": [_rates(r) for r in e3],
-            "verdicts": verdicts, "ladder": ladder}
+            "e1_library_split": e1_split, "verdicts": verdicts,
+            "ladder": ladder}
 
 
 def phase_pipeline(results: dict) -> dict:

@@ -16,16 +16,18 @@
 //   - ldmatrix .x4/.x2: lane i gives the address of row i % 8 of matrix
 //     i / 8; lane l receives, of matrix j, the 4 bytes at row l / 4,
 //     bytes 4 (l % 4) ..;
-//   - mma.sync m16n8k32 s8 and m16n8k16 bf16 gather the whole A, B and C
-//     of the warp from every lane's fragment by the PTX fragment tables,
-//     multiply, and hand each lane its D elements by the same tables;
-//   - wgmma.mma_async s8 m64nNk32 (hopper_async.cuh) is queued per thread
-//     like cp.async and runs at the wgmma.wait_group that covers its
-//     group: the warpgroup's 128 threads meet, one of them reads A and B
-//     from shared memory through their descriptors (start, LBO, SBO; a
-//     swizzled layout aborts: no kernel uses one) and hands each thread
-//     its D elements by the ISA's table (row 16 w + g + 8 h, column 8 j +
-//     2 t + e for register 4 j + 2 h + e);
+//   - mma.sync m16n8k32 s8 gathers the whole A, B and C of the warp from
+//     every lane's fragment by the PTX fragment tables, multiplies, and
+//     hands each lane its D elements by the same tables;
+//   - wgmma.mma_async s8 m64nNk32 and bf16 m64nNk16 with f32 sums
+//     (hopper_async.cuh) is queued per thread like cp.async and runs at
+//     the wgmma.wait_group that covers its group: the warpgroup's 128
+//     threads meet, one of them reads A and B from shared memory through
+//     their descriptors (start, LBO, SBO; a swizzled layout aborts: no
+//     kernel uses one) and hands each thread its D elements by the ISA's
+//     table (row 16 w + g + 8 h, column 8 j + 2 t + e for register 4 j +
+//     2 h + e); a bf16 step's 16 products are summed exactly and added to
+//     the f32 sum with one rounding;
 //   - an mbarrier is a phase counter with its arrival count and
 //     transaction bytes; a TMA load is queued on its mbarrier and copied
 //     (zeros outside the tensor) when a thread first waits on that
@@ -371,55 +373,23 @@ inline void shim_mma_s8(int* d, const unsigned* a, const unsigned* b) {
   for (int i = 0; i < 4; ++i) d[i] = out[i];
 }
 
-// bf16 m16n8k16: A a_i (i < 8) in register i / 2, half i % 2
-inline void shim_mma_bf16(float* d, const unsigned* a, const unsigned* b) {
-  const int lane = threadIdx.x % 32;
-  ShimWarp& w = shim_warps[threadIdx.x / 32];
-  for (int i = 0; i < 4; ++i) w.a[lane][i] = a[i], w.cf[lane][i] = d[i];
-  for (int i = 0; i < 2; ++i) w.b[lane][i] = b[i];
-  shim_warp_sync();
-  float A[16][16], B[16][8], C[16][8];
-  for (int l = 0; l < 32; ++l) {
-    const int g = l / 4, t = l % 4;
-    for (int i = 0; i < 8; ++i) {
-      const int row = (i < 2 || (i >= 4 && i < 6)) ? g : g + 8;
-      const int col = t * 2 + (i & 1) + (i >= 4 ? 8 : 0);
-      A[row][col] = shim_bf16_to_float(
-          static_cast<uint16_t>(w.a[l][i / 2] >> (16 * (i % 2))));
-    }
-    for (int i = 0; i < 4; ++i) {
-      const int row = t * 2 + (i & 1) + (i >= 2 ? 8 : 0);
-      B[row][g] = shim_bf16_to_float(
-          static_cast<uint16_t>(w.b[l][i / 2] >> (16 * (i % 2))));
-    }
-    for (int i = 0; i < 4; ++i) C[g + (i >= 2 ? 8 : 0)][t * 2 + (i & 1)] = w.cf[l][i];
-  }
-  const int g = lane / 4, t = lane % 4;
-  float out[4];
-  for (int i = 0; i < 4; ++i) {
-    const int row = g + (i >= 2 ? 8 : 0), col = t * 2 + (i & 1);
-    double s = C[row][col];
-    for (int k = 0; k < 16; ++k) s += static_cast<double>(A[row][k]) * B[k][col];
-    out[i] = static_cast<float>(s);
-  }
-  shim_warp_sync();
-  for (int i = 0; i < 4; ++i) d[i] = out[i];
-}
-
-// --- wgmma s8 m64nNk32, queued per thread, run at the covering wait ------
+// --- wgmma s8 m64nNk32 and bf16 m64nNk16, queued per thread, run at the
+// covering wait -----------------------------------------------------------
 struct ShimGmma {
-  int* d;
+  void* d;   // int[n / 2] (s8) or float[n / 2] (bf16)
   int n;
   uint64_t a, b;
   int scale_d;
+  bool bf16;
 };
 inline thread_local std::vector<ShimGmma> shim_gmma_open;
 inline thread_local std::deque<std::vector<ShimGmma>> shim_gmma_groups;
-inline int* shim_wg_d[8][128];
+inline void* shim_wg_d[8][128];
 inline void shim_wg_sync() { shim_wg_bar[threadIdx.x / 128]->arrive_and_wait(); }
 
-// the byte at (row, k) of a K-major operand of no swizzle
-inline int shim_desc_s8(uint64_t desc, int row, int k) {
+// the shared-memory offset of byte kb of row `row` of a K-major operand of
+// no swizzle
+inline size_t shim_desc_at(uint64_t desc, int row, int kb) {
   if (desc >> 62) {
     std::fprintf(stderr, "shim: a swizzled wgmma operand is not emulated\n");
     std::abort();
@@ -427,21 +397,32 @@ inline int shim_desc_s8(uint64_t desc, int row, int k) {
   const size_t start = (desc & 0x3FFFu) << 4;
   const size_t lbo = ((desc >> 16) & 0x3FFFu) << 4;
   const size_t sbo = ((desc >> 32) & 0x3FFFu) << 4;
-  return static_cast<int8_t>(shim_smem[start + (row / 8) * sbo +
-                                       (row % 8) * 16 + (k / 16) * lbo +
-                                       (k % 16)]);
+  return start + (row / 8) * sbo + (row % 8) * 16 + (kb / 16) * lbo + kb % 16;
+}
+inline int shim_desc_s8(uint64_t desc, int row, int k) {
+  return static_cast<int8_t>(shim_smem[shim_desc_at(desc, row, k)]);
+}
+inline double shim_desc_bf16(uint64_t desc, int row, int k) {
+  uint16_t v;
+  std::memcpy(&v, shim_smem + shim_desc_at(desc, row, 2 * k), 2);
+  return shim_bf16_to_float(v);
 }
 inline void shim_gmma_run(const ShimGmma& op) {
   const int t = threadIdx.x % 128, wg = threadIdx.x / 128;
   shim_wg_d[wg][t] = op.d;
   shim_wg_sync();
   if (t == 0) {
-    std::vector<int> P(64 * op.n);
+    std::vector<double> P(64 * op.n);
     for (int m = 0; m < 64; ++m)
       for (int n = 0; n < op.n; ++n) {
-        int s = 0;
-        for (int k = 0; k < 32; ++k)
-          s += shim_desc_s8(op.a, m, k) * shim_desc_s8(op.b, n, k);
+        double s = 0;
+        if (op.bf16) {   // 16 bf16 products, summed exactly, one rounding
+          for (int k = 0; k < 16; ++k)
+            s += shim_desc_bf16(op.a, m, k) * shim_desc_bf16(op.b, n, k);
+        } else {
+          for (int k = 0; k < 32; ++k)
+            s += shim_desc_s8(op.a, m, k) * shim_desc_s8(op.b, n, k);
+        }
         P[m * op.n + n] = s;
       }
     for (int th = 0; th < 128; ++th)
@@ -449,14 +430,22 @@ inline void shim_gmma_run(const ShimGmma& op) {
         const int lane = th % 32;
         const int m = 16 * (th / 32) + lane / 4 + 8 * ((i / 2) % 2);
         const int n = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
-        int& d = shim_wg_d[wg][th][i];
-        d = (op.scale_d ? d : 0) + P[m * op.n + n];
+        if (op.bf16) {
+          float& d = static_cast<float*>(shim_wg_d[wg][th])[i];
+          d = static_cast<float>((op.scale_d ? d : 0.0) + P[m * op.n + n]);
+        } else {
+          int& d = static_cast<int*>(shim_wg_d[wg][th])[i];
+          d = (op.scale_d ? d : 0) + static_cast<int>(P[m * op.n + n]);
+        }
       }
   }
   shim_wg_sync();
 }
 inline void shim_wgmma_s8(int* d, int n, uint64_t a, uint64_t b, int sd) {
-  shim_gmma_open.push_back({d, n, a, b, sd});
+  shim_gmma_open.push_back({d, n, a, b, sd, false});
+}
+inline void shim_wgmma_bf16(float* d, int n, uint64_t a, uint64_t b, int sd) {
+  shim_gmma_open.push_back({d, n, a, b, sd, true});
 }
 inline void shim_wgmma_commit() {
   shim_gmma_groups.push_back(std::move(shim_gmma_open));

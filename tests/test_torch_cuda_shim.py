@@ -65,8 +65,9 @@ SOURCES = ("chain_mma.cu", "megakernel_probe.cu", "add_one.cu",
            "conv_int8_fused_mma.cu", "mm_int8_fused_mma.cu",
            "dw_int8_fused.cu", "bneck_int8_fused.cu", "sppf_int8_fused.cu",
            "decode_fused.cu")
-ENTRIES = ("tat_chain_mma", "tat_megakernel_1x1", "tat_megakernel_3x3",
-           "tat_add_one", "tat_conv_int8_lagged", "tat_conv_int8_lagged_info",
+ENTRIES = ("tat_chain_mma", "tat_chain_mma_info", "tat_megakernel_1x1",
+           "tat_megakernel_1x1_info", "tat_megakernel_3x3",
+           "tat_megakernel_3x3_info", "tat_add_one", "tat_conv_int8_lagged", "tat_conv_int8_lagged_info",
            "tat_conv_int8_requant_mma", "tat_conv_int8_requant_mma_info",
            "tat_conv_int8_fused_mma", "tat_conv_int8_fused_mma_info",
            "tat_mm_int8_fused_mma", "tat_mm_int8_fused_mma_info",
@@ -90,8 +91,6 @@ inline void ldsm_x4(unsigned (&r)[4], const void* p) { shim_ldsm(r, 4, p); }
 inline void ldsm_x2(unsigned (&r)[2], const void* p) { shim_ldsm(r, 2, p); }
 inline void mma_s8(int (&d)[4], const unsigned (&a)[4],
                    const unsigned (&b)[2]) { shim_mma_s8(d, a, b); }
-inline void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                     const unsigned (&b)[2]) { shim_mma_bf16(d, a, b); }
 """
 _RCP = """
 inline float rcp_approx(float d) { return 1.0f / d; }
@@ -129,8 +128,15 @@ inline void wgmma_fence() {}
 inline void wgmma_commit() { shim_wgmma_commit(); }
 template <int N>
 inline void wgmma_wait() { shim_wgmma_wait(N); }
-template <int R>
-inline void fence_acc(int (&)[R]) {}
+template <int N>
+struct WgmmaBf16 {
+  static void run(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+    shim_wgmma_bf16(d, N, a, b, scale_d);
+  }
+};
+template <class T, int R>
+inline void fence_acc(T (&)[R]) {}
+inline void fence_proxy_async() {}
 inline void mbar_init(uint64_t* bar, int count) { shim_mbar_init(bar, count); }
 inline void fence_barrier_init() {}
 inline void mbar_arrive(uint64_t* bar) { shim_mbar_arrive(bar, 0); }
@@ -269,22 +275,86 @@ def _assert_close(got, ref, kind, stages):
         assert int(d.max()) == 0, (int(d.max()), float((d > 0).double().mean()))
 
 
-CHAIN_PLANS = [PK.ChainPlan(bm, bn) for bm in PK.CHAIN_BMS
-               for bn in PK.chain_bns(bm) if 128 % bn == 0]
+# the row chain at K = 128: (bn, wslots, rows, L) at 128 rows a block, each
+# chunk width and ring depth, rows off the block (a consumer past the last
+# row, one with a few), chains of 1-3 stages
+CHAIN_CASES = [(128, 3, 70, 2), (128, 2, 200, 3), (64, 3, 130, 2),
+               (64, 2, 70, 1), (32, 3, 200, 2), (32, 2, 130, 3),
+               (128, 2, 64, 2), (64, 3, 257, 2), (32, 2, 1, 2)]
 
 
-@pytest.mark.parametrize("plan", CHAIN_PLANS, ids=lambda p: f"bm{p.bm}bn{p.bn}")
+@pytest.mark.parametrize("case", CHAIN_CASES, ids=str)
 @pytest.mark.parametrize("kind", PK.CHAIN_KINDS)
-def test_shim_chain_matches_plain(shim, kind, plan):
-    """E1's four chains at K = 128, L = 2, over 70 rows (off every block
-    size), at every block the launcher can pick."""
-    x, w = _chain_operands(kind, 70, 128, 2, len(kind) + plan.bn)
+def test_shim_chain_matches_plain(shim, kind, case):
+    """E1's four chains on the wgmma row chain at K = 128, 128 rows a
+    block, at each of ``CHAIN_CASES``."""
+    bn, ws, rows, l = case
+    x, w = _chain_operands(kind, rows, 128, l, len(kind) + bn + rows)
     out = torch.empty_like(x)
-    rc = shim.tat_chain_mma(PK._GLUE[kind], x.data_ptr(), w.data_ptr(),
-                            out.data_ptr(), 70, 128, 2, plan.bm, plan.bn,
-                            None)
-    assert rc == 0
+    PK._launch_chain(x, w, kind, out, PK.ChainPlan(128, bn, ws), shim)
+    _assert_close(out, PK.chain_mma_plain(x, w, kind), kind, l)
+
+
+@pytest.mark.parametrize("bn,rows", [(128, 300), (64, 70)])
+@pytest.mark.parametrize("kind", PK.CHAIN_KINDS)
+def test_shim_chain_two_tiles_a_consumer(shim, kind, bn, rows):
+    """256 rows a block (two m64 tiles a consumer, one weight chunk for
+    both) at K = 128, L = 2: rows off the block (a second block of 44
+    rows, a tile past the last row)."""
+    x, w = _chain_operands(kind, rows, 128, 2, bn + rows)
+    out = torch.empty_like(x)
+    PK._launch_chain(x, w, kind, out, PK.ChainPlan(256, bn, 2), shim)
     _assert_close(out, PK.chain_mma_plain(x, w, kind), kind, 2)
+
+
+@pytest.mark.parametrize("bn", [128, 64, 32])
+@pytest.mark.parametrize("kind", ["bf16", "mixed"])
+def test_shim_chain_one_consumer(shim, kind, bn):
+    """bf16 and mixed at 64 rows a block (one consumer warpgroup), the
+    block their K = 512 plans take, at K = 128 over 150 rows, L = 2."""
+    x, w = _chain_operands(kind, 150, 128, 2, bn)
+    out = torch.empty_like(x)
+    PK._launch_chain(x, w, kind, out, PK.ChainPlan(64, bn, 2), shim)
+    _assert_close(out, PK.chain_mma_plain(x, w, kind), kind, 2)
+
+
+def test_shim_chain_layout_and_refusals(shim):
+    """The row chain's shared memory is ``chain_smem``'s for every plan the
+    planner offers at the sweeps' K, every glue; blocks and chunks it
+    cannot run are refused."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    n = 0
+    for kind in PK.CHAIN_GLUES:
+        for k in (128, 256, 512):
+            plans = PK.chain_plans(kind, k, H100)
+            assert plans, (kind, k)
+            for p in plans:
+                if kind == "requant":
+                    rc = shim.tat_megakernel_1x1_info(
+                        PK._GLUE_REQUANT, k, p.bm, p.bn, p.wslots,
+                        ctypes.byref(smem), ctypes.byref(blocks))
+                else:
+                    rc = shim.tat_chain_mma_info(
+                        PK._GLUE[kind], k, p.bm, p.bn, p.wslots,
+                        ctypes.byref(smem), ctypes.byref(blocks))
+                want = PK.chain_smem(kind, k, p)
+                assert rc == 0 and smem.value == want <= H100.per_block
+                assert blocks.value == 233472 // (want + 1024)
+                n += 1
+    assert n >= 60
+    assert PK.chain_plan("int8", 32768, 512, H100) == PK.ChainPlan(128, 64, 3)
+    assert PK.chain_plan("bf16", 32768, 512, H100).bm == 64
+    xi, wi = _chain_operands("int8", 64, 128, 1, 0)
+    # (K, bm, bn, wslots): a 48 chunk, K % bn, 96 rows, 64 rows of int8,
+    # one slot, five
+    for k, bm, bn, ws in ((128, 128, 48, 2), (96, 128, 64, 2),
+                          (128, 96, 64, 2), (128, 64, 64, 2),
+                          (128, 128, 64, 1), (128, 128, 64, 5)):
+        assert shim.tat_chain_mma(0, xi.data_ptr(), wi.data_ptr(),
+                                  xi.data_ptr(), 64, k, 1, bm, bn, ws,
+                                  None) == 1
+    with pytest.raises(ValueError, match="fits"):
+        PK.chain_plan("int8", 100, 48, H100)
 
 
 ONE_BY_ONE = [k for k in PK.MEGA_KINDS if not PK.is_spatial(k)]
@@ -295,25 +365,36 @@ def test_shim_megakernel_1x1_matches_plain(shim, kind):
     rng = np.random.default_rng(3)
     x, w = _rng_int8(rng, (72, 64)), _rng_int8(rng, (2, 1, 64, 64))
     cs = torch.from_numpy(rng.uniform(0.5, 2.0, 64).astype(np.float32))
-    act = PK.MEGA_ACT.get(kind)
+    plan = PK.chain_plan("requant" if kind in PK.MEGA_ACT else "int8", 72,
+                         64, H100)
     for stages in (1, 2):
         out = torch.empty_like(x)
-        rc = shim.tat_megakernel_1x1(
-            PK._GLUE_REQUANT if act else 0, x.data_ptr(), w.data_ptr(),
-            cs.data_ptr(), out.data_ptr(), 72, 64, stages, 64, 32,
-            FK._ACT_CODE[act] if act else 0, PK.INV_OUT, PK.ALPHA, None)
-        assert rc == 0
+        PK._launch_1x1(kind, x, w[:stages], cs, out, plan, shim)
         _assert_close(out, PK.megakernel_chain_plain(kind, x, w[:stages], cs),
                       kind, stages)
 
 
 SPATIAL = [k for k in PK.MEGA_KINDS if PK.is_spatial(k)]
-# (H, plan): flat and tall sub-tiles, square, a whole cell; slabs of 1, 2
-# and 4 n8 tiles; 1, 2 and 4 m16 tiles a warp (H = 16 whole: 324 and 400
-# rows a phase)
-SPATIAL_CASES = [(8, PK.SpatialPlan(4, 8, 8)), (8, PK.SpatialPlan(8, 4, 16)),
-                 (8, PK.SpatialPlan(4, 4, 32)), (8, PK.SpatialPlan(8, 8, 16)),
-                 (16, PK.SpatialPlan(16, 16, 32))]
+H100 = FK.SmemLimits(132, 233472, 232448)
+# E3's stage kernel: (K, H, L, plan) on 3 cells; plan None: the planner's
+# pick for an H100 at each launch (resident weights here), else (bn, kc,
+# stages, resident, blocks[, wslots]) for every launch, kc None the whole
+# row. The
+# extents 5 + 2L, 6 + 2L and 10 + 2L cut 8 x 8 tiles at every edge (H = 10
+# and 12: several tiles a cell in the plane-major stages); weights streamed
+# in one chunk and in several (kc 32: two or four chunks a row); a
+# two-slot ring, a 32-channel block under K = 64; one persistent block
+# (every tile through one block's ring; 3 tiles: a stand-in in the last
+# round of two) and three
+SPATIAL_CASES = {
+    "k32-h8-l1-pick": (32, 8, 1, None),
+    "k64-h8-l2-pick": (64, 8, 2, None),
+    "k64-h5-l2-streamed-chunks": (64, 5, 2, (32, 32, 3, False, 1, 3)),
+    "k32-h6-l2-streamed": (32, 6, 2, (32, None, 2, False, 3, 2)),
+    "k64-h5-l1-resident-bn32": (64, 5, 1, (32, None, 2, True, 1)),
+    "k32-h12-l2-pick": (32, 12, 2, None),
+    "k32-h10-l2-streamed": (32, 10, 2, (32, None, 3, False, 2, 4)),
+}
 
 
 def _spatial_operands(kind, k, h, l, cells, seed):
@@ -332,22 +413,70 @@ def _spatial_operands(kind, k, h, l, cells, seed):
     return x, w1, w, cs
 
 
-@pytest.mark.parametrize("h,plan", SPATIAL_CASES, ids=lambda c: str(c))
+@pytest.mark.parametrize("case", SPATIAL_CASES)
 @pytest.mark.parametrize("kind", SPATIAL)
-def test_shim_megakernel_3x3_matches_plain(shim, kind, h, plan):
-    """The valid-shrink 3x3 chains and the C3 round at K = 64, L = 2, one
-    cell, on the sub-tiles and slabs of ``SPATIAL_CASES``."""
-    k, l = 64, 2
-    x, w1, w3, cs = _spatial_operands(kind, k, h, l, 1, plan.bn + plan.th)
-    out = torch.empty((1, h, h, k), dtype=x.dtype)
-    act = PK.MEGA_ACT.get(kind, "NONE")
-    rc = shim.tat_megakernel_3x3(
-        PK._SPATIAL_CODE[kind], x.data_ptr(), w1.data_ptr(), w3.data_ptr(),
-        cs.data_ptr(), out.data_ptr(), 1, h, l, k, plan.th, plan.tw, plan.bn,
-        FK._ACT_CODE[act], PK.INV_OUT, PK.ALPHA, PK.RES_SCALE, None)
-    assert rc == 0
-    w = (w1, w3) if kind == "i8-c3-round" else w3
+def test_shim_megakernel_3x3_matches_plain(shim, kind, case):
+    """The valid-shrink 3x3 chains and the C3 round through the wrapper's
+    own launch sequence (``_run_spatial``: a stage-kernel launch a stage,
+    the C3 round's 1x1 then its taps, the stages' outputs in the scratch
+    tensors) with the shim's build, at each of ``SPATIAL_CASES``."""
+    k, h, l, plan = SPATIAL_CASES[case]
+    c3 = kind == "i8-c3-round"
+    x, w1, w3, cs = _spatial_operands(kind, k, h, l, 3, k + h + l)
+    if plan is not None:
+        bn, kc, stages, resident, blocks, *ws = plan
+        plan = PK.StagePlan(bn, kc or PK._row_bytes(kind, k), stages,
+                            resident, blocks, *ws)
+    out = torch.full((3, h, h, k), 99, dtype=torch.int8).to(x.dtype)
+    n = PK._run_spatial(kind, x, w1 if c3 else None, w3, cs, out, H100,
+                        plan, shim)
+    assert n == (2 * l if c3 else l)
+    w = (w1, w3) if c3 else w3
     _assert_close(out, PK.megakernel_chain_plain(kind, x, w, cs), kind, l)
+
+
+def test_shim_megakernel_3x3_layout_and_refusals(shim):
+    """The stage kernel's shared memory is ``stage_smem``'s for every plan
+    the planner offers at the sweeps' row sizes, for the taps and the 1x1;
+    plans and shapes it cannot run are refused."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    n = 0
+    for ep, taps, k in ((PK.EP_SHIFT, 9, 256), (PK.EP_BF16, 9, 256),
+                        (PK.EP_RESIDUAL, 9, 512), (PK.EP_REQUANT, 1, 512),
+                        (PK.EP_REQUANT, 9, 64)):
+        row = 2 * k if ep == PK.EP_BF16 else k
+        for p in PK.stage_plans(taps, row, k, 100, H100):
+            assert shim.tat_megakernel_3x3_info(
+                ep, taps, k, p.bn, p.kc, p.stages, int(p.resident), p.wslots,
+                ctypes.byref(smem), ctypes.byref(blocks)) == 0
+            want = PK.stage_smem(taps, row, p.bn, p.kc, p.stages, p.resident,
+                                 p.wslots)
+            assert smem.value == want and want <= H100.per_block
+            assert blocks.value == 233472 // (want + 1024)
+            n += 1
+    assert n >= 60
+    x, w1, w3, cs = _spatial_operands("i8-c3-round", 64, 6, 1, 1, 0)
+    out = torch.empty((1, 6, 6, 64), dtype=torch.int8)
+    ok = (PK.EP_RESIDUAL, 9, 0, 64, 64, 64, 3, 1, 0)
+    # ep, taps, x offset, K, bn, kc, stages, resident, res missing
+    bad = [(PK.EP_RESIDUAL, 9, 0, 64, 48, 64, 3, 1, 0),   # bn
+           (PK.EP_RESIDUAL, 9, 0, 64, 64, 48, 3, 0, 0),   # kc % 32
+           (PK.EP_RESIDUAL, 9, 0, 64, 64, 32, 3, 1, 0),   # resident chunk
+           (PK.EP_RESIDUAL, 9, 0, 64, 64, 64, 1, 1, 0),   # one slot
+           (PK.EP_RESIDUAL, 9, 0, 64, 64, 64, 5, 1, 0),   # five slots
+           (PK.EP_RESIDUAL, 9, 0, 96, 64, 96, 3, 1, 0),   # K % bn
+           (PK.EP_SHIFT, 1, 0, 64, 64, 64, 3, 1, 0),      # a 1x1 shift
+           (PK.EP_RESIDUAL, 9, 0, 64, 64, 64, 3, 1, 1),   # no residual
+           (PK.EP_RESIDUAL, 9, 8, 64, 64, 64, 3, 1, 0)]   # x off 16 bytes
+    wt = PK.tile_weights(w3, 64)[0]
+    for ep, taps, off, k, bn, kc, st, res, nores in [ok] + bad:
+        rc = shim.tat_megakernel_3x3(
+            ep, taps, x.data_ptr() + off, wt.data_ptr(), cs.data_ptr(),
+            None if nores else x.data_ptr(), out.data_ptr(), 0, 0, 0, 1, 8,
+            k, FK._ACT_CODE["SILU"], PK.INV_OUT, PK.ALPHA, PK.RES_SCALE, bn,
+            kc, st, res, 2, 1, None)
+        assert rc == (0 if (ep, taps, off, k, bn, kc, st, res, nores) == ok
+                      else 1)
 
 
 def test_shim_add_one_and_refusals(shim):
@@ -356,10 +485,19 @@ def test_shim_add_one_and_refusals(shim):
     assert shim.tat_add_one(x.data_ptr(), out.data_ptr(), 1000, None) == 0
     assert torch.equal(out, PK.add_one_plain(x))
     xi, wi = _chain_operands("int8", 64, 128, 1, 0)
-    refused = [(1, 128, 64, 48), (1, 96, 128, 64), (1, 128, 96, 64)]
-    for l, k, bm, bn in refused:   # bn off a warp's tiles, K % bn, bm
-        assert shim.tat_chain_mma(0, xi.data_ptr(), wi.data_ptr(),
-                                  xi.data_ptr(), 64, k, l, bm, bn, None) == 1
+    out = torch.empty_like(xi)
+    ok = (PK._GLUE_REQUANT, 3, 0)
+    # the requantize without cs, an act past SILU_FAST, a glue the 1x1
+    # entry does not take
+    for glue, act, nocs in [ok, (PK._GLUE_REQUANT, 3, 1),
+                            (PK._GLUE_REQUANT, 5, 0), (PK._GLUE["bf16"], 0,
+                                                       0)]:
+        cs = torch.ones(128)
+        rc = shim.tat_megakernel_1x1(
+            glue, xi.data_ptr(), wi.data_ptr(), None if nocs else
+            cs.data_ptr(), out.data_ptr(), 64, 128, 1, 128, 64, 2, act,
+            PK.INV_OUT, PK.ALPHA, None)
+        assert rc == (0 if (glue, act, nocs) == ok else 1)
 
 
 # E2's lagged conv: a 10 x 20 image (ragged under the 8 x 8 tile in both
@@ -451,7 +589,6 @@ def test_shim_lagged_layout_and_refusals(shim):
 # (the stem, C = 6 and 32), by bytes (C = 3 at 3x3: 9-byte runs) and by
 # the k table (dilation 2), its slab loads inside the image (C = 3 on a
 # 24 x 40 image) and at its edges
-H100 = FK.SmemLimits(132, 233472, 232448)
 HALF, TRUNC = RoundMode.HALF_AWAY, RoundMode.PLUS_HALF_TRUNC
 MMA_CASES = {
     "3x3s1-c32": (2, 10, 20, 32, 40, 3, 3, (1, 1), (1, 1), ((1, 1), (1, 1)),

@@ -1310,25 +1310,48 @@ def test_chain_kernel_matches_plain(cuda, kind, k):
 
 @pytest.mark.parametrize("kind", PK.CHAIN_KINDS)
 def test_chain_kernel_every_plan(cuda, kind):
-    """Every block (64, 128, 256 rows) and weight slab the launcher can
-    pick that fits this card, at K = 128 and 256."""
+    """Every block (128 rows, and 64 for bf16 and mixed), weight chunk and
+    ring depth the planner offers this card, at K = 128, 256 and 512."""
     lim = FK.smem_limits(cuda)
     rng = np.random.default_rng(9)
     n = 0
-    for k in (128, 256):
+    for k in (128, 256, 512):
         x, w = _chain_operands(rng, kind, 300, k, 2, cuda)
         ref = PK.chain_mma_plain(x, w, kind)
-        for bm in PK.CHAIN_BMS:
-            for bn in PK.chain_bns(bm):
-                plan = PK.ChainPlan(bm, bn)
-                if k % bn or PK.chain_smem(kind, k, plan) > lim.per_block:
-                    continue
-                out = torch.empty_like(x)
-                PK._launch_chain(x, w, kind, out, plan)
-                torch.cuda.synchronize()
-                _probe_close(out, ref, kind, 2)
-                n += 1
+        for plan in PK.chain_plans(kind, k, lim):
+            out = torch.empty_like(x)
+            PK._launch_chain(x, w, kind, out, plan)
+            torch.cuda.synchronize()
+            _probe_close(out, ref, kind, 2)
+            smem, blocks = PK.chain_occupancy(kind, k, plan)
+            assert smem == PK.chain_smem(kind, k, plan) and blocks >= 1
+            n += 1
     assert n >= 12
+
+
+@pytest.mark.parametrize("variant", ["no_glue", "no_product", "neither"])
+def test_chain_measurement_builds_launch(cuda, variant):
+    """``kxk_bench``'s measurement builds of the row chain
+    (``CHAIN_VARIANTS``: ``-DTAT_CHAIN_NO_GLUE`` / ``_NO_PRODUCT``, which
+    split E1's time into glue and product) build and launch at the blocks
+    the launcher picks for the sweep's rows, for the int8 and bf16 chains
+    at K = 256 and 512; the library's build beside them still equals its
+    plain version."""
+    from thingino_accel_tpu_torch import kxk_bench as KB
+    from thingino_accel_tpu_torch.ops import cuda_build
+    lib = cuda_build.load_variant("chain_mma.cu", KB.CHAIN_VARIANTS[variant],
+                                  ("tat_chain_mma", "tat_chain_mma_info"))
+    lim = FK.smem_limits(cuda)
+    rng = np.random.default_rng(4)
+    for kind in ("int8", "bf16"):
+        for k in (256, 512):
+            x, w = _chain_operands(rng, kind, 600, k, 2, cuda)
+            plan = PK.chain_plan(kind, 32768, k, lim)
+            PK._launch_chain(x, w, kind, torch.empty_like(x), plan, lib)
+            out = torch.empty_like(x)
+            PK._launch_chain(x, w, kind, out, plan)
+            torch.cuda.synchronize()
+            _probe_close(out, PK.chain_mma_plain(x, w, kind), kind, 2)
 
 
 def test_chain_kernel_int4_wrap_edges(cuda):
@@ -1391,19 +1414,22 @@ SPATIAL_KINDS = [k for k in PK.MEGA_KINDS if PK.is_spatial(k)]
 
 @pytest.mark.parametrize("kind", SPATIAL_KINDS)
 def test_megakernel_3x3_every_plan(cuda, kind):
-    """Every sub-tile and slab the launcher can pick at H = 8, K = 64, on
-    3 cells: L = 1 (the SILU bound) and L = 2."""
+    """Every block the planner offers this card for the taps at K = 64
+    (resident and streamed weights, each chunk, ring depth and channel
+    block), forced on every launch, at H = 8 on 3 cells: L = 1 (the SILU
+    bound) and L = 2."""
     lim = FK.smem_limits(cuda)
     rng = np.random.default_rng(14)
+    row = PK._row_bytes(kind, 64)
+    plans = PK.stage_plans(9, row, 64, 12, lim)
+    assert len(plans) >= 12 and any(not p.resident for p in plans)
     for l in (1, 2):
         x, w, cs = _spatial_operands(rng, kind, 64, 8, l, 3, cuda)
         ref = PK.megakernel_chain_plain(kind, x, w, cs)
-        plans = PK.spatial_plans(kind, 64, 8, l, lim)
-        assert len(plans) == 27
         w1, w3 = w if kind == "i8-c3-round" else (None, w)
         for plan in plans:
             out = torch.empty(ref.shape, dtype=ref.dtype, device=cuda)
-            PK._launch_spatial(x, w1, w3, cs, out, kind, plan)
+            PK._run_spatial(kind, x, w1, w3, cs, out, plan=plan)
             torch.cuda.synchronize()
             _probe_close(out, ref, kind, l)
 
@@ -1411,16 +1437,35 @@ def test_megakernel_3x3_every_plan(cuda, kind):
 @pytest.mark.parametrize("k", [256, 512])
 @pytest.mark.parametrize("kind", SPATIAL_KINDS)
 def test_megakernel_3x3_at_the_probe_size(cuda, kind, k):
-    """The probe's cell (H = 32, L = 4) on 2 cells, with the plan the
-    launcher picks for this card; SILU kinds also at L = 1."""
+    """The probe's cell (H = 32, L = 4) on 2 cells, with the plans the
+    launcher picks for this card, one launch a stage (the C3 round two);
+    SILU kinds also at L = 1; and a ragged cell, H = 29 at L = 2 (extents
+    33, 31 and 29, none a multiple of 8)."""
     rng = np.random.default_rng(k)
-    for l in ((1, 4) if PK.MEGA_ACT.get(kind) == "SILU" else (4,)):
-        x, w, cs = _spatial_operands(rng, kind, k, 32, l, 2, cuda)
+    cases = [(32, l) for l in ((1, 4) if PK.MEGA_ACT.get(kind) == "SILU"
+                               else (4,))] + [(29, 2)]
+    for h, l in cases:
+        x, w, cs = _spatial_operands(rng, kind, k, h, l, 2, cuda)
         before = PK.launches["megakernel_probe"]
         out = PK.megakernel_chain(kind, x, w, cs)
         torch.cuda.synchronize()
-        assert PK.launches["megakernel_probe"] == before + 1
+        assert PK.launches["megakernel_probe"] == before + (
+            2 * l if kind == "i8-c3-round" else l)
         _probe_close(out, PK.megakernel_chain_plain(kind, x, w, cs), kind, l)
+
+
+def test_megakernel_stage_kernel_occupancy(cuda):
+    """The stage kernel's shared memory on the card is ``stage_smem``'s at
+    the sweeps' picks, one block an SM where it takes more than half."""
+    lim = FK.smem_limits(cuda)
+    for ep, taps, k in ((PK.EP_RESIDUAL, 9, 256), (PK.EP_REQUANT, 1, 256),
+                        (PK.EP_BF16, 9, 512), (PK.EP_SHIFT, 9, 512)):
+        row = 2 * k if ep == PK.EP_BF16 else k
+        plan = PK.stage_plan(taps, row, k, 400, lim)
+        smem, blocks = PK.stage_occupancy(ep, taps, k, plan)
+        assert smem == PK.stage_smem(taps, row, plan.bn, plan.kc,
+                                     plan.stages, plan.resident, plan.wslots)
+        assert blocks >= 1 and (blocks == 1 or 2 * smem <= lim.per_sm)
 
 
 def test_probe_kernels_refuse_what_they_cannot_run(cuda):
@@ -1428,15 +1473,20 @@ def test_probe_kernels_refuse_what_they_cannot_run(cuda):
     rng = np.random.default_rng(15)
     x, w = _chain_operands(rng, "int8", 64, 512, 1, cuda)
     out = torch.empty_like(x)
-    for plan in (PK.ChainPlan(64, 48), PK.ChainPlan(96, 64),
-                 PK.ChainPlan(256, 64)):   # slab, block, shared memory
+    with pytest.raises(ValueError, match="do not tile"):   # a 48 chunk
+        PK._launch_chain(x, w, "int8", out, PK.ChainPlan(128, 48, 2))
+    for plan in (PK.ChainPlan(96, 64, 2), PK.ChainPlan(64, 64, 2),
+                 PK.ChainPlan(128, 128, 4)):   # block, int8 at 64, memory
         with pytest.raises(RuntimeError, match="cudaError"):
             PK._launch_chain(x, w, "int8", out, plan)
     xs, ws, _ = _spatial_operands(rng, "i8-shift-3x3", 64, 8, 1, 1, cuda)
     outs = torch.empty((1, 8, 8, 64), dtype=torch.int8, device=cuda)
-    with pytest.raises(RuntimeError, match="cudaError"):
-        PK._launch_spatial(xs, None, ws, None, outs, "i8-shift-3x3",
-                           PK.SpatialPlan(3, 8, 32))
+    for plan, taps in ((PK.StagePlan(48, 64, 3, True, 1), 9),   # block
+                       (PK.StagePlan(64, 32, 3, True, 1), 9),   # chunk
+                       (PK.StagePlan(64, 64, 3, True, 1), 5)):  # taps
+        with pytest.raises(RuntimeError, match="cudaError"):
+            PK._launch_stage(PK.EP_SHIFT, taps, xs, ws[0], None, None, outs,
+                             "NONE", plan)
     with pytest.raises(ValueError, match="contiguous"):
         PK.chain_mma(x.t().contiguous().t(), w, "int8")
 

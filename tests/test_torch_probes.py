@@ -187,8 +187,9 @@ def test_megakernel_silu_kinds_at_one_stage(e3, kind, monkeypatch):
 
 def test_megakernel_op_counts_equal_the_probe(e3):
     """``ops_of`` is ``_ops_3x3`` / ``_ops_c3`` / the 1x1 count of the
-    example at the shrunk geometry; a plan whose sub-tile
-    is the whole cell issues exactly those operations, any other more."""
+    example at the shrunk geometry; the stage kernel's launches compute
+    exactly those operations (no halo twice), and their 8 x 8 tiles issue
+    more where an extent is ragged, as many where none is."""
     for kind in P3.KINDS:
         for k in (128, 256):
             want = (e3._ops_c3(k) if kind == "i8-c3-round" else
@@ -196,12 +197,36 @@ def test_megakernel_op_counts_equal_the_probe(e3):
                     2.0 * 8 * 8 * k * k * 2 * 2 / 1e12)
             assert P3.ops_of(kind, k) == pytest.approx(want * 1e12)
     for kind in ("i8-shift-3x3", "i8-c3-round"):
-        whole = PK.spatial_issued_ops(kind, 128, 8, 2, 2,
-                                      PK.SpatialPlan(8, 8, 32))
-        assert whole == pytest.approx(P3.ops_of(kind, 128))
-        part = PK.spatial_issued_ops(kind, 128, 8, 2, 2,
-                                     PK.SpatialPlan(4, 4, 32))
-        assert part > whole
+        own, tiled = PK.spatial_ops(kind, 128, 8, 2, 2)
+        assert own == pytest.approx(P3.ops_of(kind, 128))
+        assert P3.issued_ops(kind, 128) == (own, tiled)
+        assert tiled > own   # extents 12 and 10: tiles of 16 x 16 pixels
+    # H = 8, L = 1: the taps' one output extent is 8, a whole tile
+    own, tiled = PK.spatial_ops("i8-shift-3x3", 64, 8, 1, 3)
+    assert own == tiled == 2.0 * 9 * 64 * 64 * 64 * 3
+    assert len(PK.spatial_launches("i8-c3-round", 12, 2)) == 4
+
+
+def test_trace_read_takes_the_gap_inside_each_application():
+    """``probes.megakernel.trace_read``: two applications of three kernels
+    (two stage launches, then the pad), out of order in the trace; the gap
+    counts each kernel's start less the previous one's end inside an
+    application, not the time between applications."""
+    spans = [("stage_wgmma_kernel<1>", 0.0, 10.0),
+             ("stage_wgmma_kernel<9>", 12.0, 30.0),
+             ("at::native::pad", 31.0, 35.0),
+             ("at::native::pad", 136.0, 140.0),
+             ("stage_wgmma_kernel<9>", 115.0, 133.0),
+             ("stage_wgmma_kernel<1>", 100.0, 110.0)]
+    r = P3.trace_read(spans, 2)
+    assert r["launches"] == 3 and r["stage_launches"] == 2
+    assert r["gap_ms"] == pytest.approx((2 + 1 + 5 + 3) / 2 / 1e3)
+    assert r["stage_ms"] == pytest.approx(28 / 1e3)
+    assert r["other_ms"] == pytest.approx(4 / 1e3)
+    assert P3.trace_read([("row_chain_wgmma_kernel<0>", 0.0, 4.0)],
+                         1)["stage_launches"] == 1
+    with pytest.raises(ValueError):
+        P3.trace_read(spans[:5], 2)
 
 
 def test_sigmoid_fast_equals_jax_outside_a_kernel():
@@ -241,24 +266,47 @@ def test_plans_fit_the_card_at_the_sweep_sizes():
     """Every E1 variant and E3 kind has a plan within an H100's shared
     memory at the sweeps' sizes, and the plans' sizes are what the
     sources lay out."""
-    for kind in P1.KINDS:
+    for kind in P1.KINDS + ("requant",):
         for k in P1.KS:
             plan = PK.chain_plan(kind, P1.M * P1.GRID, k, H100)
             assert PK.chain_smem(kind, k, plan) <= H100.per_block
-            assert plan.bn in PK.chain_bns(plan.bm) and k % plan.bn == 0
-    assert PK.chain_plan("int8", 32768, 512, H100) == PK.ChainPlan(128, 64)
-    assert PK.chain_smem("int8", 512, PK.ChainPlan(128, 64)) == \
-        2 * 128 * 528 + 2 * 64 * 528
-    assert PK.chain_plan("bf16", 32768, 512, H100) == PK.ChainPlan(64, 32)
-    assert PK.chain_plan("int8", 40, 128, H100).bm == 64
+            assert plan.bm in PK.CHAIN_BMS and k % plan.bn == 0
+    # int8 at K = 512: two buffers of 128 rows (128 KB) and three chunks of
+    # 64 columns (256 rows do not fit); bf16 rows there need a block of 64
+    assert PK.chain_plan("int8", 32768, 512, H100) == PK.ChainPlan(128, 64, 3)
+    assert PK.chain_smem("int8", 512, PK.ChainPlan(128, 64, 3)) == \
+        2 * 128 * 512 + 3 * 512 * 64 + 8 * (2 + 6 + 2)
+    assert PK.chain_plan("bf16", 32768, 512, H100) == PK.ChainPlan(64, 32, 3)
+    # K = 128 and 256: 256 rows a block (two m64 tiles a consumer) where
+    # the blocks still fill nine tenths of the SMs (E1's 32768 rows: 128
+    # blocks), 128 where they would not (E3's 1x1 kinds: 16384 rows)
+    assert PK.chain_plan("int8", 32768, 128, H100) == PK.ChainPlan(256, 128,
+                                                                   4)
+    assert PK.chain_plan("int8", 32768, 256, H100).bm == 256
+    assert PK.chain_plan("requant", 16384, 256, H100).bm == 128
+    assert PK.chain_plan("int8", 100, 128, H100).bm == 128
     for kind in P3.KINDS:
         for k in P3.KS:
-            if PK.is_spatial(kind):
-                plan = PK.spatial_plan(kind, k, 32, 4, H100)
-                assert PK.spatial_smem(kind, k, 4, plan) <= H100.per_block
-                assert 32 % plan.th == 0 and 32 % plan.tw == 0
-    assert PK.spatial_smem("i8-c3-round", 256, 4, PK.SpatialPlan(8, 8, 32)) \
-        == 272 * (256 + 196 + 256 + 3 * 32)
+            if not PK.is_spatial(kind):
+                continue
+            row = PK._row_bytes(kind, k)
+            for _, taps, e in PK.spatial_launches(kind, 40, 4):
+                tiles = PK.stage_tiles(taps, P3.GRID, e)
+                plan = PK.stage_plan(taps, row, k, tiles, H100)
+                assert PK.stage_smem(taps, row, plan.bn, plan.kc,
+                                     plan.stages, plan.resident,
+                                     plan.wslots) <= H100.per_block
+                assert k % plan.bn == 0 and row % plan.kc == 0
+                assert plan.blocks * k // plan.bn <= 132 * 5
+    # K = 256: the weights resident at bn 64 (9 x 256 x 64 bytes), three
+    # 16-plane slab slots of 10 x 10 pixels; K = 512 streams them
+    assert PK.stage_plan(9, 256, 256, 400, H100) == PK.StagePlan(
+        64, 256, 3, True, 33)
+    assert PK.stage_smem(9, 256, 64, 256, 3, True) == \
+        9 * 256 * 64 + 3 * 16 * 1664 + 4 * 64 + 8 * 7
+    assert not PK.stage_plan(9, 512, 512, 400, H100).resident
+    with pytest.raises(ValueError, match="fits"):
+        PK.stage_plan(9, 48, 48, 10, H100)   # no block divides K
     with pytest.raises(ValueError, match="fits"):
         PK.chain_plan("bf16", 100, 4096, H100)
 

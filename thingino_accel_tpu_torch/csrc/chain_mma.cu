@@ -8,49 +8,78 @@
 //
 // What bounds it on the H100: the tensor cores. 2 m k^2 L grid operations
 // (1.1e11 at k = 512) against 2 m grid k bytes of x in and out: 1,979 int8
-// TOP/s or 989 bf16 TFLOP/s is the limit, memory is not. Design
-// (chain_mma.cuh): a block keeps its rows in shared memory for all L
-// stages and streams the weights from L2 in N-chunks; the products are
-// mma.sync tiles (m16n8k32 s8, m16n8k16 bf16), the simple first step; the
-// full rate needs wgmma, later work. Four variants, one template each:
+// TOP/s or 989 bf16 TFLOP/s is the limit, memory is not; with both
+// operands read from shared memory, the shared memory's bandwidth at a
+// narrow BN. Design (chain_mma.cuh): a block keeps its rows in shared
+// memory for all L stages, as wgmma A operands, and streams the weights
+// from L2 by TMA in N-chunks; the products are wgmma (s8 m64nNk32, bf16
+// m64nNk16). Four variants, one template each:
 //   int8   s8 x s8, (acc >> 7) as int8
 //   bf16   bf16 x bf16, f32 sums, bf16(acc / 128)
-//   mixed  int8 storage, bf16 products, clip(acc / 128, +-127) truncated
-//   int4w  int8 x int4 weights: PTX mma takes .s4 only with .s4 on both
-//          sides, so w is stored wrapped to int4 (as JAX's astype(int4)
-//          wraps) and packed two a byte, unpacked to s8 in shared memory
-//          and multiplied at the s8 rate, on half the weight bytes.
+//   mixed  int8 storage, bf16 products (bf16 copies of the rows and
+//          weights in shared memory), clip(acc / 128, +-127) truncated
+//   int4w  int8 x int4 weights: wgmma takes no s8 x s4 product, so w is
+//          stored wrapped to int4 (as JAX's astype(int4) wraps) and packed
+//          two a byte, unpacked to s8 in shared memory by the producer
+//          warpgroup and multiplied at the s8 rate, on half the weight
+//          bytes.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "chain_mma.cuh"
 
+namespace {
+
+template <int G>
+int run(const void* x, const void* w, void* out, long long rows, int K,
+        int L, int bm, int bn, int wslots, cudaStream_t s) {
+  return tat::launch_row_chain<G>(x, w, out, rows, K, L, bm, bn, wslots,
+                                  tat::GlueArgs{nullptr, 0, 0.0f, 0.0f}, s);
+}
+
+template <int G>
+int info(int K, int bm, int bn, int wslots, int* smem, int* blocks) {
+  return tat::row_chain_info<G>(K, bm, bn, wslots, smem, blocks);
+}
+
+}  // namespace
+
+// glue: tat::ChainGlue (kGlueShift7 int8, kGlueBf16, kGlueMixed,
+// kGlueInt4w); x [rows, K] (bf16: 2 K bytes a row), w [L, K, K] (int4w:
+// [L, K, K / 2] packed), out like x; the plan: bm rows a block (128, or 64
+// for bf16 and mixed), bn columns a weight chunk, wslots chunks in flight.
 extern "C" int tat_chain_mma(int glue, const void* x, const void* w,
                              void* out, long long rows, int K, int L, int bm,
-                             int bn, void* stream) {
-  tat::RowChainArgs a{};
-  a.x = static_cast<const unsigned char*>(x);
-  a.w = static_cast<const unsigned char*>(w);
-  a.out = static_cast<unsigned char*>(out);
-  a.rows = rows;
-  a.K = K;
-  a.L = L;
-  a.bm = bm;
-  a.bn = bn;
-  a.row_bytes = glue == tat::kGlueBf16 ? 2 * K : K;
-  a.w_row_bytes = glue == tat::kGlueInt4w ? K / 2 : a.row_bytes;
-  a.pitch = a.row_bytes + tat::kRowPad;
+                             int bn, int wslots, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   switch (glue) {
     case tat::kGlueShift7:
-      return tat::launch_row_chain<tat::kGlueShift7>(a, s);
+      return run<tat::kGlueShift7>(x, w, out, rows, K, L, bm, bn, wslots, s);
     case tat::kGlueBf16:
-      return tat::launch_row_chain<tat::kGlueBf16>(a, s);
+      return run<tat::kGlueBf16>(x, w, out, rows, K, L, bm, bn, wslots, s);
     case tat::kGlueMixed:
-      return tat::launch_row_chain<tat::kGlueMixed>(a, s);
+      return run<tat::kGlueMixed>(x, w, out, rows, K, L, bm, bn, wslots, s);
     case tat::kGlueInt4w:
-      return tat::launch_row_chain<tat::kGlueInt4w>(a, s);
+      return run<tat::kGlueInt4w>(x, w, out, rows, K, L, bm, bn, wslots, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The dynamic shared memory of a plan and the blocks of it an SM holds;
+// cudaErrorInvalidValue for a plan the kernel cannot run.
+extern "C" int tat_chain_mma_info(int glue, int K, int bm, int bn,
+                                  int wslots, int* smem, int* blocks) {
+  switch (glue) {
+    case tat::kGlueShift7:
+      return info<tat::kGlueShift7>(K, bm, bn, wslots, smem, blocks);
+    case tat::kGlueBf16:
+      return info<tat::kGlueBf16>(K, bm, bn, wslots, smem, blocks);
+    case tat::kGlueMixed:
+      return info<tat::kGlueMixed>(K, bm, bn, wslots, smem, blocks);
+    case tat::kGlueInt4w:
+      return info<tat::kGlueInt4w>(K, bm, bn, wslots, smem, blocks);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -150,7 +150,7 @@ __device__ __forceinline__ void store_tile(const int (&d)[BN / 2],
                                            float alpha,
                                            int8_t* __restrict__ out) {
   const int t = threadIdx.x % kWgThreads, lane = t & 31;
-  const int tq = lane & 3, hb = (lane >> 1) & 1, lb = lane & 1;
+  const int tq = lane & 3;
   int8_t* orow[2];
   bool ok[2];
 #pragma unroll
@@ -186,22 +186,10 @@ __device__ __forceinline__ void store_tile(const int (&d)[BN / 2],
       }
       // the quad's 4 x 4 pieces transposed: lane tq ends with block
       // 4 q + tq, the pieces of lanes 0..3 in order
-      const unsigned w0 = u[0] | u[1] << 16, w1 = u[2] | u[3] << 16;
-      const unsigned keep = hb ? w1 : w0;
-      const unsigned other = __shfl_xor_sync(0xffffffffu, hb ? w0 : w1, 2);
-      const unsigned mine = lb ? keep >> 16 : keep & 0xffffu;
-      const unsigned mine2 = lb ? other >> 16 : other & 0xffffu;
-      const unsigned give = lb ? (keep & 0xffffu) | (other << 16)
-                               : (keep >> 16) | (other & 0xffff0000u);
-      const unsigned got = __shfl_xor_sync(0xffffffffu, give, 1);
-      const unsigned pair = lb ? (got & 0xffffu) | mine << 16
-                               : mine | got << 16;
-      const unsigned pair2 = lb ? (got >> 16) | mine2 << 16
-                                : mine2 | (got & 0xffff0000u);
+      const uint2 v = tat::quad_gather8(u, lane);
       const int blk = 4 * q + tq;
       if (ok[h] && n0 + 8 * blk < g.O)
-        *reinterpret_cast<uint2*>(orow[h] + 8 * blk) =
-            hb ? make_uint2(pair2, pair) : make_uint2(pair, pair2);
+        *reinterpret_cast<uint2*>(orow[h] + 8 * blk) = v;
     }
   }
 }

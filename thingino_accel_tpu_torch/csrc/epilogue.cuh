@@ -1,6 +1,7 @@
 // The serving and exact requantize epilogues of the port's int8 kernels,
 // every one of which runs its products on the tensor cores (mma.sync s8,
-// mma_tile.cuh) or, for #7 dw_int8_fused.cu, per channel; none runs dp4a.
+// mma_tile.cuh; the probes' and E2's wgmma, hopper_async.cuh) or, for #7
+// dw_int8_fused.cu, per channel; none runs dp4a.
 // The serving epilogue (epilogue / act_requant) is the one the serving
 // kernels apply through epilogue_policy.cuh's ServingEpilogue: the 1x1 GEMM
 // mm_int8_fused_mma.cu of #1 and #3, the KxK core conv_mma_core.cuh under

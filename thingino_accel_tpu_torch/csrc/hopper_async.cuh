@@ -1,7 +1,9 @@
-// Hopper's asynchronous units for the port's wgmma kernel (E2,
-// conv_int8_lagged.cu): warpgroup MMA (wgmma.mma_async s8 m64nNk32 with
-// both operands read from shared memory by descriptor), mbarriers, TMA
-// tensor loads, setmaxnreg, and the host's tensor-map encoding through
+// Hopper's asynchronous units for the port's wgmma kernels (E2,
+// conv_int8_lagged.cu; E3's stage kernel, megakernel_probe.cu; the probes'
+// row chain, chain_mma.cuh): warpgroup
+// MMA (wgmma.mma_async s8 m64nNk32 and bf16 m64nNk16 with f32 sums, both
+// operands read from shared memory by descriptor), mbarriers, TMA tensor
+// loads, setmaxnreg, and the host's tensor-map encoding through
 // cudaGetDriverEntryPointByVersion (no -lcuda).
 //
 // A wgmma operand in shared memory is K-major without swizzle: core
@@ -9,7 +11,9 @@
 // descriptor holds the start address, LBO (the next 16 bytes of K, the
 // neighbouring core matrix along K) and SBO (the next 8 rows), each in 16-byte
 // units in 14 bits, and the layout type 0 (no swizzle) in bits 62-63
-// (PTX ISA, "Matrix Descriptor Format"). The s32 accumulator of
+// (PTX ISA, "Matrix Descriptor Format"). One step of either type reads 32
+// bytes of K (32 s8 or 16 bf16 values), so the same descriptors serve
+// both. The s32 (or f32) accumulator of
 // m64nN: warp w of the warpgroup holds rows 16 w .. 16 w + 15; register
 // 4 j + 2 h + e of lane (g = lane / 4, t = lane % 4) is row 16 w + g + 8 h,
 // column 8 j + 2 t + e, the mma.sync C layout one n8 block after another.
@@ -116,6 +120,89 @@ struct Wgmma<128> {
   }
 };
 
+// d (64 x N f32) = A (64 x 16 bf16, descriptor a) x B (16 x N, descriptor
+// b) + (scale_d ? d : 0), both K-major (no transpose), scales +1
+template <int N>
+struct WgmmaBf16;
+template <>
+struct WgmmaBf16<32> {
+  __device__ __forceinline__ static void run(float (&d)[16], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+template <>
+struct WgmmaBf16<64> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+template <>
+struct WgmmaBf16<128> {
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -134,6 +221,17 @@ template <int R>
 __device__ __forceinline__ void fence_acc(int (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// this thread's generic-proxy writes to shared memory visible to the
+// async proxy (a later wgmma's or TMA's reads of them)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -206,6 +304,45 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 // --- end of wgmma / mbarrier / tma -------------------------------------------
+
+// The s8 (s32 sums) or the bf16 (f32 sums) wgmma of width N as one type.
+template <int N, bool BF16>
+struct WgmmaOf {
+  using Acc = int;
+  __device__ __forceinline__ static void run(int (&d)[N / 2], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    Wgmma<N>::run(d, a, b, scale_d);
+  }
+};
+template <int N>
+struct WgmmaOf<N, true> {
+  using Acc = float;
+  __device__ __forceinline__ static void run(float (&d)[N / 2], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    WgmmaBf16<N>::run(d, a, b, scale_d);
+  }
+};
+
+// An accumulator's int8 outputs regrouped for 8-byte stores: u[jj] holds
+// this lane's two bytes (columns 2 t, 2 t + 1, the lower first) of n8 block
+// 4 q + jj of one row; the quad's lanes trade them (two shuffles) so that
+// lane t ends with the 8 bytes of block 4 q + t of that row, in order.
+__device__ __forceinline__ uint2 quad_gather8(const unsigned (&u)[4],
+                                              int lane) {
+  const int hb = (lane >> 1) & 1, lb = lane & 1;
+  const unsigned w0 = u[0] | u[1] << 16, w1 = u[2] | u[3] << 16;
+  const unsigned keep = hb ? w1 : w0;
+  const unsigned other = __shfl_xor_sync(0xffffffffu, hb ? w0 : w1, 2);
+  const unsigned mine = lb ? keep >> 16 : keep & 0xffffu;
+  const unsigned mine2 = lb ? other >> 16 : other & 0xffffu;
+  const unsigned give = lb ? (keep & 0xffffu) | (other << 16)
+                           : (keep >> 16) | (other & 0xffff0000u);
+  const unsigned got = __shfl_xor_sync(0xffffffffu, give, 1);
+  const unsigned pair = lb ? (got & 0xffffu) | mine << 16 : mine | got << 16;
+  const unsigned pair2 =
+      lb ? (got >> 16) | mine2 << 16 : mine2 | (got & 0xffff0000u);
+  return hb ? make_uint2(pair2, pair) : make_uint2(pair, pair2);
+}
 
 // --- tensor map encode: an int8 tensor of `rank` dimensions (innermost
 // first; strides in bytes of dimensions 1..rank-1) cut into boxes `box`,

@@ -10,364 +10,609 @@
 //
 //   tat_megakernel_1x1  the 1x1 kinds: L chained int8 products over the
 //                       rows, >> 7 or the requantize (SILU, SILU_FAST,
-//                       RELU) between them: chain_mma.cuh's row chain.
-//   tat_megakernel_3x3  the valid-shrink 3x3 kinds on (cells, H + 2L,
-//                       H + 2L, K) tiles: stage i maps extent e = H +
-//                       2(L - i) to e - 2, as 9 shifted-window products of
-//                       [pixels, K] x [K, K]; the C3 round runs a 1x1 over
-//                       the whole extent, requantizes it (SILU), then the
-//                       taps, and adds the residual x[1:e-1, 1:e-1] at
-//                       res_scale 0.5 in the SILU epilogue.
+//                       RELU) between them: chain_mma.cuh's row chain on
+//                       wgmma, the rows resident in shared memory.
+//   tat_megakernel_3x3  one stage of the valid-shrink 3x3 kinds, on
+//                       Hopper's warpgroup MMA: NHWC [cells, e, e, K] ->
+//                       [cells, e - 2, e - 2, K] as 9 shifted-window
+//                       products of [pixels, K] x [K, K] (taps = 9), or the
+//                       C3 round's 1x1 over the whole extent (taps = 1),
+//                       with one of four epilogues: >> 7, the requantize,
+//                       bf16(acc / 128) (bf16 rows), or the C3 round's SILU
+//                       requantize plus res_scale x the residual
+//                       res[1:e-1, 1:e-1] read from device memory.
+// The wrapper (ops/probe_kernels.py megakernel_chain) launches it once a
+// stage (twice for the C3 round: the 1x1, then the taps), in order on one
+// stream, each stage's output in a scratch tensor that stays in L2 (at most
+// 13 MB at K = 512 against the H100's 50 MB), so every output pixel is
+// computed once: no halo is computed again.
 //
-// What bounds it on the H100: its K loop of ldmatrix and mma.sync (9 k^2
-// operations a pixel, the block's m16 tiles spread over 8 warps), then the
-// weight copies. A cell is 40 x 40 x K bytes, 400 KB at K = 256, and a
-// block has 227 KB of shared memory, so a block takes a th x tw sub-tile
-// of the cell's H x H output and holds its (th + 2L) x (tw + 2L) input
-// region: the halo is computed again by each neighbour (the probe module
-// reports the operations issued beside the probe's own count). The
-// region's stages take turns in two buffers (the C3 round's requantized
-// 1x1 output in a third); no activation leaves shared memory between
-// stages. The weights stay in L2 and stream one tap of one N-chunk a step
-// through a cp.async ring of kSlots slots, so a slab has two steps to
-// land; the accumulators of a chunk stay in registers across its 9 taps.
-// The products are mma.sync tiles, whose rows are read through per-lane
-// ldmatrix addresses, so a tap's shifted window needs no copy: each lane
-// works its row's address out once a step, outside the K loop.
+// What bounds it on the H100: the products, 9 K^2 MACs an output pixel (the
+// C3 round's 1x1 K^2 more), then the epilogues (a SILU an output element).
+// The product is E2's (conv_int8_lagged.cu): an 8 x 8 output tile is one
+// m64 wgmma operand; its slab (10 x 10 pixels for the taps, 8 x 8 for the
+// 1x1) comes in by TMA as 16-byte planes, one plane 16 bytes of every pixel
+// (kPlane apart: LBO), pixel rows SW x 16 bytes apart (SBO), so the window
+// of tap (dy, dx), dy and dx in 0..2, is a descriptor (dy SW + dx) x 16
+// bytes into the plane and needs no copy. Slabs past the input's extent are
+// zero-filled by the tensor map and their outputs masked at the store
+// (ragged extents such as 38 = 4 x 8 + 6). bf16 rows are bytes to the
+// tensor maps and the descriptors: a k16 bf16 step reads the same 32 bytes
+// of K as a k32 s8 step. TMA moves 16-byte box rows at about half a row a
+// cycle an SM (measured), so the activations between stages are kept
+// plane-major ([cells][row / 16][e][e][16]: a slab plane is SW rows of 16 SW
+// bytes), only the first stage's input and the last's output are NHWC.
+// The weights (K-major, the B operand: planes of BN rows x 16 bytes, LBO
+// 16 BN, SBO 128) are tiled in device memory as that shared-memory image
+// by the wrapper, once a weight tensor, and loaded by TMA in 128-byte rows:
+//   - resident: all taps x K of the block's BN output channels, once a
+//     block, where they fit (K = 256 at BN <= 64);
+//   - streamed: a tap of a kc-byte chunk of K at a time through a ring of
+//     `wslots` slots (K = 512, bf16), both consumer warpgroups in step on
+//     the same slot (a round: two tiles, 128 rows a weight unit), each
+//     tile's slab in chunks of kc bytes.
+// 384 threads: a producer warpgroup (one thread issues the TMA loads,
+// setmaxnreg gives its registers to the consumers) and two consumer
+// warpgroups, each with its tile's m64 x BN sums in registers; the grid is
+// persistent: grid.y the channel blocks, grid.x blocks walking the tiles
+// blockIdx.x, + gridDim.x, ...; consumer c takes a block's tiles c, c + 2,
+// ... A slab slot is full[s] (the producer's expect_tx and the TMA bytes)
+// and empty[s] (its consumer's 128 threads once their wgmma completed).
+//
+// Shared memory (stage_layout, mirrored by ops/probe_kernels.py
+// stage_smem): the weights (resident: taps x row bytes x BN; streamed:
+// `wslots` units of kc x BN), `stages` slab slots of kc / 16 planes, cs (4
+// BN bytes), the barriers.
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "chain_mma.cuh"
+#include "hopper_async.cuh"
 
 namespace {
 
-enum SpatialKind : int { kShift3 = 0, kRequant3 = 1, kBf16Taps = 2, kC3 = 3 };
+enum StageEp : int { kEpShift = 0, kEpRequant = 1, kEpBf16 = 2, kEpResidual = 3 };
 
-constexpr int kSlots = 3;   // weight slabs in flight (ops/probe_kernels.py)
+constexpr int kTile = 8;                  // output pixels a tile: 8 x 8
+constexpr int kWgThreads = 128;
+constexpr int kThreads = 3 * kWgThreads;  // producer + two consumers
+constexpr int kConsumers = 2 * kWgThreads;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kWBox = 1024;               // a weight TMA box: 8 rows of 128
 
-struct SpatialArgs {
-  const unsigned char* x;    // [cells][H + 2L][H + 2L][row_bytes]
-  const unsigned char* w1;   // C3: [L][K][row_bytes] (output column rows)
-  const unsigned char* w3;   // [L][9][K][row_bytes], tap = 3 dy + dx
-  unsigned char* out;        // [cells][H][H][row_bytes]
-  const float* cs;           // [K]
-  int cells, H, L, K;
-  int th, tw, bn;            // sub-tile, output columns a weight slab
-  int row_bytes, pitch;      // a pixel's bytes; its smem pitch (+ pad)
-  int act;
-  float inv_out, alpha, res_scale;
-  int off_b, off_m, off_w;   // smem: buffer B, the C3 1x1 output, slots
+// a slab's pixels a side (the taps' halo), and its 16-byte plane rounded
+// up to 128 bytes
+__host__ __device__ constexpr int slab_side(int taps) {
+  return taps == 9 ? kTile + 2 : kTile;
+}
+__host__ __device__ constexpr int slab_plane(int taps) {
+  return (slab_side(taps) * slab_side(taps) * 16 + 127) / 128 * 128;
+}
+
+// --- named barriers: bar.sync waits until `count` threads (whole warps)
+// have reached barrier `id`. -------------------------------------------------
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// --- end of named barriers -------------------------------------------------
+
+constexpr int kBarInit = 1;   // cs staged (the consumers)
+
+struct StageGeom {
+  int e, eo, K, row_bytes;   // input extent, output extent, channels, bytes
+  int xpm, rpm, opm;         // x, res, out plane-major (else NHWC)
+  int taps, BN, kc, stages, resident, wslots;   // wslots: streamed units
+  int wblock;                // a channel block's weights: taps x row x BN
+  int planes, nchunks;       // kc / 16, row_bytes / kc
+  int ntw, tiles_cell, tiles;
+  int slot_bytes, wunit_bytes;
+  int slab_off, cs_off, bar_off, smem;
 };
 
-// MT: m16 tiles a warp at most; NI: the chunk's n8 tiles (bn / 8). Both are
-// compile-time so that the K loop is straight-line code: its fragment loads
-// and products schedule together, which branches around them prevent.
-template <int KIND, int MT, int NI>
-__global__ void __launch_bounds__(tat::kChainThreads)
-    spatial_chain_kernel(SpatialArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr bool kC3Round = KIND == kC3;
-  constexpr int T = KIND == kBf16Taps ? tat::kMmaBf16 : tat::kMmaS8;
-  constexpr int E = KIND == kBf16Taps ? 2 : 1;
-  using Acc = typename tat::MmaAcc<T>::type;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int pitch = a.pitch;
-  // region buffer i at smem + (i & 1) * off_b, weight slot t at
-  // ws0 + (t % kSlots) * wbytes (offsets, not pointer arrays: no local
-  // memory)
-  unsigned char* const mbuf = smem + a.off_m;
-  unsigned char* const ws0 = smem + a.off_w;
-  const int wbytes = a.bn * pitch;
-  const int tiles_x = a.H / a.tw, tiles = (a.H / a.th) * tiles_x;
-  const int cell = blockIdx.x / tiles, tile = blockIdx.x - cell * tiles;
-  const int oy0 = (tile / tiles_x) * a.th, ox0 = (tile % tiles_x) * a.tw;
-  const int e0 = a.H + 2 * a.L;
-  const int eh0 = a.th + 2 * a.L, ew0 = a.tw + 2 * a.L;
-  const int xpr = a.row_bytes / 16;
+// The shared-memory layout of one block (ops/probe_kernels.py stage_smem
+// mirrors the total): the weights at 0, the slab slots, cs, the barriers.
+void stage_layout(StageGeom& g) {
+  g.planes = g.kc / 16;
+  g.nchunks = g.row_bytes / g.kc;
+  g.slot_bytes = g.planes * slab_plane(g.taps);
+  g.wunit_bytes = g.kc * g.BN;
+  g.wblock = g.taps * g.row_bytes * g.BN;
+  g.slab_off = g.resident ? g.taps * g.row_bytes * g.BN
+                          : g.wslots * g.wunit_bytes;
+  g.cs_off = g.slab_off + g.stages * g.slot_bytes;
+  g.bar_off = g.cs_off + 4 * g.BN;
+  g.smem = g.bar_off + 8 * (2 * g.stages + (g.resident ? 1 : 2 * g.wslots));
+}
 
-  // the stage-0 input region (always inside the cell)
-  for (int i = tid; i < eh0 * ew0 * xpr; i += blockDim.x) {
-    const int p = i / xpr, c = i - p * xpr;
-    const int py = p / ew0, px = p - py * ew0;
-    const unsigned char* src =
-        a.x + ((static_cast<long long>(cell) * e0 + oy0 + py) * e0 + ox0 +
-               px) * a.row_bytes + 16 * c;
-    tat::cp_async16(smem + p * pitch + 16 * c, src, 16);
+// A pixel's byte 0 and the distance from its 16 bytes to its next 16: NHWC
+// [cells][e][e][row] (16 bytes), or plane-major [cells][row / 16][e][e][16]
+// (e^2 x 16 bytes), the layout of the activations between stages, whose
+// slab planes are 16 SW-byte rows to TMA.
+struct PixAt {
+  long long base, pstride;
+};
+__device__ __forceinline__ PixAt pix_at(bool pm, int e, int row_bytes, int n,
+                                        int y, int x) {
+  if (pm)
+    return {((static_cast<long long>(n) * (row_bytes / 16) * e + y) * e + x) *
+                16,
+            static_cast<long long>(e) * e * 16};
+  return {((static_cast<long long>(n) * e + y) * e + x) * row_bytes, 16};
+}
+__device__ __forceinline__ long long byte_at(const PixAt& p, int b) {
+  return p.base + (b >> 4) * p.pstride + (b & 15);
+}
+
+__device__ __forceinline__ void tile_at(const StageGeom& g, int k, int& n,
+                                        int& oy0, int& ox0) {
+  n = k / g.tiles_cell;
+  const int t = k - n * g.tiles_cell;
+  const int ty = t / g.ntw;
+  oy0 = ty * kTile;
+  ox0 = (t - ty * g.ntw) * kTile;
+}
+
+// The int8 epilogue of one tile's sums in registers, 8 bytes a lane and
+// row: the lane's rows g and g + 8 of warp w, its two columns of each n8
+// block, the quad's pieces gathered (tat::quad_gather8) so that each lane
+// stores one n8 block of its row. ep(acc, col, r): the element's int8, r
+// its residual (0 without one).
+template <int BN, bool RES, class Ep>
+__device__ __forceinline__ void store_s8(const int (&d)[BN / 2],
+                                         const StageGeom& g, int n, int oy0,
+                                         int ox0, int n0,
+                                         const int8_t* __restrict__ res,
+                                         unsigned char* __restrict__ out,
+                                         Ep ep) {
+  const int t = threadIdx.x % kWgThreads, lane = t & 31;
+  const int tq = lane & 3;
+  PixAt opix[2], rpix[2];
+  bool ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = (t >> 5) * 16 + (lane >> 2) + 8 * h;   // tile pixel
+    const int oy = oy0 + (p >> 3), ox = ox0 + (p & 7);
+    ok[h] = oy < g.eo && ox < g.eo;
+    opix[h] = pix_at(g.opm, g.eo, g.row_bytes, n, oy, ox);
+    rpix[h] = pix_at(g.rpm, g.e, g.row_bytes, n, oy + 1, ox + 1);
   }
-  // steps: per stage [C3: the 1x1's chunks] then chunk x 9 taps
-  const int nchunks = a.K / a.bn;
-  const int n1 = kC3Round ? nchunks : 0, per = n1 + 9 * nchunks;
-  const int steps = a.L * per;
-  auto decode = [&](int t, int& stage, bool& one, int& chunk, int& tap) {
-    stage = t / per;
-    int r = t - stage * per;
-    one = r < n1;
-    if (one) {
-      chunk = r;
-      tap = 0;
+#pragma unroll
+  for (int q = 0; q < BN / 32; ++q) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned u[4];   // the lane's 2 bytes of n8 blocks 4 q .. 4 q + 3
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * q + jj, col = 8 * j + 2 * tq;
+        const int r0 = RES && ok[h] ? res[byte_at(rpix[h], n0 + col)] : 0;
+        const int r1 = RES && ok[h] ? res[byte_at(rpix[h], n0 + col + 1)] : 0;
+        const int8_t lo = ep(d[4 * j + 2 * h], col, r0);
+        const int8_t hi = ep(d[4 * j + 2 * h + 1], col + 1, r1);
+        u[jj] = static_cast<uint8_t>(lo) |
+                static_cast<unsigned>(static_cast<uint8_t>(hi)) << 8;
+      }
+      const uint2 v = tat::quad_gather8(u, lane);
+      if (ok[h])
+        *reinterpret_cast<uint2*>(
+            out + byte_at(opix[h], n0 + 8 * (4 * q + tq))) = v;
+    }
+  }
+}
+
+// bf16(acc / 128), round to nearest even: a bf16 pair (4 bytes) a lane, n8
+// block and row
+template <int BN>
+__device__ __forceinline__ void store_bf16(const float (&d)[BN / 2],
+                                           const StageGeom& g, int n,
+                                           int oy0, int ox0, int n0,
+                                           unsigned char* __restrict__ out) {
+  const int t = threadIdx.x % kWgThreads, lane = t & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = (t >> 5) * 16 + (lane >> 2) + 8 * h;
+    const int oy = oy0 + (p >> 3), ox = ox0 + (p & 7);
+    if (oy >= g.eo || ox >= g.eo) continue;
+    const PixAt o = pix_at(g.opm, g.eo, g.row_bytes, n, oy, ox);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(
+          out + byte_at(o, 2 * (n0 + 8 * j + 2 * (lane & 3)))) =
+          __floats2bfloat162_rn(__fmul_rn(d[4 * j + 2 * h], 0.0078125f),
+                                __fmul_rn(d[4 * j + 2 * h + 1], 0.0078125f));
+  }
+}
+
+template <int EP, int TAPS, int BN, bool RESIDENT>
+__global__ void __launch_bounds__(kThreads, 1)
+    stage_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap,
+                       const float* __restrict__ cs,
+                       const int8_t* __restrict__ res,
+                       unsigned char* __restrict__ out, StageGeom g, int act,
+                       float inv_out, float alpha, float res_scale) {
+  constexpr int SW = slab_side(TAPS);
+  constexpr int kPlane = slab_plane(TAPS);
+  constexpr bool kBf16 = EP == kEpBf16;
+  // a round: the tiles whose products share the weight units (streamed:
+  // both consumers' tiles; resident: one tile, the consumers apart)
+  constexpr int kPer = RESIDENT ? 1 : 2;
+  using M = tat::WgmmaOf<BN, kBf16>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + g.bar_off);
+  uint64_t* empty = full + g.stages;
+  uint64_t* wfull = empty + g.stages;   // resident: the weights' barrier
+  uint64_t* wempty = wfull + g.wslots;
+  const int tid = threadIdx.x;
+  // the warpgroup, from lane 0: uniform to ptxas, which otherwise takes the
+  // consumers' path as divergent and serialises their wgmma
+  const int wg = __shfl_sync(0xffffffffu, tid / kWgThreads, 0);
+  const int n0 = blockIdx.y * BN;
+  const int first = blockIdx.x, step = gridDim.x;
+  const int count = first < g.tiles ? (g.tiles - first + step - 1) / step : 0;
+  // tiles walked, a stand-in after an odd count where a round is two
+  const int walk = (count + kPer - 1) / kPer * kPer;
+  const int row_planes = g.row_bytes / 16;
+  if (tid == 0) {
+    for (int s = 0; s < g.stages; ++s) {
+      tat::mbar_init(full + s, 1);
+      tat::mbar_init(empty + s, kWgThreads);
+    }
+    if (RESIDENT) {
+      tat::mbar_init(wfull, 1);
     } else {
-      r -= n1;
-      chunk = r / 9;
-      tap = r - 9 * chunk;
-    }
-  };
-  auto issue = [&](int t) {
-    int stage, chunk, tap;
-    bool one;
-    decode(t, stage, one, chunk, tap);
-    const unsigned char* src =
-        one ? a.w1 + (static_cast<long long>(stage) * a.K + chunk * a.bn) *
-                         a.row_bytes
-            : a.w3 + ((static_cast<long long>(stage) * 9 + tap) * a.K +
-                      chunk * a.bn) * a.row_bytes;
-    for (int i = tid; i < a.bn * xpr; i += blockDim.x) {
-      const int r = i / xpr, c = i - r * xpr;
-      tat::cp_async16(ws0 + (t % kSlots) * wbytes + r * pitch + 16 * c,
-                      src + static_cast<long long>(r) * a.row_bytes + 16 * c,
-                      16);
-    }
-  };
-  for (int t = 0; t < kSlots - 1; ++t) {   // the region joins group 0
-    if (t < steps) issue(t);
-    tat::cp_async_commit();
-  }
-
-  const int ksteps = a.row_bytes / tat::kMmaStepBytes;
-  Acc acc[MT][NI][4];
-  for (int t = 0; t < steps; ++t) {
-    // slot (t - 1) % kSlots was last read in step t - 1, before its
-    // closing barrier
-    if (t + kSlots - 1 < steps) issue(t + kSlots - 1);
-    tat::cp_async_commit();   // empty near the end: keeps the count
-    tat::cp_async_wait<kSlots - 1>();
-    __syncthreads();
-    int stage, chunk, tap;
-    bool one;
-    decode(t, stage, one, chunk, tap);
-    const int eh = a.th + 2 * (a.L - stage), ew = a.tw + 2 * (a.L - stage);
-    const unsigned char* xin = smem + (stage & 1) * a.off_b;
-    unsigned char* xout = smem + ((stage + 1) & 1) * a.off_b;
-    const unsigned char* src = (kC3Round && !one) ? mbuf : xin;
-    const int ow = one ? ew : ew - 2;
-    const int rows = one ? eh * ew : (eh - 2) * (ew - 2);
-    const int shift = one ? 0 : (tap / 3) * ew + tap % 3;
-    // the warp's m16 tiles this step: tiles warp, warp + 8, ... below rows
-    const int mtiles = (rows + 15) / 16;
-    const int mine = mtiles > warp ? (mtiles - warp + 7) / 8 : 0;
-    const int jn = mine < MT ? mine : MT;
-    if (one || tap == 0) {
-#pragma unroll
-      for (int j = 0; j < MT; ++j)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[j][ni][i] = 0;
-    }
-    const unsigned char* wt = ws0 + (t % kSlots) * wbytes;
-    // the lane's ldmatrix rows: its B row, and the pixel of its A row in
-    // each of the warp's m16 tiles, the tap's shift included
-    const unsigned char* brow =
-        wt + tat::b_lane_row(lane) * pitch + tat::b_lane_byte(lane);
-    int aoff[MT];
-#pragma unroll
-    for (int j = 0; j < MT; ++j) {
-      int r = (warp + 8 * j) * 16 + tat::a_lane_row(lane);
-      if (r >= rows) r = 0;   // a valid row; its sums are dropped
-      aoff[j] = ((r / ow) * ew + r % ow + shift) * pitch +
-                tat::a_lane_byte(lane);
-    }
-    for (int ks = 0; ks < ksteps; ++ks) {
-      const int kb = ks * tat::kMmaStepBytes;
-      unsigned bfr[NI][2];
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
-        tat::ldsm_x2(bfr[ni], brow + ni * 8 * pitch + kb);
-#pragma unroll
-      for (int j = 0; j < MT; ++j) {
-        if (j >= jn) break;   // uniform in the warp
-        unsigned afr[4];
-        tat::ldsm_x4(afr, src + aoff[j] + kb);
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni)
-          tat::mma_step<T>(acc[j][ni], afr, bfr[ni]);
+      for (int s = 0; s < g.wslots; ++s) {
+        tat::mbar_init(wfull + s, 1);
+        tat::mbar_init(wempty + s, kConsumers);
       }
     }
-    if (one || tap == 8) {
-#pragma unroll
-      for (int j = 0; j < MT; ++j) {
-        if (j >= jn) break;
-        const int mt = warp + 8 * j;
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = mt * 16 + g + 8 * (i >> 1);
-            if (r >= rows) continue;
-            const int n = chunk * a.bn + ni * 8 + 2 * q + (i & 1);
-            const Acc v = acc[j][ni][i];
-            if constexpr (kC3Round) {
-              if (one) {   // the round's 1x1, requantized with SILU
-                mbuf[r * pitch + n] = static_cast<unsigned char>(
-                    tat::epilogue(v, 0, a.cs[n], tat::kActSilu, a.inv_out,
-                                  a.alpha));
-                continue;
-              }
-            }
-            unsigned char* dst = xout + r * pitch + n * E;
-            if constexpr (KIND == kShift3) {
-              *reinterpret_cast<int8_t*>(dst) = static_cast<int8_t>(v >> 7);
-            } else if constexpr (KIND == kRequant3) {
-              *reinterpret_cast<int8_t*>(dst) =
-                  tat::epilogue<true>(v, 0, a.cs[n], a.act, a.inv_out,
-                                      a.alpha);
-            } else if constexpr (KIND == kBf16Taps) {
-              *reinterpret_cast<__nv_bfloat16*>(dst) =
-                  __float2bfloat16_rn(__fmul_rn(v, 0.0078125f));
-            } else {
-              const int oy = r / ow, ox = r - oy * ow;
-              const int res = static_cast<int8_t>(
-                  xin[((oy + 1) * ew + ox + 1) * pitch + n]);
-              *reinterpret_cast<int8_t*>(dst) =
-                  tat::epilogue(v, 0, a.cs[n], tat::kActSilu, a.inv_out,
-                                a.alpha, true, res, a.res_scale);
-            }
+    tat::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {   // the producer
+    tat::setmaxnreg_dec<kProducerRegs>();
+    if (tid != 0) return;
+    // the block's weights, tiled in device memory as their shared-memory
+    // image: 128-byte TMA rows, kWBox bytes a box
+    const int wrow0 = blockIdx.y * (g.wblock / 128);
+    if (RESIDENT) {
+      tat::mbar_arrive_tx(wfull, g.wblock);
+      for (int j = 0; j < g.wblock / kWBox; ++j)
+        tat::tma_load_2d(smem + j * kWBox, &wmap, 0, wrow0 + j * (kWBox / 128),
+                         wfull);
+    }
+    for (int i0 = 0; i0 < walk; i0 += kPer) {
+      for (int ch = 0; ch < g.nchunks; ++ch) {
+        const int unit = i0 / kPer * g.nchunks + ch;
+        for (int c = 0; c < kPer; ++c) {
+          const int u = unit * kPer + c, s = u % g.stages;
+          tat::mbar_wait(empty + s, ((u / g.stages) & 1) ^ 1);
+          if (i0 + c >= count) {   // the stand-in: nothing to load
+            tat::mbar_arrive(full + s);
+            continue;
           }
+          int n, oy0, ox0;
+          tile_at(g, first + (i0 + c) * step, n, oy0, ox0);
+          unsigned char* slot = smem + g.slab_off + s * g.slot_bytes;
+          tat::mbar_arrive_tx(full + s, g.planes * SW * SW * 16);
+          for (int j = 0; j < g.planes; ++j) {
+            const int p = ch * g.planes + j;
+            if (g.xpm)   // the plane's SW rows of 16 SW bytes
+              tat::tma_load_4d(slot + j * kPlane, &xmap, 16 * ox0, oy0, p, n,
+                               full + s);
+            else         // its SW x SW pixels' 16 bytes
+              tat::tma_load_4d(slot + j * kPlane, &xmap, 16 * p, ox0, oy0, n,
+                               full + s);
+          }
+        }
+        if (RESIDENT) continue;
+        for (int tap = 0; tap < TAPS; ++tap) {
+          const int u = unit * TAPS + tap, s = u % g.wslots;
+          tat::mbar_wait(wempty + s, ((u / g.wslots) & 1) ^ 1);
+          const int row = wrow0 + (tap * row_planes + ch * g.planes) * BN / 8;
+          tat::mbar_arrive_tx(wfull + s, g.wunit_bytes);
+          for (int j = 0; j < g.wunit_bytes / kWBox; ++j)
+            tat::tma_load_2d(smem + s * g.wunit_bytes + j * kWBox, &wmap, 0,
+                             row + j * (kWBox / 128), wfull + s);
         }
       }
     }
-    __syncthreads();
+    return;
   }
-  const unsigned char* xf = smem + (a.L & 1) * a.off_b;
-  for (int i = tid; i < a.th * a.tw * xpr; i += blockDim.x) {
-    const int p = i / xpr, c = i - p * xpr;
-    const int py = p / a.tw, px = p - py * a.tw;
-    *reinterpret_cast<uint4*>(
-        a.out + ((static_cast<long long>(cell) * a.H + oy0 + py) * a.H + ox0 +
-                 px) * a.row_bytes + 16 * c) =
-        *reinterpret_cast<const uint4*>(xf + p * pitch + 16 * c);
+
+  tat::setmaxnreg_inc<kConsumerRegs>();
+  const int c = wg - 1;   // the consumer: tiles c, c + 2, ...
+  float* cs_s = reinterpret_cast<float*>(smem + g.cs_off);
+  for (int o = tid - kWgThreads; o < BN; o += kConsumers)
+    cs_s[o] = cs != nullptr ? cs[n0 + o] : 0.0f;
+  bar_sync(kBarInit, kConsumers);
+  if (RESIDENT) tat::mbar_wait(wfull, 0);
+  const uint64_t a0 = tat::gmma_desc(smem + g.slab_off, kPlane, SW * 16);
+  const uint64_t b0 = tat::gmma_desc(smem, BN * 16, 128);
+  typename M::Acc d[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) d[i] = 0;
+  for (int i = c; i < walk; i += 2) {
+    const int i0 = i - i % kPer;
+    for (int ch = 0; ch < g.nchunks; ++ch) {
+      const int unit = i0 / kPer * g.nchunks + ch;
+      const int u = unit * kPer + i - i0, s = u % g.stages;
+      tat::mbar_wait(full + s, (u / g.stages) & 1);
+      const uint64_t a = a0 + (s * g.slot_bytes >> 4);
+      // a stand-in's product runs on its slot's stale bytes and is
+      // dropped: no branch around the wgmma
+      if (RESIDENT) {
+        tat::fence_acc(d);
+        tat::wgmma_fence();
+        for (int tap = 0; tap < TAPS; ++tap) {
+          const int dy = tap / 3, dx = tap - 3 * dy;
+          for (int ks = 0; ks < g.planes / 2; ++ks)
+            M::run(d, a + dy * SW + dx + (2 * ks * kPlane >> 4),
+                   b0 + (tap * row_planes + 2 * ks) * BN, (tap | ks) != 0);
+        }
+        tat::wgmma_commit();
+        tat::wgmma_wait<0>();
+        tat::fence_acc(d);
+      } else {
+        int prev = 0;
+        for (int tap = 0; tap < TAPS; ++tap) {
+          const int dy = tap / 3, dx = tap - 3 * dy;
+          const int w = unit * TAPS + tap, ws = w % g.wslots;
+          tat::mbar_wait(wfull + ws, (w / g.wslots) & 1);
+          tat::fence_acc(d);
+          tat::wgmma_fence();
+          for (int ks = 0; ks < g.planes / 2; ++ks)
+            M::run(d, a + dy * SW + dx + (2 * ks * kPlane >> 4),
+                   b0 + ((ws * g.wunit_bytes) >> 4) + 2 * ks * BN,
+                   (ch | tap | ks) != 0);
+          tat::wgmma_commit();
+          if (tap > 0) {   // the previous tap's unit is read: release it
+            tat::wgmma_wait<1>();
+            tat::mbar_arrive(wempty + prev);
+          }
+          prev = ws;
+        }
+        tat::wgmma_wait<0>();
+        tat::fence_acc(d);
+        tat::mbar_arrive(wempty + prev);
+      }
+      tat::mbar_arrive(empty + s);
+    }
+    if (i >= count) continue;
+    int n, oy0, ox0;
+    tile_at(g, first + i * step, n, oy0, ox0);
+    if constexpr (kBf16) {
+      store_bf16<BN>(d, g, n, oy0, ox0, n0, out);
+    } else if constexpr (EP == kEpShift) {
+      store_s8<BN, false>(d, g, n, oy0, ox0, n0, res, out,
+                          [](int v, int, int) {
+                            return static_cast<int8_t>(v >> 7);
+                          });
+    } else if constexpr (EP == kEpRequant) {
+      store_s8<BN, false>(d, g, n, oy0, ox0, n0, res, out,
+                          [&](int v, int col, int) {
+                            return tat::epilogue(v, 0, cs_s[col], act,
+                                                 inv_out, alpha);
+                          });
+    } else {   // the C3 round's SILU with the residual: the act a constant,
+               // so that no assert (a call, which serialises the wgmma)
+               // stays in the kernel
+      store_s8<BN, true>(d, g, n, oy0, ox0, n0, res, out,
+                         [&](int v, int col, int r) {
+                           return tat::epilogue(v, 0, cs_s[col],
+                                                tat::kActSilu, inv_out,
+                                                alpha, true, r, res_scale);
+                         });
+    }
   }
 }
 
-template <int KIND, int MT>
-void (*spatial_kernel(int bn))(SpatialArgs) {
-  if (bn == 8) return spatial_chain_kernel<KIND, MT, 1>;
-  if (bn == 16) return spatial_chain_kernel<KIND, MT, 2>;
-  if (bn == 32) return spatial_chain_kernel<KIND, MT, 4>;
+using StageKernel = void (*)(const CUtensorMap, const CUtensorMap,
+                             const float*, const int8_t*, unsigned char*,
+                             StageGeom, int, float, float, float);
+
+template <int EP, int TAPS, int BN>
+StageKernel pick_res(bool resident) {
+  return resident ? stage_wgmma_kernel<EP, TAPS, BN, true>
+                  : stage_wgmma_kernel<EP, TAPS, BN, false>;
+}
+
+template <int EP, int TAPS>
+StageKernel pick_bn(int bn, bool resident) {
+  if (bn == 32) return pick_res<EP, TAPS, 32>(resident);
+  if (bn == 64) return pick_res<EP, TAPS, 64>(resident);
+  if (bn == 128) return pick_res<EP, TAPS, 128>(resident);
   return nullptr;
 }
 
-template <int KIND>
-int launch_spatial(SpatialArgs a, cudaStream_t s) {
-  const int eh0 = a.th + 2 * a.L, ew0 = a.tw + 2 * a.L;
-  const long long region = static_cast<long long>(eh0) * ew0;
-  const long long rows0 = KIND == kC3 ? region : (eh0 - 2LL) * (ew0 - 2);
-  void (*kernel)(SpatialArgs) = nullptr;   // null: no such shape
-  if (rows0 <= 128) kernel = spatial_kernel<KIND, 1>(a.bn);
-  else if (rows0 <= 256) kernel = spatial_kernel<KIND, 2>(a.bn);
-  else if (rows0 <= 512) kernel = spatial_kernel<KIND, 4>(a.bn);
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.w3) |
-        reinterpret_cast<uintptr_t>(a.w1) |
-        reinterpret_cast<uintptr_t>(a.out)) & 15u) == 0;
-  if (kernel == nullptr || a.th < 1 || a.tw < 1 || a.L < 1 || a.cells < 1 ||
-      a.H % a.th != 0 || a.H % a.tw != 0 || a.K % a.bn != 0 ||
-      a.row_bytes % tat::kMmaStepBytes != 0 ||
-      a.pitch != a.row_bytes + tat::kRowPad || !aligned ||
-      (KIND == kC3 && a.w1 == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  a.off_b = static_cast<int>(region * a.pitch);
-  a.off_m = a.off_b + (eh0 - 2) * (ew0 - 2) * a.pitch;
-  a.off_w = a.off_m + (KIND == kC3 ? static_cast<int>(region * a.pitch) : 0);
-  const long long smem = a.off_w + static_cast<long long>(kSlots) * a.bn *
-                                       a.pitch;
+StageKernel pick(int ep, int taps, int bn, bool resident) {
+  if (taps == 1) return ep == kEpRequant ? pick_bn<kEpRequant, 1>(bn, resident)
+                                         : nullptr;
+  if (taps != 9) return nullptr;
+  switch (ep) {
+    case kEpShift:
+      return pick_bn<kEpShift, 9>(bn, resident);
+    case kEpRequant:
+      return pick_bn<kEpRequant, 9>(bn, resident);
+    case kEpBf16:
+      return pick_bn<kEpBf16, 9>(bn, resident);
+    case kEpResidual:
+      return pick_bn<kEpResidual, 9>(bn, resident);
+    default:
+      return nullptr;
+  }
+}
+
+// The kernel of (ep, taps, K, plan) and its geometry, or null for a shape
+// or plan it cannot run; opts the kernel into its shared memory.
+StageKernel prepare(int ep, int taps, int K, int bn, int kc, int stages,
+                    int resident, int wslots, StageGeom& g,
+                    cudaError_t& err) {
+  err = cudaErrorInvalidValue;
+  const int row_bytes = ep == kEpBf16 ? 2 * K : K;
+  if (K < 32 || K % bn != 0 || kc < 32 || kc % 32 != 0 ||
+      row_bytes % kc != 0 || (resident && kc != row_bytes) || stages < 2 ||
+      stages > 4 || (!resident && (wslots < 2 || wslots > 4)))
+    return nullptr;
+  const StageKernel k = pick(ep, taps, bn, resident != 0);
+  if (k == nullptr) return nullptr;
+  g.K = K;
+  g.row_bytes = row_bytes;
+  g.taps = taps;
+  g.BN = bn;
+  g.kc = kc;
+  g.stages = stages;
+  g.resident = resident != 0;
+  g.wslots = resident ? 0 : wslots;
+  stage_layout(g);
   int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&max_smem,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > max_smem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return nullptr;
+  if (g.smem > max_smem) {
+    err = cudaErrorInvalidValue;
+    return nullptr;
   }
-  const unsigned blocks =
-      static_cast<unsigned>(a.cells) * (a.H / a.th) * (a.H / a.tw);
-  kernel<<<blocks, tat::kChainThreads, static_cast<size_t>(smem), s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             g.smem);
+  return err == cudaSuccess ? k : nullptr;
 }
 
 }  // namespace
 
-// glue: tat::kGlueShift7 or tat::kGlueRequant (act, inv_out, alpha)
+// glue: tat::kGlueShift7 or tat::kGlueRequant (act, inv_out, alpha, cs
+// [K]); x [rows, K], w [L, K, K], out [rows, K] int8; the plan as
+// tat_chain_mma's (bm 128).
 extern "C" int tat_megakernel_1x1(int glue, const void* x, const void* w,
                                   const void* cs, void* out, long long rows,
-                                  int K, int L, int bm, int bn, int act,
-                                  float inv_out, float alpha, void* stream) {
-  tat::RowChainArgs a{};
-  a.x = static_cast<const unsigned char*>(x);
-  a.w = static_cast<const unsigned char*>(w);
-  a.out = static_cast<unsigned char*>(out);
-  a.rows = rows;
-  a.K = K;
-  a.L = L;
-  a.bm = bm;
-  a.bn = bn;
-  a.row_bytes = K;
-  a.w_row_bytes = K;
-  a.pitch = K + tat::kRowPad;
-  a.glue = {static_cast<const float*>(cs), act, inv_out, alpha};
+                                  int K, int L, int bm, int bn, int wslots,
+                                  int act, float inv_out, float alpha,
+                                  void* stream) {
+  const tat::GlueArgs ga{static_cast<const float*>(cs), act, inv_out, alpha};
   const auto s = static_cast<cudaStream_t>(stream);
   if (glue == tat::kGlueShift7)
-    return tat::launch_row_chain<tat::kGlueShift7>(a, s);
-  if (glue == tat::kGlueRequant && cs != nullptr)
-    return tat::launch_row_chain<tat::kGlueRequant>(a, s);
+    return tat::launch_row_chain<tat::kGlueShift7>(x, w, out, rows, K, L, bm,
+                                                   bn, wslots, ga, s);
+  if (glue == tat::kGlueRequant)
+    return tat::launch_row_chain<tat::kGlueRequant>(x, w, out, rows, K, L,
+                                                    bm, bn, wslots, ga, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// kind: 0 i8-shift-3x3, 1 i8-rq-*-3x3 (act), 2 bf16-3x3, 3 i8-c3-round
-extern "C" int tat_megakernel_3x3(int kind, const void* x, const void* w1,
-                                  const void* w3, const void* cs, void* out,
-                                  int cells, int H, int L, int K, int th,
-                                  int tw, int bn, int act, float inv_out,
-                                  float alpha, float res_scale, void* stream) {
-  SpatialArgs a{};
-  a.x = static_cast<const unsigned char*>(x);
-  a.w1 = static_cast<const unsigned char*>(w1);
-  a.w3 = static_cast<const unsigned char*>(w3);
-  a.out = static_cast<unsigned char*>(out);
-  a.cs = static_cast<const float*>(cs);
-  a.cells = cells;
-  a.H = H;
-  a.L = L;
-  a.K = K;
-  a.th = th;
-  a.tw = tw;
-  a.bn = bn;
-  a.row_bytes = kind == kBf16Taps ? 2 * K : K;
-  a.pitch = a.row_bytes + tat::kRowPad;
-  a.act = act;
-  a.inv_out = inv_out;
-  a.alpha = alpha;
-  a.res_scale = res_scale;
-  const auto s = static_cast<cudaStream_t>(stream);
-  if ((kind == kRequant3 || kind == kC3) && cs == nullptr)
+// The dynamic shared memory of a 1x1 plan and the blocks of it an SM holds.
+extern "C" int tat_megakernel_1x1_info(int glue, int K, int bm, int bn,
+                                       int wslots, int* smem, int* blocks) {
+  if (glue == tat::kGlueShift7)
+    return tat::row_chain_info<tat::kGlueShift7>(K, bm, bn, wslots, smem,
+                                                 blocks);
+  if (glue == tat::kGlueRequant)
+    return tat::row_chain_info<tat::kGlueRequant>(K, bm, bn, wslots, smem,
+                                                  blocks);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One stage: x [cells, e, e, K] (int8, or bf16 for ep 2), NHWC or, with
+// xpm, plane-major [cells, row / 16, e, e, 16 bytes] (row: a pixel's
+// bytes); w the stage's weights tiled as their shared-memory image,
+// [K / bn, taps, row / 16, bn, 16 bytes] (ops/probe_kernels.py
+// tile_weights; output channel n's K values contiguous in the untiled [taps,
+// K, K], tap 3 dy + dx); cs [K] float32 (ep 1, 3); res [cells, e, e, K]
+// int8 (ep 3; plane-major with rpm); out [cells, eo, eo, K] (plane-major
+// with opm) with eo = e - 2 (taps 9) or e (taps 1, ep 1 only); x, w and
+// out 16-byte aligned. ep: 0 >> 7, 1 the requantize with act, 2 bf16(acc /
+// 128), 3 the requantize with SILU plus res_scale x res[1:e-1, 1:e-1]. The
+// plan: bn output channels a block (32, 64 or 128, dividing K), kc bytes
+// of K a slab chunk (resident: the whole row), `stages` slab slots (2-4),
+// the weights resident or streamed through `wslots` slots (2-4), `blocks`
+// persistent blocks a channel block (at most the tiles). Returns a cudaError_t; cudaErrorInvalidValue
+// for a shape or plan it cannot run.
+extern "C" int tat_megakernel_3x3(int ep, int taps, const void* x,
+                                  const void* w, const void* cs,
+                                  const void* res, void* out, int xpm,
+                                  int rpm, int opm, int cells, int e, int K,
+                                  int act, float inv_out, float alpha,
+                                  float res_scale, int bn, int kc,
+                                  int stages, int resident, int wslots,
+                                  int blocks, void* stream) {
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(w) |
+                         reinterpret_cast<uintptr_t>(out)) &
+                        15u) == 0;
+  const bool scaled = ep == kEpRequant || ep == kEpResidual;
+  if (cells < 1 || e < (taps == 9 ? 3 : 1) || blocks < 1 || !aligned ||
+      (scaled && cs == nullptr) ||
+      (ep == kEpResidual && (res == nullptr || act != tat::kActSilu)) ||
+      act < tat::kActNone || act > tat::kActSilu)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (kind) {
-    case kShift3:
-      return launch_spatial<kShift3>(a, s);
-    case kRequant3:
-      return launch_spatial<kRequant3>(a, s);
-    case kBf16Taps:
-      return launch_spatial<kBf16Taps>(a, s);
-    case kC3:
-      return launch_spatial<kC3>(a, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  StageGeom g = {};
+  cudaError_t err;
+  const StageKernel k =
+      prepare(ep, taps, K, bn, kc, stages, resident, wslots, g, err);
+  if (k == nullptr) return static_cast<int>(err);
+  g.e = e;
+  g.eo = taps == 9 ? e - 2 : e;
+  g.xpm = xpm != 0;
+  g.rpm = rpm != 0;
+  g.opm = opm != 0;
+  g.ntw = (g.eo + kTile - 1) / kTile;
+  g.tiles_cell = g.ntw * g.ntw;
+  const long long tiles = static_cast<long long>(cells) * g.tiles_cell;
+  if (tiles > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
+  g.tiles = static_cast<int>(tiles);
+  const int side = slab_side(taps);
+  CUtensorMap xmap, wmap;
+  const uint64_t rb = static_cast<uint64_t>(g.row_bytes), ue = e;
+  const uint64_t nc = static_cast<uint64_t>(cells), planes = rb / 16;
+  const uint32_t us = static_cast<uint32_t>(side);
+  // NHWC: a box is a plane's SW x SW pixels of 16 bytes; plane-major: its SW
+  // rows of 16 SW bytes
+  const uint64_t xdims_nhwc[4] = {rb, ue, ue, nc};
+  const uint64_t xstrides_nhwc[3] = {rb, rb * ue, rb * ue * ue};
+  const uint32_t xbox_nhwc[4] = {16, us, us, 1};
+  const uint64_t xdims_pm[4] = {16 * ue, ue, planes, nc};
+  const uint64_t xstrides_pm[3] = {16 * ue, 16 * ue * ue,
+                                   16 * ue * ue * planes};
+  const uint32_t xbox_pm[4] = {16 * us, us, 1, 1};
+  const uint64_t* xdims = g.xpm ? xdims_pm : xdims_nhwc;
+  const uint64_t* xstrides = g.xpm ? xstrides_pm : xstrides_nhwc;
+  const uint32_t* xbox = g.xpm ? xbox_pm : xbox_nhwc;
+  // the tiled weights: [K / bn][taps][row / 16][bn][16] bytes, rows of 128
+  const uint64_t wdims[2] = {128, static_cast<uint64_t>(taps) * K * rb / 128};
+  const uint64_t wstrides[1] = {128};
+  const uint32_t wbox[2] = {128, kWBox / 128};
+  err = tat::encode_s8_map(&xmap, x, 4, xdims, xstrides, xbox);
+  if (err == cudaSuccess)
+    err = tat::encode_s8_map(&wmap, w, 2, wdims, wstrides, wbox);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int gx = blocks < g.tiles ? blocks : g.tiles;
+  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(K / bn));
+  k<<<grid, kThreads, static_cast<size_t>(g.smem),
+      static_cast<cudaStream_t>(stream)>>>(
+      xmap, wmap, static_cast<const float*>(cs),
+      static_cast<const int8_t*>(res), static_cast<unsigned char*>(out), g,
+      act, inv_out, alpha, res_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory of a plan in bytes and the blocks of it an SM
+// holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+// cudaErrorInvalidValue for a plan the kernel cannot run.
+extern "C" int tat_megakernel_3x3_info(int ep, int taps, int K, int bn,
+                                       int kc, int stages, int resident,
+                                       int wslots, int* smem,
+                                       int* blocks_per_sm) {
+  StageGeom g = {};
+  cudaError_t err;
+  const StageKernel k =
+      prepare(ep, taps, K, bn, kc, stages, resident, wslots, g, err);
+  if (k == nullptr) return static_cast<int>(err);
+  *smem = g.smem;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, k, kThreads, static_cast<size_t>(g.smem)));
 }

@@ -1,25 +1,18 @@
 // Warp-level tensor-core tiles through mma.sync, with their fragments
-// loaded from shared memory by ldmatrix: the port's tensor-core building
-// blocks (chain_mma.cuh, chain_mma.cu, megakernel_probe.cu, the 1x1 GEMM
-// mm_int8_fused_mma.cu, the KxK core conv_mma_core.cuh and the kernels on
-// it, the depthwise dw_int8_fused.cu).
+// loaded from shared memory by ldmatrix: the tensor-core building blocks of
+// the 1x1 GEMM mm_int8_fused_mma.cu, the KxK core conv_mma_core.cuh and the
+// kernels on it, and the depthwise dw_int8_fused.cu; shared-memory
+// addresses and cp.async for every kernel (hopper_async.cuh's wgmma kernels
+// too).
 //
-// One MMA step covers 32 bytes of the reduction axis K:
-//   - s8 x s8 -> s32: one mma.m16n8k32 (32 int8 values);
-//   - bf16 x bf16 -> f32: one mma.m16n8k16 (16 bf16 values);
-//   - "mixed", int8 storage with bf16 compute: the 32 int8 values of the
-//     step as two m16n8k16 on bf16 copies of the int8 values.
-// A is a 16-row tile of 32-byte rows (row-major, K contiguous), B an
-// 8-row tile of 32-byte rows holding one output column's K values a row
-// (the .col operand). Both fragments follow the PTX ISA's tables: in the
-// s8 m16n8k32 A fragment, register r of lane (g = lane / 4, t = lane % 4)
-// holds bytes 4t..4t+3 of row g + 8 (r & 1) at byte offset 16 (r >> 1);
-// the bf16 m16n8k16 A fragment puts the same bytes in the same registers,
-// and so do the two B fragments (row g, bytes 4t.. at offset 16 r). So one
-// ldmatrix addressing serves both types, and the mixed step converts each
-// s8 register's byte pairs (0, 1) and (2, 3) into two bf16x2 registers:
-// it reorders K identically in A and B, which leaves the sum as it is.
-// C/D: register i of lane holds row g + 8 (i >> 1), column 2t + (i & 1).
+// One MMA step covers 32 bytes of the reduction axis K: s8 x s8 -> s32, one
+// mma.m16n8k32 (32 int8 values). A is a 16-row tile of 32-byte rows
+// (row-major, K contiguous), B an 8-row tile of 32-byte rows holding one
+// output column's K values a row (the .col operand). Both fragments follow
+// the PTX ISA's tables: register r of lane (g = lane / 4, t = lane % 4)
+// holds bytes 4t..4t+3 of row g + 8 (r & 1) at byte offset 16 (r >> 1),
+// and the B fragment row g, bytes 4t.. at offset 16 r. C/D: register i of
+// lane holds row g + 8 (i >> 1), column 2t + (i & 1).
 //
 // Rows are read through per-lane addresses, so a tile's rows may be any
 // rows of a buffer (the 3x3 taps read shifted pixel windows this way).
@@ -91,15 +84,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 // --- end of ldmatrix / mma.sync ---------------------------------------------
 
 // 16 bytes from p[0], `bytes` of them (the rest zero), by byte loads: the
@@ -126,49 +110,6 @@ __device__ __forceinline__ int a_lane_byte(int lane) {
 __device__ __forceinline__ int b_lane_row(int lane) { return lane & 7; }
 __device__ __forceinline__ int b_lane_byte(int lane) {
   return ((lane >> 3) & 1) * 16;
-}
-
-// bytes (2h, 2h + 1) of a register of four int8 as a bf16x2 register
-// (the lower byte in the lower half): exact, |int8| < 2^8
-__device__ __forceinline__ unsigned s8x2_to_bf16x2(unsigned v, int h) {
-  const float lo = static_cast<float>(static_cast<int8_t>(v >> (16 * h)));
-  const float hi = static_cast<float>(static_cast<int8_t>(v >> (16 * h + 8)));
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&p);
-}
-
-enum MmaType : int { kMmaS8 = 0, kMmaBf16 = 1, kMmaMixed = 2 };
-
-template <int T>
-struct MmaAcc {
-  using type = float;
-};
-template <>
-struct MmaAcc<kMmaS8> {
-  using type = int;
-};
-
-// One 32-byte K step: d += A (16 rows) x B (8 columns).
-template <int T>
-__device__ __forceinline__ void mma_step(typename MmaAcc<T>::type (&d)[4],
-                                         const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  if constexpr (T == kMmaS8) {
-    mma_s8(d, a, b);
-  } else if constexpr (T == kMmaBf16) {
-    mma_bf16(d, a, b);
-  } else {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const unsigned ah[4] = {s8x2_to_bf16x2(a[2 * h], 0),
-                              s8x2_to_bf16x2(a[2 * h + 1], 0),
-                              s8x2_to_bf16x2(a[2 * h], 1),
-                              s8x2_to_bf16x2(a[2 * h + 1], 1)};
-      const unsigned bh[2] = {s8x2_to_bf16x2(b[h], 0),
-                              s8x2_to_bf16x2(b[h], 1)};
-      mma_bf16(d, ah, bh);
-    }
-  }
 }
 
 }  // namespace tat

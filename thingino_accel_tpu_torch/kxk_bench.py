@@ -38,7 +38,19 @@ epilogue (``-DTAT_LAGGED_NO_STORE``, the sums XORed and kept alive) or two
 of them (the product, the epilogue, the loads alone), and that hand the
 tensor cores on only after the product has completed
 (``-DTAT_LAGGED_TURN_AFTER_WAIT``) or not at all (``-DTAT_LAGGED_NO_TURN``:
-LAG 1's consumers unordered).
+LAG 1's consumers unordered); with ``probes``, E1's four variants (K =
+128/256/512) and E3's eight kinds (K = 256/512) through their entry points,
+one application each by the probes' chained timing (their sweeps,
+``probes.mxu_ceiling.sweep`` and ``probes.megakernel.sweep``); with
+``probeplans``, E1's variants and E3's ``i8-shift-3x3`` at every plan
+their planners offer (K = 256 and 512); with ``chainsplit``, E1's int8 and
+bf16 chains through measurement builds of ``chain_mma.cu`` without the
+glue's stores (``-DTAT_CHAIN_NO_GLUE``), without the product
+(``-DTAT_CHAIN_NO_PRODUCT``) or without both.
+
+``--best-of A.json B.json --record OUT.json [--prefix E1]`` writes, from
+two ``probes`` runs, each label's smaller time (a record of a parent
+checkout's kernels; ``--prefix``: only the labels that start so).
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
@@ -46,7 +58,7 @@ Run from the root of a checkout, on a machine with a CUDA card::
 
 with WHAT a comma-separated choice of kxk, gemm (the default: both),
 exact1x1, dw, dwplans, bneck, sppf, fusedplans, decode, lagged,
-laggedplans and laggedsplit.
+laggedplans, laggedsplit, probes, probeplans and chainsplit.
 
 The paths: the planned and the unplanned real yolov5n
 (``models/yolov5n_cal_int8.mars``), the planned zoo yolov5s at 640 (random
@@ -815,12 +827,148 @@ def bench_lagged_split(rng) -> dict:
     return {"plan": str(plan), "rows": rows}
 
 
+def bench_probes(rng) -> dict:
+    """E1's variants and E3's kinds at their sweeps' sizes through the
+    probes' own sweeps (entry points only), one application's ms each."""
+    from thingino_accel_tpu_torch.probes import megakernel as P3
+    from thingino_accel_tpu_torch.probes import mxu_ceiling as P1
+    dev = torch.device("cuda")
+    ms = {}
+    for tag, mod in (("E1", P1), ("E3", P3)):
+        for r in mod.sweep(dev):
+            for kind in mod.KINDS:
+                ms[f"{tag} {kind} K={r['k']}"] = r[kind].ms
+                print(f"[probes] {tag} {kind} K={r['k']}: {r[kind].ms:.4f} ms")
+    return {"ms": ms}
+
+
+def bench_probe_plans(rng) -> dict:
+    """E1's four variants at K = 256 and 512 at every plan
+    ``probe_kernels.chain_plans`` offers, and E3's ``i8-shift-3x3`` at
+    every plan ``stage_plans`` offers for its taps (forced on every
+    launch), each equal to the entry's output first, one application's ms
+    by the probes' chained timing."""
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.ops import probe_kernels as PK
+    from thingino_accel_tpu_torch.probes import megakernel as P3
+    from thingino_accel_tpu_torch.probes import mxu_ceiling as P1
+    from thingino_accel_tpu_torch.probes import timing
+    dev = torch.device("cuda")
+    lim = FK.smem_limits(dev)
+    rows = []
+    for k in (256, 512):
+        for kind in P1.KINDS:
+            fn, x, w = P1.build(kind, P1.M, k, P1.L, P1.GRID, dev)
+            ref = fn(x, w)
+            for plan in PK.chain_plans(kind, k, lim):
+                def one(y, plan=plan, kind=kind, w=w):
+                    out = torch.empty_like(y)
+                    PK._launch_chain(y, w, kind, out, plan)
+                    return out
+                if not torch.equal(one(x), ref):
+                    raise RuntimeError(f"E1 {kind} {plan} differs")
+                ms = timing.measure(lambda y: one(y), x, 1.0).ms
+                rows.append({"probe": f"E1 {kind} K={k}", "plan": str(plan),
+                             "ms": ms})
+                print(f"[probeplans] E1 {kind} K={k} {plan}: {ms:.4f} ms")
+        kind = "i8-shift-3x3"
+        fn, (x, w), _ = P3.build(kind, k, dev)
+        ref = PK.megakernel_chain(kind, x, w)
+        h = x.shape[1] - 2 * P3.L
+        tiles = PK.stage_tiles(9, P3.GRID, x.shape[1])
+        for plan in PK.stage_plans(9, k, k, tiles, lim):
+            def app(y, plan=plan, w=w):
+                out = torch.empty((y.shape[0], h, h, k), dtype=y.dtype,
+                                  device=dev)
+                PK._run_spatial(kind, y, None, w, None, out, plan=plan)
+                return F.pad(out, (0, 0, P3.PAD, P3.PAD, P3.PAD, P3.PAD))
+            if not torch.equal(app(x)[:, P3.PAD:-P3.PAD, P3.PAD:-P3.PAD],
+                               ref):
+                raise RuntimeError(f"E3 {kind} {plan} differs")
+            ms = timing.measure(lambda y: app(y), x, 1.0).ms
+            rows.append({"probe": f"E3 {kind} K={k}", "plan": str(plan),
+                         "ms": ms})
+            print(f"[probeplans] E3 {kind} K={k} {plan}: {ms:.4f} ms")
+    return {"rows": rows}
+
+
+CHAIN_VARIANTS = {
+    "no_glue": ("-DTAT_CHAIN_NO_GLUE",),
+    "no_product": ("-DTAT_CHAIN_NO_PRODUCT",),
+    "neither": ("-DTAT_CHAIN_NO_GLUE", "-DTAT_CHAIN_NO_PRODUCT")}
+
+
+def bench_chain_split(rng) -> dict:
+    """E1's int8 and bf16 chains at K = 256 and 512 with the plans the
+    launcher picks, through the library and each of ``CHAIN_VARIANTS``
+    (measurement builds of ``chain_mma.cu``, none reached by a wrapper):
+    one application's ms by the probes' chained timing."""
+    import threading
+    from thingino_accel_tpu_torch.ops import cuda_build
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.ops import probe_kernels as PK
+    from thingino_accel_tpu_torch.probes import mxu_ceiling as P1
+    from thingino_accel_tpu_torch.probes import timing
+    src = "chain_mma.cu"
+    entries = ("tat_chain_mma", "tat_chain_mma_info")
+    builds = [threading.Thread(target=cuda_build.build, args=((src,), f))
+              for f in CHAIN_VARIANTS.values()]
+    for t in builds:
+        t.start()
+    for t in builds:
+        t.join()
+    libs = {"library": None, **{name: cuda_build.load_variant(src, f, entries)
+                                for name, f in CHAIN_VARIANTS.items()}}
+    dev = torch.device("cuda")
+    lim = FK.smem_limits(dev)
+    rows = []
+    for k in (256, 512):
+        for kind in ("int8", "bf16"):
+            _, x, w = P1.build(kind, P1.M, k, P1.L, P1.GRID, dev)
+            plan = PK.chain_plan(kind, x.shape[0], k, lim)
+            row = {"probe": f"E1 {kind} K={k}", "plan": str(plan)}
+            for name, lib in libs.items():
+                def one(y, lib=lib, w=w, kind=kind, plan=plan):
+                    out = torch.empty_like(y)
+                    PK._launch_chain(y, w, kind, out, plan, lib)
+                    return out
+                row[name] = timing.measure(one, x, 1.0).ms
+            rows.append(row)
+            print(f"[chainsplit] {row['probe']} {plan}: " + ", ".join(
+                f"{n} {row[n]:.4f} ms" for n in libs))
+    return {"rows": rows}
+
+
+def best_of(paths, record: str, what: str, prefix: str = "") -> dict:
+    """Each label's smaller ms over the ``probes`` runs at ``paths`` (the
+    labels starting with ``prefix``), written to ``record`` with ``what``
+    and the card's name and power limit (nvidia-smi)."""
+    import subprocess
+    runs = [json.loads(Path(p).read_text()) for p in paths]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()
+    out = {"what": what, "device": smi[0] if smi else runs[0]["device"],
+           "ms": {k: min(r["ms"][k] for r in runs) for k in runs[0]["ms"]
+                  if k.startswith(prefix)}}
+    Path(record).write_text(json.dumps(out, indent=1) + "\n")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paths", default=",".join(PATHS),
                     help="the serving paths of kxk and gemm")
     ap.add_argument("--what", default="kxk,gemm")
+    ap.add_argument("--best-of", nargs="+", default=None,
+                    help="probes runs to merge into --record")
+    ap.add_argument("--record", default=None)
+    ap.add_argument("--record-what", default="")
+    ap.add_argument("--prefix", default="", help="the labels to record")
     args = ap.parse_args(argv)
+    if args.best_of:
+        best_of(args.best_of, args.record, args.record_what, args.prefix)
+        return 0
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this bench runs on the card only")
     what = args.what.split(",")
@@ -849,7 +997,12 @@ def main(argv=None) -> int:
                               ("laggedplans", bench_lagged_plans,
                                "laggedplans_bench.json"),
                               ("laggedsplit", bench_lagged_split,
-                               "laggedsplit_bench.json")):
+                               "laggedsplit_bench.json"),
+                              ("probes", bench_probes, "probes_bench.json"),
+                              ("probeplans", bench_probe_plans,
+                               "probeplans_bench.json"),
+                              ("chainsplit", bench_chain_split,
+                               "chainsplit_bench.json")):
         if part in what:
             res = {"device": torch.cuda.get_device_name(0),
                    **bench(np.random.default_rng(0))}

@@ -107,15 +107,25 @@ _SIGNATURES = {
                          ctypes.POINTER(_F), ctypes.POINTER(_F), _I, _I, _I,
                          _I, _P, _P, _P, _P),
     # the probes (ops/probe_kernels.py): glue, x, w, out, rows, K, L, bm,
-    # bn, stream
-    "tat_chain_mma": (_I, _P, _P, _P, _L, _I, _I, _I, _I, _P),
-    # glue, x, w, cs, out, rows, K, L, bm, bn, act, inv_out, alpha, stream
-    "tat_megakernel_1x1": (_I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F,
-                           _F, _P),
-    # kind, x, w1, w3, cs, out, cells, H, L, K, th, tw, bn, act, inv_out,
-    # alpha, res_scale, stream
-    "tat_megakernel_3x3": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _F, _F, _F, _P),
+    # bn, wslots, stream
+    "tat_chain_mma": (_I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
+    # glue, K, bm, bn, wslots, -> smem bytes, blocks an SM
+    "tat_chain_mma_info": (*(_I,) * 5, ctypes.POINTER(_I),
+                           ctypes.POINTER(_I)),
+    # glue, x, w, cs, out, rows, K, L, bm, bn, wslots, act, inv_out, alpha,
+    # stream
+    "tat_megakernel_1x1": (_I, _P, _P, _P, _P, _L, *(_I,) * 6, _F, _F, _P),
+    "tat_megakernel_1x1_info": (*(_I,) * 5, ctypes.POINTER(_I),
+                                ctypes.POINTER(_I)),
+    # one stage of E3's 3x3 kinds: ep, taps, x, w, cs, res, out, xpm, rpm,
+    # opm, cells, e, K, act, inv_out, alpha, res_scale, bn, kc, stages,
+    # resident, wslots, blocks, stream
+    "tat_megakernel_3x3": (_I, _I, *(_P,) * 5, *(_I,) * 7, _F, _F, _F,
+                           *(_I,) * 6, _P),
+    # ep, taps, K, bn, kc, stages, resident, wslots, -> smem bytes, blocks
+    # an SM
+    "tat_megakernel_3x3_info": (*(_I,) * 8, ctypes.POINTER(_I),
+                                ctypes.POINTER(_I)),
     # x, out, n, stream
     "tat_add_one": (_P, _P, _L, _P),
     # lag, x, w, bias, cs, out, batch, H, W, C, O, act, inv_out, alpha,

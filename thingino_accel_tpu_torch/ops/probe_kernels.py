@@ -3,11 +3,15 @@ port's first tensor-core code, and the kernel rung of the health ladder.
 
 - :func:`chain_mma`, E1 (``examples/mxu_ceiling_probe.py:build``): L
   chained ``[rows, K] x [K, K]`` products with the cheapest glue between
-  them, in four variants (:data:`CHAIN_KINDS`), CUDA ``csrc/chain_mma.cu``;
+  them, in four variants (:data:`CHAIN_KINDS`), CUDA ``csrc/chain_mma.cu``
+  on the ``wgmma`` row chain of ``csrc/chain_mma.cuh`` (rows resident in
+  shared memory, weights by TMA);
 - :func:`megakernel_chain`, E3 (``examples/megakernel_probe.py:build``):
   the same chain with the production requantize epilogue, the
   valid-shrink 3x3 chains and the C3 round (:data:`MEGA_KINDS`), CUDA
-  ``csrc/megakernel_probe.cu``;
+  ``csrc/megakernel_probe.cu``: the 1x1 kinds on E1's row chain, the 3x3
+  kinds one launch of a ``wgmma`` stage kernel (slabs by TMA, E2's
+  product) a stage, through scratch tensors that stay in L2;
 - :func:`add_one`, E4 (``examples/wedge_probe.py`` rung ``pallas``): f32
   ``x + 1``, CUDA ``csrc/add_one.cu``;
 - :func:`conv3x3_lagged`, E2 (``examples/pipeline_experiment.py:lagged``):
@@ -32,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import weakref
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -208,20 +213,22 @@ def conv3x3_lagged_plain(x: torch.Tensor, w: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class ChainPlan:
-    """A row chain's block: ``bm`` rows, weight slabs of ``bn`` columns."""
+    """A row chain's block: ``bm`` rows (256: two consumer warpgroups of
+    two m64 tiles; 128: two of one; 64: one, for bf16 rows that two
+    buffers of 128 cannot hold), weight chunks of ``bn`` columns through
+    ``wslots`` slots."""
 
     bm: int
     bn: int
+    wslots: int
 
 
 CHAIN_BMS = (256, 128, 64)
-
-
-def chain_bns(bm: int) -> Tuple[int, ...]:
-    """The slab widths the row chain takes at ``bm`` rows: 2, 4 or 8 n8
-    tiles a warp over the warps the rows leave (chain_mma.cuh)."""
-    wm = min(8, bm // 16)
-    return tuple(8 * nw * (8 // wm) for nw in (8, 4, 2))
+CHAIN_BNS = (128, 64, 32)
+CHAIN_WSLOTS = (4, 3, 2)
+# the row chain's glues: E1's variants and E3's 1x1 kinds ("int8" >> 7,
+# "requant" the SILU/SILU_FAST/RELU requantize)
+CHAIN_GLUES = CHAIN_KINDS + ("requant",)
 
 
 def _row_bytes(kind: str, k: int) -> int:
@@ -229,109 +236,180 @@ def _row_bytes(kind: str, k: int) -> int:
 
 
 def chain_smem(kind: str, k: int, plan: ChainPlan) -> int:
-    """Shared memory of a row chain (``row_chain_smem`` of
-    chain_mma.cuh): two x buffers, two weight slots and, for int4w, the
-    unpacked slab; rows padded by 16 bytes."""
-    pitch = _row_bytes(kind, k) + 16
-    slot = plan.bn * (k // 2 if kind == "int4w" else pitch)
-    return 2 * plan.bm * pitch + 2 * slot + (plan.bn * pitch
-                                             if kind == "int4w" else 0)
+    """Shared memory of a row chain (``row_chain_layout`` of
+    chain_mma.cuh): two buffers of the block's rows in the operand type
+    (bf16 for bf16 and mixed), ``wslots`` operand weight chunks, two raw
+    chunks where the weights are converted in shared memory (int4w,
+    mixed), the scales (requant), the mbarriers."""
+    op = 2 * k if kind in ("bf16", "mixed") else k
+    w = k // 2 if kind == "int4w" else _row_bytes(kind, k)
+    cons = 2 if plan.bm > 64 else 1
+    return (2 * plan.bm * op + plan.wslots * op * plan.bn
+            + (2 * w * plan.bn if kind in ("int4w", "mixed") else 0)
+            + (4 * k if kind == "requant" else 0)
+            + 8 * (cons + 2 * plan.wslots + 2))
+
+
+@functools.lru_cache(maxsize=64)
+def chain_plans(kind: str, k: int, limits: FK.SmemLimits
+                ) -> Tuple[ChainPlan, ...]:
+    """Every block the row chain can run here within the shared memory, in
+    the order :func:`chain_plan` prefers them: the most rows (each weight
+    chunk read from L2 serves them all: 256, then 128, then 64 for bf16
+    and mixed only), then the widest chunk (an m64 x bn wgmma reads its A
+    rows once for bn columns), then the deepest ring."""
+    plans = []
+    for bm in CHAIN_BMS:
+        if bm == 64 and kind not in ("bf16", "mixed"):
+            continue
+        for bn in CHAIN_BNS:
+            for ws in CHAIN_WSLOTS:
+                plan = ChainPlan(bm, bn, ws)
+                wrow = k // 2 if kind == "int4w" else k
+                if k % bn == 0 and wrow * bn % 1024 == 0 and \
+                        chain_smem(kind, k, plan) <= limits.per_block:
+                    plans.append(plan)
+    return tuple(plans)
 
 
 def chain_plan(kind: str, rows: int, k: int,
                limits: FK.SmemLimits) -> ChainPlan:
-    """The most rows a block that the shared memory holds (the weights
-    are streamed once a block, so more rows read fewer L2 bytes an
-    operation), no more than twice the rows there are, then the widest
-    slab."""
-    for bm in CHAIN_BMS:
-        if bm > 64 and bm > 2 * rows:
-            continue
-        for bn in chain_bns(bm):
-            plan = ChainPlan(bm, bn)
-            if k % bn == 0 and chain_smem(kind, k, plan) <= limits.per_block:
-                return plan
-    raise ValueError(f"no row-chain block fits {kind} K={k} in "
-                     f"{limits.per_block} bytes of shared memory")
+    """The first of :func:`chain_plans` whose blocks fill nine tenths of
+    the SMs (one block an SM: more rows a block read fewer weight bytes
+    from L2, but a half-empty wave costs more), else the first of the
+    fewest rows a block; ValueError if none fits."""
+    plans = chain_plans(kind, k, limits)
+    if not plans:
+        raise ValueError(f"no row-chain block fits {kind} K={k} in "
+                         f"{limits.per_block} bytes of shared memory")
+    for plan in plans:
+        if -(-rows // plan.bm) >= 0.9 * limits.sms:
+            return plan
+    least = min(p.bm for p in plans)
+    return next(p for p in plans if p.bm == least)
 
 
 @dataclasses.dataclass(frozen=True)
-class SpatialPlan:
-    """A 3x3 chain's block: a ``th`` x ``tw`` sub-tile of a cell's output,
-    weight slabs of ``bn`` columns."""
+class StagePlan:
+    """E3's stage kernel's block: ``bn`` output channels (the wgmma's N),
+    each tile's slab in chunks of ``kc`` bytes of K through ``stages``
+    slots, the weights ``resident`` (all taps x K, once a block; ``kc`` is
+    then the whole row) or streamed a tap of a chunk at a time through
+    ``wslots`` slots, ``blocks`` persistent blocks a channel block walking
+    the 8 x 8 output tiles."""
 
-    th: int
-    tw: int
     bn: int
+    kc: int
+    stages: int
+    resident: bool
+    blocks: int
+    wslots: int = 2
 
 
-SPATIAL_TILES = (2, 4, 8, 16)
-SPATIAL_BNS = (32, 16, 8)
-SPATIAL_MAX_ROWS = 512   # 8 warps x 4 m16 tiles
-SPATIAL_SLOTS = 3        # weight slabs in flight (kSlots)
+STAGE_TILE = 8          # 8 x 8 output pixels a tile: one m64 wgmma tile
+STAGE_BNS = (128, 64, 32)
+STAGE_STAGES = (4, 3, 2)
+STAGE_WSLOTS = (4, 3, 2)   # streamed weight units in flight
+# the stage kernel's epilogues (StageEp of megakernel_probe.cu)
+EP_SHIFT, EP_REQUANT, EP_BF16, EP_RESIDUAL = 0, 1, 2, 3
+_STAGE_EP = {"i8-shift-3x3": EP_SHIFT, "i8-rq-silu-3x3": EP_REQUANT,
+             "bf16-3x3": EP_BF16}
 
 
-def _region(l: int, th: int, tw: int) -> Tuple[int, int]:
-    return th + 2 * l, tw + 2 * l
+def stage_plane(taps: int) -> int:
+    """A slab's 16-byte plane: 10 x 10 pixels for the taps, 8 x 8 for the
+    1x1, rounded up to 128 bytes."""
+    side = STAGE_TILE + (2 if taps == 9 else 0)
+    return -(-side * side * 16 // 128) * 128
 
 
-def spatial_smem(kind: str, k: int, l: int, plan: SpatialPlan) -> int:
-    """Shared memory of a 3x3 chain (``launch_spatial`` of
-    megakernel_probe.cu): the stage-0 region, the stage-1 region, the C3
-    round's 1x1 output, :data:`SPATIAL_SLOTS` weight slots; rows padded by
-    16 bytes."""
-    pitch = _row_bytes(kind, k) + 16
-    eh, ew = _region(l, plan.th, plan.tw)
-    region = eh * ew
-    return pitch * (region + (eh - 2) * (ew - 2)
-                    + (region if kind == "i8-c3-round" else 0)
-                    + SPATIAL_SLOTS * plan.bn)
+def stage_smem(taps: int, row_bytes: int, bn: int, kc: int, stages: int,
+               resident: bool, wslots: int = 2) -> int:
+    """Shared memory of a stage-kernel block (``stage_layout`` of
+    megakernel_probe.cu): the weights (resident: taps x row x bn bytes;
+    streamed: ``wslots`` units of kc x bn), ``stages`` slab slots of
+    kc / 16 planes, cs (4 bn bytes), the mbarriers."""
+    w = taps * row_bytes * bn if resident else wslots * kc * bn
+    return (w + stages * (kc // 16) * stage_plane(taps) + 4 * bn
+            + 8 * (2 * stages + (1 if resident else 2 * wslots)))
 
 
-def spatial_issued_ops(kind: str, k: int, h: int, l: int, cells: int,
-                       plan: SpatialPlan) -> float:
-    """Operations the 3x3 kernel issues with ``plan``: each block's
-    shrinking regions, the halo it shares with its neighbours included."""
-    px = 0
-    for i in range(l):
-        eh, ew = _region(l - i, plan.th, plan.tw)
-        px += 9 * (eh - 2) * (ew - 2) + (eh * ew if kind == "i8-c3-round"
-                                         else 0)
-    return 2.0 * k * k * px * cells * (h // plan.th) * (h // plan.tw)
+def stage_tiles(taps: int, cells: int, e: int) -> int:
+    """The 8 x 8 output tiles of a stage over extent ``e``."""
+    eo = e - 2 if taps == 9 else e
+    return cells * FK._cdiv(eo, STAGE_TILE) ** 2
 
 
-def spatial_plans(kind: str, k: int, h: int, l: int,
-                  limits: FK.SmemLimits) -> Tuple[SpatialPlan, ...]:
-    """Every plan the kernel can run here: sub-tiles dividing ``h``, no
-    more rows a phase than :data:`SPATIAL_MAX_ROWS`, within the shared
-    memory."""
+@functools.lru_cache(maxsize=256)
+def stage_plans(taps: int, row_bytes: int, k: int, tiles: int,
+                limits: FK.SmemLimits) -> Tuple[StagePlan, ...]:
+    """Every plan the stage kernel can run here within the shared memory,
+    each with its persistent blocks, in the order :func:`stage_plan`
+    prefers them: resident weights (read once a block) first, then the
+    widest channel block (each slab is read K / bn times), the widest
+    chunk, the deepest weight ring (streamed), the deepest slab ring."""
     plans = []
-    for th in SPATIAL_TILES:
-        for tw in SPATIAL_TILES:
-            if h % th or h % tw:
+    for resident in (True, False):
+        for bn in STAGE_BNS:
+            if k % bn:
                 continue
-            eh, ew = _region(l, th, tw)
-            rows = eh * ew if kind == "i8-c3-round" else (eh - 2) * (ew - 2)
-            if rows > SPATIAL_MAX_ROWS:
-                continue
-            for bn in SPATIAL_BNS:
-                p = SpatialPlan(th, tw, bn)
-                if k % bn == 0 and spatial_smem(kind, k, l, p) \
-                        <= limits.per_block:
-                    plans.append(p)
+            kcs = ((row_bytes,) if resident else
+                   tuple(row_bytes >> i for i in range(8)
+                         if (row_bytes >> i) >= 32
+                         and (row_bytes >> i) % 32 == 0
+                         and row_bytes % (row_bytes >> i) == 0))
+            for kc in kcs:
+                for ws in ((2,) if resident else STAGE_WSLOTS):
+                    for st in STAGE_STAGES:
+                        smem = stage_smem(taps, row_bytes, bn, kc, st,
+                                          resident, ws)
+                        if smem > limits.per_block:
+                            continue
+                        plans.append(StagePlan(
+                            bn, kc, st, resident,
+                            lagged_blocks(tiles, k // bn, smem, limits), ws))
     return tuple(plans)
 
 
-def spatial_plan(kind: str, k: int, h: int, l: int,
-                 limits: FK.SmemLimits) -> SpatialPlan:
-    """The plan that issues the fewest operations (the least halo
-    recomputed), then the widest slab."""
-    plans = spatial_plans(kind, k, h, l, limits)
+def stage_plan(taps: int, row_bytes: int, k: int, tiles: int,
+               limits: FK.SmemLimits) -> StagePlan:
+    """The first of :func:`stage_plans`; ValueError if none fits."""
+    plans = stage_plans(taps, row_bytes, k, tiles, limits)
     if not plans:
-        raise ValueError(f"no 3x3 sub-tile fits {kind} K={k} H={h} L={l} in "
-                         f"{limits.per_block} bytes of shared memory")
-    return min(plans, key=lambda p: (spatial_issued_ops(kind, k, h, l, 1, p),
-                                     -p.bn, -p.th * p.tw))
+        raise ValueError(f"no stage-kernel block fits K={k} ({row_bytes} "
+                         f"bytes a pixel) in {limits.per_block} bytes of "
+                         "shared memory")
+    return plans[0]
+
+
+def spatial_launches(kind: str, e0: int, l: int) -> Tuple[Tuple[int, ...],
+                                                          ...]:
+    """The stage kernel's launches of one application of a 3x3 kind, in
+    order: ``(ep, taps, e)`` with ``e`` the launch's input extent (the C3
+    round: its 1x1 then its taps, each stage)."""
+    out = []
+    for i in range(l):
+        e = e0 - 2 * i
+        if kind == "i8-c3-round":
+            out += [(EP_REQUANT, 1, e), (EP_RESIDUAL, 9, e)]
+        else:
+            out.append((_STAGE_EP[kind], 9, e))
+    return tuple(out)
+
+
+def spatial_ops(kind: str, k: int, h: int, l: int, cells: int
+                ) -> Tuple[float, float]:
+    """``(computed, issued)`` operations of one application: each output
+    pixel of each launch once (the probe's own count: no halo is computed
+    again), and the m64 tiles' rows the tensor cores run (the rows of a
+    ragged extent's last tiles included, their outputs masked)."""
+    own = tiled = 0.0
+    for _, taps, e in spatial_launches(kind, h + 2 * l, l):
+        eo = e - 2 if taps == 9 else e
+        t = FK._cdiv(eo, STAGE_TILE) * STAGE_TILE
+        own += 2.0 * taps * k * k * eo * eo
+        tiled += 2.0 * taps * k * k * t * t
+    return own * cells, tiled * cells
 
 
 @dataclasses.dataclass(frozen=True)
@@ -429,15 +507,19 @@ def _need(t: torch.Tensor, dtype: torch.dtype, shape: Sequence[int],
                          f"{t.dtype} {tuple(t.shape)}")
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+def _stream(dev: torch.device) -> Optional[int]:
+    """The current CUDA stream of ``dev``; None on the CPU (the CUDA shim's
+    rehearsals pass host tensors to the launchers)."""
+    return (torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda"
+            else None)
 
 
 def chain_mma(x: torch.Tensor, w: torch.Tensor, kind: str) -> torch.Tensor:
     """E1: ``x [rows, K]`` (int8; bf16 for ``"bf16"``) through L chained
     products with ``w [L, N=K, K]`` (int4w: uint8 ``[L, K, K/2]`` from
-    :func:`pack_int4`) -> ``[rows, K]`` of x's type; on the card with
-    the block :func:`chain_plan` picks for the device."""
+    :func:`pack_int4`) -> ``[rows, K]`` of x's type; on the card the
+    ``wgmma`` row chain with the block :func:`chain_plan` picks, its
+    weights tiled once (:func:`tile_weights`: change ``w`` only in place)."""
     if kind not in CHAIN_KINDS:
         raise ValueError(f"unknown chain kind {kind!r}")
     if x.dim() != 2 or w.dim() != 3:
@@ -459,19 +541,61 @@ def chain_mma(x: torch.Tensor, w: torch.Tensor, kind: str) -> torch.Tensor:
     return out
 
 
-def _launch_chain(x, w, kind, out, plan: ChainPlan) -> None:
-    cuda_build.check(cuda_build.load_library().tat_chain_mma(
-        _GLUE[kind], x.data_ptr(), w.data_ptr(), out.data_ptr(), x.shape[0],
-        x.shape[1], w.shape[0], plan.bm, plan.bn, _stream(x.device)),
-        "tat_chain_mma")
+def _launch_chain(x, w, kind, out, plan: ChainPlan, lib=None) -> None:
+    """One launch of E1's row chain of ``kind`` with the block ``plan``;
+    ``lib``: another build of the kernels (the CUDA shim's), else the
+    library."""
+    lib = lib or cuda_build.load_library()
+    cuda_build.check(lib.tat_chain_mma(
+        _GLUE[kind], x.data_ptr(), tile_weights(w, plan.bn).data_ptr(),
+        out.data_ptr(), x.shape[0],
+        x.shape[1], w.shape[0], plan.bm, plan.bn, plan.wslots,
+        _stream(x.device)), "tat_chain_mma")
+
+
+def _launch_1x1(kind, x, w, cs, out, plan: ChainPlan, lib=None) -> None:
+    """One launch of E3's 1x1 ``kind`` on the row chain (``w [L, 1, K,
+    K]``) with the block ``plan``; ``lib`` as :func:`_launch_chain`'s."""
+    act = MEGA_ACT.get(kind)
+    lib = lib or cuda_build.load_library()
+    cuda_build.check(lib.tat_megakernel_1x1(
+        _GLUE_REQUANT if act else _GLUE["int8"], x.data_ptr(),
+        tile_weights(w, plan.bn).data_ptr(),
+        FK._ptr(cs), out.data_ptr(), x.shape[0], x.shape[1], w.shape[0],
+        plan.bm, plan.bn, plan.wslots, FK._ACT_CODE[act] if act else 0,
+        INV_OUT, ALPHA, _stream(x.device)), "tat_megakernel_1x1")
+
+
+def chain_occupancy(kind: str, k: int, plan: ChainPlan) -> Tuple[int, int]:
+    """``(shared memory bytes, blocks an SM holds)`` of the row chain of
+    ``kind`` (one of :data:`CHAIN_GLUES`) with ``plan`` on the current
+    card."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    lib = cuda_build.load_library()
+    if kind in CHAIN_KINDS:
+        rc = lib.tat_chain_mma_info(_GLUE[kind], k, plan.bm, plan.bn,
+                                    plan.wslots, ctypes.byref(smem),
+                                    ctypes.byref(blocks))
+    else:   # the 1x1 entry's requantize
+        rc = lib.tat_megakernel_1x1_info(
+            _GLUE_REQUANT, k, plan.bm, plan.bn, plan.wslots,
+            ctypes.byref(smem), ctypes.byref(blocks))
+    cuda_build.check(rc, "row chain info")
+    return smem.value, blocks.value
 
 
 def megakernel_chain(kind: str, x: torch.Tensor, w, cs=None
                      ) -> torch.Tensor:
     """E3: one application of ``kind`` (shapes as
     :func:`megakernel_chain_plain`); ``cs`` the [K] float32 per-channel
-    scale of the requantizing kinds. On the card the block is the one
-    :func:`chain_plan` or :func:`spatial_plan` picks for the device."""
+    scale of the requantizing kinds. On the card the 1x1 kinds are one
+    launch of the ``wgmma`` row chain with the block :func:`chain_plan`
+    picks, the
+    3x3 kinds one launch of the ``wgmma`` stage kernel a stage (the C3
+    round two), each with the block :func:`stage_plan` picks
+    (:func:`_run_spatial`); the launch count grows by the launches. The
+    weights are tiled once (:func:`tile_weights`: change them only in
+    place); the stages' scratch is one a shape and stream."""
     if kind not in MEGA_KINDS:
         raise ValueError(f"unknown megakernel kind {kind!r}")
     c3 = kind == "i8-c3-round"
@@ -502,34 +626,148 @@ def megakernel_chain(kind: str, x: torch.Tensor, w, cs=None
     limits = FK.smem_limits(dev)
     if not is_spatial(kind):
         out = torch.empty_like(x)
-        plan = chain_plan("int8", x.shape[0], k, limits)
-        act = MEGA_ACT.get(kind)
-        cuda_build.check(cuda_build.load_library().tat_megakernel_1x1(
-            _GLUE_REQUANT if act else _GLUE["int8"], x.data_ptr(),
-            w3.data_ptr(), None if cs is None else cs.data_ptr(),
-            out.data_ptr(), x.shape[0], k, l, plan.bm, plan.bn,
-            FK._ACT_CODE[act] if act else 0, INV_OUT, ALPHA,
-            _stream(dev)), "tat_megakernel_1x1")
-    else:
-        h = x.shape[1] - 2 * l
-        out = torch.empty((x.shape[0], h, h, k), dtype=dt, device=dev)
-        _launch_spatial(x, w1, w3, cs, out, kind,
-                        spatial_plan(kind, k, h, l, limits))
-    launches["megakernel_probe"] += 1
+        _launch_1x1(kind, x, w3, cs, out, chain_plan(
+            "requant" if kind in MEGA_ACT else "int8", x.shape[0], k,
+            limits))
+        launches["megakernel_probe"] += 1
+        return out
+    h = x.shape[1] - 2 * l
+    out = torch.empty((x.shape[0], h, h, k), dtype=dt, device=dev)
+    launches["megakernel_probe"] += _run_spatial(kind, x, w1, w3, cs, out,
+                                                 limits)
     return out
 
 
-def _launch_spatial(x, w1, w3, cs, out, kind, plan: SpatialPlan) -> None:
-    """One launch of the 3x3 kernel of ``kind`` writing ``out [cells, H,
-    H, K]`` with the block ``plan``."""
+# each weight tensor's tiles (tile_weights), by id, with a weak reference
+# that tells a live tensor from a later one at the same id
+_TILED: Dict[int, tuple] = {}
+
+
+def tile_weights(w: torch.Tensor, bn: int) -> torch.Tensor:
+    """Weights ``[L, T, N, ...]`` or ``[L, N, ...]`` (T taps, 1 if absent;
+    each output column's row of R bytes: K int8, 2 K bf16, K / 2 packed
+    int4) as the kernels' shared-memory image of each chunk of ``bn``
+    columns, uint8 ``[L, N / bn, T, R / 16, bn, 16]``: a chunk's planes of
+    bn rows x 16 bytes, contiguous, so that TMA moves them in 128-byte rows.
+    Made once a tensor, ``bn`` and version (``w._version``: an in-place
+    change makes it again). A write that leaves the version as it was
+    (through ``w.data`` or ``set_``) is not seen, and the kernels would
+    read the old tiles: weights must not change underneath the cache that
+    way."""
+    ent = _TILED.get(id(w))
+    if ent is None or ent[0]() is not w:
+        for key in [k for k, v in _TILED.items() if v[0]() is None]:
+            del _TILED[key]
+        ent = _TILED[id(w)] = (weakref.ref(w), {})
+    tiles = ent[1]
+    for key in [k for k in tiles if k[1] != w._version]:
+        del tiles[key]
+    key = (bn, w._version)
+    if key not in tiles:
+        b = w.contiguous().view(torch.uint8)
+        if b.dim() == 3:
+            b = b.unsqueeze(1)
+        l, t, n, r = b.shape
+        if bn <= 0 or n % bn or r % 16:
+            raise ValueError(f"the kernels' weight chunks of {bn} columns "
+                             f"do not tile [{n}, {r} bytes] rows")
+        tiles[key] = b.reshape(l, t, n // bn, bn, r // 16, 16).permute(
+            0, 2, 1, 4, 3, 5).contiguous()
+    return tiles[key]
+
+
+# each shape's stage outputs between launches: two buffers that take turns
+# and the C3 round's 1x1 output, allocated once a shape and stream (the
+# applications on one stream run in turn; two streams get their own)
+_SCRATCH: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
+
+
+def _scratch(kind: str, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    cells, e0, _, k = x.shape
+    key = (x.device, _stream(x.device), x.dtype, cells, e0, k,
+           kind == "i8-c3-round")
+    if key not in _SCRATCH:
+        n = cells * (e0 - 2) ** 2 * k
+        _SCRATCH[key] = (
+            torch.empty(n, dtype=x.dtype, device=x.device),
+            torch.empty(n, dtype=x.dtype, device=x.device),
+            torch.empty(cells * e0 * e0 * k if key[-1] else 0,
+                        dtype=torch.int8, device=x.device))
+    return _SCRATCH[key]
+
+
+def _run_spatial(kind, x, w1, w3, cs, out, limits=None,
+                 plan: Optional[StagePlan] = None, lib=None) -> int:
+    """One application of the 3x3 ``kind`` through the stage kernel, one
+    launch a stage (the C3 round two: its 1x1 over the whole extent into
+    the scratch ``m``, then the taps with the residual), in order on the
+    current stream; the activations between launches plane-major in the
+    scratch tensors, ``x`` and the last stage's ``out [cells, H, H, K]``
+    NHWC. Each launch takes ``plan``, or the one :func:`stage_plan` picks
+    under ``limits``, and its weights tiled for its block
+    (:func:`tile_weights`); ``lib``: another build of the kernels (the CUDA
+    shim's), else the library. Returns the launches."""
     l, k = w3.shape[0], w3.shape[3]
-    cuda_build.check(cuda_build.load_library().tat_megakernel_3x3(
-        _SPATIAL_CODE[kind], x.data_ptr(),
-        None if w1 is None else w1.data_ptr(), w3.data_ptr(),
-        None if cs is None else cs.data_ptr(), out.data_ptr(), x.shape[0],
-        out.shape[1], l, k, plan.th, plan.tw, plan.bn,
-        FK._ACT_CODE[MEGA_ACT.get(kind, "NONE")], INV_OUT, ALPHA, RES_SCALE,
+    cells, e0 = x.shape[0], x.shape[1]
+    row_bytes = _row_bytes(kind, k)
+    ys = _scratch(kind, x)
+    act = MEGA_ACT.get(kind, "NONE")
+    steps = spatial_launches(kind, e0, l)
+    cur = m = x
+    for idx, (ep, taps, e) in enumerate(steps):
+        stage = idx // 2 if kind == "i8-c3-round" else idx
+        eo = e - 2 if taps == 9 else e
+        p = plan or stage_plan(taps, row_bytes, k, stage_tiles(taps, cells, e),
+                               limits)
+        res = None
+        if taps == 1:   # the C3 round's 1x1: x -> m
+            src, w, dst = cur, tile_weights(w1, p.bn)[stage], \
+                ys[2][:cells * e * e * k].view(cells, e, e, k)
+            m = dst
+        else:
+            src = m if ep == EP_RESIDUAL else cur
+            w = tile_weights(w3, p.bn)[stage]
+            res = cur if ep == EP_RESIDUAL else None
+            dst = out if idx == len(steps) - 1 else \
+                ys[stage % 2][:cells * eo * eo * k].view(cells, eo, eo, k)
+        _launch_stage(ep, taps, src, w, cs, res, dst, act, p,
+                      src is not x, res is not None and res is not x,
+                      dst is not out, lib)
+        if taps == 9:
+            cur = dst
+    return len(steps)
+
+
+def _launch_stage(ep: int, taps: int, x, w, cs, res, out, act: str,
+                  plan: StagePlan, xpm: bool = False, rpm: bool = False,
+                  opm: bool = False, lib=None) -> None:
+    """One launch of the stage kernel: ``x [cells, e, e, K]`` with ``w``,
+    the stage's weights as :func:`tile_weights` makes them for
+    ``plan.bn``, into ``out`` with the epilogue ``ep`` (``act`` for the
+    requantizing ones, ``res`` the C3 round's residual) and the block
+    ``plan``; ``xpm``, ``rpm``, ``opm``: x, res, out plane-major
+    (``[cells, row / 16, e, e, 16]`` bytes), else NHWC; ``lib``: another
+    build of the kernels, else the library."""
+    lib = lib or cuda_build.load_library()
+    cuda_build.check(lib.tat_megakernel_3x3(
+        ep, taps, x.data_ptr(), w.data_ptr(), FK._ptr(cs), FK._ptr(res),
+        out.data_ptr(), int(xpm), int(rpm), int(opm), x.shape[0],
+        x.shape[1], x.shape[3],
+        FK._ACT_CODE[act], INV_OUT, ALPHA, RES_SCALE, plan.bn, plan.kc,
+        plan.stages, int(plan.resident), plan.wslots, plan.blocks,
         _stream(x.device)), "tat_megakernel_3x3")
+
+
+def stage_occupancy(ep: int, taps: int, k: int, plan: StagePlan
+                    ) -> Tuple[int, int]:
+    """``(shared memory bytes, blocks an SM holds)`` of the stage kernel
+    of ``ep`` and ``taps`` with ``plan`` on the current card."""
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    cuda_build.check(cuda_build.load_library().tat_megakernel_3x3_info(
+        ep, taps, k, plan.bn, plan.kc, plan.stages, int(plan.resident),
+        plan.wslots, ctypes.byref(smem), ctypes.byref(blocks)),
+        "tat_megakernel_3x3_info")
+    return smem.value, blocks.value
 
 
 def add_one(x: torch.Tensor) -> torch.Tensor:

@@ -14,10 +14,13 @@ application is the kernel then a zero pad back to the input's extent, as
 the JAX probe pads outside its kernel.
 
 A cell (40 x 40 x K, 400 KB at K = 256) does not fit in a block's shared
-memory, so each block computes a sub-tile with an L-pixel halo and
-recomputes the overlap: rates are reported over the probe's own
-operation count (:func:`ops_of`), as JAX does, with the operations the
-kernel issued (:func:`issued_ops`) beside them.
+memory, so the 3x3 kinds run one ``wgmma`` stage kernel launch a stage
+(the C3 round two: its 1x1, then its taps) over every cell, each stage's
+output in a scratch tensor that stays in L2: no halo is computed again.
+Rates are reported over the probe's own operation count (:func:`ops_of`),
+as JAX does, with the operations the kernels compute and the ones their
+8 x 8 tiles issue on the tensor cores, a ragged extent's masked rows
+included (:func:`issued_ops`), beside them.
 
 Decision rule (``megakernel_probe.py:45-49``), as this module applies it
 on the card: the TPU compared the C3 round's int8 rate against XLA
@@ -44,7 +47,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from thingino_accel_tpu_torch.ops import fused_kernels as FK
 from thingino_accel_tpu_torch.ops import probe_kernels as PK
 from thingino_accel_tpu_torch.probes import timing
 from thingino_accel_tpu_torch.probes.mxu_ceiling import to_bf16
@@ -153,13 +155,68 @@ def plain_fn(kind: str, k: int, device="cuda"):
     return _application(kind, cs, PK.megakernel_chain_plain)
 
 
-def issued_ops(kind: str, k: int, limits: FK.SmemLimits) -> float:
-    """Operations the kernel issues for one application with the plan it
-    picks under ``limits`` (the 1x1 kinds issue the probe's own count)."""
+def issued_ops(kind: str, k: int) -> tuple:
+    """``(computed, tiled)`` operations of one application: each output
+    pixel of each stage once (the 3x3 kinds' launches compute no halo
+    twice; the 1x1 kinds are the probe's own count) and the ones the m64
+    tiles run on the tensor cores (``probe_kernels.spatial_ops``)."""
     if not PK.is_spatial(kind):
-        return ops_of(kind, k)
-    plan = PK.spatial_plan(kind, k, H, L, limits)
-    return PK.spatial_issued_ops(kind, k, H, L, GRID, plan)
+        return ops_of(kind, k), ops_of(kind, k)
+    return PK.spatial_ops(kind, k, H, L, GRID)
+
+
+OURS = ("stage_wgmma_kernel", "row_chain_wgmma_kernel")
+
+
+def trace_read(spans, apps: int) -> Dict:
+    """One trace of ``apps`` chained applications, ``spans`` its device
+    kernels as ``(name, start_us, end_us)`` in any order: an application's
+    ``launches`` kernels, ``stage_launches`` and ``stage_ms`` the port's
+    (:data:`OURS`), ``other_ms`` the rest, and ``gap_ms`` the device's idle
+    time inside an application (each kernel's start less the previous
+    kernel's end, summed), each a mean over the applications."""
+    spans = sorted(spans, key=lambda s: s[1])
+    n = len(spans) // apps
+    if n == 0 or n * apps != len(spans):
+        raise ValueError(f"{len(spans)} kernels in {apps} applications")
+    gap = sum(spans[i + 1][1] - spans[i][2]
+              for a in range(apps) for i in range(a * n, a * n + n - 1))
+    mine = [s for s in spans if any(o in s[0] for o in OURS)]
+    busy = sum(e - b for _, b, e in spans) / 1e3 / apps
+    stage = sum(e - b for _, b, e in mine) / 1e3 / apps
+    return {"gap_ms": gap / 1e3 / apps, "launches": n,
+            "stage_launches": len(mine) / apps, "stage_ms": stage,
+            "other_ms": busy - stage}
+
+
+def kernel_ms(kind: str, k: int, device="cuda", apps: int = 10,
+              traces: int = 3) -> Dict:
+    """One application's kernels on the card (:func:`trace_read`), the
+    mean over ``traces`` ``torch.profiler`` traces of ``apps`` chained
+    applications each, enqueued behind a device spin as the chained
+    timing is, so that the host's launch rate does not show;
+    ``gap_lo_ms`` / ``gap_hi_ms`` the least and most gap of the traces."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn, (x, w), _ = build(kind, k, device)
+    y = fn(x, w)
+    torch.cuda.synchronize()
+    reads = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(timing.SPIN_CYCLES_BASE
+                              + 4 * timing.SPIN_CYCLES_PER_APP * apps)
+            for _ in range(apps):
+                y = fn(y, w)
+            torch.cuda.synchronize()
+        reads.append(trace_read(
+            [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.device_type == DeviceType.CUDA
+             and "spin_kernel" not in e.name], apps))
+    out = {key: sum(r[key] for r in reads) / traces for key in reads[0]}
+    out["gap_lo_ms"] = min(r["gap_ms"] for r in reads)
+    out["gap_hi_ms"] = max(r["gap_ms"] for r in reads)
+    return out
 
 
 def _library_weights(k: int, taps: int, device) -> List[torch.Tensor]:
@@ -234,18 +291,17 @@ def verdict(c3_tops: float, library_tops: float, bf16_tops: float) -> str:
 
 def sweep(device="cuda", ks=KS, iters: int = 20) -> List[Dict]:
     """One row per k: each kind's :class:`timing.Rate` over its own op
-    count, the issued operations on the card, and the library chains'
-    rates (:data:`LIBRARY`, on the card only)."""
+    count, the operations its kernels compute and issue
+    (:func:`issued_ops`), and the library chains' rates (:data:`LIBRARY`,
+    on the card only)."""
     dev = torch.device(device)
-    limits = FK.smem_limits(dev) if dev.type == "cuda" else None
     rows = []
     for k in ks:
-        row: Dict[str, object] = {"k": k, "issued": {}}
+        row: Dict[str, object] = {"k": k, "issued": {}, "tiled": {}}
         for kind in KINDS:
             fn, (x, w), n_ops = build(kind, k, dev)
             row[kind] = timing.measure(lambda y: fn(y, w), x, n_ops, iters)
-            if limits is not None:
-                row["issued"][kind] = issued_ops(kind, k, limits)
+            row["issued"][kind], row["tiled"][kind] = issued_ops(kind, k)
         for name, lib in zip(LIBRARY, (library_taps, library_round)):
             row[name] = None
             if dev.type == "cuda":
@@ -258,17 +314,18 @@ def sweep(device="cuda", ks=KS, iters: int = 20) -> List[Dict]:
 def table(rows: List[Dict]) -> List[str]:
     out = [f"# megakernel pricing: {H}x{W} interior (M={H * W}), L={L} "
            f"stages, grid={GRID}; T/s over the probe's own op count "
-           "(ms: one application; issued: the kernel's ops / the probe's)",
-           f"{'K=N':>6} " + " ".join(f"{k:>26}" for k in KINDS)
+           "(ms: one application; xA/B: the ops the kernels compute / the "
+           "probe's, and the ops their m64 tiles issue / the probe's)",
+           f"{'K=N':>6} " + " ".join(f"{k:>32}" for k in KINDS)
            + "".join(f" {name:>20}" for name in LIBRARY)]
     for r in rows:
         cells = []
         for kind in KINDS:
             v: Optional[timing.Rate] = r[kind]
-            share = r["issued"].get(kind)
-            extra = (f" x{share / ops_of(kind, r['k']):.2f}" if share
-                     else "")
-            cells.append(f"{v.tops:>9.1f}T {v.ms:>8.4f}ms{extra:>6}")
+            own = ops_of(kind, r["k"])
+            extra = (f" x{r['issued'][kind] / own:.2f}/"
+                     f"{r['tiled'][kind] / own:.2f}")
+            cells.append(f"{v.tops:>9.1f}T {v.ms:>8.4f}ms{extra:>12}")
         for name in LIBRARY:
             c = r[name]
             cells.append(f"{'n/a':>20}" if c is None else

@@ -3,12 +3,13 @@ int8 tensor-core chain faster than a bf16 one on this card?
 
 Port of ``examples/mxu_ceiling_probe.py``. Each variant runs L chained
 ``[m, k] x [k, k]`` products over ``m * grid`` rows with the cheapest glue
-between them (``ops.probe_kernels.chain_mma``, CUDA ``csrc/chain_mma.cu``):
+between them (``ops.probe_kernels.chain_mma``, CUDA ``csrc/chain_mma.cu``,
+Hopper's ``wgmma``):
 ``int8`` (``>> 7``), ``bf16`` (f32 sums, ``/ 128``), ``mixed`` (int8
 storage, bf16 products) and ``int4w`` (int8 x int4 weights, at the s8
 rate: PTX has no s8 x s4 product). The TPU probe held x and all L
 weights in VMEM; here the rows stay in shared memory and the weights in
-L2 (2 MB at k = 512, L = 8), streamed per stage. Two library chains time
+L2 (2 MB at k = 512, L = 8), streamed per stage to each block. Two library chains time
 the same products as yardsticks: bf16 ``torch.matmul`` then ``* (1/128)``
 (``xla_chain``) and ``torch._int_mm`` then ``>> 7`` and an int8 cast
 (``xla_int8_chain``).
@@ -17,7 +18,7 @@ Decision rule (``mxu_ceiling_probe.py:20-25``), as this module applies
 it on the card: chained int8 at least 1.5x chained bf16 -> the gap to
 the int8 peak is kernel structure, and int8 tensor-core kernels are worth
 building; int8 at or below bf16 -> the bf16/fp16 tier is the design;
-between -> unclear, to be asked again with ``wgmma``.
+between -> unclear.
 
 Run: ``python3 -m thingino_accel_tpu_torch.probes.mxu_ceiling`` (on the
 card; ``--device cpu`` runs the plain versions at the size asked, e.g.
@@ -118,6 +119,20 @@ def library_int8_chain(m: int, k: int, l: int, grid: int, device="cuda"):
     return fn, xt, wt
 
 
+def library_int8_products(m: int, k: int, l: int, grid: int,
+                          device="cuda"):
+    """The L ``torch._int_mm`` products of :func:`library_int8_chain`
+    alone, each on the same input (the shapes the chain's take), no glue:
+    the chain's time less theirs is its glue's (the shifts and casts)."""
+    _, xt, wt = library_int8_chain(m, k, l, grid, device)
+
+    def fn(x_, ws):
+        for i in range(ws.shape[0]):
+            torch._int_mm(x_, ws[i])
+        return x_
+    return fn, xt, wt
+
+
 def verdict(int8_tops: float, bf16_tops: float) -> str:
     r = int8_tops / bf16_tops
     if r >= BRANCH_INT8:
@@ -128,7 +143,7 @@ def verdict(int8_tops: float, bf16_tops: float) -> str:
         return (f"int8/bf16 = {r:.2f} <= {BRANCH_BF16}: branch 2, int8 does "
                 "not beat bf16 here; the bf16/fp16 tier is the design")
     return (f"int8/bf16 = {r:.2f}, between {BRANCH_BF16} and {BRANCH_INT8}: "
-            "unclear at mma.sync; ask again with wgmma")
+            "unclear")
 
 
 def sweep(device="cuda", m: int = M, l: int = L, grid: int = GRID,
