@@ -242,6 +242,9 @@ inline float shim_bf16_to_float(uint16_t b) {
   std::memcpy(&f, &u, 4);
   return f;
 }
+inline float __bfloat162float(__nv_bfloat16 b) {
+  return shim_bf16_to_float(b.bits);
+}
 inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
   return __nv_bfloat162{__float2bfloat16_rn(lo), __float2bfloat16_rn(hi)};
 }

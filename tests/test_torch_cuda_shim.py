@@ -54,6 +54,7 @@ import pytest
 import torch
 
 from thingino_accel_tpu_torch.ops import cuda_build
+from thingino_accel_tpu_torch.ops import decode_kernel as DK
 from thingino_accel_tpu_torch.ops import fused_kernels as FK
 from thingino_accel_tpu_torch.ops import probe_kernels as PK
 from thingino_accel_tpu_torch.ops import requant_kernels as RK
@@ -1623,7 +1624,7 @@ def _shim_decode(shim, heads, anchors, strides, nc, scales):
         (ctypes.c_int * n_lv)(*(h.shape[2] for h in heads)),
         (ctypes.c_float * n_lv)(*(float(s) for s in strides[:n_lv])),
         (ctypes.c_float * n_lv)(*sc), (ctypes.c_float * anc.size)(*anc),
-        b, a, nc, int(heads[0].dtype == torch.int8), boxes.data_ptr(),
+        b, a, nc, DK.ELEM_CODES[heads[0].dtype], boxes.data_ptr(),
         conf.data_ptr(), cls.data_ptr(), None)
     assert rc == 0
     return boxes, conf, cls
@@ -1646,16 +1647,17 @@ def _offset_view(t, off):
     return v.view(t.shape)
 
 
-@pytest.mark.parametrize("dtype", ["int8", "f32"])
+@pytest.mark.parametrize("dtype", ["int8", "f32", "bf16"])
 @pytest.mark.parametrize("name", DECODE_SHIM_CASES)
 def test_shim_decode_matches_plain(shim, name, dtype):
     """The decode kernel against ``decode_and_parse`` (the plain version):
-    ties among int8 classes (values drawn from five), NaN rows in f32 (all
-    classes, one class), int8 heads at odd byte offsets (the staged range
+    ties among int8 classes (values drawn from five), NaN rows in f32 and
+    bf16 (all classes, one class), ties among bf16 classes, int8 heads at
+    odd byte offsets and bf16 heads at even ones off 16 (the staged range
     aligned inside the kernel)."""
     nb, hws, a, nc = DECODE_SHIM_CASES[name]
     if nc is None:
-        nc = 33000 if dtype == "int8" else 8200
+        nc = {"int8": 33000, "f32": 8200, "bf16": 16500}[dtype]
     rng = np.random.default_rng(len(name) + nc)
     anchors = np.asarray(rng.uniform(4, 60, (len(hws), a, 2)), np.float32)
     strides = (8, 16, 32, 64)[:len(hws)]
@@ -1671,14 +1673,18 @@ def test_shim_decode_matches_plain(shim, name, dtype):
             v = rng.normal(0, 2, (nb, h, w, a, 5 + nc)).astype(np.float32)
             v[0, 0, 0, 0, 5:] = np.nan
             v[..., 5 + nc // 2][rng.random((nb, h, w, a)) < 0.2] = np.nan
-            heads.append(torch.from_numpy(v.reshape(nb, h, w, -1)))
+            t = torch.from_numpy(v.reshape(nb, h, w, -1))
+            if dtype == "bf16":
+                t[..., 5::4] = torch.round(t[..., 5::4])   # class ties
+                t = _offset_view(t.to(torch.bfloat16), (2 * i + 2) % 16)
+            heads.append(t)
     scales = (list(rng.uniform(0.03, 0.06, len(hws))) if dtype == "int8"
               else None)
     got = _shim_decode(shim, heads, anchors, strides, nc, scales)
     ref = Y.decode_and_parse([h.contiguous() for h in heads], anchors,
                              strides, nc, scales)
     _decode_close(got, ref)
-    if dtype == "f32":
+    if dtype != "int8":
         assert int(got[2][0, 0]) == 0   # the all-NaN row: the first NaN
 
 

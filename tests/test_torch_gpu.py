@@ -17,9 +17,12 @@ model shapes (the bottleneck and SPPF also at every plan their planners
 offer for a path unit). The head decode (kernel #8) is held against its plain version on
 the CPU at the real yolov5n's heads and at every head kind it takes (1-4
 levels, A = 1 and 3, NC = 1 to 33000, the units too large to stage, int8
-heads off 16-byte alignment, ties, NaN rows): classes exact, boxes within
-rtol 1e-6 / atol 1e-5, conf within rtol 1e-6 / atol 1e-7, and the
-detections after NMS equal. The exact
+heads off 16-byte alignment, ties, NaN rows), in int8, f32 and the fast
+tier's bf16: classes exact, boxes within rtol 1e-6 / atol 1e-5, conf
+within rtol 1e-6 / atol 1e-7, and the detections after NMS equal. The
+fast tier on the card decodes its bf16 heads in #8 (its bf16 counter),
+its heads within 2^-4 of the largest |head| of the CPU's float32
+forward. The exact
 tier's kernels #9-#11 (``ops.requant_kernels``) are bit-exact against
 their plain versions in both RoundModes, with and without RELU and with
 an activation table, at the zoo yolov5s's lead shapes and at the edge
@@ -464,7 +467,9 @@ def _decode_pair(heads, **kw):
     DK.reset_launches()
     got = DK.decode_and_parse_fused(heads, **kw)
     torch.cuda.synchronize()
-    assert DK.launches["decode_and_parse_fused"] == 1
+    bf16 = heads[0].dtype == torch.bfloat16
+    assert DK.launches == {"decode_and_parse_fused": int(not bf16),
+                           "decode_and_parse_fused_bf16": int(bf16)}
     ref = DK.decode_and_parse_fused([h.cpu() for h in heads], **kw)
     return [g.cpu() for g in got], ref
 
@@ -483,7 +488,7 @@ DECODE_CASES = [(16, (80, 40, 20)), (1, (80, 40, 20)), (3, (13, 7)),
                 (2, (1,))]
 
 
-@pytest.mark.parametrize("dtype", ["int8", "f32"])
+@pytest.mark.parametrize("dtype", ["int8", "f32", "bf16"])
 @pytest.mark.parametrize("case", DECODE_CASES,
                          ids=lambda c: "b{}_{}".format(c[0], "x".join(
                              map(str, c[1]))))
@@ -497,6 +502,8 @@ def test_decode_kernel_matches_plain(cuda, dtype, case):
     else:
         heads = [torch.from_numpy(rng.normal(0, 2, s).astype(np.float32)
                                   ).to(cuda) for s in shapes]
+        if dtype == "bf16":
+            heads = [h.to(torch.bfloat16) for h in heads]
         scales = None
     got, ref = _decode_pair(heads, anchors=Y.YOLOV5_ANCHORS[:len(hws)],
                             strides=Y.YOLOV5_STRIDES[:len(hws)],
@@ -528,21 +535,44 @@ def test_decode_kernel_ties_and_nan(cuda):
     assert (got[2][0] == 0).all()
 
 
+def test_decode_kernel_bf16_ties_and_nan(cuda):
+    """bf16 heads (the fast tier's): first-occurrence ties among classes
+    that round to one bf16 value, rows with all, some and one NaN class
+    logits (the first NaN's index), a head 2 bytes past 16-byte
+    alignment."""
+    rng = np.random.default_rng(10)
+    f = rng.normal(0, 2, (2, 8, 8, 3, 85)).astype(np.float32)
+    f[..., 0, 5 + 7] = f[..., 0, 5 + 19] = 9.0
+    f[..., 0, 5 + 30] = 9.001   # 9.0 in bf16: ties index 7
+    f[0, ..., 1, 5:] = np.nan
+    f[1, ..., 2, 5 + 33][rng.random((8, 8)) < 0.3] = np.nan
+    f[1, 0, 0, 2, 5 + 2] = f[1, 0, 0, 2, 5 + 33] = np.nan
+    v = torch.from_numpy(f.reshape(2, 8, 8, 255)).to(cuda, torch.bfloat16)
+    flat = torch.empty(v.numel() + 16, dtype=torch.bfloat16, device=cuda)
+    h = flat[1:1 + v.numel()].view(v.shape)
+    h.copy_(v)
+    got, ref = _decode_pair([h], anchors=Y.YOLOV5_ANCHORS[:1], strides=(8,))
+    _assert_decode_close(got, ref, nan=True)
+    k = got[2].numpy().reshape(2, 64, 3)
+    assert (k[..., 0] == 7).all() and (k[0, :, 1] == 0).all()
+    assert (k[1, :, 2] == 33).any() and k[1, 0, 2] == 2
+
+
 # (batch, level sizes, A, NC): A = 1 and 3, NC = 1 and 300 (an f32 run of
 # 26 units), four levels, and units too large to stage (int8 NC 33000,
-# f32 NC 8200), which the whole block decodes
+# bf16 NC 16500, f32 NC 8200), which the whole block decodes
 DECODE_SHAPES = [(2, (9, 5, 3), 3, 80), (3, (6,), 1, 1),
                  (1, (4, 2), 3, 300), (1, (12, 6, 3, 1), 1, 80),
                  (2, (2,), 1, None)]
 
 
-@pytest.mark.parametrize("dtype", ["int8", "f32"])
+@pytest.mark.parametrize("dtype", ["int8", "f32", "bf16"])
 @pytest.mark.parametrize("case", DECODE_SHAPES, ids=str)
 def test_decode_kernel_every_head_shape(cuda, dtype, case):
     """Heads of every kind the kernel takes: equal to the plain version;
     int8 heads start 1, 6, 11 and 16 bytes past a 16-byte boundary."""
     nb, hws, a, nc = case
-    nc = nc or (33000 if dtype == "int8" else 8200)
+    nc = nc or {"int8": 33000, "f32": 8200, "bf16": 16500}[dtype]
     rng = np.random.default_rng(nc + len(hws))
     anchors = rng.uniform(4, 60, (len(hws), a, 2)).astype(np.float32)
     heads = []
@@ -557,7 +587,8 @@ def test_decode_kernel_every_head_shape(cuda, dtype, case):
             heads[-1].copy_(v)
         else:
             heads.append(torch.from_numpy(rng.normal(0, 2, shape).astype(
-                np.float32)).to(cuda))
+                np.float32)).to(cuda, torch.bfloat16 if dtype == "bf16"
+                                else torch.float32))
     scales = (list(rng.uniform(0.03, 0.06, len(hws))) if dtype == "int8"
               else None)
     got, ref = _decode_pair(heads, anchors=anchors,
@@ -587,6 +618,41 @@ def test_decode_kernel_detections_equal(cuda):
     assert torch.equal(dg.classes, dr.classes)
     torch.testing.assert_close(dg.boxes, dr.boxes, rtol=0, atol=1e-4)
     torch.testing.assert_close(dg.scores, dr.scores, rtol=1e-6, atol=1e-12)
+
+
+def test_fast_pipeline_on_the_card_decodes_bf16_heads_in_the_kernel(cuda):
+    """The fast tier on the card: ``F.conv2d`` in bf16, bf16 heads decoded
+    by #8 (its bf16 counter, one launch a batch), never cast and decoded
+    by the plain version; the heads within 2^-4 of the largest |head| of
+    the CPU's float32 forward of the same graph (the bound of
+    ``chip_smoke.py``'s fast phase)."""
+    from thingino_accel_tpu_torch.ir import passes
+    from thingino_accel_tpu_torch.models import zoo
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+    from thingino_accel_tpu_torch.runtime.executor import build_executor
+    g = zoo.build_yolov5("n", zoo.ZooConfig(in_hw=(128, 128),
+                                            w_scale=0.0005))
+    assert passes.stem_space_to_depth(g)
+    opts = EngineOptions(precision="fast", quantize_outputs=False)
+    eng = Engine(g, opts, device=cuda)
+    frames = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (2, 72, 128, 3), dtype=np.uint8)).to(cuda)
+    DK.reset_launches()
+    dets = Y.build_serving_pipeline(eng)(frames)
+    torch.cuda.synchronize()
+    assert DK.launches == {"decode_and_parse_fused": 0,
+                           "decode_and_parse_fused_bf16": 1}
+    assert dets.boxes.shape == (2, 100, 4)
+    x = Y.quantize_input_int8(Y.space_to_depth(Y.letterbox_uint8(
+        frames, (128, 128))), torch.bfloat16)
+    heads = eng.forward(x)
+    cpu = build_executor(eng.graph, "cpu", precision="fast")
+    ref = cpu(cpu.device_params(eng._np_params), {g.inputs[0]: x.cpu()})
+    for k, h in heads.items():
+        assert h.dtype == torch.bfloat16 and h.is_cuda
+        r = ref[k]
+        assert float((h.cpu().float() - r).abs().max()) <= (
+            2.0 ** -4 * float(r.abs().max()))
 
 
 def test_new_wrappers_launch_on_every_cuda_call(cuda):

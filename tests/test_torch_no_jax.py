@@ -7,8 +7,10 @@ machine lists none) and imports nothing of the JAX package.
   runs the exact tier in full and compat mode, the KxK conv's
   ``pipeline="dma"`` mode (its plain version on the CPU) and plan, the
   1x1 GEMM's plan and the multi-part 1x1, the letterbox's taps, one
-  tiny chain of each probe (E1, E3, the ladder's kernel rung) and one tiny
-  ``build()`` of E2's (``probes.pipeline``).
+  tiny chain of each probe (E1, E3, the ladder's kernel rung), one tiny
+  ``build()`` of E2's (``probes.pipeline``), and the fast tier (its
+  rewrites, s2d stem, bf16 pipeline and decode, NanoDet's depthwise
+  convs).
 - No module of the port and no line of ``chip_smoke.py`` holds an
   ``import`` of ``thingino_accel_tpu`` (parsed with ``ast``, so an import
   inside a function counts too).
@@ -120,6 +122,28 @@ SCRIPT = textwrap.dedent("""
     got = RK.conv2d_int8(xs, ws, None, (5, 5), (2, 2), (1, 1),
                          ((1, 1), (1, 1)), 1.0, 1.0, 1.0)
     assert got.shape == (1, 5, 5, 4) and int(got[0, 2, 2, 0]) == 27
+    from thingino_accel_tpu_torch.ir import passes
+    fg = zoo.build_yolov5("n", zoo.ZooConfig(in_hw=(64, 64), w_scale=5e-4))
+    assert passes.stem_space_to_depth(fg)
+    for merge in (False, True):
+        fast = thingino_accel_tpu_torch.Engine(fg, EngineOptions(
+            precision="fast", quantize_outputs=False, conv_merge=merge,
+            fpn_split="all"), device="cpu")
+        assert fast.options.compute_dtype == torch.bfloat16
+        dets = yolo.build_serving_pipeline(fast)(torch.zeros(
+            (1, 36, 64, 3), dtype=torch.uint8))
+        assert dets.boxes.shape == (1, 100, 4)
+    heads = fast.forward(yolo.quantize_input_int8(yolo.space_to_depth(
+        torch.zeros((1, 64, 64, 3), dtype=torch.uint8)), torch.bfloat16))
+    assert all(h.dtype == torch.bfloat16 for h in heads.values())
+    assert decode_kernel.decode_and_parse_fused(
+        list(heads.values()))[0].shape == (1, 252, 4)
+    nd = thingino_accel_tpu_torch.Engine(
+        zoo.build_nanodet(zoo.ZooConfig(in_hw=(64, 64))),
+        EngineOptions(precision="fast"), device="cpu")
+    assert [h.dtype for h in nd.run(np.zeros((1, 64, 64, 3),
+                                             np.int8)).values()] == [
+        torch.int8] * 3
     assert sys.modules["jax"] is None
     assert sys.modules["thingino_accel_tpu"] is None
     print("ok")

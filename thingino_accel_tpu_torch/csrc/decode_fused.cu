@@ -1,5 +1,5 @@
 // YOLO head decode of every pyramid level in one launch: raw head rows
-// [B*H*W, A*(5+NC)] (int8 with a dequant scale, or f32) of up to
+// [B*H*W, A*(5+NC)] (int8 with a dequant scale, f32, or bf16) of up to
 // kMaxLevels levels -> boxes f32 [B, N, 4] (cx, cy, w, h), conf f32 [B, N]
 // and class int32 [B, N], N = sum over levels of H*W*A, ordered (level,
 // gy, gx, anchor) within each image: the outputs of decode_and_parse,
@@ -32,10 +32,14 @@
 // five box/objectness sigmoids and the class one are lookups; the class
 // maximum is a __vmaxs4 over the unit's 4-byte words (realigned by funnel
 // shifts) and its first index the first word whose __vcmpeq4 with the
-// maximum is non-zero. f32 heads keep sigmoid_rn and the NaN-aware
-// first-max order (a NaN wins, the first NaN first). A box is one 16-byte
-// store, conf and class coalesced 4-byte stores. A unit too large to
-// stage (more than kStageBytes: int8 NC above about 32 K, f32 above 8 K)
+// maximum is non-zero. f32 and bf16 heads keep sigmoid_rn and the
+// NaN-aware first-max order (a NaN wins, the first NaN first); a bf16
+// value becomes f32 by __bfloat162float, which is exact. bf16 heads are
+// the fast tier's (the JAX fast tier hands decode_level_pallas its bf16
+// heads); a 170-byte unit (NC 80) is as unaligned as an f32 one, and the
+// staged range is aligned as for int8. A box is one 16-byte store, conf
+// and class coalesced 4-byte stores. A unit too large to stage (more than
+// kStageBytes: int8 NC above about 32 K, bf16 above 16 K, f32 above 8 K)
 // is decoded by the whole block, its class logits read from device memory
 // in strides of kThreads and reduced through shuffles and shared memory.
 // The float steps are __fmul_rn/__fadd_rn/__fdiv_rn in the reference's
@@ -43,6 +47,7 @@
 #include <climits>
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "mma_tile.cuh"
@@ -72,6 +77,17 @@ struct DecodeArgs {
 
 __device__ __forceinline__ float sigmoid_rn(float v) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-v)));
+}
+
+// Element i of a head row as f32: int8 (before its scale), f32, bf16.
+__device__ __forceinline__ float head_value(const int8_t* p, int i) {
+  return __int2float_rn(p[i]);
+}
+__device__ __forceinline__ float head_value(const float* p, int i) {
+  return p[i];
+}
+__device__ __forceinline__ float head_value(const __nv_bfloat16* p, int i) {
+  return __bfloat162float(p[i]);
 }
 
 // (v, i) comes before (bv, bi) in the class order: NaN above every number,
@@ -140,16 +156,18 @@ __device__ __forceinline__ void write_unit(const DecodeArgs& a, int l,
   cls[o] = ci;
 }
 
-template <bool I8>
+// T: int8_t, float or __nv_bfloat16, the heads' element type
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     decode_fused_kernel(DecodeArgs a, float* __restrict__ boxes,
                         float* __restrict__ conf, int* __restrict__ cls) {
+  constexpr bool I8 = sizeof(T) == 1;
   extern __shared__ __align__(16) unsigned char smem[];
   int l = 0;   // the block's level
   while (static_cast<int>(blockIdx.x) >= a.run_off[l + 1]) ++l;
   const int tid = threadIdx.x;
   const long long b = blockIdx.y;
-  const int ub = (5 + a.NC) * (I8 ? 1 : 4);   // bytes a unit
+  const int ub = (5 + a.NC) * static_cast<int>(sizeof(T));   // a unit
   const float sc = a.scale[l];
   const auto* head = static_cast<const unsigned char*>(a.feat[l]);
   float* tab = reinterpret_cast<float*>(smem);   // int8: sigmoid(i * sc)
@@ -174,11 +192,13 @@ __global__ void __launch_bounds__(kThreads)
       best = __int2float_rn(key >> 16);
       ci = 65535 - (key & 0xffff);
     } else {
-      const float* q = reinterpret_cast<const float*>(p) + 5;
+      const T* q = reinterpret_cast<const T*>(p) + 5;
       float bv = -__int_as_float(0x7f800000);   // -inf
       int bi = INT_MAX;
-      for (int c = tid; c < a.NC; c += kThreads)
-        if (first_max(q[c], c, bv, bi)) bv = q[c], bi = c;
+      for (int c = tid; c < a.NC; c += kThreads) {
+        const float v = head_value(q, c);
+        if (first_max(v, c, bv, bi)) bv = v, bi = c;
+      }
 #pragma unroll
       for (int s = 16; s > 0; s >>= 1) {
         const float ov = __shfl_xor_sync(kFull, bv, s);
@@ -197,10 +217,8 @@ __global__ void __launch_bounds__(kThreads)
     float s[5];
 #pragma unroll
     for (int k = 0; k < 5; ++k)
-      s[k] = sigmoid_rn(__fmul_rn(
-          I8 ? __int2float_rn(reinterpret_cast<const int8_t*>(p)[k])
-             : reinterpret_cast<const float*>(p)[k],
-          sc));
+      s[k] = sigmoid_rn(__fmul_rn(head_value(reinterpret_cast<const T*>(p), k),
+                                  sc));
     write_unit(a, l, local, o, s, sigmoid_rn(__fmul_rn(best, sc)), ci, boxes,
                conf, cls);
     return;
@@ -243,14 +261,17 @@ __global__ void __launch_bounds__(kThreads)
                  128];
     cls_sig = tab[best + 128];
   } else {
-    const float* f = reinterpret_cast<const float*>(p);
+    const T* f = reinterpret_cast<const T*>(p);
     float bv = -__int_as_float(0x7f800000);   // -inf
     int bi = INT_MAX;
-    for (int c = 0; c < a.NC; ++c)
-      if (first_max(f[5 + c], c, bv, bi)) bv = f[5 + c], bi = c;
+    for (int c = 0; c < a.NC; ++c) {
+      const float v = head_value(f, 5 + c);
+      if (first_max(v, c, bv, bi)) bv = v, bi = c;
+    }
     ci = bi;
 #pragma unroll
-    for (int k = 0; k < 5; ++k) s[k] = sigmoid_rn(__fmul_rn(f[k], sc));
+    for (int k = 0; k < 5; ++k)
+      s[k] = sigmoid_rn(__fmul_rn(head_value(f, k), sc));
     cls_sig = sigmoid_rn(__fmul_rn(bv, sc));
   }
   write_unit(a, l, local, o, s, cls_sig, ci, boxes, conf, cls);
@@ -259,19 +280,21 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // feats/H/W/strides/scales: one entry per level; anchors: levels * A * 2
-// floats (w, h). scales hold 1.0 for a head without one. f32 heads must be
-// 4-byte aligned; int8 heads may start at any byte. boxes 16-byte aligned.
+// floats (w, h). scales hold 1.0 for a head without one. elem: the heads'
+// type, 0 f32, 1 int8, 2 bf16. f32 heads must be 4-byte aligned, bf16
+// heads 2-byte; int8 heads may start at any byte. boxes 16-byte aligned.
 extern "C" int tat_decode_fused(int levels, const void* const* feats,
                                 const int* H, const int* W,
                                 const float* strides, const float* scales,
                                 const float* anchors, int batch, int A, int NC,
-                                int is_int8, void* boxes, void* conf, void* cls,
+                                int elem, void* boxes, void* conf, void* cls,
                                 void* stream) {
   if (levels < 1 || levels > kMaxLevels || A < 1 || A > kMaxAnchors ||
-      NC < 1 || NC > 65535 || batch < 0 || batch > 65535 ||
-      (reinterpret_cast<uintptr_t>(boxes) & 15u) != 0)
+      NC < 1 || NC > 65535 || batch < 0 || batch > 65535 || elem < 0 ||
+      elem > 2 || (reinterpret_cast<uintptr_t>(boxes) & 15u) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int ub = (5 + NC) * (is_int8 ? 1 : 4);
+  const int esize = elem == 0 ? 4 : elem;   // bytes an element
+  const int ub = (5 + NC) * esize;
   DecodeArgs a;
   a.levels = levels;
   a.A = A;
@@ -280,7 +303,7 @@ extern "C" int tat_decode_fused(int levels, const void* const* feats,
   if (a.run > kThreads) a.run = kThreads;
   long long per_image = 0, runs = 0;
   for (int l = 0; l < levels; ++l) {
-    if (!is_int8 && (reinterpret_cast<uintptr_t>(feats[l]) & 3u) != 0)
+    if ((reinterpret_cast<uintptr_t>(feats[l]) & (esize - 1)) != 0)
       return static_cast<int>(cudaErrorInvalidValue);
     const long long units = static_cast<long long>(H[l]) * W[l] * A;
     a.feat[l] = feats[l];
@@ -303,16 +326,19 @@ extern "C" int tat_decode_fused(int levels, const void* const* feats,
   for (int l = levels; l <= kMaxLevels; ++l) a.run_off[l] = static_cast<int>(runs);
   a.per_image = static_cast<int>(per_image);
   if (per_image == 0 || batch == 0) return 0;
-  const int smem = a.run ? (is_int8 ? kTableBytes : 0) + a.run * ub + kSlack
+  const int smem = a.run ? (elem == 1 ? kTableBytes : 0) + a.run * ub + kSlack
                          : 8 * kThreads / 32;
   const dim3 grid(static_cast<unsigned>(runs), static_cast<unsigned>(batch));
   const auto s = static_cast<cudaStream_t>(stream);
   auto* bp = static_cast<float*>(boxes);
   auto* cp = static_cast<float*>(conf);
   auto* kp = static_cast<int*>(cls);
-  if (is_int8)
-    decode_fused_kernel<true><<<grid, kThreads, smem, s>>>(a, bp, cp, kp);
+  if (elem == 1)
+    decode_fused_kernel<int8_t><<<grid, kThreads, smem, s>>>(a, bp, cp, kp);
+  else if (elem == 2)
+    decode_fused_kernel<__nv_bfloat16><<<grid, kThreads, smem, s>>>(a, bp, cp,
+                                                                     kp);
   else
-    decode_fused_kernel<false><<<grid, kThreads, smem, s>>>(a, bp, cp, kp);
+    decode_fused_kernel<float><<<grid, kThreads, smem, s>>>(a, bp, cp, kp);
   return static_cast<int>(cudaGetLastError());
 }

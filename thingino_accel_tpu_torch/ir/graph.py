@@ -87,6 +87,9 @@ class Graph:
     inputs: List[str]
     outputs: List[str]
     name: str = "network"
+    # set by ir.passes.stem_space_to_depth: the input takes frames in
+    # space-to-depth order (models.yolo.space_to_depth)
+    stem_s2d: bool = False
 
     def validate(self) -> None:
         defined = set(self.inputs)
@@ -133,7 +136,7 @@ class Graph:
                 raise KeyError(f"unknown tensor {o!r}")
         g = Graph(nodes=list(self.nodes), tensors=self.tensors,
                   inputs=list(self.inputs), outputs=list(outputs),
-                  name=self.name)
+                  name=self.name, stem_s2d=self.stem_s2d)
         from thingino_accel_tpu_torch.ir import passes
         return passes.dead_code(g)
 

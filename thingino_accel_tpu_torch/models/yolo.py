@@ -1,8 +1,9 @@
 """YOLO pre/post-processing on torch tensors (port of
 ``thingino_accel_tpu.models.yolo`` for the serving path).
 
-uint8 frames -> letterbox + int8 quantize -> engine -> anchor decode ->
-class-aware NMS, all on the frames' device. Shapes stay fixed (K
+uint8 frames -> letterbox + int8 quantize (the values in bf16 for the
+fast tier, in 2x2 blocks for a space-to-depth stem) -> engine -> anchor
+decode -> class-aware NMS, all on the frames' device. Shapes stay fixed (K
 detections per frame with a ``valid`` mask), as in the JAX package.
 
 Tie order follows ``lax.top_k``: among equal scores the lower index comes
@@ -198,9 +199,33 @@ def letterbox_uint8(
     return out
 
 
-def quantize_input_int8(frames_u8: torch.Tensor) -> torch.Tensor:
-    """uint8 [0,255] -> int8 centered: the reference feeds ``pixel - 128``."""
-    return (frames_u8.to(torch.int32) - 128).to(torch.int8)
+def quantize_input_int8(frames_u8: torch.Tensor,
+                        dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """uint8 [0,255] -> int8 centered: the reference feeds ``pixel - 128``.
+    ``dtype=torch.bfloat16`` holds the same integers in bf16 (exact: |v|
+    <= 128), the fast tier's input, whose DEQUANT takes any real type."""
+    return (frames_u8.to(torch.int32) - 128).to(dtype)
+
+
+def space_to_depth_frames(frames: np.ndarray) -> np.ndarray:
+    """Host 2x2 space-to-depth: ``[B, H, W, C]`` -> ``[B, H/2, W/2, 4C]``,
+    each 2x2 block's pixels row-major into the channels (channel
+    ``(p*2+q)*C + c``): the input order of a graph rewritten by
+    ``ir.passes.stem_space_to_depth``, which a fixed-size feed can be
+    written in as it is copied."""
+    b, h, w, c = frames.shape
+    assert h % 2 == 0 and w % 2 == 0, (h, w)
+    out = frames.reshape(b, h // 2, 2, w // 2, 2, c) \
+        .transpose(0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
+    return np.ascontiguousarray(out)
+
+
+def space_to_depth(frames: torch.Tensor) -> torch.Tensor:
+    """:func:`space_to_depth_frames` on the device (the same channel
+    order), for frames letterboxed there: one relayout pass."""
+    b, h, w, c = frames.shape
+    return frames.reshape(b, h // 2, 2, w // 2, 2, c) \
+        .permute(0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
 
 
 def find_detect_outputs(graph) -> list:
@@ -432,6 +457,46 @@ def nms_fixed(boxes_xywh: torch.Tensor, scores: torch.Tensor,
                       classes=d.classes[0], valid=d.valid[0])
 
 
+def match_share(got: Detections, ref: Detections, iou: float = 0.9
+                ) -> float:
+    """How far two detection sets of the same frames agree: the share
+    :func:`match_counts` matched; 1.0 where both are empty."""
+    matched, total = match_counts(got, ref, iou)
+    return 1.0 if total == 0 else matched / total
+
+
+def match_counts(got: Detections, ref: Detections, iou: float = 0.9
+                 ) -> Tuple[int, int]:
+    """``(matched, total)``: detections matched one to one, greedily by
+    IoU, at IoU >= ``iou`` with the same class, and the larger set of each
+    frame, summed over the frames. Any objects with ``boxes``,
+    ``classes`` and ``valid`` of the :class:`Detections` shapes (numpy
+    arrays too)."""
+    matched = total = 0
+    for f in range(len(got.valid)):
+        sets = []
+        for d in (got, ref):
+            v = np.asarray(d.valid[f])
+            sets.append((np.asarray(d.boxes[f], np.float64)[v],
+                         np.asarray(d.classes[f])[v]))
+        (gb, gc), (rb, rc) = sets
+        total += max(len(gb), len(rb))
+        if not len(gb) or not len(rb):
+            continue
+        lt = np.maximum(gb[:, None, :2], rb[None, :, :2])
+        rbm = np.minimum(gb[:, None, 2:], rb[None, :, 2:])
+        inter = np.prod(np.clip(rbm - lt, 0, None), -1)
+        area = lambda x: np.prod(np.clip(x[:, 2:] - x[:, :2], 0, None), -1)
+        m = inter / (area(gb)[:, None] + area(rb)[None, :] - inter + 1e-9)
+        m = np.where(gc[:, None] == rc[None, :], m, 0.0)
+        while m.max() >= iou:
+            i, j = np.unravel_index(np.argmax(m), m.shape)
+            matched += 1
+            m[i, :] = 0.0
+            m[:, j] = 0.0
+    return matched, total
+
+
 def scale_boxes_to_original(
     boxes_xyxy: torch.Tensor,
     orig_hw: Tuple[int, int],
@@ -460,25 +525,43 @@ def scale_boxes_to_original(
 def build_serving_pipeline(engine):
     """uint8 frames [B, H, W, 3] on the engine's device -> Detections in
     letterboxed-frame pixels: letterbox -> int8 quantize -> engine ->
-    decode (int8 heads, per-head scales) -> NMS (conf 0.25, IoU 0.45,
-    100 detections, pool 128, group 8), the composition the JAX
-    ``bench.py`` serving pipeline runs. ``engine`` is a
-    ``runtime.Engine`` whose outputs are the three detect heads.
+    decode -> NMS (conf 0.25, IoU 0.45, 100 detections, pool 128, group
+    8), the composition the JAX ``bench.py`` pipeline runs, for the
+    engine's tier. ``engine`` is a ``runtime.Engine`` whose outputs are
+    the three detect heads.
+
+    The fast tier quantizes into bf16 (:func:`quantize_input_int8`). Its
+    heads are bf16, decoded with no scales, or with
+    ``quantize_outputs=True`` int8 with their scales. A graph whose stem
+    ``ir.passes.stem_space_to_depth`` rewrote (its mark ``stem_s2d``)
+    takes frames letterboxed to twice its input size, then
+    :func:`space_to_depth` on the device; frames already at its input
+    shape (in :func:`space_to_depth_frames` order, a pre-sized feed) go
+    straight in, as the letterbox is then the identity.
 
     The decode is ``ops.decode_kernel.decode_and_parse_fused``: one
-    kernel over the three heads on a CUDA device, its plain version
-    (:func:`decode_and_parse`) on the CPU."""
+    kernel over the three heads on a CUDA device, int8 or bf16, its plain
+    version (:func:`decode_and_parse`) on the CPU."""
     # imported here: ops.decode_kernel imports this module
     from thingino_accel_tpu_torch.ops.decode_kernel import (
         decode_and_parse_fused,
     )
     in_t = engine.graph.tensors[engine.input_names[0]]
-    target = (in_t.shape[1], in_t.shape[2])
+    s2d = engine.graph.stem_s2d
+    target = (in_t.shape[1] * (1 + s2d), in_t.shape[2] * (1 + s2d))
     out_names = engine.output_names
-    scales = [engine.graph.tensors[o].quant.scale for o in out_names]
+    heads = [engine.graph.tensors[o] for o in out_names]
+    scales = (None if any(h.dtype.kind == "f" for h in heads)
+              else [h.quant.scale for h in heads])
+    dtype = (torch.bfloat16 if engine.options.precision == "fast"
+             else torch.int8)
 
     def pipeline(frames_u8: torch.Tensor) -> Detections:
-        x = quantize_input_int8(letterbox_uint8(frames_u8, target))
+        if s2d and tuple(frames_u8.shape[1:]) == tuple(in_t.shape[1:]):
+            x = quantize_input_int8(frames_u8, dtype)
+        else:
+            x = letterbox_uint8(frames_u8, target)
+            x = quantize_input_int8(space_to_depth(x) if s2d else x, dtype)
         feats = engine.forward(x)
         boxes, scores, classes = decode_and_parse_fused(
             [feats[k] for k in out_names], scales=scales)

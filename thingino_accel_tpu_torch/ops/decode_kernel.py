@@ -2,7 +2,8 @@
 ``thingino_accel_tpu.ops.decode_kernel``).
 
 :func:`decode_and_parse_fused` decodes every pyramid level's raw head
-[B, H, W, A*(5+NC)] (int8 with its dequant scale, or f32) into boxes,
+[B, H, W, A*(5+NC)] (int8 with its dequant scale, f32, or the fast
+tier's bf16) into boxes,
 conf and class in one launch of ``csrc/decode_fused.cu``, written straight
 into the concatenated outputs. Its plain version is
 ``models.yolo.decode_and_parse``: the wrapper takes it for tensors on the
@@ -11,14 +12,16 @@ CPU, and launches the kernel (or raises) for tensors on a CUDA device.
 Against the JAX ``decode_level_pallas`` (one launch per level over row
 tiles): any row count is taken, so no level falls back to another decode;
 a head whose channels are not A*(5+NC) raises; an f32 class row with a
-NaN gives the first NaN's index, as ``jnp.argmax`` does. The JAX
-package's deferred-class mode (``TAT_DEFER_CLS``) is not ported.
+NaN gives the first NaN's index, as ``jnp.argmax`` does. A bf16 head is
+decoded as it is (its values made f32 exactly inside the kernel), never
+cast to f32 by another pass first. The JAX package's deferred-class mode
+(``TAT_DEFER_CLS``) is not ported.
 
 What the kernel takes, checked on every device before the plain version
 is chosen: 1..4 levels, 1..8 anchors a level, 1 <= NC <= 65535, heads of
 one device, dtype and batch; on the card also contiguous heads. An int8
 head may start at any byte (the kernel aligns the range it stages); an
-f32 head is aligned to its element, as every float32 tensor is.
+f32 or bf16 head is aligned to its element, as every such tensor is.
 """
 
 from __future__ import annotations
@@ -36,8 +39,14 @@ MAX_LEVELS = 4
 MAX_ANCHORS = 8
 MAX_CLASSES = 65535   # the kernel's int8 key packs a class index in 16 bits
 
-# Kernel launches since the last reset_launches()
-launches: Dict[str, int] = {"decode_and_parse_fused": 0}
+# the heads' element types, by the kernel's code for them
+ELEM_CODES = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
+
+# Kernel launches since the last reset_launches(): int8 and f32 heads
+# count under "decode_and_parse_fused", bf16 heads (the fast tier's)
+# under "decode_and_parse_fused_bf16"
+launches: Dict[str, int] = {"decode_and_parse_fused": 0,
+                            "decode_and_parse_fused_bf16": 0}
 
 
 def reset_launches() -> None:
@@ -54,8 +63,9 @@ def decode_and_parse_fused(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Raw head maps -> (boxes_xywh [B, N, 4] f32, conf [B, N] f32,
     classes [B, N] int32) in ``decode_and_parse``'s (level, gy, gx,
-    anchor) order. All heads share one device, dtype (int8 or float32)
-    and batch; ``scales`` are the int8 heads' dequant scales."""
+    anchor) order. All heads share one device, dtype (int8, float32 or
+    bfloat16) and batch; ``scales`` are the int8 heads' dequant scales
+    (or any heads', multiplied in f32 before each sigmoid)."""
     anchors = np.asarray(anchors, np.float32)
     n_lv = len(feats)
     if not 1 <= n_lv <= MAX_LEVELS or anchors.ndim != 3 \
@@ -69,8 +79,9 @@ def decode_and_parse_fused(
         raise ValueError(f"num_classes must be in 1..{MAX_CLASSES}, got "
                          f"{num_classes}")
     dev, dt = feats[0].device, feats[0].dtype
-    if dt not in (torch.int8, torch.float32):
-        raise TypeError(f"int8 or float32 heads expected, got {dt}")
+    if dt not in ELEM_CODES:
+        raise TypeError(f"int8 or float32 heads (or bfloat16) expected, "
+                        f"got {dt}")
     for f in feats:
         if f.dim() != 4 or f.shape[3] != a * (5 + num_classes):
             raise ValueError(f"head {tuple(f.shape)}: channels must be "
@@ -92,7 +103,8 @@ def decode_and_parse_fused(
     if b * n > 0:
         _launch_decode(feats, anchors[:n_lv], strides, num_classes, scales,
                        boxes, conf, cls)
-        launches["decode_and_parse_fused"] += 1
+        launches["decode_and_parse_fused_bf16" if dt == torch.bfloat16
+                 else "decode_and_parse_fused"] += 1
     return boxes, conf, cls
 
 
@@ -110,7 +122,7 @@ def _launch_decode(feats, anchors, strides, num_classes, scales, boxes,
         ints(*(f.shape[1] for f in feats)), ints(*(f.shape[2] for f in feats)),
         floats(*(float(s) for s in strides[:n_lv])), floats(*sc),
         (ctypes.c_float * anc.size)(*anc.tolist()), feats[0].shape[0],
-        anchors.shape[1], num_classes, int(feats[0].dtype == torch.int8),
+        anchors.shape[1], num_classes, ELEM_CODES[feats[0].dtype],
         boxes.data_ptr(), conf.data_ptr(), cls.data_ptr(),
         torch.cuda.current_stream(boxes.device).cuda_stream),
         "tat_decode_fused")

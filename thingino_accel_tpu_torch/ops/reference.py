@@ -1,7 +1,7 @@
 """Layer semantics in plain torch, NHWC (port of the parts of
-``thingino_accel_tpu.ops.reference`` that the serving and exact tiers
-lower). Conv weights are OHWI, the kernels' layout (the JAX functions
-take HWIO).
+``thingino_accel_tpu.ops.reference`` that the serving, exact and fast
+tiers lower). Conv weights are OHWI, the kernels' layout (the JAX
+functions take HWIO).
 
 Each function keeps the JAX function's name and arithmetic order, and
 cites the reference runtime behaviour it replicates through it.
@@ -111,6 +111,75 @@ def conv2d_int8(
     return out
 
 
+def _conv_nchw(x: torch.Tensor, w: torch.Tensor, out_hw: Tuple[int, int],
+               stride: Tuple[int, int], dilation: Tuple[int, int],
+               pads: Tuple[Tuple[int, int], Tuple[int, int]],
+               groups: int = 1) -> torch.Tensor:
+    """``F.conv2d`` of NCHW ``x`` (channels_last) and OIHW ``w`` with the
+    reference's pads, cropped to ``out_hw``: a symmetric pad of the top
+    and left sides where it covers the bottom and right ones (rows past
+    the declared pads are read by no kept output), else an explicit
+    pad."""
+    (pt, pb), (pl, pr) = pads
+    if pb > pt or pr > pl:
+        x = torch.nn.functional.pad(x, (pl, pr, pt, pb))
+        pt = pl = 0
+    out = torch.nn.functional.conv2d(x, w, None, tuple(stride), (pt, pl),
+                                     tuple(dilation), groups)
+    return out[:, :, :out_hw[0], :out_hw[1]]
+
+
+def conv2d_f32(
+    x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+    out_hw: Tuple[int, int], stride: Tuple[int, int],
+    dilation: Tuple[int, int],
+    pads: Tuple[Tuple[int, int], Tuple[int, int]],
+    relu: bool = False, compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Float conv of NHWC ``x`` with OHWI ``w`` (the fast tier's): the
+    conv in ``compute_dtype`` (float32 or bfloat16, sums in float32) and
+    channels_last, cropped to ``out_hw``, the bias added in float32, then
+    RELU, the result cast to ``compute_dtype``. A bf16 conv's output is
+    rounded to bf16 before the bias (``F.conv2d`` returns its input's
+    type), where JAX adds the bias to the f32 sums: one rounding more
+    (ROADMAP C.9).
+    On the card a float32 conv follows ``torch.backends.cudnn.allow_tf32``
+    (the caller sets it)."""
+    cl = torch.channels_last
+    xc = x.to(compute_dtype).permute(0, 3, 1, 2).contiguous(memory_format=cl)
+    wc = w.to(compute_dtype).permute(0, 3, 1, 2).contiguous(memory_format=cl)
+    out = _conv_nchw(xc, wc, out_hw, stride, dilation, pads)
+    out = out.permute(0, 2, 3, 1)
+    # the add reads the conv's output and writes float32 in one pass
+    out = (out + bias.to(torch.float32) if bias is not None
+           else out.to(torch.float32))
+    if relu:
+        out = torch.clamp_min(out, 0.0)
+    return out.to(compute_dtype).contiguous()
+
+
+def depthwise_conv2d_f32(
+    x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+    out_hw: Tuple[int, int], stride: Tuple[int, int],
+    dilation: Tuple[int, int],
+    pads: Tuple[Tuple[int, int], Tuple[int, int]],
+    relu: bool = False,
+) -> torch.Tensor:
+    """Float depthwise conv of NHWC ``x`` with ``w`` [KH, KW, C], in
+    float32 whatever the input's type (as JAX's), cropped to ``out_hw``,
+    + bias, RELU; returns float32."""
+    cl = torch.channels_last
+    xc = x.to(torch.float32).permute(0, 3, 1, 2).contiguous(memory_format=cl)
+    wc = w.to(torch.float32).permute(2, 0, 1).unsqueeze(1)   # [C, 1, KH, KW]
+    out = _conv_nchw(xc, wc, out_hw, stride, dilation, pads,
+                     groups=x.shape[3]).permute(0, 2, 3, 1)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    if relu:
+        out = torch.clamp_min(out, 0.0)
+    return out.contiguous()
+
+
 def depthwise_acc_i32(
     x: torch.Tensor, w: torch.Tensor, out_hw: Tuple[int, int],
     stride: Tuple[int, int], dilation: Tuple[int, int],
@@ -179,12 +248,15 @@ def maxpool(
 
 def leaky_relu(x: torch.Tensor, alpha: float = 0.01) -> torch.Tensor:
     """LeakyReLU. int8: the negative branch is ``max(-128, trunc(x *
-    alpha))`` on the quantized value, in f32 with C truncation."""
+    alpha))`` on the quantized value, in f32 with C truncation. Float: in
+    float32, whatever the float type of ``x``."""
     if not x.dtype.is_floating_point:
         neg = torch.trunc(x.to(torch.float32) * float(np.float32(alpha)))
         neg = torch.clamp_min(neg, -128.0).to(x.dtype)
         return torch.where(x > 0, x, neg)
-    return torch.where(x > 0, x, x * float(np.float32(alpha)))
+    # a float32 alpha promotes a bf16 x to float32, as in JAX
+    xf = x.to(torch.float32)
+    return torch.where(x > 0, xf, xf * float(np.float32(alpha)))
 
 
 def _pool_taps(x: torch.Tensor, kernel, stride, out_hw, pads, value):
@@ -341,6 +413,16 @@ def add_q(
         return a + b
     y = _deq_operand(a, a_scale) + _deq_operand(b, b_scale)
     return _requant_recip(y, out_scale)
+
+
+def quantize_edge(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """QUANT, a float graph's int8 edge: ``x / scale`` in f32,
+    PLUS_HALF_TRUNC, clamp. XLA's f32 -> int32 conversion saturates and
+    takes NaN to 0 (torch's is undefined out of range), so the quotient is
+    held in [-129, 128], NaN as 0, before the rounding: the same int8."""
+    y = _fdiv(x.to(torch.float32), scale or 1.0)
+    y = torch.clamp(torch.nan_to_num(y, nan=0.0), -129.0, 128.0)
+    return clamp_i8(round_to_int(y, RoundMode.PLUS_HALF_TRUNC))
 
 
 def concat(xs: Sequence[torch.Tensor], axis: int) -> torch.Tensor:

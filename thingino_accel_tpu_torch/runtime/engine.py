@@ -1,13 +1,15 @@
 """The inference engine: load -> prepare once -> run many.
 
-Port of ``thingino_accel_tpu.runtime.engine`` for the serving and exact
-tiers. The weights are put on the engine's ``device`` once, ``"cuda"``
-unless the caller asks for the CPU; each run is eager PyTorch.
+Port of ``thingino_accel_tpu.runtime.engine`` for its three tiers. The
+weights are put on the engine's ``device`` once, ``"cuda"`` unless the
+caller asks for the CPU; each run is eager PyTorch.
 ``precision="serving"`` plans, as the JAX package's serving tier does
 (``runtime.planner``): residual adds, concats, SPPF and C3 bottlenecks
 fuse into the kernels of ``ops.fused_kernels``. ``precision="exact"`` is
 the parity tier, node by node, its per-tensor int8 convs in the kernels of
-``ops.requant_kernels``.
+``ops.requant_kernels``. ``precision="fast"`` dequantizes the graph at
+load and runs it in bf16 node by node, its convs through ``F.conv2d``
+(``runtime.executor.FastExecutor``), after the JAX fast tier's rewrites.
 """
 
 from __future__ import annotations
@@ -41,22 +43,48 @@ class EngineOptions:
     - ``"serving"``: the planned int8 tier whose convs carry their
       activation (``ir.passes.fuse_act_into_conv``) and the planner's
       fusions in the requantize epilogue; callers name it;
-    - ``"fast"`` raises until ROADMAP A.2 lands.
+    - ``"fast"``: the graph dequantized at load
+      (``ir.passes.dequantize_graph``: float weights, DEQUANT/QUANT at the
+      int8 edges, with ``quantize_outputs`` the heads requantized, else
+      left in bf16), then BN folded, ``conv_merge``
+      (``merge_sibling_convs``, off by default) and ``fpn_split``
+      (``split_concat_convs``: ``""`` off, ``"upsample"``, ``"wide"``
+      the default, ``"all"``; any other value raises), run in
+      ``compute_dtype``, which the engine makes bfloat16 where it is
+      float32, as the JAX engine does. ``accum_dtype`` is the JAX
+      option's: None means float32, and ``torch.bfloat16`` raises here
+      (cuDNN has no bf16 accumulator); the executor takes no such
+      option. Full mode only.
 
     ``fold_bn`` folds f32 BATCHNORM into the conv before it (full mode).
     The JAX options ``nchw_io``, ``jit`` and ``donate_inputs`` are not
-    ported."""
+    ported; the fast rewrites' ``TAT_CONV_MERGE`` / ``TAT_FPN_SPLIT``
+    environment defaults are read by no code of the port (their values
+    with no environment set are the defaults here)."""
 
     precision: str = "exact"
     mode: str = "full"
     round_mode: RoundMode = RoundMode.HALF_AWAY
     fuse_silu: bool = True
     fold_bn: bool = True
+    quantize_outputs: bool = True
+    compute_dtype: torch.dtype = torch.float32
+    accum_dtype: Optional[torch.dtype] = None
+    conv_merge: bool = False
+    fpn_split: str = "wide"
 
-
-_QUEUED_TIERS = {
-    "fast": "ROADMAP.md A.2 (fast tier)",
-}
+    def __post_init__(self) -> None:
+        if self.compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be torch.float32 or "
+                             f"torch.bfloat16, got {self.compute_dtype}")
+        if self.accum_dtype not in (None, torch.float32):
+            raise ValueError(
+                f"accum_dtype={self.accum_dtype}: cuDNN and the CPU's "
+                "convolutions accumulate in float32 and offer no bf16 "
+                "accumulator; pass None")
+        if self.fpn_split not in ("",) + passes.SPLIT_MODES:
+            raise ValueError(f"fpn_split must be '' or one of "
+                             f"{passes.SPLIT_MODES}, got {self.fpn_split!r}")
 
 
 def load_graph(src: Union[str, bytes, M.MarsModel]) -> Graph:
@@ -79,30 +107,43 @@ class Engine:
         (the unplanned per-node lowering: the counterpart of the JAX
         engine with ``_plan_folds`` returning None); the exact tier has no
         plan."""
-        self.options = opts = options or EngineOptions()
+        opts = options or EngineOptions()
         prec = opts.precision
-        if prec in _QUEUED_TIERS:
-            raise NotImplementedError(
-                f"precision={prec!r} is not ported yet: {_QUEUED_TIERS[prec]}")
-        if prec not in ("serving", "exact"):
+        if prec not in ("serving", "exact", "fast"):
             raise ValueError(f"unknown precision {prec!r}")
         if opts.mode not in ("full", "compat"):
             raise ValueError(f"unknown mode {opts.mode!r}")
-        if prec == "serving" and opts.mode != "full":
+        if prec != "exact" and opts.mode != "full":
             raise ValueError("compat mode is the exact tier's: "
                              "EngineOptions(precision='exact', mode='compat')")
         self.device = resolve_device(device)
-        # the JAX order: [act fusion (serving)], BN fold, params, executor
+        # the JAX order: [act fusion (serving) | dequantize, BN fold, merge,
+        # split (fast)], BN fold, params, executor
         if prec == "serving":
             graph = passes.fuse_act_into_conv(graph)
+        elif prec == "fast":
+            graph = passes.dequantize_graph(
+                graph, quantize_outputs=opts.quantize_outputs)
+            if opts.compute_dtype == torch.float32:
+                opts = dataclasses.replace(opts, compute_dtype=torch.bfloat16)
+            if opts.fold_bn:
+                # before the structural rewrites, which break conv -> BN
+                graph = passes.fold_batchnorm(graph)
+            if opts.conv_merge:
+                passes.merge_sibling_convs(graph)
+            if opts.fpn_split:
+                passes.split_concat_convs(graph, mode=opts.fpn_split)
         if opts.fold_bn and opts.mode == "full":
             graph = passes.fold_batchnorm(graph)
+        self.options = opts
         self.graph = graph
         self._np_params = (prepare_params(self.graph) if params is None
                            else params)
-        self.params = params_from_jax(self._np_params, self.device)
         self.planned = planned and prec == "serving"
         self._fn = self._executor(self.graph)
+        self.params = (self._fn.device_params(self._np_params)
+                       if prec == "fast" else
+                       params_from_jax(self._np_params, self.device))
         self._trace_fn: Optional[Executor] = None
         self.inference_count = 0
         self.total_inference_s = 0.0
@@ -137,7 +178,8 @@ class Engine:
     def _executor(self, graph: Graph) -> Executor:
         o = self.options
         return build_executor(graph, self.device, self.planned, o.precision,
-                              o.mode, o.round_mode, o.fuse_silu)
+                              o.mode, o.round_mode, o.fuse_silu,
+                              o.compute_dtype)
 
     # -- introspection ------------------------------------------------------
 
@@ -182,7 +224,11 @@ class Engine:
         return out
 
     def run_np(self, *args: Any, **inputs: Any) -> Dict[str, np.ndarray]:
-        return {k: v.cpu().numpy() for k, v in self.run(*args, **inputs).items()}
+        """:meth:`run` as numpy arrays; a bf16 output (numpy has no bf16)
+        as float32, which holds its values exactly."""
+        return {k: (v.float() if v.dtype == torch.bfloat16 else v)
+                .cpu().numpy()
+                for k, v in self.run(*args, **inputs).items()}
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The single-input network on a tensor already on the device,

@@ -541,7 +541,7 @@ class Executor:
             if not _is_int8(in_t) or len(node.inputs) < 2 or (
                     dw and not _is_int8(self.tensors[node.outputs[0]])):
                 raise NotImplementedError(
-                    "float convs are the exact/fast tiers: ROADMAP.md A.2/A.3")
+                    "float convs outside the fast tier: ROADMAP.md A.3")
             if dw:
                 if act not in FK.ACTS or (act == "SILU" and not (
                         planned and self.dw_kernel(node))):
@@ -1221,17 +1221,175 @@ class ExactExecutor(Executor):
         env[out_name] = out
 
 
+FAST_OPS = ("CONV2D", "DEPTHWISE_CONV2D", "MAXPOOL", "RELU", "RELU6",
+            "LEAKY_RELU", "SIGMOID", "SILU", "SILU_FUSED", "CONCAT", "ADD",
+            "MUL", "UPSAMPLE", "RESHAPE", "DEQUANT", "QUANT", "SPLIT")
+_FAST_LEFT = "ROADMAP.md A.3 (ops not ported yet)"
+
+
+def apply_float_act(out: torch.Tensor, act: str, alpha: float = 0.01
+                    ) -> torch.Tensor:
+    """The float branch of ``_apply_fused_act``: a float conv's activation
+    beyond RELU (which the conv applied), in the output's type (LEAKY_RELU
+    promotes to float32, as in JAX). Unknown activations pass through."""
+    if act == "RELU6":
+        return R.relu6(out)
+    if act == "LEAKY_RELU":
+        return R.leaky_relu(out, alpha or 0.01)
+    if act == "SILU":
+        return R.silu(out)
+    if act == "SIGMOID":
+        return torch.sigmoid(out)
+    if act == "TANH":
+        return torch.tanh(out)
+    if act == "HARD_SWISH":
+        return out * torch.clamp(out + 3.0, 0.0, 6.0) / 6.0
+    return out
+
+
+class FastExecutor(Executor):
+    """The fast tier (port of ``build_executor`` with the float branches of
+    ``_lower_node``) over a dequantized graph (``ir.passes.
+    dequantize_graph``): node by node, the float convs through
+    ``F.conv2d`` (:func:`ops.reference.conv2d_f32`, in ``compute_dtype``;
+    depthwise always in float32), the other ops in plain torch, DEQUANT
+    (int8 or float input) and QUANT (PLUS_HALF_TRUNC, clamp) at the edges.
+    SIGMOID+MUL pairs fuse (``fuse_silu``) into ``x * sigmoid(x)`` in the
+    activation's type. No op of the fast tier is a TPU kernel, so none of
+    these is a hand-written one. Ops outside ``FAST_OPS`` and int8 or
+    grouped convs raise."""
+
+    def __init__(self, graph: Graph, device: torch.device | str = "cuda",
+                 compute_dtype: torch.dtype = torch.float32,
+                 fuse_silu: bool = True):
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be torch.float32 or "
+                             f"torch.bfloat16, got {compute_dtype}")
+        self.graph = graph
+        self.tensors = graph.tensors
+        self.compute_dtype = compute_dtype
+        self.nodes = (fuse_silu_pairs(graph) if fuse_silu
+                      else list(graph.nodes))
+        self.device = resolve_device(device)
+        self.plan = None
+        self.steps: List[_Step] = []
+        self.conv_weights = set()
+        for node in self.nodes:
+            self._check_fast(node)
+            if node.op == "CONV2D" and not is_depthwise(node, self.tensors):
+                self.conv_weights.add(node.inputs[1])
+
+    def _check_fast(self, node: Node) -> None:
+        op = node.op
+        if op not in FAST_OPS:
+            raise NotImplementedError(
+                f"op {op!r} is not ported to the fast tier yet: "
+                f"{_QUEUED.get(op, _FAST_LEFT)}")
+        if op in ("CONV2D", "DEPTHWISE_CONV2D") \
+                and not self._degenerate_decl(node):
+            if len(node.inputs) < 2 or _is_int8(self.tensors[node.inputs[0]]):
+                raise NotImplementedError(
+                    f"int8 convs in the fast tier: {_FAST_LEFT}")
+            if not is_depthwise(node, self.tensors) \
+                    and node.attrs.get("groups", 1) != 1:
+                raise NotImplementedError(f"grouped float convs: {_FAST_LEFT}")
+        if op == "UPSAMPLE" and node.attrs.get("mode", 0) == 1:
+            raise NotImplementedError(f"bilinear UPSAMPLE: {_FAST_LEFT}")
+
+    def device_params(self, np_params: Dict[str, np.ndarray]
+                      ) -> Dict[str, torch.Tensor]:
+        """``params_from_jax`` of the JAX layout, the float conv weights
+        (HWIO there) as OHWI in ``compute_dtype``, once: the values every
+        conv casts them to."""
+        out = params_from_jax(
+            {k: v for k, v in np_params.items()
+             if k not in self.conv_weights}, self.device)
+        for k in self.conv_weights:
+            w = torch.from_numpy(np.ascontiguousarray(
+                np.transpose(np_params[k], (3, 0, 1, 2))))
+            out[k] = w.to(self.device, self.compute_dtype)
+        return out
+
+    def lower_node(self, node: Node, env: Dict[str, torch.Tensor],
+                   plain: bool = False) -> None:
+        op = node.op
+        a = node.attrs
+        out_name = node.outputs[0]
+        out_t = self.tensors[out_name]
+        if self.fill_degenerate(node, env):
+            return
+        x = env[node.inputs[0]]
+        if op in ("CONV2D", "DEPTHWISE_CONV2D"):
+            bias = env[node.inputs[2]] if len(node.inputs) > 2 else None
+            out_hw = _nhwc_out_hw(out_t)
+            pads = R._conv_pads(
+                (x.shape[1], x.shape[2]), out_hw, a["kernel"], a["stride"],
+                a["dilation"], a["padding"], a["explicit_pad"])
+            act = a.get("activation", "NONE")
+            if is_depthwise(node, self.tensors):
+                out = R.depthwise_conv2d_f32(
+                    x, env[node.inputs[1]], bias, out_hw, a["stride"],
+                    a["dilation"], pads, act == "RELU")
+            else:
+                out = R.conv2d_f32(
+                    x, env[node.inputs[1]], bias, out_hw, a["stride"],
+                    a["dilation"], pads, act == "RELU", self.compute_dtype)
+            out = apply_float_act(out, act, a.get("alpha", 0.01) or 0.01)
+        elif op == "MAXPOOL":
+            out = R.maxpool(x, a["kernel"], a["stride"], _nhwc_out_hw(out_t),
+                            _pool_pads(a, (x.shape[1], x.shape[2])))
+        elif op == "RELU":
+            out = R.relu(x)
+        elif op == "RELU6":
+            out = R.relu6(x)
+        elif op == "LEAKY_RELU":
+            out = R.leaky_relu(x, a.get("alpha", 0.0) or 0.01)
+        elif op == "SIGMOID":
+            out = torch.sigmoid(x)
+        elif op in ("SILU", "SILU_FUSED"):
+            out = R.silu(x)
+        elif op == "CONCAT":
+            xs = [env[i] for i in node.inputs]
+            out = R.concat(xs, concat_axis(node, xs, out_t))
+        elif op in ("ADD", "MUL"):
+            fn = R.add_q if op == "ADD" else R.mul_q
+            out = fn(x, env[node.inputs[1]], self.scale(node.inputs[0]),
+                     self.scale(node.inputs[1]), self.scale(out_name))
+        elif op == "UPSAMPLE":
+            out_hw = _nhwc_out_hw(out_t)
+            out = R.upsample_nearest(x, upsample_scale(node, x, out_hw),
+                                     out_hw)
+        elif op == "RESHAPE":
+            out = reshape_to(x, out_t)
+        elif op == "DEQUANT":   # int8, or the same values held in bf16
+            out = x.to(torch.float32) * float(np.float32(a["scale"]))
+        elif op == "QUANT":
+            out = R.quantize_edge(x, a["scale"])
+        else:   # SPLIT
+            off = 0
+            for o, sz in zip(node.outputs, a["sizes"]):
+                env[o] = x.narrow(int(a["axis"]), off, sz)
+                off += sz
+            return
+        env[out_name] = out
+
+
 def build_executor(graph: Graph, device: torch.device | str = "cuda",
                    planned: bool = True, precision: str = "serving",
                    mode: str = "full",
                    round_mode: RoundMode = RoundMode.HALF_AWAY,
-                   fuse_silu: bool = True) -> Executor:
+                   fuse_silu: bool = True,
+                   compute_dtype: torch.dtype = torch.float32) -> Executor:
     """Return ``fn(params, inputs) -> outputs`` for ``graph`` on ``device``.
     ``precision="serving"``: the planned serving tier, or with
     ``planned=False`` the unplanned per-node lowering. ``"exact"``: the
-    exact tier in ``mode`` ``"full"`` or ``"compat"``."""
+    exact tier in ``mode`` ``"full"`` or ``"compat"``. ``"fast"``: the
+    fast tier over a dequantized graph, its convs in ``compute_dtype``
+    (float32 here, as the JAX ``ExecOptions``; the engine takes bf16)."""
     if precision == "exact":
         return ExactExecutor(graph, device, mode, round_mode, fuse_silu)
+    if precision == "fast":
+        return FastExecutor(graph, device, compute_dtype, fuse_silu)
     if precision != "serving":
         raise ValueError(f"unknown precision {precision!r}")
     return Executor(graph, device, planned)

@@ -15,7 +15,12 @@ card before the window, so the window holds no host-to-device copy):
 - ``serving_yolov5s``: the same over the planned serving tier on the zoo
   yolov5s at 640 (random weights, seed 0), the path that runs SPPF (#4);
 - ``serving_nanodet``: letterbox -> quantize -> the planned serving tier on
-  the committed ``models/nanodet_320.mars`` (its three heads, no decode).
+  the committed ``models/nanodet_320.mars`` (its three heads, no decode);
+- ``fast_yolov5n`` / ``fast_yolov5s``: the fast tier as the JAX bench runs
+  it by default (letterbox to 640 -> space-to-depth -> quantize into bf16
+  -> the dequantized bf16 graph, its stem rewritten to s2d, convs in
+  ``F.conv2d`` -> #8 on the bf16 heads -> NMS) on the real yolov5n and on
+  the zoo yolov5s at 640 as :func:`fast_graph` builds them.
 
 After two warm-up batches, ``--batches`` pipeline calls run back to back
 inside the profiler, then the device is synchronized. The wall time is
@@ -41,9 +46,40 @@ REPO = Path(__file__).resolve().parents[1]
 FRAME_HW = (720, 1280)
 
 
+def fast_graph(model: str, s2d: bool = True):
+    """The graph the fast paths run, before the engine: the stem rewritten
+    to space-to-depth (``ir.passes.stem_space_to_depth``, on by default in
+    the JAX bench). ``"yolov5n"``: the committed real yolov5n's three
+    detect heads. ``"yolov5s"``: the zoo yolov5s at 640 at w_scale 0.0005
+    (at the zoo's 0.01 the random weights blow float activations up to
+    1e10), its detect convs' biases zeroed and their weights at scale 0.25
+    so that scores spread past the threshold, as ``tests/test_torch_fast.py``
+    builds it. ``s2d=False`` leaves the stem as it is."""
+    from thingino_accel_tpu_torch.ir import passes
+    from thingino_accel_tpu_torch.models import zoo
+    from thingino_accel_tpu_torch.models.yolo import find_detect_outputs
+    from thingino_accel_tpu_torch.runtime.engine import load_graph
+    if model == "yolov5n":
+        g = load_graph(str(REPO / "models" / "yolov5n_cal_int8.mars"))
+        g = g.with_outputs(find_detect_outputs(g))
+    else:
+        g = zoo.build_yolov5("s", zoo.ZooConfig(w_scale=0.0005))
+        for o in g.outputs:
+            prod = next(n for n in g.nodes if o in n.outputs)
+            w, b = (g.tensors[t] for t in prod.inputs[1:3])
+            w.quant = type(w.quant)(scale=0.25)
+            b.data = np.zeros_like(b.data)
+    if s2d and not passes.stem_space_to_depth(g):
+        raise ValueError(f"{model}: no stem to rewrite")
+    return g
+
+
 def _engine(path: str):
     from thingino_accel_tpu_torch.models import zoo
     from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+    if path.startswith("fast_"):
+        return Engine(fast_graph(path[5:]), EngineOptions(
+            precision="fast", quantize_outputs=False), device="cuda")
     if path == "exact_yolov5s":
         return Engine(zoo.build_yolov5("s", zoo.ZooConfig()),
                       EngineOptions(precision="exact"), device="cuda")
@@ -132,7 +168,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", default="exact_yolov5s",
                     choices=["exact_yolov5s", "serving_yolov5n",
-                             "serving_yolov5s", "serving_nanodet"])
+                             "serving_yolov5s", "serving_nanodet",
+                             "fast_yolov5n", "fast_yolov5s"])
     ap.add_argument("--batches", type=int, default=5)
     ap.add_argument("--batch", type=int, default=16)
     args = ap.parse_args(argv)
