@@ -181,8 +181,11 @@ Phases:
    detect convs' biases zeroed): 4 batches of 16 frames through
    StreamServer (letterbox -> ``space_to_depth`` -> bf16 quantize -> the
    dequantized bf16 graph, convs in ``F.conv2d`` -> #8 on the bf16 heads
-   -> NMS) with the counts set to 0 before and read after (#8's bf16
-   counter once a batch, no other kernel); the serving tier on the same
+   -> NMS; each conv's sums rounded to bf16 before its bias,
+   ``trace_path.FAST_ACCUM``, the JAX bench's mode, so that its times
+   compare with earlier runs) with the counts set to 0 before and read
+   after (#8's bf16 counter once a batch, no other kernel); the serving
+   tier on the same
    model and frames and the fast tier, 12 batches each in turns (serving,
    fast, fast, serving), fps and p50/p99 batch latency; the card's bf16
    heads within 2^-4 of the largest |head| of the CPU's float32 forward
@@ -190,8 +193,38 @@ Phases:
    the card's detections (IoU >= 0.9, same class) leave unmatched at
    most as many of the CPU float32 forward's as the CPU's own bf16
    forward does, plus three standard deviations, at conf 0.25 and 0.001
-   (the zoo yolov5s's are printed, not held); #8's bf16 mode against its
-   plain version on those heads at batch 16 and 1.
+   (the zoo yolov5s's are printed, not held); the default accumulation
+   (the bias added to float32 sums: the engine's default) on the card,
+   its heads within the same 2^-4 of the CPU's float32 forward; #8's bf16
+   mode against its plain version on those heads at batch 16 and 1.
+14. ``[streams]``: the camera-stream path. 16 cameras of seeded NV12
+   1280x720 frames (``[1080, 1280]`` uint8; camera i yields 2 + i % 3,
+   47 in all) through ``MultiStreamBatcher(16, 16)`` (three batches, the
+   last with one pad row) and ``StreamServer(depth=2, timeout_s)`` into
+   ``nv12_to_rgb`` on the card -> ``build_serving_pipeline`` of the
+   planned real yolov5n at 640, the counts set to 0 before and read after
+   (3 x the 50 launches of a forward, one #8 a batch); then the same
+   frames through the planned zoo yolov5s at 640 (``[zoo-s]``'s engine,
+   about 100 detections a frame on noise). Checks: (1) ``nv12_to_rgb`` on
+   the card equal to the CPU's bytes for one batch, and its time; (2)
+   every camera's routed detections equal, bit for bit, to its frames run
+   straight through the same pipeline, on both models, and the real
+   yolov5n's heads too (its detection sets are empty); (3)
+   ``detect_postprocess_topk`` against #8's decode + ``nms_batched`` at
+   pool 128 on the zoo yolov5s heads of one batch: counts and classes
+   equal, scores within rtol 1e-5, boxes within rtol 1e-4 / atol 1e-3,
+   both timed; (4) the watchdog: a device spin longer than ``timeout_s``
+   raises ``InferenceTimeout`` with ``healthy`` False, then, the device
+   synchronized, an armed server passes a batch; (5)
+   ``serve_file_model`` on the real yolov5n (its exact tier), its stats;
+   (6) ``python -m thingino_accel_tpu_torch.cli detect`` on one 720p
+   ``.npy`` frame at conf 0.001, card against ``--device cpu``: the same
+   detections (count, classes and order equal, scores within the printed
+   0.1 point, boxes within a pixel); (7) the streams path's fps and
+   p50/p99 beside the RGB path of ``[slice]`` on the same model, 12
+   batches each in turns (streams, RGB, RGB, streams), the bytes copied
+   to the device a batch (NV12 22.1 MB, RGB 44.2 MB) and the phase's
+   time.
 
 Each path is run with the launch counters set to 0 just before it and
 read just after. Tolerances (as in ``tests/test_torch_fused_kernels.py``):
@@ -239,6 +272,13 @@ REPO = Path(__file__).resolve().parent
 MODEL = REPO / "models" / "yolov5n_cal_int8.mars"
 NANODET = REPO / "models" / "nanodet_320.mars"
 BATCHES, BATCH, FRAME_HW = 4, 16, (720, 1280)
+# [streams]: 16 cameras of NV12 720p frames, camera i yields 2 + i % 3
+# (47 frames: batches of 16, 16 and 15 + a pad row)
+STREAM_CAMS = 16
+STREAM_FRAMES = tuple(2 + i % 3 for i in range(STREAM_CAMS))
+STREAM_TIMEOUT_S = 30.0        # the watchdog of the streams server
+WEDGE_TIMEOUT_S = 0.5          # the watchdog check: a spin of about 2 s
+WEDGE_CYCLES = 4_000_000_000
 ZOO_BATCHES, ZOO_BATCH = 2, 8
 SILU_MAX_FRAC = 1e-3
 PROBE_SILU_LOOSE = 1e-2   # share of a chained SILU probe's values apart
@@ -1335,7 +1375,7 @@ def phase_zoo_s(results: dict) -> dict:
     return {"launches": counts, "census_per_forward": census,
             "forward_s_2_batches": secs, "units_checked": n_units,
             "dma_replay": dma, "serving_kxk": table, "gemm": gemm,
-            "bneck": bneck, "sppf": sppf}
+            "bneck": bneck, "sppf": sppf}, eng
 
 
 def phase_nanodet(results: dict) -> dict:
@@ -2748,17 +2788,22 @@ def phase_fast(results: dict) -> dict:
     from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
     from thingino_accel_tpu_torch.runtime.executor import build_executor
     from thingino_accel_tpu_torch.runtime.serving import StreamServer
-    from thingino_accel_tpu_torch.trace_path import fast_graph
+    from thingino_accel_tpu_torch.trace_path import (
+        FAST_ACCUM, fast_graph, fast_options,
+    )
 
     dev = torch.device("cuda")
     frames = frames_of(BATCHES)
     res = {}
+    print(f"[fast] accumulation: accum_dtype={FAST_ACCUM} (the JAX bench's "
+          "mode: each conv's sums rounded to bf16 before its bias); the "
+          "default mode (None: the bias added to the f32 sums) is checked "
+          "for its numerics")
     for model in FAST_MODELS:
         what = "fast " + ("real yolov5n" if model == "yolov5n"
                           else "zoo yolov5s 640")
         t0 = time.perf_counter()
-        fast = Engine(fast_graph(model), EngineOptions(
-            precision="fast", quantize_outputs=False), device=dev)
+        fast = Engine(fast_graph(model), fast_options(), device=dev)
         serving = Engine(fast_graph(model, s2d=False),
                          EngineOptions(precision="serving"), device=dev)
         require(fast.options.compute_dtype == torch.bfloat16
@@ -2820,11 +2865,28 @@ def phase_fast(results: dict) -> dict:
                         .abs().max() / r.abs().max()) for k, r in ref.items())
         require(rel <= FAST_HEAD_TOL, f"{what}: bf16 heads {rel:.4g} of the "
                                       f"largest |head| from the f32 forward")
+        # the default accumulation (f32 sums, one rounding) on the card:
+        # its convs run in float32 on the bf16 values, TF32 allowed
+        exact_sums = Engine(fast_graph(model), fast_options(None),
+                            device=dev)
+        h32 = exact_sums.forward(x)
+        rel32 = max(float((h32[k][:FAST_CPU_FRAMES].cpu().float() - r)
+                          .abs().max() / r.abs().max())
+                    for k, r in ref.items())
+        require(rel32 <= FAST_HEAD_TOL,
+                f"{what}: default-mode bf16 heads {rel32:.4g} of the largest"
+                f" |head| from the f32 forward")
+        print(f"[fast] {what}: heads against the CPU's f32 forward, "
+              f"{FAST_CPU_FRAMES} frames: accum bf16 {rel:.4g}, default "
+              f"(f32 sums) {rel32:.4g} of the largest |head| (bound "
+              f"{FAST_HEAD_TOL})")
+        del exact_sums, h32
         # detections of those frames: the card's pipeline (conf 0.25) and
         # its heads' decode + NMS at conf 0.001, against the same from the
         # CPU's float32 forward, beside the CPU's own bf16 forward
         cpu16 = build_executor(fast.graph, "cpu", precision="fast",
-                               compute_dtype=torch.bfloat16)
+                               compute_dtype=torch.bfloat16,
+                               accum_dtype=FAST_ACCUM)
         ref16 = cpu16(cpu16.device_params(fast._np_params),
                       {fast.input_names[0]: x[:FAST_CPU_FRAMES].cpu()})
         names = fast.output_names
@@ -2870,10 +2932,346 @@ def phase_fast(results: dict) -> dict:
                 results, FAST_DECODE, hs,
                 f"3 heads {nb}x({sizes})^2x255 bf16 ({model})"))
         res[model] = {"launches": counts, "runs": runs,
-                      "head_rel_diff": rel, "detections": shares,
+                      "accum_dtype": str(FAST_ACCUM), "head_rel_diff": rel,
+                      "head_rel_diff_default_accum": rel32,
+                      "detections": shares,
                       "dets_per_frame_mean": float(np.mean(dets)),
                       "decode": cases}
     return res
+
+
+def nv12_frames(seed: int = 5) -> list:
+    """Each camera's NV12 720p frames, [n, 1080, 1280] uint8, from a seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    h, w = FRAME_HW
+    return [rng.integers(0, 256, (n, h * 3 // 2, w), dtype=np.uint8)
+            for n in STREAM_FRAMES]
+
+
+def serve_streams(fn, cams, timeout_s=STREAM_TIMEOUT_S):
+    """The cameras through ``MultiStreamBatcher(16, 16)`` and a
+    ``StreamServer(depth=2, timeout_s)`` around ``fn``: (each camera's
+    routed result rows, the batches as fed with their row sources, the
+    server)."""
+    import torch
+    from thingino_accel_tpu_torch.runtime.serving import (
+        MultiStreamBatcher, StreamServer,
+    )
+    batcher = MultiStreamBatcher(len(cams), BATCH)
+    fed = []
+
+    def feed():
+        for b in batcher.batches([iter(c) for c in cams]):
+            fed.append(b)
+            yield b
+    server = StreamServer(fn, depth=2, device="cuda", timeout_s=timeout_s)
+    routed = {i: [] for i in range(len(cams))}
+    sources = []
+    for out in server.run(feed()):
+        require(out is not None, "[streams] a batch failed")
+        srcs = batcher.sources.popleft()
+        sources.append(srcs)
+        for row, cam in enumerate(srcs):
+            if cam >= 0:
+                routed[cam].append(
+                    {k: getattr(out, k)[row] for k in
+                     ("boxes", "scores", "classes", "valid")})
+    torch.cuda.synchronize()
+    require(not batcher.sources, "[streams] sources left over")
+    return routed, list(zip(fed, sources)), server
+
+
+def check_routing(routed, cams, pipe, what: str) -> int:
+    """Each camera's routed rows equal, bit for bit, to its frames run
+    straight through ``pipe``; returns the detections counted."""
+    import torch
+    n = 0
+    for cam, frames in enumerate(cams):
+        require(len(routed[cam]) == len(frames),
+                f"{what}: camera {cam} got {len(routed[cam])} rows for "
+                f"{len(frames)} frames")
+        straight = pipe(torch.from_numpy(frames).cuda())
+        for j, row in enumerate(routed[cam]):
+            for k, v in row.items():
+                require(torch.equal(v, getattr(straight, k)[j]),
+                        f"{what}: camera {cam} frame {j}: routed {k} differs "
+                        "from the camera's frames run straight")
+            n += int(row["valid"].sum())
+    return n
+
+
+def detect_lines(device: str, frame_path: Path) -> list:
+    """``python -m thingino_accel_tpu_torch.cli detect`` on the real
+    yolov5n at conf 0.001: its detection lines."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "thingino_accel_tpu_torch.cli", "detect",
+         str(MODEL), str(frame_path), "--conf", "0.001", "--device", device],
+        cwd=str(REPO), capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0, f"cli detect --device {device}: "
+                                  f"{proc.stderr[-2000:]}")
+    return proc.stdout.splitlines()
+
+
+def same_detect_lines(got: list, ref: list) -> bool:
+    """The CLI's detections equal: the same count, classes and order, the
+    scores within the printed 0.1 point and the boxes within a pixel
+    (card and CPU sigmoids differ by ulps, which a printed rounding can
+    show). True where the text is equal."""
+    require(len(got) == len(ref) and got[:1] == ref[:1],
+            f"cli detect: {got[:1]} vs {ref[:1]}")
+    for g, r in zip(got[1:], ref[1:]):
+        gn, rn = g.split("%")[0].rsplit(None, 1), r.split("%")[0].rsplit(
+            None, 1)
+        require(gn[0] == rn[0] and abs(float(gn[1]) - float(rn[1])) <= 0.1,
+                f"cli detect: {g!r} vs {r!r}")
+        gb = [float(v) for v in g.split("%")[1].replace(")-(", ",")
+              .strip(" ()").split(",")]
+        rb = [float(v) for v in r.split("%")[1].replace(")-(", ",")
+              .strip(" ()").split(",")]
+        require(max(abs(a - b) for a, b in zip(gb, rb)) <= 1.0,
+                f"cli detect: {g!r} vs {r!r}")
+    return got == ref
+
+
+def phase_streams(zoo_eng) -> dict:
+    """The camera-stream path: 16 cameras of NV12 1280x720 frames (47 in
+    all) through MultiStreamBatcher(16, 16) and StreamServer(depth=2,
+    timeout_s) into nv12_to_rgb on the card -> build_serving_pipeline of
+    the planned real yolov5n; then the same frames through the planned zoo
+    yolov5s at 640 ([zoo-s]'s engine), whose ~100 detections a frame check
+    the routing. Also the top-k post-processing against #8 + NMS, the
+    watchdog on the card, serve_file_model, the CLI's detect card vs CPU,
+    and the streams path's fps beside the RGB path's in turns."""
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.ops import decode_kernel as DK
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+    from thingino_accel_tpu_torch.runtime.serving import (
+        InferenceTimeout, StreamServer, serve_file_model,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    h, w = FRAME_HW
+    cams = nv12_frames()
+    require(sum(len(c) for c in cams) == 47, "[streams] 47 frames expected")
+    real = Engine.from_yolo_mars(str(MODEL), EngineOptions(precision="serving"),
+                                 device=dev)
+    census = real._fn.launch_census()
+    require(census == PLANNED_REAL, f"[streams] census {census}")
+    rgb_pipe = Y.build_serving_pipeline(real)
+    zoo_rgb = Y.build_serving_pipeline(zoo_eng)
+
+    def pipe(nv12):
+        return rgb_pipe(Y.nv12_to_rgb(nv12, h, w))
+
+    def zoo_pipe(nv12):
+        return zoo_rgb(Y.nv12_to_rgb(nv12, h, w))
+
+    in_t = real.graph.tensors[real.input_names[0]]
+    target = (in_t.shape[1], in_t.shape[2])
+
+    def heads_of(nv12):
+        x = Y.quantize_input_int8(Y.letterbox_uint8(
+            Y.nv12_to_rgb(nv12, h, w), target))
+        return real.forward(x)
+
+    # 1. nv12_to_rgb, card vs CPU bytes, one batch of 16; its time
+    one = torch.from_numpy(np.concatenate(cams)[:BATCH])
+    card_rgb = Y.nv12_to_rgb(one.to(dev), h, w)
+    d = (card_rgb.cpu().to(torch.int32)
+         - Y.nv12_to_rgb(one, h, w).to(torch.int32)).abs()
+    require(int(d.max()) == 0, f"nv12_to_rgb card vs CPU: "
+                               f"{int((d > 0).sum())} bytes differ")
+    nv_dev = one.to(dev)
+    nv12_ms = time_ms(lambda: Y.nv12_to_rgb(nv_dev, h, w), 20)
+    print(f"[streams] 1. nv12_to_rgb of {BATCH} 720p frames: card == CPU, "
+          f"{card_rgb.numel()} bytes equal; {nv12_ms:.4f} ms a batch on the "
+          "card (CUDA events)")
+
+    # warm-up outside the counted run
+    pipe(nv_dev)
+    torch.cuda.synchronize()
+
+    # the main path: counts set to 0 just before, read just after
+    reset_launches()
+    t0 = time.perf_counter()
+    routed, fed_srcs, server = serve_streams(pipe, cams)
+    secs = time.perf_counter() - t0
+    counts = read_launches()
+    fed = [b for b, _ in fed_srcs]
+    n_batches = len(fed)
+    require(n_batches == 3 and all(b.shape == (BATCH, h * 3 // 2, w)
+                                   for b in fed), "[streams] 3 batches of 16")
+    require([srcs.count(-1) for _, srcs in fed_srcs] == [0, 0, 1],
+            "[streams] one pad row, in the last batch")
+    st = server.stats
+    require(st.errors == 0 and server.healthy and st.frames == 48,
+            f"[streams] server: errors {st.errors}, healthy "
+            f"{server.healthy}, frames {st.frames}")
+    expect_launches(counts, census, n_batches, "[streams] real yolov5n",
+                    decodes=n_batches)
+    nv12_bytes = fed[0].nbytes
+    rgb_bytes = BATCH * h * w * 3
+    print(f"[streams] main path: {sum(STREAM_FRAMES)} frames of "
+          f"{STREAM_CAMS} cameras in {n_batches} batches of {BATCH} (one "
+          f"pad row), {secs:.3f} s: {st.summary()}; launches "
+          f"{ {k: v for k, v in counts.items() if v} } = {n_batches} x "
+          f"{sum(census.values())} a forward {census} + one #8 a batch; "
+          f"copied to the device a batch {nv12_bytes} bytes (NV12) against "
+          f"{rgb_bytes} (RGB)")
+
+    # 2. routing: detections bit for bit, and the real yolov5n's heads
+    n_real = check_routing(routed, cams, pipe, "real yolov5n")
+    straight = [heads_of(torch.from_numpy(c).to(dev)) for c in cams]
+    seen = [0] * STREAM_CAMS
+    n_rows = 0
+    for b, srcs in fed_srcs:
+        hb = heads_of(torch.from_numpy(b).to(dev))
+        for row, cam in enumerate(srcs):
+            if cam < 0:
+                continue
+            for k in real.output_names:
+                require(torch.equal(hb[k][row], straight[cam][k][seen[cam]]),
+                        f"[streams] real yolov5n heads, camera {cam} frame "
+                        f"{seen[cam]}: batch row differs")
+            seen[cam] += 1
+            n_rows += 1
+    require(seen == list(STREAM_FRAMES), "[streams] rows per camera")
+    routed_zoo, _, zoo_server = serve_streams(zoo_pipe, cams)
+    n_zoo = check_routing(routed_zoo, cams, zoo_pipe, "zoo yolov5s")
+    require(n_zoo > 0, "[streams] the zoo yolov5s routed no detection")
+    print(f"[streams] 2. routing: every camera's routed rows equal its frames"
+          f" run straight, bit for bit: real yolov5n {n_real} detections and"
+          f" {n_rows} frames' heads; zoo yolov5s 640 {n_zoo} detections "
+          f"({n_zoo / sum(STREAM_FRAMES):.1f} a frame; "
+          f"{zoo_server.stats.summary()})")
+
+    # 3. top-k post-processing against #8 + NMS, zoo yolov5s heads of one
+    #    batch, the same pool (128)
+    x = Y.quantize_input_int8(Y.letterbox_uint8(
+        Y.nv12_to_rgb(torch.from_numpy(fed[0]).to(dev), h, w), target))
+    zh = zoo_eng.forward(x)
+    heads = [zh[k] for k in zoo_eng.output_names]
+    scales = [zoo_eng.graph.tensors[k].quant.scale
+              for k in zoo_eng.output_names]
+    topk = lambda: Y.detect_postprocess_topk(heads, scales=scales,
+                                             max_dets=100, pre_nms=128)
+    full = lambda: Y.nms_batched(
+        *DK.decode_and_parse_fused(heads, scales=scales), max_dets=100,
+        pre_nms=128, topk_group=8)
+    got, ref = topk(), full()
+    n_topk = 0
+    for b in range(BATCH):
+        gv, rv = got.valid[b], ref.valid[b]
+        require(int(gv.sum()) == int(rv.sum()),
+                f"topk: frame {b} {int(gv.sum())} vs {int(rv.sum())}")
+        require(torch.equal(got.classes[b][gv], ref.classes[b][rv]),
+                f"topk: frame {b} classes differ")
+        require(torch.allclose(got.scores[b][gv], ref.scores[b][rv],
+                               rtol=1e-5, atol=1e-6),
+                f"topk: frame {b} scores outside rtol 1e-5")
+        require(torch.allclose(got.boxes[b][gv], ref.boxes[b][rv],
+                               rtol=1e-4, atol=1e-3),
+                f"topk: frame {b} boxes outside rtol 1e-4 / atol 1e-3")
+        n_topk += int(gv.sum())
+    topk_ms, full_ms = time_ms(topk, 10), time_ms(full, 10)
+    print(f"[streams] 3. detect_postprocess_topk == #8 decode + nms_batched "
+          f"at pool 128 on the zoo yolov5s heads of one batch: {n_topk} "
+          f"detections, counts and classes equal, scores within rtol 1e-5, "
+          f"boxes within rtol 1e-4 / atol 1e-3; {topk_ms:.4f} ms against "
+          f"{full_ms:.4f} ms (CUDA events, host syncs of the NMS included)")
+
+    # 4. the watchdog on the card
+    def wedge(x):
+        torch.cuda._sleep(WEDGE_CYCLES)
+        return x
+    srv = StreamServer(wedge, depth=1, device=dev, timeout_s=WEDGE_TIMEOUT_S)
+    t0 = time.perf_counter()
+    fired = False
+    try:
+        list(srv.run(iter([fed[0]])))
+    except InferenceTimeout:
+        fired = True
+    waited = time.perf_counter() - t0
+    require(fired and not srv.healthy and srv.stats.errors == 1,
+            f"[streams] the watchdog did not fire: healthy {srv.healthy}, "
+            f"errors {srv.stats.errors}")
+    torch.cuda.synchronize()
+    armed = StreamServer(pipe, depth=1, device=dev, timeout_s=STREAM_TIMEOUT_S)
+    outs = list(armed.run(iter([fed[0]])))
+    require(armed.healthy and len(outs) == 1 and outs[0] is not None,
+            "[streams] the armed server failed a batch")
+    print(f"[streams] 4. watchdog: a {WEDGE_CYCLES} cycle device spin "
+          f"against timeout_s {WEDGE_TIMEOUT_S} raised InferenceTimeout "
+          f"after {waited:.3f} s, healthy False, 1 error; after a device "
+          "synchronize an armed healthy server passed a batch")
+
+    # 5. serve_file_model on the real yolov5n (its default tier: exact)
+    rng = np.random.default_rng(6)
+    raw = [rng.integers(-128, 128, (BATCH, 640, 640, 3), dtype=np.int8)
+           for _ in range(BATCHES)]
+    fst = serve_file_model(str(MODEL), iter(raw), depth=2, device="cuda")
+    require(fst.errors == 0 and fst.frames == BATCH * BATCHES,
+            f"serve_file_model: {fst.summary()}, errors {fst.errors}")
+    print(f"[streams] 5. serve_file_model(real yolov5n, exact tier, "
+          f"{BATCHES} batches of {BATCH} int8 frames): {fst.summary()}")
+
+    # 6. the CLI's detect on one 720p frame, card vs --device cpu
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    frame_path = out_dir / "streams_frame.npy"
+    np.save(frame_path, Y.nv12_to_rgb(torch.from_numpy(cams[0][:1]), h, w)
+            .numpy()[0])
+    card_lines = detect_lines("cuda", frame_path)
+    cpu_lines = detect_lines("cpu", frame_path)
+    text_equal = same_detect_lines(card_lines, cpu_lines)
+    print(f"[streams] 6. cli detect (real yolov5n, conf 0.001) on one 720p "
+          f"frame: card == --device cpu, {card_lines[0]} (text "
+          f"{'equal' if text_equal else 'equal within the printed rounding'}"
+          ")")
+
+    # 7. the streams path beside the RGB path on the same model, in turns
+    rgb_frames = frames_of(BATCHES)
+    runs = {"streams": [], "rgb": []}
+    for kind in ("streams", "rgb", "rgb", "streams"):
+        if kind == "streams":
+            srv = StreamServer(pipe, depth=2, device=dev,
+                               timeout_s=STREAM_TIMEOUT_S)
+            src = (fed[i % len(fed)] for i in range(12))
+        else:
+            srv = StreamServer(rgb_pipe, depth=2, device=dev)
+            src = (rgb_frames[i % BATCHES] for i in range(12))
+        for o in srv.run(src):
+            require(o is not None, f"[streams] failed {kind} batch")
+        runs[kind].append({"fps": srv.stats.fps,
+                           "p50_ms": srv.stats.latency_ms(50),
+                           "p99_ms": srv.stats.latency_ms(99)})
+    for kind, rs in runs.items():
+        print(f"[streams] 7. {kind} path, 12-batch runs: " + "; ".join(
+            f"{r['fps']:.1f} fps, p50 {r['p50_ms']:.3f} ms, p99 "
+            f"{r['p99_ms']:.3f} ms" for r in rs))
+    ratio = (sum(r["fps"] for r in runs["streams"])
+             / sum(r["fps"] for r in runs["rgb"]))
+    phase_s = time.perf_counter() - t_phase
+    print(f"[streams] streams / RGB fps {ratio:.3f}; bytes to the device a "
+          f"batch {nv12_bytes} / {rgb_bytes}; phase {phase_s:.1f} s")
+    return {"launches": counts, "census_per_forward": census,
+            "batches": n_batches, "stats": {
+                "fps": st.fps, "p50_ms": st.latency_ms(50),
+                "p99_ms": st.latency_ms(99), "frames": st.frames},
+            "nv12_to_rgb_ms": nv12_ms, "real_detections": n_real,
+            "zoo_detections": n_zoo, "topk_detections": n_topk,
+            "topk_ms": topk_ms, "decode_nms_ms": full_ms,
+            "watchdog_s": waited, "serve_file_model": {
+                "fps": fst.fps, "p50_ms": fst.latency_ms(50),
+                "p99_ms": fst.latency_ms(99), "frames": fst.frames},
+            "cli_detect": card_lines[0], "cli_text_equal": text_equal,
+            "runs": runs, "fps_ratio": ratio,
+            "bytes_per_batch": {"nv12": nv12_bytes, "rgb": rgb_bytes},
+            "phase_s": phase_s}
 
 
 def main() -> int:
@@ -2901,13 +3299,14 @@ def main() -> int:
         phase_dma_kernels(results)
         slice_res = phase_slice(results)
         unplanned_res = phase_unplanned(results)
-        zoo_res = phase_zoo_s(results)
+        zoo_res, zoo_eng = phase_zoo_s(results)
         nanodet_res = phase_nanodet(results)
         exact_res = phase_exact(results)
         probe_checks = phase_probe_checks(results)
         probes_res = phase_probes(results)
         pipeline_res = phase_pipeline(results)
         fast_res = phase_fast(results)
+        streams_res = phase_streams(zoo_eng)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -2935,7 +3334,7 @@ def main() -> int:
         "exact": exact_res, "exact_kxk": exact_kxk,
         "probe_checks": probe_checks,
         "probes": probes_res, "pipeline": pipeline_res,
-        "fast": fast_res}, indent=1))
+        "fast": fast_res, "streams": streams_res}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

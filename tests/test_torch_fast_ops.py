@@ -5,9 +5,12 @@ Tolerances:
   float32 (``Precision.HIGHEST``): rtol 1e-5, atol 1e-5 x the largest
   |output| (both sum exact f32 products, in other orders);
 - ``conv2d_f32`` at bf16 against JAX's at bf16: within 2 bf16 ulps of each
-  value, |diff| <= 2^-7 |ref| + 2^-7 x the largest |output| (the port
-  rounds the conv's sums to bf16 before the f32 bias; JAX adds the bias
-  to the f32 sums and rounds once);
+  value, |diff| <= 2^-7 |ref| + 2^-7 x the largest |output|; and in both
+  accumulation modes (``accum_dtype`` None: the bias added to the f32
+  sums, one rounding, as JAX's default; ``torch.bfloat16``: the sums
+  rounded to bf16 before the bias, as JAX's ``accum_dtype=bfloat16``)
+  against JAX's in the same mode within 1 bf16 ulp of each value
+  (measured: every value equal, on all seven cases, in both modes);
 - ``space_to_depth`` (device) against ``space_to_depth_frames`` (host),
   the quantize to bf16, the decode on bf16 heads (plain version and JAX's
   ``decode_and_parse`` and Pallas ``decode_and_parse_pallas`` in
@@ -121,12 +124,42 @@ def test_depthwise_conv2d_f32_matches_jax(name):
                                atol=1e-5 * np.abs(ref).max())
 
 
+@pytest.mark.parametrize("accum", ["f32", "bf16"])
+@pytest.mark.parametrize("name", CONV_CASES)
+def test_conv2d_bf16_accum_modes_match_jax(name, accum):
+    case = CONV_CASES[name]
+    *_, stride, dil, _, _, out_hw = case
+    x, w, b = _conv_inputs(case, len(name) + 2)
+    pads = _pads(case)
+    jacc, pacc = ((None, None) if accum == "f32"
+                  else (jnp.bfloat16, torch.bfloat16))
+    ref = np.asarray(JR.conv2d_f32(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), out_hw, stride,
+        dil, pads, True, jnp.bfloat16, jacc), np.float32)
+    got = R.conv2d_f32(torch.from_numpy(x),
+                       torch.from_numpy(w.transpose(3, 0, 1, 2).copy()),
+                       torch.from_numpy(b), out_hw, stride, dil, pads,
+                       True, torch.bfloat16, pacc)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -100)))
+                  - 7)
+    assert (np.abs(got.float().numpy() - ref) <= ulp).all()
+
+
 def test_accum_bf16_raises():
-    """cuDNN has no bf16 accumulator: the JAX option ``accum_dtype``
-    raises at ``EngineOptions``, naming why, as do a compute dtype other
-    than float32 / bfloat16 and an ``fpn_split`` outside the modes."""
-    with pytest.raises(ValueError, match="accumulate in float32"):
-        EngineOptions(precision="fast", accum_dtype=torch.bfloat16)
+    """``accum_dtype`` takes the JAX option's values (None, float32 and,
+    since the fast tier ports the JAX bench's mode, bfloat16); any other
+    raises at ``EngineOptions`` and at ``conv2d_f32``, as do a compute
+    dtype other than float32 / bfloat16 and an ``fpn_split`` outside the
+    modes."""
+    assert EngineOptions(precision="fast", accum_dtype=torch.bfloat16
+                         ).accum_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="accum_dtype"):
+        EngineOptions(precision="fast", accum_dtype=torch.float16)
+    x, w = torch.zeros((1, 4, 4, 2)), torch.zeros((2, 1, 1, 2))
+    with pytest.raises(ValueError, match="accum_dtype"):
+        R.conv2d_f32(x, w, None, (4, 4), (1, 1), (1, 1), ((0, 0), (0, 0)),
+                     accum_dtype=torch.float16)
     with pytest.raises(ValueError, match="compute_dtype"):
         EngineOptions(precision="fast", compute_dtype=torch.float16)
     with pytest.raises(ValueError, match="fpn_split"):

@@ -58,7 +58,15 @@ within 2^-7 of the largest output. E2's lagged conv
 over every plan its launcher can take, at the experiment's shape on 2
 images, at a ragged shape and a small one, in each act: equal to its
 plain version (the act's tolerance) and to #5 bit for bit, every element
-written, its launches counted.
+written, its launches counted. The camera-stream path on the card:
+``nv12_to_rgb``'s bytes equal the CPU's; NV12 cameras through
+``MultiStreamBatcher`` and the watchdog'd ``StreamServer`` into a planned
+zoo yolov5n, each camera's routed detections equal to its frames run
+straight, bit for bit; ``detect_postprocess_topk`` against #8's decode +
+NMS and its CPU run (counts and classes equal, scores rtol 1e-5, boxes
+rtol 1e-4 / atol 1e-3); the watchdog raising ``InferenceTimeout`` on a
+device spin; the fast tier's bf16 conv in both accumulation modes within
+1 bf16 ulp of the CPU's.
 """
 
 import dataclasses
@@ -1638,3 +1646,146 @@ def test_lagged_conv_refusals_and_occupancy(cuda):
     for lag in (True, False):
         assert PK.lagged_occupancy(lag, 128, plan) == (
             PK.lagged_smem(128, plan.bn, plan.stages), 1)
+
+
+# -- the camera-stream path ----------------------------------------------------
+
+
+def _nv12(rng, n, h=96, w=128):
+    return rng.integers(0, 256, (n, h * 3 // 2, w), dtype=np.uint8)
+
+
+def test_nv12_to_rgb_on_the_card_equals_the_cpu(cuda):
+    """The conversion's bytes on the card equal the CPU's (which equal
+    JAX's, ``tests/test_torch_streams.py``), at 720p and a small size."""
+    rng = np.random.default_rng(30)
+    for n, h, w in ((2, 720, 1280), (3, 6, 10)):
+        nv = torch.from_numpy(_nv12(rng, n, h, w))
+        assert torch.equal(Y.nv12_to_rgb(nv.to(cuda), h, w).cpu(),
+                           Y.nv12_to_rgb(nv, h, w))
+
+
+def test_streams_route_rows_on_the_card(cuda):
+    """Five cameras of NV12 96x128 frames through MultiStreamBatcher(5, 4)
+    and a watchdog'd StreamServer into the planned zoo yolov5n at 64 (heads
+    at scale 0.25, so that scores pass): each camera's routed detections
+    equal its frames run straight, bit for bit, and the CPU's within the
+    decode's tolerance (valid masks and classes equal)."""
+    from thingino_accel_tpu_torch.models import zoo
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+    from thingino_accel_tpu_torch.runtime.serving import (
+        MultiStreamBatcher, StreamServer,
+    )
+    g = zoo.build_yolov5("n", zoo.ZooConfig(in_hw=(64, 64)))
+    for o in g.outputs:
+        g.tensors[o].quant = type(g.tensors[o].quant)(scale=0.25)
+    opts = EngineOptions(precision="serving")
+    pipes = {d: Y.build_serving_pipeline(Engine(g, opts, device=d))
+             for d in ("cuda", "cpu")}
+    fn = {d: (lambda p: lambda nv: p(Y.nv12_to_rgb(nv, 96, 128)))(p)
+          for d, p in pipes.items()}
+    rng = np.random.default_rng(31)
+    cams = [_nv12(rng, 1 + i % 3) for i in range(5)]
+    batcher = MultiStreamBatcher(5, 4)
+    server = StreamServer(fn["cuda"], depth=2, device=cuda, timeout_s=60.0)
+    routed = {i: [] for i in range(5)}
+    for dets in server.run(batcher.batches([iter(c) for c in cams])):
+        for row, s in enumerate(batcher.sources.popleft()):
+            if s >= 0:
+                routed[s].append((dets, row))
+    assert server.healthy and server.stats.errors == 0
+    n = 0
+    for i, cam in enumerate(cams):
+        straight = fn["cuda"](torch.from_numpy(cam).to(cuda))
+        cpu = fn["cpu"](torch.from_numpy(cam))
+        assert len(routed[i]) == len(cam)
+        for j, (dets, row) in enumerate(routed[i]):
+            for k in ("boxes", "scores", "classes", "valid"):
+                assert torch.equal(getattr(dets, k)[row],
+                                   getattr(straight, k)[j]), (i, j, k)
+            assert torch.equal(dets.valid[row].cpu(), cpu.valid[j])
+            assert torch.equal(dets.classes[row].cpu(), cpu.classes[j])
+            assert torch.allclose(dets.scores[row].cpu(), cpu.scores[j],
+                                  rtol=1e-6, atol=1e-12)
+            n += int(dets.valid[row].sum())
+    assert n > 0
+
+
+def test_topk_postprocess_on_the_card(cuda):
+    """``detect_postprocess_topk`` on the card against #8's decode + NMS at
+    the same pool and against its own CPU run: counts and classes equal,
+    scores within rtol 1e-5, boxes within rtol 1e-4 / atol 1e-3."""
+    rng = np.random.default_rng(32)
+    heads = [torch.from_numpy((rng.normal(size=(4, s, s, 255)) * 18)
+                              .clip(-128, 127).astype(np.int8))
+             for s in (80, 40, 20)]
+    scales = [0.08, 0.09, 0.1]
+    card = [h.to(cuda) for h in heads]
+    got = Y.detect_postprocess_topk(card, scales=scales, pre_nms=128)
+    refs = (Y.nms_batched(*DK.decode_and_parse_fused(card, scales=scales),
+                          pre_nms=128, topk_group=8),
+            Y.detect_postprocess_topk(heads, scales=scales, pre_nms=128))
+    for ref in refs:
+        for b in range(4):
+            gv, rv = got.valid[b].cpu(), ref.valid[b].cpu()
+            assert int(gv.sum()) == int(rv.sum()) > 0
+            assert torch.equal(got.classes[b].cpu()[gv],
+                               ref.classes[b].cpu()[rv])
+            assert torch.allclose(got.scores[b].cpu()[gv],
+                                  ref.scores[b].cpu()[rv], rtol=1e-5,
+                                  atol=1e-6)
+            assert torch.allclose(got.boxes[b].cpu()[gv],
+                                  ref.boxes[b].cpu()[rv], rtol=1e-4,
+                                  atol=1e-3)
+
+
+def test_watchdog_on_the_card(cuda):
+    """A batch whose device work outlasts ``timeout_s`` (a spin of about a
+    second) raises InferenceTimeout and leaves the server unhealthy; after
+    the device is synchronized an armed, healthy server passes a batch."""
+    from thingino_accel_tpu_torch.runtime.serving import (
+        InferenceTimeout, StreamServer,
+    )
+
+    def wedge(x):
+        torch.cuda._sleep(2_000_000_000)
+        return x + 1
+
+    srv = StreamServer(wedge, depth=1, device=cuda, timeout_s=0.2)
+    with pytest.raises(InferenceTimeout):
+        list(srv.run(iter([np.zeros((2, 4), np.float32)])))
+    assert not srv.healthy and srv.stats.errors == 1
+    torch.cuda.synchronize()
+    armed = StreamServer(lambda x: x + 1, depth=1, device=cuda,
+                         timeout_s=5.0)
+    outs = list(armed.run(iter([np.zeros((2, 4), np.float32)])))
+    assert armed.healthy and torch.equal(outs[0].cpu(), torch.ones((2, 4)))
+
+
+@pytest.mark.parametrize("accum", [None, torch.bfloat16])
+def test_fast_conv_accumulation_on_the_card(cuda, accum):
+    """``conv2d_f32`` in bf16 on the card against the CPU in the same
+    accumulation mode: None adds the bias to float32 sums of the bf16
+    values (TF32 allowed for the call: exact products, float32 sums), so
+    each value is within 1 bf16 ulp of the CPU's and 2^-12 of the largest
+    |output| (the sums' order differs; RELU and the bias cancel near 0);
+    bf16 rounds the sums before the bias, so within 1 ulp and 2^-8 of the
+    largest |output| (a sum's rounding is relative to the sum, not to the
+    value after the bias). The global TF32 setting is left as it was."""
+    from thingino_accel_tpu_torch.ops import reference as R
+    rng = np.random.default_rng(33)
+    x = torch.from_numpy(rng.normal(0, 1, (4, 40, 40, 64)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 0.1, (96, 3, 3, 64)).astype(
+        np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.1, 96).astype(np.float32))
+    args = ((40, 40), (1, 1), (1, 1), ((1, 1), (1, 1)), True, torch.bfloat16,
+            accum)
+    was = torch.backends.cudnn.allow_tf32
+    got = R.conv2d_f32(x.to(cuda), w.to(cuda), b.to(cuda), *args).cpu()
+    assert torch.backends.cudnn.allow_tf32 == was
+    ref = R.conv2d_f32(x, w, b, *args).float()
+    ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -100)))
+                  - 7)
+    floor = ref.abs().max() * (2.0 ** -12 if accum is None else 2.0 ** -8)
+    assert got.dtype == torch.bfloat16
+    assert ((got.float() - ref).abs() <= ulp + floor).all()

@@ -10,7 +10,10 @@ machine lists none) and imports nothing of the JAX package.
   tiny chain of each probe (E1, E3, the ladder's kernel rung), one tiny
   ``build()`` of E2's (``probes.pipeline``), and the fast tier (its
   rewrites, s2d stem, bf16 pipeline and decode, NanoDet's depthwise
-  convs).
+  convs), both of its accumulation modes, and the camera-stream path and
+  CLI (``nv12_to_rgb``, ``MultiStreamBatcher``, the watchdog'd
+  ``StreamServer``, ``serve_file_model``, the float and top-k decodes,
+  the DFL decode, ``cli summary/run``).
 - No module of the port and no line of ``chip_smoke.py`` holds an
   ``import`` of ``thingino_accel_tpu`` (parsed with ``ast``, so an import
   inside a function counts too).
@@ -144,6 +147,43 @@ SCRIPT = textwrap.dedent("""
     assert [h.dtype for h in nd.run(np.zeros((1, 64, 64, 3),
                                              np.int8)).values()] == [
         torch.int8] * 3
+    fast16 = thingino_accel_tpu_torch.Engine(fg, EngineOptions(
+        precision="fast", quantize_outputs=False,
+        accum_dtype=torch.bfloat16), device="cpu")
+    assert fast16._fn.accum_dtype == torch.bfloat16
+    from thingino_accel_tpu_torch import cli
+    from thingino_accel_tpu_torch.runtime import (
+        InferenceTimeout, MultiStreamBatcher, StreamServer)
+    from thingino_accel_tpu_torch.runtime.serving import serve_file_model
+    nv = np.random.default_rng(1).integers(0, 256, (3, 96, 128),
+                                           dtype=np.uint8)
+    rgb = yolo.nv12_to_rgb(torch.from_numpy(nv), 64, 128)
+    assert rgb.shape == (3, 64, 128, 3) and rgb.dtype == torch.uint8
+    assert yolo.normalize_input_f32(rgb).dtype == torch.float32
+    mb = MultiStreamBatcher(2, 2)
+    srv = StreamServer(lambda b: yolo.nv12_to_rgb(b, 64, 128), depth=2,
+                       device="cpu", timeout_s=30.0)
+    outs = list(srv.run(mb.batches([iter(nv[:2]), iter(nv[2:])])))
+    assert len(outs) == 2 and list(mb.sources) == [[0, 1], [0, -1]]
+    assert srv.healthy and issubclass(InferenceTimeout, RuntimeError)
+    st = serve_file_model("models/fixtures/test_conv.mars",
+                          iter([np.zeros((2, 64, 64, 3), np.int8)]),
+                          device="cpu")
+    assert st.frames == 2 and st.errors == 0
+    hs = [torch.from_numpy(np.random.default_rng(2).integers(
+        -128, 128, (1, s, s, 255), dtype=np.int8)) for s in (8, 4, 2)]
+    dets = yolo.detect_postprocess_topk(hs, scales=[0.1] * 3)
+    assert dets.boxes.shape == (1, 100, 4)
+    pred = yolo.decode_heads([h.float() * 0.1 for h in hs])
+    assert yolo.parse_predictions(pred, 1.0, True)[1].shape == (1, 252)
+    assert yolo.make_anchor_tables([(8, 8)])["gx"].shape == (192,)
+    b, s, c = yolo.decode_anchor_free(
+        [torch.zeros((1, 4, 4, 64))], [torch.zeros((1, 4, 4, 80))])
+    assert b.shape == (1, 16, 4)
+    assert cli.main(["summary", "models/fixtures/test_conv.mars"]) == 0
+    assert cli.main(["run", "models/fixtures/test_conv.mars", "--iters",
+                     "1", "--device", "cpu"]) == 0
+    assert cli.main(["bench"]) != 0
     assert sys.modules["jax"] is None
     assert sys.modules["thingino_accel_tpu"] is None
     print("ok")

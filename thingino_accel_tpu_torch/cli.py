@@ -1,0 +1,194 @@
+"""Command-line tools of the port.
+
+- ``summary`` — model inspection (the `.mars` file's structure);
+- ``run``     — load a `.mars` model and run it on random, zero or `.npy`
+  input in its default tier (the exact one), printing output stats and
+  times;
+- ``detect``  — YOLO detection on one image: the model's three detect
+  heads (or its one predictions output) through the exact tier, the
+  float decode, class-aware NMS, boxes in the image's pixels.
+
+``run`` and ``detect`` take ``--device`` (``cuda`` by default; without a
+card they fail, and ``--device cpu`` runs the kernels' plain versions).
+``compile``, ``decompile``, ``gen-test``, ``quantize``, ``export-onnx``
+and ``bench`` are not ported yet: each exits non-zero naming its ROADMAP
+item.
+
+Usage: ``python -m thingino_accel_tpu_torch.cli <command> ...``
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+# the subcommands still to port, with the ROADMAP item each waits on
+NOT_PORTED = {
+    "compile": ("ONNX -> .mars", "A.4 (ONNX import, the .mars exporter)"),
+    "decompile": (".mgk -> metadata/weights/onnx",
+                  "A.4 (.mgk, JZDL and the ONNX exporter)"),
+    "gen-test": ("generate a test .mars model",
+                 "A.4 (the .mars writer and exporters)"),
+    "quantize": ("PTQ: f32 .onnx/.mars -> int8 .mars", "A.8 (training/ptq)"),
+    "export-onnx": (".mars -> float32 ONNX", "A.4 (the ONNX exporter)"),
+    "bench": ("run the headline benchmark", "A.1 (the GPU bench)"),
+}
+
+
+def _load_image(path: str) -> np.ndarray:
+    """An image file as HWC uint8 RGB: a `.npy` array, or any format
+    Pillow decodes."""
+    if path.endswith(".npy"):
+        return np.asarray(np.load(path), np.uint8)
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise SystemExit(
+            "image decoding needs Pillow; pass a .npy file instead") from e
+    return np.asarray(Image.open(path).convert("RGB"), np.uint8)
+
+
+def cmd_summary(args) -> int:
+    from thingino_accel_tpu_torch.formats import mars as M
+    print(M.read_mars(args.model).summary())
+    return 0
+
+
+def cmd_run(args) -> int:
+    from thingino_accel_tpu_torch.runtime import Engine, EngineOptions
+    eng = Engine.from_mars(args.model, EngineOptions(mode=args.mode),
+                           device=args.device)
+    print(eng.summary())
+    rng = np.random.default_rng(args.seed)
+    feed = {}
+    for name in eng.input_names:
+        t = eng.graph.tensors[name]
+        shape = (args.batch,) + tuple(t.shape[1:])
+        if args.input:
+            arr = np.load(args.input).astype(t.dtype)
+            if tuple(arr.shape[1:]) != tuple(t.shape[1:]):
+                print(f"error: --input shape {arr.shape} does not match "
+                      f"{name} {t.shape} (batch-free dims)",
+                      file=sys.stderr)
+                return 1
+        elif np.issubdtype(t.dtype, np.integer):
+            arr = rng.integers(-128, 128, shape).astype(t.dtype)
+        else:
+            arr = rng.normal(size=shape).astype(t.dtype)
+        feed[name] = arr
+    t0 = time.perf_counter()
+    out = eng.run_np(**feed)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(args.iters):
+        out = eng.run_np(**feed)
+    run_s = (time.perf_counter() - t0) / max(args.iters, 1)
+    for k, v in out.items():
+        print(f"output {k}: shape={v.shape} dtype={v.dtype} "
+              f"min={v.min()} max={v.max()} mean={float(np.mean(v)):.4f}")
+    fed_batch = next(iter(feed.values())).shape[0]
+    print(f"first call: {first_s*1e3:.1f} ms; steady-state: "
+          f"{run_s*1e3:.2f} ms ({fed_batch/run_s:.1f} inf/s)")
+    return 0
+
+
+def cmd_detect(args) -> int:
+    import torch
+    from thingino_accel_tpu_torch.models import yolo
+    from thingino_accel_tpu_torch.runtime import Engine
+    from thingino_accel_tpu_torch.runtime.engine import load_graph
+
+    g = load_graph(args.model)
+    det_outs = yolo.find_detect_outputs(g)
+    if det_outs:
+        g = g.with_outputs(det_outs)
+    eng = Engine(g, device=args.device)
+    in_t = eng.graph.tensors[eng.input_names[0]]
+    target = (in_t.shape[1], in_t.shape[2])
+    is_int8 = np.issubdtype(in_t.dtype, np.signedinteger)
+    scales = [eng.graph.tensors[o].quant.scale for o in eng.output_names]
+
+    img = _load_image(args.image)
+    frames = torch.from_numpy(np.array(img[None])).to(eng.device)
+    lb = yolo.letterbox_uint8(frames, target)
+    x = (yolo.quantize_input_int8(lb) if is_int8
+         else yolo.normalize_input_f32(lb))
+    feats = eng.forward(x)
+    if det_outs:
+        f32 = [feats[k].to(torch.float32) * float(np.float32(s))
+               for k, s in zip(eng.output_names, scales)]
+        b, s, c = yolo.parse_predictions(yolo.decode_heads(f32), 1.0,
+                                         already_sigmoid=True)
+    else:
+        (o,) = feats.values()
+        b, s, c = yolo.parse_predictions(o, scales[0])
+    dets = yolo.nms_batched(b, s, c, conf_thresh=args.conf,
+                            iou_thresh=args.iou, max_dets=args.max_dets)
+    boxes = yolo.scale_boxes_to_original(dets.boxes, img.shape[:2],
+                                         target).cpu().numpy()
+    sc, cl, va = (t.cpu().numpy()
+                  for t in (dets.scores, dets.classes, dets.valid))
+    print(f"{int(va[0].sum())} detections:")
+    for i in range(boxes.shape[1]):
+        if not va[0, i]:
+            continue
+        name = (yolo.COCO_CLASSES[cl[0, i]]
+                if cl[0, i] < len(yolo.COCO_CLASSES) else "?")
+        x0, y0, x1, y1 = boxes[0, i]
+        print(f"  {name:<14} {sc[0, i]*100:5.1f}%  "
+              f"({x0:.0f},{y0:.0f})-({x1:.0f},{y1:.0f})")
+    return 0
+
+
+def _not_ported(cmd: str):
+    def fn(args) -> int:
+        print(f"error: '{cmd}' is not ported to the PyTorch package yet: "
+              f"ROADMAP.md {NOT_PORTED[cmd][1]}", file=sys.stderr)
+        return 2
+    return fn
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="thingino-accel-tpu-torch",
+                                description=__doc__)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    s = sub.add_parser("summary", help="print model structure")
+    s.add_argument("model")
+    s.set_defaults(fn=cmd_summary)
+
+    s = sub.add_parser("run", help="load and run a model")
+    s.add_argument("model")
+    s.add_argument("--input", help=".npy input file")
+    s.add_argument("--batch", type=int, default=1)
+    s.add_argument("--iters", type=int, default=3)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--mode", choices=["full", "compat"], default="full")
+    s.add_argument("--device", default="cuda")
+    s.set_defaults(fn=cmd_run)
+
+    s = sub.add_parser("detect", help="YOLO detection on an image")
+    s.add_argument("model")
+    s.add_argument("image")
+    s.add_argument("--conf", type=float, default=0.25)
+    s.add_argument("--iou", type=float, default=0.45)
+    s.add_argument("--max-dets", type=int, default=100)
+    s.add_argument("--device", default="cuda")
+    s.set_defaults(fn=cmd_detect)
+
+    for cmd, (what, item) in NOT_PORTED.items():
+        # any arguments are taken as they come, dashes too: none is read
+        s = sub.add_parser(cmd, help=f"{what} (not ported: ROADMAP {item})",
+                           prefix_chars="+", add_help=False)
+        s.add_argument("rest", nargs=argparse.REMAINDER)
+        s.set_defaults(fn=_not_ported(cmd))
+
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

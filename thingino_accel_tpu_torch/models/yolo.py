@@ -21,6 +21,23 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+# COCO class names (the reference's ``mars_yolo_test.c`` table).
+COCO_CLASSES = (
+    "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train",
+    "truck", "boat", "traffic light", "fire hydrant", "stop sign",
+    "parking meter", "bench", "bird", "cat", "dog", "horse", "sheep",
+    "cow", "elephant", "bear", "zebra", "giraffe", "backpack", "umbrella",
+    "handbag", "tie", "suitcase", "frisbee", "skis", "snowboard",
+    "sports ball", "kite", "baseball bat", "baseball glove", "skateboard",
+    "surfboard", "tennis racket", "bottle", "wine glass", "cup", "fork",
+    "knife", "spoon", "bowl", "banana", "apple", "sandwich", "orange",
+    "broccoli", "carrot", "hot dog", "pizza", "donut", "cake", "chair",
+    "couch", "potted plant", "bed", "dining table", "toilet", "tv",
+    "laptop", "mouse", "remote", "keyboard", "cell phone", "microwave",
+    "oven", "toaster", "sink", "refrigerator", "book", "clock", "vase",
+    "scissors", "teddy bear", "hair drier", "toothbrush",
+)
+
 # YOLOv5 anchors / strides (the reference's yolo_detect.cpp tables).
 YOLOV5_ANCHORS = np.array([
     [[10, 13], [16, 30], [33, 23]],
@@ -207,6 +224,38 @@ def quantize_input_int8(frames_u8: torch.Tensor,
     return (frames_u8.to(torch.int32) - 128).to(dtype)
 
 
+def nv12_to_rgb(nv12: torch.Tensor, height: int, width: int
+                ) -> torch.Tensor:
+    """NV12 (the camera's planar YUV 4:2:0, ``include/nna_types.h``) ->
+    RGB uint8 on the frames' device, batched: [B, H*3/2, W] uint8 (the Y
+    plane, then the interleaved half-resolution UV plane, V4L2's layout)
+    -> [B, H, W, 3]. BT.601 full range, chroma upsampled by nearest.
+
+    The JAX function's op order, each op a torch op of its own: f32 planes,
+    ``y + 1.402 v``, ``(y - 0.344136 u) - 0.714136 v``, ``y + 1.772 u``,
+    each product rounded before its add (no fused multiply-add, which
+    changes bytes), round half to even, clamp. The bytes equal JAX's, on
+    the CPU and on the card."""
+    b = nv12.shape[0]
+    y = nv12[:, :height, :].to(torch.float32)
+    uv = nv12[:, height:, :].reshape(b, height // 2, width // 2, 2)
+    u = uv[..., 0].to(torch.float32) - 128.0
+    v = uv[..., 1].to(torch.float32) - 128.0
+    u = u.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    v = v.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    r = y + 1.402 * v
+    g = y - 0.344136 * u - 0.714136 * v
+    bch = y + 1.772 * u
+    rgb = torch.stack([r, g, bch], dim=-1)
+    return torch.clamp(torch.round(rgb), 0, 255).to(torch.uint8)
+
+
+def normalize_input_f32(frames_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 -> f32 in [0, 1] (the standard YOLOv5 f32 input): a multiply
+    by the f32 value of 1/255, as JAX's."""
+    return frames_u8.to(torch.float32) * float(np.float32(1.0 / 255.0))
+
+
 def space_to_depth_frames(frames: np.ndarray) -> np.ndarray:
     """Host 2x2 space-to-depth: ``[B, H, W, C]`` -> ``[B, H/2, W/2, 4C]``,
     each 2x2 block's pixels row-major into the channels (channel
@@ -254,6 +303,14 @@ def find_detect_outputs(graph) -> list:
 # ---------------------------------------------------------------------------
 
 
+def _grid(h: int, w: int, device) -> torch.Tensor:
+    """[H, W, 1, 2] cell coordinates (x, y) in f32."""
+    gy, gx = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=device),
+        torch.arange(w, dtype=torch.float32, device=device), indexing="ij")
+    return torch.stack([gx, gy], dim=-1)[:, :, None, :]
+
+
 def _best_class(cls_logits: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Best class logit + first-occurrence index. int8 heads pack
@@ -296,12 +353,8 @@ def decode_and_parse(
         if sc is not None:
             x5 = x5 * sc
         sig5 = torch.sigmoid(x5)
-        gy, gx = torch.meshgrid(
-            torch.arange(h, dtype=torch.float32, device=feat.device),
-            torch.arange(w, dtype=torch.float32, device=feat.device),
-            indexing="ij")
-        grid = torch.stack([gx, gy], dim=-1)[:, :, None, :]
-        xy = (sig5[..., 0:2] * 2.0 - 0.5 + grid) * float(strides[i])
+        xy = (sig5[..., 0:2] * 2.0 - 0.5 + _grid(h, w, feat.device)) \
+            * float(strides[i])
         anc = torch.as_tensor(anchors[i], dtype=torch.float32,
                               device=feat.device)
         wh = torch.square(sig5[..., 2:4] * 2.0) * anc[None, None, :, :]
@@ -316,6 +369,188 @@ def decode_and_parse(
         all_cls.append(cls.reshape(b, n))
     return (torch.cat(all_boxes, 1), torch.cat(all_conf, 1),
             torch.cat(all_cls, 1))
+
+
+def decode_head_level(
+    feat: torch.Tensor,           # [B, H, W, A*(5+NC)] f32 raw logits
+    anchors: np.ndarray,          # [A, 2] f32 (pixels)
+    stride: int,
+    num_classes: int = 80,
+) -> torch.Tensor:
+    """YOLOv5 anchor decode of one pyramid level -> [B, H*W*A, 5+NC]:
+    ``xy = (2 sigmoid(t) - 0.5 + grid) * stride``, ``wh = (2 sigmoid(t))^2
+    * anchor``, obj and classes ``sigmoid(t)``, every channel's sigmoid
+    (the ``detect`` flow's float decode; the serving pipeline decodes in
+    kernel #8)."""
+    b, h, w, _ = feat.shape
+    a = anchors.shape[0]
+    x = feat.reshape(b, h, w, a, 5 + num_classes)
+    sig = torch.sigmoid(x)
+    xy = (sig[..., 0:2] * 2.0 - 0.5 + _grid(h, w, feat.device)) \
+        * float(stride)
+    anc = torch.as_tensor(np.asarray(anchors, np.float32),
+                          device=feat.device)
+    wh = torch.square(sig[..., 2:4] * 2.0) * anc[None, None, :, :]
+    out = torch.cat([xy, wh, sig[..., 4:]], dim=-1)
+    return out.reshape(b, h * w * a, 5 + num_classes)
+
+
+def decode_heads(
+    feats: Sequence[torch.Tensor],
+    anchors: np.ndarray = YOLOV5_ANCHORS,
+    strides: Sequence[int] = YOLOV5_STRIDES,
+    num_classes: int = 80,
+) -> torch.Tensor:
+    """:func:`decode_head_level` of every level, concatenated ->
+    [B, N, 5+NC]."""
+    return torch.cat([decode_head_level(f, anchors[i], strides[i],
+                                        num_classes)
+                      for i, f in enumerate(feats)], dim=1)
+
+
+def parse_predictions(
+    pred: torch.Tensor,           # [B, N, 5+NC] int8 or f32
+    scale: float = 1.0,
+    already_sigmoid: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """[B, N, 5+NC] -> (boxes_xywh [B, N, 4], scores [B, N], classes
+    [B, N] int32), the reference's parse: obj = sigmoid(p4 * s), class =
+    argmax of the raw class logits (the first maximum), conf = obj *
+    sigmoid(best). ``already_sigmoid`` skips both sigmoids, for decoded
+    heads."""
+    p = pred.to(torch.float32) * float(np.float32(scale))
+    boxes = p[..., 0:4]
+    best = torch.amax(p[..., 5:], dim=-1)
+    if already_sigmoid:
+        conf = p[..., 4] * best
+    else:
+        conf = torch.sigmoid(p[..., 4]) * torch.sigmoid(best)
+    classes = torch.argmax(p[..., 5:], dim=-1).to(torch.int32)
+    return boxes, conf, classes
+
+
+def decode_anchor_free(
+    box_feats: Sequence[torch.Tensor],   # per level [B, H, W, 4*reg_max]
+    cls_feats: Sequence[torch.Tensor],   # per level [B, H, W, NC]
+    strides: Sequence[int] = YOLOV5_STRIDES,
+    reg_max: int = 16,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Anchor-free DFL decode (yolov5u / yolov8-style heads): each box side
+    is the softmax expectation over ``reg_max`` bins, in stride units from
+    the cell centre; the class score is the sigmoid of the best logit (no
+    objectness). Returns (boxes_xywh [B, N, 4], conf [B, N], classes
+    [B, N] int32)."""
+    all_b, all_s, all_c = [], [], []
+    for bf, cf, stride in zip(box_feats, cls_feats, strides):
+        b, h, w, _ = bf.shape
+        bins = torch.arange(reg_max, dtype=torch.float32, device=bf.device)
+        x = bf.to(torch.float32).reshape(b, h, w, 4, reg_max)
+        dist = torch.sum(torch.softmax(x, dim=-1) * bins, dim=-1)   # ltrb
+        g = _grid(h, w, bf.device)[:, :, 0, :] + 0.5
+        gx, gy = g[..., 0], g[..., 1]
+        x0 = (gx - dist[..., 0]) * stride
+        y0 = (gy - dist[..., 1]) * stride
+        x1 = (gx + dist[..., 2]) * stride
+        y1 = (gy + dist[..., 3]) * stride
+        boxes = torch.stack([(x0 + x1) / 2, (y0 + y1) / 2,
+                             x1 - x0, y1 - y0], dim=-1)
+        cls_logits = cf.to(torch.float32)
+        conf = torch.sigmoid(torch.amax(cls_logits, dim=-1))
+        cls = torch.argmax(cls_logits, dim=-1).to(torch.int32)
+        all_b.append(boxes.reshape(b, h * w, 4))
+        all_s.append(conf.reshape(b, h * w))
+        all_c.append(cls.reshape(b, h * w))
+    return torch.cat(all_b, 1), torch.cat(all_s, 1), torch.cat(all_c, 1)
+
+
+def make_anchor_tables(
+    shapes: Sequence[Tuple[int, int]],
+    anchors: np.ndarray = YOLOV5_ANCHORS,
+    strides: Sequence[int] = YOLOV5_STRIDES,
+) -> dict:
+    """Flat per-candidate tables (grid x / y, anchor w / h, stride) over all
+    levels in head-concat order, numpy f32: they let the decode run on the
+    top-k survivors only (:func:`detect_postprocess_topk`)."""
+    gx, gy, aw, ah, st = [], [], [], [], []
+    for (h, w), anc, s in zip(shapes, anchors, strides):
+        a = anc.shape[0]
+        yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        for arrs, vals in ((gx, np.broadcast_to(xx[..., None], (h, w, a))),
+                           (gy, np.broadcast_to(yy[..., None], (h, w, a)))):
+            arrs.append(vals.reshape(-1).astype(np.float32))
+        aw.append(np.broadcast_to(anc[None, None, :, 0],
+                                  (h, w, a)).reshape(-1).astype(np.float32))
+        ah.append(np.broadcast_to(anc[None, None, :, 1],
+                                  (h, w, a)).reshape(-1).astype(np.float32))
+        st.append(np.full(h * w * a, s, np.float32))
+    return {k: np.concatenate(v) for k, v in
+            (("gx", gx), ("gy", gy), ("aw", aw), ("ah", ah), ("st", st))}
+
+
+def detect_postprocess_topk(
+    feats: Sequence[torch.Tensor],    # per level [B, H, W, A*(5+NC)]
+    scales: Optional[Sequence[Optional[float]]] = None,
+    anchors: np.ndarray = YOLOV5_ANCHORS,
+    strides: Sequence[int] = YOLOV5_STRIDES,
+    num_classes: int = 80,
+    conf_thresh: float = 0.25,
+    iou_thresh: float = 0.45,
+    max_dets: int = 100,
+    pre_nms: int = 256,
+) -> "Detections":
+    """Score -> top-k -> decode the survivors only -> NMS. Only the
+    confidences (obj x best class, both monotone in the raw logits) touch
+    every candidate; the box math runs on the ``pre_nms`` survivors through
+    the gathered :func:`make_anchor_tables`. int8 heads with their
+    ``scales`` (a None entry: a float head, scale 1), float heads with
+    ``scales=None``; lane-padded heads (a per-anchor block past 5+NC, a
+    multiple of 128) read only their first 5+NC channels."""
+    a = anchors.shape[1]
+    flats, confs, clss, lvl = [], [], [], []
+    for i, feat in enumerate(feats):
+        b, h, w, ch = feat.shape
+        blk = ch // a
+        if not (ch == a * (5 + num_classes) or (
+                ch % a == 0 and blk >= 5 + num_classes and blk % 128 == 0)):
+            raise ValueError(f"head channels {ch} fit neither "
+                             f"{a}*(5+{num_classes}) nor a lane-padded block")
+        x = feat.reshape(b, h * w * a, blk)
+        s = (scales[i] if scales is not None and scales[i] is not None
+             else 1.0)
+        sc = float(np.float32(s))
+        obj = torch.sigmoid(x[..., 4].to(torch.float32) * sc)
+        cls_logits = x[..., 5:5 + num_classes]
+        best = torch.amax(cls_logits, dim=-1).to(torch.float32) * sc
+        confs.append(obj * torch.sigmoid(best))
+        clss.append(torch.argmax(cls_logits, dim=-1).to(torch.int32))
+        flats.append(x[..., :4])
+        lvl.append(torch.full((h * w * a,), sc, dtype=torch.float32,
+                              device=feat.device))
+    conf = torch.cat(confs, dim=1)                  # [B, N]
+    cls = torch.cat(clss, dim=1)
+    raw4 = torch.cat(flats, dim=1)                  # [B, N, 4] raw logits
+    bsz, n = conf.shape
+    k = min(pre_nms, n)
+
+    dev = conf.device
+    tab = {key: torch.from_numpy(v).to(dev) for key, v in make_anchor_tables(
+        [(f.shape[1], f.shape[2]) for f in feats], anchors, strides).items()}
+    masked = torch.where(conf >= conf_thresh, conf, 0.0)
+    top, idx = top_k_grouped(masked, k)
+    r = torch.gather(raw4, 1, idx[..., None].expand(bsz, k, 4)) \
+        .to(torch.float32)
+    if scales is not None:
+        r = r * torch.cat(lvl)[idx][..., None]
+    sig = torch.sigmoid(r)
+    st = tab["st"][idx]
+    boxes = torch.stack([
+        (sig[..., 0] * 2.0 - 0.5 + tab["gx"][idx]) * st,
+        (sig[..., 1] * 2.0 - 0.5 + tab["gy"][idx]) * st,
+        torch.square(sig[..., 2] * 2.0) * tab["aw"][idx],
+        torch.square(sig[..., 3] * 2.0) * tab["ah"][idx]], dim=-1)
+    return nms_batched(boxes, top, torch.gather(cls, 1, idx),
+                       conf_thresh=conf_thresh, iou_thresh=iou_thresh,
+                       max_dets=max_dets, pre_nms=k)
 
 
 # ---------------------------------------------------------------------------
@@ -567,5 +802,41 @@ def build_serving_pipeline(engine):
             [feats[k] for k in out_names], scales=scales)
         return nms_batched(boxes, scores, classes, max_dets=100,
                            pre_nms=128, topk_group=8)
+
+    return pipeline
+
+
+def build_e2e_mars_pipeline(
+    engine,                       # runtime.Engine over a .mars YOLO graph
+    frame_hw: Tuple[int, int],
+    conf_thresh: float = 0.25,
+    iou_thresh: float = 0.45,
+    max_dets: int = 100,
+):
+    """uint8 frames [B, H, W, 3] on the engine's device -> Detections in
+    frame pixels, for a graph whose first output is the [B, N, 5+NC]
+    predictions (the reference's ``mars_yolo_test.c`` flow): letterbox ->
+    int8 quantize (an int8 input) or normalize to [0, 1] (a float input)
+    -> network -> :func:`parse_predictions` at the output's scale ->
+    :func:`nms_batched` -> :func:`scale_boxes_to_original`."""
+    in_t = engine.graph.tensors[engine.input_names[0]]
+    out_name = engine.output_names[0]
+    out_t = engine.graph.tensors[out_name]
+    target = (in_t.shape[1], in_t.shape[2])
+    is_int8 = np.issubdtype(in_t.dtype, np.signedinteger)
+    out_scale = out_t.quant.scale
+
+    def pipeline(frames_u8: torch.Tensor) -> Detections:
+        lb = letterbox_uint8(frames_u8, target)
+        x = quantize_input_int8(lb) if is_int8 else normalize_input_f32(lb)
+        preds = engine.forward(x)[out_name]
+        if preds.dim() == 2:
+            preds = preds[None]
+        boxes, scores, classes = parse_predictions(preds, out_scale)
+        dets = nms_batched(boxes, scores, classes, conf_thresh=conf_thresh,
+                           iou_thresh=iou_thresh, max_dets=max_dets)
+        return Detections(
+            boxes=scale_boxes_to_original(dets.boxes, frame_hw, target),
+            scores=dets.scores, classes=dets.classes, valid=dets.valid)
 
     return pipeline

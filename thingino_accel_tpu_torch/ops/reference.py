@@ -9,6 +9,7 @@ cites the reference runtime behaviour it replicates through it.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -129,26 +130,59 @@ def _conv_nchw(x: torch.Tensor, w: torch.Tensor, out_hw: Tuple[int, int],
     return out[:, :, :out_hw[0], :out_hw[1]]
 
 
+@contextlib.contextmanager
+def _cudnn_tf32():
+    """cuDNN may take TF32 inside the block; the setting as it was after."""
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+
+
 def conv2d_f32(
     x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     out_hw: Tuple[int, int], stride: Tuple[int, int],
     dilation: Tuple[int, int],
     pads: Tuple[Tuple[int, int], Tuple[int, int]],
     relu: bool = False, compute_dtype: torch.dtype = torch.float32,
+    accum_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Float conv of NHWC ``x`` with OHWI ``w`` (the fast tier's): the
-    conv in ``compute_dtype`` (float32 or bfloat16, sums in float32) and
-    channels_last, cropped to ``out_hw``, the bias added in float32, then
-    RELU, the result cast to ``compute_dtype``. A bf16 conv's output is
-    rounded to bf16 before the bias (``F.conv2d`` returns its input's
-    type), where JAX adds the bias to the f32 sums: one rounding more
-    (ROADMAP C.9).
-    On the card a float32 conv follows ``torch.backends.cudnn.allow_tf32``
-    (the caller sets it)."""
+    operands rounded to ``compute_dtype`` (float32 or bfloat16), the conv
+    in channels_last, cropped to ``out_hw``, the bias added in float32,
+    then RELU, the result cast to ``compute_dtype``.
+
+    ``accum_dtype`` is the JAX option's. None (or float32): the sums are
+    float32 and the bias is added to them, one rounding at the end, as
+    JAX's ``preferred_element_type=float32``. A bf16 conv then runs as a
+    float32 conv of the bf16 values: each product of two bf16 values is
+    exact in float32, and in TF32 too (10 mantissa bits hold bf16's 7),
+    so on the card such a conv allows TF32 for its own call.
+    ``torch.bfloat16``: the conv in bf16, its sums rounded to bf16 before
+    the bias (``F.conv2d`` returns its input's type), as JAX's
+    ``preferred_element_type=bfloat16``: the mode the JAX bench runs.
+    On the card a float32 conv of float32 values follows
+    ``torch.backends.cudnn.allow_tf32`` (the caller sets it)."""
+    if accum_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"accum_dtype must be None, torch.float32 or "
+                         f"torch.bfloat16, got {accum_dtype}")
     cl = torch.channels_last
-    xc = x.to(compute_dtype).permute(0, 3, 1, 2).contiguous(memory_format=cl)
-    wc = w.to(compute_dtype).permute(0, 3, 1, 2).contiguous(memory_format=cl)
-    out = _conv_nchw(xc, wc, out_hw, stride, dilation, pads)
+    widen = compute_dtype == torch.bfloat16 and accum_dtype != torch.bfloat16
+    xc = x.to(compute_dtype)
+    wc = w.to(compute_dtype)
+    if widen:   # exact: bf16 values in float32
+        xc, wc = xc.to(torch.float32), wc.to(torch.float32)
+    xc = xc.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+    wc = wc.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+    if widen and xc.is_cuda:
+        with _cudnn_tf32():
+            out = _conv_nchw(xc, wc, out_hw, stride, dilation, pads)
+    else:
+        out = _conv_nchw(xc, wc, out_hw, stride, dilation, pads)
+    if accum_dtype == torch.bfloat16:   # a no-op on a bf16 conv's output
+        out = out.to(torch.bfloat16)
     out = out.permute(0, 2, 3, 1)
     # the add reads the conv's output and writes float32 in one pass
     out = (out + bias.to(torch.float32) if bias is not None

@@ -52,9 +52,10 @@ class EngineOptions:
       the default, ``"all"``; any other value raises), run in
       ``compute_dtype``, which the engine makes bfloat16 where it is
       float32, as the JAX engine does. ``accum_dtype`` is the JAX
-      option's: None means float32, and ``torch.bfloat16`` raises here
-      (cuDNN has no bf16 accumulator); the executor takes no such
-      option. Full mode only.
+      option's: None (the default, or float32) adds each conv's bias to
+      its float32 sums and rounds once; ``torch.bfloat16`` rounds the
+      sums to bf16 before the bias, the mode the JAX bench runs
+      (``ops.reference.conv2d_f32``). Full mode only.
 
     ``fold_bn`` folds f32 BATCHNORM into the conv before it (full mode).
     The JAX options ``nchw_io``, ``jit`` and ``donate_inputs`` are not
@@ -77,11 +78,9 @@ class EngineOptions:
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be torch.float32 or "
                              f"torch.bfloat16, got {self.compute_dtype}")
-        if self.accum_dtype not in (None, torch.float32):
-            raise ValueError(
-                f"accum_dtype={self.accum_dtype}: cuDNN and the CPU's "
-                "convolutions accumulate in float32 and offer no bf16 "
-                "accumulator; pass None")
+        if self.accum_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"accum_dtype must be None, torch.float32 or "
+                             f"torch.bfloat16, got {self.accum_dtype}")
         if self.fpn_split not in ("",) + passes.SPLIT_MODES:
             raise ValueError(f"fpn_split must be '' or one of "
                              f"{passes.SPLIT_MODES}, got {self.fpn_split!r}")
@@ -179,7 +178,7 @@ class Engine:
         o = self.options
         return build_executor(graph, self.device, self.planned, o.precision,
                               o.mode, o.round_mode, o.fuse_silu,
-                              o.compute_dtype)
+                              o.compute_dtype, o.accum_dtype)
 
     # -- introspection ------------------------------------------------------
 

@@ -1251,7 +1251,8 @@ class FastExecutor(Executor):
     """The fast tier (port of ``build_executor`` with the float branches of
     ``_lower_node``) over a dequantized graph (``ir.passes.
     dequantize_graph``): node by node, the float convs through
-    ``F.conv2d`` (:func:`ops.reference.conv2d_f32`, in ``compute_dtype``;
+    ``F.conv2d`` (:func:`ops.reference.conv2d_f32`, in ``compute_dtype``,
+    the sums in float32 or, with ``accum_dtype=torch.bfloat16``, in bf16;
     depthwise always in float32), the other ops in plain torch, DEQUANT
     (int8 or float input) and QUANT (PLUS_HALF_TRUNC, clamp) at the edges.
     SIGMOID+MUL pairs fuse (``fuse_silu``) into ``x * sigmoid(x)`` in the
@@ -1261,13 +1262,18 @@ class FastExecutor(Executor):
 
     def __init__(self, graph: Graph, device: torch.device | str = "cuda",
                  compute_dtype: torch.dtype = torch.float32,
-                 fuse_silu: bool = True):
+                 fuse_silu: bool = True,
+                 accum_dtype: Optional[torch.dtype] = None):
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be torch.float32 or "
                              f"torch.bfloat16, got {compute_dtype}")
+        if accum_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"accum_dtype must be None, torch.float32 or "
+                             f"torch.bfloat16, got {accum_dtype}")
         self.graph = graph
         self.tensors = graph.tensors
         self.compute_dtype = compute_dtype
+        self.accum_dtype = accum_dtype
         self.nodes = (fuse_silu_pairs(graph) if fuse_silu
                       else list(graph.nodes))
         self.device = resolve_device(device)
@@ -1333,7 +1339,8 @@ class FastExecutor(Executor):
             else:
                 out = R.conv2d_f32(
                     x, env[node.inputs[1]], bias, out_hw, a["stride"],
-                    a["dilation"], pads, act == "RELU", self.compute_dtype)
+                    a["dilation"], pads, act == "RELU", self.compute_dtype,
+                    self.accum_dtype)
             out = apply_float_act(out, act, a.get("alpha", 0.01) or 0.01)
         elif op == "MAXPOOL":
             out = R.maxpool(x, a["kernel"], a["stride"], _nhwc_out_hw(out_t),
@@ -1379,17 +1386,21 @@ def build_executor(graph: Graph, device: torch.device | str = "cuda",
                    mode: str = "full",
                    round_mode: RoundMode = RoundMode.HALF_AWAY,
                    fuse_silu: bool = True,
-                   compute_dtype: torch.dtype = torch.float32) -> Executor:
+                   compute_dtype: torch.dtype = torch.float32,
+                   accum_dtype: Optional[torch.dtype] = None) -> Executor:
     """Return ``fn(params, inputs) -> outputs`` for ``graph`` on ``device``.
     ``precision="serving"``: the planned serving tier, or with
     ``planned=False`` the unplanned per-node lowering. ``"exact"``: the
     exact tier in ``mode`` ``"full"`` or ``"compat"``. ``"fast"``: the
     fast tier over a dequantized graph, its convs in ``compute_dtype``
-    (float32 here, as the JAX ``ExecOptions``; the engine takes bf16)."""
+    (float32 here, as the JAX ``ExecOptions``; the engine takes bf16),
+    their sums in float32 or, with ``accum_dtype=torch.bfloat16``,
+    rounded to bf16 before the bias (:func:`ops.reference.conv2d_f32`)."""
     if precision == "exact":
         return ExactExecutor(graph, device, mode, round_mode, fuse_silu)
     if precision == "fast":
-        return FastExecutor(graph, device, compute_dtype, fuse_silu)
+        return FastExecutor(graph, device, compute_dtype, fuse_silu,
+                            accum_dtype)
     if precision != "serving":
         raise ValueError(f"unknown precision {precision!r}")
     return Executor(graph, device, planned)

@@ -19,8 +19,9 @@ card before the window, so the window holds no host-to-device copy):
 - ``fast_yolov5n`` / ``fast_yolov5s``: the fast tier as the JAX bench runs
   it by default (letterbox to 640 -> space-to-depth -> quantize into bf16
   -> the dequantized bf16 graph, its stem rewritten to s2d, convs in
-  ``F.conv2d`` -> #8 on the bf16 heads -> NMS) on the real yolov5n and on
-  the zoo yolov5s at 640 as :func:`fast_graph` builds them.
+  ``F.conv2d`` with their sums rounded to bf16 before the bias,
+  ``FAST_ACCUM`` -> #8 on the bf16 heads -> NMS) on the real yolov5n and
+  on the zoo yolov5s at 640 as :func:`fast_graph` builds them.
 
 After two warm-up batches, ``--batches`` pipeline calls run back to back
 inside the profiler, then the device is synchronized. The wall time is
@@ -44,6 +45,21 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 FRAME_HW = (720, 1280)
+
+
+# the accumulation of the fast paths: the JAX bench's default
+# (``accum_dtype=bfloat16`` unless ``TAT_BENCH_F32ACC=1``), each conv's
+# sums rounded to bf16 before its bias; None is the engine's default, the
+# bias added to the f32 sums
+FAST_ACCUM = torch.bfloat16
+
+
+def fast_options(accum=FAST_ACCUM):
+    """The fast paths' ``EngineOptions``: bf16 heads (as the JAX bench,
+    ``quantize_outputs=False``), the given accumulation."""
+    from thingino_accel_tpu_torch.runtime.engine import EngineOptions
+    return EngineOptions(precision="fast", quantize_outputs=False,
+                         accum_dtype=accum)
 
 
 def fast_graph(model: str, s2d: bool = True):
@@ -78,8 +94,7 @@ def _engine(path: str):
     from thingino_accel_tpu_torch.models import zoo
     from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
     if path.startswith("fast_"):
-        return Engine(fast_graph(path[5:]), EngineOptions(
-            precision="fast", quantize_outputs=False), device="cuda")
+        return Engine(fast_graph(path[5:]), fast_options(), device="cuda")
     if path == "exact_yolov5s":
         return Engine(zoo.build_yolov5("s", zoo.ZooConfig()),
                       EngineOptions(precision="exact"), device="cuda")
