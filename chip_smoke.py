@@ -225,6 +225,26 @@ Phases:
    batches each in turns (streams, RGB, RGB, streams), the bytes copied
    to the device a batch (NV12 22.1 MB, RGB 44.2 MB) and the phase's
    time.
+15. ``[ops]``: the shared lowering of every tier
+   (``Executor.lower_node``) at full width, batches of 16 from
+   ``default_rng(0)``, each check with its ms a batch (CUDA events): (a)
+   the real yolov5n file loaded whole (``load_graph``, 640x640, its
+   degenerate decode tail included) in the serving and the fast tier: the
+   planned census (50 launches, read after one forward with the counts
+   set to 0 before) and the heads equal, bit for bit on the card, to
+   ``from_yolo_mars``'s; (b) the real yolov5n as a float32 graph
+   (``passes.dequantize_graph``, heads left float) in the exact tier, TF32
+   off: the card's heads within 1e-4 of the largest |head| of the CPU's
+   forward; (c) the int8 ops graph (``models.ops_graphs``) at the real
+   yolov5n's P3 width, 16x80x80x64, in every tier and mode that takes it
+   (``ops_graphs.TIERS``, ``LEFT_OUT``), with its launches; (d) the
+   recurrent graph at ``AECConfig``'s widths ([16, 32, 256] -> CONV1D ->
+   CONV1D_TRANSPOSE -> GRU over T 8, 1024 rows, hidden 32, forward and
+   bidirectional) likewise; (c) and (d) card against CPU by
+   ``ops_graphs.check_outputs`` (int8 bit for bit but SOFTMAX and POW,
+   and the fast tier's, float32 within 1e-5 of the largest |output|,
+   convs 1e-4, the fast tier's floats 2^-6); (e) ``nchw_io``: an NCHW
+   feed gives the NHWC run's outputs, transposed.
 
 Each path is run with the launch counters set to 0 just before it and
 read just after. Tolerances (as in ``tests/test_torch_fused_kernels.py``):
@@ -3274,6 +3294,152 @@ def phase_streams(zoo_eng) -> dict:
             "phase_s": phase_s}
 
 
+OPS_BATCH = 16
+OPS_ITERS = 5
+F32_HEAD_TOL = 1e-4
+
+
+def ops_input(graph, rng):
+    """A batch for ``graph``'s input: int8 over its range, or float32
+    normal, on the card."""
+    import numpy as np
+    import torch
+    t = graph.tensors[graph.inputs[0]]
+    shape = (OPS_BATCH,) + tuple(t.shape[1:])
+    x = (rng.integers(-128, 128, shape, dtype=np.int8) if t.dtype == np.int8
+         else rng.normal(0, 1, shape).astype(np.float32))
+    return torch.from_numpy(x).to("cuda")
+
+
+def ops_tiers(graph, x, what: str) -> dict:
+    """``graph`` in each tier of ``ops_graphs.TIERS`` that takes it: one
+    forward on the card with the counts set to 0 before and read after,
+    held against the CPU's forward (``check_outputs``), then timed."""
+    import torch
+    from thingino_accel_tpu_torch.models import ops_graphs as OG
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+    res = {}
+    for tier, (opts, planned) in OG.TIERS.items():
+        g = OG.for_tier(graph, tier)
+        card = Engine(g, EngineOptions(**opts), device="cuda",
+                      planned=planned)
+        reset_launches()
+        out = card.forward(x)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_launches().items() if v}
+        cpu = Engine(g, EngineOptions(**opts), device="cpu", planned=planned)
+        t0 = time.perf_counter()
+        ref = cpu.forward(x.cpu())
+        cpu_s = time.perf_counter() - t0
+        try:
+            shares = OG.check_outputs(out, ref, tier)
+        except AssertionError as e:
+            raise SmokeFailure(f"[ops] {what} {tier}: {e}") from None
+        ms = time_ms(lambda: card.forward(x), OPS_ITERS)
+        worst = max(shares, key=shares.get)
+        print(f"[ops] {what} {tier}: {len(out)} outputs card = CPU within "
+              f"bounds (worst {worst} at {shares[worst]:.3f} of its bound); "
+              f"{ms:.3f} ms a batch of {OPS_BATCH} (CPU {cpu_s:.2f} s); "
+              f"launches {counts}")
+        res[tier] = {"ms": ms, "cpu_s": cpu_s, "launches": counts,
+                     "outputs": sorted(out), "worst": worst,
+                     "share_of_bound": shares}
+    return res
+
+
+def phase_ops() -> dict:
+    """``[ops]`` (phase 15 of the docstring)."""
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch.ir import passes
+    from thingino_accel_tpu_torch.models import ops_graphs as OG
+    from thingino_accel_tpu_torch.runtime.engine import (
+        Engine, EngineOptions, load_graph)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    res = {}
+    x = torch.from_numpy(rng.integers(-128, 128, (OPS_BATCH, 640, 640, 3),
+                                      dtype=np.int8)).to("cuda")
+    for prec in ("serving", "fast"):   # (a)
+        opts = EngineOptions(precision=prec)
+        whole = Engine(load_graph(str(MODEL)), opts, device="cuda")
+        cut = Engine.from_yolo_mars(str(MODEL), opts, device="cuda")
+        require(sum(n.op == "SOFTMAX" for n in whole.graph.nodes) == 3,
+                "[ops] (a) the whole file's decode tail is missing")
+        reset_launches()
+        heads = whole.forward(x)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        if prec == "serving":
+            census = whole._fn.launch_census()
+            require(census == PLANNED_REAL,
+                    f"[ops] (a) whole-file census {census}")
+            expect_launches(counts, PLANNED_REAL, 1, "[ops] (a) serving")
+        else:
+            require(not any(counts.values()),
+                    f"[ops] (a) fast tier launched {counts}")
+        ref = cut.forward(x)
+        require(set(heads) == set(ref) and all(
+            torch.equal(heads[k], ref[k]) for k in ref),
+            f"[ops] (a) {prec}: the whole file's heads differ from "
+            "from_yolo_mars's")
+        ms = time_ms(lambda: whole.forward(x), OPS_ITERS)
+        ms_cut = time_ms(lambda: cut.forward(x), OPS_ITERS)
+        print(f"[ops] (a) whole real yolov5n, {prec}: heads = from_yolo_mars"
+              f"'s bit for bit; {ms:.3f} ms a batch of {OPS_BATCH} "
+              f"(from_yolo_mars {ms_cut:.3f})"
+              + (f"; census {census}" if prec == "serving" else ""))
+        res[f"whole_{prec}"] = {"ms": ms, "ms_from_yolo_mars": ms_cut}
+    # (b) the real yolov5n in float32, exact tier, TF32 off
+    require(not torch.backends.cudnn.allow_tf32
+            and not torch.backends.cuda.matmul.allow_tf32, "[ops] TF32 on")
+    fg = passes.dequantize_graph(load_graph(str(MODEL)),
+                                 quantize_outputs=False)
+    card = Engine(fg, EngineOptions(precision="exact"), device="cuda")
+    heads = card.forward(x)
+    torch.cuda.synchronize()
+    cpu = Engine(fg, EngineOptions(precision="exact"), device="cpu")
+    t0 = time.perf_counter()
+    ref = cpu.forward(x.cpu())
+    cpu_s = time.perf_counter() - t0
+    worst = 0.0
+    for k, r in ref.items():
+        require(heads[k].dtype == r.dtype == torch.float32,
+                f"[ops] (b) {k}: {heads[k].dtype}")
+        err = float((heads[k].cpu() - r).abs().max())
+        big = float(r.abs().max())
+        require(math.isfinite(err) and err <= F32_HEAD_TOL * big,
+                f"[ops] (b) {k}: card - CPU {err} > {F32_HEAD_TOL} x {big}")
+        worst = max(worst, err / big)
+    ms = time_ms(lambda: card.forward(x), OPS_ITERS)
+    print(f"[ops] (b) real yolov5n in float32, exact tier, TF32 off: heads "
+          f"within {worst:.2e} of the largest |head| of the CPU's (bound "
+          f"{F32_HEAD_TOL}); {ms:.3f} ms a batch of {OPS_BATCH} (CPU "
+          f"{cpu_s:.2f} s)")
+    res["f32_exact"] = {"ms": ms, "cpu_s": cpu_s, "rel_err": worst}
+    # (c), (d)
+    g8 = OG.int8_ops_graph(OPS_BATCH, 80, 80, 64)
+    x8 = ops_input(g8, rng)
+    res["int8_ops"] = ops_tiers(g8, x8, f"(c) int8 ops graph {OPS_BATCH}"
+                                "x80x80x64")
+    gr = OG.recurrent_graph(OPS_BATCH)
+    res["recurrent"] = ops_tiers(gr, ops_input(gr, rng),
+                                 f"(d) recurrent graph [{OPS_BATCH}, 32, 256]")
+    # (e) nchw_io on the int8 ops graph, serving tier
+    nhwc = Engine(g8, EngineOptions(precision="serving"), device="cuda")
+    nchw = Engine(g8, EngineOptions(precision="serving", nchw_io=True),
+                  device="cuda")
+    a = nhwc.run(x8)
+    b = nchw.run(x8.permute(0, 3, 1, 2))
+    for k, v in a.items():
+        want = v.permute(0, 3, 1, 2) if v.dim() == 4 else v
+        require(torch.equal(b[k], want), f"[ops] (e) nchw_io {k} differs")
+    print(f"[ops] (e) nchw_io: {len(a)} outputs = the NHWC run's, "
+          f"transposed; phase {time.perf_counter() - t_phase:.1f} s")
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def main() -> int:
     if not (REPO / "thingino_accel_tpu_torch" / "csrc").is_dir() \
             or not MODEL.exists() or not NANODET.exists():
@@ -3307,6 +3473,7 @@ def main() -> int:
         pipeline_res = phase_pipeline(results)
         fast_res = phase_fast(results)
         streams_res = phase_streams(zoo_eng)
+        ops_res = phase_ops()
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -3334,7 +3501,8 @@ def main() -> int:
         "exact": exact_res, "exact_kxk": exact_kxk,
         "probe_checks": probe_checks,
         "probes": probes_res, "pipeline": pipeline_res,
-        "fast": fast_res, "streams": streams_res}, indent=1))
+        "fast": fast_res, "streams": streams_res, "ops": ops_res},
+        indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -195,18 +195,27 @@ def test_real_yolov5n_loads_with_slice_census():
 
 def test_unported_tiers_and_ops_raise():
     """Every tier is ported (the fast tier since it took the fixture's
-    conv); ops no tier takes yet raise, naming their ROADMAP item, in the
-    serving and the fast tier."""
+    conv); an op that no tier lowers (nor JAX's ``_lower_node``) raises,
+    naming ROADMAP, in the serving and the fast tier. The real yolov5n
+    file whole, whose decode tail runs over zero-sized tensors, builds
+    in both (it raised before the degenerate guard came first)."""
     g = load_graph(os.path.join(FIXTURES, "test_conv.mars"))
     out = Engine(g, EngineOptions(precision="fast"), device="cpu").run_np(
         np.zeros((1, 64, 64, 3), np.int8))["output__q"]
     assert out.shape == (1, 64, 64, 16) and out.dtype == np.int8
     with pytest.raises(ValueError, match="unknown precision"):
         Engine(g, EngineOptions(precision="int4"), device="cpu")
+    warp = load_graph(os.path.join(FIXTURES, "test_conv.mars"))
+    warp.tensors["warped"] = dataclasses.replace(
+        warp.tensors[warp.outputs[0]], name="warped")
+    warp.nodes.append(Node(op="WARP", inputs=[warp.outputs[0]],
+                           outputs=["warped"], name="warp"))
+    warp.outputs = ["warped"]
     full = load_graph(REAL_YOLO)   # still carries its decode subgraph
     for prec in ("serving", "fast"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(full, EngineOptions(precision=prec), device="cpu")
+            Engine(warp, EngineOptions(precision=prec), device="cpu")
+        Engine(full, EngineOptions(precision=prec), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -376,12 +385,23 @@ def test_single_depthwise_bit_exact(stride, act, op):
 
 def test_depthwise_silu_outside_the_kernel_raises():
     """SILU after a depthwise conv that is not the fused kernel (stride 2,
-    or the unplanned lowering) is the exact tier's semantics."""
-    with pytest.raises(NotImplementedError, match="A.3"):
-        Engine(_dw_graph(2, "SILU"), SERVING, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.3"):
-        Engine(_dw_graph(1, "SILU"), SERVING, device="cpu", planned=False)
-    assert Engine(_dw_graph(1, "SILU"), SERVING, device="cpu")._fn.launch_census()[
+    or the unplanned lowering) no longer raises: it takes the exact
+    tier's semantics, the plain conv, then SILU on its requantized value,
+    as the JAX serving engine does (bit for bit here); the planned
+    stride-1 conv stays the kernel, its SILU in the epilogue."""
+    g2 = _dw_graph(2, "SILU")
+    x2 = _input(g2, seed=5)
+    eng = Engine(g2, SERVING, device="cpu")
+    assert eng._fn.launch_census()["depthwise_conv2d_int8_fused"] == 0
+    _assert_outputs_equal(eng.run_np(x2), _jax_serving(g2).run_np(x2))
+    g1 = _dw_graph(1, "SILU")
+    x1 = _input(g1, seed=6)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JEX, "_plan_folds", lambda *a, **k: None)
+        ref_u = _jax_serving(g1).run_np(x1)
+    _assert_outputs_equal(
+        Engine(g1, SERVING, device="cpu", planned=False).run_np(x1), ref_u)
+    assert Engine(g1, SERVING, device="cpu")._fn.launch_census()[
         "depthwise_conv2d_int8_fused"] == 1
 
 

@@ -66,7 +66,10 @@ straight, bit for bit; ``detect_postprocess_topk`` against #8's decode +
 NMS and its CPU run (counts and classes equal, scores rtol 1e-5, boxes
 rtol 1e-4 / atol 1e-3); the watchdog raising ``InferenceTimeout`` on a
 device spin; the fast tier's bf16 conv in both accumulation modes within
-1 bf16 ulp of the CPU's.
+1 bf16 ulp of the CPU's. The shared lowering's graphs
+(``models.ops_graphs``, ``chip_smoke.py`` ``[ops]`` (c) and (d) at the
+small size) in every tier on the card against the CPU, by
+``ops_graphs.check_outputs``.
 """
 
 import dataclasses
@@ -1789,3 +1792,38 @@ def test_fast_conv_accumulation_on_the_card(cuda, accum):
     floor = ref.abs().max() * (2.0 ** -12 if accum is None else 2.0 ** -8)
     assert got.dtype == torch.bfloat16
     assert ((got.float() - ref).abs() <= ulp + floor).all()
+
+
+@pytest.mark.parametrize("tier", ["serving", "unplanned", "exact", "compat",
+                                  "fast"])
+@pytest.mark.parametrize("kind", ["int8", "recurrent"])
+def test_ops_graphs_on_the_card(cuda, kind, tier):
+    """``chip_smoke.py`` ``[ops]``' (c) and (d) at the tests' small size:
+    the int8 ops graph and the recurrent graph (``models.ops_graphs``) in
+    each tier that takes them, the card's outputs against the CPU's
+    (``ops_graphs.check_outputs``: int8 bit for bit but SOFTMAX and POW,
+    float32 within 1e-5 of the largest |output|, convs 1e-4, the fast
+    tier's floats 2^-6), with cuDNN's TF32 off for the float convs (as
+    ``chip_smoke.py`` runs) and the setting restored after."""
+    from thingino_accel_tpu_torch.models import ops_graphs as OG
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+    g = (OG.int8_ops_graph(2, 16, 16, 16) if kind == "int8"
+         else OG.recurrent_graph(2, 8, 16, 4, 8))
+    g = OG.for_tier(g, tier)
+    opts, planned = OG.TIERS[tier]
+    t = g.tensors[g.inputs[0]]
+    rng = np.random.default_rng(7)
+    x = (rng.integers(-128, 128, t.shape, dtype=np.int8) if t.dtype == np.int8
+         else rng.normal(0, 1, t.shape).astype(np.float32))
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card = Engine(g, EngineOptions(**opts), device=cuda,
+                      planned=planned).run(x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    cpu = Engine(g, EngineOptions(**opts), device="cpu",
+                 planned=planned).run(x)
+    assert set(card) == set(g.outputs)
+    assert all(v.is_cuda for v in card.values())
+    OG.check_outputs(card, cpu, tier)

@@ -13,7 +13,10 @@ machine lists none) and imports nothing of the JAX package.
   convs), both of its accumulation modes, and the camera-stream path and
   CLI (``nv12_to_rgb``, ``MultiStreamBatcher``, the watchdog'd
   ``StreamServer``, ``serve_file_model``, the float and top-k decodes,
-  the DFL decode, ``cli summary/run``).
+  the DFL decode, ``cli summary/run``), and the shared lowering of every
+  tier (``models.ops_graphs``' int8, float and recurrent graphs, the whole
+  real yolov5n file with its degenerate tail, ``tiny_160_f32.mars``,
+  ``nchw_io`` and ``donate_inputs``).
 - No module of the port and no line of ``chip_smoke.py`` holds an
   ``import`` of ``thingino_accel_tpu`` (parsed with ``ast``, so an import
   inside a function counts too).
@@ -184,6 +187,35 @@ SCRIPT = textwrap.dedent("""
     assert cli.main(["run", "models/fixtures/test_conv.mars", "--iters",
                      "1", "--device", "cpu"]) == 0
     assert cli.main(["bench"]) != 0
+    from thingino_accel_tpu_torch.models import ops_graphs
+    from thingino_accel_tpu_torch.runtime.engine import load_graph
+    graphs = [ops_graphs.int8_ops_graph(1, 8, 8, 8),
+              ops_graphs.float_ops_graph(1, 8, 8, 8),
+              ops_graphs.recurrent_graph(1, 4, 8, 4, 4)]
+    for gr in graphs:
+        t = gr.tensors[gr.inputs[0]]
+        xin = np.ones(t.shape, t.dtype)
+        for prec, planned in (("serving", True), ("serving", False),
+                              ("exact", True), ("fast", True)):
+            # the fast tier's dequantize cannot take a per-channel FC
+            # weight (ROADMAP.md C), as JAX's
+            sub = gr.with_outputs([o for o in gr.outputs if o != "fc2"]
+                                  if prec == "fast" else gr.outputs)
+            got = thingino_accel_tpu_torch.Engine(
+                sub, EngineOptions(precision=prec, quantize_outputs=False,
+                                   donate_inputs=True),
+                device="cpu", planned=planned).run_np(xin)
+            assert set(got) == set(sub.outputs)
+    nchw = thingino_accel_tpu_torch.Engine(
+        graphs[0], EngineOptions(nchw_io=True), device="cpu")
+    assert nchw.run_np(np.ones((1, 8, 8, 8), np.int8))["p2"].shape == (
+        1, 8, 8, 8) and nchw.input_info().shape == (1, 8, 8, 8)
+    whole = thingino_accel_tpu_torch.Engine(
+        load_graph("models/yolov5n_cal_int8.mars"), serving, device="cpu")
+    assert sum(whole._fn.launch_census().values()) == 50
+    tiny = thingino_accel_tpu_torch.Engine.from_mars(
+        "models/fixtures/tiny_160_f32.mars", device="cpu")
+    assert tiny.run_np(np.zeros((1, 160, 160, 3), np.float32))
     assert sys.modules["jax"] is None
     assert sys.modules["thingino_accel_tpu"] is None
     print("ok")

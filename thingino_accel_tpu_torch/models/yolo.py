@@ -14,12 +14,15 @@ is a stable descending sort.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from thingino_accel_tpu_torch.ops.reference import (  # noqa: F401
+    resize_axis, resize_taps, resize_window,
+)
 
 # COCO class names (the reference's ``mars_yolo_test.c`` table).
 COCO_CLASSES = (
@@ -52,132 +55,6 @@ YOLOV5_STRIDES = (8, 16, 32)
 # ---------------------------------------------------------------------------
 
 
-# XLA's CPU backend sums a reduction longer than this in runs of this many
-# elements (the runs centred on the padded length), then sums the runs
-_XLA_REDUCE_RUN = 32
-
-
-def _xla_column_sums(w: np.ndarray) -> np.ndarray:
-    """``w.sum(axis=0)`` in f32, in the order XLA's CPU backend sums it
-    (its tree reduction): for n > 32 rows, runs of 32 rows from row
-    ``-pad // 2`` (pad: to the next multiple of 32), each summed in row
-    order from 0, then the runs' sums in run order."""
-    n = w.shape[0]
-    if n <= _XLA_REDUCE_RUN:
-        runs = [w]
-    else:
-        pad = -n % _XLA_REDUCE_RUN
-        starts = range(-(pad // 2), n, _XLA_REDUCE_RUN)
-        runs = [w[max(s, 0):s + _XLA_REDUCE_RUN] for s in starts]
-    total = np.zeros(w.shape[1], np.float32)
-    for run in runs:
-        part = np.zeros(w.shape[1], np.float32)
-        for row in run:
-            part = part + row
-        total = total + part
-    return total
-
-
-@functools.lru_cache(maxsize=32)
-def resize_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
-    """The bilinear resize weights of one axis, ``n_in`` -> ``n_out``, as
-    ``jax.image.resize(..., "bilinear")`` computes them on the CPU (the
-    formula of ``jax._src.image.scale.compute_weight_mat``, copied, in
-    f32): the triangle kernel widened by ``1 / scale`` when shrinking
-    (antialias), each output's weights divided by their sum, zero where
-    the sample falls outside the input. XLA divides by the constant
-    kernel scale as a multiply by its f32 reciprocal and sums the columns
-    in runs (:func:`_xla_column_sums`); both are kept, so the weights are
-    JAX's bit for bit.
-
-    Returns ``(index, weight)``, each [n_out, T]: output j's nonzero taps
-    in ascending input order (T the most any output has; the rest padded
-    with input 0 at weight 0), the weights f32 values held as f64."""
-    f32 = np.float32
-    inv = 1.0 / (n_out / n_in)
-    recip = f32(1) / f32(max(inv, 1.0))
-    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * f32(inv) - f32(0.5)
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) * recip
-    w = np.maximum(f32(1) - np.abs(x), f32(0))
-    tot = _xla_column_sums(w)
-    w = np.where(np.abs(tot) > f32(1000.0 * np.finfo(np.float32).eps),
-                 w / np.where(tot != 0, tot, f32(1)), f32(0))
-    w = np.where((sample >= -0.5) & (sample <= n_in - 0.5), w, f32(0))
-    taps = [np.nonzero(w[:, j])[0] for j in range(n_out)]
-    t = max(1, max(len(i) for i in taps))
-    index = np.zeros((n_out, t), np.int64)
-    weight = np.zeros((n_out, t), np.float64)
-    for j, i in enumerate(taps):
-        index[j, :len(i)] = i
-        weight[j, :len(i)] = w[i, j]
-    return index, weight
-
-
-@functools.lru_cache(maxsize=32)
-def resize_window(n_in: int, n_out: int
-                  ) -> Optional[Tuple[int, int, np.ndarray]]:
-    """:func:`resize_taps` as a strided window where ``n_in`` is a
-    multiple of ``n_out`` (the camera sizes: 720 -> 360, 1080 -> 360):
-    ``(s, c, weight)``, output j's window the inputs ``s j + c + t`` for
-    t < T' (zero outside the input), ``weight`` [n_out, T'] its taps'
-    weights there and 0 elsewhere, in the same ascending input order; None
-    for any other ratio."""
-    if n_in % n_out:
-        return None
-    s = n_in // n_out
-    index, weight = resize_taps(n_in, n_out)
-    j = np.arange(n_out)[:, None]
-    live = weight != 0
-    c = int(np.min(np.where(live, index - s * j, n_in)))
-    t_max = int(np.max(np.where(live, index - s * j - c, 0))) + 1
-    window = np.zeros((n_out, t_max), np.float64)
-    rows, cols = np.nonzero(live)
-    window[rows, index[rows, cols] - s * rows - c] = weight[rows, cols]
-    return s, c, window
-
-
-def _resize_axis(x: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
-    """One axis of the resize: each output the f32 sum of its taps in
-    ascending input order, each step one fused multiply-add (the product
-    exact, one rounding to f32), as the reference's dot computes it. The
-    products of a uint8 or f32 input and an f32 weight are exact in f64,
-    so ``addcmul`` in f64 with an f32 output rounds once a step whether or
-    not the device contracts it: the card and the CPU give the same bits.
-    A tap of weight 0 adds an exact 0, so an integer ratio reads its taps
-    as strided views of the zero-padded input (:func:`resize_window`), no
-    gather; any other ratio gathers them."""
-    n_in = x.shape[axis]
-    shape = [1] * x.dim()
-    shape[axis] = n_out
-    out_shape = list(x.shape)
-    out_shape[axis] = n_out
-    acc = torch.zeros(out_shape, dtype=torch.float32, device=x.device)
-    win = resize_window(n_in, n_out)
-    if win is None:
-        index, weight = resize_taps(n_in, n_out)
-        idx = torch.from_numpy(index).to(x.device)
-        taps = [x.index_select(axis, idx[:, t])
-                for t in range(index.shape[1])]
-    else:
-        s, c, weight = win
-        left = max(0, -c)
-        right = max(0, s * (n_out - 1) + c + weight.shape[1] - n_in)
-        pads = [torch.zeros(x.shape[:axis] + (p,) + x.shape[axis + 1:],
-                            dtype=x.dtype, device=x.device)
-                for p in (left, right)]
-        xp = torch.cat([pads[0], x, pads[1]], axis)
-        taps = []
-        for t in range(weight.shape[1]):
-            start = c + left + t
-            view = [slice(None)] * x.dim()
-            view[axis] = slice(start, start + s * (n_out - 1) + 1, s)
-            taps.append(xp[tuple(view)])
-    wts = torch.from_numpy(weight).to(x.device)
-    for t, tap in enumerate(taps):
-        torch.addcmul(acc, tap, wts[:, t].view(shape), out=acc)
-    return acc
-
-
 def letterbox_uint8(
     frames: torch.Tensor,          # [B, H, W, 3] uint8
     target: Tuple[int, int] = (640, 640),
@@ -203,9 +80,9 @@ def letterbox_uint8(
     else:
         r = frames
         if nh != h:
-            r = _resize_axis(r, 1, nh)
+            r = resize_axis(r, 1, nh)
         if nw != w:
-            r = _resize_axis(r, 2, nw)
+            r = resize_axis(r, 2, nw)
         resized = torch.clamp(torch.round(r), 0, 255).to(torch.uint8)
     if (nh, nw) == (th, tw):
         return resized.contiguous()

@@ -10,6 +10,7 @@ cites the reference runtime behaviour it replicates through it.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -70,12 +71,13 @@ def conv2d_acc_i32(
     x: torch.Tensor, w: torch.Tensor, out_hw: Tuple[int, int],
     stride: Tuple[int, int] = (1, 1), dilation: Tuple[int, int] = (1, 1),
     pads: Tuple[Tuple[int, int], Tuple[int, int]] = ((0, 0), (0, 0)),
+    groups: int = 1,
 ) -> torch.Tensor:
-    """Zero-padded conv of NHWC int8 ``x`` with OHWI int8 ``w`` -> int32
-    [N, OH, OW, O], exact: the products and sums run in float64, exact
-    for int8 operands (|acc| <= KH*KW*C*128^2 << 2^53), since torch has no
-    int32 conv. Any stride and dilation, asymmetric pads; rows and
-    columns past the padded input read zero."""
+    """Zero-padded conv of NHWC int8 ``x`` with OHWI int8 ``w`` ([O, KH,
+    KW, C / groups]) -> int32 [N, OH, OW, O], exact: the products and sums
+    run in float64, exact for int8 operands (|acc| <= KH*KW*C*128^2 <<
+    2^53), since torch has no int32 conv. Any stride and dilation,
+    asymmetric pads; rows and columns past the padded input read zero."""
     _, h, wd, _ = x.shape
     _, kh, kw, _ = w.shape
     oh, ow = out_hw
@@ -86,7 +88,7 @@ def conv2d_acc_i32(
                                  (pl, pr, pt, pb))
     acc = torch.nn.functional.conv2d(
         xd, w.permute(0, 3, 1, 2).to(torch.float64), stride=tuple(stride),
-        dilation=tuple(dilation))[:, :, :oh, :ow]
+        dilation=tuple(dilation), groups=groups)[:, :, :oh, :ow]
     return acc.permute(0, 2, 3, 1).to(torch.int32)
 
 
@@ -97,12 +99,13 @@ def conv2d_int8(
     pads: Tuple[Tuple[int, int], Tuple[int, int]],
     in_scale: float, w_scale, out_scale: float,
     round_mode: RoundMode = RoundMode.HALF_AWAY, relu: bool = False,
+    groups: int = 1,
 ) -> torch.Tensor:
     """int8 conv (``w`` OHWI) with the reference requantization epilogue:
     bias added to the int32 accumulator, x the combined scale (a float, or
     per output channel for a per-channel ``w_scale``), rounded by
     ``round_mode``, clamped; ``relu`` clamps the *quantized* value at 0."""
-    acc = conv2d_acc_i32(x, w, out_hw, stride, dilation, pads)
+    acc = conv2d_acc_i32(x, w, out_hw, stride, dilation, pads, groups)
     if bias_i32 is not None:
         acc = acc + bias_i32.to(torch.int32)
     out = requantize(acc, _combined_scale(in_scale, w_scale, out_scale,
@@ -110,6 +113,23 @@ def conv2d_int8(
     if relu:
         out = torch.clamp_min(out, 0)
     return out
+
+
+def grouped_conv2d_int8(
+    x: torch.Tensor, w: torch.Tensor, bias_i32: Optional[torch.Tensor],
+    groups: int, out_hw: Tuple[int, int], stride: Tuple[int, int],
+    dilation: Tuple[int, int],
+    pads: Tuple[Tuple[int, int], Tuple[int, int]],
+    in_scale: float, w_scale, out_scale: float,
+    round_mode: RoundMode = RoundMode.HALF_AWAY, relu: bool = False,
+) -> torch.Tensor:
+    """Grouped int8 conv (``w`` OHWI [O, KH, KW, C / groups]): each group's
+    exact accumulator (JAX runs one conv a group and concatenates them;
+    one grouped float64 conv gives the same integers), then the
+    epilogue of :func:`conv2d_int8`."""
+    return conv2d_int8(x, w, bias_i32, out_hw, stride, dilation, pads,
+                       in_scale, w_scale, out_scale, round_mode, relu,
+                       groups)
 
 
 def _conv_nchw(x: torch.Tensor, w: torch.Tensor, out_hw: Tuple[int, int],
@@ -147,9 +167,11 @@ def conv2d_f32(
     dilation: Tuple[int, int],
     pads: Tuple[Tuple[int, int], Tuple[int, int]],
     relu: bool = False, compute_dtype: torch.dtype = torch.float32,
-    accum_dtype: Optional[torch.dtype] = None,
+    accum_dtype: Optional[torch.dtype] = None, groups: int = 1,
 ) -> torch.Tensor:
-    """Float conv of NHWC ``x`` with OHWI ``w`` (the fast tier's): the
+    """Float conv of NHWC ``x`` with OHWI ``w`` ([O, KH, KW, C / groups];
+    JAX's function takes no groups and XLA refuses a grouped weight, so
+    ``groups`` > 1 is the port's own): the
     operands rounded to ``compute_dtype`` (float32 or bfloat16), the conv
     in channels_last, cropped to ``out_hw``, the bias added in float32,
     then RELU, the result cast to ``compute_dtype``.
@@ -178,9 +200,9 @@ def conv2d_f32(
     wc = wc.permute(0, 3, 1, 2).contiguous(memory_format=cl)
     if widen and xc.is_cuda:
         with _cudnn_tf32():
-            out = _conv_nchw(xc, wc, out_hw, stride, dilation, pads)
+            out = _conv_nchw(xc, wc, out_hw, stride, dilation, pads, groups)
     else:
-        out = _conv_nchw(xc, wc, out_hw, stride, dilation, pads)
+        out = _conv_nchw(xc, wc, out_hw, stride, dilation, pads, groups)
     if accum_dtype == torch.bfloat16:   # a no-op on a bf16 conv's output
         out = out.to(torch.bfloat16)
     out = out.permute(0, 2, 3, 1)
@@ -473,3 +495,258 @@ def upsample_nearest(
     sh, sw = scale
     out = x.repeat_interleave(sh, dim=1).repeat_interleave(sw, dim=2)
     return out[:, :out_hw[0], :out_hw[1], :].contiguous()
+
+
+def upsample_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]
+                      ) -> torch.Tensor:
+    """Bilinear upsample (UPSAMPLE mode 1): ``jax.image.resize(...,
+    "bilinear")`` of the f32 values, H then W, each axis by
+    :func:`resize_axis` (JAX's taps and weights, each output the sum of
+    its taps in input order). An int8 input is rounded half away from
+    zero and clamped; a float one returns float32. At an integer ratio
+    the weights are multiples of a power of two, so the int8 sums are
+    exact in any order and equal JAX's bit for bit."""
+    out = resize_axis(x, 1, out_hw[0])
+    out = resize_axis(out, 2, out_hw[1])
+    if not x.dtype.is_floating_point:
+        return clamp_i8(round_to_int(out, RoundMode.HALF_AWAY))
+    return out
+
+
+def batchnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              in_scale: float = 1.0, out_scale: float = 1.0) -> torch.Tensor:
+    """BatchNorm with fused parameters, ``y = x * scale + bias`` per channel
+    (the last axis). int8: dequantize by ``in_scale``, the affine in f32,
+    ``/ out_scale``, PLUS_HALF_TRUNC, clamp (a scale <= 0 reads 1); float:
+    in ``x``'s type."""
+    if x.dtype.is_floating_point:
+        return x * scale.to(x.dtype) + bias.to(x.dtype)
+    ins = np.float32(in_scale) if in_scale > 0 else np.float32(1.0)
+    os_ = np.float32(out_scale) if out_scale > 0 else np.float32(1.0)
+    xf = x.to(torch.float32) * float(ins)
+    y = xf * scale.to(torch.float32) + bias.to(torch.float32)
+    return quantize_edge(y, os_)
+
+
+def fc(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+       in_scale: float = 1.0, w_scale=1.0, out_scale: float = 1.0,
+       relu_act: bool = False) -> torch.Tensor:
+    """Fully connected, ``x`` [N, K] @ ``w`` [K, O]. int8: the exact int32
+    product (float64 sums, exact for int8: torch has no int32 matmul on
+    the card), + the int32 bias, x the combined scale (per output channel
+    for a per-channel ``w_scale``), HALF_AWAY, clamp, as the conv
+    epilogue. Float: the product in the operands' common type, + bias.
+    ``relu_act`` then clamps at 0."""
+    if not x.dtype.is_floating_point:
+        acc = (x.to(torch.float64) @ w.to(torch.float64)).to(torch.int32)
+        if bias is not None:
+            acc = acc + bias.to(torch.int32)
+        out = requantize(acc, _combined_scale(in_scale, w_scale, out_scale,
+                                              x.device), RoundMode.HALF_AWAY)
+    else:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        out = x.to(dt) @ w.to(dt)
+        if bias is not None:
+            out = out + bias
+    if relu_act:
+        out = torch.clamp_min(out, 0)
+    return out
+
+
+def conv1d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+           stride: int, dilation: int, pads: Tuple[int, int],
+           out_len: int) -> torch.Tensor:
+    """CONV1D: [N, C, L] x OIW [O, C, K] -> float32 [N, O, out_len], the
+    input zero-padded by ``pads``, + bias."""
+    xp = torch.nn.functional.pad(x.to(torch.float32), tuple(pads))
+    out = torch.nn.functional.conv1d(xp, w.to(torch.float32), None, stride,
+                                     0, dilation)[:, :, :out_len]
+    if bias is not None:
+        out = out + bias.to(torch.float32)[:, None]
+    return out.contiguous()
+
+
+def conv1d_transpose(x: torch.Tensor, w: torch.Tensor,
+                     bias: Optional[torch.Tensor], stride: int,
+                     pads: Tuple[int, int], out_len: int) -> torch.Tensor:
+    """CONV1D_TRANSPOSE (ONNX ConvTranspose): [N, C_in, L] with ``w`` [C_in,
+    O, K] -> float32 [N, O, out_len]: the full transposed conv, its first
+    ``pads[0]`` outputs dropped, cropped to ``out_len``, + bias."""
+    full = torch.nn.functional.conv_transpose1d(
+        x.to(torch.float32), w.to(torch.float32), None, stride)
+    out = full[:, :, pads[0]:pads[0] + out_len]
+    if bias is not None:
+        out = out + bias.to(torch.float32)[:, None]
+    return out.contiguous()
+
+
+def gru(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor,
+        b: Optional[torch.Tensor], h0: Optional[torch.Tensor], hidden: int,
+        linear_before_reset: bool = False, direction: str = "forward"
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ONNX GRU over ``x`` [T, B, C] (gate order z, r, h), in float32:
+    ``w`` [D, 3H, C], ``r`` [D, 3H, H], ``b`` [D, 6H] (input then
+    recurrence biases), ``h0`` [D, B, H] (zeros where None). Direction 1
+    of a bidirectional GRU, or a ``"reverse"`` one, runs from the last
+    step to the first. ``linear_before_reset`` applies the reset gate
+    after the recurrent product (torch's convention), else to h before it
+    (ONNX's default). Returns ``Y`` [T, D, B, H] and ``Y_h`` [D, B, H]."""
+    hs = hidden
+    x = x.to(torch.float32)
+    t, bsz, c = x.shape
+    ys, finals = [], []
+    for d in range(w.shape[0]):
+        w_t = w[d].to(torch.float32).t()
+        r_t = r[d].to(torch.float32).t()
+        bd = (b[d].to(torch.float32) if b is not None else
+              torch.zeros(6 * hs, dtype=torch.float32, device=x.device))
+        wbi, rbi = bd[:3 * hs], bd[3 * hs:]
+        # the input's products of every step at once
+        gi_all = (x.reshape(t * bsz, c) @ w_t + wbi).reshape(t, bsz, 3 * hs)
+        h = (h0[d].to(torch.float32) if h0 is not None else
+             torch.zeros(bsz, hs, dtype=torch.float32, device=x.device))
+        rev = direction == "reverse" or d == 1
+        y = [None] * t
+        for step in (range(t - 1, -1, -1) if rev else range(t)):
+            gi = gi_all[step]
+            hz = h @ r_t[:, :hs] + rbi[:hs]
+            hr = h @ r_t[:, hs:2 * hs] + rbi[hs:2 * hs]
+            z = torch.sigmoid(gi[:, :hs] + hz)
+            rr = torch.sigmoid(gi[:, hs:2 * hs] + hr)
+            if linear_before_reset:
+                hh = h @ r_t[:, 2 * hs:] + rbi[2 * hs:]
+                n_ = torch.tanh(gi[:, 2 * hs:] + rr * hh)
+            else:
+                n_ = torch.tanh(gi[:, 2 * hs:] + (rr * h) @ r_t[:, 2 * hs:]
+                                + rbi[2 * hs:])
+            h = (1.0 - z) * n_ + z * h
+            y[step] = h
+        ys.append(torch.stack(y))
+        finals.append(h)
+    return torch.stack(ys, dim=1), torch.stack(finals)
+
+
+# XLA's CPU backend sums a reduction longer than this in runs of this many
+# elements (the runs centred on the padded length), then sums the runs
+_XLA_REDUCE_RUN = 32
+
+
+def _xla_column_sums(w: np.ndarray) -> np.ndarray:
+    """``w.sum(axis=0)`` in f32, in the order XLA's CPU backend sums it
+    (its tree reduction): for n > 32 rows, runs of 32 rows from row
+    ``-pad // 2`` (pad: to the next multiple of 32), each summed in row
+    order from 0, then the runs' sums in run order."""
+    n = w.shape[0]
+    if n <= _XLA_REDUCE_RUN:
+        runs = [w]
+    else:
+        pad = -n % _XLA_REDUCE_RUN
+        starts = range(-(pad // 2), n, _XLA_REDUCE_RUN)
+        runs = [w[max(s, 0):s + _XLA_REDUCE_RUN] for s in starts]
+    total = np.zeros(w.shape[1], np.float32)
+    for run in runs:
+        part = np.zeros(w.shape[1], np.float32)
+        for row in run:
+            part = part + row
+        total = total + part
+    return total
+
+
+@functools.lru_cache(maxsize=32)
+def resize_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The bilinear resize weights of one axis, ``n_in`` -> ``n_out``, as
+    ``jax.image.resize(..., "bilinear")`` computes them on the CPU (the
+    formula of ``jax._src.image.scale.compute_weight_mat``, copied, in
+    f32): the triangle kernel widened by ``1 / scale`` when shrinking
+    (antialias), each output's weights divided by their sum, zero where
+    the sample falls outside the input. XLA divides by the constant
+    kernel scale as a multiply by its f32 reciprocal and sums the columns
+    in runs (:func:`_xla_column_sums`); both are kept, so the weights are
+    JAX's bit for bit.
+
+    Returns ``(index, weight)``, each [n_out, T]: output j's nonzero taps
+    in ascending input order (T the most any output has; the rest padded
+    with input 0 at weight 0), the weights f32 values held as f64."""
+    f32 = np.float32
+    inv = 1.0 / (n_out / n_in)
+    recip = f32(1) / f32(max(inv, 1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * f32(inv) - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) * recip
+    w = np.maximum(f32(1) - np.abs(x), f32(0))
+    tot = _xla_column_sums(w)
+    w = np.where(np.abs(tot) > f32(1000.0 * np.finfo(np.float32).eps),
+                 w / np.where(tot != 0, tot, f32(1)), f32(0))
+    w = np.where((sample >= -0.5) & (sample <= n_in - 0.5), w, f32(0))
+    taps = [np.nonzero(w[:, j])[0] for j in range(n_out)]
+    t = max(1, max(len(i) for i in taps))
+    index = np.zeros((n_out, t), np.int64)
+    weight = np.zeros((n_out, t), np.float64)
+    for j, i in enumerate(taps):
+        index[j, :len(i)] = i
+        weight[j, :len(i)] = w[i, j]
+    return index, weight
+
+
+@functools.lru_cache(maxsize=32)
+def resize_window(n_in: int, n_out: int
+                  ) -> Optional[Tuple[int, int, np.ndarray]]:
+    """:func:`resize_taps` as a strided window where ``n_in`` is a
+    multiple of ``n_out`` (the camera sizes: 720 -> 360, 1080 -> 360):
+    ``(s, c, weight)``, output j's window the inputs ``s j + c + t`` for
+    t < T' (zero outside the input), ``weight`` [n_out, T'] its taps'
+    weights there and 0 elsewhere, in the same ascending input order; None
+    for any other ratio."""
+    if n_in % n_out:
+        return None
+    s = n_in // n_out
+    index, weight = resize_taps(n_in, n_out)
+    j = np.arange(n_out)[:, None]
+    live = weight != 0
+    c = int(np.min(np.where(live, index - s * j, n_in)))
+    t_max = int(np.max(np.where(live, index - s * j - c, 0))) + 1
+    window = np.zeros((n_out, t_max), np.float64)
+    rows, cols = np.nonzero(live)
+    window[rows, index[rows, cols] - s * rows - c] = weight[rows, cols]
+    return s, c, window
+
+
+def resize_axis(x: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
+    """One axis of the resize: each output the f32 sum of its taps in
+    ascending input order, each step one fused multiply-add (the product
+    exact, one rounding to f32), as the reference's dot computes it. The
+    products of a uint8 or f32 input and an f32 weight are exact in f64,
+    so ``addcmul`` in f64 with an f32 output rounds once a step whether or
+    not the device contracts it: the card and the CPU give the same bits.
+    A tap of weight 0 adds an exact 0, so an integer ratio reads its taps
+    as strided views of the zero-padded input (:func:`resize_window`), no
+    gather; any other ratio gathers them."""
+    n_in = x.shape[axis]
+    shape = [1] * x.dim()
+    shape[axis] = n_out
+    out_shape = list(x.shape)
+    out_shape[axis] = n_out
+    acc = torch.zeros(out_shape, dtype=torch.float32, device=x.device)
+    win = resize_window(n_in, n_out)
+    if win is None:
+        index, weight = resize_taps(n_in, n_out)
+        idx = torch.from_numpy(index).to(x.device)
+        taps = [x.index_select(axis, idx[:, t])
+                for t in range(index.shape[1])]
+    else:
+        s, c, weight = win
+        left = max(0, -c)
+        right = max(0, s * (n_out - 1) + c + weight.shape[1] - n_in)
+        pads = [torch.zeros(x.shape[:axis] + (p,) + x.shape[axis + 1:],
+                            dtype=x.dtype, device=x.device)
+                for p in (left, right)]
+        xp = torch.cat([pads[0], x, pads[1]], axis)
+        taps = []
+        for t in range(weight.shape[1]):
+            start = c + left + t
+            view = [slice(None)] * x.dim()
+            view[axis] = slice(start, start + s * (n_out - 1) + 1, s)
+            taps.append(xp[tuple(view)])
+    wts = torch.from_numpy(weight).to(x.device)
+    for t, tap in enumerate(taps):
+        torch.addcmul(acc, tap, wts[:, t].view(shape), out=acc)
+    return acc

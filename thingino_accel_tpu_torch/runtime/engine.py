@@ -26,9 +26,9 @@ from thingino_accel_tpu_torch.ir import passes
 from thingino_accel_tpu_torch.ir.graph import Graph, from_mars
 from thingino_accel_tpu_torch.models.yolo import find_detect_outputs
 from thingino_accel_tpu_torch.ops.quant import RoundMode
+from thingino_accel_tpu_torch.ir.graph import TensorInfo
 from thingino_accel_tpu_torch.runtime.executor import (
-    Executor, _torch_dtype, build_executor, params_from_jax,
-    prepare_params, resolve_device,
+    Executor, _torch_dtype, build_executor, prepare_params, resolve_device,
 )
 
 
@@ -58,10 +58,16 @@ class EngineOptions:
       (``ops.reference.conv2d_f32``). Full mode only.
 
     ``fold_bn`` folds f32 BATCHNORM into the conv before it (full mode).
-    The JAX options ``nchw_io``, ``jit`` and ``donate_inputs`` are not
-    ported; the fast rewrites' ``TAT_CONV_MERGE`` / ``TAT_FPN_SPLIT``
-    environment defaults are read by no code of the port (their values
-    with no environment set are the defaults here)."""
+    ``nchw_io``: :meth:`Engine.run` takes 4-D inputs NCHW (the `.mars`
+    declared layout) and returns 4-D outputs NCHW; :meth:`Engine.trace`
+    takes them NCHW and returns NHWC, as JAX's. ``donate_inputs``: the
+    caller gives up the tensors it feeds :meth:`Engine.run` and
+    :meth:`Engine.forward`, and each graph input leaves the forward's
+    tensors after its last reader, so its memory can be reused (JAX's
+    ``donate_argnums``); the outputs are the same. The JAX option ``jit``
+    is not ported (ROADMAP.md A.1); the fast rewrites' ``TAT_CONV_MERGE``
+    / ``TAT_FPN_SPLIT`` environment defaults are read by no code of the
+    port (their values with no environment set are the defaults here)."""
 
     precision: str = "exact"
     mode: str = "full"
@@ -73,6 +79,8 @@ class EngineOptions:
     accum_dtype: Optional[torch.dtype] = None
     conv_merge: bool = False
     fpn_split: str = "wide"
+    nchw_io: bool = False
+    donate_inputs: bool = False
 
     def __post_init__(self) -> None:
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
@@ -140,9 +148,7 @@ class Engine:
                            else params)
         self.planned = planned and prec == "serving"
         self._fn = self._executor(self.graph)
-        self.params = (self._fn.device_params(self._np_params)
-                       if prec == "fast" else
-                       params_from_jax(self._np_params, self.device))
+        self.params = self._fn.device_params(self._np_params)
         self._trace_fn: Optional[Executor] = None
         self.inference_count = 0
         self.total_inference_s = 0.0
@@ -190,6 +196,12 @@ class Engine:
     def output_names(self) -> List[str]:
         return list(self.graph.outputs)
 
+    def input_info(self, index: int = 0) -> TensorInfo:
+        return self.graph.tensors[self.graph.inputs[index]]
+
+    def output_info(self, index: int = 0) -> TensorInfo:
+        return self.graph.tensors[self.graph.outputs[index]]
+
     # -- execution ----------------------------------------------------------
 
     def _feed(self, args, inputs) -> Dict[str, torch.Tensor]:
@@ -205,21 +217,28 @@ class Engine:
             if name not in feed:
                 raise ValueError(f"missing input {name!r}")
             want = _torch_dtype(self.graph.tensors[name].dtype)
-            feed[name] = torch.as_tensor(feed[name]).to(self.device, want)
+            x = torch.as_tensor(feed[name])
+            if self.options.nchw_io and x.dim() == 4:
+                x = x.permute(0, 2, 3, 1)
+            feed[name] = x.to(self.device, want).contiguous()
         return feed
 
     def run(self, *args: Any, **inputs: Any) -> Dict[str, torch.Tensor]:
-        """Run inference on NHWC inputs (numpy or tensors). Positional
-        args map to graph inputs in order; a single dict positional is a
-        name -> array feed. Returns dict name -> NHWC tensor on the
-        engine's device, finished (the device is synchronized)."""
+        """Run inference on NHWC inputs (NCHW with ``nchw_io``; numpy or
+        tensors). Positional args map to graph inputs in order; a single
+        dict positional is a name -> array feed. Returns dict name -> NHWC
+        tensor (NCHW with ``nchw_io``) on the engine's device, finished
+        (the device is synchronized)."""
         feed = self._feed(args, inputs)
         t0 = time.perf_counter()
-        out = self._fn(self.params, feed)
+        out = self._fn(self.params, feed, donate=self.options.donate_inputs)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.total_inference_s += time.perf_counter() - t0
         self.inference_count += 1
+        if self.options.nchw_io:
+            out = {k: v.permute(0, 3, 1, 2).contiguous() if v.dim() == 4
+                   else v for k, v in out.items()}
         return out
 
     def run_np(self, *args: Any, **inputs: Any) -> Dict[str, np.ndarray]:
@@ -230,9 +249,10 @@ class Engine:
                 for k, v in self.run(*args, **inputs).items()}
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The single-input network on a tensor already on the device,
-        asynchronous on CUDA: the serving pipeline's call."""
-        return self._fn(self.params, {self.graph.inputs[0]: x})
+        """The single-input network on an NHWC tensor already on the
+        device, asynchronous on CUDA: the serving pipeline's call."""
+        return self._fn(self.params, {self.graph.inputs[0]: x},
+                        donate=self.options.donate_inputs)
 
     def trace(self, *args: Any, **inputs: Any) -> Dict[str, torch.Tensor]:
         """Run inference returning EVERY activation (name -> tensor), for

@@ -1,4 +1,13 @@
-"""IR executor: runs the graph on torch tensors, in one of two lowerings.
+"""IR executor: runs the graph on torch tensors, in one of four lowerings.
+
+Every tier lowers a node that no kernel unit takes through one function,
+:meth:`Executor.lower_node`, the port of JAX's ``_lower_node``
+(``thingino_accel_tpu/runtime/executor.py:1005-1370``) branch for branch:
+float, grouped and depthwise convs, pools, activations, QDQ, shape ops,
+arithmetic, CLIP, BATCHNORM, FC, bilinear UPSAMPLE, GRU, CONV1D and
+CONV1D_TRANSPOSE, with the degenerate guard first. The tiers differ only
+in where an int8 conv runs (:meth:`Executor.conv_steps`) and in their
+options (``compat``, ``round_mode``, ``compute_dtype``, ``accum_dtype``).
 
 **Planned** (what ``Engine(g, EngineOptions(precision="serving"))`` runs):
 port of ``thingino_accel_tpu.runtime.executor``'s serving tier with its
@@ -19,26 +28,29 @@ per tensor, physical lane count, bf16 stage tensors) once, when the
 executor is built, so it takes the decision the JAX package takes. The
 result is a fixed schedule of steps: kernel units (:class:`ConvUnit`,
 :class:`MultiUnit`, :class:`BneckUnit`, :class:`SppfUnit`,
-:class:`DwUnit`) and plain torch steps.
+:class:`DwUnit`, and :class:`ExactConvUnit` for a dilated or
+non-square-stride conv) and plain torch steps.
 
-**Unplanned** (``planned=False``): the per-node lowering
-(``_lower_node``): every int8 CONV2D through the fused dispatcher
+**Unplanned** (``planned=False``): the per-node lowering: every int8
+CONV2D at dilation 1 and a square stride through the fused dispatcher
 (``ops.fused_kernels.conv2d_int8_fused``) with its activation in the
-kernel's epilogue, a stride-1 depthwise conv through its kernel and any
-other through the plain op; MAXPOOL, CONCAT, ADD, nearest UPSAMPLE and
-RESHAPE in plain torch. It matches the JAX serving engine built with
-``_plan_folds`` returning None, and stays as that oracle.
+kernel's epilogue, any other through the exact tier's route, a stride-1
+depthwise conv through its kernel (but SILU, which JAX applies on the
+requantized value) and any other through the plain op. It matches the JAX
+serving engine built with ``_plan_folds`` returning None, and stays as
+that oracle.
 
 **Exact** (:class:`ExactExecutor`, what ``Engine(precision="exact")``
-runs): port of ``_lower_node`` with its ``full`` and ``compat`` modes.
-Every int8 conv with a per-tensor weight scale runs in the exact tier's
-kernels (``ops.conv``: #9, #10 or #11, RELU after the clamp), a
-per-channel one in the plain op, as the JAX executor sends it to XLA.
-Any other activation of a conv (``_apply_fused_act``) is a function of
-the int8 output alone, so it runs as a 256-entry table built from it once
-(:func:`act_table`): in the kernel's epilogue, or for a plain conv as a
-gather step after it. The other ops are the plain ops of
-``ops.reference``.
+runs): ``_lower_node`` with its ``full`` and ``compat`` modes. Every int8
+conv with a per-tensor weight scale runs in the exact tier's kernels
+(``ops.conv``: #9, #10 or #11, RELU after the clamp), a per-channel one in
+the plain op, as the JAX executor sends it to XLA. Any other activation of
+a conv (``_apply_fused_act``) is a function of the int8 output alone, so
+it runs as a 256-entry table built from it once (:func:`act_table`): in
+the kernel's epilogue, or for a plain conv as a gather step after it.
+
+**Fast** (:class:`FastExecutor`): the same lowering over a dequantized
+graph, its float convs in ``compute_dtype``.
 
 Every entry point puts its tensors on ``device``, ``"cuda"`` by default;
 without a CUDA device it raises (``device="cpu"`` runs the plain versions
@@ -48,7 +60,7 @@ on the CPU). Nothing falls back to the CPU.
 from __future__ import annotations
 
 import collections
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,12 +76,17 @@ from thingino_accel_tpu_torch.runtime import planner as P
 from thingino_accel_tpu_torch.runtime.planner import is_int8 as _is_int8
 from thingino_accel_tpu_torch.runtime.planner import pool_pads as _pool_pads
 
-# ops this lowering takes; anything else raises, naming where it is queued
-_SUPPORTED = ("CONV2D", "DEPTHWISE_CONV2D", "MAXPOOL", "CONCAT", "ADD",
-              "UPSAMPLE", "RESHAPE")
-_QUEUED = {
-    "GRU": "ROADMAP.md A.6 (second modality)",
-}
+# the ops of JAX's ``_lower_node``, which every tier lowers; any other op
+# raises, as it does there
+LOWERED_OPS = frozenset((
+    "CONV2D", "DEPTHWISE_CONV2D", "MAXPOOL", "AVGPOOL", "GLOBAL_AVGPOOL",
+    "RELU", "RELU6", "LEAKY_RELU", "SIGMOID", "SILU", "SILU_FUSED",
+    "SOFTMAX", "CONCAT", "ADD", "MUL", "UPSAMPLE", "TRANSPOSE", "RESHAPE",
+    "DEQUANT", "QUANT", "FAKE_QUANT", "SPLIT", "SLICE", "SUB", "DIV", "POW",
+    "GRU", "CONV1D", "CONV1D_TRANSPOSE", "CLIP", "BATCHNORM", "FC"))
+# ops whose lowering reads a weight (and a GRU its recurrence) input
+_WEIGHTED = {"CONV2D": 2, "DEPTHWISE_CONV2D": 2, "FC": 2, "CONV1D": 2,
+             "CONV1D_TRANSPOSE": 2, "GRU": 3}
 
 # kernel unit kind -> the launch counter of its wrapper
 KERNEL_OF_KIND = {
@@ -118,16 +135,23 @@ def is_depthwise(node: Node, tensors) -> bool:
     return node.op == "DEPTHWISE_CONV2D" or (groups > 1 and groups == cin)
 
 
+def conv_weight_names(graph: Graph) -> set:
+    """The weights a CONV2D reads as HWIO in the JAX layout (every conv's
+    but a depthwise one's, which is [KH, KW, C]), as JAX's
+    ``prepare_params`` picks them."""
+    return {n.inputs[1] for n in graph.nodes
+            if n.op in ("CONV2D", "DEPTHWISE_CONV2D") and len(n.inputs) >= 2
+            and not is_depthwise(n, graph.tensors)}
+
+
 def prepare_params(graph: Graph) -> Dict[str, np.ndarray]:
     """The graph's constants as numpy arrays, conv weights OIHW -> HWIO
-    and depthwise weights OIHW [C, 1, KH, KW] -> [KH, KW, C]: the same
-    dict as the JAX ``prepare_params`` (``Engine._np_params``) for the
-    ops this lowering takes."""
-    conv_weights, dw_weights = set(), set()
-    for n in graph.nodes:
-        if n.op in ("CONV2D", "DEPTHWISE_CONV2D") and len(n.inputs) >= 2:
-            (dw_weights if is_depthwise(n, graph.tensors)
-             else conv_weights).add(n.inputs[1])
+    and depthwise weights OIHW [C, 1, KH, KW] -> [KH, KW, C]; every other
+    constant (FC, GRU, CONV1D, BATCHNORM, an operand) as it is: the same
+    dict as the JAX ``prepare_params`` (``Engine._np_params``)."""
+    conv_weights = conv_weight_names(graph)
+    dw_weights = {n.inputs[1] for n in graph.nodes
+                  if is_depthwise(n, graph.tensors)}
     params: Dict[str, np.ndarray] = {}
     for name, t in graph.tensors.items():
         if not t.is_const:
@@ -144,21 +168,23 @@ def prepare_params(graph: Graph) -> Dict[str, np.ndarray]:
 
 
 def params_from_jax(np_params: Dict[str, np.ndarray],
-                    device: torch.device | str = "cuda"
+                    device: torch.device | str = "cuda",
+                    conv_weights: Iterable[str] = ()
                     ) -> Dict[str, torch.Tensor]:
-    """The JAX engine's numpy params (``Engine._np_params``: HWIO int8
-    conv weights, [KH, KW, C] depthwise weights, int32 biases) as the
-    port's tensors on ``device``.
-
-    Every 4-D int8 array is a conv weight and is repacked HWIO -> OHWI,
-    the kernels' layout: each output channel's (ky, kx, c) run is
-    contiguous, matching the NHWC input. The 3-D depthwise weights stay
-    as they are: [KH, KW, C] is channel-contiguous like the input."""
+    """The JAX engine's numpy params (``Engine._np_params``: HWIO conv
+    weights, [KH, KW, C] depthwise weights, the rest as in the graph) as
+    the port's tensors on ``device``. The conv weights named in
+    ``conv_weights`` (:func:`conv_weight_names` of the graph: the role,
+    not the shape, decides, since an FC weight or an ADD operand may be
+    4-D int8 too) are repacked HWIO -> OHWI, the kernels' layout: each
+    output channel's (ky, kx, c) run is contiguous, matching the NHWC
+    input. Everything else keeps its layout."""
     device = resolve_device(device)
+    conv_weights = set(conv_weights)
     out: Dict[str, torch.Tensor] = {}
     for name, arr in np_params.items():
         arr = np.asarray(arr)
-        if arr.ndim == 4 and arr.dtype == np.int8:
+        if name in conv_weights:
             arr = np.transpose(arr, (3, 0, 1, 2))
         out[name] = torch.from_numpy(np.array(arr, order="C")).to(device)
     return out
@@ -168,10 +194,25 @@ def apply_fused_act(out: torch.Tensor, act: str, scale: float,
                     compat: bool = False, alpha: float = 0.01
                     ) -> torch.Tensor:
     """Port of ``_apply_fused_act``: a conv's activation beyond RELU (which
-    the conv applied after its clamp) on its int8 output, ``scale`` being
-    the output's scale. ``compat`` applies none, as the reference runtime.
-    Unknown activations pass through, as in JAX."""
+    the conv applied), ``scale`` being the output's scale: on an int8
+    output requantized, on a float one in its type (LEAKY_RELU promotes
+    bf16 to float32, as in JAX). ``compat`` applies none, as the reference
+    runtime. Unknown activations pass through, as in JAX."""
     if act in ("NONE", "RELU") or compat:
+        return out
+    if out.dtype.is_floating_point:
+        if act == "RELU6":
+            return R.relu6(out)
+        if act == "LEAKY_RELU":
+            return R.leaky_relu(out, alpha or 0.01)
+        if act == "SILU":
+            return R.silu(out)
+        if act == "SIGMOID":
+            return torch.sigmoid(out)
+        if act == "TANH":
+            return torch.tanh(out)
+        if act == "HARD_SWISH":
+            return out * torch.clamp(out + 3.0, 0.0, 6.0) / 6.0
         return out
     if act == "RELU6":
         return R.relu6(out, scale, compat=False)
@@ -181,13 +222,68 @@ def apply_fused_act(out: torch.Tensor, act: str, scale: float,
         return R.silu(out, scale, out_scale=scale)
     if act == "SIGMOID":
         return R.sigmoid(out, scale, scale)
-    if act in ("TANH", "HARD_SWISH"):   # int8 outputs: float convs raise
+    if act in ("TANH", "HARD_SWISH"):
         xf = out.to(torch.float32) * float(np.float32(scale))
         y = (torch.tanh(xf) if act == "TANH" else
              R._fdiv(xf * torch.clamp(xf + 3.0, 0.0, 6.0), 6.0))
         return clamp_i8(round_to_int(R._fdiv(y, scale),
                                      RoundMode.PLUS_HALF_TRUNC))
     return out
+
+
+def kernel_act(act: str) -> str:
+    """The activation a serving kernel's epilogue applies for a conv's
+    ``act`` (JAX's ``_kernel_act``): itself where the epilogue has it,
+    else NONE, the act then following the kernel."""
+    return act if act in FK.ACTS else "NONE"
+
+
+def clip_q(x: torch.Tensor, lo, hi, in_scale: float) -> torch.Tensor:
+    """CLIP with ONNX's real bounds (port of ``_clip_q``): an integer
+    tensor clamps the quantized bounds, ``trunc(v / scale +- 0.5)``
+    clipped to int8 (the RELU6 rule); a float one the bounds in its
+    type."""
+    if not x.dtype.is_floating_point:
+        sc = np.float32(in_scale or 1.0)
+
+        def q(v):
+            t = np.float32(v) / sc
+            t = np.trunc(t + (0.5 if t >= 0 else -0.5))
+            return int(np.clip(t, -128, 127))
+
+        lo = q(lo) if lo is not None else None
+        hi = q(hi) if hi is not None else None
+    if lo is not None:
+        x = torch.maximum(x, torch.tensor(lo, dtype=x.dtype, device=x.device))
+    if hi is not None:
+        x = torch.minimum(x, torch.tensor(hi, dtype=x.dtype, device=x.device))
+    return x
+
+
+def fake_quant(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """FAKE_QUANT, forward: the int8 round trip ``clip(round(x / s), -128,
+    127) * s`` (round half to even, as ``jnp.round``) in the
+    straight-through form ``x + (q - x).detach()``, in ``x``'s type."""
+    xf = x.to(torch.float32)
+    s = np.float32(scale or 1.0)
+    q = torch.clamp(torch.round(R._fdiv(xf, s)), -128, 127) * float(s)
+    return (xf + (q - xf).detach()).to(x.dtype)
+
+
+def slice_nd(x: torch.Tensor, slices) -> torch.Tensor:
+    """SLICE: ``x[start:end:step]`` on each ``(axis, start, end, step)``
+    (a later entry for the same axis wins, as in JAX), Python's slice
+    semantics; a negative step through its indices."""
+    per_axis = {int(ax): slice(s, e, st) for ax, s, e, st in slices}
+    for ax, sl in per_axis.items():
+        if sl.step is None or sl.step > 0:
+            idx = [slice(None)] * x.dim()
+            idx[ax] = sl
+            x = x[tuple(idx)]
+        else:
+            x = x.index_select(ax, torch.arange(
+                *sl.indices(x.shape[ax]), device=x.device))
+    return x.contiguous()
 
 
 # the conv activations beyond RELU: the exact tier applies each as a table
@@ -476,48 +572,173 @@ class DwUnit(KernelUnit):
                   self.out_hw, self.pads)
 
 
+class ExactConvUnit(KernelUnit):
+    """An int8 conv through ``ops.conv.conv2d_int8`` (the exact tier's
+    convs, and the serving tier's dilated or non-square-stride ones):
+    kernel #9, #10 or #11 for a per-tensor weight scale (``kind`` is the
+    kernel's launch counter), the plain op for a per-channel one (``kind``
+    ``"plain_convs"``, not a kernel unit). Its output is the requantized
+    int8 conv with RELU applied after the clamp; a kernel unit applies any
+    other activation through its table (``lut``, the executor's
+    ``tables``) in the kernel's epilogue, a plain conv leaves it to the
+    :class:`ActStep` after it."""
+
+    mirrors = "conv2d_int8"
+
+    def __init__(self, ex: "Executor", node: Node):
+        a = node.attrs
+        t = ex.tensors
+        self.node, self.out = node, node.outputs[0]
+        self.reads = (node.inputs[0],)
+        in_t = t[node.inputs[0]]
+        self.out_hw = _nhwc_out_hw(t[self.out])
+        self.stride, self.dilation = a["stride"], a["dilation"]
+        self.pads = R._conv_pads(
+            (in_t.shape[1], in_t.shape[2]), self.out_hw, a["kernel"],
+            a["stride"], a["dilation"], a["padding"], a["explicit_pad"])
+        self.scales = (ex.scale(node.inputs[0]), ex.w_scale(node),
+                       ex.scale(self.out))
+        self.round_mode = ex.round_mode
+        self.relu = a.get("activation", "NONE") == "RELU"
+        self.kind = C.route(a["kernel"], self.stride, self.dilation,
+                            self.pads, self.scales[1])
+        self.is_kernel = self.kind != C.PLAIN
+        self.lut = ex.table(node) if self.is_kernel else None
+        self.act = a.get("activation", "NONE") if self.lut is not None \
+            else ("RELU" if self.relu else "NONE")
+
+    def compute(self, env, plain=False, act=True):
+        """The unit's output; ``plain=True``: the plain conv, then the
+        table; ``act=False``: without the table (the conv before its
+        activation)."""
+        n = self.node
+        bias = env[n.inputs[2]] if len(n.inputs) > 2 else None
+        return C.conv2d_int8(
+            env[n.inputs[0]], env[n.inputs[1]], bias, self.out_hw,
+            self.stride, self.dilation, self.pads, *self.scales,
+            self.round_mode, self.relu, plain=plain,
+            lut=self.lut if act else None)
+
+
+class ActStep(_Step):
+    """A conv's activation that its kernel or plain op did not apply, on
+    its int8 output: a gather through its table (the executor's
+    ``tables``), which gives ``apply_fused_act``'s values."""
+
+    def __init__(self, ex: "Executor", node: Node):
+        self.node, self.out = node, node.outputs[0]
+        self.reads = (self.out,)
+        self.act = node.attrs.get("activation", "NONE")
+        self.lut = ex.table(node)
+
+    def run(self, env, plain=False):
+        env[self.out] = RK.apply_table(env[self.out], self.lut)
+
+
 # ---------------------------------------------------------------------------
 # Executor
 # ---------------------------------------------------------------------------
 
 
 class Executor:
-    """``executor(params, inputs) -> outputs`` over torch tensors.
+    """``executor(params, inputs) -> outputs`` over torch tensors: the
+    serving tier, and the base of the other tiers, which share its
+    lowering (:meth:`lower_node`).
 
     ``planned=True`` (the default) runs the planned serving tier, whose
     schedule of steps (``self.steps``) is built here; ``planned=False``
     runs the unplanned per-node lowering. Epilogue rows (host-computed
-    f32 scales) are built once, on ``device``."""
+    f32 scales) are built once, on ``device``. ``round_mode`` is the
+    requantize rule of the convs outside the fused kernels, as JAX's
+    ``ExecOptions.round_mode``."""
+
+    # the tier's options (JAX ``ExecOptions``): the serving tier's int8
+    # convs at dilation 1 and a square stride run in the fused kernels
+    fused = True
+    compat = False
+    compute_dtype = torch.float32
+    accum_dtype: Optional[torch.dtype] = None
 
     def __init__(self, graph: Graph, device: torch.device | str = "cuda",
-                 planned: bool = True):
-        self.graph = graph
-        self.tensors = graph.tensors
-        self.nodes: List[Node] = fuse_silu_pairs(graph)
-        self.device = resolve_device(device)
+                 planned: bool = True,
+                 round_mode: RoundMode = RoundMode.HALF_AWAY):
+        self._setup(graph, fuse_silu_pairs(graph), device, round_mode)
         self.epilogues: Dict[str, FK.Epilogue] = {}
         for node in self.nodes:
-            self._check_supported(node, planned)
-            if node.op in ("CONV2D", "DEPTHWISE_CONV2D") \
-                    and not self._degenerate_decl(node):
+            if self.fused_conv(node) or self.dw_kernel(node):
                 self.epilogues[node.outputs[0]] = self._conv_epilogue(node)
-        self.plan: Optional[P.FoldPlan] = None
-        self.steps: List[_Step] = []
         if planned:
             self.plan = P.plan_folds(self.nodes, self.tensors, graph.outputs)
             self.steps = _Scheduler(self).run()
 
+    def _setup(self, graph: Graph, nodes: List[Node],
+               device: torch.device | str, round_mode: RoundMode) -> None:
+        """What every tier sets up: the nodes it runs (each checked to be
+        lowerable), the device, the conv weights its params repack."""
+        self.graph = graph
+        self.tensors = graph.tensors
+        self.nodes: List[Node] = nodes
+        self.device = resolve_device(device)
+        self.round_mode = round_mode
+        self.plan: Optional[P.FoldPlan] = None
+        self.steps: List[_Step] = []
+        self.tables: Dict[str, torch.Tensor] = {}
+        self._donated: Optional[List[List[str]]] = None
+        self._zeros: Dict[str, torch.Tensor] = {}
+        for node in nodes:
+            self._check(node)
+        self.conv_weights = conv_weight_names(graph)
+
     # -- build time --------------------------------------------------------
 
-    def _degenerate_decl(self, node: Node) -> bool:
-        return any(0 in self.tensors[t].shape
-                   for t in list(node.inputs[:1]) + list(node.outputs))
+    def degenerate(self, node: Node) -> bool:
+        """The degenerate guard (:meth:`fill_degenerate`) from the declared
+        shapes: a zero-sized input or output, or a pool with a zero
+        kernel or stride."""
+        a = node.attrs
+        return (any(0 in self.tensors[t].shape
+                    for t in list(node.inputs) + list(node.outputs))
+                or (node.op in ("MAXPOOL", "AVGPOOL")
+                    and (0 in a.get("kernel", (1, 1))
+                         or 0 in a.get("stride", (1, 1)))))
+
+    def _check(self, node: Node) -> None:
+        """Raise for a node no tier lowers, after the degenerate guard (a
+        degenerate node of any op writes zeros)."""
+        if self.degenerate(node):
+            return
+        if node.op not in LOWERED_OPS:
+            raise NotImplementedError(
+                f"op {node.op!r} is lowered by no tier, as by no tier of the "
+                "JAX package (ROADMAP.md A.4: an importer emits only "
+                "lowered ops)")
+        if len(node.inputs) < _WEIGHTED.get(node.op, 1):
+            raise ValueError(f"{node.op} node {node.name!r} lacks its "
+                             "weight inputs")
+
+    def int8_conv(self, node: Node) -> bool:
+        """An int8 conv of one group, not depthwise: the conv a tier routes
+        to its kernels (:meth:`conv_steps`)."""
+        return (node.op in ("CONV2D", "DEPTHWISE_CONV2D")
+                and len(node.inputs) >= 2
+                and _is_int8(self.tensors[node.inputs[0]])
+                and not is_depthwise(node, self.tensors)
+                and node.attrs.get("groups", 1) == 1
+                and not self.degenerate(node))
+
+    def fused_conv(self, node: Node) -> bool:
+        """Does the serving tier run ``node`` in the fused kernels (#1/#2)?
+        An int8 conv at dilation 1 and a square stride (JAX executor.py:
+        1067-1069); the others take the exact tier's route."""
+        a = node.attrs
+        return (self.fused and self.int8_conv(node)
+                and a["dilation"] == (1, 1) and a["stride"][0] == a["stride"][1])
 
     def dw_kernel(self, node: Node) -> bool:
         """Does the serving tier run ``node`` in the depthwise kernel?
         The JAX test (executor.py:653-662): an int8 depthwise conv at
         stride 1, dilation 1, over a non-empty 4-D input."""
-        if not is_depthwise(node, self.tensors):
+        if not self.fused or not is_depthwise(node, self.tensors):
             return False
         a = node.attrs
         in_t = self.tensors[node.inputs[0]]
@@ -525,45 +746,6 @@ class Executor:
                 and a.get("stride", (1, 1)) == (1, 1)
                 and a.get("dilation", (1, 1)) == (1, 1)
                 and len(in_t.shape) == 4 and 0 not in in_t.shape)
-
-    def _check_supported(self, node: Node, planned: bool) -> None:
-        op = node.op
-        if op not in _SUPPORTED:
-            where = _QUEUED.get(op, "ROADMAP.md A (modules to port)")
-            raise NotImplementedError(
-                f"op {op!r} is not ported to the torch executor yet: {where}")
-        if op in ("CONV2D", "DEPTHWISE_CONV2D") \
-                and not self._degenerate_decl(node):
-            a = node.attrs
-            in_t = self.tensors[node.inputs[0]]
-            act = a.get("activation", "NONE")
-            dw = is_depthwise(node, self.tensors)
-            if not _is_int8(in_t) or len(node.inputs) < 2 or (
-                    dw and not _is_int8(self.tensors[node.outputs[0]])):
-                raise NotImplementedError(
-                    "float convs outside the fast tier: ROADMAP.md A.3")
-            if dw:
-                if act not in FK.ACTS or (act == "SILU" and not (
-                        planned and self.dw_kernel(node))):
-                    # the JAX tiers apply it on the requantized int8 value
-                    raise NotImplementedError(
-                        f"depthwise conv activation {act!r} outside the "
-                        "fused kernel: ROADMAP.md A.3")
-                return
-            if a.get("groups", 1) != 1:
-                raise NotImplementedError(
-                    "grouped int8 convs: ROADMAP.md A.3 (exact tier)")
-            if a["dilation"] != (1, 1) or a["stride"][0] != a["stride"][1]:
-                raise NotImplementedError(
-                    "dilated or non-square-stride convs leave the fused "
-                    "path (exact tier): ROADMAP.md A.3")
-            if a.get("activation", "NONE") not in FK.ACTS:
-                raise NotImplementedError(
-                    f"conv activation {a.get('activation')!r} outside the "
-                    "fused epilogue: ROADMAP.md A.3")
-        if op == "UPSAMPLE" and node.attrs.get("mode", 0) == 1:
-            raise NotImplementedError(
-                "bilinear UPSAMPLE: ROADMAP.md A.3 (exact-tier ops)")
 
     def scale(self, name: str) -> float:
         return self.tensors[name].quant.scale
@@ -578,13 +760,46 @@ class Executor:
         a = node.attrs
         return FK.epilogue_rows(
             self.w_scale(node), in_scale, out_scale,
-            a.get("activation", "NONE"),
+            kernel_act(a.get("activation", "NONE")),
             self.tensors[node.outputs[0]].shape[3],
             alpha=a.get("alpha", 0.01) or 0.01, device=self.device)
 
     def _conv_epilogue(self, node: Node) -> FK.Epilogue:
         return self.conv_epilogue(node, self.scale(node.inputs[0]),
                                   self.scale(node.outputs[0]))
+
+    def table(self, node: Node) -> Optional[torch.Tensor]:
+        """The table of ``node``'s activation beyond RELU on its int8
+        output (:func:`act_table`), on the device, made once; None in
+        compat mode or for an act that has none."""
+        out = node.outputs[0]
+        if out not in self.tables and not self.compat:
+            a = node.attrs
+            lut = act_table(a.get("activation", "NONE"), self.scale(out),
+                            a.get("alpha", 0.01) or 0.01)
+            if lut is not None:
+                self.tables[out] = lut.to(self.device)
+        return self.tables.get(out)
+
+    def conv_steps(self, node: Node) -> List[_Step]:
+        """The steps of an :meth:`int8_conv`: in the serving tier's fused
+        kernels (#1/#2, the act in the epilogue where it has it) where
+        :meth:`fused_conv`, else through ``ops.conv`` (#9-#11, or the plain
+        op for per-channel scales); then the act that neither applied."""
+        if self.fused_conv(node):
+            out = node.outputs[0]
+            unit: KernelUnit = ConvUnit(self, node, out, self.epilogues[out],
+                                        mirrors="conv2d_int8_fused")
+        else:
+            unit = ExactConvUnit(self, node)
+        return [unit] + self.act_steps(node, unit.act)
+
+    def act_steps(self, node: Node, applied: str) -> List[_Step]:
+        """An :class:`ActStep` where ``node``'s act is not ``applied``."""
+        act = node.attrs.get("activation", "NONE")
+        if act == applied or self.table(node) is None:
+            return []
+        return [ActStep(self, node)]
 
     # -- run time ----------------------------------------------------------
 
@@ -601,9 +816,11 @@ class Executor:
                          or 0 in a.get("stride", (1, 1))))):
             return False
         for o in node.outputs:
-            t = self.tensors[o]
-            env[o] = torch.zeros(t.shape, dtype=_torch_dtype(t.dtype),
-                                 device=self.device)
+            if o not in self._zeros:   # made once: no op writes in place
+                t = self.tensors[o]
+                self._zeros[o] = torch.zeros(
+                    t.shape, dtype=_torch_dtype(t.dtype), device=self.device)
+            env[o] = self._zeros[o]
         return True
 
     @property
@@ -614,105 +831,267 @@ class Executor:
     def launch_census(self) -> Dict[str, int]:
         """Kernel launches of one planned forward, by the launch counter of
         each kernel a unit kind runs (no unit runs the dma conv, as no
-        JAX executor path does)."""
+        JAX executor path does), and of each exact-tier kernel that a
+        dilated or non-square-stride conv launches."""
         c = collections.Counter(KERNEL_OF_KIND[u.kind] for u in self.units)
-        return {k: c.get(k, 0) for k in FK.launches
-                if k in KERNEL_OF_KIND.values()}
+        census = {k: c.get(k, 0) for k in FK.launches
+                  if k in KERNEL_OF_KIND.values()}
+        census.update({k: c[k] for k in RK.launches if c.get(k)})
+        return census
+
+    def device_params(self, np_params: Dict[str, np.ndarray]
+                      ) -> Dict[str, torch.Tensor]:
+        """:func:`params_from_jax` of the JAX layout, the conv weights
+        repacked by role; a float conv weight in ``compute_dtype`` once,
+        the values every conv casts it to."""
+        out = params_from_jax(np_params, self.device, self.conv_weights)
+        for k in self.conv_weights & set(out):
+            if out[k].dtype.is_floating_point:
+                out[k] = out[k].to(self.compute_dtype)
+        return out
+
+    def donated(self) -> List[List[str]]:
+        """For each step (or node, unplanned) of a forward, the graph inputs
+        whose last reader it is and which are no graph output: what
+        ``donate=True`` drops from the forward's tensors after it."""
+        if self._donated is None:
+            seq = ([s.reads for s in self.steps] if self.steps else
+                   [n.inputs for n in self.nodes])
+            keep = set(self.graph.outputs)
+            last: Dict[str, int] = {}
+            for i, reads in enumerate(seq):
+                for r in reads:
+                    if r in self.graph.inputs and r not in keep:
+                        last[r] = i
+            self._donated = [[] for _ in seq]
+            for r, i in last.items():
+                self._donated[i].append(r)
+        return self._donated
 
     def __call__(self, params: Dict[str, torch.Tensor],
                  inputs: Dict[str, torch.Tensor],
                  outputs: Optional[List[str]] = None,
                  capture: Optional[list] = None,
+                 donate: bool = False,
                  ) -> Dict[str, torch.Tensor]:
         """``capture`` (planned serving or exact): a list that receives,
-        for every kernel unit, ``(unit, {read name: tensor}, output)``."""
+        for every kernel unit, ``(unit, {read name: tensor}, output)``.
+        ``donate`` (JAX's ``donate_inputs``): the caller gives up the fed
+        tensors, and each graph input leaves the forward's tensors after
+        its last reader, so its memory can be reused."""
         env: Dict[str, torch.Tensor] = dict(params)
         env.update(inputs)
-        if not self.steps:
-            for node in self.nodes:
-                self.lower_node(node, env)
-        else:
-            for step in self.steps:
+        drops = self.donated() if donate and outputs is None else None
+        seq = self.steps or self.nodes
+        for i, step in enumerate(seq):
+            if self.steps:
                 step.run(env)
                 if capture is not None and step.is_kernel:
                     capture.append((step, {r: env[r] for r in step.reads},
                                     env[step.out]))
+            else:
+                self.lower_node(step, env)
+            if drops:
+                for r in drops[i]:
+                    del env[r]
         names = self.graph.outputs if outputs is None else outputs
         return {o: env[o] for o in names}
 
     def lower_node(self, node: Node, env: Dict[str, torch.Tensor],
                    plain: bool = False) -> None:
-        """Compute ``node``'s outputs from ``env`` into ``env`` on the
-        logical path. ``plain=True`` runs convs through the plain versions
-        on any device (a check of the kernels, never the serving path)."""
+        """``_lower_node``: compute ``node``'s outputs from ``env`` into
+        ``env``, branch for branch as JAX's (executor.py:1005-1370), the
+        tier's kernels taking its int8 convs. ``plain=True`` runs the
+        kernels' plain versions on any device (a check, never the serving
+        path)."""
+        if self.fill_degenerate(node, env):
+            return
         op = node.op
         a = node.attrs
         out_name = node.outputs[0]
         out_t = self.tensors[out_name]
-
-        if self.fill_degenerate(node, env):
-            return
-
+        compat = self.compat
         scale = self.scale
 
-        if is_depthwise(node, self.tensors):
+        if op in ("CONV2D", "DEPTHWISE_CONV2D"):
+            if self.int8_conv(node):
+                for step in self.conv_steps(node):
+                    step.run(env, plain)
+            else:
+                env[out_name] = self._other_conv(node, env, plain)
+            return
+        if op == "SPLIT":
             x = env[node.inputs[0]]
-            bias = env[node.inputs[2]] if len(node.inputs) > 2 else None
-            out_hw = _nhwc_out_hw(out_t)
-            pads = R._conv_pads(
-                (x.shape[1], x.shape[2]), out_hw, a["kernel"], a["stride"],
-                a["dilation"], a["padding"], a["explicit_pad"])
-            if self.dw_kernel(node):
-                dw = (FK.depthwise_conv2d_int8_fused_plain if plain
-                      else FK.depthwise_conv2d_int8_fused)
-                env[out_name] = dw(x, env[node.inputs[1]], bias,
-                                   self.epilogues[out_name], out_hw, pads)
-                return
-            # any other stride: the plain op, as the JAX serving tier
-            # computes it in XLA (executor.py:1057-1061), then the act
-            act = a.get("activation", "NONE")
-            out = R.depthwise_conv2d_int8(
-                x, env[node.inputs[1]], bias, out_hw, a["stride"],
-                a["dilation"], pads, scale(node.inputs[0]),
-                self.w_scale(node), scale(out_name), relu=act == "RELU")
-            env[out_name] = apply_fused_act(out, act, scale(out_name),
-                                            alpha=a.get("alpha", 0.01) or 0.01)
+            off = 0
+            for o, sz in zip(node.outputs, a["sizes"]):
+                env[o] = x.narrow(int(a["axis"]), off, sz).contiguous()
+                off += sz
+            return
+        if op == "GRU":
+            ins = [env[i] for i in node.inputs]
+            y, y_h = R.gru(ins[0], ins[1], ins[2],
+                           ins[3] if len(ins) > 3 else None,
+                           ins[4] if len(ins) > 4 else None,
+                           a["hidden_size"],
+                           bool(a.get("linear_before_reset", 0)),
+                           a.get("direction", "forward"))
+            env[node.outputs[0]] = y
+            if len(node.outputs) > 1:
+                env[node.outputs[1]] = y_h
+            return
 
-        elif op == "CONV2D":
-            x = env[node.inputs[0]]
-            bias = env[node.inputs[2]] if len(node.inputs) > 2 else None
-            out_hw = _nhwc_out_hw(out_t)
-            pads = R._conv_pads(
-                (x.shape[1], x.shape[2]), out_hw, a["kernel"], a["stride"],
-                a["dilation"], a["padding"], a["explicit_pad"])
-            env[out_name] = FK.conv2d_int8_fused(
-                x, env[node.inputs[1]], bias, self.epilogues[out_name],
-                out_hw, a["stride"], a["dilation"], pads, plain=plain)
-
-        elif op == "MAXPOOL":
-            x = env[node.inputs[0]]
-            env[out_name] = R.maxpool(
-                x, a["kernel"], a["stride"], _nhwc_out_hw(out_t),
-                _pool_pads(a, (x.shape[1], x.shape[2])))
-
+        x = env[node.inputs[0]]
+        if op == "MAXPOOL":
+            # the reference ignores pool padding entirely
+            pads = ((0, 0), (0, 0)) if compat else \
+                _pool_pads(a, (x.shape[1], x.shape[2]))
+            out = R.maxpool(x, a["kernel"], a["stride"], _nhwc_out_hw(out_t),
+                            pads)
+        elif op in ("AVGPOOL", "GLOBAL_AVGPOOL", "SILU") and compat:
+            out = x   # not implemented by the reference: pass-through
+        elif op == "AVGPOOL":
+            out = R.avgpool(x, a["kernel"], a["stride"], _nhwc_out_hw(out_t),
+                            _pool_pads(a, (x.shape[1], x.shape[2])),
+                            scale(node.inputs[0]), scale(out_name))
+        elif op == "GLOBAL_AVGPOOL":
+            out = R.global_avgpool(x, scale(node.inputs[0]), scale(out_name))
+        elif op == "RELU":
+            out = R.relu(x)
+        elif op == "RELU6":
+            out = R.relu6(x, scale(node.inputs[0]), compat)
+        elif op == "LEAKY_RELU":
+            out = R.leaky_relu(x, a.get("alpha", 0.0) or 0.01)
+        elif op == "SIGMOID":
+            out = R.sigmoid(x, scale(node.inputs[0]), scale(out_name))
+        elif op == "SILU":
+            out = R.silu(x, scale(node.inputs[0]), out_scale=scale(out_name))
+        elif op == "SILU_FUSED":
+            out = R.silu(x, in_scale=a["in_scale"], sig_scale=a["sig_scale"],
+                         out_scale=a["out_scale"], fuse=True)
+        elif op == "SOFTMAX":
+            out = R.softmax(x, axis=int(a.get("axis", -1)),
+                            in_scale=scale(node.inputs[0]),
+                            out_scale=scale(out_name), compat=compat)
         elif op == "CONCAT":
             xs = [env[i] for i in node.inputs]
-            env[out_name] = R.concat(xs, concat_axis(node, xs, out_t))
-
-        elif op == "ADD":
-            env[out_name] = R.add_q(
-                env[node.inputs[0]], env[node.inputs[1]],
-                scale(node.inputs[0]), scale(node.inputs[1]),
-                scale(out_name))
-
+            out = R.concat(xs, concat_axis(node, xs, out_t))
+        elif op in ("ADD", "MUL"):
+            fn = R.add_q if op == "ADD" else R.mul_q
+            out = fn(x, env[node.inputs[1]], scale(node.inputs[0]),
+                     scale(node.inputs[1]), scale(out_name))
         elif op == "UPSAMPLE":
-            x = env[node.inputs[0]]
             out_hw = _nhwc_out_hw(out_t)
-            env[out_name] = R.upsample_nearest(
-                x, upsample_scale(node, x, out_hw), out_hw)
+            if a.get("mode", 0) == 1 and not compat:
+                out = R.upsample_bilinear(x, out_hw)
+            else:
+                out = R.upsample_nearest(x, upsample_scale(node, x, out_hw),
+                                         out_hw)
+        elif op in ("TRANSPOSE", "RESHAPE") and compat:
+            out = x   # the reference moves no data
+        elif op == "TRANSPOSE" and "perm" in a:
+            out = x.permute(tuple(a["perm"])).contiguous()
+        elif op in ("TRANSPOSE", "RESHAPE"):   # a re-declared shape
+            out = reshape_to(x, out_t)
+        elif op == "DEQUANT":   # int8, or the same values in a float type
+            out = x.to(torch.float32) * float(np.float32(a["scale"]))
+        elif op == "QUANT":
+            out = R.quantize_edge(x, a["scale"])
+        elif op == "FAKE_QUANT":
+            out = fake_quant(x, a["scale"])
+        elif op == "SLICE":
+            out = slice_nd(x, a["slices"])
+        elif op in ("SUB", "DIV", "POW"):
+            def deq(nm: str) -> torch.Tensor:
+                v = env[nm]
+                if v.dtype.is_floating_point:
+                    return v.to(torch.float32)
+                return v.to(torch.float32) * float(
+                    np.float32(scale(nm) or 1.0))
+            fn = {"SUB": torch.sub, "DIV": torch.div, "POW": torch.pow}[op]
+            out = fn(deq(node.inputs[0]), deq(node.inputs[1]))
+            if _is_int8(out_t):
+                out = R.quantize_edge(out, out_t.quant.scale)
+        elif op == "CONV1D":
+            out = R.conv1d(x, env[node.inputs[1]],
+                           env[node.inputs[2]] if len(node.inputs) > 2
+                           else None, a["stride"], a.get("dilation", 1),
+                           a.get("pads", (0, 0)), out_t.shape[2])
+        elif op == "CONV1D_TRANSPOSE":
+            out = R.conv1d_transpose(
+                x, env[node.inputs[1]],
+                env[node.inputs[2]] if len(node.inputs) > 2 else None,
+                a["stride"], a.get("pads", (0, 0)), out_t.shape[2])
+        elif op == "CLIP":
+            out = clip_q(x, a.get("min"), a.get("max"), scale(node.inputs[0]))
+        elif op == "BATCHNORM":
+            c = x.shape[-1]
+            sc, bi = (env[node.inputs[i]].reshape(-1)[:c]
+                      if len(node.inputs) > i else None for i in (1, 2))
+            if sc is None:
+                sc = torch.ones(c, dtype=torch.float32, device=x.device)
+            if bi is None:
+                bi = torch.zeros(c, dtype=torch.float32, device=x.device)
+            out = R.batchnorm(x, sc, bi, scale(node.inputs[0]),
+                              scale(out_name))
+        elif op == "FC":
+            w = env[node.inputs[1]]
+            out = R.fc(x.reshape(x.shape[0], -1),
+                       w.reshape(-1, w.shape[-1]) if w.dim() > 2 else w,
+                       env[node.inputs[2]] if len(node.inputs) > 2 else None,
+                       scale(node.inputs[0]), self.w_scale(node),
+                       scale(out_name), a.get("activation", "NONE") == "RELU")
+        else:   # a node the build let through as degenerate
+            raise NotImplementedError(f"op {op!r} over non-empty tensors")
+        env[out_name] = out
 
-        elif op == "RESHAPE":
-            env[out_name] = reshape_to(env[node.inputs[0]], out_t)
+    def _other_conv(self, node: Node, env: Dict[str, torch.Tensor],
+                    plain: bool) -> torch.Tensor:
+        """A conv no tier routes to its int8 conv kernels (JAX executor.py:
+        1037-1104): an int8 depthwise conv (the serving tier's kernel #7
+        where :meth:`dw_kernel`, but for SILU outside the planned tier,
+        which JAX applies on the requantized value), an int8 grouped one,
+        or a float one in ``compute_dtype``; then the act it did not
+        apply."""
+        a = node.attrs
+        x = env[node.inputs[0]]
+        w = env[node.inputs[1]]
+        bias = env[node.inputs[2]] if len(node.inputs) > 2 else None
+        out_name = node.outputs[0]
+        out_hw = _nhwc_out_hw(self.tensors[out_name])
+        pads = R._conv_pads(
+            (x.shape[1], x.shape[2]), out_hw, a["kernel"], a["stride"],
+            a["dilation"], a["padding"], a["explicit_pad"])
+        act = a.get("activation", "NONE")
+        relu = act == "RELU"
+        groups = a.get("groups", 1)
+        depthwise = is_depthwise(node, self.tensors)
+        applied = "RELU" if relu else "NONE"
+        if _is_int8(self.tensors[node.inputs[0]]):
+            if depthwise and self.dw_kernel(node) and (
+                    self.plan is not None or act != "SILU"):
+                unit = DwUnit(self, node)
+                out, applied = unit.compute(env, plain), unit.act
+            elif depthwise:
+                out = R.depthwise_conv2d_int8(
+                    x, w, bias, out_hw, a["stride"], a["dilation"], pads,
+                    self.scale(node.inputs[0]), self.w_scale(node),
+                    self.scale(out_name), self.round_mode, relu)
+            else:
+                out = R.grouped_conv2d_int8(
+                    x, w, bias, groups, out_hw, a["stride"], a["dilation"],
+                    pads, self.scale(node.inputs[0]), self.w_scale(node),
+                    self.scale(out_name), self.round_mode, relu)
+        elif depthwise:
+            out = R.depthwise_conv2d_f32(x, w, bias, out_hw, a["stride"],
+                                         a["dilation"], pads, relu)
+        else:
+            out = R.conv2d_f32(x, w, bias, out_hw, a["stride"], a["dilation"],
+                               pads, relu, self.compute_dtype,
+                               self.accum_dtype, groups)
+        if applied == act:
+            return out
+        return apply_fused_act(out, act, self.scale(out_name), self.compat,
+                               a.get("alpha", 0.01) or 0.01)
 
 
 class _Scheduler:
@@ -736,7 +1115,9 @@ class _Scheduler:
         self.env = set(g.inputs) | {n for n, t in self.t.items()
                                     if t.is_const}
         self.rt: Dict[str, int] = {}
-        self.phys: Dict[str, int] = {i: self.c(i) for i in g.inputs}
+        self.phys: Dict[str, int] = {
+            i: self.c(i) if len(self.t[i].shape) == 4 else 0
+            for i in g.inputs}
         self.qb: set = set()
         self.parts = dict(self.plan.parts)
         self.live: set = set()
@@ -795,12 +1176,8 @@ class _Scheduler:
 
     def logical(self, node: Node) -> None:
         """``_lower_node`` (1005), then the output's fold is popped."""
-        if node.op == "CONV2D" and not is_depthwise(node, self.t) \
-                and not self.ex._degenerate_decl(node):
-            out = node.outputs[0]
-            self.steps.append(ConvUnit(
-                self.ex, node, out, self.ex.epilogues[out],
-                mirrors="conv2d_int8_fused"))
+        if self.ex.int8_conv(node):
+            self.steps.extend(self.ex.conv_steps(node))
         else:
             self.steps.append(NodeStep(self.ex, node))
         for o in node.outputs:
@@ -825,7 +1202,8 @@ class _Scheduler:
         out = node.outputs[0]
         if ex.dw_kernel(node):   # fused depthwise (651-687): logical output
             self.unfold_inputs(node)
-            self.steps.append(DwUnit(ex, node))
+            unit = DwUnit(ex, node)
+            self.steps.extend([unit] + ex.act_steps(node, unit.act))
             self.env.add(out)
             self.phys[out] = self.c(out)
             return True
@@ -834,8 +1212,11 @@ class _Scheduler:
         f_planned = plan.f(out)
         if f_planned <= 1:
             return False
-        if node.op == "ADD":   # 946-956
-            if any(self.rt.get(i, 1) != f_planned for i in node.inputs):
+        if node.op in ("ADD", "MUL") or node.op in P.FOLD_ELTWISE:
+            # 946-987: on the folded layout, the same values
+            ins = (node.inputs if node.op in ("ADD", "MUL")
+                   else node.inputs[:1])
+            if any(self.rt.get(i, 1) != f_planned for i in ins):
                 return False
             self.steps.append(NodeStep(ex, node))
             i0 = node.inputs[0]
@@ -863,7 +1244,7 @@ class _Scheduler:
     def folded_conv(self, node: Node) -> bool:
         ex, plan, t = self.ex, self.plan, self.t
         a = node.attrs
-        act = a.get("activation", "NONE")
+        act = kernel_act(a.get("activation", "NONE"))
         out = node.outputs[0]
         src = node.inputs[0]
         s = a["stride"][0]
@@ -890,8 +1271,9 @@ class _Scheduler:
             emit = plan.stem_emit.get(out, "int8")
             if src not in self.qb:
                 self.ensure_logical(src)
-            self.steps.append(ConvUnit(ex, node, out, ex.epilogues[out],
-                                       mirrors="conv2d_int8_stem_fused"))
+            unit = ConvUnit(ex, node, out, ex.epilogues[out],
+                            mirrors="conv2d_int8_stem_fused")
+            self.steps.extend([unit] + ex.act_steps(node, unit.act))
             if emit == "qbf16":
                 self.env.add(out)
                 self.qb.add(out)
@@ -901,8 +1283,7 @@ class _Scheduler:
             return True
 
         # epilogue residual (759-776); the JAX `_act_applied` guard always
-        # holds here: _check_supported refuses activations outside the
-        # epilogue, so every conv's kernel applies its own
+        # holds for a planned residual, whose act is NONE, RELU or SILU
         o_ch = self.c(out)
         store = out
         residual, res_scale = None, 1.0
@@ -971,99 +1352,30 @@ class _Scheduler:
                 ex, node, store, ex.conv_epilogue(node, ex.scale(src), out_s),
                 mirrors="conv2d_int8_folded", residual=residual,
                 res_scale=FK.res_scale_folded(res_scale, out_s, act))
-        self.steps.append(unit)
+        self.steps.extend([unit] + ex.act_steps(node, unit.act))
         self.stored(store, f_out, _ceil128(f_out * o_ch))
         return True
 
 
 # ---------------------------------------------------------------------------
-# The exact tier
+# The exact and fast tiers
 # ---------------------------------------------------------------------------
-
-# ops the exact lowering takes (``_lower_node``); the rest raise, naming
-# where they are queued
-EXACT_OPS = ("CONV2D", "DEPTHWISE_CONV2D", "MAXPOOL", "AVGPOOL",
-             "GLOBAL_AVGPOOL", "RELU", "RELU6", "LEAKY_RELU", "SIGMOID",
-             "SILU", "SILU_FUSED", "SOFTMAX", "CONCAT", "ADD", "MUL",
-             "UPSAMPLE", "RESHAPE", "TRANSPOSE")
-_EXACT_QUEUED = {"GRU": "ROADMAP.md A.6 (second modality)",
-                 "CONV1D": "ROADMAP.md A.6 (second modality)",
-                 "CONV1D_TRANSPOSE": "ROADMAP.md A.6 (second modality)"}
-_EXACT_LEFT = "ROADMAP.md A.3 (exact-tier ops not ported yet)"
-
-
-class ExactConvUnit(KernelUnit):
-    """An int8 conv of the exact tier through ``ops.conv.conv2d_int8``:
-    kernel #9, #10 or #11 for a per-tensor weight scale (``kind`` is the
-    kernel's launch counter), the plain op for a per-channel one (``kind``
-    ``"plain_convs"``, not a kernel unit). Its output is the requantized
-    int8 conv with RELU applied after the clamp; a kernel unit applies any
-    other activation through its table (``lut``, the executor's
-    ``tables``) in the kernel's epilogue, a plain conv leaves it to the
-    :class:`ActStep` after it."""
-
-    mirrors = "conv2d_int8"
-
-    def __init__(self, ex: "ExactExecutor", node: Node):
-        a = node.attrs
-        t = ex.tensors
-        self.node, self.out = node, node.outputs[0]
-        self.reads = (node.inputs[0],)
-        in_t = t[node.inputs[0]]
-        self.out_hw = _nhwc_out_hw(t[self.out])
-        self.stride, self.dilation = a["stride"], a["dilation"]
-        self.pads = R._conv_pads(
-            (in_t.shape[1], in_t.shape[2]), self.out_hw, a["kernel"],
-            a["stride"], a["dilation"], a["padding"], a["explicit_pad"])
-        self.scales = (ex.scale(node.inputs[0]), ex.w_scale(node),
-                       ex.scale(self.out))
-        self.round_mode = ex.round_mode
-        self.relu = a.get("activation", "NONE") == "RELU"
-        self.kind = C.route(a["kernel"], self.stride, self.dilation,
-                            self.pads, self.scales[1])
-        self.is_kernel = self.kind != C.PLAIN
-        self.lut = ex.tables.get(self.out) if self.is_kernel else None
-
-    def compute(self, env, plain=False, act=True):
-        """The unit's output; ``plain=True``: the plain conv, then the
-        table; ``act=False``: without the table (the conv before its
-        activation)."""
-        n = self.node
-        bias = env[n.inputs[2]] if len(n.inputs) > 2 else None
-        return C.conv2d_int8(
-            env[n.inputs[0]], env[n.inputs[1]], bias, self.out_hw,
-            self.stride, self.dilation, self.pads, *self.scales,
-            self.round_mode, self.relu, plain=plain,
-            lut=self.lut if act else None)
-
-
-class ActStep(_Step):
-    """A plain conv's activation beyond RELU on its int8 output: a gather
-    through its table (the executor's ``tables``), as the kernels apply
-    it."""
-
-    def __init__(self, ex: "ExactExecutor", node: Node):
-        self.node, self.out = node, node.outputs[0]
-        self.reads = (self.out,)
-        self.act = node.attrs.get("activation", "NONE")
-        self.lut = ex.tables[self.out]
-
-    def run(self, env, plain=False):
-        env[self.out] = RK.apply_table(env[self.out], self.lut)
 
 
 class ExactExecutor(Executor):
     """The exact tier, ``mode`` ``"full"`` or ``"compat"`` (port of
     ``build_executor`` with ``_lower_node``): a schedule of steps, one per
     node but two for a plain conv with an activation beyond RELU (the
-    table's gather after it). ``tables``: each such conv's activation
+    table's gather after it). ``tables``: each int8 conv's activation
     table (:func:`act_table`, built on the CPU and moved to ``device``
     once), by its output's name; none in compat mode.
 
     Compat mode replicates the reference runtime: no SIGMOID+MUL fusion,
     only a conv's RELU, MAXPOOL without pads, AVGPOOL, GLOBAL_AVGPOOL,
-    SILU, SOFTMAX, RESHAPE and TRANSPOSE as pass-throughs, RELU6 as
-    RELU."""
+    SILU, SOFTMAX, RESHAPE and TRANSPOSE as pass-throughs, RELU6 as RELU,
+    nearest UPSAMPLE for a bilinear one."""
+
+    fused = False
 
     def __init__(self, graph: Graph, device: torch.device | str = "cuda",
                  mode: str = "full",
@@ -1071,57 +1383,13 @@ class ExactExecutor(Executor):
                  fuse_silu: bool = True):
         if mode not in ("full", "compat"):
             raise ValueError(f"unknown mode {mode!r}")
-        self.graph = graph
-        self.tensors = graph.tensors
         self.compat = mode == "compat"
-        self.round_mode = round_mode
-        self.nodes = (fuse_silu_pairs(graph) if fuse_silu and not self.compat
-                      else list(graph.nodes))
-        self.device = resolve_device(device)
-        self.plan = None
-        self.tables: Dict[str, torch.Tensor] = {}
-        self.steps: List[_Step] = []
+        self._setup(graph, fuse_silu_pairs(graph)
+                    if fuse_silu and not self.compat else list(graph.nodes),
+                    device, round_mode)
         for node in self.nodes:
-            self._check_exact(node)
-            if not self._kernel_conv(node):
-                self.steps.append(NodeStep(self, node))
-                continue
-            a, out = node.attrs, node.outputs[0]
-            lut = None if self.compat else act_table(
-                a.get("activation", "NONE"), self.scale(out),
-                a.get("alpha", 0.01) or 0.01)
-            if lut is not None:
-                self.tables[out] = lut.to(self.device)
-            unit = ExactConvUnit(self, node)
-            self.steps.append(unit)
-            if lut is not None and not unit.is_kernel:
-                self.steps.append(ActStep(self, node))
-
-    def _kernel_conv(self, node: Node) -> bool:
-        return (node.op in ("CONV2D", "DEPTHWISE_CONV2D")
-                and not is_depthwise(node, self.tensors)
-                and not self._degenerate_decl(node))
-
-    def _check_exact(self, node: Node) -> None:
-        op = node.op
-        if op not in EXACT_OPS:
-            raise NotImplementedError(
-                f"op {op!r} is not ported to the exact tier yet: "
-                f"{_EXACT_QUEUED.get(op, _EXACT_LEFT)}")
-        if op in ("CONV2D", "DEPTHWISE_CONV2D") \
-                and not self._degenerate_decl(node):
-            if len(node.inputs) < 2 or not _is_int8(
-                    self.tensors[node.inputs[0]]):
-                raise NotImplementedError(f"float convs: {_EXACT_LEFT}")
-            if is_depthwise(node, self.tensors):
-                if not _is_int8(self.tensors[node.outputs[0]]):
-                    raise NotImplementedError(
-                        f"depthwise convs with a float output: {_EXACT_LEFT}")
-            elif node.attrs.get("groups", 1) != 1:
-                raise NotImplementedError(f"grouped int8 convs: {_EXACT_LEFT}")
-        if op == "UPSAMPLE" and node.attrs.get("mode", 0) == 1 \
-                and not self.compat:
-            raise NotImplementedError(f"bilinear UPSAMPLE: {_EXACT_LEFT}")
+            self.steps.extend(self.conv_steps(node) if self.int8_conv(node)
+                              else [NodeStep(self, node)])
 
     def launch_census(self) -> Dict[str, int]:
         """Where one forward's convs run, from the shapes alone: launches
@@ -1131,123 +1399,8 @@ class ExactExecutor(Executor):
                                 if isinstance(s, ExactConvUnit))
         return {k: c.get(k, 0) for k in list(RK.launches) + [C.PLAIN]}
 
-    def lower_node(self, node: Node, env: Dict[str, torch.Tensor],
-                   plain: bool = False) -> None:
-        """``_lower_node``: compute ``node``'s outputs from ``env`` into
-        ``env``. ``plain=True`` runs the convs through the kernels' plain
-        versions on any device (a check, never the serving path)."""
-        op = node.op
-        a = node.attrs
-        out_name = node.outputs[0]
-        out_t = self.tensors[out_name]
-        compat = self.compat
-        if self.fill_degenerate(node, env):
-            return
 
-        scale = self.scale
-        if op in ("CONV2D", "DEPTHWISE_CONV2D"):
-            act = a.get("activation", "NONE")
-            if is_depthwise(node, self.tensors):
-                x = env[node.inputs[0]]
-                out_hw = _nhwc_out_hw(out_t)
-                pads = R._conv_pads(
-                    (x.shape[1], x.shape[2]), out_hw, a["kernel"],
-                    a["stride"], a["dilation"], a["padding"], a["explicit_pad"])
-                out = R.depthwise_conv2d_int8(
-                    x, env[node.inputs[1]],
-                    env[node.inputs[2]] if len(node.inputs) > 2 else None,
-                    out_hw, a["stride"], a["dilation"], pads,
-                    scale(node.inputs[0]), self.w_scale(node),
-                    scale(out_name), self.round_mode, act == "RELU")
-                env[out_name] = apply_fused_act(
-                    out, act, scale(out_name), compat,
-                    a.get("alpha", 0.01) or 0.01)
-                return
-            unit = ExactConvUnit(self, node)
-            out = unit.compute(env, plain)
-            env[out_name] = (out if unit.is_kernel else
-                             RK.apply_table(out, self.tables.get(out_name)))
-            return
-
-        x = env[node.inputs[0]]
-        if op == "MAXPOOL":
-            # the reference ignores pool padding entirely
-            pads = ((0, 0), (0, 0)) if compat else \
-                _pool_pads(a, (x.shape[1], x.shape[2]))
-            out = R.maxpool(x, a["kernel"], a["stride"], _nhwc_out_hw(out_t),
-                            pads)
-        elif op in ("AVGPOOL", "GLOBAL_AVGPOOL", "SILU") and compat:
-            out = x   # not implemented by the reference: pass-through
-        elif op == "AVGPOOL":
-            out = R.avgpool(x, a["kernel"], a["stride"], _nhwc_out_hw(out_t),
-                            _pool_pads(a, (x.shape[1], x.shape[2])),
-                            scale(node.inputs[0]), scale(out_name))
-        elif op == "GLOBAL_AVGPOOL":
-            out = R.global_avgpool(x, scale(node.inputs[0]), scale(out_name))
-        elif op == "RELU":
-            out = R.relu(x)
-        elif op == "RELU6":
-            out = R.relu6(x, scale(node.inputs[0]), compat)
-        elif op == "LEAKY_RELU":
-            out = R.leaky_relu(x, a.get("alpha", 0.0) or 0.01)
-        elif op == "SIGMOID":
-            out = R.sigmoid(x, scale(node.inputs[0]), scale(out_name))
-        elif op == "SILU":
-            out = R.silu(x, scale(node.inputs[0]), out_scale=scale(out_name))
-        elif op == "SILU_FUSED":
-            out = R.silu(x, in_scale=a["in_scale"], sig_scale=a["sig_scale"],
-                         out_scale=a["out_scale"], fuse=True)
-        elif op == "SOFTMAX":
-            out = R.softmax(x, axis=int(a.get("axis", -1)),
-                            in_scale=scale(node.inputs[0]),
-                            out_scale=scale(out_name), compat=compat)
-        elif op == "CONCAT":
-            xs = [env[i] for i in node.inputs]
-            out = R.concat(xs, concat_axis(node, xs, out_t))
-        elif op in ("ADD", "MUL"):
-            fn = R.add_q if op == "ADD" else R.mul_q
-            out = fn(x, env[node.inputs[1]], scale(node.inputs[0]),
-                     scale(node.inputs[1]), scale(out_name))
-        elif op == "UPSAMPLE":
-            out_hw = _nhwc_out_hw(out_t)
-            out = R.upsample_nearest(x, upsample_scale(node, x, out_hw),
-                                     out_hw)
-        elif compat:   # RESHAPE, TRANSPOSE: the reference moves no data
-            out = x
-        elif op == "TRANSPOSE" and "perm" in a:
-            out = x.permute(tuple(a["perm"])).contiguous()
-        else:   # RESHAPE, or a TRANSPOSE that only re-declares the shape
-            out = reshape_to(x, out_t)
-        env[out_name] = out
-
-
-FAST_OPS = ("CONV2D", "DEPTHWISE_CONV2D", "MAXPOOL", "RELU", "RELU6",
-            "LEAKY_RELU", "SIGMOID", "SILU", "SILU_FUSED", "CONCAT", "ADD",
-            "MUL", "UPSAMPLE", "RESHAPE", "DEQUANT", "QUANT", "SPLIT")
-_FAST_LEFT = "ROADMAP.md A.3 (ops not ported yet)"
-
-
-def apply_float_act(out: torch.Tensor, act: str, alpha: float = 0.01
-                    ) -> torch.Tensor:
-    """The float branch of ``_apply_fused_act``: a float conv's activation
-    beyond RELU (which the conv applied), in the output's type (LEAKY_RELU
-    promotes to float32, as in JAX). Unknown activations pass through."""
-    if act == "RELU6":
-        return R.relu6(out)
-    if act == "LEAKY_RELU":
-        return R.leaky_relu(out, alpha or 0.01)
-    if act == "SILU":
-        return R.silu(out)
-    if act == "SIGMOID":
-        return torch.sigmoid(out)
-    if act == "TANH":
-        return torch.tanh(out)
-    if act == "HARD_SWISH":
-        return out * torch.clamp(out + 3.0, 0.0, 6.0) / 6.0
-    return out
-
-
-class FastExecutor(Executor):
+class FastExecutor(ExactExecutor):
     """The fast tier (port of ``build_executor`` with the float branches of
     ``_lower_node``) over a dequantized graph (``ir.passes.
     dequantize_graph``): node by node, the float convs through
@@ -1257,8 +1410,8 @@ class FastExecutor(Executor):
     (int8 or float input) and QUANT (PLUS_HALF_TRUNC, clamp) at the edges.
     SIGMOID+MUL pairs fuse (``fuse_silu``) into ``x * sigmoid(x)`` in the
     activation's type. No op of the fast tier is a TPU kernel, so none of
-    these is a hand-written one. Ops outside ``FAST_OPS`` and int8 or
-    grouped convs raise."""
+    these is a hand-written one; an int8 conv left in the graph takes the
+    exact tier's route, as JAX's."""
 
     def __init__(self, graph: Graph, device: torch.device | str = "cuda",
                  compute_dtype: torch.dtype = torch.float32,
@@ -1270,115 +1423,9 @@ class FastExecutor(Executor):
         if accum_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"accum_dtype must be None, torch.float32 or "
                              f"torch.bfloat16, got {accum_dtype}")
-        self.graph = graph
-        self.tensors = graph.tensors
         self.compute_dtype = compute_dtype
         self.accum_dtype = accum_dtype
-        self.nodes = (fuse_silu_pairs(graph) if fuse_silu
-                      else list(graph.nodes))
-        self.device = resolve_device(device)
-        self.plan = None
-        self.steps: List[_Step] = []
-        self.conv_weights = set()
-        for node in self.nodes:
-            self._check_fast(node)
-            if node.op == "CONV2D" and not is_depthwise(node, self.tensors):
-                self.conv_weights.add(node.inputs[1])
-
-    def _check_fast(self, node: Node) -> None:
-        op = node.op
-        if op not in FAST_OPS:
-            raise NotImplementedError(
-                f"op {op!r} is not ported to the fast tier yet: "
-                f"{_QUEUED.get(op, _FAST_LEFT)}")
-        if op in ("CONV2D", "DEPTHWISE_CONV2D") \
-                and not self._degenerate_decl(node):
-            if len(node.inputs) < 2 or _is_int8(self.tensors[node.inputs[0]]):
-                raise NotImplementedError(
-                    f"int8 convs in the fast tier: {_FAST_LEFT}")
-            if not is_depthwise(node, self.tensors) \
-                    and node.attrs.get("groups", 1) != 1:
-                raise NotImplementedError(f"grouped float convs: {_FAST_LEFT}")
-        if op == "UPSAMPLE" and node.attrs.get("mode", 0) == 1:
-            raise NotImplementedError(f"bilinear UPSAMPLE: {_FAST_LEFT}")
-
-    def device_params(self, np_params: Dict[str, np.ndarray]
-                      ) -> Dict[str, torch.Tensor]:
-        """``params_from_jax`` of the JAX layout, the float conv weights
-        (HWIO there) as OHWI in ``compute_dtype``, once: the values every
-        conv casts them to."""
-        out = params_from_jax(
-            {k: v for k, v in np_params.items()
-             if k not in self.conv_weights}, self.device)
-        for k in self.conv_weights:
-            w = torch.from_numpy(np.ascontiguousarray(
-                np.transpose(np_params[k], (3, 0, 1, 2))))
-            out[k] = w.to(self.device, self.compute_dtype)
-        return out
-
-    def lower_node(self, node: Node, env: Dict[str, torch.Tensor],
-                   plain: bool = False) -> None:
-        op = node.op
-        a = node.attrs
-        out_name = node.outputs[0]
-        out_t = self.tensors[out_name]
-        if self.fill_degenerate(node, env):
-            return
-        x = env[node.inputs[0]]
-        if op in ("CONV2D", "DEPTHWISE_CONV2D"):
-            bias = env[node.inputs[2]] if len(node.inputs) > 2 else None
-            out_hw = _nhwc_out_hw(out_t)
-            pads = R._conv_pads(
-                (x.shape[1], x.shape[2]), out_hw, a["kernel"], a["stride"],
-                a["dilation"], a["padding"], a["explicit_pad"])
-            act = a.get("activation", "NONE")
-            if is_depthwise(node, self.tensors):
-                out = R.depthwise_conv2d_f32(
-                    x, env[node.inputs[1]], bias, out_hw, a["stride"],
-                    a["dilation"], pads, act == "RELU")
-            else:
-                out = R.conv2d_f32(
-                    x, env[node.inputs[1]], bias, out_hw, a["stride"],
-                    a["dilation"], pads, act == "RELU", self.compute_dtype,
-                    self.accum_dtype)
-            out = apply_float_act(out, act, a.get("alpha", 0.01) or 0.01)
-        elif op == "MAXPOOL":
-            out = R.maxpool(x, a["kernel"], a["stride"], _nhwc_out_hw(out_t),
-                            _pool_pads(a, (x.shape[1], x.shape[2])))
-        elif op == "RELU":
-            out = R.relu(x)
-        elif op == "RELU6":
-            out = R.relu6(x)
-        elif op == "LEAKY_RELU":
-            out = R.leaky_relu(x, a.get("alpha", 0.0) or 0.01)
-        elif op == "SIGMOID":
-            out = torch.sigmoid(x)
-        elif op in ("SILU", "SILU_FUSED"):
-            out = R.silu(x)
-        elif op == "CONCAT":
-            xs = [env[i] for i in node.inputs]
-            out = R.concat(xs, concat_axis(node, xs, out_t))
-        elif op in ("ADD", "MUL"):
-            fn = R.add_q if op == "ADD" else R.mul_q
-            out = fn(x, env[node.inputs[1]], self.scale(node.inputs[0]),
-                     self.scale(node.inputs[1]), self.scale(out_name))
-        elif op == "UPSAMPLE":
-            out_hw = _nhwc_out_hw(out_t)
-            out = R.upsample_nearest(x, upsample_scale(node, x, out_hw),
-                                     out_hw)
-        elif op == "RESHAPE":
-            out = reshape_to(x, out_t)
-        elif op == "DEQUANT":   # int8, or the same values held in bf16
-            out = x.to(torch.float32) * float(np.float32(a["scale"]))
-        elif op == "QUANT":
-            out = R.quantize_edge(x, a["scale"])
-        else:   # SPLIT
-            off = 0
-            for o, sz in zip(node.outputs, a["sizes"]):
-                env[o] = x.narrow(int(a["axis"]), off, sz)
-                off += sz
-            return
-        env[out_name] = out
+        super().__init__(graph, device, "full", fuse_silu=fuse_silu)
 
 
 def build_executor(graph: Graph, device: torch.device | str = "cuda",
@@ -1395,7 +1442,9 @@ def build_executor(graph: Graph, device: torch.device | str = "cuda",
     fast tier over a dequantized graph, its convs in ``compute_dtype``
     (float32 here, as the JAX ``ExecOptions``; the engine takes bf16),
     their sums in float32 or, with ``accum_dtype=torch.bfloat16``,
-    rounded to bf16 before the bias (:func:`ops.reference.conv2d_f32`)."""
+    rounded to bf16 before the bias (:func:`ops.reference.conv2d_f32`).
+    ``round_mode`` is the requantize rule of the convs outside the serving
+    tier's fused kernels."""
     if precision == "exact":
         return ExactExecutor(graph, device, mode, round_mode, fuse_silu)
     if precision == "fast":
@@ -1403,4 +1452,4 @@ def build_executor(graph: Graph, device: torch.device | str = "cuda",
                             accum_dtype)
     if precision != "serving":
         raise ValueError(f"unknown precision {precision!r}")
-    return Executor(graph, device, planned)
+    return Executor(graph, device, planned, round_mode)

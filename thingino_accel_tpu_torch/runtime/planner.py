@@ -32,7 +32,7 @@ import numpy as np
 from thingino_accel_tpu_torch.ir.graph import Node, TensorInfo
 from thingino_accel_tpu_torch.ops import reference as R
 
-_FOLD_ELTWISE = ("RELU", "RELU6", "LEAKY_RELU", "SILU", "SILU_FUSED",
+FOLD_ELTWISE = ("RELU", "RELU6", "LEAKY_RELU", "SILU", "SILU_FUSED",
                  "SIGMOID", "CLIP")
 _EPILOGUE_ACTS = ("NONE", "RELU", "LEAKY_RELU", "SILU")
 
@@ -183,7 +183,7 @@ def plan_folds(nodes, tensors, graph_outputs) -> FoldPlan:
             if fa == fb and fa > 1 and pa == pb:
                 plan.fold[out] = fa
                 plan.parts[out] = pa
-        elif node.op in _FOLD_ELTWISE:
+        elif node.op in FOLD_ELTWISE:
             f = plan.f(node.inputs[0])
             if f > 1:
                 plan.fold[out] = f
