@@ -155,7 +155,10 @@ Phases:
    probe's own (no halo computed twice), and the device's idle time
    between an application's kernels (each kernel's start less the
    previous one's end in a ``torch.profiler`` trace of chained
-   applications behind a spin, the mean and spread of three traces); E1's ``_int_mm`` chain split into its L
+   applications behind a spin, the mean and spread of three traces; a
+   trace that lost kernels from the profiler's record is taken again, at
+   most three times, and the count is printed); E1's ``_int_mm`` chain
+   split into its L
    products and the glue between them; E4 by the chained timing beside
    chained ``torch.add``; both decision rules as they come out on this
    card; the health ladder, one line a rung, each rung in its own
@@ -245,6 +248,30 @@ Phases:
    and the fast tier's, float32 within 1e-5 of the largest |output|,
    convs 1e-4, the fast tier's floats 2^-6); (e) ``nchw_io``: an NCHW
    feed gives the NHWC run's outputs, transposed.
+16. ``[onnx]``: models that the port's format code wrote, served on the
+   card, a batch of 16 uint8 1280x720 frames from seed 0 through each
+   leg's pipeline (letterbox -> the network -> decode -> NMS), the counts
+   set to 0 before and read after, then its ms a batch (CUDA events), and
+   each conversion's host seconds: (a) the `.mars` writer
+   (``formats.mars_export.export_mars``) of the loaded real yolov5n gives
+   the file's bytes; ``Engine.from_yolo_mars`` of those bytes in the
+   planned serving tier launches the plan's census (#1, #2, #3, #6) and
+   one #8, and its heads equal bit for bit those of the engine that
+   ``from_yolo_mars`` builds from the file's path (the bytes and the path
+   are the loader's two routes in, both held); (b)
+   ``models.onnx_fixtures.qdq_yolov5("s")`` at 640 (w_scale
+   ``ONNX_W_SCALE``, so that its heads spread), a QDQ ONNX model, through
+   ``cli.main(["compile", ...])`` to an int8 `.mars`, then the planned
+   serving tier: its census and one #8 launched (#4's count printed: the
+   imported SiLUs are SIGMOID + MUL), its heads equal, bit for bit, to the
+   CPU's (the kernels' plain versions) on all ``ONNX_CPU_FRAMES``
+   frames of the batch; (c) the real yolov5n's heads graph through
+   ``formats.onnx_export.ir_to_onnx`` and ``compile --float32`` to a
+   float32 `.mars`, then the fast tier (bf16) on the real-valued input
+   (``pixel - 128`` times the input scale): #8's bf16 mode once and no
+   other kernel, boxes out, its bf16 heads within ``FAST_HEAD_TOL`` of the
+   largest |head| of the CPU's float32 exact forward of the same graph on
+   all ``ONNX_CPU_FRAMES`` frames of the batch.
 
 Each path is run with the launch counters set to 0 just before it and
 read just after. Tolerances (as in ``tests/test_torch_fused_kernels.py``):
@@ -270,6 +297,9 @@ numbers; null where no single call exists) and its bound (``bound_ms``:
 the larger of the bytes it must move over 3.35 TB/s and its int8
 operations over 1,979 TOP/s, the H100 SXM's published peaks), at its
 first case's shape.
+
+Each kernel's line also carries ``onnx_launches``, its launches in
+``[onnx]``'s three counted runs.
 
 Prints the kernels' JSON line, the card's ``name, power.limit`` line and,
 as the last line, ``{"ok": true, "device": {...}}``. Any failure exits
@@ -2612,7 +2642,8 @@ def phase_probes(results: dict) -> dict:
                  f"launch gap {c['gap_ms']:.4f} ms "
                  f"({c['gap_lo_ms']:.4f}-{c['gap_hi_ms']:.4f} over the "
                  f"traces; {c['gap_ms'] / max(c['launches'] - 1, 1):.4f} "
-                 f"between two of its {c['launches']} kernels)"
+                 f"between two of its {c['launches']} kernels; "
+                 f"{c['retaken']} incomplete traces taken again)"
                  if "gap_ms" in c else ""))
     print(f"[probes] the mma.sync times: {mma3['device']} "
           f"({MMA_MEGAKERNEL.name}, {MMA_CHAIN.name})")
@@ -3440,6 +3471,185 @@ def phase_ops() -> dict:
     return res
 
 
+ONNX_W_SCALE = 0.002   # the QDQ yolov5s's weight scale: heads that spread
+ONNX_CPU_FRAMES = BATCH   # the frames whose heads the CPU computes too:
+                          # all of them, so that no slot goes unchecked
+
+
+def onnx_leg(results: dict, what: str, pipe, fr, want: dict) -> dict:
+    """One counted run of ``pipe`` on the frames ``fr`` (the counts set to
+    0 before, read after, held to ``want``: every other counter 0), its
+    detections checked, then its ms a batch; the leg's launches are added
+    to each kernel's ``onnx_launches``."""
+    import torch
+    pipe(fr)   # warm-up: allocator, library first use
+    torch.cuda.synchronize()
+    reset_launches()
+    dets = pipe(fr)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    expected = {k: 0 for k in counts}
+    expected.update(want)
+    require(counts == expected, f"[onnx] {what}: launches {counts}, "
+                                f"expected {expected}")
+    for k, v in counts.items():
+        if k in results:
+            results[k]["onnx_launches"] = (
+                results[k].get("onnx_launches", 0) + v)
+    n_dets = check_detections([dets], (640, 640))
+    ms = time_ms(lambda: pipe(fr), OPS_ITERS)
+    return {"launches": {k: v for k, v in counts.items() if v}, "ms": ms,
+            "dets_per_frame_mean": sum(n_dets) / len(n_dets)}
+
+
+def phase_onnx(results: dict) -> dict:
+    """``[onnx]`` (phase 16 of the docstring)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch import cli
+    from thingino_accel_tpu_torch.formats.mars_export import export_mars
+    from thingino_accel_tpu_torch.formats.onnx_export import ir_to_onnx
+    from thingino_accel_tpu_torch.models import onnx_fixtures, zoo
+    from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.ops.decode_kernel import (
+        decode_and_parse_fused,
+    )
+    from thingino_accel_tpu_torch.runtime.engine import (
+        Engine, EngineOptions, load_graph,
+    )
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    serving = EngineOptions(precision="serving")
+    fr = torch.from_numpy(frames_of(1)[0]).to(dev)
+    x = Y.quantize_input_int8(Y.letterbox_uint8(fr, (640, 640)))
+    n_cpu = ONNX_CPU_FRAMES
+    res = {}
+
+    # (a) the .mars writer on the serving path
+    t0 = time.perf_counter()
+    blob = export_mars(load_graph(str(MODEL)))
+    write_s = time.perf_counter() - t0
+    require(blob == MODEL.read_bytes(), "[onnx] (a) export_mars of the real "
+                                        "yolov5n differs from the file")
+    eng = Engine.from_yolo_mars(blob, serving, device=dev)
+    census = eng._fn.launch_census()
+    require(census == PLANNED_REAL, f"[onnx] (a) census {census}")
+    leg = onnx_leg(results, "(a)", Y.build_serving_pipeline(eng), fr,
+                   {**census, DECODE: 1})
+    heads = eng.forward(x)
+    ref = Engine.from_yolo_mars(str(MODEL), serving, device=dev).forward(x)
+    require(all(torch.equal(heads[k], ref[k]) for k in ref),
+            "[onnx] (a) heads differ from the file's own engine's")
+    print(f"[onnx] (a) export_mars of the real yolov5n = the file's "
+          f"{len(blob)} bytes (host {write_s:.3f} s); from_yolo_mars of them,"
+          f" serving: heads = the file's engine's bit for bit; launches "
+          f"{leg['launches']}; {leg['ms']:.3f} ms a batch of {BATCH}")
+    res["a_mars_writer"] = {**leg, "write_s": write_s}
+    heads_a = {k: v[:n_cpu].cpu().float() * float(np.float32(
+        eng.graph.tensors[k].quant.scale)) for k, v in heads.items()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) compile of a QDQ int8 model
+        src, out = f"{tmp}/qdq.onnx", f"{tmp}/qdq.mars"
+        t0 = time.perf_counter()
+        data = onnx_fixtures.qdq_yolov5("s", zoo.ZooConfig(
+            w_scale=ONNX_W_SCALE))
+        gen_s = time.perf_counter() - t0
+        Path(src).write_bytes(data)
+        t0 = time.perf_counter()
+        require(cli.main(["compile", "-i", src, "-o", out]) == 0,
+                "[onnx] (b) compile failed")
+        compile_s = time.perf_counter() - t0
+        eng = Engine.from_mars(out, serving, device=dev)
+        census = eng._fn.launch_census()
+        leg = onnx_leg(results, "(b)", Y.build_serving_pipeline(eng), fr,
+                       {**census, DECODE: 1})
+        for k in ("matmul_int8_fused", "conv2d_int8_halo_fused",
+                  "matmul_int8_fused_multi", "bottleneck_int8_fused"):
+            require(leg["launches"].get(k, 0) > 0, f"[onnx] (b) {k} never "
+                                                   "launched")
+        heads = eng.forward(x)
+        cpu = Engine.from_mars(out, serving, device="cpu")
+        ref = cpu.forward(x[:n_cpu].cpu())
+        require(all(torch.equal(heads[k][:n_cpu].cpu(), r)
+                    for k, r in ref.items()),
+                "[onnx] (b) card heads differ from the CPU's")
+        sat = float(np.mean([(r.abs() >= 127).float().mean().item()
+                             for r in ref.values()]))
+        print(f"[onnx] (b) qdq_yolov5('s') at 640: {len(data)} ONNX bytes "
+              f"(host {gen_s:.3f} s) -> compile {compile_s:.3f} s -> int8 "
+              f".mars, serving: heads = the CPU's bit for bit on {n_cpu} "
+              f"frames ({sat:.3f} of them at the clamp); census {census}; "
+              f"#4 {leg['launches'].get('sppf_int8_fused', 0)}; launches "
+              f"{leg['launches']}; {leg['ms']:.3f} ms a batch of {BATCH}")
+        res["b_compile_qdq"] = {**leg, "gen_s": gen_s,
+                                "compile_s": compile_s, "census": census,
+                                "saturated_share": sat}
+
+        # (c) export-onnx and compile --float32, the fast tier
+        g = load_graph(str(MODEL))
+        g = g.with_outputs(Y.find_detect_outputs(g))
+        in_scale = float(np.float32(g.tensors[g.inputs[0]].quant.scale))
+        src, out = f"{tmp}/heads.onnx", f"{tmp}/heads.mars"
+        t0 = time.perf_counter()
+        Path(src).write_bytes(ir_to_onnx(g))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        require(cli.main(["compile", "-i", src, "-o", out, "--float32"])
+                == 0, "[onnx] (c) compile --float32 failed")
+        compile_s = time.perf_counter() - t0
+        fg = load_graph(out)
+        require([fg.tensors[o].shape for o in fg.outputs] == [
+            (1, 80, 80, 255), (1, 40, 40, 255), (1, 20, 20, 255)],
+            "[onnx] (c) the re-imported heads' shapes")
+        fast = Engine(fg, EngineOptions(precision="fast"), device=dev)
+        names = fast.output_names
+
+        def real_input(frames):
+            """pixel - 128 at the input's scale: the real values the int8
+            graph's input stands for."""
+            q = Y.quantize_input_int8(Y.letterbox_uint8(frames, (640, 640)))
+            return q.to(torch.float32) * in_scale
+
+        def pipe_c(frames):
+            feats = fast.forward(real_input(frames).to(torch.bfloat16))
+            return Y.nms_batched(*decode_and_parse_fused(
+                [feats[k] for k in names]), max_dets=100, pre_nms=128,
+                topk_group=8)
+
+        leg = onnx_leg(results, "(c)", pipe_c, fr, {FAST_DECODE: 1})
+        xf = real_input(fr)
+        heads = fast.forward(xf.to(torch.bfloat16))
+        ref = Engine(fg, EngineOptions(precision="exact"),
+                     device="cpu").forward(xf[:n_cpu].cpu())
+        rel = max(float((heads[k][:n_cpu].cpu().float() - r).abs().max()
+                        / r.abs().max()) for k, r in ref.items())
+        require(all(heads[k].dtype == torch.bfloat16 for k in names)
+                and rel <= FAST_HEAD_TOL,
+                f"[onnx] (c) bf16 heads {rel:.4g} of the largest |head| "
+                "from the CPU's f32 forward")
+        # the float32 round trip beside the int8 model it came from: (a)'s
+        # serving heads, dequantized (printed, not held: noise frames
+        # through 60 quantized layers, ROADMAP.md C.2)
+        rms = {k: float(((heads_a[k] - r) ** 2).mean().sqrt()
+                        / (r ** 2).mean().sqrt()) for k, r in ref.items()}
+        print(f"[onnx] (c) ir_to_onnx of the real yolov5n's heads graph "
+              f"(host {export_s:.3f} s) -> compile --float32 "
+              f"{compile_s:.3f} s -> fast tier: bf16 heads within {rel:.4g}"
+              f" of the largest |head| of the CPU's f32 exact forward on "
+              f"{n_cpu} frames (bound {FAST_HEAD_TOL}); launches "
+              f"{leg['launches']}; {leg['ms']:.3f} ms a batch of {BATCH}; "
+              f"the f32 forward against (a)'s int8 heads, relative RMS "
+              f"{[round(v, 4) for v in rms.values()]}")
+        res["c_export_f32"] = {**leg, "export_s": export_s,
+                               "compile_s": compile_s, "head_rel_diff": rel,
+                               "rel_rms_vs_int8": rms}
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[onnx] phase {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     if not (REPO / "thingino_accel_tpu_torch" / "csrc").is_dir() \
             or not MODEL.exists() or not NANODET.exists():
@@ -3474,6 +3684,7 @@ def main() -> int:
         fast_res = phase_fast(results)
         streams_res = phase_streams(zoo_eng)
         ops_res = phase_ops()
+        onnx_res = phase_onnx(results)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -3489,7 +3700,8 @@ def main() -> int:
                         "bound_ms": rep["bound_ms"],
                         "bound_by": rep["bound_by"],
                         "library_ms": rep["library_ms"], "at": rep["case"],
-                        "path": PATH_OF[k]})
+                        "path": PATH_OF[k],
+                        "onnx_launches": r.get("onnx_launches", 0)})
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -3501,7 +3713,8 @@ def main() -> int:
         "exact": exact_res, "exact_kxk": exact_kxk,
         "probe_checks": probe_checks,
         "probes": probes_res, "pipeline": pipeline_res,
-        "fast": fast_res, "streams": streams_res, "ops": ops_res},
+        "fast": fast_res, "streams": streams_res, "ops": ops_res,
+        "onnx": onnx_res},
         indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -69,7 +69,13 @@ device spin; the fast tier's bf16 conv in both accumulation modes within
 1 bf16 ulp of the CPU's. The shared lowering's graphs
 (``models.ops_graphs``, ``chip_smoke.py`` ``[ops]`` (c) and (d) at the
 small size) in every tier on the card against the CPU, by
-``ops_graphs.check_outputs``.
+``ops_graphs.check_outputs``. Models the format code wrote
+(``chip_smoke.py`` ``[onnx]`` at the zoo yolov5n at 320): a graph written
+by ``export_mars`` and read back serves planned with its heads equal to
+the source graph's engine's; a QDQ model compiled by the CLI serves
+planned with its heads equal to the CPU's; a heads graph through
+``ir_to_onnx`` and ``compile --float32`` runs the fast tier, #8 in its
+bf16 mode, its heads within 2^-4 of the CPU's float32 forward.
 """
 
 import dataclasses
@@ -1827,3 +1833,112 @@ def test_ops_graphs_on_the_card(cuda, kind, tier):
     assert set(card) == set(g.outputs)
     assert all(v.is_cuda for v in card.values())
     OG.check_outputs(card, cpu, tier)
+
+
+def _zoo_v5n_320(w_scale=0.002):
+    from thingino_accel_tpu_torch.models import zoo
+    return zoo.ZooConfig(in_hw=(320, 320), w_scale=w_scale)
+
+
+def _frames_320(dev, n=4):
+    frames = np.random.default_rng(8).integers(0, 256, (n, 320, 320, 3),
+                                               dtype=np.uint8)
+    return torch.from_numpy(frames).to(dev)
+
+
+def _launched(fn):
+    """``fn()``'s launches of every kernel (the counts set to 0 before)."""
+    from thingino_accel_tpu_torch.ops import conv as C
+    for mod in (FK, DK, RK, PK):
+        mod.reset_launches()
+    C.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {**FK.launches, **DK.launches, **RK.launches, **PK.launches,
+              **C.counts}
+    return out, {k: v for k, v in counts.items() if v}
+
+
+def test_mars_writer_graph_serves_on_the_card(cuda):
+    """``chip_smoke.py`` ``[onnx]`` (a) at the zoo yolov5n at 320: the
+    graph written by ``export_mars`` and read back runs the planned serving
+    tier's kernels, its census and one #8 a batch, and its heads equal the
+    source graph's engine's on the card bit for bit."""
+    from thingino_accel_tpu_torch.formats.mars_export import export_mars
+    from thingino_accel_tpu_torch.models import zoo
+    from thingino_accel_tpu_torch.runtime.engine import (
+        Engine, EngineOptions, load_graph,
+    )
+    g = zoo.build_yolov5("n", _zoo_v5n_320())
+    opts = EngineOptions(precision="serving")
+    eng = Engine(load_graph(export_mars(g)), opts, device=cuda)
+    pipe = Y.build_serving_pipeline(eng)
+    fr = _frames_320(cuda)
+    _, counts = _launched(lambda: pipe(fr))
+    census = {k: v for k, v in eng._fn.launch_census().items() if v}
+    assert counts == {**census, "decode_and_parse_fused": 1}
+    x = Y.quantize_input_int8(fr)
+    got, want = eng.forward(x), Engine(g, opts, device=cuda).forward(x)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+def test_compiled_qdq_model_serves_on_the_card(cuda, tmp_path):
+    """``[onnx]`` (b) at the zoo yolov5n at 320: its QDQ ONNX model
+    (``models.onnx_fixtures.qdq_yolov5``) compiled by the CLI to an int8
+    `.mars`, served planned: #1, #2, #3, #6 and one #8 launched, the heads
+    equal the CPU's bit for bit."""
+    from thingino_accel_tpu_torch import cli
+    from thingino_accel_tpu_torch.models import onnx_fixtures
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+    src, out = str(tmp_path / "m.onnx"), str(tmp_path / "m.mars")
+    with open(src, "wb") as f:
+        f.write(onnx_fixtures.qdq_yolov5("n", _zoo_v5n_320()))
+    assert cli.main(["compile", "-i", src, "-o", out]) == 0
+    opts = EngineOptions(precision="serving")
+    eng = Engine.from_mars(out, opts, device=cuda)
+    pipe = Y.build_serving_pipeline(eng)
+    fr = _frames_320(cuda)
+    _, counts = _launched(lambda: pipe(fr))
+    for k in ("matmul_int8_fused", "conv2d_int8_halo_fused",
+              "matmul_int8_fused_multi", "bottleneck_int8_fused",
+              "decode_and_parse_fused"):
+        assert counts.get(k, 0) > 0, counts
+    x = Y.quantize_input_int8(fr)
+    got = eng.forward(x)
+    want = Engine.from_mars(out, opts, device="cpu").forward(x.cpu())
+    assert all(torch.equal(got[k].cpu(), want[k]) for k in want)
+
+
+def test_exported_f32_model_runs_the_fast_tier_on_the_card(cuda, tmp_path):
+    """``[onnx]`` (c) at the zoo yolov5n at 320: its heads graph through
+    ``ir_to_onnx`` and ``compile --float32``, then the fast tier on the
+    real-valued input: #8's bf16 mode once and no other kernel, the bf16
+    heads within 2^-4 of the largest |head| of the CPU's float32 exact
+    forward."""
+    from thingino_accel_tpu_torch import cli
+    from thingino_accel_tpu_torch.formats.onnx_export import ir_to_onnx
+    from thingino_accel_tpu_torch.models import zoo
+    from thingino_accel_tpu_torch.runtime.engine import (
+        Engine, EngineOptions, load_graph,
+    )
+    g = zoo.build_yolov5("n", _zoo_v5n_320())
+    src, out = str(tmp_path / "m.onnx"), str(tmp_path / "m.mars")
+    with open(src, "wb") as f:
+        f.write(ir_to_onnx(g))
+    assert cli.main(["compile", "-i", src, "-o", out, "--float32"]) == 0
+    fg = load_graph(out)
+    fast = Engine(fg, EngineOptions(precision="fast"), device=cuda)
+    x = Y.quantize_input_int8(_frames_320(cuda)).float() * float(
+        np.float32(g.tensors[g.inputs[0]].quant.scale))
+    names = fast.output_names
+    heads, counts = _launched(lambda: fast.forward(x.to(torch.bfloat16)))
+    dets, dcounts = _launched(lambda: DK.decode_and_parse_fused(
+        [heads[k] for k in names]))
+    assert not counts and dcounts == {"decode_and_parse_fused_bf16": 1}
+    assert torch.isfinite(dets[0]).all()
+    ref = Engine(fg, EngineOptions(precision="exact"),
+                 device="cpu").forward(x.cpu())
+    for k, r in ref.items():
+        assert heads[k].dtype == torch.bfloat16
+        err = float((heads[k].cpu().float() - r).abs().max())
+        assert err <= 2.0 ** -4 * float(r.abs().max()), (k, err)

@@ -16,10 +16,15 @@ machine lists none) and imports nothing of the JAX package.
   the DFL decode, ``cli summary/run``), and the shared lowering of every
   tier (``models.ops_graphs``' int8, float and recurrent graphs, the whole
   real yolov5n file with its degenerate tail, ``tiny_160_f32.mars``,
-  ``nchw_io`` and ``donate_inputs``).
+  ``nchw_io`` and ``donate_inputs``), and the model compiler's formats:
+  the QDQ yolov5n of ``models.onnx_fixtures`` imported in int8 mode,
+  written as `.mars`, read back and served; its heads graph exported as
+  float32 ONNX (``ir_to_onnx``) and imported again; the CLI's
+  ``compile``, ``gen-test`` and ``export-onnx``.
 - No module of the port and no line of ``chip_smoke.py`` holds an
   ``import`` of ``thingino_accel_tpu`` (parsed with ``ast``, so an import
-  inside a function counts too).
+  inside a function counts too); the walk covers the format modules and
+  ``models/onnx_fixtures.py``.
 """
 
 import ast
@@ -216,6 +221,30 @@ SCRIPT = textwrap.dedent("""
     tiny = thingino_accel_tpu_torch.Engine.from_mars(
         "models/fixtures/tiny_160_f32.mars", device="cpu")
     assert tiny.run_np(np.zeros((1, 160, 160, 3), np.float32))
+    import tempfile
+    from thingino_accel_tpu_torch.formats import mars_export, onnx
+    from thingino_accel_tpu_torch.formats.onnx_export import ir_to_onnx
+    from thingino_accel_tpu_torch.models import onnx_fixtures
+    qdq = onnx_fixtures.qdq_yolov5("n", zoo.ZooConfig(in_hw=(64, 64)))
+    imported = onnx.import_onnx(qdq)
+    assert [n.op for n in imported.nodes].count("SIGMOID") == 57
+    compiled = mars_export.export_mars(imported)
+    eng = thingino_accel_tpu_torch.Engine(load_graph(compiled), serving,
+                                          device="cpu")
+    heads = eng.run_np(np.zeros((1, 64, 64, 3), np.int8))
+    assert [h.shape for h in heads.values()] == [
+        (1, 8, 8, 255), (1, 4, 4, 255), (1, 2, 2, 255)]
+    f32 = onnx.import_onnx(ir_to_onnx(imported), float32=True)
+    assert [f32.tensors[o].shape for o in f32.outputs] == [
+        (1, 8, 8, 255), (1, 4, 4, 255), (1, 2, 2, 255)]
+    with tempfile.TemporaryDirectory() as d:
+        src, out = d + "/m.onnx", d + "/m.mars"
+        open(src, "wb").write(qdq)
+        assert cli.main(["compile", "-i", src, "-o", out]) == 0
+        assert open(out, "rb").read() == compiled
+        assert cli.main(["gen-test", "-o", out]) == 0
+        assert cli.main(["export-onnx", "-i", out, "-o", src]) == 0
+        assert onnx.import_onnx(src, float32=True).outputs == ["output"]
     assert sys.modules["jax"] is None
     assert sys.modules["thingino_accel_tpu"] is None
     print("ok")
@@ -245,6 +274,10 @@ def test_no_import_of_the_jax_package():
                                                "thingino_accel_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    pkg = os.path.join(REPO, "thingino_accel_tpu_torch")
+    assert {os.path.join(pkg, "formats", f + ".py") for f in (
+        "onnx_proto", "onnx_writer", "onnx", "onnx_export", "mars_export")
+    } | {os.path.join(pkg, "models", "onnx_fixtures.py")} <= set(files)
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imports_of(f)
            if m.split(".")[0] in ("thingino_accel_tpu", "jax")]

@@ -229,6 +229,26 @@ def test_trace_read_takes_the_gap_inside_each_application():
         P3.trace_read(spans[:5], 2)
 
 
+def test_complete_reads_takes_an_incomplete_trace_again():
+    """``probes.megakernel.complete_reads``: a trace whose kernels do not
+    split evenly into its applications (the profiler lost some) is taken
+    again and counted; more incomplete traces than ``retakes`` raise, and
+    so do complete traces that disagree on an application's launches."""
+    full = [("stage_wgmma_kernel<1>", 0.0, 10.0),
+            ("at::native::pad", 11.0, 15.0),
+            ("stage_wgmma_kernel<1>", 100.0, 110.0),
+            ("at::native::pad", 111.0, 115.0)]
+    seq = iter([full[:3], full, full[1:], full])
+    reads = P3.complete_reads(lambda: next(seq), 2, traces=2)
+    assert [r["retaken"] for r in reads] == [1, 2]
+    assert all(r["launches"] == 2 for r in reads)
+    with pytest.raises(ValueError):
+        P3.complete_reads(lambda: full[:3], 2, traces=1, retakes=3)
+    seq = iter([full, full[:2]])
+    with pytest.raises(ValueError, match="disagree"):
+        P3.complete_reads(lambda: next(seq), 2, traces=2)
+
+
 def test_sigmoid_fast_equals_jax_outside_a_kernel():
     """``SILU_FAST``: the port's ``sigmoid_fast`` and requantize equal the
     JAX ``_sigmoid_fast`` / ``_act_requant`` as they run eagerly, outside a

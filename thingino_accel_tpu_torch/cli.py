@@ -6,13 +6,18 @@
   times;
 - ``detect``  — YOLO detection on one image: the model's three detect
   heads (or its one predictions output) through the exact tier, the
-  float decode, class-aware NMS, boxes in the image's pixels.
+  float decode, class-aware NMS, boxes in the image's pixels;
+- ``compile`` — ONNX -> `.mars` (``formats.onnx`` then
+  ``formats.mars_export``; ``--float32`` folds Q/DQ away, else a QDQ model
+  becomes an int8 `.mars`);
+- ``gen-test`` — a one-conv int8 test `.mars` from a seed;
+- ``export-onnx`` — `.mars` -> float32 ONNX (``formats.onnx_export``).
 
 ``run`` and ``detect`` take ``--device`` (``cuda`` by default; without a
 card they fail, and ``--device cpu`` runs the kernels' plain versions).
-``compile``, ``decompile``, ``gen-test``, ``quantize``, ``export-onnx``
-and ``bench`` are not ported yet: each exits non-zero naming its ROADMAP
-item.
+``compile``, ``gen-test`` and ``export-onnx`` convert files on the host
+and touch no device. ``decompile``, ``quantize`` and ``bench`` are not
+ported yet: each exits non-zero naming its ROADMAP item.
 
 Usage: ``python -m thingino_accel_tpu_torch.cli <command> ...``
 """
@@ -27,13 +32,8 @@ import numpy as np
 
 # the subcommands still to port, with the ROADMAP item each waits on
 NOT_PORTED = {
-    "compile": ("ONNX -> .mars", "A.4 (ONNX import, the .mars exporter)"),
-    "decompile": (".mgk -> metadata/weights/onnx",
-                  "A.4 (.mgk, JZDL and the ONNX exporter)"),
-    "gen-test": ("generate a test .mars model",
-                 "A.4 (the .mars writer and exporters)"),
+    "decompile": (".mgk -> metadata/weights/onnx", "A.4 (.mgk and JZDL)"),
     "quantize": ("PTQ: f32 .onnx/.mars -> int8 .mars", "A.8 (training/ptq)"),
-    "export-onnx": (".mars -> float32 ONNX", "A.4 (the ONNX exporter)"),
     "bench": ("run the headline benchmark", "A.1 (the GPU bench)"),
 }
 
@@ -143,6 +143,58 @@ def cmd_detect(args) -> int:
     return 0
 
 
+def cmd_compile(args) -> int:
+    from thingino_accel_tpu_torch.formats import mars_export
+    from thingino_accel_tpu_torch.formats import onnx as O
+    # --nhwc is parsed for the JAX CLI's arguments; the IR is always NHWC.
+    graph = O.import_onnx(args.input, float32=args.float32,
+                          verbose=args.verbose)
+    mars_export.export_mars(graph, args.output)
+    print(f"wrote {args.output}")
+    return 0
+
+
+def cmd_gen_test(args) -> int:
+    """A one-conv int8 test `.mars` (the tools/mars_gen_test.py role)."""
+    from thingino_accel_tpu_torch.formats import mars as M
+    rng = np.random.default_rng(args.seed)
+    h, w, cin, cout = args.height, args.width, args.channels, args.out_channels
+    weights = rng.integers(-128, 128, (cout, 3, 3, cin), dtype=np.int8)
+    bias = np.zeros((cout,), np.int32)
+    tensors = [
+        M.MarsTensor(0, "input", M.DType.INT8, M.Format.NHWC,
+                     (1, h, w, cin), scale=1.0),
+        M.MarsTensor(1, "conv1_weight", M.DType.INT8, M.Format.OHWI,
+                     (cout, 3, 3, cin), scale=0.01),
+        M.MarsTensor(2, "conv1_bias", M.DType.INT32, M.Format.D1, (cout,)),
+        M.MarsTensor(3, "output", M.DType.INT8, M.Format.NHWC,
+                     (1, h, w, cout), scale=1.0),
+    ]
+    layers = [M.MarsLayer(0, M.LayerType.CONV2D, (0,), (3,),
+                          M.ConvParams(kernel_h=3, kernel_w=3,
+                                       padding=M.Padding.SAME,
+                                       activation=M.Activation.RELU,
+                                       weight_tensor_id=1,
+                                       bias_tensor_id=2))]
+    model = M.build_mars(tensors, layers, [0], [3],
+                         {1: weights, 2: bias})
+    M.write_mars(model, args.output)
+    print(f"wrote {args.output}: 1 conv layer, {h}x{w}x{cin} -> {cout}ch")
+    return 0
+
+
+def cmd_export_onnx(args) -> int:
+    """.mars -> float32 ONNX (dequantized weights), the reverse of
+    ``compile``."""
+    from thingino_accel_tpu_torch.formats.onnx_export import ir_to_onnx
+    from thingino_accel_tpu_torch.runtime.engine import load_graph
+    blob = ir_to_onnx(load_graph(args.input))
+    with open(args.output, "wb") as f:
+        f.write(blob)
+    print(f"wrote {args.output} ({len(blob)} bytes)")
+    return 0
+
+
 def _not_ported(cmd: str):
     def fn(args) -> int:
         print(f"error: '{cmd}' is not ported to the PyTorch package yet: "
@@ -178,6 +230,28 @@ def main(argv=None) -> int:
     s.add_argument("--max-dets", type=int, default=100)
     s.add_argument("--device", default="cuda")
     s.set_defaults(fn=cmd_detect)
+
+    s = sub.add_parser("compile", help="ONNX -> .mars")
+    s.add_argument("-i", "--input", required=True)
+    s.add_argument("-o", "--output", required=True)
+    s.add_argument("--float32", action="store_true")
+    s.add_argument("--nhwc", action="store_true")
+    s.add_argument("-v", "--verbose", action="store_true")
+    s.set_defaults(fn=cmd_compile)
+
+    s = sub.add_parser("gen-test", help="generate a test .mars model")
+    s.add_argument("-o", "--output", default="test_model.mars")
+    s.add_argument("--height", type=int, default=64)
+    s.add_argument("--width", type=int, default=64)
+    s.add_argument("--channels", type=int, default=3)
+    s.add_argument("--out-channels", type=int, default=16)
+    s.add_argument("--seed", type=int, default=0)
+    s.set_defaults(fn=cmd_gen_test)
+
+    s = sub.add_parser("export-onnx", help=".mars -> float32 ONNX")
+    s.add_argument("-i", "--input", required=True)
+    s.add_argument("-o", "--output", required=True)
+    s.set_defaults(fn=cmd_export_onnx)
 
     for cmd, (what, item) in NOT_PORTED.items():
         # any arguments are taken as they come, dashes too: none is read

@@ -1,3 +1,37 @@
-"""Model interchange formats: ``mars`` (the `.mars` reader and writer) and
-``packing`` (the NNA packed-layout codecs it uses), copied from the JAX
-package."""
+"""Model interchange formats, copied from the JAX package (numpy only):
+
+- ``mars``: the `.mars` binary graph format (reader + writer);
+- ``packing``: the NNA packed-layout codecs it uses;
+- ``onnx_proto`` / ``onnx_writer``: the hand-rolled ONNX protobuf reader
+  and writer;
+- ``onnx``: ONNX -> IR import, float32 and QDQ int8;
+- ``mars_export`` / ``onnx_export``: IR -> `.mars` and IR -> float32
+  ONNX.
+
+``.mgk`` and JZDL are not ported (ROADMAP.md A.4).
+"""
+
+from thingino_accel_tpu_torch.formats.mars import (
+    MarsModel,
+    MarsTensor,
+    MarsLayer,
+    read_mars,
+    write_mars,
+    DType,
+    Format,
+    LayerType,
+    Activation,
+    Padding,
+)
+from thingino_accel_tpu_torch.formats.packing import (
+    pack_nmhwsoib2,
+    unpack_nmhwsoib2,
+    pack_ndhwc32,
+    unpack_ndhwc32,
+)
+
+__all__ = [
+    "MarsModel", "MarsTensor", "MarsLayer", "read_mars", "write_mars",
+    "DType", "Format", "LayerType", "Activation", "Padding",
+    "pack_nmhwsoib2", "unpack_nmhwsoib2", "pack_ndhwc32", "unpack_ndhwc32",
+]

@@ -1,6 +1,8 @@
 """Network graph IR.
 
-Copy of ``thingino_accel_tpu/ir/graph.py``, plus :func:`graph_from_jax`.
+Copy of ``thingino_accel_tpu/ir/graph.py``, plus :func:`concat_axis_of`
+(the executor's and the ONNX exporter's one rule for a CONCAT's axis) and
+:func:`graph_from_jax`.
 
 The IR is a flat, topologically-ordered op list over named tensors —
 deliberately close to the `.mars` layer table (``include/mars.h:59-79``)
@@ -179,6 +181,32 @@ def count_macs(g: Graph) -> int:
 # ---------------------------------------------------------------------------
 # .mars -> IR import
 # ---------------------------------------------------------------------------
+
+def concat_axis_of(in_shapes: Sequence[Sequence[int]],
+                   out_shape: Sequence[int], axis: int) -> int:
+    """The axis a CONCAT of ``in_shapes`` into ``out_shape`` joins. .mars
+    graphs express it on NCHW axis 1 (NHWC axis 3) and some files carry
+    garbage values (the C runtime ignores the field and always concats
+    channels, mars_runtime.c:963-1000), so it is inferred from the shapes
+    where they identify it; else ``axis``, with 1 read as 3 at rank 4.
+    The rule of JAX's executor (``runtime/executor.py:1168-1180``)."""
+    rank = len(in_shapes[0])
+    if all(len(s) == rank for s in in_shapes):
+        cands = []
+        for ax in range(rank):
+            tot = sum(s[ax] for s in in_shapes)
+            others = all(
+                all(s[d] == in_shapes[0][d] for s in in_shapes)
+                for d in range(rank) if d != ax)
+            if others and len(out_shape) == rank \
+                    and out_shape[ax] in (tot, 0) and tot > 0:
+                cands.append(ax)
+        if len(cands) == 1:
+            axis = cands[0]
+        elif axis == 1 and rank == 4:
+            axis = 3
+    return axis
+
 
 def _feature_shape_nhwc(t: M.MarsTensor) -> Tuple[Tuple[int, ...], bool]:
     """Return (NHWC shape, was_nchw) for a feature tensor descriptor.

@@ -189,33 +189,64 @@ def trace_read(spans, apps: int) -> Dict:
             "other_ms": busy - stage}
 
 
+def complete_reads(take, apps: int, traces: int = 3,
+                   retakes: int = 3) -> List[Dict]:
+    """``traces`` :func:`trace_read` readings of ``take()``, each a trace of
+    ``apps`` applications as ``(name, start_us, end_us)`` spans. A trace
+    whose kernels do not split evenly into the applications lost kernels
+    from the profiler's record; it is taken again, at most ``retakes``
+    times in all, and then the ``ValueError`` stands. Each reading carries
+    ``retaken``, the traces thrown away before it; the readings must agree
+    on the launches of an application."""
+    reads, lost = [], 0
+    while len(reads) < traces:
+        try:
+            read = trace_read(take(), apps)
+        except ValueError:
+            lost += 1
+            if lost > retakes:
+                raise
+            continue
+        read["retaken"] = lost
+        reads.append(read)
+    if len({r["launches"] for r in reads}) != 1:
+        raise ValueError("the traces disagree on an application's launches: "
+                         f"{[r['launches'] for r in reads]}")
+    return reads
+
+
 def kernel_ms(kind: str, k: int, device="cuda", apps: int = 10,
               traces: int = 3) -> Dict:
     """One application's kernels on the card (:func:`trace_read`), the
     mean over ``traces`` ``torch.profiler`` traces of ``apps`` chained
     applications each, enqueued behind a device spin as the chained
     timing is, so that the host's launch rate does not show;
-    ``gap_lo_ms`` / ``gap_hi_ms`` the least and most gap of the traces."""
+    ``gap_lo_ms`` / ``gap_hi_ms`` the least and most gap of the traces,
+    ``retaken`` the incomplete traces taken again
+    (:func:`complete_reads`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn, (x, w), _ = build(kind, k, device)
     y = fn(x, w)
     torch.cuda.synchronize()
-    reads = []
-    for _ in range(traces):
+
+    def take():
+        nonlocal y
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(timing.SPIN_CYCLES_BASE
                               + 4 * timing.SPIN_CYCLES_PER_APP * apps)
             for _ in range(apps):
                 y = fn(y, w)
             torch.cuda.synchronize()
-        reads.append(trace_read(
-            [(e.name, e.time_range.start, e.time_range.end)
-             for e in prof.events() if e.device_type == DeviceType.CUDA
-             and "spin_kernel" not in e.name], apps))
+        return [(e.name, e.time_range.start, e.time_range.end)
+                for e in prof.events() if e.device_type == DeviceType.CUDA
+                and "spin_kernel" not in e.name]
+
+    reads = complete_reads(take, apps, traces)
     out = {key: sum(r[key] for r in reads) / traces for key in reads[0]}
     out["gap_lo_ms"] = min(r["gap_ms"] for r in reads)
     out["gap_hi_ms"] = max(r["gap_ms"] for r in reads)
+    out["retaken"] = reads[-1]["retaken"]
     return out
 
 

@@ -65,7 +65,9 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from thingino_accel_tpu_torch.ir.graph import Graph, Node, TensorInfo
+from thingino_accel_tpu_torch.ir.graph import (
+    Graph, Node, TensorInfo, concat_axis_of,
+)
 from thingino_accel_tpu_torch.ir.passes import fuse_silu_pairs
 from thingino_accel_tpu_torch.ops import conv as C
 from thingino_accel_tpu_torch.ops import fused_kernels as FK
@@ -300,31 +302,6 @@ def act_table(act: str, scale: float, alpha: float = 0.01
         return None
     q = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
     return apply_fused_act(q, act, scale, alpha=alpha).contiguous()
-
-
-def concat_axis(node: Node, xs: Sequence[torch.Tensor],
-                out_t: TensorInfo) -> int:
-    """The axis of a CONCAT: .mars graphs express it on NCHW axis 1 (NHWC
-    axis 3) and some files carry garbage values, so it is inferred from
-    the declared shapes where they identify it (the C runtime always
-    concats channels)."""
-    axis = int(node.attrs.get("axis", 3))
-    rank = xs[0].ndim
-    if all(x.ndim == rank for x in xs):
-        cands = []
-        for ax in range(rank):
-            tot = sum(x.shape[ax] for x in xs)
-            others = all(
-                all(x.shape[d] == xs[0].shape[d] for x in xs)
-                for d in range(rank) if d != ax)
-            if others and len(out_t.shape) == rank \
-                    and out_t.shape[ax] in (tot, 0) and tot > 0:
-                cands.append(ax)
-        if len(cands) == 1:
-            axis = cands[0]
-        elif axis == 1 and rank == 4:
-            axis = 3
-    return axis
 
 
 def reshape_to(x: torch.Tensor, out_t: TensorInfo) -> torch.Tensor:
@@ -974,7 +951,9 @@ class Executor:
                             out_scale=scale(out_name), compat=compat)
         elif op == "CONCAT":
             xs = [env[i] for i in node.inputs]
-            out = R.concat(xs, concat_axis(node, xs, out_t))
+            out = R.concat(xs, concat_axis_of(
+                [tuple(x.shape) for x in xs], tuple(out_t.shape),
+                int(node.attrs.get("axis", 3))))
         elif op in ("ADD", "MUL"):
             fn = R.add_q if op == "ADD" else R.mul_q
             out = fn(x, env[node.inputs[1]], scale(node.inputs[0]),
