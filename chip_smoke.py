@@ -272,6 +272,40 @@ Phases:
    other kernel, boxes out, its bf16 heads within ``FAST_HEAD_TOL`` of the
    largest |head| of the CPU's float32 exact forward of the same graph on
    all ``ONNX_CPU_FRAMES`` frames of the batch.
+17. ``[mgk]``: OEM `.mgk` models decompiled, calibrated to int8 on the
+   card and served, on a batch of 16 ``[slice]`` frames (letterboxed to
+   640x640, nothing cut), each conversion's host seconds and each batch's
+   device ms (CUDA events): ``api.nna_init()`` binds the card and
+   ``nna_get_hw_info`` reports it; (a) the real yolov5n's weights packed
+   as a YOLO `.mgk` (``models.mgk_fixtures.yolo_mgk_from_mars``: each
+   float weight re-quantized per tensor, absmax / 127), ``detect_yolo_
+   family`` gives ``n``, ``api.nna_model_load`` decompiles it to float32
+   ONNX and builds the exact tier on the card (TF32 off): its float32
+   heads on the real-valued frames within ``MGK_F32_TOL`` of the largest
+   |head| of the CPU's on all 16 frames; ``ptq.calibrate`` (percentile
+   99.99) on the card over the 16 frames, its CalibStats within
+   ``MGK_CALIB_RTOL`` of the CPU's calibration of the same frames;
+   ``quantize_graph``, then the planned serving tier through letterbox ->
+   network -> #8 -> NMS with the counts set to 0 before and read after
+   (the plan's census of #1/#2/#3/#6 and one #8, held: a percentile
+   calibration of a pool tensor above 1000 values gives each MAXPOOL
+   output its own scale, so the SPPF fails the planner's equal-scale rule,
+   JAX's, and runs as pools and #3); every kernel unit and every step
+   equal to the CPU's on the card's inputs on all 16 frames (SiLU units
+   within 1 quantum on at most 0.1%), and one free-running forward's
+   heads within ``MGK_FREE_SHARE`` and ``MGK_FREE_QUANTA`` of the CPU's
+   and its detections within ``MGK_DET_UNMATCHED``; (b) the zoo yolov5s at
+   w_scale ``MGK_S_W_SCALE`` as a `.mgk` (family ``s``), (d) through
+   ``cli.main(["decompile", ..., "--onnx", ...])`` and ``cli.main([
+   "quantize", ..., "--calib", ..., "--percentile", "100"])`` (max
+   calibration, calibrated on the card: a pool chain keeps one scale) to
+   an int8 `.mars`, then the same pipeline, census (one #4 too) and
+   checks, its detections printed, not held (random weights: boxes of
+   zero width); (c) a synthetic AEC `.mgk` (``build_aec_mgk(0)``) through
+   ``mgk_to_onnx(streaming=True)`` and ``import_mgk`` into the exact
+   tier: three 8-frame windows with gru1's state carried, card against
+   CPU within ``MGK_AEC_TOL``, the carried state moving the mask from a
+   zero state's.
 
 Each path is run with the launch counters set to 0 just before it and
 read just after. Tolerances (as in ``tests/test_torch_fused_kernels.py``):
@@ -298,8 +332,8 @@ the larger of the bytes it must move over 3.35 TB/s and its int8
 operations over 1,979 TOP/s, the H100 SXM's published peaks), at its
 first case's shape.
 
-Each kernel's line also carries ``onnx_launches``, its launches in
-``[onnx]``'s three counted runs.
+Each kernel's line also carries ``onnx_launches`` and ``mgk_launches``,
+its launches in ``[onnx]``'s three and ``[mgk]``'s two counted runs.
 
 Prints the kernels' JSON line, the card's ``name, power.limit`` line and,
 as the last line, ``{"ok": true, "device": {...}}``. Any failure exits
@@ -1132,15 +1166,20 @@ def check_letterbox_on_card(frame_u8, target):
     return Y.quantize_input_int8(boxed)
 
 
-def check_steps_against_cpu(eng, x) -> int:
-    """One frame through the planned schedule on the card, each step held
+def check_steps_against_cpu(eng, x, cpu=None, what: str = "card vs CPU"
+                            ) -> int:
+    """``x`` through the planned schedule on the card, each step held
     against the same step on the CPU path (plain kernels and torch ops,
     the path the tests hold against JAX) on the card's own inputs: SILU
-    units within the SILU tolerance, every other step bit-exact."""
+    units within the SILU tolerance, every other step bit-exact. ``cpu``:
+    the CPU engine of the same graph (the planned real yolov5n's unless
+    given)."""
     from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
     from thingino_accel_tpu_torch.runtime.executor import KernelUnit
-    cpu = Engine.from_yolo_mars(str(MODEL), EngineOptions(precision="serving"),
-                                device="cpu")
+    if cpu is None:
+        cpu = Engine.from_yolo_mars(str(MODEL),
+                                    EngineOptions(precision="serving"),
+                                    device="cpu")
     steps, cpu_steps = eng._fn.steps, cpu._fn.steps
     require(len(steps) == len(cpu_steps), "card and CPU schedules differ")
     env = dict(eng.params)
@@ -1153,7 +1192,7 @@ def check_steps_against_cpu(eng, x) -> int:
         cstep.run(cenv)
         act = step.act if isinstance(step, KernelUnit) else "NONE"
         compare(env[step.out].cpu(), cenv[step.out], act,
-                f"card vs CPU {step.out}")
+                f"{what} {step.out}")
     return len(steps)
 
 
@@ -3476,11 +3515,12 @@ ONNX_CPU_FRAMES = BATCH   # the frames whose heads the CPU computes too:
                           # all of them, so that no slot goes unchecked
 
 
-def onnx_leg(results: dict, what: str, pipe, fr, want: dict) -> dict:
+def onnx_leg(results: dict, what: str, pipe, fr, want: dict,
+             tag: str = "onnx") -> dict:
     """One counted run of ``pipe`` on the frames ``fr`` (the counts set to
     0 before, read after, held to ``want``: every other counter 0), its
     detections checked, then its ms a batch; the leg's launches are added
-    to each kernel's ``onnx_launches``."""
+    to each kernel's ``<tag>_launches`` (``[onnx]``'s, ``[mgk]``'s)."""
     import torch
     pipe(fr)   # warm-up: allocator, library first use
     torch.cuda.synchronize()
@@ -3490,12 +3530,12 @@ def onnx_leg(results: dict, what: str, pipe, fr, want: dict) -> dict:
     counts = read_launches()
     expected = {k: 0 for k in counts}
     expected.update(want)
-    require(counts == expected, f"[onnx] {what}: launches {counts}, "
+    require(counts == expected, f"[{tag}] {what}: launches {counts}, "
                                 f"expected {expected}")
     for k, v in counts.items():
         if k in results:
-            results[k]["onnx_launches"] = (
-                results[k].get("onnx_launches", 0) + v)
+            results[k][f"{tag}_launches"] = (
+                results[k].get(f"{tag}_launches", 0) + v)
     n_dets = check_detections([dets], (640, 640))
     ms = time_ms(lambda: pipe(fr), OPS_ITERS)
     return {"launches": {k: v for k, v in counts.items() if v}, "ms": ms,
@@ -3649,6 +3689,296 @@ def phase_onnx(results: dict) -> dict:
     print(f"[onnx] phase {res['phase_s']:.1f} s")
     return res
 
+MGK_S_W_SCALE = 0.002   # the zoo yolov5s .mgk's weights: heads that spread
+MGK_S_PERCENTILE = 100  # (b)'s `quantize --percentile`: max calibration,
+                        # the default (MinMax) of onnxruntime's
+                        # quantize_static, the reference's quantizer; a
+                        # pool chain keeps one scale, so the SPPF runs #4
+MGK_F32_TOL = 1e-4      # float32 heads, card against CPU, of the largest |head|
+MGK_CALIB_RTOL = 1e-5   # CalibStats, card against CPU
+MGK_AEC_TOL = 1e-4      # the AEC mask and gru1 state, card against CPU, of
+                        # the largest |value| (float32 GRUs, the card's
+                        # sigmoid and tanh an ulp or two from the CPU's)
+# One free-running forward of a PTQ'd int8 network, card against CPU: a
+# SILU unit's one-quantum differences grow through the later layers.
+# Bounds from the readings of PR 21's chip runs, with room (PERF.md):
+MGK_FREE_SHARE = 0.10   # the share of head values apart
+MGK_FREE_QUANTA = 24    # the most quanta a head value is apart
+MGK_DET_UNMATCHED = 0.10   # of those heads' detections (decode + NMS on the
+                           # CPU, conf 0.25 and 0.001), the share left
+                           # unmatched at IoU >= 0.9 with the same class:
+                           # held on the real yolov5n; the zoo yolov5s's
+                           # random weights give boxes of zero width, whose
+                           # IoU is 0 even against themselves (printed)
+
+
+def _rel_err(got, ref) -> float:
+    """max |got - ref| over max |ref|, both moved to the CPU in float32."""
+    ref = ref.cpu().float()
+    return float((got.cpu().float() - ref).abs().max()
+                 / ref.abs().max().clamp_min(1e-30))
+
+
+def int8_heads_check(eng, src, x, results: dict, what: str,
+                     hold_dets: bool) -> dict:
+    """The planned serving engine ``eng`` of the int8 graph ``src`` on the
+    card, held on ``x`` as ``[slice]`` holds the real yolov5n: every kernel
+    unit against its plain version on its captured inputs, and every step
+    against the CPU path's same step on the card's inputs (SILU units
+    within 1 quantum on at most 0.1%, every other step bit for bit). Then
+    one free-running forward against the CPU's, where a unit's quantum
+    can grow through the later layers: its heads within
+    ``MGK_FREE_SHARE`` / ``MGK_FREE_QUANTA``, and their detections (the
+    plain decode and NMS on the CPU, at conf 0.25 and 0.001) unmatched at
+    IoU >= 0.9 with the same class on at most ``MGK_DET_UNMATCHED`` of
+    the CPU's where ``hold_dets``, else printed."""
+    import torch
+    from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.runtime.engine import Engine
+    cpu = Engine(src, eng.options, device="cpu")
+    units = len(check_units(eng, x, results, what))
+    steps = check_steps_against_cpu(eng, x, cpu, f"{what} card vs CPU")
+    heads = {k: v.cpu() for k, v in eng.forward(x).items()}
+    ref = cpu.forward(x.cpu())
+    d = [(heads[k].to(torch.int32) - r.to(torch.int32)).abs()
+         for k, r in ref.items()]
+    share = float(sum(int((v > 0).sum()) for v in d)
+                  / sum(v.numel() for v in d))
+    quanta = max(int(v.max()) for v in d)
+    names = eng.output_names
+    scales = [eng.graph.tensors[k].quant.scale for k in names]
+    dets = []
+    for conf in (0.25, 0.001):
+        c, r = (Y.nms_batched(*Y.decode_and_parse(
+            [h[k] for k in names], scales=scales), conf_thresh=conf,
+            max_dets=100, pre_nms=128, topk_group=8) for h in (heads, ref))
+        m, t = Y.match_counts(c, r)
+        dets.append({"conf": conf, "card": int(c.num.sum()),
+                     "cpu": int(r.num.sum()), "matched": m, "total": t})
+    print(f"{what} free-running, card vs CPU on {len(x)} frames: heads "
+          f"{share:.4f} apart (bound {MGK_FREE_SHARE}), at most {quanta} "
+          f"quanta (bound {MGK_FREE_QUANTA}); detections {dets} "
+          + (f"(unmatched bound {MGK_DET_UNMATCHED} of the total)"
+             if hold_dets else "(not held)"))
+    require(share <= MGK_FREE_SHARE and quanta <= MGK_FREE_QUANTA,
+            f"{what} free-running heads {share:.4f} apart, {quanta} quanta")
+    for row in dets if hold_dets else ():
+        require(row["total"] - row["matched"]
+                <= MGK_DET_UNMATCHED * row["total"],
+                f"{what} free-running detections {row}")
+    return {"units": units, "steps": steps, "free_max_quanta": quanta,
+            "free_share": share, "free_detections": dets}
+
+
+def phase_mgk(results: dict) -> dict:
+    """``[mgk]`` (phase 17 of the docstring)."""
+    import contextlib
+    import io
+    import tempfile
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch import api, cli
+    from thingino_accel_tpu_torch.formats import mgk
+    from thingino_accel_tpu_torch.formats.mgk_yolo import detect_yolo_family
+    from thingino_accel_tpu_torch.models import mgk_fixtures as MF
+    from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.runtime.engine import (
+        Engine, EngineOptions, load_graph,
+    )
+    from thingino_accel_tpu_torch.training import ptq
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    serving = EngineOptions(precision="serving")
+    fr = torch.from_numpy(frames_of(1)[0]).to(dev)
+    lb = Y.letterbox_uint8(fr, (640, 640))
+    xq = Y.quantize_input_int8(lb)
+    res = {}
+    require(api.nna_init() == api.NNA_SUCCESS, "[mgk] nna_init failed")
+    hw = api.nna_get_hw_info()
+    require(hw.platform == "gpu" and hw.num_devices >= 1,
+            f"[mgk] nna_get_hw_info {hw}")
+    print(f"[mgk] nna_get_hw_info: {hw.device_kind}, {hw.num_devices} "
+          f"device(s), platform {hw.platform}, {hw.memory_stats}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the real yolov5n as an OEM .mgk
+        t0 = time.perf_counter()
+        data, _ = MF.yolo_mgk_from_mars(str(MODEL))
+        pack_s = time.perf_counter() - t0
+        path = f"{tmp}/yolov5n.mgk"
+        Path(path).write_bytes(data)
+        elf, meta = mgk.load_mgk(data)
+        size = detect_yolo_family(elf, meta)
+        require(size == "n", f"[mgk] (a) family {size}, not n")
+        t0 = time.perf_counter()
+        model = api.nna_model_load(path)
+        load_s = time.perf_counter() - t0
+        require(model is not None, f"[mgk] (a) nna_model_load: "
+                                   f"{api.nna_get_load_error()}")
+        f32 = model.engine
+        g = f32.graph
+        require(f32.options.precision == "exact" and f32.device == dev,
+                "[mgk] (a) the .mgk model is not the exact tier on the card")
+        real = load_graph(str(MODEL))
+        in_scale = float(np.float32(real.tensors[real.inputs[0]].quant.scale))
+        x = (lb.to(torch.float32) - 128.0) * in_scale
+        heads = f32.forward(x)
+        ref = Engine(g, device="cpu").forward(x.cpu())
+        rel = max(_rel_err(heads[k], r) for k, r in ref.items())
+        require(rel <= MGK_F32_TOL, f"[mgk] (a) float32 heads {rel:.3g} of "
+                                    f"the largest |head| from the CPU's")
+        f32_ms = time_ms(lambda: f32.forward(x), OPS_ITERS)
+        t0 = time.perf_counter()
+        stats = ptq.calibrate(g, [{g.inputs[0]: x}], device=dev)
+        calib_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_stats = ptq.calibrate(g, [{g.inputs[0]: x.cpu()}], device="cpu")
+        cpu_calib_s = time.perf_counter() - t0
+        require(sorted(stats.absmax) == sorted(cpu_stats.absmax),
+                "[mgk] (a) card and CPU calibrate different tensors")
+        calib_rel = max(abs(stats.absmax[k] - v) / v
+                        for k, v in cpu_stats.absmax.items())
+        require(calib_rel <= MGK_CALIB_RTOL,
+                f"[mgk] (a) CalibStats {calib_rel:.3g} from the CPU's")
+        t0 = time.perf_counter()
+        q = ptq.quantize_graph(g, stats)
+        quant_s = time.perf_counter() - t0
+        eng = Engine(q, serving, device=dev)
+        census = eng._fn.launch_census()
+        for k in ("matmul_int8_fused", "conv2d_int8_halo_fused",
+                  "matmul_int8_fused_multi", "bottleneck_int8_fused"):
+            require(census.get(k, 0) > 0, f"[mgk] (a) census {census}: no {k}")
+        leg = onnx_leg(results, "(a)", Y.build_serving_pipeline(eng), fr,
+                       {**census, DECODE: 1}, tag="mgk")
+        chk = int8_heads_check(eng, q, xq, results, "[mgk] (a)",
+                               hold_dets=True)
+        sat = float(np.mean([(h.abs() >= 127).float().mean().item()
+                             for h in eng.forward(xq).values()]))
+        print(f"[mgk] (a) the real yolov5n as a .mgk ({len(data)} bytes, "
+              f"packed on the host in {pack_s:.3f} s; family {size}): "
+              f"nna_model_load {load_s:.3f} s -> float32 exact tier, heads "
+              f"within {rel:.3g} of the largest |head| of the CPU's on "
+              f"{BATCH} frames (bound {MGK_F32_TOL}), {f32_ms:.3f} ms a batch of "
+              f"{BATCH}; calibrate on the card {calib_s:.3f} s (CPU "
+              f"{cpu_calib_s:.3f} s), {len(stats.absmax)} tensors within "
+              f"{calib_rel:.3g} of the CPU's (rtol {MGK_CALIB_RTOL}); "
+              f"quantize_graph {quant_s:.3f} s -> planned serving: census "
+              f"{census}; launches {leg['launches']}; {chk['units']} kernel "
+              f"units = their plain versions and {chk['steps']} steps = the "
+              f"CPU's on {BATCH} frames (SILU bound); free-running heads as "
+              f"above ({sat:.3f} at the clamp); {leg['ms']:.3f} ms a batch")
+        res["a_real_yolov5n"] = {**leg, "pack_s": pack_s, "load_s": load_s,
+                                 "f32_head_rel": rel, "f32_ms": f32_ms,
+                                 "calib_s": calib_s,
+                                 "cpu_calib_s": cpu_calib_s,
+                                 "calib_rel": calib_rel, "quant_s": quant_s,
+                                 "census": census, **chk,
+                                 "saturated_share": sat}
+
+        # (b) + (d): the zoo yolov5s as a .mgk, through the CLI
+        t0 = time.perf_counter()
+        data, zg = MF.build_yolo_mgk("s", in_hw=(640, 640),
+                                     w_scale=MGK_S_W_SCALE)
+        gen_s = time.perf_counter() - t0
+        path = f"{tmp}/yolov5s.mgk"
+        Path(path).write_bytes(data)
+        elf, meta = mgk.load_mgk(data)
+        size = detect_yolo_family(elf, meta)
+        require(size == "s", f"[mgk] (b) family {size}, not s")
+        onnx_path, mars_path = f"{tmp}/yolov5s.onnx", f"{tmp}/yolov5s.mars"
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["decompile", "-i", path, "--onnx", onnx_path])
+        decompile_s = time.perf_counter() - t0
+        require(rc == 0, "[mgk] (d) decompile failed")
+        info = json.loads(buf.getvalue().split("onnx -> ")[0])
+        require(info["weight_bytes"] == len(elf.appended)
+                and info["layer_kinds"].get("Conv") == 60,
+                f"[mgk] (d) decompile's JSON: {info['layer_kinds']}")
+        in_scale = float(np.float32(zg.tensors[zg.inputs[0]].quant.scale))
+        calib = f"{tmp}/calib.npy"
+        np.save(calib, ((lb.to(torch.float32) - 128.0) * in_scale).cpu()
+                .numpy())
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["quantize", "-i", onnx_path, "-o", mars_path,
+                           "--calib", calib, "--batches", str(BATCH),
+                           "--percentile", str(MGK_S_PERCENTILE)])
+        quantize_s = time.perf_counter() - t0
+        require(rc == 0, "[mgk] (d) quantize failed")
+        eng = Engine.from_mars(mars_path, serving, device=dev)
+        census = eng._fn.launch_census()
+        for k in ("matmul_int8_fused", "conv2d_int8_halo_fused",
+                  "matmul_int8_fused_multi", "bottleneck_int8_fused"):
+            require(census.get(k, 0) > 0, f"[mgk] (b) census {census}: no {k}")
+        require(census.get("sppf_int8_fused") == 1,
+                f"[mgk] (b) census {census}: the SPPF is not one #4")
+        leg = onnx_leg(results, "(b)", Y.build_serving_pipeline(eng), fr,
+                       {**census, DECODE: 1}, tag="mgk")
+        chk = int8_heads_check(eng, load_graph(mars_path), xq, results,
+                               "[mgk] (b)", hold_dets=False)
+        sat = float(np.mean([(h.abs() >= 127).float().mean().item()
+                             for h in eng.forward(xq).values()]))
+        print(f"[mgk] (b) the zoo yolov5s at w_scale {MGK_S_W_SCALE} as a "
+              f".mgk ({len(data)} bytes, written in {gen_s:.3f} s; family "
+              f"{size}); (d) cli decompile --onnx {decompile_s:.3f} s "
+              f"({sum(info['layer_kinds'].values())} layers), cli quantize "
+              f"--calib --percentile {MGK_S_PERCENTILE} ({BATCH} frames, on "
+              f"the card) {quantize_s:.3f} s -> planned serving: census "
+              f"{census}; launches {leg['launches']}; {chk['units']} kernel "
+              f"units = their plain versions and {chk['steps']} steps = the "
+              f"CPU's on {BATCH} frames; free-running heads as above "
+              f"({sat:.3f} at the clamp); {leg['ms']:.3f} ms a batch")
+        res["b_zoo_yolov5s"] = {**leg, "gen_s": gen_s,
+                                "decompile_s": decompile_s,
+                                "quantize_s": quantize_s, "census": census,
+                                **chk, "saturated_share": sat}
+
+        # (c) a synthetic AEC .mgk, streamed with gru1's state carried
+        path = f"{tmp}/aec.mgk"
+        Path(path).write_bytes(MF.build_aec_mgk(0))
+        t0 = time.perf_counter()
+        g = mgk.import_mgk(path, streaming=True)
+        import_s = time.perf_counter() - t0
+        eng, cpu = Engine(g, device=dev), Engine(g, device="cpu")
+        (x_name, h_name), (out, h_out) = g.inputs, g.outputs
+        wins = np.random.default_rng(5).normal(
+            scale=0.5, size=(3, 1, 256, 8)).astype(np.float32)
+        h = hc = np.zeros((1, 64, 32), np.float32)
+        errs, moved = [], []
+        for i, w in enumerate(wins):
+            got = eng.run_np(**{x_name: w, h_name: h})
+            want = cpu.run_np(**{x_name: w, h_name: hc})
+            errs.append(max(_rel_err(torch.from_numpy(got[k]),
+                                     torch.from_numpy(want[k]))
+                            for k in (out, h_out)))
+            if i:
+                fresh = eng.run_np(**{x_name: w, h_name: np.zeros_like(h)})
+                moved.append(float(np.abs(got[out] - fresh[out]).max()))
+            h, hc = got[h_out], want[h_out]
+        require(max(errs) <= MGK_AEC_TOL, f"[mgk] (c) card {max(errs):.3g} "
+                                          "of the largest |value| from the "
+                                          "CPU's")
+        require(min(moved) > 1e-6, f"[mgk] (c) the carried state moves the "
+                                   f"mask by {moved} only")
+        feed = {x_name: torch.from_numpy(wins[0]).to(dev),
+                h_name: torch.from_numpy(h).to(dev)}
+        win_ms = time_ms(lambda: eng._fn(eng.params, feed), OPS_ITERS)
+        print(f"[mgk] (c) the AEC .mgk (streaming: import_mgk "
+              f"{import_s:.3f} s) in the exact tier, 3 windows of 8 frames "
+              f"with gru1's state carried: card within {max(errs):.3g} of "
+              f"the largest |value| of the CPU's (bound {MGK_AEC_TOL}); the "
+              f"carried state moves the mask by {min(moved):.3g}-"
+              f"{max(moved):.3g} from a zero state's; {win_ms:.3f} ms a "
+              f"window")
+        res["c_aec"] = {"import_s": import_s, "rel_err": errs,
+                        "state_moves": moved, "window_ms": win_ms}
+    api.nna_deinit()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[mgk] phase {res['phase_s']:.1f} s")
+    return res
+
 
 def main() -> int:
     if not (REPO / "thingino_accel_tpu_torch" / "csrc").is_dir() \
@@ -3685,6 +4015,7 @@ def main() -> int:
         streams_res = phase_streams(zoo_eng)
         ops_res = phase_ops()
         onnx_res = phase_onnx(results)
+        mgk_res = phase_mgk(results)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -3701,7 +4032,8 @@ def main() -> int:
                         "bound_by": rep["bound_by"],
                         "library_ms": rep["library_ms"], "at": rep["case"],
                         "path": PATH_OF[k],
-                        "onnx_launches": r.get("onnx_launches", 0)})
+                        "onnx_launches": r.get("onnx_launches", 0),
+                        "mgk_launches": r.get("mgk_launches", 0)})
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -3714,7 +4046,7 @@ def main() -> int:
         "probe_checks": probe_checks,
         "probes": probes_res, "pipeline": pipeline_res,
         "fast": fast_res, "streams": streams_res, "ops": ops_res,
-        "onnx": onnx_res},
+        "onnx": onnx_res, "mgk": mgk_res},
         indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -17,9 +17,17 @@ same model and input, the port with ``--device cpu``:
   ``export-onnx`` (``tiny_160_f32.mars``, ``test_conv.mars``): the output
   file's bytes and the printed lines equal JAX's; ``export-onnx`` of the
   whole real yolov5n raises JAX's error (its decode tail's RESHAPE);
-- the subcommands not ported (``decompile``, ``quantize``, ``bench``)
-  exit non-zero naming their ROADMAP item; without a card the default
-  device raises.
+- ``decompile`` of the YOLO and AEC `.mgk` fixtures
+  (``models.mgk_fixtures``): the JSON, the ``--extract-weights`` arrays and
+  the ``--onnx`` bytes equal JAX's; a JZDL `.so` exits non-zero naming
+  ROADMAP.md A.4 (JZDL);
+- ``quantize`` (``--device cpu``) of ``tiny_160_f32.mars`` and of its
+  float32 ONNX export, from seeded random batches, ``--calib`` `.npy` and
+  `.npz`, ``--images`` (PNG files through Pillow), ``--method mse`` and a
+  given ``--percentile``: the printed line and the int8 `.mars` bytes equal
+  JAX's;
+- the subcommand not ported (``bench``) exits non-zero naming its ROADMAP
+  item; without a card the default device raises.
 """
 
 import contextlib
@@ -35,6 +43,7 @@ from thingino_accel_tpu_torch import cli as CLI
 from thingino_accel_tpu_torch.formats import onnx_export as X
 from thingino_accel_tpu_torch.formats import onnx_proto as OP
 from thingino_accel_tpu_torch.formats import onnx_writer as W
+from thingino_accel_tpu_torch.models import mgk_fixtures as MF
 from thingino_accel_tpu_torch.models import onnx_fixtures as F
 from thingino_accel_tpu_torch.models import yolo as Y
 from thingino_accel_tpu_torch.models import zoo
@@ -178,8 +187,90 @@ def test_export_onnx_of_the_whole_real_file_raises_as_jax(tmp_path):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("cmd,item", [
-    ("decompile", "A.4"), ("quantize", "A.8"), ("bench", "A.1")])
+MGK_FIXTURES = {
+    "yolo": lambda: MF.build_yolo_mgk("n", in_hw=(64, 64),
+                                      w_scale=0.0004)[0],
+    "aec": lambda: MF.build_aec_mgk(0),
+}
+
+
+@pytest.mark.parametrize("which", MGK_FIXTURES)
+def test_decompile_equals_jax(which, tmp_path):
+    src = tmp_path / f"{which}.mgk"
+    src.write_bytes(MGK_FIXTURES[which]())
+    got = {}
+    for who, main in (("port", CLI.main), ("jax", JCLI.main)):
+        w, o = tmp_path / f"{who}_w", tmp_path / f"{who}.onnx"
+        lines = _out(main, ["decompile", "-i", str(src),
+                            "--extract-weights", str(w), "--onnx", str(o)])
+        lines = [ln.replace(str(w), "W").replace(str(o), "O")
+                 for ln in lines]
+        arrays = {p.name: np.load(p) for p in sorted(w.iterdir())}
+        got[who] = (lines, arrays, o.read_bytes())
+    (pl, pa, po), (jl, ja, jo) = got["port"], got["jax"]
+    assert pl == jl and pl[-2:] == ["weights -> W", "onnx -> O"]
+    assert po == jo and list(pa) == list(ja) and "blob.npy" in pa
+    for k in ja:
+        assert pa[k].dtype == ja[k].dtype, k
+        np.testing.assert_array_equal(pa[k], ja[k], err_msg=k)
+    assert _out(CLI.main, ["decompile", "-i", str(src)]) == \
+        _out(JCLI.main, ["decompile", "-i", str(src)])
+
+
+def test_decompile_of_a_jzdl_so_names_its_item(tmp_path, capsys):
+    so = tmp_path / "libpersonDet_inf.so"
+    so.write_bytes(MF.build_elf32(b"jzdl\x00"))
+    assert CLI.main(["decompile", "-i", str(so)]) != 0
+    err = capsys.readouterr().err
+    assert "not ported" in err and "ROADMAP.md A.4 (JZDL)" in err
+
+
+def _calib_files(tmp_path):
+    """A float32 NHWC calibration array as `.npy` and `.npz`, and a folder
+    of PNG frames (with a file that is no image)."""
+    rng = np.random.default_rng(9)
+    arr = rng.uniform(0, 1, (3, 160, 160, 3)).astype(np.float32)
+    np.save(tmp_path / "calib.npy", arr)
+    np.savez(tmp_path / "calib.npz", frames=arr[:2])
+    from PIL import Image
+    img = tmp_path / "imgs"
+    img.mkdir()
+    for i in range(3):
+        Image.fromarray(rng.integers(0, 256, (120, 200, 3),
+                                     dtype=np.uint8)).save(img / f"{i}.png")
+    (img / "notes.txt").write_text("not an image")
+    return tmp_path
+
+
+QUANTIZE_CASES = {
+    "mars-random": ("mars", ["--batches", "2"]),
+    "mars-mse": ("mars", ["--batches", "2", "--method", "mse",
+                          "--seed", "4"]),
+    "onnx-npy": ("onnx", ["--calib", "{d}/calib.npy", "--batches", "5"]),
+    "onnx-npz-pct": ("onnx", ["--calib", "{d}/calib.npz",
+                              "--percentile", "99.5"]),
+    "mars-images": ("mars", ["--images", "{d}/imgs", "--batches", "2"]),
+}
+
+
+@pytest.mark.parametrize("case", QUANTIZE_CASES)
+def test_quantize_equals_jax(case, tmp_path):
+    kind, flags = QUANTIZE_CASES[case]
+    d = _calib_files(tmp_path)
+    src = TINY_F32
+    if kind == "onnx":
+        src = str(tmp_path / "tiny.onnx")
+        with open(src, "wb") as f:
+            f.write(X.ir_to_onnx(load_graph(TINY_F32)))
+    flags = [f.replace("{d}", str(d)) for f in flags]
+    pl, jl, pb, jb = _both(tmp_path, lambda out: (
+        ["quantize", "-i", src, "-o", out] + flags
+        + (["--device", "cpu"] if out.endswith("port.out") else [])))
+    assert pb == jb and pl == jl
+    assert pl[0].startswith("wrote OUT (int8, input scale ")
+
+
+@pytest.mark.parametrize("cmd,item", [("bench", "A.1")])
 def test_unported_subcommands_name_their_item(cmd, item, capsys):
     assert CLI.main([cmd, "-i", "x"]) != 0
     err = capsys.readouterr().err
@@ -191,3 +282,5 @@ def test_default_device_is_the_card():
         pytest.skip("a CUDA device is present: the default runs there")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CLI.main(["run", FIXTURE, "--iters", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CLI.main(["quantize", "-i", TINY_F32, "-o", "unused.mars"])

@@ -20,11 +20,17 @@ machine lists none) and imports nothing of the JAX package.
   the QDQ yolov5n of ``models.onnx_fixtures`` imported in int8 mode,
   written as `.mars`, read back and served; its heads graph exported as
   float32 ONNX (``ir_to_onnx``) and imported again; the CLI's
-  ``compile``, ``gen-test`` and ``export-onnx``.
+  ``compile``, ``gen-test`` and ``export-onnx``; and the OEM-model path:
+  `.mgk` files written by the port's own ``models.mgk_fixtures`` (YOLO and
+  AEC) through ``api.nna_model_load`` on the CPU (``nna_init(device=
+  "cpu")``), the AEC model run, ``training.ptq`` on the tiny zoo graph,
+  ``ops.image``'s resize and warp, and the CLI's ``decompile`` and
+  ``quantize``.
 - No module of the port and no line of ``chip_smoke.py`` holds an
   ``import`` of ``thingino_accel_tpu`` (parsed with ``ast``, so an import
-  inside a function counts too); the walk covers the format modules and
-  ``models/onnx_fixtures.py``.
+  inside a function counts too); the walk covers the format modules,
+  ``models/onnx_fixtures.py`` and ``models/mgk_fixtures.py``,
+  ``training/ptq.py``, ``api.py`` and ``ops/image.py``.
 """
 
 import ast
@@ -245,6 +251,41 @@ SCRIPT = textwrap.dedent("""
         assert cli.main(["gen-test", "-o", out]) == 0
         assert cli.main(["export-onnx", "-i", out, "-o", src]) == 0
         assert onnx.import_onnx(src, float32=True).outputs == ["output"]
+    from thingino_accel_tpu_torch import api
+    from thingino_accel_tpu_torch.formats import mgk, mgk_yolo
+    from thingino_accel_tpu_torch.models import mgk_fixtures
+    from thingino_accel_tpu_torch.ops import image
+    from thingino_accel_tpu_torch.training import ptq
+    with tempfile.TemporaryDirectory() as d:
+        data, _ = mgk_fixtures.build_yolo_mgk("n", in_hw=(64, 64),
+                                              w_scale=4e-4)
+        open(d + "/y.mgk", "wb").write(data)
+        open(d + "/a.mgk", "wb").write(mgk_fixtures.build_aec_mgk(0))
+        elf, meta = mgk.load_mgk(data)
+        assert mgk_yolo.detect_yolo_family(elf, meta) == "n"
+        assert api.nna_init(device="cpu") == api.NNA_SUCCESS
+        m = api.nna_model_load(d + "/y.mgk")
+        assert m is not None and api.nna_model_get_info(m).num_outputs == 3
+        m = api.nna_model_load(d + "/a.mgk")
+        t = api.nna_model_get_input(m)
+        t.set_data(np.ones(t.shape, np.float32))
+        assert api.nna_model_run(m) == 0
+        assert api.nna_model_get_output(m).data.shape == (1, 256, 2)
+        assert cli.main(["decompile", "-i", d + "/a.mgk", "--onnx",
+                         d + "/a.onnx"]) == 0
+        assert cli.main(["quantize", "-i", "models/fixtures/tiny_160_f32.mars",
+                         "-o", d + "/q.mars", "--batches", "1",
+                         "--device", "cpu"]) == 0
+        api.nna_deinit()
+    tg = zoo.build_tiny(zoo.ZooConfig(dtype="float32", in_hw=(16, 16)),
+                        in_hw=(16, 16))
+    gq = ptq.quantize_model(tg, iter([{"input": np.ones((1, 16, 16, 3),
+                                                       np.float32)}]),
+                            device="cpu")
+    assert gq.tensors[gq.outputs[0]].dtype == np.int8
+    u8 = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
+    assert image.resize_bilinear(u8, (5, 11)).shape == (1, 5, 11, 3)
+    assert image.warp_affine(u8, np.eye(2, 3)).dtype == torch.uint8
     assert sys.modules["jax"] is None
     assert sys.modules["thingino_accel_tpu"] is None
     print("ok")
@@ -276,8 +317,12 @@ def test_no_import_of_the_jax_package():
     assert len(files) > 20
     pkg = os.path.join(REPO, "thingino_accel_tpu_torch")
     assert {os.path.join(pkg, "formats", f + ".py") for f in (
-        "onnx_proto", "onnx_writer", "onnx", "onnx_export", "mars_export")
-    } | {os.path.join(pkg, "models", "onnx_fixtures.py")} <= set(files)
+        "onnx_proto", "onnx_writer", "onnx", "onnx_export", "mars_export",
+        "mgk", "mgk_yolo")
+    } | {os.path.join(pkg, *f) for f in (
+        ("models", "onnx_fixtures.py"), ("models", "mgk_fixtures.py"),
+        ("training", "ptq.py"), ("api.py",), ("ops", "image.py"))
+    } <= set(files)
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imports_of(f)
            if m.split(".")[0] in ("thingino_accel_tpu", "jax")]

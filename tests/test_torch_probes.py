@@ -358,12 +358,12 @@ def test_chain_timing_on_the_cpu_runs_the_chain():
 
 
 def test_wedge_ladder_rungs_and_lines():
-    """The JAX ladder's rungs, the kernel rung in place of ``pallas``;
-    lines as the JAX ladder prints them; the CPU rungs pass in their own
-    processes."""
+    """The JAX ladder's rungs, the kernel rung in place of ``pallas``, and
+    the port's serving rung after them; lines as the JAX ladder prints
+    them; the CPU rungs pass in their own processes."""
     j = _example("wedge_probe")
     assert list(P4.RUNGS) == [("kernel" if r == "pallas" else r)
-                              for r in j.RUNGS]
+                              for r in j.RUNGS] + ["v5s-serving"]
     assert P4.line("tiny", True, 1.25, "rung tiny: PASS") == \
         "tiny       PASS (  1.2s)  rung tiny: PASS"
     assert P4.line("v5s-b128", False, 900.0, "timeout").startswith(
@@ -379,6 +379,36 @@ def test_wedge_ladder_rungs_and_lines():
     assert P4.run_rung("kernel", "cpu").startswith("rung kernel: PASS")
     with pytest.raises(SystemExit):
         P4.main(["--device", "cpu", "--rungs", "tiny,pallas"])
+
+
+def test_wedge_model_rungs_run_the_fast_and_serving_tiers(monkeypatch):
+    """``v5s-b128`` runs the fast tier, as JAX's ``bench.build_pipeline``
+    default (ROADMAP.md C.15): the zoo yolov5s of ``trace_path.fast_graph``
+    (s2d stem) with ``trace_path.fast_options()``; ``v5s-serving`` the
+    planned serving tier. At a small size on the CPU, in process and
+    through the ladder's own subprocess."""
+    from thingino_accel_tpu_torch.runtime import engine as E
+    built = []
+    real = E.Engine.__init__
+
+    def record(self, graph, options=None, *a, **k):
+        real(self, graph, options, *a, **k)
+        built.append((graph.stem_s2d, self.options))
+
+    monkeypatch.setattr(E.Engine, "__init__", record)
+    line = P4.run_rung("v5s-b128", "cpu", batch=2, hw=64)
+    assert line.startswith("rung v5s-b128: PASS") and "(fast tier)" in line
+    (s2d, opts), = built
+    assert s2d and opts.precision == "fast" and not opts.quantize_outputs
+    assert opts.accum_dtype == torch.bfloat16
+    line = P4.run_rung("v5s-serving", "cpu", batch=2, hw=64)
+    assert "(serving tier)" in line and built[1][1].precision == "serving"
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        assert P4.main(["--device", "cpu", "--rungs", "v5s-b128", "--batch",
+                        "1", "--hw", "64"]) == 0
+    assert re.match(r"v5s-b128\s+PASS .*over 1 frames \(fast tier\)",
+                    buf.getvalue()), buf.getvalue()
 
 
 def test_probe_mains_on_the_cpu(monkeypatch):

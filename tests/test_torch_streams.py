@@ -45,6 +45,7 @@ from thingino_accel_tpu.runtime import serving as JS
 from thingino_accel_tpu_torch import runtime as RT
 from thingino_accel_tpu_torch.ir.graph import graph_from_jax
 from thingino_accel_tpu_torch.models import yolo as Y
+from thingino_accel_tpu_torch.models import zoo as PZ
 from thingino_accel_tpu_torch.runtime import serving as S
 from thingino_accel_tpu_torch.runtime.engine import Engine
 
@@ -138,11 +139,14 @@ def test_multi_stream_batcher_interleaves():
 
 
 def test_serving_engine_with_zoo_model():
-    """The JAX test's tiny int8 zoo graph through the port's exact engine
+    """The JAX test's tiny int8 zoo graph, built by each package's zoo
+    (equal: ``tests/test_torch_zoo.py``), through the port's exact engine
     (the JAX ``Engine(g)`` is its exact tier too): 5 batches of 8."""
+    g = PZ.build_tiny(PZ.ZooConfig(dtype="int8", in_hw=(32, 32)),
+                      in_hw=(32, 32))
+    eng = Engine(g, device="cpu")
     g = zoo.build_tiny(zoo.ZooConfig(dtype="int8", in_hw=(32, 32)),
                        in_hw=(32, 32))
-    eng = Engine(graph_from_jax(g), device="cpu")
     jeng = JEngine(g)
     rng = np.random.default_rng(0)
     batches = [rng.integers(-128, 128, (8, 32, 32, 3), dtype=np.int8)

@@ -1,5 +1,5 @@
 """The port's zoo (``thingino_accel_tpu_torch.models.zoo``) builds the same
-YOLOv5 and NanoDet graphs as the JAX package's zoo: the same nodes in the
+YOLOv5, NanoDet and tiny three-conv graphs as the JAX package's zoo: the same nodes in the
 same order and byte-identical tensors (the seeded numpy draws are the
 same). The port's own copies of the `.mars` reader and the IR load the
 committed models as the JAX package does, and ``graph_from_jax`` turns a
@@ -64,6 +64,18 @@ def test_build_nanodet_identical(hw, batch, nc):
     _assert_same_graph(port, JZ.build_nanodet(JZ.ZooConfig(in_hw=(hw, hw)),
                                               batch=batch, num_classes=nc))
     assert sum(n.op == "DEPTHWISE_CONV2D" for n in port.nodes) == 10
+
+
+@pytest.mark.parametrize("dtype,hw,batch", [
+    ("int8", (32, 32), 1), ("float32", (160, 160), 1), ("int8", (20, 36), 3)])
+def test_build_tiny_identical(dtype, hw, batch):
+    port = PZ.build_tiny(PZ.ZooConfig(dtype=dtype, in_hw=hw), batch=batch,
+                         in_hw=hw)
+    _assert_same_graph(port, JZ.build_tiny(JZ.ZooConfig(dtype=dtype,
+                                                         in_hw=hw),
+                                           batch=batch, in_hw=hw))
+    assert [n.op for n in port.nodes] == ["CONV2D"] * 3
+    _assert_same_graph(PZ.build_tiny(), JZ.build_tiny())
 
 
 def test_float_zoo_identical():

@@ -17,7 +17,11 @@ Hopper (``ops.fused_kernels``, sources in ``csrc/``); the YOLO letterbox,
 head decode (``ops.decode_kernel``, a kernel too) and NMS
 (``models.yolo``), the zoo's YOLOv5 and NanoDet (``models.zoo``); and the
 TPU probes under ``examples/`` (``probes``: E1, E3, E4) with their
-tensor-core kernels (``ops.probe_kernels``).
+tensor-core kernels (``ops.probe_kernels``); the fast tier, the camera
+streams and the model compiler's formats; and the OEM-model path: the
+`.mgk` decompiler (``formats.mgk``, ``formats.mgk_yolo``), post-training
+quantization (``training.ptq``), the C-API-shaped shim (``api``) and its
+image pipes (``ops.image``).
 """
 
 from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions

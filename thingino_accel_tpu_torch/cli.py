@@ -11,13 +11,21 @@
   ``formats.mars_export``; ``--float32`` folds Q/DQ away, else a QDQ model
   becomes an int8 `.mars`);
 - ``gen-test`` — a one-conv int8 test `.mars` from a seed;
-- ``export-onnx`` — `.mars` -> float32 ONNX (``formats.onnx_export``).
+- ``export-onnx`` — `.mars` -> float32 ONNX (``formats.onnx_export``);
+- ``decompile`` — an OEM `.mgk` -> its metadata as JSON
+  (``formats.mgk.inspect_mgk``), ``--extract-weights DIR`` (`.npy` files)
+  and ``--onnx OUT`` (float32 ONNX of a recognized family, AEC or YOLO);
+  a JZDL `.so` exits non-zero naming its ROADMAP item;
+- ``quantize`` — PTQ: a float32 `.onnx` or `.mars` calibrated
+  (``training.ptq``: ``--calib`` `.npy`/`.npz` batches, ``--images`` a
+  folder, else seeded random batches; ``--method``, ``--percentile``) to
+  an int8 `.mars` (``formats.mars_export``).
 
-``run`` and ``detect`` take ``--device`` (``cuda`` by default; without a
-card they fail, and ``--device cpu`` runs the kernels' plain versions).
-``compile``, ``gen-test`` and ``export-onnx`` convert files on the host
-and touch no device. ``decompile``, ``quantize`` and ``bench`` are not
-ported yet: each exits non-zero naming its ROADMAP item.
+``run``, ``detect`` and ``quantize`` take ``--device`` (``cuda`` by
+default; without a card they fail, and ``--device cpu`` runs the
+kernels' plain versions). ``compile``, ``gen-test``, ``export-onnx`` and
+``decompile`` convert files on the host and touch no device. ``bench`` is
+not ported yet: it exits non-zero naming its ROADMAP item.
 
 Usage: ``python -m thingino_accel_tpu_torch.cli <command> ...``
 """
@@ -25,6 +33,8 @@ Usage: ``python -m thingino_accel_tpu_torch.cli <command> ...``
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 import time
 
@@ -32,10 +42,10 @@ import numpy as np
 
 # the subcommands still to port, with the ROADMAP item each waits on
 NOT_PORTED = {
-    "decompile": (".mgk -> metadata/weights/onnx", "A.4 (.mgk and JZDL)"),
-    "quantize": ("PTQ: f32 .onnx/.mars -> int8 .mars", "A.8 (training/ptq)"),
     "bench": ("run the headline benchmark", "A.1 (the GPU bench)"),
 }
+# what ``decompile`` does not take yet: an OEM IVS wrapper (a JZDL `.so`)
+JZDL_ITEM = "A.4 (JZDL)"
 
 
 def _load_image(path: str) -> np.ndarray:
@@ -195,6 +205,88 @@ def cmd_export_onnx(args) -> int:
     return 0
 
 
+def cmd_decompile(args) -> int:
+    """`.mgk` -> metadata JSON, weight arrays and ONNX (the
+    ``mgk-decompiler`` CLI's role)."""
+    from thingino_accel_tpu_torch.formats import mgk
+    if args.input.endswith(".so"):
+        # OEM IVS wrappers (e.g. libpersonDet_inf.so) embed a jzdl
+        # network instead of a magik container
+        print(f"error: decompiling a JZDL .so is not ported to the PyTorch "
+              f"package yet: ROADMAP.md {JZDL_ITEM}", file=sys.stderr)
+        return 2
+    info = mgk.inspect_mgk(args.input)
+    print(json.dumps(info, indent=2, default=str))
+    if args.extract_weights:
+        mgk.extract_weights(args.input, args.extract_weights)
+        print(f"weights -> {args.extract_weights}")
+    if args.onnx:
+        with open(args.onnx, "wb") as f:
+            f.write(mgk.mgk_to_onnx(args.input))
+        print(f"onnx -> {args.onnx}")
+    return 0
+
+
+def cmd_quantize(args) -> int:
+    """PTQ: f32 model (.onnx or .mars) -> calibrated int8 .mars.
+
+    The in-framework role of the reference's offline
+    ``scripts/quantize_onnx.py`` -> QDQ ONNX -> mars-compiler chain:
+    one command, per-channel weight scales, percentile or MSE
+    activation calibration (``training/ptq.py``), the calibration forward
+    on ``--device``.
+    """
+    from thingino_accel_tpu_torch.formats import mars_export
+    from thingino_accel_tpu_torch.runtime.engine import load_graph
+    from thingino_accel_tpu_torch.training import ptq
+
+    if args.input.endswith(".onnx"):
+        from thingino_accel_tpu_torch.formats import onnx as O
+        graph = O.import_onnx(args.input, float32=True)
+    else:
+        graph = load_graph(args.input)
+    in_name = graph.inputs[0]
+    shape = graph.tensors[in_name].shape
+
+    def batches():
+        if args.images:
+            import glob as _glob
+            from PIL import Image
+            files = sorted(
+                f for f in _glob.glob(os.path.join(args.images, "*"))
+                if f.lower().endswith((".jpg", ".jpeg", ".png", ".bmp"))
+            )[:args.batches]
+            if not files:
+                raise SystemExit(f"no images in {args.images}")
+            for f in files:
+                img = Image.open(f).convert("RGB").resize(
+                    (shape[2], shape[1]))
+                x = np.asarray(img, np.float32)[None] / 255.0
+                yield {in_name: x}
+        elif args.calib:
+            arr = np.load(args.calib)
+            if hasattr(arr, "files"):           # npz: first array
+                arr = arr[arr.files[0]]
+            arr = np.asarray(arr, np.float32)
+            if arr.ndim == len(shape) - 1:
+                arr = arr[None]
+            for i in range(min(len(arr), args.batches)):
+                yield {in_name: arr[i:i + 1]}
+        else:
+            rng = np.random.default_rng(args.seed)
+            for _ in range(args.batches):
+                yield {in_name: rng.uniform(
+                    0, 1, (1,) + tuple(shape[1:])).astype(np.float32)}
+
+    q = ptq.quantize_model(graph, batches(), percentile=args.percentile,
+                           method=args.method, device=args.device)
+    mars_export.export_mars(q, args.output)
+    in_scale = q.tensors[q.inputs[0]].quant.scale
+    print(f"wrote {args.output} (int8, input scale {in_scale:.6f}, "
+          f"method {args.method})")
+    return 0
+
+
 def _not_ported(cmd: str):
     def fn(args) -> int:
         print(f"error: '{cmd}' is not ported to the PyTorch package yet: "
@@ -252,6 +344,28 @@ def main(argv=None) -> int:
     s.add_argument("-i", "--input", required=True)
     s.add_argument("-o", "--output", required=True)
     s.set_defaults(fn=cmd_export_onnx)
+
+    s = sub.add_parser("decompile", help=".mgk -> metadata/weights/onnx")
+    s.add_argument("-i", "--input", required=True)
+    s.add_argument("--extract-weights", metavar="DIR")
+    s.add_argument("--onnx", metavar="OUT.onnx",
+                   help="export the decompiled model as ONNX")
+    s.set_defaults(fn=cmd_decompile)
+
+    s = sub.add_parser("quantize", help="PTQ: f32 .onnx/.mars -> int8 .mars")
+    s.add_argument("-i", "--input", required=True)
+    s.add_argument("-o", "--output", required=True)
+    s.add_argument("--images", metavar="DIR",
+                   help="calibration image dir (resized, x/255)")
+    s.add_argument("--calib", metavar="NPY",
+                   help="calibration batches (.npy/.npz, NHWC float)")
+    s.add_argument("--batches", type=int, default=8)
+    s.add_argument("--method", choices=["percentile", "mse"],
+                   default="percentile")
+    s.add_argument("--percentile", type=float, default=99.99)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--device", default="cuda")
+    s.set_defaults(fn=cmd_quantize)
 
     for cmd, (what, item) in NOT_PORTED.items():
         # any arguments are taken as they come, dashes too: none is read

@@ -6,9 +6,11 @@
   and writer;
 - ``onnx``: ONNX -> IR import, float32 and QDQ int8;
 - ``mars_export`` / ``onnx_export``: IR -> `.mars` and IR -> float32
-  ONNX.
+  ONNX;
+- ``mgk`` / ``mgk_yolo``: the OEM `.mgk` decompiler (ELF parsing,
+  `.rodata` mining, weight extraction, AEC and YOLO ONNX export).
 
-``.mgk`` and JZDL are not ported (ROADMAP.md A.4).
+JZDL is not ported (ROADMAP.md A.4).
 """
 
 from thingino_accel_tpu_torch.formats.mars import (

@@ -26,7 +26,7 @@ reference's dequantize-on-export (``yolo_onnx_export.rs:191-196``).
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -93,8 +93,18 @@ def _resolve_pads(node, tensors) -> List[int]:
     return [pt, pl_, pb, pr]
 
 
-def ir_to_onnx(graph: Graph) -> bytes:
-    """Serialize ``graph`` as a float32 NCHW ONNX model."""
+def ir_to_onnx(
+    graph: Graph,
+    weights_override: Optional[Dict[str, np.ndarray]] = None,
+) -> bytes:
+    """Serialize ``graph`` as a float32 NCHW ONNX model.
+
+    ``weights_override``: optional f32 arrays by weight-tensor name
+    (used by the `.mgk` YOLO exporter to graft extracted weights onto
+    the architecture graph, the reference's ``export_with_reference``
+    pattern, ``yolo_onnx_export.rs:219-282``).
+    """
+    weights_override = weights_override or {}
     nodes: List[Tuple] = []
     inits: Dict[str, np.ndarray] = {}
 
@@ -119,12 +129,21 @@ def ir_to_onnx(graph: Graph) -> bytes:
         if node.op in ("CONV2D", "DEPTHWISE_CONV2D"):
             wt = graph.tensors[node.inputs[1]]
             wname = node.inputs[1]
-            inits[wname] = _dequant_weight(wt)
+            if wname in weights_override:
+                inits[wname] = np.asarray(
+                    weights_override[wname], np.float32)
+            else:
+                inits[wname] = _dequant_weight(wt)
             ins = [node.inputs[0], wname]
             if len(node.inputs) > 2:
                 bname = node.inputs[2]
-                in_sc = graph.tensors[node.inputs[0]].quant.scale
-                inits[bname] = _dequant_bias(graph.tensors[bname], in_sc, wt)
+                if bname in weights_override:
+                    inits[bname] = np.asarray(
+                        weights_override[bname], np.float32)
+                else:
+                    in_sc = graph.tensors[node.inputs[0]].quant.scale
+                    inits[bname] = _dequant_bias(
+                        graph.tensors[bname], in_sc, wt)
                 ins.append(bname)
             act = a.get("activation", "NONE")
             conv_out = out + "_conv" if act not in (None, "NONE") else out

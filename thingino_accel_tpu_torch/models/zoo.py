@@ -3,11 +3,10 @@ programmatically as IR graphs.
 
 Port of ``thingino_accel_tpu.models.zoo`` (``GraphBuilder``,
 ``_bottleneck``, ``_c3``, ``_sppf``, ``build_yolov5``, ``_dw_separable``,
-``build_nanodet``), which is free of JAX itself but cannot be imported
+``build_nanodet``, ``build_tiny``), which is free of JAX itself but cannot be imported
 without it (its package imports ``models.yolo``, which imports jax). The
 code and its seeded numpy draws are the JAX package's, so one config
 gives the same graph, tensor for tensor, in both packages.
-``build_tiny`` is not ported.
 """
 
 from __future__ import annotations
@@ -307,3 +306,19 @@ def build_nanodet(
     h4 = b.conv(_dw_separable(b, p4, 96), no, 1, act="NONE")
     h5 = b.conv(_dw_separable(b, p5, 96), no, 1, act="NONE")
     return b.finish([h3, h4, h5])
+
+
+def build_tiny(
+    cfg: Optional[ZooConfig] = None, batch: int = 1,
+    in_hw: Tuple[int, int] = (160, 160),
+) -> Graph:
+    """The ``tiny_160`` three-conv stack (``models/tiny_160_*.mars``):
+    conv3x3(3->16) relu, conv3x3(16->32) relu, conv3x3(32->64), VALID."""
+    cfg = cfg or ZooConfig(in_hw=in_hw)
+    b = GraphBuilder(f"tiny_{cfg.dtype}", cfg)
+    h, w = in_hw
+    x = b.input("input", (batch, h, w, 3))
+    y = b.conv(x, 16, 3, act="RELU", valid=True)
+    y = b.conv(y, 32, 3, act="RELU", valid=True)
+    y = b.conv(y, 64, 3, act="NONE", valid=True)
+    return b.finish([y])

@@ -15,15 +15,21 @@ subprocess with a 900 s timeout and prints one line, ``NAME PASS|FAIL
                 the JAX rung ``pallas``)
 - ``conv``      bf16 128 x 80 x 80 x 128, 3x3 (``F.conv2d``; JAX left it
                 to XLA)
-- ``v5s-b128``  the port's planned serving zoo yolov5s at 640 through
-                ``models.yolo.build_serving_pipeline`` at batch 128. The
-                JAX rung ran ``bench.build_pipeline``, whose default is
-                the fast tier, which the port lacks (ROADMAP A.2).
+- ``v5s-b128``  the zoo yolov5s at 640 in the fast tier, as JAX's rung
+                runs ``bench.build_pipeline(128, "s")``, whose default is
+                the fast tier: the graph and options the port's fast paths
+                run (``trace_path.fast_graph("yolov5s")``, s2d stem;
+                ``trace_path.fast_options()``, bf16 heads) through
+                ``models.yolo.build_serving_pipeline`` at batch 128
+- ``v5s-serving`` the port's own rung: the planned serving zoo yolov5s at
+                640 through the same pipeline at batch 128 (the int8
+                kernels #1-#4, #6 and #8)
 
 Run: ``python3 -m thingino_accel_tpu_torch.probes.wedge`` (on the card;
 ``--rung NAME`` runs one rung in this process; ``--device cpu`` runs the
 rungs on the CPU, the kernel rung through its plain version;
-``--rungs tiny,kernel`` picks rungs).
+``--rungs tiny,kernel`` picks rungs; ``--batch`` and ``--hw`` shrink the
+two model rungs, 128 and 640 unless given).
 """
 
 from __future__ import annotations
@@ -41,13 +47,16 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parents[2]
-RUNGS = ("tiny", "alloc-2g", "matmul", "kernel", "conv", "v5s-b128")
+RUNGS = ("tiny", "alloc-2g", "matmul", "kernel", "conv", "v5s-b128",
+         "v5s-serving")
+MODEL_BATCH, MODEL_HW = 128, 640     # the model rungs' size
 TIMEOUT_S = 900
 
 
-def run_rung(name: str, device="cuda") -> str:
+def run_rung(name: str, device="cuda", batch: int = MODEL_BATCH,
+             hw: int = MODEL_HW) -> str:
     """Run one rung on ``device``; return its PASS line (raises on a
-    failure)."""
+    failure). ``batch`` and ``hw`` size the model rungs."""
     dev = torch.device(device)
 
     def sync():
@@ -81,19 +90,25 @@ def run_rung(name: str, device="cuda") -> str:
         y = F.conv2d(x, w, None, 1, 1)
         sync()
         detail = f"out {tuple(y.shape)}"
-    elif name == "v5s-b128":
+    elif name in ("v5s-b128", "v5s-serving"):
+        from thingino_accel_tpu_torch import trace_path
         from thingino_accel_tpu_torch.models import yolo, zoo
         from thingino_accel_tpu_torch.runtime.engine import (
             Engine, EngineOptions)
-        eng = Engine(zoo.build_yolov5("s", zoo.ZooConfig()),
-                     EngineOptions(precision="serving"), device=dev)
+        if name == "v5s-b128":
+            eng = Engine(trace_path.fast_graph("yolov5s", in_hw=(hw, hw)),
+                         trace_path.fast_options(), device=dev)
+        else:
+            eng = Engine(zoo.build_yolov5("s", zoo.ZooConfig(
+                in_hw=(hw, hw))), EngineOptions(precision="serving"),
+                device=dev)
         frames = np.random.default_rng(0).integers(
-            0, 256, (128, 640, 640, 3), dtype=np.uint8)
+            0, 256, (batch, hw, hw, 3), dtype=np.uint8)
         dets = yolo.build_serving_pipeline(eng)(torch.from_numpy(frames).to(
             dev))
         sync()
-        detail = (f"{int(dets.num.sum())} detections over 128 frames "
-                  "(planned serving tier; the JAX rung ran the fast tier)")
+        detail = (f"{int(dets.num.sum())} detections over {batch} frames "
+                  f"({eng.options.precision} tier)")
     else:
         raise SystemExit(f"unknown rung {name}")
     sync()
@@ -106,7 +121,8 @@ def line(name: str, ok: bool, secs: float, detail: str) -> str:
            f"{detail[:120]}"
 
 
-def ladder(rungs: Sequence[str] = RUNGS, device="cuda") -> List[str]:
+def ladder(rungs: Sequence[str] = RUNGS, device="cuda",
+           batch: int = MODEL_BATCH, hw: int = MODEL_HW) -> List[str]:
     """Each rung in a subprocess (no rung inherits another's state), one
     line each."""
     out = []
@@ -119,7 +135,8 @@ def ladder(rungs: Sequence[str] = RUNGS, device="cuda") -> List[str]:
         try:
             p = subprocess.run(
                 [sys.executable, "-m", "thingino_accel_tpu_torch.probes.wedge",
-                 "--rung", name, "--device", str(device)],
+                 "--rung", name, "--device", str(device),
+                 "--batch", str(batch), "--hw", str(hw)],
                 cwd=ROOT, env=env, capture_output=True, text=True,
                 timeout=TIMEOUT_S)
             ok = p.returncode == 0
@@ -137,17 +154,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--rung", choices=RUNGS)
     ap.add_argument("--rungs", default=",".join(RUNGS))
+    ap.add_argument("--batch", type=int, default=MODEL_BATCH)
+    ap.add_argument("--hw", type=int, default=MODEL_HW)
     a = ap.parse_args(argv)
     if torch.device(a.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu")
     if a.rung:
-        print(run_rung(a.rung, a.device))
+        print(run_rung(a.rung, a.device, a.batch, a.hw))
         return 0
     rungs = [r for r in a.rungs.split(",") if r]
     unknown = [r for r in rungs if r not in RUNGS]
     if unknown:
         raise SystemExit(f"unknown rungs {unknown}; the ladder: {RUNGS}")
-    ladder(rungs, a.device)
+    ladder(rungs, a.device, a.batch, a.hw)
     return 0
 
 

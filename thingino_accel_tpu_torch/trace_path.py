@@ -62,7 +62,7 @@ def fast_options(accum=FAST_ACCUM):
                          accum_dtype=accum)
 
 
-def fast_graph(model: str, s2d: bool = True):
+def fast_graph(model: str, s2d: bool = True, in_hw=(640, 640)):
     """The graph the fast paths run, before the engine: the stem rewritten
     to space-to-depth (``ir.passes.stem_space_to_depth``, on by default in
     the JAX bench). ``"yolov5n"``: the committed real yolov5n's three
@@ -70,7 +70,8 @@ def fast_graph(model: str, s2d: bool = True):
     (at the zoo's 0.01 the random weights blow float activations up to
     1e10), its detect convs' biases zeroed and their weights at scale 0.25
     so that scores spread past the threshold, as ``tests/test_torch_fast.py``
-    builds it. ``s2d=False`` leaves the stem as it is."""
+    builds it, at ``in_hw`` (640x640 unless given). ``s2d=False`` leaves
+    the stem as it is."""
     from thingino_accel_tpu_torch.ir import passes
     from thingino_accel_tpu_torch.models import zoo
     from thingino_accel_tpu_torch.models.yolo import find_detect_outputs
@@ -79,7 +80,8 @@ def fast_graph(model: str, s2d: bool = True):
         g = load_graph(str(REPO / "models" / "yolov5n_cal_int8.mars"))
         g = g.with_outputs(find_detect_outputs(g))
     else:
-        g = zoo.build_yolov5("s", zoo.ZooConfig(w_scale=0.0005))
+        g = zoo.build_yolov5("s", zoo.ZooConfig(w_scale=0.0005,
+                                                in_hw=tuple(in_hw)))
         for o in g.outputs:
             prod = next(n for n in g.nodes if o in n.outputs)
             w, b = (g.tensors[t] for t in prod.inputs[1:3])
