@@ -306,6 +306,36 @@ Phases:
    tier: three 8-frame windows with gru1's state carried, card against
    CPU within ``MGK_AEC_TOL``, the carried state moving the mask from a
    zero state's.
+18. ``[audio]``: the AEC audio modality on the card, TF32 off (no TPU
+   kernel is on this path: plain torch in float32): (a) ``AECModel`` at
+   ``AECConfig()`` (``init_params`` from seed 0) over a 64-frame seeded
+   spectrogram, ``process_stream`` in chunks of 8, masks and the final
+   state (read by wrapping ``aec.forward``) against the CPU's within
+   ``AEC_TOL``, and its ms; (b) the
+   synthetic AEC `.mgk` (``build_aec_mgk(0)``) decompiled with
+   ``import_mgk(streaming=True)``: ``make_stream_scanner`` at S = 1 and
+   S = 32 streams of ``AUDIO_WINDOWS`` windows (JAX's ``aec_bench.py``
+   defaults), wall-timed after a warm-up: xRT = W x 16 ms / wall s, per
+   stream and in aggregate; the S = 32 masks of streams 0 and 31 against
+   ``AECStream`` run window by window on the card (``AUDIO_CHECK_WINDOWS``
+   windows each, within ``SCAN_TOL``), and their first 4 windows against
+   the scanner on the CPU (``AEC_TOL``); the step loop's ms a window
+   (``AECStream.run``, state carried); (c) 0.5 s of seeded noise through
+   ``write_wav`` / ``read_wav`` and ``process_wav_stream``, card against
+   CPU within ``WAV_TOL`` of the largest |sample|.
+19. ``[jzdl]``: the JZDL person detector: the fixture `.so`
+   (``models.jzdl_fixtures.build_persondet_so(0)``) through
+   ``cli.main(["decompile", ..., "--extract-weights", ...])`` (host only:
+   its layer table and arrays checked against the parsed model; the tests
+   hold them to JAX's); ``persondet.calibrate`` on one seeded image and
+   ``forward`` on another on the card and on the CPU: statistics, every
+   conv's int32 accumulator (read by wrapping ``persondet.conv_acc``) and
+   the float64 heads equal bit for bit, ``head_priors`` equal; ms a
+   forward (wall, synchronized) on the card and on the CPU.
+   Both phases print the card's ``name, power.limit`` beside their numbers
+   and run with the launch counters set to 0 before and read after
+   (``audio_launches`` / ``jzdl_launches`` in the kernels' line: none of
+   the hand-written kernels is on these paths).
 
 Each path is run with the launch counters set to 0 just before it and
 read just after. Tolerances (as in ``tests/test_torch_fused_kernels.py``):
@@ -333,7 +363,9 @@ operations over 1,979 TOP/s, the H100 SXM's published peaks), at its
 first case's shape.
 
 Each kernel's line also carries ``onnx_launches`` and ``mgk_launches``,
-its launches in ``[onnx]``'s three and ``[mgk]``'s two counted runs.
+its launches in ``[onnx]``'s three and ``[mgk]``'s two counted runs, and
+``audio_launches`` and ``jzdl_launches``, its launches in ``[audio]`` and
+``[jzdl]``.
 
 Prints the kernels' JSON line, the card's ``name, power.limit`` line and,
 as the last line, ``{"ok": true, "device": {...}}``. Any failure exits
@@ -343,6 +375,7 @@ detailed numbers to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -3980,6 +4013,259 @@ def phase_mgk(results: dict) -> dict:
     return res
 
 
+AEC_TOL = 1e-6          # AEC masks and states, card against CPU, of the
+                        # largest |value| (float32 GRUs: the card's sigmoid
+                        # and tanh an ulp or two from the CPU's; TF32
+                        # rounds each operand to 2^-11, far above this)
+WAV_TOL = 1e-5          # samples out of process_wav_stream, card against CPU,
+                        # of the largest |sample| (the masks' gap through
+                        # the iDFT's sums)
+SCAN_TOL = 2e-5         # absolute: the scanner against the step loop on the
+                        # card (JAX's test's bound; vmap batches the
+                        # products, so their sums round apart)
+AUDIO_WINDOWS = 256     # JAX's examples/aec_bench.py defaults: W windows
+AUDIO_STREAMS = (1, 32)  # and S concurrent streams
+AUDIO_CHECK_WINDOWS = 64   # windows of streams 0 and S - 1 run one by one
+AUDIO_STEP_WINDOWS = 50    # the step loop's timed windows
+HOP_S = 256 / 16000.0   # audio seconds a window step
+JZDL_ITERS = 20
+
+
+@contextlib.contextmanager
+def recording(module, name: str):
+    """Wrap the function ``module.name`` for the block; the list it yields
+    receives each call's result, in order."""
+    fn, seen = getattr(module, name), []
+
+    def wrapper(*args, **kwargs):
+        seen.append(fn(*args, **kwargs))
+        return seen[-1]
+    setattr(module, name, wrapper)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def phase_audio(smi: str) -> dict:
+    """``[audio]`` (phase 18 of the docstring)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch.formats import mgk
+    from thingino_accel_tpu_torch.models import aec, audio
+    from thingino_accel_tpu_torch.models import mgk_fixtures as MF
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(22)
+    res = {}
+    reset_launches()
+
+    # (a) AECModel at AECConfig(), process_stream in chunks of 8
+    cfg = aec.AECConfig()
+    params, cpu_params = aec.init_params(cfg), aec.init_params(cfg, "cpu")
+    spec = np.abs(rng.normal(size=(1, 256, 64, 1))).astype(np.float32)
+    with recording(aec, "forward") as steps:
+        masks = aec.process_stream(params, torch.from_numpy(spec).to(dev),
+                                   8, cfg)
+    with recording(aec, "forward") as cpu_steps:
+        cmasks = aec.process_stream(cpu_params, torch.from_numpy(spec), 8,
+                                    cfg)
+    require(len(steps) == len(cpu_steps) == 8,
+            f"[audio] (a) {len(steps)} chunk steps")
+    state, cstate = steps[-1][1], cpu_steps[-1][1]
+    err_a = max(_rel_err(masks, cmasks), _rel_err(state, cstate))
+    require(tuple(masks.shape) == (1, 256, 64, 2)
+            and bool(torch.isfinite(masks).all()),
+            f"[audio] (a) masks {tuple(masks.shape)}")
+    require(err_a <= AEC_TOL, f"[audio] (a) card {err_a:.3g} of the "
+                                "largest |value| from the CPU's")
+    x = torch.from_numpy(spec).to(dev)
+    stream_ms = time_ms(lambda: aec.process_stream(params, x, 8, cfg), 5)
+    print(f"[audio] (a) AECModel at AECConfig() (seed 0), process_stream "
+          f"of 64 frames in chunks of 8: masks and state within {err_a:.3g} "
+          f"of the largest |value| of the CPU's (bound {AEC_TOL}); "
+          f"{stream_ms:.3f} ms for the 64 frames ({smi})")
+    res["a_model"] = {"rel_err": err_a, "ms_64_frames": stream_ms}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) the decompiled AEC .mgk: the scanner and the step loop
+        path = f"{tmp}/aec.mgk"
+        Path(path).write_bytes(MF.build_aec_mgk(0))
+        g = mgk.import_mgk(path, streaming=True)
+        run = aec.make_stream_scanner(g)
+        cpu_run = aec.make_stream_scanner(g, "cpu")
+        stream = aec.AECStream(g)
+        cpu_stream = aec.AECStream(g, "cpu")
+        W = AUDIO_WINDOWS
+        res["b_scanner"] = {}
+        for S in AUDIO_STREAMS:
+            wins = torch.from_numpy(np.abs(rng.normal(
+                size=(W, S, 1, 256, 8))).astype(np.float32)).to(dev)
+            h0 = torch.zeros((S, 1, 64, 32), device=dev)
+            run(h0, wins[:2])                          # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(h0, wins)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            require(tuple(out.shape) == (W, S, 1, 256, 2)
+                    and bool(torch.isfinite(out).all()),
+                    f"[audio] (b) S={S} masks {tuple(out.shape)}")
+            xrt = W * HOP_S / wall
+            row = {"wall_s": wall, "ms_per_window": wall / W * 1e3,
+                   "xrt_per_stream": xrt, "xrt_aggregate": xrt * S}
+            if S == AUDIO_STREAMS[-1]:
+                errs, cpu_errs = [], []
+                picks = [0, S - 1]
+                cpu_out = cpu_run(h0[picks].cpu(), wins[:4, picks].cpu())
+                for j, s in enumerate(picks):
+                    h = h0[s]
+                    for w in range(AUDIO_CHECK_WINDOWS):
+                        m, h = stream.run(wins[w, s], h)
+                        errs.append(float((out[w, s] - m).abs().max()))
+                    cpu_errs.append(_rel_err(out[:4, s], cpu_out[:, j]))
+                require(max(errs) <= SCAN_TOL,
+                        f"[audio] (b) scanner {max(errs):.3g} from "
+                        "AECStream")
+                require(max(cpu_errs) <= AEC_TOL,
+                        f"[audio] (b) scanner {max(cpu_errs):.3g} from the "
+                        "CPU's")
+                row.update(step_abs_err=max(errs), cpu_rel_err=max(cpu_errs))
+            res["b_scanner"][S] = row
+            print(f"[audio] (b) make_stream_scanner (torch.func.vmap over "
+                  f"{S} stream(s), {W} windows = {W * HOP_S:.3f} s of audio "
+                  f"each): {wall:.3f} s wall, {row['ms_per_window']:.3f} ms "
+                  f"a window step, xRT {xrt:.2f} per stream, "
+                  f"{xrt * S:.2f} aggregate ({smi})")
+        win = wins[0, 0]
+        h = stream.init_state()
+        stream.run(win, h)
+        t0 = time.perf_counter()
+        for _ in range(AUDIO_STEP_WINDOWS):
+            _, h = stream.run(win, h)
+        step_ms = (time.perf_counter() - t0) / AUDIO_STEP_WINDOWS * 1e3
+        res["b_step_ms"] = step_ms
+        chk = res["b_scanner"][AUDIO_STREAMS[-1]]
+        print(f"[audio] (b) streams 0 and {AUDIO_STREAMS[-1] - 1}: the "
+              f"scanner within {chk['step_abs_err']:.3g} (absolute, bound "
+              f"{SCAN_TOL}) of AECStream run window by window "
+              f"({AUDIO_CHECK_WINDOWS} windows each), its first 4 windows "
+              f"within {chk['cpu_rel_err']:.3g} of the CPU scanner's "
+              f"(bound {AEC_TOL}); the step loop (AECStream.run, state "
+              f"carried, synchronized): {step_ms:.3f} ms a window "
+              f"(xRT {HOP_S * 1e3 / step_ms:.2f}) ({smi})")
+
+        # (c) a WAV through process_wav_stream
+        wav = f"{tmp}/noise.wav"
+        audio.write_wav(wav, (np.random.default_rng(7).normal(size=8000)
+                              * 0.2).astype(np.float32))
+        samples = audio.read_wav(wav)
+        t0 = time.perf_counter()
+        got = audio.process_wav_stream(stream, samples)
+        wav_s = time.perf_counter() - t0
+        want = audio.process_wav_stream(cpu_stream, samples)
+        err_c = _rel_err(torch.from_numpy(got), torch.from_numpy(want))
+        require(got.shape == samples.shape and np.isfinite(got).all()
+                and float(np.abs(got).max()) <= 1.5,
+                f"[audio] (c) output {got.shape}, max {np.abs(got).max()}")
+        require(err_c <= WAV_TOL, f"[audio] (c) card {err_c:.3g} of the "
+                                    "largest |sample| from the CPU's")
+        print(f"[audio] (c) 0.5 s WAV (write_wav/read_wav) through "
+              f"process_wav_stream on the card: within {err_c:.3g} of the "
+              f"largest |sample| of the CPU's (bound {WAV_TOL}); "
+              f"{wav_s:.3f} s wall ({smi})")
+        res["c_wav"] = {"rel_err": err_c, "wall_s": wav_s}
+    res["launches"] = read_launches()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[audio] kernel launches {sum(res['launches'].values())}; phase "
+          f"{res['phase_s']:.1f} s")
+    return res
+
+
+def phase_jzdl(smi: str) -> dict:
+    """``[jzdl]`` (phase 19 of the docstring)."""
+    import io
+    import tempfile
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch import cli
+    from thingino_accel_tpu_torch.formats import jzdl
+    from thingino_accel_tpu_torch.models import jzdl_fixtures as JF
+    from thingino_accel_tpu_torch.models import persondet as PD
+    t_phase = time.perf_counter()
+    res = {}
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        so, npz = f"{tmp}/libpersonDet_inf.so", f"{tmp}/w.npz"
+        Path(so).write_bytes(JF.build_persondet_so(0))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["decompile", "-i", so, "--extract-weights", npz])
+        lines = buf.getvalue().splitlines()
+        model = jzdl.load_so(so)
+        arrs = dict(np.load(npz))
+    require(rc == 0 and len(lines) == 34 and lines[0] ==
+            "jzdl embedded network: input 3x67x67, 32 layers, 34 blobs",
+            f"[jzdl] cli decompile: rc {rc}, {lines[:1]}")
+    for i, l in enumerate(model.conv_layers()):
+        require(np.array_equal(arrs[f"L{i}_weights"], l.weights),
+                f"[jzdl] --extract-weights L{i}")
+    wbytes = sum(v.size for k, v in arrs.items() if k.endswith("_weights"))
+    require(wbytes == sum(l.weight_size for l in model.conv_layers()),
+            f"[jzdl] {wbytes} weight bytes extracted")
+    calib, held = JF.seeded_image(1), JF.seeded_image(2)
+    cal = PD.calibrate(model, calib)
+    cpu_cal = PD.calibrate(model, calib, "cpu")
+    for li in cpu_cal:
+        require(all(torch.equal(a.cpu(), b)
+                    for a, b in zip(cal[li], cpu_cal[li])),
+                f"[jzdl] layer {li}: statistics differ from the CPU's")
+    with recording(PD, "conv_acc") as accs:
+        heads = PD.forward(model, held, cal)
+    with recording(PD, "conv_acc") as cpu_accs:
+        cpu_heads = PD.forward(model, held, cpu_cal, device="cpu")
+    require(len(accs) == len(cpu_accs) == 25 and all(
+        torch.equal(a.cpu(), b) for a, b in zip(accs, cpu_accs)),
+        "[jzdl] accumulators differ from the CPU's")
+    require([tuple(heads[k].shape) for k in sorted(heads)] ==
+            [(17, 17, 18), (34, 34, 18)]
+            and all(bool(torch.isfinite(h).all()) for h in heads.values()),
+            "[jzdl] head shapes")
+    require(sorted(heads) == sorted(cpu_heads) and all(
+        heads[k].dtype == torch.float64 and torch.equal(heads[k].cpu(),
+                                                        cpu_heads[k])
+        for k in cpu_heads), "[jzdl] heads differ from the CPU's")
+    pri, cpu_pri = PD.head_priors(model), PD.head_priors(model, "cpu")
+    require(all(torch.equal(pri[k].cpu(), cpu_pri[k]) for k in cpu_pri),
+            "[jzdl] head priors")
+    peaks = {k: float(v.max()) for k, v in PD.person_maps(heads).items()}
+
+    def wall_ms(device, c):
+        PD.forward(model, held, c, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(JZDL_ITERS):
+            PD.forward(model, held, c, device=device)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / JZDL_ITERS * 1e3
+    ms, cpu_ms = wall_ms("cuda", cal), wall_ms("cpu", cpu_cal)
+    res.update(heads_equal=True, accs=len(accs), ms=ms, cpu_ms=cpu_ms,
+               person_peaks=peaks, weight_bytes=int(wbytes))
+    print(f"[jzdl] fixture .so through cli decompile --extract-weights: "
+          f"{len(model.layers)} layers, {wbytes} weight bytes; calibrate "
+          f"(seeded image 1) and forward (seeded image 2) on the card: "
+          f"statistics, {len(accs)} conv accumulators and the float64 "
+          f"heads equal to the CPU's bit for bit; person-map peaks {peaks}; "
+          f"{ms:.3f} ms a forward on the card, {cpu_ms:.3f} ms on the CPU "
+          f"(wall, synchronized, {JZDL_ITERS} forwards) ({smi})")
+    res["launches"] = read_launches()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[jzdl] kernel launches {sum(res['launches'].values())}; phase "
+          f"{res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     if not (REPO / "thingino_accel_tpu_torch" / "csrc").is_dir() \
             or not MODEL.exists() or not NANODET.exists():
@@ -4016,6 +4302,8 @@ def main() -> int:
         ops_res = phase_ops()
         onnx_res = phase_onnx(results)
         mgk_res = phase_mgk(results)
+        audio_res = phase_audio(smi)
+        jzdl_res = phase_jzdl(smi)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -4033,7 +4321,9 @@ def main() -> int:
                         "library_ms": rep["library_ms"], "at": rep["case"],
                         "path": PATH_OF[k],
                         "onnx_launches": r.get("onnx_launches", 0),
-                        "mgk_launches": r.get("mgk_launches", 0)})
+                        "mgk_launches": r.get("mgk_launches", 0),
+                        "audio_launches": audio_res["launches"].get(k, 0),
+                        "jzdl_launches": jzdl_res["launches"].get(k, 0)})
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -4046,7 +4336,8 @@ def main() -> int:
         "probe_checks": probe_checks,
         "probes": probes_res, "pipeline": pipeline_res,
         "fast": fast_res, "streams": streams_res, "ops": ops_res,
-        "onnx": onnx_res, "mgk": mgk_res},
+        "onnx": onnx_res, "mgk": mgk_res, "audio": audio_res,
+        "jzdl": jzdl_res},
         indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -19,8 +19,10 @@ same model and input, the port with ``--device cpu``:
   whole real yolov5n raises JAX's error (its decode tail's RESHAPE);
 - ``decompile`` of the YOLO and AEC `.mgk` fixtures
   (``models.mgk_fixtures``): the JSON, the ``--extract-weights`` arrays and
-  the ``--onnx`` bytes equal JAX's; a JZDL `.so` exits non-zero naming
-  ROADMAP.md A.4 (JZDL);
+  the ``--onnx`` bytes equal JAX's; of the JZDL fixture `.so`
+  (``models.jzdl_fixtures``): the layer table and the ``--extract-weights``
+  `.npz` arrays equal JAX's; a `.so` with no JZDL network takes the `.mgk`
+  route, as in JAX;
 - ``quantize`` (``--device cpu``) of ``tiny_160_f32.mars`` and of its
   float32 ONNX export, from seeded random batches, ``--calib`` `.npy` and
   `.npz`, ``--images`` (PNG files through Pillow), ``--method mse`` and a
@@ -217,12 +219,45 @@ def test_decompile_equals_jax(which, tmp_path):
         _out(JCLI.main, ["decompile", "-i", str(src)])
 
 
-def test_decompile_of_a_jzdl_so_names_its_item(tmp_path, capsys):
+def test_decompile_of_a_jzdl_so_names_its_item(tmp_path):
+    """A `.so` that embeds no JZDL network goes to the `.mgk` inspector, as
+    in JAX (the route is the loader's, not the file name's). The name is
+    older than the route: the port once refused every `.so`, naming the
+    ROADMAP item that would port JZDL."""
     so = tmp_path / "libpersonDet_inf.so"
     so.write_bytes(MF.build_elf32(b"jzdl\x00"))
-    assert CLI.main(["decompile", "-i", str(so)]) != 0
-    err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP.md A.4 (JZDL)" in err
+    got = _out(CLI.main, ["decompile", "-i", str(so)])
+    assert got == _out(JCLI.main, ["decompile", "-i", str(so)])
+    assert got[0] == "{" and '  "weight_bytes": 0,' in got
+
+
+@pytest.mark.parametrize("extract", [False, True])
+def test_decompile_of_the_jzdl_fixture_equals_jax(extract, tmp_path):
+    """The port's JZDL fixture `.so` (``models.jzdl_fixtures``), also under
+    a `.mgk` name: the layer table and the ``--extract-weights`` arrays
+    equal JAX's."""
+    from thingino_accel_tpu_torch.models import jzdl_fixtures as JF
+    so = tmp_path / "pd.mgk"
+    so.write_bytes(JF.build_persondet_so(0))
+    got = {}
+    for who, main in (("port", CLI.main), ("jax", JCLI.main)):
+        out = tmp_path / f"{who}.npz"
+        argv = ["decompile", "-i", str(so)] + (
+            ["--extract-weights", str(out)] if extract else [])
+        lines = [ln.replace(str(out), "W") for ln in _out(main, argv)]
+        got[who] = (lines, dict(np.load(out)) if extract else {})
+    (pl, pa), (jl, ja) = got["port"], got["jax"]
+    assert pl == jl and len(pl) == 33 + extract
+    assert pl[0] == "jzdl embedded network: input 3x67x67, 32 layers, " \
+                    "34 blobs"
+    assert list(pa) == list(ja)
+    for k in ja:
+        assert pa[k].dtype == ja[k].dtype, k
+        np.testing.assert_array_equal(pa[k], ja[k], err_msg=k)
+    if extract:
+        assert pa["L0_weights"].size == 432
+        assert sum(v.size for k, v in pa.items()
+                   if k.endswith("_weights")) == 926880
 
 
 def _calib_files(tmp_path):

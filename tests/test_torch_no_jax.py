@@ -25,12 +25,18 @@ machine lists none) and imports nothing of the JAX package.
   AEC) through ``api.nna_model_load`` on the CPU (``nna_init(device=
   "cpu")``), the AEC model run, ``training.ptq`` on the tiny zoo graph,
   ``ops.image``'s resize and warp, and the CLI's ``decompile`` and
-  ``quantize``.
+  ``quantize``; and the last two model families: a WAV written and read,
+  ``process_wav_stream`` through ``AECStream`` and ``process_wav``
+  through ``build_aec_graph`` on the AEC fixture, ``process_stream``,
+  ``make_stream_scanner`` at 2 streams, and the JZDL fixture `.so` through
+  ``load_so``, ``persondet.calibrate`` / ``forward`` and the CLI's
+  ``decompile``.
 - No module of the port and no line of ``chip_smoke.py`` holds an
   ``import`` of ``thingino_accel_tpu`` (parsed with ``ast``, so an import
   inside a function counts too); the walk covers the format modules,
   ``models/onnx_fixtures.py`` and ``models/mgk_fixtures.py``,
-  ``training/ptq.py``, ``api.py`` and ``ops/image.py``.
+  ``training/ptq.py``, ``api.py`` and ``ops/image.py``, and the audio,
+  AEC, JZDL and person-detector modules and the JZDL fixture.
 """
 
 import ast
@@ -286,6 +292,37 @@ SCRIPT = textwrap.dedent("""
     u8 = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
     assert image.resize_bilinear(u8, (5, 11)).shape == (1, 5, 11, 3)
     assert image.warp_affine(u8, np.eye(2, 3)).dtype == torch.uint8
+    from thingino_accel_tpu_torch.formats import jzdl
+    from thingino_accel_tpu_torch.models import (
+        aec, audio, jzdl_fixtures, persondet)
+    with tempfile.TemporaryDirectory() as d:
+        open(d + "/a.mgk", "wb").write(mgk_fixtures.build_aec_mgk(0))
+        g = mgk.import_mgk(d + "/a.mgk", streaming=True)
+        wav = (np.random.default_rng(3).normal(size=3000) * 0.2).astype(
+            np.float32)
+        audio.write_wav(d + "/x.wav", wav)
+        wav = audio.read_wav(d + "/x.wav")
+        stream = aec.AECStream(g, "cpu")
+        assert audio.process_wav_stream(stream, wav).shape == (3000,)
+        model = aec.build_aec_graph(mgk.parse_elf(open(
+            d + "/a.mgk", "rb").read()).appended, device="cpu")
+        assert audio.process_wav(model, wav).shape == (3000,)
+        spec = torch.ones((1, 256, 16, 1))
+        masks = aec.process_stream(model.params, spec, 8)
+        assert masks.shape == (1, 256, 16, 2)
+        run = aec.make_stream_scanner(g, "cpu")
+        assert run(np.zeros((2, 1, 64, 32), np.float32),
+                   np.ones((2, 2, 1, 256, 8), np.float32)).shape == (
+            2, 2, 1, 256, 2)
+        open(d + "/p.so", "wb").write(jzdl_fixtures.build_persondet_so(0))
+        pd = jzdl.load_so(d + "/p.so")
+        cal = persondet.calibrate(pd, jzdl_fixtures.seeded_image(1), "cpu")
+        heads = persondet.forward(pd, jzdl_fixtures.seeded_image(2), cal,
+                                  device="cpu")
+        assert [tuple(h.shape) for h in heads.values()] == [
+            (17, 17, 18), (34, 34, 18)]
+        assert cli.main(["decompile", "-i", d + "/p.so",
+                         "--extract-weights", d + "/w.npz"]) == 0
     assert sys.modules["jax"] is None
     assert sys.modules["thingino_accel_tpu"] is None
     print("ok")
@@ -318,10 +355,12 @@ def test_no_import_of_the_jax_package():
     pkg = os.path.join(REPO, "thingino_accel_tpu_torch")
     assert {os.path.join(pkg, "formats", f + ".py") for f in (
         "onnx_proto", "onnx_writer", "onnx", "onnx_export", "mars_export",
-        "mgk", "mgk_yolo")
+        "mgk", "mgk_yolo", "jzdl")
     } | {os.path.join(pkg, *f) for f in (
         ("models", "onnx_fixtures.py"), ("models", "mgk_fixtures.py"),
-        ("training", "ptq.py"), ("api.py",), ("ops", "image.py"))
+        ("training", "ptq.py"), ("api.py",), ("ops", "image.py"),
+        ("models", "audio.py"), ("models", "aec.py"),
+        ("models", "persondet.py"), ("models", "jzdl_fixtures.py"))
     } <= set(files)
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imports_of(f)

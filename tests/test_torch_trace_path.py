@@ -25,6 +25,18 @@ def test_refuses_to_run_without_a_card():
         T.trace("exact_yolov5s", batches=1, batch=1)
 
 
+@pytest.mark.parametrize("path", T.MODEL_PATHS)
+def test_model_paths_need_the_card(path):
+    """The AEC and person-detector paths build their step on the card
+    only: without one they raise, from the trace or from the step."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the trace would run")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.trace(path, batches=1, batch=1)
+    with pytest.raises(RuntimeError, match="no CUDA device|CUDA"):
+        T._model_step(path)
+
+
 @pytest.mark.parametrize("path,n,distinct", [
     ("planned_yolov5n", 8, 8), ("unplanned_yolov5n", 18, 11),
     ("zoo_yolov5s", 7, 7), ("nanodet", 1, 1)])

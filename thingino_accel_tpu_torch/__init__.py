@@ -21,7 +21,10 @@ tensor-core kernels (``ops.probe_kernels``); the fast tier, the camera
 streams and the model compiler's formats; and the OEM-model path: the
 `.mgk` decompiler (``formats.mgk``, ``formats.mgk_yolo``), post-training
 quantization (``training.ptq``), the C-API-shaped shim (``api``) and its
-image pipes (``ops.image``).
+image pipes (``ops.image``); and the last two model families: the AEC
+audio modality (``models.audio``, ``models.aec``: the STFT front end, the
+GRU U-Net, decompiled-`.mgk` streams, many streams at once) and the JZDL
+person detector (``formats.jzdl``, ``models.persondet``).
 """
 
 from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions

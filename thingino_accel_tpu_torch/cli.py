@@ -12,10 +12,13 @@
   becomes an int8 `.mars`);
 - ``gen-test`` — a one-conv int8 test `.mars` from a seed;
 - ``export-onnx`` — `.mars` -> float32 ONNX (``formats.onnx_export``);
-- ``decompile`` — an OEM `.mgk` -> its metadata as JSON
-  (``formats.mgk.inspect_mgk``), ``--extract-weights DIR`` (`.npy` files)
-  and ``--onnx OUT`` (float32 ONNX of a recognized family, AEC or YOLO);
-  a JZDL `.so` exits non-zero naming its ROADMAP item;
+- ``decompile`` — an OEM IVS `.so` embedding a JZDL network ->
+  its layer table (``formats.jzdl.load_so``), ``--extract-weights
+  OUT.npz`` its weight and metadata arrays; any other file, as an OEM
+  `.mgk` -> its metadata as JSON (``formats.mgk.inspect_mgk``),
+  ``--extract-weights DIR`` (`.npy` files) and ``--onnx OUT`` (float32
+  ONNX of a recognized family, AEC or YOLO). The route is JAX's: a file
+  the JZDL loader refuses goes to the `.mgk` one, whatever its name;
 - ``quantize`` — PTQ: a float32 `.onnx` or `.mars` calibrated
   (``training.ptq``: ``--calib`` `.npy`/`.npz` batches, ``--images`` a
   folder, else seeded random batches; ``--method``, ``--percentile``) to
@@ -44,8 +47,6 @@ import numpy as np
 NOT_PORTED = {
     "bench": ("run the headline benchmark", "A.1 (the GPU bench)"),
 }
-# what ``decompile`` does not take yet: an OEM IVS wrapper (a JZDL `.so`)
-JZDL_ITEM = "A.4 (JZDL)"
 
 
 def _load_image(path: str) -> np.ndarray:
@@ -206,15 +207,42 @@ def cmd_export_onnx(args) -> int:
 
 
 def cmd_decompile(args) -> int:
-    """`.mgk` -> metadata JSON, weight arrays and ONNX (the
+    """OEM model -> its structure and weights: a JZDL `.so` -> layer table
+    and `.npz`; a `.mgk` -> metadata JSON, weight arrays and ONNX (the
     ``mgk-decompiler`` CLI's role)."""
-    from thingino_accel_tpu_torch.formats import mgk
-    if args.input.endswith(".so"):
-        # OEM IVS wrappers (e.g. libpersonDet_inf.so) embed a jzdl
-        # network instead of a magik container
-        print(f"error: decompiling a JZDL .so is not ported to the PyTorch "
-              f"package yet: ROADMAP.md {JZDL_ITEM}", file=sys.stderr)
-        return 2
+    from thingino_accel_tpu_torch.formats import jzdl, mgk
+
+    # OEM IVS wrappers (e.g. libpersonDet_inf.so) embed a jzdl network
+    # instead of a magik container — route those to the jzdl decompiler
+    try:
+        model = jzdl.load_so(args.input)
+    except (ValueError, OSError):
+        model = None
+    if model is not None:
+        c, h, w = model.input_chw
+        print(f"jzdl embedded network: input {c}x{h}x{w}, "
+              f"{len(model.layers)} layers, {model.n_blobs} blobs")
+        for i, l in enumerate(model.layers):
+            tag = jzdl.LAYER_NAMES.get(l.ltype, f"type{l.ltype}")
+            extra = ""
+            if l.is_conv:
+                extra = (f" cin={l.in_channels} cout={l.out_channels}"
+                         f" k={l.kernel} s={l.stride}"
+                         f" w={l.weight_size}B")
+            print(f"  L{i:2d} {tag:9s} {l.bottoms}->{l.tops}{extra}")
+        if args.extract_weights:
+            arrs = {}
+            for i, l in enumerate(model.conv_layers()):
+                arrs[f"L{i}_weights"] = l.weights
+                for f in ("bias", "scales", "q31_mult", "q_shift",
+                          "quant_a", "quant_packed"):
+                    v = getattr(l, f)
+                    if v is not None:
+                        arrs[f"L{i}_{f}"] = v
+            np.savez(args.extract_weights, **arrs)
+            print(f"weights -> {args.extract_weights}")
+        return 0
+
     info = mgk.inspect_mgk(args.input)
     print(json.dumps(info, indent=2, default=str))
     if args.extract_weights:

@@ -8,9 +8,9 @@
 - ``mars_export`` / ``onnx_export``: IR -> `.mars` and IR -> float32
   ONNX;
 - ``mgk`` / ``mgk_yolo``: the OEM `.mgk` decompiler (ELF parsing,
-  `.rodata` mining, weight extraction, AEC and YOLO ONNX export).
-
-JZDL is not ported (ROADMAP.md A.4).
+  `.rodata` mining, weight extraction, AEC and YOLO ONNX export);
+- ``jzdl``: the OEM IVS `.so` decompiler (the JZDL person detector's
+  structure and weight blobs, mined from the ELF's symbols).
 """
 
 from thingino_accel_tpu_torch.formats.mars import (

@@ -151,6 +151,23 @@ def _conv_nchw(x: torch.Tensor, w: torch.Tensor, out_hw: Tuple[int, int],
 
 
 @contextlib.contextmanager
+def no_tf32():
+    """Float32 matmuls and cuDNN convs in full float32 inside the block (no
+    TF32 on the card), as the CPU computes them; the settings as they were
+    after. The float32 exact tier's scope: the AEC model and its STFT, the
+    person detector's sums, the PTQ reference forward."""
+    m = torch.backends.cuda.matmul.allow_tf32
+    c = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = m
+        torch.backends.cudnn.allow_tf32 = c
+
+
+@contextlib.contextmanager
 def _cudnn_tf32():
     """cuDNN may take TF32 inside the block; the setting as it was after."""
     was = torch.backends.cudnn.allow_tf32

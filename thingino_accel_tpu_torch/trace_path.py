@@ -23,6 +23,19 @@ card before the window, so the window holds no host-to-device copy):
   ``FAST_ACCUM`` -> #8 on the bf16 heads -> NMS) on the real yolov5n and
   on the zoo yolov5s at 640 as :func:`fast_graph` builds them.
 
+Model paths (no frames: a "batch" is one step, its inputs made from seed
+0 and put on the card before the window):
+
+- ``aec_step``: one window of the AEC step loop, ``AECStream.run`` on the
+  decompiled synthetic AEC `.mgk` (``build_aec_mgk(0)``), gru1's state
+  carried (each run synchronizes, as the loop does);
+- ``aec_scanner_s1`` / ``aec_scanner_s32``: one window step of
+  ``make_stream_scanner`` on the same graph over 1 or 32 streams (the
+  graph's forward ``torch.func.vmap``-ed over the streams);
+- ``persondet``: one forward of the JZDL person detector on the fixture
+  `.so` (``build_persondet_so(0)``), calibrated on seeded image 1,
+  run on seeded image 2.
+
 After two warm-up batches, ``--batches`` pipeline calls run back to back
 inside the profiler, then the device is synchronized. The wall time is
 the host clock over that window; "busy" is the union of the device
@@ -125,6 +138,45 @@ def _pipeline(path: str, eng):
         Y.letterbox_uint8(f, target)))
 
 
+MODEL_PATHS = ("aec_step", "aec_scanner_s1", "aec_scanner_s32", "persondet")
+
+
+def _model_step(path: str):
+    """One step of a model path (the module docstring), a callable."""
+    import tempfile
+    from thingino_accel_tpu_torch.formats import jzdl, mgk
+    from thingino_accel_tpu_torch.models import aec
+    from thingino_accel_tpu_torch.models import jzdl_fixtures as JF
+    from thingino_accel_tpu_torch.models import mgk_fixtures as MF
+    from thingino_accel_tpu_torch.models import persondet as PD
+    if path == "persondet":
+        with tempfile.TemporaryDirectory() as d:
+            Path(f"{d}/p.so").write_bytes(JF.build_persondet_so(0))
+            model = jzdl.load_so(f"{d}/p.so")
+        cal = PD.calibrate(model, JF.seeded_image(1))
+        img = torch.from_numpy(JF.seeded_image(2)).cuda()
+        return lambda: PD.forward(model, img, cal)
+    with tempfile.TemporaryDirectory() as d:
+        Path(f"{d}/a.mgk").write_bytes(MF.build_aec_mgk(0))
+        g = mgk.import_mgk(f"{d}/a.mgk", streaming=True)
+    rng = np.random.default_rng(0)
+    if path == "aec_step":
+        stream = aec.AECStream(g)
+        win = torch.from_numpy(np.abs(rng.normal(size=(1, 256, 8))).astype(
+            np.float32)).cuda()
+        state = [stream.init_state()]
+
+        def step():
+            _, state[0] = stream.run(win, state[0])
+        return step
+    streams = int(path.rsplit("_s", 1)[1])
+    run = aec.make_stream_scanner(g)
+    wins = torch.from_numpy(np.abs(rng.normal(
+        size=(1, streams, 1, 256, 8))).astype(np.float32)).cuda()
+    h0 = torch.zeros((streams, 1, 64, 32), device="cuda")
+    return lambda: run(h0, wins)
+
+
 def _union_us(intervals) -> float:
     """Total length of the union of [start, end) intervals (us)."""
     total, cur_s, cur_e = 0.0, None, None
@@ -146,11 +198,15 @@ def trace(path: str, batches: int, batch: int) -> dict:
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this trace runs on the card only")
-    pipe = _pipeline(path, _engine(path))
-    rng = np.random.default_rng(0)
-    frames = [torch.from_numpy(rng.integers(
-        0, 256, (batch,) + FRAME_HW + (3,), dtype=np.uint8)).cuda()
-        for _ in range(batches)]
+    if path in MODEL_PATHS:
+        step = _model_step(path)
+        pipe, frames = (lambda _: step()), [None] * batches
+    else:
+        pipe = _pipeline(path, _engine(path))
+        rng = np.random.default_rng(0)
+        frames = [torch.from_numpy(rng.integers(
+            0, 256, (batch,) + FRAME_HW + (3,), dtype=np.uint8)).cuda()
+            for _ in range(batches)]
     for f in frames[:2]:
         pipe(f)
     torch.cuda.synchronize()
@@ -186,16 +242,19 @@ def main(argv=None) -> int:
     ap.add_argument("--path", default="exact_yolov5s",
                     choices=["exact_yolov5s", "serving_yolov5n",
                              "serving_yolov5s", "serving_nanodet",
-                             "fast_yolov5n", "fast_yolov5s"])
+                             "fast_yolov5n", "fast_yolov5s",
+                             *MODEL_PATHS])
     ap.add_argument("--batches", type=int, default=5)
     ap.add_argument("--batch", type=int, default=16)
     args = ap.parse_args(argv)
     res = trace(args.path, args.batches, args.batch)
-    print(f"[trace] {res['path']} on {res['device']}, batch {res['batch']}, "
-          f"{res['batches']} batches: wall {res['wall_ms_per_batch']:.3f} ms "
-          f"a batch, device busy {res['busy_ms_per_batch']:.3f} ms, idle "
+    unit = ("step" if args.path in MODEL_PATHS
+            else f"batch (batch {res['batch']})")
+    print(f"[trace] {res['path']} on {res['device']}, {res['batches']} "
+          f"{unit.split()[0]}s: wall {res['wall_ms_per_batch']:.3f} ms a "
+          f"{unit}, device busy {res['busy_ms_per_batch']:.3f} ms, idle "
           f"share {res['idle_share']:.3f}, "
-          f"{res['device_ops_per_batch']:.0f} device ops a batch")
+          f"{res['device_ops_per_batch']:.0f} device ops a {unit.split()[0]}")
     for t in res["top"]:
         print(f"[trace]   {t['ms_per_batch']:8.4f} ms  "
               f"{t['calls_per_batch']:6.1f}x  {t['name'][:110]}")

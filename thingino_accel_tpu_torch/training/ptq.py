@@ -24,7 +24,6 @@ the subsamples come to the host.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Dict, Iterable, List, Optional, Union
 
@@ -32,6 +31,7 @@ import numpy as np
 import torch
 
 from thingino_accel_tpu_torch.ir.graph import Graph, Node, QuantInfo, TensorInfo
+from thingino_accel_tpu_torch.ops import reference as R
 
 MSE_SAMPLES = 65536   # values a tensor keeps for ``method="mse"``
 MSE_GRID = 40         # clip points ``method="mse"`` tries
@@ -98,21 +98,6 @@ def _percentile_by_sort(a: torch.Tensor, q: float) -> float:
     return float(r)
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """Float32 convs and matmuls in full float32 on the card (no TF32), as
-    the calibration's reference forward on the CPU computes them."""
-    m = torch.backends.cuda.matmul.allow_tf32
-    c = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = m
-        torch.backends.cudnn.allow_tf32 = c
-
-
 def calibrate(
     graph: Graph,
     batches: Iterable[Dict[str, Union[np.ndarray, torch.Tensor]]],
@@ -148,7 +133,7 @@ def calibrate(
     raw_max: Dict[str, float] = {}
     samples: Dict[str, List[np.ndarray]] = {}
     rng = np.random.default_rng(0)
-    with _no_tf32(), torch.no_grad():
+    with R.no_tf32(), torch.no_grad():
         for batch in batches:
             feed = {k: torch.as_tensor(v).to(dev, torch.float32)
                     for k, v in batch.items()}
