@@ -337,6 +337,40 @@ Phases:
    (``audio_launches`` / ``jzdl_launches`` in the kernels' line: none of
    the hand-written kernels is on these paths).
 
+20. ``[qat]``: the training path. (a) The committed real yolov5n
+   dequantized to float32 (``ir.passes.dequantize_graph``, heads left
+   float: ``[ops]`` (b)'s graph cut to the three detect heads, its input
+   DEQUANT dropped so that the input is the float32 ``(u8 - 128) x
+   in_scale``), 640x640, nothing cut, in the exact tier on the card, TF32
+   off, cuDNN deterministic: teacher heads; ``ptq.calibrate`` on 8
+   letterboxed ``[slice]`` frames; ``qat.insert_activation_fake_quant``;
+   ``QAT_STEPS`` Adam steps (lr ``QAT_LR``) of per-channel QAT
+   (``make_train_step(channel_axis=-1)``) on two batches of 8 in turn.
+   Checks: every loss finite, the mean of the last 8 below the first 8's;
+   one frame's gradients on the card against the CPU's: without observers
+   (weights fake-quantized per tensor) within ``QAT_GRAD_RTOL`` of each
+   tensor's largest |gradient|; with them (the training's step) the loss
+   within ``QAT_OBS_LOSS_RTOL`` and each tensor's gradient at a cosine of
+   at least ``QAT_OBS_GRAD_COS`` (a 1-ulp difference rounds an observer
+   the other way at a tie, and the flips cascade: the share of the
+   observed heads apart is printed); a run saved at
+   step ``QAT_RESUME_AT`` (params and Adam's state, ``runtime.
+   checkpoint``) and loaded into fresh params and a fresh optimizer ends
+   on the uninterrupted run's params and losses bit for bit. Prints ms a
+   step (CUDA events), peak memory and the first and last losses. (b) The
+   trained weights written back (``params_to_jax``,
+   ``graph_with_params``), ``ptq.quantize_model`` on the card (per
+   channel), ``export_mars`` and read back: served on the 16 ``[slice]``
+   frames in the planned serving tier (launches = the census + one #8,
+   every kernel unit against its plain version, 2 frames step by step
+   against the CPU); and the same weights exported per tensor by
+   ``qat.export_int8`` (the exact tier's kernels take per-tensor scales;
+   per-channel convs run its plain op), through ``export_mars``, in the
+   exact tier: #9-#11 (launches = the census + one #8, no plain conv,
+   every conv against its plain version, one frame's every step bit for
+   bit against the CPU's). (c) The kernels' line: ``qat_launches``, each
+   kernel's launches in (b)'s two counted runs.
+
 Each path is run with the launch counters set to 0 just before it and
 read just after. Tolerances (as in ``tests/test_torch_fused_kernels.py``):
 NONE/RELU/LEAKY_RELU bit-exact; SILU at most 1 quantum on at most 0.1% of
@@ -365,7 +399,7 @@ first case's shape.
 Each kernel's line also carries ``onnx_launches`` and ``mgk_launches``,
 its launches in ``[onnx]``'s three and ``[mgk]``'s two counted runs, and
 ``audio_launches`` and ``jzdl_launches``, its launches in ``[audio]`` and
-``[jzdl]``.
+``[jzdl]``, and ``qat_launches``, its launches in ``[qat]`` (b).
 
 Prints the kernels' JSON line, the card's ``name, power.limit`` line and,
 as the last line, ``{"ok": true, "device": {...}}``. Any failure exits
@@ -4266,6 +4300,322 @@ def phase_jzdl(smi: str) -> dict:
     return res
 
 
+QAT_BATCH = 8           # frames a training batch; two batches in turn
+QAT_STEPS = 20          # Adam steps of the uninterrupted run
+QAT_RESUME_AT = 10      # the step the resumed run was saved at
+QAT_LR = 2e-6           # JAX's examples/qat_yolov5n.py default
+QAT_GRAD_RTOL = 1e-4    # one frame's gradients without observers, card
+                        # against CPU, of each tensor's largest |gradient|
+QAT_OBS_LOSS_RTOL = 0.02   # with observers: the loss, card against CPU,
+QAT_OBS_GRAD_COS = 0.95    # and each tensor's gradient's cosine (a 1-ulp
+                           # difference rounds an observer the other way
+                           # at a tie, and the flips cascade)
+QAT_STEP_FRAMES = 2     # frames of (b)'s serving leg held step by step
+
+
+def qat_float_graph():
+    """``[ops]`` (b)'s float32 real yolov5n cut to its three detect heads,
+    its input DEQUANT dropped: the input is the float32 ``(u8 - 128) x
+    in_scale`` the DEQUANT computed. Returns the graph and ``in_scale``."""
+    import numpy as np
+    from thingino_accel_tpu_torch.ir import passes
+    from thingino_accel_tpu_torch.ir.graph import Graph
+    from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.runtime.engine import load_graph
+    g = load_graph(str(MODEL))
+    fg = passes.dequantize_graph(g.with_outputs(Y.find_detect_outputs(g)),
+                                 quantize_outputs=False)
+    dq = fg.nodes[0]
+    require(dq.op == "DEQUANT" and dq.inputs == fg.inputs,
+            f"[qat] the float graph starts with {dq!r}")
+    tensors = {k: v for k, v in fg.tensors.items() if k != fg.inputs[0]}
+    fg = Graph(nodes=fg.nodes[1:], tensors=tensors, inputs=list(dq.outputs),
+               outputs=list(fg.outputs), name=fg.name)
+    fg.validate()
+    return fg, float(np.float32(dq.attrs["scale"]))
+
+
+def per_tensor_weights(q, g_float):
+    """``q`` (``ptq.quantize_graph``'s int8 graph of ``g_float``) with its
+    conv weights as ``qat.export_int8`` gives them from ``g_float``'s
+    float weights (per tensor) and each bias in the accumulator's units
+    of that scale, ``quantize_graph``'s rule: the scheme of the exact
+    tier's kernels."""
+    import copy
+    import numpy as np
+    from thingino_accel_tpu_torch.ir.graph import QuantInfo
+    from thingino_accel_tpu_torch.training import qat
+    qt = copy.deepcopy(q)
+    convs = [n for n in qt.nodes if n.op == "CONV2D" and len(n.inputs) > 1]
+    w8, ws = qat.export_int8({n.inputs[1]: g_float.tensors[n.inputs[1]].data
+                              for n in convs})
+    for n in convs:
+        w = qt.tensors[n.inputs[1]]
+        w.data, w.dtype = w8[n.inputs[1]], np.dtype(np.int8)
+        w.quant, w.channel_scales = QuantInfo(scale=ws[n.inputs[1]]), None
+        if len(n.inputs) > 2:
+            b = qt.tensors[n.inputs[2]]
+            denom = np.maximum(np.float32(qt.tensors[n.inputs[0]].quant.scale)
+                               * np.float32(ws[n.inputs[1]]), 1e-20)
+            b.data = np.clip(np.round(np.asarray(
+                g_float.tensors[n.inputs[2]].data, np.float64) / denom),
+                np.iinfo(np.int32).min, np.iinfo(np.int32).max
+            ).astype(np.int32)
+    qt.validate()
+    return qt
+
+
+def qat_grads(eng, src, x, tgt, channel_axis) -> tuple:
+    """One frame's QAT loss through ``eng``'s forward on fresh leaves of
+    ``src``'s params (weights fake-quantized along ``channel_axis``), and
+    its gradients by name (0 where the loss does not reach, as the train
+    step takes them)."""
+    import torch
+    from thingino_accel_tpu_torch.training import qat
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in src.params.items()}
+    step = qat.make_train_step(eng._fn, torch.optim.SGD(params.values(),
+                                                        lr=0.0),
+                               channel_axis=channel_axis)
+    loss = step.loss(params, {eng.input_names[0]: x}, tgt)
+    loss.backward()
+    return float(loss.detach()), {k: torch.zeros_like(p) if p.grad is None
+                         else p.grad for k, p in params.items()}
+
+
+def compare_grads(card: dict, cpu: dict) -> tuple:
+    """The largest of each tensor's max |card - CPU| over its largest
+    |CPU gradient|, and the least of each tensor's cosine (float64)."""
+    err, cos = 0.0, 1.0
+    for k, g in cpu.items():
+        if not g.numel():   # a zero-sized constant of the file
+            continue
+        a, b = card[k].cpu().double(), g.double()
+        err = max(err, float((a - b).abs().max())
+                  / max(float(b.abs().max()), 1e-30))
+        nrm = float(a.norm() * b.norm())
+        cos = min(cos, float((a * b).sum()) / nrm if nrm else 1.0)
+    return err, cos
+
+
+def phase_qat(results: dict) -> dict:
+    """``[qat]`` (phase 20 of the docstring)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch.formats.mars_export import export_mars
+    from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.runtime import checkpoint
+    from thingino_accel_tpu_torch.runtime.engine import (
+        Engine, EngineOptions, load_graph)
+    from thingino_accel_tpu_torch.runtime.executor import (
+        graph_with_params, params_to_jax)
+    from thingino_accel_tpu_torch.training import ptq, qat
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    require(not torch.backends.cudnn.allow_tf32
+            and not torch.backends.cuda.matmul.allow_tf32, "[qat] TF32 on")
+    was_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    res = {}
+    try:
+        # (a) train
+        fg, in_scale = qat_float_graph()
+        inp = fg.inputs[0]
+        fr = torch.from_numpy(frames_of(1)[0]).to(dev)
+        lb = Y.letterbox_uint8(fr, (640, 640))
+        xs = (lb.to(torch.float32) - 128.0) * in_scale
+        batches = [xs[:QAT_BATCH], xs[QAT_BATCH:2 * QAT_BATCH]]
+        base = Engine(fg, device=dev)
+        with torch.no_grad():
+            teacher = [base._fn(base.params, {inp: b}) for b in batches]
+        t0 = time.perf_counter()
+        stats = ptq.calibrate(fg, [{inp: batches[0]}], device=dev)
+        calib_s = time.perf_counter() - t0
+        og = qat.insert_activation_fake_quant(fg, stats)
+        n_obs = sum(n.op == "FAKE_QUANT" for n in og.nodes)
+        eq = Engine(og, device=dev)
+        tgts = [{o: t[k] for o, k in zip(og.outputs, fg.outputs)}
+                for t in teacher]
+
+        def fresh(eng=eq, src=base):
+            params = {k: v.detach().clone().requires_grad_(True)
+                      for k, v in src.params.items()}
+            opt = torch.optim.Adam(params.values(), lr=QAT_LR)
+            return params, opt, qat.make_train_step(
+                eng._fn, opt, qat=True, channel_axis=-1)
+
+        def run(params, step, steps, times=None):
+            out = []
+            for i in steps:
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out.append(step(params, {inp: batches[i % 2]},
+                                tgts[i % 2]))
+                b.record()
+                if times is not None:
+                    torch.cuda.synchronize()
+                    times.append(a.elapsed_time(b))
+            return [float(v) for v in out]
+
+        params, opt, step = fresh()
+        run(params, step, range(1))   # warm-up: allocator, cuDNN plans
+        params, opt, step = fresh()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        losses = run(params, step, range(QAT_STEPS), times)
+        peak = torch.cuda.max_memory_allocated(dev)
+        step_ms = sorted(times)[len(times) // 2]
+        require(all(math.isfinite(v) for v in losses),
+                f"[qat] (a) a loss is not finite: {losses}")
+        first, last = np.mean(losses[:8]), np.mean(losses[-8:])
+        require(last < first, f"[qat] (a) the loss did not fall: first 8 "
+                              f"{first}, last 8 {last}: {losses}")
+
+        # resume: saved at QAT_RESUME_AT, loaded into fresh state
+        p2, o2, s2 = fresh()
+        l2 = run(p2, s2, range(QAT_RESUME_AT))
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/qat"
+            checkpoint.save(path, {"params": p2, "opt": o2.state_dict()},
+                            step=QAT_RESUME_AT)
+            p3, o3, s3 = fresh()
+            state, meta = checkpoint.load(path, like={
+                "params": p3, "opt": checkpoint.optimizer_like(o3)})
+        require(meta["step"] == QAT_RESUME_AT, f"[qat] (a) meta {meta}")
+        with torch.no_grad():
+            for k, v in p3.items():
+                v.copy_(state["params"][k])
+        o3.load_state_dict(state["opt"])
+        l3 = run(p3, s3, range(QAT_RESUME_AT, QAT_STEPS))
+        diff = [k for k, v in params.items() if not torch.equal(v, p3[k])]
+        require(not diff and l2 + l3 == losses,
+                f"[qat] (a) the resumed run differs: {len(diff)} params "
+                f"({diff[:3]}), losses {l2 + l3} vs {losses}")
+
+        # one frame's gradients, card against CPU: without observers
+        # (weights fake-quantized per tensor), and the training's own
+        cpu_base = Engine(fg, device="cpu")
+        cpu_eq = Engine(og, device="cpu")
+        x1, x1c = xs[:1], xs[:1].cpu()
+        t_w = {k: v[:1] for k, v in teacher[0].items()}
+        t0 = time.perf_counter()
+        lw, gw = qat_grads(base, base, x1, t_w, None)
+        lwc, gwc = qat_grads(cpu_base, cpu_base, x1c,
+                             {k: v.cpu() for k, v in t_w.items()}, None)
+        grad_err, grad_cos = compare_grads(gw, gwc)
+        require(math.isfinite(grad_err) and grad_err <= QAT_GRAD_RTOL,
+                f"[qat] (a) gradients without observers: card - CPU "
+                f"{grad_err:.3g} of a tensor's largest (bound "
+                f"{QAT_GRAD_RTOL})")
+        t_o = {k: v[:1] for k, v in tgts[0].items()}
+        lo, go = qat_grads(eq, base, x1, t_o, -1)
+        loc, goc = qat_grads(cpu_eq, cpu_base, x1c,
+                             {k: v.cpu() for k, v in t_o.items()}, -1)
+        obs_err, obs_cos = compare_grads(go, goc)
+        obs_loss = abs(lo - loc) / loc
+        require(obs_loss <= QAT_OBS_LOSS_RTOL and obs_cos >= QAT_OBS_GRAD_COS,
+                f"[qat] (a) observed step card vs CPU: loss {lo} / {loc}, "
+                f"least gradient cosine {obs_cos:.4f} (bounds "
+                f"{QAT_OBS_LOSS_RTOL}, {QAT_OBS_GRAD_COS})")
+        with torch.no_grad():
+            hc = eq._fn(eq.params, {inp: x1})
+            hcpu = cpu_eq._fn(cpu_eq.params, {inp: x1c})
+        apart = {k: float((((hc[k].cpu() - v).abs() / stats.scale(
+            k[:-len("__fq")])) > 0.5).float().mean()) for k, v in hcpu.items()}
+        grad_s = time.perf_counter() - t0
+        print(f"[qat] (a) real yolov5n float32 at 640, {len(fg.nodes)} "
+              f"nodes + {n_obs} observers (calibrate {calib_s:.3f} s on "
+              f"the card), {QAT_STEPS} Adam steps (lr {QAT_LR}) of "
+              f"per-channel QAT on batches of {QAT_BATCH}: {step_ms:.3f} ms "
+              f"a step (median, CUDA events), peak memory "
+              f"{peak / 2**30:.3f} GiB; loss {losses[0]:.6g} -> "
+              f"{losses[-1]:.6g} (mean of the first 8 {first:.6g}, last 8 "
+              f"{last:.6g}); resumed at step {QAT_RESUME_AT} = the "
+              f"uninterrupted run bit for bit ({len(params)} params); one "
+              f"frame, card vs CPU: without observers (weights per tensor, "
+              f"loss {lw:.6g} / {lwc:.6g}) gradients within {grad_err:.3g} "
+              f"of each tensor's largest (bound {QAT_GRAD_RTOL}, least "
+              f"cosine {grad_cos:.9f}); the observed step's loss "
+              f"{lo:.6g} / {loc:.6g} ({obs_loss:.3g} apart, bound "
+              f"{QAT_OBS_LOSS_RTOL}), gradients within {obs_err:.3g}, least "
+              f"cosine {obs_cos:.4f} (bound {QAT_OBS_GRAD_COS}), observed "
+              f"heads a half quantum or more apart on "
+              f"{min(apart.values()):.3f}-{max(apart.values()):.3f} of their "
+              f"values ({grad_s:.2f} s)")
+        res["a_train"] = {"losses": losses, "step_ms": step_ms,
+                          "step_ms_all": times, "peak_bytes": peak,
+                          "calib_s": calib_s, "observers": n_obs,
+                          "grad_rel_err": grad_err, "grad_cos": grad_cos,
+                          "obs_loss_rel": obs_loss, "obs_grad_err": obs_err,
+                          "obs_grad_cos": obs_cos, "obs_heads_apart": apart,
+                          "grad_check_s": grad_s, "lr": QAT_LR}
+
+        # (b) deploy: write back, PTQ, .mars, serve
+        t0 = time.perf_counter()
+        g_qat = graph_with_params(fg, params_to_jax(params,
+                                                    eq._fn.conv_weights))
+        q = ptq.quantize_model(g_qat, [{inp: batches[0]}], device=dev)
+        data = export_mars(q)
+        qt = per_tensor_weights(q, g_qat)
+        data_t = export_mars(qt)
+        deploy_s = time.perf_counter() - t0
+        xq = Y.quantize_input_int8(lb)
+        serving = Engine(load_graph(data), EngineOptions(precision="serving"),
+                         device=dev)
+        census = serving._fn.launch_census()
+        for k in ("matmul_int8_fused", "conv2d_int8_halo_fused",
+                  "matmul_int8_fused_multi", "bottleneck_int8_fused"):
+            require(census.get(k, 0) > 0, f"[qat] (b) census {census}: no {k}")
+        leg = onnx_leg(results, "(b) serving", Y.build_serving_pipeline(
+            serving), fr, {**census, DECODE: 1}, tag="qat")
+        units = len(check_units(serving, xq, results, "[qat] (b) serving"))
+        cpu = Engine(load_graph(data), EngineOptions(precision="serving"),
+                     device="cpu")
+        steps = check_steps_against_cpu(serving, xq[:QAT_STEP_FRAMES], cpu,
+                                        "[qat] (b) serving card vs CPU")
+        print(f"[qat] (b) trained weights -> quantize_model (per channel, "
+              f"on the card) -> export_mars ({len(data)} bytes) -> read "
+              f"back, planned serving: census {census}; launches "
+              f"{leg['launches']}; {units} kernel units = their plain "
+              f"versions on {len(xq)} frames, {steps} steps = the CPU's on "
+              f"{QAT_STEP_FRAMES}; {leg['ms']:.3f} ms a batch (deploy "
+              f"{deploy_s:.2f} s)")
+        res["b_serving"] = {**leg, "census": census, "units": units,
+                            "steps": steps, "mars_bytes": len(data),
+                            "deploy_s": deploy_s}
+        exact = EngineOptions(precision="exact")
+        ex = Engine(load_graph(data_t), exact, device=dev)
+        census = ex._fn.launch_census()
+        require(all(census.get(k, 0) > 0 for k in (
+            "matmul_int8_requant", "conv2d_int8_halo", "conv2d_int8"))
+            and census.get("plain_convs", 0) == 0,
+            f"[qat] (b) exact census {census}")
+        leg = onnx_leg(results, "(b) exact", Y.build_serving_pipeline(ex),
+                       fr, {**census, DECODE: 1}, tag="qat")
+        units = len(check_units(ex, xq, results, "[qat] (b) exact"))
+        cpu = Engine(load_graph(data_t), exact, device="cpu")
+        n_steps, share, dmax = check_exact_steps_against_cpu(ex, cpu, xq[:1])
+        require(dmax == 0 and share == 0,
+                f"[qat] (b) exact heads card vs CPU: share {share}, max "
+                f"{dmax}")
+        print(f"[qat] (b) the same weights per tensor (export_int8) -> "
+              f"export_mars ({len(data_t)} bytes), exact tier: census "
+              f"{census}; launches {leg['launches']}; {units} convs = their "
+              f"plain versions on {len(xq)} frames; one frame's {n_steps} "
+              f"steps and heads = the CPU's bit for bit; {leg['ms']:.3f} ms "
+              f"a batch")
+        res["b_exact"] = {**leg, "census": census, "units": units,
+                          "steps": n_steps, "mars_bytes": len(data_t)}
+    finally:
+        torch.backends.cudnn.deterministic = was_det
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[qat] phase {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     if not (REPO / "thingino_accel_tpu_torch" / "csrc").is_dir() \
             or not MODEL.exists() or not NANODET.exists():
@@ -4304,6 +4654,7 @@ def main() -> int:
         mgk_res = phase_mgk(results)
         audio_res = phase_audio(smi)
         jzdl_res = phase_jzdl(smi)
+        qat_res = phase_qat(results)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -4323,7 +4674,8 @@ def main() -> int:
                         "onnx_launches": r.get("onnx_launches", 0),
                         "mgk_launches": r.get("mgk_launches", 0),
                         "audio_launches": audio_res["launches"].get(k, 0),
-                        "jzdl_launches": jzdl_res["launches"].get(k, 0)})
+                        "jzdl_launches": jzdl_res["launches"].get(k, 0),
+                        "qat_launches": r.get("qat_launches", 0)})
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -4337,7 +4689,7 @@ def main() -> int:
         "probes": probes_res, "pipeline": pipeline_res,
         "fast": fast_res, "streams": streams_res, "ops": ops_res,
         "onnx": onnx_res, "mgk": mgk_res, "audio": audio_res,
-        "jzdl": jzdl_res},
+        "jzdl": jzdl_res, "qat": qat_res},
         indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

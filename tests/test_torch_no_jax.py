@@ -30,13 +30,17 @@ machine lists none) and imports nothing of the JAX package.
   through ``build_aec_graph`` on the AEC fixture, ``process_stream``,
   ``make_stream_scanner`` at 2 streams, and the JZDL fixture `.so` through
   ``load_so``, ``persondet.calibrate`` / ``forward`` and the CLI's
-  ``decompile``.
+  ``decompile``; and the training path and host utilities: a QAT step on
+  the tiny float convnet with observers, a checkpoint of it, the weights
+  written back, ``export_int8``, the ``TAT_*`` registry, ``compiled_stats``
+  and ``native``.
 - No module of the port and no line of ``chip_smoke.py`` holds an
   ``import`` of ``thingino_accel_tpu`` (parsed with ``ast``, so an import
   inside a function counts too); the walk covers the format modules,
   ``models/onnx_fixtures.py`` and ``models/mgk_fixtures.py``,
   ``training/ptq.py``, ``api.py`` and ``ops/image.py``, and the audio,
-  AEC, JZDL and person-detector modules and the JZDL fixture.
+  AEC, JZDL and person-detector modules and the JZDL fixture, QAT,
+  checkpoints, the utilities and ``native.py``.
 """
 
 import ast
@@ -323,6 +327,33 @@ SCRIPT = textwrap.dedent("""
             (17, 17, 18), (34, 34, 18)]
         assert cli.main(["decompile", "-i", d + "/p.so",
                          "--extract-weights", d + "/w.npz"]) == 0
+    import torch
+    from thingino_accel_tpu_torch import native, utils
+    from thingino_accel_tpu_torch.runtime import checkpoint
+    from thingino_accel_tpu_torch.runtime.executor import (
+        graph_with_params, params_to_jax)
+    from thingino_accel_tpu_torch.training import qat
+    fg = zoo.build_tiny(zoo.ZooConfig(dtype="float32", in_hw=(16, 16)))
+    x = {"input": torch.ones((1, 16, 16, 3))}
+    stats = ptq.calibrate(fg, [x], device="cpu")
+    og = qat.insert_activation_fake_quant(fg, stats)
+    eng = thingino_accel_tpu_torch.Engine(og, device="cpu")
+    params = {k: v.clone().requires_grad_(True) for k, v in eng.params.items()}
+    opt = torch.optim.Adam(params.values(), lr=1e-3)
+    step = qat.make_train_step(eng._fn, opt, channel_axis=-1)
+    tgt = {k: v.detach() for k, v in eng._fn(eng.params, x).items()}
+    assert torch.isfinite(step(params, x, tgt))
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save(d + "/c", {"params": params, "opt": opt.state_dict()})
+        state, meta = checkpoint.load(d + "/c", like={
+            "params": params, "opt": opt.state_dict()})
+    assert meta["backend"] == "npz"
+    wg = graph_with_params(fg, params_to_jax(params, eng._fn.conv_weights))
+    assert qat.export_int8(params)[1]
+    assert utils.config.get("TAT_FPN_SPLIT") == "wide"
+    assert utils.compiled_stats(torch.mm, torch.ones(4, 4),
+                                torch.ones(4, 4))["flops"] == 128
+    assert native.quantize_i8(np.zeros((2, 2), np.uint8)).min() == -128
     assert sys.modules["jax"] is None
     assert sys.modules["thingino_accel_tpu"] is None
     print("ok")
@@ -360,7 +391,10 @@ def test_no_import_of_the_jax_package():
         ("models", "onnx_fixtures.py"), ("models", "mgk_fixtures.py"),
         ("training", "ptq.py"), ("api.py",), ("ops", "image.py"),
         ("models", "audio.py"), ("models", "aec.py"),
-        ("models", "persondet.py"), ("models", "jzdl_fixtures.py"))
+        ("models", "persondet.py"), ("models", "jzdl_fixtures.py"),
+        ("training", "qat.py"), ("runtime", "checkpoint.py"),
+        ("utils", "config.py"), ("utils", "logging.py"),
+        ("utils", "timing.py"), ("native.py",))
     } <= set(files)
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imports_of(f)

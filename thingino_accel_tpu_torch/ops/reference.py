@@ -67,6 +67,14 @@ def _fdiv(y: torch.Tensor, s) -> torch.Tensor:
     return y / torch.tensor(np.float32(s), device=y.device)
 
 
+def relu_f(x: torch.Tensor) -> torch.Tensor:
+    """ReLU of a float tensor as ``jnp.maximum(x, 0)``: the same values as
+    a clamp, and under autograd a value exactly at 0 takes half the
+    gradient, as JAX differentiates ``maximum`` (``clamp_min`` would pass
+    all of it)."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
 def conv2d_acc_i32(
     x: torch.Tensor, w: torch.Tensor, out_hw: Tuple[int, int],
     stride: Tuple[int, int] = (1, 1), dilation: Tuple[int, int] = (1, 1),
@@ -227,7 +235,7 @@ def conv2d_f32(
     out = (out + bias.to(torch.float32) if bias is not None
            else out.to(torch.float32))
     if relu:
-        out = torch.clamp_min(out, 0.0)
+        out = relu_f(out)
     return out.to(compute_dtype).contiguous()
 
 
@@ -249,7 +257,7 @@ def depthwise_conv2d_f32(
     if bias is not None:
         out = out + bias.to(torch.float32)
     if relu:
-        out = torch.clamp_min(out, 0.0)
+        out = relu_f(out)
     return out.contiguous()
 
 
@@ -309,10 +317,24 @@ def maxpool(
     pads: Tuple[Tuple[int, int], Tuple[int, int]] = ((0, 0), (0, 0)),
 ) -> torch.Tensor:
     """MaxPool with edge-clipped windows: padding with the dtype's
-    minimum (-128 for int8) is the same as clipping the window. A max
-    over the KH*KW strided views keeps the dtype (exact for int8)."""
-    neg = (torch.iinfo(x.dtype).min if not x.dtype.is_floating_point
-           else float("-inf"))
+    minimum (-128 for int8) is the same as clipping the window. int8: a
+    max over the KH*KW strided views, in the dtype. Float: ``F.max_pool2d``
+    over the input padded with -inf, the same values, and under autograd
+    a window's gradient goes to its first maximum in row-major order, as
+    JAX differentiates ``reduce_window`` max (a chain of maxima would
+    split it over ties)."""
+    if x.dtype.is_floating_point:
+        kh, kw = kernel
+        (pt, _), (pl, _) = pads
+        pb = max(0, (out_hw[0] - 1) * stride[0] + kh - x.shape[1] - pt)
+        pr = max(0, (out_hw[1] - 1) * stride[1] + kw - x.shape[2] - pl)
+        xp = torch.nn.functional.pad(x, (0, 0, pl, pr, pt, pb),
+                                     value=float("-inf"))
+        out = torch.nn.functional.max_pool2d(
+            xp.permute(0, 3, 1, 2), (kh, kw), tuple(stride))
+        return out[:, :, :out_hw[0], :out_hw[1]].permute(0, 2, 3, 1) \
+            .contiguous()
+    neg = torch.iinfo(x.dtype).min
     out = None
     for v in _pool_taps(x, kernel, stride, out_hw, pads, neg):
         out = v if out is None else torch.maximum(out, v)
@@ -387,21 +409,21 @@ def global_avgpool(x: torch.Tensor, in_scale: float = 1.0,
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
-    """ReLU, int8 and f32."""
-    return torch.clamp_min(x, 0)
+    """ReLU, int8 and f32 (:func:`relu_f`)."""
+    return relu_f(x) if x.dtype.is_floating_point else torch.clamp_min(x, 0)
 
 
 def relu6(x: torch.Tensor, scale: float = 1.0,
           compat: bool = False) -> torch.Tensor:
     """ReLU6. ``compat=True`` is the reference runtime's plain RELU;
     otherwise the int8 upper clamp is ``trunc(6/scale + 0.5)``."""
-    out = torch.clamp_min(x, 0)
+    out = relu(x)
     if compat:
         return out
     if not x.dtype.is_floating_point:
         hi = int(np.clip(np.trunc(6.0 / np.float32(scale) + 0.5), -128, 127))
         return torch.clamp_max(out, hi)
-    return torch.clamp_max(out, 6.0)
+    return torch.minimum(out, out.new_full((), 6.0))   # JAX's tie gradient
 
 
 def sigmoid(x: torch.Tensor, in_scale: float = 1.0,
@@ -566,7 +588,7 @@ def fc(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
         if bias is not None:
             out = out + bias
     if relu_act:
-        out = torch.clamp_min(out, 0)
+        out = relu(out)
     return out
 
 

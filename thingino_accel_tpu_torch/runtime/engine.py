@@ -30,6 +30,7 @@ from thingino_accel_tpu_torch.ir.graph import TensorInfo
 from thingino_accel_tpu_torch.runtime.executor import (
     Executor, _torch_dtype, build_executor, prepare_params, resolve_device,
 )
+from thingino_accel_tpu_torch.utils import config
 
 
 @dataclasses.dataclass
@@ -47,9 +48,11 @@ class EngineOptions:
       (``ir.passes.dequantize_graph``: float weights, DEQUANT/QUANT at the
       int8 edges, with ``quantize_outputs`` the heads requantized, else
       left in bf16), then BN folded, ``conv_merge``
-      (``merge_sibling_convs``, off by default) and ``fpn_split``
-      (``split_concat_convs``: ``""`` off, ``"upsample"``, ``"wide"``
-      the default, ``"all"``; any other value raises), run in
+      (``merge_sibling_convs``) and ``fpn_split``
+      (``split_concat_convs``: ``""`` off, ``"wide"``, ``"all"``, any
+      other true value ``"upsample"``, as in JAX), each None by default,
+      which reads ``TAT_CONV_MERGE`` (off unset) / ``TAT_FPN_SPLIT``
+      (``"wide"`` unset) through ``utils.config``, run in
       ``compute_dtype``, which the engine makes bfloat16 where it is
       float32, as the JAX engine does. ``accum_dtype`` is the JAX
       option's: None (the default, or float32) adds each conv's bias to
@@ -65,9 +68,7 @@ class EngineOptions:
     :meth:`Engine.forward`, and each graph input leaves the forward's
     tensors after its last reader, so its memory can be reused (JAX's
     ``donate_argnums``); the outputs are the same. The JAX option ``jit``
-    is not ported (ROADMAP.md A.1); the fast rewrites' ``TAT_CONV_MERGE``
-    / ``TAT_FPN_SPLIT`` environment defaults are read by no code of the
-    port (their values with no environment set are the defaults here)."""
+    is not ported (ROADMAP.md A.1)."""
 
     precision: str = "exact"
     mode: str = "full"
@@ -77,8 +78,8 @@ class EngineOptions:
     quantize_outputs: bool = True
     compute_dtype: torch.dtype = torch.float32
     accum_dtype: Optional[torch.dtype] = None
-    conv_merge: bool = False
-    fpn_split: str = "wide"
+    conv_merge: Optional[bool] = None
+    fpn_split: Optional[str] = None
     nchw_io: bool = False
     donate_inputs: bool = False
 
@@ -89,9 +90,6 @@ class EngineOptions:
         if self.accum_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"accum_dtype must be None, torch.float32 or "
                              f"torch.bfloat16, got {self.accum_dtype}")
-        if self.fpn_split not in ("",) + passes.SPLIT_MODES:
-            raise ValueError(f"fpn_split must be '' or one of "
-                             f"{passes.SPLIT_MODES}, got {self.fpn_split!r}")
 
 
 def load_graph(src: Union[str, bytes, M.MarsModel]) -> Graph:
@@ -136,10 +134,18 @@ class Engine:
             if opts.fold_bn:
                 # before the structural rewrites, which break conv -> BN
                 graph = passes.fold_batchnorm(graph)
-            if opts.conv_merge:
+            merge = opts.conv_merge
+            if merge is None:
+                merge = config.get("TAT_CONV_MERGE")
+            if merge:
                 passes.merge_sibling_convs(graph)
-            if opts.fpn_split:
-                passes.split_concat_convs(graph, mode=opts.fpn_split)
+            split = opts.fpn_split
+            if split is None:
+                split = config.get("TAT_FPN_SPLIT")
+            if split:
+                passes.split_concat_convs(
+                    graph, mode=(split if split in ("all", "wide")
+                                 else "upsample"))
         if opts.fold_bn and opts.mode == "full":
             graph = passes.fold_batchnorm(graph)
         self.options = opts

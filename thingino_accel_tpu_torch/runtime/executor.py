@@ -60,6 +60,7 @@ on the CPU). Nothing falls back to the CPU.
 from __future__ import annotations
 
 import collections
+import copy
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -192,6 +193,53 @@ def params_from_jax(np_params: Dict[str, np.ndarray],
     return out
 
 
+def params_to_jax(params: Dict[str, torch.Tensor],
+                  conv_weights: Iterable[str] = ()
+                  ) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_jax`: the port's params as numpy
+    arrays on the CPU in the JAX engine's layout, the conv weights named
+    in ``conv_weights`` (the role, as there) OHWI -> HWIO, everything else
+    as it is (depthwise [KH, KW, C], FC, GRU, CONV1D, biases)."""
+    conv_weights = set(conv_weights)
+    out: Dict[str, np.ndarray] = {}
+    for name, t in params.items():
+        arr = t.detach().cpu().numpy()
+        if name in conv_weights:
+            arr = np.ascontiguousarray(np.transpose(arr, (1, 2, 3, 0)))
+        out[name] = arr
+    return out
+
+
+def graph_with_params(graph: Graph, np_params: Dict[str, np.ndarray]
+                      ) -> Graph:
+    """A copy of ``graph`` whose constants are ``np_params`` (the JAX
+    engine's layout, as :func:`prepare_params` gives and
+    :func:`params_to_jax` returns): the inverse of :func:`prepare_params`,
+    conv weights HWIO -> OIHW, depthwise weights [KH, KW, C] -> the
+    graph's OIHW ([C, 1, KH, KW]), the rest as it is; each in its
+    tensor's dtype. A name the graph holds no constant of, or a
+    zero-sized constant, is left alone. This carries trained weights back
+    into a graph (``training.qat``; JAX's ``examples/qat_yolov5n.py``
+    does it by hand)."""
+    g = copy.deepcopy(graph)
+    conv_weights = conv_weight_names(g)
+    dw_weights = {n.inputs[1] for n in g.nodes if is_depthwise(n, g.tensors)}
+    for name, arr in np_params.items():
+        t = g.tensors.get(name)
+        if t is None or not t.is_const or not t.data.size:
+            continue
+        a = np.asarray(arr)
+        if name in conv_weights:
+            a = np.transpose(a, (3, 2, 0, 1))
+        elif name in dw_weights:
+            a = np.transpose(a, (2, 0, 1)).reshape(t.data.shape)
+        if a.shape != t.data.shape:
+            raise ValueError(f"{name}: params of shape {a.shape} for a "
+                             f"constant of shape {t.data.shape}")
+        t.data = np.ascontiguousarray(a.astype(t.data.dtype))
+    return g
+
+
 def apply_fused_act(out: torch.Tensor, act: str, scale: float,
                     compat: bool = False, alpha: float = 0.01
                     ) -> torch.Tensor:
@@ -262,13 +310,21 @@ def clip_q(x: torch.Tensor, lo, hi, in_scale: float) -> torch.Tensor:
     return x
 
 
-def fake_quant(x: torch.Tensor, scale: float) -> torch.Tensor:
-    """FAKE_QUANT, forward: the int8 round trip ``clip(round(x / s), -128,
-    127) * s`` (round half to even, as ``jnp.round``) in the
-    straight-through form ``x + (q - x).detach()``, in ``x``'s type."""
+def fake_quant(x: torch.Tensor, scale) -> torch.Tensor:
+    """Symmetric int8 fake quantization with a straight-through estimator:
+    forward the int8 round trip ``clip(round(x / s), -128, 127) * s``
+    (round half to even, as ``jnp.round``; a true float32 division),
+    backward the identity, in the form ``x + (q - x).detach()``, computed
+    in float32 and returned in ``x``'s type. ``scale``: a float (the
+    FAKE_QUANT node's, 0 read as 1, as JAX's executor) or a float32
+    tensor that broadcasts against ``x`` (per-channel weight scales,
+    ``training.qat.weight_scale``; JAX's ``qat.fake_quant``)."""
     xf = x.to(torch.float32)
-    s = np.float32(scale or 1.0)
-    q = torch.clamp(torch.round(R._fdiv(xf, s)), -128, 127) * float(s)
+    if isinstance(scale, torch.Tensor):
+        q = torch.clamp(torch.round(xf / scale), -128, 127) * scale
+    else:
+        s = np.float32(scale or 1.0)
+        q = torch.clamp(torch.round(R._fdiv(xf, s)), -128, 127) * float(s)
     return (xf + (q - xf).detach()).to(x.dtype)
 
 
