@@ -199,7 +199,16 @@ Phases:
    (the zoo yolov5s's are printed, not held); the default accumulation
    (the bias added to float32 sums: the engine's default) on the card,
    its heads within the same 2^-4 of the CPU's float32 forward; #8's bf16
-   mode against its plain version on those heads at batch 16 and 1.
+   mode against its plain version on those heads at batch 16 and 1. Then
+   ``ir.passes.fold_stage2_downsample`` (the s2d fold one stage deeper):
+   the s2d-rewritten zoo yolov5s at 640 in the exact tier, folded and not,
+   on 16 ``[slice]`` frames: heads bit-identical, the routes of the folded
+   stem (4x4 s2, #11) and downsample (2x2 s1, #10) printed, the folded
+   forward's launches counted (its census, no plain conv); and
+   ``trace_path.fast_graph("yolov5n")`` under ``TAT_S2D_DEEP=1`` carries
+   the 2x2 s1 downsample, its fast tier's bf16 heads' largest difference
+   from the unfolded graph's printed (not held: the sums run in another
+   order; the CPU tests hold it within 1e-2 at 64x64).
 14. ``[streams]``: the camera-stream path. 16 cameras of seeded NV12
    1280x720 frames (``[1080, 1280]`` uint8; camera i yields 2 + i % 3,
    47 in all) through ``MultiStreamBatcher(16, 16)`` (three batches, the
@@ -370,6 +379,49 @@ Phases:
    every conv against its plain version, one frame's every step bit for
    bit against the CPU's). (c) The kernels' line: ``qat_launches``, each
    kernel's launches in (b)'s two counted runs.
+21. ``[parallel]``: ``thingino_accel_tpu_torch.parallel`` over meshes that
+   name the card several times (the only multi-entry mesh one card
+   offers), the counts set to 0 before each counted run and read after,
+   ``PAR_TURNS`` calls a turn on the host clock: (a)
+   ``make_sharded_detector`` at dp=``PAR_DP`` on the planned real yolov5n
+   and the 16 ``[slice]`` frames at conf ``PAR_CONF`` (noise frames then
+   give detections): boxes, scores, classes and valid equal, bit for bit,
+   to the unsharded pipeline's (the same detector over a one-device
+   mesh); launches ``PAR_DP`` shard forwards of the census and one #8 a
+   shard; 0 gathers; fps beside the unsharded pipeline's, in turns; (b)
+   ``make_sharded_forward`` at dp=2 x tp=2 on the exact zoo yolov5s at
+   640, 16 frames: heads equal to the exact engine's bit for bit; launches
+   4 x its census (a channel slice on each tp device of every conv whose O
+   divides by 2, the rest whole, which it prints), the gathers; ms a
+   forward beside the engine's; (c) ``make_sharded_train_step`` at dp=2 x
+   tp=2 on ``[qat]``'s float graph at 640 (``qat_float_graph``), weights
+   fake-quantized per tensor, no observers, TF32 off, cuDNN
+   deterministic: ``PAR_TRAIN_STEPS`` Adam steps (lr ``QAT_LR``) of batch
+   ``QAT_BATCH`` beside the unsharded ``qat.make_train_step`` on the same
+   batches: each loss within ``PAR_LOSS_RTOL`` relative, each step's
+   gradients (the shards put back together) within ``PAR_GRAD_RTOL`` of
+   each tensor's largest; ms a step; (d) ``PipelinedEngine``,
+   ``PAR_STAGES`` stages, on the exact zoo yolov5s at 640: 8 microbatches
+   of ``PAR_MICRO`` frames, the outputs in feed order, each equal to the
+   whole exact engine's bit for bit; launches 8 x the census; ms a
+   microbatch beside the engine's; (e) ``launch_race``: #9's C entry
+   point called from two host threads at once, ``PAR_RACE_LAUNCHES`` times
+   each, one kernel (one bm x bn plan) at the two K of ``PAR_RACE_K``, so
+   two shared-memory sizes (the pipeline's stage threads launch so): every
+   launch returns cudaSuccess and each thread's output equals the plain
+   version's bit for bit. The kernels' line: ``parallel_launches``, each
+   kernel's launches in (a), (b) and (d).
+22. ``[abi]``: the port's C ABI engine shim (``thingino_accel_tpu_torch/
+   csrc/tat_engine.cpp``, built by g++ through ``native.engine_lib``,
+   timed) driven through ctypes as a C host calls it, with nothing bound
+   (``api.nna_deinit``: the shim takes the card): the committed
+   ``models/fixtures/test_conv.mars`` (seeded input bytes) and the zoo
+   yolov5s at 640 written per tensor by ``export_mars`` (one letterboxed
+   ``[slice]`` frame): output names, dtype strings and bytes equal to
+   ``Engine.from_mars(...).run_np`` on the card; launches its census (the
+   exact tier: #9-#11); a missing file gives NULL and ``tat_last_error``
+   names it. The kernels' line: ``abi_launches``, each kernel's launches
+   in those two runs.
 
 Each path is run with the launch counters set to 0 just before it and
 read just after. Tolerances (as in ``tests/test_torch_fused_kernels.py``):
@@ -399,7 +451,9 @@ first case's shape.
 Each kernel's line also carries ``onnx_launches`` and ``mgk_launches``,
 its launches in ``[onnx]``'s three and ``[mgk]``'s two counted runs, and
 ``audio_launches`` and ``jzdl_launches``, its launches in ``[audio]`` and
-``[jzdl]``, and ``qat_launches``, its launches in ``[qat]`` (b).
+``[jzdl]``, ``qat_launches``, its launches in ``[qat]`` (b), and
+``parallel_launches`` and ``abi_launches``, its launches in
+``[parallel]``'s and ``[abi]``'s counted runs.
 
 Prints the kernels' JSON line, the card's ``name, power.limit`` line and,
 as the last line, ``{"ok": true, "device": {...}}``. Any failure exits
@@ -3094,6 +3148,7 @@ def phase_fast(results: dict) -> dict:
                       "detections": shares,
                       "dets_per_frame_mean": float(np.mean(dets)),
                       "decode": cases}
+    res["fold"] = fold_check(results)
     return res
 
 
@@ -4616,6 +4671,449 @@ def phase_qat(results: dict) -> dict:
     return res
 
 
+# [parallel] (phase 21): meshes that name the card several times, the only
+# multi-entry mesh one card offers
+PAR_DP = 4               # (a): the detector's dp shards
+PAR_CONF = 0.001         # (a): noise frames give detections to compare
+PAR_TURNS = 5            # (a), (b), (d): calls a turn, host clock
+PAR_TRAIN_STEPS = 3      # (c): Adam steps of batch QAT_BATCH
+PAR_LOSS_RTOL = 1e-4     # (c): each loss, sharded against unsharded
+PAR_GRAD_RTOL = 1e-4     # (c): each gradient, of its tensor's largest
+PAR_STAGES = 4           # (d): pipeline stages
+PAR_MICRO = 2            # (d): frames a microbatch (8 of them)
+PAR_RACE_LAUNCHES = 4000  # (e): launches a thread
+PAR_RACE_K = (128, 2048)  # (e): the two threads' K under one plan
+
+
+def counted(results: dict, tag: str, fn, want: dict, what: str):
+    """``fn()`` with the counts set to 0 before and read after, held to
+    ``want`` (every other counter 0); the launches are added to each
+    kernel's ``<tag>_launches``. Returns ``(fn's result, launches)``."""
+    import torch
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = read_launches()
+    expected = {k: 0 for k in counts}
+    expected.update(want)
+    require(counts == expected, f"[{tag}] {what}: launches {counts}, "
+                                f"expected {expected}")
+    for k, v in counts.items():
+        if k in results:
+            results[k][f"{tag}_launches"] = (
+                results[k].get(f"{tag}_launches", 0) + v)
+    return out, {k: v for k, v in counts.items() if v}
+
+
+def wall_ms(fn, n: int) -> float:
+    """Host-clock ms a call of ``fn`` over ``n`` calls, the device
+    synchronized before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def in_turns(fns: dict, n: int) -> dict:
+    """``wall_ms`` of two callables in turns (a, b, b, a); each's list."""
+    a, b = fns
+    out = {a: [], b: []}
+    for k in (a, b, b, a):
+        out[k].append(wall_ms(fns[k], n))
+    return out
+
+
+def launch_race() -> dict:
+    """(e) of ``[parallel]``: #9's C entry point called from two host
+    threads at once (ctypes lets go of the GIL for the call), one kernel
+    (one bm x bn) at two K, so at two shared-memory sizes. A launcher that
+    opts the kernel into only its own plan's bytes fails a launch whenever
+    the other thread's smaller opt-in lands between its opt-in and its
+    launch. Returns each K's failed launches and whether its output equals
+    the plain version's."""
+    import threading
+    import torch
+    from thingino_accel_tpu_torch.ops import cuda_build
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.ops import requant_kernels as RK
+    from thingino_accel_tpu_torch.ops.quant import RoundMode
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(24)
+    m, n, cs = 4096, 64, 2.0 ** -12
+    plan = FK.MmPlan(bm=64, bn=64, kc=128, stages=2, tiles_per_block=1)
+    lib = cuda_build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cases = {}
+    for k in PAR_RACE_K:
+        x = torch.randint(-128, 128, (m, k), dtype=torch.int8, generator=gen)
+        w = torch.randint(-128, 128, (n, k), dtype=torch.int8, generator=gen)
+        b = torch.randint(-4096, 4096, (n,), dtype=torch.int32, generator=gen)
+        x, w, b = x.to(dev), w.to(dev), b.to(dev)
+        out = torch.zeros((m, n), dtype=torch.int8, device=dev)
+        cases[k] = (x, w, b, out, RK._mm_args(
+            x, w, b, None, cs, RoundMode.HALF_AWAY, False, out, plan))
+    failed = {k: 0 for k in cases}
+    start = threading.Barrier(len(cases))
+
+    def hammer(k: int) -> None:
+        args = cases[k][4]
+        start.wait()
+        for _ in range(PAR_RACE_LAUNCHES):
+            if lib.tat_mm_int8_requant_mma(*args, stream) != 0:
+                failed[k] += 1
+
+    threads = [threading.Thread(target=hammer, args=(k,)) for k in cases]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    equal = {k: bool(torch.equal(out, RK.matmul_int8_requant_plain(
+        x, w, b, cs, RoundMode.HALF_AWAY, False)))
+        for k, (x, w, b, out, _) in cases.items()}
+    return {"failed": failed, "equal": equal, "seconds": seconds}
+
+
+def phase_parallel(results: dict) -> dict:
+    """``[parallel]`` (phase 21 of the docstring)."""
+    import torch
+    from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.models import zoo
+    from thingino_accel_tpu_torch.parallel import (
+        PipelinedEngine, make_mesh, make_sharded_detector,
+        make_sharded_forward, make_sharded_train_step,
+    )
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+    from thingino_accel_tpu_torch.runtime.executor import (
+        build_executor, prepare_params,
+    )
+    from thingino_accel_tpu_torch.training import qat
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    res = {}
+    fr = torch.from_numpy(frames_of(1)[0]).to(dev)
+
+    # (a) the dp detector on the planned real yolov5n
+    eng = Engine.from_yolo_mars(str(MODEL), EngineOptions(precision="serving"),
+                                device=dev)
+    census = eng._fn.launch_census()
+    fn, sp = make_sharded_detector(eng, make_mesh(dp=PAR_DP,
+                                                  devices=[dev] * PAR_DP),
+                                   conf_thresh=PAR_CONF)
+    one, p1 = make_sharded_detector(eng, make_mesh(devices=[dev]),
+                                    conf_thresh=PAR_CONF)
+    ref = one(p1, fr)
+    got, launches = counted(
+        results, "parallel", lambda: fn(sp, fr),
+        {**{k: PAR_DP * v for k, v in census.items()}, DECODE: PAR_DP},
+        "(a) dp detector")
+    for f, a, b in zip(("boxes", "scores", "classes", "valid"), got, ref):
+        require(a.shape == b.shape and torch.equal(a, b),
+                f"[parallel] (a) {f} differ from the unsharded pipeline's")
+    require(fn.gathers == {"channels": 0, "params": 0},
+            f"[parallel] (a) gathers {fn.gathers}")
+    turns = in_turns({"unsharded": lambda: one(p1, fr),
+                      "dp": lambda: fn(sp, fr)}, PAR_TURNS)
+    fps = {k: [BATCH * 1e3 / ms for ms in v] for k, v in turns.items()}
+    n_valid = int(ref[3].sum())
+    print(f"[parallel] (a) dp={PAR_DP} detector, planned real yolov5n, "
+          f"{BATCH} frames at conf {PAR_CONF}: boxes, scores, classes, valid "
+          f"= the unsharded pipeline's bit for bit ({n_valid} detections); "
+          f"launches {launches} ({PAR_DP} shard forwards of the census, one "
+          f"#8 a shard); gathers {fn.gathers}; fps dp "
+          f"{[round(v, 1) for v in fps['dp']]}, unsharded "
+          f"{[round(v, 1) for v in fps['unsharded']]} (host clock, "
+          f"{PAR_TURNS} calls a turn)")
+    res["a_detector"] = {"launches": launches, "gathers": fn.gathers,
+                         "detections": n_valid, "fps": fps}
+    del eng, fn, sp, one, p1
+
+    # (b) the tp x dp forward on the exact zoo yolov5s
+    g = zoo.build_yolov5("s", zoo.ZooConfig())
+    eng = Engine(g, EngineOptions(precision="exact"), device=dev)
+    census = eng._fn.launch_census()
+    x = Y.quantize_input_int8(Y.letterbox_uint8(fr, (640, 640)))
+    want_heads = eng.forward(x)
+    mesh = make_mesh(dp=2, tp=2, devices=[dev] * 4)
+    fn, sp = make_sharded_forward(eng, mesh)
+    heads, launches = counted(
+        results, "parallel", lambda: fn(sp, {eng.input_names[0]: x}),
+        {k: 4 * v for k, v in census.items()},
+        "(b) tp forward")
+    for k, v in want_heads.items():
+        require(torch.equal(heads[k], v),
+                f"[parallel] (b) head {k} differs from the exact engine's")
+    gathers = dict(fn.gathers)
+    turns = in_turns({"engine": lambda: eng.forward(x),
+                      "dp2_tp2": lambda: fn(sp, {eng.input_names[0]: x})},
+                     PAR_TURNS)
+    print(f"[parallel] (b) dp=2 x tp=2 forward, exact zoo yolov5s at 640, "
+          f"{BATCH} frames: heads = the exact engine's bit for bit; launches "
+          f"{launches} (each conv on 4 entries: a slice on each tp device "
+          f"of {len(fn.tp.sharded)} sharded convs, whole for {fn.whole}); "
+          f"gathers {gathers}; ms a forward {turns} (host clock)")
+    res["b_forward"] = {"launches": launches, "gathers": gathers,
+                        "sharded_nodes": len(fn.tp.sharded),
+                        "whole": fn.whole, "ms": turns}
+    del eng, fn, sp, want_heads, heads
+
+    # (c) the tp x dp QAT step on [qat]'s float graph, no observers
+    was_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fg, in_scale = qat_float_graph()
+        inp = fg.inputs[0]
+        lb = Y.letterbox_uint8(fr, (640, 640))
+        xs = (lb.to(torch.float32) - 128.0) * in_scale
+        batches = [xs[:QAT_BATCH], xs[QAT_BATCH:2 * QAT_BATCH]]
+        base = build_executor(fg, dev, False, "exact")
+        params = base.device_params(prepare_params(fg))
+        with torch.no_grad():
+            tgts = [base(params, {inp: b}) for b in batches]
+        leaves = {k: v.detach().clone().requires_grad_(v.is_floating_point())
+                  for k, v in params.items()}
+        opt = torch.optim.Adam([p for p in leaves.values()
+                                if p.requires_grad], lr=QAT_LR)
+        step = qat.make_train_step(base, opt, qat=True)
+        ts, sp, sopt = make_sharded_train_step(
+            fg, mesh, optimizer=lambda ps: torch.optim.Adam(ps, lr=QAT_LR))
+        rows, ms = [], {"unsharded": [], "dp2_tp2": []}
+        for i in range(PAR_TRAIN_STEPS):
+            b, t = batches[i % 2], tgts[i % 2]
+            t0 = time.perf_counter()
+            lu = float(step(leaves, {inp: b}, t))
+            ms["unsharded"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            sp, sopt, ls = ts(sp, sopt, {inp: b}, t)
+            ls = float(ls)
+            ms["dp2_tp2"].append((time.perf_counter() - t0) * 1e3)
+            grads = ts.gather({k: [p.grad if p.grad is not None
+                                   else torch.zeros_like(p) for p in v]
+                               for k, v in sp.items()})
+            err = max(float((grads[k] - p.grad).abs().max())
+                      / max(float(p.grad.abs().max()), 1e-30)
+                      for k, p in leaves.items() if p.requires_grad
+                      and p.numel())
+            rel = abs(ls - lu) / abs(lu)
+            rows.append({"loss": ls, "loss_unsharded": lu, "loss_rel": rel,
+                         "grad_rel_err": err})
+            require(rel <= PAR_LOSS_RTOL and err <= PAR_GRAD_RTOL,
+                    f"[parallel] (c) step {i}: loss {ls} / {lu} ({rel:.3g} "
+                    f"apart, bound {PAR_LOSS_RTOL}), gradients within "
+                    f"{err:.3g} of each tensor's largest (bound "
+                    f"{PAR_GRAD_RTOL})")
+    finally:
+        torch.backends.cudnn.deterministic = was_det
+    print(f"[parallel] (c) dp=2 x tp=2 QAT step (per-tensor weight fake "
+          f"quantization, no observers), real yolov5n float32 at 640, "
+          f"{PAR_TRAIN_STEPS} Adam steps (lr {QAT_LR}) of batch {QAT_BATCH}: "
+          f"{rows}; gathers {ts.gathers}; ms a step (host clock, synchronized"
+          f" by the loss) {ms}")
+    res["c_train"] = {"steps": rows, "gathers": dict(ts.gathers), "ms": ms}
+    del base, params, leaves, opt, step, ts, sp, sopt, grads, tgts
+
+    # (d) the stage pipeline on the exact zoo yolov5s
+    eng = Engine(g, EngineOptions(precision="exact"), device=dev)
+    census = eng._fn.launch_census()
+    pipe = PipelinedEngine(g, devices=[dev] * PAR_STAGES,
+                           options=EngineOptions(precision="exact"))
+    mbs = [x[i:i + PAR_MICRO] for i in range(0, BATCH, PAR_MICRO)]
+    feed = lambda: ({eng.input_names[0]: m} for m in mbs)
+    outs, launches = counted(
+        results, "parallel", lambda: list(pipe.run(feed())),
+        {k: len(mbs) * v for k, v in census.items()},
+        "(d) pipeline")
+    require(len(outs) == len(mbs), f"[parallel] (d) {len(outs)} outputs")
+    for m, o in zip(mbs, outs):
+        want = eng.forward(m)
+        for k, v in want.items():
+            require(torch.equal(o[k], v), f"[parallel] (d) head {k} of a "
+                                          "microbatch differs")
+    turns = in_turns({"engine": lambda: [eng.forward(m) for m in mbs],
+                      "pipeline": lambda: list(pipe.run(feed()))}, 2)
+    per_mb = {k: [v / len(mbs) for v in vs] for k, vs in turns.items()}
+    print(f"[parallel] (d) {len(pipe.stages)}-stage pipeline "
+          f"({[len(s.nodes) for s in pipe.stages]} nodes), exact zoo "
+          f"yolov5s at 640, {len(mbs)} microbatches of {PAR_MICRO}: outputs "
+          f"in feed order, each = the whole engine's bit for bit; launches "
+          f"{launches}; ms a microbatch {per_mb} (host clock)")
+    res["d_pipeline"] = {"launches": launches, "ms_per_microbatch": per_mb,
+                         "stages": [len(s.nodes) for s in pipe.stages]}
+
+    # (e) #9 launched from two host threads at two shared-memory sizes
+    race = launch_race()
+    print(f"[parallel] (e) #9 from 2 host threads, {PAR_RACE_LAUNCHES} "
+          f"launches each at K {PAR_RACE_K} under one plan: failed launches "
+          f"{race['failed']}, outputs = the plain version's {race['equal']} "
+          f"({race['seconds']:.3f} s)")
+    require(not any(race["failed"].values()) and all(race["equal"].values()),
+            f"[parallel] (e) launches from two threads: {race}")
+    res["e_launch_race"] = race
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[parallel] phase {res['phase_s']:.1f} s")
+    return res
+
+
+def phase_abi(results: dict) -> dict:
+    """``[abi]`` (phase 22 of the docstring)."""
+    import ctypes
+    import tempfile
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch import api, native
+    from thingino_accel_tpu_torch.formats.mars_export import export_mars
+    from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.models import zoo
+    from thingino_accel_tpu_torch.runtime.engine import Engine
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    lib = native.engine_lib()
+    build_s = time.perf_counter() - t0
+    api.nna_deinit()   # nothing bound: the shim takes the card, as a C host
+
+    def run(path: str, x: np.ndarray):
+        m = lib.tat_model_load(path.encode())
+        require(bool(m), f"[abi] load {path}: {lib.tat_last_error()}")
+        try:
+            require(lib.tat_model_num_inputs(m) == 1,
+                    f"[abi] {path}: inputs")
+            tin = lib.tat_model_get_input(m, 0)
+            data = np.ascontiguousarray(x).tobytes()
+            require(lib.tat_tensor_bytes(tin) == len(data),
+                    f"[abi] {path}: input bytes")
+            ctypes.memmove(lib.tat_tensor_data(tin), data, len(data))
+            rc = lib.tat_model_run(m)
+            require(rc == 0, f"[abi] run {path}: {lib.tat_last_error()}")
+            outs = {}
+            for i in range(lib.tat_model_num_outputs(m)):
+                t = lib.tat_model_get_output(m, i)
+                outs[lib.tat_tensor_name(t).decode()] = (
+                    lib.tat_tensor_dtype(t).decode(), ctypes.string_at(
+                        lib.tat_tensor_data(t), lib.tat_tensor_bytes(t)))
+            return outs
+        finally:
+            lib.tat_model_unload(m)
+
+    rng = np.random.default_rng(0)
+    res = {"build_s": build_s}
+    with tempfile.TemporaryDirectory() as tmp:
+        zs = f"{tmp}/yolov5s_640.mars"
+        with open(zs, "wb") as f:
+            f.write(export_mars(zoo.build_yolov5("s", zoo.ZooConfig())))
+        frame = Y.quantize_input_int8(Y.letterbox_uint8(
+            torch.from_numpy(frames_of(1)[0][:1]), (640, 640))).numpy()
+        cases = {"test_conv": (str(REPO / "models" / "fixtures"
+                                   / "test_conv.mars"),
+                               rng.integers(-128, 128, (1, 64, 64, 3),
+                                            dtype=np.int8)),
+                 "zoo yolov5s 640": (zs, frame)}
+        for what, (path, x) in cases.items():
+            ref = Engine.from_mars(path, device=dev)
+            census = ref._fn.launch_census()
+            outs, launches = counted(
+                results, "abi", lambda: run(path, x),
+                census, f"{what} through the shim")
+            want = ref.run_np(x)
+            require(list(outs) == list(want), f"[abi] {what}: outputs "
+                                              f"{list(outs)}")
+            for k, v in want.items():
+                require(outs[k] == (str(v.dtype), v.tobytes()),
+                        f"[abi] {what}: output {k} bytes differ from the "
+                        "engine's")
+            print(f"[abi] {what}: output bytes = Engine.from_mars(...)."
+                  f"run_np on the card ({len(want)} outputs, "
+                  f"{sum(len(v.tobytes()) for v in want.values())} bytes); "
+                  f"launches {launches}")
+            res[what] = {"launches": launches, "outputs": len(want)}
+        missing = f"{tmp}/missing.mars"
+        require(not lib.tat_model_load(missing.encode())
+                and missing in lib.tat_last_error().decode(),
+                f"[abi] a missing file: {lib.tat_last_error()}")
+    print(f"[abi] shim built by g++ in {build_s:.2f} s (ABI version "
+          f"{lib.tat_engine_abi_version()}); a missing file gives NULL and "
+          f"tat_last_error names it")
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def fold_check(results: dict) -> dict:
+    """``[fast]``'s check of ``ir.passes.fold_stage2_downsample``: the
+    s2d-rewritten zoo yolov5s at 640 in the exact tier, with and without
+    the fold, on 16 ``[slice]`` frames; then ``trace_path.fast_graph(
+    "yolov5n")`` under ``TAT_S2D_DEEP=1`` in the fast tier."""
+    import copy
+    import os
+    import torch
+    from thingino_accel_tpu_torch.ir import passes
+    from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.models import zoo
+    from thingino_accel_tpu_torch.ops import requant_kernels as RK
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+    from thingino_accel_tpu_torch.trace_path import fast_graph, fast_options
+    dev = torch.device("cuda")
+    fr = torch.from_numpy(frames_of(1)[0]).to(dev)
+    g = zoo.build_yolov5("s", zoo.ZooConfig())
+    require(passes.stem_space_to_depth(g), "[fast] fold: no s2d stem")
+    gf = copy.deepcopy(g)
+    require(passes.fold_stage2_downsample(gf), "[fast] fold: no fold")
+    stem, down = [n for n in gf.nodes if n.op == "CONV2D"][:2]
+    routes = [RK.route(n.attrs["kernel"], n.attrs["stride"],
+                       n.attrs["dilation"], (n.attrs["explicit_pad"][:2],
+                                             n.attrs["explicit_pad"][2:]))
+              for n in (stem, down)]
+    a = down.attrs
+    exact = EngineOptions(precision="exact")
+    plain, folded = Engine(g, exact, device=dev), Engine(gf, exact, device=dev)
+    x = Y.quantize_input_int8(Y.space_to_depth(Y.letterbox_uint8(
+        fr, (640, 640))))
+    want = plain.forward(x)
+    census = folded._fn.launch_census()
+    heads, launches = counted(results, "fold", lambda: folded.forward(x),
+                              census, "exact zoo yolov5s, folded")
+    for k, v in want.items():
+        require(torch.equal(heads[k], v), f"[fast] fold: head {k} differs "
+                                          "from the unfolded graph's")
+    print(f"[fast] fold_stage2_downsample, exact zoo yolov5s at 640 (s2d "
+          f"stem), {BATCH} frames: heads bit-identical with the fold and "
+          f"without; the folded stem ({stem.attrs['kernel']} "
+          f"s{stem.attrs['stride']}) runs on {routes[0]}, the folded "
+          f"downsample ({a['kernel']} s{a['stride']}, pads "
+          f"{a['explicit_pad']}) on {routes[1]}; launches {launches} "
+          f"(unfolded census {plain._fn.launch_census()}: the s2d stem 3x3 "
+          f"s1 on #10, the downsample 3x3 s2 on #11)")
+    prev = os.environ.get("TAT_S2D_DEEP")
+    os.environ["TAT_S2D_DEEP"] = "1"
+    try:
+        gd = fast_graph("yolov5n")
+    finally:
+        if prev is None:
+            del os.environ["TAT_S2D_DEEP"]
+        else:
+            os.environ["TAT_S2D_DEEP"] = prev
+    k2 = [n.attrs["kernel"] for n in gd.nodes if n.op == "CONV2D"][1]
+    require(k2 == (2, 2), f"[fast] TAT_S2D_DEEP: the downsample is {k2}")
+    eng_d = Engine(gd, fast_options(), device=dev)
+    eng_p = Engine(fast_graph("yolov5n"), fast_options(), device=dev)
+    xb = Y.quantize_input_int8(Y.space_to_depth(Y.letterbox_uint8(
+        fr, (640, 640))), torch.bfloat16)
+    hd, hp = eng_d.forward(xb), eng_p.forward(xb)
+    dmax = max(float((hd[k].float() - hp[k].float()).abs().max())
+               for k in hp)
+    top = max(float(hp[k].float().abs().max()) for k in hp)
+    print(f"[fast] TAT_S2D_DEEP=1: fast_graph('yolov5n') carries the 2x2 s1 "
+          f"downsample; its bf16 heads' largest difference from the "
+          f"unfolded graph's {dmax:.6g} (largest |head| {top:.6g}), "
+          f"{BATCH} frames")
+    return {"routes": routes, "launches": launches,
+            "deep_fast_head_max_diff": dmax, "deep_fast_head_max": top}
+
+
 def main() -> int:
     if not (REPO / "thingino_accel_tpu_torch" / "csrc").is_dir() \
             or not MODEL.exists() or not NANODET.exists():
@@ -4655,6 +5153,8 @@ def main() -> int:
         audio_res = phase_audio(smi)
         jzdl_res = phase_jzdl(smi)
         qat_res = phase_qat(results)
+        parallel_res = phase_parallel(results)
+        abi_res = phase_abi(results)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
@@ -4675,7 +5175,9 @@ def main() -> int:
                         "mgk_launches": r.get("mgk_launches", 0),
                         "audio_launches": audio_res["launches"].get(k, 0),
                         "jzdl_launches": jzdl_res["launches"].get(k, 0),
-                        "qat_launches": r.get("qat_launches", 0)})
+                        "qat_launches": r.get("qat_launches", 0),
+                        "parallel_launches": r.get("parallel_launches", 0),
+                        "abi_launches": r.get("abi_launches", 0)})
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -4689,7 +5191,8 @@ def main() -> int:
         "probes": probes_res, "pipeline": pipeline_res,
         "fast": fast_res, "streams": streams_res, "ops": ops_res,
         "onnx": onnx_res, "mgk": mgk_res, "audio": audio_res,
-        "jzdl": jzdl_res, "qat": qat_res},
+        "jzdl": jzdl_res, "qat": qat_res, "parallel": parallel_res,
+        "abi": abi_res},
         indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -33,18 +33,23 @@ machine lists none) and imports nothing of the JAX package.
   ``decompile``; and the training path and host utilities: a QAT step on
   the tiny float convnet with observers, a checkpoint of it, the weights
   written back, ``export_int8``, the ``TAT_*`` registry, ``compiled_stats``
-  and ``native``.
+  and ``native``; and ``parallel``: a dp x tp sharded forward and a
+  two-stage ``PipelinedEngine`` over CPU meshes, and the deep s2d fold.
 - No module of the port and no line of ``chip_smoke.py`` holds an
   ``import`` of ``thingino_accel_tpu`` (parsed with ``ast``, so an import
   inside a function counts too); the walk covers the format modules,
   ``models/onnx_fixtures.py`` and ``models/mgk_fixtures.py``,
   ``training/ptq.py``, ``api.py`` and ``ops/image.py``, and the audio,
   AEC, JZDL and person-detector modules and the JZDL fixture, QAT,
-  checkpoints, the utilities and ``native.py``.
+  checkpoints, the utilities and ``native.py``, and ``parallel/``.
+- The port's C ABI engine shim (``csrc/tat_engine.cpp`` of the package)
+  imports ``thingino_accel_tpu_torch.runtime`` and no module of the JAX
+  package.
 """
 
 import ast
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -354,6 +359,23 @@ SCRIPT = textwrap.dedent("""
     assert utils.compiled_stats(torch.mm, torch.ones(4, 4),
                                 torch.ones(4, 4))["flops"] == 128
     assert native.quantize_i8(np.zeros((2, 2), np.uint8)).min() == -128
+    from thingino_accel_tpu_torch import parallel
+    tg = zoo.build_tiny(zoo.ZooConfig(dtype="float32", in_hw=(16, 16)),
+                        in_hw=(16, 16))
+    teng = thingino_accel_tpu_torch.Engine(tg, device="cpu")
+    fn, sp = parallel.make_sharded_forward(
+        teng, parallel.make_mesh(dp=2, tp=2, devices=["cpu"] * 4))
+    xt = np.ones((2, 16, 16, 3), np.float32)
+    tin, tout = tg.inputs[0], tg.outputs[0]
+    got = fn(sp, {tin: xt})[tout]
+    assert torch.allclose(got, teng.run(xt)[tout], atol=1e-5)
+    assert fn.gathers["channels"] > 0
+    pipe = parallel.PipelinedEngine(tg, devices=["cpu"] * 2)
+    outs = list(pipe.run({tin: xt[:1]} for _ in range(3)))
+    assert len(outs) == 3 and len(pipe.stages) == 2
+    fg2 = zoo.build_yolov5("n", zoo.ZooConfig(in_hw=(64, 64)))
+    assert passes.stem_space_to_depth(fg2)
+    assert passes.fold_stage2_downsample(fg2)
     assert sys.modules["jax"] is None
     assert sys.modules["thingino_accel_tpu"] is None
     print("ok")
@@ -394,9 +416,20 @@ def test_no_import_of_the_jax_package():
         ("models", "persondet.py"), ("models", "jzdl_fixtures.py"),
         ("training", "qat.py"), ("runtime", "checkpoint.py"),
         ("utils", "config.py"), ("utils", "logging.py"),
-        ("utils", "timing.py"), ("native.py",))
+        ("utils", "timing.py"), ("native.py",),
+        ("parallel", "__init__.py"), ("parallel", "mesh.py"),
+        ("parallel", "shard.py"), ("parallel", "pipeline.py"))
     } <= set(files)
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imports_of(f)
            if m.split(".")[0] in ("thingino_accel_tpu", "jax")]
     assert not bad, bad
+
+
+def test_engine_shim_drives_the_port():
+    src = open(os.path.join(REPO, "thingino_accel_tpu_torch", "csrc",
+                            "tat_engine.cpp")).read()
+    imports = re.findall(r'PyImport_ImportModule\("([^"]+)"\)', src)
+    assert "thingino_accel_tpu_torch.runtime" in imports
+    assert not [m for m in imports
+                if m.split(".")[0] in ("thingino_accel_tpu", "jax")]

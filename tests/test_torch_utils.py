@@ -31,7 +31,7 @@ from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
 from thingino_accel_tpu_torch.utils import config, timing
 from thingino_accel_tpu_torch.utils.logging import get_logger
 
-KEPT = ("TAT_CONV_MERGE", "TAT_FPN_SPLIT", "TAT_LOG")
+KEPT = ("TAT_CONV_MERGE", "TAT_FPN_SPLIT", "TAT_LOG", "TAT_S2D_DEEP")
 
 
 def test_registry_names_and_defaults_equal_jax():

@@ -432,9 +432,11 @@ BneckKernel prepare_bneck(int act1, int act2, int tile_h, int tile_w,
     err = cudaErrorInvalidValue;
     return nullptr;
   }
-  // no static shared memory: the opt-in is the dynamic bytes
+  // the card's whole opt-in, not this plan's bytes: the attribute is the
+  // kernel's, shared by every host thread, so a smaller plan opted in by
+  // another thread between this opt-in and its launch would fail the launch
   err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             g.smem);
+                             max_smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(k,
                                cudaFuncAttributePreferredSharedMemoryCarveout,

@@ -345,8 +345,11 @@ LagKernel prepare(int lag, int C, int bn, int stages, int act, LagGeom& g,
     err = cudaErrorInvalidValue;
     return nullptr;
   }
+  // the card's whole opt-in, not this plan's bytes: the attribute is the
+  // kernel's, shared by every host thread, so a smaller plan opted in by
+  // another thread between this opt-in and its launch would fail the launch
   err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             g.smem);
+                             max_smem);
   return err == cudaSuccess ? k : nullptr;
 }
 

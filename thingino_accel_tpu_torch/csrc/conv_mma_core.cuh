@@ -913,8 +913,11 @@ ConvKernel<typename EP::Params> prepare(int mode, int tile_h, int tile_w,
     err = cudaErrorInvalidValue;
     return nullptr;
   }
+  // the card's whole opt-in, not this plan's bytes: the attribute is the
+  // kernel's, shared by every host thread, so a smaller plan opted in by
+  // another thread between this opt-in and its launch would fail the launch
   err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             g.smem);
+                             max_smem);
   if (err == cudaSuccess)   // the most shared memory an SM can give blocks
     err = cudaFuncSetAttribute(k,
                                cudaFuncAttributePreferredSharedMemoryCarveout,

@@ -312,8 +312,11 @@ DwKernel prepare(int tile_h, int groups, DwGeom& g, cudaError_t& err) {
     err = cudaErrorInvalidValue;
     return nullptr;
   }
+  // the card's whole opt-in, not this plan's bytes: the attribute is the
+  // kernel's, shared by every host thread, so a smaller plan opted in by
+  // another thread between this opt-in and its launch would fail the launch
   err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             g.smem);
+                             max_smem);
   return err == cudaSuccess ? k : nullptr;
 }
 

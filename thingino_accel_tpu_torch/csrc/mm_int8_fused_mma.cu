@@ -583,9 +583,11 @@ K opt_in(K k, const MmGeom& g, cudaError_t& err) {
     err = cudaErrorInvalidValue;
     return nullptr;
   }
-  // no static shared memory: the opt-in is the dynamic bytes
+  // the card's whole opt-in, not this plan's bytes: the attribute is the
+  // kernel's, shared by every host thread, so a smaller plan opted in by
+  // another thread between this opt-in and its launch would fail the launch
   err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             g.smem);
+                             max_smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(k,
                                cudaFuncAttributePreferredSharedMemoryCarveout,

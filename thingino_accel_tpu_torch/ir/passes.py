@@ -9,9 +9,10 @@
 - ``dead_code``: drop nodes whose outputs are never consumed.
 - The fast tier's rewrites: ``dequantize_graph`` (int8 graph -> float
   compute with int8 edges), ``stem_space_to_depth`` (the stride-2 stem
-  as a stride-1 conv over 2x2 blocks), ``split_concat_convs`` and
-  ``merge_sibling_convs`` (1x1 convs over concats split by part, sibling
-  convs merged into one).
+  as a stride-1 conv over 2x2 blocks), ``fold_stage2_downsample`` (the
+  fold one stage deeper, behind ``TAT_S2D_DEEP``), ``split_concat_convs``
+  and ``merge_sibling_convs`` (1x1 convs over concats split by part,
+  sibling convs merged into one).
 """
 
 from __future__ import annotations
@@ -370,6 +371,147 @@ def stem_space_to_depth(graph: Graph) -> bool:
             node.attrs["explicit_pad"] = ((kb - 1) // 2,) * 4
         in_t.shape = (b, h // 2, w // 2, 4 * c)
         graph.stem_s2d = True
+        return True
+    return False
+
+
+def fold_stage2_downsample(graph: Graph) -> bool:
+    """Extend the s2d fold one stage deeper: the stem conv emits its
+    output directly in 2x2 space-to-depth layout, and the stage-2 ``3x3
+    s2`` downsample conv becomes ``2x2 s1`` over the folded tensor, its
+    contraction 4 x C_stem wide instead of C_stem.
+
+    Pattern: ``input -> convA (odd K, s1, SAME) [-> SIGMOID/MUL SiLU
+    chain] -> convB (3x3 s2, window from one pixel above and left)``,
+    convA's output consumed only by the chain, the chain only by convB,
+    no tensor of the chain a graph output. Every output sums the same
+    products (the stem places each original tap at one parity position
+    of a (K+1)x(K+1) s2 kernel, its out channels parity-major ``(p*2+q) *
+    O + o``; the downsample gathers the same 3x3 window from the parity
+    channels, taps outside it zero), so the exact tier stays
+    bit-identical. Rewrites the graph's records (OIHW weights) in place;
+    returns whether it did."""
+    cons = graph.consumers()
+    in_names = set(graph.inputs)
+    for a_node in graph.nodes:
+        if (a_node.op != "CONV2D" or a_node.inputs[0] not in in_names
+                or a_node.attrs.get("stride") != (1, 1)
+                or a_node.attrs.get("groups", 1) != 1
+                or a_node.attrs.get("dilation", (1, 1)) != (1, 1)):
+            continue
+        ka, kaw = a_node.attrs.get("kernel", (0, 0))
+        if ka != kaw or ka % 2 != 1:
+            continue
+        pa = (ka - 1) // 2
+        ep = a_node.attrs.get("explicit_pad")
+        if (a_node.attrs.get("padding") == "EXPLICIT"
+                and ep is not None and tuple(ep) != (pa,) * 4):
+            continue
+        t_name = a_node.outputs[0]
+        t = graph.tensors[t_name]
+        if len(t.shape) != 4 or t.shape[1] % 2 or t.shape[2] % 2:
+            continue
+        # walk the (optional) SiLU chain to the single conv consumer
+        chain_tensors: List[str] = []
+        cur = t_name
+        b_node = None
+        while True:
+            cs_ = cons.get(cur, [])
+            if len(cs_) == 1 and cs_[0].op == "CONV2D":
+                b_node = cs_[0]
+                break
+            if len(cs_) == 2:
+                sig = next((n for n in cs_ if n.op == "SIGMOID"), None)
+                mul = next((n for n in cs_ if n.op == "MUL"), None)
+                if (sig is not None and mul is not None
+                        and set(mul.inputs) == {cur, sig.outputs[0]}
+                        and cons.get(sig.outputs[0]) == [mul]):
+                    chain_tensors += [sig.outputs[0], mul.outputs[0]]
+                    cur = mul.outputs[0]
+                    continue
+            break
+        if b_node is None or b_node.inputs[0] != cur:
+            continue
+        if (b_node.attrs.get("kernel") != (3, 3)
+                or b_node.attrs.get("stride") != (2, 2)
+                or b_node.attrs.get("groups", 1) != 1
+                or b_node.attrs.get("dilation", (1, 1)) != (1, 1)):
+            continue
+        # convB's (top, left) pads as the runtime resolves them
+        # (ops.reference._conv_pads): the rewrite needs the window to start
+        # one pixel above and left of the output site; SAME on an even
+        # input pads (0, 1) and would shift every value by one pixel
+        pad_mode_b = b_node.attrs.get("padding")
+        epb = b_node.attrs.get("explicit_pad")
+        if pad_mode_b == "EXPLICIT" and epb is not None:
+            ptl_b = (epb[0], epb[2])
+        elif pad_mode_b == "SAME":
+            bt_out = graph.tensors[b_node.outputs[0]]
+            oh, ow = bt_out.shape[1], bt_out.shape[2]
+            ih, iw = t.shape[1], t.shape[2]
+            ptl_b = (max(0, ((oh - 1) * 2 + 3 - ih) // 2),
+                     max(0, ((ow - 1) * 2 + 3 - iw) // 2))
+        else:
+            ptl_b = (0, 0) if pad_mode_b == "VALID" else None
+        if ptl_b != (1, 1):
+            continue
+        # a folded tensor must not escape: its consumers outside the
+        # graph would read relaid-out data
+        out_set = set(graph.outputs)
+        if t_name in out_set or any(nm in out_set for nm in chain_tensors):
+            continue
+
+        bb, h, w, ca = t.shape
+        wa = graph.tensors[a_node.inputs[1]]
+        oa, ci, _, _ = wa.shape              # OIHW
+        # stem: tap (ky, kx) at offset (p, q) of a (ka+1)x(ka+1) s2 kernel
+        wd = np.zeros((4, oa, ci, ka + 1, ka + 1), wa.data.dtype)
+        for p in (0, 1):
+            for q in (0, 1):
+                wd[p * 2 + q, :, :, p:p + ka, q:q + ka] = wa.data
+        wa.data = np.ascontiguousarray(
+            wd.reshape(4 * oa, ci, ka + 1, ka + 1))
+        wa.shape = wa.data.shape
+        if wa.channel_scales is not None:
+            wa.channel_scales = np.tile(
+                np.asarray(wa.channel_scales), 4)
+        if len(a_node.inputs) > 2:
+            bt = graph.tensors[a_node.inputs[2]]
+            bt.data = np.ascontiguousarray(np.tile(bt.data, 4))
+            bt.shape = bt.data.shape
+        a_node.attrs["kernel"] = (ka + 1, ka + 1)
+        a_node.attrs["stride"] = (2, 2)
+        a_node.attrs["padding"] = "EXPLICIT"
+        a_node.attrs["explicit_pad"] = (pa, pa, pa, pa)
+        # fold every tensor on the A -> B chain
+        for nm in [t_name] + chain_tensors:
+            tt = graph.tensors[nm]
+            tt.shape = (bb, h // 2, w // 2, 4 * ca)
+
+        wb = graph.tensors[b_node.inputs[1]]
+        ob, cb, _, _ = wb.shape
+        if cb != ca:
+            raise ValueError(f"{b_node.name}: weight {wb.shape} over a "
+                             f"{t.shape} input")
+        # downsample: tap (ky, kx) of channel c is folded channel
+        # (p*2+q)*ca + c at folded tap (ku, kv), ky = 2*ku + p - 1 (kx
+        # likewise); positions the 3x3 window never reaches stay zero
+        wbd = np.zeros((ob, 4, ca, 2, 2), wb.data.dtype)
+        for p in (0, 1):
+            for q in (0, 1):
+                for ku in (0, 1):
+                    for kv in (0, 1):
+                        ky, kx = 2 * ku + p - 1, 2 * kv + q - 1
+                        if 0 <= ky < 3 and 0 <= kx < 3:
+                            wbd[:, p * 2 + q, :, ku, kv] = \
+                                wb.data[:, :, ky, kx]
+        wb.data = np.ascontiguousarray(wbd.reshape(ob, 4 * ca, 2, 2))
+        wb.shape = wb.data.shape
+        b_node.attrs["kernel"] = (2, 2)
+        b_node.attrs["stride"] = (1, 1)
+        b_node.attrs["padding"] = "EXPLICIT"
+        b_node.attrs["explicit_pad"] = (1, 0, 1, 0)
+        graph.validate()
         return True
     return False
 

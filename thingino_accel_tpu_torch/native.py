@@ -1,4 +1,6 @@
-"""ctypes bindings for the native host runtime, ``csrc/tat_native.cpp``.
+"""ctypes bindings for the native host runtime, ``csrc/tat_native.cpp``,
+and the port's C ABI engine shim, ``thingino_accel_tpu_torch/csrc/
+tat_engine.cpp`` (:func:`engine_lib`).
 
 Port of ``thingino_accel_tpu.native`` over the repository's own C++
 source, used as it is: host-side weight packing, JPEG decode (libjpeg),
@@ -10,6 +12,13 @@ nothing is written into ``csrc/``. Where no compiler or no libjpeg is
 there, :func:`load` returns None and :func:`available` False, and each
 entry point runs the port's Python counterpart (``formats.packing``,
 ``models.yolo``, PIL for JPEG). No device path calls this module.
+
+The engine shim embeds CPython and drives the port's ``Engine`` behind
+``csrc/tat_engine.h``'s ABI, for a C host (linked against libpython) or a
+Python process (through ctypes). :func:`engine_lib` builds it at first use
+with g++ (the flags of ``csrc/Makefile``'s ``libtat_engine.so`` rule but
+``-fopenmp``, the Python flags from ``sysconfig``) into ``build/native/``,
+and raises where it cannot build or load it.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import tempfile
 from pathlib import Path
 from typing import Optional, Tuple
@@ -32,35 +42,120 @@ BUILD_DIR = _ROOT / "build" / "native"
 CXXFLAGS = ("-O3", "-fPIC", "-shared", "-fopenmp", "-Wall", "-std=c++17")
 LIBS = ("-ljpeg",)
 
+ENGINE_SOURCE = _ROOT / "thingino_accel_tpu_torch" / "csrc" / "tat_engine.cpp"
+ENGINE_HEADER = _ROOT / "csrc" / "tat_engine.h"
+# the Makefile's CXXFLAGS without -fopenmp: the shim has no parallel loop,
+# and a toolchain without libgomp then builds it too
+ENGINE_CXXFLAGS = tuple(f for f in CXXFLAGS if f != "-fopenmp")
+ENGINE_ABI_VERSION = 1
+
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_engine: Optional[ctypes.CDLL] = None
+
+
+def _hashed_path(name: str, sources, flags) -> Path:
+    """``build/native/lib<name>_<hash of the sources and flags>.so``."""
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(src.read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _lib_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXXFLAGS + LIBS).encode())
-    return BUILD_DIR / f"libtat_native_{h.hexdigest()[:16]}.so"
+    return _hashed_path("tat_native", (SOURCE,), CXXFLAGS + LIBS)
 
 
-def _build(path: Path) -> bool:
-    """Compile into a temporary file beside ``path``, then rename it into
-    place (processes that build at once each write their own)."""
+def _compile(path: Path, args) -> None:
+    """g++ ``args`` into a temporary file beside ``path``, then rename it
+    into place (processes that build at once each write their own).
+    Raises ``RuntimeError`` with the compiler's output where it fails."""
     cxx = os.environ.get("CXX") or shutil.which("g++")
-    if not cxx or not SOURCE.exists():
-        return False
+    if not cxx:
+        raise RuntimeError("no C++ compiler: set CXX or install g++")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        subprocess.run([cxx, *CXXFLAGS, "-o", tmp, str(SOURCE), *LIBS],
-                       check=True, capture_output=True, timeout=120)
+        proc = subprocess.run([cxx, *args, "-o", tmp], capture_output=True,
+                              text=True, timeout=120)
+        if proc.returncode:
+            raise RuntimeError(f"g++ failed ({proc.returncode}): "
+                               f"{proc.stderr[-2000:]}")
         os.replace(tmp, path)
-        return True
-    except Exception:
-        return False
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+def _build(path: Path) -> bool:
+    if not SOURCE.exists():
+        return False
+    try:
+        _compile(path, [*CXXFLAGS, str(SOURCE), *LIBS])
+        return True
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+
+
+def _python_flags() -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """(compile flags, link flags) of this interpreter from ``sysconfig``:
+    its include directory; libpython (``LIBDIR``/``LDLIBRARY``) where it is
+    a shared library, else nothing, and the shim then takes CPython's
+    symbols from the process that loads it."""
+    cflags = ("-I" + sysconfig.get_paths()["include"],)
+    libdir = sysconfig.get_config_var("LIBDIR") or ""
+    ldlib = sysconfig.get_config_var("LDLIBRARY") or ""
+    if ".so" in ldlib and (Path(libdir) / ldlib).exists():
+        return cflags, ("-L" + libdir, "-l:" + ldlib,
+                        "-Wl,-rpath," + libdir)
+    return cflags, ()
+
+
+def engine_lib() -> ctypes.CDLL:
+    """The port's C ABI engine shim, built at first use and loaded once,
+    its entry points typed as ``csrc/tat_engine.h`` declares them. Raises
+    ``RuntimeError`` where it cannot build or load it, or where its ABI
+    version is not ``ENGINE_ABI_VERSION``."""
+    global _engine
+    if _engine is not None:
+        return _engine
+    cflags, ldflags = _python_flags()
+    flags = ENGINE_CXXFLAGS + cflags + ("-I" + str(ENGINE_HEADER.parent),)
+    path = _hashed_path("tat_engine", (ENGINE_SOURCE, ENGINE_HEADER),
+                        flags + ldflags)
+    if not path.exists():
+        _compile(path, [*flags, str(ENGINE_SOURCE), *ldflags])
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        raise RuntimeError(f"cannot load {path}: {e}") from e
+    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    for name, res, args in (
+            ("tat_init", I, []), ("tat_deinit", None, []),
+            ("tat_model_load", P, [ctypes.c_char_p]),
+            ("tat_model_run", I, [P]), ("tat_model_unload", None, [P]),
+            ("tat_model_num_inputs", I, [P]),
+            ("tat_model_num_outputs", I, [P]),
+            ("tat_model_get_input", P, [P, U]),
+            ("tat_model_get_output", P, [P, U]),
+            ("tat_tensor_name", ctypes.c_char_p, [P]),
+            ("tat_tensor_ndim", I, [P]),
+            ("tat_tensor_shape", ctypes.POINTER(ctypes.c_int64), [P]),
+            ("tat_tensor_bytes", ctypes.c_int64, [P]),
+            ("tat_tensor_dtype", ctypes.c_char_p, [P]),
+            ("tat_tensor_data", P, [P]),
+            ("tat_last_error", ctypes.c_char_p, []),
+            ("tat_engine_abi_version", I, [])):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    if lib.tat_engine_abi_version() != ENGINE_ABI_VERSION:
+        raise RuntimeError(f"{path}: ABI version "
+                           f"{lib.tat_engine_abi_version()}, expected "
+                           f"{ENGINE_ABI_VERSION}")
+    _engine = lib
+    return lib
 
 
 def load() -> Optional[ctypes.CDLL]:

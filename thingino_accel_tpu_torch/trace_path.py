@@ -84,11 +84,14 @@ def fast_graph(model: str, s2d: bool = True, in_hw=(640, 640)):
     1e10), its detect convs' biases zeroed and their weights at scale 0.25
     so that scores spread past the threshold, as ``tests/test_torch_fast.py``
     builds it, at ``in_hw`` (640x640 unless given). ``s2d=False`` leaves
-    the stem as it is."""
+    the stem as it is. With ``TAT_S2D_DEEP`` set, the s2d stem is folded
+    one stage deeper (``ir.passes.fold_stage2_downsample``), as the JAX
+    bench does."""
     from thingino_accel_tpu_torch.ir import passes
     from thingino_accel_tpu_torch.models import zoo
     from thingino_accel_tpu_torch.models.yolo import find_detect_outputs
     from thingino_accel_tpu_torch.runtime.engine import load_graph
+    from thingino_accel_tpu_torch.utils import config
     if model == "yolov5n":
         g = load_graph(str(REPO / "models" / "yolov5n_cal_int8.mars"))
         g = g.with_outputs(find_detect_outputs(g))
@@ -102,6 +105,8 @@ def fast_graph(model: str, s2d: bool = True, in_hw=(640, 640)):
             b.data = np.zeros_like(b.data)
     if s2d and not passes.stem_space_to_depth(g):
         raise ValueError(f"{model}: no stem to rewrite")
+    if s2d and config.get("TAT_S2D_DEEP"):
+        passes.fold_stage2_downsample(g)
     return g
 
 

@@ -57,3 +57,8 @@ _register("TAT_FPN_SPLIT", "wide", str,
           "whose every part has >= 128 channels; 'all' = every "
           "1x1-over-concat; '' = off. Read where EngineOptions.fpn_split "
           "is None")
+_register("TAT_S2D_DEEP", False, _bool,
+          "fast paths over an s2d graph (trace_path.fast_graph): fold one "
+          "stage deeper (the stem emits 2x2 space-to-depth layout, the "
+          "3x3 s2 downsample becomes 2x2 s1 at 4x the contraction width; "
+          "exact; ir.passes.fold_stage2_downsample)")
