@@ -12,11 +12,13 @@ Phases:
 2. Build: compile the kernels in ``thingino_accel_tpu_torch/csrc/`` with
    nvcc, one process per source, all started together (timed); fail on a
    ptxas warning that it serialised a wgmma; count the IDP4A, IMMA,
-   IGMMA, LDSM, LDGSTS and UTMALDG instructions of each kernel of the
-   library (``cuobjdump -sass``): no kernel holds an IDP4A, the 1x1 GEMM,
-   the KxK core, the fused bottleneck and the fused SPPF hold IMMA, and
-   E2's kernel, E3's stage kernel and the probes' row chain hold IGMMA (the
-   warpgroup MMA) and UTMALDG (TMA loads) and no IMMA.
+   IGMMA, LDSM, LDGSTS, UTMALDG and HMMA instructions of each kernel of
+   the library (``cuobjdump -sass``, run in the background while the
+   phases run, counted and printed after the last): no kernel holds an
+   IDP4A, the 1x1 GEMM, the KxK core, the fused bottleneck and the fused
+   SPPF hold IMMA, and E2's kernel, E3's stage kernel and the probes' row
+   chain hold IGMMA (the warpgroup MMA) and UTMALDG (TMA loads) and no
+   IMMA.
 3. Kernels vs their plain torch versions on the card at the paths'
    shapes (NONE, LEAKY_RELU and SILU, per-channel scales, residual modes;
    #3, which launches #1's tensor-core 1x1 GEMM
@@ -665,7 +667,8 @@ SPPF_EDGES = [(2, 6, 7, 36, 20, 5), (1, 9, 4, 10, 8, 3),
               (1, 20, 40, 32, 16, 5)]
 # the instructions counted, by their SASS opcodes (dp4a is IDP.4A on sm_90)
 SASS_OPS = {"IDP4A": r"IDP\.4A", "IMMA": r"IMMA", "IGMMA": r"IGMMA",
-            "LDSM": r"LDSM", "LDGSTS": r"LDGSTS", "UTMALDG": r"UTMALDG"}
+            "LDSM": r"LDSM", "LDGSTS": r"LDGSTS", "UTMALDG": r"UTMALDG",
+            "HMMA": r"HMMA"}
 EXACT_ZOO_S_STEPS = 85   # 60 convs, 25 other nodes; no act step
 DP4A_PATH = {"planned real yolov5n": "planned_yolov5n",
              "unplanned real yolov5n": "unplanned_yolov5n",
@@ -703,9 +706,9 @@ def compare(kernel_out, plain_out, act: str, what: str) -> int:
     d = (kernel_out.to(torch.int32) - plain_out.to(torch.int32)).abs()
     dmax = int(d.max().item()) if d.numel() else 0
     frac = float((d > 0).to(torch.float64).mean().item()) if d.numel() else 0.0
-    if act == "SILU":
+    if act in ("SILU", "SILU_FAST"):
         require(dmax <= 1 and frac <= SILU_MAX_FRAC,
-                f"{what}: SILU mismatch max {dmax}, frac {frac}")
+                f"{what}: {act} mismatch max {dmax}, frac {frac}")
     else:
         require(dmax == 0, f"{what}: {act} not bit-exact (max {dmax}, "
                            f"frac {frac})")
@@ -887,50 +890,111 @@ def phase_build() -> float:
     require(not serial, "ptxas serialised wgmma: " + " | ".join(serial[:3]))
     print(f"[build] ptxas: {sum('wgmma' in ln for ln in log.splitlines())} "
           f"lines name wgmma, none of them a serialisation")
+    per_source = re.findall(r"^# (\S+): ([\d.]+) s, ([\d.]+) s CPU$", log,
+                            re.M)
+    print("[build] each nvcc's seconds from the build's start to its end "
+          "(CPU seconds): " + ", ".join(f"{src} {t} ({cpu})"
+                                        for src, t, cpu in per_source))
     print(f"[build] {len(cuda_build.SOURCES)} sources built and loaded in "
           f"{secs:.3f} s")
     return secs
 
 
-def sass_counts() -> dict:
-    """``SASS_OPS`` counted in each kernel of the library
-    (``cuobjdump -sass``, beside nvcc), summed by the ``NO_DP4A`` name
-    pieces and over all kernels; fails if no kernel of a piece is found,
-    if a ``TENSOR_CORE`` piece holds no IMMA, if a ``WGMMA`` piece holds no
-    IGMMA, no UTMALDG or an IMMA, or if any kernel of the library holds an
-    IDP4A:
-    no kernel of the port runs dp4a."""
+def kernel_mode(name: str):
+    """The JAX modes' product of a kernel, from its mangled name: "int8"
+    or "bf16" for a mode kernel (the serving kernels' epilogue policy
+    ``ServingModeEpilogue<BF16>``: the act at run time, SILU_FAST among
+    them; #7's ``SILU_FAST`` instantiations: "int8"), else None."""
     import re
+    m = re.search(r"ServingModeEpilogueILb([01])E", name)
+    if m:
+        return "bf16" if m.group(1) == "1" else "int8"
+    m = re.search(r"dw_int8_fused_kernelILi-?\d+ELi-?\d+ELb1E", name)
+    return "int8" if m else None
+
+
+def sass_dump_start() -> tuple:
+    """Start ``cuobjdump -sass`` of the library (beside nvcc) in the
+    background, its output to a file beside the library: it takes about
+    as long as the build, so the phases run meanwhile. Returns (process,
+    file) for :func:`sass_counts`."""
     from thingino_accel_tpu_torch.ops import cuda_build
     tool = Path(cuda_build.find_nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass",
-                           str(cuda_build.library_path())],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout
-    counts = {k: dict.fromkeys(SASS_OPS, 0) for k in NO_DP4A + ("all",)}
-    found = dict.fromkeys(NO_DP4A, 0)
+    lib = cuda_build.library_path()
+    path = lib.with_suffix(".sass")
+    with open(path, "w") as f:
+        proc = subprocess.Popen([str(tool), "-sass", str(lib)], stdout=f,
+                                stderr=subprocess.STDOUT)
+    return proc, path
+
+
+def sass_counts(dump: tuple) -> dict:
+    """``SASS_OPS`` counted in each kernel of the library (in the
+    disassembly ``dump`` of :func:`sass_dump_start`, waited for), summed
+    by the ``NO_DP4A`` name pieces and over all kernels: first over the
+    kernels of the default modes (the library as it was before the JAX
+    modes: their counts are held against a parent build's), then over the
+    modes' kernels
+    (``kernel_mode``: the act at run time, SILU_FAST among them, on the s8
+    or the bf16 product). Fails if no kernel of a piece is found, if a
+    ``TENSOR_CORE`` piece's default or int8 mode kernels hold no IMMA, if
+    its bf16 kernels hold an IMMA or no HMMA, if a ``WGMMA``
+    piece holds no IGMMA, no UTMALDG or an IMMA, or if any kernel of the
+    library holds an IDP4A: no kernel of the port runs dp4a."""
+    import re
+    proc, path = dump
+    rc = proc.wait(timeout=900)
+    sass = path.read_text()
+    path.unlink()
+    require(rc == 0, f"cuobjdump -sass exited {rc}: {sass[-2000:]}")
+    # every op in one pass: each is a whole token, so no two overlap
+    op_of = {pat.replace("\\", ""): op for op, pat in SASS_OPS.items()}
+    any_op = re.compile(r"\b(" + "|".join(SASS_OPS.values()) + r")\b")
+    groups = ("default", "int8", "bf16")
+    counts = {g: {k: dict.fromkeys(SASS_OPS, 0) for k in NO_DP4A + ("all",)}
+              for g in groups}
+    found = {g: dict.fromkeys(NO_DP4A + ("all",), 0) for g in groups}
     for block in sass.split("Function : ")[1:]:
         name = block.split(maxsplit=1)[0]
-        ops = {op: len(re.findall(r"\b" + pat + r"\b", block))
-               for op, pat in SASS_OPS.items()}
+        group = kernel_mode(name) or "default"
+        ops = dict.fromkeys(SASS_OPS, 0)
+        for token in any_op.findall(block):
+            ops[op_of[token]] += 1
         for piece in NO_DP4A + ("all",):
             if piece == "all" or piece in name:
-                found[piece] = found.get(piece, 0) + 1
+                found[group][piece] += 1
                 for op in SASS_OPS:
-                    counts[piece][op] += ops[op]
+                    counts[group][piece][op] += ops[op]
     for piece in NO_DP4A:
-        require(found[piece] > 0, f"no kernel named *{piece}* in the SASS")
-        require(piece not in TENSOR_CORE or counts[piece]["IMMA"] > 0,
+        c = counts["default"][piece]
+        require(found["default"][piece] > 0,
+                f"no kernel named *{piece}* in the SASS")
+        require(piece not in TENSOR_CORE or c["IMMA"] > 0,
                 f"{piece}: no IMMA in the SASS")
-        require(piece not in WGMMA or (counts[piece]["IGMMA"] > 0
-                                       and counts[piece]["UTMALDG"] > 0
-                                       and counts[piece]["IMMA"] == 0),
+        require(piece not in WGMMA or (c["IGMMA"] > 0 and c["UTMALDG"] > 0
+                                       and c["IMMA"] == 0),
                 f"{piece}: no IGMMA, no UTMALDG or an IMMA in the SASS")
-        print(f"[build] SASS of the {found[piece]} {piece} kernels: "
-              f"{counts[piece]}")
-    print(f"[build] SASS of all {found['all']} kernels: {counts['all']}")
-    require(counts["all"]["IDP4A"] == 0,
-            f"{counts['all']['IDP4A']} IDP4A in the library's SASS")
+        print(f"[build] SASS of the {found['default'][piece]} {piece} "
+              f"kernels of the default modes: {c}")
+    print(f"[build] SASS of all {found['default']['all']} kernels of the "
+          f"default modes: {counts['default']['all']}")
+    for piece in TENSOR_CORE + ("dw_int8_fused_kernel",):
+        c = counts["int8"][piece]
+        require(found["int8"][piece] > 0
+                and (piece not in TENSOR_CORE or c["IMMA"] > 0),
+                f"{piece}: no int8 mode kernel, or one without IMMA")
+        print(f"[build] SASS of the {found['int8'][piece]} {piece} int8 "
+              f"mode kernels (SILU_FAST): {c}")
+    for piece in TENSOR_CORE:
+        c = counts["bf16"][piece]
+        require(found["bf16"][piece] > 0 and c["HMMA"] > 0
+                and c["IMMA"] == 0,
+                f"{piece}: no bf16 kernel, or one without HMMA or with an "
+                f"IMMA in the SASS ({found['bf16'][piece]} kernels, {c})")
+        print(f"[build] SASS of the {found['bf16'][piece]} {piece} bf16 "
+              f"kernels: {c}")
+    total = sum(counts[g]["all"]["IDP4A"] for g in groups)
+    require(total == 0, f"{total} IDP4A in the library's SASS")
     return {"kernels": found, "ops": counts}
 
 
@@ -5114,6 +5178,447 @@ def fold_check(results: dict) -> dict:
             "deep_fast_head_max_diff": dmax, "deep_fast_head_max": top}
 
 
+# the JAX serving modes ([kernels] mode cases, [modes]): (label, the
+# environment the engines are built in)
+MODE_ENVS = (("default", {}),
+             ("fast-silu", {"TAT_FAST_SILU": "1"}),
+             ("bf16", {"TAT_SERVING_COMPUTE": "bf16"}),
+             ("fast-silu+bf16", {"TAT_FAST_SILU": "1",
+                                 "TAT_SERVING_COMPUTE": "bf16"}))
+MODE_VARS = ("TAT_FAST_SILU", "TAT_SERVING_COMPUTE", "TAT_STEM_NOGROW",
+             "TAT_SILU_TANH")
+# the bf16 product equals the int8 one while every partial sum is below
+# this in magnitude; past it, within a quantum
+BF16_EXACT = 2 ** 24
+MODE_ITERS = 5   # timed forwards of each mode a turn
+TANH_CPU_FRAMES = 4   # (c): the frames the CPU's f32 forward computes too
+
+
+@contextlib.contextmanager
+def mode_env(env: dict):
+    """The four ``TAT_*`` modes set as ``env`` says (the others unset) for
+    the block, then put back as they were."""
+    import os
+    saved = {k: os.environ.get(k) for k in MODE_VARS}
+    for k in MODE_VARS:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_mode_kernels(results: dict) -> dict:
+    """``[kernels]``, the JAX modes: #1-#7 at their lead shapes (#5 at its
+    TPU experiment's) under SILU_FAST, and #1-#4 and #6 under the bf16
+    product (at SILU), each against its plain version in the same mode
+    (every partial sum of these inputs is below 2^24: bit for bit, the
+    SILU within its bound) and timed beside the int8 SILU launch; the bf16
+    output also equals the int8 SILU output bit for bit. The bf16 bound
+    counts the operations at the bf16 rate (``PEAK_BF16``)."""
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+
+    rng = np.random.default_rng(25)
+    dev = torch.device("cuda")
+
+    def rnd(shape):
+        return torch.from_numpy(
+            rng.integers(-128, 128, shape, dtype=np.int8)).to(dev)
+
+    def bias_of(o):
+        return torch.from_numpy(
+            rng.integers(-2000, 2000, o).astype(np.int32)).to(dev)
+
+    def ep_of(o, ktot, act, seed):
+        r = np.random.default_rng(seed)   # the same scales in every mode
+        return FK.epilogue_rows(r.uniform(0.005, 0.015, o).astype(np.float32),
+                                0.01, float(0.0137 * np.sqrt(ktot)), act, o,
+                                device=dev)
+
+    # (kernel, label, the wrapper, its plain version, args(act) -> the
+    # positional arguments and the wrapper's keywords, work(out), takes
+    # the bf16 product)
+    cases = []
+    x, w = rnd((8 * 80 * 80, 64)), rnd((64, 64))
+    b = bias_of(64)
+    cases.append((
+        "matmul_int8_fused", "1x1 M=8*80*80 K=64 N=64",
+        FK.matmul_int8_fused, FK.matmul_int8_fused_plain,
+        lambda act, x=x, w=w, b=b: ((x, w, b, ep_of(64, 64, act, 1)), {}),
+        lambda out, x=x, w=w: (2 * out.numel() * 64,
+                               x.numel() + w.numel() + 8 * 64 + out.numel()),
+        True))
+    for kernel, label, xs, o, pipe in (
+            ("conv2d_int8_halo_fused", "3x3/s1 8x80x80x64 -> 64",
+             (8, 80, 80, 64), 64, "blockspec"),
+            (DMA, "3x3/s1 16x80x80x128 -> 128", (16, 80, 80, 128), 128,
+             "dma")):
+        x, w = rnd(xs), rnd((o, 3, 3, xs[3]))
+        b = bias_of(o)
+        cases.append((
+            kernel, label, FK.conv2d_int8_halo_fused,
+            FK.conv2d_int8_halo_fused_plain,
+            lambda act, x=x, w=w, b=b, o=o, k=9 * xs[3], hw=xs[1:3],
+            pipe=pipe: ((x, w, b, ep_of(o, k, act, 2), hw, ((1, 1), (1, 1)),
+                         1), {"pipeline": pipe}),
+            lambda out, x=x, w=w, o=o: conv_work(x, w, out, 8 * o),
+            pipe == "blockspec"))
+    m = 16 * 80 * 80
+    xs = [rnd((m, 64)), rnd((m, 64))]
+    wfull = rnd((128, 128))
+    ws = [wfull[:, :64], wfull[:, 64:]]
+    b = bias_of(128)
+    cases.append((
+        "matmul_int8_fused_multi", "2 parts M=16*80*80 K=64+64 N=128, equal "
+        "scales", FK.matmul_int8_fused_multi,
+        FK.matmul_int8_fused_multi_plain,
+        lambda act, xs=xs, ws=ws, b=b: ((xs, ws, b, FK.multi_epilogue(
+            0.01, (0.045, 0.045), 0.9, act, 128, device=dev)), {}),
+        lambda out, m=m: (2 * m * 128 * 128,
+                          m * 128 + 128 * 128 + 8 * 128 + out.numel()),
+        True))
+    x, w = rnd((8, 20, 20, 256)), rnd((512, 1024))
+    b = bias_of(512)
+    cases.append((
+        "sppf_int8_fused", "8x20x20x256 k5 -> 512", FK.sppf_int8_fused,
+        FK.sppf_int8_fused_plain,
+        lambda act, x=x, w=w, b=b: ((x, w, b, ep_of(512, 1024, act, 3), 5),
+                                    {}),
+        lambda out, x=x, w=w: (2 * out.numel() * 1024,
+                               x.numel() + w.numel() + 8 * 512 + out.numel()),
+        True))
+    x, w1, w2 = rnd((16, 80, 80, 32)), rnd((32, 32)), rnd((32, 3, 3, 32))
+    b1, b2 = bias_of(32), bias_of(32)
+    cases.append((
+        "bottleneck_int8_fused", "16x80x80x32 shortcut",
+        FK.bottleneck_int8_fused, FK.bottleneck_int8_fused_plain,
+        lambda act, x=x, w1=w1, w2=w2, b1=b1, b2=b2: (
+            (x, w1, b1, ep_of(32, 32, act, 4), w2, b2,
+             ep_of(32, 288, act, 5), True, 0.05), {}),
+        lambda out, x=x, w1=w1, w2=w2: (
+            2 * out.numel() // 32 * (32 * 32 + w2.numel()),
+            x.numel() + w1.numel() + w2.numel() + 16 * 32 + out.numel()),
+        True))
+    x, w = rnd((16, 40, 40, 96)), rnd((3, 3, 96))
+    b = bias_of(96)
+    cases.append((
+        "depthwise_conv2d_int8_fused", "3x3/s1 16x40x40x96",
+        FK.depthwise_conv2d_int8_fused, FK.depthwise_conv2d_int8_fused_plain,
+        lambda act, x=x, w=w, b=b: ((x, w, b, FK.epilogue_rows(
+            np.full(96, 0.01, np.float32), 0.01, 0.05, act, 96,
+            device=dev), (40, 40), ((1, 1), (1, 1))), {}),
+        lambda out, x=x, w=w: conv_work(x, w, out, 8 * 96, groups=96),
+        False))
+
+    def call(kern, plain, args, act, cmp, bf16):
+        """The wrapper and its plain version on ``act``'s arguments (made
+        here, outside the timed launches), in the product ``cmp`` where
+        the wrapper takes one."""
+        pos, kw = args(act)
+        mode = {"compute": cmp} if bf16 or kern is FK.conv2d_int8_halo_fused \
+            else {}
+        return (lambda: kern(*pos, **kw, **mode),
+                lambda: plain(*pos, **mode))
+
+    rows = []
+    for kernel, label, kern_fn, plain_fn, args, work, bf16 in cases:
+        silu, _ = call(kern_fn, plain_fn, args, "SILU", "int8", bf16)
+        ref = silu()
+        ms_silu = time_ms(silu, 20)
+        row = {"kernel": kernel, "case": label, "int8_silu_ms": ms_silu}
+        kern, plain = call(kern_fn, plain_fn, args, "SILU_FAST", "int8", bf16)
+        out = kern()
+        torch.cuda.synchronize()
+        row["silu_fast_max_abs_err"] = compare(out, plain(), "SILU_FAST",
+                                               f"{label} SILU_FAST")
+        note_err(results, kernel, row["silu_fast_max_abs_err"])
+        row["silu_fast_ms"] = time_ms(kern, 20)
+        d = (out.to(torch.int32) - ref.to(torch.int32)).abs()
+        row["silu_fast_vs_silu_share"] = float((d > 0).double().mean())
+        print(f"[kernels] {kernel:24s} {label} SILU_FAST: kernel "
+              f"{row['silu_fast_ms']:.4f} ms (int8 SILU {ms_silu:.4f} ms), "
+              f"max |diff| to plain {row['silu_fast_max_abs_err']}; "
+              f"{row['silu_fast_vs_silu_share']:.4f} of its values differ "
+              "from the exp SILU's")
+        if bf16:
+            kern, plain = call(kern_fn, plain_fn, args, "SILU", "bf16", bf16)
+            out = kern()
+            torch.cuda.synchronize()
+            row["bf16_max_abs_err"] = compare(out, plain(), "SILU",
+                                              f"{label} bf16")
+            note_err(results, kernel, row["bf16_max_abs_err"])
+            require(torch.equal(out, ref),
+                    f"{label}: bf16 product differs from the int8 one")
+            row["bf16_ms"] = time_ms(kern, 20)
+            row["bf16_bound_ms"], row["bf16_bound_by"] = bound(
+                *work(out), peak_ops=PEAK_BF16)
+            row["int8_bound_ms"], _ = bound(*work(out))
+            print(f"[kernels] {kernel:24s} {label} bf16 SILU: kernel "
+                  f"{row['bf16_ms']:.4f} ms (int8 SILU {ms_silu:.4f} ms), "
+                  f"bound {row['bf16_bound_ms']:.4f} ms "
+                  f"({row['bf16_bound_by']}, bf16 at 989 TFLOP/s; int8 "
+                  f"{row['int8_bound_ms']:.4f} ms), max |diff| to plain "
+                  f"{row['bf16_max_abs_err']}, equal to the int8 product")
+        rows.append(row)
+    return {"cases": rows}
+
+
+def unit_sum_bound(unit, env) -> int:
+    """A bound on the magnitude of every partial sum of ``unit``'s
+    products, in any order: 128 x the largest sum of |w| over one output
+    channel's weights (over both of #6's stages); 0 for a unit without a
+    bf16 product."""
+    import torch
+
+    def per_o(name):
+        w = env[name]
+        return 128 * int(w.reshape(w.shape[0], -1).to(torch.int64).abs()
+                         .sum(1).max())
+    if unit.kind == "bneck":
+        return max(per_o(unit.conv_a.inputs[1]), per_o(unit.conv_b.inputs[1]))
+    if unit.kind in ("matmul", "conv", "multi", "sppf"):
+        return per_o(unit.node.inputs[1])
+    return 0
+
+
+def compare_mode(out, plain, unit, env, what: str) -> tuple:
+    """A unit's output against its plain version in its mode: bit for bit
+    (its act's tolerance) where its product is int8 or every partial sum is
+    below ``BF16_EXACT``, else within one quantum. Returns (max |diff|,
+    past 2^24)."""
+    import torch
+    past = unit.product == "bf16" and unit_sum_bound(unit, env) >= BF16_EXACT
+    if not past:
+        return compare(out, plain, unit.act, what), False
+    d = (out.to(torch.int32) - plain.to(torch.int32)).abs()
+    dmax = int(d.max()) if d.numel() else 0
+    require(dmax <= 1, f"{what}: bf16 past 2^24, max |diff| {dmax}")
+    return dmax, True
+
+
+def mode_units(eng, x, results: dict, what: str) -> tuple:
+    """Every kernel unit of one forward (inputs captured on the card)
+    against its plain version in the engine's mode: (units, units whose
+    sums may pass 2^24)."""
+    from thingino_accel_tpu_torch.runtime.executor import KERNEL_OF_KIND
+    rec = eng.capture(x)
+    past = 0
+    for unit, reads, out in rec:
+        env = dict(eng.params)
+        env.update(reads)
+        dmax, p = compare_mode(out, unit.compute(env, plain=True), unit, env,
+                               f"{what} {unit!r}")
+        note_err(results, KERNEL_OF_KIND[unit.kind], dmax)
+        past += p
+    return len(rec), past
+
+
+def mode_steps_against_cpu(eng, cpu, x) -> int:
+    """``check_steps_against_cpu`` in the engines' mode: each step on the
+    card against the CPU engine's on the card's inputs (``compare_mode``'s
+    rule for kernel units, every other step bit for bit)."""
+    from thingino_accel_tpu_torch.runtime.executor import KernelUnit
+    steps, cpu_steps = eng._fn.steps, cpu._fn.steps
+    require(len(steps) == len(cpu_steps), "card and CPU schedules differ")
+    env = dict(eng.params)
+    env[eng.input_names[0]] = x
+    for step, cstep in zip(steps, cpu_steps):
+        require(step.out == cstep.out, f"step {step.out} vs {cstep.out}")
+        step.run(env)
+        cenv = dict(cpu.params)
+        cenv.update({r: env[r].cpu() for r in step.reads})
+        cstep.run(cenv)
+        if isinstance(step, KernelUnit):
+            compare_mode(env[step.out].cpu(), cenv[step.out], cstep, cenv,
+                         f"card vs CPU {step.out}")
+        else:
+            compare(env[step.out].cpu(), cenv[step.out], "NONE",
+                    f"card vs CPU {step.out}")
+    return len(steps)
+
+
+def head_gap(heads, ref) -> tuple:
+    """(max |diff| in quanta, share of values apart) of two forwards'
+    int8 heads."""
+    import torch
+    d = [(heads[k].to(torch.int32) - ref[k].to(torch.int32)).abs()
+         for k in ref]
+    n = sum(t.numel() for t in d)
+    return (max(int(t.max()) for t in d),
+            sum(int((t > 0).sum()) for t in d) / n)
+
+
+def phase_modes(results: dict) -> dict:
+    """``[modes]``: the JAX package's serving and fast-tier modes on the
+    card. (a) The planned real yolov5n and the planned zoo yolov5s at 640,
+    batch 16, each built under every mode of ``MODE_ENVS`` (the engine
+    resolves the modes once, when it is built; the forwards run with the
+    variables unset): every unit of the batch against its plain version in
+    the mode (``compare_mode``; the share of units whose sums may pass
+    2^24), one frame step by step against the CPU engine of the same mode,
+    the heads against the default mode's (quanta, share), the launch census
+    (equal in every mode), and each mode's busy ms (CUDA events, the
+    device's span of one forward) and fps beside the default's, in turns
+    (forward and backward through ``MODE_ENVS``). (b) ``TAT_STEM_NOGROW=1``
+    on the zoo yolov5s: the stem stage is the stem conv alone, the heads
+    equal the grown plan's bit for bit, the census printed. (c)
+    ``TAT_SILU_TANH=1`` on the fast real yolov5n: its bf16 heads against
+    the CPU's float32 forward of the same mode within ``FAST_HEAD_TOL``.
+    (d) #5 (``pipeline="dma"``) with the bf16 product raises, named or
+    from the registry, before any launch."""
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.models import zoo
+    from thingino_accel_tpu_torch.ops import fused_kernels as FK
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+    from thingino_accel_tpu_torch.runtime.executor import build_executor
+    from thingino_accel_tpu_torch.trace_path import fast_graph, fast_options
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    opts = EngineOptions(precision="serving")
+    frame = torch.from_numpy(frames_of(1)[0]).to(dev)
+    real_x = Y.quantize_input_int8(Y.letterbox_uint8(frame, (640, 640)))
+    zoo_g = zoo.build_yolov5("s", zoo.ZooConfig(in_hw=(640, 640)))
+    zoo_x = torch.from_numpy(np.random.default_rng(1).integers(
+        -128, 128, (BATCH, 640, 640, 3), dtype=np.int8)).to(dev)
+    paths = {
+        "real yolov5n": (lambda d: Engine.from_yolo_mars(str(MODEL), opts,
+                                                         device=d),
+                         real_x, PLANNED_REAL),
+        "zoo yolov5s 640": (lambda d: Engine(zoo_g, opts, device=d), zoo_x,
+                            PLANNED_ZOO_S)}
+    res = {}
+    for what, (build, x, census) in paths.items():
+        engines, rows = {}, {}
+        base = None
+        for label, env in MODE_ENVS:
+            with mode_env(env):
+                eng, cpu = build(dev), build("cpu")
+            fn = eng._fn
+            require(fn.fast_silu == ("TAT_FAST_SILU" in env)
+                    and fn.compute == env.get("TAT_SERVING_COMPUTE", "int8"),
+                    f"{what} {label}: the engine's modes")
+            require(fn.launch_census() == census,
+                    f"{what} {label}: census {fn.launch_census()}")
+            reset_launches()
+            heads = eng.forward(x)
+            torch.cuda.synchronize()
+            expect_launches(read_launches(), census, 1, f"{what} {label}")
+            n_units, past = mode_units(eng, x, results, f"{what} {label}")
+            n_steps = mode_steps_against_cpu(eng, cpu, x[:1])
+            base = heads if base is None else base
+            gap, share = head_gap(heads, base)
+            acts = sorted({u.act for u in fn.units})
+            products = sorted({u.product for u in fn.units})
+            rows[label] = {"units": n_units, "units_past_2_24": past,
+                           "steps_card_vs_cpu": n_steps,
+                           "heads_vs_default_max": gap,
+                           "heads_vs_default_share": share,
+                           "acts": acts, "products": products}
+            engines[label] = eng
+            print(f"[modes] {what} {label}: {n_units} units vs plain within "
+                  f"the mode's rule ({past} may pass 2^24, "
+                  f"{past / n_units:.3f} of them); {n_steps} steps of one "
+                  f"frame card vs CPU; heads vs default: max {gap} quanta, "
+                  f"{share:.4f} of values apart; acts {acts}, products "
+                  f"{products}; census {census} (one forward, counted)")
+        order = [label for label, _ in MODE_ENVS]
+        turns = {label: [] for label in order}
+        for label in order + order[::-1]:
+            eng = engines[label]
+            turns[label].append(time_ms(lambda eng=eng: eng.forward(x),
+                                        MODE_ITERS, warmup=1))
+        for label in order:
+            ms = turns[label]
+            rows[label]["busy_ms"] = ms
+            rows[label]["fps"] = [BATCH * 1e3 / t for t in ms]
+            print(f"[modes] {what} {label}: busy "
+                  + " / ".join(f"{t:.3f}" for t in ms) + " ms a forward of "
+                  f"{BATCH} (turns), "
+                  + " / ".join(f"{BATCH * 1e3 / t:.1f}" for t in ms)
+                  + f" fps; default "
+                  + " / ".join(f"{t:.3f}" for t in turns["default"]) + " ms")
+        res[what] = rows
+        del engines
+
+    # (b) TAT_STEM_NOGROW on the zoo yolov5s
+    grown = Engine(zoo_g, opts, device=dev)
+    with mode_env({"TAT_STEM_NOGROW": "1"}):
+        nogrow = Engine(zoo_g, opts, device=dev)
+    stage = sorted(nogrow._fn.plan.stem_stage)
+    require(len(stage) == 1 and len(grown._fn.plan.stem_stage) == 2,
+            f"TAT_STEM_NOGROW stage {stage}, grown "
+            f"{sorted(grown._fn.plan.stem_stage)}")
+    reset_launches()
+    h_ng = nogrow.forward(zoo_x)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_launches().items() if v}
+    h_gr = grown.forward(zoo_x)
+    require(all(torch.equal(h_ng[k], h_gr[k]) for k in h_gr),
+            "TAT_STEM_NOGROW heads differ from the grown plan's")
+    res["stem_nogrow"] = {"stage": stage, "launches": counts,
+                          "census": nogrow._fn.launch_census()}
+    print(f"[modes] TAT_STEM_NOGROW zoo yolov5s 640: stage {stage} (grown: "
+          f"{sorted(grown._fn.plan.stem_stage)}); heads equal the grown "
+          f"plan's bit for bit; launches of one forward {counts}, census "
+          f"{nogrow._fn.launch_census()}")
+
+    # (c) TAT_SILU_TANH on the fast real yolov5n
+    with mode_env({"TAT_SILU_TANH": "1"}):
+        fast = Engine(fast_graph("yolov5n"), fast_options(), device=dev)
+        cpu = build_executor(fast.graph, "cpu", precision="fast")
+    require(fast._fn.silu_tanh and cpu.silu_tanh, "TAT_SILU_TANH not read")
+    xf = Y.quantize_input_int8(Y.space_to_depth(Y.letterbox_uint8(
+        frame[:TANH_CPU_FRAMES], (640, 640))), torch.bfloat16)
+    heads = fast.forward(xf)
+    ref = cpu(cpu.device_params(fast._np_params),
+              {fast.input_names[0]: xf.cpu()})
+    rel = max(float((heads[k].cpu().float() - r).abs().max()
+                    / r.abs().max()) for k, r in ref.items())
+    require(rel <= FAST_HEAD_TOL, f"TAT_SILU_TANH: bf16 heads {rel:.4g} of "
+                                  "the largest |head| from the f32 forward")
+    exp_form = Engine(fast_graph("yolov5n"), fast_options(),
+                      device=dev).forward(xf)
+    moved = max(float((heads[k].float() - exp_form[k].float()).abs().max()
+                      / exp_form[k].float().abs().max()) for k in heads)
+    res["silu_tanh"] = {"rel_vs_cpu": rel, "rel_vs_exp_form": moved}
+    print(f"[modes] TAT_SILU_TANH fast real yolov5n, {TANH_CPU_FRAMES} "
+          f"frames: bf16 heads within {rel:.4g} of the largest |head| of "
+          f"the CPU's f32 forward (bound {FAST_HEAD_TOL}); {moved:.4g} from "
+          "the exp form's")
+
+    # (d) #5 refuses the bf16 product
+    x5 = torch.zeros((1, 8, 8, 32), dtype=torch.int8, device=dev)
+    w5 = torch.zeros((32, 3, 3, 32), dtype=torch.int8, device=dev)
+    ep5 = FK.epilogue_rows(0.01, 0.05, 0.5, "RELU", 32, device=dev)
+    before = dict(FK.launches)
+    for env, cmp in (({}, "bf16"), ({"TAT_SERVING_COMPUTE": "bf16"}, None)):
+        with mode_env(env):
+            try:
+                FK.conv2d_int8_halo_fused(x5, w5, None, ep5, (8, 8),
+                                          ((1, 1), (1, 1)), pipeline="dma",
+                                          compute=cmp)
+                raise SmokeFailure("#5 ran with the bf16 product")
+            except ValueError as e:
+                msg = str(e)
+    require(FK.launches == before, "#5's refusal launched a kernel")
+    res["dma_bf16_refusal"] = msg
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[modes] #5 (pipeline=\"dma\") with bf16, named and from "
+          f"TAT_SERVING_COMPUTE: ValueError \"{msg}\", no launch")
+    print(f"[modes] phase {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     if not (REPO / "thingino_accel_tpu_torch" / "csrc").is_dir() \
             or not MODEL.exists() or not NANODET.exists():
@@ -5125,16 +5630,18 @@ def main() -> int:
     sys.modules["jax"] = None   # the port must never need JAX
     sys.modules["thingino_accel_tpu"] = None   # nor the JAX package
     t_start = time.perf_counter()
+    dump = None
     try:
         import torch
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         name, smi = phase_device()
         build_s = phase_build()
-        sass = sass_counts()
+        dump = sass_dump_start()
         results = {k: {"cases": [], "max_abs_err": 0, "launches": 0}
                    for k in KERNEL_INFO}
         phase_kernels(results)
+        mode_kernels = phase_mode_kernels(results)
         exact_kxk = phase_exact_kernels(results)
         phase_dma_kernels(results)
         slice_res = phase_slice(results)
@@ -5155,10 +5662,17 @@ def main() -> int:
         qat_res = phase_qat(results)
         parallel_res = phase_parallel(results)
         abi_res = phase_abi(results)
+        modes_res = phase_modes(results)
+        sass = sass_counts(dump)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAIL", file=sys.stderr)
         return 1
+    finally:   # a phase that failed leaves the disassembly running
+        if dump is not None and dump[0].poll() is None:
+            dump[0].kill()
+            dump[0].wait()
+            dump[1].unlink(missing_ok=True)
 
     kernels = []
     for k, r in results.items():
@@ -5192,7 +5706,7 @@ def main() -> int:
         "fast": fast_res, "streams": streams_res, "ops": ops_res,
         "onnx": onnx_res, "mgk": mgk_res, "audio": audio_res,
         "jzdl": jzdl_res, "qat": qat_res, "parallel": parallel_res,
-        "abi": abi_res},
+        "abi": abi_res, "mode_kernels": mode_kernels, "modes": modes_res},
         indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

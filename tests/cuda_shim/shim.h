@@ -18,7 +18,9 @@
 //     bytes 4 (l % 4) ..;
 //   - mma.sync m16n8k32 s8 gathers the whole A, B and C of the warp from
 //     every lane's fragment by the PTX fragment tables, multiplies, and
-//     hands each lane its D elements by the same tables;
+//     hands each lane its D elements by the same tables; mma.sync
+//     m16n8k16 bf16 with f32 sums likewise, each output's 16 products
+//     summed exactly and added to its f32 sum with one rounding;
 //   - wgmma.mma_async s8 m64nNk32 and bf16 m64nNk16 with f32 sums
 //     (hopper_async.cuh) is queued per thread like cp.async and runs at
 //     the wgmma.wait_group that covers its group: the warpgroup's 128
@@ -222,6 +224,26 @@ inline float __int_as_float(int i) {
   std::memcpy(&f, &i, 4);
   return f;
 }
+inline float __uint_as_float(unsigned i) {
+  float f;
+  std::memcpy(&f, &i, 4);
+  return f;
+}
+inline unsigned __float_as_uint(float v) {
+  unsigned i;
+  std::memcpy(&i, &v, 4);
+  return i;
+}
+// prmt's default mode: byte i of the result is byte (s >> 4 i) & 7 of
+// {y, x} (x bytes 0-3, y bytes 4-7)
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = (static_cast<uint64_t>(y) << 32) | x;
+  unsigned d = 0;
+  for (int i = 0; i < 4; ++i)
+    d |= static_cast<unsigned>((v >> (8 * ((s >> (4 * i)) & 7u))) & 0xffu)
+         << (8 * i);
+  return d;
+}
 
 // bf16: round to nearest even from float
 struct __nv_bfloat16 {
@@ -371,6 +393,47 @@ inline void shim_mma_s8(int* d, const unsigned* a, const unsigned* b) {
     int s = C[row][col];
     for (int k = 0; k < 32; ++k) s += A[row][k] * B[k][col];
     out[i] = s;
+  }
+  shim_warp_sync();
+  for (int i = 0; i < 4; ++i) d[i] = out[i];
+}
+
+// bf16 m16n8k16 with f32 sums: A element i (i < 8) in register i / 2, half
+// i % 2 (the low half the lower k): row g + 8 ((i / 2) & 1), k 2t + (i &
+// 1) + 8 (i >= 4); B element i (i < 4) in register i / 2: k 2t + (i & 1) +
+// 8 (i >= 2), column g; each output's 16 products summed exactly (in
+// double: bf16 products have 16 significant bits) and added to its f32 sum
+// with one rounding
+inline void shim_mma_bf16(float* d, const unsigned* a, const unsigned* b) {
+  const int lane = threadIdx.x % 32;
+  ShimWarp& w = shim_warps[threadIdx.x / 32];
+  for (int i = 0; i < 4; ++i) w.a[lane][i] = a[i], w.cf[lane][i] = d[i];
+  for (int i = 0; i < 2; ++i) w.b[lane][i] = b[i];
+  shim_warp_sync();
+  double A[16][16], B[16][8];
+  float C[16][8];
+  for (int l = 0; l < 32; ++l) {
+    const int g = l / 4, t = l % 4;
+    for (int i = 0; i < 8; ++i) {
+      const int row = g + 8 * ((i / 2) & 1), k = 2 * t + (i & 1) + 8 * (i >= 4);
+      A[row][k] = shim_bf16_to_float(
+          static_cast<uint16_t>(w.a[l][i / 2] >> (16 * (i % 2))));
+    }
+    for (int i = 0; i < 4; ++i) {
+      const int k = 2 * t + (i & 1) + 8 * (i >= 2);
+      B[k][g] = shim_bf16_to_float(
+          static_cast<uint16_t>(w.b[l][i / 2] >> (16 * (i % 2))));
+    }
+    for (int i = 0; i < 4; ++i)
+      C[g + (i >= 2 ? 8 : 0)][t * 2 + (i & 1)] = w.cf[l][i];
+  }
+  const int g = lane / 4, t = lane % 4;
+  float out[4];
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + (i >= 2 ? 8 : 0), col = t * 2 + (i & 1);
+    double s = 0.0;
+    for (int k = 0; k < 16; ++k) s += A[row][k] * B[k][col];
+    out[i] = static_cast<float>(static_cast<double>(C[row][col]) + s);
   }
   shim_warp_sync();
   for (int i = 0; i < 4; ++i) d[i] = out[i];

@@ -92,6 +92,8 @@ inline void ldsm_x4(unsigned (&r)[4], const void* p) { shim_ldsm(r, 4, p); }
 inline void ldsm_x2(unsigned (&r)[2], const void* p) { shim_ldsm(r, 2, p); }
 inline void mma_s8(int (&d)[4], const unsigned (&a)[4],
                    const unsigned (&b)[2]) { shim_mma_s8(d, a, b); }
+inline void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                     const unsigned (&b)[2]) { shim_mma_bf16(d, a, b); }
 """
 _RCP = """
 inline float rcp_approx(float d) { return 1.0f / d; }
@@ -841,7 +843,7 @@ def test_shim_conv_fused_mma_each_act_and_chunk(shim, act):
 def test_shim_conv_fused_mma_unaligned_operands(shim):
     """An input and a residual at odd byte offsets: im2col mode (slab mode
     refuses the input), the residual read byte by byte although O % 16 ==
-    0; LEAKY_RELU with a residual and SILU_FAST are refused."""
+    0; LEAKY_RELU with a residual and an act past SILU_FAST are refused."""
     case = SERVING_CASES["3x3s1-c64-relu-res"]
     x, wt, bias, ep, out_hw, res = _serving_operands(case, 5)
     pads = case[7]
@@ -868,7 +870,7 @@ def test_shim_conv_fused_mma_unaligned_operands(shim):
         None) == 1
     args = list(FK._conv_args(x, wt, bias, ep, pads, 1, None, 0.37, out,
                               slab))
-    args[18] = FK._ACT_CODE["SILU_FAST"]
+    args[18] = len(FK.ACTS)
     assert shim.tat_conv_int8_fused_mma(*args, None) == 1
 
 
@@ -892,7 +894,7 @@ def test_shim_conv_fused_mma_layout_and_refusals(shim):
                         for act in range(4):
                             rc = shim.tat_conv_int8_fused_mma_info(
                                 act, FK._MODE_CODE[mode], c, kh, kw, s, th,
-                                tw, bn, ck, int(res), ctypes.byref(smem),
+                                tw, bn, ck, int(res), 0, ctypes.byref(smem),
                                 ctypes.byref(blocks))
                             n += 1
                             if want > H100.per_block:
@@ -909,11 +911,12 @@ def test_shim_conv_fused_mma_layout_and_refusals(shim):
     assert n > 500
     bad = [(0, "slab", 20, 8, 8, 64, 20, 1), (0, "im2col", 64, 8, 12, 64, 64, 1),
            (1, "im2col", 64, 8, 8, 48, 64, 1), (2, "im2col", 64, 8, 8, 8, 64, 1),
-           (3, "im2col", 64, 8, 8, 64, 32, 1), (4, "im2col", 64, 8, 8, 64, 64, 1)]
-    # C % 32, tile_w, bn 48, bn 8, a chunk resident in im2col, SILU_FAST
+           (3, "im2col", 64, 8, 8, 64, 32, 1), (5, "im2col", 64, 8, 8, 64, 64, 1)]
+    # C % 32, tile_w, bn 48, bn 8, a chunk resident in im2col, an act past
+    # SILU_FAST
     for act, mode, c, th, tw, bn, ck, res in bad:
         assert shim.tat_conv_int8_fused_mma_info(
-            act, FK._MODE_CODE[mode], c, 3, 3, 1, th, tw, bn, ck, res,
+            act, FK._MODE_CODE[mode], c, 3, 3, 1, th, tw, bn, ck, res, 0,
             ctypes.byref(smem), ctypes.byref(blocks)) == 1
 
 
@@ -1059,7 +1062,8 @@ def test_shim_gemm_mma_layout_and_refusals(shim):
     """The kernel's shared memory is ``mm_smem``'s for every tile
     height, channel block, stage width, ring depth, branch and act
     (refused above the opt-in, and per-part at 128 x 128); LEAKY_RELU with
-    a residual, SILU_FAST, 5 parts, K = 0 and plans off the kernel's set
+    a residual, an act past SILU_FAST, 5 parts, K = 0 and plans off the
+    kernel's set
     are refused."""
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
     n = 0
@@ -1093,11 +1097,11 @@ def test_shim_gemm_mma_layout_and_refusals(shim):
     # 48, kc 48, 5 and 1 stages, 5 parts
     for i, (parts, ks, bm, bn, kc, stages) in enumerate(bad):
         rc = shim.tat_mm_int8_fused_mma_info(
-            parts, ints(*ks), 1, 0, bm, bn, kc, stages, ctypes.byref(smem),
+            parts, ints(*ks), 1, 0, bm, bn, kc, stages, 0, ctypes.byref(smem),
             ctypes.byref(blocks))
         assert rc == (0 if i == 0 else 1), (parts, ks, bm, bn, kc, stages)
     assert shim.tat_mm_int8_fused_mma_info(
-        1, ints(64, 0, 0, 0), 1, FK._ACT_CODE["SILU_FAST"], 64, 64, 64, 4,
+        1, ints(64, 0, 0, 0), 1, len(FK.ACTS), 64, 64, 64, 4, 0,
         ctypes.byref(smem), ctypes.byref(blocks)) == 1
     xs, ws, bias, ep, r = _gemm_operands(GEMM_CASES["1part-k32-n32-silu-res"],
                                          5)
@@ -1109,7 +1113,7 @@ def test_shim_gemm_mma_layout_and_refusals(shim):
                        plan), None) == 1
     args = list(FK._gemm_args(xs, ws, bias, ep, (1.0,), True, 1.0, None, 0.37,
                               out, plan))
-    args[15] = FK._ACT_CODE["SILU_FAST"]
+    args[15] = len(FK.ACTS)
     assert shim.tat_mm_int8_fused_mma(*args, None) == 1
     args[15], args[0] = FK._ACT_CODE["SILU"], 5
     assert shim.tat_mm_int8_fused_mma(*args, None) == 1
@@ -1291,8 +1295,8 @@ def test_shim_dw_matches_plain(shim, name):
 def test_shim_dw_unaligned_layout_and_refusals(shim):
     """#7 with x, w and the output off 16-byte alignment (byte loads and
     byte stores) equal to its plain version; the kernel's shared memory is
-    ``dw_smem``'s; a plan off its set (0 rows, 0 or 17 groups) and
-    SILU_FAST are refused."""
+    ``dw_smem``'s; a plan off its set (0 rows, 0 or 17 groups) and an
+    act past SILU_FAST are refused."""
     case = DW_CASES["3x3-c96-leaky"]
     x, w, bias, ep, out_hw, pads = _dw_operands(case, 11)
     ref = FK.depthwise_conv2d_int8_fused_plain(x, w, bias, ep, out_hw, pads)
@@ -1316,7 +1320,7 @@ def test_shim_dw_unaligned_layout_and_refusals(shim):
             ctypes.byref(blocks)) == 1
     args = list(FK._dw_args(x, w, bias, ep, pads, torch.empty_like(ref),
                             plan))
-    args[15] = FK._ACT_CODE["SILU_FAST"]
+    args[15] = len(FK.ACTS)
     assert shim.tat_dw_int8_fused(*args, None) == 1
 
 
@@ -1423,8 +1427,8 @@ def test_shim_bneck_unaligned_layout_and_refusals(shim):
     """#6 with x, w1, w2 and the output off 16-byte alignment (byte loads,
     narrow stores) equal to its plain version; the kernel's shared memory
     is ``bneck_smem``'s at every tile and channel block; plans off its set,
-    an even K, a shortcut with C != O or LEAKY_RELU, and SILU_FAST are
-    refused."""
+    an even K, a shortcut with C != O or LEAKY_RELU, and an act past
+    SILU_FAST are refused."""
     case = BNECK_SHIM_CASES["b2h13w11-c32-s-silu"]
     args = _bneck_operands(case, 5)
     ref = FK.bottleneck_int8_fused_plain(*args, 0.37)
@@ -1441,8 +1445,8 @@ def test_shim_bneck_unaligned_layout_and_refusals(shim):
                 for res in (1, 0):
                     want = FK.bneck_smem(c, cm, k, th, tw, bn, bool(res))
                     rc = shim.tat_bneck_int8_fused_info(
-                        3, 0, c, cm, k, th, tw, bn, res, ctypes.byref(smem),
-                        ctypes.byref(blocks))
+                        3, 0, c, cm, k, th, tw, bn, res, 0,
+                        ctypes.byref(smem), ctypes.byref(blocks))
                     n += 1
                     if (th * tw // 64, bn // 16) not in FK.FUSED_WARP_TILES \
                             or want > H100.per_block:
@@ -1452,14 +1456,14 @@ def test_shim_bneck_unaligned_layout_and_refusals(shim):
                     assert blocks.value == 233472 // (want + 1024)
     assert n == 144
     # act1, act2, C, CM, K, tile_h, tile_w, bn, resident: tile_w 12, 96
-    # pixels, bn 16 and 48, an even K, SILU_FAST in either stage
+    # pixels, bn 16 and 48, an even K, an act past SILU_FAST in either stage
     for bad in [(3, 3, 32, 32, 3, 8, 12, 32, 1),
                 (3, 3, 32, 32, 3, 12, 8, 32, 1),
                 (3, 3, 32, 32, 3, 8, 8, 16, 0), (3, 3, 32, 32, 3, 8, 8, 48, 1),
-                (3, 3, 32, 32, 4, 8, 8, 32, 1), (4, 3, 32, 32, 3, 8, 8, 32, 0),
-                (3, 4, 32, 32, 3, 8, 8, 32, 1)]:
+                (3, 3, 32, 32, 4, 8, 8, 32, 1), (5, 3, 32, 32, 3, 8, 8, 32, 0),
+                (3, 5, 32, 32, 3, 8, 8, 32, 1)]:
         assert shim.tat_bneck_int8_fused_info(
-            *bad, ctypes.byref(smem), ctypes.byref(blocks)) == 1, bad
+            *bad, 0, ctypes.byref(smem), ctypes.byref(blocks)) == 1, bad
     x, w1, b1, ep1, w2, b2, ep2, _ = args
     cut = w2[:16].contiguous()   # O = 16 != C with the shortcut
     out = torch.empty((2, 13, 11, 16), dtype=torch.int8)
@@ -1556,7 +1560,7 @@ def test_shim_sppf_unaligned_layout_and_refusals(shim):
     """#4 with y, w and the output off 16-byte alignment (byte loads,
     narrow stores) equal to its plain version; the kernel's shared memory
     is ``sppf_smem``'s at every tile, channel block and chunk; plans off its
-    set, an even k and SILU_FAST are refused."""
+    set, an even k and an act past SILU_FAST are refused."""
     case = SPPF_SHIM_CASES["b1h20w40-c32-o16-none"]
     x, wt, bias, ep = _sppf_operands(case, 3)
     ref = FK.sppf_int8_fused_plain(x, wt, bias, ep, 5)
@@ -1573,7 +1577,7 @@ def test_shim_sppf_unaligned_layout_and_refusals(shim):
                 for ck in FK.SPPF_CKS:
                     want = FK.sppf_smem(h, w, c, k, bm, bn, ck)
                     rc = shim.tat_sppf_int8_fused_info(
-                        3, h, w, c, k, bm, bn, ck, ctypes.byref(smem),
+                        3, h, w, c, k, bm, bn, ck, 0, ctypes.byref(smem),
                         ctypes.byref(blocks))
                     n += 1
                     if (bm // 64, bn // 16) not in FK.FUSED_WARP_TILES \
@@ -1583,13 +1587,13 @@ def test_shim_sppf_unaligned_layout_and_refusals(shim):
                     assert rc == 0 and smem.value == want
                     assert blocks.value == 233472 // (want + 1024)
     assert n == 72
-    # act, H, W, C, k, bm, bn, ck: bm 96, bn 16, ck 48, an even k,
-    # SILU_FAST
+    # act, H, W, C, k, bm, bn, ck: bm 96, bn 16, ck 48, an even k, an act
+    # past SILU_FAST
     for bad in [(3, 20, 20, 64, 5, 96, 32, 32), (3, 20, 20, 64, 5, 64, 16, 32),
                 (3, 20, 20, 64, 5, 64, 32, 48), (3, 20, 20, 64, 4, 64, 32, 32),
-                (4, 20, 20, 64, 5, 64, 32, 32)]:
+                (5, 20, 20, 64, 5, 64, 32, 32)]:
         assert shim.tat_sppf_int8_fused_info(
-            *bad, ctypes.byref(smem), ctypes.byref(blocks)) == 1, bad
+            *bad, 0, ctypes.byref(smem), ctypes.byref(blocks)) == 1, bad
 
 
 # The head decode (#8, decode_fused.cu): (batch, level sizes (h, w), A, NC)

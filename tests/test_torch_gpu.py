@@ -1013,8 +1013,8 @@ def test_gemm_every_plan(cuda, case):
 
 def test_gemm_refuses_what_it_cannot_run(cuda):
     """A plan the kernel refuses raises (no fallback): per-part at 128 x
-    128, bn 48; so does SILU_FAST; the wrappers refuse LEAKY_RELU with a
-    residual before any launch."""
+    128, bn 48; an unknown product fails as JAX's ``_compute_mode``; the
+    wrappers refuse LEAKY_RELU with a residual before any launch."""
     rng = np.random.default_rng(8)
     xs = [_rand(rng, (256, 64), cuda), _rand(rng, (256, 32), cuda)]
     ws = [_rand(rng, (128, 64), cuda), _rand(rng, (128, 32), cuda)]
@@ -1025,9 +1025,9 @@ def test_gemm_refuses_what_it_cannot_run(cuda):
         with pytest.raises(RuntimeError, match="tat_mm_int8_fused_mma"):
             FK._launch_gemm(xs, ws, None, me.ep, me.part_scales, False,
                             me.bias_scale, None, 1.0, out, plan)
-    with pytest.raises(ValueError, match="SILU_FAST"):
+    with pytest.raises(AssertionError, match="fp8"):
         FK.matmul_int8_fused(xs[0], ws[0], None, FK.epilogue_rows(
-            0.01, 0.05, 0.5, "SILU_FAST", 128, device=cuda))
+            0.01, 0.05, 0.5, "SILU_FAST", 128, device=cuda), compute="fp8")
     before = dict(FK.launches)
     with pytest.raises(ValueError, match="LEAKY_RELU"):
         FK.matmul_int8_fused(xs[0], ws[0], None, FK.epilogue_rows(
@@ -1942,3 +1942,144 @@ def test_exported_f32_model_runs_the_fast_tier_on_the_card(cuda, tmp_path):
         assert heads[k].dtype == torch.bfloat16
         err = float((heads[k].cpu().float() - r).abs().max())
         assert err <= 2.0 ** -4 * float(r.abs().max()), (k, err)
+
+
+# ---------------------------------------------------------------------------
+# The JAX serving modes: SILU_FAST (TAT_FAST_SILU) in every serving kernel,
+# the bf16 product (TAT_SERVING_COMPUTE=bf16) in #1-#4 and #6
+# ---------------------------------------------------------------------------
+
+# (act, compute): SILU_FAST bit for bit (both sides divide in IEEE f32), the
+# bf16 product bit for bit below 2^24 (its SILU within the SILU bound)
+MODES = [("SILU_FAST", "int8"), ("SILU", "bf16"), ("SILU_FAST", "bf16"),
+         ("LEAKY_RELU", "bf16")]
+
+
+@pytest.mark.parametrize("act,compute", MODES, ids=str)
+def test_modes_gemm_match_plain(cuda, act, compute):
+    """#1 (a head's N = 255, K off 16) and #3 (equal and per-part scales,
+    the residual) in a mode against their plain versions in that mode; the
+    bf16 product equals the int8 one bit for bit (every sum below 2^24)."""
+    rng = np.random.default_rng(25)
+    x, w = _rand(rng, (131, 30), cuda), _rand(rng, (255, 30), cuda)
+    ep = _ep(rng, 30, 255, act, cuda)
+    out = FK.matmul_int8_fused(x, w, None, ep, compute=compute)
+    _close(out, FK.matmul_int8_fused_plain(x, w, None, ep, compute=compute),
+           act)
+    if compute == "bf16":
+        assert torch.equal(out, FK.matmul_int8_fused(x, w, None, ep,
+                                                     compute="int8"))
+    for same in (True, False):
+        xs = [_rand(rng, (200, k), cuda) for k in (40, 24, 64)]
+        wfull = _rand(rng, (64, 128), cuda)
+        ws = [wfull[:, :40], wfull[:, 40:64], wfull[:, 64:]]
+        me = FK.multi_epilogue(
+            rng.uniform(0.005, 0.015, 64).astype(np.float32),
+            [0.05] * 3 if same else [0.04, 0.05, 0.06], 0.9, act, 64,
+            alpha=0.1, bias_scale=None if same else 0.045, device=cuda)
+        bias = torch.from_numpy(rng.integers(-2000, 2000, 64).astype(
+            np.int32)).to(cuda)
+        res = None if act == "LEAKY_RELU" else _rand(rng, (200, 64), cuda)
+        out = FK.matmul_int8_fused_multi(xs, ws, bias, me, res, 0.4,
+                                         compute=compute)
+        torch.cuda.synchronize()
+        _close(out, FK.matmul_int8_fused_multi_plain(
+            xs, ws, bias, me, res, 0.4, compute=compute), act)
+
+
+@pytest.mark.parametrize("act,compute", MODES, ids=str)
+@pytest.mark.parametrize("shape", [CONV_SHAPES[1], CONV_SHAPES[2],
+                                   CONV_SHAPES[5]],
+                         ids=lambda s: "k{}s{}c{}o{}h{}w{}p{}".format(*s))
+def test_modes_conv_match_plain(cuda, act, compute, shape):
+    """#2 in a mode (im2col, the stem, slab) against its plain version in
+    that mode, and the bf16 product against the int8 one."""
+    kk, s, c, o, h, w, p = shape
+    rng = np.random.default_rng(sum(shape))
+    x, wt = _rand(rng, (2, h, w, c), cuda), _rand(rng, (o, kk, kk, c), cuda)
+    bias = torch.from_numpy(rng.integers(-2000, 2000, o).astype(
+        np.int32)).to(cuda)
+    oh, ow = (h + 2 * p - kk) // s + 1, (w + 2 * p - kk) // s + 1
+    pads = ((p, max(0, (oh - 1) * s + kk - h - p)),
+            (p, max(0, (ow - 1) * s + kk - w - p)))
+    ep = _ep(rng, kk * kk * c, o, act, cuda)
+    args = (x, wt, bias, ep, (oh, ow), pads, s)
+    out = FK.conv2d_int8_halo_fused(*args, compute=compute)
+    torch.cuda.synchronize()
+    _close(out, FK.conv2d_int8_halo_fused_plain(*args, compute=compute), act)
+    if compute == "bf16":
+        assert torch.equal(out, FK.conv2d_int8_halo_fused(*args,
+                                                          compute="int8"))
+
+
+@pytest.mark.parametrize("act,compute", MODES, ids=str)
+def test_modes_bneck_and_sppf_match_plain(cuda, act, compute):
+    """#6 (the shortcut) and #4 in a mode at a path's unit shapes against
+    their plain versions in that mode."""
+    nb, h, w, c, cm, o, k, shortcut = BNECK_CASES[4]
+    shortcut = shortcut and act != "LEAKY_RELU"
+    rng = np.random.default_rng(6)
+    x = _rand(rng, (nb, h, w, c), cuda)
+    w1, w2 = _rand(rng, (cm, c), cuda), _rand(rng, (o, k, k, cm), cuda)
+    b1 = torch.from_numpy(rng.integers(500, 3000, cm).astype(
+        np.int32)).to(cuda)
+    ep1, ep2 = _ep(rng, c, cm, act, cuda), _ep(rng, k * k * cm, o, act, cuda)
+    args = (x, w1, b1, ep1, w2, None, ep2, shortcut, 0.6)
+    out = FK.bottleneck_int8_fused(*args, compute=compute)
+    torch.cuda.synchronize()
+    ref = FK.bottleneck_int8_fused_plain(*args, compute=compute)
+    if act == "SILU":   # a flipped m quantum moves the second stage's sums
+        d = (out.to(torch.int32) - ref.to(torch.int32)).abs()
+        assert float((d > 0).double().mean()) <= 0.02
+    else:
+        _close(out, ref, act)
+    nb, h, w, c, o, k = SPPF_CASES[3]
+    y, wt = _rand(rng, (nb, h, w, c), cuda), _rand(rng, (o, 4 * c), cuda)
+    ep = _ep(rng, 4 * c, o, act, cuda)
+    out = FK.sppf_int8_fused(y, wt, None, ep, k, compute=compute)
+    torch.cuda.synchronize()
+    _close(out, FK.sppf_int8_fused_plain(y, wt, None, ep, k, compute), act)
+
+
+@pytest.mark.parametrize("case", DW_CASES[:3] + DW_CASES[4:5],
+                         ids=lambda c: "b{}h{}w{}c{}k{}x{}".format(*c))
+def test_modes_dw_silu_fast_matches_plain(cuda, case):
+    """#7 with SILU_FAST (its own kernels: the 3x3 window in registers and
+    any other size) bit for bit."""
+    nb, h, w, c, kh, kw = case
+    rng = np.random.default_rng(sum(case))
+    x, wt = _rand(rng, (nb, h, w, c), cuda), _rand(rng, (kh, kw, c), cuda)
+    ep = _ep(rng, kh * kw, c, "SILU_FAST", cuda)
+    pads = (((kh - 1) // 2, kh // 2), ((kw - 1) // 2, kw // 2))
+    out = FK.depthwise_conv2d_int8_fused(x, wt, None, ep, (h, w), pads)
+    torch.cuda.synchronize()
+    _close(out, FK.depthwise_conv2d_int8_fused_plain(x, wt, None, ep, (h, w),
+                                                     pads), "SILU_FAST")
+
+
+def test_modes_bf16_past_2_24_and_dma_refusal(cuda):
+    """Sums past 2^24 (K = 4096 of values in [100, 127]): the bf16 product
+    within one quantum of the plain bf16 version and of the int8 product;
+    #5 with bf16 raises as JAX's does, before any launch."""
+    rng = np.random.default_rng(24)
+    m, k, n = 256, 4096, 64
+    sx = rng.choice([-1, 1], (m, 1)) * rng.integers(100, 128, (m, k))
+    sw = rng.choice([-1, 1], (n, 1)) * rng.integers(100, 128, (n, k))
+    x = torch.from_numpy(sx.astype(np.int8)).to(cuda)
+    w = torch.from_numpy(sw.astype(np.int8)).to(cuda)
+    ep = FK.epilogue_rows(np.float32(1.5e-6), 1.0, 1.0, "NONE", n,
+                          device=cuda)
+    out = FK.matmul_int8_fused(x, w, None, ep, compute="bf16")
+    for ref in (FK.matmul_int8_fused_plain(x, w, None, ep, compute="bf16"),
+                FK.matmul_int8_fused(x, w, None, ep, compute="int8")):
+        d = (out.to(torch.int32) - ref.to(torch.int32)).abs()
+        assert int(d.max()) <= 1
+    before = dict(FK.launches)
+    xc = _rand(rng, (1, 8, 8, 32), cuda)
+    wc = _rand(rng, (32, 3, 3, 32), cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        FK.conv2d_int8_halo_fused(xc, wc, None, _ep(rng, 288, 32, "RELU",
+                                                    cuda), (8, 8),
+                                  ((1, 1), (1, 1)), pipeline="dma",
+                                  compute="bf16")
+    assert FK.launches == before

@@ -269,10 +269,10 @@ def test_sigmoid_fast_equals_jax_outside_a_kernel():
         mine = FK.act_requant_plain(torch.from_numpy(pre * 9.0), ep)
         np.testing.assert_array_equal(mine.numpy(), np.asarray(q))
     assert "SILU_FAST" in FK.ACTS and FK._ACT_CODE["SILU_FAST"] == 4
-    # the serving kernels are built without it (act_requant<false>)
+    # the serving kernels take it too (TAT_FAST_SILU: act_requant<true> in
+    # their SILU_FAST instantiations)
     assert FK._kernel_act("SILU") == 3
-    with pytest.raises(ValueError, match="SILU_FAST"):
-        FK._kernel_act("SILU_FAST")
+    assert FK._kernel_act("SILU_FAST") == 4
 
 
 # ---------------------------------------------------------------------------

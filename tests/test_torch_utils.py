@@ -31,7 +31,9 @@ from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
 from thingino_accel_tpu_torch.utils import config, timing
 from thingino_accel_tpu_torch.utils.logging import get_logger
 
-KEPT = ("TAT_CONV_MERGE", "TAT_FPN_SPLIT", "TAT_LOG", "TAT_S2D_DEEP")
+KEPT = ("TAT_CONV_MERGE", "TAT_FAST_SILU", "TAT_FPN_SPLIT", "TAT_LOG",
+        "TAT_S2D_DEEP", "TAT_SERVING_COMPUTE", "TAT_SILU_TANH",
+        "TAT_STEM_NOGROW")
 
 
 def test_registry_names_and_defaults_equal_jax():

@@ -24,9 +24,13 @@ quantization (``training.ptq``), the C-API-shaped shim (``api``) and its
 image pipes (``ops.image``); and the last two model families: the AEC
 audio modality (``models.audio``, ``models.aec``: the STFT front end, the
 GRU U-Net, decompiled-`.mgk` streams, many streams at once) and the JZDL
-person detector (``formats.jzdl``, ``models.persondet``).
+person detector (``formats.jzdl``, ``models.persondet``); the serving
+and fast tiers' ``TAT_*`` modes (``utils.config``: the Pade SiLU epilogue,
+bf16 tensor-core products in the serving kernels, the stem stage without
+growth, the tanh-form float SiLU).
 """
 
 from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+from thingino_accel_tpu_torch.version import __version__
 
-__all__ = ["Engine", "EngineOptions"]
+__all__ = ["Engine", "EngineOptions", "__version__"]

@@ -57,8 +57,15 @@
 //     then the core's store_tile: epilogue2 (ServingEpilogue<ACT2>) on the
 //     fragments, reading the staged shortcut, the tile out 16 bytes a
 //     thread.
-// ACT2 is a template constant; ACT1 is SILU (the paths' act) or read at run
-// time (kAnyAct), so every pair of acts runs without compiling each pair.
+// ACT2 is a template constant (EP2 = ServingEpilogue<ACT2>); ACT1 is SILU
+// (the paths' act) or read at run time (kAnyAct), so every pair of acts
+// runs without compiling each pair. The JAX modes take EP2 =
+// ServingModeEpilogue<BF16> and kAnyAct: both acts at run time, SILU_FAST
+// (TAT_FAST_SILU) among them; with BF16 (TAT_SERVING_COMPUTE=bf16) both
+// stages' products are the bf16 product of the same int8 values on f32
+// sums (mma_tile.cuh mma_k32_bf16) and both epilogues start from (sum +
+// f32(bias)) x cs, as the JAX kernel's f32 branch: equal to the s8
+// products while every partial sum stays below 2^24 in magnitude.
 // Every multiply and add of an epilogue is an explicit round-to-nearest
 // intrinsic (epilogue.cuh).
 //
@@ -68,6 +75,7 @@
 // CMp + 16), CMp stage-1 columns (bias, cs), the staged output tile (TP
 // pixels of BN + 16). Every ldmatrix pitch is an odd multiple of 16 bytes.
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -170,7 +178,20 @@ __device__ void load_x_slab(const BneckGeom& g, const int8_t* __restrict__ x,
 // narrow, so that its few items still spread over the warps. Where the
 // channel groups divide the 8 warps, a warp's items all take one group,
 // and the lane keeps its channels' bias and cs in registers.
-template <int ACT1, int NI1>
+// epilogue1 of one sum (int32, or f32 from the bf16 product): the act, with
+// SILU_FAST compiled in where kSiluFast (the modes' kernels)
+template <bool kSiluFast, class Acc>
+__device__ __forceinline__ int8_t epilogue1(Acc acc, const Col1& col, int act,
+                                            float inv1, float alpha1) {
+  if constexpr (std::is_same<Acc, float>::value)
+    return tat::act_requant<kSiluFast>(
+        __fmul_rn(__fadd_rn(acc, __int2float_rn(col.b)), col.cs), act, inv1,
+        alpha1, false, 0, 0.0f);
+  else
+    return tat::epilogue<kSiluFast>(acc, col.b, col.cs, act, inv1, alpha1);
+}
+
+template <int ACT1, int NI1, class EP>
 __device__ void stage1(const BneckGeom& g, const unsigned char* xs,
                        const unsigned char* w1s, const Col1* cols1,
                        unsigned char* ms, int n, int tile, int r_begin) {
@@ -197,7 +218,7 @@ __device__ void stage1(const BneckGeom& g, const unsigned char* xs,
     const int ra = r_begin + 16 * mt + tat::a_lane_row(lane);
     const int aoff[1] = {(ra < g.halo ? ra : g.halo - 1) * g.xpitch +
                          tat::a_lane_byte(lane)};
-    int acc[1][NI1][4] = {};
+    typename EP::Acc acc[1][NI1][4] = {};
     const unsigned char* bt = w1s + c0 * g.xpitch + brow;
     for (int kb = 0; kb < g.Cp; kb += tat::kMmaStepBytes)
       if constexpr (kProduct)
@@ -217,9 +238,8 @@ __device__ void stage1(const BneckGeom& g, const unsigned char* xs,
         for (int e = 0; e < 2; ++e)
           if (inside && c + e < g.CM) {
             const Col1 col = fixed ? lc[ni][e] : cols1[c + e];
-            q[e] = static_cast<uint8_t>(
-                tat::epilogue(acc[0][ni][2 * h + e], col.b, col.cs, act,
-                              g.inv1, g.alpha1));
+            q[e] = static_cast<uint8_t>(epilogue1<EP::kSiluFast>(
+                acc[0][ni][2 * h + e], col, act, g.inv1, g.alpha1));
           }
         *reinterpret_cast<uint16_t*>(ms + r * g.mpitch + c) =
             static_cast<uint16_t>(q[0] | q[1] << 8);
@@ -257,15 +277,15 @@ __device__ void stage_shortcut(const BneckGeom& g, const unsigned char* xs,
   }
 }
 
-template <int MI, int NI, int ACT1, int ACT2>
+template <int MI, int NI, int ACT1, class EP2>
 __global__ void __launch_bounds__(kThreads, MI * NI >= 8 ? 1 : 2)
     bneck_mma_kernel(const int8_t* __restrict__ x,
                      const int8_t* __restrict__ w1,
                      const int* __restrict__ b1, const float* __restrict__ cs1,
                      const int8_t* __restrict__ w2,
                      const int* __restrict__ b2, int8_t* __restrict__ out,
-                     BneckGeom g, ServingParams ep2) {
-  using EP2 = ServingEpilogue<ACT2>;
+                     BneckGeom g, typename EP2::Params ep2) {
+  using Acc = typename EP2::Acc;
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int BN = 16 * NI, TP = 64 * MI;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -334,9 +354,9 @@ __global__ void __launch_bounds__(kThreads, MI * NI >= 8 ? 1 : 2)
     const bool carried = t > 0 && trow > 0 && g.out.TH >= g.K - 1;
     const int r_begin = carried ? (g.K - 1) * g.SW : 0;
     if (g.CMp <= 64)
-      stage1<ACT1, 2>(g, xs, w1s, cols1, ms, n, tile, r_begin);
+      stage1<ACT1, 2, EP2>(g, xs, w1s, cols1, ms, n, tile, r_begin);
     else
-      stage1<ACT1, 4>(g, xs, w1s, cols1, ms, n, tile, r_begin);
+      stage1<ACT1, 4, EP2>(g, xs, w1s, cols1, ms, n, tile, r_begin);
     if (ep2.res != nullptr) stage_shortcut<TP, BN>(g, xs, staged, n0);
     __syncthreads();   // m and the shortcut visible; the x slab is read
     const bool more = t + 1 < tiles;
@@ -344,7 +364,7 @@ __global__ void __launch_bounds__(kThreads, MI * NI >= 8 ? 1 : 2)
       if (more) load_x_slab(g, x, xs, T + 1);
       tat::cp_async_commit();
     }
-    int acc[MI][NI][4] = {};
+    Acc acc[MI][NI][4] = {};
     // w2 resident (tap j's rows at j CMp) or a two-slot ring of taps
     slab_taps<MI, NI>(
         acc, ms, aoff, g.K, g.K, 1, 1, g.SW, g.mpitch, g.CMp, w2s + brow,
@@ -368,48 +388,64 @@ __global__ void __launch_bounds__(kThreads, MI * NI >= 8 ? 1 : 2)
   }
 }
 
+template <class P>
 using BneckKernel = void (*)(const int8_t*, const int8_t*, const int*,
                              const float*, const int8_t*, const int*, int8_t*,
-                             BneckGeom, ServingParams);
+                             BneckGeom, P);
 
-template <int ACT1, int ACT2>
-BneckKernel pick_tile(int mi, int ni) {
-  if (mi == 1 && ni == 2) return bneck_mma_kernel<1, 2, ACT1, ACT2>;
-  if (mi == 2 && ni == 2) return bneck_mma_kernel<2, 2, ACT1, ACT2>;
-  if (mi == 1 && ni == 4) return bneck_mma_kernel<1, 4, ACT1, ACT2>;
-  if (mi == 2 && ni == 4) return bneck_mma_kernel<2, 4, ACT1, ACT2>;
-  if (mi == 1 && ni == 8) return bneck_mma_kernel<1, 8, ACT1, ACT2>;
+template <int ACT1, class EP2>
+BneckKernel<typename EP2::Params> pick_tile(int mi, int ni) {
+  if (mi == 1 && ni == 2) return bneck_mma_kernel<1, 2, ACT1, EP2>;
+  if (mi == 2 && ni == 2) return bneck_mma_kernel<2, 2, ACT1, EP2>;
+  if (mi == 1 && ni == 4) return bneck_mma_kernel<1, 4, ACT1, EP2>;
+  if (mi == 2 && ni == 4) return bneck_mma_kernel<2, 4, ACT1, EP2>;
+  if (mi == 1 && ni == 8) return bneck_mma_kernel<1, 8, ACT1, EP2>;
   return nullptr;
 }
 
 template <int ACT1>
-BneckKernel pick_act2(int act2, int mi, int ni) {
+BneckKernel<ServingParams> pick_act2(int act2, int mi, int ni) {
   switch (act2) {
     case tat::kActNone:
-      return pick_tile<ACT1, tat::kActNone>(mi, ni);
+      return pick_tile<ACT1, ServingEpilogue<tat::kActNone>>(mi, ni);
     case tat::kActRelu:
-      return pick_tile<ACT1, tat::kActRelu>(mi, ni);
+      return pick_tile<ACT1, ServingEpilogue<tat::kActRelu>>(mi, ni);
     case tat::kActLeakyRelu:
-      return pick_tile<ACT1, tat::kActLeakyRelu>(mi, ni);
+      return pick_tile<ACT1, ServingEpilogue<tat::kActLeakyRelu>>(mi, ni);
     case tat::kActSilu:
-      return pick_tile<ACT1, tat::kActSilu>(mi, ni);
-    default:   // SILU_FAST is compiled only into the probes' kernels
+      return pick_tile<ACT1, ServingEpilogue<tat::kActSilu>>(mi, ni);
+    default:
       return nullptr;
   }
 }
 
-// The kernel of a plan and its layout in g (whose C, CM, K are set), or null
-// for a plan or act it cannot run; opts the kernel into its shared memory.
-BneckKernel prepare_bneck(int act1, int act2, int tile_h, int tile_w,
-                          int bn, int resident, BneckGeom& g,
-                          cudaError_t& err) {
+BneckKernel<ServingParams> pick_acts(int act1, int act2, int mi, int ni) {
+  return act1 == tat::kActSilu ? pick_act2<tat::kActSilu>(act2, mi, ni)
+                               : pick_act2<kAnyAct>(act2, mi, ni);
+}
+
+// The kernel of the JAX modes (both acts at run time) for the product
+// `compute` (tat::Compute).
+BneckKernel<ServingModeParams> pick_mode(int compute, int mi, int ni) {
+  return compute == tat::kComputeBf16
+             ? pick_tile<kAnyAct, ServingModeEpilogue<true>>(mi, ni)
+             : pick_tile<kAnyAct, ServingModeEpilogue<false>>(mi, ni);
+}
+
+// Kernel k of a plan and its layout in g (whose C, CM, K are set), or
+// null (err set) for a plan or act1 it cannot run; opts k into its shared
+// memory.
+template <class K>
+K prepare_bneck(K k, int act1, int tile_h, int tile_w, int bn, int resident,
+                BneckGeom& g, cudaError_t& err) {
   err = cudaErrorInvalidValue;
   int lg = 0;
   while (lg < 6 && (1 << lg) != tile_w) ++lg;
   const int tp = tile_h * tile_w;
   if (lg == 6 || tile_w < 8 || tile_h < 1 || (tp != 64 && tp != 128) ||
       (bn != 32 && bn != 64 && bn != 128) || g.C < 1 || g.CM < 1 ||
-      g.K < 1 || g.K % 2 == 0 || act1 < 0 || act1 > tat::kActSilu)
+      g.K < 1 || g.K % 2 == 0 || act1 < 0 || act1 > tat::kActSiluFast ||
+      k == nullptr)
     return nullptr;
   g.BN = bn;
   g.resident = resident != 0;
@@ -417,10 +453,6 @@ BneckKernel prepare_bneck(int act1, int act2, int tile_h, int tile_w,
   g.out.TW = tile_w;
   g.out.lg_tw = lg;
   g.hh = (g.K - 1) / 2;
-  BneckKernel k = act1 == tat::kActSilu
-                      ? pick_act2<tat::kActSilu>(act2, tp / 64, bn / 16)
-                      : pick_act2<kAnyAct>(act2, tp / 64, bn / 16);
-  if (k == nullptr) return nullptr;
   bneck_layout(g);
   int dev = 0, max_smem = 0;
   err = cudaGetDevice(&dev);
@@ -448,12 +480,12 @@ BneckKernel prepare_bneck(int act1, int act2, int tile_h, int tile_w,
 
 // One launch: x NHWC [batch, H, W, C], w1 [CM, C], w2 OHWI [O, K, K, CM]
 // int8; b1 [CM], b2 [O] int32 or null; cs1 [CM], cs2 [O] f32; out NHWC
-// [batch, H, W, O] int8; each epilogue's act (tat::Act, not SILU_FAST),
-// inv_out and alpha; shortcut (needs C == O, not with LEAKY_RELU) and its
-// res_scale. The plan: tile_h x tile_w output pixels a tile (64 or 128,
-// tile_w a power of two >= 8), bn output channels a block (32, 64, or 128
-// with 64 pixels), their w2 resident or streamed a tap at a time,
-// tiles_per_block consecutive tiles a block. Returns a
+// [batch, H, W, O] int8; each epilogue's act (tat::Act), inv_out and alpha;
+// shortcut (needs C == O, not with LEAKY_RELU) and its res_scale. The plan:
+// tile_h x tile_w output pixels a tile (64 or 128, tile_w a power of two >=
+// 8), bn output channels a block (32, 64, or 128 with 64 pixels), their w2
+// resident or streamed a tap at a time, tiles_per_block consecutive tiles a
+// block; the products (tat::Compute: s8, or bf16 on f32 sums). Returns a
 // cudaError_t; cudaErrorInvalidValue for a shape or plan it cannot run.
 extern "C" int tat_bneck_int8_fused(
     const void* x, const void* w1, const void* b1, const void* cs1,
@@ -461,7 +493,7 @@ extern "C" int tat_bneck_int8_fused(
     int H, int W, int C, int CM, int O, int K, int act1, float inv1,
     float alpha1, int act2, float inv2, float alpha2, int shortcut,
     float res_scale, int tile_h, int tile_w, int bn, int resident,
-    int tiles_per_block, void* stream) {
+    int tiles_per_block, int compute, void* stream) {
   if (batch < 1 || H < 1 || W < 1 || O < 1 || tiles_per_block < 1 ||
       cs1 == nullptr || cs2 == nullptr ||
       (shortcut && (C != O || act2 == tat::kActLeakyRelu)))
@@ -471,60 +503,79 @@ extern "C" int tat_bneck_int8_fused(
   g.CM = CM;
   g.K = K;
   cudaError_t err;
-  const BneckKernel k =
-      prepare_bneck(act1, act2, tile_h, tile_w, bn, resident, g, err);
-  if (k == nullptr) return static_cast<int>(err);
-  g.H = H;
-  g.W = W;
-  g.O = O;
-  g.act1 = act1;
-  g.inv1 = inv1;
-  g.alpha1 = alpha1;
-  g.vec_x = C % 16 == 0 && aligned16(x);
-  g.vec_w1 = C % 16 == 0 && aligned16(w1);
-  g.vec_w2 = CM % 16 == 0 && aligned16(w2);
-  g.out.O = O;
-  g.out.OH = H;
-  g.out.OW = W;
-  g.out.vec_out = O % 16 == 0 && aligned16(out);
-  g.out.ntw = (W + tile_w - 1) / tile_w;
-  g.nth = (H + tile_h - 1) / tile_h;
-  g.out.tiles_img = g.nth * g.out.ntw;
-  g.by_tiles = fast_div(g.out.tiles_img);
-  g.by_nth = fast_div(g.nth);
-  g.tiles = batch * g.out.tiles_img;
-  g.tpb = tiles_per_block < g.tiles ? tiles_per_block : g.tiles;
-  const dim3 grid(static_cast<unsigned>((g.tiles + g.tpb - 1) / g.tpb),
-                  static_cast<unsigned>((O + bn - 1) / bn));
+  const bool modal =
+      takes_mode(act2, compute, err) || act1 == tat::kActSiluFast;
+  if (err != cudaSuccess) return static_cast<int>(err);
   const ServingParams ep2 = {static_cast<const float*>(cs2), inv2, alpha2,
                              shortcut ? static_cast<const int8_t*>(x)
                                       : nullptr,
                              res_scale, 0};
-  k<<<grid, kThreads, static_cast<size_t>(g.smem),
-      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w1),
-      static_cast<const int*>(b1), static_cast<const float*>(cs1),
-      static_cast<const int8_t*>(w2), static_cast<const int*>(b2),
-      static_cast<int8_t*>(out), g, ep2);
-  return static_cast<int>(cudaGetLastError());
+  // kernel k, prepared, launched on its params p
+  auto launch = [&](auto k, const auto& p) {
+    if (prepare_bneck(k, act1, tile_h, tile_w, bn, resident, g, err) ==
+        nullptr)
+      return static_cast<int>(err);
+    g.H = H;
+    g.W = W;
+    g.O = O;
+    g.act1 = act1;
+    g.inv1 = inv1;
+    g.alpha1 = alpha1;
+    g.vec_x = C % 16 == 0 && aligned16(x);
+    g.vec_w1 = C % 16 == 0 && aligned16(w1);
+    g.vec_w2 = CM % 16 == 0 && aligned16(w2);
+    g.out.O = O;
+    g.out.OH = H;
+    g.out.OW = W;
+    g.out.vec_out = O % 16 == 0 && aligned16(out);
+    g.out.ntw = (W + tile_w - 1) / tile_w;
+    g.nth = (H + tile_h - 1) / tile_h;
+    g.out.tiles_img = g.nth * g.out.ntw;
+    g.by_tiles = fast_div(g.out.tiles_img);
+    g.by_nth = fast_div(g.nth);
+    g.tiles = batch * g.out.tiles_img;
+    g.tpb = tiles_per_block < g.tiles ? tiles_per_block : g.tiles;
+    const dim3 grid(static_cast<unsigned>((g.tiles + g.tpb - 1) / g.tpb),
+                    static_cast<unsigned>((O + bn - 1) / bn));
+    k<<<grid, kThreads, static_cast<size_t>(g.smem),
+        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int8_t*>(x), static_cast<const int8_t*>(w1),
+        static_cast<const int*>(b1), static_cast<const float*>(cs1),
+        static_cast<const int8_t*>(w2), static_cast<const int*>(b2),
+        static_cast<int8_t*>(out), g, p);
+    return static_cast<int>(cudaGetLastError());
+  };
+  const int tp = tile_h * tile_w;
+  if (modal)
+    return launch(pick_mode(compute, tp / 64, bn / 16),
+                  ServingModeParams{ep2, act2});
+  return launch(pick_acts(act1, act2, tp / 64, bn / 16), ep2);
 }
 
 // The dynamic shared memory of a plan in bytes and the blocks of the acts'
-// kernel an SM holds at once; cudaErrorInvalidValue for a plan the kernel
-// cannot run.
+// and product's kernel an SM holds at once; cudaErrorInvalidValue for a
+// plan the kernel cannot run.
 extern "C" int tat_bneck_int8_fused_info(int act1, int act2, int C, int CM,
                                          int K, int tile_h, int tile_w, int bn,
-                                         int resident, int* smem,
+                                         int resident, int compute, int* smem,
                                          int* blocks_per_sm) {
   BneckGeom g = {};
   g.C = C;
   g.CM = CM;
   g.K = K;
   cudaError_t err;
-  const BneckKernel k =
-      prepare_bneck(act1, act2, tile_h, tile_w, bn, resident, g, err);
-  if (k == nullptr) return static_cast<int>(err);
-  *smem = g.smem;
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, k, kThreads, static_cast<size_t>(g.smem)));
+  const bool modal =
+      takes_mode(act2, compute, err) || act1 == tat::kActSiluFast;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto info = [&](auto k) {
+    if (prepare_bneck(k, act1, tile_h, tile_w, bn, resident, g, err) ==
+        nullptr)
+      return static_cast<int>(err);
+    *smem = g.smem;
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, k, kThreads, static_cast<size_t>(g.smem)));
+  };
+  const int tp = tile_h * tile_w;
+  if (modal) return info(pick_mode(compute, tp / 64, bn / 16));
+  return info(pick_acts(act1, act2, tp / 64, bn / 16));
 }

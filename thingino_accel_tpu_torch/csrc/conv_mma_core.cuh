@@ -8,7 +8,12 @@
 //     (conv_int8_requant_mma.cu), the conv's activation a 256-byte table
 //     staged in shared memory once a block;
 //   - ServingEpilogue<ACT> (epilogue_policy.cuh): the serving tier's #2
-//     and #5 (conv_int8_fused_mma.cu), with the residual r[n, oy, ox, o].
+//     and #5 (conv_int8_fused_mma.cu), with the residual r[n, oy, ox, o];
+//   - ServingModeEpilogue<BF16>: the same for the JAX modes, the act at
+//     run time; with BF16 the sums are f32 from the bf16 product of the
+//     same int8 values (mma_tile.cuh mma_k32_bf16), equal to the int32
+//     ones while below 2^24 in magnitude.
+// The policy's Acc is the type of the sums.
 // Each source that includes this header compiles its own copy (an
 // anonymous namespace), so a kernel's code depends only on its policy.
 //
@@ -543,6 +548,14 @@ __device__ __forceinline__ void mma_k32(int (&acc)[MI][NI][4],
     for (int ni = 0; ni < NI; ++ni) tat::mma_s8(acc[mi][ni], afr, bfr[ni]);
   }
 }
+// ... on f32 sums: the bf16 product (TAT_SERVING_COMPUTE=bf16)
+template <int MI, int NI>
+__device__ __forceinline__ void mma_k32(float (&acc)[MI][NI][4],
+                                        const unsigned char* at,
+                                        const int (&aoff)[MI],
+                                        const unsigned char* bt, int wpitch) {
+  tat::mma_k32_bf16<MI, NI>(acc, at, aoff, bt, wpitch);
+}
 
 // The slab mode's product of one chunk: for each tap (ky, kx) of KH x KW,
 // acc += the ck bytes of the lane's slab pixels (rows at `slab` + aoff,
@@ -552,9 +565,9 @@ __device__ __forceinline__ void mma_k32(int (&acc)[MI][NI][4],
 // tap's product (a ring's wait for its slot). The core's slab mode and the
 // fused C3 bottleneck's stage 2 over its m slab (bneck_int8_fused.cu) run
 // it.
-template <int MI, int NI, class Wait>
+template <int MI, int NI, class Wait, class Acc>
 __device__ __forceinline__ void slab_taps(
-    int (&acc)[MI][NI][4], const unsigned char* slab, const int (&aoff)[MI],
+    Acc (&acc)[MI][NI][4], const unsigned char* slab, const int (&aoff)[MI],
     int KH, int KW, int dh, int dw, int SW, int pitch, int ck,
     const unsigned char* w, int wtap, int ring, int wpitch, Wait&& wait) {
   int tap = 0;
@@ -584,7 +597,7 @@ __device__ __forceinline__ void slab_taps(
 // OW = H W give TP consecutive pixels of a row-major image, as the fused
 // SPPF, sppf_int8_fused.cu, stores them).
 template <int MI, int NI, class EP, bool WAIT_RES = true>
-__device__ void store_tile(const int (&acc)[MI][NI][4],
+__device__ void store_tile(const typename EP::Acc (&acc)[MI][NI][4],
                            const typename EP::Col (&cols)[NI][2],
                            const ConvGeom& g, unsigned char* staged,
                            const unsigned char* tab, int n, int tile, int n0,
@@ -660,8 +673,8 @@ __device__ void store_tile(const int (&acc)[MI][NI][4],
 
 // The no-store variant's epilogue: the sums folded into one value that is
 // stored only if it takes one given value, so the product is kept.
-template <int MI, int NI>
-__device__ __forceinline__ void sink_tile(const int (&acc)[MI][NI][4],
+template <int MI, int NI, class Acc>
+__device__ __forceinline__ void sink_tile(const Acc (&acc)[MI][NI][4],
                                           int8_t* __restrict__ out) {
   int f = 0;
 #pragma unroll
@@ -669,7 +682,7 @@ __device__ __forceinline__ void sink_tile(const int (&acc)[MI][NI][4],
 #pragma unroll
     for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) f ^= acc[mi][ni][r] * (r + 1);
+      for (int r = 0; r < 4; ++r) f ^= tat::sum_bits(acc[mi][ni][r]) * (r + 1);
   if (f == 0x5a5a5a5a) out[0] = 1;
 }
 
@@ -721,7 +734,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(MODE))
   unsigned char* tab = smem + g.tab_off;
   EP::stage_table(ep, tab);
 
-  int acc[MI][NI][4];
+  typename EP::Acc acc[MI][NI][4];
   if constexpr (MODE == kSlab) {
     // group 0: the resident weights and stage 0
     if (g.resident) issue_weights(w, smem + g.w_off, g, n0, 0, g.C);

@@ -38,7 +38,10 @@
 //     (bytes where C % 16 != 0 or the output is off 16-byte alignment);
 //   - KH x KW is a template constant for 3x3 (every depthwise conv of
 //     NanoDet-320); other sizes take a kernel that reads each tap from
-//     shared memory.
+//     shared memory;
+//   - the act is a run-time argument, SILU_FAST (the Pade sigmoid of
+//     TAT_FAST_SILU) in kernels of its own, so that the other acts' code
+//     stays as it is without it.
 // Operands off 16-byte alignment, or C % 16 != 0, take byte loads into the
 // same shared layout. The products are per channel: two int32 operands
 // and an IMAD each.
@@ -175,6 +178,7 @@ __device__ __forceinline__ void mac16(int (&acc)[16], const uint4& xv,
 // The epilogue on the 16 sums of one pixel (its channels' bias and cs
 // from shared memory, 16 of each at b and s) and its store: 16 bytes where
 // vec, else the live channels' bytes.
+template <bool kSiluFast>
 __device__ __forceinline__ void store_pixel(const int (&acc)[16],
                                             const int* b, const float* s,
                                             int act, float inv_out,
@@ -189,8 +193,9 @@ __device__ __forceinline__ void store_pixel(const int (&acc)[16],
     const float sj[4] = {sq.x, sq.y, sq.z, sq.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      v[q] |= static_cast<unsigned>(static_cast<uint8_t>(tat::epilogue(
-                  acc[4 * q + j], bj[j], sj[j], act, inv_out, alpha)))
+      v[q] |= static_cast<unsigned>(
+                  static_cast<uint8_t>(tat::epilogue<kSiluFast>(
+                      acc[4 * q + j], bj[j], sj[j], act, inv_out, alpha)))
               << (8 * j);
   }
   if (vec) {
@@ -203,8 +208,9 @@ __device__ __forceinline__ void store_pixel(const int (&acc)[16],
 
 // KH, KW > 0: the taps a template constant, a sliding window of them in
 // registers (128 registers a thread: two blocks of 256 an SM); 0: any
-// size, each tap read from shared memory.
-template <int KH, int KW>
+// size, each tap read from shared memory. SILU_FAST: the epilogue also
+// has the act SILU_FAST.
+template <int KH, int KW, bool SILU_FAST>
 __global__ void __launch_bounds__(kMaxThreads, 2)
     dw_int8_fused_kernel(const int8_t* __restrict__ x,
                          const int8_t* __restrict__ w,
@@ -262,8 +268,8 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
 #pragma unroll
           for (int kx = 0; kx < KW; ++kx)
             mac16(acc, win[ky][kx], wsm + (ky * KW + kx) * g.CB, ks);
-        store_pixel(acc, b, s, act, inv_out, alpha, live, vec,
-                    dst + static_cast<long long>(r) * g.OW * g.C);
+        store_pixel<SILU_FAST>(acc, b, s, act, inv_out, alpha, live, vec,
+                               dst + static_cast<long long>(r) * g.OW * g.C);
       }
     }
   } else {
@@ -280,8 +286,8 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
                   *reinterpret_cast<const uint4*>(col + (r + ky) * rpitch +
                                                   kx * g.CB),
                   wsm + (ky * g.KW + kx) * g.CB, ks);
-        store_pixel(acc, b, s, act, inv_out, alpha, live, vec,
-                    dst + static_cast<long long>(r) * g.OW * g.C);
+        store_pixel<SILU_FAST>(acc, b, s, act, inv_out, alpha, live, vec,
+                               dst + static_cast<long long>(r) * g.OW * g.C);
       }
     }
   }
@@ -290,9 +296,11 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
 using DwKernel = void (*)(const int8_t*, const int8_t*, const int*,
                           const float*, int8_t*, DwGeom, int, float, float);
 
-// The kernel of a plan and its layout in g (its conv set), or null for a
-// plan it cannot run; opts the kernel into its shared memory.
-DwKernel prepare(int tile_h, int groups, DwGeom& g, cudaError_t& err) {
+// The kernel of a plan (with SILU_FAST where silu_fast) and its layout in g
+// (its conv set), or null for a plan it cannot run; opts the kernel into
+// its shared memory.
+DwKernel prepare(int tile_h, int groups, bool silu_fast, DwGeom& g,
+                 cudaError_t& err) {
   err = cudaErrorInvalidValue;
   if (tile_h < 1 || groups < 1 || groups > kMaxGroups || g.KH < 1 ||
       g.KW < 1 || g.OW < 1 || g.C < 1)
@@ -300,8 +308,12 @@ DwKernel prepare(int tile_h, int groups, DwGeom& g, cudaError_t& err) {
   g.TH = tile_h;
   g.G = groups;
   dw_layout(g);
-  const DwKernel k = g.KH == 3 && g.KW == 3 ? dw_int8_fused_kernel<3, 3>
-                                            : dw_int8_fused_kernel<0, 0>;
+  const bool k3 = g.KH == 3 && g.KW == 3;
+  const DwKernel k =
+      silu_fast ? (k3 ? dw_int8_fused_kernel<3, 3, true>
+                      : dw_int8_fused_kernel<0, 0, true>)
+                : (k3 ? dw_int8_fused_kernel<3, 3, false>
+                      : dw_int8_fused_kernel<0, 0, false>);
   int dev = 0, max_smem = 0;
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -331,23 +343,23 @@ void set_conv(DwGeom& g, int C, int KH, int KW, int OW) {
 
 // One launch: x NHWC [batch, H, W, C] int8, w [KH, KW, C] int8, bias [C]
 // int32 or null, cs [C] f32, out NHWC [batch, OH, OW, C] int8; the top and
-// left pads; the epilogue's act (tat::Act, not SILU_FAST), inv_out and
-// alpha. The plan: tile_h output rows a block, groups x 16 channels a
-// block (1..16). Returns a cudaError_t; cudaErrorInvalidValue for a shape
-// or plan it cannot run.
+// left pads; the epilogue's act (tat::Act), inv_out and alpha. The plan:
+// tile_h output rows a block, groups x 16 channels a block (1..16).
+// Returns a cudaError_t; cudaErrorInvalidValue for a shape or plan it
+// cannot run.
 extern "C" int tat_dw_int8_fused(const void* x, const void* w,
                                  const void* bias, const void* cs, void* out,
                                  int batch, int H, int W, int C, int KH,
                                  int KW, int pt, int pl, int OH, int OW,
                                  int act, float inv_out, float alpha,
                                  int tile_h, int groups, void* stream) {
-  if (batch < 1 || H < 1 || W < 1 || OH < 1 || cs == nullptr ||
-      act == tat::kActSiluFast)
+  if (batch < 1 || H < 1 || W < 1 || OH < 1 || cs == nullptr || act < 0 ||
+      act > tat::kActSiluFast)
     return static_cast<int>(cudaErrorInvalidValue);
   DwGeom g = {};
   set_conv(g, C, KH, KW, OW);
   cudaError_t err;
-  const DwKernel k = prepare(tile_h, groups, g, err);
+  const DwKernel k = prepare(tile_h, groups, act == tat::kActSiluFast, g, err);
   if (k == nullptr) return static_cast<int>(err);
   g.H = H;
   g.W = W;
@@ -371,14 +383,15 @@ extern "C" int tat_dw_int8_fused(const void* x, const void* w,
 }
 
 // The dynamic shared memory of a plan in bytes and the blocks of its kernel
-// an SM holds at once; cudaErrorInvalidValue for a plan it cannot run.
+// (the one of every act but SILU_FAST) an SM holds at once;
+// cudaErrorInvalidValue for a plan it cannot run.
 extern "C" int tat_dw_int8_fused_info(int C, int KH, int KW, int OW,
                                       int tile_h, int groups, int* smem,
                                       int* blocks_per_sm) {
   DwGeom g = {};
   set_conv(g, C, KH, KW, OW);
   cudaError_t err;
-  const DwKernel k = prepare(tile_h, groups, g, err);
+  const DwKernel k = prepare(tile_h, groups, false, g, err);
   if (k == nullptr) return static_cast<int>(err);
   *smem = g.smem;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(

@@ -39,6 +39,11 @@ enum Act : int {
   kActSiluFast = 4
 };
 
+// The serving kernels' product (TAT_SERVING_COMPUTE): mma.sync s8 with
+// int32 sums, or the same int8 values through mma.sync bf16 with f32 sums
+// (mma_tile.cuh mma_k32_bf16).
+enum Compute : int { kComputeInt8 = 0, kComputeBf16 = 1 };
+
 // The JAX _sigmoid_fast as it computes outside a kernel (the port's
 // fused_kernels.sigmoid_fast): the [5/4] Pade tanh on y = x/2 clamped to
 // +-3.6333, num / den a true division, each step rounded as the JAX
@@ -78,7 +83,8 @@ __device__ __forceinline__ float recip_rn(float d) {
 // The residual joins after the activation and before x inv_out; the
 // wrappers refuse LEAKY_RELU with a residual (its alpha applies after
 // quantization), and the assert states it here. kActSiluFast is compiled
-// in only with kSiluFast (the probes' kernels); the serving and exact
+// in only with kSiluFast (the probes' kernels, and the serving kernels'
+// JAX-mode kernels: ServingModeEpilogue, #7's SILU_FAST ones); the other
 // kernels take the default and their code stays as it was without it.
 template <bool kSiluFast = false>
 __device__ __forceinline__ int8_t act_requant(float pre, int act,

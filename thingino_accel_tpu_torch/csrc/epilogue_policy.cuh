@@ -13,14 +13,32 @@
 //     act_requant: per-channel cs, the act a template constant so that its
 //     branches fold, a residual r x res_scale after the act), the serving
 //     tier's KxK #2 and #5 (conv_mma_core.cuh under conv_int8_fused_mma.cu)
-//     and 1x1 #1 and #3 (mm_int8_fused_mma.cu).
+//     and 1x1 #1 and #3 (mm_int8_fused_mma.cu), and #4 and #6;
+//   - ServingModeEpilogue<BF16>: the same with the act read at run time,
+//     SILU_FAST among them, on the int32 sums of the s8 product or (BF16)
+//     the f32 sums of the bf16 one: the JAX modes' kernels.
+// Acc is the type of a policy's sums, which the product and the epilogue
+// take.
 // Each source that includes this header compiles its own copy (an
 // anonymous namespace).
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
+
+#include <cuda_runtime.h>
 
 #include "epilogue.cuh"
+
+// The measurement builds (no epilogue stores or no product: the split of
+// the default kernels' time) compile none of the JAX modes' kernels; their
+// entry points refuse a mode launch.
+#if defined(TAT_GEMM_NO_STORE) || defined(TAT_GEMM_NO_PRODUCT) || \
+    defined(TAT_CONV_REQUANT_NO_STORE) || defined(TAT_CONV_REQUANT_NO_PRODUCT)
+#define TAT_MODE_KERNELS 0
+#else
+#define TAT_MODE_KERNELS 1
+#endif
 
 namespace {
 
@@ -28,6 +46,7 @@ namespace {
 // table (lut: 256 int8 values, entry q + 128 the act of q; null: none).
 // Col: what a lane keeps of one of its output channels.
 struct ExactEpilogue {
+  using Acc = int;
   struct Params {
     float cs;
     int round_mode;
@@ -72,6 +91,8 @@ struct ServingParams {
 template <int ACT>
 struct ServingEpilogue {
   using Params = ServingParams;
+  using Acc = int;
+  static constexpr bool kSiluFast = false;
   struct Col {
     int b;
     float cs;
@@ -103,5 +124,65 @@ struct ServingEpilogue {
                             p.res_scale);
   }
 };
+
+// The JAX serving modes' (TAT_FAST_SILU, TAT_SERVING_COMPUTE=bf16): the
+// serving epilogue with the act read at run time (SILU_FAST among them:
+// act_requant<true>), one kernel for every act, so that the modes add a
+// few instantiations and leave the ServingEpilogue<ACT> kernels as they
+// were. BF16: the sums are the f32 sums of the bf16 product (mma_tile.cuh
+// mma_k32_bf16) and the epilogue starts as the JAX _epilogue's f32
+// branch, (acc + f32(bias)) x cs; else int32 sums and f32(acc + bias) x
+// cs.
+struct ServingModeParams : ServingParams {
+  int act;
+};
+template <bool BF16>
+struct ServingModeEpilogue {
+  using Params = ServingModeParams;
+  using Acc = std::conditional_t<BF16, float, int>;
+  static constexpr bool kSiluFast = true;
+  using Col = ServingEpilogue<tat::kActNone>::Col;
+  static constexpr bool kResidual = true;
+  static constexpr bool kBn16 = true;
+  static constexpr int kTableBytes = 0;
+  __device__ __forceinline__ static Col col(const int* __restrict__ bias,
+                                            const Params& p, int o,
+                                            bool live) {
+    return ServingEpilogue<tat::kActNone>::col(bias, p, o, live);
+  }
+  __device__ __forceinline__ static void stage_table(const Params&,
+                                                     unsigned char*) {}
+  __device__ __forceinline__ static int8_t apply(Acc acc, const Col& c,
+                                                 const Params& p, int r,
+                                                 const unsigned char*) {
+    float pre;
+    if constexpr (BF16)
+      pre = __fmul_rn(__fadd_rn(acc, __int2float_rn(c.b)), c.cs);
+    else
+      pre = __fmul_rn(__int2float_rn(acc + c.b), c.cs);
+    return tat::act_requant<true>(pre, p.act, p.inv_out, p.alpha,
+                                  p.res != nullptr, r, p.res_scale);
+  }
+  __device__ __forceinline__ static int8_t apply_parts(float accf, float bf,
+                                                       const Col& c,
+                                                       const Params& p,
+                                                       int r) {
+    return tat::act_requant<true>(__fmul_rn(__fadd_rn(accf, bf), c.cs),
+                                  p.act, p.inv_out, p.alpha,
+                                  p.res != nullptr, r, p.res_scale);
+  }
+};
+
+// Does a serving launch of (act, compute) take a ServingModeEpilogue
+// kernel? false for the default acts on the s8 product; err set for an
+// act or product past the kernels'.
+inline bool takes_mode(int act, int compute, cudaError_t& err) {
+  err = cudaErrorInvalidValue;
+  if (act < tat::kActNone || act > tat::kActSiluFast ||
+      (compute != tat::kComputeInt8 && compute != tat::kComputeBf16))
+    return false;
+  err = cudaSuccess;
+  return act == tat::kActSiluFast || compute == tat::kComputeBf16;
+}
 
 }  // namespace

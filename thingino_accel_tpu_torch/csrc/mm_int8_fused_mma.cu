@@ -12,7 +12,14 @@
 //   - per-part scales: at each part's end its int32 sum to f32, x s_i,
 //     added in part order (part 0 assigned, not added to 0.0f), then
 //     apply_parts: + bias x bias_scale, x cs, the act's tail.
-// Every multiply and add is an explicit round-to-nearest intrinsic.
+// Every multiply and add is an explicit round-to-nearest intrinsic. The
+// JAX modes run the same kernel under ServingModeEpilogue<BF16>
+// (epilogue_policy.cuh), the act at run time: SILU_FAST (TAT_FAST_SILU),
+// and with BF16 (TAT_SERVING_COMPUTE=bf16, the JAX compute="bf16") the
+// same int8 values through mma.sync bf16 on f32 sums, the equal-scale
+// branch from (sum + f32(bias)) x cs as the JAX _epilogue's f32 branch:
+// equal to the s8 product's result while every partial sum stays below
+// 2^24 in magnitude.
 //
 // The exact tier's 1x1 conv, one part, no residual, under ExactEpilogue:
 //   out[M, N] = lut[requant_exact(x[M, K] w[N, K]^T + bias) + 128]
@@ -276,6 +283,14 @@ __device__ __forceinline__ void mma_k32(int (&acc)[MI][NI][4],
     for (int ni = 0; ni < NI; ++ni) tat::mma_s8(acc[mi][ni], afr, bfr[ni]);
   }
 }
+// ... on f32 sums: the bf16 product (TAT_SERVING_COMPUTE=bf16)
+template <int MI, int NI>
+__device__ __forceinline__ void mma_k32(float (&acc)[MI][NI][4],
+                                        const unsigned char* at,
+                                        const int (&aoff)[MI],
+                                        const unsigned char* bt, int wpitch) {
+  tat::mma_k32_bf16<MI, NI>(acc, at, aoff, bt, wpitch);
+}
 
 // The staged tile's rows out where they are off 16 bytes (N % 16 != 0, the
 // N = 255 heads) or the output is unaligned: a row's live bytes as aligned
@@ -314,13 +329,14 @@ __device__ void store_rows_unaligned(const MmGeom& g,
   }
 }
 
-// The policy on the fragments (int32 sums, or the per-part f32 sums) into
+// The policy on the fragments (its sums, or the per-part f32 sums) into
 // the staged int8 tile (with a residual, each lane's two bytes there are
 // its residual, read before they are overwritten), then each row's
 // channels out. The lane's channels are read from shared memory before
 // the first staged store, so no load waits behind a store.
 template <int MI, int NI, bool PER_PART, class EP>
-__device__ void store_tile(const MmGeom& g, const int (&acc)[MI][NI][4],
+__device__ void store_tile(const MmGeom& g,
+                           const typename EP::Acc (&acc)[MI][NI][4],
                            const float (&accf)[MI][NI][4],
                            const typename EP::Col* cols, const float* bf,
                            unsigned char* staged, const unsigned char* tab,
@@ -395,8 +411,8 @@ __device__ void store_tile(const MmGeom& g, const int (&acc)[MI][NI][4],
 
 // The no-store variant's epilogue: the sums folded into one value that is
 // stored only if it takes one given value, so the product is kept.
-template <int MI, int NI>
-__device__ __forceinline__ void sink_tile(const int (&acc)[MI][NI][4],
+template <int MI, int NI, class Acc>
+__device__ __forceinline__ void sink_tile(const Acc (&acc)[MI][NI][4],
                                           const float (&accf)[MI][NI][4],
                                           int8_t* __restrict__ out) {
   int f = 0;
@@ -406,7 +422,8 @@ __device__ __forceinline__ void sink_tile(const int (&acc)[MI][NI][4],
     for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        f ^= acc[mi][ni][r] * (r + 1) + __float_as_int(accf[mi][ni][r]);
+        f ^= tat::sum_bits(acc[mi][ni][r]) * (r + 1) +
+             __float_as_int(accf[mi][ni][r]);
   if (f == 0x5a5a5a5a) out[0] = 1;
 }
 
@@ -458,7 +475,7 @@ __global__ void __launch_bounds__(kThreads, mm_min_blocks(MI, NI))
     }
     tat::cp_async_commit();
   }
-  int acc[MI][NI][4];
+  typename EP::Acc acc[MI][NI][4];
   float accf[MI][NI][4] = {};
   Cursor cur = {0, 0, 0};
   for (int s = 0; s < total; ++s) {
@@ -505,7 +522,7 @@ __global__ void __launch_bounds__(kThreads, mm_min_blocks(MI, NI))
           for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
-              const float v = __fmul_rn(__int2float_rn(acc[mi][ni][r]), sc);
+              const float v = __fmul_rn(tat::sum_f32(acc[mi][ni][r]), sc);
               accf[mi][ni][r] =
                   cur.part == 0 ? v : __fadd_rn(accf[mi][ni][r], v);
             }
@@ -621,10 +638,33 @@ MmKernel<ServingEpilogue<tat::kActNone>> prepare(int act, int per_part,
     case tat::kActSilu:
       k = pick<tat::kActSilu>(per_part, bm / 64, bn / 16);
       break;
-    default:   // SILU_FAST is compiled only into the probes' kernels
+    default:
       return nullptr;
   }
   return opt_in(k, g, err);
+}
+
+// The kernel of the JAX modes (the act at run time) for the product
+// `compute` (tat::Compute), as prepare; its layout is the default acts'.
+using ModeKernel = MmKernel<ServingModeEpilogue<false>>;
+template <bool BF16>
+ModeKernel pick_mode(int per_part, int mi, int ni) {
+  return per_part ? pick_tile<true, ServingModeEpilogue<BF16>>(mi, ni)
+                  : pick_tile<false, ServingModeEpilogue<BF16>>(mi, ni);
+}
+ModeKernel prepare_mode(int compute, int per_part, int bm, int bn, int kc,
+                        int stages, MmGeom& g, cudaError_t& err) {
+  err = cudaErrorInvalidValue;
+#if TAT_MODE_KERNELS
+  if (!plan_layout<ServingModeEpilogue<false>>(bm, bn, kc, stages, g))
+    return nullptr;
+  return opt_in(compute == tat::kComputeBf16
+                    ? pick_mode<true>(per_part, bm / 64, bn / 16)
+                    : pick_mode<false>(per_part, bm / 64, bn / 16),
+                g, err);
+#else
+  return nullptr;
+#endif
 }
 
 // The exact kernel of a plan (one part of K) and its layout in g, as
@@ -672,19 +712,21 @@ int occupancy(K k, const MmGeom& g, int* smem, int* blocks_per_sm) {
 // slices of one [N, sum K_i] matrix), its f32 scale part_scales[i] (read
 // only where same_scale is 0); bias [N] int32 or null, in units of
 // bias_scale x the weight scale in the per-part branch; cs [N] f32; res
-// [M, N] int8 or null; out [M, N] int8; the epilogue's act (tat::Act, not
-// SILU_FAST), inv_out, alpha and res_scale. The plan: bm rows a tile (64,
-// 128), bn channels a block (16, 32, 64, 128), kc bytes a stage (a
-// multiple of 32), a ring of `stages` (2..4), tiles_per_block tiles a
-// block. Returns a cudaError_t; cudaErrorInvalidValue for a shape or plan
-// it cannot run (LEAKY_RELU with a residual among them).
+// [M, N] int8 or null; out [M, N] int8; the epilogue's act (tat::Act),
+// inv_out, alpha and res_scale. The plan: bm rows a tile (64, 128), bn
+// channels a block (16, 32, 64, 128), kc bytes a stage (a multiple of 32),
+// a ring of `stages` (2..4), tiles_per_block tiles a block; the product
+// (tat::Compute: s8, or bf16 on f32 sums). Returns a cudaError_t;
+// cudaErrorInvalidValue for a shape or plan it cannot run (LEAKY_RELU with
+// a residual among them).
 extern "C" int tat_mm_int8_fused_mma(
     int n_parts, const void* const* xs, const long long* ldx,
     const void* const* ws, const int* ldw, const int* ks,
     const float* part_scales, int same_scale, const void* bias,
     float bias_scale, const void* cs, const void* res, void* out, long long M,
     int N, int act, float inv_out, float alpha, float res_scale, int bm,
-    int bn, int kc, int stages, int tiles_per_block, void* stream) {
+    int bn, int kc, int stages, int tiles_per_block, int compute,
+    void* stream) {
   if (n_parts < 1 || n_parts > kMaxParts || M < 1 || N < 1 ||
       tiles_per_block < 1 || cs == nullptr ||
       (res != nullptr && act == tat::kActLeakyRelu))
@@ -692,45 +734,63 @@ extern "C" int tat_mm_int8_fused_mma(
   MmGeom g = {};
   set_parts(g, n_parts, ks);
   cudaError_t err;
-  const auto k = prepare(act, same_scale ? 0 : 1, bm, bn, kc, stages, g, err);
-  if (k == nullptr) return static_cast<int>(err);
-  g.vec_a = g.vec_w = 1;
-  for (int i = 0; i < n_parts; ++i) {
-    g.x[i] = static_cast<const int8_t*>(xs[i]);
-    g.w[i] = static_cast<const int8_t*>(ws[i]);
-    g.ldx[i] = ldx[i];
-    g.ldw[i] = ldw[i];
-    g.s[i] = part_scales[i];
-    g.vec_a = g.vec_a && aligned16(xs[i]) && ldx[i] % 16 == 0;
-    g.vec_w = g.vec_w && aligned16(ws[i]) && ldw[i] % 16 == 0;
-  }
-  const unsigned blocks = set_run(g, M, N, tiles_per_block, out);
+  const bool modal = takes_mode(act, compute, err);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const ServingParams ep = {
       static_cast<const float*>(cs), inv_out, alpha,
       static_cast<const int8_t*>(res), res_scale,
       N % 16 == 0 && aligned16(res)};
-  k<<<blocks, kThreads, static_cast<size_t>(g.smem),
-      static_cast<cudaStream_t>(stream)>>>(
-      g, static_cast<const int*>(bias), bias_scale, ep,
-      static_cast<int8_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  // the kernel k, prepared, launched on its params p
+  auto launch = [&](auto k, const auto& p) {
+    if (k == nullptr) return static_cast<int>(err);
+    g.vec_a = g.vec_w = 1;
+    for (int i = 0; i < n_parts; ++i) {
+      g.x[i] = static_cast<const int8_t*>(xs[i]);
+      g.w[i] = static_cast<const int8_t*>(ws[i]);
+      g.ldx[i] = ldx[i];
+      g.ldw[i] = ldw[i];
+      g.s[i] = part_scales[i];
+      g.vec_a = g.vec_a && aligned16(xs[i]) && ldx[i] % 16 == 0;
+      g.vec_w = g.vec_w && aligned16(ws[i]) && ldw[i] % 16 == 0;
+    }
+    const unsigned blocks = set_run(g, M, N, tiles_per_block, out);
+    k<<<blocks, kThreads, static_cast<size_t>(g.smem),
+        static_cast<cudaStream_t>(stream)>>>(
+        g, static_cast<const int*>(bias), bias_scale, p,
+        static_cast<int8_t*>(out));
+    return static_cast<int>(cudaGetLastError());
+  };
+  const int per_part = same_scale ? 0 : 1;
+  if (modal)
+    return launch(prepare_mode(compute, per_part, bm, bn, kc, stages, g, err),
+                  ServingModeParams{ep, act});
+  return launch(prepare(act, per_part, bm, bn, kc, stages, g, err), ep);
 }
 
 // The dynamic shared memory of a plan in bytes and the blocks of its kernel
-// an SM holds at once; cudaErrorInvalidValue for a plan the kernel cannot
-// run.
+// (of the act and the product) an SM holds at once; cudaErrorInvalidValue
+// for a plan the kernel cannot run.
 extern "C" int tat_mm_int8_fused_mma_info(int n_parts, const int* ks,
                                           int same_scale, int act, int bm,
                                           int bn, int kc, int stages,
-                                          int* smem, int* blocks_per_sm) {
+                                          int compute, int* smem,
+                                          int* blocks_per_sm) {
   if (n_parts < 1 || n_parts > kMaxParts)
     return static_cast<int>(cudaErrorInvalidValue);
   MmGeom g = {};
   set_parts(g, n_parts, ks);
   cudaError_t err;
-  const auto k = prepare(act, same_scale ? 0 : 1, bm, bn, kc, stages, g, err);
-  if (k == nullptr) return static_cast<int>(err);
-  return occupancy(k, g, smem, blocks_per_sm);
+  const bool modal = takes_mode(act, compute, err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per_part = same_scale ? 0 : 1;
+  if (modal) {
+    const auto k = prepare_mode(compute, per_part, bm, bn, kc, stages, g, err);
+    return k == nullptr ? static_cast<int>(err)
+                        : occupancy(k, g, smem, blocks_per_sm);
+  }
+  const auto k = prepare(act, per_part, bm, bn, kc, stages, g, err);
+  return k == nullptr ? static_cast<int>(err)
+                      : occupancy(k, g, smem, blocks_per_sm);
 }
 
 // The exact tier's #9, one launch: x [M, K] int8 and w [N, K] int8, both

@@ -43,7 +43,11 @@
 //     four levels as the JAX kernel's, then the core's store_tile
 //     (ServingEpilogue<ACT> on the fragments, the tile staged and written
 //     16 bytes a thread). The next tile's first rows of y come in beside
-//     the ring.
+//     the ring. The JAX modes take ServingModeEpilogue<BF16> (the act at
+//     run time, SILU_FAST among them); with BF16 (TAT_SERVING_COMPUTE=
+//     bf16) the same int8 values go through the bf16 product into one f32
+//     sum over the four levels, where the JAX kernel adds four f32 part
+//     sums: the two may round differently once a sum passes 2^24.
 // Every multiply and add of the epilogue is an explicit round-to-nearest
 // intrinsic (epilogue.cuh).
 //
@@ -257,13 +261,12 @@ __device__ void load_b(const SppfGeom& g, const int8_t* __restrict__ w,
                    g.KC, g.bpitch, 4LL * g.C, g.vec_w);
 }
 
-template <int MI, int NI, int ACT>
+template <int MI, int NI, class EP>
 __global__ void __launch_bounds__(kThreads, 1)
     sppf_mma_kernel(const int8_t* __restrict__ y,
                     const int8_t* __restrict__ w,
                     const int* __restrict__ bias, int8_t* __restrict__ out,
-                    SppfGeom g, ServingParams ep) {
-  using EP = ServingEpilogue<ACT>;
+                    SppfGeom g, typename EP::Params ep) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int BN = 16 * NI;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -326,7 +329,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     // the GEMM over the resident A, w through the ring, a BN block at a
     // time
-    int acc[MI][NI][4];
+    typename EP::Acc acc[MI][NI][4];
     typename EP::Col cols[NI][2];
     for (int s = 0; s < slices; ++s) {
       tat::cp_async_wait<kRing - 2>();   // slice s landed
@@ -372,45 +375,51 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+template <class P>
 using SppfKernel = void (*)(const int8_t*, const int8_t*, const int*,
-                            int8_t*, SppfGeom, ServingParams);
+                            int8_t*, SppfGeom, P);
 
-template <int ACT>
-SppfKernel pick_tile(int mi, int ni) {
-  if (mi == 1 && ni == 2) return sppf_mma_kernel<1, 2, ACT>;
-  if (mi == 2 && ni == 2) return sppf_mma_kernel<2, 2, ACT>;
-  if (mi == 1 && ni == 4) return sppf_mma_kernel<1, 4, ACT>;
-  if (mi == 2 && ni == 4) return sppf_mma_kernel<2, 4, ACT>;
-  if (mi == 1 && ni == 8) return sppf_mma_kernel<1, 8, ACT>;
+template <class EP>
+SppfKernel<typename EP::Params> pick_tile(int mi, int ni) {
+  if (mi == 1 && ni == 2) return sppf_mma_kernel<1, 2, EP>;
+  if (mi == 2 && ni == 2) return sppf_mma_kernel<2, 2, EP>;
+  if (mi == 1 && ni == 4) return sppf_mma_kernel<1, 4, EP>;
+  if (mi == 2 && ni == 4) return sppf_mma_kernel<2, 4, EP>;
+  if (mi == 1 && ni == 8) return sppf_mma_kernel<1, 8, EP>;
   return nullptr;
 }
 
-// The kernel of a plan and its layout in g (its shape set), or null for a
-// plan or act it cannot run; opts the kernel into its shared memory.
-SppfKernel prepare_sppf(int act, int bm, int bn, int ck, SppfGeom& g,
-                        cudaError_t& err) {
-  err = cudaErrorInvalidValue;
-  if ((bm != 64 && bm != 128) || (bn != 32 && bn != 64 && bn != 128) ||
-      (ck != 32 && ck != 64 && ck != 128))
-    return nullptr;
-  SppfKernel k = nullptr;
+SppfKernel<ServingParams> pick_act(int act, int mi, int ni) {
   switch (act) {
     case tat::kActNone:
-      k = pick_tile<tat::kActNone>(bm / 64, bn / 16);
-      break;
+      return pick_tile<ServingEpilogue<tat::kActNone>>(mi, ni);
     case tat::kActRelu:
-      k = pick_tile<tat::kActRelu>(bm / 64, bn / 16);
-      break;
+      return pick_tile<ServingEpilogue<tat::kActRelu>>(mi, ni);
     case tat::kActLeakyRelu:
-      k = pick_tile<tat::kActLeakyRelu>(bm / 64, bn / 16);
-      break;
+      return pick_tile<ServingEpilogue<tat::kActLeakyRelu>>(mi, ni);
     case tat::kActSilu:
-      k = pick_tile<tat::kActSilu>(bm / 64, bn / 16);
-      break;
-    default:   // SILU_FAST is compiled only into the probes' kernels
+      return pick_tile<ServingEpilogue<tat::kActSilu>>(mi, ni);
+    default:
       return nullptr;
   }
-  if (k == nullptr) return nullptr;
+}
+
+// The kernel of the JAX modes (the act at run time) for the product
+// `compute` (tat::Compute).
+SppfKernel<ServingModeParams> pick_mode(int compute, int mi, int ni) {
+  return compute == tat::kComputeBf16
+             ? pick_tile<ServingModeEpilogue<true>>(mi, ni)
+             : pick_tile<ServingModeEpilogue<false>>(mi, ni);
+}
+
+// Kernel k of a plan and its layout in g (its shape set), or null (err
+// set) for a plan it cannot run; opts k into its shared memory.
+template <class K>
+K prepare_sppf(K k, int bm, int bn, int ck, SppfGeom& g, cudaError_t& err) {
+  err = cudaErrorInvalidValue;
+  if ((bm != 64 && bm != 128) || (bn != 32 && bn != 64 && bn != 128) ||
+      (ck != 32 && ck != 64 && ck != 128) || k == nullptr)
+    return nullptr;
   g.BN = bn;
   g.CK = ck;
   g.out.TH = 1;
@@ -455,59 +464,75 @@ bool set_shape(SppfGeom& g, int H, int W, int C, int k) {
 
 // One launch: y NHWC [batch, H, W, C] and w [O, 4C] int8 (columns: y's,
 // then m1's, m2's, m3's), bias [O] int32 or null, cs [O] f32, out NHWC
-// [batch, H, W, O] int8; the pools' k (odd); the epilogue's act (tat::Act,
-// not SILU_FAST), inv_out and alpha. The plan: bm consecutive pixels a tile
-// (64, 128), bn output channels a GEMM block (32, 64, or 128 with 64
-// pixels), ck channels a pyramid chunk (32, 64, 128), tiles_per_block tiles
-// a block (each over all O, its BN blocks in turn). Returns a cudaError_t;
-// cudaErrorInvalidValue for a shape or plan it cannot run.
+// [batch, H, W, O] int8; the pools' k (odd); the epilogue's act (tat::Act),
+// inv_out and alpha. The plan: bm consecutive pixels a tile (64, 128), bn
+// output channels a GEMM block (32, 64, or 128 with 64 pixels), ck
+// channels a pyramid chunk (32, 64, 128), tiles_per_block tiles a block
+// (each over all O, its BN blocks in turn); the product (tat::Compute: s8,
+// or bf16 on f32 sums). Returns a cudaError_t; cudaErrorInvalidValue for a
+// shape or plan it cannot run.
 extern "C" int tat_sppf_int8_fused(const void* y, const void* w,
                                    const void* bias, const void* cs, void* out,
                                    int batch, int H, int W, int C, int O, int k,
                                    int act, float inv_out, float alpha, int bm,
                                    int bn, int ck, int tiles_per_block,
-                                   void* stream) {
+                                   int compute, void* stream) {
   SppfGeom g = {};
   if (batch < 1 || O < 1 || tiles_per_block < 1 ||
       cs == nullptr || !set_shape(g, H, W, C, k))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  const SppfKernel kern = prepare_sppf(act, bm, bn, ck, g, err);
-  if (kern == nullptr) return static_cast<int>(err);
-  g.O = O;
-  g.vec_y = C % 16 == 0 && aligned16(y);
-  g.vec_w = C % 16 == 0 && aligned16(w);
-  g.out.O = O;
-  g.out.OH = 1;
-  g.out.OW = g.HW;
-  g.out.ntw = g.out.tiles_img = (g.HW + bm - 1) / bm;
-  g.out.vec_out = O % 16 == 0 && aligned16(out);
-  g.by_tiles = fast_div(g.out.tiles_img);
-  g.tiles = batch * g.out.tiles_img;
-  g.tpb = tiles_per_block < g.tiles ? tiles_per_block : g.tiles;
-  g.nblk = (O + bn - 1) / bn;
-  const dim3 grid(static_cast<unsigned>((g.tiles + g.tpb - 1) / g.tpb));
+  const bool modal = takes_mode(act, compute, err);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const ServingParams ep = {static_cast<const float*>(cs), inv_out, alpha,
                             nullptr, 0.0f, 0};
-  kern<<<grid, kThreads, static_cast<size_t>(g.smem),
-         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(y), static_cast<const int8_t*>(w),
-      static_cast<const int*>(bias), static_cast<int8_t*>(out), g, ep);
-  return static_cast<int>(cudaGetLastError());
+  // kernel kern, prepared, launched on its params p
+  auto launch = [&](auto kern, const auto& p) {
+    if (prepare_sppf(kern, bm, bn, ck, g, err) == nullptr)
+      return static_cast<int>(err);
+    g.O = O;
+    g.vec_y = C % 16 == 0 && aligned16(y);
+    g.vec_w = C % 16 == 0 && aligned16(w);
+    g.out.O = O;
+    g.out.OH = 1;
+    g.out.OW = g.HW;
+    g.out.ntw = g.out.tiles_img = (g.HW + bm - 1) / bm;
+    g.out.vec_out = O % 16 == 0 && aligned16(out);
+    g.by_tiles = fast_div(g.out.tiles_img);
+    g.tiles = batch * g.out.tiles_img;
+    g.tpb = tiles_per_block < g.tiles ? tiles_per_block : g.tiles;
+    g.nblk = (O + bn - 1) / bn;
+    const dim3 grid(static_cast<unsigned>((g.tiles + g.tpb - 1) / g.tpb));
+    kern<<<grid, kThreads, static_cast<size_t>(g.smem),
+           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int8_t*>(y), static_cast<const int8_t*>(w),
+        static_cast<const int*>(bias), static_cast<int8_t*>(out), g, p);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (modal)
+    return launch(pick_mode(compute, bm / 64, bn / 16),
+                  ServingModeParams{ep, act});
+  return launch(pick_act(act, bm / 64, bn / 16), ep);
 }
 
 // The dynamic shared memory of a plan in bytes and the blocks of the act's
-// kernel an SM holds at once; cudaErrorInvalidValue for a plan the kernel
-// cannot run.
+// and product's kernel an SM holds at once; cudaErrorInvalidValue for a
+// plan the kernel cannot run.
 extern "C" int tat_sppf_int8_fused_info(int act, int H, int W, int C, int k,
-                                        int bm, int bn, int ck, int* smem,
-                                        int* blocks_per_sm) {
+                                        int bm, int bn, int ck, int compute,
+                                        int* smem, int* blocks_per_sm) {
   SppfGeom g = {};
   if (!set_shape(g, H, W, C, k)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  const SppfKernel kern = prepare_sppf(act, bm, bn, ck, g, err);
-  if (kern == nullptr) return static_cast<int>(err);
-  *smem = g.smem;
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kern, kThreads, static_cast<size_t>(g.smem)));
+  const bool modal = takes_mode(act, compute, err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto info = [&](auto kern) {
+    if (prepare_sppf(kern, bm, bn, ck, g, err) == nullptr)
+      return static_cast<int>(err);
+    *smem = g.smem;
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, kern, kThreads, static_cast<size_t>(g.smem)));
+  };
+  if (modal) return info(pick_mode(compute, bm / 64, bn / 16));
+  return info(pick_act(act, bm / 64, bn / 16));
 }

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -43,15 +44,16 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # n_parts, xs[4], ldx[4], ws[4], ldw[4], K[4], part_scales[4],
     # same_scale, bias, bias_scale, cs, res, out, M, N, act, inv_out,
-    # alpha, res_scale, bm, bn, kc, stages, tiles_per_block, stream
+    # alpha, res_scale, bm, bn, kc, stages, tiles_per_block, compute,
+    # stream
     "tat_mm_int8_fused_mma": (
         _I, ctypes.POINTER(_P), ctypes.POINTER(_L), ctypes.POINTER(_P),
         ctypes.POINTER(_I), ctypes.POINTER(_I), ctypes.POINTER(_F), _I, _P,
-        _F, _P, _P, _P, _L, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _P),
-    # n_parts, K[4], same_scale, act, bm, bn, kc, stages, -> smem bytes,
-    # blocks an SM
+        _F, _P, _P, _P, _L, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _I, _P),
+    # n_parts, K[4], same_scale, act, bm, bn, kc, stages, compute, -> smem
+    # bytes, blocks an SM
     "tat_mm_int8_fused_mma_info": (_I, ctypes.POINTER(_I), _I, _I, _I, _I,
-                                   _I, _I, ctypes.POINTER(_I),
+                                   _I, _I, _I, ctypes.POINTER(_I),
                                    ctypes.POINTER(_I)),
     # the exact tier's #9 on the same kernel: x, w, bias, lut, out, M, N, K,
     # cs, round_mode, relu, bm, bn, kc, stages, tiles_per_block, stream
@@ -62,27 +64,27 @@ _SIGNATURES = {
                                      ctypes.POINTER(_I)),
     # x, w, bias, cs, res, out, batch, H, W, C, O, KH, KW, stride, pt, pl,
     # OH, OW, act, inv_out, alpha, res_scale, mode, tile_h, tile_w, bn, ck,
-    # resident, tiles_per_block, stream
+    # resident, tiles_per_block, compute, stream
     "tat_conv_int8_fused_mma": (_P, _P, _P, _P, _P, _P, *(_I,) * 13, _F, _F,
-                                _F, *(_I,) * 7, _P),
+                                _F, *(_I,) * 8, _P),
     # act, mode, C, KH, KW, stride, tile_h, tile_w, bn, ck, resident,
-    # -> smem bytes, blocks an SM
-    "tat_conv_int8_fused_mma_info": (*(_I,) * 11, ctypes.POINTER(_I),
+    # compute, -> smem bytes, blocks an SM
+    "tat_conv_int8_fused_mma_info": (*(_I,) * 12, ctypes.POINTER(_I),
                                      ctypes.POINTER(_I)),
     # x, w1, b1, cs1, w2, b2, cs2, out, batch, H, W, C, CM, O, K, act1,
     # inv1, alpha1, act2, inv2, alpha2, shortcut, res_scale, tile_h, tile_w,
-    # bn, resident, tiles_per_block, stream
+    # bn, resident, tiles_per_block, compute, stream
     "tat_bneck_int8_fused": (*(_P,) * 8, *(_I,) * 8, _F, _F, _I, _F, _F, _I,
-                             _F, *(_I,) * 5, _P),
-    # act1, act2, C, CM, K, tile_h, tile_w, bn, resident, -> smem bytes,
-    # blocks an SM
-    "tat_bneck_int8_fused_info": (*(_I,) * 9, ctypes.POINTER(_I),
+                             _F, *(_I,) * 6, _P),
+    # act1, act2, C, CM, K, tile_h, tile_w, bn, resident, compute, -> smem
+    # bytes, blocks an SM
+    "tat_bneck_int8_fused_info": (*(_I,) * 10, ctypes.POINTER(_I),
                                   ctypes.POINTER(_I)),
     # y, w, bias, cs, out, batch, H, W, C, O, k, act, inv_out, alpha, bm,
-    # bn, ck, tiles_per_block, stream
-    "tat_sppf_int8_fused": (*(_P,) * 5, *(_I,) * 7, _F, _F, *(_I,) * 4, _P),
-    # act, H, W, C, k, bm, bn, ck, -> smem bytes, blocks an SM
-    "tat_sppf_int8_fused_info": (*(_I,) * 8, ctypes.POINTER(_I),
+    # bn, ck, tiles_per_block, compute, stream
+    "tat_sppf_int8_fused": (*(_P,) * 5, *(_I,) * 7, _F, _F, *(_I,) * 5, _P),
+    # act, H, W, C, k, bm, bn, ck, compute, -> smem bytes, blocks an SM
+    "tat_sppf_int8_fused_info": (*(_I,) * 9, ctypes.POINTER(_I),
                                  ctypes.POINTER(_I)),
     # x, w, bias, cs, out, batch, H, W, C, KH, KW, pt, pl, OH, OW, act,
     # inv_out, alpha, tile_h, groups, stream
@@ -164,12 +166,31 @@ def library_path(sources: Sequence[str] = SOURCES,
     return BUILD_DIR / f"libtat_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _wait_all(procs, t0: float) -> list:
+    """Wait for every process of ``procs``: for each, (seconds from ``t0``
+    until it ended, the CPU seconds it and its children used). Each is
+    reaped by its own pid, so a build in another thread keeps its own."""
+    ended = [None] * len(procs)
+    while None in ended:
+        for i, proc in enumerate(procs):
+            if ended[i] is not None:
+                continue
+            pid, status, usage = os.wait4(proc.pid, os.WNOHANG)
+            if pid:
+                proc.returncode = os.waitstatus_to_exitcode(status)
+                ended[i] = (time.perf_counter() - t0,
+                            usage.ru_utime + usage.ru_stime)
+        time.sleep(0.05)
+    return ended
+
+
 def build(sources: Sequence[str] = SOURCES,
           flags: Sequence[str] = ()) -> Path:
     """Compile ``sources`` with ``NVCC_FLAGS`` and ``flags`` unless this
-    exact build exists; return the library's path. ``nvcc``'s output (with
-    ``-Xptxas -v``: registers, shared memory and spills per kernel) goes to
-    ``<library>.log``."""
+    exact build exists, one ``nvcc`` a source, all at once; return the
+    library's path. ``nvcc``'s output (with ``-Xptxas -v``: registers,
+    shared memory and spills per kernel), each source's seconds until its
+    ``nvcc`` ended and the CPU seconds it used, go to ``<library>.log``."""
     so = library_path(sources, flags)
     if so.exists():
         return so
@@ -179,13 +200,22 @@ def build(sources: Sequence[str] = SOURCES,
     objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in sources]
     cmds = [[nvcc, *NVCC_FLAGS, *flags, "-I", str(CSRC), "-c", "-o",
              str(obj), str(CSRC / src)] for src, obj in zip(sources, objs)]
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
+    # each nvcc writes to a file of its own: one whose ptxas report outgrew
+    # a pipe would stop until the pipes before it had been read
+    outs = [obj.with_suffix(".out") for obj in objs]
+    t0 = time.perf_counter()
+    procs = []
+    for cmd, path in zip(cmds, outs):
+        with open(path, "w") as f:
+            procs.append(subprocess.Popen(cmd, stdout=f,
+                                          stderr=subprocess.STDOUT))
+    ended = _wait_all(procs, t0)
     logs, failed = [], []
-    for cmd, proc in zip(cmds, procs):
-        out, _ = proc.communicate()
-        logs.append(" ".join(cmd) + "\n" + out)
+    for cmd, path, proc, (secs, cpu) in zip(cmds, outs, procs, ended):
+        out = path.read_text()
+        path.unlink()
+        logs.append(f"# {Path(cmd[-1]).name}: {secs:.1f} s, {cpu:.1f} s "
+                    f"CPU\n" + " ".join(cmd) + "\n" + out)
         if proc.returncode != 0:
             failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out[-4000:]}")
     tmp = so.with_name(f"{tag}.so.tmp")

@@ -45,6 +45,15 @@ the kernel multiplies by, after one of the three rules of the JAX
 package (:func:`res_scale_multi`, :func:`res_scale_bneck`,
 :func:`res_scale_folded`). LEAKY_RELU takes no residual: its alpha
 applies on the quantized value.
+
+The JAX serving modes: every kernel's epilogue takes the act
+``SILU_FAST`` (the Pade sigmoid :func:`sigmoid_fast`, which the executor
+picks for SILU under ``TAT_FAST_SILU``), and the wrappers JAX gives a
+``compute`` argument (#1-#6) take one: ``"int8"`` (the s8 tensor-core
+product, int32 sums) or ``"bf16"`` (the same int8 values through the bf16
+tensor-core product into f32 sums, the epilogue from ``(acc + f32(bias))
+* cs``: equal to int8 while every partial sum stays below 2^24 in
+magnitude); None reads ``TAT_SERVING_COMPUTE`` (:func:`compute_mode`).
 """
 
 from __future__ import annotations
@@ -60,21 +69,31 @@ import torch.nn.functional as F
 
 from thingino_accel_tpu_torch.ops import cuda_build
 from thingino_accel_tpu_torch.ops import reference as R
+from thingino_accel_tpu_torch.utils import config
 
-# SILU_FAST: the Pade sigmoid of the JAX ``_sigmoid_fast``; as in JAX no
-# executor path selects it by default (TAT_FAST_SILU there)
+# SILU_FAST: the Pade sigmoid of the JAX ``_sigmoid_fast``; as in JAX the
+# executor selects it for SILU only under TAT_FAST_SILU
 ACTS = ("NONE", "RELU", "LEAKY_RELU", "SILU", "SILU_FAST")
 _ACT_CODE = {a: i for i, a in enumerate(ACTS)}   # tat::Act in epilogue.cuh
 _LINEAR = ("NONE", "RELU", "LEAKY_RELU")
 MAX_PARTS = 4   # parts of matmul_int8_fused_multi: SPPF's concat has 4
+COMPUTES = ("int8", "bf16")
+_COMPUTE_CODE = {c: i for i, c in enumerate(COMPUTES)}   # tat::Compute
+
+
+def compute_mode(compute: Optional[str]) -> str:
+    """The serving kernels' product, as the JAX ``_compute_mode``:
+    ``compute`` itself, or ``TAT_SERVING_COMPUTE`` where it is None;
+    anything but ``"int8"`` or ``"bf16"`` fails as JAX's assert does."""
+    if compute is None:
+        compute = config.get("TAT_SERVING_COMPUTE")
+    if compute not in COMPUTES:
+        raise AssertionError(compute)
+    return compute
 
 
 def _kernel_act(act: str) -> int:
-    """``tat::Act`` of a serving kernel's epilogue. SILU_FAST is compiled
-    only into the probes' kernels (``act_requant<true>``, epilogue.cuh):
-    a serving kernel refuses it; the plain versions take it."""
-    if act == "SILU_FAST":
-        raise ValueError("the serving kernels are built without SILU_FAST")
+    """``tat::Act`` of a kernel's epilogue (SILU_FAST included)."""
     return _ACT_CODE[act]
 
 
@@ -257,9 +276,17 @@ def act_requant_plain(pre: torch.Tensor, ep: Epilogue,
 
 def epilogue_plain(acc: torch.Tensor, bias: Optional[torch.Tensor],
                    ep: Epilogue, residual: Optional[torch.Tensor] = None,
-                   res_scale: float = 1.0) -> torch.Tensor:
-    """int32 accumulator [..., N] -> int8 (the JAX ``_epilogue``): +
-    bias (int32), -> f32, x cs, then :func:`act_requant_plain`."""
+                   res_scale: float = 1.0,
+                   compute: str = "int8") -> torch.Tensor:
+    """Accumulator [..., N] -> int8 (the JAX ``_epilogue``). int8: the
+    int32 sums + bias (int32), -> f32, x cs; bf16: the sums as f32 (an
+    int32 ``acc`` rounded to f32 once), + f32(bias), x cs, as the f32
+    branch. Then :func:`act_requant_plain`."""
+    if compute == "bf16":
+        pre = acc.to(torch.float32)
+        if bias is not None:
+            pre = pre + bias.to(torch.float32)
+        return act_requant_plain(pre * ep.cs, ep, residual, res_scale)
     if bias is not None:
         acc = acc + bias
     return act_requant_plain(acc.to(torch.float32) * ep.cs, ep, residual,
@@ -274,9 +301,13 @@ def _mm_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def matmul_int8_fused_plain(x: torch.Tensor, w: torch.Tensor,
                             bias: Optional[torch.Tensor], ep: Epilogue,
                             residual: Optional[torch.Tensor] = None,
-                            res_scale: float = 1.0) -> torch.Tensor:
-    """``x [M, K] int8 @ w [N, K]^T`` [+ residual [M, N]] -> int8 [M, N]."""
-    return epilogue_plain(_mm_acc(x, w), bias, ep, residual, res_scale)
+                            res_scale: float = 1.0,
+                            compute: str = "int8") -> torch.Tensor:
+    """``x [M, K] int8 @ w [N, K]^T`` [+ residual [M, N]] -> int8 [M, N];
+    ``compute`` the epilogue's branch (:func:`epilogue_plain`): the sums
+    are exact either way."""
+    return epilogue_plain(_mm_acc(x, w), bias, ep, residual, res_scale,
+                          compute)
 
 
 def conv2d_int8_halo_fused_plain(
@@ -284,34 +315,38 @@ def conv2d_int8_halo_fused_plain(
     ep: Epilogue, out_hw: Tuple[int, int],
     pads: Tuple[Tuple[int, int], Tuple[int, int]], stride: int = 1,
     residual: Optional[torch.Tensor] = None, res_scale: float = 1.0,
+    compute: str = "int8",
 ) -> torch.Tensor:
     """NHWC int8 ``x`` (*) OHWI int8 ``w`` at square ``stride`` with zero
     padding ``pads`` [+ residual [N, OH, OW, O]] -> int8 NHWC
-    [N, OH, OW, O]."""
+    [N, OH, OW, O]; ``compute`` the epilogue's branch."""
     (pt, pb), (pl, pr) = pads
     oh, ow = out_hw
     xd = F.pad(x.permute(0, 3, 1, 2).to(torch.float64), (pl, pr, pt, pb))
     acc = F.conv2d(xd, w.permute(0, 3, 1, 2).to(torch.float64),
                    stride=stride)[:, :, :oh, :ow]
     acc = acc.permute(0, 2, 3, 1).to(torch.int32)
-    return epilogue_plain(acc, bias, ep, residual, res_scale)
+    return epilogue_plain(acc, bias, ep, residual, res_scale, compute)
 
 
 def matmul_int8_fused_multi_plain(
     xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
     bias: Optional[torch.Tensor], me: MultiEpilogue,
     residual: Optional[torch.Tensor] = None, res_scale: float = 1.0,
+    compute: str = "int8",
 ) -> torch.Tensor:
     """``sum_i x_i [M, K_i] @ w_i [N, K_i]^T`` -> int8 [M, N]. Equal
-    scales: an int32 sum and the ordinary epilogue. Otherwise, as
-    ``_mm_multi_kernel``: ``dot_i * s_i`` summed in f32 in part order,
-    ``+ bias * bias_scale``, ``x cs``, then the activation tail."""
+    scales: an int32 sum (bf16: each part's sum as f32, added in f32 in
+    part order, as ``_mm_multi_kernel``'s f32 dots) and the ordinary
+    epilogue. Otherwise, as ``_mm_multi_kernel``: ``dot_i * s_i`` summed
+    in f32 in part order, ``+ bias * bias_scale``, ``x cs``, then the
+    activation tail."""
     accs = [_mm_acc(x, w) for x, w in zip(xs, ws)]
     if me.same_scale:
-        acc = accs[0]
+        acc = accs[0].to(torch.float32) if compute == "bf16" else accs[0]
         for a in accs[1:]:
-            acc = acc + a
-        return epilogue_plain(acc, bias, me.ep, residual, res_scale)
+            acc = acc + (a.to(torch.float32) if compute == "bf16" else a)
+        return epilogue_plain(acc, bias, me.ep, residual, res_scale, compute)
     accf = accs[0].to(torch.float32) * me.part_scales[0]
     for a, s in zip(accs[1:], me.part_scales[1:]):
         accf = accf + a.to(torch.float32) * s
@@ -326,31 +361,43 @@ def bottleneck_int8_fused_plain(
     x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
     ep1: Epilogue, w2: torch.Tensor, b2: Optional[torch.Tensor],
     ep2: Epilogue, shortcut: bool = False, res_scale: float = 1.0,
+    compute: str = "int8",
 ) -> torch.Tensor:
     """The C3 bottleneck: ``m = 1x1(x)`` (x NHWC [N, H, W, C], w1
     [CM, C]), then the KxK/1 conv over m with zero (quantized zero)
-    padding (w2 OHWI [O, K, K, CM]) [+ x] -> int8 [N, H, W, O]."""
+    padding (w2 OHWI [O, K, K, CM]) [+ x] -> int8 [N, H, W, O]; both
+    epilogues in ``compute``'s branch."""
     n, h, wd, c = x.shape
     k = w2.shape[1]
     hh = (k - 1) // 2
-    m = matmul_int8_fused_plain(x.reshape(n * h * wd, c), w1, b1, ep1)
+    m = matmul_int8_fused_plain(x.reshape(n * h * wd, c), w1, b1, ep1,
+                                compute=compute)
     return conv2d_int8_halo_fused_plain(
         m.reshape(n, h, wd, -1), w2, b2, ep2, (h, wd), ((hh, hh), (hh, hh)),
-        1, residual=x if shortcut else None, res_scale=res_scale)
+        1, residual=x if shortcut else None, res_scale=res_scale,
+        compute=compute)
 
 
 def sppf_int8_fused_plain(x: torch.Tensor, w: torch.Tensor,
                           bias: Optional[torch.Tensor], ep: Epilogue,
-                          k: int) -> torch.Tensor:
+                          k: int, compute: str = "int8") -> torch.Tensor:
     """SPPF: ``m_{i+1} = maxpool_kxk/1(m_i)`` (padding -128), then the
     1x1 conv ``w [O, 4C]`` over ``concat(x, m1, m2, m3)`` -> int8
-    [N, H, W, O]."""
+    [N, H, W, O]. bf16: the four levels' sums as f32, added in f32 in
+    level order, as ``_sppf_kernel``'s f32 part dots."""
     n, h, wd, c = x.shape
     p = (k - 1) // 2
     levels = [x]
     for _ in range(3):
         levels.append(R.maxpool(levels[-1], (k, k), (1, 1), (h, wd),
                                 ((p, p), (p, p))))
+    if compute == "bf16":
+        me = MultiEpilogue(ep=ep, same_scale=True, part_scales=(1.0,) * 4,
+                           bias_scale=1.0)
+        return matmul_int8_fused_multi_plain(
+            [lv.reshape(n * h * wd, c) for lv in levels],
+            [w[:, i * c:(i + 1) * c] for i in range(4)], bias, me,
+            compute=compute).reshape(n, h, wd, -1)
     cat = torch.cat(levels, 3).reshape(n * h * wd, 4 * c)
     return matmul_int8_fused_plain(cat, w, bias, ep).reshape(n, h, wd, -1)
 
@@ -427,12 +474,15 @@ def _stream(dev) -> int:
 def matmul_int8_fused(x: torch.Tensor, w: torch.Tensor,
                       bias: Optional[torch.Tensor], ep: Epilogue,
                       residual: Optional[torch.Tensor] = None,
-                      res_scale: float = 1.0) -> torch.Tensor:
+                      res_scale: float = 1.0,
+                      compute: Optional[str] = None) -> torch.Tensor:
     """``int8 = requant(act((x @ w^T + b) * cs) [+ r * res_scale])``:
     x [M, K] int8, w [N, K] int8, bias [N] int32 or None, residual
-    [M, N] int8 or None -> int8 [M, N]. On a CUDA tensor: the tensor-core
-    1x1 GEMM ``tat_mm_int8_fused_mma`` (``csrc/mm_int8_fused_mma.cu``,
-    one part) with :func:`gemm_plan`; on the CPU the plain version."""
+    [M, N] int8 or None -> int8 [M, N]; ``compute`` the product
+    (:func:`compute_mode`). On a CUDA tensor: the tensor-core 1x1 GEMM
+    ``tat_mm_int8_fused_mma`` (``csrc/mm_int8_fused_mma.cu``, one part)
+    with :func:`gemm_plan`; on the CPU the plain version."""
+    compute = compute_mode(compute)
     m, k = x.shape
     n, k_w = w.shape
     if k_w != k:
@@ -440,18 +490,20 @@ def matmul_int8_fused(x: torch.Tensor, w: torch.Tensor,
     dev = _check_operands(x, w, bias, ep, n)
     _check_residual(residual, (m, n), ep.act, dev)
     if dev.type == "cpu":
-        return matmul_int8_fused_plain(x, w, bias, ep, residual, res_scale)
+        return matmul_int8_fused_plain(x, w, bias, ep, residual, res_scale,
+                                       compute)
     out = torch.empty((m, n), dtype=torch.int8, device=dev)
     if m > 0:
-        _launch_mm(x, w, bias, ep, residual, res_scale, out)
+        _launch_mm(x, w, bias, ep, residual, res_scale, out, compute)
         launches["matmul_int8_fused"] += 1
     return out
 
 
-def _launch_mm(x, w, bias, ep, residual, res_scale, out) -> None:
+def _launch_mm(x, w, bias, ep, residual, res_scale, out,
+               compute: str = "int8") -> None:
     """#1 on the card: the one-part case of ``tat_mm_int8_fused_mma``."""
     _launch_gemm([x], [w], bias, ep, (1.0,), True, 1.0, residual, res_scale,
-                 out)
+                 out, compute=compute)
 
 
 def conv2d_int8_halo_fused(
@@ -459,7 +511,7 @@ def conv2d_int8_halo_fused(
     ep: Epilogue, out_hw: Tuple[int, int],
     pads: Tuple[Tuple[int, int], Tuple[int, int]], stride: int = 1,
     residual: Optional[torch.Tensor] = None, res_scale: float = 1.0,
-    pipeline: str = "blockspec",
+    pipeline: str = "blockspec", compute: Optional[str] = None,
 ) -> torch.Tensor:
     """KxK int8 conv at square ``stride``: x NHWC [N, H, W, C] int8,
     w OHWI [O, KH, KW, C] int8 [+ residual [N, OH, OW, O]] -> int8
@@ -468,13 +520,17 @@ def conv2d_int8_halo_fused(
     the window; rows and columns past the input are zero.
 
     ``pipeline`` names the TPU kernel a call stands for: ``"blockspec"``
-    #2, ``"dma"`` #5 (no residual, as in JAX). Both compute the same
-    function, and on a CUDA tensor both launch the one tensor-core kernel
-    ``tat_conv_int8_fused_mma`` with :func:`serving_plan` (each counted
-    under its own name in :data:`launches`); on the CPU both take the
-    plain version."""
+    #2, ``"dma"`` #5 (no residual and no bf16 ``compute``, as in JAX).
+    Both compute the same function, and on a CUDA tensor both launch the
+    one tensor-core kernel ``tat_conv_int8_fused_mma`` with
+    :func:`serving_plan` (each counted under its own name in
+    :data:`launches`); on the CPU both take the plain version."""
     if pipeline not in PIPELINES:
         raise ValueError(f"unknown pipeline {pipeline!r}; one of {PIPELINES}")
+    compute = compute_mode(compute)
+    if pipeline == "dma" and compute == "bf16":
+        raise ValueError("bf16 compute not supported on the dma "
+                         "pipeline variant")
     if pipeline == "dma" and residual is not None:
         raise ValueError("residual fusion not supported on the dma "
                          "pipeline variant")
@@ -487,12 +543,13 @@ def conv2d_int8_halo_fused(
     _check_residual(residual, (nb, oh, ow, o), ep.act, dev)
     if dev.type == "cpu":
         return conv2d_int8_halo_fused_plain(x, w, bias, ep, out_hw, pads,
-                                            stride, residual, res_scale)
+                                            stride, residual, res_scale,
+                                            compute)
     out = torch.empty((nb, oh, ow, o), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
     _launch_conv(x, w, bias, ep, pads, stride, residual, res_scale, out,
-                 serving_plan(x, w, out_hw, stride))
+                 serving_plan(x, w, out_hw, stride), compute)
     launches["conv2d_int8_halo_dma" if pipeline == "dma"
              else "conv2d_int8_halo_fused"] += 1
     return out
@@ -742,7 +799,7 @@ def serving_plan(x: torch.Tensor, w: torch.Tensor, out_hw, stride: int
 
 
 def _conv_args(x, w, bias, ep, pads, stride, residual, res_scale, out,
-               plan: ConvPlan) -> tuple:
+               plan: ConvPlan, compute: str = "int8") -> tuple:
     """The arguments of ``tat_conv_int8_fused_mma`` up to the stream."""
     nb, h, wd, c = x.shape
     o, kh, kw, _ = w.shape
@@ -751,27 +808,30 @@ def _conv_args(x, w, bias, ep, pads, stride, residual, res_scale, out,
             _ptr(out), nb, h, wd, c, o, kh, kw, stride, pt, pl, out.shape[1],
             out.shape[2], _kernel_act(ep.act), ep.inv_out, ep.alpha,
             _f32(res_scale), _MODE_CODE[plan.mode], plan.tile_h, plan.tile_w,
-            plan.bn, plan.ck, int(plan.resident), plan.tiles_per_block)
+            plan.bn, plan.ck, int(plan.resident), plan.tiles_per_block,
+            _COMPUTE_CODE[compute])
 
 
 def _launch_conv(x, w, bias, ep, pads, stride, residual, res_scale, out,
-                 plan: ConvPlan) -> None:
+                 plan: ConvPlan, compute: str = "int8") -> None:
     cuda_build.check(cuda_build.load_library().tat_conv_int8_fused_mma(
         *_conv_args(x, w, bias, ep, pads, stride, residual, res_scale, out,
-                    plan), _stream(out.device)), "tat_conv_int8_fused_mma")
+                    plan, compute), _stream(out.device)),
+        "tat_conv_int8_fused_mma")
 
 
 def conv_occupancy(plan: ConvPlan, c: int, kernel: Tuple[int, int],
-                   stride: int, act: str) -> Tuple[int, int]:
+                   stride: int, act: str,
+                   compute: str = "int8") -> Tuple[int, int]:
     """``(shared memory bytes, blocks an SM holds)`` of the serving KxK
-    kernel of ``act`` with ``plan`` on the current card
+    kernel of ``act`` and ``compute`` with ``plan`` on the current card
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
     cuda_build.check(cuda_build.load_library().tat_conv_int8_fused_mma_info(
         _kernel_act(act), _MODE_CODE[plan.mode], c, kernel[0], kernel[1],
         stride, plan.tile_h, plan.tile_w, plan.bn, plan.ck,
-        int(plan.resident), ctypes.byref(smem), ctypes.byref(blocks)),
-        "tat_conv_int8_fused_mma_info")
+        int(plan.resident), _COMPUTE_CODE[compute], ctypes.byref(smem),
+        ctypes.byref(blocks)), "tat_conv_int8_fused_mma_info")
     return smem.value, blocks.value
 
 
@@ -779,6 +839,7 @@ def matmul_int8_fused_multi(
     xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
     bias: Optional[torch.Tensor], me: MultiEpilogue,
     residual: Optional[torch.Tensor] = None, res_scale: float = 1.0,
+    compute: Optional[str] = None,
 ) -> torch.Tensor:
     """The fused lowering of CONCAT -> 1x1 CONV [-> ADD]: parts x_i
     [M, K_i] int8 and w_i [N, K_i] int8 (each may be a view whose rows
@@ -787,7 +848,9 @@ def matmul_int8_fused_multi(
     ``me.bias_scale * w_scale``, residual [M, N] int8 -> int8 [M, N].
     On a CUDA tensor: the kernel of :func:`matmul_int8_fused`,
     ``tat_mm_int8_fused_mma`` (``csrc/mm_int8_fused_mma.cu``), over the
-    parts; on the CPU the plain version."""
+    parts, its product ``compute`` (:func:`compute_mode`); on the CPU the
+    plain version."""
+    compute = compute_mode(compute)
     n_parts = len(xs)
     if not 1 <= n_parts <= MAX_PARTS or len(ws) != n_parts \
             or len(me.part_scales) != n_parts:
@@ -810,18 +873,19 @@ def matmul_int8_fused_multi(
     _check_residual(residual, (m, n), me.ep.act, dev)
     if dev.type == "cpu":
         return matmul_int8_fused_multi_plain(xs, ws, bias, me, residual,
-                                             res_scale)
+                                             res_scale, compute)
     out = torch.empty((m, n), dtype=torch.int8, device=dev)
     if m > 0:
-        _launch_multi(xs, ws, bias, me, residual, res_scale, out)
+        _launch_multi(xs, ws, bias, me, residual, res_scale, out, compute)
         launches["matmul_int8_fused_multi"] += 1
     return out
 
 
-def _launch_multi(xs, ws, bias, me, residual, res_scale, out) -> None:
+def _launch_multi(xs, ws, bias, me, residual, res_scale, out,
+                  compute: str = "int8") -> None:
     """#3 on the card: ``tat_mm_int8_fused_mma`` over the parts."""
     _launch_gemm(xs, ws, bias, me.ep, me.part_scales, me.same_scale,
-                 me.bias_scale, residual, res_scale, out)
+                 me.bias_scale, residual, res_scale, out, compute=compute)
 
 
 # ---------------------------------------------------------------------------
@@ -935,7 +999,8 @@ def gemm_plan(xs: Sequence[torch.Tensor], n: int, same_scale: bool
 
 
 def _gemm_args(xs, ws, bias, ep, part_scales, same_scale, bias_scale,
-               residual, res_scale, out, plan: MmPlan) -> tuple:
+               residual, res_scale, out, plan: MmPlan,
+               compute: str = "int8") -> tuple:
     """The arguments of ``tat_mm_int8_fused_mma`` up to the stream."""
     for t in list(xs) + list(ws):
         if t.shape[1] > 1 and t.stride(1) != 1:
@@ -952,51 +1017,56 @@ def _gemm_args(xs, ws, bias, ep, part_scales, same_scale, bias_scale,
             floats(*part_scales), int(same_scale), _ptr(bias),
             _f32(bias_scale), _ptr(ep.cs), _ptr(residual), _ptr(out), m, n,
             _kernel_act(ep.act), ep.inv_out, ep.alpha, _f32(res_scale),
-            plan.bm, plan.bn, plan.kc, plan.stages, plan.tiles_per_block)
+            plan.bm, plan.bn, plan.kc, plan.stages, plan.tiles_per_block,
+            _COMPUTE_CODE[compute])
 
 
 def _launch_gemm(xs, ws, bias, ep, part_scales, same_scale, bias_scale,
                  residual, res_scale, out,
-                 plan: Optional[MmPlan] = None) -> None:
+                 plan: Optional[MmPlan] = None, compute: str = "int8") -> None:
     if plan is None:
         plan = gemm_plan(xs, out.shape[1], same_scale)
     cuda_build.check(cuda_build.load_library().tat_mm_int8_fused_mma(
         *_gemm_args(xs, ws, bias, ep, part_scales, same_scale, bias_scale,
-                    residual, res_scale, out, plan), _stream(out.device)),
-        "tat_mm_int8_fused_mma")
+                    residual, res_scale, out, plan, compute),
+        _stream(out.device)), "tat_mm_int8_fused_mma")
 
 
 def gemm_occupancy(plan: MmPlan, ks: Sequence[int], same_scale: bool,
-                   act: str) -> Tuple[int, int]:
+                   act: str, compute: str = "int8") -> Tuple[int, int]:
     """``(shared memory bytes, blocks an SM holds)`` of the 1x1 GEMM of
-    ``act`` with ``plan`` on the current card."""
+    ``act`` and ``compute`` with ``plan`` on the current card."""
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
     cuda_build.check(cuda_build.load_library().tat_mm_int8_fused_mma_info(
-        *_gemm_info_args(plan, ks, same_scale, act), ctypes.byref(smem),
-        ctypes.byref(blocks)), "tat_mm_int8_fused_mma_info")
+        *_gemm_info_args(plan, ks, same_scale, act, compute),
+        ctypes.byref(smem), ctypes.byref(blocks)),
+        "tat_mm_int8_fused_mma_info")
     return smem.value, blocks.value
 
 
 def _gemm_info_args(plan: MmPlan, ks: Sequence[int], same_scale: bool,
-                    act: str) -> tuple:
+                    act: str, compute: str = "int8") -> tuple:
     """The arguments of ``tat_mm_int8_fused_mma_info`` up to the outputs."""
     ints = ctypes.c_int * MAX_PARTS
     return (len(ks), ints(*ks), int(same_scale), _kernel_act(act), plan.bm,
-            plan.bn, plan.kc, plan.stages)
+            plan.bn, plan.kc, plan.stages, _COMPUTE_CODE[compute])
 
 
 def bottleneck_int8_fused(
     x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
     ep1: Epilogue, w2: torch.Tensor, b2: Optional[torch.Tensor],
     ep2: Epilogue, shortcut: bool = False, res_scale: float = 1.0,
+    compute: Optional[str] = None,
 ) -> torch.Tensor:
     """``requant(act2(convKxK(requant(act1(x @ w1^T)))) [+ x])`` with the
     intermediate on chip: x NHWC [N, H, W, C] int8, w1 [CM, C], w2 OHWI
     [O, K, K, CM] (K odd, stride 1, SAME padding) -> int8 [N, H, W, O].
-    ``shortcut`` adds x itself (needs C == O) with ``res_scale``. On a CUDA
-    tensor: the tensor-core kernel ``tat_bneck_int8_fused``
+    ``shortcut`` adds x itself (needs C == O) with ``res_scale``; both
+    stages' product ``compute`` (:func:`compute_mode`). On a CUDA tensor:
+    the tensor-core kernel ``tat_bneck_int8_fused``
     (``csrc/bneck_int8_fused.cu``) with :func:`bneck_plan`; on the CPU the
     plain version."""
+    compute = compute_mode(compute)
     nb, h, wd, c = x.shape
     cm, c1 = w1.shape
     o, k, k2, cm2 = w2.shape
@@ -1009,17 +1079,18 @@ def bottleneck_int8_fused(
         _check_residual(x, (nb, h, wd, o), ep2.act, dev)
     if dev.type == "cpu":
         return bottleneck_int8_fused_plain(x, w1, b1, ep1, w2, b2, ep2,
-                                           shortcut, res_scale)
+                                           shortcut, res_scale, compute)
     out = torch.empty((nb, h, wd, o), dtype=torch.int8, device=dev)
     if out.numel() > 0:
         _launch_bneck(x, w1, b1, ep1, w2, b2, ep2, shortcut, res_scale, out,
-                      bneck_plan(nb, h, wd, c, cm, o, k, smem_limits(dev)))
+                      bneck_plan(nb, h, wd, c, cm, o, k, smem_limits(dev)),
+                      compute)
         launches["bottleneck_int8_fused"] += 1
     return out
 
 
 def _bneck_args(x, w1, b1, ep1, w2, b2, ep2, shortcut, res_scale, out,
-                plan: "BneckPlan") -> tuple:
+                plan: "BneckPlan", compute: str = "int8") -> tuple:
     """The arguments of ``tat_bneck_int8_fused`` up to the stream."""
     nb, h, wd, c = x.shape
     o, k, _, cm = w2.shape
@@ -1028,25 +1099,28 @@ def _bneck_args(x, w1, b1, ep1, w2, b2, ep2, shortcut, res_scale, out,
             _kernel_act(ep1.act), ep1.inv_out, ep1.alpha,
             _kernel_act(ep2.act), ep2.inv_out, ep2.alpha, int(shortcut),
             _f32(res_scale), plan.tile_h, plan.tile_w, plan.bn,
-            int(plan.resident), plan.tiles_per_block)
+            int(plan.resident), plan.tiles_per_block, _COMPUTE_CODE[compute])
 
 
 def _launch_bneck(x, w1, b1, ep1, w2, b2, ep2, shortcut, res_scale, out,
-                  plan: "BneckPlan") -> None:
+                  plan: "BneckPlan", compute: str = "int8") -> None:
     cuda_build.check(cuda_build.load_library().tat_bneck_int8_fused(
         *_bneck_args(x, w1, b1, ep1, w2, b2, ep2, shortcut, res_scale, out,
-                     plan), _stream(out.device)), "tat_bneck_int8_fused")
+                     plan, compute), _stream(out.device)),
+        "tat_bneck_int8_fused")
 
 
 def sppf_int8_fused(x: torch.Tensor, w: torch.Tensor,
                     bias: Optional[torch.Tensor], ep: Epilogue,
-                    k: int) -> torch.Tensor:
+                    k: int, compute: Optional[str] = None) -> torch.Tensor:
     """SPPF tail in one kernel: x NHWC [N, H, W, C] int8, three chained
     ``k``x``k``/1 maxpools (padding -128), then the 1x1 conv w
     [O, 4C] over ``concat(x, m1, m2, m3)`` and the epilogue -> int8
-    [N, H, W, O]. On a CUDA tensor: the tensor-core kernel
-    ``tat_sppf_int8_fused`` (``csrc/sppf_int8_fused.cu``) with
-    :func:`sppf_plan`; on the CPU the plain version."""
+    [N, H, W, O]; the product ``compute`` (:func:`compute_mode`). On a
+    CUDA tensor: the tensor-core kernel ``tat_sppf_int8_fused``
+    (``csrc/sppf_int8_fused.cu``) with :func:`sppf_plan`; on the CPU the
+    plain version."""
+    compute = compute_mode(compute)
     nb, h, wd, c = x.shape
     o, c4 = w.shape
     if c4 != 4 * c or k % 2 == 0:
@@ -1054,27 +1128,30 @@ def sppf_int8_fused(x: torch.Tensor, w: torch.Tensor,
                          f"{tuple(w.shape)}, k {k}")
     dev = _check_operands(x, w, bias, ep, o)
     if dev.type == "cpu":
-        return sppf_int8_fused_plain(x, w, bias, ep, k)
+        return sppf_int8_fused_plain(x, w, bias, ep, k, compute)
     out = torch.empty((nb, h, wd, o), dtype=torch.int8, device=dev)
     if out.numel() > 0:
         _launch_sppf(x, w, bias, ep, k, out,
-                     sppf_plan(nb, h, wd, c, o, k, smem_limits(dev)))
+                     sppf_plan(nb, h, wd, c, o, k, smem_limits(dev)), compute)
         launches["sppf_int8_fused"] += 1
     return out
 
 
-def _sppf_args(x, w, bias, ep, k, out, plan: "SppfPlan") -> tuple:
+def _sppf_args(x, w, bias, ep, k, out, plan: "SppfPlan",
+               compute: str = "int8") -> tuple:
     """The arguments of ``tat_sppf_int8_fused`` up to the stream."""
     nb, h, wd, c = x.shape
     return (_ptr(x), _ptr(w), _ptr(bias), _ptr(ep.cs), _ptr(out), nb, h, wd,
             c, out.shape[3], k, _kernel_act(ep.act), ep.inv_out, ep.alpha,
-            plan.bm, plan.bn, plan.ck, plan.tiles_per_block)
+            plan.bm, plan.bn, plan.ck, plan.tiles_per_block,
+            _COMPUTE_CODE[compute])
 
 
-def _launch_sppf(x, w, bias, ep, k, out, plan: "SppfPlan") -> None:
+def _launch_sppf(x, w, bias, ep, k, out, plan: "SppfPlan",
+                 compute: str = "int8") -> None:
     cuda_build.check(cuda_build.load_library().tat_sppf_int8_fused(
-        *_sppf_args(x, w, bias, ep, k, out, plan), _stream(out.device)),
-        "tat_sppf_int8_fused")
+        *_sppf_args(x, w, bias, ep, k, out, plan, compute),
+        _stream(out.device)), "tat_sppf_int8_fused")
 
 
 # ---------------------------------------------------------------------------
@@ -1252,14 +1329,16 @@ def bneck_plan(batch: int, h: int, w: int, c: int, cm: int, o: int, k: int,
 
 
 def bneck_occupancy(plan: BneckPlan, c: int, cm: int, k: int, act1: str,
-                    act2: str) -> Tuple[int, int]:
+                    act2: str, compute: str = "int8") -> Tuple[int, int]:
     """``(shared memory bytes, blocks an SM holds)`` of the bottleneck
-    kernel of ``act1`` / ``act2`` with ``plan`` on the current card."""
+    kernel of ``act1`` / ``act2`` and ``compute`` with ``plan`` on the
+    current card."""
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
     cuda_build.check(cuda_build.load_library().tat_bneck_int8_fused_info(
         _kernel_act(act1), _kernel_act(act2), c, cm, k, plan.tile_h,
-        plan.tile_w, plan.bn, int(plan.resident), ctypes.byref(smem),
-        ctypes.byref(blocks)), "tat_bneck_int8_fused_info")
+        plan.tile_w, plan.bn, int(plan.resident), _COMPUTE_CODE[compute],
+        ctypes.byref(smem), ctypes.byref(blocks)),
+        "tat_bneck_int8_fused_info")
     return smem.value, blocks.value
 
 
@@ -1386,13 +1465,14 @@ def sppf_plan(batch: int, h: int, w: int, c: int, o: int, k: int,
 
 
 def sppf_occupancy(plan: SppfPlan, h: int, w: int, c: int, k: int,
-                   act: str) -> Tuple[int, int]:
+                   act: str, compute: str = "int8") -> Tuple[int, int]:
     """``(shared memory bytes, blocks an SM holds)`` of the SPPF kernel of
-    ``act`` with ``plan`` on the current card."""
+    ``act`` and ``compute`` with ``plan`` on the current card."""
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
     cuda_build.check(cuda_build.load_library().tat_sppf_int8_fused_info(
         _kernel_act(act), h, w, c, k, plan.bm, plan.bn, plan.ck,
-        ctypes.byref(smem), ctypes.byref(blocks)), "tat_sppf_int8_fused_info")
+        _COMPUTE_CODE[compute], ctypes.byref(smem), ctypes.byref(blocks)),
+        "tat_sppf_int8_fused_info")
     return smem.value, blocks.value
 
 
@@ -1534,14 +1614,17 @@ def conv2d_int8_fused(
     pads: Tuple[Tuple[int, int], Tuple[int, int]],
     plain: bool = False,
     residual: Optional[torch.Tensor] = None, res_scale: float = 1.0,
+    compute: Optional[str] = None,
 ) -> torch.Tensor:
     """Route an int8 conv to its fused kernel: 1x1 stride-1 unpadded ->
     :func:`matmul_int8_fused`; everything else (any square stride, the
     thin-channel stem included) -> :func:`conv2d_int8_halo_fused`.
-    ``residual`` [N, OH, OW, O] joins the epilogue.
+    ``residual`` [N, OH, OW, O] joins the epilogue; ``compute`` the
+    product (:func:`compute_mode`).
 
     ``plain=True`` takes the plain versions on any device: for checking
     the kernels against them, never on the serving path."""
+    compute = compute_mode(compute)
     n, h, wd, c = x.shape
     o, kh, kw, _ = w.shape
     if dilation != (1, 1):
@@ -1551,9 +1634,10 @@ def conv2d_int8_fused(
         res = residual.reshape(n * h * wd, o) if residual is not None \
             else None
         out = mm(x.reshape(n * h * wd, c), w.reshape(o, c), bias, ep, res,
-                 res_scale)
+                 res_scale, compute=compute)
         return out.reshape(n, h, wd, o)
     if stride[0] != stride[1]:
         raise ValueError("fused conv needs square stride")
     conv = conv2d_int8_halo_fused_plain if plain else conv2d_int8_halo_fused
-    return conv(x, w, bias, ep, out_hw, pads, stride[0], residual, res_scale)
+    return conv(x, w, bias, ep, out_hw, pads, stride[0], residual, res_scale,
+                compute=compute)

@@ -19,6 +19,7 @@ import torch
 from thingino_accel_tpu_torch.ops.quant import (
     RoundMode, clamp_i8, requantize, round_to_int,
 )
+from thingino_accel_tpu_torch.utils import config
 
 
 def _conv_pads(
@@ -439,12 +440,19 @@ def sigmoid(x: torch.Tensor, in_scale: float = 1.0,
 
 
 def silu(x: torch.Tensor, in_scale: float = 1.0, sig_scale: float = 1.0,
-         out_scale: float = 1.0, fuse: bool = True) -> torch.Tensor:
-    """SiLU = x * sigmoid(x). int8, ``fuse=True``: in f32, then x the f32
-    reciprocal of ``out_scale``, PLUS_HALF_TRUNC, clamp. ``fuse=False``:
-    the graphs' two-step dataflow, the sigmoid requantized to
-    ``sig_scale`` first, then :func:`mul_q`."""
+         out_scale: float = 1.0, fuse: bool = True,
+         tanh: Optional[bool] = None) -> torch.Tensor:
+    """SiLU = x * sigmoid(x). Float: in the activation's type; ``tanh``
+    (None: ``TAT_SILU_TANH``, as JAX reads it) takes the sigmoid as
+    ``0.5 * (tanh(x * 0.5) + 1)``, in the order of JAX's expression. int8,
+    ``fuse=True``: in f32, then x the f32 reciprocal of ``out_scale``,
+    PLUS_HALF_TRUNC, clamp. ``fuse=False``: the graphs' two-step dataflow,
+    the sigmoid requantized to ``sig_scale`` first, then :func:`mul_q`."""
     if x.dtype.is_floating_point:
+        if tanh is None:
+            tanh = bool(config.get("TAT_SILU_TANH"))
+        if tanh:
+            return x * (0.5 * (torch.tanh(x * 0.5) + 1.0))
         return x * torch.sigmoid(x)
     if fuse:
         xf = x.to(torch.float32) * float(np.float32(in_scale))

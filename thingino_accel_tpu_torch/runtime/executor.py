@@ -52,6 +52,15 @@ the kernel's epilogue, or for a plain conv as a gather step after it.
 **Fast** (:class:`FastExecutor`): the same lowering over a dequantized
 graph, its float convs in ``compute_dtype``.
 
+The JAX package's ``TAT_*`` modes are resolved once, when an executor is
+built (JAX resolves them at trace time), and no forward reads the
+environment: ``TAT_FAST_SILU`` gives a conv's SILU to the serving kernels
+as SILU_FAST (:func:`kernel_act`; the stem stage keeps the exp SiLU, as
+JAX's XLA stem), ``TAT_SERVING_COMPUTE`` the serving kernels' product
+(int8 or bf16; the KxK convs of the unplanned dispatcher and the stem
+stage stay int8, as JAX's have no such argument), ``TAT_SILU_TANH`` the
+float SiLU (:func:`ops.reference.silu`). No mode changes a route.
+
 Every entry point puts its tensors on ``device``, ``"cuda"`` by default;
 without a CUDA device it raises (``device="cpu"`` runs the plain versions
 on the CPU). Nothing falls back to the CPU.
@@ -78,6 +87,7 @@ from thingino_accel_tpu_torch.ops.quant import RoundMode, clamp_i8, round_to_int
 from thingino_accel_tpu_torch.runtime import planner as P
 from thingino_accel_tpu_torch.runtime.planner import is_int8 as _is_int8
 from thingino_accel_tpu_torch.runtime.planner import pool_pads as _pool_pads
+from thingino_accel_tpu_torch.utils import config
 
 # the ops of JAX's ``_lower_node``, which every tier lowers; any other op
 # raises, as it does there
@@ -241,13 +251,14 @@ def graph_with_params(graph: Graph, np_params: Dict[str, np.ndarray]
 
 
 def apply_fused_act(out: torch.Tensor, act: str, scale: float,
-                    compat: bool = False, alpha: float = 0.01
-                    ) -> torch.Tensor:
+                    compat: bool = False, alpha: float = 0.01,
+                    silu_tanh: Optional[bool] = None) -> torch.Tensor:
     """Port of ``_apply_fused_act``: a conv's activation beyond RELU (which
     the conv applied), ``scale`` being the output's scale: on an int8
     output requantized, on a float one in its type (LEAKY_RELU promotes
-    bf16 to float32, as in JAX). ``compat`` applies none, as the reference
-    runtime. Unknown activations pass through, as in JAX."""
+    bf16 to float32, as in JAX; SILU in :func:`ops.reference.silu`'s
+    ``tanh`` form where ``silu_tanh``). ``compat`` applies none, as the
+    reference runtime. Unknown activations pass through, as in JAX."""
     if act in ("NONE", "RELU") or compat:
         return out
     if out.dtype.is_floating_point:
@@ -256,7 +267,7 @@ def apply_fused_act(out: torch.Tensor, act: str, scale: float,
         if act == "LEAKY_RELU":
             return R.leaky_relu(out, alpha or 0.01)
         if act == "SILU":
-            return R.silu(out)
+            return R.silu(out, tanh=silu_tanh)
         if act == "SIGMOID":
             return torch.sigmoid(out)
         if act == "TANH":
@@ -281,11 +292,21 @@ def apply_fused_act(out: torch.Tensor, act: str, scale: float,
     return out
 
 
-def kernel_act(act: str) -> str:
+def kernel_act(act: str, fast_silu: bool = False) -> str:
     """The activation a serving kernel's epilogue applies for a conv's
-    ``act`` (JAX's ``_kernel_act``): itself where the epilogue has it,
-    else NONE, the act then following the kernel."""
+    ``act`` (JAX's ``_kernel_act``): SILU_FAST for SILU where
+    ``fast_silu`` (``TAT_FAST_SILU``, resolved by the executor), else
+    itself where the epilogue has it, else NONE, the act then following
+    the kernel."""
+    if act == "SILU" and fast_silu:
+        return "SILU_FAST"
     return act if act in FK.ACTS else "NONE"
+
+
+def act_applied(applied: str, act: str) -> bool:
+    """Did a kernel's epilogue (act ``applied``) apply the node's ``act``?
+    (JAX's ``_act_applied``: SILU_FAST is the serving tier's SILU.)"""
+    return applied == act or (applied == "SILU_FAST" and act == "SILU")
 
 
 def clip_q(x: torch.Tensor, lo, hi, in_scale: float) -> torch.Tensor:
@@ -445,6 +466,9 @@ class KernelUnit(_Step):
     mirrors: str
     residual: Optional[str] = None
     act: str = "NONE"
+    # the product (TAT_SERVING_COMPUTE) of a unit whose JAX function takes
+    # one, else the int8 one
+    product: str = "int8"
     is_kernel = True
 
     def compute(self, env, plain=False) -> torch.Tensor:
@@ -461,7 +485,10 @@ class KernelUnit(_Step):
 
 class ConvUnit(KernelUnit):
     """A conv through ``conv2d_int8_fused``: kernel #1 (1x1/s1 unpadded) or
-    #2, with an optional fused residual."""
+    #2, with an optional fused residual. Its product ``compute`` is the
+    executor's where the JAX function it mirrors takes one (the folded
+    conv; the unplanned dispatcher's 1x1), else int8 (the dispatcher's KxK
+    ``conv2d_int8_halo_fused`` and the XLA stem have no such argument)."""
 
     def __init__(self, ex: "Executor", node: Node, out: str,
                  ep: FK.Epilogue, mirrors: str,
@@ -483,6 +510,9 @@ class ConvUnit(KernelUnit):
         self.kind = ("matmul" if a["kernel"] == (1, 1)
                      and self.stride == (1, 1)
                      and self.pads == ((0, 0), (0, 0)) else "conv")
+        self.product = (ex.compute if mirrors == "conv2d_int8_folded" or (
+            mirrors == "conv2d_int8_fused" and self.kind == "matmul")
+            else "int8")
 
     def compute(self, env, plain=False):
         n = self.node
@@ -491,7 +521,7 @@ class ConvUnit(KernelUnit):
         return FK.conv2d_int8_fused(
             env[self.x], env[n.inputs[1]], bias, self.ep, self.out_hw,
             self.stride, self.dilation, self.pads, plain=plain,
-            residual=res, res_scale=self.res_scale)
+            residual=res, res_scale=self.res_scale, compute=self.product)
 
 
 class MultiUnit(KernelUnit):
@@ -502,8 +532,9 @@ class MultiUnit(KernelUnit):
 
     def __init__(self, node: Node, out: str, parts: Sequence[str],
                  widths: Sequence[int], me: FK.MultiEpilogue,
-                 residual: Optional[str] = None, res_scale: float = 1.0):
-        self.node, self.out, self.me = node, out, me
+                 residual: Optional[str] = None, res_scale: float = 1.0,
+                 product: str = "int8"):
+        self.node, self.out, self.me, self.product = node, out, me, product
         self.parts, self.widths = list(parts), list(widths)
         self.residual, self.res_scale = residual, res_scale
         self.reads = tuple(parts) + ((residual,) if residual else ())
@@ -525,8 +556,8 @@ class MultiUnit(KernelUnit):
                else None)
         fn = (FK.matmul_int8_fused_multi_plain if plain
               else FK.matmul_int8_fused_multi)
-        return fn(xs, ws, bias, self.me, res, self.res_scale).reshape(
-            nb, h, w, -1)
+        return fn(xs, ws, bias, self.me, res, self.res_scale,
+                  compute=self.product).reshape(nb, h, w, -1)
 
 
 class BneckUnit(KernelUnit):
@@ -537,8 +568,9 @@ class BneckUnit(KernelUnit):
 
     def __init__(self, conv_a: Node, conv_b: Node, out: str,
                  ep1: FK.Epilogue, ep2: FK.Epilogue, shortcut: bool,
-                 res_scale: float):
+                 res_scale: float, product: str = "int8"):
         self.conv_a, self.conv_b, self.out = conv_a, conv_b, out
+        self.product = product
         self.ep1, self.ep2 = ep1, ep2
         self.shortcut, self.res_scale = shortcut, res_scale
         self.reads = (conv_a.inputs[0],)
@@ -554,7 +586,7 @@ class BneckUnit(KernelUnit):
                   env[a.inputs[2]] if len(a.inputs) > 2 else None, self.ep1,
                   env[b.inputs[1]],
                   env[b.inputs[2]] if len(b.inputs) > 2 else None, self.ep2,
-                  self.shortcut, self.res_scale)
+                  self.shortcut, self.res_scale, compute=self.product)
 
 
 class SppfUnit(KernelUnit):
@@ -563,9 +595,10 @@ class SppfUnit(KernelUnit):
     kind, mirrors = "sppf", "sppf_int8_fused"
 
     def __init__(self, node: Node, out: str, src: str, k: int,
-                 ep: FK.Epilogue):
+                 ep: FK.Epilogue, product: str = "int8"):
         self.node, self.out, self.src, self.k, self.ep = \
             node, out, src, k, ep
+        self.product = product
         self.reads = (src,)
         self.act = ep.act
 
@@ -575,7 +608,7 @@ class SppfUnit(KernelUnit):
         fn = FK.sppf_int8_fused_plain if plain else FK.sppf_int8_fused
         return fn(env[self.src], w.reshape(w.shape[0], -1),
                   env[n.inputs[2]] if len(n.inputs) > 2 else None, self.ep,
-                  self.k)
+                  self.k, compute=self.product)
 
 
 class DwUnit(KernelUnit):
@@ -718,6 +751,10 @@ class Executor:
         self.tables: Dict[str, torch.Tensor] = {}
         self._donated: Optional[List[List[str]]] = None
         self._zeros: Dict[str, torch.Tensor] = {}
+        # the TAT_* modes, resolved once (JAX: at trace time)
+        self.fast_silu = bool(config.get("TAT_FAST_SILU"))
+        self.compute = FK.compute_mode(None)
+        self.silu_tanh = bool(config.get("TAT_SILU_TANH"))
         for node in nodes:
             self._check(node)
         self.conv_weights = conv_weight_names(graph)
@@ -789,11 +826,17 @@ class Executor:
                 else wt.quant.scale)
 
     def conv_epilogue(self, node: Node, in_scale: float,
-                      out_scale: float) -> FK.Epilogue:
+                      out_scale: float, stem: bool = False) -> FK.Epilogue:
+        """The epilogue of ``node``'s kernel: its act as the serving
+        kernels apply it (:func:`kernel_act`), or, for the stem stage
+        (``stem``), as JAX's XLA stem does (the exp SiLU)."""
         a = node.attrs
+        act = kernel_act(a.get("activation", "NONE"),
+                         self.fast_silu and not stem)
+        if self.compat and act not in ("NONE", "RELU"):
+            act = "NONE"   # JAX executor.py:1074-1078: the reference's RELU only
         return FK.epilogue_rows(
-            self.w_scale(node), in_scale, out_scale,
-            kernel_act(a.get("activation", "NONE")),
+            self.w_scale(node), in_scale, out_scale, act,
             self.tensors[node.outputs[0]].shape[3],
             alpha=a.get("alpha", 0.01) or 0.01, device=self.device)
 
@@ -830,7 +873,7 @@ class Executor:
     def act_steps(self, node: Node, applied: str) -> List[_Step]:
         """An :class:`ActStep` where ``node``'s act is not ``applied``."""
         act = node.attrs.get("activation", "NONE")
-        if act == applied or self.table(node) is None:
+        if act_applied(applied, act) or self.table(node) is None:
             return []
         return [ActStep(self, node)]
 
@@ -997,10 +1040,12 @@ class Executor:
         elif op == "SIGMOID":
             out = R.sigmoid(x, scale(node.inputs[0]), scale(out_name))
         elif op == "SILU":
-            out = R.silu(x, scale(node.inputs[0]), out_scale=scale(out_name))
+            out = R.silu(x, scale(node.inputs[0]), out_scale=scale(out_name),
+                         tanh=self.silu_tanh)
         elif op == "SILU_FUSED":
             out = R.silu(x, in_scale=a["in_scale"], sig_scale=a["sig_scale"],
-                         out_scale=a["out_scale"], fuse=True)
+                         out_scale=a["out_scale"], fuse=True,
+                         tanh=self.silu_tanh)
         elif op == "SOFTMAX":
             out = R.softmax(x, axis=int(a.get("axis", -1)),
                             in_scale=scale(node.inputs[0]),
@@ -1123,10 +1168,10 @@ class Executor:
             out = R.conv2d_f32(x, w, bias, out_hw, a["stride"], a["dilation"],
                                pads, relu, self.compute_dtype,
                                self.accum_dtype, groups)
-        if applied == act:
+        if act_applied(applied, act):
             return out
         return apply_fused_act(out, act, self.scale(out_name), self.compat,
-                               a.get("alpha", 0.01) or 0.01)
+                               a.get("alpha", 0.01) or 0.01, self.silu_tanh)
 
 
 class _Scheduler:
@@ -1279,7 +1324,7 @@ class _Scheduler:
     def folded_conv(self, node: Node) -> bool:
         ex, plan, t = self.ex, self.plan, self.t
         a = node.attrs
-        act = kernel_act(a.get("activation", "NONE"))
+        act = kernel_act(a.get("activation", "NONE"), ex.fast_silu)
         out = node.outputs[0]
         src = node.inputs[0]
         s = a["stride"][0]
@@ -1302,11 +1347,14 @@ class _Scheduler:
         k2c = a["kernel"][0] * a["kernel"][1] * cin
         if (out in plan.stem_stage or cin < 16) and k2c <= 1024:
             # the stem stage (727-757): XLA's bf16 conv in JAX, exact,
-            # so kernels #1/#2 here; no residual
+            # so kernels #1/#2 here (the int8 product, the exp SiLU); no
+            # residual
             emit = plan.stem_emit.get(out, "int8")
             if src not in self.qb:
                 self.ensure_logical(src)
-            unit = ConvUnit(ex, node, out, ex.epilogues[out],
+            unit = ConvUnit(ex, node, out,
+                            ex.conv_epilogue(node, ex.scale(src),
+                                             ex.scale(out), stem=True),
                             mirrors="conv2d_int8_stem_fused")
             self.steps.extend([unit] + ex.act_steps(node, unit.act))
             if emit == "qbf16":
@@ -1319,6 +1367,7 @@ class _Scheduler:
 
         # epilogue residual (759-776); the JAX `_act_applied` guard always
         # holds for a planned residual, whose act is NONE, RELU or SILU
+        # (SILU_FAST under TAT_FAST_SILU)
         o_ch = self.c(out)
         store = out
         residual, res_scale = None, 1.0
@@ -1341,13 +1390,14 @@ class _Scheduler:
             ep2 = ex.conv_epilogue(node, ex.scale(src), out_s)
             unit: KernelUnit = BneckUnit(
                 conv_a, node, store, ep1, ep2, residual is not None,
-                FK.res_scale_bneck(ex.scale(x_nm), out_s, act))
+                FK.res_scale_bneck(ex.scale(x_nm), out_s, act), ex.compute)
         elif (src in plan.sppf and a["kernel"] == (1, 1) and s == 1
               and residual is None and f_out == 1):   # SPPF (821-830)
             p_src, pk = plan.sppf[src]
             self.ensure_logical(p_src)
             unit = SppfUnit(node, store, p_src, pk,
-                            ex.conv_epilogue(node, ex.scale(p_src), out_s))
+                            ex.conv_epilogue(node, ex.scale(p_src), out_s),
+                            ex.compute)
         elif (src in plan.virtual_concat and a["kernel"] == (1, 1)
               and s == 1):   # virtual concat (831-908)
             ins = plan.virtual_concat[src]
@@ -1376,7 +1426,8 @@ class _Scheduler:
                 unit = MultiUnit(
                     node, store, ins, [self.c(i) for i in ins], me,
                     residual=residual,
-                    res_scale=FK.res_scale_multi(res_scale, out_s, act))
+                    res_scale=FK.res_scale_multi(res_scale, out_s, act),
+                    product=ex.compute)
         else:   # the ordinary folded conv (909-926)
             g = s * f_out
             if self.rt.get(src, 1) != g:

@@ -9,8 +9,11 @@ fusions on them (a CONCAT whose inputs' folds differ is materialized,
 not fused), so the port must compute the same factors to fuse the same
 ops. What only moves bytes on the TPU (``fold_layout``,
 ``unfold_layout``, ``repack_weights_*``, the ``qbf16x`` stage exit
-behind ``TAT_QBF16_EXIT``) is not ported; ``TAT_STEM_NOGROW`` and
-``TAT_QBF16_EXIT`` take their defaults (grow the stage; no ``qbf16x``).
+behind ``TAT_QBF16_EXIT``) is not ported; ``TAT_QBF16_EXIT`` takes its
+default (no ``qbf16x``). ``TAT_STEM_NOGROW`` is read as JAX reads it,
+when the plan is made: set, the stem stage stops at its seed convs (cin <
+16), and the convs it would grow into take the folded path, which
+changes fold factors and so which fusions run.
 
 The fusions the plan records:
 
@@ -31,6 +34,7 @@ import numpy as np
 
 from thingino_accel_tpu_torch.ir.graph import Node, TensorInfo
 from thingino_accel_tpu_torch.ops import reference as R
+from thingino_accel_tpu_torch.utils import config
 
 FOLD_ELTWISE = ("RELU", "RELU6", "LEAKY_RELU", "SILU", "SILU_FUSED",
                  "SIGMOID", "CLIP")
@@ -115,9 +119,10 @@ def plan_folds(nodes, tensors, graph_outputs) -> FoldPlan:
         return (cin < cin_limit and k[0] * k[1] * cin <= 1024
                 and a.get("activation", "NONE") in _EPILOGUE_ACTS)
 
-    # seed: thin graph-input convs; grow: thin convs consuming the stage
+    # seed: thin graph-input convs; grow: thin convs consuming the stage,
+    # unless TAT_STEM_NOGROW (JAX executor.py:276-283)
     stage = {n.outputs[0] for n in nodes if stage_eligible(n, 16)}
-    grown = True
+    grown = not config.get("TAT_STEM_NOGROW")
     while grown:
         grown = False
         for node in nodes:

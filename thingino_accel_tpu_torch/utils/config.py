@@ -62,3 +62,19 @@ _register("TAT_S2D_DEEP", False, _bool,
           "stage deeper (the stem emits 2x2 space-to-depth layout, the "
           "3x3 s2 downsample becomes 2x2 s1 at 4x the contraction width; "
           "exact; ir.passes.fold_stage2_downsample)")
+_register("TAT_FAST_SILU", False, _bool,
+          "serving tier: rational fast-sigmoid SiLU epilogue "
+          "(|silu err| < 6e-3); default off — Mosaic's exp sigmoid "
+          "measured faster on v5e")
+_register("TAT_SILU_TANH", False, _bool,
+          "fast tier: tanh-form sigmoid in f32/bf16 SiLU "
+          "(no divide in the conv+SiLU fusion)")
+_register("TAT_SERVING_COMPUTE", "int8", str,
+          "serving-tier MXU compute dtype: int8 (exact int32 MACs) | "
+          "bf16 (int8 HBM I/O, in-VMEM cast, f32 accumulation — "
+          "exact while K*K*C <= 1024)")
+_register("TAT_STEM_NOGROW", False, _bool,
+          "serving tier: limit the XLA stem stage to the thin-channel "
+          "seed convs (cin < 16); the convs it would grow into run on "
+          "the folded pallas path instead, so the stage-exit f32 "
+          "accumulator read+quantize happens once, on the stem output")
