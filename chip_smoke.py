@@ -424,6 +424,38 @@ Phases:
    exact tier: #9-#11); a missing file gives NULL and ``tat_last_error``
    names it. The kernels' line: ``abi_launches``, each kernel's launches
    in those two runs.
+23. ``[jit]``: JAX's ``jit`` as CUDA graph capture (``runtime.jit``).
+   Every phase above runs the port's defaults, so its engines' forwards
+   and pipelines replay one CUDA graph a signature after their first call
+   (``EngineOptions().jit``); this phase holds the graph to the eager
+   body it replays: (a) the planned real yolov5n, the planned and the
+   exact zoo yolov5s at 640 and the fast real yolov5n, ``JIT_BATCHES``
+   distinct seeded batches of 16 through the jitted forward and through
+   its eager body: outputs bit for bit, a replay's result unchanged after
+   the next replay, the launch counts of both the census each call (a
+   replay adds the captured call's counts), one graph; ms a forward both
+   ways; (b) both pipeline builders (the serving pipeline of the planned
+   real yolov5n and zoo yolov5s, ``build_e2e_mars_pipeline`` on the zoo
+   yolov5n's [1, N, 85] predictions in the exact tier) on the ``[slice]``
+   frames, and a jitted decode (#8) + NMS on seeded int8 heads that hold
+   detections: detections jitted == eager bit for bit, every replay run
+   under ``torch.cuda.set_sync_debug_mode("error")``, and
+   ``nms_batched`` eagerly under it too (no host sync); (c) the NMS
+   kernel (``csrc/nms_fixpoint.cu``) against its plain loop on
+   ``models.nms_fixtures.seeded_sets`` at K = 128 and 256, 16 frames (a
+   random pool, a chain of depth K, an empty pool, frames converging at
+   different steps): bit for bit, its ms beside the plain loop's and
+   their host syncs, its bound (bytes over 3.35 TB/s, its bit operations
+   over the 67 T/s of the ALUs); (d) ``StreamServer`` at depth 2 over the
+   jitted zoo yolov5s pipeline, each batch's detections equal to it run
+   alone, then the main path's fps and p50/p99 eager and jitted in turns
+   (eager, jit, jit, eager); (e) ``AECModel.run``, ``make_stream_scanner``
+   at S = 1 and 32 and ``AECStream.run``, jitted against eager: masks and
+   state within ``AEC_TOL`` (bit for bit printed), xRT both ways; (f)
+   ``trace_path`` of ``JIT_TRACES`` at ``--jit`` 0 and 1: busy ms, idle
+   share, device ops; (g) the phase's peak device memory. The kernels'
+   line lists the NMS kernel: its launches are ``[slice]``'s (one a
+   batch), its case (c)'s K = 128 random pool.
 
 Each path is run with the launch counters set to 0 just before it and
 read just after. Tolerances (as in ``tests/test_torch_fused_kernels.py``):
@@ -519,6 +551,9 @@ EXACT_ZOO_S = {"matmul_int8_requant": 42, "conv2d_int8_halo": 11,
 # the fast tier's bf16 heads count under the bf16 counter
 DECODE = "decode_and_parse_fused"
 FAST_DECODE = "decode_and_parse_fused_bf16"
+# the NMS fixpoint's kernel (ops.nms_kernel): once a pipeline batch; it
+# replaces no TPU kernel but JAX's device while_loop
+NMS = "nms_fixpoint"
 # the fast tier: its bf16 heads on the card within FAST_HEAD_TOL of the
 # largest |head| of the CPU's float32 forward (8-16 bf16 ulps of it;
 # tests/test_torch_fast.py holds the CPU's bf16 tier within 4 of JAX's),
@@ -601,6 +636,10 @@ KERNEL_INFO.update({
 # E2, the lagged-epilogue conv: off the system's paths, its path is the
 # probe's own table (probes.pipeline.run)
 LAGGED = "conv3x3_lagged"
+KERNEL_INFO[NMS] = {
+    "source": "thingino_accel_tpu_torch/csrc/nms_fixpoint.cu",
+    "replaces": "thingino_accel_tpu/models/yolo.py:875 (no TPU kernel: the "
+                "lax.while_loop of nms_fixed, :854-877)"}
 KERNEL_INFO[LAGGED] = {
     "source": "thingino_accel_tpu_torch/csrc/conv_int8_lagged.cu",
     "replaces": "examples/pipeline_experiment.py:71 lagged (_kernel :44, "
@@ -798,10 +837,12 @@ def reset_launches() -> None:
     from thingino_accel_tpu_torch.ops import fused_kernels as FK
     from thingino_accel_tpu_torch.ops import probe_kernels as PK
     from thingino_accel_tpu_torch.ops import requant_kernels as RK
+    from thingino_accel_tpu_torch.ops import nms_kernel as NK
     FK.reset_launches()
     DK.reset_launches()
     RK.reset_launches()
     PK.reset_launches()
+    NK.reset_launches()
     C.reset_counts()
 
 
@@ -1473,12 +1514,15 @@ def phase_slice(results: dict) -> dict:
             f"failed batches: errors={st.errors}")
     expect_launches(counts, census, BATCHES, "planned real yolov5n",
                     decodes=BATCHES)
+    counts[NMS] = jit_counts()[NMS]
+    require(counts[NMS] == BATCHES, f"{counts[NMS]} NMS kernel launches for "
+                                    f"{BATCHES} batches")
     for name in KERNEL_INFO:
         if PATH_OF[name] == "planned real yolov5n":
             require(counts[name] > 0, f"{name} never launched on the path")
             results[name]["launches"] = counts[name]
     print(f"[slice] launches {counts} (= {BATCHES} x the plan's census, "
-          "one decode per batch)")
+          "one decode and one NMS per batch)")
 
     in_t = eng.graph.tensors[eng.input_names[0]]
     target = (in_t.shape[1], in_t.shape[2])
@@ -3458,7 +3502,7 @@ def phase_streams(zoo_eng) -> dict:
           f"at pool 128 on the zoo yolov5s heads of one batch: {n_topk} "
           f"detections, counts and classes equal, scores within rtol 1e-5, "
           f"boxes within rtol 1e-4 / atol 1e-3; {topk_ms:.4f} ms against "
-          f"{full_ms:.4f} ms (CUDA events, host syncs of the NMS included)")
+          f"{full_ms:.4f} ms (CUDA events)")
 
     # 4. the watchdog on the card
     def wedge(x):
@@ -5619,6 +5663,436 @@ def phase_modes(results: dict) -> dict:
     return res
 
 
+# the [jit] phase: JAX's jit as CUDA graph capture, eager against graph
+JIT_BATCHES = 3      # distinct seeded batches a jitted engine sees: the
+                     # warm-up, the capture's replay and one more replay
+JIT_TRAFFIC = 12     # batches a StreamServer turn of (d) serves
+JIT_AEC_WINDOWS = 32   # windows of (e)'s scanner runs
+JIT_AEC_FRAMES = 64    # spectrogram frames of (e)'s AECModel run, chunks of 8
+JIT_STEP_WINDOWS = 50  # windows of (e)'s AECStream step loop
+JIT_TRACE_BATCHES = 5
+JIT_TRACES = ("serving_yolov5n", "exact_yolov5s", "aec_step")
+NMS_KS = (128, 256)
+# the H100 SXM's rate outside the tensor cores (67 TFLOP/s f32): the NMS
+# kernel's bit operations run on those ALUs
+PEAK_ALU = 67e12
+
+
+def jit_counts() -> dict:
+    """The launch counts, the NMS kernel's with them."""
+    from thingino_accel_tpu_torch.ops import nms_kernel as NK
+    return {**read_launches(), **NK.launches}
+
+
+def same_outputs(got, ref) -> bool:
+    """Two results (dicts of tensors or Detections) equal bit for bit."""
+    import dataclasses
+    import torch
+    if isinstance(ref, dict):
+        return got.keys() == ref.keys() and all(
+            torch.equal(got[k], ref[k]) for k in ref)
+    return all(torch.equal(getattr(got, f.name), getattr(ref, f.name))
+               for f in dataclasses.fields(ref))
+
+
+def jit_engine_case(eng, xs, what: str) -> dict:
+    """(a) for one engine: its jitted forward (``eng._run``, a
+    ``runtime.jit.Jitted``) against its eager body (``eng._run.fn``, what
+    ``jit=False`` runs) on the batches ``xs``: outputs bit for bit, the
+    first replay's outputs unchanged after the next replay, the launches
+    of the calls equal (= the census, each call), one graph captured."""
+    import torch
+    from thingino_accel_tpu_torch.runtime import jit as J
+    require(isinstance(eng._run, J.Jitted), f"[jit] (a) {what}: not jitted")
+    name = eng.input_names[0]
+    census = eng._fn.launch_census()
+    outs, counts = {}, {}
+    for mode, fn in (("eager", eng._run.fn), ("jit", eng._run)):
+        reset_launches()
+        outs[mode] = []
+        for i, x in enumerate(xs):
+            outs[mode].append(fn({name: x}))
+            if mode == "jit" and i == 1:   # the capture's replay, kept
+                torch.cuda.synchronize()
+                kept = {k: v.clone() for k, v in outs[mode][1].items()}
+        torch.cuda.synchronize()
+        counts[mode] = jit_counts()
+    require(eng._run.graphs == 1, f"[jit] (a) {what}: {eng._run.graphs} "
+                                  "graphs for one signature")
+    require(counts["jit"] == counts["eager"],
+            f"[jit] (a) {what}: launches {counts['jit']} jitted, "
+            f"{counts['eager']} eager")
+    require(all(counts["jit"][k] == len(xs) * n for k, n in census.items()),
+            f"[jit] (a) {what}: launches {counts['jit']}, census {census}")
+    for i, (a, b) in enumerate(zip(outs["jit"], outs["eager"])):
+        require(same_outputs(a, b), f"[jit] (a) {what}: batch {i} jitted "
+                                    "differs from eager")
+    require(same_outputs(outs["jit"][1], kept),
+            f"[jit] (a) {what}: a replay's result changed at the next replay")
+    x = xs[-1]
+    ms = {m: time_ms(lambda: f({name: x}), 10)
+          for m, f in (("eager", eng._run.fn), ("jit", eng._run))}
+    launched = {k: v for k, v in counts["jit"].items() if v}
+    print(f"[jit] (a) {what}: {len(xs)} batches of {x.shape[0]}, jitted == "
+          f"eager bit for bit, the replayed batch unchanged by the next "
+          f"replay, launches {launched} both ways (census x {len(xs)}); "
+          f"{ms['eager']:.3f} ms eager, {ms['jit']:.3f} ms jitted a forward "
+          f"(CUDA events)")
+    return {"launches": launched, "ms_eager": ms["eager"],
+            "ms_jit": ms["jit"]}
+
+
+def jit_pipeline_case(pipe, inputs, what: str) -> dict:
+    """(b) for one jitted callable: eager (``pipe.fn``) against jitted on
+    ``inputs`` (each a tuple of arguments), detections bit for bit; the
+    replays (every call after the capture, and the first input again)
+    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    import torch
+    eager = [pipe.fn(*a) for a in inputs]
+    got = [pipe(*a) for a in inputs[:2]]   # the warm-up, the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got += [pipe(*a) for a in inputs[2:] + inputs[:1]]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, eager + eager[:1])):
+        require(same_outputs(a, b), f"[jit] (b) {what}: call {i} jitted "
+                                    "differs from eager")
+    n = sum(int(d.valid.sum()) for d in eager)
+    print(f"[jit] (b) {what}: {len(inputs)} inputs, jitted == eager bit for "
+          f"bit ({n} detections), {len(got) - 2} replays under "
+          "set_sync_debug_mode('error') raised nothing")
+    return {"detections": n, "replays": len(got) - 2}
+
+
+def nms_steps(up) -> list:
+    """Each frame's fixpoint steps (the last one finds no change), in
+    numpy: the work the kernel does on this data."""
+    import numpy as np
+    u = up.cpu().numpy()
+    steps = []
+    for f in u:
+        keep = np.ones(f.shape[0], bool)
+        for s in range(1, f.shape[0] + 1):
+            new = ~(f & keep[:, None]).any(0)
+            if (new == keep).all():
+                break
+            keep = new
+        steps.append(s)
+    return steps
+
+
+def jit_nms_cases(results: dict, dev) -> dict:
+    """(c) the NMS kernel against its plain version on the seeded sets at
+    K = 128 and 256, bit for bit; times, syncs and bound."""
+    import torch
+    from thingino_accel_tpu_torch.models import nms_fixtures as NF
+    from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.ops import nms_kernel as NK
+    out = {}
+    for k in NMS_KS:
+        for name, arrs in NF.seeded_sets(k, BATCH).items():
+            up = Y.suppression_pool(*(torch.from_numpy(a).to(dev)
+                                      for a in arrs), pre_nms=k)[3]
+            with recording(torch, "equal") as eq:
+                plain = NK.nms_fixpoint_plain(up)
+            got = NK.nms_fixpoint(up)
+            torch.cuda.synchronize()
+            require(torch.equal(got, plain),
+                    f"[jit] (c) NMS kernel differs at K={k} {name}")
+            steps = nms_steps(up)
+            case = {"case": f"K={k} {name} B={BATCH}", "max_abs_err": 0,
+                    "syncs_plain": len(eq), "syncs_kernel": 0,
+                    "steps": [min(steps), max(steps)]}
+            if name in ("random", "chain"):
+                words = (k + 31) // 32
+                ops = 2 * k * words * sum(steps)
+                nbytes = up.numel() + got.numel()
+                case["ms"] = time_ms(lambda: NK.nms_fixpoint(up), 20)
+                case["plain_ms"] = time_ms(
+                    lambda: NK.nms_fixpoint_plain(up), 3, warmup=1)
+                case["bound_ms"], case["bound_by"] = bound(ops, nbytes,
+                                                           PEAK_ALU)
+                case["library_ms"] = None
+                results[NMS]["cases"].append(case)
+                print(f"[jit] (c) NMS kernel K={k} {name} B={BATCH}: equal "
+                      f"to the plain loop bit for bit, steps "
+                      f"{min(steps)}-{max(steps)}; kernel {case['ms']:.4f} "
+                      f"ms, 0 host syncs; plain {case['plain_ms']:.4f} ms, "
+                      f"{len(eq)} host syncs; bound {case['bound_ms']:.5f} "
+                      f"ms ({case['bound_by']}), no library call")
+            else:
+                print(f"[jit] (c) NMS kernel K={k} {name} B={BATCH}: equal "
+                      f"to the plain loop bit for bit, steps "
+                      f"{min(steps)}-{max(steps)}, plain {len(eq)} host "
+                      "syncs, kernel 0")
+            out[f"{k}_{name}"] = case
+    return out
+
+
+def serve_rows(pipe, frames, what: str) -> list:
+    """(d): ``pipe`` through ``StreamServer`` at depth 2; each batch's
+    detections equal to the batch run alone, eagerly, afterwards."""
+    import torch
+    from thingino_accel_tpu_torch.runtime.serving import StreamServer
+    server = StreamServer(pipe, depth=2, device="cuda")
+    outs = list(server.run(frames))
+    require(server.stats.errors == 0 and len(outs) == len(frames),
+            f"[jit] (d) {what}: {server.stats.errors} failed batches")
+    for i, (out, f) in enumerate(zip(outs, frames)):
+        ref = pipe.fn(torch.from_numpy(f).cuda())
+        require(same_outputs(out, ref), f"[jit] (d) {what}: batch {i} "
+                                        "served differs from it run alone")
+    return outs
+
+
+def serve_stats(fn, frames) -> dict:
+    from thingino_accel_tpu_torch.runtime.serving import StreamServer
+    server = StreamServer(fn, depth=2, device="cuda")
+    for out in server.run(frames):
+        require(out is not None, "[jit] (d) a batch failed")
+    st = server.stats
+    return {"fps": st.fps, "p50_ms": st.latency_ms(50),
+            "p99_ms": st.latency_ms(99)}
+
+
+def jit_aec(smi: str) -> dict:
+    """(e) the AEC model, its scanner at S = 1 and 32 and the step loop,
+    jitted against eager: masks and state, and xRT."""
+    import tempfile
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch.formats import mgk
+    from thingino_accel_tpu_torch.models import aec
+    from thingino_accel_tpu_torch.models import mgk_fixtures as MF
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(26)
+    res = {}
+    cfg = aec.AECConfig()
+    params = aec.init_params(cfg)
+    spec = torch.from_numpy(np.abs(rng.normal(
+        size=(1, 256, JIT_AEC_FRAMES, 1))).astype(np.float32)).to(dev)
+    runs = {}
+    model = aec.AECModel(cfg, params)
+    jitted = model._fwd
+    for mode in ("eager", "jit"):
+        model._fwd = jitted.fn if mode == "eager" else jitted
+
+        def stream():
+            state, masks = None, []
+            for i in range(0, JIT_AEC_FRAMES, 8):
+                m, state = model.run(spec[:, :, i:i + 8], state)
+                masks.append(m)
+            return torch.cat(masks, 2), state
+        stream()
+        wall = wall_ms(stream, 3) / 1e3
+        runs[mode] = stream() + (JIT_AEC_FRAMES * HOP_S / wall,)
+    (me, se, xe), (mj, sj, xj) = runs["eager"], runs["jit"]
+    err = max(_rel_err(mj, me), _rel_err(sj, se))
+    exact = torch.equal(mj, me) and torch.equal(sj, se)
+    require(err <= AEC_TOL, f"[jit] (e) AECModel jitted {err:.3g} from eager")
+    res["model"] = {"rel_err": err, "bit_for_bit": exact, "xrt_eager": xe,
+                    "xrt_jit": xj}
+    print(f"[jit] (e) AECModel.run at AECConfig(), {JIT_AEC_FRAMES} frames "
+          f"in chunks of 8, state carried: jitted masks and state "
+          f"{'equal to eager bit for bit' if exact else f'within {err:.3g}'}"
+          f" (bound {AEC_TOL}); xRT {xe:.2f} eager, {xj:.2f} jitted ({smi})")
+    with tempfile.TemporaryDirectory() as tmp:
+        Path(f"{tmp}/aec.mgk").write_bytes(MF.build_aec_mgk(0))
+        g = mgk.import_mgk(f"{tmp}/aec.mgk", streaming=True)
+    scanners = {m: aec.make_stream_scanner(g, jit=j)
+                for m, j in (("eager", False), ("jit", True))}
+    W = JIT_AEC_WINDOWS
+    for S in (1, 32):
+        wins = torch.from_numpy(np.abs(rng.normal(
+            size=(W, S, 1, 256, 8))).astype(np.float32)).to(dev)
+        h0 = torch.zeros((S, 1, 64, 32), device=dev)
+        row = {}
+        outs = {}
+        for mode, run in scanners.items():
+            run(h0, wins[:2])    # the jitted step's warm-up and capture
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[mode] = run(h0, wins)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            row[f"xrt_{mode}"] = W * HOP_S / wall
+            row[f"ms_window_{mode}"] = wall / W * 1e3
+        err = _rel_err(outs["jit"], outs["eager"])
+        exact = torch.equal(outs["jit"], outs["eager"])
+        require(err <= AEC_TOL, f"[jit] (e) scanner S={S} jitted {err:.3g} "
+                                "from eager")
+        row.update(rel_err=err, bit_for_bit=exact)
+        res[f"scanner_s{S}"] = row
+        print(f"[jit] (e) make_stream_scanner S={S}, {W} windows: jitted "
+              f"{'== eager bit for bit' if exact else f'within {err:.3g}'}; "
+              f"{row['ms_window_eager']:.3f} ms a window eager (xRT "
+              f"{row['xrt_eager']:.2f} a stream), {row['ms_window_jit']:.3f}"
+              f" ms jitted (xRT {row['xrt_jit']:.2f}, {row['xrt_jit'] * S:.2f}"
+              f" aggregate) ({smi})")
+    win = torch.from_numpy(np.abs(rng.normal(size=(1, 256, 8))).astype(
+        np.float32)).to(dev)
+    steps = {}
+    for mode, jit in (("eager", False), ("jit", True)):
+        stream = aec.AECStream(g, jit=jit)
+        h = stream.init_state()
+        masks = []
+        for _ in range(3):
+            m, h = stream.run(win, h)
+            masks.append(m)
+        t0 = time.perf_counter()
+        for _ in range(JIT_STEP_WINDOWS):
+            _, h = stream.run(win, h)
+        steps[mode] = ((time.perf_counter() - t0) / JIT_STEP_WINDOWS * 1e3,
+                       torch.cat(masks), h)
+    err = max(_rel_err(steps["jit"][1], steps["eager"][1]),
+              _rel_err(steps["jit"][2], steps["eager"][2]))
+    require(err <= AEC_TOL, f"[jit] (e) AECStream jitted {err:.3g} from eager")
+    res["step"] = {"ms_eager": steps["eager"][0], "ms_jit": steps["jit"][0],
+                   "rel_err": err}
+    print(f"[jit] (e) AECStream.run (the step loop, state carried, each run "
+          f"synchronized): {steps['eager'][0]:.3f} ms a window eager (xRT "
+          f"{HOP_S * 1e3 / steps['eager'][0]:.2f}), {steps['jit'][0]:.3f} "
+          f"ms jitted (xRT {HOP_S * 1e3 / steps['jit'][0]:.2f}); states "
+          f"within {err:.3g} ({smi})")
+    return res
+
+
+def phase_jit(results: dict, smi: str) -> dict:
+    """``[jit]`` (phase 23 of the docstring)."""
+    import numpy as np
+    import torch
+    from thingino_accel_tpu_torch import trace_path as TP
+    from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.models import zoo
+    from thingino_accel_tpu_torch.ops import decode_kernel as DK
+    from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
+    from thingino_accel_tpu_torch.runtime.jit import jit
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = {"a": {}, "b": {}}
+    serving = EngineOptions(precision="serving")
+
+    # (a) engines, eager against graph
+    engines = {
+        "planned real yolov5n": Engine.from_yolo_mars(str(MODEL), serving,
+                                                      device=dev),
+        "planned zoo yolov5s 640": Engine(zoo.build_yolov5("s"), serving,
+                                          device=dev),
+        "exact zoo yolov5s 640": Engine(zoo.build_yolov5("s"),
+                                        EngineOptions(precision="exact"),
+                                        device=dev),
+        "fast real yolov5n": Engine(TP.fast_graph("yolov5n"),
+                                    TP.fast_options(), device=dev)}
+    for what, eng in engines.items():
+        t = eng.graph.tensors[eng.input_names[0]]
+        rng = np.random.default_rng(26)
+        dt = torch.bfloat16 if what.startswith("fast") else torch.int8
+        xs = [torch.from_numpy(rng.integers(
+            -128, 128, (BATCH,) + tuple(t.shape[1:]), dtype=np.int8)).to(
+            dev).to(dt) for _ in range(JIT_BATCHES)]
+        res["a"][what] = jit_engine_case(eng, xs, what)
+
+    # (b) the pipelines, jitted against eager, replays without a sync
+    frames = [torch.from_numpy(f).to(dev) for f in frames_of(JIT_BATCHES)]
+    real, zs = engines["planned real yolov5n"], engines[
+        "planned zoo yolov5s 640"]
+    pipes = {"serving pipeline, planned real yolov5n":
+             Y.build_serving_pipeline(real),
+             "serving pipeline, planned zoo yolov5s 640":
+             Y.build_serving_pipeline(zs),
+             "e2e .mars pipeline, exact zoo yolov5n 640 predictions":
+             Y.build_e2e_mars_pipeline(Engine(zoo.with_predictions(
+                 zoo.build_yolov5("n")), device=dev), FRAME_HW)}
+    for what, pipe in pipes.items():
+        res["b"][what] = jit_pipeline_case(pipe, [(f,) for f in frames],
+                                           what)
+    rng = np.random.default_rng(27)
+    head_sets = []
+    for _ in range(JIT_BATCHES):
+        hs = []
+        for hw in (80, 40, 20):
+            h = rng.integers(-3, 4, (BATCH, hw, hw, 3, 85)).astype(
+                np.int8) * 8
+            h[..., 4] = rng.choice([16, 40, 127], (BATCH, hw, hw, 3))
+            hs.append(torch.from_numpy(h.reshape(BATCH, hw, hw, 255)).to(dev))
+        head_sets.append(tuple(hs))
+    post = jit(lambda *hs: Y.nms_batched(
+        *DK.decode_and_parse_fused(list(hs), scales=[0.05] * 3),
+        max_dets=100, pre_nms=128, topk_group=8))
+    res["b"]["decode + NMS, seeded heads"] = jit_pipeline_case(
+        post, head_sets, "decode (#8) + NMS on seeded int8 heads")
+    boxes, scores, classes = DK.decode_and_parse_fused(
+        list(head_sets[0]), scales=[0.05] * 3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        Y.nms_batched(boxes, scores, classes, max_dets=100, pre_nms=128)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("[jit] (b) nms_batched eagerly on the card under "
+          "set_sync_debug_mode('error'): no host sync")
+
+    # (c) the NMS kernel against its plain version
+    res["c"] = jit_nms_cases(results, dev)
+
+    # (d) StreamServer at depth 2, jitted; fps in turns
+    zpipe = pipes["serving pipeline, planned zoo yolov5s 640"]
+    served = serve_rows(zpipe, frames_of(JIT_BATCHES),
+                        "planned zoo yolov5s 640")
+    rpipe = pipes["serving pipeline, planned real yolov5n"]
+    four = frames_of(BATCHES)
+    traffic = [four[i % BATCHES] for i in range(JIT_TRAFFIC)]
+    turns = {"eager": [], "jit": []}
+    for mode in ("eager", "jit", "jit", "eager"):
+        turns[mode].append(serve_stats(rpipe.fn if mode == "eager"
+                                       else rpipe, traffic))
+    res["d"] = {"rows_checked": sum(len(o.valid) for o in served),
+                "turns": turns}
+    print(f"[jit] (d) StreamServer(depth=2) over the jitted zoo yolov5s "
+          f"pipeline: {len(served)} batches, each equal to it run alone "
+          f"({sum(int(o.valid.sum()) for o in served)} detections)")
+    for mode in ("eager", "jit"):
+        t = turns[mode]
+        print(f"[jit] (d) the main path (planned real yolov5n pipeline, "
+              f"{JIT_TRAFFIC} batches of {BATCH} 720p frames, depth 2) "
+              f"{mode}, in turns (eager, jit, jit, eager): fps "
+              f"{t[0]['fps']:.1f} / {t[1]['fps']:.1f}, p50 "
+              f"{t[0]['p50_ms']:.3f} / {t[1]['p50_ms']:.3f} ms, p99 "
+              f"{t[0]['p99_ms']:.3f} / {t[1]['p99_ms']:.3f} ms ({smi})")
+    del engines, pipes, real, zs, zpipe, rpipe, post
+
+    # (e) AEC
+    res["e"] = jit_aec(smi)
+
+    # (f) busy and idle, traced, with and without the graph
+    res["f"] = {}
+    for path in JIT_TRACES:
+        for j in (0, 1):
+            tr = TP.trace(path, JIT_TRACE_BATCHES, BATCH, bool(j))
+            res["f"][f"{path}_jit{j}"] = {
+                k: tr[k] for k in ("wall_ms_per_batch", "busy_ms_per_batch",
+                                   "idle_share", "device_ops_per_batch")}
+            print(f"[jit] (f) trace_path --path {path} --jit {j}: wall "
+                  f"{tr['wall_ms_per_batch']:.3f} ms, busy "
+                  f"{tr['busy_ms_per_batch']:.3f} ms, idle share "
+                  f"{tr['idle_share']:.3f}, {tr['device_ops_per_batch']:.0f}"
+                  f" device ops a {'step' if path in TP.MODEL_PATHS else 'batch'}"
+                  f" ({smi})")
+
+    # (g) peak memory
+    torch.cuda.synchronize()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[jit] (g) peak device memory of the phase "
+          f"{res['peak_gib']:.3f} GiB; phase {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     if not (REPO / "thingino_accel_tpu_torch" / "csrc").is_dir() \
             or not MODEL.exists() or not NANODET.exists():
@@ -5663,6 +6137,7 @@ def main() -> int:
         parallel_res = phase_parallel(results)
         abi_res = phase_abi(results)
         modes_res = phase_modes(results)
+        jit_res = phase_jit(results, smi)
         sass = sass_counts(dump)
     except Exception:
         traceback.print_exc()
@@ -5706,7 +6181,8 @@ def main() -> int:
         "fast": fast_res, "streams": streams_res, "ops": ops_res,
         "onnx": onnx_res, "mgk": mgk_res, "audio": audio_res,
         "jzdl": jzdl_res, "qat": qat_res, "parallel": parallel_res,
-        "abi": abi_res, "mode_kernels": mode_kernels, "modes": modes_res},
+        "abi": abi_res, "mode_kernels": mode_kernels, "modes": modes_res,
+        "jit": jit_res},
         indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -34,14 +34,17 @@ machine lists none) and imports nothing of the JAX package.
   the tiny float convnet with observers, a checkpoint of it, the weights
   written back, ``export_int8``, the ``TAT_*`` registry, ``compiled_stats``
   and ``native``; and ``parallel``: a dp x tp sharded forward and a
-  two-stage ``PipelinedEngine`` over CPU meshes, and the deep s2d fold.
+  two-stage ``PipelinedEngine`` over CPU meshes, and the deep s2d fold;
+  and ``runtime.jit`` (eager on the CPU), the NMS kernel's wrapper on a
+  seeded suppression chain and ``ops``' quantize helpers.
 - No module of the port and no line of ``chip_smoke.py`` holds an
   ``import`` of ``thingino_accel_tpu`` (parsed with ``ast``, so an import
   inside a function counts too); the walk covers the format modules,
   ``models/onnx_fixtures.py`` and ``models/mgk_fixtures.py``,
   ``training/ptq.py``, ``api.py`` and ``ops/image.py``, and the audio,
   AEC, JZDL and person-detector modules and the JZDL fixture, QAT,
-  checkpoints, the utilities and ``native.py``, and ``parallel/``.
+  checkpoints, the utilities and ``native.py``, and ``parallel/``, and
+  ``runtime/jit.py``, ``ops/nms_kernel.py`` and ``models/nms_fixtures.py``.
 - The port's C ABI engine shim (``csrc/tat_engine.cpp`` of the package)
   imports ``thingino_accel_tpu_torch.runtime`` and no module of the JAX
   package.
@@ -376,6 +379,17 @@ SCRIPT = textwrap.dedent("""
     fg2 = zoo.build_yolov5("n", zoo.ZooConfig(in_hw=(64, 64)))
     assert passes.stem_space_to_depth(fg2)
     assert passes.fold_stage2_downsample(fg2)
+    from thingino_accel_tpu_torch.models import nms_fixtures
+    from thingino_accel_tpu_torch.ops import nms_kernel
+    from thingino_accel_tpu_torch.ops import quantize, dequantize
+    from thingino_accel_tpu_torch.runtime.jit import jit
+    assert thingino_accel_tpu_torch.EngineOptions().jit
+    b, sc, cl = nms_fixtures.seeded_sets(128, batch=2)["chain"]
+    up = yolo.suppression_pool(torch.from_numpy(b), torch.from_numpy(sc),
+                               torch.from_numpy(cl), pre_nms=128)[3]
+    assert nms_kernel.nms_fixpoint(up)[:, ::2].all()
+    assert jit(lambda t: {"y": dequantize(quantize(t, 0.5), 0.5)})(
+        torch.ones(3))["y"].tolist() == [1.0] * 3
     assert sys.modules["jax"] is None
     assert sys.modules["thingino_accel_tpu"] is None
     print("ok")
@@ -418,7 +432,9 @@ def test_no_import_of_the_jax_package():
         ("utils", "config.py"), ("utils", "logging.py"),
         ("utils", "timing.py"), ("native.py",),
         ("parallel", "__init__.py"), ("parallel", "mesh.py"),
-        ("parallel", "shard.py"), ("parallel", "pipeline.py"))
+        ("parallel", "shard.py"), ("parallel", "pipeline.py"),
+        ("runtime", "jit.py"), ("ops", "nms_kernel.py"),
+        ("models", "nms_fixtures.py"))
     } <= set(files)
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imports_of(f)

@@ -6,7 +6,8 @@
   times;
 - ``detect``  — YOLO detection on one image: the model's three detect
   heads (or its one predictions output) through the exact tier, the
-  float decode, class-aware NMS, boxes in the image's pixels;
+  float decode, class-aware NMS, boxes in the image's pixels; letterbox
+  to NMS jitted as one call (``runtime.jit``), as JAX's ``@jax.jit``;
 - ``compile`` — ONNX -> `.mars` (``formats.onnx`` then
   ``formats.mars_export``; ``--float32`` folds Q/DQ away, else a QDQ model
   becomes an int8 `.mars`);
@@ -111,6 +112,7 @@ def cmd_detect(args) -> int:
     from thingino_accel_tpu_torch.models import yolo
     from thingino_accel_tpu_torch.runtime import Engine
     from thingino_accel_tpu_torch.runtime.engine import load_graph
+    from thingino_accel_tpu_torch.runtime.jit import jit
 
     g = load_graph(args.model)
     det_outs = yolo.find_detect_outputs(g)
@@ -124,20 +126,26 @@ def cmd_detect(args) -> int:
 
     img = _load_image(args.image)
     frames = torch.from_numpy(np.array(img[None])).to(eng.device)
-    lb = yolo.letterbox_uint8(frames, target)
-    x = (yolo.quantize_input_int8(lb) if is_int8
-         else yolo.normalize_input_f32(lb))
-    feats = eng.forward(x)
-    if det_outs:
-        f32 = [feats[k].to(torch.float32) * float(np.float32(s))
-               for k, s in zip(eng.output_names, scales)]
-        b, s, c = yolo.parse_predictions(yolo.decode_heads(f32), 1.0,
-                                         already_sigmoid=True)
-    else:
-        (o,) = feats.values()
-        b, s, c = yolo.parse_predictions(o, scales[0])
-    dets = yolo.nms_batched(b, s, c, conf_thresh=args.conf,
-                            iou_thresh=args.iou, max_dets=args.max_dets)
+    body, params, in_name = eng._fn, eng.params, eng.input_names[0]
+
+    @jit
+    def pipeline(frames_u8):
+        lb = yolo.letterbox_uint8(frames_u8, target)
+        x = (yolo.quantize_input_int8(lb) if is_int8
+             else yolo.normalize_input_f32(lb))
+        feats = body(params, {in_name: x})
+        if det_outs:
+            f32 = [feats[k].to(torch.float32) * float(np.float32(s))
+                   for k, s in zip(eng.output_names, scales)]
+            b, s, c = yolo.parse_predictions(yolo.decode_heads(f32), 1.0,
+                                             already_sigmoid=True)
+        else:
+            (o,) = feats.values()
+            b, s, c = yolo.parse_predictions(o, scales[0])
+        return yolo.nms_batched(b, s, c, conf_thresh=args.conf,
+                                iou_thresh=args.iou, max_dets=args.max_dets)
+
+    dets = pipeline(frames)
     boxes = yolo.scale_boxes_to_original(dets.boxes, img.shape[:2],
                                          target).cpu().numpy()
     sc, cl, va = (t.cpu().numpy()

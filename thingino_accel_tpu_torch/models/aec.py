@@ -25,6 +25,12 @@ Two ways to run it, as in JAX:
   a step, or many streams at once (``torch.func.vmap`` over the streams,
   as JAX's ``jax.vmap``).
 
+As JAX jits them, :meth:`AECModel.run` replays its :func:`forward`, the
+scanner its vmapped window step, and :class:`AECStream` its engine's
+forward, each as one CUDA graph a signature on the card
+(``runtime.jit``; eager on the CPU, and for the scanner and the stream
+with ``jit=False``).
+
 Everything runs in float32 with TF32 off on the card
 (``ops.reference.no_tf32``). Conv weights are OIHW, activations NCHW
 inside :func:`forward` (H the frequency, W the frames); the masks and
@@ -36,6 +42,7 @@ without a card; ``device="cpu"`` runs on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -43,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from thingino_accel_tpu_torch.ops.reference import no_tf32
+from thingino_accel_tpu_torch.runtime import jit as J
 from thingino_accel_tpu_torch.runtime.executor import resolve_device
 
 Device = Union[torch.device, str]
@@ -276,7 +284,7 @@ def _check_stream_io(graph) -> Tuple[str, str, str, str]:
     return graph.inputs[0], h_in, mask_out, h_out
 
 
-def make_stream_scanner(graph, device: Device = "cuda"
+def make_stream_scanner(graph, device: Device = "cuda", jit: bool = True
                         ) -> Callable[..., torch.Tensor]:
     """Many-stream runner for the DECOMPILED streaming graph
     (``formats.mgk.import_mgk(streaming=True)``) on the port's ``Engine``
@@ -288,7 +296,9 @@ def make_stream_scanner(graph, device: Device = "cuda"
     S streams, as JAX's ``jax.vmap``), a loop over the W windows carrying
     gru1's hidden state (JAX's ``lax.scan``). The decompiled graph is one
     stream: its [1, 64, 32] state is frequency groups, not a batch axis.
-    Matches :class:`AECStream.run` window for window."""
+    Matches :class:`AECStream.run` window for window. With ``jit`` (JAX's
+    ``jax.jit(jax.vmap(...))``) the vmapped step is one CUDA graph on the
+    card, replayed each window after its first call."""
     from thingino_accel_tpu_torch.runtime.engine import Engine
 
     eng = Engine(graph, device=device)
@@ -300,6 +310,8 @@ def make_stream_scanner(graph, device: Device = "cuda"
         return out[mask_out], out[h_out]
 
     vstep = torch.func.vmap(step)
+    if jit:
+        vstep = J.jit(vstep)
 
     def run(h0, windows) -> torch.Tensor:
         h = torch.as_tensor(h0, dtype=torch.float32).to(eng.device)
@@ -373,12 +385,15 @@ def build_aec_graph(weights_blob: bytes = b"", device: Device = "cuda"
 
 class AECModel:
     """Engine-like wrapper: the streaming forward with state, on the
-    device its params are on."""
+    device its params are on, jitted as JAX's (``jax.jit`` of
+    :func:`forward`): one CUDA graph a chunk shape on the card
+    (``self._fwd.fn`` is the eager body)."""
 
     def __init__(self, cfg: AECConfig, params: Dict[str, torch.Tensor]):
         self.cfg = cfg
         self.params = params
         self.device = next(iter(params.values())).device
+        self._fwd = J.jit(functools.partial(forward, params, cfg=cfg))
 
     def run(self, spec, state=None):
         """One chunk ([B, 256, T] or [B, 256, T, 1], numpy or a tensor)
@@ -390,7 +405,7 @@ class AECModel:
         if state is None:
             state = init_state(self.cfg, spec.shape[0], self.device)
         with torch.no_grad():
-            return forward(self.params, spec, state, self.cfg)
+            return self._fwd(spec, state)
 
     # engine-compat introspection used by api.Model
     @property
@@ -409,14 +424,17 @@ class AECStream:
     window and resets per step, matching the reference's behavior.
     Each ``run`` consumes one [B, 256, 8] log1p-magnitude window and
     returns the [B, 256, 2] sigmoid mask for the window's last frame.
+    ``jit``: the engine's (``EngineOptions.jit``).
     """
 
-    def __init__(self, graph, device: Device = "cuda"):
-        from thingino_accel_tpu_torch.runtime.engine import Engine
+    def __init__(self, graph, device: Device = "cuda", jit: bool = True):
+        from thingino_accel_tpu_torch.runtime.engine import (
+            Engine, EngineOptions,
+        )
         self._in, self._h_in, self._mask_out, self._h_out = \
             _check_stream_io(graph)
         self.graph = graph
-        self.engine = Engine(graph, device=device)
+        self.engine = Engine(graph, EngineOptions(jit=jit), device=device)
         self.device = self.engine.device
 
     def init_state(self) -> torch.Tensor:

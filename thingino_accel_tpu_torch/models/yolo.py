@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from thingino_accel_tpu_torch.ops.nms_kernel import nms_fixpoint
+from thingino_accel_tpu_torch.ops.quant import device_constant
 from thingino_accel_tpu_torch.ops.reference import (  # noqa: F401
     resize_axis, resize_taps, resize_window,
 )
@@ -232,8 +234,8 @@ def decode_and_parse(
         sig5 = torch.sigmoid(x5)
         xy = (sig5[..., 0:2] * 2.0 - 0.5 + _grid(h, w, feat.device)) \
             * float(strides[i])
-        anc = torch.as_tensor(anchors[i], dtype=torch.float32,
-                              device=feat.device)
+        anc = device_constant(np.asarray(anchors[i], np.float32),
+                              feat.device)
         wh = torch.square(sig5[..., 2:4] * 2.0) * anc[None, None, :, :]
         obj = sig5[..., 4]
         best_logit, cls = _best_class(x[..., 5:5 + num_classes])
@@ -265,8 +267,7 @@ def decode_head_level(
     sig = torch.sigmoid(x)
     xy = (sig[..., 0:2] * 2.0 - 0.5 + _grid(h, w, feat.device)) \
         * float(stride)
-    anc = torch.as_tensor(np.asarray(anchors, np.float32),
-                          device=feat.device)
+    anc = device_constant(np.asarray(anchors, np.float32), feat.device)
     wh = torch.square(sig[..., 2:4] * 2.0) * anc[None, None, :, :]
     out = torch.cat([xy, wh, sig[..., 4:]], dim=-1)
     return out.reshape(b, h * w * a, 5 + num_classes)
@@ -410,7 +411,7 @@ def detect_postprocess_topk(
     k = min(pre_nms, n)
 
     dev = conf.device
-    tab = {key: torch.from_numpy(v).to(dev) for key, v in make_anchor_tables(
+    tab = {key: device_constant(v, dev) for key, v in make_anchor_tables(
         [(f.shape[1], f.shape[2]) for f in feats], anchors, strides).items()}
     masked = torch.where(conf >= conf_thresh, conf, 0.0)
     top, idx = top_k_grouped(masked, k)
@@ -500,7 +501,7 @@ def top_k_grouped(scores: torch.Tensor, k: int, group: int = 8):
     return v, torch.gather(cidx, -1, j)
 
 
-def nms_batched(
+def suppression_pool(
     boxes_xywh: torch.Tensor,      # [B, N, 4] center format
     scores: torch.Tensor,          # [B, N]
     classes: torch.Tensor,         # [B, N] int32
@@ -510,15 +511,13 @@ def nms_batched(
     class_aware: bool = True,
     pre_nms: int = 256,
     topk_group: int = 8,
-) -> Detections:
-    """Greedy class-aware NMS with static shapes over the batch.
-
-    Suppression runs over the top ``pre_nms`` candidates above
-    ``conf_thresh``. The greedy rule is a fixpoint over the score-sorted
-    KxK overlap relation: keep[j] iff no kept higher-scored i overlaps j.
-    The loop steps the whole batch until no frame changes (at most K
-    steps); a frame at its fixpoint stays there, so this equals the JAX
-    per-frame ``while_loop``."""
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pool :func:`nms_batched` suppresses over: the top K = min(
+    max(pre_nms, max_dets), N) candidates above ``conf_thresh`` by score
+    (boxes xyxy [B, K, 4], scores [B, K], classes [B, K]) and ``up`` [B,
+    K, K] bool, the strictly upper-triangular "i suppresses j" relation
+    (IoU above ``iou_thresh``, same class where ``class_aware``): the
+    input of ``ops.nms_kernel.nms_fixpoint``."""
     bsz = scores.shape[0]
     k = min(max(pre_nms, max_dets), scores.shape[-1])
     masked = torch.where(scores >= conf_thresh, scores, 0.0)
@@ -533,14 +532,35 @@ def nms_batched(
         iou = torch.where(same, iou, 0.0)
     ar = torch.arange(k, device=scores.device)
     up = (iou > iou_thresh) & (ar[:, None] < ar[None, :])  # i suppresses j
+    return top_boxes, top_scores, top_classes, up
 
-    keep = torch.ones((bsz, k), dtype=torch.bool, device=scores.device)
-    for _ in range(k):
-        new = ~torch.any(up & keep[:, :, None], dim=1)
-        if torch.equal(new, keep):
-            break
-        keep = new
-    valid = keep & (top_scores > 0.0)
+
+def nms_batched(
+    boxes_xywh: torch.Tensor,      # [B, N, 4] center format
+    scores: torch.Tensor,          # [B, N]
+    classes: torch.Tensor,         # [B, N] int32
+    conf_thresh: float = 0.25,
+    iou_thresh: float = 0.45,
+    max_dets: int = 100,
+    class_aware: bool = True,
+    pre_nms: int = 256,
+    topk_group: int = 8,
+) -> Detections:
+    """Greedy class-aware NMS with static shapes over the batch.
+
+    Suppression runs over the top ``pre_nms`` candidates above
+    ``conf_thresh`` (:func:`suppression_pool`). The greedy rule is a
+    fixpoint over the score-sorted KxK overlap relation: keep[j] iff no
+    kept higher-scored i overlaps j, JAX's per-frame ``while_loop``: on
+    the card one launch of ``ops.nms_kernel.nms_fixpoint`` (no host
+    sync), on the CPU its plain version, which steps the whole batch
+    until no frame changes."""
+    bsz = scores.shape[0]
+    top_boxes, top_scores, top_classes, up = suppression_pool(
+        boxes_xywh, scores, classes, conf_thresh, iou_thresh, max_dets,
+        class_aware, pre_nms, topk_group)
+    k = up.shape[1]
+    valid = nms_fixpoint(up) & (top_scores > 0.0)
     if k > max_dets:
         # survivors are score-sorted: a top-k over the masked scores keeps
         # the reference's output order
@@ -615,17 +635,20 @@ def scale_boxes_to_original(
     letterboxed_hw: Tuple[int, int] = (640, 640),
 ) -> torch.Tensor:
     """Undo the letterbox: subtract the pad, divide by the scale, clamp
-    to the image."""
+    to the image. The pad and the limits are made on the device once per
+    geometry (:func:`ops.quant.device_constant`)."""
     oh, ow = orig_hw
     th, tw = letterboxed_hw
     scale = min(tw / ow, th / oh)
     px = (tw - ow * scale) / 2.0
     py = (th - oh * scale) / 2.0
     dev = boxes_xyxy.device
-    shift = torch.tensor([px, py, px, py], dtype=torch.float32, device=dev)
-    out = (boxes_xyxy - shift) / float(np.float32(scale))
-    lim = torch.tensor([ow - 1, oh - 1, ow - 1, oh - 1], dtype=torch.float32,
-                       device=dev)
+    shift = device_constant(np.array([px, py, px, py], np.float32), dev)
+    # a divisor on the device: CUDA multiplies by a host scalar's
+    # reciprocal, which differs from the division on rounding ties
+    out = (boxes_xyxy - shift) / device_constant(np.float32(scale), dev)
+    lim = device_constant(np.array([ow - 1, oh - 1, ow - 1, oh - 1],
+                                   np.float32), dev)
     return torch.clamp(out, min=torch.zeros_like(lim), max=lim)
 
 
@@ -653,11 +676,20 @@ def build_serving_pipeline(engine):
 
     The decode is ``ops.decode_kernel.decode_and_parse_fused``: one
     kernel over the three heads on a CUDA device, int8 or bf16, its plain
-    version (:func:`decode_and_parse`) on the CPU."""
-    # imported here: ops.decode_kernel imports this module
+    version (:func:`decode_and_parse`) on the CPU.
+
+    Returns ``runtime.jit.jit(pipeline)``, as JAX's returns
+    ``jax.jit(pipeline)``: the pipeline calls the engine's untraced body
+    (``engine._fn``), so on the card letterbox, quantize, network, decode
+    and NMS are one CUDA graph a batch shape, replayed after its first
+    call; on the CPU it runs eagerly. An engine built with
+    ``EngineOptions(jit=False)`` gets the pipeline eager."""
+    # imported here: ops.decode_kernel imports this module, and the
+    # runtime package imports it through the engine
     from thingino_accel_tpu_torch.ops.decode_kernel import (
         decode_and_parse_fused,
     )
+    from thingino_accel_tpu_torch.runtime.jit import jit
     in_t = engine.graph.tensors[engine.input_names[0]]
     s2d = engine.graph.stem_s2d
     target = (in_t.shape[1] * (1 + s2d), in_t.shape[2] * (1 + s2d))
@@ -667,6 +699,7 @@ def build_serving_pipeline(engine):
               else [h.quant.scale for h in heads])
     dtype = (torch.bfloat16 if engine.options.precision == "fast"
              else torch.int8)
+    forward = _body(engine)
 
     def pipeline(frames_u8: torch.Tensor) -> Detections:
         if s2d and tuple(frames_u8.shape[1:]) == tuple(in_t.shape[1:]):
@@ -674,13 +707,22 @@ def build_serving_pipeline(engine):
         else:
             x = letterbox_uint8(frames_u8, target)
             x = quantize_input_int8(space_to_depth(x) if s2d else x, dtype)
-        feats = engine.forward(x)
+        feats = forward(x)
         boxes, scores, classes = decode_and_parse_fused(
             [feats[k] for k in out_names], scales=scales)
         return nms_batched(boxes, scores, classes, max_dets=100,
                            pre_nms=128, topk_group=8)
 
-    return pipeline
+    return jit(pipeline) if engine.options.jit else pipeline
+
+
+def _body(engine):
+    """``x -> heads``: the engine's untraced forward (``engine._fn`` on its
+    params), the body a pipeline jits whole, as JAX's pipelines call
+    ``engine._fn``."""
+    body, params, name = engine._fn, engine.params, engine.input_names[0]
+    donate = engine.options.donate_inputs
+    return lambda x: body(params, {name: x}, donate=donate)
 
 
 def build_e2e_mars_pipeline(
@@ -695,18 +737,22 @@ def build_e2e_mars_pipeline(
     predictions (the reference's ``mars_yolo_test.c`` flow): letterbox ->
     int8 quantize (an int8 input) or normalize to [0, 1] (a float input)
     -> network -> :func:`parse_predictions` at the output's scale ->
-    :func:`nms_batched` -> :func:`scale_boxes_to_original`."""
+    :func:`nms_batched` -> :func:`scale_boxes_to_original`, jitted whole
+    (``runtime.jit.jit``, JAX's ``jax.jit(pipeline)``) unless the engine's
+    ``jit`` is off: one CUDA graph a batch shape on the card."""
+    from thingino_accel_tpu_torch.runtime.jit import jit
     in_t = engine.graph.tensors[engine.input_names[0]]
     out_name = engine.output_names[0]
     out_t = engine.graph.tensors[out_name]
     target = (in_t.shape[1], in_t.shape[2])
     is_int8 = np.issubdtype(in_t.dtype, np.signedinteger)
     out_scale = out_t.quant.scale
+    forward = _body(engine)
 
     def pipeline(frames_u8: torch.Tensor) -> Detections:
         lb = letterbox_uint8(frames_u8, target)
         x = quantize_input_int8(lb) if is_int8 else normalize_input_f32(lb)
-        preds = engine.forward(x)[out_name]
+        preds = forward(x)[out_name]
         if preds.dim() == 2:
             preds = preds[None]
         boxes, scores, classes = parse_predictions(preds, out_scale)
@@ -716,4 +762,4 @@ def build_e2e_mars_pipeline(
             boxes=scale_boxes_to_original(dets.boxes, frame_hw, target),
             scores=dets.scores, classes=dets.classes, valid=dets.valid)
 
-    return pipeline
+    return jit(pipeline) if engine.options.jit else pipeline

@@ -256,6 +256,31 @@ def build_yolov5(
     return b.finish([h3, h4, h5])
 
 
+def with_predictions(g: Graph, scale: float = 0.25) -> Graph:
+    """A zoo YOLOv5 graph (:func:`build_yolov5`) emitting one [1, N, 85]
+    predictions output, the layout ``models.yolo.build_e2e_mars_pipeline``
+    takes: each detect head RESHAPEd to [1, H*W*3, 85], the three
+    CONCATenated on axis 1, all at ``scale`` (0.25: scores pass the
+    threshold on random weights). Changes ``g`` and returns it."""
+    q = QuantInfo(scale=scale)
+    flat = []
+    for i, o in enumerate(g.outputs):
+        t = g.tensors[o]
+        t.quant = q
+        n = t.shape[1] * t.shape[2] * 3
+        g.tensors[f"pred_{i}"] = TensorInfo(f"pred_{i}", (1, n, 85),
+                                            np.dtype(np.int8), q)
+        g.nodes.append(Node("RESHAPE", [o], [f"pred_{i}"],
+                            {"shape": (1, n, 85)}, name=f"reshape_{i}"))
+        flat.append((f"pred_{i}", n))
+    g.tensors["pred"] = TensorInfo("pred", (1, sum(n for _, n in flat), 85),
+                                   np.dtype(np.int8), q)
+    g.nodes.append(Node("CONCAT", [n for n, _ in flat], ["pred"],
+                        {"axis": 1}, name="concat"))
+    g.outputs = ["pred"]
+    return g
+
+
 # ---------------------------------------------------------------------------
 # NanoDet
 # ---------------------------------------------------------------------------

@@ -29,7 +29,8 @@ SOURCES = ("mm_int8_fused_mma.cu", "conv_int8_fused_mma.cu",
            "bneck_int8_fused.cu",
            "sppf_int8_fused.cu", "dw_int8_fused.cu", "decode_fused.cu",
            "chain_mma.cu", "megakernel_probe.cu",
-           "add_one.cu", "conv_int8_lagged.cu", "conv_int8_requant_mma.cu")
+           "add_one.cu", "conv_int8_lagged.cu", "conv_int8_requant_mma.cu",
+           "nms_fixpoint.cu")
 HEADERS = ("epilogue.cuh", "mma_tile.cuh", "chain_mma.cuh",
            "epilogue_policy.cuh", "conv_mma_core.cuh", "hopper_async.cuh")
 NVCC_FLAGS = (
@@ -130,6 +131,8 @@ _SIGNATURES = {
                                 ctypes.POINTER(_I)),
     # x, out, n, stream
     "tat_add_one": (_P, _P, _L, _P),
+    # up, keep, batch, K, stream
+    "tat_nms_fixpoint": (_P, _P, _I, _I, _P),
     # lag, x, w, bias, cs, out, batch, H, W, C, O, act, inv_out, alpha,
     # bn, stages, blocks, stream
     "tat_conv_int8_lagged": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

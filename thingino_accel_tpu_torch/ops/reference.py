@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from thingino_accel_tpu_torch.ops.quant import (
-    RoundMode, clamp_i8, requantize, round_to_int,
+    RoundMode, clamp_i8, device_constant, requantize, round_to_int,
 )
 from thingino_accel_tpu_torch.utils import config
 
@@ -58,14 +58,15 @@ def _combined_scale(in_scale, w_scale, out_scale, device=None):
     cs = (np.float32(in_scale) * ws) / np.float32(out_scale)
     if cs.ndim == 0:
         return float(cs)
-    return torch.from_numpy(np.array(cs, np.float32)).to(device)
+    return device_constant(cs.astype(np.float32), device)
 
 
 def _fdiv(y: torch.Tensor, s) -> torch.Tensor:
     """``y / float32(s)`` as a true f32 division. The divisor is a 0-dim
     tensor on ``y``'s device: a Python scalar would let CUDA multiply by
-    its reciprocal, which differs from the division on rounding ties."""
-    return y / torch.tensor(np.float32(s), device=y.device)
+    its reciprocal, which differs from the division on rounding ties.
+    It is made once per value and device (:func:`device_constant`)."""
+    return y / device_constant(np.float32(s), y.device)
 
 
 def relu_f(x: torch.Tensor) -> torch.Tensor:
@@ -776,7 +777,7 @@ def resize_axis(x: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
     win = resize_window(n_in, n_out)
     if win is None:
         index, weight = resize_taps(n_in, n_out)
-        idx = torch.from_numpy(index).to(x.device)
+        idx = device_constant(index, x.device)
         taps = [x.index_select(axis, idx[:, t])
                 for t in range(index.shape[1])]
     else:
@@ -793,7 +794,7 @@ def resize_axis(x: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
             view = [slice(None)] * x.dim()
             view[axis] = slice(start, start + s * (n_out - 1) + 1, s)
             taps.append(xp[tuple(view)])
-    wts = torch.from_numpy(weight).to(x.device)
+    wts = device_constant(weight, x.device)
     for t, tap in enumerate(taps):
         torch.addcmul(acc, tap, wts[:, t].view(shape), out=acc)
     return acc

@@ -49,7 +49,7 @@ import torch
 from thingino_accel_tpu_torch.ops import cuda_build
 from thingino_accel_tpu_torch.ops import fused_kernels as FK
 from thingino_accel_tpu_torch.ops import reference as R
-from thingino_accel_tpu_torch.ops.quant import RoundMode
+from thingino_accel_tpu_torch.ops.quant import RoundMode, combined_scale
 
 _ROUND_CODE = {RoundMode.HALF_AWAY: 0, RoundMode.PLUS_HALF_TRUNC: 1}
 
@@ -64,13 +64,6 @@ Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
-
-
-def combined_scale(in_scale: float, w_scale: float, out_scale: float
-                   ) -> float:
-    """``in_scale * w_scale / out_scale`` in numpy f32 (per-tensor)."""
-    return float(np.float32(np.float32(in_scale) * np.float32(w_scale))
-                 / np.float32(out_scale))
 
 
 def route(kernel: Tuple[int, int], stride: Tuple[int, int],

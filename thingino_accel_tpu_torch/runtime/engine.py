@@ -2,7 +2,11 @@
 
 Port of ``thingino_accel_tpu.runtime.engine`` for its three tiers. The
 weights are put on the engine's ``device`` once, ``"cuda"`` unless the
-caller asks for the CPU; each run is eager PyTorch.
+caller asks for the CPU. With ``EngineOptions.jit`` (True, JAX's default)
+:meth:`Engine.run` and :meth:`Engine.forward` go through
+``runtime.jit.jit`` of the executor: on the card one CUDA graph a
+signature, replayed after its first call; on the CPU each run is eager
+PyTorch, as it is everywhere with ``jit=False``.
 ``precision="serving"`` plans, as the JAX package's serving tier does
 (``runtime.planner``): residual adds, concats, SPPF and C3 bottlenecks
 fuse into the kernels of ``ops.fused_kernels``. ``precision="exact"`` is
@@ -16,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -30,6 +35,7 @@ from thingino_accel_tpu_torch.ir.graph import TensorInfo
 from thingino_accel_tpu_torch.runtime.executor import (
     Executor, _torch_dtype, build_executor, prepare_params, resolve_device,
 )
+from thingino_accel_tpu_torch.runtime.jit import jit
 from thingino_accel_tpu_torch.utils import config
 
 
@@ -67,8 +73,13 @@ class EngineOptions:
     caller gives up the tensors it feeds :meth:`Engine.run` and
     :meth:`Engine.forward`, and each graph input leaves the forward's
     tensors after its last reader, so its memory can be reused (JAX's
-    ``donate_argnums``); the outputs are the same. The JAX option ``jit``
-    is not ported (ROADMAP.md A.1)."""
+    ``donate_argnums``); the outputs are the same. ``jit`` (True, JAX's
+    name and default): :meth:`Engine.run` and :meth:`Engine.forward`
+    replay the forward as one CUDA graph a signature on the card
+    (``runtime.jit``), with fresh outputs each call; ``jit=False`` runs
+    every forward eagerly. :meth:`Engine.trace` and :meth:`Engine.capture`
+    stay eager, and the executor (``Engine._fn``) stays the untraced body
+    that pipelines, QAT and the parallel code call."""
 
     precision: str = "exact"
     mode: str = "full"
@@ -82,6 +93,7 @@ class EngineOptions:
     fpn_split: Optional[str] = None
     nchw_io: bool = False
     donate_inputs: bool = False
+    jit: bool = True
 
     def __post_init__(self) -> None:
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
@@ -90,6 +102,19 @@ class EngineOptions:
         if self.accum_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"accum_dtype must be None, torch.float32 or "
                              f"torch.bfloat16, got {self.accum_dtype}")
+
+
+def _forward_of(engine: "Engine"):
+    """``feed -> outputs``: ``engine._fn`` on ``engine.params``, both read
+    at each call (a test may swap the executor), through a weak reference,
+    so that the engine's jitted forward keeps no cycle and its graphs'
+    memory goes with the engine."""
+    ref = weakref.ref(engine)
+
+    def forward(feed: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        eng = ref()
+        return eng._fn(eng.params, feed, donate=eng.options.donate_inputs)
+    return forward
 
 
 def load_graph(src: Union[str, bytes, M.MarsModel]) -> Graph:
@@ -155,6 +180,10 @@ class Engine:
         self.planned = planned and prec == "serving"
         self._fn = self._executor(self.graph)
         self.params = self._fn.device_params(self._np_params)
+        self._run = _forward_of(self)
+        if opts.jit:
+            self._run = jit(self._run, donate_argnums=(
+                (0,) if opts.donate_inputs else ()))
         self._trace_fn: Optional[Executor] = None
         self.inference_count = 0
         self.total_inference_s = 0.0
@@ -237,7 +266,7 @@ class Engine:
         (the device is synchronized)."""
         feed = self._feed(args, inputs)
         t0 = time.perf_counter()
-        out = self._fn(self.params, feed, donate=self.options.donate_inputs)
+        out = self._run(feed)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.total_inference_s += time.perf_counter() - t0
@@ -256,9 +285,8 @@ class Engine:
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The single-input network on an NHWC tensor already on the
-        device, asynchronous on CUDA: the serving pipeline's call."""
-        return self._fn(self.params, {self.graph.inputs[0]: x},
-                        donate=self.options.donate_inputs)
+        device, asynchronous on CUDA."""
+        return self._run({self.graph.inputs[0]: x})
 
     def trace(self, *args: Any, **inputs: Any) -> Dict[str, torch.Tensor]:
         """Run inference returning EVERY activation (name -> tensor), for

@@ -324,11 +324,10 @@ def clip_q(x: torch.Tensor, lo, hi, in_scale: float) -> torch.Tensor:
 
         lo = q(lo) if lo is not None else None
         hi = q(hi) if hi is not None else None
-    if lo is not None:
-        x = torch.maximum(x, torch.tensor(lo, dtype=x.dtype, device=x.device))
-    if hi is not None:
-        x = torch.minimum(x, torch.tensor(hi, dtype=x.dtype, device=x.device))
-    return x
+    if lo is None and hi is None:
+        return x
+    # the bounds as scalars of the kernel, in x's type: no host tensor
+    return torch.clamp(x, min=lo, max=hi)
 
 
 def fake_quant(x: torch.Tensor, scale) -> torch.Tensor:

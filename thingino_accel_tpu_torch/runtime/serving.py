@@ -4,7 +4,10 @@
 Each batch is copied into pinned host memory and sent to the device with
 a non-blocking copy on the current CUDA stream; up to ``depth`` batches
 are in flight, so the host prepares batch N+1 while the device works on
-batch N. A failed batch yields ``None`` and counts in ``stats.errors``.
+batch N. The served function is typically jitted (``runtime.jit``: an
+engine's forward, a pipeline): the copy stays outside its graph, enqueued
+on the current stream before the replay, and a replay returns fresh
+tensors, so a batch's results stay intact while later batches replay. A failed batch yields ``None`` and counts in ``stats.errors``.
 With ``timeout_s`` a drain watchdog raises :class:`InferenceTimeout` for a
 batch the device does not finish in time and marks the server unhealthy.
 :class:`MultiStreamBatcher` interleaves many cameras into fixed batches
@@ -234,7 +237,8 @@ def serve_file_model(model_path: str, batches: Iterable[np.ndarray],
                      ) -> ServingStats:
     """Serve raw input batches through a `.mars` model (its default tier,
     the exact one, as in the JAX package) on ``device`` and return the
-    throughput stats."""
+    throughput stats. The served call is the engine's jitted forward
+    (``EngineOptions().jit``), as JAX's serves ``jax.jit`` of the body."""
     from thingino_accel_tpu_torch.runtime.engine import Engine
 
     eng = Engine.from_mars(model_path, device=device)

@@ -36,13 +36,19 @@ Model paths (no frames: a "batch" is one step, its inputs made from seed
   `.so` (``build_persondet_so(0)``), calibrated on seeded image 1,
   run on seeded image 2.
 
+``--jit 1`` (the default) runs every engine, pipeline and AEC step as
+the port runs them by default, jitted (``runtime.jit``: one CUDA graph a
+call, captured during the warm-up); ``--jit 0`` runs them eagerly
+(``EngineOptions(jit=False)``, ``jit=False`` to the AEC wrappers), one
+host dispatch an op. The person detector is not jitted either way.
+
 After two warm-up batches, ``--batches`` pipeline calls run back to back
 inside the profiler, then the device is synchronized. The wall time is
 the host clock over that window; "busy" is the union of the device
 activity intervals (kernels and copies); the idle share is 1 - busy/wall.
 Prints a summary and the largest device-time entries, and writes them to
-``chiprun_out/trace_path_<path>.json``. It needs a CUDA device and never
-falls back to the CPU.
+``chiprun_out/trace_path_<path>_jit<0|1>.json``. It needs a CUDA device
+and never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -67,12 +73,12 @@ FRAME_HW = (720, 1280)
 FAST_ACCUM = torch.bfloat16
 
 
-def fast_options(accum=FAST_ACCUM):
+def fast_options(accum=FAST_ACCUM, jit: bool = True):
     """The fast paths' ``EngineOptions``: bf16 heads (as the JAX bench,
     ``quantize_outputs=False``), the given accumulation."""
     from thingino_accel_tpu_torch.runtime.engine import EngineOptions
     return EngineOptions(precision="fast", quantize_outputs=False,
-                         accum_dtype=accum)
+                         accum_dtype=accum, jit=jit)
 
 
 def fast_graph(model: str, s2d: bool = True, in_hw=(640, 640)):
@@ -110,43 +116,51 @@ def fast_graph(model: str, s2d: bool = True, in_hw=(640, 640)):
     return g
 
 
-def _engine(path: str):
+def _engine(path: str, jit: bool = True):
     from thingino_accel_tpu_torch.models import zoo
     from thingino_accel_tpu_torch.runtime.engine import Engine, EngineOptions
     if path.startswith("fast_"):
-        return Engine(fast_graph(path[5:]), fast_options(), device="cuda")
+        return Engine(fast_graph(path[5:]), fast_options(jit=jit),
+                      device="cuda")
     if path == "exact_yolov5s":
         return Engine(zoo.build_yolov5("s", zoo.ZooConfig()),
-                      EngineOptions(precision="exact"), device="cuda")
+                      EngineOptions(precision="exact", jit=jit),
+                      device="cuda")
+    serving = EngineOptions(precision="serving", jit=jit)
     if path == "serving_yolov5s":
-        return Engine(zoo.build_yolov5("s", zoo.ZooConfig()),
-                      EngineOptions(precision="serving"), device="cuda")
+        return Engine(zoo.build_yolov5("s", zoo.ZooConfig()), serving,
+                      device="cuda")
     if path == "serving_yolov5n":
         return Engine.from_yolo_mars(
-            str(REPO / "models" / "yolov5n_cal_int8.mars"),
-            EngineOptions(precision="serving"), device="cuda")
+            str(REPO / "models" / "yolov5n_cal_int8.mars"), serving,
+            device="cuda")
     if path == "serving_nanodet":
         return Engine.from_mars(str(REPO / "models" / "nanodet_320.mars"),
-                                EngineOptions(precision="serving"),
-                                device="cuda")
+                                serving, device="cuda")
     raise ValueError(f"unknown path {path!r}")
 
 
 def _pipeline(path: str, eng):
-    """uint8 frames on the card -> the path's outputs."""
+    """uint8 frames on the card -> the path's outputs (jitted whole where
+    the engine is)."""
     from thingino_accel_tpu_torch.models import yolo as Y
+    from thingino_accel_tpu_torch.runtime.jit import jit
     if path != "serving_nanodet":
         return Y.build_serving_pipeline(eng)
     in_t = eng.graph.tensors[eng.input_names[0]]
     target = (in_t.shape[1], in_t.shape[2])
-    return lambda f: eng.forward(Y.quantize_input_int8(
-        Y.letterbox_uint8(f, target)))
+    body, params, name = eng._fn, eng.params, eng.input_names[0]
+
+    def pipe(f):
+        x = Y.quantize_input_int8(Y.letterbox_uint8(f, target))
+        return body(params, {name: x})
+    return jit(pipe) if eng.options.jit else pipe
 
 
 MODEL_PATHS = ("aec_step", "aec_scanner_s1", "aec_scanner_s32", "persondet")
 
 
-def _model_step(path: str):
+def _model_step(path: str, jit: bool = True):
     """One step of a model path (the module docstring), a callable."""
     import tempfile
     from thingino_accel_tpu_torch.formats import jzdl, mgk
@@ -166,7 +180,7 @@ def _model_step(path: str):
         g = mgk.import_mgk(f"{d}/a.mgk", streaming=True)
     rng = np.random.default_rng(0)
     if path == "aec_step":
-        stream = aec.AECStream(g)
+        stream = aec.AECStream(g, jit=jit)
         win = torch.from_numpy(np.abs(rng.normal(size=(1, 256, 8))).astype(
             np.float32)).cuda()
         state = [stream.init_state()]
@@ -175,7 +189,7 @@ def _model_step(path: str):
             _, state[0] = stream.run(win, state[0])
         return step
     streams = int(path.rsplit("_s", 1)[1])
-    run = aec.make_stream_scanner(g)
+    run = aec.make_stream_scanner(g, jit=jit)
     wins = torch.from_numpy(np.abs(rng.normal(
         size=(1, streams, 1, 256, 8))).astype(np.float32)).cuda()
     h0 = torch.zeros((streams, 1, 64, 32), device="cuda")
@@ -197,17 +211,17 @@ def _union_us(intervals) -> float:
     return total
 
 
-def trace(path: str, batches: int, batch: int) -> dict:
+def trace(path: str, batches: int, batch: int, jit: bool = True) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this trace runs on the card only")
     if path in MODEL_PATHS:
-        step = _model_step(path)
+        step = _model_step(path, jit)
         pipe, frames = (lambda _: step()), [None] * batches
     else:
-        pipe = _pipeline(path, _engine(path))
+        pipe = _pipeline(path, _engine(path, jit))
         rng = np.random.default_rng(0)
         frames = [torch.from_numpy(rng.integers(
             0, 256, (batch,) + FRAME_HW + (3,), dtype=np.uint8)).cuda()
@@ -231,7 +245,7 @@ def trace(path: str, batches: int, batch: int) -> dict:
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
     return {
-        "path": path, "batch": batch, "batches": batches,
+        "path": path, "batch": batch, "batches": batches, "jit": jit,
         "device": torch.cuda.get_device_name(0),
         "wall_ms_per_batch": wall_ms / batches,
         "busy_ms_per_batch": busy_ms / batches,
@@ -251,11 +265,15 @@ def main(argv=None) -> int:
                              *MODEL_PATHS])
     ap.add_argument("--batches", type=int, default=5)
     ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--jit", type=int, choices=(0, 1), default=1,
+                    help="1: jitted, one CUDA graph a call (the default); "
+                         "0: eager")
     args = ap.parse_args(argv)
-    res = trace(args.path, args.batches, args.batch)
+    res = trace(args.path, args.batches, args.batch, bool(args.jit))
     unit = ("step" if args.path in MODEL_PATHS
             else f"batch (batch {res['batch']})")
-    print(f"[trace] {res['path']} on {res['device']}, {res['batches']} "
+    print(f"[trace] {res['path']} (jit {args.jit}) on {res['device']}, "
+          f"{res['batches']} "
           f"{unit.split()[0]}s: wall {res['wall_ms_per_batch']:.3f} ms a "
           f"{unit}, device busy {res['busy_ms_per_batch']:.3f} ms, idle "
           f"share {res['idle_share']:.3f}, "
@@ -265,7 +283,8 @@ def main(argv=None) -> int:
               f"{t['calls_per_batch']:6.1f}x  {t['name'][:110]}")
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / f"trace_path_{args.path}.json").write_text(json.dumps(res, indent=1))
+    (out / f"trace_path_{args.path}_jit{args.jit}.json").write_text(
+        json.dumps(res, indent=1))
     return 0
 
 
